@@ -1,0 +1,111 @@
+"""Configuration dataclasses of the main path, without JAX.
+
+Copies of ``tchvp_tpu/config.py``'s ``ResNetAEConfig``,
+``TransformerConfig``, ``VideoModelConfig`` and ``flagship_video_config``
+with identical field names and defaults (``tests/test_torch_config.py``
+holds them equal), so a configuration means the same model in both
+packages. The mesh-axis fields (``tp_axis``, ``sp_axis``, ``seq_axis``,
+``ep_axis``) are kept for that equality; the port does not run them yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNetAEConfig:
+    """ResNet-bottleneck AE family (``Encoder32K`` / ``Decoder32K``).
+
+    ``output_type`` switches the decoder head: "image" -> 3ch+ReLU,
+    "mask" -> 1ch+sigmoid. ``token_latent`` reshapes the latent map to the
+    (B, 8, H'*W') token sequence.
+    """
+
+    layers: Sequence[int] = (3, 4)
+    stem_features: int = 64
+    squeeze_features: Sequence[int] = (128, 64, 16, 8)
+    output_type: str = "image"
+    dropout_rate: float = 0.3
+    token_latent: bool = False
+    vae: bool = False
+    tp_axis: Optional[str] = None
+    sp_axis: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """Temporal transformer. ``relu_qkv``: ReLU on projected q/k/v;
+    ``scale_out``: x sqrt(0.5) per layer; dropout is off in eval."""
+
+    input_dim: int = 4096
+    hidden_dim: int = 2048
+    num_layers: int = 2
+    num_heads: int = 8
+    dropout_rate: float = 0.1
+    relu_qkv: bool = True
+    scale_out: bool = True
+    attn_impl: str = "xla"  # "xla" | "flash" | "windowed" | "auto" | "ring"
+    window_size: int = 0  # 0 = full attention; >0 = overlapping windows
+    tp_axis: Optional[str] = None
+    seq_axis: Optional[str] = None
+    num_experts: int = 0
+    expert_capacity_factor: float = 1.25
+    router_top_k: int = 1
+    ep_axis: Optional[str] = None
+
+
+def flagship_video_config(
+    image_size: int = 224,
+    num_heads: int = 8,
+    hidden_dim: int = 2048,
+    num_layers: int = 2,
+    attn_impl: str = "xla",
+    window_size: int = 0,
+    num_experts: int = 0,
+    router_top_k: int = 1,
+    ep_axis: Optional[str] = None,
+    seq_axis: Optional[str] = None,
+    tp_axis: Optional[str] = None,
+    sp_axis: Optional[str] = None,
+) -> "VideoModelConfig":
+    """The flagship: per-frame CNN encoder -> temporal transformer ->
+    decoder. The token embedding dim is the flattened latent map,
+    (image_size/4)^2."""
+    d = (image_size // 4) ** 2
+    if d % num_heads:
+        raise ValueError(f"latent dim {d} not divisible by {num_heads} heads")
+    return VideoModelConfig(
+        encoder=ResNetAEConfig(
+            token_latent=True, tp_axis=tp_axis, sp_axis=sp_axis
+        ),
+        temporal=TransformerConfig(
+            input_dim=d,
+            hidden_dim=hidden_dim,
+            num_layers=num_layers,
+            num_heads=num_heads,
+            attn_impl=attn_impl,
+            window_size=window_size,
+            num_experts=num_experts,
+            router_top_k=router_top_k,
+            ep_axis=ep_axis,
+            seq_axis=seq_axis,
+            tp_axis=tp_axis,
+        )
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class VideoModelConfig:
+    """Flagship video pipeline: CNN encoder -> temporal transformer -> decoder."""
+
+    encoder: ResNetAEConfig = dataclasses.field(
+        default_factory=lambda: ResNetAEConfig(token_latent=True)
+    )
+    temporal: TransformerConfig = dataclasses.field(
+        default_factory=TransformerConfig
+    )
+    output_type: str = "image"
+    use_posenc: bool = True
+    tokens_per_frame: int = 8  # latent channels become tokens
