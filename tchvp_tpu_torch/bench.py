@@ -20,7 +20,7 @@ import os
 import statistics
 import sys
 import time
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
@@ -91,16 +91,11 @@ def stage_ms(model: VideoHybridNet, clip_u8: torch.Tensor, size: int,
     return totals
 
 
-def profile_kernels(model: VideoHybridNet, clip_u8: torch.Tensor, size: int,
-                    dtype: torch.dtype, iters: int = 3, top: int = 15) -> Dict[str, object]:
-    """torch.profiler over ``iters`` forwards: device busy time against the
-    wall time of the same window, and the kernels with the most device
-    time (ms per forward)."""
+def profile_window(run: Callable[[], None], iters: int = 3, top: int = 15) -> Dict[str, object]:
+    """torch.profiler over ``iters`` calls of ``run`` (after one warm-up
+    call): device busy time against the wall time of the same window, and
+    the kernels with the most device time, per call."""
     from torch.profiler import ProfilerActivity, profile
-
-    def run() -> None:
-        with torch.inference_mode():
-            model(preprocess_clip(clip_u8, size, dtype=dtype))
 
     run()
     torch.cuda.synchronize()
@@ -114,13 +109,24 @@ def profile_kernels(model: VideoHybridNet, clip_u8: torch.Tensor, size: int,
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1000.0
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     return {
-        "wall_ms_per_forward": wall_ms / iters,
-        "device_busy_ms_per_forward": busy_ms / iters,
+        "wall_ms_per_call": wall_ms / iters,
+        "device_busy_ms_per_call": busy_ms / iters,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "top_kernels_ms_per_forward": [
+        "top_kernels_ms_per_call": [
             [e.key[:90], e.self_device_time_total / 1000.0 / iters, e.count // iters] for e in kernels[:top]
         ],
     }
+
+
+def profile_kernels(model: VideoHybridNet, clip_u8: torch.Tensor, size: int,
+                    dtype: torch.dtype, iters: int = 3, top: int = 15) -> Dict[str, object]:
+    """:func:`profile_window` over ``iters`` forwards (preprocess + model)."""
+
+    def run() -> None:
+        with torch.inference_mode():
+            model(preprocess_clip(clip_u8, size, dtype=dtype))
+
+    return profile_window(run, iters, top)
 
 
 def main() -> None:

@@ -1,17 +1,18 @@
 """Configuration dataclasses of the main path, without JAX.
 
 Copies of ``tchvp_tpu/config.py``'s ``ResNetAEConfig``,
-``TransformerConfig``, ``VideoModelConfig`` and ``flagship_video_config``
-with identical field names and defaults (``tests/test_torch_config.py``
-holds them equal), so a configuration means the same model in both
-packages. The mesh-axis fields (``tp_axis``, ``sp_axis``, ``seq_axis``,
-``ep_axis``) are kept for that equality; the port does not run them yet.
+``TransformerConfig``, ``VideoModelConfig``, ``flagship_video_config``,
+``AugmentConfig`` and ``TrainConfig`` with identical field names and
+defaults (``tests/test_torch_config.py`` holds them equal), so a
+configuration means the same model and run in both packages. The mesh-axis
+fields (``tp_axis``, ``sp_axis``, ``seq_axis``, ``ep_axis``,
+``mesh_axes``) are kept for that equality; the port does not run them yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,3 +110,54 @@ class VideoModelConfig:
     output_type: str = "image"
     use_posenc: bool = True
     tokens_per_frame: int = 8  # latent channels become tokens
+
+
+@dataclasses.dataclass(frozen=True)
+class AugmentConfig:
+    """Denoising-AE augmentations. The beyond-reference suite (rot90, crop,
+    jitter) is off by default; the port runs only the default."""
+
+    hflip_prob: float = 0.5
+    noise_prob: float = 0.2
+    noise_std: float = 0.05
+    max_blackout_patches: int = 3
+    blackout_size: int = 16
+    test_blackout_size: int = 32
+    rot90_prob: float = 0.0
+    crop_prob: float = 0.0
+    crop_frac: float = 0.875
+    jitter_prob: float = 0.0
+    jitter_strength: float = 0.2
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training run settings (optimizer, loss, schedule, checkpoints)."""
+
+    epochs: int = 250
+    lr: float = 1e-3
+    weight_decay: float = 0.01
+    optimizer: str = "adamw"  # "adamw" | "adam" | "sgd" | "lion"
+    batch_size: int = 64
+    loss: str = "mixed"  # "mixed" | "dice" | "mse"
+    mixed_alpha: float = 0.5
+    mixed_beta: float = 0.5
+    mixed_data_range: float = 1.0
+    checkpoint_dir: str = "checkpoints"
+    log_dir: str = "runs"
+    sample_dir: str = "saved_samples"
+    model_name: str = "IMAGE2IMAGE"
+    save_every: int = 5
+    seed: int = 0
+    mesh_axes: Tuple[str, ...] = ("data",)
+    sync_batch_norm: bool = True
+    dtype: str = "bfloat16"
+    moe_aux_weight: float = 0.0
+    schedule: Optional[str] = None  # None/"constant" | "cosine"
+    warmup_steps: int = 0
+    total_steps: int = 0
+    min_lr_ratio: float = 0.0
+    ema_decay: float = 0.0
+    async_checkpoint: bool = False
+    keep_checkpoints: int = 0
+    device_prefetch: int = 0

@@ -2,10 +2,12 @@
 
 Each library is compiled by ``nvcc`` in a subprocess into
 ``tchvp_tpu_torch/_build/<name>-<hash>/`` (listed in ``.gitignore``), where
-the hash covers the sources and the flags, and is bound through ``ctypes``
-to a plain ``extern "C"`` launcher. This needs neither ``ninja`` nor
-PyTorch's headers, so a build takes seconds. A missing ``nvcc`` or a
-failed build raises: nothing falls back to a plain version.
+the hash covers the sources, the shared headers (``csrc/*.cuh``) and the
+flags, and is bound through ``ctypes`` to a plain ``extern "C"`` launcher.
+This needs neither ``ninja`` nor PyTorch's headers, so a build takes
+seconds; :func:`load_all` runs one ``nvcc`` per library, all at once. A
+missing ``nvcc`` or a failed build raises: nothing falls back to a plain
+version.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -28,7 +31,8 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
+_locks_guard = threading.Lock()
 # Seconds each library took to build in this process (0.0 when it came
 # from the cache directory), and the compiler's resource report.
 build_seconds: Dict[str, float] = {}
@@ -49,12 +53,14 @@ def nvcc_path() -> str:
 def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Compile ``csrc/<sources>`` into ``lib<name>.so`` (once per content
     hash) and return the loaded library."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         paths = [CSRC / s for s in sources]
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in paths:
+        for p in paths + sorted(CSRC.glob("*.cuh")):
             digest.update(p.read_bytes())
         out_dir = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}"
         lib_path = out_dir / f"lib{name}.so"
@@ -74,3 +80,10 @@ def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         build_log[name] = log_path.read_text() if log_path.exists() else ""
         _libs[name] = ctypes.CDLL(str(lib_path))
         return _libs[name]
+
+
+def load_all(libraries: Mapping[str, Sequence[str]]) -> Dict[str, ctypes.CDLL]:
+    """:func:`load` every ``{name: sources}`` at once, one ``nvcc`` each."""
+    with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
+        futures = {name: pool.submit(load, name, srcs) for name, srcs in libraries.items()}
+        return {name: f.result() for name, f in futures.items()}

@@ -31,11 +31,15 @@
 // ~1.7 us of bf16 tensor-core work. This first version does the products
 // on the fp32 CUDA cores and runs far above that bound (PERF.md); the
 // tensor-core (wgmma) and TMA version is later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
+
+using tchvp::from_f32;
+using tchvp::kNegInf;
+using tchvp::to_f32;
+using tchvp::warp_max;
+using tchvp::warp_sum;
 
 constexpr int kBlockQ = 16;
 constexpr int kBlockK = 32;  // one warp wide: one lane per key column
@@ -44,42 +48,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kKeysPerWarp = kBlockK / kWarps;  // 4
 constexpr int kRowsPerWarp = kBlockQ / kWarps;  // 2
 constexpr int kMaxChunks = 5;                   // Dh <= 1280
-constexpr float kNegInf = -1e30f;               // the TPU kernel's NEG_INF
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// _squirrel3 of flash_attention.py: uint32 arithmetic wraps as on the TPU.
-__device__ __forceinline__ uint32_t squirrel3(uint32_t x) {
-  x *= 0xB5297A4Du;
-  x ^= x >> 8;
-  x += 0x68E31DA4u;
-  x ^= x << 8;
-  x *= 0x1B56C4E9u;
-  x ^= x >> 8;
-  return x;
-}
 
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
@@ -87,7 +55,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int seq_len, int head_dim,
                  float scale, int dropout, float keep_prob,
-                 uint32_t drop_threshold, uint32_t seed) {
+                 uint32_t drop_threshold, const int* __restrict__ seed) {
   extern __shared__ float smem[];
   float* q_s = smem;                      // [kBlockQ][head_dim]
   float* p_s = q_s + kBlockQ * head_dim;  // [kBlockQ][kBlockK]
@@ -119,7 +87,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kBlockQ; ++r)
 #pragma unroll
     for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  const uint32_t hash_base = seed * 0x9E3779B1u + (uint32_t)bh * 0x85EBCA77u;
+  const uint32_t hash_base = dropout ? tchvp::dropout_base(seed, bh) : 0u;
   __syncthreads();
 
   for (int k0 = 0; k0 < seq_len; k0 += kBlockK) {
@@ -164,9 +132,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = expf(m_prev - m_new);
       const float sum = warp_sum(p);  // l takes the undropped sum
       if (dropout) {
-        uint32_t h = squirrel3((uint32_t)(q0 + r) ^ hash_base);
-        h = squirrel3(h + (uint32_t)(k0 + lane) * 0x27D4EB2Fu);
-        p = (h >= drop_threshold) ? p / keep_prob : 0.f;
+        p = tchvp::keep_element(hash_base, q0 + r, k0 + lane, drop_threshold) ? p / keep_prob : 0.f;
       }
       p_s[r * kBlockK + lane] = p;
       __syncwarp();
@@ -221,15 +187,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int NC>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* lse,
                    int batch_heads, int seq_len, int head_dim, float scale,
-                   float dropout_rate, uint32_t drop_threshold, uint32_t seed,
+                   float dropout_rate, uint32_t drop_threshold, const int* seed,
                    cudaStream_t stream) {
   const size_t smem = (size_t)(kBlockQ * head_dim + kBlockQ * kBlockK + 3 * kBlockQ) * sizeof(float);
   auto kernel = flash_fwd_kernel<T, NC>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = tchvp::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((seq_len + kBlockQ - 1) / kBlockQ, batch_heads);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -241,7 +204,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, void*
 template <typename T>
 cudaError_t dispatch(int chunks, const void* q, const void* k, const void* v, void* out,
                      void* lse, int batch_heads, int seq_len, int head_dim, float scale,
-                     float dropout_rate, uint32_t drop_threshold, uint32_t seed,
+                     float dropout_rate, uint32_t drop_threshold, const int* seed,
                      cudaStream_t stream) {
 #define TCHVP_LAUNCH(NC)                                                              \
   case NC:                                                                          \
@@ -264,13 +227,15 @@ cudaError_t dispatch(int chunks, const void* q, const void* k, const void* v, vo
 extern "C" {
 
 // q, k, v, out: (batch_heads, seq_len, head_dim) contiguous, fp32 (is_bf16 0)
-// or bf16 (is_bf16 1); lse: (batch_heads, seq_len) fp32. Returns the
-// cudaError_t of the launch (0 on success); never synchronises.
+// or bf16 (is_bf16 1); lse: (batch_heads, seq_len) fp32; seed: (1,) int32 on
+// the device, read only when dropout_rate > 0 (may be null otherwise).
+// Returns the cudaError_t of the launch (0 on success); never synchronises.
 int tchvp_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                     int batch_heads, int seq_len, int head_dim, int is_bf16,
                     float scale, float dropout_rate, unsigned int drop_threshold,
-                    unsigned int seed, void* stream) {
-  if (batch_heads < 1 || batch_heads > 65535 || seq_len < 1 || head_dim < 1)
+                    const void* seed, void* stream) {
+  if (batch_heads < 1 || batch_heads > 65535 || seq_len < 1 || head_dim < 1 ||
+      (dropout_rate > 0.f && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   const int chunks = (head_dim + kThreads - 1) / kThreads;
   if (chunks > kMaxChunks) return (int)cudaErrorInvalidValue;
@@ -278,9 +243,10 @@ int tchvp_flash_fwd(const void* q, const void* k, const void* v, void* out, void
   if (is_bf16)
     return (int)dispatch<__nv_bfloat16>(chunks, q, k, v, out, lse, batch_heads, seq_len,
                                         head_dim, scale, dropout_rate, drop_threshold,
-                                        seed, s);
+                                        static_cast<const int*>(seed), s);
   return (int)dispatch<float>(chunks, q, k, v, out, lse, batch_heads, seq_len, head_dim,
-                              scale, dropout_rate, drop_threshold, seed, s);
+                              scale, dropout_rate, drop_threshold,
+                              static_cast<const int*>(seed), s);
 }
 
 const char* tchvp_cuda_error_string(int code) {

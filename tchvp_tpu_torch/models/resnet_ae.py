@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 
 from tchvp_tpu_torch.config import ResNetAEConfig
-from tchvp_tpu_torch.ops.blocks import BatchNorm, Bottleneck, conv, dropout
+from tchvp_tpu_torch.ops.blocks import BatchNorm, Bottleneck, conv, draw_keep, dropout
 
 
 class Encoder32K(nn.Module):
@@ -24,6 +24,8 @@ class Encoder32K(nn.Module):
     7x7/s2 stem with a symmetric (3, 3) pad, Bottleneck stages (the second
     at stride 2), then a conv-BN-ReLU squeeze chain whose last stage keeps
     its ReLU. Dropout2d (whole channels) acts in train mode only.
+    BatchNorm in train mode normalises with batch statistics and moves its
+    running stats as flax does (:class:`~tchvp_tpu_torch.ops.blocks.BatchNorm`).
     """
 
     def __init__(self, config: ResNetAEConfig = ResNetAEConfig()):
@@ -49,11 +51,25 @@ class Encoder32K(nn.Module):
             ch = feat
         self.squeeze = nn.Sequential(*squeeze)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def draw_dropout(self, n: int, generator: Optional[torch.Generator],
+                     device: torch.device) -> Optional[torch.Tensor]:
+        """The train-mode Dropout2d keep mask of ``n`` frames, (n, C, 1, 1),
+        from ``generator``; None when the rate is 0."""
+        if self.config.dropout_rate <= 0.0:
+            return None
+        c = self.config.squeeze_features[-1]
+        return draw_keep((n, c, 1, 1), self.config.dropout_rate, generator, device)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``keep`` (train mode): the Dropout2d mask drawn beforehand
+        (:meth:`draw_dropout`); without it the pass draws from ``generator``."""
         h = torch.relu(self.stem_bn(self.stem_conv(x)))
         h = self.squeeze(self.blocks(h))
         if self.training and self.config.dropout_rate > 0.0:
-            h = dropout(h, self.config.dropout_rate, generator, (h.shape[0], h.shape[1], 1, 1))
+            if keep is None:
+                keep = self.draw_dropout(h.shape[0], generator, h.device)
+            h = dropout(h, self.config.dropout_rate, None, keep=keep)
         return h
 
 

@@ -6,23 +6,48 @@ reference's structure: separate q/k/v/out projections, ReLU on the
 projected q/k/v (``relu_qkv``), a 1/sqrt(d) scale over the FULL model dim,
 one LayerNorm per layer applied to both branch outputs before their
 residual adds (``x = x + LN(branch(x))``), the x sqrt(0.5) output scale
-and the trailing dropout. Dropout acts in train mode only and draws from
-the caller's ``torch.Generator``.
+(its constant rounded to the activations' dtype first, as JAX does) and
+the trailing dropout. Dropout acts in train mode only; its randomness is
+drawn from the caller's ``torch.Generator`` up front
+(:meth:`TransformerEncoder.draw_dropout`), so a recompute under
+``torch.utils.checkpoint`` applies the same masks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
 
 from tchvp_tpu_torch.config import TransformerConfig
-from tchvp_tpu_torch.ops.attention import multi_head_attention
-from tchvp_tpu_torch.ops.blocks import dropout
+from tchvp_tpu_torch.ops.attention import (
+    draw_attention_dropout,
+    multi_head_attention,
+    resolve_impl,
+    uses_flash_core,
+)
+from tchvp_tpu_torch.ops.blocks import draw_keep, dropout
 
 LN_EPS = 1e-5
+
+
+def scale_out(x: torch.Tensor) -> torch.Tensor:
+    """``x * sqrt(0.5)`` with the constant first rounded to x's dtype
+    (0.70703125 in bf16), as ``jnp.asarray(math.sqrt(0.5), x.dtype)``."""
+    return x * torch.tensor(math.sqrt(0.5), dtype=x.dtype).item()
+
+
+@dataclasses.dataclass
+class TransformerDraws:
+    """One train-mode pass's dropout randomness, per layer: the attention
+    draw (a flash seed or a dense keep mask) and the keep mask of the
+    trailing dropout; None where that dropout is off."""
+
+    attention: List[Optional[torch.Tensor]]
+    layer_keep: List[Optional[torch.Tensor]]
 
 
 class TokenMultiheadAttention(nn.Module):
@@ -46,7 +71,8 @@ class TokenMultiheadAttention(nn.Module):
         self.out_linear = nn.Linear(dim, dim)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                dropout_draw: Optional[torch.Tensor] = None) -> torch.Tensor:
         d = x.shape[-1]
         q, k, v = self.q_linear(x), self.k_linear(x), self.v_linear(x)
         if self.relu_qkv:
@@ -64,6 +90,7 @@ class TokenMultiheadAttention(nn.Module):
             generator=generator,
             deterministic=not self.training,
             seq_axis=self.seq_axis,
+            dropout_draw=dropout_draw,
         )
         return self.out_linear(out)
 
@@ -100,16 +127,41 @@ class TransformerEncoder(nn.Module):
         self.config = config
         self.layers = nn.ModuleList(TransformerLayer(config) for _ in range(config.num_layers))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def draw_dropout(self, x_shape: torch.Size, generator: Optional[torch.Generator],
+                     device: torch.device, has_mask: bool = False) -> TransformerDraws:
+        """The train-mode dropout randomness of one pass over (B, S, D)
+        tokens, drawn from ``generator`` in layer order."""
         cfg = self.config
         rate = cfg.dropout_rate
-        for layer in self.layers:
-            x = x + layer.norm(layer.attention(x, mask=mask, generator=generator))
+        n = cfg.num_layers
+        if rate <= 0.0:
+            return TransformerDraws([None] * n, [None] * n)
+        b, s, d = x_shape
+        impl = resolve_impl(cfg.attn_impl, device.type == "cuda", has_mask, cfg.window_size)
+        flash = uses_flash_core(impl, has_mask)
+        attention, layer_keep = [], []
+        for _ in range(n):
+            attention.append(draw_attention_dropout(flash, (b, cfg.num_heads, s), rate, generator, device))
+            layer_keep.append(draw_keep((b, s, d), rate, generator, device))
+        return TransformerDraws(attention, layer_keep)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[TransformerDraws] = None) -> torch.Tensor:
+        """``draws`` (train mode): randomness drawn beforehand; without it
+        the pass draws its own from ``generator``."""
+        cfg = self.config
+        rate = cfg.dropout_rate
+        if self.training and draws is None:
+            draws = self.draw_dropout(x.shape, generator, x.device, mask is not None)
+        for i, layer in enumerate(self.layers):
+            attn_draw = draws.attention[i] if self.training else None
+            x = x + layer.norm(layer.attention(x, mask=mask, generator=generator,
+                                               dropout_draw=attn_draw))
             h = layer.ffn2(torch.relu(layer.ffn1(x)))
             x = x + layer.norm(h)
             if cfg.scale_out:
-                x = x * math.sqrt(0.5)
+                x = scale_out(x)
             if self.training and rate > 0.0:
-                x = dropout(x, rate, generator)
+                x = dropout(x, rate, None, keep=draws.layer_keep[i])
         return x

@@ -10,6 +10,7 @@ layouts are the JAX package's: clip ``(B, T, H, W, 3)``, tokens
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -24,7 +25,7 @@ from tchvp_tpu_torch.models.resnet_ae import (
     latent_to_tokens,
     tokens_to_latent,
 )
-from tchvp_tpu_torch.models.transformer import TransformerEncoder
+from tchvp_tpu_torch.models.transformer import TransformerDraws, TransformerEncoder
 from tchvp_tpu_torch.ops.blocks import init_flax_default
 
 
@@ -38,6 +39,15 @@ def sinusoidal_posenc(seq_len: int, dim: int) -> np.ndarray:
     return pe
 
 
+@dataclasses.dataclass
+class VideoDraws:
+    """All dropout randomness of one train-mode pass, drawn before it runs:
+    the encoder's Dropout2d mask and the temporal transformer's draws."""
+
+    latent_keep: Optional[torch.Tensor]
+    temporal: TransformerDraws
+
+
 class VideoHybridNet(nn.Module):
     """CNN spatial compression + transformer temporal mixing + CNN decode.
 
@@ -45,6 +55,11 @@ class VideoHybridNet(nn.Module):
     fresh ``torch.Generator`` seeded 0 when None) on the CPU, then moved to
     ``device`` and ``dtype``. Entry points run on the card unless the
     caller asks for the CPU.
+
+    In train mode every dropout's randomness comes from one
+    :class:`VideoDraws`, drawn up front (:meth:`draw_dropout`) the way the
+    JAX step splits its dropout key before the forward, so that the stages
+    can be recomputed under ``torch.utils.checkpoint`` with the same masks.
     """
 
     def __init__(self, config: VideoModelConfig = VideoModelConfig(), *,
@@ -59,12 +74,24 @@ class VideoHybridNet(nn.Module):
         self._posenc: Dict[Tuple, torch.Tensor] = {}
         self.to(device=device, dtype=dtype)
 
-    def encode_clip(self, clip: torch.Tensor, generator: Optional[torch.Generator] = None
-                    ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    def draw_dropout(self, clip_shape: torch.Size, generator: Optional[torch.Generator],
+                     device: torch.device, has_mask: bool = False) -> VideoDraws:
+        """The dropout randomness of one train-mode pass over a clip of
+        ``clip_shape`` (B, T, H, W, C), drawn from ``generator``."""
+        b, t, h, w = clip_shape[:4]
+        latent_keep = self.encoder.draw_dropout(b * t, generator, device)
+        s = t * self.config.tokens_per_frame
+        d = (h // 4) * (w // 4)
+        return VideoDraws(latent_keep,
+                          self.temporal.draw_dropout((b, s, d), generator, device, has_mask))
+
+    def encode_clip(self, clip: torch.Tensor, generator: Optional[torch.Generator] = None,
+                    draws: Optional[VideoDraws] = None) -> Tuple[torch.Tensor, Tuple[int, int]]:
         """(B, T, H, W, C) -> (tokens (B, T*tpf, D), latent (hh, ww))."""
         b, t = clip.shape[0], clip.shape[1]
         frames = layout.nhwc_to_nchw(layout.fold_time(clip))  # (B*T, C, H, W)
-        latent = self.encoder(frames, generator=generator)
+        keep = draws.latent_keep if draws is not None else None
+        latent = self.encoder(frames, generator=generator, keep=keep)
         _, cc, hh, ww = latent.shape
         tokens = latent_to_tokens(latent)  # (B*T, C', hh*ww)
         return tokens.reshape(b, t * cc, tokens.shape[-1]), (hh, ww)
@@ -78,11 +105,13 @@ class VideoHybridNet(nn.Module):
         return self._posenc[key]
 
     def temporal_mix(self, tokens: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     draws: Optional[VideoDraws] = None) -> torch.Tensor:
         """Temporal transformer over (B, S, D) tokens (+ optional posenc)."""
         if self.config.use_posenc:
             tokens = tokens + self._posenc_for(tokens)[None]
-        return self.temporal(tokens, mask=mask, generator=generator)
+        return self.temporal(tokens, mask=mask, generator=generator,
+                             draws=draws.temporal if draws is not None else None)
 
     def decode_tokens(self, tokens: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
         """(B, T*tpf, D) tokens -> (B, T, H, W, C') reconstructed frames."""
@@ -94,8 +123,13 @@ class VideoHybridNet(nn.Module):
         return layout.unfold_time(layout.nchw_to_nhwc(recon), b)
 
     def forward(self, clip: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """clip: (B, T, H, W, C) -> (tokens (B, T*tpf, D), recon (B, T, H, W, C'))."""
-        tokens, hw = self.encode_clip(clip, generator=generator)
-        tokens = self.temporal_mix(tokens, mask=mask, generator=generator)
+                generator: Optional[torch.Generator] = None,
+                draws: Optional[VideoDraws] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """clip: (B, T, H, W, C) -> (tokens (B, T*tpf, D), recon (B, T, H, W, C')).
+
+        Train mode takes ``draws``, or draws them from ``generator`` first."""
+        if self.training and draws is None:
+            draws = self.draw_dropout(clip.shape, generator, clip.device, mask is not None)
+        tokens, hw = self.encode_clip(clip, draws=draws)
+        tokens = self.temporal_mix(tokens, mask=mask, draws=draws)
         return tokens, self.decode_tokens(tokens, hw)

@@ -2,34 +2,84 @@
 
 Counterparts of ``tchvp_tpu/ops/blocks.py``'s ``BatchNorm`` and
 ``Bottleneck``, NCHW. flax's BatchNorm momentum 0.9 is torch's 0.1; eps
-is 1e-5 in both. In train mode torch updates the running variance with the
-unbiased batch variance where flax uses the biased one; the port runs
-inference only so far (ROADMAP.md, modules to port, item 2).
+is 1e-5 in both. In train mode flax normalises with the biased batch
+variance and updates the running variance with the biased one too, where
+torch's own BatchNorm2d would update it with the unbiased one; the port's
+:class:`BatchNorm` does what flax does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Torch-default BatchNorm2d (eps 1e-5, momentum 0.1)."""
+    """BatchNorm2d (eps 1e-5, momentum 0.1) with flax's train-mode update.
+
+    Train mode normalises with the batch mean and biased variance and moves
+    the running stats toward them: ``r = 0.9 * r + 0.1 * batch``. While
+    ``freeze_stats`` is set (:func:`frozen_batch_stats`) train mode updates
+    nothing: the recompute of a checkpointed forward must not move the
+    stats a second time.
+    """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.freeze_stats = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        # One pass: the normalisation also returns the batch mean and
+        # 1/sqrt(biased var + eps), from which the running stats move.
+        out, mean, rstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                                  True, 0.0, self.eps)
+        if not self.freeze_stats:
+            with torch.no_grad():
+                m = self.momentum
+                var = rstd.float().pow(-2) - self.eps
+                self.running_mean.mul_(1.0 - m).add_(mean.float(), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.num_batches_tracked.add_(1)
+        return out
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module) -> Iterator[None]:
+    """Within the scope, train-mode :class:`BatchNorm` layers of ``module``
+    leave their running stats alone."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.freeze_stats = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.freeze_stats = False
+
+
+def draw_keep(shape: Tuple[int, ...], rate: float, generator: Optional[torch.Generator],
+              device: torch.device) -> torch.Tensor:
+    """Bool keep mask (True = keep, P = 1 - rate) drawn from ``generator``
+    on its own device, then moved to ``device``."""
+    if generator is None:
+        raise ValueError("active dropout requires a torch.Generator")
+    return (torch.rand(shape, generator=generator, device=generator.device) >= rate).to(device)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-            shape: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+            shape: Optional[Tuple[int, ...]] = None,
+            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverted dropout whose keep mask, of ``shape`` (default: x's),
-    broadcasts over x and is drawn from ``generator``."""
-    if generator is None:
-        raise ValueError("active dropout requires a torch.Generator")
-    keep = torch.rand(shape or x.shape, generator=generator, device=x.device) >= rate
+    broadcasts over x: ``keep`` when given (drawn beforehand), else drawn
+    from ``generator``."""
+    if keep is None:
+        keep = draw_keep(shape or tuple(x.shape), rate, generator, x.device)
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 

@@ -21,7 +21,8 @@ def _defaults(cls):
     return out
 
 
-@pytest.mark.parametrize("name", ["ResNetAEConfig", "TransformerConfig", "VideoModelConfig"])
+@pytest.mark.parametrize("name", ["ResNetAEConfig", "TransformerConfig", "VideoModelConfig",
+                                  "AugmentConfig", "TrainConfig"])
 def test_dataclass_fields_and_defaults_match(name):
     jc, tc = getattr(jcfg, name), getattr(tcfg, name)
     assert [f.name for f in dataclasses.fields(tc)] == [f.name for f in dataclasses.fields(jc)]

@@ -77,9 +77,3 @@ def test_mha_requires_seed_for_dropout():
     with pytest.raises(ValueError, match="dropout_seed"):
         tfa.mha(q, k, v, dropout_rate=0.1)
 
-
-def test_backward_is_not_computed_another_way():
-    q, k, v = (torch.from_numpy(t).requires_grad_() for t in _qkv((1, 1, 8, 4)))
-    out = tfa.mha(q, k, v)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        out.sum().backward()

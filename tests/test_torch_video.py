@@ -29,6 +29,7 @@ from tchvp_tpu_torch.models import resnet_ae as tae
 from tchvp_tpu_torch.models import transformer as ttr
 from tchvp_tpu_torch.models import video as tvideo
 from tchvp_tpu_torch.ops import dispatch_trace
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 SIZE = 32
 
