@@ -8,8 +8,14 @@ the timed region. Protocol: one warm-up call, then 3 repetitions of
 median repetition is reported. Needs a CUDA device: there is no CPU path.
 
 Environment: ``BENCH_BATCH`` (8), ``BENCH_FRAMES`` (16), ``BENCH_SIZE``
-(224), ``BENCH_ATTN`` ("flash"), ``BENCH_ITERS`` (20). ``BENCH_PROFILE=1``
-also writes one JSON line to stderr: device time per stage, and a
+(224), ``BENCH_ATTN`` ("flash"), ``BENCH_ITERS`` (20), ``BENCH_WINDOW`` (0:
+full attention; > 0: overlapping-window attention over windows of that
+many tokens, 8 per frame, as the root ``bench.py``), ``BENCH_MICROBATCH``
+(0: one forward; > 0: ``microbatched_infer`` in groups of that many clips,
+as ``tchvp infer --microbatch``). BASELINE config 2 is
+``BENCH_SIZE=384 BENCH_FRAMES=32 BENCH_BATCH=16 BENCH_WINDOW=64
+BENCH_MICROBATCH=4``. ``BENCH_PROFILE=1`` also writes one JSON line to
+stderr: device time per stage (of one group when microbatched), and a
 torch.profiler window's device idle share and heaviest kernels.
 """
 
@@ -27,6 +33,7 @@ import torch
 
 from tchvp_tpu_torch.config import flagship_video_config
 from tchvp_tpu_torch.data.pipeline import preprocess_clip
+from tchvp_tpu_torch.models.streaming import microbatched_infer
 from tchvp_tpu_torch.models.video import VideoHybridNet
 
 
@@ -38,17 +45,28 @@ def random_clip(batch: int, frames: int, size: int, seed: int = 0,
     return torch.from_numpy(raw).to(device)
 
 
-def time_clips(model: VideoHybridNet, clip_u8: torch.Tensor, size: int,
-               dtype: torch.dtype, iters: int) -> Dict[str, float]:
-    """The bench protocol: warm up, then 3 reps of ``iters`` forwards of
-    preprocess + model; returns frames/s and the clip latency of the median
-    rep, and the spread of the reps."""
-    batch, frames = clip_u8.shape[0], clip_u8.shape[1]
+def infer_fn(model: VideoHybridNet, clip_u8: torch.Tensor, size: int, dtype: torch.dtype,
+             microbatch: int = 0) -> Callable[[], torch.Tensor]:
+    """One timed call: preprocess + the model, or ``microbatched_infer``
+    in groups of ``microbatch`` clips; returns the reconstruction."""
 
-    def run() -> None:
+    def run() -> torch.Tensor:
         with torch.inference_mode():
-            model(preprocess_clip(clip_u8, size, dtype=dtype))
+            clip = preprocess_clip(clip_u8, size, dtype=dtype)
+            if microbatch:
+                return microbatched_infer(model, clip, microbatch)
+            return model(clip)[1]
 
+    return run
+
+
+def time_clips(model: VideoHybridNet, clip_u8: torch.Tensor, size: int,
+               dtype: torch.dtype, iters: int, microbatch: int = 0) -> Dict[str, float]:
+    """The bench protocol: warm up, then 3 reps of ``iters`` calls of
+    :func:`infer_fn`; returns frames/s, the batch and clip latency of the
+    median rep, and the spread of the reps."""
+    batch, frames = clip_u8.shape[0], clip_u8.shape[1]
+    run = infer_fn(model, clip_u8, size, dtype, microbatch)
     run()
     torch.cuda.synchronize()
     reps: List[float] = []
@@ -61,6 +79,7 @@ def time_clips(model: VideoHybridNet, clip_u8: torch.Tensor, size: int,
     med = statistics.median(reps)
     return {
         "frames_per_s": batch * frames / med,
+        "p50_batch_latency_ms": med * 1000.0,
         "p50_clip_latency_ms": med / batch * 1000.0,
         "rep_spread_pct": 100.0 * (max(reps) - min(reps)) / med,
     }
@@ -118,17 +137,6 @@ def profile_window(run: Callable[[], None], iters: int = 3, top: int = 15) -> Di
     }
 
 
-def profile_kernels(model: VideoHybridNet, clip_u8: torch.Tensor, size: int,
-                    dtype: torch.dtype, iters: int = 3, top: int = 15) -> Dict[str, object]:
-    """:func:`profile_window` over ``iters`` forwards (preprocess + model)."""
-
-    def run() -> None:
-        with torch.inference_mode():
-            model(preprocess_clip(clip_u8, size, dtype=dtype))
-
-    return profile_window(run, iters, top)
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("tchvp_tpu_torch.bench needs a CUDA device")
@@ -137,27 +145,32 @@ def main() -> None:
     size = int(os.environ.get("BENCH_SIZE", "224"))
     attn = os.environ.get("BENCH_ATTN", "flash")
     iters = int(os.environ.get("BENCH_ITERS", "20"))
+    window = int(os.environ.get("BENCH_WINDOW", "0"))
+    microbatch = int(os.environ.get("BENCH_MICROBATCH", "0"))
 
-    cfg = flagship_video_config(image_size=size, attn_impl=attn)
+    cfg = flagship_video_config(image_size=size, attn_impl=attn, window_size=window)
     model = VideoHybridNet(cfg, device="cuda", dtype=torch.bfloat16).eval()
     clip_u8 = random_clip(batch, frames, size)
-    t = time_clips(model, clip_u8, size, torch.bfloat16, iters)
+    t = time_clips(model, clip_u8, size, torch.bfloat16, iters, microbatch)
     print(json.dumps({
-        "metric": f"frames/sec/gpu {size}x{size}x{frames}f bf16 inference (batch {batch})",
+        "metric": f"frames/sec/gpu {size}x{size}x{frames}f bf16 inference (batch {batch}"
+                  + (f", microbatch {microbatch})" if microbatch else ")"),
         "value": t["frames_per_s"],
         "unit": "frames/s",
         # No H100 baseline exists; the root bench's 2,000 frames/s target
         # was set for a TPU chip and is not this card's.
         "vs_baseline": None,
+        "p50_batch_latency_ms": t["p50_batch_latency_ms"],
         "p50_clip_latency_ms": t["p50_clip_latency_ms"],
         "rep_spread_pct": t["rep_spread_pct"],
         "device": torch.cuda.get_device_name(0),
-        "attn_impl": attn,
+        "attn_impl": attn + (f"+win{window}" if window else ""),
     }))
     if os.environ.get("BENCH_PROFILE") == "1":
-        print(json.dumps({"stage_ms": stage_ms(model, clip_u8, size, torch.bfloat16),
-                          **profile_kernels(model, clip_u8, size, torch.bfloat16)}),
-              file=sys.stderr)
+        group = clip_u8[:microbatch] if microbatch else clip_u8
+        run = infer_fn(model, clip_u8, size, torch.bfloat16, microbatch)
+        print(json.dumps({"stage_ms": stage_ms(model, group, size, torch.bfloat16),
+                          **profile_window(run)}), file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -3,32 +3,11 @@
 //
 // Replaces the Pallas TPU kernels of tchvp_tpu/kernels/flash_attention.py
 // driven by _flash_bwd: _dq_kernel (dq = sum_k ds k) and _dkv_kernel
-// (dv = sum_q P_drop^T do, dk = sum_q ds^T q). Both recompute the softmax
-// weights P = exp(q k^T * scale - lse) from the forward's fp32 log-sum-exp,
-// so nothing of size S x S is stored, and both take delta = rowsum(do * out)
-// (fp32, computed by the wrapper). With dropout the keep mask of the forward
-// (flash_common.cuh) rides on dp and on P for dv:
-//   ds = P * (dp * keep / (1 - rate) - delta) * scale.
-// Key columns >= S and query rows >= S contribute nothing.
+// (dv = sum_q P_drop^T do, dk = sum_q ds^T q).
 //
-// Design. As on the TPU there are two kernels and no atomics, so every
-// gradient element is summed by one thread in one order and the result is
-// the same, bit for bit, from run to run.
-//  * dq: one block of 256 threads owns one (bh, 16-row query tile) and walks
-//    the key tiles of 16 columns. The q and do tiles are fp32 in shared
-//    memory (2 x 16 x Dh x 4 bytes: 147 KB at Dh 1152). Each warp owns two
-//    key columns; its lanes stride the head dim (unit-stride K/V loads, no
-//    16-byte alignment assumed: Dh 392 rows start 784 bytes apart) and the
-//    partial dot products for s and dp meet in a warp shuffle reduction,
-//    after which lane r forms ds for query row r. Thread t then owns
-//    head-dim columns t, t+256, ... of the dq accumulator (16 x NC fp32
-//    registers, NC = ceil(Dh/256) <= 5).
-//  * dk/dv: one block owns one (bh, 8-key tile) and walks the query tiles of
-//    16 rows, staging each q and do tile in shared memory. Warp w owns key
-//    w of the tile. A 16-key tile's dk and dv accumulators would take
-//    2 x 16 x Dh x 4 bytes (147 KB at Dh 1152) and spill as registers; the
-//    8-key tile keeps them in 2 x 8 x NC registers per thread, the size of
-//    the forward's accumulator.
+// Design: attention_bwd.cuh's two kernels with the band off, so the dq
+// kernel's query tile walks every key and the dk/dv kernel's key tile every
+// query row.
 //
 // Bound on the H100: at the training shape (BH 64, S 64, Dh 512, fp32) the
 // bytes (q, k, v, do read and dq, dk, dv written once: 58.7 MB) bound the
@@ -37,352 +16,7 @@
 // version does its products on the fp32 CUDA cores from shared memory and
 // runs far above that bound (PERF.md); a tensor-core (wgmma/TMA) version is
 // later work.
-#include "flash_common.cuh"
-
-namespace {
-
-using tchvp::from_f32;
-using tchvp::to_f32;
-using tchvp::warp_sum;
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxChunks = 5;  // Dh <= 1280
-
-// dq kernel tiles.
-constexpr int kDqRows = 16;
-constexpr int kDqKeys = 16;
-constexpr int kDqKeysPerWarp = kDqKeys / kWarps;  // 2
-
-// dk/dv kernel tiles: one key per warp.
-constexpr int kKvKeys = kWarps;  // 8
-constexpr int kKvRows = 16;
-
-// Stages rows [row0, row0 + rows) of a (S, Dh) matrix as fp32, zero past S.
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, int row0, int rows,
-                                           int seq_len, int head_dim) {
-  for (int i = threadIdx.x; i < rows * head_dim; i += kThreads) {
-    const int r = i / head_dim;
-    const int d = i - r * head_dim;
-    dst[i] = (row0 + r < seq_len) ? to_f32(src[(size_t)(row0 + r) * head_dim + d]) : 0.f;
-  }
-}
-
-// ds of one (row, col) weight from its scaled logit and dp; with dropout
-// also the dropped weight P * keep / (1 - rate) for dv.
-__device__ __forceinline__ float grad_logit(float logit, float dp, float lse, float delta,
-                                            float scale, bool keep, float keep_prob,
-                                            float* p_drop) {
-  const float p = expf(logit - lse);
-  const float dpm = keep ? dp / keep_prob : 0.f;
-  *p_drop = keep ? p / keep_prob : 0.f;
-  return p * (dpm - delta) * scale;
-}
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int seq_len, int head_dim, float scale,
-                    int dropout, float keep_prob, uint32_t drop_threshold,
-                    const int* __restrict__ seed) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                                // [kDqRows][head_dim]
-  float* do_s = q_s + kDqRows * head_dim;           // [kDqRows][head_dim]
-  float* ds_s = do_s + kDqRows * head_dim;          // [kDqRows][kDqKeys]
-  float* lse_s = ds_s + kDqRows * kDqKeys;          // [kDqRows]
-  float* delta_s = lse_s + kDqRows;                 // [kDqRows]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kDqRows;
-  const size_t base = (size_t)bh * seq_len * head_dim;
-  const T* kb = k + base;
-  const T* vb = v + base;
-
-  stage_rows(q_s, q + base, q0, kDqRows, seq_len, head_dim);
-  stage_rows(do_s, dout + base, q0, kDqRows, seq_len, head_dim);
-  if (tid < kDqRows) {
-    const bool row_ok = q0 + tid < seq_len;
-    lse_s[tid] = row_ok ? lse[(size_t)bh * seq_len + q0 + tid] : 0.f;
-    delta_s[tid] = row_ok ? delta[(size_t)bh * seq_len + q0 + tid] : 0.f;
-  }
-  float acc[kDqRows][NC];
-#pragma unroll
-  for (int r = 0; r < kDqRows; ++r)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
-  const uint32_t hash_base = dropout ? tchvp::dropout_base(seed, bh) : 0u;
-  __syncthreads();
-
-  for (int k0 = 0; k0 < seq_len; k0 += kDqKeys) {
-    // 1. s = q k^T and dp = do v^T for this warp's two key columns.
-    const int jw = k0 + warp * kDqKeysPerWarp;
-    float s[kDqKeysPerWarp][kDqRows];
-    float dp[kDqKeysPerWarp][kDqRows];
-#pragma unroll
-    for (int kk = 0; kk < kDqKeysPerWarp; ++kk)
-#pragma unroll
-      for (int r = 0; r < kDqRows; ++r) s[kk][r] = dp[kk][r] = 0.f;
-    for (int d = lane; d < head_dim; d += 32) {
-      float kv[kDqKeysPerWarp], vv[kDqKeysPerWarp];
-#pragma unroll
-      for (int kk = 0; kk < kDqKeysPerWarp; ++kk) {
-        const bool ok = jw + kk < seq_len;
-        kv[kk] = ok ? to_f32(kb[(size_t)(jw + kk) * head_dim + d]) : 0.f;
-        vv[kk] = ok ? to_f32(vb[(size_t)(jw + kk) * head_dim + d]) : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kDqRows; ++r) {
-        const float qv = q_s[r * head_dim + d];
-        const float ov = do_s[r * head_dim + d];
-#pragma unroll
-        for (int kk = 0; kk < kDqKeysPerWarp; ++kk) {
-          s[kk][r] = fmaf(qv, kv[kk], s[kk][r]);
-          dp[kk][r] = fmaf(ov, vv[kk], dp[kk][r]);
-        }
-      }
-    }
-    // 2. ds of (row r, key col) on lane r.
-#pragma unroll
-    for (int kk = 0; kk < kDqKeysPerWarp; ++kk) {
-      const int col = jw + kk;
-#pragma unroll
-      for (int r = 0; r < kDqRows; ++r) {
-        const float st = warp_sum(s[kk][r]);
-        const float dpt = warp_sum(dp[kk][r]);
-        if (lane == r) {
-          float ds = 0.f, p_drop;
-          if (col < seq_len && q0 + r < seq_len) {
-            const bool keep = !dropout || tchvp::keep_element(hash_base, q0 + r, col, drop_threshold);
-            ds = grad_logit(st * scale, dpt, lse_s[r], delta_s[r], scale, keep,
-                            dropout ? keep_prob : 1.f, &p_drop);
-          }
-          ds_s[r * kDqKeys + warp * kDqKeysPerWarp + kk] = ds;
-        }
-      }
-    }
-    __syncthreads();
-
-    // 3. dq += ds k over this thread's head-dim columns.
-    const int jn = min(kDqKeys, seq_len - k0);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tid + c * kThreads;
-      if (d < head_dim) {
-        for (int j = 0; j < jn; ++j) {
-          const float kv = to_f32(kb[(size_t)(k0 + j) * head_dim + d]);
-#pragma unroll
-          for (int r = 0; r < kDqRows; ++r) acc[r][c] = fmaf(ds_s[r * kDqKeys + j], kv, acc[r][c]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int d = tid + c * kThreads;
-    if (d < head_dim) {
-#pragma unroll
-      for (int r = 0; r < kDqRows; ++r)
-        if (q0 + r < seq_len) dq[base + (size_t)(q0 + r) * head_dim + d] = from_f32<T>(acc[r][c]);
-    }
-  }
-}
-
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int seq_len, int head_dim,
-                     float scale, int dropout, float keep_prob, uint32_t drop_threshold,
-                     const int* __restrict__ seed) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                                // [kKvRows][head_dim]
-  float* do_s = q_s + kKvRows * head_dim;           // [kKvRows][head_dim]
-  float* p_s = do_s + kKvRows * head_dim;           // [kKvRows][kKvKeys] dropped P
-  float* ds_s = p_s + kKvRows * kKvKeys;            // [kKvRows][kKvKeys]
-  float* lse_s = ds_s + kKvRows * kKvKeys;          // [kKvRows]
-  float* delta_s = lse_s + kKvRows;                 // [kKvRows]
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kKvKeys;
-  const int col = k0 + warp;  // this warp's key
-  const bool col_ok = col < seq_len;
-  const size_t base = (size_t)bh * seq_len * head_dim;
-  const T* kb = k + base;
-  const T* vb = v + base;
-
-  float dk_acc[kKvKeys][NC], dv_acc[kKvKeys][NC];
-#pragma unroll
-  for (int j = 0; j < kKvKeys; ++j)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[j][c] = dv_acc[j][c] = 0.f;
-  const uint32_t hash_base = dropout ? tchvp::dropout_base(seed, bh) : 0u;
-
-  for (int q0 = 0; q0 < seq_len; q0 += kKvRows) {
-    stage_rows(q_s, q + base, q0, kKvRows, seq_len, head_dim);
-    stage_rows(do_s, dout + base, q0, kKvRows, seq_len, head_dim);
-    if (tid < kKvRows) {
-      const bool row_ok = q0 + tid < seq_len;
-      lse_s[tid] = row_ok ? lse[(size_t)bh * seq_len + q0 + tid] : 0.f;
-      delta_s[tid] = row_ok ? delta[(size_t)bh * seq_len + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // 1. s = q k^T and dp = do v^T of the 16 rows against this warp's key.
-    float s[kKvRows], dp[kKvRows];
-#pragma unroll
-    for (int r = 0; r < kKvRows; ++r) s[r] = dp[r] = 0.f;
-    if (col_ok) {
-      for (int d = lane; d < head_dim; d += 32) {
-        const float kv = to_f32(kb[(size_t)col * head_dim + d]);
-        const float vv = to_f32(vb[(size_t)col * head_dim + d]);
-#pragma unroll
-        for (int r = 0; r < kKvRows; ++r) {
-          s[r] = fmaf(q_s[r * head_dim + d], kv, s[r]);
-          dp[r] = fmaf(do_s[r * head_dim + d], vv, dp[r]);
-        }
-      }
-    }
-    // 2. The dropped weight and ds of (row r, this key) on lane r.
-#pragma unroll
-    for (int r = 0; r < kKvRows; ++r) {
-      const float st = warp_sum(s[r]);
-      const float dpt = warp_sum(dp[r]);
-      if (lane == r) {
-        float ds = 0.f, p_drop = 0.f;
-        if (col_ok && q0 + r < seq_len) {
-          const bool keep = !dropout || tchvp::keep_element(hash_base, q0 + r, col, drop_threshold);
-          ds = grad_logit(st * scale, dpt, lse_s[r], delta_s[r], scale, keep,
-                          dropout ? keep_prob : 1.f, &p_drop);
-        }
-        p_s[r * kKvKeys + warp] = p_drop;
-        ds_s[r * kKvKeys + warp] = ds;
-      }
-    }
-    __syncthreads();
-
-    // 3. dv += P_drop^T do and dk += ds^T q over this thread's columns.
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tid + c * kThreads;
-      if (d < head_dim) {
-#pragma unroll
-        for (int r = 0; r < kKvRows; ++r) {
-          const float ov = do_s[r * head_dim + d];
-          const float qv = q_s[r * head_dim + d];
-#pragma unroll
-          for (int j = 0; j < kKvKeys; ++j) {
-            dv_acc[j][c] = fmaf(p_s[r * kKvKeys + j], ov, dv_acc[j][c]);
-            dk_acc[j][c] = fmaf(ds_s[r * kKvKeys + j], qv, dk_acc[j][c]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int d = tid + c * kThreads;
-    if (d < head_dim) {
-#pragma unroll
-      for (int j = 0; j < kKvKeys; ++j) {
-        if (k0 + j < seq_len) {
-          const size_t at = base + (size_t)(k0 + j) * head_dim + d;
-          dk[at] = from_f32<T>(dk_acc[j][c]);
-          dv[at] = from_f32<T>(dv_acc[j][c]);
-        }
-      }
-    }
-  }
-}
-
-struct Args {
-  const void *q, *k, *v, *dout, *lse, *delta;
-  void *dq, *dk, *dv;
-  int batch_heads, seq_len, head_dim;
-  float scale, dropout_rate;
-  uint32_t drop_threshold;
-  const int* seed;
-  cudaStream_t stream;
-};
-
-template <typename T, int NC>
-cudaError_t launch_dq(const Args& a) {
-  const size_t smem = (size_t)(2 * kDqRows * a.head_dim + kDqRows * kDqKeys + 2 * kDqRows) * sizeof(float);
-  auto kernel = flash_bwd_dq_kernel<T, NC>;
-  const cudaError_t err = tchvp::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.seq_len + kDqRows - 1) / kDqRows, a.batch_heads);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.seq_len, a.head_dim,
-      a.scale, a.dropout_rate > 0.f ? 1 : 0, 1.f - a.dropout_rate, a.drop_threshold, a.seed);
-  return cudaGetLastError();
-}
-
-template <typename T, int NC>
-cudaError_t launch_dkv(const Args& a) {
-  const size_t smem =
-      (size_t)(2 * kKvRows * a.head_dim + 2 * kKvRows * kKvKeys + 2 * kKvRows) * sizeof(float);
-  auto kernel = flash_bwd_dkv_kernel<T, NC>;
-  const cudaError_t err = tchvp::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.seq_len + kKvKeys - 1) / kKvKeys, a.batch_heads);
-  kernel<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      a.seq_len, a.head_dim, a.scale, a.dropout_rate > 0.f ? 1 : 0, 1.f - a.dropout_rate,
-      a.drop_threshold, a.seed);
-  return cudaGetLastError();
-}
-
-template <typename T, int NC>
-cudaError_t launch(int which, const Args& a) {
-  return which == 0 ? launch_dq<T, NC>(a) : launch_dkv<T, NC>(a);
-}
-
-template <typename T>
-cudaError_t dispatch(int which, int chunks, const Args& a) {
-  switch (chunks) {
-    case 1: return launch<T, 1>(which, a);
-    case 2: return launch<T, 2>(which, a);
-    case 3: return launch<T, 3>(which, a);
-    case 4: return launch<T, 4>(which, a);
-    case 5: return launch<T, 5>(which, a);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-int run(int which, const void* q, const void* k, const void* v, const void* dout,
-        const void* lse, const void* delta, void* dq, void* dk, void* dv, int batch_heads,
-        int seq_len, int head_dim, int is_bf16, float scale, float dropout_rate,
-        unsigned int drop_threshold, const void* seed, void* stream) {
-  if (batch_heads < 1 || batch_heads > 65535 || seq_len < 1 || head_dim < 1 ||
-      (dropout_rate > 0.f && seed == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int chunks = (head_dim + kThreads - 1) / kThreads;
-  if (chunks > kMaxChunks) return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, lse, delta, dq, dk, dv, batch_heads, seq_len, head_dim,
-               scale, dropout_rate, drop_threshold, static_cast<const int*>(seed),
-               static_cast<cudaStream_t>(stream)};
-  return (int)(is_bf16 ? dispatch<__nv_bfloat16>(which, chunks, a) : dispatch<float>(which, chunks, a));
-}
-
-}  // namespace
+#include "attention_bwd.cuh"
 
 extern "C" {
 
@@ -395,8 +29,9 @@ int tchvp_flash_bwd_dq(const void* q, const void* k, const void* v, const void* 
                        int seq_len, int head_dim, int is_bf16, float scale,
                        float dropout_rate, unsigned int drop_threshold, const void* seed,
                        void* stream) {
-  return run(0, q, k, v, dout, lse, delta, dq, nullptr, nullptr, batch_heads, seq_len,
-             head_dim, is_bf16, scale, dropout_rate, drop_threshold, seed, stream);
+  return tchvp::run_bwd<false>(0, q, k, v, dout, lse, delta, dq, nullptr, nullptr, batch_heads,
+                               seq_len, head_dim, 0, is_bf16, scale, dropout_rate,
+                               drop_threshold, seed, stream);
 }
 
 // As tchvp_flash_bwd_dq, writing dk and dv (same shape and dtype as k, v).
@@ -405,8 +40,9 @@ int tchvp_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
                         int batch_heads, int seq_len, int head_dim, int is_bf16, float scale,
                         float dropout_rate, unsigned int drop_threshold, const void* seed,
                         void* stream) {
-  return run(1, q, k, v, dout, lse, delta, nullptr, dk, dv, batch_heads, seq_len, head_dim,
-             is_bf16, scale, dropout_rate, drop_threshold, seed, stream);
+  return tchvp::run_bwd<false>(1, q, k, v, dout, lse, delta, nullptr, dk, dv, batch_heads,
+                               seq_len, head_dim, 0, is_bf16, scale, dropout_rate,
+                               drop_threshold, seed, stream);
 }
 
 const char* tchvp_cuda_error_string(int code) {

@@ -1,7 +1,9 @@
-// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Helpers shared by the attention kernels (attention_fwd.cuh and
+// attention_bwd.cuh, built as flash_fwd.cu, flash_bwd.cu and
+// band_attention.cu).
 //
-// The attention-weight dropout mask lives here once, so the forward and the
-// two backward kernels cannot drift: each keeps element (row, col) of the
+// The attention-weight dropout mask lives here once, so the forwards and the
+// backward kernels cannot drift: each keeps element (row, col) of the
 // global (S, S) weight matrix of batch-head bh exactly when
 //   squirrel3(squirrel3(row ^ base) + col * 0x27D4EB2F) >= threshold,
 //   base = seed * 0x9E3779B1 + bh * 0x85EBCA77   (uint32, wrapping),
@@ -15,6 +17,7 @@
 namespace tchvp {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernels' NEG_INF
+constexpr int kMaxChunks = 5;      // head-dim chunks of 256 columns: Dh <= 1280
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -62,6 +65,45 @@ __device__ __forceinline__ bool keep_element(uint32_t base, int row, int col,
                                              uint32_t threshold) {
   const uint32_t h = squirrel3((uint32_t)row ^ base);
   return squirrel3(h + (uint32_t)col * 0x27D4EB2Fu) >= threshold;
+}
+
+// Stages rows [row0, row0 + rows) of a (S, Dh) matrix as fp32, zero past S.
+template <int Threads, typename T>
+__device__ __forceinline__ void stage_rows(float* dst, const T* src, int row0, int rows,
+                                           int seq_len, int head_dim) {
+  for (int i = threadIdx.x; i < rows * head_dim; i += Threads) {
+    const int r = i / head_dim;
+    const int d = i - r * head_dim;
+    dst[i] = (row0 + r < seq_len) ? to_f32(src[(size_t)(row0 + r) * head_dim + d]) : 0.f;
+  }
+}
+
+// The band of the windowed kernels (the TPU kernels' _band_mask): query row
+// `row` sees key `col` when the key's window is the row's or the one before
+// it. Without the band every pair is in. Indices are never negative.
+template <bool Band>
+__device__ __forceinline__ bool in_band(int row, int col, int window) {
+  if (!Band) return true;
+  const int gap = row / window - col / window;
+  return gap == 0 || gap == 1;
+}
+
+// [*lo, *hi): the keys that query rows first..last (last < S) may see: with
+// the band, the window before the first row's through the last row's own.
+template <bool Band>
+__device__ __forceinline__ void key_span(int first, int last, int seq_len, int window,
+                                         int* lo, int* hi) {
+  *lo = Band ? max(0, (first / window - 1) * window) : 0;
+  *hi = Band ? min(seq_len, (last / window + 1) * window) : seq_len;
+}
+
+// [*lo, *hi): the query rows that may see keys first..last (last < S): with
+// the band, the first key's window through the one after the last key's.
+template <bool Band>
+__device__ __forceinline__ void query_span(int first, int last, int seq_len, int window,
+                                           int* lo, int* hi) {
+  *lo = Band ? (first / window) * window : 0;
+  *hi = Band ? min(seq_len, (last / window + 2) * window) : seq_len;
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory.

@@ -24,10 +24,10 @@ import torch.nn as nn
 
 from tchvp_tpu_torch.config import TransformerConfig
 from tchvp_tpu_torch.ops.attention import (
+    attention_core,
     draw_attention_dropout,
     multi_head_attention,
     resolve_impl,
-    uses_flash_core,
 )
 from tchvp_tpu_torch.ops.blocks import draw_keep, dropout
 
@@ -43,8 +43,8 @@ def scale_out(x: torch.Tensor) -> torch.Tensor:
 @dataclasses.dataclass
 class TransformerDraws:
     """One train-mode pass's dropout randomness, per layer: the attention
-    draw (a flash seed or a dense keep mask) and the keep mask of the
-    trailing dropout; None where that dropout is off."""
+    draw (a kernel seed, or the dense core's or dense band's keep mask) and
+    the keep mask of the trailing dropout; None where that dropout is off."""
 
     attention: List[Optional[torch.Tensor]]
     layer_keep: List[Optional[torch.Tensor]]
@@ -138,10 +138,11 @@ class TransformerEncoder(nn.Module):
             return TransformerDraws([None] * n, [None] * n)
         b, s, d = x_shape
         impl = resolve_impl(cfg.attn_impl, device.type == "cuda", has_mask, cfg.window_size)
-        flash = uses_flash_core(impl, has_mask)
+        core = attention_core(impl, has_mask, cfg.window_size)
         attention, layer_keep = [], []
         for _ in range(n):
-            attention.append(draw_attention_dropout(flash, (b, cfg.num_heads, s), rate, generator, device))
+            attention.append(draw_attention_dropout(core, (b, cfg.num_heads, s), rate, generator,
+                                                    device, cfg.window_size))
             layer_keep.append(draw_keep((b, s, d), rate, generator, device))
         return TransformerDraws(attention, layer_keep)
 

@@ -81,10 +81,10 @@ def test_flash_dropout_seed_comes_from_the_generator():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"impl": "windowed", "window_size": 4},
-    {"impl": "windowed"},
-    {"impl": "flash", "window_size": 4},
-    {"impl": "auto", "window_size": 4},
+    {"impl": "windowed", "window_size": 4, "seq_axis": "seq"},
+    {"impl": "windowed", "seq_axis": "seq"},
+    {"impl": "flash", "window_size": 4, "seq_axis": "seq"},
+    {"impl": "auto", "window_size": 4, "seq_axis": "seq"},
     {"impl": "ring", "seq_axis": None},
     {"impl": "flash", "seq_axis": "seq"},
 ])

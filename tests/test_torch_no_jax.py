@@ -33,7 +33,8 @@ def test_importing_the_model_loads_no_jax():
     code = (
         "import sys; import tchvp_tpu_torch.models.video, tchvp_tpu_torch.convert, "
         "tchvp_tpu_torch.bench, tchvp_tpu_torch.train.steps, tchvp_tpu_torch.train.state, "
-        "tchvp_tpu_torch.losses, tchvp_tpu_torch.ops.msssim; "
+        "tchvp_tpu_torch.losses, tchvp_tpu_torch.ops.msssim, tchvp_tpu_torch.models.streaming, "
+        "tchvp_tpu_torch.ops.tiling; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tchvp_tpu')]; "
         "assert not bad, bad"
