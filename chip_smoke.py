@@ -3,10 +3,10 @@
 
 Phases, one or more lines each:
  1. device: the card's name and power limit (nvidia-smi) and torch's name;
- 2. build: compiles the flash-attention forward, the flash backward and the
-    banded-attention libraries from the sources in this checkout (one nvcc
-    each, in parallel) and prints the seconds, the registers per kernel and
-    the spill stores;
+ 2. build: compiles the flash-attention forward, the flash backward, the
+    banded-attention and the fused decoder tail libraries from the sources
+    in this checkout (one nvcc each, in parallel) and prints the seconds,
+    the registers per kernel and the spill stores;
  3. forward kernel vs plain: out and lse against the plain PyTorch version
     on the card, fp32 max abs 1e-4; bf16 against the fp32 plain version on
     the same bf16-rounded inputs, max abs 2e-2; the dropout seed is a (1,)
@@ -21,6 +21,19 @@ Phases, one or more lines each:
     dropout 0.1), a ragged S, a window that 16 does not divide, and one
     window (w >= S), where forward and backward equal the flash kernels'
     bit for bit; the phase-3/4 limits, backward bits equal on repeat;
+5b. fused decoder tail (``csrc/fused_tail.cu``, off the default path):
+    (a) the kernel against ``fused_tail_reference`` on the weights folded
+    from a Decoder32K with seeded BN, at (2, 8, 8), (1, 9, 9), (1, 16, 24)
+    and (2, 56, 56) x 384, both heads: fp32 with TF32 off, max abs <= 1e-4
+    x max|ref|; bf16 against the fp32 plain version on the same
+    bf16-rounded inputs and weights, <= 2e-2 x max|ref|; bits equal on
+    repeat and for the NHWC view of an NCHW input; unsupported dtype or
+    widths raise. (b) the decoder path: flagship tokens from one forward,
+    then ``decoder.body`` + ``fused_decoder_tail`` on the NHWC view of the
+    body's output against ``decoder(latent)`` (the cuDNN chain): config 1
+    bf16 B=8 T=16 <= 2e-2 x max|ref|, fp32 B=1 T=16 with TF32 off <= 1e-3
+    x max|ref|, config 2's group (384^2, 4 clips of 32 frames) bf16 <= 2e-2
+    x max|ref|; exactly one fused-tail launch per call;
  6. flagship fp32 inference: VideoHybridNet at 224^2, B=1, T=16, attn
     "flash" against the same weights on "xla" (the dense plain core), max
     abs 1e-3, TF32 off; asserts the CUDA kernel ran;
@@ -34,13 +47,14 @@ Phases, one or more lines each:
     gradients at 256^2, B=1, T=32, dropout off, <= 1e-3 x max|grad|;
  9. inference main path (config 1): bf16, B=8, T=16, 224^2, a uint8 clip
     through preprocess_clip and the model; the launch counts are set to 0
-    just before one forward and read just after; outputs must be finite;
-    then the bench protocol (tchvp_tpu_torch/bench.py) times it, and CUDA
+    just before one forward and read just after (no fused-tail launch:
+    the decoder keeps its cuDNN chain); outputs must be finite; then the
+    bench protocol (tchvp_tpu_torch/bench.py) times it, and CUDA
     events time its stages;
 10. config 2 inference: bf16, B=16, T=32, 384^2, window 64, through
     preprocess_clip and ``microbatched_infer(microbatch=4)``: the counts
     set to 0 before one call and read after it (8 banded forwards, no
-    flash kernel); finite output; frames/s, p50 batch latency and spread
+    flash kernel, no fused tail); finite output; frames/s, p50 batch latency and spread
     (bench protocol), the stages of one group, peak memory, a profile;
 11. training main path: the ``tchvp video`` defaults at 256^2, B=8, T=8,
     fp32 (mixed loss, noise 0.05, dropout on, AdamW lr 1e-4 wd 0.01, clip
@@ -63,7 +77,11 @@ Phases, one or more lines each:
     port's path; with the boolean band as attn_mask for the banded
     kernels) and its bound; the flash forward also at the training shape
     in fp32 (SDPA without dropout there), the flash backward kernels also
-    at the inference shape in bf16, the banded backward also at config 2's.
+    at the inference shape in bf16, the banded backward also at config 2's;
+    the fused tail at config 1's and config 2's decode shapes in bf16,
+    checked against its plain version there (<= 2e-2 x max|ref|), beside
+    ``Decoder32K.tail`` in eval mode (the cuDNN chain it replaces, never on
+    the port's path) and its bound.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the exit
 code is not 0. There is no CPU path: without a CUDA device it exits 1.
@@ -71,6 +89,7 @@ code is not 0. There is no CPU path: without a CUDA device it exits 1.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -89,9 +108,12 @@ from tchvp_tpu_torch.config import flagship_video_config
 from tchvp_tpu_torch.data.pipeline import preprocess_clip
 from tchvp_tpu_torch.kernels import build
 from tchvp_tpu_torch.kernels import flash_attention as fa
+from tchvp_tpu_torch.kernels import fused_tail as ft
+from tchvp_tpu_torch.models.resnet_ae import Decoder32K, tokens_to_latent
 from tchvp_tpu_torch.models.streaming import StreamingConfig, microbatched_infer, stream_video
 from tchvp_tpu_torch.models.video import VideoHybridNet
 from tchvp_tpu_torch.ops import dispatch_trace
+from tchvp_tpu_torch.ops.blocks import init_flax_default
 from tchvp_tpu_torch.train.state import create_train_state, make_optimizer
 from tchvp_tpu_torch.train.steps import make_video_train_step
 
@@ -101,9 +123,13 @@ BF16_FLOP_PER_S = 989e12  # tensor cores
 FP32_FLOP_PER_S = 67e12  # CUDA cores
 
 LIBRARIES = {"flash_fwd": ["flash_fwd.cu"], "flash_bwd": ["flash_bwd.cu"],
-             "band_attention": ["band_attention.cu"]}
-COUNTERS = ("launches", "dq_launches", "dkv_launches",
-            "band_fwd_launches", "band_dq_launches", "band_dkv_launches")
+             "band_attention": ["band_attention.cu"], "fused_tail": ["fused_tail.cu"]}
+# Each kernel's launch counter: (key, module, attribute).
+COUNTERS = tuple((name, fa, name) for name in (
+    "launches", "dq_launches", "dkv_launches",
+    "band_fwd_launches", "band_dq_launches", "band_dkv_launches")) + (
+    ("fused_tail_launches", ft, "launches"),)
+FLASH_PY = "tchvp_tpu/kernels/flash_attention.py"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -135,18 +161,18 @@ def device_seed(seed: int) -> torch.Tensor:
 
 
 def counts() -> dict:
-    """The launch counters of the six kernels, by counter name."""
-    return {name: getattr(fa, name) for name in COUNTERS}
+    """The launch counters of the seven kernels, by key."""
+    return {key: getattr(module, attr) for key, module, attr in COUNTERS}
 
 
 def reset_counts() -> None:
-    for name in COUNTERS:
-        setattr(fa, name, 0)
+    for _, module, attr in COUNTERS:
+        setattr(module, attr, 0)
 
 
 def expect_counts(**nonzero) -> dict:
     """The counters as a run that launched only ``nonzero`` leaves them."""
-    return {name: nonzero.get(name, 0) for name in COUNTERS}
+    return {key: nonzero.get(key, 0) for key, _, _ in COUNTERS}
 
 
 def free_cuda() -> None:
@@ -326,6 +352,146 @@ def phase_band_kernels() -> dict:
     print(f"[5 band one window] {(b, h, s, dh)} window {w} >= S, dropout {rate}: out, lse, dq, dk, dv "
           f"equal the flash kernels' bit for bit")
     return errs
+
+
+def seed_decoder(decoder: Decoder32K, seed: int) -> Decoder32K:
+    """Non-trivial eval BN (scale, shift, running mean and variance) and
+    conv biases from ``seed``, so that folding them is exercised."""
+    rng = np.random.default_rng(seed)
+
+    def draw(t, lo_or_mean, hi_or_std, uniform):
+        v = rng.uniform(lo_or_mean, hi_or_std, t.shape) if uniform else rng.normal(lo_or_mean, hi_or_std, t.shape)
+        t.copy_(torch.from_numpy(v.astype(np.float32)))
+
+    with torch.no_grad():
+        for m in decoder.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                draw(m.weight, 0.5, 1.5, True)
+                draw(m.bias, 0.0, 0.2, False)
+                draw(m.running_mean, 0.0, 0.2, False)
+                draw(m.running_var, 0.5, 1.5, True)
+            elif isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)) and m.bias is not None:
+                draw(m.bias, 0.0, 0.2, False)
+    return decoder
+
+
+TAIL_SHAPES = [(2, 8, 8), (1, 9, 9), (1, 16, 24), (2, 56, 56)]  # (B, H, W) of the 384-channel input
+
+
+def rel_err(got: torch.Tensor, ref: torch.Tensor):
+    """(max abs error, max|ref|)."""
+    return (got.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
+
+
+def phase_fused_tail_kernel() -> None:
+    """The fused tail kernel against its plain version, both heads."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for h_i, output_type in enumerate(("image", "mask")):
+        decoder = Decoder32K(output_type=output_type)
+        init_flax_default(decoder, torch.Generator().manual_seed(h_i))
+        folded = ft.fold_tail_params(seed_decoder(decoder, 10 + h_i).to("cuda").eval())
+        for i, (b, h, w) in enumerate(TAIL_SHAPES):
+            x32 = torch.from_numpy(np.random.default_rng(80 + i).standard_normal((b, h, w, ft.CIN),
+                                                                                  dtype=np.float32)).cuda()
+            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+                x = x32.to(dtype)
+                got = ft.fused_tail_cuda(x, folded, output_type)
+                again = ft.fused_tail_cuda(x, folded, output_type)
+                strided = ft.fused_tail_cuda(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
+                                             folded, output_type)
+                torch.cuda.synchronize()
+                with torch.no_grad():
+                    ref = ft.fused_tail_reference(x.float(), {k: v.to(dtype).float() for k, v in folded.items()},
+                                                  output_type)
+                err, scale = rel_err(got, ref)
+                print(f"[5b fused tail] {(b, h, w, ft.CIN)} {str(dtype)[6:]} {output_type}: max abs {err:.3g}, "
+                      f"max|ref| {scale:.3g}, ratio {err / scale:.3g} (tol {tol}); bits equal on repeat and "
+                      f"for the NHWC view of an NCHW input")
+                check(got.shape == (b, 2 * h, 2 * w, 1 if output_type == "mask" else 3), f"shape {got.shape}")
+                check(math.isfinite(err) and err <= tol * scale, f"fused tail vs plain at {(b, h, w)} {dtype}")
+                check(torch.equal(got, again) and torch.equal(got, strided),
+                      f"fused tail at {(b, h, w)} {dtype} differs between launches or layouts")
+    x = torch.zeros(1, 2, 2, ft.CIN, device="cuda")
+    for bad_x, bad_folded, exc in ((x.half(), folded, TypeError), (x[..., :256], folded, ValueError),
+                                   (x, dict(folded, w0=folded["w0"][:, :, :, :32]), ValueError)):
+        try:
+            ft.fused_tail_cuda(bad_x, bad_folded, "mask")
+        except exc:
+            continue
+        raise RuntimeError("chip_smoke check failed: the fused tail took what it does not take")
+    print("[5b fused tail] fp16 input, 256 input channels and a 32-channel conv0 raise")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def fused_decode(model: VideoHybridNet, clip: torch.Tensor):
+    """Tokens of one forward over ``clip``, the decoder's body on their
+    latent, then its tail three ways on that body: the fused kernel
+    (counted), ``Decoder32K.tail`` (the cuDNN chain) in the model's dtype,
+    and the same chain in fp32 with TF32 off, the reference (32 frames at a
+    time). Returns (fused, chain, fp32 chain) NHWC and the launch counts of
+    the fused call."""
+    b, t = clip.shape[:2]
+    with torch.inference_mode():
+        tokens, hw = model.encode_clip(clip)
+        tokens = model.temporal_mix(tokens)
+        tpf = model.config.tokens_per_frame
+        latent = tokens_to_latent(tokens.reshape(b * t, tpf, tokens.shape[-1]), hw)
+        folded = ft.fold_tail_params(model.decoder)
+        body = model.decoder.body(latent)
+        del tokens, latent
+        torch.cuda.synchronize()
+        reset_counts()
+        got = ft.fused_decoder_tail(body.permute(0, 2, 3, 1), folded, model.config.output_type)
+        torch.cuda.synchronize()
+        launches = counts()
+        chain = torch.cat([model.decoder.tail(part) for part in body.split(32)]).permute(0, 2, 3, 1)
+        decoder32 = copy.deepcopy(model.decoder).float()
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        exact = torch.cat([decoder32.tail(part.float()) for part in body.split(32)]).permute(0, 2, 3, 1)
+        torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.synchronize()
+    return got, chain, exact, launches
+
+
+def phase_decoder_path() -> dict:
+    """The flagship decoder through body + the fused tail; returns the
+    fused-tail launches of each call, by tag. The kernel is held to the fp32
+    chain on the same body; in bf16 it must also be no farther from it than
+    the bf16 cuDNN chain it replaces, which rounds u, a0 and a1 to bf16."""
+    cases = (  # (tag, size, batch, frames, window, dtype, tol)
+        ("config 1", 224, 8, 16, 0, torch.bfloat16, 2e-2),
+        ("fp32, TF32 off", 224, 1, 16, 0, torch.float32, 1e-3),
+        ("config 2 group", 384, 4, 32, 64, torch.bfloat16, 2e-2),
+    )
+    tail_launches = {}
+    for tag, size, batch, frames, window, dtype, tol in cases:
+        torch.backends.cudnn.allow_tf32 = dtype != torch.float32
+        cfg = flagship_video_config(size, attn_impl="flash", window_size=window)
+        model = VideoHybridNet(cfg, device="cuda", dtype=dtype, generator=torch.Generator().manual_seed(0))
+        seed_decoder(model.decoder, 30)
+        model.eval()
+        clip = preprocess_clip(random_clip(batch, frames, size, seed=5), size, dtype=dtype)
+        got, chain, exact, launches = fused_decode(model, clip)
+        err, scale = rel_err(got, exact)
+        chain_err, _ = rel_err(chain, exact)
+        print(f"[5b decoder path] {tag}: {str(dtype)[6:]} B={batch} T={frames} {size}^2, body + fused tail "
+              f"{tuple(got.shape)} vs the fp32 chain (TF32 off): max abs {err:.3g}, max|ref| {scale:.3g}, "
+              f"ratio {err / scale:.3g} (tol {tol}); Decoder32K.tail (cuDNN, {str(dtype)[6:]}) vs the fp32 "
+              f"chain {chain_err:.3g} (ratio {chain_err / scale:.3g}), vs the kernel "
+              f"{rel_err(got, chain)[0]:.3g}; fused_tail launches {launches['fused_tail_launches']}")
+        check(got.shape == exact.shape == (batch * frames, size, size, 3), f"decoder path shape {got.shape}")
+        check(bool(torch.isfinite(got).all()), f"non-finite fused tail output ({tag})")
+        check(err <= tol * scale, f"decoder path {tag}: {err} > {tol} x {scale}")
+        check(dtype == torch.float32 or err <= chain_err,
+              f"decoder path {tag}: the kernel ({err}) is farther from the fp32 chain than cuDNN ({chain_err})")
+        check(launches == expect_counts(fused_tail_launches=1), f"decoder path {tag} launches {launches}")
+        tail_launches[tag] = launches["fused_tail_launches"]
+        del model, clip, got, chain, exact
+        free_cuda()
+    torch.backends.cudnn.allow_tf32 = True
+    return tail_launches
 
 
 def phase_flagship_fp32() -> None:
@@ -623,8 +789,9 @@ def sdpa_backend(q4, k4, v4, scale, attn_mask=None) -> str:
 
 
 def record(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms):
+    """One kernel's JSON record; ``replaces`` is the TPU kernel's "file:line"."""
     return {"name": name, "route": "cuda", "source": f"tchvp_tpu_torch/kernels/csrc/{source}",
-            "replaces": f"tchvp_tpu/kernels/flash_attention.py:{replaces}", "launches": launches,
+            "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
@@ -658,8 +825,8 @@ def time_flash(fwd_launches: int, fwd_err: float, bwd_launches: dict, bwd_errs: 
     print(f"[14 times] flash_fwd {(tb, th, ts, tdh)} float32 dropout {trate}: kernel {train_ms:.4f} ms, "
           f"plain {train_plain_ms:.4f} ms, SDPA without dropout ({train_backend}) {train_lib_ms:.4f} ms, "
           f"bound {train_bound:.4f} ms ({train_by})")
-    records = [record("flash_fwd", "flash_fwd.cu", 174, fwd_launches, fwd_err, kernel_ms, plain_ms,
-                      bound_ms, bound_by, library_ms)]
+    records = [record("flash_fwd", "flash_fwd.cu", f"{FLASH_PY}:174", fwd_launches, fwd_err, kernel_ms,
+                      plain_ms, bound_ms, bound_by, library_ms)]
 
     # Backward: the training shape (fp32, dropout 0.1, in the JSON), then the
     # inference shape in bf16.
@@ -689,7 +856,8 @@ def time_flash(fwd_launches: int, fwd_err: float, bwd_launches: dict, bwd_errs: 
             print(f"[14 times] {name} {(b, h, s, dh)} {str(dtype)[6:]} dropout {rate}: kernel {ms:.4f} ms, "
                   f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
             if case is TRAIN_CASE:
-                records.append(record(name, "flash_bwd.cu", 374 if name == "flash_bwd_dq" else 403,
+                line = 374 if name == "flash_bwd_dq" else 403
+                records.append(record(name, "flash_bwd.cu", f"{FLASH_PY}:{line}",
                                       bwd_launches[name], bwd_errs[name], ms, p_ms, b_ms, b_by, sdpa_ms))
         pair_ms, pair_by = bound(7 * row_bytes + stats_bytes, 10 * bh * s * s * dh, dtype)
         print(f"[14 times] backward pair {(b, h, s, dh)} {str(dtype)[6:]}: dq + dk/dv "
@@ -725,8 +893,9 @@ def time_band(band_launches: dict, band_errs: dict) -> list:
               f"band mask ({backend}) {fwd_lib:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by}); band pairs "
               f"{pairs // bh} per bh")
         if case is BAND_CONFIG2:
-            records.append(record("band_fwd", "band_attention.cu", 611, band_launches["band_fwd"],
-                                  band_errs["band_fwd"], fwd_ms, fwd_plain, fwd_bound, fwd_by, fwd_lib))
+            records.append(record("band_fwd", "band_attention.cu", f"{FLASH_PY}:611",
+                                  band_launches["band_fwd"], band_errs["band_fwd"], fwd_ms, fwd_plain,
+                                  fwd_bound, fwd_by, fwd_lib))
 
         out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
         do4 = do.view(b, h, s, dh)
@@ -744,12 +913,61 @@ def time_band(band_launches: dict, band_errs: dict) -> list:
             times[name] = ms
             print(f"[14 times] {name} {tag}: kernel {ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
             if case is BAND_TRAIN:
-                records.append(record(name, "band_attention.cu", line, band_launches[name],
+                records.append(record(name, "band_attention.cu", f"{FLASH_PY}:{line}", band_launches[name],
                                       band_errs[name], ms, p_ms, b_ms, b_by, lib_ms))
         pair_ms, pair_by = bound(7 * row_bytes + 2 * stat_bytes, 10 * pairs * dh, dtype)
         print(f"[14 times] band backward pair {tag}: dq + dk/dv "
               f"{times['band_bwd_dq'] + times['band_bwd_dkv']:.4f} ms, SDPA backward with the band mask, "
               f"without dropout ({backend}) {lib_ms:.4f} ms, bound {pair_ms:.4f} ms ({pair_by})")
+    return records
+
+
+# The fused tail's input on the decoder path: (tag of phase 5b, record name, B, H, W).
+TAIL_MAIN_SHAPES = (("config 1", "fused_tail", 128, 112, 112),
+                    ("config 2 group", "fused_tail_config2", 128, 192, 192))
+
+
+def time_fused_tail(tail_launches: dict) -> list:
+    """The fused tail at config 1's and config 2's decode shapes (bf16, the
+    NHWC view of an NCHW input as on the decoder path) against its plain
+    version, beside ``Decoder32K.tail`` in eval mode on the NCHW tensor (the
+    cuDNN chain it replaces) and its bound."""
+    decoder = init_flax_default(Decoder32K(), torch.Generator().manual_seed(0))
+    decoder = seed_decoder(decoder, 20).to("cuda", torch.bfloat16).eval()
+    folded = ft.fold_tail_params(decoder)
+    plain_folded = {k: v.bfloat16().float() for k, v in folded.items()}
+    c4 = folded["b2"].shape[0]
+    records = []
+    for tag, name, b, h, w in TAIL_MAIN_SHAPES:
+        free_cuda()
+        gen = torch.Generator(device="cuda").manual_seed(90)
+        x_nchw = torch.randn((b, ft.CIN, h, w), generator=gen, device="cuda", dtype=torch.bfloat16)
+        x = x_nchw.permute(0, 2, 3, 1)
+        with torch.inference_mode():
+            got = ft.fused_tail_cuda(x, folded)
+            ref = ft.fused_tail_reference(x, plain_folded)
+            err, scale = rel_err(got, ref)
+            del got, ref
+            check(math.isfinite(err) and err <= 2e-2 * scale, f"fused tail vs plain at {tag}: {err} > 2e-2 x {scale}")
+            kernel_ms = cuda_ms(lambda: ft.fused_tail_cuda(x, folded), 3)
+            plain_ms = cuda_ms(lambda: ft.fused_tail_reference(x, plain_folded), 3)
+            library_ms = cuda_ms(lambda: decoder.tail(x_nchw), 3)
+        # Multiply-adds: the 1x1 up-projection per input pixel to 4 phases x
+        # C1, then the three 3x3 convs per output pixel; bytes: the input
+        # read once, the output written once.
+        flops = 2 * b * (h * w * ft.CIN * 4 * ft.C1
+                         + 4 * h * w * 9 * (ft.C1 * ft.C2 + ft.C2 * ft.C3 + ft.C3 * c4))
+        nbytes = 2 * b * h * w * ft.CIN + 2 * b * 4 * h * w * c4
+        bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
+        print(f"[14 times] fused_tail {tag} {(b, h, w, ft.CIN)} bf16: kernel {kernel_ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, Decoder32K.tail (cuDNN) {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB); vs plain max abs {err:.3g}, "
+              f"max|ref| {scale:.3g}; {flops / kernel_ms / 1e9:.2f} TFLOP/s")
+        records.append(record(name, "fused_tail.cu", "tchvp_tpu/kernels/fused_tail.py:324",
+                              tail_launches[tag], err, kernel_ms, plain_ms, bound_ms, bound_by, library_ms))
+        del x, x_nchw
+    del decoder
+    free_cuda()
     return records
 
 
@@ -763,6 +981,8 @@ def main() -> None:
     fwd_err = phase_fwd_kernel()
     bwd_errs = phase_bwd_kernels()
     band_errs = phase_band_kernels()
+    phase_fused_tail_kernel()
+    tail_launches = phase_decoder_path()
     phase_flagship_fp32()
     phase_flagship_grads()
     phase_windowed_flagship()
@@ -775,6 +995,7 @@ def main() -> None:
                                                  "flash_bwd_dkv": train["dkv_launches"]}, bwd_errs)
     records += time_band({"band_fwd": band_fwd_launches, "band_bwd_dq": windowed["band_dq_launches"],
                           "band_bwd_dkv": windowed["band_dkv_launches"]}, band_errs)
+    records += time_fused_tail(tail_launches)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

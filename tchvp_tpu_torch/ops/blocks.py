@@ -1,11 +1,12 @@
-"""Conv building blocks of the main path: BatchNorm and the ResNet Bottleneck.
+"""Conv building blocks of the main path: BatchNorm, the ResNet Bottleneck and
+the polyphase upconv.
 
-Counterparts of ``tchvp_tpu/ops/blocks.py``'s ``BatchNorm`` and
-``Bottleneck``, NCHW. flax's BatchNorm momentum 0.9 is torch's 0.1; eps
-is 1e-5 in both. In train mode flax normalises with the biased batch
-variance and updates the running variance with the biased one too, where
-torch's own BatchNorm2d would update it with the unbiased one; the port's
-:class:`BatchNorm` does what flax does.
+Counterparts of ``tchvp_tpu/ops/blocks.py``'s ``BatchNorm``, ``Bottleneck``
+and ``PixelShuffleUpconv``, NCHW. flax's BatchNorm momentum 0.9 is torch's
+0.1; eps is 1e-5 in both. In train mode flax normalises with the biased
+batch variance and updates the running variance with the biased one too,
+where torch's own BatchNorm2d would update it with the unbiased one; the
+port's :class:`BatchNorm` does what flax does.
 """
 
 from __future__ import annotations
@@ -120,6 +121,40 @@ class Bottleneck(nn.Module):
         if self.downsample_conv is not None:
             identity = self.downsample_bn(self.downsample_conv(x))
         return torch.relu(out + identity)
+
+
+def polyphase_weight(weight: torch.Tensor) -> torch.Tensor:
+    """A ``ConvTranspose2d(c, f, 2, stride=2)`` weight (C, F, 2, 2) as the
+    (C, 4F) matrix of the polyphase identity, columns in (di, dj, f) order:
+    out[2i+di, 2j+dj, f] = sum_c x[i, j, c] * w[c, (di, dj, f)] + b[f].
+    torch's kernel needs no flip here (flax's does: ``convert.py``)."""
+    c, f = weight.shape[:2]
+    return weight.permute(0, 2, 3, 1).reshape(c, 4 * f)
+
+
+class PixelShuffleUpconv(nn.Module):
+    """``nn.ConvTranspose2d(c, f, 2, stride=2)`` computed as one (C -> 4F)
+    matmul at the low resolution plus depth-to-space, NCHW.
+
+    The taps of a 2x2 stride-2 transposed conv do not overlap, so the two
+    are the same function (:func:`polyphase_weight`). The parameters are
+    the transposed conv's, ``weight`` (C, F, 2, 2) and ``bias`` (F,), so
+    its state_dict entries interchange with it. No model uses it, as in
+    the JAX package.
+    """
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        ref = nn.ConvTranspose2d(in_ch, features, 2, stride=2)
+        self.weight = ref.weight
+        self.bias = ref.bias
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, _, h, w = x.shape
+        f = self.weight.shape[1]
+        y = x.permute(0, 2, 3, 1) @ polyphase_weight(self.weight).to(x.dtype)  # (N, H, W, 4F)
+        y = y.reshape(n, h, w, 2, 2, f).permute(0, 5, 1, 3, 2, 4).reshape(n, f, 2 * h, 2 * w)
+        return y + self.bias.to(x.dtype)[:, None, None]
 
 
 def init_flax_default(module: nn.Module, generator: torch.Generator) -> nn.Module:
