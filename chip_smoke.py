@@ -4,9 +4,10 @@
 Phases, one or more lines each:
  1. device: the card's name and power limit (nvidia-smi) and torch's name;
  2. build: compiles the flash-attention forward, the flash backward, the
-    banded-attention and the fused decoder tail libraries from the sources
-    in this checkout (one nvcc each, in parallel) and prints the seconds,
-    the registers per kernel and the spill stores;
+    banded-attention, the halo-attention and the fused decoder tail
+    libraries from the sources in this checkout (one nvcc each, in
+    parallel) and prints the seconds, the registers per kernel and the
+    spill stores;
  3. forward kernel vs plain: out and lse against the plain PyTorch version
     on the card, fp32 max abs 1e-4; bf16 against the fp32 plain version on
     the same bf16-rounded inputs, max abs 2e-2; the dropout seed is a (1,)
@@ -21,6 +22,17 @@ Phases, one or more lines each:
     dropout 0.1), a ragged S, a window that 16 does not divide, and one
     window (w >= S), where forward and backward equal the flash kernels'
     bit for bit; the phase-3/4 limits, backward bits equal on repeat;
+5c. halo kernels vs plain: the forward, dq and dk/dv kernels of
+    ``csrc/halo_attention.cu`` (one shard of sequence-parallel windowed
+    attention: k and v carry the left neighbour's last window) against
+    their plain versions at the windowed-training shard (BH 16, S 128,
+    k_ext 192, Dh 512, fp32, dropout 0.1), the config-2 shard (BH 32, S
+    128, k_ext 192, Dh 1152, bf16) and a ragged case (S 72, w 24), each
+    with has_prev 0 and 1: phase 5's limits, bits equal on repeat; with
+    has_prev 0 against the banded kernels on the local sequence; and a
+    one-process emulation of n = 2 and 4 shards (halos cut from the
+    neighbours, dk/dv assembled from dk_ext[w:] and the next shard's
+    dk_ext[:w]) against windowed_mha over the whole sequence;
 5b. fused decoder tail (``csrc/fused_tail.cu``, off the default path):
     (a) the kernel against ``fused_tail_reference`` on the weights folded
     from a Decoder32K with seeded BN, at (2, 8, 8), (1, 9, 9), (1, 16, 24)
@@ -68,6 +80,21 @@ Phases, one or more lines each:
 12. windowed training: phase 11 with window 64 on B=2 of 32-frame clips
     (S 256 in 4 windows): 2 banded forward, 2 dq and 2 dk/dv launches per
     step and no flash kernel; remat "stages" launches 4 forwards;
+12b. sequence parallelism, two ranks sharing this one card over gloo
+    (NCCL refuses two ranks on one device; the halo and the reductions
+    cross through host memory), spawned with a file:// rendezvous and a
+    process-group timeout: (a) the fp32 eval forward at config 2's
+    geometry (384^2, B 1, T 32, w 64, TF32 off) on a mesh ("seq",) of 2,
+    each rank's frames against phase 8's single-process forward, max abs
+    1e-3; (b) one step of the windowed-training cell (256^2, B 2, T 32, w
+    64, fp32, dropout off, TF32 off, SGD lr 1 so the update is the
+    gradient) against the single-process step from the same weights: loss
+    rtol 1e-5, parameters within 1.9 x 2e-2 x the largest gradient (the
+    limit of tests/test_torch_train.py), BatchNorm stats 1e-5; parameters
+    and stats bit-equal across the ranks; per rank 2 halo forward, 2 dq, 2
+    dk/dv launches and no band or flash launch; (c) 3 steps with dropout
+    on at the cell's AdamW: finite loss, every parameter moved. Each rank's
+    step ms and peak memory, which are not a scaling number;
 13. config 4 streaming: stream_video of the flagship at 256^2 (attn "xla",
     bf16) over one 16-frame 1080x1920 clip in 40 tiles, chunk 8, 4 frames
     of carried context: finite output of the clip's shape, no kernel
@@ -78,6 +105,8 @@ Phases, one or more lines each:
     kernels) and its bound; the flash forward also at the training shape
     in fp32 (SDPA without dropout there), the flash backward kernels also
     at the inference shape in bf16, the banded backward also at config 2's;
+    the halo kernels at the two shard shapes of phase 5c (has_prev 1), SDPA
+    with the (S, S + w) halo band as a boolean mask beside them;
     the fused tail at config 1's and config 2's decode shapes in bf16,
     checked against its plain version there (<= 2e-2 x max|ref|), beside
     ``Decoder32K.tail`` in eval mode (the cuDNN chain it replaces, never on
@@ -93,6 +122,7 @@ import copy
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -102,7 +132,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tchvp_tpu_torch import losses
+from tchvp_tpu_torch import losses, parallel
 from tchvp_tpu_torch.bench import infer_fn, profile_window, random_clip, stage_ms, time_clips
 from tchvp_tpu_torch.config import flagship_video_config
 from tchvp_tpu_torch.data.pipeline import preprocess_clip
@@ -114,6 +144,7 @@ from tchvp_tpu_torch.models.streaming import StreamingConfig, microbatched_infer
 from tchvp_tpu_torch.models.video import VideoHybridNet
 from tchvp_tpu_torch.ops import dispatch_trace
 from tchvp_tpu_torch.ops.blocks import init_flax_default
+from tchvp_tpu_torch.parallel import collectives
 from tchvp_tpu_torch.train.state import create_train_state, make_optimizer
 from tchvp_tpu_torch.train.steps import make_video_train_step
 
@@ -123,11 +154,13 @@ BF16_FLOP_PER_S = 989e12  # tensor cores
 FP32_FLOP_PER_S = 67e12  # CUDA cores
 
 LIBRARIES = {"flash_fwd": ["flash_fwd.cu"], "flash_bwd": ["flash_bwd.cu"],
-             "band_attention": ["band_attention.cu"], "fused_tail": ["fused_tail.cu"]}
+             "band_attention": ["band_attention.cu"], "halo_attention": ["halo_attention.cu"],
+             "fused_tail": ["fused_tail.cu"]}
 # Each kernel's launch counter: (key, module, attribute).
 COUNTERS = tuple((name, fa, name) for name in (
     "launches", "dq_launches", "dkv_launches",
-    "band_fwd_launches", "band_dq_launches", "band_dkv_launches")) + (
+    "band_fwd_launches", "band_dq_launches", "band_dkv_launches",
+    "halo_fwd_launches", "halo_dq_launches", "halo_dkv_launches")) + (
     ("fused_tail_launches", ft, "launches"),)
 FLASH_PY = "tchvp_tpu/kernels/flash_attention.py"
 
@@ -161,7 +194,7 @@ def device_seed(seed: int) -> torch.Tensor:
 
 
 def counts() -> dict:
-    """The launch counters of the seven kernels, by key."""
+    """The launch counters of the ten kernels, by key."""
     return {key: getattr(module, attr) for key, module, attr in COUNTERS}
 
 
@@ -353,6 +386,134 @@ def phase_band_kernels() -> dict:
           f"equal the flash kernels' bit for bit")
     return errs
 
+
+# The halo cases: ((B, H, S, Dh) of one shard, dtype, scale, window, dropout, seed).
+# The windowed-training cell on 2 ranks: B 2, 8 heads, 256 / 2 = 128 tokens, Dh 512.
+HALO_TRAIN = ((2, 8, 128, 512), torch.float32, 1 / 64, 64, 0.1, 77)
+# Config 2's group of 4 clips on 2 ranks: 8 heads, 128 tokens, Dh 1152.
+HALO_CONFIG2 = ((4, 8, 128, 1152), torch.bfloat16, 1 / 96, 64, 0.0, 0)
+HALO_CASES = [
+    HALO_TRAIN,
+    HALO_CONFIG2,
+    ((2, 4, 72, 64), torch.float32, None, 24, 0.1, 5),  # S not a multiple of 16, w not of 16 or 8
+]
+
+
+def halo_inputs(shape, dtype, scale, w, rate, seed, has_prev, rng_seed):
+    """q, k_ext, v_ext, do in ``dtype`` (k_ext, v_ext: S + w rows) and the
+    plain forward's lse and delta on those values."""
+    b, h, s, dh = shape
+    rng = np.random.default_rng(rng_seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b * h, rows, dh), dtype=np.float32)).to("cuda", dtype)
+                   for rows in (s, s + w, s + w, s))
+    out, lse = fa.windowed_mha_halo_reference(q.float(), k.float(), v.float(), scale, w, has_prev, rate, seed)
+    delta = (do.float() * out).sum(-1)
+    return q, k, v, do, lse, delta
+
+
+def halo_bwd(q, k, v, do, lse, delta, scale, w, has_prev, rate, seed):
+    args = (q, k, v, do, lse, delta, scale, w, has_prev, rate, seed)
+    return (fa.halo_bwd_dq_cuda(*args),) + fa.halo_bwd_dkv_cuda(*args)
+
+
+def halo_emulation(n: int) -> None:
+    """n shards of the windowed-training sequence in one process: each
+    shard's halo is its left neighbour's last window (zeros and has_prev 0
+    on shard 0); the concatenated outputs, dq and the dk/dv assembled from
+    each shard's dk_ext[w:] plus the next shard's dk_ext[:w] against
+    windowed_mha (the banded kernels) over the whole sequence, dropout off."""
+    (b, h, s_local, dh), _, scale, w, _, _ = HALO_TRAIN
+    s = 2 * s_local
+    rng = np.random.default_rng(90 + n)
+    q, k, v, ct = (torch.from_numpy(rng.standard_normal((b, h, s, dh), dtype=np.float32)).cuda()
+                   for _ in range(4))
+    qw, kw, vw = (t.clone().requires_grad_() for t in (q, k, v))
+    want = fa.windowed_mha(qw, kw, vw, window_size=w, scale=scale)
+    want.backward(ct)
+    chunk = s // n
+    outs, dq, dk, dv = [], [], torch.zeros_like(k), torch.zeros_like(v)
+    for i in range(n):
+        part = slice(i * chunk, (i + 1) * chunk)
+        prev = slice(i * chunk - w, i * chunk) if i else slice(0, 0)
+        halo_k = k[:, :, prev] if i else torch.zeros_like(k[:, :, :w])
+        halo_v = v[:, :, prev] if i else torch.zeros_like(v[:, :, :w])
+        qi = q[:, :, part].clone().requires_grad_()
+        ki = torch.cat([halo_k, k[:, :, part]], 2).requires_grad_()
+        vi = torch.cat([halo_v, v[:, :, part]], 2).requires_grad_()
+        out = fa.windowed_mha_halo(qi, ki, vi, window_size=w, has_prev=int(i > 0), scale=scale)
+        out.backward(ct[:, :, part])
+        outs.append(out.detach())
+        dq.append(qi.grad)
+        dk[:, :, part] += ki.grad[:, :, w:]
+        dv[:, :, part] += vi.grad[:, :, w:]
+        if i:
+            dk[:, :, prev] += ki.grad[:, :, :w]
+            dv[:, :, prev] += vi.grad[:, :, :w]
+    torch.cuda.synchronize()
+    err = (torch.cat(outs, 2) - want.detach()).abs().max().item()
+    check(err <= 1e-4, f"{n}-shard emulation out: {err}")
+    rel = []
+    for name, got, ref in (("dq", torch.cat(dq, 2), qw.grad), ("dk", dk, kw.grad), ("dv", dv, vw.grad)):
+        e, m = rel_err(got, ref)
+        check(e <= 1e-4 * m, f"{n}-shard emulation {name}: {e} > 1e-4 x {m}")
+        rel.append(e / m)
+    print(f"[5c halo emulation] {n} shards of {(b, h, s, dh)} fp32 window {w}: out max abs {err:.3g}, max abs / "
+          f"max|ref| dq {rel[0]:.3g}, dk {rel[1]:.3g}, dv {rel[2]:.3g} against windowed_mha (tol 1e-4)")
+
+
+def phase_halo_kernels() -> dict:
+    """The halo forward, dq and dk/dv kernels against their plain versions
+    and the banded kernels; the shard emulation. Returns the max abs errors
+    at the config-2 shard (forward) and the training shard (backward), with
+    has_prev 1."""
+    errs = {}
+    for i, case in enumerate(HALO_CASES):
+        (b, h, s, dh), dtype, scale, w, rate, seed = case
+        scale = 1 / math.sqrt(dh) if scale is None else scale
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        seed_t = device_seed(seed)
+        for has_prev in (0, 1):
+            prev = torch.tensor([has_prev], dtype=torch.int32).cuda()
+            q, k, v, do, lse, delta = halo_inputs((b, h, s, dh), dtype, scale, w, rate, seed, has_prev, 100 + i)
+            out, lse_k = fa.halo_fwd_cuda(q, k, v, scale, w, prev, rate, seed_t)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = fa.windowed_mha_halo_reference(q.float(), k.float(), v.float(), scale, w,
+                                                              has_prev, rate, seed)
+            err = (out.float() - ref_out).abs().max().item()
+            lse_err = (lse_k - ref_lse).abs().max().item()
+            tag = f"{(b * h, s, s + w, dh)} {str(dtype)[6:]} window {w} dropout {rate} has_prev {has_prev}"
+            print(f"[5c halo fwd] {tag}: out max abs {err:.3g}, lse max abs {lse_err:.3g} (tol {tol})")
+            check(math.isfinite(err) and err <= tol and lse_err <= tol, f"halo fwd vs plain at {tag}")
+            got = halo_bwd(q, k, v, do, lse, delta, scale, w, prev, rate, seed_t)
+            again = halo_bwd(q, k, v, do, lse, delta, scale, w, prev, rate, seed_t)
+            torch.cuda.synchronize()
+            args = (q.float(), k.float(), v.float(), do.float(), lse, delta, scale, w, has_prev, rate, seed)
+            want = (fa.windowed_mha_halo_bwd_dq_reference(*args),) + fa.windowed_mha_halo_bwd_dkv_reference(*args)
+            e = check_bwd(f"5c halo bwd, window {w}, dropout {rate}, has_prev {has_prev}", (b * h, s, s + w, dh),
+                          dtype, got, again, want)
+            if has_prev and case is HALO_CONFIG2:
+                errs["halo_fwd"] = err
+            if has_prev and case is HALO_TRAIN:
+                errs["halo_bwd_dq"], errs["halo_bwd_dkv"] = e[0], max(e[1], e[2])
+            if has_prev:
+                continue
+            # has_prev 0: the banded kernels on the local sequence (k_ext[w:]).
+            kl, vl = k[:, w:].contiguous(), v[:, w:].contiguous()
+            band_out, band_lse = fa.band_fwd_cuda(q, kl, vl, scale, w, rate, seed_t)
+            band_g = band_bwd(q, kl, vl, do, lse, delta, scale, w, rate, seed_t)
+            torch.cuda.synchronize()
+            pairs = [("out", out, band_out), ("lse", lse_k, band_lse), ("dq", got[0], band_g[0]),
+                     ("dk", got[1][:, w:], band_g[1]), ("dv", got[2][:, w:], band_g[2])]
+            bits = all(torch.equal(x, y) for _, x, y in pairs)
+            worst = max(rel_err(x, y)[0] / max(rel_err(x, y)[1], 1e-30) for _, x, y in pairs)
+            check(worst <= tol and not got[1][:, :w].any() and not got[2][:, :w].any(),
+                  f"halo has_prev 0 vs band at {tag}: {worst}")
+            print(f"[5c halo vs band] {tag}: max abs / max|band| {worst:.3g} over out, lse, dq, dk, dv "
+                  f"(tol {tol}); bits equal {bits}; dk_ext, dv_ext of the masked halo window all 0")
+    for n in (2, 4):
+        halo_emulation(n)
+    free_cuda()
+    return errs
 
 def seed_decoder(decoder: Decoder32K, seed: int) -> Decoder32K:
     """Non-trivial eval BN (scale, shift, running mean and variance) and
@@ -554,7 +715,9 @@ def phase_flagship_grads() -> None:
     compare_grads("7 flagship grads", 256, 8, ("flash", "xla"), "flash_mha_bwd_cuda")
 
 
-def phase_windowed_flagship() -> None:
+def phase_windowed_flagship():
+    """Returns the "flash" eval forward's (tokens, recon) on the CPU: the
+    reference of phase 12b (a)."""
     torch.backends.cudnn.allow_tf32 = False
     clip = preprocess_clip(random_clip(1, 32, 384, seed=4), 384)
     outs = {}
@@ -572,11 +735,13 @@ def phase_windowed_flagship() -> None:
     print(f"[8 windowed flagship fp32] B=1 T=32 384^2 window 64, flash vs windowed: tokens max abs "
           f"{errs[0]:.3g}, recon max abs {errs[1]:.3g} (tol 1e-3), finite {finite}")
     check(finite and max(errs) <= 1e-3, "windowed flagship fp32 flash vs windowed")
+    eval_ref = tuple(t.float().cpu() for t in outs["flash"])
     del outs, clip
     free_cuda()
     torch.backends.cudnn.allow_tf32 = True
     compare_grads("8 windowed flagship grads", 256, 32, ("flash", "windowed"),
                   "flash_windowed_bwd_cuda", window=64)
+    return eval_ref
 
 
 def phase_infer_main_path() -> int:
@@ -741,6 +906,155 @@ def phase_train(tag: str, batch: int, frames: int, window: int = 0) -> dict:
     del model, state, clips
     free_cuda()
     return step_counts
+
+
+SEQ_DIR = build.BUILD_DIR / "seq_smoke"  # rendezvous, references, results: ignored by git
+SEQ_RANKS = 2
+SEQ_LABEL = "2 ranks sharing one H100, gloo host-staged halo"
+# The windowed-training cell of phase 12: 256^2, B 2 of 32-frame clips, window 64.
+SEQ_TRAIN = dict(size=256, batch=2, frames=32, window=64)
+
+
+def seq_train_setup(dropout: bool, sgd: bool, seq_axis=None):
+    """The windowed-training cell's model (seed 0), state and step; SGD lr 1
+    (the update is 1.9 x the gradient) or the cell's AdamW."""
+    cfg = flagship_video_config(SEQ_TRAIN["size"], attn_impl="flash", window_size=SEQ_TRAIN["window"],
+                                seq_axis=seq_axis)
+    model = VideoHybridNet(cfg if dropout else no_dropout(cfg), device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    tx = make_optimizer(1.0, optimizer="sgd") if sgd else make_optimizer(1e-4, weight_decay=0.01,
+                                                                          grad_clip_norm=1.0)
+    state = create_train_state(model, tx, rng=0)
+    step = make_video_train_step(SEQ_TRAIN["size"], loss="mixed", alpha=0.3, beta=0.7, noise_std=0.05)
+    return model, state, step
+
+
+def seq_clip(seed: int) -> torch.Tensor:
+    return random_clip(SEQ_TRAIN["batch"], SEQ_TRAIN["frames"], SEQ_TRAIN["size"], seed=seed)
+
+
+def seq_rank(rank: int, world: int) -> None:
+    """One rank of phase 12b; writes its results to SEQ_DIR/rank<r>.json."""
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.init_distributed(f"file://{SEQ_DIR / 'rendezvous'}", world, rank, timeout_s=180)
+    build.load_all(LIBRARIES)  # built by the parent: loads, compiles nothing
+    mesh = parallel.make_mesh(("seq",), (world,))
+    group = parallel.axis_group(mesh, "seq")
+    eval_ref = torch.load(SEQ_DIR / "eval_ref.pt", weights_only=False)
+    got = {}
+    with parallel.activate_mesh(mesh):
+        # (a) the fp32 eval forward at config 2's geometry, this rank's frames.
+        cfg = flagship_video_config(384, attn_impl="flash", window_size=64, seq_axis="seq")
+        model = VideoHybridNet(cfg, device="cuda", generator=torch.Generator().manual_seed(0)).eval()
+        clip = parallel.shard_frames(preprocess_clip(random_clip(1, 32, 384, seed=4), 384), mesh, "seq")
+        reset_counts()
+        with torch.inference_mode():
+            tokens, recon = model(clip)
+        torch.cuda.synchronize()
+        got["a_counts"] = counts()
+        check(got["a_counts"] == expect_counts(halo_fwd_launches=2), f"(a) launches {got['a_counts']}")
+        # This rank's rows of phase 8's single-process tokens and frames.
+        errs = [(x.float().cpu() - ref.narrow(1, rank * x.shape[1], x.shape[1])).abs().max().item()
+                for x, ref in zip((tokens, recon), eval_ref)]
+        got["a_err"] = max(errs)
+        check(bool(torch.isfinite(recon).all()) and got["a_err"] <= 1e-3,
+              f"(a) rank {rank} eval forward vs single process: tokens, recon max abs {errs}")
+        del model, tokens, recon, clip, eval_ref
+        free_cuda()
+
+        # (b) one step of the cell, dropout off, SGD lr 1.
+        model, state, step = seq_train_setup(dropout=False, sgd=True, seq_axis="seq")
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        reset_counts()
+        with dispatch_trace.capture() as seen:
+            _, m = step(state, seq_clip(21))
+        torch.cuda.synchronize()
+        got["b_counts"] = counts()
+        check(got["b_counts"] == expect_counts(halo_fwd_launches=2, halo_dq_launches=2, halo_dkv_launches=2),
+              f"(b) launches {got['b_counts']}")
+        check({"seq_sharded_shard_map", "windowed_mha_halo", "flash_halo_cuda", "flash_halo_bwd_cuda"} <= seen
+              and not seen & {"flash_windowed_cuda", "flash_mha_cuda", "sdpa_xla", "sdpa_windowed"},
+              f"(b) recorded {sorted(seen)}")
+        got["b_loss"] = m["loss"].item()
+        stats = {n: b for n, b in model.named_buffers() if "running" in n}
+        named = dict(model.named_parameters())
+        equal = collectives.equal_across(list(named.values()) + list(stats.values()), group)
+        check(all(equal), f"(b) {equal.count(False)} parameters or stats differ across ranks")
+        if rank == 0:
+            ref = torch.load(SEQ_DIR / "step_ref.pt", map_location="cpu", weights_only=False)
+            got["b_loss_ref"] = ref["loss"]
+            check(abs(got["b_loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"]), f"(b) loss {got['b_loss']} vs {ref['loss']}")
+            g_ref = {n: (p0[n] - ref["params"][n].cuda()) / 1.9 for n in named}
+            gmax = max(g.abs().max().item() for g in g_ref.values())
+            worst = max(((named[n].detach() - ref["params"][n].cuda()).abs().max().item(), n) for n in named)
+            got["b_param_err"], got["b_gmax"] = worst[0], gmax
+            check(worst[0] <= 1.9 * 2e-2 * gmax, f"(b) parameter {worst[1]}: {worst[0]} > 1.9 x 2e-2 x {gmax}")
+            stat_err = max((b - ref["stats"][n].cuda()).abs().max().item() / max(1.0, ref["stats"][n].abs().max().item())
+                           for n, b in stats.items())
+            got["b_stat_err"] = stat_err
+            check(stat_err <= 1e-5, f"(b) BatchNorm stats: {stat_err}")
+        del model, state, step, p0, named, stats
+        free_cuda()
+
+        # (c) 3 steps with dropout on at the cell's AdamW: the per-rank times.
+        model, state, step = seq_train_setup(dropout=True, sgd=False, seq_axis="seq")
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        times, losses_ = [], []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = step(state, seq_clip(30 + i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses_.append(m["loss"].item())
+        still = [n for n, p in model.named_parameters() if torch.equal(p.detach(), p0[n])]
+        check(all(math.isfinite(x) for x in losses_) and not still, f"(c) loss {losses_}, unmoved {still[:5]}")
+        got["c_loss"], got["c_step_ms"] = losses_, times
+        got["c_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    (SEQ_DIR / f"rank{rank}.json").write_text(json.dumps(got))
+    torch.distributed.destroy_process_group()
+
+
+def phase_seq_two_ranks(eval_ref) -> dict:
+    """Phase 12b: the references in this process, then SEQ_RANKS ranks on
+    this card. Returns rank 0's launch counts of the main-path step."""
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(SEQ_DIR, ignore_errors=True)
+    SEQ_DIR.mkdir(parents=True)
+    torch.backends.cudnn.allow_tf32 = False
+    model, state, step = seq_train_setup(dropout=False, sgd=True)
+    _, m = step(state, seq_clip(21))
+    torch.cuda.synchronize()
+    torch.save(eval_ref, SEQ_DIR / "eval_ref.pt")
+    torch.save({"loss": m["loss"].item(),
+                "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+                "stats": {n: b.cpu() for n, b in model.named_buffers() if "running" in n}},
+               SEQ_DIR / "step_ref.pt")
+    del model, state, step
+    free_cuda()
+    t0 = time.perf_counter()
+    mp.spawn(seq_rank, args=(SEQ_RANKS,), nprocs=SEQ_RANKS, join=True)
+    wall = time.perf_counter() - t0
+    torch.backends.cudnn.allow_tf32 = True
+    ranks = [json.loads((SEQ_DIR / f"rank{r}.json").read_text()) for r in range(SEQ_RANKS)]
+    r0 = ranks[0]
+    print(f"[12b seq parallel] {SEQ_LABEL}, mesh ('seq',) of {SEQ_RANKS}, spawned in {wall:.1f} s: "
+          f"(a) fp32 eval 384^2 B 1 T 32 w 64, each rank's frames vs phase 8: max abs "
+          f"{[round(r['a_err'], 7) for r in ranks]} (tol 1e-3), "
+          f"halo fwd launches {r0['a_counts']['halo_fwd_launches']} per rank")
+    print(f"[12b seq parallel] (b) 256^2 B 2 T 32 w 64 fp32, SGD lr 1: loss {r0['b_loss']:.7f} vs single process "
+          f"{r0['b_loss_ref']:.7f}; parameters max abs {r0['b_param_err']:.3g} (tol 1.9 x 2e-2 x max|g| "
+          f"{r0['b_gmax']:.3g}); BN stats {r0['b_stat_err']:.3g} (tol 1e-5); bit-equal across ranks; halo launches "
+          f"per rank fwd {r0['b_counts']['halo_fwd_launches']}, dq {r0['b_counts']['halo_dq_launches']}, dkv "
+          f"{r0['b_counts']['halo_dkv_launches']}, band and flash 0")
+    for r, got in enumerate(ranks):
+        print(f"[12b seq parallel] (c) rank {r} ({SEQ_LABEL}; not a scaling number), dropout on, AdamW: loss "
+              f"{[round(x, 5) for x in got['c_loss']]}, step ms {[round(x, 1) for x in got['c_step_ms']]}, "
+              f"peak memory {got['c_peak_gb']:.2f} GB")
+    return r0["b_counts"]
 
 
 def phase_streaming() -> None:
@@ -922,6 +1236,71 @@ def time_band(band_launches: dict, band_errs: dict) -> list:
     return records
 
 
+def time_halo(halo_launches: dict, halo_errs: dict) -> list:
+    """The halo kernels (has_prev 1) at the config-2 shard (forward in the
+    JSON, and the backward) and the windowed-training shard (backward in the
+    JSON, and the forward). The bound counts the halo band's pairs of these
+    shapes; SDPA gets the (S, S + w) band as ``attn_mask`` (and no
+    dropout)."""
+    records = []
+    for case in (HALO_CONFIG2, HALO_TRAIN):
+        (b, h, s, dh), dtype, scale, w, rate, seed = case
+        bh, esize = b * h, torch.finfo(dtype).bits // 8
+        prev = torch.ones(1, dtype=torch.int32, device="cuda")
+        mask = fa.halo_band_mask(s, w, 1, torch.device("cuda"))
+        pairs = bh * int(mask.sum().item())
+        # q, out, do, dq: S rows; k_ext, v_ext, dk_ext, dv_ext: S + w rows.
+        q_bytes, kv_bytes, stat_bytes = bh * s * dh * esize, bh * (s + w) * dh * esize, bh * s * 4
+        tag = f"{(bh, s, s + w, dh)} {str(dtype)[6:]} window {w} dropout {rate}"
+        q, k, v, do, lse, delta = halo_inputs((b, h, s, dh), dtype, scale, w, rate, seed, 1, 110)
+        seed_t = device_seed(seed)
+        q4 = q.detach().view(b, h, s, dh).requires_grad_()
+        k4, v4 = (t.detach().view(b, h, s + w, dh).requires_grad_() for t in (k, v))
+        backend = sdpa_backend(q4, k4, v4, scale, mask)
+
+        fwd_ms = cuda_ms(lambda: fa.halo_fwd_cuda(q, k, v, scale, w, prev, rate, seed_t), 20)
+        fwd_plain = cuda_ms(lambda: fa.windowed_mha_halo_reference(q, k, v, scale, w, prev, rate, seed), 20)
+        with torch.no_grad():
+            fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale), 20)
+        fwd_bound, fwd_by = bound(2 * q_bytes + 2 * kv_bytes + stat_bytes, 2 * 2 * pairs * dh, dtype)
+        print(f"[14 times] halo_fwd {tag}: kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, SDPA with the "
+              f"halo band mask ({backend}) {fwd_lib:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by}); halo band "
+              f"pairs {pairs // bh} per bh")
+        if case is HALO_CONFIG2:
+            records.append(record("halo_fwd", "halo_attention.cu", f"{FLASH_PY}:1057",
+                                  halo_launches["halo_fwd_launches"], halo_errs["halo_fwd"], fwd_ms, fwd_plain,
+                                  fwd_bound, fwd_by, fwd_lib))
+
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
+        do4 = do.view(b, h, s, dh)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), 20)
+        args = (q, k, v, do, lse, delta, scale, w, prev, rate, seed_t)
+        plain_args = (q, k, v, do, lse, delta, scale, w, prev, rate, seed)
+        times = {}
+        for name, fn, plain, out_bytes, n_products, line in (
+            ("halo_bwd_dq", fa.halo_bwd_dq_cuda, fa.windowed_mha_halo_bwd_dq_reference, q_bytes, 3, 1103),
+            ("halo_bwd_dkv", fa.halo_bwd_dkv_cuda, fa.windowed_mha_halo_bwd_dkv_reference, 2 * kv_bytes, 4, 1139),
+        ):
+            ms = cuda_ms(lambda: fn(*args), 20)
+            p_ms = cuda_ms(lambda: plain(*plain_args), 20)
+            # q, k_ext, v_ext, do, lse and delta read once, the outputs written once.
+            b_ms, b_by = bound(2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + out_bytes,
+                               n_products * 2 * pairs * dh, dtype)
+            times[name] = ms
+            print(f"[14 times] {name} {tag}: kernel {ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            if case is HALO_TRAIN:
+                records.append(record(name, "halo_attention.cu", f"{FLASH_PY}:{line}",
+                                      halo_launches[name.replace("bwd_", "") + "_launches"], halo_errs[name],
+                                      ms, p_ms, b_ms, b_by, lib_ms))
+        pair_ms, pair_by = bound(3 * q_bytes + 4 * kv_bytes + 2 * stat_bytes, 10 * pairs * dh, dtype)
+        print(f"[14 times] halo backward pair {tag}: dq + dk/dv "
+              f"{times['halo_bwd_dq'] + times['halo_bwd_dkv']:.4f} ms, SDPA backward with the halo band mask, "
+              f"without dropout ({backend}) {lib_ms:.4f} ms, bound {pair_ms:.4f} ms ({pair_by})")
+        del q, k, v, do, q4, k4, v4, out4
+        free_cuda()
+    return records
+
+
 # The fused tail's input on the decoder path: (tag of phase 5b, record name, B, H, W).
 TAIL_MAIN_SHAPES = (("config 1", "fused_tail", 128, 112, 112),
                     ("config 2 group", "fused_tail_config2", 128, 192, 192))
@@ -981,20 +1360,23 @@ def main() -> None:
     fwd_err = phase_fwd_kernel()
     bwd_errs = phase_bwd_kernels()
     band_errs = phase_band_kernels()
+    halo_errs = phase_halo_kernels()
     phase_fused_tail_kernel()
     tail_launches = phase_decoder_path()
     phase_flagship_fp32()
     phase_flagship_grads()
-    phase_windowed_flagship()
+    eval_ref = phase_windowed_flagship()
     fwd_launches = phase_infer_main_path()
     band_fwd_launches = phase_config2()
     train = phase_train("11 train", batch=8, frames=8)
     windowed = phase_train("12 windowed train", batch=2, frames=32, window=64)
+    halo_launches = phase_seq_two_ranks(eval_ref)
     phase_streaming()
     records = time_flash(fwd_launches, fwd_err, {"flash_bwd_dq": train["dq_launches"],
                                                  "flash_bwd_dkv": train["dkv_launches"]}, bwd_errs)
     records += time_band({"band_fwd": band_fwd_launches, "band_bwd_dq": windowed["band_dq_launches"],
                           "band_bwd_dkv": windowed["band_dkv_launches"]}, band_errs)
+    records += time_halo(halo_launches, halo_errs)
     records += time_fused_tail(tail_launches)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

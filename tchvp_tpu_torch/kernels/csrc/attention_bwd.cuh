@@ -1,5 +1,8 @@
-// Attention backward kernels shared by flash_bwd.cu (every key) and
-// band_attention.cu (the band): the dq kernel and the dk/dv kernel.
+// Attention backward kernels shared by flash_bwd.cu (every key),
+// band_attention.cu (the band) and halo_attention.cu (one shard of the band
+// with a leading halo window of k and v): the dq kernel and the dk/dv
+// kernel, in flash_common.cuh's three modes. In kHalo the dk/dv kernel
+// covers the S + w rows of k_ext, the halo window's gradient included.
 //
 // Both recompute the softmax weights P = exp(q k^T * scale - lse) from the
 // forward's fp32 log-sum-exp, so nothing of size S x S is stored, and both
@@ -57,14 +60,14 @@ __device__ __forceinline__ float grad_logit(float logit, float dp, float lse, fl
   return p * (dpm - delta) * scale;
 }
 
-template <typename T, int NC, bool Band>
+template <typename T, int NC, Mode M>
 __global__ void __launch_bounds__(kBwdThreads)
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         T* __restrict__ dq, int seq_len, int head_dim, int window, float scale,
                         int dropout, float keep_prob, uint32_t drop_threshold,
-                        const int* __restrict__ seed) {
+                        const int* __restrict__ seed, const int* __restrict__ has_prev) {
   extern __shared__ float smem[];
   float* q_s = smem;                                // [kDqRows][head_dim]
   float* do_s = q_s + kDqRows * head_dim;           // [kDqRows][head_dim]
@@ -78,10 +81,12 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kDqRows;
   const size_t base = (size_t)bh * seq_len * head_dim;
-  const T* kb = k + base;
-  const T* vb = v + base;
+  const size_t kv_base = (size_t)bh * kv_rows<M>(seq_len, window) * head_dim;
+  const T* kb = k + kv_base;
+  const T* vb = v + kv_base;
+  const bool no_prev = M == kHalo && has_prev[0] == 0;
   int k_lo, k_hi;
-  key_span<Band>(q0, min(seq_len, q0 + kDqRows) - 1, seq_len, window, &k_lo, &k_hi);
+  key_span<M>(q0, min(seq_len, q0 + kDqRows) - 1, seq_len, window, no_prev, &k_lo, &k_hi);
 
   stage_rows<kBwdThreads>(q_s, q + base, q0, kDqRows, seq_len, head_dim);
   stage_rows<kBwdThreads>(do_s, dout + base, q0, kDqRows, seq_len, head_dim);
@@ -136,8 +141,9 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float dpt = warp_sum(dp[kk][r]);
         if (lane == r) {
           float ds = 0.f, p_drop;
-          if (col < k_hi && q0 + r < seq_len && in_band<Band>(q0 + r, col, window)) {
-            const bool keep = !dropout || keep_element(hash_base, q0 + r, col, drop_threshold);
+          if (col < k_hi && q0 + r < seq_len && in_band<M>(q0 + r, col, window, no_prev)) {
+            const bool keep =
+                !dropout || keep_element(hash_base, q0 + r, hash_col<M>(col, window), drop_threshold);
             ds = grad_logit(st * scale, dpt, lse_s[r], delta_s[r], scale, keep,
                             dropout ? keep_prob : 1.f, &p_drop);
           }
@@ -174,14 +180,15 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NC, bool Band>
+template <typename T, int NC, Mode M>
 __global__ void __launch_bounds__(kBwdThreads)
 attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          T* __restrict__ dk, T* __restrict__ dv, int seq_len, int head_dim,
                          int window, float scale, int dropout, float keep_prob,
-                         uint32_t drop_threshold, const int* __restrict__ seed) {
+                         uint32_t drop_threshold, const int* __restrict__ seed,
+                         const int* __restrict__ has_prev) {
   extern __shared__ float smem[];
   float* q_s = smem;                                // [kKvRows][head_dim]
   float* do_s = q_s + kKvRows * head_dim;           // [kKvRows][head_dim]
@@ -196,12 +203,15 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kKvKeys;
   const int col = k0 + warp;  // this warp's key
-  const bool col_ok = col < seq_len;
+  const int kv_len = kv_rows<M>(seq_len, window);
+  const bool col_ok = col < kv_len;
   const size_t base = (size_t)bh * seq_len * head_dim;
-  const T* kb = k + base;
-  const T* vb = v + base;
+  const size_t kv_base = (size_t)bh * kv_len * head_dim;
+  const T* kb = k + kv_base;
+  const T* vb = v + kv_base;
+  const bool no_prev = M == kHalo && has_prev[0] == 0;
   int q_lo, q_hi;
-  query_span<Band>(k0, min(seq_len, k0 + kKvKeys) - 1, seq_len, window, &q_lo, &q_hi);
+  query_span<M>(k0, min(kv_len, k0 + kKvKeys) - 1, seq_len, window, no_prev, &q_lo, &q_hi);
 
   float dk_acc[kKvKeys][NC], dv_acc[kKvKeys][NC];
 #pragma unroll
@@ -243,8 +253,9 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float dpt = warp_sum(dp[r]);
       if (lane == r) {
         float ds = 0.f, p_drop = 0.f;
-        if (col_ok && q0 + r < q_hi && in_band<Band>(q0 + r, col, window)) {
-          const bool keep = !dropout || keep_element(hash_base, q0 + r, col, drop_threshold);
+        if (col_ok && q0 + r < q_hi && in_band<M>(q0 + r, col, window, no_prev)) {
+          const bool keep =
+              !dropout || keep_element(hash_base, q0 + r, hash_col<M>(col, window), drop_threshold);
           ds = grad_logit(st * scale, dpt, lse_s[r], delta_s[r], scale, keep,
                           dropout ? keep_prob : 1.f, &p_drop);
         }
@@ -280,8 +291,8 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (d < head_dim) {
 #pragma unroll
       for (int j = 0; j < kKvKeys; ++j) {
-        if (k0 + j < seq_len) {
-          const size_t at = base + (size_t)(k0 + j) * head_dim + d;
+        if (k0 + j < kv_len) {
+          const size_t at = kv_base + (size_t)(k0 + j) * head_dim + d;
           dk[at] = from_f32<T>(dk_acc[j][c]);
           dv[at] = from_f32<T>(dv_acc[j][c]);
         }
@@ -298,12 +309,13 @@ struct BwdArgs {
   uint32_t drop_threshold;
   const int* seed;
   cudaStream_t stream;
+  const int* has_prev;  // kHalo only
 };
 
-template <typename T, int NC, bool Band>
+template <typename T, int NC, Mode M>
 cudaError_t launch_dq(const BwdArgs& a) {
   const size_t smem = (size_t)(2 * kDqRows * a.head_dim + kDqRows * kDqKeys + 2 * kDqRows) * sizeof(float);
-  auto kernel = attention_bwd_dq_kernel<T, NC, Band>;
+  auto kernel = attention_bwd_dq_kernel<T, NC, M>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.seq_len + kDqRows - 1) / kDqRows, a.batch_heads);
@@ -312,62 +324,68 @@ cudaError_t launch_dq(const BwdArgs& a) {
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.seq_len, a.head_dim,
       a.window, a.scale, a.dropout_rate > 0.f ? 1 : 0, 1.f - a.dropout_rate, a.drop_threshold,
-      a.seed);
+      a.seed, a.has_prev);
   return cudaGetLastError();
 }
 
-template <typename T, int NC, bool Band>
+template <typename T, int NC, Mode M>
 cudaError_t launch_dkv(const BwdArgs& a) {
   const size_t smem =
       (size_t)(2 * kKvRows * a.head_dim + 2 * kKvRows * kKvKeys + 2 * kKvRows) * sizeof(float);
-  auto kernel = attention_bwd_dkv_kernel<T, NC, Band>;
+  auto kernel = attention_bwd_dkv_kernel<T, NC, M>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.seq_len + kKvKeys - 1) / kKvKeys, a.batch_heads);
+  const int kv_len = M == kHalo ? a.seq_len + a.window : a.seq_len;
+  const dim3 grid((kv_len + kKvKeys - 1) / kKvKeys, a.batch_heads);
   kernel<<<grid, kBwdThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
       a.seq_len, a.head_dim, a.window, a.scale, a.dropout_rate > 0.f ? 1 : 0,
-      1.f - a.dropout_rate, a.drop_threshold, a.seed);
+      1.f - a.dropout_rate, a.drop_threshold, a.seed, a.has_prev);
   return cudaGetLastError();
 }
 
-template <typename T, int NC, bool Band>
+template <typename T, int NC, Mode M>
 cudaError_t launch_bwd(int which, const BwdArgs& a) {
-  return which == 0 ? launch_dq<T, NC, Band>(a) : launch_dkv<T, NC, Band>(a);
+  return which == 0 ? launch_dq<T, NC, M>(a) : launch_dkv<T, NC, M>(a);
 }
 
-template <typename T, bool Band>
+template <typename T, Mode M>
 cudaError_t dispatch_bwd(int which, int chunks, const BwdArgs& a) {
   switch (chunks) {
-    case 1: return launch_bwd<T, 1, Band>(which, a);
-    case 2: return launch_bwd<T, 2, Band>(which, a);
-    case 3: return launch_bwd<T, 3, Band>(which, a);
-    case 4: return launch_bwd<T, 4, Band>(which, a);
-    case 5: return launch_bwd<T, 5, Band>(which, a);
+    case 1: return launch_bwd<T, 1, M>(which, a);
+    case 2: return launch_bwd<T, 2, M>(which, a);
+    case 3: return launch_bwd<T, 3, M>(which, a);
+    case 4: return launch_bwd<T, 4, M>(which, a);
+    case 5: return launch_bwd<T, 5, M>(which, a);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // The C launchers' body: `which` 0 runs the dq kernel into dq, 1 the dk/dv
 // kernel into dk and dv. Checks the arguments, picks the dtype and the
-// number of head-dim chunks (Dh <= 1280), and launches on `stream`.
-template <bool Band>
+// number of head-dim chunks (Dh <= 1280), and launches on `stream`. In
+// kHalo, k, v, dk and dv have S + w rows and has_prev is required.
+template <Mode M>
 int run_bwd(int which, const void* q, const void* k, const void* v, const void* dout,
             const void* lse, const void* delta, void* dq, void* dk, void* dv, int batch_heads,
             int seq_len, int head_dim, int window, int is_bf16, float scale, float dropout_rate,
-            unsigned int drop_threshold, const void* seed, void* stream) {
+            unsigned int drop_threshold, const void* seed, void* stream,
+            const void* has_prev = nullptr) {
   if (batch_heads < 1 || batch_heads > 65535 || seq_len < 1 || head_dim < 1 ||
-      (Band && (window < 1 || window > seq_len)) || (dropout_rate > 0.f && seed == nullptr))
+      (M == kBand && (window < 1 || window > seq_len)) ||
+      (M == kHalo && (window < 1 || has_prev == nullptr)) ||
+      (dropout_rate > 0.f && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   const int chunks = (head_dim + kBwdThreads - 1) / kBwdThreads;
   if (chunks > kMaxChunks) return (int)cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, batch_heads, seq_len, head_dim,
                   window, scale, dropout_rate, drop_threshold,
-                  static_cast<const int*>(seed), static_cast<cudaStream_t>(stream)};
-  return (int)(is_bf16 ? dispatch_bwd<__nv_bfloat16, Band>(which, chunks, a)
-                       : dispatch_bwd<float, Band>(which, chunks, a));
+                  static_cast<const int*>(seed), static_cast<cudaStream_t>(stream),
+                  static_cast<const int*>(has_prev)};
+  return (int)(is_bf16 ? dispatch_bwd<__nv_bfloat16, M>(which, chunks, a)
+                       : dispatch_bwd<float, M>(which, chunks, a));
 }
 
 }  // namespace tchvp

@@ -1,5 +1,7 @@
-// Attention forward kernel shared by flash_fwd.cu (every key) and
-// band_attention.cu (the band: query window i sees key windows i-1 and i).
+// Attention forward kernel shared by flash_fwd.cu (every key),
+// band_attention.cu (the band: query window i sees key windows i-1 and i)
+// and halo_attention.cu (one shard of the band with a leading halo window of
+// k and v, flash_common.cuh's kHalo).
 //
 // One block of 256 threads owns one (bh, 16-row query tile) and walks the
 // key tiles of 32 columns of its key span in order, keeping the running
@@ -19,8 +21,10 @@
 //    V is read once per block straight from global memory, unit-stride.
 // The head dim is never tiled for the accumulator: NC = ceil(Dh/256) <= 5
 // chunks of 16 fp32 registers each cover Dh up to 1280.
-// With Band false the key span is [0, S) and the only mask is col < S;
-// with Band true it is key_span's and the band is masked per element.
+// In mode kFull the key span is [0, S) and the only mask is col < S; in
+// kBand and kHalo it is key_span's and the band is masked per element. In
+// kHalo, k and v have S + w rows, and has_prev, a (1,) int32 on the device
+// read like the seed, masks the halo window where it is 0.
 #pragma once
 
 #include "flash_common.cuh"
@@ -34,13 +38,14 @@ constexpr int kFwdWarps = kFwdThreads / 32;
 constexpr int kFwdKeysPerWarp = kFwdBlockK / kFwdWarps;  // 4
 constexpr int kFwdRowsPerWarp = kFwdBlockQ / kFwdWarps;  // 2
 
-template <typename T, int NC, bool Band>
+template <typename T, int NC, Mode M>
 __global__ void __launch_bounds__(kFwdThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int seq_len, int head_dim, int window,
                      float scale, int dropout, float keep_prob,
-                     uint32_t drop_threshold, const int* __restrict__ seed) {
+                     uint32_t drop_threshold, const int* __restrict__ seed,
+                     const int* __restrict__ has_prev) {
   extern __shared__ float smem[];
   float* q_s = smem;                            // [kFwdBlockQ][head_dim]
   float* p_s = q_s + kFwdBlockQ * head_dim;     // [kFwdBlockQ][kFwdBlockK]
@@ -54,10 +59,12 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kFwdBlockQ;
   const size_t base = (size_t)bh * seq_len * head_dim;
-  const T* kb = k + base;
-  const T* vb = v + base;
+  const size_t kv_base = (size_t)bh * kv_rows<M>(seq_len, window) * head_dim;
+  const T* kb = k + kv_base;
+  const T* vb = v + kv_base;
+  const bool no_prev = M == kHalo && has_prev[0] == 0;
   int k_lo, k_hi;
-  key_span<Band>(q0, min(seq_len, q0 + kFwdBlockQ) - 1, seq_len, window, &k_lo, &k_hi);
+  key_span<M>(q0, min(seq_len, q0 + kFwdBlockQ) - 1, seq_len, window, no_prev, &k_lo, &k_hi);
 
   stage_rows<kFwdThreads>(q_s, q + base, q0, kFwdBlockQ, seq_len, head_dim);
   if (tid < kFwdBlockQ) {
@@ -99,7 +106,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int r = 0; r < kFwdBlockQ; ++r) {
         const float total = warp_sum(s[kk][r]);
         if (lane == r) {
-          const bool valid = col < k_hi && in_band<Band>(q0 + r, col, window);
+          const bool valid = col < k_hi && in_band<M>(q0 + r, col, window, no_prev);
           p_s[r * kFwdBlockK + warp * kFwdKeysPerWarp + kk] = valid ? total * scale : kNegInf;
         }
       }
@@ -117,12 +124,14 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // Without the band a masked column (col >= S) gives exp(-1e30 - m) = 0
       // since the first tile holds a real column of every row; in the band
       // a row may see a whole tile masked, so its weights are set to 0.
-      const bool valid = !Band || (col < k_hi && in_band<Band>(q0 + r, col, window));
+      const bool valid = M == kFull || (col < k_hi && in_band<M>(q0 + r, col, window, no_prev));
       float p = valid ? expf(x - m_new) : 0.f;
       const float alpha = expf(m_prev - m_new);
       const float sum = warp_sum(p);  // l takes the undropped sum
       if (dropout) {
-        p = keep_element(hash_base, q0 + r, col, drop_threshold) ? p / keep_prob : 0.f;
+        p = keep_element(hash_base, q0 + r, hash_col<M>(col, window), drop_threshold)
+                ? p / keep_prob
+                : 0.f;
       }
       p_s[r * kFwdBlockK + lane] = p;
       __syncwarp();
@@ -174,33 +183,34 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NC, bool Band>
+template <typename T, int NC, Mode M>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                        int batch_heads, int seq_len, int head_dim, int window, float scale,
                        float dropout_rate, uint32_t drop_threshold, const int* seed,
-                       cudaStream_t stream) {
+                       const int* has_prev, cudaStream_t stream) {
   const size_t smem =
       (size_t)(kFwdBlockQ * head_dim + kFwdBlockQ * kFwdBlockK + 3 * kFwdBlockQ) * sizeof(float);
-  auto kernel = attention_fwd_kernel<T, NC, Band>;
+  auto kernel = attention_fwd_kernel<T, NC, M>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq_len + kFwdBlockQ - 1) / kFwdBlockQ, batch_heads);
   kernel<<<grid, kFwdThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), seq_len, head_dim, window, scale,
-      dropout_rate > 0.f ? 1 : 0, 1.f - dropout_rate, drop_threshold, seed);
+      dropout_rate > 0.f ? 1 : 0, 1.f - dropout_rate, drop_threshold, seed, has_prev);
   return cudaGetLastError();
 }
 
-template <typename T, bool Band>
+template <typename T, Mode M>
 cudaError_t dispatch_fwd(int chunks, const void* q, const void* k, const void* v, void* out,
                          void* lse, int batch_heads, int seq_len, int head_dim, int window,
                          float scale, float dropout_rate, uint32_t drop_threshold,
-                         const int* seed, cudaStream_t stream) {
-#define TCHVP_LAUNCH(NC)                                                                   \
-  case NC:                                                                               \
-    return launch_fwd<T, NC, Band>(q, k, v, out, lse, batch_heads, seq_len, head_dim,   \
-                                   window, scale, dropout_rate, drop_threshold, seed, stream);
+                         const int* seed, const int* has_prev, cudaStream_t stream) {
+#define TCHVP_LAUNCH(NC)                                                                \
+  case NC:                                                                            \
+    return launch_fwd<T, NC, M>(q, k, v, out, lse, batch_heads, seq_len, head_dim,   \
+                                window, scale, dropout_rate, drop_threshold, seed,   \
+                                has_prev, stream);
   switch (chunks) {
     TCHVP_LAUNCH(1)
     TCHVP_LAUNCH(2)
@@ -214,26 +224,30 @@ cudaError_t dispatch_fwd(int chunks, const void* q, const void* k, const void* v
 }
 
 // The C launchers' body: checks the arguments, picks the dtype and the
-// number of head-dim chunks, and launches on `stream`.
-template <bool Band>
+// number of head-dim chunks, and launches on `stream`. The band takes a
+// window of 1..S; the halo any window >= 1 and a has_prev pointer.
+template <Mode M>
 int run_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
             int batch_heads, int seq_len, int head_dim, int window, int is_bf16,
             float scale, float dropout_rate, unsigned int drop_threshold,
-            const void* seed, void* stream) {
+            const void* seed, void* stream, const void* has_prev = nullptr) {
   if (batch_heads < 1 || batch_heads > 65535 || seq_len < 1 || head_dim < 1 ||
-      (Band && (window < 1 || window > seq_len)) || (dropout_rate > 0.f && seed == nullptr))
+      (M == kBand && (window < 1 || window > seq_len)) ||
+      (M == kHalo && (window < 1 || has_prev == nullptr)) ||
+      (dropout_rate > 0.f && seed == nullptr))
     return (int)cudaErrorInvalidValue;
   const int chunks = (head_dim + kFwdThreads - 1) / kFwdThreads;
   if (chunks > kMaxChunks) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* seed_i = static_cast<const int*>(seed);
+  const int* prev_i = static_cast<const int*>(has_prev);
   if (is_bf16)
-    return (int)dispatch_fwd<__nv_bfloat16, Band>(chunks, q, k, v, out, lse, batch_heads,
-                                                  seq_len, head_dim, window, scale,
-                                                  dropout_rate, drop_threshold, seed_i, s);
-  return (int)dispatch_fwd<float, Band>(chunks, q, k, v, out, lse, batch_heads, seq_len,
-                                        head_dim, window, scale, dropout_rate,
-                                        drop_threshold, seed_i, s);
+    return (int)dispatch_fwd<__nv_bfloat16, M>(chunks, q, k, v, out, lse, batch_heads,
+                                               seq_len, head_dim, window, scale, dropout_rate,
+                                               drop_threshold, seed_i, prev_i, s);
+  return (int)dispatch_fwd<float, M>(chunks, q, k, v, out, lse, batch_heads, seq_len,
+                                     head_dim, window, scale, dropout_rate, drop_threshold,
+                                     seed_i, prev_i, s);
 }
 
 }  // namespace tchvp

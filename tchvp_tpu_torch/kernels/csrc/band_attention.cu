@@ -57,8 +57,8 @@ int tchvp_band_fwd(const void* q, const void* k, const void* v, void* out, void*
                    int batch_heads, int seq_len, int head_dim, int window, int is_bf16,
                    float scale, float dropout_rate, unsigned int drop_threshold,
                    const void* seed, void* stream) {
-  return tchvp::run_fwd<true>(q, k, v, out, lse, batch_heads, seq_len, head_dim, window,
-                              is_bf16, scale, dropout_rate, drop_threshold, seed, stream);
+  return tchvp::run_fwd<tchvp::kBand>(q, k, v, out, lse, batch_heads, seq_len, head_dim,
+      window, is_bf16, scale, dropout_rate, drop_threshold, seed, stream);
 }
 
 // dq over the band; the tensors as in tchvp_band_fwd, plus dout (as q) and
@@ -68,9 +68,9 @@ int tchvp_band_bwd_dq(const void* q, const void* k, const void* v, const void* d
                       int seq_len, int head_dim, int window, int is_bf16, float scale,
                       float dropout_rate, unsigned int drop_threshold, const void* seed,
                       void* stream) {
-  return tchvp::run_bwd<true>(0, q, k, v, dout, lse, delta, dq, nullptr, nullptr, batch_heads,
-                              seq_len, head_dim, window, is_bf16, scale, dropout_rate,
-                              drop_threshold, seed, stream);
+  return tchvp::run_bwd<tchvp::kBand>(0, q, k, v, dout, lse, delta, dq, nullptr, nullptr,
+      batch_heads, seq_len, head_dim, window, is_bf16, scale, dropout_rate, drop_threshold,
+      seed, stream);
 }
 
 // As tchvp_band_bwd_dq, writing dk and dv (same shape and dtype as k, v).
@@ -79,9 +79,9 @@ int tchvp_band_bwd_dkv(const void* q, const void* k, const void* v, const void* 
                        int batch_heads, int seq_len, int head_dim, int window, int is_bf16,
                        float scale, float dropout_rate, unsigned int drop_threshold,
                        const void* seed, void* stream) {
-  return tchvp::run_bwd<true>(1, q, k, v, dout, lse, delta, nullptr, dk, dv, batch_heads,
-                              seq_len, head_dim, window, is_bf16, scale, dropout_rate,
-                              drop_threshold, seed, stream);
+  return tchvp::run_bwd<tchvp::kBand>(1, q, k, v, dout, lse, delta, nullptr, dk, dv,
+      batch_heads, seq_len, head_dim, window, is_bf16, scale, dropout_rate, drop_threshold,
+      seed, stream);
 }
 
 const char* tchvp_cuda_error_string(int code) {

@@ -29,9 +29,9 @@ int tchvp_flash_bwd_dq(const void* q, const void* k, const void* v, const void* 
                        int seq_len, int head_dim, int is_bf16, float scale,
                        float dropout_rate, unsigned int drop_threshold, const void* seed,
                        void* stream) {
-  return tchvp::run_bwd<false>(0, q, k, v, dout, lse, delta, dq, nullptr, nullptr, batch_heads,
-                               seq_len, head_dim, 0, is_bf16, scale, dropout_rate,
-                               drop_threshold, seed, stream);
+  return tchvp::run_bwd<tchvp::kFull>(0, q, k, v, dout, lse, delta, dq, nullptr, nullptr,
+      batch_heads, seq_len, head_dim, 0, is_bf16, scale, dropout_rate, drop_threshold, seed,
+      stream);
 }
 
 // As tchvp_flash_bwd_dq, writing dk and dv (same shape and dtype as k, v).
@@ -40,9 +40,9 @@ int tchvp_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
                         int batch_heads, int seq_len, int head_dim, int is_bf16, float scale,
                         float dropout_rate, unsigned int drop_threshold, const void* seed,
                         void* stream) {
-  return tchvp::run_bwd<false>(1, q, k, v, dout, lse, delta, nullptr, dk, dv, batch_heads,
-                               seq_len, head_dim, 0, is_bf16, scale, dropout_rate,
-                               drop_threshold, seed, stream);
+  return tchvp::run_bwd<tchvp::kFull>(1, q, k, v, dout, lse, delta, nullptr, dk, dv,
+      batch_heads, seq_len, head_dim, 0, is_bf16, scale, dropout_rate, drop_threshold, seed,
+      stream);
 }
 
 const char* tchvp_cuda_error_string(int code) {

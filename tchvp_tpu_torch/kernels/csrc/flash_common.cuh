@@ -1,6 +1,6 @@
 // Helpers shared by the attention kernels (attention_fwd.cuh and
-// attention_bwd.cuh, built as flash_fwd.cu, flash_bwd.cu and
-// band_attention.cu).
+// attention_bwd.cuh, built as flash_fwd.cu, flash_bwd.cu, band_attention.cu
+// and halo_attention.cu).
 //
 // The attention-weight dropout mask lives here once, so the forwards and the
 // backward kernels cannot drift: each keeps element (row, col) of the
@@ -78,32 +78,80 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int row0, i
   }
 }
 
-// The band of the windowed kernels (the TPU kernels' _band_mask): query row
-// `row` sees key `col` when the key's window is the row's or the one before
-// it. Without the band every pair is in. Indices are never negative.
-template <bool Band>
-__device__ __forceinline__ bool in_band(int row, int col, int window) {
-  if (!Band) return true;
-  const int gap = row / window - col / window;
-  return gap == 0 || gap == 1;
+// The masks of the kernel bodies' three modes:
+//  * kFull (flash_fwd.cu, flash_bwd.cu): every pair of the (S, S) matrix;
+//  * kBand (band_attention.cu; the TPU kernels' _band_mask): query row `row`
+//    sees key `col` when the key's window is the row's or the one before it;
+//  * kHalo (halo_attention.cu; the TPU kernels' _halo_band_mask): one shard
+//    of sequence-parallel windowed attention. k and v carry one extra leading
+//    window, the left neighbour's halo, so they have S + w rows (k_ext) and
+//    local row `row` sees k_ext column `col` when col's window is the row's
+//    or the one after it. Where `no_prev` (the true sequence start) the halo
+//    window, k_ext columns [0, w), is masked.
+enum Mode { kFull, kBand, kHalo };
+
+template <Mode M>
+__device__ __forceinline__ bool in_band(int row, int col, int window, bool no_prev) {
+  if (M == kFull) return true;
+  if (M == kBand) {
+    const int gap = row / window - col / window;
+    return gap == 0 || gap == 1;
+  }
+  const int gap = col / window - row / window;
+  return (gap == 0 || gap == 1) && !(no_prev && col < window);
 }
 
-// [*lo, *hi): the keys that query rows first..last (last < S) may see: with
-// the band, the window before the first row's through the last row's own.
-template <bool Band>
+// Rows of k and v: S, or S + w with the halo.
+template <Mode M>
+__device__ __forceinline__ int kv_rows(int seq_len, int window) {
+  return M == kHalo ? seq_len + window : seq_len;
+}
+
+// The column the dropout hash takes. In halo mode k_ext column c is the
+// shard-local column c - w, negative for the halo window: -w..-1 wrap to
+// 2^32 - w..2^32 - 1 in keep_element's uint32 cast, as the TPU kernel's
+// int32 -> uint32 cast does. The other modes hash the column itself.
+template <Mode M>
+__device__ __forceinline__ int hash_col(int col, int window) {
+  return M == kHalo ? col - window : col;
+}
+
+// [*lo, *hi): the keys that query rows first..last (last < S) may see.
+// Band: the window before the first row's through the last row's own.
+// Halo (k_ext coordinates): the first row's window through the window after
+// the last row's, without the halo window where no_prev.
+template <Mode M>
 __device__ __forceinline__ void key_span(int first, int last, int seq_len, int window,
-                                         int* lo, int* hi) {
-  *lo = Band ? max(0, (first / window - 1) * window) : 0;
-  *hi = Band ? min(seq_len, (last / window + 1) * window) : seq_len;
+                                         bool no_prev, int* lo, int* hi) {
+  if (M == kFull) {
+    *lo = 0;
+    *hi = seq_len;
+  } else if (M == kBand) {
+    *lo = max(0, (first / window - 1) * window);
+    *hi = min(seq_len, (last / window + 1) * window);
+  } else {
+    *lo = max(no_prev ? window : 0, (first / window) * window);
+    *hi = min(seq_len + window, (last / window + 2) * window);
+  }
 }
 
-// [*lo, *hi): the query rows that may see keys first..last (last < S): with
-// the band, the first key's window through the one after the last key's.
-template <bool Band>
+// [*lo, *hi): the query rows that may see keys first..last (last < the rows
+// of k). Band: the first key's window through the one after the last key's.
+// Halo: the window before the first k_ext key's through the last key's own;
+// none for a tile of the masked halo window.
+template <Mode M>
 __device__ __forceinline__ void query_span(int first, int last, int seq_len, int window,
-                                           int* lo, int* hi) {
-  *lo = Band ? (first / window) * window : 0;
-  *hi = Band ? min(seq_len, (last / window + 2) * window) : seq_len;
+                                           bool no_prev, int* lo, int* hi) {
+  if (M == kFull) {
+    *lo = 0;
+    *hi = seq_len;
+  } else if (M == kBand) {
+    *lo = (first / window) * window;
+    *hi = min(seq_len, (last / window + 2) * window);
+  } else {
+    *lo = max(0, (first / window - 1) * window);
+    *hi = (no_prev && last < window) ? *lo : min(seq_len, (last / window + 1) * window);
+  }
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory.

@@ -27,8 +27,8 @@ int tchvp_flash_fwd(const void* q, const void* k, const void* v, void* out, void
                     int batch_heads, int seq_len, int head_dim, int is_bf16,
                     float scale, float dropout_rate, unsigned int drop_threshold,
                     const void* seed, void* stream) {
-  return tchvp::run_fwd<false>(q, k, v, out, lse, batch_heads, seq_len, head_dim, 0, is_bf16,
-                               scale, dropout_rate, drop_threshold, seed, stream);
+  return tchvp::run_fwd<tchvp::kFull>(q, k, v, out, lse, batch_heads, seq_len, head_dim, 0,
+      is_bf16, scale, dropout_rate, drop_threshold, seed, stream);
 }
 
 const char* tchvp_cuda_error_string(int code) {

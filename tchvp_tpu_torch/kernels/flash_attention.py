@@ -1,17 +1,20 @@
-"""Flash and banded attention: the Hopper kernels, their plain versions,
-``mha`` and ``windowed_mha``.
+"""Flash, banded and halo attention: the Hopper kernels, their plain
+versions, ``mha``, ``windowed_mha`` and ``windowed_mha_halo``.
 
-Counterpart of ``tchvp_tpu/kernels/flash_attention.py``'s ``mha`` and
-``windowed_mha`` with their custom VJPs. On a CUDA tensor :func:`_flash_fwd`
-launches the hand-written forward ``csrc/flash_fwd.cu`` and
-:func:`_flash_bwd` the two backward kernels of ``csrc/flash_bwd.cu`` (dq;
-dk and dv); :func:`_win_fwd` and :func:`_win_bwd` launch the banded
-kernels of ``csrc/band_attention.cu``, where query window i sees key
-windows i-1 and i. All are built at first use by :mod:`.build`. On a CPU
-tensor they run :func:`mha_reference`, :func:`mha_bwd_reference` and their
-windowed counterparts, the dense fp32 versions of the same functions (the
-band as a mask over the (S, S) logits). A CUDA tensor never reaches a plain
-version, and a build or launch failure raises.
+Counterpart of ``tchvp_tpu/kernels/flash_attention.py``'s ``mha``,
+``windowed_mha`` and ``windowed_mha_halo`` with their custom VJPs. On a CUDA
+tensor :func:`_flash_fwd` launches the hand-written forward
+``csrc/flash_fwd.cu`` and :func:`_flash_bwd` the two backward kernels of
+``csrc/flash_bwd.cu`` (dq; dk and dv); :func:`_win_fwd` and :func:`_win_bwd`
+launch the banded kernels of ``csrc/band_attention.cu``, where query window
+i sees key windows i-1 and i; :func:`_halo_fwd` and :func:`_halo_bwd` launch
+those of ``csrc/halo_attention.cu``, one shard of the band under sequence
+parallelism, whose k and v carry the left neighbour's last window in front.
+All are built at first use by :mod:`.build`. On a CPU tensor they run
+:func:`mha_reference`, :func:`mha_bwd_reference` and their windowed and halo
+counterparts, the dense fp32 versions of the same functions (the band as a
+mask over the logits). A CUDA tensor never reaches a plain version, and a
+build or launch failure raises.
 
 Attention-weight dropout uses the TPU kernels' counter-based mask: a
 squirrel3 hash of the global (row, col) index of the (S, S) weight matrix,
@@ -42,6 +45,9 @@ dkv_launches = 0  # flash_bwd_dkv
 band_fwd_launches = 0  # band_attention: forward
 band_dq_launches = 0  # band_attention: dq
 band_dkv_launches = 0  # band_attention: dk/dv
+halo_fwd_launches = 0  # halo_attention: forward
+halo_dq_launches = 0  # halo_attention: dq
+halo_dkv_launches = 0  # halo_attention: dk/dv
 
 Seed = Union[int, torch.Tensor, None]
 
@@ -69,14 +75,17 @@ def _drop_threshold(rate: float) -> int:
     return min(0xFFFFFFFF, max(0, int(round(rate * 4294967296.0))))
 
 
-def _keep_mask(seed: Seed, bh: torch.Tensor, s_q: int, s_k: int, rate: float) -> torch.Tensor:
+def _keep_mask(seed: Seed, bh: torch.Tensor, s_q: int, s_k: int, rate: float,
+               row0: int = 0, col0: int = 0) -> torch.Tensor:
     """Keep mask of the batch-heads ``bh`` (int64, any shape): bool of
-    shape ``bh.shape + (s_q, s_k)``, True = keep. ``seed``: an int or a
-    one-element integer tensor."""
+    shape ``bh.shape + (s_q, s_k)``, True = keep, of the weights at rows
+    ``row0..`` and columns ``col0..``. ``seed``: an int or a one-element
+    integer tensor. A negative index hashes as its int32 -> uint32 cast, as
+    the TPU kernels' does (the halo columns -w..-1)."""
     device = bh.device
     seed_t = torch.as_tensor(seed).to(device=device, dtype=torch.int64).reshape(())
-    row = torch.arange(s_q, dtype=torch.int64, device=device)[:, None]
-    col = torch.arange(s_k, dtype=torch.int64, device=device)[None, :]
+    row = (torch.arange(s_q, dtype=torch.int64, device=device)[:, None] + row0) & _MASK32
+    col = (torch.arange(s_k, dtype=torch.int64, device=device)[None, :] + col0) & _MASK32
     base = (_mul32(seed_t & _MASK32, 0x9E3779B1)
             + _mul32(bh.to(torch.int64) & _MASK32, 0x85EBCA77)) & _MASK32
     base = base[..., None, None]
@@ -99,9 +108,21 @@ def band_mask(s: int, window: int, device: torch.device) -> torch.Tensor:
     return (gap == 0) | (gap == 1)
 
 
+def halo_band_mask(s: int, window: int, has_prev, device: torch.device) -> torch.Tensor:
+    """(S, S + w) bool: True where local query row r sees k_ext column c,
+    i.e. c's window is r's or the one after it, and c is not in the halo
+    window (c < w) where ``has_prev`` (an int or a one-element tensor) is 0
+    (the TPU kernels' ``_halo_band_mask``)."""
+    row_win = torch.arange(s, device=device)[:, None] // window
+    col = torch.arange(s + window, device=device)[None, :]
+    gap = col // window - row_win
+    no_prev = torch.as_tensor(has_prev, device=device).reshape(()) == 0
+    return ((gap == 0) | (gap == 1)) & ~((col < window) & no_prev)
+
+
 def _logits(q: torch.Tensor, k: torch.Tensor, scale: float,
             band: Optional[torch.Tensor]) -> torch.Tensor:
-    """(BH, S, S) fp32 scaled logits; pairs outside ``band`` are -inf."""
+    """(BH, Sq, Sk) fp32 scaled logits; pairs outside ``band`` are -inf."""
     logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     return logits if band is None else logits.masked_fill(~band, float("-inf"))
 
@@ -109,11 +130,13 @@ def _logits(q: torch.Tensor, k: torch.Tensor, scale: float,
 def mha_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     dropout_rate: float = 0.0, seed: Seed = 0, band: Optional[torch.Tensor] = None,
+    col0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel: dense fp32 softmax attention over
     (BH, S, Dh) -> (out (BH, S, Dh) in q's dtype, lse (BH, S) fp32).
-    ``band``: an (S, S) bool mask of the pairs that may attend (all when
-    None); every row must keep at least one."""
+    ``band``: an (S, Sk) bool mask of the pairs that may attend (all when
+    None); every row must keep at least one. ``col0``: the dropout hash's
+    column of k's first row (-w for the halo's k_ext)."""
     bh, s, _ = q.shape
     logits = _logits(q, k, scale, band)
     m = logits.amax(dim=-1, keepdim=True)
@@ -122,7 +145,8 @@ def mha_reference(
     lse = (m + torch.log(l)).squeeze(-1)
     w = p / l
     if dropout_rate > 0.0:
-        keep = _keep_mask(seed, torch.arange(bh, device=q.device), s, s, dropout_rate)
+        keep = _keep_mask(seed, torch.arange(bh, device=q.device), s, k.shape[1], dropout_rate,
+                          col0=col0)
         w = w * keep / (1.0 - dropout_rate)
     out = torch.einsum("bqk,bkd->bqd", w, v.float())
     return out.to(q.dtype), lse
@@ -131,9 +155,9 @@ def mha_reference(
 def _grad_weights(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float, dropout_rate: float, seed: Seed,
-    band: Optional[torch.Tensor] = None,
+    band: Optional[torch.Tensor] = None, col0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(ds, P_drop), (BH, S, S) fp32: P recomputed from ``lse`` (0 outside
+    """(ds, P_drop), (BH, S, Sk) fp32: P recomputed from ``lse`` (0 outside
     ``band``); with dropout the keep mask rides on dp, and P_drop is
     P * keep / (1 - rate)."""
     bh, s, _ = q.shape
@@ -141,7 +165,8 @@ def _grad_weights(
     dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
     p_drop = p
     if dropout_rate > 0.0:
-        keep = _keep_mask(seed, torch.arange(bh, device=q.device), s, s, dropout_rate)
+        keep = _keep_mask(seed, torch.arange(bh, device=q.device), s, k.shape[1], dropout_rate,
+                          col0=col0)
         keep = keep.float() / (1.0 - dropout_rate)
         dp = dp * keep
         p_drop = p * keep
@@ -152,9 +177,10 @@ def mha_bwd_dq_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float,
     dropout_rate: float = 0.0, seed: Seed = 0, band: Optional[torch.Tensor] = None,
+    col0: int = 0,
 ) -> torch.Tensor:
     """Plain version of the dq kernel: dq = ds k, in q's dtype."""
-    ds, _ = _grad_weights(q, k, v, do, lse, delta, scale, dropout_rate, seed, band)
+    ds, _ = _grad_weights(q, k, v, do, lse, delta, scale, dropout_rate, seed, band, col0)
     return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
 
 
@@ -162,9 +188,10 @@ def mha_bwd_dkv_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float,
     dropout_rate: float = 0.0, seed: Seed = 0, band: Optional[torch.Tensor] = None,
+    col0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the dk/dv kernel: dk = ds^T q, dv = P_drop^T do."""
-    ds, p_drop = _grad_weights(q, k, v, do, lse, delta, scale, dropout_rate, seed, band)
+    ds, p_drop = _grad_weights(q, k, v, do, lse, delta, scale, dropout_rate, seed, band, col0)
     dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
     dv = torch.einsum("bqk,bqd->bkd", p_drop, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -213,25 +240,62 @@ def windowed_mha_bwd_dkv_reference(
     return mha_bwd_dkv_reference(q, k, v, do, lse, delta, scale, dropout_rate, seed, band)
 
 
+def windowed_mha_halo_reference(
+    q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Tensor, scale: float, window: int,
+    has_prev, dropout_rate: float = 0.0, seed: Seed = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the halo forward: :func:`mha_reference` of q (BH,
+    S, Dh) over k_ext, v_ext (BH, S + w, Dh) on the pairs of
+    :func:`halo_band_mask`, the dropout hash at the shard-local columns
+    (k_ext column - w) -> (out, lse)."""
+    band = halo_band_mask(q.shape[1], window, has_prev, q.device)
+    return mha_reference(q, k_ext, v_ext, scale, dropout_rate, seed, band, col0=-window)
+
+
+def windowed_mha_halo_bwd_dq_reference(
+    q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, scale: float, window: int, has_prev,
+    dropout_rate: float = 0.0, seed: Seed = 0,
+) -> torch.Tensor:
+    """Plain version of the halo dq kernel."""
+    band = halo_band_mask(q.shape[1], window, has_prev, q.device)
+    return mha_bwd_dq_reference(q, k_ext, v_ext, do, lse, delta, scale, dropout_rate, seed, band,
+                                col0=-window)
+
+
+def windowed_mha_halo_bwd_dkv_reference(
+    q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, scale: float, window: int, has_prev,
+    dropout_rate: float = 0.0, seed: Seed = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the halo dk/dv kernel: (dk_ext, dv_ext) of S + w
+    rows, the halo window's gradient in the first w."""
+    band = halo_band_mask(q.shape[1], window, has_prev, q.device)
+    return mha_bwd_dkv_reference(q, k_ext, v_ext, do, lse, delta, scale, dropout_rate, seed,
+                                 band, col0=-window)
+
+
 # Each library's C launchers and their leading pointer arguments.
 _LAUNCHERS = {
     "flash_fwd": {"tchvp_flash_fwd": 5},
     "flash_bwd": {"tchvp_flash_bwd_dq": 7, "tchvp_flash_bwd_dkv": 8},
     "band_attention": {"tchvp_band_fwd": 5, "tchvp_band_bwd_dq": 7, "tchvp_band_bwd_dkv": 8},
+    "halo_attention": {"tchvp_halo_fwd": 5, "tchvp_halo_bwd_dq": 7, "tchvp_halo_bwd_dkv": 8},
 }
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
     """Build (once) and bind ``csrc/<name>.cu``'s C launchers: pointers,
-    then (BH, S, Dh[, window], is_bf16), scale, rate, threshold, seed and
-    stream."""
+    then (BH, S, Dh[, window], is_bf16), scale, rate, threshold, seed[,
+    has_prev] and stream."""
     from tchvp_tpu_torch.kernels import build
 
     lib = build.load(name, [f"{name}.cu"])
     if lib.tchvp_cuda_error_string.restype is not ctypes.c_char_p:
-        ints = 5 if name == "band_attention" else 4
-        tail = [ctypes.c_int] * ints + [ctypes.c_float, ctypes.c_float, ctypes.c_uint32,
-                                        ctypes.c_void_p, ctypes.c_void_p]
+        ints = 4 if name.startswith("flash") else 5
+        pointers = 3 if name == "halo_attention" else 2
+        tail = [ctypes.c_int] * ints + [ctypes.c_float, ctypes.c_float, ctypes.c_uint32] + [
+            ctypes.c_void_p] * pointers
         for fn, pointers in _LAUNCHERS[name].items():
             getattr(lib, fn).argtypes = [ctypes.c_void_p] * pointers + tail
             getattr(lib, fn).restype = ctypes.c_int
@@ -416,6 +480,93 @@ def band_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, window: int,
     return dk, dv
 
 
+def _check_halo(q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Tensor, window: int,
+                **tensors: torch.Tensor) -> None:
+    """:func:`_check_inputs` for the halo kernels: q and ``tensors`` (BH,
+    S, Dh), k_ext and v_ext (BH, S + w, Dh) of q's dtype and device."""
+    _check_inputs(q, window, q=q, **tensors)
+    _check_inputs(k_ext, window, k_ext=k_ext, v_ext=v_ext)
+    bh, s, dh = q.shape
+    if k_ext.shape != (bh, s + window, dh) or k_ext.dtype != q.dtype or k_ext.device != q.device:
+        raise ValueError(f"k_ext: {tuple(k_ext.shape)} {k_ext.dtype} {k_ext.device}; the halo "
+                         f"kernels take ({bh}, {s} + {window}, {dh}) {q.dtype} on {q.device}")
+
+
+def _has_prev_arg(has_prev, device: torch.device) -> torch.Tensor:
+    """``has_prev`` (an int, a bool or a one-element tensor) as the (1,)
+    int32 device tensor the halo kernels read; made on the device from a
+    Python value, so no host-to-device copy."""
+    if isinstance(has_prev, torch.Tensor):
+        return has_prev.reshape(1).to(device=device, dtype=torch.int32).contiguous()
+    return torch.full((1,), int(has_prev), dtype=torch.int32, device=device)
+
+
+def _launch_halo(launch_name: str, q: torch.Tensor, pointers, window: int, has_prev,
+                 scale: float, dropout_rate: float, seed: Seed) -> None:
+    """Launch ``csrc/halo_attention.cu``'s ``launch_name`` on the current
+    stream with the tensors' ``pointers`` in front."""
+    lib = _kernel_lib("halo_attention")
+    bh, s, dh = q.shape
+    seed_ptr, _keep_seed = _seed_arg(seed, dropout_rate, q.device)
+    prev = _has_prev_arg(has_prev, q.device)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, launch_name)(
+            *pointers, bh, s, dh, int(window), int(q.dtype == torch.bfloat16), float(scale),
+            float(dropout_rate), _drop_threshold(dropout_rate), seed_ptr, prev.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, err, launch_name)
+
+
+def halo_fwd_cuda(
+    q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Tensor, scale: float, window: int,
+    has_prev, dropout_rate: float, seed: Seed,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of the halo forward kernel (grid: batch-head x 16-row
+    query tile, each walking its tile's k_ext span)."""
+    global halo_fwd_launches
+    _check_halo(q, k_ext, v_ext, window)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    _launch_halo("tchvp_halo_fwd", q, (q.data_ptr(), k_ext.data_ptr(), v_ext.data_ptr(),
+                                       out.data_ptr(), lse.data_ptr()),
+                 window, has_prev, scale, dropout_rate, seed)
+    halo_fwd_launches += 1
+    return out, lse
+
+
+def _halo_bwd_pointers(q, k_ext, v_ext, do, lse, delta, window: int) -> tuple:
+    _check_halo(q, k_ext, v_ext, window, do=do)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:2] or t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous fp32 (BH, S) on {q.device}")
+    return tuple(t.data_ptr() for t in (q, k_ext, v_ext, do, lse, delta))
+
+
+def halo_bwd_dq_cuda(q, k_ext, v_ext, do, lse, delta, scale: float, window: int, has_prev,
+                     dropout_rate: float, seed: Seed) -> torch.Tensor:
+    """dq of the halo dq kernel (each query tile walks its k_ext span)."""
+    global halo_dq_launches
+    pointers = _halo_bwd_pointers(q, k_ext, v_ext, do, lse, delta, window)
+    dq = torch.empty_like(q)
+    _launch_halo("tchvp_halo_bwd_dq", q, pointers + (dq.data_ptr(),), window, has_prev, scale,
+                 dropout_rate, seed)
+    halo_dq_launches += 1
+    return dq
+
+
+def halo_bwd_dkv_cuda(q, k_ext, v_ext, do, lse, delta, scale: float, window: int, has_prev,
+                      dropout_rate: float, seed: Seed) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk_ext, dv_ext) of the halo dk/dv kernel (each 8-key tile of k_ext
+    walks the local rows of its window and the one before), S + w rows."""
+    global halo_dkv_launches
+    pointers = _halo_bwd_pointers(q, k_ext, v_ext, do, lse, delta, window)
+    dk, dv = torch.empty_like(k_ext), torch.empty_like(v_ext)
+    _launch_halo("tchvp_halo_bwd_dkv", q, pointers + (dk.data_ptr(), dv.data_ptr()), window,
+                 has_prev, scale, dropout_rate, seed)
+    halo_dkv_launches += 1
+    return dk, dv
+
+
 def _flash_bwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float, dropout_rate: float, seed: Seed,
@@ -450,6 +601,32 @@ def _win_bwd(
         return (band_bwd_dq_cuda(*args),) + band_bwd_dkv_cuda(*args)
     dispatch_trace.record("flash_windowed_bwd_plain")
     return (windowed_mha_bwd_dq_reference(*args),) + windowed_mha_bwd_dkv_reference(*args)
+
+
+def _halo_fwd(
+    q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Tensor, scale: float, window: int,
+    has_prev, dropout_rate: float = 0.0, seed: Seed = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q (BH, S, Dh), k_ext, v_ext (BH, S + w, Dh) -> (out, lse)."""
+    if q.is_cuda:
+        dispatch_trace.record("flash_halo_cuda")
+        return halo_fwd_cuda(q, k_ext, v_ext, scale, window, has_prev, dropout_rate, seed)
+    dispatch_trace.record("flash_halo_plain")
+    return windowed_mha_halo_reference(q, k_ext, v_ext, scale, window, has_prev, dropout_rate, seed)
+
+
+def _halo_bwd(
+    q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, scale: float, window: int, has_prev,
+    dropout_rate: float = 0.0, seed: Seed = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The halo backward: (dq, dk_ext, dv_ext), the dq kernel first."""
+    args = (q, k_ext, v_ext, do, lse, delta, scale, window, has_prev, dropout_rate, seed)
+    if q.is_cuda:
+        dispatch_trace.record("flash_halo_bwd_cuda")
+        return (halo_bwd_dq_cuda(*args),) + halo_bwd_dkv_cuda(*args)
+    dispatch_trace.record("flash_halo_bwd_plain")
+    return (windowed_mha_halo_bwd_dq_reference(*args),) + windowed_mha_halo_bwd_dkv_reference(*args)
 
 
 def _save_residuals(ctx, q, k, v, out, lse, scale: float, dropout_rate: float, seed: Seed) -> None:
@@ -499,6 +676,27 @@ class _WindowedAttention(torch.autograd.Function):
         tensors, seed = _residuals(ctx, do)
         dq, dk, dv = _win_bwd(*tensors, ctx.scale, ctx.window, ctx.dropout_rate, seed)
         return dq, dk, dv, None, None, None, None
+
+
+class _HaloAttention(torch.autograd.Function):
+    """The custom VJP of ``_windowed_attention_halo``: as
+    :class:`_WindowedAttention` with k_ext and v_ext of S + w rows; the
+    backward returns dk_ext and dv_ext, the halo window's gradient
+    included, and none for ``has_prev``."""
+
+    @staticmethod
+    def forward(ctx, q, k_ext, v_ext, has_prev, scale, window, dropout_rate, seed):
+        out, lse = _halo_fwd(q, k_ext, v_ext, scale, window, has_prev, dropout_rate, seed)
+        _save_residuals(ctx, q, k_ext, v_ext, out, lse, scale, dropout_rate, seed)
+        ctx.window, ctx.has_prev = window, has_prev
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        (q, k_ext, v_ext, do, lse, delta), seed = _residuals(ctx, do)
+        grads = _halo_bwd(q, k_ext, v_ext, do, lse, delta, ctx.scale, ctx.window, ctx.has_prev,
+                          ctx.dropout_rate, seed)
+        return grads + (None,) * 5
 
 
 def _flat_inputs(q, k, v, scale: Optional[float], dropout_rate: float, dropout_seed: Seed):
@@ -554,4 +752,47 @@ def windowed_mha(
         raise ValueError(f"windowed_mha needs window_size >= 1, got {window_size}")
     (qf, kf, vf), scale, seed = _flat_inputs(q, k, v, scale, dropout_rate, dropout_seed)
     out = _WindowedAttention.apply(qf, kf, vf, scale, int(window_size), float(dropout_rate), seed)
+    return out.reshape(q.shape)
+
+
+def windowed_mha_halo(
+    q: torch.Tensor,
+    k_ext: torch.Tensor,
+    v_ext: torch.Tensor,
+    *,
+    window_size: int,
+    has_prev,
+    scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    dropout_seed: Seed = None,
+) -> torch.Tensor:
+    """Banded flash attention with an explicit left-context window,
+    differentiable: one shard of sequence-parallel windowed attention.
+
+    q: (B, H, S, Dh); k_ext, v_ext: (B, H, S + window_size, Dh) whose first
+    window is the context (the neighbour's halo). ``has_prev``: an int, a
+    bool or a one-element integer tensor (on the device, for no host sync);
+    0 masks the context window (the true sequence start). Equals
+    :func:`windowed_mha` over the concatenated sequence with the first
+    window's outputs dropped; with ``has_prev`` 0, ``windowed_mha`` over
+    the local sequence. Gradients of k_ext and v_ext cover all S + w rows.
+    Dropout as in :func:`windowed_mha`, the mask hashed at the shard-local
+    (row, k_ext column - w). S must be a multiple of ``window_size``.
+    """
+    b, h, s, dh = q.shape
+    w = int(window_size)
+    if w < 1:
+        raise ValueError(f"windowed_mha_halo needs window_size >= 1, got {window_size}")
+    if s % w:
+        raise ValueError(f"halo kernel needs S % window == 0; {s} % {w}")
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires a dropout_seed")
+    scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
+    seed = 0 if dropout_seed is None else dropout_seed
+    if not isinstance(seed, torch.Tensor):
+        seed = int(seed)
+    qf = q.reshape(b * h, s, dh).contiguous()
+    kf, vf = (t.reshape(b * h, s + w, dh).contiguous() for t in (k_ext, v_ext))
+    prev = _has_prev_arg(has_prev, q.device)
+    out = _HaloAttention.apply(qf, kf, vf, prev, scale, w, float(dropout_rate), seed)
     return out.reshape(q.shape)

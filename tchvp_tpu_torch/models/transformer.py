@@ -11,6 +11,11 @@ the trailing dropout. Dropout acts in train mode only; its randomness is
 drawn from the caller's ``torch.Generator`` up front
 (:meth:`TransformerEncoder.draw_dropout`), so a recompute under
 ``torch.utils.checkpoint`` applies the same masks.
+
+``seq_axis`` (sequence parallelism): under a mesh carrying the axis the
+tokens are this rank's block of the sequence, the attention takes its halo
+from the left neighbour (``ops/attention.py``), and the dropout draws are
+made for the whole sequence, the same on every rank, each keeping its part.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from tchvp_tpu_torch.ops.attention import (
     resolve_impl,
 )
 from tchvp_tpu_torch.ops.blocks import draw_keep, dropout
+from tchvp_tpu_torch.parallel.mesh import axis_shards
 
 LN_EPS = 1e-5
 
@@ -130,7 +136,9 @@ class TransformerEncoder(nn.Module):
     def draw_dropout(self, x_shape: torch.Size, generator: Optional[torch.Generator],
                      device: torch.device, has_mask: bool = False) -> TransformerDraws:
         """The train-mode dropout randomness of one pass over (B, S, D)
-        tokens, drawn from ``generator`` in layer order."""
+        tokens, drawn from ``generator`` in layer order. Under a mesh
+        carrying ``seq_axis`` the tokens are this rank's block of n: the
+        draws are made for all n blocks and this rank's part kept."""
         cfg = self.config
         rate = cfg.dropout_rate
         n = cfg.num_layers
@@ -139,11 +147,13 @@ class TransformerEncoder(nn.Module):
         b, s, d = x_shape
         impl = resolve_impl(cfg.attn_impl, device.type == "cuda", has_mask, cfg.window_size)
         core = attention_core(impl, has_mask, cfg.window_size)
+        shards, i = axis_shards(cfg.seq_axis)
         attention, layer_keep = [], []
         for _ in range(n):
             attention.append(draw_attention_dropout(core, (b, cfg.num_heads, s), rate, generator,
-                                                    device, cfg.window_size))
-            layer_keep.append(draw_keep((b, s, d), rate, generator, device))
+                                                    device, cfg.window_size, (shards, i)))
+            keep = draw_keep((b, shards * s, d), rate, generator, device)
+            layer_keep.append(keep[:, i * s:(i + 1) * s])
         return TransformerDraws(attention, layer_keep)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,

@@ -6,6 +6,14 @@ for the convs (NCHW on cuDNN); each frame's 8 latent channels become
 temporal tokens of dim (H/4)*(W/4), concatenated over the clip. The public
 layouts are the JAX package's: clip ``(B, T, H, W, 3)``, tokens
 ``(B, T*8, (H/4)*(W/4))``, recon ``(B, T, H, W, C')``.
+
+Sequence parallelism (``config.temporal.seq_axis`` under a mesh carrying
+the axis): the clip a rank is given is its contiguous block of each clip's
+frames (``parallel.mesh.shard_frames``). The encoder and decoder run per
+frame; train-mode BatchNorm takes its statistics over the axis; the
+positional encoding is the global sequence's rows of this block; dropout
+draws are made for the whole clip, the same on every rank, each keeping its
+part. JAX's arrays are global under GSPMD, so this is what it computes.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ from tchvp_tpu_torch.models.resnet_ae import (
     tokens_to_latent,
 )
 from tchvp_tpu_torch.models.transformer import TransformerDraws, TransformerEncoder
-from tchvp_tpu_torch.ops.blocks import init_flax_default
+from tchvp_tpu_torch.ops.blocks import BatchNorm, init_flax_default
+from tchvp_tpu_torch.parallel.mesh import axis_shards
 
 
 def sinusoidal_posenc(seq_len: int, dim: int) -> np.ndarray:
@@ -71,15 +80,23 @@ class VideoHybridNet(nn.Module):
         self.temporal = TransformerEncoder(config.temporal)
         self.decoder = Decoder32K(output_type=config.output_type)
         init_flax_default(self, generator or torch.Generator().manual_seed(0))
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.seq_axis = config.temporal.seq_axis
         self._posenc: Dict[Tuple, torch.Tensor] = {}
         self.to(device=device, dtype=dtype)
 
     def draw_dropout(self, clip_shape: torch.Size, generator: Optional[torch.Generator],
                      device: torch.device, has_mask: bool = False) -> VideoDraws:
         """The dropout randomness of one train-mode pass over a clip of
-        ``clip_shape`` (B, T, H, W, C), drawn from ``generator``."""
+        ``clip_shape`` (B, T, H, W, C), drawn from ``generator``; under
+        sequence parallelism (module docstring) T is this rank's frames."""
         b, t, h, w = clip_shape[:4]
-        latent_keep = self.encoder.draw_dropout(b * t, generator, device)
+        n, i = axis_shards(self.config.temporal.seq_axis)
+        latent_keep = self.encoder.draw_dropout(b * t * n, generator, device)
+        if latent_keep is not None and n > 1:
+            latent_keep = latent_keep.reshape((b, n * t) + latent_keep.shape[1:])[:, i * t:(i + 1) * t]
+            latent_keep = latent_keep.reshape((b * t,) + latent_keep.shape[2:])
         s = t * self.config.tokens_per_frame
         d = (h // 4) * (w // 4)
         return VideoDraws(latent_keep,
@@ -97,11 +114,14 @@ class VideoHybridNet(nn.Module):
         return tokens.reshape(b, t * cc, tokens.shape[-1]), (hh, ww)
 
     def _posenc_for(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The (S, D) encoding of ``tokens``; under sequence parallelism
+        rows [i S, (i + 1) S) of the n S global positions."""
         s, d = tokens.shape[-2], tokens.shape[-1]
-        key = (s, d, tokens.device, tokens.dtype)
+        n, i = axis_shards(self.config.temporal.seq_axis)
+        key = (s, d, n, i, tokens.device, tokens.dtype)
         if key not in self._posenc:
-            self._posenc[key] = torch.from_numpy(sinusoidal_posenc(s, d)).to(
-                device=tokens.device, dtype=tokens.dtype)
+            table = sinusoidal_posenc(n * s, d)[i * s:(i + 1) * s]
+            self._posenc[key] = torch.from_numpy(table).to(device=tokens.device, dtype=tokens.dtype)
         return self._posenc[key]
 
     def temporal_mix(self, tokens: torch.Tensor, mask: Optional[torch.Tensor] = None,

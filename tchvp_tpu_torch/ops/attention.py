@@ -14,9 +14,17 @@ Counterpart of ``tchvp_tpu/ops/attention.py``:
   package resolves to its Pallas kernels on the TPU, else ``"windowed"``
   with a window and no mask, else ``"xla"``.
 
-A mask sends every impl to :func:`sdpa_xla`, as in JAX. ``"ring"`` and
-``seq_axis`` (sequence parallelism) are not ported yet and raise; they
-never fall back to another core.
+A mask sends every impl to :func:`sdpa_xla`, as in JAX. ``"ring"`` is not
+ported yet and raises; it never falls back to another core.
+
+``seq_axis`` (sequence parallelism): while an ambient mesh carries the axis
+with size > 1 (:func:`tchvp_tpu_torch.parallel.mesh.mesh_with_axis`, JAX's
+gate), each rank holds a contiguous block of the tokens. A banded impl
+(``"flash"`` or ``"windowed"`` with a window, no mask) then runs
+:func:`sdpa_windowed_seq_sharded`, which takes one window of k/v from the
+left neighbour; ``"xla"`` stays full attention over the whole sequence, its
+keys and values gathered over the axis (what GSPMD inserts in JAX). Without
+such a mesh, dispatch is as without ``seq_axis``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from typing import Optional, Tuple
 import torch
 
 from tchvp_tpu_torch.ops import dispatch_trace
+from tchvp_tpu_torch.parallel.collectives import all_reduce_sum, ppermute
+from tchvp_tpu_torch.parallel.mesh import axis_group, axis_shards, mesh_with_axis
 
 _INT32_MAX = 2**31 - 1
 
@@ -154,6 +164,94 @@ def sdpa_windowed(
     )
 
 
+def _seq_mesh(seq_axis: Optional[str]):
+    """The ambient mesh iff it carries ``seq_axis`` with size > 1: the gate
+    of sequence parallelism, :func:`mesh_with_axis` as for JAX."""
+    return mesh_with_axis(seq_axis)
+
+
+def sdpa_windowed_seq_sharded(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window_size: int,
+    seq_axis: str,
+    scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    use_flash: bool = False,
+    dropout_draw: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sequence-parallel windowed attention over this rank's (B, H, S/n,
+    Dh) block of the tokens, the n blocks in rank order along ``seq_axis``.
+
+    The band (window i attends to i-1 and i) needs exactly one window of
+    keys and values from the left neighbour: :func:`ppermute` sends each
+    rank's last window to the next rank, and rank 0's halo arrives as zeros
+    and is masked, so the result is the unsharded band's rows of this rank.
+    Gradients of the halo go back to its owner through the reverse
+    exchange. ``use_flash``: the per-shard band runs in the halo kernels
+    (:func:`tchvp_tpu_torch.kernels.flash_attention.windowed_mha_halo`)
+    over ``cat([halo, local])`` with ``has_prev = (rank > 0)``; else in the
+    dense :func:`_sdpa_banded` with the halo as its left context. S/n must
+    be a multiple of ``window_size``.
+
+    Dropout: ``dropout_draw`` is this rank's draw (:func:`draw_attention_dropout`
+    with ``shards``): for the kernels the rank's one of n seeds drawn at
+    once from the shared generator, for the dense band the rank's windows
+    of the global keep mask; without it the draw is made here. Every rank
+    draws the same numbers, so the generators stay in step. Without a mesh
+    carrying ``seq_axis`` this is :func:`sdpa_windowed` over the tokens it
+    is given.
+    """
+    mesh = _seq_mesh(seq_axis)
+    if mesh is None:
+        dispatch_trace.record("seq_sharded_fallback")
+        return sdpa_windowed(q, k, v, window_size=window_size, scale=scale,
+                             dropout_rate=dropout_rate, generator=generator,
+                             deterministic=deterministic, dropout_keep=dropout_draw)
+    n, idx = axis_shards(seq_axis)
+    b, h, s_local, dh = q.shape
+    w = window_size
+    if s_local % w:
+        raise ValueError(f"seq shard {s_local * n}//{n} not a multiple of window {window_size}")
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
+    group = axis_group(mesh, seq_axis)
+    dispatch_trace.record("seq_sharded_shard_map")
+    k_halo = ppermute(k[:, :, -w:], group)
+    v_halo = ppermute(v[:, :, -w:], group)
+    drop_on = dropout_rate > 0.0 and not deterministic
+    if drop_on and dropout_draw is None:
+        core = "flash_windowed" if use_flash else "windowed"
+        dropout_draw = draw_attention_dropout(core, (b, h, s_local), dropout_rate, generator,
+                                              q.device, w, shards=(n, idx))
+    if use_flash:
+        from tchvp_tpu_torch.kernels import flash_attention
+
+        dispatch_trace.record("windowed_mha_halo")
+        return flash_attention.windowed_mha_halo(
+            q, torch.cat([k_halo, k], dim=2), torch.cat([v_halo, v], dim=2), window_size=w,
+            has_prev=int(idx > 0), scale=scale, dropout_rate=dropout_rate if drop_on else 0.0,
+            dropout_seed=dropout_draw if drop_on else None)
+    return _sdpa_banded(q, k, v, k_halo, v_halo, idx == 0, window_size=w, scale=scale,
+                        dropout_rate=dropout_rate, generator=generator,
+                        deterministic=deterministic, dropout_keep=dropout_draw)
+
+
+def _gather_seq(x: torch.Tensor, mesh, seq_axis: str) -> torch.Tensor:
+    """(B, H, S/n, Dh) blocks -> the (B, H, S, Dh) sequence on every rank,
+    differentiable: each rank places its block in zeros and the blocks are
+    summed over the axis (exact), so the adjoint sums the cotangents and
+    keeps the rank's rows."""
+    n, idx = axis_shards(seq_axis)
+    s_local = x.shape[2]
+    full = torch.cat([x.new_zeros(x.shape[:2] + (idx * s_local,) + x.shape[3:]), x,
+                      x.new_zeros(x.shape[:2] + ((n - 1 - idx) * s_local,) + x.shape[3:])], dim=2)
+    return all_reduce_sum(full, axis_group(mesh, seq_axis))
+
+
 def resolve_impl(impl: str, is_cuda: bool, has_mask: bool, window_size: int = 0) -> str:
     """``"auto"`` -> the core it stands for: ``"flash"`` on CUDA without a
     mask, as the JAX package takes its Pallas kernels on the accelerator;
@@ -201,12 +299,13 @@ def multi_head_attention(
     (:func:`draw_attention_dropout`), so that a recompute under
     ``torch.utils.checkpoint`` sees the same mask; without it active
     dropout draws from ``generator`` here.
+
+    ``seq_axis``: under a mesh carrying it (module docstring) the tokens
+    are this rank's block of the sequence: a banded impl without a mask
+    runs :func:`sdpa_windowed_seq_sharded`, ``"xla"`` full attention over
+    the gathered keys; the full-attention kernel and masks are not ported
+    there and raise.
     """
-    if seq_axis is not None:
-        raise NotImplementedError(
-            "seq_axis (sequence parallelism) is not ported yet "
-            "(ROADMAP.md, modules to port, item 11: parallelism)"
-        )
     impl = resolve_impl(impl, q.is_cuda, mask is not None, window_size)
     if impl == "ring":
         raise NotImplementedError(
@@ -215,11 +314,29 @@ def multi_head_attention(
     if impl not in ("xla", "flash", "windowed"):
         raise ValueError(f"unknown attention impl {impl!r}")
     core = attention_core(impl, mask is not None, window_size)
+    mesh = _seq_mesh(seq_axis)
+    if mesh is not None and (mask is not None or core == "flash"):
+        raise NotImplementedError(
+            "full attention with a mask or the flash kernel over seq-sharded tokens is not ported "
+            "yet (ROADMAP.md, modules to port, item 11: parallelism)")
+    shards = axis_shards(seq_axis)
     drop_active = dropout_rate > 0.0 and not deterministic
     qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
     if drop_active and dropout_draw is None:
         dropout_draw = draw_attention_dropout(core, tuple(qh.shape[:3]), dropout_rate, generator,
-                                              q.device, window_size)
+                                              q.device, window_size, shards)
+    if mesh is not None and core in ("windowed", "flash_windowed"):
+        # Only a resolved impl that already means banded attention: "xla"
+        # computes full attention whatever window_size says, and sharding
+        # must never change the math.
+        out = sdpa_windowed_seq_sharded(
+            qh, kh, vh, window_size=window_size, seq_axis=seq_axis, scale=scale,
+            dropout_rate=dropout_rate, generator=generator, deterministic=deterministic,
+            use_flash=core == "flash_windowed", dropout_draw=dropout_draw)
+        return _merge_heads(out)
+    if mesh is not None:
+        dispatch_trace.record("seq_gathered")
+        kh, vh = _gather_seq(kh, mesh, seq_axis), _gather_seq(vh, mesh, seq_axis)
     if core in ("flash", "flash_windowed"):
         from tchvp_tpu_torch.kernels import flash_attention
 
@@ -250,19 +367,28 @@ def multi_head_attention(
 def draw_attention_dropout(
     core: str, bhs: Tuple[int, int, int], rate: float,
     generator: Optional[torch.Generator], device: torch.device, window_size: int = 0,
+    shards: Tuple[int, int] = (1, 0),
 ) -> torch.Tensor:
     """The randomness of one attention call's weight dropout, from
     ``generator``, for the :func:`attention_core` ``core``: for the kernels
     a (1,) int32 seed in [0, 2^31 - 1) on ``device``; for the dense band the
-    (B, H, S/w, w, 2w) boolean keep mask; for the dense core (B, H, S, S)."""
+    (B, H, S/w, w, 2w) boolean keep mask; for the dense core (B, H, S, S).
+
+    ``shards`` (n, i): under sequence parallelism ``bhs`` is rank i's
+    (B, H, S/n) block of n. The draw is made for all n ranks at once, the
+    same on each (n seeds for the kernels, one per shard as JAX folds the
+    shard index into its key; the global keep mask for the dense cores),
+    and rank i's part comes back: its seed, its windows, its query rows."""
     if generator is None:
         raise ValueError("active attention dropout requires a torch.Generator")
+    n, i = shards
     if core in ("flash", "flash_windowed"):
-        seed = torch.randint(0, _INT32_MAX, (1,), generator=generator,
-                             device=generator.device, dtype=torch.int32)
-        return seed.to(device)
+        seeds = torch.randint(0, _INT32_MAX, (n,), generator=generator,
+                              device=generator.device, dtype=torch.int32)
+        return seeds[i:i + 1].to(device)
     b, h, s = bhs
     w = window_size
-    shape = (b, h, s // w, w, 2 * w) if core == "windowed" else (b, h, s, s)
+    shape = (b, h, n * s // w, w, 2 * w) if core == "windowed" else (b, h, n * s, n * s)
     keep = torch.rand(shape, generator=generator, device=generator.device) < 1.0 - rate
-    return keep.to(device)
+    rows = s // w if core == "windowed" else s
+    return keep[:, :, i * rows:(i + 1) * rows].to(device)

@@ -18,6 +18,9 @@ from typing import Iterator, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from tchvp_tpu_torch.parallel.collectives import all_reduce_sum
+from tchvp_tpu_torch.parallel.mesh import axis_group, mesh_with_axis
+
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm2d (eps 1e-5, momentum 0.1) with flax's train-mode update.
@@ -27,27 +30,55 @@ class BatchNorm(nn.BatchNorm2d):
     ``freeze_stats`` is set (:func:`frozen_batch_stats`) train mode updates
     nothing: the recompute of a checkpointed forward must not move the
     stats a second time.
+
+    ``seq_axis`` (set by the model that owns the layer): while an ambient
+    mesh carries it with size > 1, the batch is this rank's block of the
+    frames, and train mode takes the statistics over the axis, as JAX's
+    global arrays do under GSPMD: the sum and the count by one all-reduce,
+    then the biased variance as a second all-reduced pass (the two-pass
+    numerics of the single-process path). The all-reduces are
+    differentiable, so the backward reduces too, and the running stats end
+    with the same bits on every rank. Eval mode is untouched.
     """
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.freeze_stats = False
+        self.seq_axis: Optional[str] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        # One pass: the normalisation also returns the batch mean and
-        # 1/sqrt(biased var + eps), from which the running stats move.
-        out, mean, rstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
-                                                  True, 0.0, self.eps)
+        mesh = mesh_with_axis(self.seq_axis)
+        if mesh is not None:
+            out, mean, var = self._synced(x, axis_group(mesh, self.seq_axis))
+        else:
+            # One pass: the normalisation also returns the batch mean and
+            # 1/sqrt(biased var + eps), from which the running stats move.
+            out, mean, rstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                                      True, 0.0, self.eps)
+            with torch.no_grad():
+                var = rstd.float().pow(-2) - self.eps
         if not self.freeze_stats:
             with torch.no_grad():
                 m = self.momentum
-                var = rstd.float().pow(-2) - self.eps
-                self.running_mean.mul_(1.0 - m).add_(mean.float(), alpha=m)
-                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+                self.running_mean.mul_(1.0 - m).add_(mean.detach().float(), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.detach().float(), alpha=m)
                 self.num_batches_tracked.add_(1)
         return out
+
+    def _synced(self, x: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(out, mean, biased var) with the statistics over ``group``, fp32."""
+        xf = x.float()
+        dims = (0, 2, 3)
+        local = torch.cat([xf.sum(dims), xf.new_full((1,), float(xf.numel() // xf.shape[1]))])
+        total = all_reduce_sum(local, group)
+        mean = total[:-1] / total[-1]
+        centered = xf - mean[None, :, None, None]
+        var = all_reduce_sum((centered * centered).sum(dims), group) / total[-1]
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        out = centered * scale[None, :, None, None] + self.bias.float()[None, :, None, None]
+        return out.to(x.dtype), mean, var
 
 
 @contextlib.contextmanager

@@ -22,6 +22,18 @@ the stage-boundary tokens (JAX's ``encoder_tokens``/``temporal_tokens``);
 ``"dots"`` keeps only the outputs of unbatched matrix products (``mm``,
 ``addmm``) and recomputes the rest. A recompute leaves the BatchNorm
 running stats alone, so they move once per forward as in JAX.
+
+Sequence parallelism: when the model's ``config.temporal.seq_axis`` is on
+an ambient mesh with size > 1 (``parallel.mesh.mesh_with_axis``), every
+rank is given the same global clip and keeps its block of the frames. The
+noise and the dropout draws are made at the global shape from the shared
+generators, the same on every rank, and each rank keeps its part. Each rank
+backpropagates its local loss; the collectives' adjoints carry the other
+ranks' cotangents, so the gradients' mean over the axis, all-reduced before
+clipping and the update, is the global loss's gradient, and the parameters
+stay bit-equal across ranks. Loss, MSE and PSNR come back global. The
+remat policies other than ``"none"`` and ``accum_steps > 1`` are not ported
+there and raise.
 """
 
 from __future__ import annotations
@@ -40,6 +52,8 @@ from tchvp_tpu_torch import losses
 from tchvp_tpu_torch.config import AugmentConfig
 from tchvp_tpu_torch.data import pipeline
 from tchvp_tpu_torch.ops.blocks import frozen_batch_stats
+from tchvp_tpu_torch.parallel.collectives import all_reduce_mean_, all_reduce_sum
+from tchvp_tpu_torch.parallel.mesh import axis_group, axis_size, mesh_with_axis, shard_frames
 from tchvp_tpu_torch.train.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -78,6 +92,20 @@ def _stats_once(module: torch.nn.Module, fn: Callable) -> Callable:
             return fn(*args)
 
     return run
+
+
+def _seq_axis(model: torch.nn.Module) -> Optional[str]:
+    """The video model's sequence-parallel axis when an ambient mesh carries it."""
+    axis = model.config.temporal.seq_axis
+    return axis if mesh_with_axis(axis) is not None else None
+
+
+def _global_mean(x: torch.Tensor, seq_axis: Optional[str]) -> torch.Tensor:
+    """A per-rank mean over equal shares as the mean over the axis."""
+    if seq_axis is None:
+        return x
+    mesh = mesh_with_axis(seq_axis)
+    return all_reduce_sum(x.detach(), axis_group(mesh, seq_axis)) / axis_size(mesh, seq_axis)
 
 
 def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -131,7 +159,8 @@ def make_video_train_step(
     order, and each microbatch draws fresh dropout randomness.
 
     The returned ``step(state, batch, mark=None)`` updates ``state`` in
-    place and returns ``(state, {"loss", "psnr"})``.
+    place and returns ``(state, {"loss", "psnr"})``. Under sequence
+    parallelism (module docstring) ``batch`` is the global clip.
     """
     if qat:
         raise NotImplementedError(
@@ -156,9 +185,17 @@ def make_video_train_step(
 
     def step(state: TrainState, batch: torch.Tensor, mark: Mark = None) -> Tuple[TrainState, Metrics]:
         model = state.model.train()
+        seq_axis = _seq_axis(model)
+        if seq_axis is not None and (remat_policy != "none" or accum_steps > 1):
+            raise NotImplementedError(
+                "remat policies and accum_steps > 1 under sequence parallelism are not ported yet "
+                "(ROADMAP.md, modules to port, item 11: parallelism)")
         clean = pipeline.preprocess_clip(batch, image_size)
         clean = pipeline.augment_geometric(state.noise_generator, clean, aug)
         noisy = pipeline.gaussian_noise(state.noise_generator, clean, noise_std)
+        if seq_axis is not None:
+            mesh = mesh_with_axis(seq_axis)
+            clean, noisy = (shard_frames(x, mesh, seq_axis) for x in (clean, noisy))
         b, t = clean.shape[0], clean.shape[1]
         if b % accum_steps != 0:
             raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")
@@ -188,6 +225,10 @@ def make_video_train_step(
             grads = [p.grad for p in model.parameters() if p.grad is not None]
             torch._foreach_mul_(grads, inv)
             loss_sum, mse_sum = loss_sum * inv, mse_sum * inv
+        if seq_axis is not None:
+            all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None],
+                             axis_group(mesh_with_axis(seq_axis), seq_axis))
+            loss_sum, mse_sum = _global_mean(loss_sum, seq_axis), _global_mean(mse_sum, seq_axis)
         state.tx.step()
         state.step += 1
         if mark:
@@ -200,7 +241,8 @@ def make_video_train_step(
 
 def make_video_eval_step(image_size: int, qat: bool = False,
                          qat_dense: bool = False) -> Callable[[TrainState, torch.Tensor], Metrics]:
-    """No-grad PSNR of the eval-mode model on a uint8 clip."""
+    """No-grad PSNR of the eval-mode model on a uint8 clip (the global clip
+    under sequence parallelism; the PSNR of the global MSE)."""
     if qat:
         raise NotImplementedError(
             "qat is not ported yet (ROADMAP.md, modules to port, item 10: train/qat.py)")
@@ -208,8 +250,12 @@ def make_video_eval_step(image_size: int, qat: bool = False,
     def step(state: TrainState, batch: torch.Tensor) -> Metrics:
         model = state.model.eval()
         clean = pipeline.preprocess_clip(batch, image_size)
+        seq_axis = _seq_axis(model)
+        if seq_axis is not None:
+            clean = shard_frames(clean, mesh_with_axis(seq_axis), seq_axis)
         with torch.no_grad():
             _, recon = model(clean)
-        return {"psnr": losses.psnr(recon, clean)}
+            mse = _global_mean(losses.mse(recon, clean), seq_axis)
+        return {"psnr": 20.0 * torch.log10(1.0 / torch.sqrt(mse))}
 
     return step

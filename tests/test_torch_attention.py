@@ -7,6 +7,7 @@ import torch
 
 from tchvp_tpu.ops import attention as jatt
 from tchvp_tpu_torch.ops import attention as tatt
+from tchvp_tpu_torch import parallel as tpar
 from tchvp_tpu_torch.ops import dispatch_trace
 
 
@@ -80,16 +81,48 @@ def test_flash_dropout_seed_comes_from_the_generator():
         tatt.multi_head_attention(q, k, v, 4, impl="flash", dropout_rate=0.5, deterministic=False)
 
 
+class _TwoRankSeqMesh:
+    """Stands in for a DeviceMesh whose "seq" axis holds 2 ranks: enough
+    for the gate, which reads only the axis names and sizes."""
+
+    mesh_dim_names = ("seq",)
+
+    def size(self, mesh_dim=None):
+        return 2
+
+
+_MASK = torch.ones(2, 1, 12, 12, dtype=torch.bool)
+
+
 @pytest.mark.parametrize("kwargs", [
-    {"impl": "windowed", "window_size": 4, "seq_axis": "seq"},
-    {"impl": "windowed", "seq_axis": "seq"},
-    {"impl": "flash", "window_size": 4, "seq_axis": "seq"},
-    {"impl": "auto", "window_size": 4, "seq_axis": "seq"},
+    {"impl": "windowed", "window_size": 4, "seq_axis": "seq", "mask": _MASK},
+    {"impl": "xla", "seq_axis": "seq", "mask": _MASK},
+    {"impl": "flash", "window_size": 4, "seq_axis": "seq", "mask": _MASK},
+    {"impl": "auto", "window_size": 4, "seq_axis": "seq", "mask": _MASK},
     {"impl": "ring", "seq_axis": None},
     {"impl": "flash", "seq_axis": "seq"},
 ])
 def test_unported_cores_raise(kwargs):
+    """Ring attention, and under a mesh whose seq axis holds 2 ranks,
+    masks and the full-attention kernel over seq-sharded tokens."""
     q, k, v = (torch.from_numpy(t) for t in _tokens())
-    with dispatch_trace.capture() as seen, pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with tpar.activate_mesh(_TwoRankSeqMesh()), dispatch_trace.capture() as seen, \
+            pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tatt.multi_head_attention(q, k, v, 4, **kwargs)
     assert not seen
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"impl": "windowed", "window_size": 4},
+    {"impl": "flash", "window_size": 4},
+    {"impl": "xla"},
+])
+def test_seq_axis_without_a_mesh_dispatches_as_without_it(kwargs):
+    q, k, v = (torch.from_numpy(t) for t in _tokens())
+    outs, markers = [], []
+    for seq_axis in (None, "seq"):
+        with dispatch_trace.capture() as seen:
+            outs.append(tatt.multi_head_attention(q, k, v, 4, seq_axis=seq_axis, **kwargs))
+        markers.append(seen)
+    assert markers[0] == markers[1] and "seq_sharded_shard_map" not in markers[1]
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)

@@ -1,5 +1,6 @@
-"""The port, chip_smoke.py and fused_tail_breakdown.py import nothing of JAX
-or of the JAX package."""
+"""The port, chip_smoke.py, fused_tail_breakdown.py and the module the
+sequence-parallel tests' spawned ranks run (tests/torch_dist.py) import
+nothing of JAX or of the JAX package."""
 
 import ast
 import os
@@ -12,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tchvp_tpu"}
 SOURCES = sorted((ROOT / "tchvp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                              ROOT / "fused_tail_breakdown.py"]
+                                                              ROOT / "fused_tail_breakdown.py",
+                                                              ROOT / "tests" / "torch_dist.py"]
 
 
 def _imported_top_names(path: Path):
@@ -36,7 +38,9 @@ def test_importing_the_model_loads_no_jax():
         "import sys; import tchvp_tpu_torch.models.video, tchvp_tpu_torch.convert, "
         "tchvp_tpu_torch.bench, tchvp_tpu_torch.train.steps, tchvp_tpu_torch.train.state, "
         "tchvp_tpu_torch.losses, tchvp_tpu_torch.ops.msssim, tchvp_tpu_torch.models.streaming, "
-        "tchvp_tpu_torch.ops.tiling, tchvp_tpu_torch.kernels.fused_tail; "
+        "tchvp_tpu_torch.ops.tiling, tchvp_tpu_torch.kernels.fused_tail, "
+        "tchvp_tpu_torch.parallel.mesh, tchvp_tpu_torch.parallel.collectives; "
+        "sys.path.insert(0, 'tests'); import torch_dist; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tchvp_tpu')]; "
         "assert not bad, bad"
