@@ -7,7 +7,7 @@ Phases, one or more lines each:
     banded-attention, the halo-attention and the fused decoder tail
     libraries from the sources in this checkout (one nvcc each, in
     parallel) and prints the seconds, the registers per kernel and the
-    spill stores;
+    spill stores, and each tensor-core window forward kernel's own;
  3. forward kernel vs plain: out and lse against the plain PyTorch version
     on the card, fp32 max abs 1e-4; bf16 against the fp32 plain version on
     the same bf16-rounded inputs, max abs 2e-2; the dropout seed is a (1,)
@@ -16,23 +16,35 @@ Phases, one or more lines each:
     against ``mha_bwd_reference`` on the phase-3 cases and the training
     shape, max abs <= 1e-4 (fp32) or 2e-2 (bf16) x max|reference|; a
     second launch must give the same bits;
- 5. banded kernels vs plain: the forward, dq and dk/dv kernels of
-    ``csrc/band_attention.cu`` against the windowed plain versions at
-    config 2's shape (bf16, Dh 1152), the windowed training shape (fp32,
-    dropout 0.1), a ragged S, a window that 16 does not divide, and one
-    window (w >= S), where forward and backward equal the flash kernels'
-    bit for bit; the phase-3/4 limits, backward bits equal on repeat;
+ 5. banded kernels vs plain: the forward (two tensor-core passes), dq and
+    dk/dv kernels of ``csrc/band_attention.cu`` against the windowed plain
+    versions at config 2's shape (bf16, Dh 1152), the windowed training
+    shape (fp32, dropout 0.1), a ragged S, a window that 16 does not
+    divide, a span wider than a tile (w 200 at S 256, Dh 1152, bf16,
+    dropout 0.1), head dims whose rows are not a multiple of 16 bytes (Dh
+    100 bf16, Dh 98 fp32: the forward's element loads and stores), and one
+    window (w >= S), where the forward equals the flash forward within the
+    fp32 limit and the backward equals the flash kernels' bit for bit; the
+    phase-3/4 limits, bits equal on repeat; the forward on q, k, v one
+    element past a 16-byte boundary (element loads) against plain and
+    bit-equal to the aligned inputs' (fp32 and bf16);
 5c. halo kernels vs plain: the forward, dq and dk/dv kernels of
     ``csrc/halo_attention.cu`` (one shard of sequence-parallel windowed
     attention: k and v carry the left neighbour's last window) against
     their plain versions at the windowed-training shard (BH 16, S 128,
     k_ext 192, Dh 512, fp32, dropout 0.1), the config-2 shard (BH 32, S
-    128, k_ext 192, Dh 1152, bf16) and a ragged case (S 72, w 24), each
-    with has_prev 0 and 1: phase 5's limits, bits equal on repeat; with
+    128, k_ext 192, Dh 1152, bf16), a ragged case (S 72, w 24), a span
+    wider than a tile (S 200, w 200, k_ext 400, Dh 1152, bf16) and Dh 100
+    bf16 and 98 fp32, each with has_prev 0 and 1: phase 5's limits, bits
+    equal on repeat; the misaligned forward as in phase 5; with
     has_prev 0 against the banded kernels on the local sequence; and a
     one-process emulation of n = 2 and 4 shards (halos cut from the
     neighbours, dk/dv assembled from dk_ext[w:] and the next shard's
     dk_ext[:w]) against windowed_mha over the whole sequence;
+5d. head dims past 1280 (images 416, 512 and 768: Dh 1352, 2048, 4608): all
+    nine attention kernels (flash, band, halo: forward, dq, dk/dv) against
+    their plain versions on small shapes, fp32 with dropout 0.1 and bf16
+    without, at phase 5's limits, bits equal on repeat;
 5b. fused decoder tail (``csrc/fused_tail.cu``, off the default path):
     (a) the kernel against ``fused_tail_reference`` on the weights folded
     from a Decoder32K with seeded BN, at (2, 8, 8), (1, 9, 9), (1, 16, 24)
@@ -53,6 +65,8 @@ Phases, one or more lines each:
     B=1, T=8, dropout off, TF32 off, "flash" against "xla" from the same
     weights; the largest gradient difference <= 1e-3 x the largest
     gradient; asserts the backward kernels ran;
+7b. the flagship at 416^2 (Dh 1352), fp32, TF32 off, B=1, T=16: phase 6's
+    eval forward and phase 7's train-mode gradients, "flash" against "xla";
  8. windowed flagship fp32, TF32 off: "flash" with window 64 (the banded
     kernels) against "windowed" (the dense band) from the same weights:
     the eval forward at 384^2, B=1, T=32, max abs 1e-3; train-mode
@@ -106,7 +120,12 @@ Phases, one or more lines each:
     in fp32 (SDPA without dropout there), the flash backward kernels also
     at the inference shape in bf16, the banded backward also at config 2's;
     the halo kernels at the two shard shapes of phase 5c (has_prev 1), SDPA
-    with the (S, S + w) halo band as a boolean mask beside them;
+    with the (S, S + w) halo band as a boolean mask beside them; every
+    kernel's ``ms`` (and SDPA's) is events around a loop of calls, the
+    host's launch time included; the band and halo forwards and their SDPA
+    also by torch.profiler's device time (``device_ms`` and
+    ``library_device_ms`` in the JSON), and the forwards' two passes
+    (logits, P.V) from the same profile's kernel rows;
     the fused tail at config 1's and config 2's decode shapes in bf16,
     checked against its plain version there (<= 2e-2 x max|ref|), beside
     ``Decoder32K.tail`` in eval mode (the cuDNN chain it replaces, never on
@@ -233,6 +252,10 @@ BAND_CASES = [
     BAND_TRAIN,
     ((2, 4, 200, 64), torch.float32, None, 64, 0.1, 5),  # ragged S: a partial last window
     ((2, 4, 96, 64), torch.float32, None, 24, 0.0, 0),   # w not a multiple of 16 or 8
+    ((1, 4, 256, 1152), torch.bfloat16, 1 / 96, 200, 0.1, 3),  # a span of 4 key tiles
+    # Rows of Dh elements that are not a multiple of 16 bytes: element loads.
+    ((1, 4, 128, 100), torch.bfloat16, None, 64, 0.1, 11),
+    ((2, 2, 96, 98), torch.float32, None, 32, 0.0, 12),
 ]
 ONE_WINDOW_CASE = ((2, 4, 100, 64), torch.float32, None, 128, 0.1, 9)  # w >= S
 
@@ -261,6 +284,20 @@ def phase_device() -> str:
     return name
 
 
+def kernel_resources(log: str) -> dict:
+    """{mangled kernel name: (registers, spill-store bytes)} from ptxas -v."""
+    found, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function '" in line:
+            name = line.split("Compiling entry function '")[1].split("'")[0]
+        elif name and "bytes spill stores" in line:
+            spill = int(line.split(" bytes spill stores")[0].split()[-1])
+            found[name] = (found.get(name, (0, 0))[0], spill)
+        elif name and "Used " in line:
+            found[name] = (int(line.split("Used ")[1].split()[0]), found.get(name, (0, 0))[1])
+    return found
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     build.load_all(LIBRARIES)
@@ -272,6 +309,12 @@ def phase_build() -> None:
                          for line in log if "bytes spill stores" in line})
         print(f"[2 build] {name} built in {build.build_seconds[name]:.2f} s "
               f"(registers per instantiation: {regs}; spill-store bytes: {spills})")
+    for name in ("band_attention", "halo_attention"):
+        for kernel, (regs, spill) in sorted(kernel_resources(build.build_log[name]).items()):
+            if "window_" in kernel:
+                dtype = "bf16" if "nv_bfloat16" in kernel else "fp32"
+                kind = "logits (pass A)" if "logits" in kernel else "P.V (pass B)"
+                print(f"[2 build] {name} {kind} {dtype}: {regs} registers, {spill} bytes spill stores")
     print(f"[2 build] {len(LIBRARIES)} libraries in {wall:.2f} s wall (one nvcc each, in parallel)")
 
 
@@ -332,6 +375,30 @@ def phase_bwd_kernels() -> dict:
     return errs
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary, so that the window forwards take their element loads."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return view.copy_(t)
+
+
+def check_misaligned(tag: str, fwd, q, k, v, want) -> None:
+    """``fwd(q, k, v)`` on misaligned copies against the plain ``want`` at
+    the dtype's limit, and bit-equal to its output on the aligned inputs."""
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
+    copies = [misaligned(t) for t in (q, k, v)]
+    check(all(t.data_ptr() % 16 for t in copies), f"{tag}: the copies are 16-byte aligned")
+    got, aligned = fwd(*copies), fwd(q, k, v)
+    torch.cuda.synchronize()
+    err = (got[0].float() - want[0]).abs().max().item()
+    lse_err = (got[1] - want[1]).abs().max().item()
+    check(math.isfinite(err) and err <= tol and lse_err <= tol, f"{tag} misaligned: out {err}, lse {lse_err}")
+    check(torch.equal(got[0], aligned[0]) and torch.equal(got[1], aligned[1]),
+          f"{tag}: misaligned inputs change the bits")
+    print(f"[{tag} misaligned] q, k, v one element past a 16-byte boundary: out max abs {err:.3g}, lse max "
+          f"abs {lse_err:.3g} (tol {tol}); bits equal to the aligned inputs'")
+
+
 def band_bwd(q, k, v, do, lse, delta, scale, window, rate, seed):
     args = (q, k, v, do, lse, delta, scale, window, rate, seed)
     return (fa.band_bwd_dq_cuda(*args),) + fa.band_bwd_dkv_cuda(*args)
@@ -347,14 +414,16 @@ def phase_band_kernels() -> dict:
         scale = 1 / math.sqrt(dh) if scale is None else scale
         q, k, v = qkv((b * h, s, dh), dtype, seed=40 + i)
         out, lse = fa.band_fwd_cuda(q, k, v, scale, w, rate, device_seed(seed))
+        again = fa.band_fwd_cuda(q, k, v, scale, w, rate, device_seed(seed))
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.windowed_mha_reference(q.float(), k.float(), v.float(), scale, w, rate, seed)
         err = (out.float() - ref_out).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
         print(f"[5 band fwd] {(b, h, s, dh)} {str(dtype)[6:]} window {w} dropout {rate}: "
-              f"out max abs {err:.3g}, lse max abs {lse_err:.3g} (tol {tol})")
+              f"out max abs {err:.3g}, lse max abs {lse_err:.3g} (tol {tol}); bits equal on repeat")
         check(math.isfinite(err) and err <= tol and lse_err <= tol, f"band fwd vs plain at {case}")
+        check(torch.equal(out, again[0]) and torch.equal(lse, again[1]), f"band fwd at {case} differs on repeat")
 
         q, k, v, do, lse, delta = bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 50 + i, window=w)
         got = band_bwd(q, k, v, do, lse, delta, scale, w, rate, device_seed(seed))
@@ -368,8 +437,9 @@ def phase_band_kernels() -> dict:
         if case is BAND_TRAIN:
             errs["band_bwd_dq"], errs["band_bwd_dkv"] = e[0], max(e[1], e[2])
 
-    # One window (w >= S): the band holds every pair, so the banded kernels
-    # run the flash kernels' arithmetic in their order.
+    # One window (w >= S): the band holds every pair. The banded backward
+    # runs the flash kernels' arithmetic in their order; the forward, on the
+    # tensor cores, is held to the flash forward at the fp32 limit.
     (b, h, s, dh), dtype, _, w, rate, seed = ONE_WINDOW_CASE
     scale = 1 / math.sqrt(dh)
     q, k, v, do, _, _ = bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 60)
@@ -379,11 +449,22 @@ def phase_band_kernels() -> dict:
     band_g = band_bwd(q, k, v, do, flash[1], delta, scale, w, rate, device_seed(seed))
     flash_g = fa._flash_bwd_cuda(q, k, v, do, flash[1], delta, scale, rate, device_seed(seed))
     torch.cuda.synchronize()
-    for name, x, y in zip(("out", "lse", "dq", "dk", "dv"), band + band_g, flash + flash_g):
+    fwd_err = max((x - y).abs().max().item() for x, y in zip(band, flash))
+    check(fwd_err <= 1e-4, f"one window {w} >= S {s}: band forward vs flash {fwd_err}")
+    for name, x, y in zip(("dq", "dk", "dv"), band_g, flash_g):
         check(torch.equal(x, y), f"one window {w} >= S {s}: band {name} differs from flash "
                                  f"by {(x - y).abs().max().item():.3g}")
-    print(f"[5 band one window] {(b, h, s, dh)} window {w} >= S, dropout {rate}: out, lse, dq, dk, dv "
-          f"equal the flash kernels' bit for bit")
+    print(f"[5 band one window] {(b, h, s, dh)} window {w} >= S, dropout {rate}: out, lse max abs "
+          f"{fwd_err:.3g} from the flash forward (tol 1e-4); dq, dk, dv equal the flash kernels' bit for bit")
+
+    # Element loads with a head dim of 64: misaligned q, k, v (ragged S).
+    (b, h, s, dh), _, _, w, rate, seed = BAND_CASES[2]
+    scale, seed_t = 1 / math.sqrt(dh), device_seed(seed)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = qkv((b * h, s, dh), dtype, seed=45)
+        want = fa.windowed_mha_reference(q.float(), k.float(), v.float(), scale, w, rate, seed)
+        check_misaligned(f"5 band fwd {(b, h, s, dh)} {str(dtype)[6:]} window {w} dropout {rate}",
+                         lambda q_, k_, v_: fa.band_fwd_cuda(q_, k_, v_, scale, w, rate, seed_t), q, k, v, want)
     return errs
 
 
@@ -396,6 +477,9 @@ HALO_CASES = [
     HALO_TRAIN,
     HALO_CONFIG2,
     ((2, 4, 72, 64), torch.float32, None, 24, 0.1, 5),  # S not a multiple of 16, w not of 16 or 8
+    ((1, 4, 200, 1152), torch.bfloat16, 1 / 96, 200, 0.0, 0),  # a k_ext span of 7 key tiles
+    ((1, 4, 128, 100), torch.bfloat16, None, 64, 0.1, 13),  # element loads, as in phase 5
+    ((2, 2, 72, 98), torch.float32, None, 24, 0.0, 14),
 ]
 
 
@@ -476,13 +560,16 @@ def phase_halo_kernels() -> dict:
             prev = torch.tensor([has_prev], dtype=torch.int32).cuda()
             q, k, v, do, lse, delta = halo_inputs((b, h, s, dh), dtype, scale, w, rate, seed, has_prev, 100 + i)
             out, lse_k = fa.halo_fwd_cuda(q, k, v, scale, w, prev, rate, seed_t)
+            again = fa.halo_fwd_cuda(q, k, v, scale, w, prev, rate, seed_t)
             torch.cuda.synchronize()
+            check(torch.equal(out, again[0]) and torch.equal(lse_k, again[1]), f"halo fwd at {case} differs on repeat")
             ref_out, ref_lse = fa.windowed_mha_halo_reference(q.float(), k.float(), v.float(), scale, w,
                                                               has_prev, rate, seed)
             err = (out.float() - ref_out).abs().max().item()
             lse_err = (lse_k - ref_lse).abs().max().item()
             tag = f"{(b * h, s, s + w, dh)} {str(dtype)[6:]} window {w} dropout {rate} has_prev {has_prev}"
-            print(f"[5c halo fwd] {tag}: out max abs {err:.3g}, lse max abs {lse_err:.3g} (tol {tol})")
+            print(f"[5c halo fwd] {tag}: out max abs {err:.3g}, lse max abs {lse_err:.3g} (tol {tol}); "
+                  f"bits equal on repeat")
             check(math.isfinite(err) and err <= tol and lse_err <= tol, f"halo fwd vs plain at {tag}")
             got = halo_bwd(q, k, v, do, lse, delta, scale, w, prev, rate, seed_t)
             again = halo_bwd(q, k, v, do, lse, delta, scale, w, prev, rate, seed_t)
@@ -510,10 +597,80 @@ def phase_halo_kernels() -> dict:
                   f"halo has_prev 0 vs band at {tag}: {worst}")
             print(f"[5c halo vs band] {tag}: max abs / max|band| {worst:.3g} over out, lse, dq, dk, dv "
                   f"(tol {tol}); bits equal {bits}; dk_ext, dv_ext of the masked halo window all 0")
+    # Element loads with a head dim of 64: misaligned q, k_ext, v_ext.
+    (b, h, s, dh), _, _, w, rate, seed = HALO_CASES[2]
+    scale, seed_t = 1 / math.sqrt(dh), device_seed(seed)
+    prev = torch.ones(1, dtype=torch.int32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _, _, _ = halo_inputs((b, h, s, dh), dtype, scale, w, rate, seed, 1, 105)
+        want = fa.windowed_mha_halo_reference(q.float(), k.float(), v.float(), scale, w, 1, rate, seed)
+        check_misaligned(f"5c halo fwd {(b * h, s, s + w, dh)} {str(dtype)[6:]} window {w} dropout {rate}",
+                         lambda q_, k_, v_: fa.halo_fwd_cuda(q_, k_, v_, scale, w, prev, rate, seed_t),
+                         q, k, v, want)
     for n in (2, 4):
         halo_emulation(n)
     free_cuda()
     return errs
+
+# Head dims past 1280: the flagship at 416^2, 512^2 and 768^2 ((size/4)^2 / 8 heads).
+F1_HEAD_DIMS = (1352, 2048, 4608)
+
+
+def check_fwd(tag: str, got, again, want, tol: float) -> float:
+    """out and lse against the plain version (max abs <= tol) and bit
+    equality of a second launch; returns the out error."""
+    err = (got[0].float() - want[0]).abs().max().item()
+    lse_err = (got[1] - want[1]).abs().max().item()
+    check(math.isfinite(err) and err <= tol and lse_err <= tol, f"{tag}: out {err}, lse {lse_err} > {tol}")
+    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]), f"{tag} differs on repeat")
+    return err
+
+
+def phase_head_dims() -> None:
+    """All nine attention kernels past the old Dh limit of 1280 against their
+    plain versions: flash at S 72, band at S 80 w 32, halo at S 64 w 32
+    (k_ext 96, has_prev 1); fp32 with dropout 0.1, bf16 without."""
+    for dh in F1_HEAD_DIMS:
+        scale = 1 / math.sqrt(dh)
+        for dtype, rate in ((torch.float32, 0.1), (torch.bfloat16, 0.0)):
+            tol, seed, seed_t = (2e-2 if dtype == torch.bfloat16 else 1e-4), 21, device_seed(21)
+            tag = f"Dh {dh} {str(dtype)[6:]} dropout {rate}"
+            errs = {}
+            # Flash: BH 2, S 72.
+            q, k, v, do, lse, delta = bwd_inputs((1, 2, 72, dh), dtype, scale, rate, seed, 200 + dh)
+            want = fa.mha_reference(q.float(), k.float(), v.float(), scale, rate, seed)
+            errs["flash fwd"] = check_fwd(f"5d flash fwd {tag}", fa._flash_fwd_cuda(q, k, v, scale, rate, seed_t),
+                                          fa._flash_fwd_cuda(q, k, v, scale, rate, seed_t), want, tol)
+            got, again = (fa._flash_bwd_cuda(q, k, v, do, lse, delta, scale, rate, seed_t) for _ in range(2))
+            want = fa.mha_bwd_reference(q.float(), k.float(), v.float(), do.float(), lse, delta, scale, rate, seed)
+            e = check_bwd(f"5d flash bwd {tag}", (1, 2, 72, dh), dtype, got, again, want)
+            errs["flash dq, dk/dv"] = max(e)
+            # Band: BH 2, S 80 (a partial last window), w 32.
+            w = 32
+            q, k, v, do, lse, delta = bwd_inputs((1, 2, 80, dh), dtype, scale, rate, seed, 300 + dh, window=w)
+            want = fa.windowed_mha_reference(q.float(), k.float(), v.float(), scale, w, rate, seed)
+            errs["band fwd"] = check_fwd(f"5d band fwd {tag}", fa.band_fwd_cuda(q, k, v, scale, w, rate, seed_t),
+                                         fa.band_fwd_cuda(q, k, v, scale, w, rate, seed_t), want, tol)
+            got, again = (band_bwd(q, k, v, do, lse, delta, scale, w, rate, seed_t) for _ in range(2))
+            args = (q.float(), k.float(), v.float(), do.float(), lse, delta, scale, w, rate, seed)
+            want = (fa.windowed_mha_bwd_dq_reference(*args),) + fa.windowed_mha_bwd_dkv_reference(*args)
+            errs["band dq, dk/dv"] = max(check_bwd(f"5d band bwd {tag}", (1, 2, 80, dh), dtype, got, again, want))
+            # Halo: BH 2, S 64, w 32, k_ext 96, has_prev 1.
+            prev = torch.ones(1, dtype=torch.int32, device="cuda")
+            q, k, v, do, lse, delta = halo_inputs((1, 2, 64, dh), dtype, scale, w, rate, seed, 1, 400 + dh)
+            want = fa.windowed_mha_halo_reference(q.float(), k.float(), v.float(), scale, w, 1, rate, seed)
+            errs["halo fwd"] = check_fwd(f"5d halo fwd {tag}",
+                                         fa.halo_fwd_cuda(q, k, v, scale, w, prev, rate, seed_t),
+                                         fa.halo_fwd_cuda(q, k, v, scale, w, prev, rate, seed_t), want, tol)
+            got, again = (halo_bwd(q, k, v, do, lse, delta, scale, w, prev, rate, seed_t) for _ in range(2))
+            args = (q.float(), k.float(), v.float(), do.float(), lse, delta, scale, w, 1, rate, seed)
+            want = (fa.windowed_mha_halo_bwd_dq_reference(*args),) + fa.windowed_mha_halo_bwd_dkv_reference(*args)
+            errs["halo dq, dk/dv"] = max(check_bwd(f"5d halo bwd {tag}", (2, 64, 96, dh), dtype, got, again, want))
+            print(f"[5d head dims] {tag}: max abs " + ", ".join(f"{k_} {e_:.3g}" for k_, e_ in errs.items())
+                  + f" (tol {tol}, backward x max|ref|); bits equal on repeat")
+            del q, k, v, do, lse, delta, got, again, want
+    free_cuda()
+
 
 def seed_decoder(decoder: Decoder32K, seed: int) -> Decoder32K:
     """Non-trivial eval BN (scale, shift, running mean and variance) and
@@ -655,12 +812,12 @@ def phase_decoder_path() -> dict:
     return tail_launches
 
 
-def phase_flagship_fp32() -> None:
+def phase_flagship_fp32(tag: str = "6 flagship fp32", size: int = 224) -> None:
     torch.backends.cudnn.allow_tf32 = False  # matmuls run without TF32 by default
-    clip = preprocess_clip(random_clip(1, 16, 224, seed=1), 224)
+    clip = preprocess_clip(random_clip(1, 16, size, seed=1), size)
     outs = {}
     for impl in ("flash", "xla"):
-        model = VideoHybridNet(flagship_video_config(224, attn_impl=impl), device="cuda",
+        model = VideoHybridNet(flagship_video_config(size, attn_impl=impl), device="cuda",
                                generator=torch.Generator().manual_seed(0)).eval()
         with dispatch_trace.capture() as seen, torch.inference_mode():
             outs[impl] = model(clip)
@@ -669,9 +826,11 @@ def phase_flagship_fp32() -> None:
         del model
     errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(outs["flash"], outs["xla"])]
     finite = all(bool(torch.isfinite(t).all()) for t in outs["flash"])
-    print(f"[6 flagship fp32] B=1 T=16 224^2 flash vs xla: tokens max abs {errs[0]:.3g}, "
+    print(f"[{tag}] B=1 T=16 {size}^2 flash vs xla: tokens max abs {errs[0]:.3g}, "
           f"recon max abs {errs[1]:.3g} (tol 1e-3), finite {finite}")
-    check(finite and max(errs) <= 1e-3, "flagship fp32 flash vs xla")
+    check(finite and max(errs) <= 1e-3, f"flagship fp32 flash vs xla at {size}^2")
+    del outs, clip
+    free_cuda()
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -713,6 +872,12 @@ def compare_grads(tag: str, size: int, frames: int, impls, marker: str, window: 
 
 def phase_flagship_grads() -> None:
     compare_grads("7 flagship grads", 256, 8, ("flash", "xla"), "flash_mha_bwd_cuda")
+
+
+def phase_flagship_416() -> None:
+    """Dh 1352 (past the old limit of 1280) through the whole flagship."""
+    phase_flagship_fp32("7b flagship 416^2 fp32, Dh 1352", 416)
+    compare_grads("7b flagship 416^2 grads, Dh 1352", 416, 16, ("flash", "xla"), "flash_mha_bwd_cuda")
 
 
 def phase_windowed_flagship():
@@ -1096,18 +1261,48 @@ def bound(nbytes: float, flops: float, dtype: torch.dtype):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn``: its kernels' summed time under
+    torch.profiler over ``iters`` calls, without the host's time between
+    launches, which events around a loop of short calls would count."""
+    return profile_window(fn, iters=iters, top=0)["device_busy_ms_per_call"]
+
+
+def window_fwd_times(fwd, sdpa) -> dict:
+    """A band or halo forward ``fwd`` and ``sdpa`` timed as every kernel of
+    phase 14 is, by events around 20 calls, the host's launch time included
+    ("ms", "sdpa_ms"), and by torch.profiler's device time over 20 calls
+    ("device", "sdpa_device"); "logits" and "pv": the forward's two kernels'
+    rows in the same profile."""
+    t = {"ms": cuda_ms(fwd, 20)}
+    prof = profile_window(fwd, iters=20, top=10)
+    t["device"] = prof["device_busy_ms_per_call"]
+    t["logits"], t["pv"] = (sum(ms for name, ms, _ in prof["top_kernels_ms_per_call"] if kernel in name)
+                            for kernel in ("window_logits_kernel", "window_pv_kernel"))
+    check(t["logits"] > 0 and t["pv"] > 0, f"the forward's profile names no pass: {prof['top_kernels_ms_per_call']}")
+    with torch.no_grad():
+        t["sdpa_ms"], t["sdpa_device"] = cuda_ms(sdpa, 20), device_ms(sdpa)
+    return t
+
+
+def window_fwd_line(t: dict) -> str:
+    return (f"kernel {t['ms']:.4f} ms (events), device {t['device']:.4f} ms (torch.profiler: logits pass "
+            f"{t['logits']:.4f} + P.V pass {t['pv']:.4f})")
+
+
 def sdpa_backend(q4, k4, v4, scale, attn_mask=None) -> str:
     choice = torch._fused_sdp_choice(q4, k4, v4, attn_mask=attn_mask, scale=scale)
     name = torch.nn.attention.SDPBackend(choice).name
     return name if name != "MATH" else "MATH: no fused SDPA kernel at this dtype, head dim and mask"
 
 
-def record(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms):
-    """One kernel's JSON record; ``replaces`` is the TPU kernel's "file:line"."""
+def record(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_by, library_ms, **extra):
+    """One kernel's JSON record; ``replaces`` is the TPU kernel's "file:line";
+    ``extra``: further measured fields."""
     return {"name": name, "route": "cuda", "source": f"tchvp_tpu_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms, **extra}
 
 
 def time_flash(fwd_launches: int, fwd_err: float, bwd_launches: dict, bwd_errs: dict) -> list:
@@ -1198,18 +1393,18 @@ def time_band(band_launches: dict, band_errs: dict) -> list:
         q4, k4, v4 = (t.detach().view(b, h, s, dh).requires_grad_() for t in (q, k, v))
         backend = sdpa_backend(q4, k4, v4, scale, mask)
 
-        fwd_ms = cuda_ms(lambda: fa.band_fwd_cuda(q, k, v, scale, w, rate, seed_t), 20)
+        t = window_fwd_times(lambda: fa.band_fwd_cuda(q, k, v, scale, w, rate, seed_t),
+                             lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale))
         fwd_plain = cuda_ms(lambda: fa.windowed_mha_reference(q, k, v, scale, w, rate, seed), 20)
-        with torch.no_grad():
-            fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale), 20)
         fwd_bound, fwd_by = bound(4 * row_bytes + stat_bytes, 2 * 2 * pairs * dh, dtype)
-        print(f"[14 times] band_fwd {tag}: kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, SDPA with the "
-              f"band mask ({backend}) {fwd_lib:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by}); band pairs "
-              f"{pairs // bh} per bh")
+        print(f"[14 times] band_fwd {tag}: {window_fwd_line(t)}, plain {fwd_plain:.4f} ms, SDPA with the "
+              f"band mask ({backend}) {t['sdpa_ms']:.4f} ms (events), device {t['sdpa_device']:.4f} ms, bound "
+              f"{fwd_bound:.4f} ms ({fwd_by}); band pairs {pairs // bh} per bh")
         if case is BAND_CONFIG2:
             records.append(record("band_fwd", "band_attention.cu", f"{FLASH_PY}:611",
-                                  band_launches["band_fwd"], band_errs["band_fwd"], fwd_ms, fwd_plain,
-                                  fwd_bound, fwd_by, fwd_lib))
+                                  band_launches["band_fwd"], band_errs["band_fwd"], t["ms"], fwd_plain,
+                                  fwd_bound, fwd_by, t["sdpa_ms"], device_ms=t["device"],
+                                  library_device_ms=t["sdpa_device"]))
 
         out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
         do4 = do.view(b, h, s, dh)
@@ -1258,18 +1453,18 @@ def time_halo(halo_launches: dict, halo_errs: dict) -> list:
         k4, v4 = (t.detach().view(b, h, s + w, dh).requires_grad_() for t in (k, v))
         backend = sdpa_backend(q4, k4, v4, scale, mask)
 
-        fwd_ms = cuda_ms(lambda: fa.halo_fwd_cuda(q, k, v, scale, w, prev, rate, seed_t), 20)
+        t = window_fwd_times(lambda: fa.halo_fwd_cuda(q, k, v, scale, w, prev, rate, seed_t),
+                             lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale))
         fwd_plain = cuda_ms(lambda: fa.windowed_mha_halo_reference(q, k, v, scale, w, prev, rate, seed), 20)
-        with torch.no_grad():
-            fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale), 20)
         fwd_bound, fwd_by = bound(2 * q_bytes + 2 * kv_bytes + stat_bytes, 2 * 2 * pairs * dh, dtype)
-        print(f"[14 times] halo_fwd {tag}: kernel {fwd_ms:.4f} ms, plain {fwd_plain:.4f} ms, SDPA with the "
-              f"halo band mask ({backend}) {fwd_lib:.4f} ms, bound {fwd_bound:.4f} ms ({fwd_by}); halo band "
-              f"pairs {pairs // bh} per bh")
+        print(f"[14 times] halo_fwd {tag}: {window_fwd_line(t)}, plain {fwd_plain:.4f} ms, SDPA with the "
+              f"halo band mask ({backend}) {t['sdpa_ms']:.4f} ms (events), device {t['sdpa_device']:.4f} ms, "
+              f"bound {fwd_bound:.4f} ms ({fwd_by}); halo band pairs {pairs // bh} per bh")
         if case is HALO_CONFIG2:
             records.append(record("halo_fwd", "halo_attention.cu", f"{FLASH_PY}:1057",
-                                  halo_launches["halo_fwd_launches"], halo_errs["halo_fwd"], fwd_ms, fwd_plain,
-                                  fwd_bound, fwd_by, fwd_lib))
+                                  halo_launches["halo_fwd_launches"], halo_errs["halo_fwd"], t["ms"], fwd_plain,
+                                  fwd_bound, fwd_by, t["sdpa_ms"], device_ms=t["device"],
+                                  library_device_ms=t["sdpa_device"]))
 
         out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
         do4 = do.view(b, h, s, dh)
@@ -1361,10 +1556,12 @@ def main() -> None:
     bwd_errs = phase_bwd_kernels()
     band_errs = phase_band_kernels()
     halo_errs = phase_halo_kernels()
+    phase_head_dims()
     phase_fused_tail_kernel()
     tail_launches = phase_decoder_path()
     phase_flagship_fp32()
     phase_flagship_grads()
+    phase_flagship_416()
     eval_ref = phase_windowed_flagship()
     fwd_launches = phase_infer_main_path()
     band_fwd_launches = phase_config2()

@@ -16,21 +16,33 @@
 // As on the TPU there are two kernels and no atomics, so every gradient
 // element is summed by one thread in one order and the result is the same,
 // bit for bit, from run to run.
-//  * dq: one block of 256 threads owns one (bh, 16-row query tile) and walks
-//    the key tiles of 16 columns of its key span. The q and do tiles are
-//    fp32 in shared memory (2 x 16 x Dh x 4 bytes: 147 KB at Dh 1152). Each
+//  * dq: one block of 256 threads owns one (bh, 16-row query tile, head-dim
+//    column group) and walks the key tiles of 16 columns of its key span.
+//    The q and do tiles are fp32 in shared memory (2 x 16 x Dh x 4 bytes:
+//    147 KB at Dh 1152; above Dh 1280 they are staged again for each key
+//    tile, one column group's width at a time). Each
 //    warp owns two key columns; its lanes stride the head dim (unit-stride
 //    K/V loads, no 16-byte alignment assumed: Dh 392 rows start 784 bytes
 //    apart) and the partial dot products for s and dp meet in a warp
 //    shuffle reduction, after which lane r forms ds for query row r. Thread
-//    t then owns head-dim columns t, t+256, ... of the dq accumulator
-//    (16 x NC fp32 registers, NC = ceil(Dh/256) <= 5).
-//  * dk/dv: one block owns one (bh, 8-key tile) and walks the query tiles of
-//    16 rows of its query span, staging each q and do tile in shared
-//    memory. Warp w owns key w of the tile. A 16-key tile's dk and dv
+//    t then owns head-dim columns col0 + t, col0 + t + 256, ... of its
+//    column group in the dq accumulator (16 x NC fp32 registers, NC <=
+//    kMaxChunks).
+//  * dk/dv: one block owns one (bh, 8-key tile, column group) and walks the
+//    query tiles of 16 rows of its query span, staging each q and do tile
+//    in shared memory (in column chunks above Dh 1280, the block's own
+//    chunk staged again for the products). Warp w owns key w of the tile.
+//    A 16-key tile's dk and dv
 //    accumulators would take 2 x 16 x Dh x 4 bytes (147 KB at Dh 1152) and
 //    spill as registers; the 8-key tile keeps them in 2 x 8 x NC registers
 //    per thread, the size of the forward's accumulator.
+// A head dim above kMaxChunks x 256 = 1280 takes blockIdx.z column groups
+// (flash_common.cuh's ColumnGroups); each recomputes s and dp over the
+// whole Dh with the lanes' columns in ascending order, so every group sees
+// the same P and ds. At Dh <= 1280 one group runs the kGroups = false
+// instantiation, which stages q and do once and has no column offsets or
+// re-staging: with them as runtime branches the same bits took -52 % to
+// +7 % of the time at the main path's shapes (PERF.md).
 #pragma once
 
 #include "flash_common.cuh"
@@ -60,18 +72,23 @@ __device__ __forceinline__ float grad_logit(float logit, float dp, float lse, fl
   return p * (dpm - delta) * scale;
 }
 
-template <typename T, int NC, Mode M>
+// kGroups in both kernels: the block is one of several column groups (Dh >
+// 1280), and q and do are staged q_cols columns at a time; else they are
+// staged whole and col0 is 0.
+template <typename T, int NC, Mode M, bool kGroups>
 __global__ void __launch_bounds__(kBwdThreads)
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        T* __restrict__ dq, int seq_len, int head_dim, int window, float scale,
+                        T* __restrict__ dq, int seq_len, int head_dim, int q_cols, int window,
+                        float scale,
                         int dropout, float keep_prob, uint32_t drop_threshold,
                         const int* __restrict__ seed, const int* __restrict__ has_prev) {
   extern __shared__ float smem[];
-  float* q_s = smem;                                // [kDqRows][head_dim]
-  float* do_s = q_s + kDqRows * head_dim;           // [kDqRows][head_dim]
-  float* ds_s = do_s + kDqRows * head_dim;          // [kDqRows][kDqKeys]
+  const int q_stride = kGroups ? q_cols : head_dim;
+  float* q_s = smem;                                // [kDqRows][q_stride]
+  float* do_s = q_s + kDqRows * q_stride;           // [kDqRows][q_stride]
+  float* ds_s = do_s + kDqRows * q_stride;          // [kDqRows][kDqKeys]
   float* lse_s = ds_s + kDqRows * kDqKeys;          // [kDqRows]
   float* delta_s = lse_s + kDqRows;                 // [kDqRows]
 
@@ -80,6 +97,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = tid >> 5;
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kDqRows;
+  const int col0 = kGroups ? blockIdx.z * NC * kBwdThreads : 0;  // this block's column group
   const size_t base = (size_t)bh * seq_len * head_dim;
   const size_t kv_base = (size_t)bh * kv_rows<M>(seq_len, window) * head_dim;
   const T* kb = k + kv_base;
@@ -88,8 +106,10 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   int k_lo, k_hi;
   key_span<M>(q0, min(seq_len, q0 + kDqRows) - 1, seq_len, window, no_prev, &k_lo, &k_hi);
 
-  stage_rows<kBwdThreads>(q_s, q + base, q0, kDqRows, seq_len, head_dim);
-  stage_rows<kBwdThreads>(do_s, dout + base, q0, kDqRows, seq_len, head_dim);
+  if (!kGroups) {
+    stage_rows<kBwdThreads>(q_s, q + base, q0, kDqRows, seq_len, head_dim);
+    stage_rows<kBwdThreads>(do_s, dout + base, q0, kDqRows, seq_len, head_dim);
+  }
   if (tid < kDqRows) {
     const bool row_ok = q0 + tid < seq_len;
     lse_s[tid] = row_ok ? lse[(size_t)bh * seq_len + q0 + tid] : 0.f;
@@ -112,24 +132,38 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int kk = 0; kk < kDqKeysPerWarp; ++kk)
 #pragma unroll
       for (int r = 0; r < kDqRows; ++r) s[kk][r] = dp[kk][r] = 0.f;
-    for (int d = lane; d < head_dim; d += 32) {
-      float kv[kDqKeysPerWarp], vv[kDqKeysPerWarp];
-#pragma unroll
-      for (int kk = 0; kk < kDqKeysPerWarp; ++kk) {
-        const bool ok = jw + kk < k_hi;
-        kv[kk] = ok ? to_f32(kb[(size_t)(jw + kk) * head_dim + d]) : 0.f;
-        vv[kk] = ok ? to_f32(vb[(size_t)(jw + kk) * head_dim + d]) : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kDqRows; ++r) {
-        const float qv = q_s[r * head_dim + d];
-        const float ov = do_s[r * head_dim + d];
+    // Head-dim columns [c0, c1) of q and do staged with row stride `stride`.
+    auto products = [&](int c0, int c1, int stride) {
+      for (int d = c0 + lane; d < c1; d += 32) {
+        float kv[kDqKeysPerWarp], vv[kDqKeysPerWarp];
 #pragma unroll
         for (int kk = 0; kk < kDqKeysPerWarp; ++kk) {
-          s[kk][r] = fmaf(qv, kv[kk], s[kk][r]);
-          dp[kk][r] = fmaf(ov, vv[kk], dp[kk][r]);
+          const bool ok = jw + kk < k_hi;
+          kv[kk] = ok ? to_f32(kb[(size_t)(jw + kk) * head_dim + d]) : 0.f;
+          vv[kk] = ok ? to_f32(vb[(size_t)(jw + kk) * head_dim + d]) : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < kDqRows; ++r) {
+          const float qv = q_s[r * stride + d - c0];
+          const float ov = do_s[r * stride + d - c0];
+#pragma unroll
+          for (int kk = 0; kk < kDqKeysPerWarp; ++kk) {
+            s[kk][r] = fmaf(qv, kv[kk], s[kk][r]);
+            dp[kk][r] = fmaf(ov, vv[kk], dp[kk][r]);
+          }
         }
       }
+    };
+    if (kGroups) {
+      for (int c0 = 0; c0 < head_dim; c0 += q_cols) {
+        __syncthreads();
+        stage_cols<kBwdThreads>(q_s, q + base, q0, kDqRows, seq_len, head_dim, c0, q_cols);
+        stage_cols<kBwdThreads>(do_s, dout + base, q0, kDqRows, seq_len, head_dim, c0, q_cols);
+        __syncthreads();
+        products(c0, min(head_dim, c0 + q_cols), q_cols);
+      }
+    } else {
+      products(0, head_dim, head_dim);
     }
     // 2. ds of (row r, key col) on lane r.
 #pragma unroll
@@ -157,7 +191,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int jn = min(kDqKeys, k_hi - k0);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const int d = tid + c * kBwdThreads;
+      const int d = col0 + tid + c * kBwdThreads;
       if (d < head_dim) {
         for (int j = 0; j < jn; ++j) {
           const float kv = to_f32(kb[(size_t)(k0 + j) * head_dim + d]);
@@ -171,7 +205,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    const int d = tid + c * kBwdThreads;
+    const int d = col0 + tid + c * kBwdThreads;
     if (d < head_dim) {
 #pragma unroll
       for (int r = 0; r < kDqRows; ++r)
@@ -180,19 +214,20 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NC, Mode M>
+template <typename T, int NC, Mode M, bool kGroups>
 __global__ void __launch_bounds__(kBwdThreads)
 attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          T* __restrict__ dk, T* __restrict__ dv, int seq_len, int head_dim,
-                         int window, float scale, int dropout, float keep_prob,
+                         int q_cols, int window, float scale, int dropout, float keep_prob,
                          uint32_t drop_threshold, const int* __restrict__ seed,
                          const int* __restrict__ has_prev) {
   extern __shared__ float smem[];
-  float* q_s = smem;                                // [kKvRows][head_dim]
-  float* do_s = q_s + kKvRows * head_dim;           // [kKvRows][head_dim]
-  float* p_s = do_s + kKvRows * head_dim;           // [kKvRows][kKvKeys] dropped P
+  const int q_stride = kGroups ? q_cols : head_dim;
+  float* q_s = smem;                                // [kKvRows][q_stride]
+  float* do_s = q_s + kKvRows * q_stride;           // [kKvRows][q_stride]
+  float* p_s = do_s + kKvRows * q_stride;           // [kKvRows][kKvKeys] dropped P
   float* ds_s = p_s + kKvRows * kKvKeys;            // [kKvRows][kKvKeys]
   float* lse_s = ds_s + kKvRows * kKvKeys;          // [kKvRows]
   float* delta_s = lse_s + kKvRows;                 // [kKvRows]
@@ -203,6 +238,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * kKvKeys;
   const int col = k0 + warp;  // this warp's key
+  const int col0 = kGroups ? blockIdx.z * NC * kBwdThreads : 0;  // this block's column group
   const int kv_len = kv_rows<M>(seq_len, window);
   const bool col_ok = col < kv_len;
   const size_t base = (size_t)bh * seq_len * head_dim;
@@ -221,8 +257,10 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t hash_base = dropout ? dropout_base(seed, bh) : 0u;
 
   for (int q0 = q_lo; q0 < q_hi; q0 += kKvRows) {
-    stage_rows<kBwdThreads>(q_s, q + base, q0, kKvRows, seq_len, head_dim);
-    stage_rows<kBwdThreads>(do_s, dout + base, q0, kKvRows, seq_len, head_dim);
+    if (!kGroups) {
+      stage_rows<kBwdThreads>(q_s, q + base, q0, kKvRows, seq_len, head_dim);
+      stage_rows<kBwdThreads>(do_s, dout + base, q0, kKvRows, seq_len, head_dim);
+    }
     if (tid < kKvRows) {
       const bool row_ok = q0 + tid < q_hi;
       lse_s[tid] = row_ok ? lse[(size_t)bh * seq_len + q0 + tid] : 0.f;
@@ -234,16 +272,30 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[kKvRows], dp[kKvRows];
 #pragma unroll
     for (int r = 0; r < kKvRows; ++r) s[r] = dp[r] = 0.f;
-    if (col_ok) {
-      for (int d = lane; d < head_dim; d += 32) {
-        const float kv = to_f32(kb[(size_t)col * head_dim + d]);
-        const float vv = to_f32(vb[(size_t)col * head_dim + d]);
+    // Head-dim columns [c0, c1) of q and do staged with row stride `stride`.
+    auto products = [&](int c0, int c1, int stride) {
+      if (col_ok) {
+        for (int d = c0 + lane; d < c1; d += 32) {
+          const float kv = to_f32(kb[(size_t)col * head_dim + d]);
+          const float vv = to_f32(vb[(size_t)col * head_dim + d]);
 #pragma unroll
-        for (int r = 0; r < kKvRows; ++r) {
-          s[r] = fmaf(q_s[r * head_dim + d], kv, s[r]);
-          dp[r] = fmaf(do_s[r * head_dim + d], vv, dp[r]);
+          for (int r = 0; r < kKvRows; ++r) {
+            s[r] = fmaf(q_s[r * stride + d - c0], kv, s[r]);
+            dp[r] = fmaf(do_s[r * stride + d - c0], vv, dp[r]);
+          }
         }
       }
+    };
+    if (kGroups) {
+      for (int c0 = 0; c0 < head_dim; c0 += q_cols) {
+        __syncthreads();
+        stage_cols<kBwdThreads>(q_s, q + base, q0, kKvRows, seq_len, head_dim, c0, q_cols);
+        stage_cols<kBwdThreads>(do_s, dout + base, q0, kKvRows, seq_len, head_dim, c0, q_cols);
+        __syncthreads();
+        products(c0, min(head_dim, c0 + q_cols), q_cols);
+      }
+    } else {
+      products(0, head_dim, head_dim);
     }
     // 2. The dropped weight and ds of (row r, this key) on lane r; the hash
     // takes (query row, key col), as in the forward.
@@ -264,16 +316,22 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();
+    // Column groups: the last chunk is staged; bring back this block's own.
+    if (kGroups && col0 + q_cols < head_dim) {
+      stage_cols<kBwdThreads>(q_s, q + base, q0, kKvRows, seq_len, head_dim, col0, q_cols);
+      stage_cols<kBwdThreads>(do_s, dout + base, q0, kKvRows, seq_len, head_dim, col0, q_cols);
+      __syncthreads();
+    }
 
     // 3. dv += P_drop^T do and dk += ds^T q over this thread's columns.
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      const int d = tid + c * kBwdThreads;
+      const int d = col0 + tid + c * kBwdThreads;
       if (d < head_dim) {
 #pragma unroll
         for (int r = 0; r < kKvRows; ++r) {
-          const float ov = do_s[r * head_dim + d];
-          const float qv = q_s[r * head_dim + d];
+          const float ov = do_s[r * q_stride + d - col0];
+          const float qv = q_s[r * q_stride + d - col0];
 #pragma unroll
           for (int j = 0; j < kKvKeys; ++j) {
             dv_acc[j][c] = fmaf(p_s[r * kKvKeys + j], ov, dv_acc[j][c]);
@@ -287,7 +345,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    const int d = tid + c * kBwdThreads;
+    const int d = col0 + tid + c * kBwdThreads;
     if (d < head_dim) {
 #pragma unroll
       for (int j = 0; j < kKvKeys; ++j) {
@@ -312,60 +370,68 @@ struct BwdArgs {
   const int* has_prev;  // kHalo only
 };
 
-template <typename T, int NC, Mode M>
-cudaError_t launch_dq(const BwdArgs& a) {
-  const size_t smem = (size_t)(2 * kDqRows * a.head_dim + kDqRows * kDqKeys + 2 * kDqRows) * sizeof(float);
-  auto kernel = attention_bwd_dq_kernel<T, NC, M>;
+template <typename T, int NC, Mode M, bool kGroups>
+cudaError_t launch_dq(const BwdArgs& a, const ColumnGroups& g) {
+  const size_t smem = (size_t)(2 * kDqRows * g.q_cols + kDqRows * kDqKeys + 2 * kDqRows) * sizeof(float);
+  auto kernel = attention_bwd_dq_kernel<T, NC, M, kGroups>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.seq_len + kDqRows - 1) / kDqRows, a.batch_heads);
+  const dim3 grid((a.seq_len + kDqRows - 1) / kDqRows, a.batch_heads, g.groups);
   kernel<<<grid, kBwdThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.seq_len, a.head_dim,
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.seq_len, a.head_dim, g.q_cols,
       a.window, a.scale, a.dropout_rate > 0.f ? 1 : 0, 1.f - a.dropout_rate, a.drop_threshold,
       a.seed, a.has_prev);
   return cudaGetLastError();
 }
 
-template <typename T, int NC, Mode M>
-cudaError_t launch_dkv(const BwdArgs& a) {
+template <typename T, int NC, Mode M, bool kGroups>
+cudaError_t launch_dkv(const BwdArgs& a, const ColumnGroups& g) {
   const size_t smem =
-      (size_t)(2 * kKvRows * a.head_dim + 2 * kKvRows * kKvKeys + 2 * kKvRows) * sizeof(float);
-  auto kernel = attention_bwd_dkv_kernel<T, NC, M>;
+      (size_t)(2 * kKvRows * g.q_cols + 2 * kKvRows * kKvKeys + 2 * kKvRows) * sizeof(float);
+  auto kernel = attention_bwd_dkv_kernel<T, NC, M, kGroups>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int kv_len = M == kHalo ? a.seq_len + a.window : a.seq_len;
-  const dim3 grid((kv_len + kKvKeys - 1) / kKvKeys, a.batch_heads);
+  const dim3 grid((kv_len + kKvKeys - 1) / kKvKeys, a.batch_heads, g.groups);
   kernel<<<grid, kBwdThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-      a.seq_len, a.head_dim, a.window, a.scale, a.dropout_rate > 0.f ? 1 : 0,
+      a.seq_len, a.head_dim, g.q_cols, a.window, a.scale, a.dropout_rate > 0.f ? 1 : 0,
       1.f - a.dropout_rate, a.drop_threshold, a.seed, a.has_prev);
   return cudaGetLastError();
 }
 
-template <typename T, int NC, Mode M>
-cudaError_t launch_bwd(int which, const BwdArgs& a) {
-  return which == 0 ? launch_dq<T, NC, M>(a) : launch_dkv<T, NC, M>(a);
+template <typename T, int NC, Mode M, bool kGroups>
+cudaError_t launch_bwd(int which, const BwdArgs& a, const ColumnGroups& g) {
+  return which == 0 ? launch_dq<T, NC, M, kGroups>(a, g) : launch_dkv<T, NC, M, kGroups>(a, g);
 }
 
 template <typename T, Mode M>
-cudaError_t dispatch_bwd(int which, int chunks, const BwdArgs& a) {
-  switch (chunks) {
-    case 1: return launch_bwd<T, 1, M>(which, a);
-    case 2: return launch_bwd<T, 2, M>(which, a);
-    case 3: return launch_bwd<T, 3, M>(which, a);
-    case 4: return launch_bwd<T, 4, M>(which, a);
-    case 5: return launch_bwd<T, 5, M>(which, a);
+cudaError_t dispatch_bwd(int which, const ColumnGroups& g, const BwdArgs& a) {
+  if (g.groups == 1) {
+    switch (g.chunks) {
+      case 1: return launch_bwd<T, 1, M, false>(which, a, g);
+      case 2: return launch_bwd<T, 2, M, false>(which, a, g);
+      case 3: return launch_bwd<T, 3, M, false>(which, a, g);
+      case 4: return launch_bwd<T, 4, M, false>(which, a, g);
+      case 5: return launch_bwd<T, 5, M, false>(which, a, g);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (g.chunks) {  // several groups: 3 to 5 chunks each
+    case 3: return launch_bwd<T, 3, M, true>(which, a, g);
+    case 4: return launch_bwd<T, 4, M, true>(which, a, g);
+    case 5: return launch_bwd<T, 5, M, true>(which, a, g);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // The C launchers' body: `which` 0 runs the dq kernel into dq, 1 the dk/dv
 // kernel into dk and dv. Checks the arguments, picks the dtype and the
-// number of head-dim chunks (Dh <= 1280), and launches on `stream`. In
+// head-dim column groups (any Dh >= 1), and launches on `stream`. In
 // kHalo, k, v, dk and dv have S + w rows and has_prev is required.
 template <Mode M>
 int run_bwd(int which, const void* q, const void* k, const void* v, const void* dout,
@@ -378,14 +444,13 @@ int run_bwd(int which, const void* q, const void* k, const void* v, const void* 
       (M == kHalo && (window < 1 || has_prev == nullptr)) ||
       (dropout_rate > 0.f && seed == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int chunks = (head_dim + kBwdThreads - 1) / kBwdThreads;
-  if (chunks > kMaxChunks) return (int)cudaErrorInvalidValue;
+  const ColumnGroups g = column_groups(head_dim, kBwdThreads);
   const BwdArgs a{q, k, v, dout, lse, delta, dq, dk, dv, batch_heads, seq_len, head_dim,
                   window, scale, dropout_rate, drop_threshold,
                   static_cast<const int*>(seed), static_cast<cudaStream_t>(stream),
                   static_cast<const int*>(has_prev)};
-  return (int)(is_bf16 ? dispatch_bwd<__nv_bfloat16, M>(which, chunks, a)
-                       : dispatch_bwd<float, M>(which, chunks, a));
+  return (int)(is_bf16 ? dispatch_bwd<__nv_bfloat16, M>(which, g, a)
+                       : dispatch_bwd<float, M>(which, g, a));
 }
 
 }  // namespace tchvp

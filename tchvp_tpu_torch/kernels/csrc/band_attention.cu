@@ -12,53 +12,67 @@
 // the flash kernels' mask, so inside the band it equals
 // attention_dropout_mask(seed, bh, S, S, rate).
 //
-// Design. The TPU kernels group G windows per grid step to make their
-// matrix unit's products large, and pay (G+1)/(2G) of the logits in waste.
-// Here the flash kernels of attention_fwd.cuh and attention_bwd.cuh run with
-// the band on: each block keeps the flash geometry and only narrows its
-// loop to the pairs its tile can hold.
-//  * Forward and dq: one block per (bh, 16-row query tile); its key loop
+// Forward (replaces _band_fwd_kernel, flash_attention.py:476, launched at
+// :611 by _win_fwd:593). What bounds it on the H100 (3.35 TB/s; 989 TFLOP/s
+// bf16 tensor cores; 67 TFLOP/s fp32 CUDA cores): at config 2 (BH 32, S
+// 256, w 64, Dh 1152, bf16) q, k, v and out are 75.5 MB against 4.23 GFLOP
+// of the band's products, so bytes bound it at ~22.5 us; at the windowed
+// training shape (BH 16, Dh 512, fp32) the 0.94 GFLOP bind it at ~14 us on
+// the CUDA cores (~1.9 us at the tensor cores' TF32 rate, x3 for 3xTF32).
+// The design (window_fwd.cuh) is for the bytes and for the tensor cores:
+// two passes over a (BH, S, span) fp32 scratch that stays in L2 (4.2 MB at
+// config 2). Pass A forms the scaled, masked logits of each (64-row query
+// tile, 64-key tile of its span) with mma.sync, the head dim streamed in
+// 64-column chunks by cp.async; pass B takes each row's max from the
+// scratch and multiplies P by a 128-column block of the span's V on the
+// tensor cores, so its accumulator does not grow with Dh. Q and out cross
+// device memory once; each key window serves two query tiles, the second
+// read from L2. fp32 runs 3xTF32, bf16 rounds P to bf16 for P.V.
+//
+// Backward (dq: _band_dq_kernel:509 at :657; dk/dv: _band_dkv_kernel:543 at
+// :683, by _win_bwd). The TPU kernels group G windows per grid step to make
+// their matrix unit's products large, and pay (G+1)/(2G) of the logits in
+// waste. Here the CUDA-core bodies of attention_bwd.cuh run with the band
+// on: each block keeps the flash geometry and only narrows its loop to the
+// pairs its tile can hold.
+//  * dq: one block per (bh, 16-row query tile, column group); its key loop
 //    runs over [max(0, (r0/w - 1)*w), min(S, (r_last/w + 1)*w)), from the
 //    window before the tile's first row to the end of its last row's
 //    window: at most 2w + 16 keys (2w when 16 divides w) instead of S.
-//  * dk/dv: one block per (bh, 8-key tile); its query loop runs over the
-//    key windows' own rows and the next window's, [(c0/w)*w, min(S,
-//    (c_last/w + 2)*w)). Every gradient element is summed by one thread in
-//    one order, with no atomics, so the bits are equal on repeat.
+//  * dk/dv: one block per (bh, 8-key tile, column group); its query loop
+//    runs over the key windows' own rows and the next window's, [(c0/w)*w,
+//    min(S, (c_last/w + 2)*w)). Every gradient element is summed by one
+//    thread in one order, with no atomics, so the bits are equal on repeat.
 //  * A tile may straddle two windows (w need not divide by 16 or 8), so the
 //    spans come from the tile's first and last index and the band is masked
-//    per element; a row may see a whole 32-key tile masked, so masked
-//    weights are set to 0 rather than left to exp(-1e30 - m). Columns start
-//    at the span's low end, never below 0, so no negative index is hashed.
-//  * A ragged S needs no padding: spans stop at S, as the flash kernels'.
+//    per element. Columns start at the span's low end, never below 0, so no
+//    negative index is hashed. A ragged S needs no padding: spans stop at S.
 //  * The launchers take 1 <= w <= S; the wrapper passes min(w, S), since a
-//    window of S or more holds every pair: one window, the flash kernels'
-//    arithmetic in the flash kernels' order.
-//
-// Bound on the H100 (3.35 TB/s; 989 TFLOP/s bf16 tensor cores; 67 TFLOP/s
-// fp32 CUDA cores). At S 256, w 64 the band holds 28,672 (query, key) pairs
-// per bh. Config 2's forward (BH 32, Dh 1152, bf16: q, k, v, out 75.5 MB,
-// 4.23 GFLOP) is bound by bytes at ~22.5 us; the training shape (BH 16, Dh
-// 512, fp32) by operations: forward 0.94 GFLOP ~14 us, dq 1.41 GFLOP ~21 us,
-// dk/dv 1.88 GFLOP ~28 us. Like the flash kernels, this first version does
-// its products on the fp32 CUDA cores and runs above those bounds
-// (PERF.md); its band loop is what keeps the work O(S w) instead of O(S^2).
+//    window of S or more holds every pair. Then the backward runs the flash
+//    kernels' arithmetic in their order.
+// Bounds of the backward at the training shape: dq 1.41 GFLOP ~21 us, dk/dv
+// 1.88 GFLOP ~28 us on the CUDA cores, where these bodies run (PERF.md).
 #include "attention_bwd.cuh"
-#include "attention_fwd.cuh"
+#include "window_fwd.cuh"
 
 extern "C" {
 
 // q, k, v, out: (batch_heads, seq_len, head_dim) contiguous, fp32 (is_bf16 0)
 // or bf16 (is_bf16 1); lse: (batch_heads, seq_len) fp32; window in tokens,
-// 1..seq_len; seed: (1,) int32 on the device, read only when dropout_rate > 0
-// (may be null otherwise). Returns the cudaError_t of the launch (0 on
-// success); never synchronises.
+// 1..seq_len; span_cols: the widest key span of a 64-row query tile, and
+// scratch: (batch_heads, seq_len, scratch_cols) fp32, 16-byte aligned,
+// scratch_cols a multiple of 4 that holds span_cols and one column per
+// 64-key tile (both from flash_attention.py's window_plan); seed: (1,)
+// int32 on the device, read only when dropout_rate > 0 (may be null
+// otherwise). Returns the cudaError_t of the launches (0 on success); never
+// synchronises.
 int tchvp_band_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                   int batch_heads, int seq_len, int head_dim, int window, int is_bf16,
-                   float scale, float dropout_rate, unsigned int drop_threshold,
-                   const void* seed, void* stream) {
-  return tchvp::run_fwd<tchvp::kBand>(q, k, v, out, lse, batch_heads, seq_len, head_dim,
-      window, is_bf16, scale, dropout_rate, drop_threshold, seed, stream);
+                   void* scratch, int batch_heads, int seq_len, int head_dim, int window,
+                   int span_cols, int scratch_cols, int is_bf16, float scale, float dropout_rate,
+                   unsigned int drop_threshold, const void* seed, void* stream) {
+  return tchvp::run_window_fwd<tchvp::kBand>(q, k, v, out, lse, scratch, batch_heads, seq_len,
+      head_dim, window, span_cols, scratch_cols, is_bf16, scale, dropout_rate, drop_threshold,
+      seed, nullptr, stream);
 }
 
 // dq over the band; the tensors as in tchvp_band_fwd, plus dout (as q) and

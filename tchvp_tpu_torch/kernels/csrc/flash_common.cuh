@@ -17,7 +17,7 @@
 namespace tchvp {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernels' NEG_INF
-constexpr int kMaxChunks = 5;      // head-dim chunks of 256 columns: Dh <= 1280
+constexpr int kMaxChunks = 5;      // accumulator chunks of 256 columns per column group
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -78,6 +78,40 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src, int row0, i
   }
 }
 
+// The same rows, head-dim columns [col0, col0 + cols) only, zero past Dh,
+// as a (rows, cols) tile.
+template <int Threads, typename T>
+__device__ __forceinline__ void stage_cols(float* dst, const T* src, int row0, int rows,
+                                           int seq_len, int head_dim, int col0, int cols) {
+  for (int i = threadIdx.x; i < rows * cols; i += Threads) {
+    const int r = i / cols;
+    const int d = col0 + i - r * cols;
+    dst[i] = (row0 + r < seq_len && d < head_dim)
+                 ? to_f32(src[(size_t)(row0 + r) * head_dim + d]) : 0.f;
+  }
+}
+
+// How the CUDA-core bodies (attention_fwd.cuh, attention_bwd.cuh) cover a
+// head dim: `groups` column groups (blockIdx.z) of `chunks` <= kMaxChunks
+// accumulator chunks of `threads` columns each, and the staged q (and do)
+// tiles hold `q_cols` columns at a time: all of Dh when one group covers
+// it, else one group's width, so shared memory and registers stay bounded
+// whatever Dh is. At Dh <= kMaxChunks * threads this is one group staged
+// whole, and the bodies take their kGroups = false instantiation, free of
+// the column-group code. With several groups, chunks >= 3
+// (total >= 6 chunks of `threads`, split into ceil(total / 5) >= 2 groups).
+struct ColumnGroups {
+  int chunks, groups, q_cols;
+};
+
+inline ColumnGroups column_groups(int head_dim, int threads) {
+  const int total = (head_dim + threads - 1) / threads;
+  const int least = (total + kMaxChunks - 1) / kMaxChunks;
+  const int chunks = (total + least - 1) / least;
+  const int groups = (total + chunks - 1) / chunks;
+  return {chunks, groups, groups == 1 ? head_dim : chunks * threads};
+}
+
 // The masks of the kernel bodies' three modes:
 //  * kFull (flash_fwd.cu, flash_bwd.cu): every pair of the (S, S) matrix;
 //  * kBand (band_attention.cu; the TPU kernels' _band_mask): query row `row`
@@ -103,7 +137,7 @@ __device__ __forceinline__ bool in_band(int row, int col, int window, bool no_pr
 
 // Rows of k and v: S, or S + w with the halo.
 template <Mode M>
-__device__ __forceinline__ int kv_rows(int seq_len, int window) {
+__host__ __device__ __forceinline__ int kv_rows(int seq_len, int window) {
   return M == kHalo ? seq_len + window : seq_len;
 }
 
@@ -116,22 +150,25 @@ __device__ __forceinline__ int hash_col(int col, int window) {
   return M == kHalo ? col - window : col;
 }
 
+__host__ __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+
 // [*lo, *hi): the keys that query rows first..last (last < S) may see.
 // Band: the window before the first row's through the last row's own.
 // Halo (k_ext coordinates): the first row's window through the window after
 // the last row's, without the halo window where no_prev.
 template <Mode M>
-__device__ __forceinline__ void key_span(int first, int last, int seq_len, int window,
-                                         bool no_prev, int* lo, int* hi) {
+__host__ __device__ __forceinline__ void key_span(int first, int last, int seq_len,
+                                                  int window, bool no_prev, int* lo, int* hi) {
   if (M == kFull) {
     *lo = 0;
     *hi = seq_len;
   } else if (M == kBand) {
-    *lo = max(0, (first / window - 1) * window);
-    *hi = min(seq_len, (last / window + 1) * window);
+    *lo = imax(0, (first / window - 1) * window);
+    *hi = imin(seq_len, (last / window + 1) * window);
   } else {
-    *lo = max(no_prev ? window : 0, (first / window) * window);
-    *hi = min(seq_len + window, (last / window + 2) * window);
+    *lo = imax(no_prev ? window : 0, (first / window) * window);
+    *hi = imin(seq_len + window, (last / window + 2) * window);
   }
 }
 

@@ -7,8 +7,9 @@
 // dropout from the squirrel3 hash of the global (row, col) index, bit for
 // bit the TPU kernel's mask.
 //
-// Design: attention_fwd.cuh's kernel with the band off, so each 16-row
-// query tile walks every key of the sequence.
+// Design: attention_fwd.cuh's kernel: each 16-row query tile walks every key
+// of the sequence; any head dim, in column groups of at most 1280 columns
+// above that (flash_common.cuh's ColumnGroups).
 //
 // Bound on the H100: at the flagship shape (BH 64, S 128, Dh 392, bf16)
 // the bytes (q, k, v, out once: 25.7 MB) bound it at ~7.7 us against
@@ -27,8 +28,8 @@ int tchvp_flash_fwd(const void* q, const void* k, const void* v, void* out, void
                     int batch_heads, int seq_len, int head_dim, int is_bf16,
                     float scale, float dropout_rate, unsigned int drop_threshold,
                     const void* seed, void* stream) {
-  return tchvp::run_fwd<tchvp::kFull>(q, k, v, out, lse, batch_heads, seq_len, head_dim, 0,
-      is_bf16, scale, dropout_rate, drop_threshold, seed, stream);
+  return tchvp::run_fwd(q, k, v, out, lse, batch_heads, seq_len, head_dim, is_bf16, scale,
+      dropout_rate, drop_threshold, seed, stream);
 }
 
 const char* tchvp_cuda_error_string(int code) {

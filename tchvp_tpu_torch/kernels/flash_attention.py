@@ -10,7 +10,11 @@ launch the banded kernels of ``csrc/band_attention.cu``, where query window
 i sees key windows i-1 and i; :func:`_halo_fwd` and :func:`_halo_bwd` launch
 those of ``csrc/halo_attention.cu``, one shard of the band under sequence
 parallelism, whose k and v carry the left neighbour's last window in front.
-All are built at first use by :mod:`.build`. On a CPU tensor they run
+The banded and halo forwards run on the tensor cores in two passes over
+an fp32 logits scratch (``csrc/window_fwd.cuh``) whose width and key-tile
+grid :func:`window_plan` gives; the other kernels keep CUDA-core bodies, which
+take any head dim in column groups. All are built at first use by
+:mod:`.build`. On a CPU tensor they run
 :func:`mha_reference`, :func:`mha_bwd_reference` and their windowed and halo
 counterparts, the dense fp32 versions of the same functions (the band as a
 mask over the logits). A CUDA tensor never reaches a plain version, and a
@@ -28,8 +32,9 @@ compute the hash in int64 and keep the low 32 bits.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -50,6 +55,10 @@ halo_dq_launches = 0  # halo_attention: dq
 halo_dkv_launches = 0  # halo_attention: dk/dv
 
 Seed = Union[int, torch.Tensor, None]
+
+# Tiles of the banded and halo forwards (csrc/window_fwd.cuh): 64 query rows,
+# 64 keys per logits block and P.V step.
+WIN_BLOCK_Q, WIN_BLOCK_K = 64, 64
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -118,6 +127,43 @@ def halo_band_mask(s: int, window: int, has_prev, device: torch.device) -> torch
     gap = col // window - row_win
     no_prev = torch.as_tensor(has_prev, device=device).reshape(()) == 0
     return ((gap == 0) | (gap == 1)) & ~((col < window) & no_prev)
+
+
+def window_key_span(first: int, last: int, seq_len: int, window: int, halo: bool,
+                    no_prev: bool = False) -> Tuple[int, int]:
+    """[lo, hi): the keys that query rows first..last (last < S) may see,
+    ``csrc/flash_common.cuh``'s ``key_span``. Band: the window before the
+    first row's through the last row's own. Halo (k_ext columns): the first
+    row's window through the window after the last row's, without the halo
+    window where ``no_prev``."""
+    if halo:
+        return (max(window if no_prev else 0, (first // window) * window),
+                min(seq_len + window, (last // window + 2) * window))
+    return max(0, (first // window - 1) * window), min(seq_len, (last // window + 1) * window)
+
+
+class WindowPlan(NamedTuple):
+    """Scratch of the tensor-core banded or halo forward, which the C
+    launchers take as they are."""
+
+    span_cols: int     # the widest key span of a 64-row query tile: the logits
+                       # pass's grid.y is its 64-key tiles
+    scratch_cols: int  # row width of the (BH, S, scratch_cols) fp32 scratch
+
+
+@functools.lru_cache(maxsize=256)
+def window_plan(seq_len: int, window: int, halo: bool) -> WindowPlan:
+    """The one rule for the banded (``halo`` False, 1 <= window <= S) and
+    halo forwards' key tiles and scratch. A scratch row holds the logits of
+    the widest key span of a 64-row query tile (with has_prev 1 for the
+    halo, which holds has_prev 0's), then the row's max over each of its
+    64-key tiles; its width is rounded up to a multiple of 4, so the P.V
+    pass copies each tile's logits in aligned 16-byte pieces."""
+    widest = max(hi - lo for lo, hi in (
+        window_key_span(q0, min(seq_len, q0 + WIN_BLOCK_Q) - 1, seq_len, window, halo)
+        for q0 in range(0, seq_len, WIN_BLOCK_Q)))
+    cols = widest + -(-widest // WIN_BLOCK_K)
+    return WindowPlan(widest, -(-cols // 4) * 4)
 
 
 def _logits(q: torch.Tensor, k: torch.Tensor, scale: float,
@@ -275,29 +321,35 @@ def windowed_mha_halo_bwd_dkv_reference(
                                  band, col0=-window)
 
 
-# Each library's C launchers and their leading pointer arguments.
+def _signature(pointers: int, ints: int, halo: bool = False) -> list:
+    """A C launcher's argument types: tensor pointers, then the ints (BH, S,
+    Dh[, window][, span_cols, scratch_cols], is_bf16), scale, rate,
+    threshold, seed[, has_prev], stream."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return ([p] * pointers + [i] * ints + [ctypes.c_float, ctypes.c_float, ctypes.c_uint32, p]
+            + [p] * halo + [p])
+
+
+# Each library's C launchers and their argument types.
 _LAUNCHERS = {
-    "flash_fwd": {"tchvp_flash_fwd": 5},
-    "flash_bwd": {"tchvp_flash_bwd_dq": 7, "tchvp_flash_bwd_dkv": 8},
-    "band_attention": {"tchvp_band_fwd": 5, "tchvp_band_bwd_dq": 7, "tchvp_band_bwd_dkv": 8},
-    "halo_attention": {"tchvp_halo_fwd": 5, "tchvp_halo_bwd_dq": 7, "tchvp_halo_bwd_dkv": 8},
+    "flash_fwd": {"tchvp_flash_fwd": _signature(5, 4)},
+    "flash_bwd": {"tchvp_flash_bwd_dq": _signature(7, 4), "tchvp_flash_bwd_dkv": _signature(8, 4)},
+    "band_attention": {"tchvp_band_fwd": _signature(6, 7),
+                       "tchvp_band_bwd_dq": _signature(7, 5), "tchvp_band_bwd_dkv": _signature(8, 5)},
+    "halo_attention": {"tchvp_halo_fwd": _signature(6, 7, halo=True),
+                       "tchvp_halo_bwd_dq": _signature(7, 5, halo=True),
+                       "tchvp_halo_bwd_dkv": _signature(8, 5, halo=True)},
 }
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
-    """Build (once) and bind ``csrc/<name>.cu``'s C launchers: pointers,
-    then (BH, S, Dh[, window], is_bf16), scale, rate, threshold, seed[,
-    has_prev] and stream."""
+    """Build (once) and bind ``csrc/<name>.cu``'s C launchers."""
     from tchvp_tpu_torch.kernels import build
 
     lib = build.load(name, [f"{name}.cu"])
     if lib.tchvp_cuda_error_string.restype is not ctypes.c_char_p:
-        ints = 4 if name.startswith("flash") else 5
-        pointers = 3 if name == "halo_attention" else 2
-        tail = [ctypes.c_int] * ints + [ctypes.c_float, ctypes.c_float, ctypes.c_uint32] + [
-            ctypes.c_void_p] * pointers
-        for fn, pointers in _LAUNCHERS[name].items():
-            getattr(lib, fn).argtypes = [ctypes.c_void_p] * pointers + tail
+        for fn, argtypes in _LAUNCHERS[name].items():
+            getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
         lib.tchvp_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tchvp_cuda_error_string.restype = ctypes.c_char_p
@@ -306,7 +358,7 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
 
 def _check_inputs(ref: torch.Tensor, window: Optional[int], **tensors: torch.Tensor) -> None:
     """Raise on what the kernels do not take: dtype, shape, device, layout,
-    head dim, window."""
+    an empty head dim, window. Any head dim >= 1 runs."""
     if ref.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"flash kernels take float32 or bfloat16, got {ref.dtype}")
     for name, t in tensors.items():
@@ -314,8 +366,8 @@ def _check_inputs(ref: torch.Tensor, window: Optional[int], **tensors: torch.Ten
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} {t.device} does not match q")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (BH, S, Dh)")
-    if not 1 <= ref.shape[2] <= 1280:
-        raise ValueError(f"flash kernels take head dims 1..1280, got {ref.shape[2]}")
+    if ref.shape[2] < 1:
+        raise ValueError(f"flash kernels take head dims >= 1, got {ref.shape[2]}")
     if window is not None and window < 1:
         raise ValueError(f"the banded kernels take a window >= 1, got {window}")
 
@@ -348,46 +400,63 @@ def _scalars(q: torch.Tensor, window: Optional[int], scale: float, dropout_rate:
                    _drop_threshold(dropout_rate), seed_ptr)
 
 
-def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                dropout_rate: float, seed: Seed, window: Optional[int]
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_fwd.cu`` (``window`` None) or
-    ``csrc/band_attention.cu``'s forward on the current stream."""
-    _check_inputs(q, window, q=q, k=k, v=v)
-    bh, s, _ = q.shape
-    name = "flash_fwd" if window is None else "band_attention"
-    lib = _kernel_lib(name)
-    launch = lib.tchvp_flash_fwd if window is None else lib.tchvp_band_fwd
-    out = torch.empty_like(q)
-    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
-    seed_ptr, _keep_alive = _seed_arg(seed, dropout_rate, q.device)
-    with torch.cuda.device(q.device):
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                     *_scalars(q, window, scale, dropout_rate, seed_ptr),
-                     torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, err, name)
-    return out, lse
-
-
 def _flash_fwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     dropout_rate: float, seed: Seed,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/flash_fwd.cu`` on the current stream."""
     global launches
-    result = _launch_fwd(q, k, v, scale, dropout_rate, seed, None)
+    _check_inputs(q, None, q=q, k=k, v=v)
+    lib = _kernel_lib("flash_fwd")
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    seed_ptr, _keep_alive = _seed_arg(seed, dropout_rate, q.device)
+    with torch.cuda.device(q.device):
+        err = lib.tchvp_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                  lse.data_ptr(), *_scalars(q, None, scale, dropout_rate, seed_ptr),
+                                  torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, err, "flash_fwd")
     launches += 1
-    return result
+    return out, lse
+
+
+def _window_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, window: int,
+                dropout_rate: float, seed: Seed, has_prev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/band_attention.cu``'s forward (``has_prev`` None) or
+    ``csrc/halo_attention.cu``'s on the current stream, its scratch as
+    :func:`window_plan` says. The inputs are checked by the caller."""
+    bh, s, dh = q.shape
+    halo = has_prev is not None
+    window = int(window) if halo else min(int(window), s)
+    plan = window_plan(s, window, halo)
+    name = "halo_attention" if halo else "band_attention"
+    lib = _kernel_lib(name)
+    out = torch.empty_like(q)
+    lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    scratch = torch.empty((bh, s, plan.scratch_cols), dtype=torch.float32, device=q.device)
+    seed_ptr, _keep_seed = _seed_arg(seed, dropout_rate, q.device)
+    prev = (_has_prev_arg(has_prev, q.device),) if halo else ()
+    with torch.cuda.device(q.device):
+        launch = lib.tchvp_halo_fwd if halo else lib.tchvp_band_fwd
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                     scratch.data_ptr(), bh, s, dh, window, plan.span_cols, plan.scratch_cols,
+                     int(q.dtype == torch.bfloat16), float(scale), float(dropout_rate),
+                     _drop_threshold(dropout_rate), seed_ptr, *(t.data_ptr() for t in prev),
+                     torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, err, f"{name} forward")
+    return out, lse
 
 
 def band_fwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, window: int,
     dropout_rate: float, seed: Seed,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) of the banded forward kernel (grid: batch-head x 16-row
-    query tile, each walking its tile's key span)."""
+    """(out, lse) of the banded forward: the logits pass (grid: 64-row
+    query tile x 64-key tile of its span x batch-head), then the P.V pass
+    (64-row query tile x 128-column block x batch-head)."""
     global band_fwd_launches
-    result = _launch_fwd(q, k, v, scale, dropout_rate, seed, window)
+    _check_inputs(q, window, q=q, k=k, v=v)
+    result = _window_fwd(q, k, v, scale, window, dropout_rate, seed, None)
     band_fwd_launches += 1
     return result
 
@@ -521,17 +590,13 @@ def halo_fwd_cuda(
     q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Tensor, scale: float, window: int,
     has_prev, dropout_rate: float, seed: Seed,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) of the halo forward kernel (grid: batch-head x 16-row
-    query tile, each walking its tile's k_ext span)."""
+    """(out, lse) of the halo forward: the two passes of
+    :func:`band_fwd_cuda` over each 64-row query tile's k_ext span."""
     global halo_fwd_launches
     _check_halo(q, k_ext, v_ext, window)
-    out = torch.empty_like(q)
-    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    _launch_halo("tchvp_halo_fwd", q, (q.data_ptr(), k_ext.data_ptr(), v_ext.data_ptr(),
-                                       out.data_ptr(), lse.data_ptr()),
-                 window, has_prev, scale, dropout_rate, seed)
+    result = _window_fwd(q, k_ext, v_ext, scale, window, dropout_rate, seed, has_prev)
     halo_fwd_launches += 1
-    return out, lse
+    return result
 
 
 def _halo_bwd_pointers(q, k_ext, v_ext, do, lse, delta, window: int) -> tuple:

@@ -1,6 +1,7 @@
-"""The port, chip_smoke.py, fused_tail_breakdown.py and the module the
-sequence-parallel tests' spawned ranks run (tests/torch_dist.py) import
-nothing of JAX or of the JAX package."""
+"""The port, chip_smoke.py, the scripts beside it that time its kernels
+(fused_tail_breakdown.py, window_fwd_breakdown.py, attention_ab.py) and the
+module the sequence-parallel tests' spawned ranks run (tests/torch_dist.py)
+import nothing of JAX or of the JAX package."""
 
 import ast
 import os
@@ -12,9 +13,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tchvp_tpu"}
-SOURCES = sorted((ROOT / "tchvp_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                              ROOT / "fused_tail_breakdown.py",
-                                                              ROOT / "tests" / "torch_dist.py"]
+SOURCES = sorted((ROOT / "tchvp_tpu_torch").rglob("*.py")) + [
+    ROOT / name for name in ("chip_smoke.py", "fused_tail_breakdown.py", "window_fwd_breakdown.py",
+                             "attention_ab.py", "tests/torch_dist.py")]
 
 
 def _imported_top_names(path: Path):
