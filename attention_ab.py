@@ -6,20 +6,74 @@ one), then ``compare`` once::
     python3 attention_ab.py run TAG DIR       # outputs to DIR/TAG.pt, times to stdout
     python3 attention_ab.py compare DIR A B [C ...]   # bits of B, C, ... against A
 
-``run`` imports the checkout's own ``chip_smoke`` and kernels, launches the
-flash forward and backward at the training and inference shapes, the banded
-backward at config 2's and the windowed-training shape and the halo backward
-at both shard shapes (has_prev 1), saves every output, and prints
-``chip_smoke``'s phase-14 times of the flash, banded and halo kernels. An
-A/B in one call runs parent, change, change, parent, so that the card's own
-drift shows beside the change. Needs a CUDA device; there is no CPU path.
+``run`` imports the checkout's own ``chip_smoke`` and kernels. It launches
+the flash forward at the inference and training shapes and at FCT's three
+(``FWD_SHAPES``), the flash backward at the training and inference shapes,
+the banded forward and backward at config 2's and the windowed-training
+shape and the halo forward and backward at both shard shapes (has_prev 1),
+and saves every output. It prints each of these calls' times, by events
+around 20 calls and on the device, then the host's time per call of ``mha``
+at the inference shape on the transformer's ``_split_heads`` views under
+``no_grad`` and of the pieces of its host path. The timers are those of
+``card_timing.py`` beside this file, for both checkouts alike. An A/B in
+one call runs parent, change, change, parent, so that the card's own drift
+shows beside the change. Needs a CUDA device; there is no CPU path.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 from pathlib import Path
+
+from card_timing import cuda_ms, device_ms, host_ms  # this checkout's, before the path changes
+
+# The flash forward's shapes: (name, (B, H, S, Dh), dtype, scale, dropout, seed):
+# config 1 inference, the training path, FCT's (tchvp_tpu/kernels/flash_attention.py:38-45).
+FWD_SHAPES = (
+    ("inf", (8, 8, 128, 392), "bfloat16", 1 / 56, 0.0, 0),
+    ("train", (8, 8, 64, 512), "float32", 1 / 64, 0.1, 77),
+    ("fct_16k_4", (2, 2, 16384, 4), "bfloat16", 4 ** -0.5, 0.0, 0),
+    ("fct_4k_8", (2, 2, 4096, 8), "bfloat16", 8 ** -0.5, 0.1, 31),
+    ("fct_4k_64", (2, 8, 4096, 64), "bfloat16", 64 ** -0.5, 0.0, 0),
+)
+
+
+def host_times(c, fa) -> None:
+    """The host's time per call of mha at the inference shape and of the
+    pieces of its path that the checkout has."""
+    import torch
+
+    b, h, s, dh = 8, 8, 128, 392
+    scale, dev = 1 / 56, torch.device("cuda", torch.cuda.current_device())
+    views = [t.view(b, s, h, dh).transpose(1, 2) for t in c.qkv((b, s, h * dh), torch.bfloat16, 17)]
+    flat = [t.reshape(b * h, s, dh).contiguous() for t in views]
+    tiny = c.qkv((1, 16, 8), torch.bfloat16, 3)
+
+    def device_ctx():
+        with torch.cuda.device(dev):
+            pass
+
+    pieces = {
+        "mha on _split_heads views": lambda: fa.mha(*views, scale=scale),
+        "_flash_fwd_cuda at BH 1, S 16, Dh 8": lambda: fa._flash_fwd_cuda(*tiny, 0.5, 0.0, 0),
+        "_flat_inputs": lambda: fa._flat_inputs(*views, scale, 0.0, None),
+        "_FlashAttention.apply on (BH, S, Dh)": lambda: fa._FlashAttention.apply(*flat, scale, 0.0, 0),
+        "_check_inputs": lambda: fa._check_inputs(flat[0], None, q=flat[0], k=flat[1], v=flat[2]),
+        "_seed_arg": lambda: fa._seed_arg(0, 0.0, dev),
+        "two torch.empty": lambda: (torch.empty((b, s, h, dh), dtype=torch.bfloat16, device=dev),
+                                    torch.empty((b * h, s), dtype=torch.float32, device=dev)),
+        "torch.cuda.device(...)": device_ctx,
+        "current_stream(...).cuda_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "_kernel_lib lookup": lambda: fa._kernel_lib("flash_fwd"),
+    }
+    if hasattr(fa, "_check_flash_inputs"):
+        pieces["_check_flash_inputs"] = lambda: fa._check_flash_inputs(*views)
+        pieces["_cuda_stream"] = lambda: fa._cuda_stream(dev)
+    with torch.no_grad():
+        for name, fn in pieces.items():
+            print(f"[ab host] {name}: {host_ms(fn) * 1e3:.2f} us per call")
 
 
 def run(tag: str, out_dir: Path) -> None:
@@ -31,35 +85,44 @@ def run(tag: str, out_dir: Path) -> None:
 
     c.phase_device()
     c.phase_build()
-    outs = {}
+    outs, calls = {}, {}
+    for i, (name, (b, h, s, dh), dtype, scale, rate, seed) in enumerate(FWD_SHAPES):
+        q, k, v = c.qkv((b * h, s, dh), getattr(torch, dtype), seed=150 + i)
+        seed_t = c.device_seed(seed)
+        calls[f"flash_fwd_{name} {(b, h, s, dh)} {dtype} dropout {rate}"] = (
+            f"flash_fwd_{name}", functools.partial(fa._flash_fwd_cuda, q, k, v, scale, rate, seed_t))
     for name, case in (("train", c.TRAIN_CASE), ("infer", c.INFER_BWD_CASE)):
         (b, h, s, dh), dtype, scale, rate, seed = case
-        q, k, v, do, lse, delta = c.bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 30)
-        outs[f"flash_fwd_{name}"] = fa._flash_fwd_cuda(q, k, v, scale, rate, c.device_seed(seed))
-        outs[f"flash_bwd_{name}"] = fa._flash_bwd_cuda(q, k, v, do, lse, delta, scale, rate,
-                                                       c.device_seed(seed))
+        args = c.bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 30) + (scale, rate, c.device_seed(seed))
+        calls[f"flash_bwd_{name} (dq, dk/dv) {(b, h, s, dh)}"] = (
+            f"flash_bwd_{name}", functools.partial(fa._flash_bwd_cuda, *args))
     for name, case in (("c2", c.BAND_CONFIG2), ("wtrain", c.BAND_TRAIN)):
         (b, h, s, dh), dtype, scale, w, rate, seed = case
         q, k, v, do, lse, delta = c.bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 70, window=w)
-        outs[f"band_bwd_{name}"] = c.band_bwd(q, k, v, do, lse, delta, scale, w, rate, c.device_seed(seed))
+        seed_t = c.device_seed(seed)
+        calls[f"band_fwd_{name} {(b, h, s, dh)} w {w}"] = (
+            f"band_fwd_{name}", functools.partial(fa.band_fwd_cuda, q, k, v, scale, w, rate, seed_t))
+        calls[f"band_bwd_{name} (dq, dk/dv)"] = (
+            f"band_bwd_{name}", functools.partial(c.band_bwd, q, k, v, do, lse, delta, scale, w, rate, seed_t))
     prev = torch.ones(1, dtype=torch.int32, device="cuda")
     for name, case in (("c2s", c.HALO_CONFIG2), ("wts", c.HALO_TRAIN)):
         (b, h, s, dh), dtype, scale, w, rate, seed = case
         q, k, v, do, lse, delta = c.halo_inputs((b, h, s, dh), dtype, scale, w, rate, seed, 1, 110)
-        outs[f"halo_bwd_{name}"] = c.halo_bwd(q, k, v, do, lse, delta, scale, w, prev, rate,
-                                              c.device_seed(seed))
+        seed_t = c.device_seed(seed)
+        calls[f"halo_fwd_{name} {(b * h, s, s + w, dh)}"] = (
+            f"halo_fwd_{name}", functools.partial(fa.halo_fwd_cuda, q, k, v, scale, w, prev, rate, seed_t))
+        calls[f"halo_bwd_{name} (dq, dk/dv)"] = (
+            f"halo_bwd_{name}",
+            functools.partial(c.halo_bwd, q, k, v, do, lse, delta, scale, w, prev, rate, seed_t))
+    for key, fn in calls.values():
+        outs[key] = fn()
     torch.cuda.synchronize()
     out_dir.mkdir(parents=True, exist_ok=True)
     torch.save({key: [t.cpu() for t in ts] for key, ts in outs.items()}, out_dir / f"{tag}.pt")
     del outs
-    zeros = dict.fromkeys(("band_fwd", "band_bwd_dq", "band_bwd_dkv", "halo_fwd_launches",
-                           "halo_dq_launches", "halo_dkv_launches", "halo_fwd", "halo_bwd_dq",
-                           "halo_bwd_dkv", "flash_bwd_dq", "flash_bwd_dkv"), 0)
-    print(f"[ab {tag}] times")
-    c.time_flash(0, 0.0, zeros, zeros)
-    c.time_band(zeros, zeros)
-    c.time_halo(zeros, zeros)
-
+    for label, (_, fn) in calls.items():
+        print(f"[ab {tag}] {label}: {cuda_ms(fn, 20):.4f} ms (events), {device_ms(fn):.4f} ms (device)")
+    host_times(c, fa)
 
 def compare(out_dir: Path, first: str, others) -> None:
     import torch

@@ -7,15 +7,27 @@ Phases, one or more lines each:
     banded-attention, the halo-attention and the fused decoder tail
     libraries from the sources in this checkout (one nvcc each, in
     parallel) and prints the seconds, the registers per kernel and the
-    spill stores, and each tensor-core window forward kernel's own;
+    spill stores, and each tensor-core forward kernel's own (the flash
+    forward's per (KC, NT) tiling, the window forwards' per pass);
  3. forward kernel vs plain: out and lse against the plain PyTorch version
     on the card, fp32 max abs 1e-4; bf16 against the fp32 plain version on
-    the same bf16-rounded inputs, max abs 2e-2; the dropout seed is a (1,)
-    int32 device tensor;
+    the same bf16-rounded inputs, out max abs 1e-2 x max|ref| and lse 1e-4;
+    each limit must sit 10 times below what the plain version reads with V
+    one key row off; bits equal on repeat; the dropout seed is a (1,) int32
+    device tensor. The main path's shapes, Dh 8 over S 4099 and Dh 64 with
+    dropout, FCT's (2, 2, 16384, 4), (2, 2, 4096, 8) with dropout 0.1 and
+    (2, 8, 4096, 64) in bf16, and over ragged S the narrower loads: Dh 98
+    fp32 (8-byte copies), Dh 7 and 99 bf16 (element loads and stores); q,
+    k, v one element past a 16-byte boundary (bf16 with dropout, fp32):
+    within the limits and bit-equal to the aligned inputs'; then q, k, v as
+    ``_split_heads`` views of (B, S, D) tokens with out into a (B, S, H,
+    Dh) buffer (the inference and training shapes, Dh 8 and Dh 98): within
+    the limits, bits equal to the launch on contiguous copies, and
+    ``mha``'s merged heads a view of the kernel's buffer;
  4. backward kernels vs plain: dq, dk, dv of the dq and dk/dv kernels
-    against ``mha_bwd_reference`` on the phase-3 cases and the training
-    shape, max abs <= 1e-4 (fp32) or 2e-2 (bf16) x max|reference|; a
-    second launch must give the same bits;
+    against ``mha_bwd_reference`` on phase 3's main-path cases, the
+    training shape and FCT's two S-4096 shapes, max abs <= 1e-4 (fp32) or
+    2e-2 (bf16) x max|reference|; a second launch must give the same bits;
  5. banded kernels vs plain: the forward (two tensor-core passes), dq and
     dk/dv kernels of ``csrc/band_attention.cu`` against the windowed plain
     versions at config 2's shape (bf16, Dh 1152), the windowed training
@@ -117,15 +129,25 @@ Phases, one or more lines each:
     version, F.scaled_dot_product_attention (a yardstick, never on the
     port's path; with the boolean band as attn_mask for the banded
     kernels) and its bound; the flash forward also at the training shape
-    in fp32 (SDPA without dropout there), the flash backward kernels also
-    at the inference shape in bf16, the banded backward also at config 2's;
+    in fp32 (SDPA without dropout there), by events and by device time
+    (``card_timing.device_ms``: 20 calls queued behind a ~10 ms spin of the
+    card, the host's issue time checked to end well inside the spin, so no
+    host gap between them), SDPA beside it both ways, and the host's time
+    per call of ``mha`` on ``_split_heads`` views under no_grad (the least
+    of 5 turns of 200 calls issued on an idle card); the flash forward and
+    the backward pair at FCT's three shapes beside SDPA's forward and
+    backward, the forward's bound the
+    larger of bytes, products and the BH x S^2 exponentials at 16 fp32 ex2
+    per clock per SM at the card's maximum SM clock, the bf16x2 rate's time
+    beside it (``fct`` in the JSON); the
+    flash backward kernels also at the inference shape in bf16, the banded
+    backward also at config 2's;
     the halo kernels at the two shard shapes of phase 5c (has_prev 1), SDPA
     with the (S, S + w) halo band as a boolean mask beside them; every
     kernel's ``ms`` (and SDPA's) is events around a loop of calls, the
     host's launch time included; the band and halo forwards and their SDPA
-    also by torch.profiler's device time (``device_ms`` and
-    ``library_device_ms`` in the JSON), and the forwards' two passes
-    (logits, P.V) from the same profile's kernel rows;
+    also by device time (``device_ms`` and ``library_device_ms`` in the
+    JSON);
     the fused tail at config 1's and config 2's decode shapes in bf16,
     checked against its plain version there (<= 2e-2 x max|ref|), beside
     ``Decoder32K.tail`` in eval mode (the cuDNN chain it replaces, never on
@@ -141,6 +163,7 @@ import copy
 import dataclasses
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -151,6 +174,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from card_timing import cuda_ms, device_ms, host_ms
 from tchvp_tpu_torch import losses, parallel
 from tchvp_tpu_torch.bench import infer_fn, profile_window, random_clip, stage_ms, time_clips
 from tchvp_tpu_torch.config import flagship_video_config
@@ -162,6 +186,7 @@ from tchvp_tpu_torch.models.resnet_ae import Decoder32K, tokens_to_latent
 from tchvp_tpu_torch.models.streaming import StreamingConfig, microbatched_infer, stream_video
 from tchvp_tpu_torch.models.video import VideoHybridNet
 from tchvp_tpu_torch.ops import dispatch_trace
+from tchvp_tpu_torch.ops.attention import _merge_heads, _split_heads
 from tchvp_tpu_torch.ops.blocks import init_flax_default
 from tchvp_tpu_torch.parallel import collectives
 from tchvp_tpu_torch.train.state import create_train_state, make_optimizer
@@ -187,19 +212,6 @@ FLASH_PY = "tchvp_tpu/kernels/flash_attention.py"
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
-
-
-def cuda_ms(fn, iters: int = 50) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def qkv(shape, dtype, seed):
@@ -238,6 +250,26 @@ KERNEL_CASES = [
     ((1, 8, 128, 1152), torch.bfloat16, 1 / 96, 0.0, 0),
     ((2, 2, 4099, 8), torch.float32, None, 0.0, 0),
     ((2, 8, 200, 64), torch.float32, None, 0.1, 1234),
+]
+# FCT's attention (tchvp_tpu/kernels/flash_attention.py:38-45, BENCHES.md's block
+# sweep): Dh 4-64 over up to 16K spatial tokens, bf16, scale 1/sqrt(Dh).
+FCT_CASES = [
+    ((2, 2, 16384, 4), torch.bfloat16, None, 0.0, 0),
+    ((2, 2, 4096, 8), torch.bfloat16, None, 0.1, 31),
+    ((2, 8, 4096, 64), torch.bfloat16, None, 0.0, 0),
+]
+# The forward's narrower loads and stores over a ragged S: rows of 8 bytes (Dh 98
+# fp32: 8-byte copies in and out) and of an odd number of elements (Dh 7 and 99
+# bf16: element loads and stores, in the (16, 2) and (64, 16) tilings).
+LOAD_CASES = [
+    ((1, 3, 203, 98), torch.float32, None, 0.1, 41),
+    ((2, 3, 201, 7), torch.bfloat16, None, 0.1, 43),
+    ((1, 4, 190, 99), torch.bfloat16, None, 0.0, 0),
+]
+# q, k, v one element past a 16-byte boundary (element loads), over a ragged S.
+MISALIGNED_CASES = [
+    ((2, 2, 150, 64), torch.bfloat16, None, 0.1, 45),
+    ((1, 3, 133, 32), torch.float32, None, 0.0, 0),
 ]
 # The training main path's attention: 256^2 -> D 4096, 8 heads, S 64, scale 1/sqrt(D).
 TRAIN_CASE = ((8, 8, 64, 512), torch.float32, 1 / 64, 0.1, 77)
@@ -285,16 +317,18 @@ def phase_device() -> str:
 
 
 def kernel_resources(log: str) -> dict:
-    """{mangled kernel name: (registers, spill-store bytes)} from ptxas -v."""
+    """{mangled kernel name: (registers, spill-store bytes, stack-frame
+    bytes)} from ptxas -v."""
     found, name = {}, None
     for line in log.splitlines():
         if "Compiling entry function '" in line:
             name = line.split("Compiling entry function '")[1].split("'")[0]
         elif name and "bytes spill stores" in line:
             spill = int(line.split(" bytes spill stores")[0].split()[-1])
-            found[name] = (found.get(name, (0, 0))[0], spill)
+            stack = int(line.split(" bytes stack frame")[0].split()[-1]) if "stack frame" in line else 0
+            found[name] = (found.get(name, (0, 0, 0))[0], spill, stack)
         elif name and "Used " in line:
-            found[name] = (int(line.split("Used ")[1].split()[0]), found.get(name, (0, 0))[1])
+            found[name] = (int(line.split("Used ")[1].split()[0]),) + found.get(name, (0, 0, 0))[1:]
     return found
 
 
@@ -309,8 +343,14 @@ def phase_build() -> None:
                          for line in log if "bytes spill stores" in line})
         print(f"[2 build] {name} built in {build.build_seconds[name]:.2f} s "
               f"(registers per instantiation: {regs}; spill-store bytes: {spills})")
+    for kernel, (regs, spill, stack) in sorted(kernel_resources(build.build_log["flash_fwd"]).items()):
+        tiles = re.search(r"flash_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", kernel)
+        if tiles:
+            dtype = "bf16" if tiles.group(1) != "f" else "fp32"
+            print(f"[2 build] flash_fwd {dtype} (KC {tiles.group(2)}, NT {tiles.group(3)}): {regs} registers, "
+                  f"{spill} bytes spill stores, {stack} bytes stack frame")
     for name in ("band_attention", "halo_attention"):
-        for kernel, (regs, spill) in sorted(kernel_resources(build.build_log[name]).items()):
+        for kernel, (regs, spill, _) in sorted(kernel_resources(build.build_log[name]).items()):
             if "window_" in kernel:
                 dtype = "bf16" if "nv_bfloat16" in kernel else "fp32"
                 kind = "logits (pass A)" if "logits" in kernel else "P.V (pass B)"
@@ -318,24 +358,94 @@ def phase_build() -> None:
     print(f"[2 build] {len(LIBRARIES)} libraries in {wall:.2f} s wall (one nvcc each, in parallel)")
 
 
+def fwd_limits(dtype: torch.dtype, ref_out: torch.Tensor) -> tuple:
+    """Phase 3's (out, lse) limits on max abs error: fp32 1e-4 and 1e-4;
+    bf16 1e-2 x max|ref| for out (rounding out to bf16 alone moves it by up
+    to 2^-8 x |out|) and 1e-4 for the lse, which the kernel forms in fp32
+    from the bf16 inputs as the plain version does."""
+    if dtype != torch.bfloat16:
+        return 1e-4, 1e-4
+    return 1e-2 * ref_out.abs().max().item(), 1e-4
+
+
 def phase_fwd_kernel() -> float:
-    """Returns the max abs error at the first (inference flagship) case."""
+    """The flash forward against its plain version at the main path's
+    shapes, FCT's shapes and the narrower loads' cases, bits equal on
+    repeat, each limit shown to sit far below what the plain version reads
+    with V one key row off (a P.V or tiling fault); then on q, k, v off a
+    16-byte boundary and on strided views. Returns the max abs error at the
+    first (inference flagship) case."""
     flagship_err = None
-    for i, ((b, h, s, dh), dtype, scale, rate, seed) in enumerate(KERNEL_CASES):
+    for i, ((b, h, s, dh), dtype, scale, rate, seed) in enumerate(KERNEL_CASES + FCT_CASES + LOAD_CASES):
         q, k, v = qkv((b * h, s, dh), dtype, seed=i)
         scale = 1 / math.sqrt(dh) if scale is None else scale
-        out, lse = fa._flash_fwd_cuda(q, k, v, scale, rate, device_seed(seed))
+        got = fa._flash_fwd_cuda(q, k, v, scale, rate, device_seed(seed))
+        again = fa._flash_fwd_cuda(q, k, v, scale, rate, device_seed(seed))
         torch.cuda.synchronize()
-        ref_out, ref_lse = fa.mha_reference(q.float(), k.float(), v.float(), scale, rate, seed)
-        err = (out.float() - ref_out).abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-        print(f"[3 fwd kernel] {(b, h, s, dh)} {str(dtype)[6:]} dropout {rate}: "
-              f"out max abs {err:.3g}, lse max abs {lse_err:.3g} (tol {tol})")
-        check(math.isfinite(err) and err <= tol and lse_err <= tol, f"kernel vs plain at {(b, h, s, dh)}")
+        want = fa.mha_reference(q.float(), k.float(), v.float(), scale, rate, seed)
+        tol, lse_tol = fwd_limits(dtype, want[0])
+        fault = fa.mha_reference(q.float(), k.float(), v.float().roll(1, dims=1), scale, rate, seed)[0]
+        fault_err = (fault - want[0]).abs().max().item()
+        del fault
+        check(fault_err > 10 * tol, f"3 fwd kernel at {(b, h, s, dh)}: V one key row off reads {fault_err}, "
+                                    f"not 10 x the limit {tol}")
+        lse_err = (got[1] - want[1]).abs().max().item()
+        err = check_fwd(f"3 fwd kernel at {(b, h, s, dh)}", got, again, want, tol, lse_tol)
+        print(f"[3 fwd kernel] {(b, h, s, dh)} {str(dtype)[6:]} dropout {rate}: out max abs {err:.3g} "
+              f"({err / want[0].abs().max().item():.3g} x max|ref|), lse max abs {lse_err:.3g} (limits "
+              f"{tol:.3g}, {lse_tol}); V one key row off reads {fault_err:.3g}; bits equal on repeat")
         if flagship_err is None:
             flagship_err = err
+        del q, k, v, got, again, want
+        free_cuda()
+    for i, ((b, h, s, dh), dtype, scale, rate, seed) in enumerate(MISALIGNED_CASES):
+        q, k, v = qkv((b * h, s, dh), dtype, seed=90 + i)
+        scale, seed_t = 1 / math.sqrt(dh) if scale is None else scale, device_seed(seed)
+        want = fa.mha_reference(q.float(), k.float(), v.float(), scale, rate, seed)
+        check_misaligned(f"3 fwd kernel {(b, h, s, dh)} {str(dtype)[6:]} dropout {rate}",
+                         lambda *t: fa._flash_fwd_cuda(*t, scale, rate, seed_t), q, k, v, want,
+                         *fwd_limits(dtype, want[0]))
+    phase_fwd_strided()
     return flagship_err
+
+
+# The strided cases: the main path's inference and training attention and FCT's Dh 8.
+STRIDED_CASES = [KERNEL_CASES[0], TRAIN_CASE, ((2, 2, 300, 8), torch.bfloat16, None, 0.1, 5),
+                 ((1, 3, 100, 98), torch.float32, None, 0.0, 0)]
+
+
+def phase_fwd_strided() -> None:
+    """q, k, v as ``_split_heads`` views of (B, S, D) tokens and out into a
+    (B, S, H, Dh) buffer, as ``mha`` launches the kernel on the main path:
+    against the plain version at phase 3's limits, bits equal to the launch
+    on contiguous (BH, S, Dh) copies; ``mha``'s merged heads a view of that
+    buffer."""
+    for i, ((b, h, s, dh), dtype, scale, rate, seed) in enumerate(STRIDED_CASES):
+        scale = 1 / math.sqrt(dh) if scale is None else scale
+        rng = np.random.default_rng(60 + i)
+        tokens = [torch.from_numpy(rng.standard_normal((b, s, h * dh), dtype=np.float32)).to("cuda", dtype)
+                  for _ in range(3)]
+        q4, k4, v4 = (_split_heads(t, h) for t in tokens)
+        seed_t = device_seed(seed)
+        out4, lse4 = fa._flash_fwd_cuda(q4, k4, v4, scale, rate, seed_t)
+        flat = [t.reshape(b * h, s, dh).contiguous() for t in (q4, k4, v4)]
+        out, lse = fa._flash_fwd_cuda(*flat, scale, rate, seed_t)
+        with torch.no_grad():
+            merged = _merge_heads(fa.mha(q4, k4, v4, scale=scale, dropout_rate=rate, dropout_seed=seed_t))
+        want = fa.mha_reference(*(t.float() for t in flat), scale, rate, seed)
+        tol, lse_tol = fwd_limits(dtype, want[0])
+        err = (out4.reshape(b * h, s, dh).float() - want[0]).abs().max().item()
+        lse_err = (lse4 - want[1]).abs().max().item()
+        check(not q4.is_contiguous() and out4.transpose(1, 2).is_contiguous(), "the strided case is not strided")
+        check(math.isfinite(err) and err <= tol and lse_err <= lse_tol,
+              f"strided views at {(b, h, s, dh)}: out {err} > {tol} or lse {lse_err} > {lse_tol}")
+        check(torch.equal(out4.reshape(b * h, s, dh), out) and torch.equal(lse4, lse),
+              f"strided views at {(b, h, s, dh)} change the bits")
+        check(torch.equal(merged, out4.transpose(1, 2).reshape(b, s, h * dh)) and merged._base is not None,
+              f"mha's merged heads at {(b, h, s, dh)}: not the kernel's buffer")
+        print(f"[3 fwd strided] {(b, h, s, dh)} {str(dtype)[6:]} dropout {rate}: _split_heads views in, "
+              f"(B, S, H, Dh) out: out max abs {err:.3g}, lse max abs {lse_err:.3g} (limits {tol:.3g}, "
+              f"{lse_tol}); bits equal to the contiguous launch; the merged heads a view")
 
 
 def check_bwd(tag: str, shape, dtype, got, again, want) -> list:
@@ -360,7 +470,7 @@ def phase_bwd_kernels() -> dict:
     the same inputs; a second launch must give the same bits. Returns the
     max abs errors at the training shape."""
     errs = {}
-    for i, case in enumerate(KERNEL_CASES + [TRAIN_CASE]):
+    for i, case in enumerate(KERNEL_CASES + [TRAIN_CASE] + FCT_CASES[1:]):
         (b, h, s, dh), dtype, scale, rate, seed = case
         scale = 1 / math.sqrt(dh) if scale is None else scale
         q, k, v, do, lse, delta = bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 10 + i)
@@ -372,6 +482,8 @@ def phase_bwd_kernels() -> dict:
         e = check_bwd(f"4 bwd kernels, dropout {rate}", (b, h, s, dh), dtype, got, again, want)
         if case is TRAIN_CASE:
             errs = {"flash_bwd_dq": e[0], "flash_bwd_dkv": max(e[1], e[2])}
+        del q, k, v, do, lse, delta, got, again, want
+        free_cuda()
     return errs
 
 
@@ -382,21 +494,24 @@ def misaligned(t: torch.Tensor) -> torch.Tensor:
     return view.copy_(t)
 
 
-def check_misaligned(tag: str, fwd, q, k, v, want) -> None:
+def check_misaligned(tag: str, fwd, q, k, v, want, tol=None, lse_tol=None) -> None:
     """``fwd(q, k, v)`` on misaligned copies against the plain ``want`` at
-    the dtype's limit, and bit-equal to its output on the aligned inputs."""
-    tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
+    ``tol`` and ``lse_tol`` (the dtype's absolute limit when None), and
+    bit-equal to its output on the aligned inputs."""
+    if tol is None:
+        tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-4
+    lse_tol = tol if lse_tol is None else lse_tol
     copies = [misaligned(t) for t in (q, k, v)]
     check(all(t.data_ptr() % 16 for t in copies), f"{tag}: the copies are 16-byte aligned")
     got, aligned = fwd(*copies), fwd(q, k, v)
     torch.cuda.synchronize()
     err = (got[0].float() - want[0]).abs().max().item()
     lse_err = (got[1] - want[1]).abs().max().item()
-    check(math.isfinite(err) and err <= tol and lse_err <= tol, f"{tag} misaligned: out {err}, lse {lse_err}")
+    check(math.isfinite(err) and err <= tol and lse_err <= lse_tol, f"{tag} misaligned: out {err}, lse {lse_err}")
     check(torch.equal(got[0], aligned[0]) and torch.equal(got[1], aligned[1]),
           f"{tag}: misaligned inputs change the bits")
     print(f"[{tag} misaligned] q, k, v one element past a 16-byte boundary: out max abs {err:.3g}, lse max "
-          f"abs {lse_err:.3g} (tol {tol}); bits equal to the aligned inputs'")
+          f"abs {lse_err:.3g} (limits {tol:.3g}, {lse_tol:.3g}); bits equal to the aligned inputs'")
 
 
 def band_bwd(q, k, v, do, lse, delta, scale, window, rate, seed):
@@ -616,12 +731,15 @@ def phase_halo_kernels() -> dict:
 F1_HEAD_DIMS = (1352, 2048, 4608)
 
 
-def check_fwd(tag: str, got, again, want, tol: float) -> float:
-    """out and lse against the plain version (max abs <= tol) and bit
-    equality of a second launch; returns the out error."""
+def check_fwd(tag: str, got, again, want, tol: float, lse_tol=None) -> float:
+    """out and lse against the plain version (max abs <= tol, and <=
+    ``lse_tol`` for the lse when given) and bit equality of a second
+    launch; returns the out error."""
     err = (got[0].float() - want[0]).abs().max().item()
     lse_err = (got[1] - want[1]).abs().max().item()
-    check(math.isfinite(err) and err <= tol and lse_err <= tol, f"{tag}: out {err}, lse {lse_err} > {tol}")
+    lse_tol = tol if lse_tol is None else lse_tol
+    check(math.isfinite(err) and err <= tol and lse_err <= lse_tol,
+          f"{tag}: out {err} > {tol} or lse {lse_err} > {lse_tol}")
     check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]), f"{tag} differs on repeat")
     return err
 
@@ -1261,33 +1379,19 @@ def bound(nbytes: float, flops: float, dtype: torch.dtype):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time per call of ``fn``: its kernels' summed time under
-    torch.profiler over ``iters`` calls, without the host's time between
-    launches, which events around a loop of short calls would count."""
-    return profile_window(fn, iters=iters, top=0)["device_busy_ms_per_call"]
-
-
 def window_fwd_times(fwd, sdpa) -> dict:
     """A band or halo forward ``fwd`` and ``sdpa`` timed as every kernel of
     phase 14 is, by events around 20 calls, the host's launch time included
-    ("ms", "sdpa_ms"), and by torch.profiler's device time over 20 calls
-    ("device", "sdpa_device"); "logits" and "pv": the forward's two kernels'
-    rows in the same profile."""
-    t = {"ms": cuda_ms(fwd, 20)}
-    prof = profile_window(fwd, iters=20, top=10)
-    t["device"] = prof["device_busy_ms_per_call"]
-    t["logits"], t["pv"] = (sum(ms for name, ms, _ in prof["top_kernels_ms_per_call"] if kernel in name)
-                            for kernel in ("window_logits_kernel", "window_pv_kernel"))
-    check(t["logits"] > 0 and t["pv"] > 0, f"the forward's profile names no pass: {prof['top_kernels_ms_per_call']}")
+    ("ms", "sdpa_ms"), and by :func:`device_ms` ("device", "sdpa_device").
+    Each pass's own time: ``window_fwd_breakdown.py``."""
+    t = {"ms": cuda_ms(fwd, 20), "device": device_ms(fwd)}
     with torch.no_grad():
         t["sdpa_ms"], t["sdpa_device"] = cuda_ms(sdpa, 20), device_ms(sdpa)
     return t
 
 
 def window_fwd_line(t: dict) -> str:
-    return (f"kernel {t['ms']:.4f} ms (events), device {t['device']:.4f} ms (torch.profiler: logits pass "
-            f"{t['logits']:.4f} + P.V pass {t['pv']:.4f})")
+    return f"kernel {t['ms']:.4f} ms (events), device {t['device']:.4f} ms"
 
 
 def sdpa_backend(q4, k4, v4, scale, attn_mask=None) -> str:
@@ -1305,37 +1409,120 @@ def record(name, source, replaces, launches, err, ms, plain_ms, bound_ms, bound_
             "bound_by": bound_by, "library_ms": library_ms, **extra}
 
 
+# MUFU's fp32 ex2 results per clock of an H100 SM (ex2.approx.ftz.bf16x2 gives twice
+# as many); SMs of the SXM card.
+EX2_PER_CLOCK_PER_SM, SMS = 16, 132
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
+def exp_ms(bh: int, s: int, per_clock: int = EX2_PER_CLOCK_PER_SM) -> float:
+    """The BH x S^2 exponentials of a flash forward at ``per_clock`` ex2
+    per clock per SM on every SM at the maximum SM clock, in ms."""
+    return bh * s * s / (per_clock * SMS * sm_clock_hz()) * 1e3
+
+
+def flash_fwd_bound(bh: int, s: int, dh: int, dtype: torch.dtype):
+    """(ms, "bytes" or "operations") of the flash forward: the larger of q,
+    k, v and out once (and the lse), the products (2 flops per multiply-add
+    of Q K^T and P V), and the exponentials at the fp32 ex2 rate, the one
+    that l and the lse, summed in fp32, take."""
+    esize = torch.finfo(dtype).bits // 8
+    ms, by = bound(4 * bh * s * dh * esize + bh * s * 4, 4 * bh * s * s * dh, dtype)
+    return (exp_ms(bh, s), "operations") if exp_ms(bh, s) > ms else (ms, by)
+
+
+def time_fwd(fwd, sdpa) -> dict:
+    """A forward and SDPA on the same inputs, as every kernel of phase 14 is
+    timed (events around 20 calls, the host's time per call included: "ms",
+    "sdpa_ms") and by :func:`device_ms` ("device", "sdpa_device")."""
+    with torch.no_grad():
+        return {"ms": cuda_ms(fwd, 20), "device": device_ms(fwd), "sdpa_ms": cuda_ms(sdpa, 20),
+                "sdpa_device": device_ms(sdpa)}
+
+
+def fwd_line(t: dict) -> str:
+    return (f"kernel {t['ms']:.4f} ms (events), device {t['device']:.4f} ms, SDPA "
+            f"{t['sdpa_ms']:.4f} ms (events), device {t['sdpa_device']:.4f} ms")
+
+
+def time_flash_fct() -> list:
+    """The flash forward and the backward pair at FCT's shapes beside SDPA
+    (without dropout) and the forward's bound; a backward call longer than 2
+    s is timed once."""
+    rows = []
+    for (b, h, s, dh), dtype, _, rate, seed in FCT_CASES:
+        scale, bh = 1 / math.sqrt(dh), b * h
+        q, k, v, do, lse, delta = bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 130)
+        seed_t = device_seed(seed)
+        q4, k4, v4 = (x.detach().view(b, h, s, dh).requires_grad_() for x in (q, k, v))
+        backend = sdpa_backend(q4, k4, v4, scale)
+        t = time_fwd(lambda: fa._flash_fwd_cuda(q, k, v, scale, rate, seed_t),
+                     lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+        b_ms, b_by = flash_fwd_bound(bh, s, dh, dtype)
+        bf16x2_ms = exp_ms(bh, s, 2 * EX2_PER_CLOCK_PER_SM)
+        args = (q, k, v, do, lse, delta, scale, rate, seed_t)
+        pair = lambda: (fa.flash_bwd_dq_cuda(*args), fa.flash_bwd_dkv_cuda(*args))  # noqa: E731
+        once = cuda_ms(pair, 1)
+        pair_ms = once if once > 2000 else cuda_ms(pair, 3)
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        do4 = do.view(b, h, s, dh)
+        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), 3)
+        print(f"[14 times] flash_fwd FCT {(b, h, s, dh)} {str(dtype)[6:]} dropout {rate}: {fwd_line(t)} "
+              f"({backend}, without dropout), bound {b_ms:.4f} ms ({b_by}: the larger of bytes, products and "
+              f"{bh * s * s / 1e9:.3f} G fp32 exponentials; at the bf16x2 rate {bf16x2_ms:.4f} ms); "
+              f"backward pair dq + dk/dv {pair_ms:.4f} ms"
+              f"{' (one call)' if once > 2000 else ''}, SDPA backward {sdpa_bwd:.4f} ms")
+        rows.append({"shape": [b, h, s, dh], "ms": t["ms"], "device_ms": t["device"], "bound_ms": b_ms,
+                     "exp_bf16x2_ms": bf16x2_ms,
+                     "bound_by": b_by, "library_ms": t["sdpa_ms"], "library_device_ms": t["sdpa_device"],
+                     "bwd_pair_ms": pair_ms, "library_bwd_ms": sdpa_bwd})
+        del q, k, v, do, lse, delta, q4, k4, v4, out4
+        free_cuda()
+    return rows
+
+
 def time_flash(fwd_launches: int, fwd_err: float, bwd_launches: dict, bwd_errs: dict) -> list:
-    # Forward at the inference main path's shape (bf16).
+    # Forward at the inference main path's shape (bf16), and the host's time
+    # per call of mha on the transformer's views there.
     b, h, s, dh = 8, 8, 128, 392
     scale = 1 / 56
     q, k, v = qkv((b * h, s, dh), torch.bfloat16, seed=7)
-    kernel_ms = cuda_ms(lambda: fa._flash_fwd_cuda(q, k, v, scale, 0.0, 0))
-    plain_ms = cuda_ms(lambda: fa.mha_reference(q, k, v, scale))
     q4, k4, v4 = (t.view(b, h, s, dh) for t in (q, k, v))
     backend = sdpa_backend(q4, k4, v4, scale)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
-    bh = b * h
-    bound_ms, bound_by = bound(4 * bh * s * dh * 2 + bh * s * 4, 4 * bh * s * s * dh, torch.bfloat16)
-    print(f"[14 times] flash_fwd {(b, h, s, dh)} bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"SDPA ({backend}) {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    t = time_fwd(lambda: fa._flash_fwd_cuda(q, k, v, scale, 0.0, 0),
+                 lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+    plain_ms = cuda_ms(lambda: fa.mha_reference(q, k, v, scale))
+    bound_ms, bound_by = flash_fwd_bound(b * h, s, dh, torch.bfloat16)
+    views = [_split_heads(t, h) for t in qkv((b, s, h * dh), torch.bfloat16, 17)]  # as the transformer's
+    with torch.no_grad():
+        mha_host_ms = host_ms(lambda: fa.mha(*views, scale=scale))
+    print(f"[14 times] flash_fwd {(b, h, s, dh)} bf16: {fwd_line(t)} ({backend}), plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}); host time of mha on _split_heads views under no_grad "
+          f"{mha_host_ms:.4f} ms per call (least of 5 turns of 200 calls issued on an idle card)")
     # The forward on the training path: fp32 with dropout; SDPA without.
     (tb, th, ts, tdh), _, tscale, trate, tseed = TRAIN_CASE
     tq, tk, tv = qkv((tb * th, ts, tdh), torch.float32, seed=8)
     seed_t = device_seed(tseed)
-    train_ms = cuda_ms(lambda: fa._flash_fwd_cuda(tq, tk, tv, tscale, trate, seed_t))
-    train_plain_ms = cuda_ms(lambda: fa.mha_reference(tq, tk, tv, tscale, trate, tseed))
     tq4, tk4, tv4 = (t.view(tb, th, ts, tdh) for t in (tq, tk, tv))
     train_backend = sdpa_backend(tq4, tk4, tv4, tscale)
-    train_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(tq4, tk4, tv4, scale=tscale))
-    tbh = tb * th
-    train_bound, train_by = bound(4 * tbh * ts * tdh * 4 + tbh * ts * 4, 4 * tbh * ts * ts * tdh,
-                                  torch.float32)
-    print(f"[14 times] flash_fwd {(tb, th, ts, tdh)} float32 dropout {trate}: kernel {train_ms:.4f} ms, "
-          f"plain {train_plain_ms:.4f} ms, SDPA without dropout ({train_backend}) {train_lib_ms:.4f} ms, "
-          f"bound {train_bound:.4f} ms ({train_by})")
-    records = [record("flash_fwd", "flash_fwd.cu", f"{FLASH_PY}:174", fwd_launches, fwd_err, kernel_ms,
-                      plain_ms, bound_ms, bound_by, library_ms)]
+    tt = time_fwd(lambda: fa._flash_fwd_cuda(tq, tk, tv, tscale, trate, seed_t),
+                  lambda: F.scaled_dot_product_attention(tq4, tk4, tv4, scale=tscale))
+    train_plain_ms = cuda_ms(lambda: fa.mha_reference(tq, tk, tv, tscale, trate, tseed))
+    train_bound, train_by = flash_fwd_bound(tb * th, ts, tdh, torch.float32)
+    print(f"[14 times] flash_fwd {(tb, th, ts, tdh)} float32 dropout {trate}: {fwd_line(tt)} (without dropout, "
+          f"{train_backend}), plain {train_plain_ms:.4f} ms, bound {train_bound:.4f} ms ({train_by})")
+    records = [record("flash_fwd", "flash_fwd.cu", f"{FLASH_PY}:192", fwd_launches, fwd_err, t["ms"],
+                      plain_ms, bound_ms, bound_by, t["sdpa_ms"], device_ms=t["device"],
+                      library_device_ms=t["sdpa_device"], mha_host_ms_per_call=mha_host_ms,
+                      train={"ms": tt["ms"], "device_ms": tt["device"], "library_ms": tt["sdpa_ms"],
+                             "library_device_ms": tt["sdpa_device"], "bound_ms": train_bound},
+                      fct=time_flash_fct())]
 
     # Backward: the training shape (fp32, dropout 0.1, in the JSON), then the
     # inference shape in bf16.

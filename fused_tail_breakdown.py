@@ -31,7 +31,8 @@ from typing import Dict
 
 import torch
 
-from chip_smoke import cuda_ms, seed_decoder
+from card_timing import cuda_ms
+from chip_smoke import seed_decoder
 from tchvp_tpu_torch.kernels import build
 from tchvp_tpu_torch.kernels import fused_tail as ft
 from tchvp_tpu_torch.models.resnet_ae import Decoder32K

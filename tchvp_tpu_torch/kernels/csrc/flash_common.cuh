@@ -1,4 +1,4 @@
-// Helpers shared by the attention kernels (attention_fwd.cuh and
+// Helpers shared by the attention kernels (flash_fwd.cu, window_fwd.cuh and
 // attention_bwd.cuh, built as flash_fwd.cu, flash_bwd.cu, band_attention.cu
 // and halo_attention.cu).
 //
@@ -37,12 +37,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
 // _squirrel3 of flash_attention.py: uint32 arithmetic wraps as on the TPU.
 __device__ __forceinline__ uint32_t squirrel3(uint32_t x) {
   x *= 0xB5297A4Du;
@@ -60,11 +54,21 @@ __device__ __forceinline__ uint32_t dropout_base(const int* seed, int bh) {
   return (uint32_t)seed[0] * 0x9E3779B1u + (uint32_t)bh * 0x85EBCA77u;
 }
 
+// The row's half of the hash, squirrel3(row ^ base): a kernel that drops
+// many weights of one row takes it once.
+__device__ __forceinline__ uint32_t row_hash(uint32_t base, int row) {
+  return squirrel3((uint32_t)row ^ base);
+}
+
+// True where the weight at column col of the row hashed to row_h is kept.
+__device__ __forceinline__ bool keep_hashed(uint32_t row_h, int col, uint32_t threshold) {
+  return squirrel3(row_h + (uint32_t)col * 0x27D4EB2Fu) >= threshold;
+}
+
 // True where the global weight (row, col) is kept.
 __device__ __forceinline__ bool keep_element(uint32_t base, int row, int col,
                                              uint32_t threshold) {
-  const uint32_t h = squirrel3((uint32_t)row ^ base);
-  return squirrel3(h + (uint32_t)col * 0x27D4EB2Fu) >= threshold;
+  return keep_hashed(row_hash(base, row), col, threshold);
 }
 
 // Stages rows [row0, row0 + rows) of a (S, Dh) matrix as fp32, zero past S.
@@ -91,7 +95,7 @@ __device__ __forceinline__ void stage_cols(float* dst, const T* src, int row0, i
   }
 }
 
-// How the CUDA-core bodies (attention_fwd.cuh, attention_bwd.cuh) cover a
+// How the CUDA-core bodies (attention_bwd.cuh) cover a
 // head dim: `groups` column groups (blockIdx.z) of `chunks` <= kMaxChunks
 // accumulator chunks of `threads` columns each, and the staged q (and do)
 // tiles hold `q_cols` columns at a time: all of Dh when one group covers

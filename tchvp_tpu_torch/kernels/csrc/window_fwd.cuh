@@ -41,7 +41,7 @@
 // S (or past the span) and columns past Dh are zero-filled.
 #pragma once
 
-#include "flash_common.cuh"
+#include "mma_common.cuh"
 
 namespace tchvp {
 
@@ -65,106 +65,6 @@ __host__ __device__ constexpr int win_stride_qk() {
 // (fp32): three or two blocks per SM.
 template <typename T>
 __host__ __device__ constexpr int win_stages() { return sizeof(T) == 2 ? 4 : 3; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, the bytes past `bytes` (0 or 16) zero-filled.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Rows [row0, row0 + ROWS) and columns [col0, col0 + COLS) of a (rows, Dh)
-// row-major matrix into a tile of row stride STRIDE, by THREADS threads;
-// rows >= row_end and columns >= head_dim read as 0.
-template <typename T, int ROWS, int COLS, int STRIDE, int THREADS = kWinThreads>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0, int row_end, int col0,
-                                          int head_dim, bool vec) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = COLS / kVec;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += THREADS) {
-    const int r = i / kPerRow;
-    const int c = (i - r * kPerRow) * kVec;
-    T* d = dst + r * STRIDE + c;
-    const int gr = row0 + r, gc = col0 + c;
-    if (vec) {
-      const bool ok = gr < row_end && gc < head_dim;  // head_dim % kVec == 0
-      cp_async16(d, ok ? src + (size_t)gr * head_dim + gc : src, ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e)
-        d[e] = (gr < row_end && gc + e < head_dim) ? src[(size_t)gr * head_dim + gc + e]
-                                                   : from_f32<T>(0.f);
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// c += a b on a 16x8x16 bf16 tile, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b on a 16x8x8 tf32 tile, fp32 accumulate.
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// x = hi + lo with hi, lo tf32 (round to nearest): 22 of fp32's 24 bits.
-__device__ __forceinline__ void split_tf32(float x, uint32_t* hi, uint32_t* lo) {
-  uint32_t h, l;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(l) : "f"(x - __uint_as_float(h)));
-  *hi = h;
-  *lo = l;
-}
-
-// c += a b in 3xTF32, the small products first; a already split.
-__device__ __forceinline__ void mma_3xtf32(float* c, const uint32_t* a_hi, const uint32_t* a_lo,
-                                           float b0, float b1) {
-  uint32_t b_hi[2], b_lo[2];
-  split_tf32(b0, &b_hi[0], &b_lo[0]);
-  split_tf32(b1, &b_hi[1], &b_lo[1]);
-  mma_tf32(c, a_lo, b_hi);
-  mma_tf32(c, a_hi, b_lo);
-  mma_tf32(c, a_hi, b_hi);
-}
-
-// Four 8x8 b16 matrices of shared memory: lane i gives the address of row
-// i % 8 of matrix i / 8; lane 4g + t receives elements 2t, 2t + 1 of row g.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// The same, transposed: lane 4g + t receives rows 2t, 2t + 1 of column g.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
 
 // One 64-column chunk of a warp's S = Q K^T: 16 rows (q_s) x 32 keys (k_s),
 // acc[j] the m16n8 tile of keys 8j..8j+7 (rows g, g + 8; keys 2t, 2t + 1).
@@ -258,9 +158,11 @@ window_logits_kernel(const T* __restrict__ q, const T* __restrict__ k, float* __
     if (chunk < n_chunks) {
       T* st = ring + (chunk % kStages) * kStage;
       load_tile<T, kWinBlockQ, kWinChunkD, S, kWinLogitsThreads>(st, qb, q0, seq_len,
-                                                                 chunk * kWinChunkD, head_dim, vec);
+                                                                 chunk * kWinChunkD, head_dim,
+                                                                 head_dim, vec ? 16 : 0);
       load_tile<T, kWinBlockK, kWinChunkD, S, kWinLogitsThreads>(st + kWinBlockQ * S, kb, kt0, k_hi,
-                                                                 chunk * kWinChunkD, head_dim, vec);
+                                                                 chunk * kWinChunkD, head_dim,
+                                                                 head_dim, vec ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -357,8 +259,9 @@ __device__ __forceinline__ float2 weights2(RowWeights& w, const float* x, int c,
   float p1 = s.y == kNegInf ? 0.f : expf(s.y - w.m);
   w.l += p0 + p1;
   if (dropout) {
-    p0 = keep_element(hash_base, w.row, hash_col<M>(k_lo + c, window), drop_threshold) ? p0 / keep_prob : 0.f;
-    p1 = keep_element(hash_base, w.row, hash_col<M>(k_lo + c + 1, window), drop_threshold) ? p1 / keep_prob : 0.f;
+    p0 = dropout_weight(p0, row_hash(hash_base, w.row), hash_col<M>(k_lo + c, window), drop_threshold, keep_prob);
+    p1 = dropout_weight(p1, row_hash(hash_base, w.row), hash_col<M>(k_lo + c + 1, window), drop_threshold,
+                        keep_prob);
   }
   return make_float2(p0, p1);
 }
@@ -371,7 +274,7 @@ __device__ __forceinline__ float weight1(RowWeights& w, const float* x, int c, i
   float p = s == kNegInf ? 0.f : expf(s - w.m);
   w.l += p;
   if (dropout)
-    p = keep_element(hash_base, w.row, hash_col<M>(k_lo + c, window), drop_threshold) ? p / keep_prob : 0.f;
+    p = dropout_weight(p, row_hash(hash_base, w.row), hash_col<M>(k_lo + c, window), drop_threshold, keep_prob);
   return p;
 }
 
@@ -459,9 +362,10 @@ window_pv_kernel(const T* __restrict__ v, const float* __restrict__ scratch, T* 
 
   auto load = [&](int tile) {
     const int stage = tile & 1;
-    load_tile<T, kWinBlockK, kWinBlockD, kWinStrideV>(v_s + stage * kVStage, vb,
-                                                      k_lo + tile * kWinBlockK, k_hi, d0,
-                                                      head_dim, vec);
+    load_tile<T, kWinBlockK, kWinBlockD, kWinStrideV, kWinThreads>(v_s + stage * kVStage, vb,
+                                                                   k_lo + tile * kWinBlockK, k_hi,
+                                                                   d0, head_dim, head_dim,
+                                                                   vec ? 16 : 0);
     load_logits_tile(p_s + stage * kPStage, xs, q0, seq_len, tile * kWinBlockK, span, scratch_cols);
     cp_async_commit();
   };
@@ -538,8 +442,6 @@ window_pv_kernel(const T* __restrict__ v, const float* __restrict__ scratch, T* 
     }
   }
 }
-
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // A forward's arguments. span_cols, the widest key span of a 64-row query
 // tile, comes from the host (flash_attention.py's window_plan): it sets the

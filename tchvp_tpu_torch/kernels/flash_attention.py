@@ -4,7 +4,10 @@ versions, ``mha``, ``windowed_mha`` and ``windowed_mha_halo``.
 Counterpart of ``tchvp_tpu/kernels/flash_attention.py``'s ``mha``,
 ``windowed_mha`` and ``windowed_mha_halo`` with their custom VJPs. On a CUDA
 tensor :func:`_flash_fwd` launches the hand-written forward
-``csrc/flash_fwd.cu`` and :func:`_flash_bwd` the two backward kernels of
+``csrc/flash_fwd.cu`` (on the tensor cores, one pass of online softmax over
+head-dim column blocks; it takes ``mha``'s (B, H, S, Dh) views as they are
+and writes ``out`` into a (B, S, H, Dh) buffer, so neither the heads'
+split nor their merge copies) and :func:`_flash_bwd` the two backward kernels of
 ``csrc/flash_bwd.cu`` (dq; dk and dv); :func:`_win_fwd` and :func:`_win_bwd`
 launch the banded kernels of ``csrc/band_attention.cu``, where query window
 i sees key windows i-1 and i; :func:`_halo_fwd` and :func:`_halo_bwd` launch
@@ -12,8 +15,8 @@ those of ``csrc/halo_attention.cu``, one shard of the band under sequence
 parallelism, whose k and v carry the left neighbour's last window in front.
 The banded and halo forwards run on the tensor cores in two passes over
 an fp32 logits scratch (``csrc/window_fwd.cuh``) whose width and key-tile
-grid :func:`window_plan` gives; the other kernels keep CUDA-core bodies, which
-take any head dim in column groups. All are built at first use by
+grid :func:`window_plan` gives; the backward kernels keep CUDA-core bodies,
+which take any head dim in column groups. All are built at first use by
 :mod:`.build`. On a CPU tensor they run
 :func:`mha_reference`, :func:`mha_bwd_reference` and their windowed and halo
 counterparts, the dense fp32 versions of the same functions (the band as a
@@ -321,18 +324,19 @@ def windowed_mha_halo_bwd_dkv_reference(
                                  band, col0=-window)
 
 
-def _signature(pointers: int, ints: int, halo: bool = False) -> list:
+def _signature(pointers: int, ints: int, halo: bool = False, strides: int = 0) -> list:
     """A C launcher's argument types: tensor pointers, then the ints (BH, S,
-    Dh[, window][, span_cols, scratch_cols], is_bf16), scale, rate,
-    threshold, seed[, has_prev], stream."""
+    Dh[, window][, span_cols, scratch_cols]; the flash forward's B, H, S, Dh,
+    its int64 strides, then is_bf16), scale, rate, threshold, seed[,
+    has_prev], stream."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return ([p] * pointers + [i] * ints + [ctypes.c_float, ctypes.c_float, ctypes.c_uint32, p]
-            + [p] * halo + [p])
+    dims = [i] * ints if not strides else [i] * (ints - 1) + [ctypes.c_longlong] * strides + [i]
+    return [p] * pointers + dims + [ctypes.c_float, ctypes.c_float, ctypes.c_uint32, p] + [p] * halo + [p]
 
 
 # Each library's C launchers and their argument types.
 _LAUNCHERS = {
-    "flash_fwd": {"tchvp_flash_fwd": _signature(5, 4)},
+    "flash_fwd": {"tchvp_flash_fwd": _signature(5, 5, strides=12)},
     "flash_bwd": {"tchvp_flash_bwd_dq": _signature(7, 4), "tchvp_flash_bwd_dkv": _signature(8, 4)},
     "band_attention": {"tchvp_band_fwd": _signature(6, 7),
                        "tchvp_band_bwd_dq": _signature(7, 5), "tchvp_band_bwd_dkv": _signature(8, 5)},
@@ -400,21 +404,70 @@ def _scalars(q: torch.Tensor, window: Optional[int], scale: float, dropout_rate:
                    _drop_threshold(dropout_rate), seed_ptr)
 
 
+def _check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on what the flash forward does not take: dtype, rank, shape,
+    device, a stride along Dh other than 1, an empty head dim. Any other
+    layout runs."""
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash kernels take float32 or bfloat16, got {q.dtype}")
+    if q.dim() not in (3, 4):
+        raise ValueError(f"the flash forward takes (BH, S, Dh) or (B, H, S, Dh), got {tuple(q.shape)}")
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} {t.device} does not match q")
+    if q.shape[-1] < 1:
+        raise ValueError(f"flash kernels take head dims >= 1, got {q.shape[-1]}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(-1) != 1 and t.shape[-1] > 1:
+            raise ValueError(f"{name} must have unit stride along the head dim, got {t.stride()}")
+
+
+def _strides4(t: torch.Tensor) -> tuple:
+    """(batch, head, row) strides of a (B, H, S, Dh) view, or of a (BH, S,
+    Dh) tensor read as (1, BH, S, Dh)."""
+    return t.stride()[:3] if t.dim() == 4 else (0,) + t.stride()[:2]
+
+
+_flash_fwd_bound = None  # (the C launcher, its library), bound at the first launch
+
+
+def _cuda_stream(device: torch.device) -> int:
+    """The raw current stream of ``device``, by torch's own fast path (a
+    tenth of ``torch.cuda.current_stream(device).cuda_stream``'s host time)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _flash_fwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     dropout_rate: float, seed: Seed,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_fwd.cu`` on the current stream."""
-    global launches
-    _check_inputs(q, None, q=q, k=k, v=v)
-    lib = _kernel_lib("flash_fwd")
-    out = torch.empty_like(q)
-    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    """Launch ``csrc/flash_fwd.cu`` on the current stream. q, k, v: (BH, S,
+    Dh), or (B, H, S, Dh) views of any strides with unit stride along Dh ->
+    (out, lse (B * H, S) fp32); out is (BH, S, Dh) contiguous, or the (B, H,
+    S, Dh) view of a (B, S, H, Dh) buffer, whose heads merge without a copy."""
+    global launches, _flash_fwd_bound
+    _check_flash_inputs(q, k, v)
+    if _flash_fwd_bound is None:
+        lib = _kernel_lib("flash_fwd")
+        _flash_fwd_bound = (lib.tchvp_flash_fwd, lib)
+    launch, lib = _flash_fwd_bound
+    if q.dim() == 4:
+        b, h, s, dh = q.shape
+        out = q.new_empty((b, s, h, dh)).transpose(1, 2)
+    else:
+        (h, s, dh), b = q.shape, 1
+        out = q.new_empty((h, s, dh))
+    lse = q.new_empty((b * h, s), dtype=torch.float32)
     seed_ptr, _keep_alive = _seed_arg(seed, dropout_rate, q.device)
-    with torch.cuda.device(q.device):
-        err = lib.tchvp_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                  lse.data_ptr(), *_scalars(q, None, scale, dropout_rate, seed_ptr),
-                                  torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, s, dh,
+            *_strides4(q), *_strides4(k), *_strides4(v), *_strides4(out),
+            int(q.dtype == torch.bfloat16), float(scale), float(dropout_rate),
+            _drop_threshold(dropout_rate), seed_ptr, _cuda_stream(q.device))
+    if q.device.index == torch.cuda.current_device():
+        err = launch(*args)
+    else:
+        with torch.cuda.device(q.device):
+            err = launch(*args)
     _raise_on(lib, err, "flash_fwd")
     launches += 1
     return out, lse
@@ -465,12 +518,15 @@ def _flash_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     dropout_rate: float = 0.0, seed: Seed = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q, k, v: (BH, S, Dh) -> (out (BH, S, Dh), lse (BH, S) fp32)."""
+    """q, k, v: (BH, S, Dh) or (B, H, S, Dh) -> (out of q's shape, lse (BH,
+    S) fp32)."""
     if q.is_cuda:
         dispatch_trace.record("flash_mha_cuda")
         return _flash_fwd_cuda(q, k, v, scale, dropout_rate, seed)
     dispatch_trace.record("flash_mha_plain")
-    return mha_reference(q, k, v, scale, dropout_rate, seed)
+    flat = (t.reshape(-1, *t.shape[-2:]) for t in (q, k, v))
+    out, lse = mha_reference(*flat, scale, dropout_rate, seed)
+    return out.reshape(q.shape), lse
 
 
 def _win_fwd(
@@ -701,9 +757,11 @@ def _save_residuals(ctx, q, k, v, out, lse, scale: float, dropout_rate: float, s
 
 
 def _residuals(ctx, do: torch.Tensor):
-    """(q, k, v, do, lse, delta) for the backward kernels, and the seed."""
+    """(q, k, v, do, lse, delta) for the backward kernels, (BH, S, Dh)
+    contiguous (the flash forward saves (B, H, S, Dh) views, copied here,
+    only when a backward runs), and the seed."""
     q, k, v, out, lse, seed_t = ctx.saved_tensors
-    do = do.contiguous()
+    q, k, v, out, do = (t.reshape(-1, *t.shape[-2:]).contiguous() for t in (q, k, v, out, do))
     delta = (do.float() * out.float()).sum(dim=-1)
     return (q, k, v, do, lse, delta), seed_t if seed_t is not None else ctx.seed
 
@@ -716,13 +774,14 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale, dropout_rate, seed):
         out, lse = _flash_fwd(q, k, v, scale, dropout_rate, seed)
         _save_residuals(ctx, q, k, v, out, lse, scale, dropout_rate, seed)
+        ctx.shape = q.shape
         return out
 
     @staticmethod
     def backward(ctx, do):
         tensors, seed = _residuals(ctx, do)
-        dq, dk, dv = _flash_bwd(*tensors, ctx.scale, ctx.dropout_rate, seed)
-        return dq, dk, dv, None, None, None
+        grads = _flash_bwd(*tensors, ctx.scale, ctx.dropout_rate, seed)
+        return tuple(g.view(ctx.shape) for g in grads) + (None, None, None)
 
 
 class _WindowedAttention(torch.autograd.Function):
@@ -764,17 +823,23 @@ class _HaloAttention(torch.autograd.Function):
         return grads + (None,) * 5
 
 
-def _flat_inputs(q, k, v, scale: Optional[float], dropout_rate: float, dropout_seed: Seed):
-    """(BH, S, Dh) q, k, v, the scale and the seed of the public wrappers."""
+def _scale_seed(head_dim: int, scale: Optional[float], dropout_rate: float,
+                dropout_seed: Seed) -> Tuple[float, Seed]:
+    """The scale and the seed of the public wrappers."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires a dropout_seed")
-    b, h, s, dh = q.shape
-    scale = 1.0 / math.sqrt(dh) if scale is None else scale
+    scale = 1.0 / math.sqrt(head_dim) if scale is None else scale
     seed = 0 if dropout_seed is None else dropout_seed
-    if not isinstance(seed, torch.Tensor):
-        seed = int(seed)
+    return float(scale), seed if isinstance(seed, torch.Tensor) else int(seed)
+
+
+def _flat_inputs(q, k, v, scale: Optional[float], dropout_rate: float, dropout_seed: Seed):
+    """(BH, S, Dh) contiguous q, k, v, the scale and the seed of the banded
+    wrapper."""
+    b, h, s, dh = q.shape
+    scale, seed = _scale_seed(dh, scale, dropout_rate, dropout_seed)
     flat = tuple(t.reshape(b * h, s, dh).contiguous() for t in (q, k, v))
-    return flat, float(scale), seed
+    return flat, scale, seed
 
 
 def mha(
@@ -792,10 +857,17 @@ def mha(
     kernels; the seed is an int or a one-element int32 tensor (on the
     device, for no host sync), and the mask of batch-head ``bh`` equals
     ``attention_dropout_mask(dropout_seed, bh, S, S, rate)``.
+
+    q, k, v may be views of any strides with unit stride along Dh, such as
+    ``ops.attention._split_heads``' views of (B, S, D) tokens: the CUDA
+    kernel reads them as they are and returns the (B, H, S, Dh) view of a
+    (B, S, H, Dh) buffer. Without a gradient to track, the forward runs
+    without the autograd Function.
     """
-    (qf, kf, vf), scale, seed = _flat_inputs(q, k, v, scale, dropout_rate, dropout_seed)
-    out = _FlashAttention.apply(qf, kf, vf, scale, float(dropout_rate), seed)
-    return out.reshape(q.shape)
+    scale, seed = _scale_seed(q.shape[-1], scale, dropout_rate, dropout_seed)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, scale, float(dropout_rate), seed)
+    return _flash_fwd(q, k, v, scale, float(dropout_rate), seed)[0]
 
 
 def windowed_mha(
@@ -850,12 +922,7 @@ def windowed_mha_halo(
         raise ValueError(f"windowed_mha_halo needs window_size >= 1, got {window_size}")
     if s % w:
         raise ValueError(f"halo kernel needs S % window == 0; {s} % {w}")
-    if dropout_rate > 0.0 and dropout_seed is None:
-        raise ValueError("dropout_rate > 0 requires a dropout_seed")
-    scale = 1.0 / math.sqrt(dh) if scale is None else float(scale)
-    seed = 0 if dropout_seed is None else dropout_seed
-    if not isinstance(seed, torch.Tensor):
-        seed = int(seed)
+    scale, seed = _scale_seed(dh, scale, dropout_rate, dropout_seed)
     qf = q.reshape(b * h, s, dh).contiguous()
     kf, vf = (t.reshape(b * h, s + w, dh).contiguous() for t in (k_ext, v_ext))
     prev = _has_prev_arg(has_prev, q.device)

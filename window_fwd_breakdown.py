@@ -5,8 +5,8 @@ Builds the two passes of ``csrc/window_fwd.cuh`` behind a launcher of its
 own that runs one pass of the banded forward (bf16) at a time, and variants
 of them with one part taken out (one ``nvcc`` each, in parallel, into
 ``tchvp_tpu_torch/_build/window_breakdown/``), then times each pass of each
-on the device (torch.profiler) at config 2's shape: BH 32, S 256, window
-64, Dh 1152, bf16. The variants:
+on the device (``card_timing.device_ms``) at config 2's shape: BH 32, S
+256, window 64, Dh 1152, bf16. The variants:
 
 * ``kernel``: the source as it is (its output must equal the wrapper's);
 * ``no_qk_loads`` / ``no_qk_products``: the logits pass without its Q and K
@@ -30,7 +30,8 @@ from typing import Dict
 
 import torch
 
-from chip_smoke import BAND_CONFIG2, device_ms, qkv
+from card_timing import device_ms
+from chip_smoke import BAND_CONFIG2, qkv
 from tchvp_tpu_torch.kernels import build
 from tchvp_tpu_torch.kernels import flash_attention as fa
 
@@ -54,8 +55,9 @@ VARIANTS = {
     "no_qk_loads": (QK_LOADS, "    if (chunk < 0) {\n      T* st = ring"),
     "no_qk_products": ("    logits_chunk(part, st + rows * S, st + (kWinBlockQ + keys) * S, lane);\n",
                        "    part[0][0] = (float)st[lane];\n"),
-    "no_v_loads": ("    load_tile<T, kWinBlockK, kWinBlockD, kWinStrideV>(v_s + stage * kVStage, vb,",
-                   "    if (tile < 0) load_tile<T, kWinBlockK, kWinBlockD, kWinStrideV>(v_s + stage * kVStage, vb,"),
+    "no_v_loads": ("    load_tile<T, kWinBlockK, kWinBlockD, kWinStrideV, kWinThreads>(v_s + stage * kVStage, vb,",
+                   "    if (tile < 0) load_tile<T, kWinBlockK, kWinBlockD, kWinStrideV, kWinThreads>("
+                   "v_s + stage * kVStage, vb,"),
     "no_logits_loads": ("    load_logits_tile(p_s + stage * kPStage,",
                         "    if (tile < 0) load_logits_tile(p_s + stage * kPStage,"),
     "no_pv_products": ("      mma_bf16(acc[2 * jj], a, b);\n      mma_bf16(acc[2 * jj + 1], a, b + 2);\n",
@@ -75,7 +77,8 @@ def build_variant(name: str) -> ctypes.CDLL:
         src = src.replace(old, new)
     d = OUT / name
     d.mkdir(parents=True, exist_ok=True)
-    (d / "flash_common.cuh").write_text((build.CSRC / "flash_common.cuh").read_text())
+    for header in ("flash_common.cuh", "mma_common.cuh"):
+        (d / header).write_text((build.CSRC / header).read_text())
     (d / "window_fwd.cuh").write_text(src)
     (d / "launcher.cu").write_text(LAUNCHER)
     lib = d / "libwindow.so"
@@ -116,7 +119,7 @@ def main() -> None:
     if not torch.equal(out, want):
         raise RuntimeError("the unchanged source does not give the wrapper's output")
     print(f"{torch.cuda.get_device_name(0)}; config 2's band forward {(b * h, s, dh)} bf16 window {w}; "
-          "device ms per launch (torch.profiler, 20 launches)")
+          "device ms per launch (20 launches queued behind a spin of the card)")
     for _ in range(2):  # two turns, to see the spread
         for name, lib in libs.items():
             a_ms = device_ms(lambda: launch(lib, 1))
