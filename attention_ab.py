@@ -8,11 +8,14 @@ one), then ``compare`` once::
 
 ``run`` imports the checkout's own ``chip_smoke`` and kernels. It launches
 the flash forward at the inference and training shapes and at FCT's three
-(``FWD_SHAPES``), the flash backward at the training and inference shapes,
+(``FWD_SHAPES``), the flash backward at the training and inference shapes
+and at FCT's three (``chip_smoke.FCT_CASES``),
 the banded forward and backward at config 2's and the windowed-training
 shape and the halo forward and backward at both shard shapes (has_prev 1),
 and saves every output. It prints each of these calls' times, by events
-around 20 calls and on the device, then the host's time per call of ``mha``
+around 20 calls and on the device (a call longer than 50 ms, such as an
+older checkout's CUDA-core backward at FCT's S 16384, once by events and not
+on the device), then the host's time per call of ``mha``
 at the inference shape on the transformer's ``_split_heads`` views under
 ``no_grad`` and of the pieces of its host path. The timers are those of
 ``card_timing.py`` beside this file, for both checkouts alike. An A/B in
@@ -96,6 +99,12 @@ def run(tag: str, out_dir: Path) -> None:
         args = c.bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 30) + (scale, rate, c.device_seed(seed))
         calls[f"flash_bwd_{name} (dq, dk/dv) {(b, h, s, dh)}"] = (
             f"flash_bwd_{name}", functools.partial(fa._flash_bwd_cuda, *args))
+    for i, ((b, h, s, dh), dtype, _, rate, seed) in enumerate(c.FCT_CASES):
+        name = FWD_SHAPES[2 + i][0]
+        scale = dh ** -0.5
+        args = c.bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 130) + (scale, rate, c.device_seed(seed))
+        calls[f"flash_bwd_{name} (dq, dk/dv) {(b, h, s, dh)} dropout {rate}"] = (
+            f"flash_bwd_{name}", functools.partial(fa._flash_bwd_cuda, *args))
     for name, case in (("c2", c.BAND_CONFIG2), ("wtrain", c.BAND_TRAIN)):
         (b, h, s, dh), dtype, scale, w, rate, seed = case
         q, k, v, do, lse, delta = c.bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 70, window=w)
@@ -121,7 +130,11 @@ def run(tag: str, out_dir: Path) -> None:
     torch.save({key: [t.cpu() for t in ts] for key, ts in outs.items()}, out_dir / f"{tag}.pt")
     del outs
     for label, (_, fn) in calls.items():
-        print(f"[ab {tag}] {label}: {cuda_ms(fn, 20):.4f} ms (events), {device_ms(fn):.4f} ms (device)")
+        once = cuda_ms(fn, 1)
+        if once > 50:
+            print(f"[ab {tag}] {label}: {once:.4f} ms (events, one call)")
+        else:
+            print(f"[ab {tag}] {label}: {cuda_ms(fn, 20):.4f} ms (events), {device_ms(fn):.4f} ms (device)")
     host_times(c, fa)
 
 def compare(out_dir: Path, first: str, others) -> None:

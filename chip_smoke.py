@@ -7,8 +7,8 @@ Phases, one or more lines each:
     banded-attention, the halo-attention and the fused decoder tail
     libraries from the sources in this checkout (one nvcc each, in
     parallel) and prints the seconds, the registers per kernel and the
-    spill stores, and each tensor-core forward kernel's own (the flash
-    forward's per (KC, NT) tiling, the window forwards' per pass);
+    spill stores, and each tensor-core kernel's own (the flash forward's
+    and backward's per (KC, NT) tiling, the window forwards' per pass);
  3. forward kernel vs plain: out and lse against the plain PyTorch version
     on the card, fp32 max abs 1e-4; bf16 against the fp32 plain version on
     the same bf16-rounded inputs, out max abs 1e-2 x max|ref| and lse 1e-4;
@@ -24,10 +24,18 @@ Phases, one or more lines each:
     Dh) buffer (the inference and training shapes, Dh 8 and Dh 98): within
     the limits, bits equal to the launch on contiguous copies, and
     ``mha``'s merged heads a view of the kernel's buffer;
- 4. backward kernels vs plain: dq, dk, dv of the dq and dk/dv kernels
-    against ``mha_bwd_reference`` on phase 3's main-path cases, the
-    training shape and FCT's two S-4096 shapes, max abs <= 1e-4 (fp32) or
-    2e-2 (bf16) x max|reference|; a second launch must give the same bits;
+ 4. backward kernels vs plain: dq, dk, dv of the tensor-core dq and dk/dv
+    kernels against ``mha_bwd_reference`` on phase 3's main-path cases, the
+    training shape, FCT's three shapes, the narrower loads (Dh 98 fp32,
+    Dh 7 and 99 bf16) and one-tile sequences whose blocks take several
+    head-dim column blocks in turn (S 50 Dh 520 bf16, S 37 Dh 98 fp32), max abs <= 1e-4 (fp32) or 1.5e-2 (bf16) x
+    max|reference|, each limit 10 times below what the plain version reads
+    with K one key row off; a second launch must give the same bits; then
+    q, k, v, do one element past a 16-byte boundary (within the limits,
+    bit-equal to the aligned inputs'), and ``_split_heads`` views of (B, S,
+    D) tokens with the gradients into (B, S, H, Dh) buffers: bit-equal to
+    the launch on contiguous copies, and ``mha``'s autograd gradients the
+    kernels' views, bit-equal to a direct launch on its residuals;
  5. banded kernels vs plain: the forward (two tensor-core passes), dq and
     dk/dv kernels of ``csrc/band_attention.cu`` against the windowed plain
     versions at config 2's shape (bf16, Dh 1152), the windowed training
@@ -35,8 +43,8 @@ Phases, one or more lines each:
     divide, a span wider than a tile (w 200 at S 256, Dh 1152, bf16,
     dropout 0.1), head dims whose rows are not a multiple of 16 bytes (Dh
     100 bf16, Dh 98 fp32: the forward's element loads and stores), and one
-    window (w >= S), where the forward equals the flash forward within the
-    fp32 limit and the backward equals the flash kernels' bit for bit; the
+    window (w >= S), where the forward and the backward equal the flash
+    kernels within the fp32 limits (1e-4, and 1e-4 x max|grad|); the
     phase-3/4 limits, bits equal on repeat; the forward on q, k, v one
     element past a 16-byte boundary (element loads) against plain and
     bit-equal to the aligned inputs' (fp32 and bf16);
@@ -140,7 +148,10 @@ Phases, one or more lines each:
     larger of bytes, products and the BH x S^2 exponentials at 16 fp32 ex2
     per clock per SM at the card's maximum SM clock, the bf16x2 rate's time
     beside it (``fct`` in the JSON); the
-    flash backward kernels also at the inference shape in bf16, the banded
+    flash backward kernels also at the inference shape in bf16, each
+    kernel, the pair and SDPA's backward (``autograd.grad``) by events and
+    by device time, the pair's bound the larger of bytes, 5 products and
+    the 2 x BH x S^2 exponentials; the banded
     backward also at config 2's;
     the halo kernels at the two shard shapes of phase 5c (has_prev 1), SDPA
     with the (S, S + w) halo band as a boolean mask beside them; every
@@ -271,6 +282,14 @@ MISALIGNED_CASES = [
     ((2, 2, 150, 64), torch.bfloat16, None, 0.1, 45),
     ((1, 3, 133, 32), torch.float32, None, 0.0, 0),
 ]
+# One 64-row tile of S and several head-dim column blocks per backward block
+# (the training shape's path, S <= 64 past Dh 64), over a ragged S: Dh 520 bf16
+# (16-byte copies; dq 3, dk/dv 5 column blocks per block at BH 66) and Dh 98 fp32
+# (8-byte copies; 2 per block at BH 132).
+SHORT_CASES = [
+    ((6, 11, 50, 520), torch.bfloat16, None, 0.1, 47),
+    ((4, 33, 37, 98), torch.float32, None, 0.0, 0),
+]
 # The training main path's attention: 256^2 -> D 4096, 8 heads, S 64, scale 1/sqrt(D).
 TRAIN_CASE = ((8, 8, 64, 512), torch.float32, 1 / 64, 0.1, 77)
 INFER_BWD_CASE = ((8, 8, 128, 392), torch.bfloat16, 1 / 56, 0.0, 0)
@@ -349,6 +368,13 @@ def phase_build() -> None:
             dtype = "bf16" if tiles.group(1) != "f" else "fp32"
             print(f"[2 build] flash_fwd {dtype} (KC {tiles.group(2)}, NT {tiles.group(3)}): {regs} registers, "
                   f"{spill} bytes spill stores, {stack} bytes stack frame")
+    for kernel, (regs, spill, stack) in sorted(kernel_resources(build.build_log["flash_bwd"]).items()):
+        tiles = re.search(r"flash_bwd_(dq|dkv)_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELb(\d)E", kernel)
+        if tiles:
+            dtype = "bf16" if tiles.group(2) != "f" else "fp32"
+            print(f"[2 build] flash_bwd {tiles.group(1)} {dtype} (KC {tiles.group(3)}, NT {tiles.group(4)}"
+                  f"{', resident' if tiles.group(5) == '1' else ''}): {regs} registers, {spill} bytes spill stores, "
+                  f"{stack} bytes stack frame")
     for name in ("band_attention", "halo_attention"):
         for kernel, (regs, spill, _) in sorted(kernel_resources(build.build_log[name]).items()):
             if "window_" in kernel:
@@ -448,43 +474,120 @@ def phase_fwd_strided() -> None:
               f"{lse_tol}); bits equal to the contiguous launch; the merged heads a view")
 
 
-def check_bwd(tag: str, shape, dtype, got, again, want) -> list:
-    """dq, dk, dv against the plain version (max abs <= tol x max|ref|) and
-    bit equality of a second launch; returns the max abs errors."""
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    errs, rel = [], []
-    for name, g, g2, w in zip(("dq", "dk", "dv"), got, again, want):
+def check_bwd(tag: str, shape, dtype, got, again, want, tol=None, fault=None) -> list:
+    """dq, dk, dv against the plain version (max abs <= tol x max|ref|; tol
+    1e-4 in fp32, 2e-2 in bf16 unless given) and bit equality of a second
+    launch (``again`` None: none); with ``fault``, the plain version on a
+    broken input, each gradient's fault must read > 10 x the limit. Returns
+    the max abs errors."""
+    if tol is None:
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    errs, rel, faults = [], [], []
+    for i, (name, g, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
         err = (g.float() - w).abs().max().item()
         ref = w.abs().max().item()
         errs.append(err)
         rel.append(err / ref)
         check(math.isfinite(err) and err <= tol * ref, f"{tag} {name} at {shape}: {err} > {tol} x {ref}")
-        check(torch.equal(g, g2), f"{tag} {name} at {shape} differs between two launches")
+        if again is not None:
+            check(torch.equal(g, again[i]), f"{tag} {name} at {shape} differs between two launches")
+        if fault is not None:
+            faults.append((fault[i] - w).abs().max().item() / ref)
+            check(faults[-1] > 10 * tol, f"{tag} {name} at {shape}: the fault reads {faults[-1]:.3g} x max|ref|, "
+                                         f"not 10 x the limit {tol}")
+    seen = f"; K one key row off reads {', '.join(f'{f:.3g}' for f in faults)}" if fault is not None else ""
     print(f"[{tag}] {shape} {str(dtype)[6:]}: max abs / max|ref| dq {rel[0]:.3g}, dk {rel[1]:.3g}, "
-          f"dv {rel[2]:.3g} (tol {tol}); bits equal on repeat")
+          f"dv {rel[2]:.3g} (tol {tol}){seen}{'; bits equal on repeat' if again is not None else ''}")
     return errs
+
+
+def bwd_limit(dtype: torch.dtype) -> float:
+    """Phase 4's limit on each gradient's max abs error, x max|ref|: fp32
+    1e-4; bf16 1.5e-2, 2.6 x the largest error of the first chip run of the
+    tensor-core pair (5.7e-3, dq at FCT's (2, 2, 16384, 4); P_drop and dS
+    are rounded to bf16 for the second products)."""
+    return 1.5e-2 if dtype == torch.bfloat16 else 1e-4
 
 
 def phase_bwd_kernels() -> dict:
     """dq, dk, dv of the two backward kernels against mha_bwd_reference on
-    the same inputs; a second launch must give the same bits. Returns the
-    max abs errors at the training shape."""
+    the same inputs, each limit shown to sit 10 x below what the plain
+    version reads with K one key row off; a second launch must give the
+    same bits. Then misaligned inputs and strided views. Returns the max
+    abs errors at the training shape."""
     errs = {}
-    for i, case in enumerate(KERNEL_CASES + [TRAIN_CASE] + FCT_CASES[1:]):
+    for i, case in enumerate(KERNEL_CASES + [TRAIN_CASE] + FCT_CASES + LOAD_CASES + SHORT_CASES):
         (b, h, s, dh), dtype, scale, rate, seed = case
         scale = 1 / math.sqrt(dh) if scale is None else scale
         q, k, v, do, lse, delta = bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 10 + i)
         got = fa._flash_bwd_cuda(q, k, v, do, lse, delta, scale, rate, device_seed(seed))
         again = fa._flash_bwd_cuda(q, k, v, do, lse, delta, scale, rate, device_seed(seed))
         torch.cuda.synchronize()
-        want = fa.mha_bwd_reference(q.float(), k.float(), v.float(), do.float(), lse, delta,
-                                    scale, rate, seed)
-        e = check_bwd(f"4 bwd kernels, dropout {rate}", (b, h, s, dh), dtype, got, again, want)
+        plain = (q.float(), k.float(), v.float(), do.float(), lse, delta, scale, rate, seed)
+        want = fa.mha_bwd_reference(*plain)
+        fault = fa.mha_bwd_reference(plain[0], plain[1].roll(1, dims=1), *plain[2:])
+        e = check_bwd(f"4 bwd kernels, dropout {rate}", (b, h, s, dh), dtype, got, again, want,
+                      bwd_limit(dtype), fault)
         if case is TRAIN_CASE:
             errs = {"flash_bwd_dq": e[0], "flash_bwd_dkv": max(e[1], e[2])}
-        del q, k, v, do, lse, delta, got, again, want
+        del q, k, v, do, lse, delta, got, again, plain, want, fault
         free_cuda()
+    for i, ((b, h, s, dh), dtype, _, rate, seed) in enumerate(MISALIGNED_CASES):
+        scale, seed_t = 1 / math.sqrt(dh), device_seed(seed)
+        q, k, v, do, lse, delta = bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 95 + i)
+        copies = [misaligned(t) for t in (q, k, v, do)]
+        check(all(t.data_ptr() % 16 for t in copies), "4 bwd misaligned: the copies are 16-byte aligned")
+        got = fa._flash_bwd_cuda(*copies, lse, delta, scale, rate, seed_t)
+        aligned = fa._flash_bwd_cuda(q, k, v, do, lse, delta, scale, rate, seed_t)
+        want = fa.mha_bwd_reference(q.float(), k.float(), v.float(), do.float(), lse, delta, scale, rate, seed)
+        tag = f"4 bwd kernels misaligned, dropout {rate}"
+        check_bwd(tag, (b, h, s, dh), dtype, got, None, want, bwd_limit(dtype))
+        check(all(torch.equal(x, y) for x, y in zip(got, aligned)), f"{tag}: misaligned inputs change the bits")
+        print(f"[{tag}] q, k, v, do one element past a 16-byte boundary: bits equal to the aligned inputs'")
+    phase_bwd_strided()
     return errs
+
+
+def phase_bwd_strided() -> None:
+    """q, k, v, do as ``_split_heads`` views of (B, S, D) tokens, as ``mha``'s
+    backward launches the kernels: within phase 4's limits, gradients the
+    (B, H, S, Dh) views of (B, S, H, Dh) buffers, bit-equal to the launch on
+    contiguous copies; ``mha``'s autograd gradients bit-equal to a direct
+    launch on its own residuals (the forward's out and lse on the same
+    views), so ``_residuals`` passes the views without a copy."""
+    for i, ((b, h, s, dh), dtype, scale, rate, seed) in enumerate(STRIDED_CASES):
+        scale = 1 / math.sqrt(dh) if scale is None else scale
+        rng = np.random.default_rng(70 + i)
+        tokens = [torch.from_numpy(rng.standard_normal((b, s, h * dh), dtype=np.float32)).to("cuda", dtype)
+                  for _ in range(4)]
+        q4, k4, v4, do4 = (_split_heads(t, h) for t in tokens)
+        flat = [t.reshape(b * h, s, dh).contiguous() for t in (q4, k4, v4, do4)]
+        seed_t = device_seed(seed)
+        out, lse = fa.mha_reference(*(t.float() for t in flat[:3]), scale, rate, seed)
+        delta = (flat[3].float() * out).sum(-1)
+        got = fa._flash_bwd_cuda(q4, k4, v4, do4, lse, delta, scale, rate, seed_t)
+        contiguous = fa._flash_bwd_cuda(*flat, lse, delta, scale, rate, seed_t)
+        want = fa.mha_bwd_reference(*(t.float() for t in flat), lse, delta, scale, rate, seed)
+        tag = f"4 bwd strided, dropout {rate}"
+        check_bwd(tag, (b, h, s, dh), dtype, [g.reshape(b * h, s, dh) for g in got], None, want, bwd_limit(dtype))
+        check(all(g.shape == q4.shape and g.transpose(1, 2).is_contiguous() for g in got),
+              f"{tag} at {(b, h, s, dh)}: the gradients are not views of (B, S, H, Dh) buffers")
+        check(all(torch.equal(g.reshape(b * h, s, dh), c) for g, c in zip(got, contiguous)),
+              f"{tag} at {(b, h, s, dh)}: strided views change the bits")
+        # Through mha's autograd Function, against a direct launch on its residuals.
+        leaves = [t.detach().requires_grad_() for t in tokens[:3]]
+        views = [_split_heads(t, h) for t in leaves]
+        tracked = fa.mha(*views, scale=scale, dropout_rate=rate, dropout_seed=seed_t)
+        grads = torch.autograd.grad(tracked, views, do4)
+        out4, lse4 = fa._flash_fwd_cuda(q4, k4, v4, scale, rate, seed_t)
+        delta4 = (do4.float() * out4.float()).sum(-1).reshape(b * h, s).contiguous()
+        direct = fa._flash_bwd_cuda(q4, k4, v4, do4, lse4, delta4, scale, rate, seed_t)
+        check(all(torch.equal(g, d) and g.transpose(1, 2).is_contiguous() for g, d in zip(grads, direct)),
+              f"{tag} at {(b, h, s, dh)}: mha's gradients are not the kernels' views")
+        print(f"[{tag}] {(b, h, s, dh)} {str(dtype)[6:]}: _split_heads views in, (B, S, H, Dh) buffers out; "
+              f"bits equal to the contiguous launch; mha's autograd gradients the kernels' views")
+        del tokens, q4, k4, v4, do4, flat, got, contiguous, want, leaves, views, tracked, grads, direct
+        free_cuda()
 
 
 def misaligned(t: torch.Tensor) -> torch.Tensor:
@@ -552,9 +655,10 @@ def phase_band_kernels() -> dict:
         if case is BAND_TRAIN:
             errs["band_bwd_dq"], errs["band_bwd_dkv"] = e[0], max(e[1], e[2])
 
-    # One window (w >= S): the band holds every pair. The banded backward
-    # runs the flash kernels' arithmetic in their order; the forward, on the
-    # tensor cores, is held to the flash forward at the fp32 limit.
+    # One window (w >= S): the band holds every pair. Both banded passes are
+    # held to the flash kernels at the fp32 limits (the band's backward on
+    # the CUDA cores, the flash backward on the tensor cores, in another
+    # order of sums).
     (b, h, s, dh), dtype, _, w, rate, seed = ONE_WINDOW_CASE
     scale = 1 / math.sqrt(dh)
     q, k, v, do, _, _ = bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 60)
@@ -566,11 +670,11 @@ def phase_band_kernels() -> dict:
     torch.cuda.synchronize()
     fwd_err = max((x - y).abs().max().item() for x, y in zip(band, flash))
     check(fwd_err <= 1e-4, f"one window {w} >= S {s}: band forward vs flash {fwd_err}")
-    for name, x, y in zip(("dq", "dk", "dv"), band_g, flash_g):
-        check(torch.equal(x, y), f"one window {w} >= S {s}: band {name} differs from flash "
-                                 f"by {(x - y).abs().max().item():.3g}")
+    bwd_rel = [(x - y).abs().max().item() / y.abs().max().item() for x, y in zip(band_g, flash_g)]
+    check(max(bwd_rel) <= 1e-4, f"one window {w} >= S {s}: band dq, dk, dv vs flash {bwd_rel} x max|grad|")
     print(f"[5 band one window] {(b, h, s, dh)} window {w} >= S, dropout {rate}: out, lse max abs "
-          f"{fwd_err:.3g} from the flash forward (tol 1e-4); dq, dk, dv equal the flash kernels' bit for bit")
+          f"{fwd_err:.3g} from the flash forward (tol 1e-4); dq, dk, dv max abs / max|flash| "
+          f"{', '.join(f'{r:.3g}' for r in bwd_rel)} (tol 1e-4)")
 
     # Element loads with a head dim of 64: misaligned q, k, v (ragged S).
     (b, h, s, dh), _, _, w, rate, seed = BAND_CASES[2]
@@ -1422,8 +1526,9 @@ def sm_clock_hz() -> float:
 
 
 def exp_ms(bh: int, s: int, per_clock: int = EX2_PER_CLOCK_PER_SM) -> float:
-    """The BH x S^2 exponentials of a flash forward at ``per_clock`` ex2
-    per clock per SM on every SM at the maximum SM clock, in ms."""
+    """The BH x S^2 exponentials of one pass over the (S, S) weights (a
+    flash forward, or one backward kernel) at ``per_clock`` ex2 per clock
+    per SM on every SM at the maximum SM clock, in ms."""
     return bh * s * s / (per_clock * SMS * sm_clock_hz()) * 1e3
 
 
@@ -1435,6 +1540,35 @@ def flash_fwd_bound(bh: int, s: int, dh: int, dtype: torch.dtype):
     esize = torch.finfo(dtype).bits // 8
     ms, by = bound(4 * bh * s * dh * esize + bh * s * 4, 4 * bh * s * s * dh, dtype)
     return (exp_ms(bh, s), "operations") if exp_ms(bh, s) > ms else (ms, by)
+
+
+def flash_bwd_bound(bh: int, s: int, dh: int, dtype: torch.dtype, n_out: int, n_products: int,
+                    n_exp: int):
+    """(ms, "bytes" or "operations") of flash backward work: q, k, v, do,
+    lse and delta read once and ``n_out`` gradients written once,
+    ``n_products`` S x S x Dh products (2 flops per multiply-add), and
+    ``n_exp`` x BH x S^2 exponentials at the fp32 ex2 rate; the largest."""
+    esize = torch.finfo(dtype).bits // 8
+    ms, by = bound((4 + n_out) * bh * s * dh * esize + 2 * bh * s * 4, n_products * 2 * bh * s * s * dh, dtype)
+    e_ms = n_exp * exp_ms(bh, s)
+    return (e_ms, "operations") if e_ms > ms else (ms, by)
+
+
+def time_bwd_pair(args, q4, k4, v4, do4, scale) -> dict:
+    """The flash backward pair on ``args`` and SDPA's backward
+    (``autograd.grad`` through it, without dropout) on the same inputs, by
+    events around 20 calls ("ms", "sdpa_ms") and by :func:`device_ms`
+    ("device", "sdpa_device")."""
+    pair = lambda: (fa.flash_bwd_dq_cuda(*args), fa.flash_bwd_dkv_cuda(*args))  # noqa: E731
+    out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+    sdpa = lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True)  # noqa: E731
+    return {"ms": cuda_ms(pair, 20), "device": device_ms(pair), "sdpa_ms": cuda_ms(sdpa, 20),
+            "sdpa_device": device_ms(sdpa)}
+
+
+def bwd_pair_line(t: dict) -> str:
+    return (f"pair dq + dk/dv {t['ms']:.4f} ms (events), device {t['device']:.4f} ms; SDPA backward "
+            f"{t['sdpa_ms']:.4f} ms (events), device {t['sdpa_device']:.4f} ms")
 
 
 def time_fwd(fwd, sdpa) -> dict:
@@ -1453,8 +1587,7 @@ def fwd_line(t: dict) -> str:
 
 def time_flash_fct() -> list:
     """The flash forward and the backward pair at FCT's shapes beside SDPA
-    (without dropout) and the forward's bound; a backward call longer than 2
-    s is timed once."""
+    (without dropout) and their bounds."""
     rows = []
     for (b, h, s, dh), dtype, _, rate, seed in FCT_CASES:
         scale, bh = 1 / math.sqrt(dh), b * h
@@ -1466,23 +1599,20 @@ def time_flash_fct() -> list:
                      lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
         b_ms, b_by = flash_fwd_bound(bh, s, dh, dtype)
         bf16x2_ms = exp_ms(bh, s, 2 * EX2_PER_CLOCK_PER_SM)
-        args = (q, k, v, do, lse, delta, scale, rate, seed_t)
-        pair = lambda: (fa.flash_bwd_dq_cuda(*args), fa.flash_bwd_dkv_cuda(*args))  # noqa: E731
-        once = cuda_ms(pair, 1)
-        pair_ms = once if once > 2000 else cuda_ms(pair, 3)
-        out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
-        do4 = do.view(b, h, s, dh)
-        sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), 3)
+        tb = time_bwd_pair((q, k, v, do, lse, delta, scale, rate, seed_t), q4, k4, v4, do.view(b, h, s, dh), scale)
+        pb_ms, pb_by = flash_bwd_bound(bh, s, dh, dtype, 3, 5, 2)
         print(f"[14 times] flash_fwd FCT {(b, h, s, dh)} {str(dtype)[6:]} dropout {rate}: {fwd_line(t)} "
               f"({backend}, without dropout), bound {b_ms:.4f} ms ({b_by}: the larger of bytes, products and "
               f"{bh * s * s / 1e9:.3f} G fp32 exponentials; at the bf16x2 rate {bf16x2_ms:.4f} ms); "
-              f"backward pair dq + dk/dv {pair_ms:.4f} ms"
-              f"{' (one call)' if once > 2000 else ''}, SDPA backward {sdpa_bwd:.4f} ms")
+              f"backward {bwd_pair_line(tb)}, pair bound {pb_ms:.4f} ms ({pb_by}: the larger of bytes, 5 products "
+              f"and 2 x {bh * s * s / 1e9:.3f} G exponentials)")
         rows.append({"shape": [b, h, s, dh], "ms": t["ms"], "device_ms": t["device"], "bound_ms": b_ms,
                      "exp_bf16x2_ms": bf16x2_ms,
                      "bound_by": b_by, "library_ms": t["sdpa_ms"], "library_device_ms": t["sdpa_device"],
-                     "bwd_pair_ms": pair_ms, "library_bwd_ms": sdpa_bwd})
-        del q, k, v, do, lse, delta, q4, k4, v4, out4
+                     "bwd_pair_ms": tb["ms"], "bwd_pair_device_ms": tb["device"], "bwd_bound_ms": pb_ms,
+                     "bwd_bound_by": pb_by, "library_bwd_ms": tb["sdpa_ms"],
+                     "library_bwd_device_ms": tb["sdpa_device"]})
+        del q, k, v, do, lse, delta, q4, k4, v4
         free_cuda()
     return rows
 
@@ -1525,40 +1655,36 @@ def time_flash(fwd_launches: int, fwd_err: float, bwd_launches: dict, bwd_errs: 
                       fct=time_flash_fct())]
 
     # Backward: the training shape (fp32, dropout 0.1, in the JSON), then the
-    # inference shape in bf16.
+    # inference shape in bf16. Each kernel's bound counts the exponentials
+    # it recomputes (BH x S^2); the pair's the larger of 5 products, the
+    # bytes and 2 x BH x S^2 exponentials.
     for case in (TRAIN_CASE, INFER_BWD_CASE):
         (b, h, s, dh), dtype, scale, rate, seed = case
-        bh, esize = b * h, torch.finfo(dtype).bits // 8
+        bh = b * h
         q, k, v, do, lse, delta = bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 30)
         args = (q, k, v, do, lse, delta, scale, rate, device_seed(seed))
         plain_args = (q, k, v, do, lse, delta, scale, rate, seed)
         q4, k4, v4 = (t.detach().view(b, h, s, dh).requires_grad_() for t in (q, k, v))
-        out4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
-        do4 = do.view(b, h, s, dh)
         backend = sdpa_backend(q4, k4, v4, scale)
-        sdpa_ms = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), 20)
-        row_bytes, stats_bytes = bh * s * dh * esize, 2 * bh * s * 4
-        times = {}
+        tb = time_bwd_pair(args, q4, k4, v4, do.view(b, h, s, dh), scale)
         for name, fn, plain, n_out, n_products in (
             ("flash_bwd_dq", fa.flash_bwd_dq_cuda, fa.mha_bwd_dq_reference, 1, 3),
             ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda, fa.mha_bwd_dkv_reference, 2, 4),
         ):
-            ms = cuda_ms(lambda: fn(*args), 20)
+            ms, dev = cuda_ms(lambda: fn(*args), 20), device_ms(lambda: fn(*args))
             p_ms = cuda_ms(lambda: plain(*plain_args), 20)
-            # q, k, v, do, lse and delta read once, the outputs written once;
-            # 2 flops per multiply-add of each S x S x Dh product.
-            b_ms, b_by = bound((4 + n_out) * row_bytes + stats_bytes, n_products * 2 * bh * s * s * dh, dtype)
-            times[name] = ms
-            print(f"[14 times] {name} {(b, h, s, dh)} {str(dtype)[6:]} dropout {rate}: kernel {ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            b_ms, b_by = flash_bwd_bound(bh, s, dh, dtype, n_out, n_products, 1)
+            print(f"[14 times] {name} {(b, h, s, dh)} {str(dtype)[6:]} dropout {rate}: kernel {ms:.4f} ms "
+                  f"(events), device {dev:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
             if case is TRAIN_CASE:
                 line = 374 if name == "flash_bwd_dq" else 403
                 records.append(record(name, "flash_bwd.cu", f"{FLASH_PY}:{line}",
-                                      bwd_launches[name], bwd_errs[name], ms, p_ms, b_ms, b_by, sdpa_ms))
-        pair_ms, pair_by = bound(7 * row_bytes + stats_bytes, 10 * bh * s * s * dh, dtype)
-        print(f"[14 times] backward pair {(b, h, s, dh)} {str(dtype)[6:]}: dq + dk/dv "
-              f"{times['flash_bwd_dq'] + times['flash_bwd_dkv']:.4f} ms, SDPA backward without dropout "
-              f"({backend}) {sdpa_ms:.4f} ms, bound {pair_ms:.4f} ms ({pair_by})")
+                                      bwd_launches[name], bwd_errs[name], ms, p_ms, b_ms, b_by, tb["sdpa_ms"],
+                                      device_ms=dev, library_device_ms=tb["sdpa_device"],
+                                      pair_ms=tb["ms"], pair_device_ms=tb["device"]))
+        pair_ms, pair_by = flash_bwd_bound(bh, s, dh, dtype, 3, 5, 2)
+        print(f"[14 times] backward pair {(b, h, s, dh)} {str(dtype)[6:]}: {bwd_pair_line(tb)} (without dropout, "
+              f"{backend}), bound {pair_ms:.4f} ms ({pair_by})")
     return records
 
 

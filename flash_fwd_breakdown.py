@@ -39,7 +39,7 @@ from chip_smoke import device_seed, kernel_resources, qkv
 from tchvp_tpu_torch.kernels import build
 from tchvp_tpu_torch.kernels import flash_attention as fa
 
-HEADERS = ("flash_common.cuh", "mma_common.cuh")
+HEADERS = ("flash_common.cuh", "mma_common.cuh", "flash_tiles.cuh")  # those DIR has, with --baseline
 # Each variant: (text of flash_fwd.cu, its replacement) pairs; each text must occur once.
 VARIANTS = {
     "kernel": (),
@@ -70,7 +70,8 @@ def build_variant(name: str, baseline: Optional[Path]):
     d = OUT / name
     d.mkdir(parents=True, exist_ok=True)
     for header in HEADERS:
-        (d / header).write_text((src_dir / header).read_text())
+        if (src_dir / header).exists():
+            (d / header).write_text((src_dir / header).read_text())
     (d / "flash_fwd.cu").write_text(src)
     lib = d / "libflash_fwd.so"
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(d / "flash_fwd.cu")],

@@ -1,8 +1,9 @@
-// Attention backward kernels shared by flash_bwd.cu (every key),
-// band_attention.cu (the band) and halo_attention.cu (one shard of the band
-// with a leading halo window of k and v): the dq kernel and the dk/dv
-// kernel, in flash_common.cuh's three modes. In kHalo the dk/dv kernel
-// covers the S + w rows of k_ext, the halo window's gradient included.
+// Attention backward kernels shared by band_attention.cu (the band) and
+// halo_attention.cu (one shard of the band with a leading halo window of k
+// and v): the dq kernel and the dk/dv kernel, in flash_common.cuh's two
+// modes, on the CUDA cores. In kHalo the dk/dv kernel covers the S + w rows
+// of k_ext, the halo window's gradient included. (The flash backward, which
+// sees every key, has its own tensor-core body in flash_bwd.cu.)
 //
 // Both recompute the softmax weights P = exp(q k^T * scale - lse) from the
 // forward's fp32 log-sum-exp, so nothing of size S x S is stored, and both
@@ -10,8 +11,8 @@
 // dropout the keep mask of the forward (flash_common.cuh) rides on dp and on
 // P for dv:
 //   ds = P * (dp * keep / (1 - rate) - delta) * scale.
-// Key columns and query rows outside the span (>= S without the band)
-// contribute nothing, nor do pairs outside the band.
+// Key columns and query rows outside the span contribute nothing, nor do
+// pairs outside the band.
 //
 // As on the TPU there are two kernels and no atomics, so every gradient
 // element is summed by one thread in one order and the result is the same,

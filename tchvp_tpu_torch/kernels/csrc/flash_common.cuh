@@ -1,6 +1,6 @@
-// Helpers shared by the attention kernels (flash_fwd.cu, window_fwd.cuh and
-// attention_bwd.cuh, built as flash_fwd.cu, flash_bwd.cu, band_attention.cu
-// and halo_attention.cu).
+// Helpers shared by the attention kernels (flash_fwd.cu, flash_bwd.cu,
+// window_fwd.cuh and attention_bwd.cuh, built as flash_fwd.cu, flash_bwd.cu,
+// band_attention.cu and halo_attention.cu).
 //
 // The attention-weight dropout mask lives here once, so the forwards and the
 // backward kernels cannot drift: each keeps element (row, col) of the
@@ -116,8 +116,8 @@ inline ColumnGroups column_groups(int head_dim, int threads) {
   return {chunks, groups, groups == 1 ? head_dim : chunks * threads};
 }
 
-// The masks of the kernel bodies' three modes:
-//  * kFull (flash_fwd.cu, flash_bwd.cu): every pair of the (S, S) matrix;
+// The masks of the window kernels' two modes (the flash kernels see every
+// pair of the (S, S) matrix and take none):
 //  * kBand (band_attention.cu; the TPU kernels' _band_mask): query row `row`
 //    sees key `col` when the key's window is the row's or the one before it;
 //  * kHalo (halo_attention.cu; the TPU kernels' _halo_band_mask): one shard
@@ -126,11 +126,10 @@ inline ColumnGroups column_groups(int head_dim, int threads) {
 //    local row `row` sees k_ext column `col` when col's window is the row's
 //    or the one after it. Where `no_prev` (the true sequence start) the halo
 //    window, k_ext columns [0, w), is masked.
-enum Mode { kFull, kBand, kHalo };
+enum Mode { kBand, kHalo };
 
 template <Mode M>
 __device__ __forceinline__ bool in_band(int row, int col, int window, bool no_prev) {
-  if (M == kFull) return true;
   if (M == kBand) {
     const int gap = row / window - col / window;
     return gap == 0 || gap == 1;
@@ -164,10 +163,7 @@ __host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : 
 template <Mode M>
 __host__ __device__ __forceinline__ void key_span(int first, int last, int seq_len,
                                                   int window, bool no_prev, int* lo, int* hi) {
-  if (M == kFull) {
-    *lo = 0;
-    *hi = seq_len;
-  } else if (M == kBand) {
+  if (M == kBand) {
     *lo = imax(0, (first / window - 1) * window);
     *hi = imin(seq_len, (last / window + 1) * window);
   } else {
@@ -183,10 +179,7 @@ __host__ __device__ __forceinline__ void key_span(int first, int last, int seq_l
 template <Mode M>
 __device__ __forceinline__ void query_span(int first, int last, int seq_len, int window,
                                            bool no_prev, int* lo, int* hi) {
-  if (M == kFull) {
-    *lo = 0;
-    *hi = seq_len;
-  } else if (M == kBand) {
+  if (M == kBand) {
     *lo = (first / window) * window;
     *hi = min(seq_len, (last / window + 2) * window);
   } else {

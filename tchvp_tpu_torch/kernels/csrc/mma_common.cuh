@@ -1,5 +1,5 @@
-// Building blocks of the tensor-core attention forwards (flash_fwd.cu and
-// window_fwd.cuh): cp.async copies into shared memory, ldmatrix, mma.sync
+// Building blocks of the tensor-core attention kernels (flash_fwd.cu,
+// flash_bwd.cu and window_fwd.cuh): cp.async copies into shared memory, ldmatrix, mma.sync
 // m16n8k16 bf16 and m16n8k8 tf32 (3xTF32 for fp32 inputs), and the dropout of
 // one weight held in an mma fragment.
 #pragma once

@@ -8,16 +8,17 @@ tensor :func:`_flash_fwd` launches the hand-written forward
 head-dim column blocks; it takes ``mha``'s (B, H, S, Dh) views as they are
 and writes ``out`` into a (B, S, H, Dh) buffer, so neither the heads'
 split nor their merge copies) and :func:`_flash_bwd` the two backward kernels of
-``csrc/flash_bwd.cu`` (dq; dk and dv); :func:`_win_fwd` and :func:`_win_bwd`
-launch the banded kernels of ``csrc/band_attention.cu``, where query window
-i sees key windows i-1 and i; :func:`_halo_fwd` and :func:`_halo_bwd` launch
+``csrc/flash_bwd.cu`` (dq; dk and dv; on the tensor cores too, reading the
+same views and writing each gradient into a (B, S, H, Dh) buffer);
+:func:`_win_fwd` and :func:`_win_bwd` launch the banded kernels of
+``csrc/band_attention.cu``, where query window i sees key windows i-1 and i; :func:`_halo_fwd` and :func:`_halo_bwd` launch
 those of ``csrc/halo_attention.cu``, one shard of the band under sequence
 parallelism, whose k and v carry the left neighbour's last window in front.
 The banded and halo forwards run on the tensor cores in two passes over
 an fp32 logits scratch (``csrc/window_fwd.cuh``) whose width and key-tile
-grid :func:`window_plan` gives; the backward kernels keep CUDA-core bodies,
-which take any head dim in column groups. All are built at first use by
-:mod:`.build`. On a CPU tensor they run
+grid :func:`window_plan` gives; their backward kernels keep CUDA-core bodies
+(``csrc/attention_bwd.cuh``), which take any head dim in column groups.
+All are built at first use by :mod:`.build`. On a CPU tensor they run
 :func:`mha_reference`, :func:`mha_bwd_reference` and their windowed and halo
 counterparts, the dense fp32 versions of the same functions (the band as a
 mask over the logits). A CUDA tensor never reaches a plain version, and a
@@ -201,6 +202,12 @@ def mha_reference(
     return out.to(q.dtype), lse
 
 
+def _flat(*tensors: torch.Tensor) -> tuple:
+    """(BH, S, Dh) of each (BH, S, Dh) tensor or (B, H, S, Dh) view (a copy
+    where the view's strides need one)."""
+    return tuple(t.reshape(-1, *t.shape[-2:]) for t in tensors)
+
+
 def _grad_weights(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float, dropout_rate: float, seed: Seed,
@@ -228,9 +235,12 @@ def mha_bwd_dq_reference(
     dropout_rate: float = 0.0, seed: Seed = 0, band: Optional[torch.Tensor] = None,
     col0: int = 0,
 ) -> torch.Tensor:
-    """Plain version of the dq kernel: dq = ds k, in q's dtype."""
-    ds, _ = _grad_weights(q, k, v, do, lse, delta, scale, dropout_rate, seed, band, col0)
-    return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
+    """Plain version of the dq kernel: dq = ds k, in q's dtype. q, k, v, do:
+    (BH, S, Dh), or (B, H, S, Dh) views of any strides as the flash kernels
+    take them; lse, delta (B * H, S); dq comes back in q's shape."""
+    q3, k3, v3, do3 = _flat(q, k, v, do)
+    ds, _ = _grad_weights(q3, k3, v3, do3, lse, delta, scale, dropout_rate, seed, band, col0)
+    return torch.einsum("bqk,bkd->bqd", ds, k3.float()).to(q.dtype).reshape(q.shape)
 
 
 def mha_bwd_dkv_reference(
@@ -239,11 +249,14 @@ def mha_bwd_dkv_reference(
     dropout_rate: float = 0.0, seed: Seed = 0, band: Optional[torch.Tensor] = None,
     col0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the dk/dv kernel: dk = ds^T q, dv = P_drop^T do."""
-    ds, p_drop = _grad_weights(q, k, v, do, lse, delta, scale, dropout_rate, seed, band, col0)
-    dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
-    dv = torch.einsum("bqk,bqd->bkd", p_drop, do.float())
-    return dk.to(k.dtype), dv.to(v.dtype)
+    """Plain version of the dk/dv kernel: dk = ds^T q, dv = P_drop^T do,
+    taking the inputs as :func:`mha_bwd_dq_reference` does; dk and dv come
+    back in k's shape."""
+    q3, k3, v3, do3 = _flat(q, k, v, do)
+    ds, p_drop = _grad_weights(q3, k3, v3, do3, lse, delta, scale, dropout_rate, seed, band, col0)
+    dk = torch.einsum("bqk,bqd->bkd", ds, q3.float())
+    dv = torch.einsum("bqk,bqd->bkd", p_drop, do3.float())
+    return dk.to(k.dtype).reshape(k.shape), dv.to(v.dtype).reshape(v.shape)
 
 
 def mha_bwd_reference(
@@ -252,8 +265,9 @@ def mha_bwd_reference(
     dropout_rate: float = 0.0, seed: Seed = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the two backward kernels: dense fp32 recompute of P
-    from ``lse`` with their formulas, (BH, S, Dh) each -> (dq, dk, dv) in
-    the inputs' dtype. ``delta`` = rowsum(do * out), (BH, S) fp32."""
+    from ``lse`` with their formulas, (BH, S, Dh) each or (B, H, S, Dh)
+    views -> (dq, dk, dv) in the inputs' dtype and shape. ``delta`` =
+    rowsum(do * out), (B * H, S) fp32."""
     args = (q, k, v, do, lse, delta, scale, dropout_rate, seed)
     return (mha_bwd_dq_reference(*args),) + mha_bwd_dkv_reference(*args)
 
@@ -326,9 +340,9 @@ def windowed_mha_halo_bwd_dkv_reference(
 
 def _signature(pointers: int, ints: int, halo: bool = False, strides: int = 0) -> list:
     """A C launcher's argument types: tensor pointers, then the ints (BH, S,
-    Dh[, window][, span_cols, scratch_cols]; the flash forward's B, H, S, Dh,
-    its int64 strides, then is_bf16), scale, rate, threshold, seed[,
-    has_prev], stream."""
+    Dh[, window][, span_cols, scratch_cols]; the flash kernels' B, H, S, Dh,
+    their int64 (batch, head, row) strides of each tensor view, then
+    is_bf16), scale, rate, threshold, seed[, has_prev], stream."""
     p, i = ctypes.c_void_p, ctypes.c_int
     dims = [i] * ints if not strides else [i] * (ints - 1) + [ctypes.c_longlong] * strides + [i]
     return [p] * pointers + dims + [ctypes.c_float, ctypes.c_float, ctypes.c_uint32, p] + [p] * halo + [p]
@@ -337,7 +351,8 @@ def _signature(pointers: int, ints: int, halo: bool = False, strides: int = 0) -
 # Each library's C launchers and their argument types.
 _LAUNCHERS = {
     "flash_fwd": {"tchvp_flash_fwd": _signature(5, 5, strides=12)},
-    "flash_bwd": {"tchvp_flash_bwd_dq": _signature(7, 4), "tchvp_flash_bwd_dkv": _signature(8, 4)},
+    "flash_bwd": {"tchvp_flash_bwd_dq": _signature(7, 5, strides=15),
+                  "tchvp_flash_bwd_dkv": _signature(8, 5, strides=18)},
     "band_attention": {"tchvp_band_fwd": _signature(6, 7),
                        "tchvp_band_bwd_dq": _signature(7, 5), "tchvp_band_bwd_dkv": _signature(8, 5)},
     "halo_attention": {"tchvp_halo_fwd": _signature(6, 7, halo=True),
@@ -393,15 +408,14 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {err})")
 
 
-def _scalars(q: torch.Tensor, window: Optional[int], scale: float, dropout_rate: float,
+def _scalars(q: torch.Tensor, window: int, scale: float, dropout_rate: float,
              seed_ptr: int) -> tuple:
-    """The launchers' arguments after the pointers, the stream aside. The
-    banded launchers take a window of 1..S; one of S or more holds every
+    """The banded backward launchers' arguments after the pointers, the
+    stream aside. They take a window of 1..S; one of S or more holds every
     pair, as one of S does."""
     bh, s, dh = q.shape
-    dims = (bh, s, dh) if window is None else (bh, s, dh, min(int(window), s))
-    return dims + (int(q.dtype == torch.bfloat16), float(scale), float(dropout_rate),
-                   _drop_threshold(dropout_rate), seed_ptr)
+    return (bh, s, dh, min(int(window), s), int(q.dtype == torch.bfloat16), float(scale),
+            float(dropout_rate), _drop_threshold(dropout_rate), seed_ptr)
 
 
 def _check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -541,45 +555,99 @@ def _win_fwd(
     return windowed_mha_reference(q, k, v, scale, window, dropout_rate, seed)
 
 
-def _launch_bwd(which: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, outs,
-                scale: float, dropout_rate: float, seed: Seed, window: Optional[int]) -> None:
-    """Launch the ``which`` kernel ("dq" or "dkv") of ``csrc/flash_bwd.cu``
-    (``window`` None) or ``csrc/band_attention.cu`` into ``outs`` on the
-    current stream."""
+def _launch_band_bwd(which: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, outs,
+                     scale: float, dropout_rate: float, seed: Seed, window: int) -> None:
+    """Launch the ``which`` kernel ("dq" or "dkv") of
+    ``csrc/band_attention.cu`` into ``outs`` on the current stream."""
     _check_inputs(q, window, q=q, k=k, v=v, do=do)
     bh, s, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (bh, s) or t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous fp32 (BH, S) on {q.device}")
-    name = "flash_bwd" if window is None else "band_attention"
-    lib = _kernel_lib(name)
-    launch = getattr(lib, f"tchvp_{'flash' if window is None else 'band'}_bwd_{which}")
+    lib = _kernel_lib("band_attention")
+    launch = getattr(lib, f"tchvp_band_bwd_{which}")
     seed_ptr, _keep_alive = _seed_arg(seed, dropout_rate, q.device)
     with torch.cuda.device(q.device):
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                      delta.data_ptr(), *(t.data_ptr() for t in outs),
                      *_scalars(q, window, scale, dropout_rate, seed_ptr),
                      torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, err, f"{name} {which}")
+    _raise_on(lib, err, f"band_attention {which}")
+
+
+def _check_flash_bwd_inputs(q, k, v, do, lse, delta) -> None:
+    """:func:`_check_flash_inputs` for q, k, v and do; lse and delta
+    contiguous fp32 (B * H, S) on q's device."""
+    _check_flash_inputs(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do: {tuple(do.shape)} {do.dtype} {do.device} does not match q")
+    if do.stride(-1) != 1 and do.shape[-1] > 1:
+        raise ValueError(f"do must have unit stride along the head dim, got {do.stride()}")
+    stats = (math.prod(q.shape[:-2]), q.shape[-2])
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != stats or t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous fp32 {stats} on {q.device}")
+
+
+def grad_buffer(x: torch.Tensor) -> torch.Tensor:
+    """An empty gradient of ``x``'s shape for the flash backward kernels:
+    the (B, H, S, Dh) view of a (B, S, H, Dh) buffer for a 4-d ``x``, whose
+    heads then merge without a copy; (BH, S, Dh) contiguous for a 3-d one."""
+    if x.dim() == 4:
+        b, h, s, dh = x.shape
+        return x.new_empty((b, s, h, dh)).transpose(1, 2)
+    return x.new_empty(x.shape)
+
+
+_flash_bwd_bound: dict = {}  # C launcher name -> (launcher, library), bound at the first launch
+
+
+def _launch_flash_bwd(name: str, q, k, v, do, lse, delta, outs, scale: float,
+                      dropout_rate: float, seed: Seed) -> None:
+    """Launch ``csrc/flash_bwd.cu``'s ``name`` into ``outs`` on the current
+    stream, every tensor through its (batch, head, row) strides."""
+    _check_flash_bwd_inputs(q, k, v, do, lse, delta)
+    if name not in _flash_bwd_bound:
+        lib = _kernel_lib("flash_bwd")
+        _flash_bwd_bound[name] = (getattr(lib, name), lib)
+    launch, lib = _flash_bwd_bound[name]
+    b, h = q.shape[:2] if q.dim() == 4 else (1, q.shape[0])
+    s, dh = q.shape[-2:]
+    seed_ptr, _keep_alive = _seed_arg(seed, dropout_rate, q.device)
+    tensors = (q, k, v, do) + tuple(outs)
+    args = (*(t.data_ptr() for t in (q, k, v, do, lse, delta) + tuple(outs)), b, h, s, dh,
+            *(st for t in tensors for st in _strides4(t)), int(q.dtype == torch.bfloat16), float(scale),
+            float(dropout_rate), _drop_threshold(dropout_rate), seed_ptr, _cuda_stream(q.device))
+    if q.device.index == torch.cuda.current_device():
+        err = launch(*args)
+    else:
+        with torch.cuda.device(q.device):
+            err = launch(*args)
+    _raise_on(lib, err, name)
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, dropout_rate: float,
                       seed: Seed) -> torch.Tensor:
-    """dq of the dq kernel (grid: batch-head x 16-row query tile)."""
+    """dq of the dq kernel (grid: 64-row query tile x head-dim column block
+    x batch-head, each block walking every key tile). q, k, v, do: (BH, S,
+    Dh), or (B, H, S, Dh) views with unit stride along Dh, read as they are;
+    dq: :func:`grad_buffer` of q."""
     global dq_launches
-    dq = torch.empty_like(q)
-    _launch_bwd("dq", q, k, v, do, lse, delta, (dq,), scale, dropout_rate, seed, None)
+    dq = grad_buffer(q)
+    _launch_flash_bwd("tchvp_flash_bwd_dq", q, k, v, do, lse, delta, (dq,), scale, dropout_rate, seed)
     dq_launches += 1
     return dq
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, dropout_rate: float,
                        seed: Seed) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) of the dk/dv kernel (grid: batch-head x 8-key tile)."""
+    """(dk, dv) of the dk/dv kernel (grid: 64-key tile x head-dim column
+    block x batch-head, each block walking every query tile); inputs as in
+    :func:`flash_bwd_dq_cuda`, dk and dv :func:`grad_buffer` of k and v."""
     global dkv_launches
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("dkv", q, k, v, do, lse, delta, (dk, dv), scale, dropout_rate, seed, None)
+    dk, dv = grad_buffer(k), grad_buffer(v)
+    _launch_flash_bwd("tchvp_flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale, dropout_rate, seed)
     dkv_launches += 1
     return dk, dv
 
@@ -589,7 +657,7 @@ def band_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, window: int,
     """dq of the banded dq kernel (each query tile walks its key span)."""
     global band_dq_launches
     dq = torch.empty_like(q)
-    _launch_bwd("dq", q, k, v, do, lse, delta, (dq,), scale, dropout_rate, seed, window)
+    _launch_band_bwd("dq", q, k, v, do, lse, delta, (dq,), scale, dropout_rate, seed, window)
     band_dq_launches += 1
     return dq
 
@@ -600,7 +668,7 @@ def band_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, window: int,
     rows of its window and the next)."""
     global band_dkv_launches
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_bwd("dkv", q, k, v, do, lse, delta, (dk, dv), scale, dropout_rate, seed, window)
+    _launch_band_bwd("dkv", q, k, v, do, lse, delta, (dk, dv), scale, dropout_rate, seed, window)
     band_dkv_launches += 1
     return dk, dv
 
@@ -702,7 +770,8 @@ def _flash_bwd(
     lse: torch.Tensor, delta: torch.Tensor, scale: float,
     dropout_rate: float = 0.0, seed: Seed = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(BH, S, Dh) q, k, v, do and (BH, S) fp32 lse, delta -> (dq, dk, dv)."""
+    """(BH, S, Dh) q, k, v, do or (B, H, S, Dh) views, and (B * H, S) fp32
+    lse, delta -> (dq, dk, dv) in q's shape."""
     if q.is_cuda:
         dispatch_trace.record("flash_mha_bwd_cuda")
         return _flash_bwd_cuda(q, k, v, do, lse, delta, scale, dropout_rate, seed)
@@ -756,13 +825,18 @@ def _save_residuals(ctx, q, k, v, out, lse, scale: float, dropout_rate: float, s
     ctx.save_for_backward(q, k, v, out, lse, seed if isinstance(seed, torch.Tensor) else None)
 
 
-def _residuals(ctx, do: torch.Tensor):
-    """(q, k, v, do, lse, delta) for the backward kernels, (BH, S, Dh)
-    contiguous (the flash forward saves (B, H, S, Dh) views, copied here,
-    only when a backward runs), and the seed."""
+def _residuals(ctx, do: torch.Tensor, views: bool = False):
+    """(q, k, v, do, lse, delta) for the backward kernels, and the seed.
+    ``views`` (the flash kernels): q, k, v, out and do stay as they are,
+    (B, H, S, Dh) views or (BH, S, Dh), and only a ``do`` without unit
+    stride along Dh is copied; else (the banded and halo kernels) they are
+    made contiguous. delta = rowsum(do * out) in fp32, (B * H, S)."""
     q, k, v, out, lse, seed_t = ctx.saved_tensors
-    q, k, v, out, do = (t.reshape(-1, *t.shape[-2:]).contiguous() for t in (q, k, v, out, do))
-    delta = (do.float() * out.float()).sum(dim=-1)
+    if not views:
+        q, k, v, out, do = (t.contiguous() for t in (q, k, v, out, do))
+    elif do.stride(-1) != 1 and do.shape[-1] > 1:
+        do = do.contiguous()
+    delta = (do.float() * out.float()).sum(dim=-1).reshape(lse.shape).contiguous()
     return (q, k, v, do, lse, delta), seed_t if seed_t is not None else ctx.seed
 
 
@@ -774,14 +848,12 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, scale, dropout_rate, seed):
         out, lse = _flash_fwd(q, k, v, scale, dropout_rate, seed)
         _save_residuals(ctx, q, k, v, out, lse, scale, dropout_rate, seed)
-        ctx.shape = q.shape
         return out
 
     @staticmethod
     def backward(ctx, do):
-        tensors, seed = _residuals(ctx, do)
-        grads = _flash_bwd(*tensors, ctx.scale, ctx.dropout_rate, seed)
-        return tuple(g.view(ctx.shape) for g in grads) + (None, None, None)
+        tensors, seed = _residuals(ctx, do, views=True)
+        return _flash_bwd(*tensors, ctx.scale, ctx.dropout_rate, seed) + (None, None, None)
 
 
 class _WindowedAttention(torch.autograd.Function):
@@ -861,8 +933,9 @@ def mha(
     q, k, v may be views of any strides with unit stride along Dh, such as
     ``ops.attention._split_heads``' views of (B, S, D) tokens: the CUDA
     kernel reads them as they are and returns the (B, H, S, Dh) view of a
-    (B, S, H, Dh) buffer. Without a gradient to track, the forward runs
-    without the autograd Function.
+    (B, S, H, Dh) buffer; the backward kernels read the same views and the
+    gradients come back the same way. Without a gradient to track, the
+    forward runs without the autograd Function.
     """
     scale, seed = _scale_seed(q.shape[-1], scale, dropout_rate, dropout_seed)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
