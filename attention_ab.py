@@ -12,7 +12,9 @@ the flash forward at the inference and training shapes and at FCT's three
 and at FCT's three (``chip_smoke.FCT_CASES``),
 the banded forward and backward at config 2's and the windowed-training
 shape and the halo forward and backward at both shard shapes (has_prev 1),
-and saves every output. It prints each of these calls' times, by events
+and saves every output. Beside the band and halo backward it times SDPA's
+backward with the band as its boolean mask (a yardstick, not saved: its
+bits need not repeat). It prints each of these calls' times, by events
 around 20 calls and on the device (a call longer than 50 ms, such as an
 older checkout's CUDA-core backward at FCT's S 16384, once by events and not
 on the device), then the host's time per call of ``mha``
@@ -105,10 +107,22 @@ def run(tag: str, out_dir: Path) -> None:
         args = c.bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 130) + (scale, rate, c.device_seed(seed))
         calls[f"flash_bwd_{name} (dq, dk/dv) {(b, h, s, dh)} dropout {rate}"] = (
             f"flash_bwd_{name}", functools.partial(fa._flash_bwd_cuda, *args))
+    yardsticks = {}
+
+    def sdpa_bwd(q, k, v, do, mask, scale, b_, h_):
+        """SDPA's backward with the boolean ``mask``, without dropout, on
+        (B * H, S, Dh) tensors viewed as (B, H, S, Dh)."""
+        q4, k4, v4 = (t.detach().view(b_, h_, *t.shape[1:]).requires_grad_() for t in (q, k, v))
+        out4 = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
+        do4 = do.view(b_, h_, *do.shape[1:])
+        return functools.partial(torch.autograd.grad, out4, (q4, k4, v4), do4, retain_graph=True)
+
     for name, case in (("c2", c.BAND_CONFIG2), ("wtrain", c.BAND_TRAIN)):
         (b, h, s, dh), dtype, scale, w, rate, seed = case
         q, k, v, do, lse, delta = c.bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 70, window=w)
         seed_t = c.device_seed(seed)
+        yardsticks[f"SDPA backward, band mask, {name} (without dropout)"] = sdpa_bwd(
+            q, k, v, do, fa.band_mask(s, w, q.device), scale, b, h)
         calls[f"band_fwd_{name} {(b, h, s, dh)} w {w}"] = (
             f"band_fwd_{name}", functools.partial(fa.band_fwd_cuda, q, k, v, scale, w, rate, seed_t))
         calls[f"band_bwd_{name} (dq, dk/dv)"] = (
@@ -118,6 +132,8 @@ def run(tag: str, out_dir: Path) -> None:
         (b, h, s, dh), dtype, scale, w, rate, seed = case
         q, k, v, do, lse, delta = c.halo_inputs((b, h, s, dh), dtype, scale, w, rate, seed, 1, 110)
         seed_t = c.device_seed(seed)
+        yardsticks[f"SDPA backward, halo band mask, {name} (without dropout)"] = sdpa_bwd(
+            q, k, v, do, fa.halo_band_mask(s, w, 1, q.device), scale, b, h)
         calls[f"halo_fwd_{name} {(b * h, s, s + w, dh)}"] = (
             f"halo_fwd_{name}", functools.partial(fa.halo_fwd_cuda, q, k, v, scale, w, prev, rate, seed_t))
         calls[f"halo_bwd_{name} (dq, dk/dv)"] = (
@@ -135,7 +151,10 @@ def run(tag: str, out_dir: Path) -> None:
             print(f"[ab {tag}] {label}: {once:.4f} ms (events, one call)")
         else:
             print(f"[ab {tag}] {label}: {cuda_ms(fn, 20):.4f} ms (events), {device_ms(fn):.4f} ms (device)")
+    for label, fn in yardsticks.items():
+        print(f"[ab {tag}] {label}: {cuda_ms(fn, 20):.4f} ms (events), {device_ms(fn):.4f} ms (device)")
     host_times(c, fa)
+
 
 def compare(out_dir: Path, first: str, others) -> None:
     import torch

@@ -8,7 +8,8 @@ Phases, one or more lines each:
     libraries from the sources in this checkout (one nvcc each, in
     parallel) and prints the seconds, the registers per kernel and the
     spill stores, and each tensor-core kernel's own (the flash forward's
-    and backward's per (KC, NT) tiling, the window forwards' per pass);
+    and backward's per (KC, NT) tiling, the window forwards' and
+    backward's per pass);
  3. forward kernel vs plain: out and lse against the plain PyTorch version
     on the card, fp32 max abs 1e-4; bf16 against the fp32 plain version on
     the same bf16-rounded inputs, out max abs 1e-2 x max|ref| and lse 1e-4;
@@ -36,18 +37,24 @@ Phases, one or more lines each:
     D) tokens with the gradients into (B, S, H, Dh) buffers: bit-equal to
     the launch on contiguous copies, and ``mha``'s autograd gradients the
     kernels' views, bit-equal to a direct launch on its residuals;
- 5. banded kernels vs plain: the forward (two tensor-core passes), dq and
-    dk/dv kernels of ``csrc/band_attention.cu`` against the windowed plain
-    versions at config 2's shape (bf16, Dh 1152), the windowed training
-    shape (fp32, dropout 0.1), a ragged S, a window that 16 does not
-    divide, a span wider than a tile (w 200 at S 256, Dh 1152, bf16,
-    dropout 0.1), head dims whose rows are not a multiple of 16 bytes (Dh
-    100 bf16, Dh 98 fp32: the forward's element loads and stores), and one
+ 5. banded kernels vs plain: the forward (two tensor-core passes) and the
+    backward (three tensor-core launches: pass A's P_drop and dS scratch,
+    pass B's dq and dk/dv) of ``csrc/band_attention.cu`` against the
+    windowed plain versions at config 2's shape (bf16, Dh 1152), the
+    windowed training shape (fp32, dropout 0.1), a ragged S, a window that
+    16 does not divide, a span wider than a tile (w 200 at S 256, Dh 1152,
+    bf16, dropout 0.1), head dims whose rows are not a multiple of 16
+    bytes (Dh 100 bf16, Dh 98 fp32: element loads and stores), and one
     window (w >= S), where the forward and the backward equal the flash
     kernels within the fp32 limits (1e-4, and 1e-4 x max|grad|); the
-    phase-3/4 limits, bits equal on repeat; the forward on q, k, v one
-    element past a 16-byte boundary (element loads) against plain and
-    bit-equal to the aligned inputs' (fp32 and bf16);
+    forward at 2e-2 (bf16) and 1e-4; the backward at phase 4's limits
+    (1.5e-2 x max|ref| in bf16, 1e-4 in fp32), each pass against its own
+    plain version (pass B on the kernel's own scratch) and dq, dk, dv
+    against the windowed plain versions, each limit 10 times below what
+    they read with K one key row off; bits equal on repeat; the forward
+    and the backward on q, k, v (and do) one element past a 16-byte
+    boundary (element loads) against plain and bit-equal to the aligned
+    inputs' (fp32 and bf16);
 5c. halo kernels vs plain: the forward, dq and dk/dv kernels of
     ``csrc/halo_attention.cu`` (one shard of sequence-parallel windowed
     attention: k and v carry the left neighbour's last window) against
@@ -55,16 +62,18 @@ Phases, one or more lines each:
     k_ext 192, Dh 512, fp32, dropout 0.1), the config-2 shard (BH 32, S
     128, k_ext 192, Dh 1152, bf16), a ragged case (S 72, w 24), a span
     wider than a tile (S 200, w 200, k_ext 400, Dh 1152, bf16) and Dh 100
-    bf16 and 98 fp32, each with has_prev 0 and 1: phase 5's limits, bits
-    equal on repeat; the misaligned forward as in phase 5; with
-    has_prev 0 against the banded kernels on the local sequence; and a
+    bf16 and 98 fp32, each with has_prev 0 and 1: phase 5's limits and
+    checks, bits equal on repeat; the misaligned forward and backward as
+    in phase 5; with has_prev 0 against the banded kernels on the local
+    sequence, the backward's dq, dk, dv bit for bit; and a
     one-process emulation of n = 2 and 4 shards (halos cut from the
     neighbours, dk/dv assembled from dk_ext[w:] and the next shard's
     dk_ext[:w]) against windowed_mha over the whole sequence;
 5d. head dims past 1280 (images 416, 512 and 768: Dh 1352, 2048, 4608): all
-    nine attention kernels (flash, band, halo: forward, dq, dk/dv) against
+    attention kernels (flash, band, halo: forward and backward) against
     their plain versions on small shapes, fp32 with dropout 0.1 and bf16
-    without, at phase 5's limits, bits equal on repeat;
+    without, at phase 5's limits (the band and halo backward with phase
+    5's checks), bits equal on repeat;
 5b. fused decoder tail (``csrc/fused_tail.cu``, off the default path):
     (a) the kernel against ``fused_tail_reference`` on the weights folded
     from a Decoder32K with seeded BN, at (2, 8, 8), (1, 9, 9), (1, 16, 24)
@@ -112,8 +121,9 @@ Phases, one or more lines each:
     events), peak memory, a torch.profiler window over one step, and one
     step with remat "stages" (4 forward launches);
 12. windowed training: phase 11 with window 64 on B=2 of 32-frame clips
-    (S 256 in 4 windows): 2 banded forward, 2 dq and 2 dk/dv launches per
-    step and no flash kernel; remat "stages" launches 4 forwards;
+    (S 256 in 4 windows): 2 banded forward, 2 pass-A, 2 dq and 2 dk/dv
+    launches per step and no flash kernel; remat "stages" launches 4
+    forwards;
 12b. sequence parallelism, two ranks sharing this one card over gloo
     (NCCL refuses two ranks on one device; the halo and the reductions
     cross through host memory), spawned with a file:// rendezvous and a
@@ -125,8 +135,8 @@ Phases, one or more lines each:
     gradient) against the single-process step from the same weights: loss
     rtol 1e-5, parameters within 1.9 x 2e-2 x the largest gradient (the
     limit of tests/test_torch_train.py), BatchNorm stats 1e-5; parameters
-    and stats bit-equal across the ranks; per rank 2 halo forward, 2 dq, 2
-    dk/dv launches and no band or flash launch; (c) 3 steps with dropout
+    and stats bit-equal across the ranks; per rank 2 halo forward, 2
+    pass-A, 2 dq, 2 dk/dv launches and no band or flash launch; (c) 3 steps with dropout
     on at the cell's AdamW: finite loss, every parameter moved. Each rank's
     step ms and peak memory, which are not a scaling number;
 13. config 4 streaming: stream_video of the flagship at 256^2 (attn "xla",
@@ -152,11 +162,17 @@ Phases, one or more lines each:
     kernel, the pair and SDPA's backward (``autograd.grad``) by events and
     by device time, the pair's bound the larger of bytes, 5 products and
     the 2 x BH x S^2 exponentials; the banded
-    backward also at config 2's;
+    backward at config 2's and the training shape, each of its three
+    launches, the three together and SDPA's backward with the band mask by
+    events and by device time, each launch's bound (its inputs, the
+    scratch included, read once and its outputs written once, or its
+    products) and the pair's (7 rows of q, k, v, do, dq, dk, dv and 5
+    products);
     the halo kernels at the two shard shapes of phase 5c (has_prev 1), SDPA
-    with the (S, S + w) halo band as a boolean mask beside them; every
+    with the (S, S + w) halo band as a boolean mask beside them, the
+    backward as the band's; every
     kernel's ``ms`` (and SDPA's) is events around a loop of calls, the
-    host's launch time included; the band and halo forwards and their SDPA
+    host's launch time included; the band and halo kernels and their SDPA
     also by device time (``device_ms`` and ``library_device_ms`` in the
     JSON);
     the fused tail at config 1's and config 2's decode shapes in bf16,
@@ -214,8 +230,8 @@ LIBRARIES = {"flash_fwd": ["flash_fwd.cu"], "flash_bwd": ["flash_bwd.cu"],
 # Each kernel's launch counter: (key, module, attribute).
 COUNTERS = tuple((name, fa, name) for name in (
     "launches", "dq_launches", "dkv_launches",
-    "band_fwd_launches", "band_dq_launches", "band_dkv_launches",
-    "halo_fwd_launches", "halo_dq_launches", "halo_dkv_launches")) + (
+    "band_fwd_launches", "band_ds_launches", "band_dq_launches", "band_dkv_launches",
+    "halo_fwd_launches", "halo_ds_launches", "halo_dq_launches", "halo_dkv_launches")) + (
     ("fused_tail_launches", ft, "launches"),)
 FLASH_PY = "tchvp_tpu/kernels/flash_attention.py"
 
@@ -236,7 +252,7 @@ def device_seed(seed: int) -> torch.Tensor:
 
 
 def counts() -> dict:
-    """The launch counters of the ten kernels, by key."""
+    """The launch counters of the twelve kernels, by key."""
     return {key: getattr(module, attr) for key, module, attr in COUNTERS}
 
 
@@ -375,12 +391,16 @@ def phase_build() -> None:
             print(f"[2 build] flash_bwd {tiles.group(1)} {dtype} (KC {tiles.group(3)}, NT {tiles.group(4)}"
                   f"{', resident' if tiles.group(5) == '1' else ''}): {regs} registers, {spill} bytes spill stores, "
                   f"{stack} bytes stack frame")
+    kinds = {"window_logits": "forward logits (pass A)", "window_pv": "forward P.V (pass B)",
+             "window_ds": "backward P_drop, dS (pass A)", "window_dq": "backward dq (pass B)",
+             "window_dkv": "backward dk/dv (pass B)"}
     for name in ("band_attention", "halo_attention"):
-        for kernel, (regs, spill, _) in sorted(kernel_resources(build.build_log[name]).items()):
-            if "window_" in kernel:
+        for kernel, (regs, spill, stack) in sorted(kernel_resources(build.build_log[name]).items()):
+            kind = next((v for k_, v in kinds.items() if f"{k_}_kernel" in kernel), None)
+            if kind:
                 dtype = "bf16" if "nv_bfloat16" in kernel else "fp32"
-                kind = "logits (pass A)" if "logits" in kernel else "P.V (pass B)"
-                print(f"[2 build] {name} {kind} {dtype}: {regs} registers, {spill} bytes spill stores")
+                print(f"[2 build] {name} {kind} {dtype}: {regs} registers, {spill} bytes spill stores, "
+                      f"{stack} bytes stack frame")
     print(f"[2 build] {len(LIBRARIES)} libraries in {wall:.2f} s wall (one nvcc each, in parallel)")
 
 
@@ -618,8 +638,72 @@ def check_misaligned(tag: str, fwd, q, k, v, want, tol=None, lse_tol=None) -> No
 
 
 def band_bwd(q, k, v, do, lse, delta, scale, window, rate, seed):
-    args = (q, k, v, do, lse, delta, scale, window, rate, seed)
-    return (fa.band_bwd_dq_cuda(*args),) + fa.band_bwd_dkv_cuda(*args)
+    """(dq, dk, dv) of the banded backward's three passes (``attention_ab.py``
+    times ``band_bwd`` and ``halo_bwd`` by these names in every checkout)."""
+    return window_passes(q, k, v, do, lse, delta, scale, window, rate, seed)[1:]
+
+
+def window_passes(q, k, v, do, lse, delta, scale, w, rate, seed_t, prev=None):
+    """(scratch, dq, dk, dv) of the banded (``prev`` None) or halo
+    backward's three passes."""
+    if prev is None:
+        scratch = fa.band_bwd_ds_cuda(q, k, v, do, lse, delta, scale, w, rate, seed_t)
+        return (scratch, fa.band_bwd_dq_cuda(scratch, k, w)) + fa.band_bwd_dkv_cuda(scratch, q, do, w)
+    scratch = fa.halo_bwd_ds_cuda(q, k, v, do, lse, delta, scale, w, prev, rate, seed_t)
+    return (scratch, fa.halo_bwd_dq_cuda(scratch, k, w, prev)) + fa.halo_bwd_dkv_cuda(scratch, q, do, w, prev)
+
+
+def check_window_bwd(tag: str, shape, q, k, v, do, lse, delta, scale, w, rate, seed, has_prev=None,
+                     misaligned_too=False):
+    """The banded (``has_prev`` None) or halo backward against its plain
+    versions, at phase 4's limits (:func:`bwd_limit` x max|ref|): pass A's
+    scratch (dS, P_drop) against ``window_bwd_scratch_reference``; pass B's
+    dq and dk/dv against their plain versions on the kernel's own scratch;
+    dq, dk, dv against the windowed plain versions, each limit 10 x below
+    what they read with K one key row off; bits equal on repeat. With
+    ``misaligned_too``, q, k, v, do one element past a 16-byte boundary
+    (element loads): bits equal to the aligned launch. Returns the max abs
+    errors {"ds": the scratch's, "dq", "dkv"} and the gradients."""
+    dtype, tol = q.dtype, bwd_limit(q.dtype)
+    seed_t = device_seed(seed)
+    prev = None if has_prev is None else torch.tensor([has_prev], dtype=torch.int32, device="cuda")
+    got = window_passes(q, k, v, do, lse, delta, scale, w, rate, seed_t, prev)
+    again = window_passes(q, k, v, do, lse, delta, scale, w, rate, seed_t, prev)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(got, again)), f"{tag} at {shape}: differs between two launches")
+    plain = (q.float(), k.float(), v.float(), do.float(), lse, delta, scale, w)
+    want_scratch = fa.window_bwd_scratch_reference(*plain, rate, seed, has_prev)
+    rel, ds_err = {}, 0.0
+    for half, name in enumerate(("dS", "P_drop")):
+        err = (got[0][half].float() - want_scratch[half]).abs().max().item()
+        ds_err = max(ds_err, err)
+        rel[name] = err / want_scratch[half].abs().max().item()
+    pass_b = (fa.window_bwd_dq_reference(got[0], k, w, has_prev),) + fa.window_bwd_dkv_reference(got[0], q, do, w,
+                                                                                                has_prev)
+    for name, x, y in zip(("pass B dq", "pass B dk", "pass B dv"), got[1:], pass_b):
+        rel[name] = (x.float() - y.float()).abs().max().item() / y.float().abs().max().item()
+    for name, r in rel.items():
+        check(math.isfinite(r) and r <= tol, f"{tag} {name} at {shape}: {r} x max|ref| > {tol}")
+    if has_prev is None:
+        refs = (fa.windowed_mha_bwd_dq_reference, fa.windowed_mha_bwd_dkv_reference)
+        extra = (rate, seed)
+    else:
+        refs = (fa.windowed_mha_halo_bwd_dq_reference, fa.windowed_mha_halo_bwd_dkv_reference)
+        extra = (has_prev, rate, seed)
+    want = (refs[0](*plain, *extra),) + refs[1](*plain, *extra)
+    broken = (plain[0], plain[1].roll(1, dims=1)) + plain[2:]
+    fault = (refs[0](*broken, *extra),) + refs[1](*broken, *extra)
+    print(f"[{tag}] {shape} {str(dtype)[6:]}: pass A dS, P_drop and pass B (on the kernel's scratch) max abs / "
+          f"max|ref| " + ", ".join(f"{n} {r:.3g}" for n, r in rel.items()) + f" (tol {tol})")
+    errs = check_bwd(tag, shape, dtype, got[1:], again[1:], want, tol, fault)
+    if misaligned_too:
+        copies = [misaligned(t) for t in (q, k, v, do)]
+        check(all(t.data_ptr() % 16 for t in copies), f"{tag}: the copies are 16-byte aligned")
+        moved = window_passes(*copies, lse, delta, scale, w, rate, seed_t, prev)
+        check(all(torch.equal(x, y) for x, y in zip(moved, got)), f"{tag} at {shape}: misaligned inputs change the bits")
+        print(f"[{tag} misaligned] q, k, v, do one element past a 16-byte boundary: scratch, dq, dk, dv bits equal "
+              f"to the aligned inputs'")
+    return {"ds": ds_err, "dq": errs[0], "dkv": max(errs[1], errs[2])}, got[1:]
 
 
 def phase_band_kernels() -> dict:
@@ -644,20 +728,15 @@ def phase_band_kernels() -> dict:
         check(torch.equal(out, again[0]) and torch.equal(lse, again[1]), f"band fwd at {case} differs on repeat")
 
         q, k, v, do, lse, delta = bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 50 + i, window=w)
-        got = band_bwd(q, k, v, do, lse, delta, scale, w, rate, device_seed(seed))
-        again = band_bwd(q, k, v, do, lse, delta, scale, w, rate, device_seed(seed))
-        torch.cuda.synchronize()
-        args = (q.float(), k.float(), v.float(), do.float(), lse, delta, scale, w, rate, seed)
-        want = (fa.windowed_mha_bwd_dq_reference(*args),) + fa.windowed_mha_bwd_dkv_reference(*args)
-        e = check_bwd(f"5 band bwd, window {w}, dropout {rate}", (b, h, s, dh), dtype, got, again, want)
+        e, _ = check_window_bwd(f"5 band bwd, window {w}, dropout {rate}", (b, h, s, dh), q, k, v, do, lse, delta,
+                                scale, w, rate, seed)
         if case is BAND_CONFIG2:
             errs["band_fwd"] = err
         if case is BAND_TRAIN:
-            errs["band_bwd_dq"], errs["band_bwd_dkv"] = e[0], max(e[1], e[2])
+            errs.update({f"band_bwd_{k_}": v_ for k_, v_ in e.items()})
 
     # One window (w >= S): the band holds every pair. Both banded passes are
-    # held to the flash kernels at the fp32 limits (the band's backward on
-    # the CUDA cores, the flash backward on the tensor cores, in another
+    # held to the flash kernels at the fp32 limits (two bodies, in another
     # order of sums).
     (b, h, s, dh), dtype, _, w, rate, seed = ONE_WINDOW_CASE
     scale = 1 / math.sqrt(dh)
@@ -676,7 +755,8 @@ def phase_band_kernels() -> dict:
           f"{fwd_err:.3g} from the flash forward (tol 1e-4); dq, dk, dv max abs / max|flash| "
           f"{', '.join(f'{r:.3g}' for r in bwd_rel)} (tol 1e-4)")
 
-    # Element loads with a head dim of 64: misaligned q, k, v (ragged S).
+    # Element loads with a head dim of 64: misaligned q, k, v (ragged S), and
+    # q, k, v, do for the backward.
     (b, h, s, dh), _, _, w, rate, seed = BAND_CASES[2]
     scale, seed_t = 1 / math.sqrt(dh), device_seed(seed)
     for dtype in (torch.float32, torch.bfloat16):
@@ -684,6 +764,10 @@ def phase_band_kernels() -> dict:
         want = fa.windowed_mha_reference(q.float(), k.float(), v.float(), scale, w, rate, seed)
         check_misaligned(f"5 band fwd {(b, h, s, dh)} {str(dtype)[6:]} window {w} dropout {rate}",
                          lambda q_, k_, v_: fa.band_fwd_cuda(q_, k_, v_, scale, w, rate, seed_t), q, k, v, want)
+        bwd = bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 46, window=w)
+        check_window_bwd(f"5 band bwd, window {w}, dropout {rate}", (b, h, s, dh), *bwd, scale, w, rate, seed,
+                         misaligned_too=True)
+    free_cuda()
     return errs
 
 
@@ -715,8 +799,8 @@ def halo_inputs(shape, dtype, scale, w, rate, seed, has_prev, rng_seed):
 
 
 def halo_bwd(q, k, v, do, lse, delta, scale, w, has_prev, rate, seed):
-    args = (q, k, v, do, lse, delta, scale, w, has_prev, rate, seed)
-    return (fa.halo_bwd_dq_cuda(*args),) + fa.halo_bwd_dkv_cuda(*args)
+    """(dq, dk_ext, dv_ext) of the halo backward's three passes."""
+    return window_passes(q, k, v, do, lse, delta, scale, w, rate, seed, has_prev)[1:]
 
 
 def halo_emulation(n: int) -> None:
@@ -790,17 +874,13 @@ def phase_halo_kernels() -> dict:
             print(f"[5c halo fwd] {tag}: out max abs {err:.3g}, lse max abs {lse_err:.3g} (tol {tol}); "
                   f"bits equal on repeat")
             check(math.isfinite(err) and err <= tol and lse_err <= tol, f"halo fwd vs plain at {tag}")
-            got = halo_bwd(q, k, v, do, lse, delta, scale, w, prev, rate, seed_t)
-            again = halo_bwd(q, k, v, do, lse, delta, scale, w, prev, rate, seed_t)
-            torch.cuda.synchronize()
-            args = (q.float(), k.float(), v.float(), do.float(), lse, delta, scale, w, has_prev, rate, seed)
-            want = (fa.windowed_mha_halo_bwd_dq_reference(*args),) + fa.windowed_mha_halo_bwd_dkv_reference(*args)
-            e = check_bwd(f"5c halo bwd, window {w}, dropout {rate}, has_prev {has_prev}", (b * h, s, s + w, dh),
-                          dtype, got, again, want)
+            e, got = check_window_bwd(f"5c halo bwd, window {w}, dropout {rate}, has_prev {has_prev}",
+                                      (b * h, s, s + w, dh), q, k, v, do, lse, delta, scale, w, rate, seed,
+                                      has_prev)
             if has_prev and case is HALO_CONFIG2:
                 errs["halo_fwd"] = err
             if has_prev and case is HALO_TRAIN:
-                errs["halo_bwd_dq"], errs["halo_bwd_dkv"] = e[0], max(e[1], e[2])
+                errs.update({f"halo_bwd_{k_}": v_ for k_, v_ in e.items()})
             if has_prev:
                 continue
             # has_prev 0: the banded kernels on the local sequence (k_ext[w:]).
@@ -814,18 +894,23 @@ def phase_halo_kernels() -> dict:
             worst = max(rel_err(x, y)[0] / max(rel_err(x, y)[1], 1e-30) for _, x, y in pairs)
             check(worst <= tol and not got[1][:, :w].any() and not got[2][:, :w].any(),
                   f"halo has_prev 0 vs band at {tag}: {worst}")
+            check(all(torch.equal(x, y) for _, x, y in pairs[2:]),
+                  f"halo has_prev 0 vs band at {tag}: the backward's bits differ")
             print(f"[5c halo vs band] {tag}: max abs / max|band| {worst:.3g} over out, lse, dq, dk, dv "
-                  f"(tol {tol}); bits equal {bits}; dk_ext, dv_ext of the masked halo window all 0")
+                  f"(tol {tol}); dq, dk, dv bits equal; out and lse bits equal {bits}; dk_ext, dv_ext of the "
+                  f"masked halo window all 0")
     # Element loads with a head dim of 64: misaligned q, k_ext, v_ext.
     (b, h, s, dh), _, _, w, rate, seed = HALO_CASES[2]
     scale, seed_t = 1 / math.sqrt(dh), device_seed(seed)
     prev = torch.ones(1, dtype=torch.int32, device="cuda")
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, _, _, _ = halo_inputs((b, h, s, dh), dtype, scale, w, rate, seed, 1, 105)
+        q, k, v, do, lse, delta = halo_inputs((b, h, s, dh), dtype, scale, w, rate, seed, 1, 105)
         want = fa.windowed_mha_halo_reference(q.float(), k.float(), v.float(), scale, w, 1, rate, seed)
         check_misaligned(f"5c halo fwd {(b * h, s, s + w, dh)} {str(dtype)[6:]} window {w} dropout {rate}",
                          lambda q_, k_, v_: fa.halo_fwd_cuda(q_, k_, v_, scale, w, prev, rate, seed_t),
                          q, k, v, want)
+        check_window_bwd(f"5c halo bwd, window {w}, dropout {rate}, has_prev 1", (b * h, s, s + w, dh), q, k, v,
+                         do, lse, delta, scale, w, rate, seed, 1, misaligned_too=True)
     for n in (2, 4):
         halo_emulation(n)
     free_cuda()
@@ -849,7 +934,7 @@ def check_fwd(tag: str, got, again, want, tol: float, lse_tol=None) -> float:
 
 
 def phase_head_dims() -> None:
-    """All nine attention kernels past the old Dh limit of 1280 against their
+    """The attention kernels past the old Dh limit of 1280 against their
     plain versions: flash at S 72, band at S 80 w 32, halo at S 64 w 32
     (k_ext 96, has_prev 1); fp32 with dropout 0.1, bf16 without."""
     for dh in F1_HEAD_DIMS:
@@ -873,10 +958,9 @@ def phase_head_dims() -> None:
             want = fa.windowed_mha_reference(q.float(), k.float(), v.float(), scale, w, rate, seed)
             errs["band fwd"] = check_fwd(f"5d band fwd {tag}", fa.band_fwd_cuda(q, k, v, scale, w, rate, seed_t),
                                          fa.band_fwd_cuda(q, k, v, scale, w, rate, seed_t), want, tol)
-            got, again = (band_bwd(q, k, v, do, lse, delta, scale, w, rate, seed_t) for _ in range(2))
-            args = (q.float(), k.float(), v.float(), do.float(), lse, delta, scale, w, rate, seed)
-            want = (fa.windowed_mha_bwd_dq_reference(*args),) + fa.windowed_mha_bwd_dkv_reference(*args)
-            errs["band dq, dk/dv"] = max(check_bwd(f"5d band bwd {tag}", (1, 2, 80, dh), dtype, got, again, want))
+            e, _ = check_window_bwd(f"5d band bwd {tag}", (1, 2, 80, dh), q, k, v, do, lse, delta, scale, w,
+                                    rate, seed)
+            errs["band dq, dk/dv"] = max(e["dq"], e["dkv"])
             # Halo: BH 2, S 64, w 32, k_ext 96, has_prev 1.
             prev = torch.ones(1, dtype=torch.int32, device="cuda")
             q, k, v, do, lse, delta = halo_inputs((1, 2, 64, dh), dtype, scale, w, rate, seed, 1, 400 + dh)
@@ -884,13 +968,12 @@ def phase_head_dims() -> None:
             errs["halo fwd"] = check_fwd(f"5d halo fwd {tag}",
                                          fa.halo_fwd_cuda(q, k, v, scale, w, prev, rate, seed_t),
                                          fa.halo_fwd_cuda(q, k, v, scale, w, prev, rate, seed_t), want, tol)
-            got, again = (halo_bwd(q, k, v, do, lse, delta, scale, w, prev, rate, seed_t) for _ in range(2))
-            args = (q.float(), k.float(), v.float(), do.float(), lse, delta, scale, w, 1, rate, seed)
-            want = (fa.windowed_mha_halo_bwd_dq_reference(*args),) + fa.windowed_mha_halo_bwd_dkv_reference(*args)
-            errs["halo dq, dk/dv"] = max(check_bwd(f"5d halo bwd {tag}", (2, 64, 96, dh), dtype, got, again, want))
+            e, _ = check_window_bwd(f"5d halo bwd {tag}", (2, 64, 96, dh), q, k, v, do, lse, delta, scale, w,
+                                    rate, seed, 1)
+            errs["halo dq, dk/dv"] = max(e["dq"], e["dkv"])
             print(f"[5d head dims] {tag}: max abs " + ", ".join(f"{k_} {e_:.3g}" for k_, e_ in errs.items())
-                  + f" (tol {tol}, backward x max|ref|); bits equal on repeat")
-            del q, k, v, do, lse, delta, got, again, want
+                  + f" (tol {tol}; the band and halo backward {bwd_limit(dtype)} x max|ref|); bits equal on repeat")
+            del q, k, v, do, lse, delta, want
     free_cuda()
 
 
@@ -1208,11 +1291,13 @@ def phase_train(tag: str, batch: int, frames: int, window: int = 0) -> dict:
     size, steps = 256, 5
     cfg = flagship_video_config(size, attn_impl="flash", window_size=window)
     n = cfg.temporal.num_layers
-    if window:
+    if window:  # the banded backward's pass A, then pass B's dq and dk/dv
         kind, fwd, dq, dkv = "band", "band_fwd_launches", "band_dq_launches", "band_dkv_launches"
+        bwd = {"band_ds_launches": n, dq: n, dkv: n}
         markers = {"flash_windowed_cuda", "flash_windowed_bwd_cuda"}
     else:
         kind, fwd, dq, dkv = "flash", "launches", "dq_launches", "dkv_launches"
+        bwd = {dq: n, dkv: n}
         markers = {"flash_mha_cuda", "flash_mha_bwd_cuda"}
     model = VideoHybridNet(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     state = create_train_state(model, make_optimizer(1e-4, weight_decay=0.01, grad_clip_norm=1.0),
@@ -1229,7 +1314,7 @@ def phase_train(tag: str, batch: int, frames: int, window: int = 0) -> dict:
             metrics.append(step(state, clip)[1])
         torch.cuda.synchronize()
         launches = counts()
-        check(launches == expect_counts(**{fwd: n, dq: n, dkv: n}), f"train step launches {launches}")
+        check(launches == expect_counts(**{fwd: n}, **bwd), f"train step launches {launches}")
         check(markers <= seen and not seen & {"sdpa_xla", "sdpa_windowed"},
               f"train step recorded {sorted(seen)}")
     step_counts = launches
@@ -1244,7 +1329,7 @@ def phase_train(tag: str, batch: int, frames: int, window: int = 0) -> dict:
     del params0, stats0
     print(f"[{tag}] fp32 B={batch} T={frames} {size}^2" + (f" window {window}" if window else "")
           + f" mixed loss, AdamW, dropout on: {steps} steps, {kind} launches per step fwd {n}, "
-          f"dq {n}, dkv {n}, other kernels 0; loss {[round(x, 5) for x in loss]}, "
+          + (f"ds (pass A) {n}, " if window else "") + f"dq {n}, dkv {n}, other kernels 0; loss {[round(x, 5) for x in loss]}, "
           f"psnr {[round(x, 3) for x in psnr]}; peak memory {peak_gb:.2f} GB")
 
     reps = []
@@ -1286,10 +1371,11 @@ def phase_train(tag: str, batch: int, frames: int, window: int = 0) -> dict:
     _, m = stages(state, clips[1])
     torch.cuda.synchronize()
     launches = counts()
-    check(launches == expect_counts(**{fwd: 2 * n, dq: n, dkv: n}), f"remat stages launches {launches}")
+    check(launches == expect_counts(**{fwd: 2 * n}, **bwd), f"remat stages launches {launches}")
     check(math.isfinite(m["loss"].item()), "remat stages loss")
-    print(f"[{tag}] remat 'stages' step: {kind} launches fwd {launches[fwd]}, dq {launches[dq]}, "
-          f"dkv {launches[dkv]}, loss {m['loss'].item():.5f}")
+    print(f"[{tag}] remat 'stages' step: {kind} launches fwd {launches[fwd]}, "
+          + (f"ds {launches['band_ds_launches']}, " if window else "")
+          + f"dq {launches[dq]}, dkv {launches[dkv]}, loss {m['loss'].item():.5f}")
     del model, state, clips
     free_cuda()
     return step_counts
@@ -1358,8 +1444,8 @@ def seq_rank(rank: int, world: int) -> None:
             _, m = step(state, seq_clip(21))
         torch.cuda.synchronize()
         got["b_counts"] = counts()
-        check(got["b_counts"] == expect_counts(halo_fwd_launches=2, halo_dq_launches=2, halo_dkv_launches=2),
-              f"(b) launches {got['b_counts']}")
+        check(got["b_counts"] == expect_counts(halo_fwd_launches=2, halo_ds_launches=2, halo_dq_launches=2,
+                                               halo_dkv_launches=2), f"(b) launches {got['b_counts']}")
         check({"seq_sharded_shard_map", "windowed_mha_halo", "flash_halo_cuda", "flash_halo_bwd_cuda"} <= seen
               and not seen & {"flash_windowed_cuda", "flash_mha_cuda", "sdpa_xla", "sdpa_windowed"},
               f"(b) recorded {sorted(seen)}")
@@ -1435,7 +1521,8 @@ def phase_seq_two_ranks(eval_ref) -> dict:
     print(f"[12b seq parallel] (b) 256^2 B 2 T 32 w 64 fp32, SGD lr 1: loss {r0['b_loss']:.7f} vs single process "
           f"{r0['b_loss_ref']:.7f}; parameters max abs {r0['b_param_err']:.3g} (tol 1.9 x 2e-2 x max|g| "
           f"{r0['b_gmax']:.3g}); BN stats {r0['b_stat_err']:.3g} (tol 1e-5); bit-equal across ranks; halo launches "
-          f"per rank fwd {r0['b_counts']['halo_fwd_launches']}, dq {r0['b_counts']['halo_dq_launches']}, dkv "
+          f"per rank fwd {r0['b_counts']['halo_fwd_launches']}, ds {r0['b_counts']['halo_ds_launches']}, "
+          f"dq {r0['b_counts']['halo_dq_launches']}, dkv "
           f"{r0['b_counts']['halo_dkv_launches']}, band and flash 0")
     for r, got in enumerate(ranks):
         print(f"[12b seq parallel] (c) rank {r} ({SEQ_LABEL}; not a scaling number), dropout on, AdamW: loss "
@@ -1720,27 +1807,78 @@ def time_band(band_launches: dict, band_errs: dict) -> list:
                                   library_device_ms=t["sdpa_device"]))
 
         out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
-        do4 = do.view(b, h, s, dh)
-        lib_ms = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), 20)
-        args = (q, k, v, do, lse, delta, scale, w, rate, seed_t)
-        plain_args = (q, k, v, do, lse, delta, scale, w, rate, seed)
-        times = {}
-        for name, fn, plain, n_out, n_products, line in (
-            ("band_bwd_dq", fa.band_bwd_dq_cuda, fa.windowed_mha_bwd_dq_reference, 1, 3, 657),
-            ("band_bwd_dkv", fa.band_bwd_dkv_cuda, fa.windowed_mha_bwd_dkv_reference, 2, 4, 683),
-        ):
-            ms = cuda_ms(lambda: fn(*args), 20)
-            p_ms = cuda_ms(lambda: plain(*plain_args), 20)
-            b_ms, b_by = bound((4 + n_out) * row_bytes + 2 * stat_bytes, n_products * 2 * pairs * dh, dtype)
-            times[name] = ms
-            print(f"[14 times] {name} {tag}: kernel {ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-            if case is BAND_TRAIN:
-                records.append(record(name, "band_attention.cu", f"{FLASH_PY}:{line}", band_launches[name],
-                                      band_errs[name], ms, p_ms, b_ms, b_by, lib_ms))
-        pair_ms, pair_by = bound(7 * row_bytes + 2 * stat_bytes, 10 * pairs * dh, dtype)
-        print(f"[14 times] band backward pair {tag}: dq + dk/dv "
-              f"{times['band_bwd_dq'] + times['band_bwd_dkv']:.4f} ms, SDPA backward with the band mask, "
-              f"without dropout ({backend}) {lib_ms:.4f} ms, bound {pair_ms:.4f} ms ({pair_by})")
+        sdpa = lambda: torch.autograd.grad(out4, (q4, k4, v4), do.view(b, h, s, dh), retain_graph=True)  # noqa: E731
+        records += time_window_bwd("band", tag, (q, k, v, do, lse, delta), scale, w, rate, seed, None, pairs,
+                                   sdpa, backend, band_launches, band_errs, keep=case is BAND_TRAIN)
+        del q, k, v, do, q4, k4, v4, out4
+        free_cuda()
+    return records
+
+
+# The banded and halo backward's C launchers and the TPU kernels they replace:
+# pass A forms P_drop and dS for both of the TPU's kernels (the dq kernel's
+# line first), pass B's dq the dq kernel's products, dk/dv the dk/dv kernel's.
+WINDOW_BWD_LINES = {"band": {"ds": (657, 683), "dq": (657,), "dkv": (683,)},
+                    "halo": {"ds": (1103, 1139), "dq": (1103,), "dkv": (1139,)}}
+
+
+def time_window_bwd(kind: str, tag: str, tensors, scale, w, rate, seed, prev, pairs, sdpa, backend,
+                    launches: dict, errs: dict, keep: bool) -> list:
+    """The banded (``prev`` None) or halo backward's three passes, each by
+    events around 20 calls and on the device (``device_ms``), beside its
+    plain version and its bound; the three passes together and SDPA's
+    backward with the band as its mask (``sdpa``, without dropout) the same
+    two ways, and the pair's bound. Returns the passes' records where
+    ``keep``. Bounds: the inputs read once and the outputs written once (the
+    scratch is pass A's output and pass B's input), and the products of the
+    band's ``pairs`` (pass A S and dP, pass B dq dS K, dk/dv dS^T Q and
+    P_drop^T dO; the pair all five), the larger."""
+    q, k, v, do, lse, delta = tensors
+    bh, s, dh = q.shape
+    kv, esize = k.shape[1], torch.finfo(q.dtype).bits // 8
+    seed_t = device_seed(seed)
+    hp = None if prev is None else 1
+    if prev is None:
+        ds_fn = lambda: fa.band_bwd_ds_cuda(q, k, v, do, lse, delta, scale, w, rate, seed_t)  # noqa: E731
+        dq_fn = lambda sc: fa.band_bwd_dq_cuda(sc, k, w)  # noqa: E731
+        dkv_fn = lambda sc: fa.band_bwd_dkv_cuda(sc, q, do, w)  # noqa: E731
+    else:
+        ds_fn = lambda: fa.halo_bwd_ds_cuda(q, k, v, do, lse, delta, scale, w, prev, rate, seed_t)  # noqa: E731
+        dq_fn = lambda sc: fa.halo_bwd_dq_cuda(sc, k, w, prev)  # noqa: E731
+        dkv_fn = lambda sc: fa.halo_bwd_dkv_cuda(sc, q, do, w, prev)  # noqa: E731
+    scratch = ds_fn()
+    q_bytes, kv_bytes, stat_bytes = bh * s * dh * esize, bh * kv * dh * esize, bh * s * 4
+    half_bytes = scratch[0].numel() * esize
+    passes = (
+        ("ds", ds_fn, lambda: fa.window_bwd_scratch_reference(q, k, v, do, lse, delta, scale, w, rate, seed, hp),
+         2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + 2 * half_bytes, 2),
+        ("dq", lambda: dq_fn(scratch), lambda: fa.window_bwd_dq_reference(scratch, k, w, hp),
+         half_bytes + kv_bytes + q_bytes, 1),
+        ("dkv", lambda: dkv_fn(scratch), lambda: fa.window_bwd_dkv_reference(scratch, q, do, w, hp),
+         2 * half_bytes + 2 * q_bytes + 2 * kv_bytes, 2),
+    )
+    records, line = [], f"{kind} backward {tag}:"
+    for name, fn, plain, nbytes, n_products in passes:
+        ms, dev = cuda_ms(fn, 20), device_ms(fn)
+        p_ms = cuda_ms(plain, 20)
+        b_ms, b_by = bound(nbytes, n_products * 2 * pairs * dh, q.dtype)
+        line += f" {name} {ms:.4f} ms (events), device {dev:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by});"
+        if keep:
+            lines = WINDOW_BWD_LINES[kind][name]
+            rec_name = f"{kind}_bwd_{name}"
+            records.append(record(rec_name, f"{kind}_attention.cu", f"{FLASH_PY}:{lines[0]}",
+                                  launches[rec_name], errs[rec_name], ms, p_ms, b_ms, b_by, None, device_ms=dev,
+                                  replaces_also=[f"{FLASH_PY}:{x}" for x in lines[1:]]))
+    pair = lambda: window_passes(q, k, v, do, lse, delta, scale, w, rate, seed_t, prev)  # noqa: E731
+    pair_ms, pair_dev = cuda_ms(pair, 20), device_ms(pair)
+    lib_ms, lib_dev = cuda_ms(sdpa, 20), device_ms(sdpa)
+    pb_ms, pb_by = bound(3 * q_bytes + 4 * kv_bytes + 2 * stat_bytes, 10 * pairs * dh, q.dtype)
+    print(f"[14 times] {line} the three passes {pair_ms:.4f} ms (events), device {pair_dev:.4f} ms; SDPA backward "
+          f"with the {kind} mask, without dropout ({backend}) {lib_ms:.4f} ms (events), device {lib_dev:.4f} ms; "
+          f"pair bound {pb_ms:.4f} ms ({pb_by})")
+    for r in records:  # one PyTorch call computes the whole backward: SDPA's, beside every pass
+        r.update(library_ms=lib_ms, library_device_ms=lib_dev, pair_ms=pair_ms, pair_device_ms=pair_dev,
+                 pair_bound_ms=pb_ms)
     return records
 
 
@@ -1780,30 +1918,9 @@ def time_halo(halo_launches: dict, halo_errs: dict) -> list:
                                   library_device_ms=t["sdpa_device"]))
 
         out4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask, scale=scale)
-        do4 = do.view(b, h, s, dh)
-        lib_ms = cuda_ms(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4, retain_graph=True), 20)
-        args = (q, k, v, do, lse, delta, scale, w, prev, rate, seed_t)
-        plain_args = (q, k, v, do, lse, delta, scale, w, prev, rate, seed)
-        times = {}
-        for name, fn, plain, out_bytes, n_products, line in (
-            ("halo_bwd_dq", fa.halo_bwd_dq_cuda, fa.windowed_mha_halo_bwd_dq_reference, q_bytes, 3, 1103),
-            ("halo_bwd_dkv", fa.halo_bwd_dkv_cuda, fa.windowed_mha_halo_bwd_dkv_reference, 2 * kv_bytes, 4, 1139),
-        ):
-            ms = cuda_ms(lambda: fn(*args), 20)
-            p_ms = cuda_ms(lambda: plain(*plain_args), 20)
-            # q, k_ext, v_ext, do, lse and delta read once, the outputs written once.
-            b_ms, b_by = bound(2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + out_bytes,
-                               n_products * 2 * pairs * dh, dtype)
-            times[name] = ms
-            print(f"[14 times] {name} {tag}: kernel {ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-            if case is HALO_TRAIN:
-                records.append(record(name, "halo_attention.cu", f"{FLASH_PY}:{line}",
-                                      halo_launches[name.replace("bwd_", "") + "_launches"], halo_errs[name],
-                                      ms, p_ms, b_ms, b_by, lib_ms))
-        pair_ms, pair_by = bound(3 * q_bytes + 4 * kv_bytes + 2 * stat_bytes, 10 * pairs * dh, dtype)
-        print(f"[14 times] halo backward pair {tag}: dq + dk/dv "
-              f"{times['halo_bwd_dq'] + times['halo_bwd_dkv']:.4f} ms, SDPA backward with the halo band mask, "
-              f"without dropout ({backend}) {lib_ms:.4f} ms, bound {pair_ms:.4f} ms ({pair_by})")
+        sdpa = lambda: torch.autograd.grad(out4, (q4, k4, v4), do.view(b, h, s, dh), retain_graph=True)  # noqa: E731
+        records += time_window_bwd("halo", tag, (q, k, v, do, lse, delta), scale, w, rate, seed, prev, pairs,
+                                   sdpa, backend, halo_launches, halo_errs, keep=case is HALO_TRAIN)
         del q, k, v, do, q4, k4, v4, out4
         free_cuda()
     return records
@@ -1884,9 +2001,11 @@ def main() -> None:
     phase_streaming()
     records = time_flash(fwd_launches, fwd_err, {"flash_bwd_dq": train["dq_launches"],
                                                  "flash_bwd_dkv": train["dkv_launches"]}, bwd_errs)
-    records += time_band({"band_fwd": band_fwd_launches, "band_bwd_dq": windowed["band_dq_launches"],
+    records += time_band({"band_fwd": band_fwd_launches, "band_bwd_ds": windowed["band_ds_launches"],
+                          "band_bwd_dq": windowed["band_dq_launches"],
                           "band_bwd_dkv": windowed["band_dkv_launches"]}, band_errs)
-    records += time_halo(halo_launches, halo_errs)
+    records += time_halo(dict(halo_launches, **{f"halo_bwd_{p_}": halo_launches[f"halo_{p_}_launches"]
+                                                for p_ in ("ds", "dq", "dkv")}), halo_errs)
     records += time_fused_tail(tail_launches)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))

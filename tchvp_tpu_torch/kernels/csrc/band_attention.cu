@@ -30,29 +30,37 @@
 // read from L2. fp32 runs 3xTF32, bf16 rounds P to bf16 for P.V.
 //
 // Backward (dq: _band_dq_kernel:509 at :657; dk/dv: _band_dkv_kernel:543 at
-// :683, by _win_bwd). The TPU kernels group G windows per grid step to make
-// their matrix unit's products large, and pay (G+1)/(2G) of the logits in
-// waste. Here the CUDA-core bodies of attention_bwd.cuh run with the band
-// on: each block keeps the flash geometry and only narrows its loop to the
-// pairs its tile can hold.
-//  * dq: one block per (bh, 16-row query tile, column group); its key loop
-//    runs over [max(0, (r0/w - 1)*w), min(S, (r_last/w + 1)*w)), from the
-//    window before the tile's first row to the end of its last row's
-//    window: at most 2w + 16 keys (2w when 16 divides w) instead of S.
-//  * dk/dv: one block per (bh, 8-key tile, column group); its query loop
-//    runs over the key windows' own rows and the next window's, [(c0/w)*w,
-//    min(S, (c_last/w + 2)*w)). Every gradient element is summed by one
-//    thread in one order, with no atomics, so the bits are equal on repeat.
-//  * A tile may straddle two windows (w need not divide by 16 or 8), so the
-//    spans come from the tile's first and last index and the band is masked
-//    per element. Columns start at the span's low end, never below 0, so no
-//    negative index is hashed. A ragged S needs no padding: spans stop at S.
-//  * The launchers take 1 <= w <= S; the wrapper passes min(w, S), since a
-//    window of S or more holds every pair. Then the backward runs the flash
-//    kernels' arithmetic in their order.
-// Bounds of the backward at the training shape: dq 1.41 GFLOP ~21 us, dk/dv
-// 1.88 GFLOP ~28 us on the CUDA cores, where these bodies run (PERF.md).
-#include "attention_bwd.cuh"
+// :683, by _win_bwd:632). The TPU kernels group G windows per grid step to
+// make their matrix unit's products large, and each recomputes the logits
+// and dP of its pairs. What bounds the pair on the H100: at config 2 (BH 32,
+// S 256, w 64, Dh 1152, bf16) the bytes, q, k, v, do read and dq, dk, dv
+// written once (132 MB, ~40 us); at the windowed training shape (BH 16,
+// Dh 512, fp32) the band's five products (2.35 GFLOP, ~35 us at the fp32
+// rate of the CUDA cores; the tensor cores run them as 3xTF32, three tf32
+// products each at 495 TFLOP/s). A design that recomputes S and dP once per head-dim column
+// block (the flash pair's) forms them 27 times at config 2, so the design
+// (window_bwd.cuh) forms P and dS once per (query tile, key tile) pair
+// instead, in three launches:
+//  * pass A (tchvp_band_bwd_ds): S = Q K^T and dP = dO V^T over the whole
+//    head dim for each (64-row query tile, 64-key tile of its span) on
+//    mma.sync, the band masked per element, the dropout hash once per
+//    element, P_drop and dS into a (2, BH, S, 64 span_tiles) scratch of the
+//    inputs' dtype that stays in L2 (4.2 MB at config 2 and at the training
+//    shape);
+//  * pass B (tchvp_band_bwd_dq): dQ = dS K per (query tile, 128-column
+//    block), the span's key tiles in order;
+//  * pass B (tchvp_band_bwd_dkv): dK = dS^T Q and dV = P_drop^T dO per
+//    (64-key tile, column block), the query tiles of the key tile's query
+//    span ([(c0/w)*w, min(S, (c_last/w + 2)*w))) in order, the transposed
+//    operands by ldmatrix.trans from the scratch.
+// Every gradient element is summed by one thread in one order, with no
+// atomics, so the bits are equal on repeat. Tiles may straddle windows (w
+// need not divide 64) and S may be ragged: spans come from each tile's
+// first and last index and the band is masked per element. The launchers
+// take 1 <= w <= S; the wrapper passes min(w, S), since a window of S or
+// more holds every pair. The scratch's width, the key tiles and their grid
+// come from flash_attention.py's window_bwd_plan.
+#include "window_bwd.cuh"
 #include "window_fwd.cuh"
 
 extern "C" {
@@ -75,27 +83,40 @@ int tchvp_band_fwd(const void* q, const void* k, const void* v, void* out, void*
       seed, nullptr, stream);
 }
 
-// dq over the band; the tensors as in tchvp_band_fwd, plus dout (as q) and
-// lse, delta = rowsum(dout * out): (batch_heads, seq_len) fp32.
-int tchvp_band_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* lse, const void* delta, void* dq, int batch_heads,
-                      int seq_len, int head_dim, int window, int is_bf16, float scale,
-                      float dropout_rate, unsigned int drop_threshold, const void* seed,
+// Pass A: P_drop and dS of the band into scratch: (2, batch_heads,
+// seq_len, 64 span_tiles) of the inputs' dtype, 16-byte aligned; q, k, v,
+// dout as q in tchvp_band_fwd, lse and delta = rowsum(dout * out):
+// (batch_heads, seq_len) fp32; span_tiles, key_tiles, tile_base from
+// flash_attention.py's window_bwd_plan.
+int tchvp_band_bwd_ds(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                      const void* delta, void* scratch, int batch_heads, int seq_len, int head_dim,
+                      int window, int span_tiles, int key_tiles, int tile_base, int is_bf16,
+                      float scale, float dropout_rate, unsigned int drop_threshold, const void* seed,
                       void* stream) {
-  return tchvp::run_bwd<tchvp::kBand>(0, q, k, v, dout, lse, delta, dq, nullptr, nullptr,
-      batch_heads, seq_len, head_dim, window, is_bf16, scale, dropout_rate, drop_threshold,
-      seed, stream);
+  const tchvp::WindowBwdParams a{q, k, v, dout, lse, delta, scratch, nullptr, nullptr, batch_heads,
+      seq_len, head_dim, window, span_tiles, key_tiles, tile_base, scale, dropout_rate,
+      drop_threshold, static_cast<const int*>(seed), nullptr, 0, 0, static_cast<cudaStream_t>(stream)};
+  return tchvp::run_window_bwd<tchvp::kBand>(0, a, is_bf16);
 }
 
-// As tchvp_band_bwd_dq, writing dk and dv (same shape and dtype as k, v).
-int tchvp_band_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* lse, const void* delta, void* dk, void* dv,
-                       int batch_heads, int seq_len, int head_dim, int window, int is_bf16,
-                       float scale, float dropout_rate, unsigned int drop_threshold,
-                       const void* seed, void* stream) {
-  return tchvp::run_bwd<tchvp::kBand>(1, q, k, v, dout, lse, delta, nullptr, dk, dv,
-      batch_heads, seq_len, head_dim, window, is_bf16, scale, dropout_rate, drop_threshold,
-      seed, stream);
+// Pass B: dq (as q) = dS k from pass A's scratch.
+int tchvp_band_bwd_dq(const void* scratch, const void* k, void* dq, int batch_heads, int seq_len,
+                      int head_dim, int window, int span_tiles, int key_tiles, int tile_base,
+                      int is_bf16, void* stream) {
+  const tchvp::WindowBwdParams a{nullptr, k, nullptr, nullptr, nullptr, nullptr, const_cast<void*>(scratch),
+      dq, nullptr, batch_heads, seq_len, head_dim, window, span_tiles, key_tiles, tile_base, 0.f, 0.f, 0u,
+      nullptr, nullptr, 0, 0, static_cast<cudaStream_t>(stream)};
+  return tchvp::run_window_bwd<tchvp::kBand>(1, a, is_bf16);
+}
+
+// Pass B: dk = dS^T q and dv = P_drop^T dout (as k, v) from pass A's scratch.
+int tchvp_band_bwd_dkv(const void* scratch, const void* q, const void* dout, void* dk, void* dv,
+                       int batch_heads, int seq_len, int head_dim, int window, int span_tiles,
+                       int key_tiles, int tile_base, int is_bf16, void* stream) {
+  const tchvp::WindowBwdParams a{q, nullptr, nullptr, dout, nullptr, nullptr, const_cast<void*>(scratch),
+      dk, dv, batch_heads, seq_len, head_dim, window, span_tiles, key_tiles, tile_base, 0.f, 0.f, 0u,
+      nullptr, nullptr, 0, 0, static_cast<cudaStream_t>(stream)};
+  return tchvp::run_window_bwd<tchvp::kBand>(2, a, is_bf16);
 }
 
 const char* tchvp_cuda_error_string(int code) {

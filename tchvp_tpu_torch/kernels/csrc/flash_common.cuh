@@ -1,6 +1,6 @@
 // Helpers shared by the attention kernels (flash_fwd.cu, flash_bwd.cu,
-// window_fwd.cuh and attention_bwd.cuh, built as flash_fwd.cu, flash_bwd.cu,
-// band_attention.cu and halo_attention.cu).
+// window_fwd.cuh and window_bwd.cuh, built as flash_fwd.cu, flash_bwd.cu,
+// band_attention.cu and halo_attention.cu) and fused_tail.cu.
 //
 // The attention-weight dropout mask lives here once, so the forwards and the
 // backward kernels cannot drift: each keeps element (row, col) of the
@@ -17,7 +17,6 @@
 namespace tchvp {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernels' NEG_INF
-constexpr int kMaxChunks = 5;      // accumulator chunks of 256 columns per column group
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -29,12 +28,6 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // _squirrel3 of flash_attention.py: uint32 arithmetic wraps as on the TPU.
@@ -69,51 +62,6 @@ __device__ __forceinline__ bool keep_hashed(uint32_t row_h, int col, uint32_t th
 __device__ __forceinline__ bool keep_element(uint32_t base, int row, int col,
                                              uint32_t threshold) {
   return keep_hashed(row_hash(base, row), col, threshold);
-}
-
-// Stages rows [row0, row0 + rows) of a (S, Dh) matrix as fp32, zero past S.
-template <int Threads, typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, int row0, int rows,
-                                           int seq_len, int head_dim) {
-  for (int i = threadIdx.x; i < rows * head_dim; i += Threads) {
-    const int r = i / head_dim;
-    const int d = i - r * head_dim;
-    dst[i] = (row0 + r < seq_len) ? to_f32(src[(size_t)(row0 + r) * head_dim + d]) : 0.f;
-  }
-}
-
-// The same rows, head-dim columns [col0, col0 + cols) only, zero past Dh,
-// as a (rows, cols) tile.
-template <int Threads, typename T>
-__device__ __forceinline__ void stage_cols(float* dst, const T* src, int row0, int rows,
-                                           int seq_len, int head_dim, int col0, int cols) {
-  for (int i = threadIdx.x; i < rows * cols; i += Threads) {
-    const int r = i / cols;
-    const int d = col0 + i - r * cols;
-    dst[i] = (row0 + r < seq_len && d < head_dim)
-                 ? to_f32(src[(size_t)(row0 + r) * head_dim + d]) : 0.f;
-  }
-}
-
-// How the CUDA-core bodies (attention_bwd.cuh) cover a
-// head dim: `groups` column groups (blockIdx.z) of `chunks` <= kMaxChunks
-// accumulator chunks of `threads` columns each, and the staged q (and do)
-// tiles hold `q_cols` columns at a time: all of Dh when one group covers
-// it, else one group's width, so shared memory and registers stay bounded
-// whatever Dh is. At Dh <= kMaxChunks * threads this is one group staged
-// whole, and the bodies take their kGroups = false instantiation, free of
-// the column-group code. With several groups, chunks >= 3
-// (total >= 6 chunks of `threads`, split into ceil(total / 5) >= 2 groups).
-struct ColumnGroups {
-  int chunks, groups, q_cols;
-};
-
-inline ColumnGroups column_groups(int head_dim, int threads) {
-  const int total = (head_dim + threads - 1) / threads;
-  const int least = (total + kMaxChunks - 1) / kMaxChunks;
-  const int chunks = (total + least - 1) / least;
-  const int groups = (total + chunks - 1) / chunks;
-  return {chunks, groups, groups == 1 ? head_dim : chunks * threads};
 }
 
 // The masks of the window kernels' two modes (the flash kernels see every

@@ -37,22 +37,23 @@
 // nothing.
 //
 // Backward (dq: _halo_dq_kernel:947 at :1103; dk/dv: _halo_dkv_kernel:985 at
-// :1139, by _win_halo_bwd): the CUDA-core bodies of attention_bwd.cuh in
-// their kHalo mode, the flash geometry narrowed to the pairs each tile can
-// hold, the band masked per element.
-//  * dq: one block per (bh, 16-row query tile, column group); its key loop
-//    runs over the tile's k_ext span.
-//  * dk/dv: one block per (bh, 8-key tile of k_ext, column group); its query
-//    loop runs over the local rows [max(0, (c0/w - 1)*w), min(S, (c_last/w
-//    + 1)*w)), none for a tile of the masked halo. Every gradient element
-//    is summed by one thread in one order, with no atomics, so the bits are
-//    equal on repeat.
-//  * Tiles may straddle windows (w need not divide by 16 or 8) and S need
-//    not be a multiple of 16: spans come from each tile's first and last
-//    index, and rows and columns stop at S and S + w.
-// Bounds of the backward at the training shard: dq 0.81 GFLOP ~12 us, dk/dv
-// 1.07 GFLOP ~16 us on the CUDA cores, where these bodies run (PERF.md).
-#include "attention_bwd.cuh"
+// :1139, by _win_halo_bwd:1078). What bounds the pair on the H100: the
+// config-2 shard (BH 32, S 128, k_ext 192, Dh 1152, bf16) by bytes (~25 us),
+// the windowed-training shard (BH 16, Dh 512, fp32) by the halo band's five
+// products (~20 us at the CUDA cores' fp32 rate). The design is
+// window_bwd.cuh's, as the banded backward's (band_attention.cu), in its
+// kHalo mode: pass A (tchvp_halo_bwd_ds) forms P_drop and dS once per
+// (64-row query tile, 64-key tile of its k_ext span) on mma.sync into an
+// L2-resident scratch; pass B forms dQ = dS K_ext (tchvp_halo_bwd_dq) and
+// dK_ext = dS^T Q, dV_ext = P_drop^T dO over all S + w rows of k_ext
+// (tchvp_halo_bwd_dkv), whose query span of local rows is [max(0, (c0/w -
+// 1)*w), min(S, (c_last/w + 1)*w)), none for a tile of the masked halo
+// window. Key tiles start at k_ext column w + 64 j (window_bwd.cuh), so
+// with has_prev 0 the halo backward walks the band's tiles on the local
+// sequence in the band's order and equals it bit for bit. Every gradient
+// element is summed by one thread in one order, with no atomics, so the bits
+// are equal on repeat.
+#include "window_bwd.cuh"
 #include "window_fwd.cuh"
 
 extern "C" {
@@ -77,28 +78,43 @@ int tchvp_halo_fwd(const void* q, const void* k_ext, const void* v_ext, void* ou
       drop_threshold, seed, has_prev, stream);
 }
 
-// dq; the tensors as in tchvp_halo_fwd, plus dout (as q) and lse, delta =
-// rowsum(dout * out): (batch_heads, seq_len) fp32.
-int tchvp_halo_bwd_dq(const void* q, const void* k_ext, const void* v_ext, const void* dout,
-                      const void* lse, const void* delta, void* dq, int batch_heads,
-                      int seq_len, int head_dim, int window, int is_bf16, float scale,
-                      float dropout_rate, unsigned int drop_threshold, const void* seed,
-                      const void* has_prev, void* stream) {
-  return tchvp::run_bwd<tchvp::kHalo>(0, q, k_ext, v_ext, dout, lse, delta, dq, nullptr,
-      nullptr, batch_heads, seq_len, head_dim, window, is_bf16, scale, dropout_rate,
-      drop_threshold, seed, stream, has_prev);
+// Pass A: P_drop and dS of the halo band into scratch: (2, batch_heads,
+// seq_len, 64 span_tiles) of the inputs' dtype, 16-byte aligned; q, k_ext,
+// v_ext, dout as in tchvp_halo_fwd, lse and delta = rowsum(dout * out):
+// (batch_heads, seq_len) fp32; span_tiles, key_tiles, tile_base from
+// flash_attention.py's window_bwd_plan; has_prev as in tchvp_halo_fwd.
+int tchvp_halo_bwd_ds(const void* q, const void* k_ext, const void* v_ext, const void* dout,
+                      const void* lse, const void* delta, void* scratch, int batch_heads, int seq_len,
+                      int head_dim, int window, int span_tiles, int key_tiles, int tile_base,
+                      int is_bf16, float scale, float dropout_rate, unsigned int drop_threshold,
+                      const void* seed, const void* has_prev, void* stream) {
+  const tchvp::WindowBwdParams a{q, k_ext, v_ext, dout, lse, delta, scratch, nullptr, nullptr,
+      batch_heads, seq_len, head_dim, window, span_tiles, key_tiles, tile_base, scale, dropout_rate,
+      drop_threshold, static_cast<const int*>(seed), static_cast<const int*>(has_prev), 0, 0,
+      static_cast<cudaStream_t>(stream)};
+  return tchvp::run_window_bwd<tchvp::kHalo>(0, a, is_bf16);
 }
 
-// As tchvp_halo_bwd_dq, writing dk_ext and dv_ext (seq_len + window rows,
-// the dtype of k_ext and v_ext), the halo window's rows included.
-int tchvp_halo_bwd_dkv(const void* q, const void* k_ext, const void* v_ext, const void* dout,
-                       const void* lse, const void* delta, void* dk_ext, void* dv_ext,
-                       int batch_heads, int seq_len, int head_dim, int window, int is_bf16,
-                       float scale, float dropout_rate, unsigned int drop_threshold,
-                       const void* seed, const void* has_prev, void* stream) {
-  return tchvp::run_bwd<tchvp::kHalo>(1, q, k_ext, v_ext, dout, lse, delta, nullptr, dk_ext,
-      dv_ext, batch_heads, seq_len, head_dim, window, is_bf16, scale, dropout_rate,
-      drop_threshold, seed, stream, has_prev);
+// Pass B: dq (as q) = dS k_ext from pass A's scratch.
+int tchvp_halo_bwd_dq(const void* scratch, const void* k_ext, void* dq, int batch_heads, int seq_len,
+                      int head_dim, int window, int span_tiles, int key_tiles, int tile_base,
+                      int is_bf16, const void* has_prev, void* stream) {
+  const tchvp::WindowBwdParams a{nullptr, k_ext, nullptr, nullptr, nullptr, nullptr,
+      const_cast<void*>(scratch), dq, nullptr, batch_heads, seq_len, head_dim, window, span_tiles,
+      key_tiles, tile_base, 0.f, 0.f, 0u, nullptr, static_cast<const int*>(has_prev), 0, 0,
+      static_cast<cudaStream_t>(stream)};
+  return tchvp::run_window_bwd<tchvp::kHalo>(1, a, is_bf16);
+}
+
+// Pass B: dk_ext = dS^T q and dv_ext = P_drop^T dout (seq_len + window rows,
+// the halo window's included) from pass A's scratch.
+int tchvp_halo_bwd_dkv(const void* scratch, const void* q, const void* dout, void* dk_ext, void* dv_ext,
+                       int batch_heads, int seq_len, int head_dim, int window, int span_tiles,
+                       int key_tiles, int tile_base, int is_bf16, const void* has_prev, void* stream) {
+  const tchvp::WindowBwdParams a{q, nullptr, nullptr, dout, nullptr, nullptr, const_cast<void*>(scratch),
+      dk_ext, dv_ext, batch_heads, seq_len, head_dim, window, span_tiles, key_tiles, tile_base, 0.f, 0.f,
+      0u, nullptr, static_cast<const int*>(has_prev), 0, 0, static_cast<cudaStream_t>(stream)};
+  return tchvp::run_window_bwd<tchvp::kHalo>(2, a, is_bf16);
 }
 
 const char* tchvp_cuda_error_string(int code) {

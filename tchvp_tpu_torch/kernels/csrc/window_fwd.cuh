@@ -20,7 +20,7 @@
 //    logits (from the L2-resident scratch) and V column block into shared
 //    memory; P = exp(s - m) is formed in registers straight in the mma
 //    A-fragment layout (dropout from the same squirrel3 keep_element at the
-//    same (row, hash_col) as the CUDA-core bodies), the undropped sum l
+//    same (row, hash_col) as the backward's pass A, window_bwd.cuh), the undropped sum l
 //    added as it goes, and multiplied by V. out = acc / l leaves through
 //    shared memory in 16-byte row pieces, not as 2-byte stores straight
 //    from the fragments; lse = m + log(l) from the blocks of column block

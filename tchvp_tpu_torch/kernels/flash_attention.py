@@ -16,8 +16,10 @@ those of ``csrc/halo_attention.cu``, one shard of the band under sequence
 parallelism, whose k and v carry the left neighbour's last window in front.
 The banded and halo forwards run on the tensor cores in two passes over
 an fp32 logits scratch (``csrc/window_fwd.cuh``) whose width and key-tile
-grid :func:`window_plan` gives; their backward kernels keep CUDA-core bodies
-(``csrc/attention_bwd.cuh``), which take any head dim in column groups.
+grid :func:`window_plan` gives; their backward (``csrc/window_bwd.cuh``)
+forms P_drop and dS once per (query tile, key tile) pair into a scratch of
+the inputs' dtype (pass A), then dq and dk/dv from it (pass B), on the
+tensor cores too, its tiles and scratch as :func:`window_bwd_plan` says.
 All are built at first use by :mod:`.build`. On a CPU tensor they run
 :func:`mha_reference`, :func:`mha_bwd_reference` and their windowed and halo
 counterparts, the dense fp32 versions of the same functions (the band as a
@@ -52,11 +54,13 @@ launches = 0  # flash_fwd
 dq_launches = 0  # flash_bwd_dq
 dkv_launches = 0  # flash_bwd_dkv
 band_fwd_launches = 0  # band_attention: forward
-band_dq_launches = 0  # band_attention: dq
-band_dkv_launches = 0  # band_attention: dk/dv
+band_ds_launches = 0  # band_attention: backward pass A (P_drop and dS)
+band_dq_launches = 0  # band_attention: backward pass B, dq
+band_dkv_launches = 0  # band_attention: backward pass B, dk/dv
 halo_fwd_launches = 0  # halo_attention: forward
-halo_dq_launches = 0  # halo_attention: dq
-halo_dkv_launches = 0  # halo_attention: dk/dv
+halo_ds_launches = 0  # halo_attention: backward pass A
+halo_dq_launches = 0  # halo_attention: backward pass B, dq
+halo_dkv_launches = 0  # halo_attention: backward pass B, dk/dv
 
 Seed = Union[int, torch.Tensor, None]
 
@@ -168,6 +172,65 @@ def window_plan(seq_len: int, window: int, halo: bool) -> WindowPlan:
         for q0 in range(0, seq_len, WIN_BLOCK_Q)))
     cols = widest + -(-widest // WIN_BLOCK_K)
     return WindowPlan(widest, -(-cols // 4) * 4)
+
+
+def window_tile_base(window: int, halo: bool) -> int:
+    """Where the backward's grid of 64-key tiles starts (``csrc/window_bwd.cuh``):
+    0 for the band; for the halo the last start <= 0 of the grid through
+    k_ext column w, so that halo tiles lie on the band's tiles of the local
+    sequence."""
+    r = window % WIN_BLOCK_K if halo else 0
+    return r - WIN_BLOCK_K if r else 0
+
+
+def window_tile_span(q0: int, seq_len: int, window: int, halo: bool,
+                     no_prev: bool = False) -> Tuple[int, int]:
+    """(base, n_tiles): the first key tile and the number of key tiles that
+    cover the key span of the 64-row query tile at ``q0``, the kernels'
+    ``window_tile_span``. Scratch column c of the tile's rows is key base + c."""
+    lo, hi = window_key_span(q0, min(seq_len, q0 + WIN_BLOCK_Q) - 1, seq_len, window, halo, no_prev)
+    tb = window_tile_base(window, halo)
+    base = tb + (lo - tb) // WIN_BLOCK_K * WIN_BLOCK_K
+    return base, -(-(hi - base) // WIN_BLOCK_K)
+
+
+def window_query_span(first: int, last: int, seq_len: int, window: int, halo: bool,
+                      no_prev: bool = False) -> Tuple[int, int]:
+    """[lo, hi): the query rows that may see keys first..last (last < the
+    rows of k), ``csrc/flash_common.cuh``'s ``query_span``. Band: the first
+    key's window through the one after the last key's. Halo: the window
+    before the first k_ext key's through the last key's own; none for keys
+    of the masked halo window."""
+    if halo:
+        lo = max(0, (first // window - 1) * window)
+        return (lo, lo) if no_prev and last < window else (lo, min(seq_len, (last // window + 1) * window))
+    return (first // window) * window, min(seq_len, (last // window + 2) * window)
+
+
+class WindowBwdPlan(NamedTuple):
+    """Tiles and scratch of the tensor-core banded or halo backward, which
+    the C launchers take as they are."""
+
+    span_tiles: int  # key tiles of the widest query tile's span: pass A's grid.y
+    key_tiles: int   # 64-key tiles of k (S + w rows for the halo): the dk/dv pass's grid.x
+    tile_base: int   # the first key tile's start (:func:`window_tile_base`)
+
+    @property
+    def scratch_cols(self) -> int:
+        """Row width of each half (dS, P_drop) of the (2, BH, S, cols) scratch."""
+        return self.span_tiles * WIN_BLOCK_K
+
+
+@functools.lru_cache(maxsize=256)
+def window_bwd_plan(seq_len: int, window: int, halo: bool) -> WindowBwdPlan:
+    """The one rule for the banded (``halo`` False, 1 <= window <= S) and
+    halo backwards' key tiles and scratch: the widest span in key tiles
+    (has_prev 1 for the halo, which holds has_prev 0's), the key tiles of
+    k and where they start."""
+    span = max(window_tile_span(q0, seq_len, window, halo)[1] for q0 in range(0, seq_len, WIN_BLOCK_Q))
+    tb = window_tile_base(window, halo)
+    keys = seq_len + window if halo else seq_len
+    return WindowBwdPlan(span, -(-(keys - tb) // WIN_BLOCK_K), tb)
 
 
 def _logits(q: torch.Tensor, k: torch.Tensor, scale: float,
@@ -338,6 +401,80 @@ def windowed_mha_halo_bwd_dkv_reference(
                                  band, col0=-window)
 
 
+def _no_prev(has_prev) -> bool:
+    return has_prev is not None and int(torch.as_tensor(has_prev).reshape(())) == 0
+
+
+def _scratch_tiles(s: int, keys: int, window: int, has_prev):
+    """(rows, key columns, scratch columns) of each 64-row query tile's key
+    tiles (:func:`window_tile_span`): scratch column c is key base + c."""
+    halo = has_prev is not None
+    for q0 in range(0, s, WIN_BLOCK_Q):
+        base, n = window_tile_span(q0, s, window, halo, _no_prev(has_prev))
+        lo, hi = max(base, 0), min(base + n * WIN_BLOCK_K, keys)
+        yield slice(q0, q0 + WIN_BLOCK_Q), slice(lo, hi), slice(lo - base, hi - base)
+
+
+def _window_geometry(s: int, window: int, has_prev) -> Tuple[int, WindowBwdPlan]:
+    """The backward's window (the band takes min(w, S)) and plan."""
+    halo = has_prev is not None
+    window = int(window) if halo else min(int(window), s)
+    return window, window_bwd_plan(s, window, halo)
+
+
+def window_bwd_scratch_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, scale: float, window: int,
+    dropout_rate: float = 0.0, seed: Seed = 0, has_prev=None,
+) -> torch.Tensor:
+    """Plain version of the backward's pass A (banded, or halo where
+    ``has_prev`` is given): (2, BH, S, cols) fp32, dS then P_drop of each
+    64-row query tile's key tiles (:func:`window_tile_span`), 0 outside the
+    band and past the span, as the kernel writes them."""
+    bh, s, _ = q.shape
+    window, plan = _window_geometry(s, window, has_prev)
+    if has_prev is None:
+        band, col0 = band_mask(s, window, q.device), 0
+    else:
+        band, col0 = halo_band_mask(s, window, has_prev, q.device), -window
+    ds, p_drop = _grad_weights(q, k, v, do, lse, delta, scale, dropout_rate, seed, band, col0)
+    out = torch.zeros((2, bh, s, plan.scratch_cols), dtype=torch.float32, device=q.device)
+    for rows, keys, cols in _scratch_tiles(s, k.shape[1], window, has_prev):
+        out[0, :, rows, cols] = ds[:, rows, keys]
+        out[1, :, rows, cols] = p_drop[:, rows, keys]
+    return out
+
+
+def window_bwd_unpack(scratch: torch.Tensor, kv_len: int, window: int,
+                      has_prev=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dS, P_drop), (BH, S, kv_len) fp32, from a scratch of pass A."""
+    _, bh, s, _ = scratch.shape
+    window, _ = _window_geometry(s, window, has_prev)
+    dense = torch.zeros((2, bh, s, kv_len), dtype=torch.float32, device=scratch.device)
+    for rows, keys, cols in _scratch_tiles(s, kv_len, window, has_prev):
+        dense[:, :, rows, keys] = scratch[:, :, rows, cols].float()
+    return dense[0], dense[1]
+
+
+def window_bwd_dq_reference(scratch: torch.Tensor, k: torch.Tensor, window: int,
+                            has_prev=None) -> torch.Tensor:
+    """Plain version of pass B's dq: dS K from a scratch, in k's dtype."""
+    ds, _ = window_bwd_unpack(scratch, k.shape[1], window, has_prev)
+    return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(k.dtype)
+
+
+def window_bwd_dkv_reference(scratch: torch.Tensor, q: torch.Tensor, do: torch.Tensor, window: int,
+                             has_prev=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of pass B's dk/dv: (dS^T Q, P_drop^T dO) from a scratch,
+    in q's dtype, of S rows (the band) or S + w (the halo's k_ext)."""
+    s = q.shape[1]
+    kv_len = s + int(window) if has_prev is not None else s
+    ds, p_drop = window_bwd_unpack(scratch, kv_len, window, has_prev)
+    dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
+    dv = torch.einsum("bqk,bqd->bkd", p_drop, do.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
 def _signature(pointers: int, ints: int, halo: bool = False, strides: int = 0) -> list:
     """A C launcher's argument types: tensor pointers, then the ints (BH, S,
     Dh[, window][, span_cols, scratch_cols]; the flash kernels' B, H, S, Dh,
@@ -348,16 +485,25 @@ def _signature(pointers: int, ints: int, halo: bool = False, strides: int = 0) -
     return [p] * pointers + dims + [ctypes.c_float, ctypes.c_float, ctypes.c_uint32, p] + [p] * halo + [p]
 
 
+def _pass_b_signature(pointers: int, halo: bool = False) -> list:
+    """The window backward's pass-B launchers: the scratch and tensor
+    pointers, BH, S, Dh, window, span_tiles, key_tiles, tile_base, is_bf16[,
+    has_prev], stream."""
+    p = ctypes.c_void_p
+    return [p] * pointers + [ctypes.c_int] * 8 + [p] * halo + [p]
+
+
 # Each library's C launchers and their argument types.
 _LAUNCHERS = {
     "flash_fwd": {"tchvp_flash_fwd": _signature(5, 5, strides=12)},
     "flash_bwd": {"tchvp_flash_bwd_dq": _signature(7, 5, strides=15),
                   "tchvp_flash_bwd_dkv": _signature(8, 5, strides=18)},
-    "band_attention": {"tchvp_band_fwd": _signature(6, 7),
-                       "tchvp_band_bwd_dq": _signature(7, 5), "tchvp_band_bwd_dkv": _signature(8, 5)},
+    "band_attention": {"tchvp_band_fwd": _signature(6, 7), "tchvp_band_bwd_ds": _signature(7, 8),
+                       "tchvp_band_bwd_dq": _pass_b_signature(3), "tchvp_band_bwd_dkv": _pass_b_signature(5)},
     "halo_attention": {"tchvp_halo_fwd": _signature(6, 7, halo=True),
-                       "tchvp_halo_bwd_dq": _signature(7, 5, halo=True),
-                       "tchvp_halo_bwd_dkv": _signature(8, 5, halo=True)},
+                       "tchvp_halo_bwd_ds": _signature(7, 8, halo=True),
+                       "tchvp_halo_bwd_dq": _pass_b_signature(3, halo=True),
+                       "tchvp_halo_bwd_dkv": _pass_b_signature(5, halo=True)},
 }
 
 
@@ -406,16 +552,6 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.tchvp_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {err})")
-
-
-def _scalars(q: torch.Tensor, window: int, scale: float, dropout_rate: float,
-             seed_ptr: int) -> tuple:
-    """The banded backward launchers' arguments after the pointers, the
-    stream aside. They take a window of 1..S; one of S or more holds every
-    pair, as one of S does."""
-    bh, s, dh = q.shape
-    return (bh, s, dh, min(int(window), s), int(q.dtype == torch.bfloat16), float(scale),
-            float(dropout_rate), _drop_threshold(dropout_rate), seed_ptr)
 
 
 def _check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -555,27 +691,6 @@ def _win_fwd(
     return windowed_mha_reference(q, k, v, scale, window, dropout_rate, seed)
 
 
-def _launch_band_bwd(which: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, outs,
-                     scale: float, dropout_rate: float, seed: Seed, window: int) -> None:
-    """Launch the ``which`` kernel ("dq" or "dkv") of
-    ``csrc/band_attention.cu`` into ``outs`` on the current stream."""
-    _check_inputs(q, window, q=q, k=k, v=v, do=do)
-    bh, s, _ = q.shape
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.shape != (bh, s) or t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous fp32 (BH, S) on {q.device}")
-    lib = _kernel_lib("band_attention")
-    launch = getattr(lib, f"tchvp_band_bwd_{which}")
-    seed_ptr, _keep_alive = _seed_arg(seed, dropout_rate, q.device)
-    with torch.cuda.device(q.device):
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                     delta.data_ptr(), *(t.data_ptr() for t in outs),
-                     *_scalars(q, window, scale, dropout_rate, seed_ptr),
-                     torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, err, f"band_attention {which}")
-
-
 def _check_flash_bwd_inputs(q, k, v, do, lse, delta) -> None:
     """:func:`_check_flash_inputs` for q, k, v and do; lse and delta
     contiguous fp32 (B * H, S) on q's device."""
@@ -652,25 +767,125 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, dropout_rate: floa
     return dk, dv
 
 
-def band_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, window: int,
-                     dropout_rate: float, seed: Seed) -> torch.Tensor:
-    """dq of the banded dq kernel (each query tile walks its key span)."""
+def _check_cuda(t: torch.Tensor, what: str) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{what} launches a CUDA kernel and takes CUDA tensors, got {t.device}; "
+                         "the plain versions take the CPU's")
+
+
+def _check_stats(q: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor) -> None:
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:2] or t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous fp32 (BH, S) on {q.device}")
+
+
+def _check_scratch(scratch: torch.Tensor, like: torch.Tensor, bh: int, s: int, plan: WindowBwdPlan) -> None:
+    want = (2, bh, s, plan.scratch_cols)
+    if (tuple(scratch.shape) != want or scratch.dtype != like.dtype or scratch.device != like.device
+            or not scratch.is_contiguous()):
+        raise ValueError(f"scratch: {tuple(scratch.shape)} {scratch.dtype} {scratch.device}; pass B takes "
+                         f"pass A's contiguous {want} {like.dtype} on {like.device}")
+
+
+def _launch_window_bwd(fn: str, q_like: torch.Tensor, pointers: tuple, ints: tuple, extra: tuple,
+                       has_prev) -> None:
+    """Launch ``fn`` of ``csrc/band_attention.cu`` (``has_prev`` None) or
+    ``csrc/halo_attention.cu`` on the current stream: the pointers, the ints,
+    then ``extra`` (pass A's scale, rate, threshold, seed)[, has_prev],
+    stream."""
+    name = "band_attention" if has_prev is None else "halo_attention"
+    lib = _kernel_lib(name)
+    prev = () if has_prev is None else (_has_prev_arg(has_prev, q_like.device),)
+    with torch.cuda.device(q_like.device):
+        err = getattr(lib, fn)(*pointers, *ints, *extra, *(t.data_ptr() for t in prev),
+                               _cuda_stream(q_like.device))
+    _raise_on(lib, err, fn)
+
+
+def _window_ds(q, k, v, do, lse, delta, scale: float, window: int, dropout_rate: float, seed: Seed,
+               has_prev) -> torch.Tensor:
+    """Pass A of the banded or halo backward into a new scratch; inputs
+    checked by the caller."""
+    bh, s, dh = q.shape
+    window, plan = _window_geometry(s, window, has_prev)
+    scratch = torch.empty((2, bh, s, plan.scratch_cols), dtype=q.dtype, device=q.device)
+    seed_ptr, _keep_seed = _seed_arg(seed, dropout_rate, q.device)
+    fn = "tchvp_band_bwd_ds" if has_prev is None else "tchvp_halo_bwd_ds"
+    _launch_window_bwd(fn, q, tuple(t.data_ptr() for t in (q, k, v, do, lse, delta, scratch)),
+                       (bh, s, dh, window, *plan, int(q.dtype == torch.bfloat16)),
+                       (float(scale), float(dropout_rate), _drop_threshold(dropout_rate), seed_ptr), has_prev)
+    return scratch
+
+
+def _window_dq(scratch: torch.Tensor, k: torch.Tensor, window: int, has_prev) -> torch.Tensor:
+    """Pass B's dq from ``scratch``; k (BH, S or S + w, Dh)."""
+    _, bh, s, _ = scratch.shape
+    window, plan = _window_geometry(s, window, has_prev)
+    dh = k.shape[-1]
+    _check_inputs(k, window, k=k)
+    if k.shape != (bh, s + (window if has_prev is not None else 0), dh):
+        raise ValueError(f"k: {tuple(k.shape)} does not match a scratch of (BH, S) = ({bh}, {s})")
+    _check_scratch(scratch, k, bh, s, plan)
+    _check_cuda(k, "the dq pass")
+    dq = k.new_empty((bh, s, dh))
+    fn = "tchvp_band_bwd_dq" if has_prev is None else "tchvp_halo_bwd_dq"
+    _launch_window_bwd(fn, k, (scratch.data_ptr(), k.data_ptr(), dq.data_ptr()),
+                       (bh, s, dh, window, *plan, int(k.dtype == torch.bfloat16)), (), has_prev)
+    return dq
+
+
+def _window_dkv(scratch: torch.Tensor, q: torch.Tensor, do: torch.Tensor, window: int,
+                has_prev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass B's dk and dv from ``scratch``; q, do (BH, S, Dh)."""
+    _, bh, s, _ = scratch.shape
+    window, plan = _window_geometry(s, window, has_prev)
+    _check_inputs(q, window, q=q, do=do)
+    dh = q.shape[-1]
+    if q.shape != (bh, s, dh):
+        raise ValueError(f"q: {tuple(q.shape)} does not match a scratch of (BH, S) = ({bh}, {s})")
+    _check_scratch(scratch, q, bh, s, plan)
+    _check_cuda(q, "the dk/dv pass")
+    kv_len = s + window if has_prev is not None else s
+    dk, dv = q.new_empty((bh, kv_len, dh)), q.new_empty((bh, kv_len, dh))
+    fn = "tchvp_band_bwd_dkv" if has_prev is None else "tchvp_halo_bwd_dkv"
+    _launch_window_bwd(fn, q, tuple(t.data_ptr() for t in (scratch, q, do, dk, dv)),
+                       (bh, s, dh, window, *plan, int(q.dtype == torch.bfloat16)), (), has_prev)
+    return dk, dv
+
+
+def band_bwd_ds_cuda(q, k, v, do, lse, delta, scale: float, window: int, dropout_rate: float,
+                     seed: Seed) -> torch.Tensor:
+    """Pass A of the banded backward (grid: 64-row query tile x key tile of
+    its span x batch-head): dS and P_drop into a (2, BH, S, cols) scratch of
+    q's dtype (:func:`window_bwd_plan`)."""
+    global band_ds_launches
+    _check_inputs(q, window, q=q, k=k, v=v, do=do)
+    _check_stats(q, lse, delta)
+    _check_cuda(q, "the banded backward")
+    scratch = _window_ds(q, k, v, do, lse, delta, scale, window, dropout_rate, seed, None)
+    band_ds_launches += 1
+    return scratch
+
+
+def band_bwd_dq_cuda(scratch: torch.Tensor, k: torch.Tensor, window: int) -> torch.Tensor:
+    """dq of the banded backward's pass B from pass A's scratch (grid: 64-row
+    query tile x head-dim column block x batch-head, each block walking its
+    span's key tiles)."""
     global band_dq_launches
-    dq = torch.empty_like(q)
-    _launch_band_bwd("dq", q, k, v, do, lse, delta, (dq,), scale, dropout_rate, seed, window)
+    dq = _window_dq(scratch, k, window, None)
     band_dq_launches += 1
     return dq
 
 
-def band_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, window: int,
-                      dropout_rate: float, seed: Seed) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) of the banded dk/dv kernel (each 8-key tile walks the query
-    rows of its window and the next)."""
+def band_bwd_dkv_cuda(scratch: torch.Tensor, q: torch.Tensor, do: torch.Tensor,
+                      window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of the banded backward's pass B (grid: 64-key tile x column
+    block x batch-head, each block walking the query tiles of its window and
+    the next)."""
     global band_dkv_launches
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch_band_bwd("dkv", q, k, v, do, lse, delta, (dk, dv), scale, dropout_rate, seed, window)
+    result = _window_dkv(scratch, q, do, window, None)
     band_dkv_launches += 1
-    return dk, dv
+    return result
 
 
 def _check_halo(q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Tensor, window: int,
@@ -694,22 +909,6 @@ def _has_prev_arg(has_prev, device: torch.device) -> torch.Tensor:
     return torch.full((1,), int(has_prev), dtype=torch.int32, device=device)
 
 
-def _launch_halo(launch_name: str, q: torch.Tensor, pointers, window: int, has_prev,
-                 scale: float, dropout_rate: float, seed: Seed) -> None:
-    """Launch ``csrc/halo_attention.cu``'s ``launch_name`` on the current
-    stream with the tensors' ``pointers`` in front."""
-    lib = _kernel_lib("halo_attention")
-    bh, s, dh = q.shape
-    seed_ptr, _keep_seed = _seed_arg(seed, dropout_rate, q.device)
-    prev = _has_prev_arg(has_prev, q.device)
-    with torch.cuda.device(q.device):
-        err = getattr(lib, launch_name)(
-            *pointers, bh, s, dh, int(window), int(q.dtype == torch.bfloat16), float(scale),
-            float(dropout_rate), _drop_threshold(dropout_rate), seed_ptr, prev.data_ptr(),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, err, launch_name)
-
-
 def halo_fwd_cuda(
     q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Tensor, scale: float, window: int,
     has_prev, dropout_rate: float, seed: Seed,
@@ -723,37 +922,37 @@ def halo_fwd_cuda(
     return result
 
 
-def _halo_bwd_pointers(q, k_ext, v_ext, do, lse, delta, window: int) -> tuple:
-    _check_halo(q, k_ext, v_ext, window, do=do)
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.shape != q.shape[:2] or t.dtype != torch.float32 or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous fp32 (BH, S) on {q.device}")
-    return tuple(t.data_ptr() for t in (q, k_ext, v_ext, do, lse, delta))
-
-
-def halo_bwd_dq_cuda(q, k_ext, v_ext, do, lse, delta, scale: float, window: int, has_prev,
+def halo_bwd_ds_cuda(q, k_ext, v_ext, do, lse, delta, scale: float, window: int, has_prev,
                      dropout_rate: float, seed: Seed) -> torch.Tensor:
-    """dq of the halo dq kernel (each query tile walks its k_ext span)."""
+    """Pass A of the halo backward: :func:`band_bwd_ds_cuda` over each
+    64-row query tile's k_ext span."""
+    global halo_ds_launches
+    _check_halo(q, k_ext, v_ext, window, do=do)
+    _check_stats(q, lse, delta)
+    _check_cuda(q, "the halo backward")
+    scratch = _window_ds(q, k_ext, v_ext, do, lse, delta, scale, window, dropout_rate, seed, has_prev)
+    halo_ds_launches += 1
+    return scratch
+
+
+def halo_bwd_dq_cuda(scratch: torch.Tensor, k_ext: torch.Tensor, window: int, has_prev) -> torch.Tensor:
+    """dq of the halo backward's pass B (each query tile walks its k_ext
+    span's key tiles)."""
     global halo_dq_launches
-    pointers = _halo_bwd_pointers(q, k_ext, v_ext, do, lse, delta, window)
-    dq = torch.empty_like(q)
-    _launch_halo("tchvp_halo_bwd_dq", q, pointers + (dq.data_ptr(),), window, has_prev, scale,
-                 dropout_rate, seed)
+    dq = _window_dq(scratch, k_ext, window, has_prev)
     halo_dq_launches += 1
     return dq
 
 
-def halo_bwd_dkv_cuda(q, k_ext, v_ext, do, lse, delta, scale: float, window: int, has_prev,
-                      dropout_rate: float, seed: Seed) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk_ext, dv_ext) of the halo dk/dv kernel (each 8-key tile of k_ext
-    walks the local rows of its window and the one before), S + w rows."""
+def halo_bwd_dkv_cuda(scratch: torch.Tensor, q: torch.Tensor, do: torch.Tensor, window: int,
+                      has_prev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk_ext, dv_ext) of the halo backward's pass B, S + w rows (each
+    64-key tile of k_ext walks the local rows of its window and the one
+    before; zeros for the masked halo window)."""
     global halo_dkv_launches
-    pointers = _halo_bwd_pointers(q, k_ext, v_ext, do, lse, delta, window)
-    dk, dv = torch.empty_like(k_ext), torch.empty_like(v_ext)
-    _launch_halo("tchvp_halo_bwd_dkv", q, pointers + (dk.data_ptr(), dv.data_ptr()), window,
-                 has_prev, scale, dropout_rate, seed)
+    result = _window_dkv(scratch, q, do, window, has_prev)
     halo_dkv_launches += 1
-    return dk, dv
+    return result
 
 
 def _flash_bwd_cuda(
@@ -788,7 +987,8 @@ def _win_bwd(
     args = (q, k, v, do, lse, delta, scale, window, dropout_rate, seed)
     if q.is_cuda:
         dispatch_trace.record("flash_windowed_bwd_cuda")
-        return (band_bwd_dq_cuda(*args),) + band_bwd_dkv_cuda(*args)
+        scratch = band_bwd_ds_cuda(*args)
+        return (band_bwd_dq_cuda(scratch, k, window),) + band_bwd_dkv_cuda(scratch, q, do, window)
     dispatch_trace.record("flash_windowed_bwd_plain")
     return (windowed_mha_bwd_dq_reference(*args),) + windowed_mha_bwd_dkv_reference(*args)
 
@@ -814,7 +1014,9 @@ def _halo_bwd(
     args = (q, k_ext, v_ext, do, lse, delta, scale, window, has_prev, dropout_rate, seed)
     if q.is_cuda:
         dispatch_trace.record("flash_halo_bwd_cuda")
-        return (halo_bwd_dq_cuda(*args),) + halo_bwd_dkv_cuda(*args)
+        scratch = halo_bwd_ds_cuda(*args)
+        return ((halo_bwd_dq_cuda(scratch, k_ext, window, has_prev),)
+                + halo_bwd_dkv_cuda(scratch, q, do, window, has_prev))
     dispatch_trace.record("flash_halo_bwd_plain")
     return (windowed_mha_halo_bwd_dq_reference(*args),) + windowed_mha_halo_bwd_dkv_reference(*args)
 
