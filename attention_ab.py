@@ -1,4 +1,5 @@
-"""The attention kernels of two checkouts side by side, on the card.
+"""The attention kernels and the fused decoder tail of two checkouts side by
+side, on the card.
 
 Run ``run`` from the root of each checkout (this file may live in another
 one), then ``compare`` once::
@@ -11,8 +12,10 @@ the flash forward at the inference and training shapes and at FCT's three
 (``FWD_SHAPES``), the flash backward at the training and inference shapes
 and at FCT's three (``chip_smoke.FCT_CASES``),
 the banded forward and backward at config 2's and the windowed-training
-shape and the halo forward and backward at both shard shapes (has_prev 1),
-and saves every output. Beside the band and halo backward it times SDPA's
+shape, the halo forward and backward at both shard shapes (has_prev 1) and
+the fused decoder tail at config 1's decode shape (bf16 (128, 112, 112,
+384), the NHWC view of an NCHW tensor, on seeded weights), and saves every
+output. Beside the band and halo backward it times SDPA's
 backward with the band as its boolean mask (a yardstick, not saved: its
 bits need not repeat). It prints each of these calls' times, by events
 around 20 calls and on the device (a call longer than 50 ms, such as an
@@ -81,6 +84,23 @@ def host_times(c, fa) -> None:
             print(f"[ab host] {name}: {host_ms(fn) * 1e3:.2f} us per call")
 
 
+def tail_call(c):
+    """The fused tail at config 1's decode shape as phase 14 of the
+    checkout's chip_smoke makes it, its output in a tuple."""
+    import torch
+
+    from tchvp_tpu_torch.kernels import fused_tail as ft
+    from tchvp_tpu_torch.models.resnet_ae import Decoder32K
+    from tchvp_tpu_torch.ops.blocks import init_flax_default
+
+    decoder = c.seed_decoder(init_flax_default(Decoder32K(), torch.Generator().manual_seed(0)), 20)
+    folded = ft.fold_tail_params(decoder.to("cuda", torch.bfloat16).eval())
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    x = torch.randn((128, ft.CIN, 112, 112), generator=gen, device="cuda", dtype=torch.bfloat16)
+    x = x.permute(0, 2, 3, 1)
+    return lambda: (ft.fused_tail_cuda(x, folded),)
+
+
 def run(tag: str, out_dir: Path) -> None:
     sys.path.insert(0, os.getcwd())  # the checkout under test, not this file's
     import torch
@@ -139,6 +159,7 @@ def run(tag: str, out_dir: Path) -> None:
         calls[f"halo_bwd_{name} (dq, dk/dv)"] = (
             f"halo_bwd_{name}",
             functools.partial(c.halo_bwd, q, k, v, do, lse, delta, scale, w, prev, rate, seed_t))
+    calls["fused_tail_c1 (128, 112, 112, 384) bf16 view"] = ("fused_tail_c1", tail_call(c))
     for key, fn in calls.values():
         outs[key] = fn()
     torch.cuda.synchronize()
@@ -165,6 +186,10 @@ def compare(out_dir: Path, first: str, others) -> None:
         differ = [key for key in want if not all(torch.equal(x, y) for x, y in zip(want[key], got[key]))]
         print(f"[ab bits] {first} vs {tag}: {len(want) - len(differ)} of {len(want)} kernel outputs "
               f"equal bit for bit; differ: {differ}")
+        for key in differ:
+            ratio = max((x.float() - y.float()).abs().max().item() / x.float().abs().max().item()
+                        for x, y in zip(want[key], got[key]))
+            print(f"[ab bits] {first} vs {tag}: {key} max abs difference / max|{first}| {ratio:.4g}")
 
 
 if __name__ == "__main__":

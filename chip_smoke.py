@@ -74,19 +74,24 @@ Phases, one or more lines each:
     their plain versions on small shapes, fp32 with dropout 0.1 and bf16
     without, at phase 5's limits (the band and halo backward with phase
     5's checks), bits equal on repeat;
-5b. fused decoder tail (``csrc/fused_tail.cu``, off the default path):
-    (a) the kernel against ``fused_tail_reference`` on the weights folded
-    from a Decoder32K with seeded BN, at (2, 8, 8), (1, 9, 9), (1, 16, 24)
-    and (2, 56, 56) x 384, both heads: fp32 with TF32 off, max abs <= 1e-4
-    x max|ref|; bf16 against the fp32 plain version on the same
-    bf16-rounded inputs and weights, <= 2e-2 x max|ref|; bits equal on
-    repeat and for the NHWC view of an NCHW input; unsupported dtype or
-    widths raise. (b) the decoder path: flagship tokens from one forward,
-    then ``decoder.body`` + ``fused_decoder_tail`` on the NHWC view of the
-    body's output against ``decoder(latent)`` (the cuDNN chain): config 1
-    bf16 B=8 T=16 <= 2e-2 x max|ref|, fp32 B=1 T=16 with TF32 off <= 1e-3
+5b. fused decoder tail (``csrc/fused_tail.cu``, on the tensor cores, off
+    the default path): (a) the kernel against ``fused_tail_reference``
+    on the weights folded from a Decoder32K with seeded BN, at (2, 8, 8),
+    (1, 9, 9), (1, 16, 24) and (2, 56, 56) x 384, both heads: fp32 with TF32
+    off, max abs <= 1e-4 x max|ref|; bf16 against the fp32 plain version on
+    the same bf16-rounded inputs and weights, <= 2e-2 x max|ref|, printed
+    beside the plain chain with u rounded to bf16 as the kernel stores it
+    (``tail_chain``); each limit must sit 10 times below what
+    the plain version reads with x one input row off; bits equal on repeat
+    and for the NHWC view of an NCHW input; unsupported dtype or widths
+    raise. (b) the decoder path: flagship tokens from one forward, then
+    ``decoder.body`` + ``fused_decoder_tail`` on the NHWC view of the body's
+    output against the fp32 cuDNN chain (TF32 off) on the same body: config
+    1 bf16 B=8 T=16 <= 2e-2 x max|ref|, fp32 B=1 T=16 with TF32 off <= 1e-3
     x max|ref|, config 2's group (384^2, 4 clips of 32 frames) bf16 <= 2e-2
-    x max|ref|; exactly one fused-tail launch per call;
+    x max|ref|, in bf16 no farther from it than the bf16 cuDNN chain
+    (``Decoder32K.tail``); each limit 10 times below what the fp32 chain
+    reads on the body one row off; exactly one fused-tail launch per call;
  6. flagship fp32 inference: VideoHybridNet at 224^2, B=1, T=16, attn
     "flash" against the same weights on "xla" (the dense plain core), max
     abs 1e-3, TF32 off; asserts the CUDA kernel ran;
@@ -176,9 +181,12 @@ Phases, one or more lines each:
     also by device time (``device_ms`` and ``library_device_ms`` in the
     JSON);
     the fused tail at config 1's and config 2's decode shapes in bf16,
-    checked against its plain version there (<= 2e-2 x max|ref|), beside
-    ``Decoder32K.tail`` in eval mode (the cuDNN chain it replaces, never on
-    the port's path) and its bound.
+    checked against its plain version there (<= 2e-2 x max|ref|), by
+    events and by device time, beside ``Decoder32K.tail`` in eval mode (the
+    cuDNN chain it replaces) and the same chain with the BNs folded into its
+    convs, channels-last, bf16 (``folded_cudnn_tail``; within 5e-2 x
+    max|ref| of the plain version), both yardsticks timed both ways and
+    never on the port's path, and its bound.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises and the exit
 code is not 0. There is no CPU path: without a CUDA device it exits 1.
@@ -1006,8 +1014,17 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor):
     return (got.float() - ref.float()).abs().max().item(), ref.float().abs().max().item()
 
 
+# Phase 5b's fault: x (or the decoder's body) one input row off, rolled along H.
+def shifted_rows(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return torch.roll(x, 1, dims=dim)
+
+
 def phase_fused_tail_kernel() -> None:
-    """The fused tail kernel against its plain version, both heads."""
+    """The fused tail kernel against its plain version, both heads. Each
+    case also runs the plain version on x one input row off, which must read
+    more than 10x the case's limit, and prints beside its ratio the
+    bf16-rounding budget: the plain chain with u rounded to bf16 as the
+    kernel stores it, its output in x's dtype (``tail_chain``)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     for h_i, output_type in enumerate(("image", "mask")):
@@ -1024,15 +1041,22 @@ def phase_fused_tail_kernel() -> None:
                 strided = ft.fused_tail_cuda(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1),
                                              folded, output_type)
                 torch.cuda.synchronize()
+                plain_folded = {k: v.to(dtype).float() for k, v in folded.items()}
                 with torch.no_grad():
-                    ref = ft.fused_tail_reference(x.float(), {k: v.to(dtype).float() for k, v in folded.items()},
-                                                  output_type)
+                    ref = ft.fused_tail_reference(x.float(), plain_folded, output_type)
+                    fault = ft.fused_tail_reference(shifted_rows(x.float(), 1), plain_folded, output_type)
+                    budget = ft.tail_chain(x, ft.pack_tail_weights(folded, dtype), output_type,
+                                           round_to=dtype if dtype != torch.float32 else None)
                 err, scale = rel_err(got, ref)
+                fault_ratio, budget_ratio = rel_err(fault, ref)[0] / scale, rel_err(budget, ref)[0] / scale
                 print(f"[5b fused tail] {(b, h, w, ft.CIN)} {str(dtype)[6:]} {output_type}: max abs {err:.3g}, "
-                      f"max|ref| {scale:.3g}, ratio {err / scale:.3g} (tol {tol}); bits equal on repeat and "
-                      f"for the NHWC view of an NCHW input")
+                      f"max|ref| {scale:.3g}, ratio {err / scale:.3g} (tol {tol}; the plain chain with u in "
+                      f"{str(dtype)[6:]}: {budget_ratio:.3g}; x one row off: {fault_ratio:.3g}); bits equal "
+                      f"on repeat and for the NHWC view of an NCHW input")
                 check(got.shape == (b, 2 * h, 2 * w, 1 if output_type == "mask" else 3), f"shape {got.shape}")
                 check(math.isfinite(err) and err <= tol * scale, f"fused tail vs plain at {(b, h, w)} {dtype}")
+                check(fault_ratio > 10 * tol, f"fused tail at {(b, h, w)} {dtype}: x one row off reads "
+                      f"{fault_ratio} x max|ref|, not 10 x the limit {tol}")
                 check(torch.equal(got, again) and torch.equal(got, strided),
                       f"fused tail at {(b, h, w)} {dtype} differs between launches or layouts")
     x = torch.zeros(1, 2, 2, ft.CIN, device="cuda")
@@ -1047,35 +1071,64 @@ def phase_fused_tail_kernel() -> None:
     torch.backends.cudnn.allow_tf32 = True
 
 
-def fused_decode(model: VideoHybridNet, clip: torch.Tensor):
-    """Tokens of one forward over ``clip``, the decoder's body on their
-    latent, then its tail three ways on that body: the fused kernel
-    (counted), ``Decoder32K.tail`` (the cuDNN chain) in the model's dtype,
-    and the same chain in fp32 with TF32 off, the reference (32 frames at a
-    time). Returns (fused, chain, fp32 chain) NHWC and the launch counts of
-    the fused call."""
+# Phase 5b's decoder path: (tag, size, batch, frames, window, dtype, tol).
+DECODER_CASES = (
+    ("config 1", 224, 8, 16, 0, torch.bfloat16, 2e-2),
+    ("fp32, TF32 off", 224, 1, 16, 0, torch.float32, 1e-3),
+    ("config 2 group", 384, 4, 32, 64, torch.bfloat16, 2e-2),
+)
+
+
+def decoder_model(size: int, window: int, dtype: torch.dtype) -> VideoHybridNet:
+    """Phase 5b's flagship (seed 0, decoder BN and biases seeded), in eval mode."""
+    cfg = flagship_video_config(size, attn_impl="flash", window_size=window)
+    model = VideoHybridNet(cfg, device="cuda", dtype=dtype, generator=torch.Generator().manual_seed(0))
+    seed_decoder(model.decoder, 30)
+    return model.eval()
+
+
+def decoder_body(model: VideoHybridNet, clip: torch.Tensor) -> torch.Tensor:
+    """The decoder's body (NCHW) on the latent of one forward's tokens."""
     b, t = clip.shape[:2]
     with torch.inference_mode():
         tokens, hw = model.encode_clip(clip)
         tokens = model.temporal_mix(tokens)
-        tpf = model.config.tokens_per_frame
-        latent = tokens_to_latent(tokens.reshape(b * t, tpf, tokens.shape[-1]), hw)
+        latent = tokens_to_latent(tokens.reshape(b * t, model.config.tokens_per_frame, tokens.shape[-1]), hw)
+        return model.decoder.body(latent)
+
+
+def fp32_tail(decoder: Decoder32K, body: torch.Tensor) -> torch.Tensor:
+    """``decoder.tail`` in fp32 with TF32 off on ``body``, 32 frames at a
+    time, NHWC: the decoder path's reference."""
+    decoder32 = copy.deepcopy(decoder).float()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        out = torch.cat([decoder32.tail(part.float()) for part in body.split(32)]).permute(0, 2, 3, 1)
+    torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
+def fused_decode(model: VideoHybridNet, clip: torch.Tensor):
+    """Tokens of one forward over ``clip``, the decoder's body on their
+    latent, then its tail three ways on that body: the fused kernel
+    (counted), ``Decoder32K.tail`` (the cuDNN chain) in the model's dtype,
+    and the same chain in fp32 with TF32 off, the reference, also on the
+    body one row off. Returns (fused, chain, fp32 chain, fp32 chain one row
+    off) NHWC and the launch counts of the fused call."""
+    body = decoder_body(model, clip)
+    with torch.inference_mode():
         folded = ft.fold_tail_params(model.decoder)
-        body = model.decoder.body(latent)
-        del tokens, latent
         torch.cuda.synchronize()
         reset_counts()
         got = ft.fused_decoder_tail(body.permute(0, 2, 3, 1), folded, model.config.output_type)
         torch.cuda.synchronize()
         launches = counts()
         chain = torch.cat([model.decoder.tail(part) for part in body.split(32)]).permute(0, 2, 3, 1)
-        decoder32 = copy.deepcopy(model.decoder).float()
-        tf32 = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        exact = torch.cat([decoder32.tail(part.float()) for part in body.split(32)]).permute(0, 2, 3, 1)
-        torch.backends.cudnn.allow_tf32 = tf32
+    exact = fp32_tail(model.decoder, body)
+    fault = fp32_tail(model.decoder, shifted_rows(body, 2))
     torch.cuda.synchronize()
-    return got, chain, exact, launches
+    return got, chain, exact, fault, launches
 
 
 def phase_decoder_path() -> dict:
@@ -1083,35 +1136,31 @@ def phase_decoder_path() -> dict:
     fused-tail launches of each call, by tag. The kernel is held to the fp32
     chain on the same body; in bf16 it must also be no farther from it than
     the bf16 cuDNN chain it replaces, which rounds u, a0 and a1 to bf16."""
-    cases = (  # (tag, size, batch, frames, window, dtype, tol)
-        ("config 1", 224, 8, 16, 0, torch.bfloat16, 2e-2),
-        ("fp32, TF32 off", 224, 1, 16, 0, torch.float32, 1e-3),
-        ("config 2 group", 384, 4, 32, 64, torch.bfloat16, 2e-2),
-    )
     tail_launches = {}
-    for tag, size, batch, frames, window, dtype, tol in cases:
+    for tag, size, batch, frames, window, dtype, tol in DECODER_CASES:
         torch.backends.cudnn.allow_tf32 = dtype != torch.float32
-        cfg = flagship_video_config(size, attn_impl="flash", window_size=window)
-        model = VideoHybridNet(cfg, device="cuda", dtype=dtype, generator=torch.Generator().manual_seed(0))
-        seed_decoder(model.decoder, 30)
-        model.eval()
+        model = decoder_model(size, window, dtype)
         clip = preprocess_clip(random_clip(batch, frames, size, seed=5), size, dtype=dtype)
-        got, chain, exact, launches = fused_decode(model, clip)
+        got, chain, exact, fault, launches = fused_decode(model, clip)
         err, scale = rel_err(got, exact)
         chain_err, _ = rel_err(chain, exact)
+        fault_ratio = rel_err(fault, exact)[0] / scale
         print(f"[5b decoder path] {tag}: {str(dtype)[6:]} B={batch} T={frames} {size}^2, body + fused tail "
               f"{tuple(got.shape)} vs the fp32 chain (TF32 off): max abs {err:.3g}, max|ref| {scale:.3g}, "
               f"ratio {err / scale:.3g} (tol {tol}); Decoder32K.tail (cuDNN, {str(dtype)[6:]}) vs the fp32 "
               f"chain {chain_err:.3g} (ratio {chain_err / scale:.3g}), vs the kernel "
-              f"{rel_err(got, chain)[0]:.3g}; fused_tail launches {launches['fused_tail_launches']}")
+              f"{rel_err(got, chain)[0]:.3g}; the fp32 chain on the body one row off {fault_ratio:.3g}; "
+              f"fused_tail launches {launches['fused_tail_launches']}")
         check(got.shape == exact.shape == (batch * frames, size, size, 3), f"decoder path shape {got.shape}")
         check(bool(torch.isfinite(got).all()), f"non-finite fused tail output ({tag})")
         check(err <= tol * scale, f"decoder path {tag}: {err} > {tol} x {scale}")
+        check(fault_ratio > 10 * tol, f"decoder path {tag}: the body one row off reads {fault_ratio} x max|ref|, "
+              f"not 10 x the limit {tol}")
         check(dtype == torch.float32 or err <= chain_err,
               f"decoder path {tag}: the kernel ({err}) is farther from the fp32 chain than cuDNN ({chain_err})")
         check(launches == expect_counts(fused_tail_launches=1), f"decoder path {tag} launches {launches}")
         tail_launches[tag] = launches["fused_tail_launches"]
-        del model, clip, got, chain, exact
+        del model, clip, got, chain, exact, fault
         free_cuda()
     torch.backends.cudnn.allow_tf32 = True
     return tail_launches
@@ -1931,15 +1980,42 @@ TAIL_MAIN_SHAPES = (("config 1", "fused_tail", 128, 112, 112),
                     ("config 2 group", "fused_tail_config2", 128, 192, 192))
 
 
+def folded_cudnn_tail(folded: dict, output_type: str = "image"):
+    """The tail as cuDNN's chain with the eval BNs folded into its weights
+    (``folded``, rounded to bf16 as the kernel reads them): ConvTranspose
+    2x2/s2, three 3x3 convs, the ReLUs and the head's activation, on a bf16
+    NCHW tensor in channels-last memory. A yardstick of phase 14, never on
+    the port's path."""
+    cl = torch.channels_last
+    c1 = folded["b_up"].shape[0]
+    w_up = folded["w_up"].reshape(-1, 2, 2, c1).permute(0, 3, 1, 2)  # ConvTranspose2d (Cin, C1, 2, 2)
+    ws = [w_up] + [folded[k].permute(3, 2, 0, 1) for k in ("w0", "w1", "w2")]  # OIHW
+    ws = [w.to("cuda", torch.bfloat16).contiguous(memory_format=cl) for w in ws]
+    bs = [folded[k].to("cuda", torch.bfloat16) for k in ("b_up", "b0", "b1", "b2")]
+    act = torch.sigmoid if output_type == "mask" else torch.relu
+
+    def tail(x_cl: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(x_cl, ws[0], bs[0], stride=2).relu_()
+        y = F.conv2d(y, ws[1], bs[1], padding=1).relu_()
+        y = F.conv2d(y, ws[2], bs[2], padding=1).relu_()
+        return act(F.conv2d(y, ws[3], bs[3], padding=1))
+
+    return tail
+
+
 def time_fused_tail(tail_launches: dict) -> list:
     """The fused tail at config 1's and config 2's decode shapes (bf16, the
     NHWC view of an NCHW input as on the decoder path) against its plain
     version, beside ``Decoder32K.tail`` in eval mode on the NCHW tensor (the
-    cuDNN chain it replaces) and its bound."""
+    cuDNN chain it replaces) and the same chain with the BNs folded into its
+    convs in channels-last memory (its input made channels-last outside the
+    timing), each by events around 3 calls and by device time, and its
+    bound."""
     decoder = init_flax_default(Decoder32K(), torch.Generator().manual_seed(0))
     decoder = seed_decoder(decoder, 20).to("cuda", torch.bfloat16).eval()
     folded = ft.fold_tail_params(decoder)
     plain_folded = {k: v.bfloat16().float() for k, v in folded.items()}
+    folded_chain = folded_cudnn_tail(folded)
     c4 = folded["b2"].shape[0]
     records = []
     for tag, name, b, h, w in TAIL_MAIN_SHAPES:
@@ -1951,11 +2027,22 @@ def time_fused_tail(tail_launches: dict) -> list:
             got = ft.fused_tail_cuda(x, folded)
             ref = ft.fused_tail_reference(x, plain_folded)
             err, scale = rel_err(got, ref)
-            del got, ref
+            del got
+            x_cl = x_nchw.contiguous(memory_format=torch.channels_last)
+            chain_err = rel_err(folded_chain(x_cl).permute(0, 2, 3, 1), ref)[0]
+            del ref
             check(math.isfinite(err) and err <= 2e-2 * scale, f"fused tail vs plain at {tag}: {err} > 2e-2 x {scale}")
-            kernel_ms = cuda_ms(lambda: ft.fused_tail_cuda(x, folded), 3)
+            # A yardstick computes the same function: within 5e-2 x max|ref| (the
+            # unfolded bf16 chain reads 2.85e-2 on the decoder path).
+            check(chain_err <= 5e-2 * scale, f"folded cuDNN tail vs plain at {tag}: {chain_err} > 5e-2 x {scale}")
+            kernel = lambda: ft.fused_tail_cuda(x, folded)  # noqa: E731
+            kernel_ms, kernel_dev = cuda_ms(kernel, 3), device_ms(kernel, 5)
             plain_ms = cuda_ms(lambda: ft.fused_tail_reference(x, plain_folded), 3)
-            library_ms = cuda_ms(lambda: decoder.tail(x_nchw), 3)
+            library = lambda: decoder.tail(x_nchw)  # noqa: E731
+            library_ms, library_dev = cuda_ms(library, 3), device_ms(library, 5)
+            chain = lambda: folded_chain(x_cl)  # noqa: E731
+            chain_ms, chain_dev = cuda_ms(chain, 3), device_ms(chain, 5)
+            del x_cl
         # Multiply-adds: the 1x1 up-projection per input pixel to 4 phases x
         # C1, then the three 3x3 convs per output pixel; bytes: the input
         # read once, the output written once.
@@ -1963,12 +2050,16 @@ def time_fused_tail(tail_launches: dict) -> list:
                          + 4 * h * w * 9 * (ft.C1 * ft.C2 + ft.C2 * ft.C3 + ft.C3 * c4))
         nbytes = 2 * b * h * w * ft.CIN + 2 * b * 4 * h * w * c4
         bound_ms, bound_by = bound(nbytes, flops, torch.bfloat16)
-        print(f"[14 times] fused_tail {tag} {(b, h, w, ft.CIN)} bf16: kernel {kernel_ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, Decoder32K.tail (cuDNN) {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        print(f"[14 times] fused_tail {tag} {(b, h, w, ft.CIN)} bf16: kernel {kernel_ms:.3f} ms (events), device "
+              f"{kernel_dev:.3f} ms; plain {plain_ms:.3f} ms; Decoder32K.tail (cuDNN) {library_ms:.3f} ms (events), "
+              f"device {library_dev:.3f} ms; folded cuDNN chain, channels-last {chain_ms:.3f} ms (events), device "
+              f"{chain_dev:.3f} ms (vs plain {chain_err / scale:.3g} x max|ref|); bound {bound_ms:.4f} ms "
               f"({bound_by}; {flops / 1e12:.3f} TFLOP, {nbytes / 1e9:.3f} GB); vs plain max abs {err:.3g}, "
-              f"max|ref| {scale:.3g}; {flops / kernel_ms / 1e9:.2f} TFLOP/s")
+              f"max|ref| {scale:.3g}; {flops / kernel_dev / 1e9:.2f} TFLOP/s on the device")
         records.append(record(name, "fused_tail.cu", "tchvp_tpu/kernels/fused_tail.py:324",
-                              tail_launches[tag], err, kernel_ms, plain_ms, bound_ms, bound_by, library_ms))
+                              tail_launches[tag], err, kernel_ms, plain_ms, bound_ms, bound_by, library_ms,
+                              device_ms=kernel_dev, library_device_ms=library_dev, folded_cudnn_ms=chain_ms,
+                              folded_cudnn_device_ms=chain_dev))
         del x, x_nchw
     del decoder
     free_cuda()
