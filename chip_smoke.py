@@ -148,6 +148,30 @@ Phases, one or more lines each:
     bf16) over one 16-frame 1080x1920 clip in 40 tiles, chunk 8, 4 frames
     of carried context: finite output of the clip's shape, no kernel
     launched, frames/s and megapixels/s;
+15. data path (after 13, before 14): (a) 24 clips of 8 x 256^2 x 3 made
+    from a numpy seed packed into a clippack in a temporary directory,
+    opened natively (``native/clippack.cc`` built with g++ into
+    ``tchvp_tpu_torch/_build/``; the build seconds printed) and with
+    ``prefer_native=False``: bit-equal batches over two shuffled epochs and
+    after a seek to mid-epoch, and each reader's host ms per batch; (b)
+    ``DevicePrefetch(size=2, device="cuda")`` over the native dataset:
+    every batch a CUDA uint8 tensor bit-equal to the host batch, and
+    ``position()`` the inner position minus the batches held; (c) the
+    augmentations on an fp32 (8, 8, 256, 256, 3) clip on the card
+    (``augment_geometric`` with rot90, crop and jitter at 0.5,
+    ``augment_denoising`` at its defaults, and each augmentation alone)
+    under ``torch.cuda.set_sync_debug_mode("error")``, so a host sync
+    fails the phase; their draw-taking forms on given draws against the
+    same functions on the CPU (flip, rot90 and blackout bit for bit,
+    crop-resize and jitter within 1e-5); their device ms; (d) 5 steps of
+    phase 11's cell with (c)'s ``AugmentConfig``, fed by (b)'s prefetcher:
+    flash launches fwd 2, dq 2, dkv 2 per step, finite loss and PSNR,
+    parameters and BN stats moved; the median step ms over 3 reps of 2
+    steps fed from host memory beside the step on batches already on the
+    card and phase 11's; the H2D ms of one batch from pinned memory on the
+    copy stream and from pageable memory with ``.to("cuda")``, by events;
+    the device idle share over a profile window of 3 steps with the
+    prefetcher and with synchronous pageable placement;
 14. kernel times: each kernel at its main-path shape beside its plain
     version, F.scaled_dot_product_attention (a yardstick, never on the
     port's path; with the boolean band as attn_mask for the banded
@@ -203,7 +227,9 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -212,7 +238,10 @@ import torch.nn.functional as F
 from card_timing import cuda_ms, device_ms, host_ms
 from tchvp_tpu_torch import losses, parallel
 from tchvp_tpu_torch.bench import infer_fn, profile_window, random_clip, stage_ms, time_clips
-from tchvp_tpu_torch.config import flagship_video_config
+from tchvp_tpu_torch.config import AugmentConfig, flagship_video_config
+from tchvp_tpu_torch.data import pipeline
+from tchvp_tpu_torch.data.clippack import ClipPackDataset, pack_clips
+from tchvp_tpu_torch.data.device_prefetch import DevicePrefetch
 from tchvp_tpu_torch.data.pipeline import preprocess_clip
 from tchvp_tpu_torch.kernels import build
 from tchvp_tpu_torch.kernels import flash_attention as fa
@@ -1336,7 +1365,7 @@ def phase_config2() -> int:
 def phase_train(tag: str, batch: int, frames: int, window: int = 0) -> dict:
     """The ``tchvp video`` training defaults on the flagship at 256^2, with
     flash attention or, with a window, the banded kernels. Returns the
-    launch counts of the last main-path step."""
+    launch counts of the last main-path step and the median step ms."""
     size, steps = 256, 5
     cfg = flagship_video_config(size, attn_impl="flash", window_size=window)
     n = cfg.temporal.num_layers
@@ -1427,7 +1456,7 @@ def phase_train(tag: str, batch: int, frames: int, window: int = 0) -> dict:
           + f"dq {launches[dq]}, dkv {launches[dkv]}, loss {m['loss'].item():.5f}")
     del model, state, clips
     free_cuda()
-    return step_counts
+    return step_counts, med * 1e3
 
 
 SEQ_DIR = build.BUILD_DIR / "seq_smoke"  # rendezvous, references, results: ignored by git
@@ -1608,6 +1637,244 @@ def phase_streaming() -> None:
           f"{frames * h * w / med / 1e6:.1f} megapixels/s (median of 3 clips, spread "
           f"{100 * (max(reps) - min(reps)) / med:.2f}%)")
     del model, clip, recon
+    free_cuda()
+
+
+DATA_CLIPS, DATA_SEED = 24, 15
+DATA_AUG = AugmentConfig(rot90_prob=0.5, crop_prob=0.5, jitter_prob=0.5)
+
+
+def endless(data):
+    """``data``'s epochs one after another."""
+    while True:
+        yield from data
+
+
+def check_packed_readers(native: ClipPackDataset, plain: ClipPackDataset) -> None:
+    """(a): bit-equal batches over two epochs and after a seek to mid-epoch."""
+    for epoch in range(2):
+        got, want = list(native), list(plain)
+        check(len(got) == len(want) == len(native)
+              and all(np.array_equal(a, b) for a, b in zip(got, want)),
+              f"native and numpy clippack batches differ in epoch {epoch}")
+    for ds in (native, plain):
+        ds.seek(3, 1)
+    got, want = list(native), list(plain)
+    check(len(got) == len(native) - 1 and all(np.array_equal(a, b) for a, b in zip(got, want)),
+          "native and numpy clippack batches differ after a seek to epoch 3, batch 1")
+    check(native.position() == plain.position() == {"epoch": 4, "batch": 0},
+          f"positions {native.position()}, {plain.position()}")
+
+
+def host_ms_per_batch(ds: ClipPackDataset, epochs: int = 2) -> float:
+    t0 = time.perf_counter()
+    n = sum(1 for _ in range(epochs) for _ in ds)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def check_prefetch(native: ClipPackDataset, plain: ClipPackDataset) -> None:
+    """(b): every prefetched batch a CUDA uint8 tensor equal to the host
+    batch; position() the inner position minus the held batches."""
+    pf = DevicePrefetch(native, size=2, device="cuda")
+    spe = len(native)
+    epoch = native.position()["epoch"]
+    for i, (dev, host) in enumerate(zip(pf, plain)):
+        check(dev.is_cuda and dev.dtype == torch.uint8 and tuple(dev.shape) == host.shape,
+              f"prefetched batch {dev.device} {dev.dtype} {tuple(dev.shape)}")
+        check(torch.equal(dev.cpu(), torch.from_numpy(host)), f"prefetched batch {i} differs from the host's")
+        inner = native.position()
+        held = pf._held()
+        want = {"epoch": epoch + (i + 1) // spe, "batch": (i + 1) % spe}
+        check(pf.position() == want and inner["epoch"] * spe + inner["batch"] - held
+              == want["epoch"] * spe + want["batch"],
+              f"prefetch position {pf.position()} (inner {inner}, {held} held), want {want}")
+        if i == 0:
+            check(held == min(2, spe - 1), f"{held} batches held after the first")
+            print(f"[15 data path] (b) after batch 0 of epoch {epoch}: inner position {inner}, "
+                  f"{held} held, DevicePrefetch.position() {pf.position()}")
+
+
+AUG_CHECKS = (  # (name, draws, draw-taking form, exact)
+    ("hflip", lambda g, x: (torch.tensor(True),), pipeline.hflip_with, True),
+    ("rot90", lambda g, x: pipeline.rot90_draws(g, x, 0.5), pipeline.rot90_with, True),
+    ("blackout", lambda g, x: pipeline.blackout_draws(g, x, 3, 16),
+     lambda x, *d: pipeline.blackout_with(x, *d, 16), True),
+    ("crop-resize", lambda g, x: pipeline.crop_draws(g, x, 0.5, DATA_AUG.crop_frac),
+     lambda x, *d: pipeline.crop_resize_with(x, *d, DATA_AUG.crop_frac), False),
+    ("jitter", lambda g, x: pipeline.jitter_draws(g, x, 0.5, DATA_AUG.jitter_strength),
+     pipeline.jitter_with, False),
+)
+
+
+def phase_augmentations(x: torch.Tensor) -> None:
+    """(c): the augmentations on the card without a host sync, against the
+    CPU on given draws, and their device ms."""
+    gen = torch.Generator("cuda").manual_seed(DATA_SEED)
+    public = {
+        "augment_geometric": lambda: pipeline.augment_geometric(gen, x, DATA_AUG),
+        "augment_denoising": lambda: pipeline.augment_denoising(gen, x, AugmentConfig()),
+        "random_hflip": lambda: pipeline.random_hflip(gen, x),
+        "random_rot90": lambda: pipeline.random_rot90(gen, x, 0.5),
+        "random_blackout": lambda: pipeline.random_blackout(gen, x),
+        "random_crop_resize": lambda: pipeline.random_crop_resize(gen, x, 0.5, DATA_AUG.crop_frac),
+        "color_jitter": lambda: pipeline.color_jitter(gen, x, 0.5, DATA_AUG.jitter_strength),
+        "corrupt_for_test": lambda: pipeline.corrupt_for_test(gen, x),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = {name: fn() for name, fn in public.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for name, y in outs.items():
+        check(y.shape == x.shape and y.dtype == x.dtype and bool(torch.isfinite(y).all()),
+              f"{name}: {tuple(y.shape)} {y.dtype}")
+    print(f"[15 data path] (c) {', '.join(public)} ran on the card under sync debug mode "
+          f"'error' on fp32 {tuple(x.shape)}: no host sync")
+
+    x_cpu = x.cpu()
+    cpu_gen = torch.Generator().manual_seed(DATA_SEED)
+    errs = []
+    for name, draws_fn, apply, exact in AUG_CHECKS:
+        draws = draws_fn(cpu_gen, x_cpu)
+        want = apply(x_cpu, *draws)
+        got = apply(x, *(d.cuda() for d in draws)).cpu()
+        err = (got - want).abs().max().item()
+        check(not torch.equal(want, x_cpu), f"{name}: the draws changed nothing")
+        check(torch.equal(got, want) if exact else err <= 1e-5,
+              f"{name} on the card against the CPU: max abs {err:.3e} ({'bits' if exact else '1e-5'})")
+        errs.append(f"{name} {err:.3e}")
+    print("[15 data path] (c) draw-taking forms on the card against the CPU, max abs: " + ", ".join(errs)
+          + " (limits: hflip, rot90, blackout bit for bit; crop-resize, jitter 1e-5)")
+    # 4 calls queued behind the spin: 20 calls of up to ~50 launches each
+    # would fill the launch queue, and the host would wait for the spin.
+    ms = {name: device_ms(fn, iters=4) for name, fn in public.items()}
+    print("[15 data path] (c) device ms per call (card_timing.device_ms, 4 calls): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+
+
+def h2d_ms(host: np.ndarray, reps: int = 10) -> tuple:
+    """Median event ms of one batch's copy: pinned on a copy stream, and
+    pageable with a plain ``.to("cuda")``."""
+    stream = torch.cuda.Stream()
+    pinned = torch.from_numpy(host).pin_memory()
+    times = {"pinned": [], "pageable": []}
+    for _ in range(reps):
+        for kind in times:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            if kind == "pinned":
+                with torch.cuda.stream(stream):
+                    start.record(stream)
+                    pinned.to("cuda", non_blocking=True)
+                    end.record(stream)
+            else:
+                start.record()
+                torch.from_numpy(host).to("cuda")
+                end.record()
+            torch.cuda.synchronize()
+            times[kind].append(start.elapsed_time(end))
+    return statistics.median(times["pinned"]), statistics.median(times["pageable"])
+
+
+def phase_data_path(train_ms: float) -> None:
+    """Phase 15: packed clips -> ClipPackDataset (native) -> DevicePrefetch
+    -> augmentations on the card -> make_video_train_step, at phase 11's
+    cell; module docstring, item 15."""
+    tag = "15 data path"
+    size, batch, frames, steps = 256, 8, 8, 5
+    clips = np.random.default_rng(DATA_SEED).integers(0, 256, (DATA_CLIPS, frames, size, size, 3),
+                                                      dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "clips.cpk")
+        pack_clips(path, clips)
+        native = ClipPackDataset(path, batch, seed=DATA_SEED)
+        plain = ClipPackDataset(path, batch, seed=DATA_SEED, prefer_native=False)
+        check(native._native and not plain._native, "clippack readers")
+        check_packed_readers(native, plain)
+        host = {"native": host_ms_per_batch(native), "numpy": host_ms_per_batch(plain)}
+        print(f"[{tag}] (a) clippack of {DATA_CLIPS} clips {frames}x{size}^2x3 uint8, batch {batch}: "
+              f"native library built (g++) in {build.build_seconds['clippack']:.2f} s (0 when cached); "
+              f"native and numpy batches "
+              f"bit-equal over 2 shuffled epochs and after seek(3, 1); host ms per batch: native "
+              f"{host['native']:.2f}, numpy {host['numpy']:.2f}")
+        check_prefetch(native, plain)
+        print(f"[{tag}] (b) DevicePrefetch(size=2, device='cuda'): every batch a CUDA uint8 tensor, "
+              f"bit-equal to the host batch; position() the inner position minus the held batches")
+
+        x = pipeline.normalize_uint8(torch.from_numpy(clips[:batch]).cuda())
+        phase_augmentations(x)
+        del x
+
+        cfg = flagship_video_config(size, attn_impl="flash")
+        n = cfg.temporal.num_layers
+        model = VideoHybridNet(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, make_optimizer(1e-4, weight_decay=0.01, grad_clip_norm=1.0),
+                                   rng=0)
+        step = make_video_train_step(size, loss="mixed", alpha=0.3, beta=0.7, noise_std=0.05,
+                                     aug=DATA_AUG)
+        fed = endless(DevicePrefetch(native, size=2, device="cuda"))
+        params0 = {n_: p.detach().clone() for n_, p in model.named_parameters()}
+        stats0 = {n_: b.clone() for n_, b in model.named_buffers() if "running" in n_}
+        metrics = []
+        for _ in range(steps):
+            reset_counts()
+            with dispatch_trace.capture() as seen:
+                metrics.append(step(state, next(fed))[1])
+            torch.cuda.synchronize()
+            launches = counts()
+            check(launches == expect_counts(launches=n, dq_launches=n, dkv_launches=n),
+                  f"data-path step launches {launches}")
+            check({"flash_mha_cuda", "flash_mha_bwd_cuda"} <= seen and "sdpa_xla" not in seen,
+                  f"data-path step recorded {sorted(seen)}")
+        loss = torch.stack([m["loss"] for m in metrics]).tolist()
+        psnr = torch.stack([m["psnr"] for m in metrics]).tolist()
+        check(all(math.isfinite(v) for v in loss + psnr), f"loss {loss}, psnr {psnr}")
+        still = [n_ for n_, p in model.named_parameters() if torch.equal(p.detach(), params0[n_])]
+        check(not still, f"parameters unchanged after {steps} steps: {still[:5]}")
+        still = [n_ for n_, b in model.named_buffers() if n_ in stats0 and torch.equal(b, stats0[n_])]
+        check(not still, f"BatchNorm stats unchanged after {steps} steps: {still[:5]}")
+        del params0, stats0
+        print(f"[{tag}] (d) {steps} steps of phase 11's cell with {DATA_AUG}, fed from host memory "
+              f"through DevicePrefetch: flash launches per step fwd {n}, dq {n}, dkv {n}, other kernels 0; "
+              f"loss {[round(v, 5) for v in loss]}, psnr {[round(v, 3) for v in psnr]}")
+
+        placed = [torch.from_numpy(clips[i * batch:(i + 1) * batch]).cuda() for i in range(2)]
+
+        ring = endless(placed)
+        # A second dataset on the file: ``fed`` holds ``native``'s iterator open.
+        pageable = ClipPackDataset(path, batch, seed=DATA_SEED + 1)
+        host_it = endless(pageable)
+        feeds = {"prefetched": lambda: next(fed), "on the card": lambda: next(ring),
+                 "pageable": lambda: torch.from_numpy(next(host_it)).to("cuda")}
+        reps = {k: [] for k in feeds}
+        for _ in range(3):  # the three feeds in turns, 2 steps each
+            for kind, next_batch in feeds.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    step(state, next_batch())
+                torch.cuda.synchronize()
+                reps[kind].append((time.perf_counter() - t0) / 2 * 1e3)
+        med = {k: statistics.median(v) for k, v in reps.items()}
+        print(f"[{tag}] (d) step ms (median of 3 reps of 2 steps, the feeds in turns; spread): "
+              + ", ".join(f"{k} {med[k]:.1f} ({100 * (max(v) - min(v)) / med[k]:.2f}%)" for k, v in reps.items())
+              + f"; phase 11 (no augmentations, clips on the card) {train_ms:.1f}")
+        nbytes = clips[:batch].nbytes
+        pinned_ms, pageable_ms = h2d_ms(clips[:batch])
+        print(f"[{tag}] (d) H2D of one batch ({nbytes / 1e6:.1f} MB uint8), by events, median of 10: pinned "
+              f"on the copy stream {pinned_ms:.3f} ms ({nbytes / pinned_ms / 1e6:.1f} GB/s), pageable "
+              f".to('cuda') {pageable_ms:.3f} ms ({nbytes / pageable_ms / 1e6:.1f} GB/s)")
+        for kind, next_batch in feeds.items():
+            prof = profile_window(lambda: step(state, next_batch()), iters=3, top=5)
+            print(f"[{tag}] (d) profile window of 3 steps, batches {kind}: wall "
+                  f"{prof['wall_ms_per_call']:.1f} ms/step, device busy {prof['device_busy_ms_per_call']:.1f} "
+                  f"ms/step, idle share {100 * prof['device_idle_share']:.2f}%")
+        del fed, host_it, feeds
+        native.close()
+        pageable.close()
+        del model, state, placed
     free_cuda()
 
 
@@ -2086,10 +2353,11 @@ def main() -> None:
     eval_ref = phase_windowed_flagship()
     fwd_launches = phase_infer_main_path()
     band_fwd_launches = phase_config2()
-    train = phase_train("11 train", batch=8, frames=8)
-    windowed = phase_train("12 windowed train", batch=2, frames=32, window=64)
+    train, train_ms = phase_train("11 train", batch=8, frames=8)
+    windowed, _ = phase_train("12 windowed train", batch=2, frames=32, window=64)
     halo_launches = phase_seq_two_ranks(eval_ref)
     phase_streaming()
+    phase_data_path(train_ms)
     records = time_flash(fwd_launches, fwd_err, {"flash_bwd_dq": train["dq_launches"],
                                                  "flash_bwd_dkv": train["dkv_launches"]}, bwd_errs)
     records += time_band({"band_fwd": band_fwd_launches, "band_bwd_ds": windowed["band_ds_launches"],

@@ -2,7 +2,8 @@
 
 Copies of ``tchvp_tpu/config.py``'s ``ResNetAEConfig``,
 ``TransformerConfig``, ``VideoModelConfig``, ``flagship_video_config``,
-``AugmentConfig`` and ``TrainConfig`` with identical field names and
+``DataConfig``, ``IngestConfig``, ``AugmentConfig`` and ``TrainConfig``
+with identical field names and
 defaults (``tests/test_torch_config.py`` holds them equal), so a
 configuration means the same model and run in both packages. The mesh-axis
 fields (``tp_axis``, ``sp_axis``, ``seq_axis``, ``ep_axis``,
@@ -113,9 +114,37 @@ class VideoModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """CSV-manifest data layer (``data/manifest.py``)."""
+
+    train_csv: str = "Datasets/image2image/train.csv"
+    val_csv: str = "Datasets/image2image/valid.csv"
+    test_csv: str = "Datasets/image2image/test.csv"
+    image_size: int = 256
+    batch_size: int = 64
+    training_type: str = "unsupervised"  # "supervised" | "unsupervised" | "sequential"
+    clip_len: int = 8
+    shuffle: bool = True
+    drop_last: bool = True
+    data_fraction: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class IngestConfig:
+    """Host-ingest tuning of ``data/manifest.py``. The environment
+    variables ``TCHVP_DECODE_THREADS`` and ``TCHVP_DECODE_CACHE_MB``
+    override the first two."""
+
+    decode_threads: Optional[int] = None  # None = min(8, cpu_count)
+    cache_mb: int = 2048  # decoded-frame RAM cache budget
+    prefetch_depth: int = 2  # batches the prefetch thread runs ahead
+
+
+@dataclasses.dataclass(frozen=True)
 class AugmentConfig:
-    """Denoising-AE augmentations. The beyond-reference suite (rot90, crop,
-    jitter) is off by default; the port runs only the default."""
+    """Denoising-AE augmentations (``data/pipeline.py::augment_denoising``)
+    and the beyond-reference suite (rot90, crop, jitter:
+    ``augment_geometric``), which is off by default."""
 
     hflip_prob: float = 0.5
     noise_prob: float = 0.2

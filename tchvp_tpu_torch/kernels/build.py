@@ -1,13 +1,15 @@
-"""Build the package's CUDA sources into shared libraries at first use.
+"""Build the package's CUDA sources (and the host C++ of the clip loader)
+into shared libraries at first use.
 
-Each library is compiled by ``nvcc`` in a subprocess into
+Each CUDA library is compiled by ``nvcc`` in a subprocess into
 ``tchvp_tpu_torch/_build/<name>-<hash>/`` (listed in ``.gitignore``), where
 the hash covers the sources, the shared headers (``csrc/*.cuh``) and the
 flags, and is bound through ``ctypes`` to a plain ``extern "C"`` launcher.
 This needs neither ``ninja`` nor PyTorch's headers, so a build takes
-seconds; :func:`load_all` runs one ``nvcc`` per library, all at once. A
-missing ``nvcc`` or a failed build raises: nothing falls back to a plain
-version.
+seconds; :func:`load_all` runs one ``nvcc`` per library, all at once.
+:func:`load_host` builds a C++ file with ``g++`` into the same hashed
+directories. A missing compiler or a failed build raises: nothing falls
+back to a plain version.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+HOST_CXX = "g++"
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _locks: Dict[str, threading.Lock] = {}
 _locks_guard = threading.Lock()
@@ -50,17 +55,20 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda): cannot build the CUDA kernels")
 
 
-def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Compile ``csrc/<sources>`` into ``lib<name>.so`` (once per content
-    hash) and return the loaded library."""
+def _load(name: str, compiler, flags: Sequence[str], sources: Sequence[Path],
+          hashed: Sequence[Path]) -> ctypes.CDLL:
+    """Compile ``sources`` into ``lib<name>.so`` under a directory named by
+    the hash of ``hashed`` and ``flags`` (once per hash; the library is
+    moved into place atomically, so concurrent processes never load a
+    half-written one) and return the loaded library. ``compiler()`` gives
+    the compiler's path and is called only when a build is needed."""
     with _locks_guard:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         if name in _libs:
             return _libs[name]
-        paths = [CSRC / s for s in sources]
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in paths + sorted(CSRC.glob("*.cuh")):
+        digest = hashlib.sha256(" ".join(flags).encode())
+        for p in hashed:
             digest.update(p.read_bytes())
         out_dir = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}"
         lib_path = out_dir / f"lib{name}.so"
@@ -69,17 +77,41 @@ def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         if not lib_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
             tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            cmd = [compiler(), *flags, "-o", str(tmp), *map(str, sources)]
+            try:
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+            except OSError as e:
+                raise RuntimeError(f"cannot run {cmd[0]} to build {name}: {e}") from e
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed building {name} (exit {proc.returncode}):\n{log}")
+                raise RuntimeError(f"{cmd[0]} failed building {name} (exit {proc.returncode}):\n{log}")
             log_path.write_text(log)
             os.replace(tmp, lib_path)
         build_seconds[name] = time.perf_counter() - t0
         build_log[name] = log_path.read_text() if log_path.exists() else ""
         _libs[name] = ctypes.CDLL(str(lib_path))
         return _libs[name]
+
+
+def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+    """Compile ``csrc/<sources>`` into ``lib<name>.so`` with ``nvcc`` (once
+    per content hash, every ``csrc/*.cuh`` included) and return the loaded
+    library."""
+    paths = [CSRC / s for s in sources]
+    return _load(name, nvcc_path, NVCC_FLAGS, paths, paths + sorted(CSRC.glob("*.cuh")))
+
+
+def host_compiler_path() -> str:
+    found = shutil.which(HOST_CXX)
+    if found is None:
+        raise RuntimeError(f"{HOST_CXX} not found on PATH: cannot build the host libraries")
+    return found
+
+
+def load_host(name: str, source: Path) -> ctypes.CDLL:
+    """Compile the C++ file ``source`` into ``lib<name>.so`` with the host
+    compiler (once per content hash) and return the loaded library."""
+    return _load(name, host_compiler_path, HOST_FLAGS, [source], [source])
 
 
 def load_all(libraries: Mapping[str, Sequence[str]]) -> Dict[str, ctypes.CDLL]:

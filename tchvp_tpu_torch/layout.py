@@ -20,6 +20,21 @@ def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def ncthw_to_nthwc(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, T, H, W) -> (B, T, H, W, C)."""
+    return x.permute(0, 2, 3, 4, 1)
+
+
+def ntchw_to_nthwc(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, C, H, W) -> (B, T, H, W, C)."""
+    return x.permute(0, 1, 3, 4, 2)
+
+
+def nthwc_to_ntchw(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, W, C) -> (B, T, C, H, W)."""
+    return x.permute(0, 1, 4, 2, 3)
+
+
 def fold_time(x: torch.Tensor) -> torch.Tensor:
     """(B, T, ...) -> (B*T, ...): fold clip frames into the batch."""
     b, t = x.shape[0], x.shape[1]

@@ -3,13 +3,15 @@
 Counterpart of ``tchvp_tpu/train/steps.py``'s ``make_video_train_step``,
 ``make_video_eval_step`` and ``_loss_fn_by_name``. A step takes a uint8
 clip (B, T, H, W, 3) on the model's device and runs, eagerly:
-preprocess -> Gaussian input noise -> the train-mode forward -> the loss
+preprocess -> the geometric augmentations (``aug``, off by default) ->
+Gaussian input noise -> the train-mode forward -> the loss
 over frames folded into the batch -> backward -> one optimizer update. The
 BatchNorm running stats move inside the forward, once per (micro)batch.
 Metrics come back as device tensors: the step never waits for the device.
 
-Randomness. The JAX step splits its key up front (``k_noise``, ``k_drop``);
-here the noise comes from ``state.noise_generator`` and every dropout draw
+Randomness. The JAX step splits its key up front (``k_geo``, ``k_noise``,
+``k_drop``); here the augmentations' draws and the noise come from
+``state.noise_generator`` and every dropout draw
 of a (micro)batch (attention seeds, the Dropout2d mask, the transformer
 dropout masks) from ``state.dropout_generator``, all before the forward
 runs. ``torch.utils.checkpoint`` replays only the default generators, so
@@ -171,10 +173,6 @@ def make_video_train_step(
     if moe_aux_weight > 0.0:
         raise NotImplementedError(
             "moe_aux_weight is not ported yet (ROADMAP.md, modules to port, item 11: ops/moe.py)")
-    if aug != AugmentConfig():
-        raise NotImplementedError(
-            "a non-default AugmentConfig is not ported yet "
-            "(ROADMAP.md, modules to port, item 8: the augmentations)")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if remat and remat_policy == "none":

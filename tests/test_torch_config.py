@@ -22,7 +22,7 @@ def _defaults(cls):
 
 
 @pytest.mark.parametrize("name", ["ResNetAEConfig", "TransformerConfig", "VideoModelConfig",
-                                  "AugmentConfig", "TrainConfig"])
+                                  "AugmentConfig", "TrainConfig", "DataConfig", "IngestConfig"])
 def test_dataclass_fields_and_defaults_match(name):
     jc, tc = getattr(jcfg, name), getattr(tcfg, name)
     assert [f.name for f in dataclasses.fields(tc)] == [f.name for f in dataclasses.fields(jc)]

@@ -42,7 +42,10 @@ def test_importing_the_model_loads_no_jax():
         "tchvp_tpu_torch.bench, tchvp_tpu_torch.train.steps, tchvp_tpu_torch.train.state, "
         "tchvp_tpu_torch.losses, tchvp_tpu_torch.ops.msssim, tchvp_tpu_torch.models.streaming, "
         "tchvp_tpu_torch.ops.tiling, tchvp_tpu_torch.kernels.fused_tail, "
-        "tchvp_tpu_torch.parallel.mesh, tchvp_tpu_torch.parallel.collectives; "
+        "tchvp_tpu_torch.parallel.mesh, tchvp_tpu_torch.parallel.collectives, "
+        "tchvp_tpu_torch.data, tchvp_tpu_torch.data.clippack, tchvp_tpu_torch.data.manifest, "
+        "tchvp_tpu_torch.data.device_prefetch, tchvp_tpu_torch.data.synthetic, "
+        "tchvp_tpu_torch.data.pipeline; "
         "sys.path.insert(0, 'tests'); import torch_dist; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tchvp_tpu')]; "

@@ -40,7 +40,6 @@ from tchvp_tpu.train import state as jstate
 from tchvp_tpu.train import steps as jsteps
 from tchvp_tpu_torch import config as tcfg
 from tchvp_tpu_torch import convert
-from tchvp_tpu_torch.config import AugmentConfig
 from tchvp_tpu_torch.data import pipeline as tpipe
 from tchvp_tpu_torch.kernels import flash_attention as tfa
 from tchvp_tpu_torch.models import video as tvideo
@@ -334,7 +333,6 @@ def test_remat_true_means_full_and_bad_policies_raise():
     (dict(qat=True), "item 10"),
     (dict(fsdp_axis="data"), "item 11"),
     (dict(moe_aux_weight=0.01), "item 11"),
-    (dict(aug=AugmentConfig(rot90_prob=0.5)), "item 8"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
