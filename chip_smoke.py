@@ -172,6 +172,41 @@ Phases, one or more lines each:
     copy stream and from pageable memory with ``.to("cuda")``, by events;
     the device idle share over a profile window of 3 steps with the
     prefetcher and with synchronous pageable placement;
+16. the run-time through ``cli.main`` (in this process, so the launch
+    counters can be read; in a temporary working directory), at phase 11's
+    cell (256^2, B 8 of 8-frame clips, fp32, ``--attn-impl flash``, AdamW
+    1e-4, ``--ema-decay 0.999``, ``--keep-checkpoints 1``): (a) ``video
+    --synthetic 3 --epochs 2 --save-every 1``: flash launches 2/2/2 per
+    step and no other kernel, the tag ``step_2``, ``TAG_SCHEME``
+    "epochs", ``run.json`` naming this card, one event file with
+    Loss/PSNR at epochs 1 and 2; (b) ``step_2`` restored into a fresh flow
+    and saved again: every tensor of the payload (model, moments, EMA,
+    generators) bit-equal; ``--resume --epochs 3`` prints only epoch 3,
+    and its ``step_3`` equals that of 3 straight epochs, bit for bit, with
+    ``cudnn.deterministic`` and deterministic algorithms (warn-only: an op
+    without a deterministic kernel is named, and then the limit is 1e-5 x
+    max|p|); (c) a clippack of phase 15's 24 clips with
+    ``--save-every-steps 2``: tags step_2 and step_3; step_3 removed (a
+    preemption), ``--resume --epochs 2`` runs 4 steps (flash launches
+    4 x 2/2/2), tags step_2, step_5, step_6, step_5's data position epoch 1
+    batch 2; (d) the full state's size on disk and the ms of a save, of an
+    async save's blocking part and its writer, and of a restore, twice
+    each; (e) ``VideoFlow.train`` at the cell on host batches through
+    DevicePrefetch, saves left out: step ms from the epochs' start times
+    against phase 11's bare step, and the idle share over one epoch; (f)
+    ``video --window 64`` (B 2, T 32, 2 steps): band launches 2/2/2/2 per
+    step; (g) ``video --mesh seq=2 --window 64`` as two ranks sharing this
+    card over gloo, as phase 12b spawns them: halo launches 2/2/2/2 per rank,
+    rank 0's checkpoint; (h) on (b)'s ``step_3``: ``infer`` (bf16, frames/s
+    and PSNR), ``eval``, ``stream`` of one 16-frame 1080p clip, ``summary``,
+    ``doctor --smoke``. Each kernel's record gains ``cli_launches``: its
+    launches in (a), (f) and (g)'s rank 0;
+17. BASELINE config 3: the flagship at 224^2, "xla" attention, bf16
+    compute over fp32 parameters (``compute_dtype``), B 8 of 16-frame
+    clips, MSE, noise 0.05, AdamW 1e-4 clipped at 1.0: finite loss over 3
+    steps, no hand-written kernel launched, every parameter and BatchNorm
+    stat fp32 and moved; step ms (phase 11's protocol), trained frames/s,
+    peak memory and a profile;
 14. kernel times: each kernel at its main-path shape beside its plain
     version, F.scaled_dot_product_attention (a yardstick, never on the
     port's path; with the boolean band as attn_mask for the banded
@@ -218,10 +253,14 @@ code is not 0. There is no CPU path: without a CUDA device it exits 1.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import gc
+import io
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -236,13 +275,14 @@ import torch
 import torch.nn.functional as F
 
 from card_timing import cuda_ms, device_ms, host_ms
-from tchvp_tpu_torch import losses, parallel
+from tchvp_tpu_torch import cli, losses, parallel
 from tchvp_tpu_torch.bench import infer_fn, profile_window, random_clip, stage_ms, time_clips
-from tchvp_tpu_torch.config import AugmentConfig, flagship_video_config
+from tchvp_tpu_torch.config import AugmentConfig, TrainConfig, flagship_video_config
 from tchvp_tpu_torch.data import pipeline
 from tchvp_tpu_torch.data.clippack import ClipPackDataset, pack_clips
 from tchvp_tpu_torch.data.device_prefetch import DevicePrefetch
 from tchvp_tpu_torch.data.pipeline import preprocess_clip
+from tchvp_tpu_torch.data.synthetic import SyntheticClips
 from tchvp_tpu_torch.kernels import build
 from tchvp_tpu_torch.kernels import flash_attention as fa
 from tchvp_tpu_torch.kernels import fused_tail as ft
@@ -253,6 +293,8 @@ from tchvp_tpu_torch.ops import dispatch_trace
 from tchvp_tpu_torch.ops.attention import _merge_heads, _split_heads
 from tchvp_tpu_torch.ops.blocks import init_flax_default
 from tchvp_tpu_torch.parallel import collectives
+from tchvp_tpu_torch.train import checkpoint as ckpt
+from tchvp_tpu_torch.train.loops import VideoFlow
 from tchvp_tpu_torch.train.state import create_train_state, make_optimizer
 from tchvp_tpu_torch.train.steps import make_video_train_step
 
@@ -261,9 +303,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12  # tensor cores
 FP32_FLOP_PER_S = 67e12  # CUDA cores
 
-LIBRARIES = {"flash_fwd": ["flash_fwd.cu"], "flash_bwd": ["flash_bwd.cu"],
-             "band_attention": ["band_attention.cu"], "halo_attention": ["halo_attention.cu"],
-             "fused_tail": ["fused_tail.cu"]}
+LIBRARIES = build.LIBRARIES
 # Each kernel's launch counter: (key, module, attribute).
 COUNTERS = tuple((name, fa, name) for name in (
     "launches", "dq_launches", "dkv_launches",
@@ -304,6 +344,11 @@ def expect_counts(**nonzero) -> dict:
 
 
 def free_cuda() -> None:
+    # torch.optim's constructor leaves its frames in a reference cycle that
+    # holds the caller's locals (the model, via create_train_state) until the
+    # cycle collector runs: collect, so a phase's models leave the card with
+    # it and later phases do not allocate on a full card.
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1878,6 +1923,444 @@ def phase_data_path(train_ms: float) -> None:
     free_cuda()
 
 
+# ---------------------------------------------------------------- phase 16
+
+CLI_CELL = ["--synthetic", "3", "--batch-size", "8", "--clip-len", "8", "--image-size", "256",
+            "--attn-impl", "flash", "--ema-decay", "0.999", "--keep-checkpoints", "1"]
+FLASH3 = ("launches", "dq_launches", "dkv_launches")
+
+
+def run_cli(argv: list) -> str:
+    """``python -m tchvp_tpu_torch.cli <argv>`` in this process (so the
+    launch counters can be read), its models freed after it; returns what
+    it printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    free_cuda()
+    return out.getvalue()
+
+
+def step_tags(d: Path) -> list:
+    return sorted((p.name for p in d.iterdir() if re.fullmatch(r"step_\d+", p.name)),
+                  key=lambda n: int(n[5:]))
+
+
+def state_tensors(raw: dict) -> dict:
+    """Every tensor of a checkpoint payload by name: the model, the
+    moments, the EMA and the generators' states."""
+    out = {f"model.{k}": v for k, v in raw["model"].items()}
+    for n, st in raw["opt_state"]["moments"].items():
+        out.update({f"moment.{n}.{k}": v for k, v in st.items()})
+    out.update({f"ema.{k}": v for k, v in raw["opt_state"]["ema"].items()})
+    out.update({f"generator.{k}": v for k, v in raw["generators"].items()})
+    return out
+
+
+def unequal(a: dict, b: dict) -> list:
+    check(a.keys() == b.keys(), f"payload keys {sorted(set(a) ^ set(b))[:5]}")
+    return [k for k in a if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+
+
+def cli_state(path: Path):
+    """A VideoFlow of the CLI cell on the card with the checkpoint at
+    ``path`` restored into it; returns (state, raw payload, restore ms)."""
+    model = VideoHybridNet(flagship_video_config(256, attn_impl="flash"), device="cuda",
+                           generator=torch.Generator().manual_seed(1))
+    flow = VideoFlow(model, cfg=TrainConfig(model_name="video", loss="mixed", lr=1e-4, ema_decay=0.999),
+                     image_size=256)
+    flow.init_state(8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, raw = ckpt.restore_state_into(flow.state, str(path))
+    torch.cuda.synchronize()
+    return state, raw, (time.perf_counter() - t0) * 1e3
+
+
+class TimedData:
+    """Host batches whose epochs are timed: the flow reads the metric sums
+    once per epoch, after its last step, then asks for the next epoch."""
+
+    def __init__(self, batches):
+        self.batches, self.starts = batches, []
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        self.starts.append(time.perf_counter())
+        return iter(self.batches)
+
+
+def cli_rank(rank: int, world: int, rendezvous: str, argv: list) -> None:
+    """One rank of ``video --mesh seq=2`` (phase 16 (g)) on this card;
+    writes its launch counts to SEQ_DIR/cli_rank<r>.json."""
+    reset_counts()
+    run_cli(argv + ["--coordinator", f"file://{rendezvous}", "--num-processes", str(world),
+                    "--process-id", str(rank)])
+    (SEQ_DIR / f"cli_rank{rank}.json").write_text(json.dumps(counts()))
+
+
+def nondeterministic_ops(caught) -> list:
+    """The ops that warned, under ``use_deterministic_algorithms(True,
+    warn_only=True)``, that they have no deterministic kernel."""
+    names = set()
+    for w in caught:
+        msg = str(w.message)
+        if "does not have a deterministic implementation" in msg:
+            names.add(msg.split(" does not have a deterministic")[0])
+        elif "CuBLAS" in msg and "deterministic" in msg:
+            names.add("cuBLAS without CUBLAS_WORKSPACE_CONFIG")
+    return sorted(names)
+
+
+def counter_of(record_name: str) -> str:
+    """The launch counter of a kernel's JSON record."""
+    if record_name == "flash_fwd":
+        return "launches"
+    if record_name.startswith("flash_bwd_"):
+        return record_name[len("flash_bwd_"):] + "_launches"
+    if record_name.startswith("fused_tail"):
+        return "fused_tail_launches"
+    kind, _, part = record_name.partition("_bwd_")
+    return f"{kind}_{part}_launches" if part else f"{record_name}_launches"
+
+
+INFER_BATCHES, STREAM_CLIPS = 60, 3  # timed after the CLI's one warm-up batch or clip
+
+
+def profiled(fn) -> float:
+    """Device busy ms (the profiler's kernel and copy time) of one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def phase_infer(tag: str, served: str) -> str:
+    """Phase 16 (h)'s ``infer``: three runs of INFER_BATCHES timed batches
+    at the training cell's shape, then where a batch's time goes: the
+    device's busy time per batch from two profiled runs (INFER_BATCHES + 1
+    and 1 batch, so that the restore and the warm-up batch cancel), and the
+    host's time to make a synthetic batch. Returns the last run's output."""
+    argv = ["infer", "--checkpoint", served, "--batch-size", "8", "--clip-len", "8", "--image-size", "256"]
+    rates = []
+    for _ in range(3):
+        text = run_cli(argv + ["--synthetic", str(INFER_BATCHES + 1)])
+        rates.append(float(re.search(r"([0-9.]+) frames/s", text).group(1)))
+    med = statistics.median(rates)
+    wall_ms = 8 * 8 / med * 1e3
+    busy = [profiled(lambda n=n: run_cli(argv + ["--synthetic", str(n)])) for n in (INFER_BATCHES + 1, 1)]
+    busy_ms = (busy[0] - busy[1]) / INFER_BATCHES
+    t0 = time.perf_counter()
+    for _ in SyntheticClips(8, 8, 256, INFER_BATCHES):
+        pass
+    make_ms = (time.perf_counter() - t0) / INFER_BATCHES * 1e3
+    print(f"[{tag}] (h) infer --batch-size 8 --clip-len 8 --image-size 256 (bf16, 'xla' attention, "
+          f"{INFER_BATCHES} timed batches a run, 3 runs): frames/s {[round(r, 1) for r in rates]}, median "
+          f"{med:.1f} (spread {100 * (max(rates) - min(rates)) / med:.2f}%), {wall_ms:.2f} ms a batch; the "
+          f"device busy {busy_ms:.2f} ms a batch (profiled, {100 * (1 - busy_ms / wall_ms):.1f}% idle); "
+          f"the host makes a synthetic batch in {make_ms:.2f} ms (SyntheticClips alone)")
+    return text
+
+
+def phase_runtime(train_ms: float) -> dict:
+    """Phase 16: the run-time through ``cli.main``; module docstring.
+    Returns the launches of its three training commands by counter: (a)'s
+    flash run, (f)'s windowed run and (g)'s rank 0."""
+    import warnings
+
+    import torch.multiprocessing as mp
+
+    tag = "16 run-time"
+    n = flagship_video_config(256).temporal.num_layers
+    cwd = os.getcwd()
+    det = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)  # runs/ (the event files) goes here
+        try:
+            torch.backends.cudnn.deterministic = True
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                # (a) 2 epochs of 3 steps, a checkpoint per epoch, the newest kept.
+                a_dir = tmp / "a"
+                reset_counts()
+                t0 = time.perf_counter()
+                text = run_cli(["video", *CLI_CELL, "--epochs", "2", "--save-every", "1",
+                                "--checkpoint-dir", str(a_dir)])
+                torch.cuda.synchronize()
+                a_s = time.perf_counter() - t0
+                launches = a_counts = counts()
+                check(launches == expect_counts(**{k: n * 6 for k in FLASH3}),
+                      f"(a) launches over 6 steps {launches}")
+                check(re.findall(r"Video epoch \d+", text) == ["Video epoch 1", "Video epoch 2"], text)
+                check(step_tags(a_dir) == ["step_2"] and (a_dir / "TAG_SCHEME").read_text() == "epochs",
+                      f"(a) tags {step_tags(a_dir)}")
+                rec = json.loads((a_dir / "run.json").read_text())
+                check(rec["command"] == "video" and rec["environment"]["device_name"]
+                      == torch.cuda.get_device_name(0), f"(a) run.json {rec['environment']}")
+                events = list((tmp / "runs" / "video").glob("events.out.tfevents.*"))
+                scalars = [json.loads(x) for x in (tmp / "runs" / "video" / "metrics.jsonl").open()]
+                check(len(events) == 1 and [(s["tag"], s["step"]) for s in scalars] == [
+                    ("Loss/Train", 1), ("PSNR/Train", 1), ("Loss/Train", 2), ("PSNR/Train", 2)],
+                    f"(a) event files {events}, scalars {scalars}")
+                print(f"[{tag}] (a) video {' '.join(CLI_CELL)} --epochs 2 --save-every 1 (fp32, AdamW 1e-4, "
+                      f"mixed loss, DevicePrefetch 2) in {a_s:.1f} s: flash launches over 6 steps fwd "
+                      f"{launches['launches']}, dq {launches['dq_launches']}, dkv {launches['dkv_launches']} "
+                      f"(2/2/2 per step), other kernels 0; tags {step_tags(a_dir)}, TAG_SCHEME epochs, "
+                      f"run.json, 1 event file with Loss/PSNR at epochs 1-2; "
+                      + "; ".join(re.findall(r"Video epoch \d+: [^\n]*", text)))
+
+                # (b) restore bit-equal, then resume for epoch 3 against 3 straight epochs.
+                state, raw, restore_ms = cli_state(a_dir / "step_2")
+                ckpt.save_state(str(tmp / "again"), 2, state, extra=raw.get("extra"))
+                again = ckpt.restore_state(str(tmp / "again" / "step_2"))
+                bad = unequal(state_tensors(raw), state_tensors(again))
+                check(not bad, f"(b) restored state differs from the saved one: {bad[:5]}")
+                check((again["opt_state"]["count"], again["train_step"]) == (6, 6),
+                      f"(b) count {again['opt_state']['count']}, step {again['train_step']}")
+                n_tensors = len(state_tensors(raw))
+                del state, again
+                free_cuda()
+                text = run_cli(["video", *CLI_CELL, "--epochs", "3", "--save-every", "1", "--resume",
+                                "--checkpoint-dir", str(a_dir)])
+                check(re.findall(r"Video epoch \d+", text) == ["Video epoch 3"], f"(b) resume printed {text}")
+                straight = tmp / "straight"
+                run_cli(["video", *CLI_CELL, "--epochs", "3", "--save-every", "10",
+                         "--checkpoint-dir", str(straight)])
+                resumed = state_tensors(ckpt.restore_state(str(a_dir / "step_3")))
+                ref = state_tensors(ckpt.restore_state(str(straight / "step_3")))
+                bad = unequal(resumed, ref)
+                nondet = nondeterministic_ops(caught)
+            if bad:
+                pmax = max(v.abs().max().item() for k, v in ref.items() if k.startswith("model.")
+                           and v.is_floating_point())
+                worst = max((resumed[k].double() - ref[k].double()).abs().max().item() for k in bad
+                            if ref[k].is_floating_point())
+                check(worst <= 1e-5 * pmax, f"(b) resumed vs straight: {len(bad)} tensors differ, "
+                      f"max abs {worst} > 1e-5 x {pmax}; ops without a deterministic kernel: {nondet}")
+                b_line = (f"{len(bad)} of {len(ref)} tensors differ, max abs {worst:.3g} <= 1e-5 x max|p| "
+                          f"{pmax:.3g}; ops without a deterministic kernel: {nondet}")
+            else:
+                b_line = f"all {len(ref)} tensors bit-equal (model, moments, EMA, generators)"
+            print(f"[{tag}] (b) step_2 restored into a fresh flow: {n_tensors} tensors bit-equal to the saved "
+                  f"payload (model, moments, EMA, generators), count 6; --resume --epochs 3 started at epoch 3; "
+                  f"2 + 1 epochs against 3 straight (cudnn.deterministic, deterministic algorithms "
+                  f"warn-only): {b_line}")
+            del resumed, ref
+            torch.backends.cudnn.deterministic = det
+            torch.use_deterministic_algorithms(False)
+
+            # (c) a mid-epoch resume from a clippack.
+            clips = np.random.default_rng(DATA_SEED).integers(0, 256, (DATA_CLIPS, 8, 256, 256, 3),
+                                                              dtype=np.uint8)
+            pack = str(tmp / "clips.cpk")
+            pack_clips(pack, clips)
+            del clips
+            c_dir = tmp / "c"
+            flags = ["--clippack", pack, "--batch-size", "8", "--clip-len", "8", "--image-size", "256",
+                     "--attn-impl", "flash", "--save-every-steps", "2", "--checkpoint-dir", str(c_dir)]
+            run_cli(["video", *flags, "--epochs", "1"])
+            check(step_tags(c_dir) == ["step_2", "step_3"], f"(c) tags {step_tags(c_dir)}")
+            shutil.rmtree(c_dir / "step_3")  # preempted before the clean-shutdown save
+            reset_counts()
+            text = run_cli(["video", *flags, "--epochs", "2", "--resume"])
+            launches = counts()
+            check(launches == expect_counts(**{k: n * 4 for k in FLASH3}),
+                  f"(c) launches {launches} (expected 4 steps)")
+            extra = ckpt.restore_state(str(c_dir / "step_5"))["extra"]
+            check(step_tags(c_dir) == ["step_2", "step_5", "step_6"]
+                  and extra == {"train_epoch": 2, "data_position": {"epoch": 1, "batch": 2}},
+                  f"(c) tags {step_tags(c_dir)}, step_5 extra {extra}")
+            print(f"[{tag}] (c) clippack of {DATA_CLIPS} clips, batch 8, --save-every-steps 2: tags step_2, "
+                  f"step_3; step_3 dropped (a preemption); --resume --epochs 2 sought epoch 0 batch 2 and ran "
+                  f"4 steps (flash launches {launches['launches']}/{launches['dq_launches']}/"
+                  f"{launches['dkv_launches']}): the epoch's last batch, then epoch 2; tags "
+                  f"{step_tags(c_dir)}, step_5 at epoch 1 batch 2")
+
+            # (d) the full state's save, async save and restore.
+            state, raw, restore_ms = cli_state(a_dir / "step_3")
+            d_dir = tmp / "d"
+            save_ms, block_ms, wait_ms = [], [], []
+            for i in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ckpt.save_state(str(d_dir), 10 + i, state)
+                save_ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                ckpt.save_state(str(d_dir), 20 + i, state, async_write=True)
+                t1 = time.perf_counter()
+                ckpt.wait_for_async_saves()
+                block_ms.append((t1 - t0) * 1e3)
+                wait_ms.append((time.perf_counter() - t1) * 1e3)
+            nbytes = (d_dir / "step_10" / ckpt.PAYLOAD).stat().st_size
+            restores = []
+            for i in range(2):
+                del state
+                free_cuda()
+                state, _, ms = cli_state(d_dir / f"step_{20 + i}")
+                restores.append(ms)
+            n_params = sum(p.numel() for p in state.model.parameters())
+            print(f"[{tag}] (d) full state ({n_params / 1e6:.1f} M parameters; model, AdamW moments, EMA, "
+                  f"generators) {nbytes / 1e9:.3f} GB on disk: save {[round(x, 1) for x in save_ms]} ms; "
+                  f"async save blocking {[round(x, 1) for x in block_ms]} ms, then the writer "
+                  f"{[round(x, 1) for x in wait_ms]} ms; restore_state_into {[round(x, 1) for x in restores]} "
+                  f"ms (first restore {restore_ms:.1f})")
+            del state, raw
+            free_cuda()
+            shutil.rmtree(d_dir)
+
+            # (e) the flow's step against phase 11's bare step; saves left out (timed in (d)).
+            model = VideoHybridNet(flagship_video_config(256, attn_impl="flash"), device="cuda",
+                                   generator=torch.Generator().manual_seed(0))
+            flow = VideoFlow(model, cfg=TrainConfig(model_name="video", loss="mixed", lr=1e-4,
+                                                    device_prefetch=2, checkpoint_dir=str(tmp / "e")),
+                             image_size=256)
+            flow._save = lambda *a, **k: None
+            data = TimedData([random_clip(8, 8, 256, seed=20 + i, device="cpu").numpy() for i in range(4)])
+            flow.train(data, epochs=4, clip_len=8, save_every=100)
+            per_step = [(b - a) / len(data) * 1e3 for a, b in zip(data.starts[1:], data.starts[2:])]
+            epoch = [4]
+
+            def one_epoch():
+                flow.train(data, epochs=epoch[0] + 1, clip_len=8, start_epoch=epoch[0], save_every=100)
+                epoch[0] += 1
+
+            prof = profile_window(one_epoch, iters=1, top=5)
+            flow_ms = statistics.median(per_step)
+            print(f"[{tag}] (e) VideoFlow.train at phase 11's cell (host batches through DevicePrefetch 2, "
+                  f"4 steps per epoch, saves left out): step ms {[round(x, 1) for x in per_step]} (epochs 2-3), "
+                  f"median {flow_ms:.1f} against phase 11's bare step {train_ms:.1f} "
+                  f"({100 * (flow_ms / train_ms - 1):+.2f}%); profile of one epoch: wall "
+                  f"{prof['wall_ms_per_call'] / len(data):.1f} ms/step, device busy "
+                  f"{prof['device_busy_ms_per_call'] / len(data):.1f} ms/step, idle share "
+                  f"{100 * prof['device_idle_share']:.2f}%")
+            del flow, model, data
+            free_cuda()
+
+            # (f) windowed training through the CLI: the banded kernels.
+            reset_counts()
+            run_cli(["video", "--synthetic", "2", "--batch-size", "2", "--clip-len", "32", "--image-size",
+                     "256", "--attn-impl", "flash", "--window", "64", "--epochs", "1",
+                     "--checkpoint-dir", str(tmp / "f")])
+            band = counts()
+            check(band == expect_counts(band_fwd_launches=2 * n,
+                                        band_ds_launches=2 * n, band_dq_launches=2 * n,
+                                        band_dkv_launches=2 * n), f"(f) launches {band}")
+            print(f"[{tag}] (f) video --window 64 --batch-size 2 --clip-len 32 --synthetic 2 --epochs 1: band "
+                  f"launches over 2 steps fwd {band['band_fwd_launches']}, ds {band['band_ds_launches']}, dq "
+                  f"{band['band_dq_launches']}, dkv {band['band_dkv_launches']} (2/2/2/2 per step), other 0")
+            free_cuda()
+
+            # (g) --mesh seq=2 on two ranks sharing this card (gloo), one step.
+            shutil.rmtree(SEQ_DIR, ignore_errors=True)
+            SEQ_DIR.mkdir(parents=True)
+            argv = ["video", "--synthetic", "1", "--batch-size", "2", "--clip-len", "32", "--image-size",
+                    "256", "--attn-impl", "flash", "--window", "64", "--mesh", "seq=2", "--epochs", "1",
+                    "--device-prefetch", "0", "--checkpoint-dir", str(tmp / "g")]
+            t0 = time.perf_counter()
+            mp.spawn(cli_rank, args=(2, str(SEQ_DIR / "cli_rendezvous"), argv), nprocs=2, join=True)
+            wall = time.perf_counter() - t0
+            halo = [json.loads((SEQ_DIR / f"cli_rank{r}.json").read_text()) for r in range(2)]
+            want = expect_counts(halo_fwd_launches=n, halo_ds_launches=n, halo_dq_launches=n,
+                                 halo_dkv_launches=n)
+            check(all(h == want for h in halo), f"(g) launches per rank {halo}")
+            check(step_tags(tmp / "g") == ["step_1"], f"(g) tags {step_tags(tmp / 'g')}")
+            print(f"[{tag}] (g) video --mesh seq=2 --window 64 (B 2, T 32) as 2 ranks sharing this card over gloo, "
+                  f"spawned in {wall:.1f} s: halo launches per rank fwd {halo[0]['halo_fwd_launches']}, ds "
+                  f"{halo[0]['halo_ds_launches']}, dq {halo[0]['halo_dq_launches']}, dkv "
+                  f"{halo[0]['halo_dkv_launches']}, band and flash 0; rank 0 wrote step_1")
+
+            # (h) serving the checkpoint of (b).
+            served = str(a_dir / "step_3")
+            out = {"infer": phase_infer(tag, served)}
+            out["eval"] = run_cli(["eval", "--checkpoint", served, "--synthetic", "2", "--batch-size", "8",
+                                   "--clip-len", "8", "--image-size", "256"])
+            out["stream"] = run_cli(["stream", "--checkpoint", served, "--synthetic", str(STREAM_CLIPS + 1),
+                                     "--batch-size", "1", "--clip-len", "16", "--height", "1080",
+                                     "--width", "1920"])
+            out["summary"] = run_cli(["summary", "--image-size", "256", "--depth", "1"])
+            out["doctor"] = run_cli(["doctor", "--smoke"])
+            for k in ("infer", "eval"):
+                psnr = float(re.search(r"PSNR (-?[0-9.]+) dB", out[k]).group(1))
+                check(math.isfinite(psnr), f"(h) {k}: {out[k]}")
+            check(f"streamed {16 * STREAM_CLIPS} frames @ 1080x1920" in out["stream"],
+                  f"(h) stream: {out['stream']}")
+            check("parameters (" in out["summary"], f"(h) summary: {out['summary']}")
+            check("smoke flash forward" in out["doctor"], f"(h) doctor: {out['doctor']}")
+            for k, v in out.items():
+                lines = v.strip().splitlines()
+                shown = [ln for ln in lines if not re.match(r"^\S+\s+\S+\s+[0-9,]+$", ln)] if k == "summary" \
+                    else lines
+                print(f"[{tag}] (h) {k}: " + " | ".join(shown[-6:]))
+        finally:
+            os.chdir(cwd)
+            torch.backends.cudnn.deterministic = det
+            torch.use_deterministic_algorithms(False)
+    free_cuda()
+    return {k: a_counts[k] + band[k] + halo[0][k] for k in a_counts}
+
+
+# ---------------------------------------------------------------- phase 17
+
+
+def phase_config3() -> None:
+    """Phase 17: BASELINE config 3's bf16 training step; module docstring."""
+    tag = "17 config 3"
+    size, batch, frames = 224, 8, 16
+    model = VideoHybridNet(flagship_video_config(size), device="cuda", compute_dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, make_optimizer(1e-4, grad_clip_norm=1.0), rng=0)
+    step = make_video_train_step(size, loss="mse")
+    clips = [random_clip(batch, frames, size, seed=40 + i) for i in range(2)]
+    p0 = {n_: p.detach().clone() for n_, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses_ = [step(state, clips[i % 2])[1]["loss"] for i in range(3)]
+    torch.cuda.synchronize()
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses_ = [x.item() for x in losses_]
+    check(launches == expect_counts(), f"config 3 launches {launches} (attn 'xla': no kernel)")
+    check(all(math.isfinite(x) for x in losses_), f"config 3 loss {losses_}")
+    check({p.dtype for p in model.parameters()} == {torch.float32}
+          and {b.dtype for n_, b in model.named_buffers() if "running" in n_} == {torch.float32},
+          "config 3: a parameter or a BatchNorm stat left fp32")
+    still = [n_ for n_, p in model.named_parameters() if torch.equal(p.detach(), p0[n_])]
+    check(not still, f"config 3: parameters unchanged: {still[:5]}")
+    del p0
+    reps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for clip in clips:
+            step(state, clip)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) / 2)
+    med = statistics.median(reps)
+    print(f"[{tag}] flagship {size}^2 attn 'xla', compute bf16 over fp32 parameters (autocast), B={batch} "
+          f"T={frames}, mse, noise 0.05, AdamW 1e-4 clip 1.0: loss {[round(x, 5) for x in losses_]}, every "
+          f"parameter and BN stat fp32 and moved, no hand-written kernel launched; step {med * 1e3:.1f} ms "
+          f"(median of 3 reps of 2 steps, spread {100 * (max(reps) - min(reps)) / med:.2f}%), "
+          f"{batch * frames / med:.1f} trained frames/s, peak memory {peak_gb:.2f} GB")
+    prof = profile_window(lambda: step(state, clips[0]), iters=1, top=5)
+    print_profile(f"{tag} profile", prof)
+    # CUDA's autocast hands LayerNorm on in fp32; the port rounds it back
+    # to bf16 as flax does, so the residual stream stays bf16.
+    tokens = torch.zeros(1, 8 * frames, (size // 4) ** 2, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        mixed = model.eval().temporal_mix(tokens)
+    check(mixed.dtype == torch.bfloat16, f"config 3: the temporal stage hands on {mixed.dtype}")
+    print(f"[{tag}] the temporal stage's output under autocast: {mixed.dtype}")
+    del model, state, clips, tokens, mixed
+    free_cuda()
+
+
 def bound(nbytes: float, flops: float, dtype: torch.dtype):
     """(ms, "bytes" or "operations"): the larger of the bytes over HBM
     bandwidth and the products over the peak of the dtype's units."""
@@ -2358,6 +2841,8 @@ def main() -> None:
     halo_launches = phase_seq_two_ranks(eval_ref)
     phase_streaming()
     phase_data_path(train_ms)
+    cli_counts = phase_runtime(train_ms)
+    phase_config3()
     records = time_flash(fwd_launches, fwd_err, {"flash_bwd_dq": train["dq_launches"],
                                                  "flash_bwd_dkv": train["dkv_launches"]}, bwd_errs)
     records += time_band({"band_fwd": band_fwd_launches, "band_bwd_ds": windowed["band_ds_launches"],
@@ -2366,6 +2851,8 @@ def main() -> None:
     records += time_halo(dict(halo_launches, **{f"halo_bwd_{p_}": halo_launches[f"halo_{p_}_launches"]
                                                 for p_ in ("ds", "dq", "dkv")}), halo_errs)
     records += time_fused_tail(tail_launches)
+    for rec in records:  # phase 16: the launches of the CLI's training runs
+        rec["cli_launches"] = cli_counts[counter_of(rec["name"])]
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,6 +17,10 @@ backwards:
 
 Every leaf maps to exactly one entry; ``load_state_dict(strict=True)``
 checks that every entry of the port is covered.
+
+:func:`from_flax_state` carries a whole JAX ``TrainState`` across: the
+variables as above, and the optax state (moments, count, parameter EMA)
+through the same leaf maps into the port's checkpoint payload.
 """
 
 from __future__ import annotations
@@ -90,3 +94,75 @@ def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if leaf == "running_mean":
                 state[f"{module}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
     return state
+
+
+def _fields(node: Any):
+    """A namedtuple's fields or a mapping's items (an untyped orbax restore
+    turns optax namedtuples into name-keyed dicts), else None."""
+    if hasattr(node, "_fields"):
+        return {f: getattr(node, f) for f in node._fields}
+    if isinstance(node, Mapping):
+        return dict(node)
+    return None
+
+
+def _find(node: Any, match) -> Any:
+    """The first node (depth first) whose fields satisfy ``match``."""
+    fields = _fields(node)
+    if fields is not None and match(set(fields)):
+        return fields
+    children = fields.values() if fields is not None else (
+        node if isinstance(node, (list, tuple)) else ())
+    for child in children:
+        found = _find(child, match)
+        if found is not None:
+            return found
+    return None
+
+
+def _param_tree(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A param-shaped optax tree (moments, the EMA) through the leaf maps
+    of :func:`from_flax`; leaves that are not arrays (optax's masked
+    placeholders of frozen subtrees) are skipped."""
+    def arrays(t):
+        return {k: arrays(v) if isinstance(v, Mapping) else v
+                for k, v in t.items() if isinstance(v, Mapping) or hasattr(v, "shape")}
+    return from_flax({"params": arrays(tree)})
+
+
+def from_flax_state(state: Any) -> Dict[str, Any]:
+    """A JAX ``TrainState`` (or a ``save_state`` payload: ``params``,
+    ``batch_stats``, ``opt_state``, ``step``) -> the port's checkpoint
+    payload (``train/checkpoint.py``): ``"model"``, ``"opt_state"`` with
+    the moments keyed by parameter name, the update ``count``,
+    ``notfinite_count`` and the ``ema``, and ``"train_step"``.
+
+    The optax state is read by its fields, from numpy, so namedtuples and
+    the name-keyed dicts of an untyped orbax restore both work: Adam's
+    ``ScaleByAdamState`` (``mu``, ``nu``, ``count``) becomes AdamW's
+    ``exp_avg``, ``exp_avg_sq`` and ``step``; ``EmaState`` the EMA;
+    ``ApplyIfFiniteState.notfinite_count`` the skip count. A payload's
+    ``step`` is its tag, a ``TrainState``'s the steps taken."""
+    get = (lambda k: state.get(k)) if isinstance(state, Mapping) else (lambda k: getattr(state, k, None))
+    model = from_flax({"params": get("params"), "batch_stats": get("batch_stats") or {}})
+    opt = get("opt_state")
+    moments: Dict[str, Dict[str, torch.Tensor]] = {}
+    count = 0
+    adam = _find(opt, lambda f: f == {"count", "mu", "nu"})
+    if adam is not None:
+        count = int(np.asarray(adam["count"]))
+        mu, nu = _param_tree(adam["mu"]), _param_tree(adam["nu"])
+        moments = {n: {"step": torch.tensor(float(count)), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+                   for n in mu}
+    ema = _find(opt, lambda f: f == {"ema"})
+    finite = _find(opt, lambda f: "notfinite_count" in f)
+    return {
+        "model": model,
+        "opt_state": {
+            "moments": moments,
+            "count": count,
+            "notfinite_count": int(np.asarray(finite["notfinite_count"])) if finite else 0,
+            "ema": _param_tree(ema["ema"]) if ema is not None else None,
+        },
+        "train_step": int(np.asarray(get("step") or 0)),
+    }

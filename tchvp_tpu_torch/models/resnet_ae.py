@@ -15,7 +15,14 @@ import torch
 import torch.nn as nn
 
 from tchvp_tpu_torch.config import ResNetAEConfig
-from tchvp_tpu_torch.ops.blocks import BatchNorm, Bottleneck, conv, draw_keep, dropout
+from tchvp_tpu_torch.ops.blocks import (
+    BatchNorm,
+    Bottleneck,
+    ConvTranspose2d,
+    conv,
+    draw_keep,
+    dropout,
+)
 
 
 class Encoder32K(nn.Module):
@@ -90,7 +97,7 @@ class Decoder32K(nn.Module):
         self.conv_bns = nn.ModuleList(BatchNorm(f) for f in conv_features)
         ups = [chans[-1], 384, 192]
         self.upconvs = nn.ModuleList(
-            nn.ConvTranspose2d(a, b, 2, stride=2) for a, b in zip(ups, ups[1:])
+            ConvTranspose2d(a, b, 2, stride=2) for a, b in zip(ups, ups[1:])
         )
         self.up_bns = nn.ModuleList(BatchNorm(f) for f in ups[1:])
         posts = [ups[-1], 64, 8]

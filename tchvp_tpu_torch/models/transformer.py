@@ -34,7 +34,7 @@ from tchvp_tpu_torch.ops.attention import (
     multi_head_attention,
     resolve_impl,
 )
-from tchvp_tpu_torch.ops.blocks import draw_keep, dropout
+from tchvp_tpu_torch.ops.blocks import Dense, draw_keep, dropout
 from tchvp_tpu_torch.parallel.mesh import axis_shards
 
 LN_EPS = 1e-5
@@ -71,10 +71,10 @@ class TokenMultiheadAttention(nn.Module):
         self.attn_impl = attn_impl
         self.window_size = window_size
         self.seq_axis = seq_axis
-        self.q_linear = nn.Linear(dim, dim)
-        self.k_linear = nn.Linear(dim, dim)
-        self.v_linear = nn.Linear(dim, dim)
-        self.out_linear = nn.Linear(dim, dim)
+        self.q_linear = Dense(dim, dim)
+        self.k_linear = Dense(dim, dim)
+        self.v_linear = Dense(dim, dim)
+        self.out_linear = Dense(dim, dim)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
@@ -112,8 +112,15 @@ class TransformerLayer(nn.Module):
             attn_impl=cfg.attn_impl, window_size=cfg.window_size, seq_axis=cfg.seq_axis,
         )
         self.norm = nn.LayerNorm(d, eps=LN_EPS)
-        self.ffn1 = nn.Linear(d, cfg.hidden_dim)
-        self.ffn2 = nn.Linear(cfg.hidden_dim, d)
+        self.ffn1 = Dense(d, cfg.hidden_dim)
+        self.ffn2 = Dense(cfg.hidden_dim, d)
+
+
+def _norm(layer: TransformerLayer, h: torch.Tensor) -> torch.Tensor:
+    """The layer's LayerNorm of ``h``, handed on in h's dtype: autocast
+    returns it in fp32, flax's ``LayerNorm(dtype)`` rounds it to the compute
+    dtype (a no-op outside autocast)."""
+    return layer.norm(h).to(h.dtype)
 
 
 class TransformerEncoder(nn.Module):
@@ -167,10 +174,10 @@ class TransformerEncoder(nn.Module):
             draws = self.draw_dropout(x.shape, generator, x.device, mask is not None)
         for i, layer in enumerate(self.layers):
             attn_draw = draws.attention[i] if self.training else None
-            x = x + layer.norm(layer.attention(x, mask=mask, generator=generator,
-                                               dropout_draw=attn_draw))
+            x = x + _norm(layer, layer.attention(x, mask=mask, generator=generator,
+                                                 dropout_draw=attn_draw))
             h = layer.ffn2(torch.relu(layer.ffn1(x)))
-            x = x + layer.norm(h)
+            x = x + _norm(layer, h)
             if cfg.scale_out:
                 x = scale_out(x)
             if self.training and rate > 0.0:

@@ -18,6 +18,7 @@ part. JAX's arrays are global under GSPMD, so this is what it computes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -65,6 +66,18 @@ class VideoHybridNet(nn.Module):
     ``device`` and ``dtype``. Entry points run on the card unless the
     caller asks for the CPU.
 
+    ``dtype`` casts the parameters themselves (the serving models).
+    ``compute_dtype`` is mixed precision for training, the counterpart of
+    the JAX package's ``VideoHybridNet(dtype=bfloat16)`` with its default
+    fp32 ``param_dtype``: the parameters stay in ``dtype`` (the master
+    copy AdamW updates) and each stage runs under ``torch.autocast``, which
+    casts every conv's and matmul's inputs and weights to
+    ``compute_dtype`` as flax's layers cast theirs. The rounding points
+    are flax's: a biased layer rounds its product, then adds its bias
+    (``ops/blocks.py``); attention logits and softmax are fp32; BatchNorm
+    and LayerNorm compute in fp32 from the bf16 activations and hand their
+    output on in bf16; the running stats stay fp32.
+
     In train mode every dropout's randomness comes from one
     :class:`VideoDraws`, drawn up front (:meth:`draw_dropout`) the way the
     JAX step splits its dropout key before the forward, so that the stages
@@ -73,9 +86,11 @@ class VideoHybridNet(nn.Module):
 
     def __init__(self, config: VideoModelConfig = VideoModelConfig(), *,
                  device: torch.device | str = "cuda", dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.config = config
+        self.compute_dtype = compute_dtype
         self.encoder = Encoder32K(config.encoder)
         self.temporal = TransformerEncoder(config.temporal)
         self.decoder = Decoder32K(output_type=config.output_type)
@@ -102,9 +117,19 @@ class VideoHybridNet(nn.Module):
         return VideoDraws(latent_keep,
                           self.temporal.draw_dropout((b, s, d), generator, device, has_mask))
 
+    def _compute(self, x: torch.Tensor):
+        """The autocast scope of ``compute_dtype`` (a no-op without one)."""
+        if self.compute_dtype is None:
+            return contextlib.nullcontext()
+        return torch.autocast(x.device.type, dtype=self.compute_dtype)
+
     def encode_clip(self, clip: torch.Tensor, generator: Optional[torch.Generator] = None,
                     draws: Optional[VideoDraws] = None) -> Tuple[torch.Tensor, Tuple[int, int]]:
         """(B, T, H, W, C) -> (tokens (B, T*tpf, D), latent (hh, ww))."""
+        with self._compute(clip):
+            return self._encode_clip(clip, generator, draws)
+
+    def _encode_clip(self, clip, generator, draws):
         b, t = clip.shape[0], clip.shape[1]
         frames = layout.nhwc_to_nchw(layout.fold_time(clip))  # (B*T, C, H, W)
         keep = draws.latent_keep if draws is not None else None
@@ -128,19 +153,21 @@ class VideoHybridNet(nn.Module):
                      generator: Optional[torch.Generator] = None,
                      draws: Optional[VideoDraws] = None) -> torch.Tensor:
         """Temporal transformer over (B, S, D) tokens (+ optional posenc)."""
-        if self.config.use_posenc:
-            tokens = tokens + self._posenc_for(tokens)[None]
-        return self.temporal(tokens, mask=mask, generator=generator,
-                             draws=draws.temporal if draws is not None else None)
+        with self._compute(tokens):
+            if self.config.use_posenc:
+                tokens = tokens + self._posenc_for(tokens)[None]
+            return self.temporal(tokens, mask=mask, generator=generator,
+                                 draws=draws.temporal if draws is not None else None)
 
     def decode_tokens(self, tokens: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
         """(B, T*tpf, D) tokens -> (B, T, H, W, C') reconstructed frames."""
         b = tokens.shape[0]
         cc = self.config.tokens_per_frame
         t = tokens.shape[1] // cc
-        latent = tokens_to_latent(tokens.reshape(b * t, cc, tokens.shape[-1]), hw)
-        recon = self.decoder(latent)  # (B*T, C', H, W)
-        return layout.unfold_time(layout.nchw_to_nhwc(recon), b)
+        with self._compute(tokens):
+            latent = tokens_to_latent(tokens.reshape(b * t, cc, tokens.shape[-1]), hw)
+            recon = self.decoder(latent)  # (B*T, C', H, W)
+            return layout.unfold_time(layout.nchw_to_nhwc(recon), b)
 
     def forward(self, clip: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,

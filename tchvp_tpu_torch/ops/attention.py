@@ -53,6 +53,13 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * dh)
 
 
+def _fp32_logits(spec: str, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """QK^T in fp32, also under autocast (which would run the product in
+    its compute dtype): JAX's ``preferred_element_type=float32``."""
+    with torch.autocast(q.device.type, enabled=False):
+        return torch.einsum(spec, q.float(), k.float())
+
+
 def sdpa_xla(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -74,7 +81,7 @@ def sdpa_xla(
     """
     dispatch_trace.record("sdpa_xla")
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else scale
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    logits = _fp32_logits("bhqd,bhkd->bhqk", q, k) * scale
     if mask is not None:
         logits = logits.masked_fill(~mask, -1e9)
     weights = torch.softmax(logits, dim=-1)
@@ -121,7 +128,7 @@ def _sdpa_banded(
     v_prev = torch.cat([v_prev0[:, :, None], vw[:, :, :-1]], dim=2)
     k_ctx = torch.cat([k_prev, kw], dim=3)  # (b, h, nw, 2w, dh)
     v_ctx = torch.cat([v_prev, vw], dim=3)
-    logits = torch.einsum("bhnqd,bhnkd->bhnqk", qw.float(), k_ctx.float()) * scale
+    logits = _fp32_logits("bhnqd,bhnkd->bhnqk", qw, k_ctx) * scale
     # Mask the first window's left context at a sequence start.
     first = (torch.arange(nw, device=q.device) == 0).reshape(1, 1, nw, 1, 1)
     is_prev = (torch.arange(2 * w, device=q.device) < w).reshape(1, 1, 1, 1, 2 * w)

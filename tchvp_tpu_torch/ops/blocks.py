@@ -1,5 +1,5 @@
-"""Conv building blocks of the main path: BatchNorm, the ResNet Bottleneck and
-the polyphase upconv.
+"""Conv building blocks of the main path: BatchNorm, the ResNet Bottleneck,
+the polyphase upconv and the biased layers of mixed precision.
 
 Counterparts of ``tchvp_tpu/ops/blocks.py``'s ``BatchNorm``, ``Bottleneck``
 and ``PixelShuffleUpconv``, NCHW. flax's BatchNorm momentum 0.9 is torch's
@@ -7,6 +7,13 @@ and ``PixelShuffleUpconv``, NCHW. flax's BatchNorm momentum 0.9 is torch's
 batch variance and updates the running variance with the biased one too,
 where torch's own BatchNorm2d would update it with the unbiased one; the
 port's :class:`BatchNorm` does what flax does.
+
+Under ``torch.autocast`` (a model's ``compute_dtype``) the biased layers
+:class:`Dense`, :class:`Conv2d` and :class:`ConvTranspose2d` round as
+flax's ``Dense``/``Conv``/``ConvTranspose(dtype=bfloat16)`` do: the
+product in the compute dtype, then the bias added in it. torch's own fuse
+the bias into the product's one rounding. Outside autocast they are
+torch's layers.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from tchvp_tpu_torch.parallel.collectives import all_reduce_sum
 from tchvp_tpu_torch.parallel.mesh import axis_group, mesh_with_axis
@@ -115,9 +123,50 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
+def _autocast(x: torch.Tensor) -> bool:
+    return torch.is_autocast_enabled(x.device.type)
+
+
+def _add_bias(y: torch.Tensor, bias: torch.Tensor, channel_dim: int) -> torch.Tensor:
+    """``y + bias`` in y's dtype, the bias along ``channel_dim`` of y."""
+    shape = [1] * y.dim()
+    shape[channel_dim] = -1
+    return y + bias.to(y.dtype).reshape(shape)
+
+
+class Dense(nn.Linear):
+    """``nn.Linear``; under autocast, flax's two roundings (module docstring)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bias is None or not _autocast(x):
+            return super().forward(x)
+        return _add_bias(F.linear(x, self.weight), self.bias, -1)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d``; under autocast, flax's two roundings (module docstring)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bias is None or not _autocast(x):
+            return super().forward(x)
+        return _add_bias(self._conv_forward(x, self.weight, None), self.bias, 1)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (no ``output_size``); under autocast, flax's
+    two roundings (module docstring)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bias is None or not _autocast(x):
+            return super().forward(x)
+        y = F.conv_transpose2d(x, self.weight, None, self.stride, self.padding,
+                               self.output_padding, self.groups, self.dilation)
+        return _add_bias(y, self.bias, 1)
+
+
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0,
          bias: bool = False) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding, bias=bias)
+    return Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding, bias=bias)
 
 
 class Bottleneck(nn.Module):

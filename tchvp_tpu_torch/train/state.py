@@ -25,6 +25,7 @@ its semantics kept where torch's defaults differ:
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Union
@@ -253,6 +254,26 @@ def create_train_state(model: nn.Module, tx: OptimizerSpec, rng: int = 0) -> Tra
 def ema_params(state: TrainState) -> Optional[Dict[str, torch.Tensor]]:
     """The EMA of the parameters by name, or None without ``ema_decay``."""
     return state.tx.ema
+
+
+def ema_state_dict(state_dict: Dict[str, torch.Tensor],
+                   ema: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``state_dict`` with its parameters swapped for their EMA, its
+    BatchNorm stats kept: what eval and serving load for ``--ema``, from a
+    live state (:func:`with_ema_params`) or from a checkpoint."""
+    return {**state_dict, **ema}
+
+
+def with_ema_params(state: TrainState) -> TrainState:
+    """A state whose model holds the parameter EMA (for eval and serving),
+    or ``state`` itself when the optimizer keeps no EMA. The live model is
+    left alone: the returned state holds a copy of it, with the BatchNorm
+    stats of the live one, sharing the optimizer and the generators."""
+    if state.tx.ema is None:
+        return state
+    model = copy.deepcopy(state.model)
+    model.load_state_dict(ema_state_dict(state.model.state_dict(), state.tx.ema))
+    return dataclasses.replace(state, model=model)
 
 
 def param_count(model: nn.Module) -> int:

@@ -207,6 +207,9 @@ def make_video_train_step(
             x, y = noisy[i * mb:(i + 1) * mb], clean[i * mb:(i + 1) * mb]
             draws = model.draw_dropout(x.shape, state.dropout_generator, x.device)
             _, recon = _remat_forward(model, x, draws, remat_policy)
+            # A compute_dtype model's bf16 recon meets the fp32 clip in the
+            # loss at fp32, as jnp's type promotion has it in JAX.
+            recon = recon.to(y.dtype)
             flat_r = recon.reshape((mb * t,) + recon.shape[2:])
             flat_c = y.reshape((mb * t,) + y.shape[2:])
             loss_val = loss_fn(flat_r, flat_c)

@@ -45,7 +45,10 @@ def test_importing_the_model_loads_no_jax():
         "tchvp_tpu_torch.parallel.mesh, tchvp_tpu_torch.parallel.collectives, "
         "tchvp_tpu_torch.data, tchvp_tpu_torch.data.clippack, tchvp_tpu_torch.data.manifest, "
         "tchvp_tpu_torch.data.device_prefetch, tchvp_tpu_torch.data.synthetic, "
-        "tchvp_tpu_torch.data.pipeline; "
+        "tchvp_tpu_torch.data.pipeline, tchvp_tpu_torch.cli, tchvp_tpu_torch.train.checkpoint, "
+        "tchvp_tpu_torch.train.loops, tchvp_tpu_torch.train.health, tchvp_tpu_torch.train.logging, "
+        "tchvp_tpu_torch.utils, tchvp_tpu_torch.utils.runrecord, tchvp_tpu_torch.utils.profiling, "
+        "tchvp_tpu_torch.utils.summary, tchvp_tpu_torch.utils.imaging; "
         "sys.path.insert(0, 'tests'); import torch_dist; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tchvp_tpu')]; "

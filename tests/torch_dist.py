@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from tchvp_tpu_torch import parallel
+from tchvp_tpu_torch.config import flagship_video_config as _FLAGSHIP
 from tchvp_tpu_torch.config import TransformerConfig
 from tchvp_tpu_torch.models.transformer import TransformerEncoder
 from tchvp_tpu_torch.models.video import VideoHybridNet
@@ -157,3 +158,33 @@ def run(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -> N
         torch.save(results, Path(out_dir) / f"rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
+
+
+def flagship_without_dropout(*args, **kwargs):
+    """``flagship_video_config`` with every dropout rate 0: the flash route
+    of sharded windowed attention draws one dropout seed per shard, so only
+    without dropout does a sharded step equal the unsharded one."""
+    import dataclasses
+
+    c = _FLAGSHIP(*args, **kwargs)
+    return dataclasses.replace(c, encoder=dataclasses.replace(c.encoder, dropout_rate=0.0),
+                               temporal=dataclasses.replace(c.temporal, dropout_rate=0.0))
+
+
+def run_cli(rank: int, world: int, rendezvous: str, out_dir: str, argv: list) -> None:
+    """One rank of ``python -m tchvp_tpu_torch.cli <argv>`` launched as the
+    CLI's multi-process mode expects (``--coordinator``, ``--num-processes``,
+    ``--process-id``), its model built without dropout
+    (:func:`flagship_without_dropout`); saves the dispatch markers it
+    recorded to ``<out_dir>/cli_rank<r>.pt``."""
+    from tchvp_tpu_torch import cli, config
+
+    torch.set_num_threads(1)
+    config.flagship_video_config = flagship_without_dropout
+    with dispatch_trace.capture() as seen:
+        cli.main(list(argv) + ["--coordinator", f"file://{rendezvous}", "--num-processes", str(world),
+                               "--process-id", str(rank)])
+    torch.save({"seen": seen,
+                "jax_loaded": sorted(m for m in sys.modules
+                                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))},
+               Path(out_dir) / f"cli_rank{rank}.pt")
