@@ -207,6 +207,33 @@ Phases, one or more lines each:
     steps, no hand-written kernel launched, every parameter and BatchNorm
     stat fp32 and moved; step ms (phase 11's protocol), trained frames/s,
     peak memory and a profile;
+18. FCT (``models/fct.py``), the segmentation family, at 256^2, after 17:
+    (a) ``FCTConfig()`` with bf16 ``compute_dtype`` over fp32 parameters,
+    "auto" attention, batch 2 (``benchmarks/fct_forward_bench.py``'s
+    shape): the counts set to 0 before one forward and read after it (9
+    flash forwards, no other kernel: "auto" takes the kernel on the card);
+    bits equal on repeat; within 2e-2 x max|ref| of the same weights in
+    fp32 on "xla" (the plain path, TF32 off); ms per forward (phase 9's
+    protocol, preprocess included), images/s, peak memory, a profile; (b)
+    one fp32 segment step's gradients at batch 2, dropout off, TF32 off,
+    flash (9/9/9 launches) against "xla": the largest difference <= 1e-3 x
+    the largest gradient; (c) ``segment --synthetic 3 --epochs 2`` through
+    ``cli.main`` at the CLI defaults (256^2, batch 8, fp32, dice, AdamW 1e-4
+    clipped at 1.0) in a temporary working directory: flash launches 9/9/9
+    a step plus 9 forwards a sneak peek and no other kernel, a finite dice
+    loss and IoU per epoch, the best-loss checkpoint with its loss history;
+    that checkpoint restored into a fresh ``SegmentationFlow`` and trained
+    to epoch 3 prints only the epochs after its tag and keeps the history;
+    ``SegmentationFlow.infer`` gives masks and Sobel edges in [0, 1] and its
+    dumps; ``eval --model fct`` (9 forwards a batch) and ``summary --model
+    fct``; (d) the bare step at the CLI defaults, dropout on: 9/9/9 launches
+    a step, finite loss and IoU, every parameter moved; step ms (phase 11's
+    protocol), trained images/s, peak memory, the device ms of data,
+    forward, backward and optimizer, a profile window (idle share, top
+    kernels, the flash kernels' share of the step); then the flash forward
+    and pair at the step's five attention shapes (batch 8, 2 heads, fp32)
+    by device time beside SDPA's and their bounds. The flash records of the
+    JSON gain ``fct_launches`` ((a) and (c)) and ``fct_step`` (those times);
 14. kernel times: each kernel at its main-path shape beside its plain
     version, F.scaled_dot_product_attention (a yardstick, never on the
     port's path; with the boolean band as attn_mask for the banded
@@ -277,26 +304,29 @@ import torch.nn.functional as F
 from card_timing import cuda_ms, device_ms, host_ms
 from tchvp_tpu_torch import cli, losses, parallel
 from tchvp_tpu_torch.bench import infer_fn, profile_window, random_clip, stage_ms, time_clips
-from tchvp_tpu_torch.config import AugmentConfig, TrainConfig, flagship_video_config
+from tchvp_tpu_torch.config import AugmentConfig, FCTConfig, TrainConfig, flagship_video_config
 from tchvp_tpu_torch.data import pipeline
 from tchvp_tpu_torch.data.clippack import ClipPackDataset, pack_clips
 from tchvp_tpu_torch.data.device_prefetch import DevicePrefetch
 from tchvp_tpu_torch.data.pipeline import preprocess_clip
-from tchvp_tpu_torch.data.synthetic import SyntheticClips
+from tchvp_tpu_torch.data.synthetic import SyntheticClips, SyntheticImageMasks
 from tchvp_tpu_torch.kernels import build
 from tchvp_tpu_torch.kernels import flash_attention as fa
 from tchvp_tpu_torch.kernels import fused_tail as ft
+from tchvp_tpu_torch.models.fct import FCT
 from tchvp_tpu_torch.models.resnet_ae import Decoder32K, tokens_to_latent
 from tchvp_tpu_torch.models.streaming import StreamingConfig, microbatched_infer, stream_video
 from tchvp_tpu_torch.models.video import VideoHybridNet
 from tchvp_tpu_torch.ops import dispatch_trace
 from tchvp_tpu_torch.ops.attention import _merge_heads, _split_heads
 from tchvp_tpu_torch.ops.blocks import init_flax_default
+from tchvp_tpu_torch.ops.conv_attention import WideFocus
+from tchvp_tpu_torch.ops.sobel import sobel_edges
 from tchvp_tpu_torch.parallel import collectives
 from tchvp_tpu_torch.train import checkpoint as ckpt
-from tchvp_tpu_torch.train.loops import VideoFlow
+from tchvp_tpu_torch.train.loops import SegmentationFlow, VideoFlow
 from tchvp_tpu_torch.train.state import create_train_state, make_optimizer
-from tchvp_tpu_torch.train.steps import make_video_train_step
+from tchvp_tpu_torch.train.steps import make_segmentation_train_step, make_video_train_step
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -2361,6 +2391,385 @@ def phase_config3() -> None:
     free_cuda()
 
 
+# Phase 18: FCT (tchvp_tpu/models/fct.py), the segmentation family, at 256^2.
+FCT_SIZE = 256
+# The (S, Dh) of FCT's attention at 256^2, 2 heads: blocks 1 and 9, 2 and 8,
+# 3 and 7, 4 and 6, the bottleneck.
+FCT_ATTN = ((16384, 4), (4096, 8), (1024, 16), (256, 32), (64, 64))
+FCT_FLASH = len(FCT_ATTN) * 2 - 1  # 9 flash forwards a forward, 9 dq and 9 dk/dv a step
+
+
+def fct_model(attn: str = "auto", compute_dtype=None, dropout: bool = True) -> FCT:
+    """``FCTConfig()`` on the card, weights from seed 0; without dropout
+    every rate is 0 (the blocks', each Wide-Focus branch's)."""
+    model = FCT(FCTConfig(attn_impl=attn, dropout_rate=0.3 if dropout else 0.0), device="cuda",
+                generator=torch.Generator().manual_seed(0), compute_dtype=compute_dtype)
+    if not dropout:
+        for m in model.modules():
+            if isinstance(m, WideFocus):
+                m.dropout_rate = 0.0
+    return model
+
+
+def fct_batches(batch: int, n: int, seed: int) -> list:
+    """``n`` (images, masks) uint8 batches of SyntheticImageMasks on the card."""
+    return [tuple(torch.from_numpy(t).to("cuda") for t in pair)
+            for pair in SyntheticImageMasks(batch, FCT_SIZE, n, seed)]
+
+
+def fct_step_ms(step, state, batches, reps: int = 3) -> tuple:
+    """Phase 11's protocol: (median ms per step over ``reps`` reps of
+    len(batches) steps, the reps' spread in %)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            step(state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / len(batches))
+    med = statistics.median(times)
+    return med * 1e3, 100 * (max(times) - min(times)) / med
+
+
+def phase_fct_forward() -> dict:
+    """Phase 18 (a): the bf16 forward of fct_forward_bench.py's shape."""
+    tag, batch = "18 FCT (a) forward", 2
+    images_u8 = fct_batches(batch, 1, 50)[0][0]
+    x = pipeline.preprocess_images(images_u8, FCT_SIZE)
+    model = fct_model(compute_dtype=torch.bfloat16).eval()
+    reset_counts()
+    with dispatch_trace.capture() as seen, torch.no_grad():
+        out = model(x)
+    torch.cuda.synchronize()
+    launches = counts()
+    check(launches == expect_counts(launches=FCT_FLASH), f"(a) launches {launches}")
+    check("flash_mha_cuda" in seen and "sdpa_xla" not in seen, f"(a) recorded {sorted(seen)}")
+    with torch.no_grad():
+        again = model(x)
+    check(torch.equal(out, again), "(a) bits differ on repeat")
+    check(out.shape == (batch, FCT_SIZE, FCT_SIZE, 1) and out.dtype == torch.bfloat16
+          and bool(torch.isfinite(out).all()), f"(a) out {tuple(out.shape)} {out.dtype}")
+    torch.backends.cudnn.allow_tf32 = False
+    plain = fct_model("xla").eval()
+    plain.load_state_dict(model.state_dict())
+    with dispatch_trace.capture() as seen_plain, torch.no_grad():
+        ref = plain(x)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32 = True
+    check("sdpa_xla" in seen_plain and "flash_mha_cuda" not in seen_plain, f"plain {sorted(seen_plain)}")
+    err, top = (out.float() - ref).abs().max().item(), ref.abs().max().item()
+    check(err <= 2e-2 * top, f"(a) bf16 flash forward vs plain fp32: {err:.3g} > 2e-2 x {top:.3g}")
+    del plain, ref, again, out
+    free_cuda()
+
+    def run():
+        with torch.inference_mode():
+            return model(pipeline.preprocess_images(images_u8, FCT_SIZE))
+
+    run()
+    torch.cuda.reset_peak_memory_stats()
+    ms, spread = fct_step_ms(lambda _s, _b: run(), None, [None] * 10)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{tag}] FCTConfig() bf16 compute over fp32 parameters, attn 'auto', B={batch} {FCT_SIZE}^2: "
+          f"flash_fwd launches {launches['launches']} (other kernels 0), bits equal on repeat, max abs "
+          f"{err:.3g} against the plain fp32 path ('xla', TF32 off; limit 2e-2 x {top:.3g}); "
+          f"{ms:.3f} ms per forward (median of 3 reps of 10, preprocess included, spread {spread:.2f}%), "
+          f"{batch / ms * 1e3:.1f} images/s, peak memory {peak_gb:.3f} GB")
+    print_profile(f"{tag} profile", profile_window(run, iters=3, top=5))
+    del model
+    free_cuda()
+    return launches
+
+
+def phase_fct_grads() -> None:
+    """Phase 18 (b): one fp32 segment step's gradients, flash against the
+    plain path, dropout off, TF32 off."""
+    tag = "18 FCT (b) gradients"
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    batch = fct_batches(2, 1, 51)[0]
+    grads = {}
+    for impl in ("flash", "xla"):
+        model = fct_model(impl, dropout=False)
+        state = create_train_state(model, make_optimizer(1e-4, grad_clip_norm=1.0), rng=0)
+
+        def mark(name, model=model):
+            if name == "backward":
+                grads[impl] = {n: p.grad.clone() for n, p in model.named_parameters()}
+
+        reset_counts()
+        make_segmentation_train_step(FCT_SIZE)(state, batch, mark=mark)
+        torch.cuda.synchronize()
+        n = FCT_FLASH if impl == "flash" else 0
+        launches = counts()
+        check(launches == expect_counts(launches=n, dq_launches=n, dkv_launches=n),
+              f"(b) {impl} launches {launches}")
+        del model, state
+        free_cuda()
+    gmax = max(g.abs().max().item() for g in grads["xla"].values())
+    diffs = {n: (grads["flash"][n] - g).abs().max().item() for n, g in grads["xla"].items()}
+    worst = max(diffs, key=diffs.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads["flash"].values())
+    print(f"[{tag}] fp32 B=2 {FCT_SIZE}^2 dice loss, dropout off: flash launches {FCT_FLASH}/{FCT_FLASH}/"
+          f"{FCT_FLASH}; max grad diff {diffs[worst]:.3g} ({worst}) against 'xla', max |grad| {gmax:.3g}, "
+          f"ratio {diffs[worst] / gmax:.3g} (tol 1e-3), finite {finite}")
+    check(finite and diffs[worst] <= 1e-3 * gmax, "(b) FCT gradients flash vs xla")
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    del grads
+    free_cuda()
+
+
+SEG_EPOCH = re.compile(r"Epoch (\d+): dice loss ([0-9.naif]+) IoU ([0-9.naif]+)")
+
+
+def phase_fct_cli() -> dict:
+    """Phase 18 (c): ``segment``, ``eval --model fct`` and ``summary --model
+    fct`` through ``cli.main`` at the CLI defaults (256^2, batch 8, fp32),
+    restore and resume, ``SegmentationFlow.infer``. Returns the segment
+    run's launches."""
+    tag = "18 FCT (c) CLI"
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)  # runs/ and saved_samples/ go here
+        try:
+            d = tmp / "ck"
+            reset_counts()
+            t0 = time.perf_counter()
+            text = run_cli(["segment", "--synthetic", "3", "--epochs", "2", "--checkpoint-dir", str(d)])
+            seconds = time.perf_counter() - t0
+            seg = counts()
+            # 3 steps an epoch, and one eval forward an epoch for the sneak peek.
+            steps, peeks = 6, 2
+            check(seg == expect_counts(launches=FCT_FLASH * (steps + peeks), dq_launches=FCT_FLASH * steps,
+                                       dkv_launches=FCT_FLASH * steps), f"(c) segment launches {seg}")
+            epochs = [(int(e), float(lo), float(iou)) for e, lo, iou in SEG_EPOCH.findall(text)]
+            check([e for e, _, _ in epochs] == [1, 2] and all(math.isfinite(v) for _, lo, iou in epochs
+                                                               for v in (lo, iou)), text)
+            tags = step_tags(d)
+            check(tags and tags[0] == "step_1" and set(tags) <= {"step_1", "step_2"}, f"(c) tags {tags}")
+            check(len(list((tmp / "saved_samples" / "FCT").glob("*_predicted.jpg"))) == 2, "(c) sneak peeks")
+            latest = ckpt.latest_step_dir(str(d))
+            best = int(Path(latest).name[5:])
+            raw = ckpt.restore_state(latest)
+            hist = raw["extra"]["loss_history"].tolist()
+            check(len(hist) == best, f"(c) loss history {hist} in step_{best}")
+
+            flow = SegmentationFlow(fct_model(), cfg=TrainConfig(model_name="FCT", loss="dice", lr=1e-4,
+                                                                checkpoint_dir=str(d)),
+                                    image_size=FCT_SIZE)
+            flow.restore(latest)
+            check(flow.start_epoch == best and flow.loss_history == hist,
+                  f"(c) restore: epoch {flow.start_epoch}, history {flow.loss_history}")
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                flow.train(SyntheticImageMasks(8, FCT_SIZE, 3, 0), epochs=3)
+            resumed = [int(e) for e, _, _ in SEG_EPOCH.findall(out.getvalue())]
+            check(resumed == list(range(best + 1, 4)) and len(flow.loss_history) == 3
+                  and flow.loss_history[:best] == hist, f"(c) resume printed {resumed}, "
+                  f"history {flow.loss_history}")
+            images = np.random.default_rng(52).integers(0, 256, (2, FCT_SIZE, FCT_SIZE, 3), dtype=np.uint8)
+            masks = flow.infer(images, out_dir=str(tmp / "inferred"))
+            edges = sobel_edges(torch.from_numpy(masks).to("cuda"))
+            check(masks.shape == (2, FCT_SIZE, FCT_SIZE, 1) and masks.min() >= 0 and masks.max() <= 1,
+                  f"(c) infer masks {masks.shape} in [{masks.min()}, {masks.max()}]")
+            check(edges.min().item() >= 0 and edges.max().item() <= 1, "(c) Sobel edges outside [0, 1]")
+            check(len(list((tmp / "inferred").glob("image_*.jpg"))) == 2, "(c) infer side-by-side dumps")
+            del flow
+            free_cuda()
+
+            reset_counts()
+            text_eval = run_cli(["eval", "--model", "fct", "--synthetic", "2", "--checkpoint", latest])
+            ev = re.search(r"eval fct: dice loss ([0-9.]+), IoU ([0-9.]+)", text_eval)
+            check(ev is not None and counts() == expect_counts(launches=2 * FCT_FLASH), text_eval)
+            text_sum = run_cli(["summary", "--model", "fct"])
+            n_params = re.search(r"FCT: \S+ parameters \(([0-9,]+)\)", text_sum)
+            check(n_params is not None, text_sum)
+        finally:
+            os.chdir(cwd)
+    print(f"[{tag}] segment --synthetic 3 --epochs 2 (256^2, batch 8, fp32, dice, AdamW 1e-4, clip 1.0) in "
+          f"{seconds:.1f} s: epochs {epochs}; flash launches fwd {seg['launches']} ({FCT_FLASH} x {steps} steps "
+          f"+ {FCT_FLASH} x {peeks} sneak peeks), dq {seg['dq_launches']}, dkv {seg['dkv_launches']}, other "
+          f"kernels 0; tags {tags}; restored step_{best} (history {[round(v, 5) for v in hist]}) and "
+          f"trained to epoch 3: printed epochs {resumed}; eval --model fct on step_{best}: dice loss "
+          f"{ev.group(1)}, IoU {ev.group(2)} ({2 * FCT_FLASH} flash forwards); summary: {n_params.group(1)} "
+          f"parameters; infer: masks in [{masks.min():.4f}, {masks.max():.4f}], Sobel edges in "
+          f"[{edges.min().item():.4f}, {edges.max().item():.4f}]")
+    return seg
+
+
+def fct_attention_errors(q, k, v, do, delta, got, scale: float) -> dict:
+    """out, lse, dq, dk, dv of the flash kernels (``got``) against their
+    plain versions on the same inputs (the backward's from the kernel's lse
+    and delta), over chunks of batch x heads so that each chunk's (S, S)
+    scores fit; beside each, what the plain version reads with v (forward)
+    or k (backward) one batch-head off, a batch x heads indexing fault.
+    Returns name -> (max abs error, max|ref|, max abs of the fault)."""
+    b, h, s, dh = q.shape
+    bh = b * h
+    flat = [t.reshape(bh, s, dh) for t in (q, k, v, do)]  # copies of the views
+    out, lse, dq, dk, dv = (t.reshape(bh, *t.shape[-2:]) if t.dim() == 4 else t for t in got)
+    seen = {name: [0.0, 0.0, 0.0] for name in ("out", "lse", "dq", "dk", "dv")}
+    chunk = max(1, min(bh, 2 ** 30 // (s * s)))  # 4 GiB of fp32 scores a chunk
+    for i in range(0, bh, chunk):
+        j = min(i + chunk, bh)
+        off = (torch.arange(i, j, device=q.device) - 1) % bh
+        qc, kc, vc, doc = (t[i:j] for t in flat)
+        stats = (lse[i:j], delta[i:j], scale)
+        ref = fa.mha_reference(qc, kc, vc, scale)
+        fault = fa.mha_reference(qc, kc, flat[2][off], scale)[0]
+        refs = (*ref, *fa.mha_bwd_reference(qc, kc, vc, doc, *stats))
+        faults = (fault, None, *fa.mha_bwd_reference(qc, flat[1][off], vc, doc, *stats))
+        for name, g, r, f in zip(seen, (out[i:j], lse[i:j], dq[i:j], dk[i:j], dv[i:j]), refs, faults):
+            acc = seen[name]
+            acc[0] = max(acc[0], (g - r).abs().max().item())
+            acc[1] = max(acc[1], r.abs().max().item())
+            if f is not None:
+                acc[2] = max(acc[2], (f - r).abs().max().item())
+        del ref, fault, refs, faults
+    return {name: tuple(acc) for name, acc in seen.items()}
+
+
+def fct_attention_times() -> list:
+    """The flash forward and backward pair at the segment step's five
+    attention shapes (batch 8, 2 heads, fp32, no dropout; q, k, v and do
+    the (B, H, S, Dh) views of (B, S, H * Dh) tokens, as ``mha`` takes
+    them from ``_split_heads``), each held against its plain version on the
+    same inputs at phases 3 and 4's limits, then timed beside SDPA by
+    device time, with their bounds."""
+    rows = []
+    for s, dh in FCT_ATTN:
+        b, h = 8, 2
+        bh, scale = b * h, 1 / math.sqrt(dh)
+        rng = np.random.default_rng(s + dh)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal((b, s, h * dh), dtype=np.float32)).to("cuda")
+                       .view(b, s, h, dh).transpose(1, 2) for _ in range(4))
+        out, lse = fa._flash_fwd_cuda(q, k, v, scale, 0.0, 0)
+        delta = (do * out).sum(-1).reshape(bh, s).contiguous()
+        dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, 0.0, 0)
+        dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, 0.0, 0)
+        errs = fct_attention_errors(q, k, v, do, delta, (out, lse, dq, dk, dv), scale)
+        del dq, dk, dv
+        tol, lse_tol = fwd_limits(torch.float32, out)
+        gtol = bwd_limit(torch.float32)
+        shape = (b, h, s, dh)
+        for name, (err, top, fault) in errs.items():
+            limit = {"out": tol, "lse": lse_tol}.get(name, gtol * top)
+            check(math.isfinite(err) and err <= limit,
+                  f"18 FCT attention {shape} fp32 {name}: max abs {err:.3g} > {limit:.3g} (max|ref| {top:.3g})")
+            if name != "lse":
+                check(fault > 10 * limit, f"18 FCT attention {shape} {name}: one batch-head off reads "
+                                          f"{fault:.3g}, not 10 x the limit {limit:.3g}")
+        print(f"[18 FCT attention check] {shape} fp32, (B, H, S, Dh) views of (B, S, H * Dh) tokens: max abs "
+              + ", ".join(f"{n} {e:.3g} ({e / t:.3g} x max|ref|)" for n, (e, t, _) in errs.items())
+              + f"; limits out {tol}, lse {lse_tol}, gradients {gtol} x max|ref|; one batch-head off reads "
+              + ", ".join(f"{n} {f / t:.3g}" for n, (_, t, f) in errs.items() if n != "lse") + " x max|ref|")
+        backend = sdpa_backend(q, k, v, scale)
+        fwd = lambda: fa._flash_fwd_cuda(q, k, v, scale, 0.0, 0)  # noqa: E731
+        pair = lambda: (fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale, 0.0, 0),  # noqa: E731
+                        fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale, 0.0, 0))
+        row = {"shape": list(shape), "device_ms": device_ms(fwd), "bwd_pair_device_ms": device_ms(pair),
+               "library": backend, "library_device_ms": None, "library_bwd_device_ms": None,
+               "max_abs_err": {n: e for n, (e, _, _) in errs.items()}}
+        row["bound_ms"], row["bound_by"] = flash_fwd_bound(bh, s, dh, torch.float32)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = flash_bwd_bound(bh, s, dh, torch.float32, 3, 5, 2)
+        if not backend.startswith("MATH") or bh * s * s * 4 < 1e9:  # MATH holds the (S, S) weights
+            q4, k4, v4 = (t.detach().requires_grad_() for t in (q, k, v))
+            sdpa = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)  # noqa: E731
+            with torch.no_grad():
+                row["library_device_ms"] = device_ms(sdpa)
+            o4 = sdpa()
+            row["library_bwd_device_ms"] = device_ms(
+                lambda: torch.autograd.grad(o4, (q4, k4, v4), do, retain_graph=True))
+            del q4, k4, v4, o4
+        rows.append(row)
+        del q, k, v, do, out, lse, delta
+        free_cuda()
+    return rows
+
+
+def phase_fct_step() -> dict:
+    """Phase 18 (d): the bare segment step at the CLI defaults (256^2,
+    batch 8, fp32, dropout on), its time, memory and profile; the flash
+    kernels at its shapes."""
+    tag, batch = "18 FCT (d) step", 8
+    model = fct_model()
+    state = create_train_state(model, make_optimizer(1e-4, weight_decay=0.01, grad_clip_norm=1.0), rng=0)
+    step = make_segmentation_train_step(FCT_SIZE)
+    batches = fct_batches(batch, 4, 53)
+    p0 = {n_: p.detach().clone() for n_, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    for b in batches:
+        reset_counts()
+        metrics.append(step(state, b)[1])
+        torch.cuda.synchronize()
+        launches = counts()
+        check(launches == expect_counts(launches=FCT_FLASH, dq_launches=FCT_FLASH, dkv_launches=FCT_FLASH),
+              f"(d) step launches {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss = [m["loss"].item() for m in metrics]
+    iou = [m["iou"].item() for m in metrics]
+    check(all(math.isfinite(v) for v in loss + iou), f"(d) loss {loss}, IoU {iou}")
+    still = [n_ for n_, p in model.named_parameters() if torch.equal(p.detach(), p0[n_])]
+    check(not still, f"(d) parameters unchanged: {still[:5]}")
+    del p0
+    ms, spread = fct_step_ms(step, state, batches[:2])
+    split = {k: [] for k in ("data", "forward", "backward", "optimizer")}
+    for b in batches[:3]:
+        events = {}
+
+        def mark(name):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+        mark("start")
+        step(state, b, mark=mark)
+        torch.cuda.synchronize()
+        names = ["start", *split]
+        for a, z in zip(names, names[1:]):
+            split[z].append(events[a].elapsed_time(events[z]))
+    split = {k: statistics.median(v) for k, v in split.items()}
+    print(f"[{tag}] fp32 B={batch} {FCT_SIZE}^2 dice, AdamW 1e-4 clip 1.0, dropout on: flash launches "
+          f"{FCT_FLASH}/{FCT_FLASH}/{FCT_FLASH} per step, other kernels 0; loss {[round(v, 5) for v in loss]}, "
+          f"IoU {[round(v, 4) for v in iou]}; step {ms:.2f} ms (median of 3 reps of 2 steps, spread "
+          f"{spread:.2f}%), {batch / ms * 1e3:.1f} trained images/s, peak memory {peak_gb:.3f} GB; device ms "
+          f"per step (median of 3): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    prof = profile_window(lambda: step(state, batches[0]), iters=2, top=400)
+    busy = prof["device_busy_ms_per_call"]
+    flash_ms = sum(ms_ for name, ms_, _ in prof["top_kernels_ms_per_call"] if "flash_" in name)
+    prof["top_kernels_ms_per_call"] = prof["top_kernels_ms_per_call"][:10]
+    print_profile(f"{tag} profile", prof)
+    print(f"[{tag} profile] the flash kernels: {flash_ms:.2f} of {busy:.2f} device ms a step "
+          f"({100 * flash_ms / busy:.1f}%)")
+    del model, state, batches
+    free_cuda()
+    rows = fct_attention_times()
+    for r in rows:
+        lib = (f"SDPA {r['library_device_ms']:.4f} / backward {r['library_bwd_device_ms']:.4f} ms "
+               f"({r['library']})" if r["library_device_ms"] is not None else f"SDPA not timed ({r['library']})")
+        print(f"[{tag} attention] {tuple(r['shape'])} fp32: flash_fwd {r['device_ms']:.4f} ms, pair "
+              f"{r['bwd_pair_device_ms']:.4f} ms (device); bounds {r['bound_ms']:.4f} ({r['bound_by']}), "
+              f"{r['bwd_bound_ms']:.4f} ({r['bwd_bound_by']}); {lib}")
+    fwd_sum = 2 * sum(r["device_ms"] for r in rows[:-1]) + rows[-1]["device_ms"]
+    pair_sum = 2 * sum(r["bwd_pair_device_ms"] for r in rows[:-1]) + rows[-1]["bwd_pair_device_ms"]
+    print(f"[{tag} attention] a step's 9 forwards {fwd_sum:.3f} ms and 9 pairs {pair_sum:.3f} ms by these "
+          f"times: {100 * (fwd_sum + pair_sum) / ms:.1f}% of the step")
+    return {"step_ms": ms, "attention": rows}
+
+
+def phase_fct() -> dict:
+    """Phase 18: FCT; module docstring. Returns each flash kernel's
+    launches in (a) and (c), by counter, and (d)'s attention times."""
+    a = phase_fct_forward()
+    phase_fct_grads()
+    c = phase_fct_cli()
+    d = phase_fct_step()
+    return {"launches": {k: {"a": a[k], "c": c[k]} for k in FLASH3}, "step": d}
+
+
 def bound(nbytes: float, flops: float, dtype: torch.dtype):
     """(ms, "bytes" or "operations"): the larger of the bytes over HBM
     bandwidth and the products over the peak of the dtype's units."""
@@ -2843,6 +3252,7 @@ def main() -> None:
     phase_data_path(train_ms)
     cli_counts = phase_runtime(train_ms)
     phase_config3()
+    fct = phase_fct()
     records = time_flash(fwd_launches, fwd_err, {"flash_bwd_dq": train["dq_launches"],
                                                  "flash_bwd_dkv": train["dkv_launches"]}, bwd_errs)
     records += time_band({"band_fwd": band_fwd_launches, "band_bwd_ds": windowed["band_ds_launches"],
@@ -2853,6 +3263,9 @@ def main() -> None:
     records += time_fused_tail(tail_launches)
     for rec in records:  # phase 16: the launches of the CLI's training runs
         rec["cli_launches"] = cli_counts[counter_of(rec["name"])]
+        if counter_of(rec["name"]) in FLASH3:  # phase 18: FCT's forward (a) and its CLI (c)
+            rec["fct_launches"] = fct["launches"][counter_of(rec["name"])]
+            rec["fct_step"] = fct["step"]["attention"]
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

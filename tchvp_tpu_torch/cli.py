@@ -3,12 +3,15 @@
 Counterpart of ``tchvp_tpu/cli.py``, with its subcommand names and flags:
 
     python -m tchvp_tpu_torch.cli video  --synthetic 3 --attn-impl flash
+    python -m tchvp_tpu_torch.cli segment --synthetic 3
+    python -m tchvp_tpu_torch.cli eval   --model fct --checkpoint checkpoints/step_2
     python -m tchvp_tpu_torch.cli video  --clippack clips.cpk --resume
     python -m tchvp_tpu_torch.cli infer  --checkpoint checkpoints/step_5
     python -m tchvp_tpu_torch.cli eval   --checkpoint checkpoints/step_5
     python -m tchvp_tpu_torch.cli stream --synthetic 2 --height 1080 --width 1920
     python -m tchvp_tpu_torch.cli pack   --train-csv clips.csv --out clips.cpk
     python -m tchvp_tpu_torch.cli summary --model hybrid
+    python -m tchvp_tpu_torch.cli summary --model fct
     python -m tchvp_tpu_torch.cli doctor --smoke
 
 Every command that runs the model runs it on ``--device`` (default
@@ -266,6 +269,78 @@ def _moe_flags(args) -> None:
             _not_ported(f"--{flag.replace('_', '-')} (ops/moe.py)", 11)
 
 
+def _image_data(args):
+    """(train, val, test) (image, mask) datasets: ``--synthetic N`` (seeds
+    0, 1, 2) or the CSV manifests (None where a manifest is not given)."""
+    if args.synthetic:
+        from tchvp_tpu_torch.data.synthetic import SyntheticImageMasks
+
+        return tuple(SyntheticImageMasks(args.batch_size, args.image_size, args.synthetic, seed)
+                     for seed in (0, 1, 2))
+    if not args.train_csv:
+        raise SystemExit("provide --train-csv or --synthetic N")
+    from tchvp_tpu_torch.data.manifest import ImageMaskDataset
+
+    return tuple(ImageMaskDataset(csv, args.batch_size, args.image_size, seed=seed, prefetch=True)
+                 if csv else None
+                 for csv, seed in ((args.train_csv, 0), (args.val_csv, 1), (args.test_csv, 2)))
+
+
+def _segment_mesh(args) -> None:
+    """``segment``'s meshes: JAX runs ``data=`` and ``spatial=``, which
+    wait for item 11 here; any other axis is refused as JAX refuses it."""
+    axes = _parse_mesh_axes(getattr(args, "mesh", None) or "")
+    bad = sorted(k for k, v in axes.items() if v > 1 and k not in ("data", "spatial"))
+    if bad:
+        raise SystemExit(f"segment: unsupported mesh axes {bad} (use data= and spatial=)")
+    if any(v > 1 for v in axes.values()):
+        _not_ported(f"--mesh {args.mesh}", 11)
+    if args.data_parallel:
+        _not_ported("--data-parallel", 11)
+
+
+def _fct_attn(args) -> str:
+    """``--attn-impl`` of ``segment`` (default "auto": the flash kernels on
+    a card); ring attention is item 11."""
+    attn = getattr(args, "attn_impl", None) or "auto"
+    if attn == "ring":
+        _not_ported("--attn-impl ring", 11)
+    return attn
+
+
+def _fct_model(device, attn: str = "auto"):
+    """FCT at its default widths on ``device``, its weights from a seeded
+    generator (seed 0)."""
+    import torch
+
+    from tchvp_tpu_torch.config import FCTConfig
+    from tchvp_tpu_torch.models.fct import FCT
+
+    return FCT(FCTConfig(attn_impl=attn), device=device, generator=torch.Generator().manual_seed(0))
+
+
+def cmd_segment(args) -> None:
+    """FCT segmentation training (``SegmentationFlow``): dice loss by
+    default, the best-train-loss checkpoint each epoch it improves."""
+    from tchvp_tpu_torch.config import TrainConfig
+    from tchvp_tpu_torch.train.loops import SegmentationFlow
+
+    _segment_mesh(args)
+    attn = _fct_attn(args)
+    cfg = TrainConfig(
+        model_name="FCT",
+        loss=args.loss or "dice",
+        lr=args.lr,
+        checkpoint_dir=args.checkpoint_dir,
+        **_train_cfg_kwargs(args),
+    )
+    train, _, test = _image_data(args)
+    device = _device(args)
+    flow = SegmentationFlow(_fct_model(device, attn), cfg=cfg, image_size=args.image_size)
+    _record_run(args)
+    flow.train(train, test, epochs=args.epochs, lr=args.lr)
+
+
 def _video_model(args, device):
     """--model "hybrid": the flagship CNN+transformer on ``device``, its
     weights from a seeded generator (seed 0, the JAX package's
@@ -519,10 +594,17 @@ def cmd_summary(args) -> None:
 
     from tchvp_tpu_torch.utils.summary import describe, summarize
 
-    model = _video_model(args, torch.device("cpu"))
+    if args.model == "fct":
+        model = _fct_model(torch.device("cpu"))
+        shape = (1, args.image_size, args.image_size, 3)
+    elif args.model in _EXPORT_IMAGE_MODELS:
+        _not_ported(f"summary --model {args.model}", 7)
+    else:
+        model = _video_model(args, torch.device("cpu"))
+        shape = (1, args.clip_len, args.image_size, args.image_size, 3)
     print(summarize(model, depth=args.depth))
     print(describe(model))
-    print(f"Input: {(1, args.clip_len, args.image_size, args.image_size, 3)} float32")
+    print(f"Input: {shape} float32")
 
 
 def _validate_restored_depth(state_dict, expect_layers: int) -> None:
@@ -570,17 +652,33 @@ def cmd_eval(args) -> None:
     state, whose shape depends on the training run's flags."""
     from tchvp_tpu_torch.config import TrainConfig
     from tchvp_tpu_torch.train import checkpoint as ckpt
-    from tchvp_tpu_torch.train.loops import VideoFlow
+    from tchvp_tpu_torch.train.loops import SegmentationFlow, VideoFlow
 
     if getattr(args, "test_csv", None) and not args.train_csv:
         args.train_csv = args.test_csv
     if args.int8:
         _not_ported("--int8 (infer/quant.py)", 10)
-    if args.model not in _EXPORT_CLIP_MODELS:
+    if args.model not in _EXPORT_CLIP_MODELS + ("fct",):
         _not_ported(f"eval --model {args.model}", 7)
     path = args.checkpoint or ckpt.latest_step_dir(args.checkpoint_dir)
     src = f"ckpt {path}" if path else "fresh params (no checkpoint found)"
     device = _device(args)
+    if args.model == "fct":
+        loss = args.loss or "dice"
+        flow = SegmentationFlow(
+            _fct_model(device),
+            cfg=TrainConfig(model_name="FCT", loss=loss, checkpoint_dir=args.checkpoint_dir),
+            image_size=args.image_size,
+        )
+        flow.init_state()
+        if path:
+            raw = ckpt.restore_state(path)
+            if "step" not in raw and args.ema:
+                raise SystemExit("--ema needs a full-state checkpoint, got weights-only")
+            flow.model.load_state_dict(_restored_params(raw, args.ema))
+        m = flow.evaluate(_image_data(args)[0])
+        print(f"eval fct: {loss} loss {m['loss']:.4f}, IoU {m['iou']:.3f}  [{src}]")
+        return
     flow = VideoFlow(
         _video_model(args, device),
         cfg=TrainConfig(model_name="video", loss="mse", checkpoint_dir=args.checkpoint_dir),
@@ -690,7 +788,7 @@ def _unported_command(item: int):
 # Subcommands of the JAX package whose item is still to come. They take
 # whatever follows them (``main`` parses them with ``parse_known_args``) and
 # exit naming the item.
-_UNPORTED = {"denoise": 7, "segment": 7, "transfer": 7, "port": 7,
+_UNPORTED = {"denoise": 7, "transfer": 7, "port": 7,
              "export": 10, "serve": 10, "shards": 11, "tune": 12}
 
 
@@ -698,13 +796,13 @@ def _build_parser():
     parser = argparse.ArgumentParser("tchvp_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     subparsers = {}
-    commands = {"video": cmd_video, "pack": cmd_pack, "stream": cmd_stream,
+    commands = {"video": cmd_video, "segment": cmd_segment, "pack": cmd_pack, "stream": cmd_stream,
                 "infer": cmd_infer, "eval": cmd_eval, "summary": cmd_summary}
 
     for name, item in _UNPORTED.items():
         p = sub.add_parser(name, help=f"not ported yet (item {item})")
         p.set_defaults(fn=_unported_command(item))
-    for name in ("video", "pack", "stream", "infer", "eval", "summary"):
+    for name in ("video", "segment", "pack", "stream", "infer", "eval", "summary"):
         p = sub.add_parser(name)
         subparsers[name] = p
         _add_common(p)
@@ -748,6 +846,14 @@ def _build_parser():
                            choices=("none", "full", "stages", "dots"),
                            help="rematerialization policy for the train "
                                 "step (torch.utils.checkpoint)")
+        if name == "segment":
+            p.add_argument("--mesh", default=None,
+                           help="axis=size pairs; JAX's data= and spatial= are "
+                                "not ported yet (item 11)")
+            p.add_argument("--attn-impl", default=None,
+                           choices=("auto", "xla", "flash", "ring"),
+                           help="FCT spatial-attention core (default auto: the "
+                                "flash kernels on a card); ring is item 11")
         if name == "pack":
             p.add_argument("--out", default=None)
             p.add_argument("--clip-len", type=int, default=0)

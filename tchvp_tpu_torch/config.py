@@ -2,12 +2,13 @@
 
 Copies of ``tchvp_tpu/config.py``'s ``ResNetAEConfig``,
 ``TransformerConfig``, ``VideoModelConfig``, ``flagship_video_config``,
-``DataConfig``, ``IngestConfig``, ``AugmentConfig`` and ``TrainConfig``
-with identical field names and
-defaults (``tests/test_torch_config.py`` holds them equal), so a
-configuration means the same model and run in both packages. The mesh-axis
-fields (``tp_axis``, ``sp_axis``, ``seq_axis``, ``ep_axis``,
-``mesh_axes``) are kept for that equality; the port does not run them yet.
+``SobelConfig``, ``FCTConfig``, ``DataConfig``, ``IngestConfig``,
+``AugmentConfig`` and ``TrainConfig`` with identical field names and
+defaults (``tests/test_torch_config.py`` and ``tests/test_torch_fct.py``
+hold them equal), so a configuration means the same model and run in both
+packages. The mesh-axis fields (``tp_axis``, ``sp_axis``, ``seq_axis``,
+``ep_axis``, ``mesh_axes``) are kept for that equality; the port does not
+run them yet.
 """
 
 from __future__ import annotations
@@ -111,6 +112,35 @@ class VideoModelConfig:
     output_type: str = "image"
     use_posenc: bool = True
     tokens_per_frame: int = 8  # latent channels become tokens
+
+
+@dataclasses.dataclass(frozen=True)
+class SobelConfig:
+    """Sobel edge visualization (``ops/sobel.py``). ``edge_floor_rel``: a
+    max gradient below this fraction of the input range counts as "no
+    edges" and gives zeros; ``eps`` guards a zero input."""
+
+    edge_floor_rel: float = 1e-5
+    eps: float = 1e-8
+
+
+@dataclasses.dataclass(frozen=True)
+class FCTConfig:
+    """Fully Convolutional Transformer (``models/fct.py``).
+
+    ``stochastic_depth_rate``: the largest per-block drop-path rate of the
+    linspace schedule (0.0: none). ``attn_impl``: "auto" (the flash kernels
+    on CUDA, the dense core elsewhere), "xla" or "flash"; "ring",
+    ``seq_axis`` and ``sp_axis`` are not ported yet and raise."""
+
+    att_heads: int = 2
+    filters: Sequence[int] = (8, 16, 32, 64, 128, 64, 32, 16, 8)
+    stochastic_depth_rate: float = 0.0
+    dropout_rate: float = 0.3
+    out_channels: int = 1
+    attn_impl: str = "auto"  # "auto" | "xla" | "flash" | "ring"
+    seq_axis: Optional[str] = None
+    sp_axis: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,14 @@
 """Carry weights from the JAX package's flax variables into the port.
 
 :func:`from_flax` takes a ``VideoHybridNet``'s ``{"params",
-"batch_stats"}`` tree (numpy arrays, or anything ``np.asarray`` takes)
-and returns a ``state_dict`` for :class:`tchvp_tpu_torch.models.video.
-VideoHybridNet`. It runs the maps of ``tchvp_tpu/utils/torch_port.py``
-backwards:
+"batch_stats"}`` tree, or an ``FCT``'s ``{"params"}`` (numpy arrays, or
+anything ``np.asarray`` takes), and returns a ``state_dict`` for
+:class:`tchvp_tpu_torch.models.video.VideoHybridNet` or
+:class:`tchvp_tpu_torch.models.fct.FCT`. The port's FCT keeps flax's module
+names, so its paths map one to one. It runs the maps of
+``tchvp_tpu/utils/torch_port.py`` backwards:
 
-* conv kernels HWIO -> OIHW;
+* conv kernels HWIO -> OIHW (a depthwise (3, 3, 1, C) kernel -> (C, 1, 3, 3));
 * Dense kernels (in, out) -> (out, in);
 * LayerNorm ``scale``/``bias`` -> ``weight``/``bias``;
 * BatchNorm ``.../BatchNorm_0/{scale, bias}`` and batch stats
@@ -49,6 +51,7 @@ _MODULES = [
     (r"decoder/post_conv(\d+)", r"decoder.post_convs.\1"),
     (r"decoder/post_bn(\d+)", r"decoder.post_bns.\1"),
     (r"decoder/(head_conv|head_bn)", r"decoder.\1"),
+    (r"((?:block_\d|ds)(?:/\w+)*)", lambda m: m[1].replace("/", ".")),  # FCT
 ]
 
 
@@ -80,8 +83,8 @@ def _convert(module: str, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
 
 
 def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax ``{"params", "batch_stats"}`` of the JAX ``VideoHybridNet`` ->
-    ``state_dict`` of the port's ``VideoHybridNet``."""
+    """flax ``{"params", "batch_stats"}`` of the JAX ``VideoHybridNet`` (or
+    ``{"params"}`` of its ``FCT``) -> ``state_dict`` of the port's model."""
     state: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(collection, {})):

@@ -1138,7 +1138,14 @@ def mha(
     (B, S, H, Dh) buffer; the backward kernels read the same views and the
     gradients come back the same way. Without a gradient to track, the
     forward runs without the autograd Function.
+
+    Self-attention over one token count: k and v of another shape than q
+    (a strided k/v projection) raise on either device, as JAX's ``mha``
+    fails reshaping k to q's S.
     """
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"mha takes q, k, v of one shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     scale, seed = _scale_seed(q.shape[-1], scale, dropout_rate, dropout_seed)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, scale, float(dropout_rate), seed)

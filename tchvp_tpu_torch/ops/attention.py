@@ -17,6 +17,10 @@ Counterpart of ``tchvp_tpu/ops/attention.py``:
 A mask sends every impl to :func:`sdpa_xla`, as in JAX. ``"ring"`` is not
 ported yet and raises; it never falls back to another core.
 
+:class:`TorchMultiheadAttention` is FCT's attention layer: separate
+q/k/v/out projections around :func:`multi_head_attention` at the 1/sqrt(Dh)
+scale.
+
 ``seq_axis`` (sequence parallelism): while an ambient mesh carries the axis
 with size > 1 (:func:`tchvp_tpu_torch.parallel.mesh.mesh_with_axis`, JAX's
 gate), each rank holds a contiguous block of the tokens. A banded impl
@@ -33,8 +37,10 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn as nn
 
 from tchvp_tpu_torch.ops import dispatch_trace
+from tchvp_tpu_torch.ops.blocks import Dense
 from tchvp_tpu_torch.parallel.collectives import all_reduce_sum, ppermute
 from tchvp_tpu_torch.parallel.mesh import axis_group, axis_shards, mesh_with_axis
 
@@ -399,3 +405,28 @@ def draw_attention_dropout(
     keep = torch.rand(shape, generator=generator, device=generator.device) < 1.0 - rate
     rows = s // w if core == "windowed" else s
     return keep[:, :, i * rows:(i + 1) * rows].to(device)
+
+
+class TorchMultiheadAttention(nn.Module):
+    """Attention numerically matching ``torch.nn.MultiheadAttention``:
+    q/k/v in-projections and the out-projection, with biases, around :func:`multi_head_attention` at the 1/sqrt(head_dim) scale. The
+    core used by every FCT block; ``impl`` selects it ("xla", "flash" or
+    "auto"). Parameter names are the JAX layer's; its window, mask and
+    ``seq_axis`` wait for a caller (FCT passes none of them)."""
+
+    def __init__(self, features: int, num_heads: int, impl: str = "xla"):
+        super().__init__()
+        if features % num_heads:
+            raise ValueError(f"features {features} not divisible by num_heads {num_heads}")
+        self.num_heads = num_heads
+        self.impl = impl
+        self.q_proj = Dense(features, features)
+        self.k_proj = Dense(features, features)
+        self.v_proj = Dense(features, features)
+        self.out_proj = Dense(features, features)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+        """(B, Sq, D) queries, (B, Sk, D) keys and values -> (B, Sq, D)."""
+        out = multi_head_attention(self.q_proj(query), self.k_proj(key), self.v_proj(value),
+                                   self.num_heads, impl=self.impl)
+        return self.out_proj(out)

@@ -3,9 +3,12 @@
 Counterpart of ``tchvp_tpu/train/loops.py``'s :class:`VideoFlow` (with
 ``_FlowBase`` and ``_mean_of`` behind it): clip-denoising training of the
 flagship with periodic step-tagged checkpoints, resume (mid-epoch too),
-TensorBoard-compatible logging and the loss-health monitor. The other
-flows (``DenoisingFlow``, ``SegmentationFlow``, ``TransferFlow``) come
-with the other model families (ROADMAP.md, modules to port, item 7).
+TensorBoard-compatible logging and the loss-health monitor; and its
+:class:`SegmentationFlow`: image -> mask training of FCT with per-epoch
+sneak peeks, the best-train-loss checkpoint carrying the loss history,
+restore that continues the epoch numbering, and inference with Sobel
+edges. The other flows (``DenoisingFlow``, ``TransferFlow``) come with the
+other model families (ROADMAP.md, modules to port, item 7).
 
 The flow runs on the device its model lives on. Datasets yield uint8
 numpy batches (synthetic, CSV manifests, clippacks); :meth:`_shard` places
@@ -31,17 +34,21 @@ from __future__ import annotations
 import os
 from typing import Any, Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from tchvp_tpu_torch.config import AugmentConfig, TrainConfig
+from tchvp_tpu_torch.data import pipeline
 from tchvp_tpu_torch.data.device_prefetch import DevicePrefetch
+from tchvp_tpu_torch.ops.sobel import sobel_edges
 from tchvp_tpu_torch.parallel import activate_mesh
 from tchvp_tpu_torch.train import checkpoint as ckpt
 from tchvp_tpu_torch.train import steps as steps_lib
 from tchvp_tpu_torch.train.health import HealthMonitor, TrainingDiverged, recover_latest
 from tchvp_tpu_torch.train.logging import SummaryWriter
 from tchvp_tpu_torch.train.state import TrainState, create_train_state, make_optimizer
+from tchvp_tpu_torch.utils.imaging import save_sample_triplet, save_side_by_side
 
 
 def _mean_of(metric_sums: dict, n: int) -> dict:
@@ -93,6 +100,24 @@ class _FlowBase:
     def _log(self, tag: str, value: float, step: int) -> None:
         if _rank() == 0:
             self._writer().add_scalar(tag, value, step)
+
+    def _optimizer(self, lr: Optional[float]):
+        cfg = self.cfg
+        return make_optimizer(lr or cfg.lr, cfg.weight_decay, grad_clip_norm=1.0,
+                              schedule=cfg.schedule, warmup_steps=cfg.warmup_steps,
+                              total_steps=cfg.total_steps, min_lr_ratio=cfg.min_lr_ratio,
+                              ema_decay=cfg.ema_decay, optimizer=cfg.optimizer)
+
+
+def _epoch_sums(sums: Optional[Dict[str, torch.Tensor]], m: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """``m`` added into float64 sums on its device (made at the first
+    step); read on the host once per epoch."""
+    if sums is None:
+        sums = {k: torch.zeros((), dtype=torch.float64, device=v.device) for k, v in m.items()}
+    for k, s in sums.items():
+        s += m[k].detach().double()
+    return sums
 
 
 class VideoFlow(_FlowBase):
@@ -153,12 +178,7 @@ class VideoFlow(_FlowBase):
         seeded from ``cfg.seed``. ``clip_len`` is kept for the JAX
         signature (flax needs an example input to initialise)."""
         del clip_len
-        cfg = self.cfg
-        tx = make_optimizer(lr or cfg.lr, cfg.weight_decay, grad_clip_norm=1.0,
-                            schedule=cfg.schedule, warmup_steps=cfg.warmup_steps,
-                            total_steps=cfg.total_steps, min_lr_ratio=cfg.min_lr_ratio,
-                            ema_decay=cfg.ema_decay, optimizer=cfg.optimizer)
-        self.state = create_train_state(self.model, tx, rng=cfg.seed)
+        self.state = create_train_state(self.model, self._optimizer(lr), rng=self.cfg.seed)
         return self.state
 
     def evaluate(self, data: Iterable) -> float:
@@ -264,9 +284,7 @@ class VideoFlow(_FlowBase):
             )
             for batch in train_data:
                 self.state, m = self._train_step(self.state, self._shard(batch))
-                if sums is None:
-                    sums = {k: torch.zeros((), dtype=torch.float64, device=v.device)
-                            for k, v in m.items()}
+                sums = _epoch_sums(sums, m)
                 if health is not None:
                     loss = float(m["loss"])
                     status = health.check(loss)
@@ -282,8 +300,6 @@ class VideoFlow(_FlowBase):
                             )
                         print(f"[health] diverged; restored checkpoint step {step}")
                         health.consecutive_nan = 0
-                for k, s in sums.items():
-                    s += m[k].detach().double()
                 n += 1
                 if save_every_steps:
                     # Absolute index within the data epoch (survives a
@@ -326,3 +342,144 @@ class VideoFlow(_FlowBase):
         if self.writer is not None:
             self.writer.flush()
         return self.state
+
+
+class SegmentationFlow(_FlowBase):
+    """Image -> mask training and working inference (FCT_FLOW semantics).
+
+    ``model``: an initialised segmentation model; the flow runs on the
+    model's device. Batches are
+    ``(images_u8 (B, H, W, 3), masks_u8 (B, H, W, 1))``. ``loss_history``
+    holds each epoch's summed training loss, as the reference's checkpoint
+    carries it (``FCT.py:368-373``); :meth:`restore` brings it back and
+    sets ``start_epoch``, where :meth:`train` continues."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        cfg: TrainConfig = TrainConfig(model_name="FCT", loss="dice", lr=1e-3),
+        image_size: int = 256,
+        mesh=None,
+        sp_axis: Optional[str] = None,
+    ):
+        if mesh is not None or sp_axis:
+            raise NotImplementedError(
+                "meshes and sp_axis (spatial partitioning) for segmentation are not ported yet "
+                "(ROADMAP.md, modules to port, item 11: parallelism)")
+        super().__init__(cfg, mesh, next(model.parameters()).device)
+        self.model = model
+        self.image_size = image_size
+        self.state: Optional[TrainState] = None
+        self.loss_history: list = []
+        self.start_epoch: int = 0
+        self._train_step = steps_lib.make_segmentation_train_step(image_size, cfg.loss)
+        self._eval_step = steps_lib.make_segmentation_eval_step(image_size, cfg.loss)
+
+    def init_state(self, lr: Optional[float] = None) -> TrainState:
+        """A step-0 state over the model as it stands, its generators
+        seeded from ``cfg.seed``."""
+        self.state = create_train_state(self.model, self._optimizer(lr), rng=self.cfg.seed)
+        return self.state
+
+    def _shard(self, batch):
+        """The (images, masks) pair on the flow's device."""
+        return tuple(torch.as_tensor(b).to(self.device) for b in batch)
+
+    def train(
+        self,
+        train_data: Iterable,
+        test_data: Optional[Iterable] = None,
+        epochs: int = 70,
+        lr: Optional[float] = None,
+        start_epoch: Optional[int] = None,
+    ) -> TrainState:
+        """``start_epoch`` defaults to where :meth:`restore` left off, so
+        restore() + train() continues the epoch numbering, the checkpoints
+        and the loss history. ``test_data`` is unused, as in JAX. Each
+        epoch saves one sneak peek of a batch drawn from
+        ``np.random.default_rng(cfg.seed)``, and checkpoints (tag: the
+        epoch) when its summed loss is the lowest so far."""
+        cfg = self.cfg
+        del test_data
+        train_data = self._prefetched(train_data)
+        if self.state is None:
+            self.init_state(lr)
+        if start_epoch is None:
+            start_epoch = self.start_epoch
+        # A restored history seeds best-loss so a worse first epoch after
+        # resume does not replace the best checkpoint.
+        best_loss = min(self.loss_history) if self.loss_history else float("inf")
+        rng = np.random.default_rng(cfg.seed)
+        for epoch in range(start_epoch + 1, epochs + 1):
+            sums: Optional[Dict[str, torch.Tensor]] = None
+            n = 0
+            nbatches = len(train_data) if hasattr(train_data, "__len__") else None
+            sneak = rng.integers(0, nbatches) if nbatches else 0
+            for i, batch in enumerate(train_data):
+                placed = self._shard(batch)
+                self.state, m = self._train_step(self.state, placed)
+                sums = _epoch_sums(sums, m)
+                n += 1
+                if i == sneak:  # per-epoch sneak peek (FCT.py:339-340)
+                    self._save_sneakpeek(epoch, placed)
+            host = {k: float(v) for k, v in sums.items()} if sums else {"loss": 0.0, "iou": 0.0}
+            train_m = _mean_of(host, n)
+            self.loss_history.append(host["loss"])
+            self._log("Training Loss", host["loss"], epoch)  # FCT.py:356 (the sum)
+            print(f"Epoch {epoch}: dice loss {train_m['loss']:.4f} IoU {train_m['iou']:.3f}")
+            if host["loss"] < best_loss:  # best-train-loss checkpoint (FCT.py:366-373)
+                best_loss = host["loss"]
+                ckpt.save_state(cfg.checkpoint_dir, epoch, self.state,
+                                extra={"loss": host["loss"],
+                                       "loss_history": torch.tensor(self.loss_history,
+                                                                    dtype=torch.float64)},
+                                async_write=cfg.async_checkpoint)
+                ckpt.prune_step_dirs(cfg.checkpoint_dir, cfg.keep_checkpoints)
+        ckpt.wait_for_async_saves()
+        if self.writer is not None:
+            self.writer.flush()
+        return self.state
+
+    def _predict(self, x: torch.Tensor) -> torch.Tensor:
+        model = self.state.model.eval()
+        with torch.no_grad():
+            return model(x)
+
+    def _save_sneakpeek(self, epoch: int, batch) -> None:
+        image_u8, mask_u8 = batch
+        x = pipeline.preprocess_images(image_u8[:1], self.image_size)
+        y = pipeline.preprocess_images(mask_u8[:1], self.image_size)
+        pred = self._predict(x)
+        save_sample_triplet(os.path.join(self.cfg.sample_dir, self.cfg.model_name), epoch,
+                            *(t.float().cpu().numpy() for t in (x, y, pred)))
+
+    def evaluate(self, data: Iterable) -> dict:
+        """Mean loss and IoU over an (image, mask) dataset."""
+        sums, n = None, 0
+        for batch in data:
+            sums = _epoch_sums(sums, self._eval_step(self.state, self._shard(batch)))
+            n += 1
+        host = {k: float(v) for k, v in sums.items()} if sums else {"loss": 0.0, "iou": 0.0}
+        return _mean_of(host, n)
+
+    def restore(self, path: str) -> None:
+        """Full resume: parameters, optimizer moments, generators and the
+        loss history; ``start_epoch`` becomes the checkpoint's tag."""
+        self.init_state()
+        self.state, raw = ckpt.restore_state_into(self.state, path)
+        hist = (raw.get("extra") or {}).get("loss_history")
+        if hist is not None:
+            self.loss_history = [float(v) for v in torch.as_tensor(hist).reshape(-1)]
+        self.start_epoch = int(raw.get("step", 0))
+
+    def infer(self, batch: np.ndarray, out_dir: Optional[str] = None) -> np.ndarray:
+        """uint8 images (B, H, W, 3) -> masks (B, S, S, 1) in [0, 1] as
+        numpy, with input | Sobel-edge side-by-side JPEGs in ``out_dir``."""
+        x = pipeline.preprocess_images(torch.as_tensor(batch).to(self.device), self.image_size)
+        pred = self._predict(x)
+        edges = sobel_edges(pred)
+        if out_dir:
+            xs, es = x.cpu().numpy(), edges.cpu().numpy()
+            for i in range(pred.shape[0]):
+                save_side_by_side([xs[i], es[i]], os.path.join(out_dir, f"image_{i}.jpg"))
+        return pred.float().cpu().numpy()

@@ -1,7 +1,11 @@
-"""Train and eval steps of the flagship video model.
+"""Train and eval steps of the flagship video model and of the
+segmentation models.
 
 Counterpart of ``tchvp_tpu/train/steps.py``'s ``make_video_train_step``,
-``make_video_eval_step`` and ``_loss_fn_by_name``. A step takes a uint8
+``make_video_eval_step``, ``make_segmentation_train_step``,
+``make_segmentation_eval_step`` and ``_loss_fn_by_name``. The segmentation
+step (FCT: image -> mask) is at the end of this module; what follows
+describes the video step. A step takes a uint8
 clip (B, T, H, W, 3) on the model's device and runs, eagerly:
 preprocess -> the geometric augmentations (``aug``, off by default) ->
 Gaussian input noise -> the train-mode forward -> the loss
@@ -258,5 +262,72 @@ def make_video_eval_step(image_size: int, qat: bool = False,
             _, recon = model(clean)
             mse = _global_mean(losses.mse(recon, clean), seq_axis)
         return {"psnr": 20.0 * torch.log10(1.0 / torch.sqrt(mse))}
+
+    return step
+
+
+def _seg_batch(batch, image_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(uint8 images (B, H, W, C), uint8 masks (B, H, W, 1)) -> both
+    resized to ``image_size`` and scaled to [0, 1]."""
+    image_u8, mask_u8 = batch
+    return (pipeline.preprocess_images(image_u8, image_size),
+            pipeline.preprocess_images(mask_u8, image_size))
+
+
+def _seg_metrics(loss_fn: Callable, pred: torch.Tensor, y: torch.Tensor) -> Metrics:
+    return {"loss": loss_fn(pred, y), "iou": losses.jaccard_score(pred > 0.5, y > 0.5)}
+
+
+def make_segmentation_train_step(
+    image_size: int, loss: str = "dice",
+    fsdp_axis: Optional[str] = None, fsdp_mesh=None,
+) -> Callable[..., Tuple[TrainState, Metrics]]:
+    """Supervised mask training step (FCT_FLOW.train, FCT.py:317-374): the
+    train-mode forward on the preprocessed images, ``loss`` (dice by
+    default, or any :func:`_loss_fn_by_name` loss) against the masks,
+    backward, one optimizer update. Every dropout and drop-path draw comes
+    from ``state.dropout_generator``; a model without BatchNorm carries no
+    stats. The returned ``step(state, (images_u8, masks_u8), mark=None)``
+    updates ``state`` in place and returns ``(state, {"loss", "iou"})``,
+    IoU of ``pred > 0.5`` against ``mask > 0.5``, as device tensors."""
+    if fsdp_axis is not None or fsdp_mesh is not None:
+        raise NotImplementedError(
+            "fsdp_axis is not ported yet (ROADMAP.md, modules to port, item 11: parallel/fsdp.py)")
+    loss_fn = _loss_fn_by_name(loss)
+
+    def step(state: TrainState, batch, mark: Mark = None) -> Tuple[TrainState, Metrics]:
+        model = state.model.train()
+        x, y = _seg_batch(batch, image_size)
+        for p in model.parameters():
+            p.grad = None
+        if mark:
+            mark("data")
+        pred = model(x, generator=state.dropout_generator)
+        metrics = _seg_metrics(loss_fn, pred, y)
+        if mark:
+            mark("forward")
+        metrics["loss"].backward()
+        if mark:
+            mark("backward")
+        state.tx.step()
+        state.step += 1
+        if mark:
+            mark("optimizer")
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_segmentation_eval_step(
+    image_size: int, loss: str = "dice"
+) -> Callable[[TrainState, Tuple[torch.Tensor, torch.Tensor]], Metrics]:
+    """No-grad ``loss`` and IoU of the eval-mode model on a batch."""
+    loss_fn = _loss_fn_by_name(loss)
+
+    def step(state: TrainState, batch) -> Metrics:
+        model = state.model.eval()
+        x, y = _seg_batch(batch, image_size)
+        with torch.no_grad():
+            return _seg_metrics(loss_fn, model(x), y)
 
     return step

@@ -258,20 +258,22 @@ def test_config_applies_and_names_pyyaml(tmp_path, monkeypatch):
 
 MODEL_ARGS = ["--synthetic", "1", *SMALL, *CPU]
 UNPORTED = [
-    (["denoise"], 7), (["segment"], 7), (["transfer"], 7), (["port"], 7),
+    (["denoise"], 7), (["transfer"], 7), (["port"], 7),
     (["export"], 10), (["serve"], 10), (["shards"], 11), (["tune"], 12),
     (["video", "--model", "ae32k"], 7), (["video", "--fsdp"], 11), (["video", "--qat"], 10),
     (["video", "--num-experts", "2"], 11), (["video", "--mesh", "data=2"], 11),
     (["video", "--data-parallel"], 11), (["video", "--attn-impl", "ring"], 11),
-    (["eval", "--model", "fct"], 7), (["eval", "--int8"], 10),
+    (["eval", "--model", "unet"], 7), (["eval", "--int8"], 10),
     (["infer", "--exported", "a.tchvp"], 10), (["infer", "--url", "http://localhost:1"], 10),
     (["infer", "--int8"], 10), (["infer", "--mesh", "pipe=2"], 11),
     (["stream", "--int8"], 10), (["stream", "--url", "http://localhost:1"], 10),
-    (["summary", "--model", "fct"], 7),
+    (["summary", "--model", "unet"], 7), (["summary", "--model", "ae32k"], 7),
     (["export", "--out", "m.tchvp", "--checkpoint", "c", "--int8"], 10),
     (["serve", "--port", "8765", "--buckets", "1,2"], 10),
     (["tune", "--shape", "8x8x2048x64", "--mode", "fwd"], 12),
-    (["segment", "--mesh", "data=2", "--attn-impl", "flash"], 7),
+    (["segment", "--mesh", "data=2", "--attn-impl", "flash"], 11),
+    (["segment", "--mesh", "spatial=2"], 11), (["segment", "--attn-impl", "ring"], 11),
+    (["segment", "--data-parallel"], 11),
     (["video", "--moe-aux-weight", "0.02"], 11), (["video", "--router-top-k", "2"], 11),
     (["infer", "--router-top-k", "2"], 11), (["eval", "--num-experts", "4"], 11),
 ]
