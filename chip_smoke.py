@@ -234,6 +234,35 @@ Phases, one or more lines each:
     and pair at the step's five attention shapes (batch 8, 2 heads, fp32)
     by device time beside SDPA's and their bounds. The flash records of the
     JSON gain ``fct_launches`` ((a) and (c)) and ``fct_step`` (those times);
+19. the conv families (no hand-written kernel on their paths), after 18:
+    (a) UNet, AutoEncoder, Image2Image2Mask, Autoencoder32K (image and mask
+    heads) and Autoencoder4K at their default widths, every dropout off,
+    BN and biases seeded, B 2 at 64^2: the fp32 eval forward on the card
+    (TF32 off) against the same weights on the CPU, <= 1e-4 x max|ref|;
+    the train-mode gradients of sum(out * w) in float64 on the card
+    against float64 on the CPU, <= 1e-3 x max|grad|; in fp32, chains of
+    train-mode BN leave any implementation 0.1-5 % of the largest gradient
+    from float64, the CPU's too, by the luck of each kernel's reduction
+    order, so the card's and the CPU's fp32 distances are printed and held
+    only to 0.1 (a wrong map reads O(1)); (b)
+    ``denoise --synthetic 3 --epochs 2`` at the defaults (256^2, batch 8,
+    mixed loss), its best-val weights file, ``eval --model ae`` on it; (c)
+    ``port --model ae32k`` of a seeded AE_32K-layout state_dict this phase
+    writes (every BN-followed conv with a bias to fold), the ported
+    state_dict equal to the source; ``transfer --pretrained`` on it
+    (``--epochs 2``), then ``TransferFlow`` resumed to epoch 3 and
+    ``test_a_sample``: the encoder's parameters bit-equal to the ported ones
+    throughout, its BN stats moved from (0, 1); (d) ``video --model ae32k``
+    (256^2, batch 8 x 8 frames) and ``--model ae4k --image-size 64``, then
+    ``infer`` and ``eval --model`` on their ``step_2``; (e) ``port --model
+    unet`` of a seeded UNet.py-layout state_dict, ``eval --model unet`` on
+    it and ``eval --model combined``. Every run of (a)-(e) launches no
+    hand-written kernel (counted into each record's
+    ``conv_family_launches``). The bare step of each training path (the
+    denoise, transfer and both video steps): finite metrics, trainable
+    parameters moved, step ms (phase 11's protocol, spread), trained
+    images or frames/s, peak memory, the device ms of data, forward,
+    backward and optimizer, and a profile window's idle share;
 14. kernel times: each kernel at its main-path shape beside its plain
     version, F.scaled_dot_product_attention (a yardstick, never on the
     port's path; with the boolean band as attn_mask for the banded
@@ -304,18 +333,29 @@ import torch.nn.functional as F
 from card_timing import cuda_ms, device_ms, host_ms
 from tchvp_tpu_torch import cli, losses, parallel
 from tchvp_tpu_torch.bench import infer_fn, profile_window, random_clip, stage_ms, time_clips
-from tchvp_tpu_torch.config import AugmentConfig, FCTConfig, TrainConfig, flagship_video_config
+from tchvp_tpu_torch.config import (
+    AugmentConfig,
+    AutoEncoderConfig,
+    FCTConfig,
+    ResNetAEConfig,
+    TrainConfig,
+    flagship_video_config,
+)
 from tchvp_tpu_torch.data import pipeline
 from tchvp_tpu_torch.data.clippack import ClipPackDataset, pack_clips
 from tchvp_tpu_torch.data.device_prefetch import DevicePrefetch
 from tchvp_tpu_torch.data.pipeline import preprocess_clip
-from tchvp_tpu_torch.data.synthetic import SyntheticClips, SyntheticImageMasks
+from tchvp_tpu_torch.data.synthetic import SyntheticClips, SyntheticImageMasks, SyntheticImages
 from tchvp_tpu_torch.kernels import build
 from tchvp_tpu_torch.kernels import flash_attention as fa
 from tchvp_tpu_torch.kernels import fused_tail as ft
+from tchvp_tpu_torch.models.autoencoder import AutoEncoder
+from tchvp_tpu_torch.models.combined import Image2Image2Mask
 from tchvp_tpu_torch.models.fct import FCT
-from tchvp_tpu_torch.models.resnet_ae import Decoder32K, tokens_to_latent
+from tchvp_tpu_torch.models.frame_ae import FrameAE
+from tchvp_tpu_torch.models.resnet_ae import Autoencoder4K, Autoencoder32K, Decoder32K, tokens_to_latent
 from tchvp_tpu_torch.models.streaming import StreamingConfig, microbatched_infer, stream_video
+from tchvp_tpu_torch.models.unet import UNet
 from tchvp_tpu_torch.models.video import VideoHybridNet
 from tchvp_tpu_torch.ops import dispatch_trace
 from tchvp_tpu_torch.ops.attention import _merge_heads, _split_heads
@@ -324,9 +364,13 @@ from tchvp_tpu_torch.ops.conv_attention import WideFocus
 from tchvp_tpu_torch.ops.sobel import sobel_edges
 from tchvp_tpu_torch.parallel import collectives
 from tchvp_tpu_torch.train import checkpoint as ckpt
-from tchvp_tpu_torch.train.loops import SegmentationFlow, VideoFlow
+from tchvp_tpu_torch.train.loops import SegmentationFlow, TransferFlow, VideoFlow
 from tchvp_tpu_torch.train.state import create_train_state, make_optimizer
-from tchvp_tpu_torch.train.steps import make_segmentation_train_step, make_video_train_step
+from tchvp_tpu_torch.train.steps import (
+    make_denoising_train_step,
+    make_segmentation_train_step,
+    make_video_train_step,
+)
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -1437,6 +1481,26 @@ def phase_config2() -> int:
     return launches["band_fwd_launches"]
 
 
+def step_split(step, state, batches) -> dict:
+    """Median device ms of a step's data, forward, backward and optimizer
+    phases (CUDA events at the step's marks) over ``batches``."""
+    split = {k: [] for k in ("data", "forward", "backward", "optimizer")}
+    for b in batches:
+        events = {}
+
+        def mark(name):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
+
+        mark("start")
+        step(state, b, mark=mark)
+        torch.cuda.synchronize()
+        names = ["start", *split]
+        for a, z in zip(names, names[1:]):
+            split[z].append(events[a].elapsed_time(events[z]))
+    return {k: statistics.median(v) for k, v in split.items()}
+
+
 def phase_train(tag: str, batch: int, frames: int, window: int = 0) -> dict:
     """The ``tchvp video`` training defaults on the flagship at 256^2, with
     flash attention or, with a window, the banded kernels. Returns the
@@ -1498,21 +1562,7 @@ def phase_train(tag: str, batch: int, frames: int, window: int = 0) -> dict:
           f"step {med * 1e3:.1f} ms (median of 3 reps of 2 steps), rep spread "
           f"{100 * (max(reps) - min(reps)) / med:.2f}%")
 
-    split = {k: [] for k in ("data", "forward", "backward", "optimizer")}
-    for clip in clips[:3]:
-        events = {}
-
-        def mark(name):
-            events[name] = torch.cuda.Event(enable_timing=True)
-            events[name].record()
-
-        mark("start")
-        step(state, clip, mark=mark)
-        torch.cuda.synchronize()
-        names = ["start", *split]
-        for a, b in zip(names, names[1:]):
-            split[b].append(events[a].elapsed_time(events[b]))
-    split = {k: statistics.median(v) for k, v in split.items()}
+    split = step_split(step, state, clips[:3])
     print(f"[{tag}] device ms per step (median of 3): "
           + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
 
@@ -2717,21 +2767,7 @@ def phase_fct_step() -> dict:
     check(not still, f"(d) parameters unchanged: {still[:5]}")
     del p0
     ms, spread = fct_step_ms(step, state, batches[:2])
-    split = {k: [] for k in ("data", "forward", "backward", "optimizer")}
-    for b in batches[:3]:
-        events = {}
-
-        def mark(name):
-            events[name] = torch.cuda.Event(enable_timing=True)
-            events[name].record()
-
-        mark("start")
-        step(state, b, mark=mark)
-        torch.cuda.synchronize()
-        names = ["start", *split]
-        for a, z in zip(names, names[1:]):
-            split[z].append(events[a].elapsed_time(events[z]))
-    split = {k: statistics.median(v) for k, v in split.items()}
+    split = step_split(step, state, batches[:3])
     print(f"[{tag}] fp32 B={batch} {FCT_SIZE}^2 dice, AdamW 1e-4 clip 1.0, dropout on: flash launches "
           f"{FCT_FLASH}/{FCT_FLASH}/{FCT_FLASH} per step, other kernels 0; loss {[round(v, 5) for v in loss]}, "
           f"IoU {[round(v, 4) for v in iou]}; step {ms:.2f} ms (median of 3 reps of 2 steps, spread "
@@ -2768,6 +2804,376 @@ def phase_fct() -> dict:
     c = phase_fct_cli()
     d = phase_fct_step()
     return {"launches": {k: {"a": a[k], "c": c[k]} for k in FLASH3}, "step": d}
+
+
+# ------------------------------------------------------------------ phase 19
+
+CONV_SIZE = 64  # (a): every family takes 64^2 (the AutoEncoder needs a multiple of 32)
+CONV_FAMILIES = ("unet", "autoencoder", "combined", "ae32k_image", "ae32k_mask", "ae4k")
+TRAIN_EPOCH = re.compile(r"Epoch (\d+): loss ([0-9.naif-]+) train PSNR ([0-9.naif-]+) val PSNR ([0-9.naif-]+)")
+TRANSFER_EPOCH = re.compile(r"Transfer epoch (\d+): dice ([0-9.naif-]+)")
+VIDEO_EPOCH = re.compile(r"Video epoch (\d+): loss ([0-9.naif-]+) PSNR ([0-9.naif-]+)")
+CONV_LAUNCHES = dict.fromkeys((key for key, _, _ in COUNTERS), 0)  # every launch of phase 19's runs
+
+
+def no_launches(what: str) -> None:
+    """Add the counters to CONV_LAUNCHES and check they are all 0."""
+    for key, n in counts().items():
+        CONV_LAUNCHES[key] += n
+    check(counts() == expect_counts(), f"{what} launched {counts()}")
+
+
+def conv_family(name: str) -> torch.nn.Module:
+    """A conv family at its default widths on the CPU, every dropout off,
+    weights from seed 0, BatchNorm and biases seeded (seed_decoder)."""
+    g = torch.Generator().manual_seed(0)
+    if name == "unet":
+        model = UNet(device="cpu", generator=g)
+    elif name == "autoencoder":
+        model = AutoEncoder(AutoEncoderConfig(dropout_rate=0.0), device="cpu", generator=g)
+    elif name == "combined":
+        model = Image2Image2Mask(AutoEncoderConfig(dropout_rate=0.0), device="cpu", generator=g)
+    elif name == "ae4k":
+        model = Autoencoder4K(device="cpu", generator=g)
+        model.encoder.config = dataclasses.replace(model.encoder.config, dropout_rate=0.0)
+    else:
+        cfg = ResNetAEConfig(output_type=name.split("_")[1], dropout_rate=0.0)
+        model = Autoencoder32K(cfg, device="cpu", generator=g)
+    return seed_decoder(model, 19)
+
+
+def as_outputs(out) -> list:
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def family_grads(model: torch.nn.Module, x: torch.Tensor, ws: list, device: str, dtype: torch.dtype) -> dict:
+    """The train-mode gradients of sum_i sum(out_i * w_i) of a copy of
+    ``model`` in ``dtype`` on ``device``, by name, float64 on the CPU."""
+    m = copy.deepcopy(model).to(device=device, dtype=dtype).train()
+    outs = as_outputs(m(x.to(device, dtype)))
+    sum((o * w.to(device, dtype)).sum() for o, w in zip(outs, ws)).backward()
+    return {n: p.grad.detach().double().cpu() for n, p in m.named_parameters()}
+
+
+def rel_dist(a: dict, b: dict) -> float:
+    top = max(float(v.abs().max()) for v in b.values())
+    return max(float((a[k] - b[k]).abs().max()) for k in b) / top
+
+
+def phase_conv_parity() -> None:
+    """Phase 19 (a): each family's eval forward (fp32, TF32 off) and
+    train-mode gradients on the card against the port's CPU path."""
+    tag = "19 conv families (a) card vs CPU"
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, CONV_SIZE, CONV_SIZE, 3)).astype(np.float32))
+    reset_counts()
+    for name in CONV_FAMILIES:
+        cpu = conv_family(name).eval()
+        card = copy.deepcopy(cpu).to("cuda").eval()
+        with torch.no_grad():
+            ref, got = as_outputs(cpu(x)), as_outputs(card(x.cuda()))
+        top = max(float(r.abs().max()) for r in ref)
+        fwd = max(float((g.cpu() - r).abs().max()) for g, r in zip(got, ref)) / top
+        ws = [torch.from_numpy(rng.standard_normal(tuple(r.shape)).astype(np.float32)) for r in ref]
+        g64_cpu = family_grads(cpu, x, ws, "cpu", torch.float64)
+        g64_card = family_grads(cpu, x, ws, "cuda", torch.float64)
+        g32_cpu = family_grads(cpu, x, ws, "cpu", torch.float32)
+        g32_card = family_grads(cpu, x, ws, "cuda", torch.float32)
+        d64, e_cpu, e_card = rel_dist(g64_card, g64_cpu), rel_dist(g32_cpu, g64_cpu), rel_dist(g32_card, g64_cpu)
+        d32 = rel_dist(g32_card, g32_cpu)
+        print(f"[{tag}] {name} B=2 {CONV_SIZE}^2: eval forward max abs {fwd:.3g} x max|ref| (limit 1e-4); "
+              f"train-mode gradients, float64 card vs CPU {d64:.3g} x max|grad| (limit 1e-3); fp32 from "
+              f"the float64 gradients: card {e_card:.3g}, CPU {e_cpu:.3g} (limit 0.1); fp32 card vs fp32 "
+              f"CPU {d32:.3g}")
+        check(fwd <= 1e-4, f"(a) {name} eval forward {fwd:.3g}")
+        check(d64 <= 1e-3, f"(a) {name} float64 gradients {d64:.3g}")
+        check(max(e_card, e_cpu) <= 0.1, f"(a) {name} fp32 gradients {e_card:.3g} (CPU {e_cpu:.3g})")
+        del cpu, card
+    no_launches("(a)")
+    free_cuda()
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def conv_step(tag: str, step, state, batches: list, items: int, unit: str) -> dict:
+    """A training path's bare step: finite metrics, trainable parameters
+    moved, no hand-written kernel; step ms (phase 11's protocol), ``items``
+    ``unit`` a step per second, peak memory, the device ms split and the
+    idle share of a profile window."""
+    trainable = [(n, p) for n, p in state.model.named_parameters() if p.requires_grad]
+    p0 = {n: p.detach().clone() for n, p in trainable}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics = [step(state, b)[1] for b in batches]
+    torch.cuda.synchronize()
+    no_launches(tag)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    vals = {k: [m[k].item() for m in metrics] for k in metrics[0]}
+    check(all(math.isfinite(v) for vs in vals.values() for v in vs), f"{tag} metrics {vals}")
+    still = [n for n, p in trainable if torch.equal(p.detach(), p0[n])]
+    check(not still, f"{tag} parameters unchanged: {still[:5]}")
+    del p0
+    ms, spread = fct_step_ms(step, state, batches[:2])
+    split = step_split(step, state, batches[:3])
+    prof = profile_window(lambda: step(state, batches[0]), iters=2, top=5)
+    print(f"[{tag}] " + ", ".join(f"{k} {[round(v, 4) for v in vs]}" for k, vs in vals.items())
+          + f"; no hand-written kernel; step {ms:.2f} ms (median of 3 reps of 2 steps, spread {spread:.2f}%), "
+          f"{items / ms * 1e3:.1f} trained {unit}/s, peak memory {peak_gb:.3f} GB; device ms per step "
+          f"(median of 3): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    print_profile(f"{tag} profile", prof)
+    return {"ms": ms, "spread": spread, "per_s": items / ms * 1e3, "peak_gb": peak_gb,
+            "idle": prof["device_idle_share"], "split": split}
+
+
+def cli_zero(argv: list) -> str:
+    """``run_cli(argv)``, checked to launch no hand-written kernel."""
+    reset_counts()
+    text = run_cli(argv)
+    no_launches(argv[0])
+    return text
+
+
+def finite_epochs(pattern, text: str, want: list) -> list:
+    rows = [tuple(float(v) for v in row) for row in pattern.findall(text)]
+    check([int(r[0]) for r in rows] == want and all(math.isfinite(v) for r in rows for v in r[1:]), text)
+    return rows
+
+
+def phase_denoise(tmp: Path) -> dict:
+    """Phase 19 (b): ``denoise`` at the defaults, ``eval --model ae`` on its
+    best-val weights, and the bare step."""
+    tag = "19 conv families (b) denoise"
+    d = tmp / "denoise"
+    t0 = time.perf_counter()
+    text = cli_zero(["denoise", "--synthetic", "3", "--epochs", "2", "--checkpoint-dir", str(d)])
+    seconds = time.perf_counter() - t0
+    epochs = finite_epochs(TRAIN_EPOCH, text, [1, 2])
+    check((d / "IMAGE2IMAGE" / ckpt.PAYLOAD).is_file(), "(b) no best-val weights file")
+    text_eval = cli_zero(["eval", "--model", "ae", "--synthetic", "2", "--checkpoint", str(d / "IMAGE2IMAGE")])
+    psnr = re.search(r"eval ae: reconstruction PSNR ([0-9.-]+) dB", text_eval)
+    check(psnr is not None and math.isfinite(float(psnr.group(1))), text_eval)
+    print(f"[{tag}] denoise --synthetic 3 --epochs 2 (256^2, batch 8, mixed loss, AdamW 1e-4, clip 1.0) in "
+          f"{seconds:.1f} s: epochs (epoch, loss, train PSNR, val PSNR) {epochs}; best-val weights "
+          f"{d.name}/IMAGE2IMAGE; eval --model ae on them: PSNR {psnr.group(1)} dB; no hand-written kernel")
+    model = AutoEncoder(device="cuda", generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, make_optimizer(1e-4, weight_decay=0.01, grad_clip_norm=1.0), rng=0)
+    step = make_denoising_train_step(256, AugmentConfig(), "mixed", 0.5, 0.5)
+    batches = [torch.from_numpy(b).to("cuda") for b in SyntheticImages(8, 256, 4, 60)]
+    out = conv_step(f"{tag} step", step, state, batches, 8, "images")
+    del model, state
+    free_cuda()
+    return out
+
+
+AE32K_REFERENCE = [  # (the port's module path regex, the reference's), the folded BN's or None
+    (r"encoder\.stem_conv", "encoder.conv1", "encoder.bn1"),
+    (r"encoder\.stem_bn", "encoder.bn1", None),
+    (r"encoder\.blocks\.layer(\d+)_block(\d+)\.conv(\d)", r"encoder.layer\1.\2.conv\3", r"encoder.layer\1.\2.bn\3"),
+    (r"encoder\.blocks\.layer(\d+)_block(\d+)\.bn(\d)", r"encoder.layer\1.\2.bn\3", None),
+    (r"encoder\.blocks\.layer(\d+)_block(\d+)\.downsample_conv", r"encoder.layer\1.\2.downsample.0",
+     r"encoder.layer\1.\2.downsample.1"),
+    (r"encoder\.blocks\.layer(\d+)_block(\d+)\.downsample_bn", r"encoder.layer\1.\2.downsample.1", None),
+    (r"decoder\.upconvs\.(\d)", lambda m: f"decoder.transConv{int(m[1]) + 1}", None),
+    (r"decoder\.up_bns\.(\d)", lambda m: f"decoder.dbn{int(m[1]) + 2}", None),
+    (r"decoder\.head_conv", "decoder.outputDeterminerConv", None),
+    (r"decoder\.head_bn", "decoder.outputDeterminerNorm", None),
+]
+
+
+def _ae32k_reference_name(module: str):
+    """(the reference's module name, the BN a conv bias folds into) of a
+    module of the port's Autoencoder32K."""
+    m = re.fullmatch(r"encoder\.squeeze\.(\d+)", module)
+    if m:
+        i, r = divmod(int(m[1]), 3)
+        return (f"encoder.conv{i + 2}", f"encoder.bn{i + 2}") if r == 0 else (f"encoder.bn{i + 2}", None)
+    m = re.fullmatch(r"decoder\.(convs|conv_bns|post_convs|post_bns)\.(\d)", module)
+    if m:
+        n = int(m[2]) + (1 if m[1].startswith("conv") else 5)
+        return (f"decoder.bn{n}", None) if m[1].endswith("bns") else (f"decoder.conv{n}", f"decoder.bn{n}")
+    for pattern, name, fold in AE32K_REFERENCE:
+        m = re.fullmatch(pattern, module)
+        if m:
+            expand = (lambda t: t(m) if callable(t) else m.expand(t))
+            return expand(name), expand(fold) if fold else None
+    raise KeyError(module)
+
+
+def reference_state_dict(model: torch.nn.Module, seed: int, kind: str) -> dict:
+    """``model``'s weights in the reference's layout and names: an
+    ``Autoencoder32K`` as AE_32K's (every BN-followed conv given a seeded
+    bias, which the importer folds back into the BN's running mean) or a
+    UNet as UNet.py's. torch's layouts are the reference's, so only names
+    (and the folds) change."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    folds = {}
+    for key, value in model.state_dict().items():
+        module, leaf = key.rsplit(".", 1)
+        if kind == "unet":
+            m = re.fullmatch(r"(encoder|decoder)(\d)\.(conv|norm)(\d)", module) or re.fullmatch(
+                r"(bottleneck)()\.(conv|norm)(\d)", module)
+            pre = {"encoder": "enc", "decoder": "dec", "bottleneck": "bottleneck"}
+            name = f"{m[1]}{m[2]}.{pre[m[1]]}{m[2]}{m[3]}{m[4]}" if m else module
+            sd[f"{name}.{leaf}"] = value.clone()
+            continue
+        name, fold = _ae32k_reference_name(module)
+        sd[f"{name}.{leaf}"] = value.clone()
+        if fold is not None:
+            bias = torch.from_numpy(rng.normal(0, 0.1, value.shape[0]).astype(np.float32))
+            sd[f"{name}.bias"] = bias
+            folds[fold] = bias
+    for bn, bias in folds.items():
+        sd[f"{bn}.running_mean"] = sd[f"{bn}.running_mean"] + bias
+    return sd
+
+
+def check_ported(tag: str, path: str, src: torch.nn.Module) -> dict:
+    """The ``port`` output at ``path`` holds ``src``'s state_dict: running
+    means within 1e-6 (a folded bias added and taken away), the rest bit
+    for bit."""
+    ported = ckpt.restore_state(path)["model"]
+    want = src.state_dict()
+    check(ported.keys() == want.keys(), f"{tag} ported keys {sorted(set(ported) ^ set(want))[:5]}")
+    bad = [k for k in want if not (torch.allclose(ported[k], want[k], atol=1e-6, rtol=0) if "running_mean" in k
+                                   else torch.equal(ported[k], want[k]))]
+    check(not bad, f"{tag} ported tensors differ: {bad[:5]}")
+    return ported
+
+
+def phase_transfer(tmp: Path) -> dict:
+    """Phase 19 (c): ``port --model ae32k`` of a seeded reference-layout
+    state_dict, ``transfer --pretrained`` at the defaults, resumed once
+    through ``TransferFlow``, and the bare step."""
+    tag = "19 conv families (c) transfer"
+    src = seed_decoder(Autoencoder32K(device="cpu", generator=torch.Generator().manual_seed(3)), 30)
+    torch.save(reference_state_dict(src, 31, "ae32k"), tmp / "AE_32K.tar")
+    text_port = cli_zero(["port", "--model", "ae32k", "--checkpoint", str(tmp / "AE_32K.tar"),
+                          "--out", str(tmp / "ported")])
+    path = str(tmp / "ported" / "step_0")
+    check(text_port.strip().endswith(path), text_port)
+    ported = check_ported(tag, path, src)
+    encoder = [k for k, _ in src.named_parameters() if k.startswith("encoder.")]
+    d = tmp / "transfer"
+    t0 = time.perf_counter()
+    text = cli_zero(["transfer", "--synthetic", "3", "--epochs", "2", "--pretrained", path,
+                     "--checkpoint-dir", str(d)])
+    seconds = time.perf_counter() - t0
+    epochs = finite_epochs(TRANSFER_EPOCH, text, [1, 2])
+    tags = step_tags(d)
+    check(tags and tags[0] == "step_1" and set(tags) <= {"step_1", "step_2"}, f"(c) tags {tags}")
+    latest = ckpt.latest_step_dir(str(d))
+    raw = ckpt.restore_state(latest)["model"]
+    check(all(torch.equal(raw[k], ported[k]) for k in encoder), "(c) the frozen encoder moved")
+    stats = [k for k in raw if k.startswith("encoder.") and ("running_mean" in k or "running_var" in k)]
+    moved = [k for k in stats if not torch.equal(raw[k], torch.zeros_like(raw[k]) if "mean" in k
+                                                  else torch.ones_like(raw[k]))]
+    check(len(moved) == len(stats), f"(c) encoder BN stats left at (0, 1): {sorted(set(stats) - set(moved))[:5]}")
+    flow = TransferFlow(cfg=TrainConfig(model_name="latent_to_mask", loss="dice", lr=1e-4,
+                                        checkpoint_dir=str(d), sample_dir=str(tmp / "samples"),
+                                        log_dir=str(tmp / "runs")), image_size=256, device="cuda")
+    flow.init_from_pretrained(path, lr=1e-4)
+    start = flow.resume()
+    out = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        flow.train(SyntheticImageMasks(8, 256, 3, 0), epochs=3, start_epoch=start)
+    no_launches("(c) resumed transfer")
+    resumed = [int(r[0]) for r in finite_epochs(TRANSFER_EPOCH, out.getvalue(), list(range(start + 1, 4)))]
+    live = flow.state.model.state_dict()
+    check(all(torch.equal(live[k].cpu(), ported[k]) for k in encoder), "(c) the frozen encoder moved on resume")
+    masks = flow.test_a_sample(SyntheticImageMasks(8, 256, 1, 5), batch_size=4, out_dir=str(tmp / "preview"))
+    check(masks.shape == (4, 256, 256, 1) and masks.min() >= 0 and masks.max() <= 1, "(c) test_a_sample")
+    print(f"[{tag}] port --model ae32k: {text_port.split(':')[1].split('->')[0].strip()}, the ported "
+          f"state_dict equal to the source's; transfer --synthetic 3 --epochs 2 (256^2, batch 8, dice, AdamW "
+          f"1e-4, clip 1.0) in {seconds:.1f} s: epochs {epochs}, tags {tags}; resumed from step_{start} to "
+          f"epoch 3: printed epochs {resumed}; the encoder's {len(encoder)} parameters bit-equal to the "
+          f"ported ones after both runs, its {len(stats)} BN stats moved; no hand-written kernel")
+    step = make_segmentation_train_step(256, "dice", output_index=1)
+    result = conv_step(f"{tag} step", step, flow.state, fct_batches(8, 4, 61), 8, "images")
+    del flow
+    free_cuda()
+    return result
+
+
+def phase_frame_aes(tmp: Path) -> dict:
+    """Phase 19 (d): ``video --model ae32k`` at the defaults and ``--model
+    ae4k --image-size 64``, ``infer`` and ``eval`` on their checkpoints, and
+    each bare step."""
+    out = {}
+    for name, size in (("ae32k", 256), ("ae4k", 64)):
+        tag = f"19 conv families (d) video --model {name}"
+        d = tmp / name
+        common = ["--model", name, "--image-size", str(size)]
+        t0 = time.perf_counter()
+        text = cli_zero(["video", "--synthetic", "3", "--epochs", "2", "--checkpoint-dir", str(d), *common])
+        seconds = time.perf_counter() - t0
+        epochs = finite_epochs(VIDEO_EPOCH, text, [1, 2])
+        check(step_tags(d) == ["step_2"], f"(d) {name} tags {step_tags(d)}")
+        keys = ckpt.restore_state(str(d / "step_2"))["model"]
+        check(all(k.startswith("ae.") for k in keys), f"(d) {name} checkpoint keys")
+        text_infer = cli_zero(["infer", "--checkpoint", str(d / "step_2"), "--synthetic", "3", *common])
+        inf = re.search(r"mean PSNR ([0-9.-]+) dB, ([0-9.]+) frames/s", text_infer)
+        text_eval = cli_zero(["eval", "--checkpoint", str(d / "step_2"), "--synthetic", "2", *common])
+        ev = re.search(r"reconstruction PSNR ([0-9.-]+) dB", text_eval)
+        check(inf is not None and ev is not None and math.isfinite(float(ev.group(1))), text_infer + text_eval)
+        print(f"[{tag}] video --synthetic 3 --epochs 2 (batch 8 x 8 frames at {size}^2, fp32, "
+              f"{'mixed loss' if size > 160 else 'MSE'}, AdamW 1e-4, clip 1.0, noise 0.05, Dropout2d on) in "
+              f"{seconds:.1f} s: epochs {epochs}, tag step_2, keys under ae.; infer (bf16) on it: PSNR "
+              f"{inf.group(1)} dB, {inf.group(2)} frames/s; eval: PSNR {ev.group(1)} dB; no hand-written kernel")
+        ae = (Autoencoder32K if name == "ae32k" else Autoencoder4K)(
+            device="cuda", generator=torch.Generator().manual_seed(0))
+        state = create_train_state(FrameAE(ae), make_optimizer(1e-4, weight_decay=0.01, grad_clip_norm=1.0),
+                                   rng=0)
+        step = make_video_train_step(size, loss="mixed" if size > 160 else "mse", alpha=0.3, beta=0.7,
+                                     noise_std=0.05)
+        clips = [random_clip(8, 8, size, seed=70 + i) for i in range(4)]
+        out[name] = conv_step(f"{tag} step", step, state, clips, 64, "frames")
+        del ae, state, clips
+        free_cuda()
+    return out
+
+
+def phase_unet(tmp: Path) -> None:
+    """Phase 19 (e): ``port --model unet`` of a seeded reference-layout
+    state_dict, ``eval --model unet`` on it and ``eval --model combined``."""
+    tag = "19 conv families (e) unet, combined"
+    src = seed_decoder(UNet(device="cpu", generator=torch.Generator().manual_seed(4)), 40)
+    torch.save(reference_state_dict(src, 41, "unet"), tmp / "unet.pth")
+    cli_zero(["port", "--model", "unet", "--checkpoint", str(tmp / "unet.pth"), "--out", str(tmp / "unet")])
+    path = str(tmp / "unet" / "step_0")
+    check_ported(tag, path, src)
+    texts = [cli_zero(["eval", "--model", "unet", "--synthetic", "2", "--checkpoint", path]),
+             cli_zero(["eval", "--model", "combined", "--synthetic", "2", "--checkpoint-dir", str(tmp / "none")])]
+    for text in texts:
+        vals = [float(v) for v in re.findall(r"(?:dice|iou|psnr) ([0-9.-]+)", text)]
+        check(vals and all(math.isfinite(v) for v in vals), text)
+    print(f"[{tag}] port --model unet: the ported state_dict equal to the source's; "
+          + "; ".join(t.strip() for t in texts) + "; no hand-written kernel")
+
+
+def phase_conv_families() -> dict:
+    """Phase 19: the conv families; module docstring. Returns (b)-(d)'s
+    step records."""
+    for key in CONV_LAUNCHES:
+        CONV_LAUNCHES[key] = 0
+    phase_conv_parity()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)  # runs/ and saved_samples/ go here
+        try:
+            steps = {"denoise": phase_denoise(tmp), "transfer": phase_transfer(tmp)}
+            steps.update(phase_frame_aes(tmp))
+            phase_unet(tmp)
+        finally:
+            os.chdir(cwd)
+    print("[19 conv families] per training path (step ms, spread %, trained images or frames/s, peak GB, "
+          "idle share %): " + "; ".join(
+              f"{k} {v['ms']:.2f}, {v['spread']:.2f}, {v['per_s']:.1f}, {v['peak_gb']:.3f}, "
+              f"{100 * v['idle']:.1f}" for k, v in steps.items())
+          + f"; hand-written kernel launches in (a)-(e): {sum(CONV_LAUNCHES.values())}")
+    return steps
 
 
 def bound(nbytes: float, flops: float, dtype: torch.dtype):
@@ -3253,6 +3659,7 @@ def main() -> None:
     cli_counts = phase_runtime(train_ms)
     phase_config3()
     fct = phase_fct()
+    phase_conv_families()
     records = time_flash(fwd_launches, fwd_err, {"flash_bwd_dq": train["dq_launches"],
                                                  "flash_bwd_dkv": train["dkv_launches"]}, bwd_errs)
     records += time_band({"band_fwd": band_fwd_launches, "band_bwd_ds": windowed["band_ds_launches"],
@@ -3266,6 +3673,7 @@ def main() -> None:
         if counter_of(rec["name"]) in FLASH3:  # phase 18: FCT's forward (a) and its CLI (c)
             rec["fct_launches"] = fct["launches"][counter_of(rec["name"])]
             rec["fct_step"] = fct["step"]["attention"]
+        rec["conv_family_launches"] = CONV_LAUNCHES[counter_of(rec["name"])]  # phase 19 (a)-(e)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -3,7 +3,12 @@
 Counterpart of ``tchvp_tpu/cli.py``, with its subcommand names and flags:
 
     python -m tchvp_tpu_torch.cli video  --synthetic 3 --attn-impl flash
+    python -m tchvp_tpu_torch.cli video  --synthetic 3 --model ae32k
     python -m tchvp_tpu_torch.cli segment --synthetic 3
+    python -m tchvp_tpu_torch.cli denoise --synthetic 3
+    python -m tchvp_tpu_torch.cli port   --model ae32k --checkpoint AE_32K.tar --out ported
+    python -m tchvp_tpu_torch.cli transfer --synthetic 3 --pretrained ported/step_0
+    python -m tchvp_tpu_torch.cli eval   --model ae --checkpoint checkpoints/IMAGE2IMAGE
     python -m tchvp_tpu_torch.cli eval   --model fct --checkpoint checkpoints/step_2
     python -m tchvp_tpu_torch.cli video  --clippack clips.cpk --resume
     python -m tchvp_tpu_torch.cli infer  --checkpoint checkpoints/step_5
@@ -12,10 +17,12 @@ Counterpart of ``tchvp_tpu/cli.py``, with its subcommand names and flags:
     python -m tchvp_tpu_torch.cli pack   --train-csv clips.csv --out clips.cpk
     python -m tchvp_tpu_torch.cli summary --model hybrid
     python -m tchvp_tpu_torch.cli summary --model fct
+    python -m tchvp_tpu_torch.cli summary --model combined
     python -m tchvp_tpu_torch.cli doctor --smoke
 
-Every command that runs the model runs it on ``--device`` (default
+Every command that runs a model runs it on ``--device`` (default
 ``cuda``); without a card it exits 1 unless ``--device cpu`` is given.
+``port`` and ``summary`` run no model: they build theirs on the CPU.
 ``--mesh seq=N`` runs as N processes, one per rank, each given
 ``--coordinator`` (``host:port``, or any ``torch.distributed`` init URL),
 ``--num-processes N`` and its ``--process-id``.
@@ -33,7 +40,7 @@ import subprocess
 import sys
 import time
 
-_ITEMS = {7: "other model families", 10: "serving", 11: "parallelism", 12: "autotuner"}
+_ITEMS = {10: "serving", 11: "parallelism", 12: "autotuner"}
 
 
 def _not_ported(what: str, item: int):
@@ -269,21 +276,30 @@ def _moe_flags(args) -> None:
             _not_ported(f"--{flag.replace('_', '-')} (ops/moe.py)", 11)
 
 
-def _image_data(args):
-    """(train, val, test) (image, mask) datasets: ``--synthetic N`` (seeds
-    0, 1, 2) or the CSV manifests (None where a manifest is not given)."""
+def _image_data(args, supervised: bool = True):
+    """(train, val, test) datasets of (image, mask) pairs, or of images
+    alone when not ``supervised``: ``--synthetic N`` (seeds 0, 1, 2) or the
+    CSV manifests (None where a manifest is not given)."""
     if args.synthetic:
-        from tchvp_tpu_torch.data.synthetic import SyntheticImageMasks
+        from tchvp_tpu_torch.data.synthetic import SyntheticImageMasks, SyntheticImages
 
-        return tuple(SyntheticImageMasks(args.batch_size, args.image_size, args.synthetic, seed)
+        cls = SyntheticImageMasks if supervised else SyntheticImages
+        return tuple(cls(args.batch_size, args.image_size, args.synthetic, seed)
                      for seed in (0, 1, 2))
     if not args.train_csv:
         raise SystemExit("provide --train-csv or --synthetic N")
-    from tchvp_tpu_torch.data.manifest import ImageMaskDataset
+    from tchvp_tpu_torch.data.manifest import ImageDataset, ImageMaskDataset
 
-    return tuple(ImageMaskDataset(csv, args.batch_size, args.image_size, seed=seed, prefetch=True)
+    cls = ImageMaskDataset if supervised else ImageDataset
+    return tuple(cls(csv, args.batch_size, args.image_size, seed=seed, prefetch=True)
                  if csv else None
                  for csv, seed in ((args.train_csv, 0), (args.val_csv, 1), (args.test_csv, 2)))
+
+
+def _no_data_parallel(args, cmd: str) -> None:
+    """``--data-parallel`` of the image flows waits for item 11."""
+    if args.data_parallel:
+        _not_ported(f"{cmd} --data-parallel", 11)
 
 
 def _segment_mesh(args) -> None:
@@ -319,6 +335,92 @@ def _fct_model(device, attn: str = "auto"):
     return FCT(FCTConfig(attn_impl=attn), device=device, generator=torch.Generator().manual_seed(0))
 
 
+def _seeded(model_cls, *a, **kw):
+    """``model_cls`` with its weights from a generator seeded 0 (the JAX
+    package's PRNGKey(0))."""
+    import torch
+
+    return model_cls(*a, generator=torch.Generator().manual_seed(0), **kw)
+
+
+def _image_model(name: str, device):
+    """The image families at their default widths on ``device``: "fct",
+    "unet", "ae" (AutoEncoder) and "combined" (Image2Image2Mask)."""
+    if name == "fct":
+        return _fct_model(device)
+    from tchvp_tpu_torch.models.autoencoder import AutoEncoder
+    from tchvp_tpu_torch.models.combined import Image2Image2Mask
+    from tchvp_tpu_torch.models.unet import UNet
+
+    return _seeded({"unet": UNet, "ae": AutoEncoder, "combined": Image2Image2Mask}[name],
+                   device=device)
+
+
+def cmd_denoise(args) -> None:
+    """Denoising-AE training (``DenoisingFlow``): the mixed loss by default,
+    the best-val-PSNR weights file, a full checkpoint and an inpainting
+    test every 5 epochs."""
+    from tchvp_tpu_torch.config import TrainConfig
+    from tchvp_tpu_torch.train.loops import DenoisingFlow
+
+    _no_data_parallel(args, "denoise")
+    cfg = TrainConfig(
+        loss=args.loss or "mixed",
+        lr=args.lr,
+        checkpoint_dir=args.checkpoint_dir,
+        batch_size=args.batch_size,
+        **_train_cfg_kwargs(args),
+    )
+    train, val, test = _image_data(args, supervised=False)
+    flow = DenoisingFlow(_image_model("ae", _device(args)), cfg=cfg, image_size=args.image_size,
+                         aug=_aug_cfg(args))
+    _record_run(args)
+    flow.fit(train, val or train, test, epochs=args.epochs, lr=args.lr)
+
+
+def cmd_transfer(args) -> None:
+    """Frozen-encoder mask transfer (``TransferFlow``): the encoder of the
+    ``--pretrained`` Autoencoder32K checkpoint under a fresh mask decoder,
+    dice loss."""
+    from tchvp_tpu_torch.config import TrainConfig
+    from tchvp_tpu_torch.train.loops import TransferFlow
+
+    _no_data_parallel(args, "transfer")
+    cfg = TrainConfig(
+        model_name="latent_to_mask",
+        loss="dice",
+        checkpoint_dir=args.checkpoint_dir,
+        **_train_cfg_kwargs(args),
+    )
+    train, _, _ = _image_data(args, supervised=True)
+    flow = TransferFlow(cfg=cfg, image_size=args.image_size, device=_device(args))
+    flow.init_from_pretrained(args.pretrained, lr=args.lr)
+    _record_run(args)
+    flow.train(train, epochs=args.epochs)
+
+
+def cmd_port(args) -> None:
+    """Convert a reference PyTorch checkpoint into a checkpoint of the
+    port's model of that family (``utils/torch_port.py``), saved as
+    ``<out>/step_0``: how a user of the reference brings their weights
+    across, and what ``transfer --pretrained`` reads. Runs on the CPU."""
+    from tchvp_tpu_torch import convert
+    from tchvp_tpu_torch.train import checkpoint as ckpt
+    from tchvp_tpu_torch.utils import torch_port
+
+    if not args.checkpoint or not args.out:
+        raise SystemExit("port: provide --checkpoint (torch file) and --out")
+    if args.model == "hybrid" and not args.temporal_checkpoint:
+        raise SystemExit("port hybrid: also provide --temporal-checkpoint")
+    sd = torch_port.load_reference_checkpoint(args.checkpoint)
+    tsd = (torch_port.load_reference_checkpoint(args.temporal_checkpoint)
+           if args.model == "hybrid" else None)
+    model, variables = torch_port.import_reference(args.model, sd, tsd)
+    path = ckpt.save_state(args.out, 0, model)
+    n_arrays = sum(1 for _ in convert._leaves(variables))
+    print(f"ported {args.model}: {n_arrays} arrays -> {path}")
+
+
 def cmd_segment(args) -> None:
     """FCT segmentation training (``SegmentationFlow``): dice loss by
     default, the best-train-loss checkpoint each epoch it improves."""
@@ -342,16 +444,27 @@ def cmd_segment(args) -> None:
 
 
 def _video_model(args, device):
-    """--model "hybrid": the flagship CNN+transformer on ``device``, its
-    weights from a seeded generator (seed 0, the JAX package's
-    PRNGKey(0)). The frame AEs ("ae32k", "ae4k") are item 7."""
+    """--model "hybrid": the flagship CNN+transformer on ``device``; "ae32k"
+    (the frame AE of the recovered AE_256_32K workload) or "ae4k" (the 64px
+    flat-latent AE_64_4k), each wrapped per frame by ``FrameAE`` so it
+    takes (B, T, H, W, C) clips like the hybrid. Weights from a seeded
+    generator (seed 0, the JAX package's PRNGKey(0))."""
     import torch
 
     from tchvp_tpu_torch.config import flagship_video_config
     from tchvp_tpu_torch.models.video import VideoHybridNet
 
     if args.model != "hybrid":
-        _not_ported(f"--model {args.model}", 7)
+        if getattr(args, "num_experts", 0):
+            raise SystemExit("--num-experts applies to --model hybrid only "
+                             "(the temporal transformer's FFNs)")
+        if getattr(args, "seq_axis", None):
+            _not_ported(f"--mesh with --model {args.model}", 11)
+        from tchvp_tpu_torch.models.frame_ae import FrameAE
+        from tchvp_tpu_torch.models.resnet_ae import Autoencoder4K, Autoencoder32K
+
+        return FrameAE(_seeded(Autoencoder32K if args.model == "ae32k" else Autoencoder4K,
+                               device=device))
     _moe_flags(args)
     attn = getattr(args, "attn_impl", None) or "xla"
     if attn == "ring":
@@ -441,9 +554,10 @@ def _serving_flags(args) -> None:
 
 
 def _serving_model(args, size: int, device):
-    """The bf16 flagship of the serving commands (the JAX package's
-    ``VideoHybridNet(dtype=bfloat16)``), "xla" attention, with the
-    checkpoint's weights (fp32 on disk, cast on load) when one is given."""
+    """The bf16 model of the serving commands (the JAX package's
+    ``VideoHybridNet(dtype=bfloat16)``; "xla" attention), or with ``--model
+    ae32k|ae4k`` the frame AE cast to bf16, with the checkpoint's weights
+    (fp32 on disk, cast on load) when one is given."""
     import torch
 
     from tchvp_tpu_torch.config import flagship_video_config
@@ -451,9 +565,12 @@ def _serving_model(args, size: int, device):
     from tchvp_tpu_torch.train import checkpoint as ckpt
 
     _moe_flags(args)
-    model = VideoHybridNet(flagship_video_config(image_size=size, num_layers=args.layers),
-                           device=device, dtype=torch.bfloat16,
-                           generator=torch.Generator().manual_seed(0))
+    if args.model != "hybrid":
+        model = _video_model(args, device).to(torch.bfloat16)
+    else:
+        model = VideoHybridNet(flagship_video_config(image_size=size, num_layers=args.layers),
+                               device=device, dtype=torch.bfloat16,
+                               generator=torch.Generator().manual_seed(0))
     if args.checkpoint:
         restored = ckpt.restore_state(args.checkpoint)
         model.load_state_dict(_restored_params(restored, args.ema, args.layers))
@@ -594,11 +711,9 @@ def cmd_summary(args) -> None:
 
     from tchvp_tpu_torch.utils.summary import describe, summarize
 
-    if args.model == "fct":
-        model = _fct_model(torch.device("cpu"))
+    if args.model in _EXPORT_IMAGE_MODELS:
+        model = _image_model(args.model, torch.device("cpu"))
         shape = (1, args.image_size, args.image_size, 3)
-    elif args.model in _EXPORT_IMAGE_MODELS:
-        _not_ported(f"summary --model {args.model}", 7)
     else:
         model = _video_model(args, torch.device("cpu"))
         shape = (1, args.clip_len, args.image_size, args.image_size, 3)
@@ -652,17 +767,23 @@ def cmd_eval(args) -> None:
     state, whose shape depends on the training run's flags."""
     from tchvp_tpu_torch.config import TrainConfig
     from tchvp_tpu_torch.train import checkpoint as ckpt
-    from tchvp_tpu_torch.train.loops import SegmentationFlow, VideoFlow
+    from tchvp_tpu_torch.train.loops import DenoisingFlow, SegmentationFlow, VideoFlow
 
     if getattr(args, "test_csv", None) and not args.train_csv:
         args.train_csv = args.test_csv
     if args.int8:
         _not_ported("--int8 (infer/quant.py)", 10)
-    if args.model not in _EXPORT_CLIP_MODELS + ("fct",):
-        _not_ported(f"eval --model {args.model}", 7)
     path = args.checkpoint or ckpt.latest_step_dir(args.checkpoint_dir)
     src = f"ckpt {path}" if path else "fresh params (no checkpoint found)"
     device = _device(args)
+
+    def load(model):
+        if path:
+            raw = ckpt.restore_state(path)
+            if "step" not in raw and args.ema:
+                raise SystemExit("--ema needs a full-state checkpoint, got weights-only")
+            model.load_state_dict(_restored_params(raw, args.ema, args.layers))
+
     if args.model == "fct":
         loss = args.loss or "dice"
         flow = SegmentationFlow(
@@ -671,13 +792,26 @@ def cmd_eval(args) -> None:
             image_size=args.image_size,
         )
         flow.init_state()
-        if path:
-            raw = ckpt.restore_state(path)
-            if "step" not in raw and args.ema:
-                raise SystemExit("--ema needs a full-state checkpoint, got weights-only")
-            flow.model.load_state_dict(_restored_params(raw, args.ema))
+        load(flow.model)
         m = flow.evaluate(_image_data(args)[0])
         print(f"eval fct: {loss} loss {m['loss']:.4f}, IoU {m['iou']:.3f}  [{src}]")
+        return
+    if args.model == "ae":
+        flow = DenoisingFlow(_image_model("ae", device),
+                             cfg=TrainConfig(checkpoint_dir=args.checkpoint_dir),
+                             image_size=args.image_size)
+        flow.init_state()
+        load(flow.model)
+        psnr = flow.validate(_image_data(args, supervised=False)[0])
+        print(f"eval ae: reconstruction PSNR {psnr:.2f} dB  [{src}]")
+        return
+    if args.model in ("unet", "combined"):
+        model = _image_model(args.model, device)
+        load(model)
+        sums, n = _eval_masks(model.eval(), args.model == "combined", args.image_size,
+                              _image_data(args)[0], device)
+        parts = ", ".join(f"{k} {sums[k] / max(n, 1):.4f}" for k in sorted(sums))
+        print(f"eval {args.model}: {parts} over {n} batches  [{src}]")
         return
     flow = VideoFlow(
         _video_model(args, device),
@@ -685,13 +819,39 @@ def cmd_eval(args) -> None:
         image_size=args.image_size, mesh=_mesh(args),
     )
     flow.init_state(args.clip_len)
-    if path:
-        raw = ckpt.restore_state(path)
-        if "step" not in raw and args.ema:
-            raise SystemExit("--ema needs a full-state checkpoint, got weights-only")
-        flow.model.load_state_dict(_restored_params(raw, args.ema, args.layers))
+    load(flow.model)
     psnr = flow.evaluate(_clip_data(args, args.image_size))
     print(f"eval {args.model}: reconstruction PSNR {psnr:.2f} dB  [{src}]")
+
+
+def _eval_masks(model, combined: bool, size: int, data, device):
+    """Per-batch sums of dice loss and IoU (and, for the combined model,
+    the reconstruction's PSNR) of an eval-mode mask model over (image, mask)
+    batches; returns (sums, batches)."""
+    import numpy as np
+    import torch
+
+    from tchvp_tpu_torch import losses
+    from tchvp_tpu_torch.data import pipeline
+
+    sums, n = {}, 0
+    for image_u8, mask_u8 in data:
+        x, y = (pipeline.preprocess_images(torch.as_tensor(np.asarray(t)).to(device), size)
+                for t in (image_u8, mask_u8))
+        with torch.no_grad():
+            out = model(x)
+        m = {}
+        if combined:
+            _, recon, mask = out
+            m["psnr"] = losses.psnr(recon, x)
+        else:
+            mask = out
+        m["dice"] = losses.dice_loss(mask, y)
+        m["iou"] = losses.jaccard_score(mask > 0.5, y > 0.5)
+        for k, v in m.items():
+            sums[k] = sums.get(k, 0.0) + float(v)
+        n += 1
+    return sums, n
 
 
 def cmd_pack(args) -> None:
@@ -788,21 +948,21 @@ def _unported_command(item: int):
 # Subcommands of the JAX package whose item is still to come. They take
 # whatever follows them (``main`` parses them with ``parse_known_args``) and
 # exit naming the item.
-_UNPORTED = {"denoise": 7, "transfer": 7, "port": 7,
-             "export": 10, "serve": 10, "shards": 11, "tune": 12}
+_UNPORTED = {"export": 10, "serve": 10, "shards": 11, "tune": 12}
 
 
 def _build_parser():
     parser = argparse.ArgumentParser("tchvp_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     subparsers = {}
-    commands = {"video": cmd_video, "segment": cmd_segment, "pack": cmd_pack, "stream": cmd_stream,
-                "infer": cmd_infer, "eval": cmd_eval, "summary": cmd_summary}
+    commands = {"video": cmd_video, "segment": cmd_segment, "denoise": cmd_denoise,
+                "transfer": cmd_transfer, "port": cmd_port, "pack": cmd_pack,
+                "stream": cmd_stream, "infer": cmd_infer, "eval": cmd_eval, "summary": cmd_summary}
 
     for name, item in _UNPORTED.items():
         p = sub.add_parser(name, help=f"not ported yet (item {item})")
         p.set_defaults(fn=_unported_command(item))
-    for name in ("video", "segment", "pack", "stream", "infer", "eval", "summary"):
+    for name in commands:
         p = sub.add_parser(name)
         subparsers[name] = p
         _add_common(p)
@@ -854,9 +1014,22 @@ def _build_parser():
                            choices=("auto", "xla", "flash", "ring"),
                            help="FCT spatial-attention core (default auto: the "
                                 "flash kernels on a card); ring is item 11")
+        if name == "transfer":
+            p.add_argument("--pretrained", default=None)
+        if name == "port":
+            p.add_argument("--checkpoint", default=None,
+                           help="reference torch .tar/.pth file")
+            p.add_argument("--temporal-checkpoint", default=None)
+            p.add_argument("--out", default=None)
+            p.add_argument("--model", default="ae32k",
+                           choices=("unet", "fct", "autoencoder", "ae32k",
+                                    "ae4k", "transformer", "hybrid"))
         if name == "pack":
             p.add_argument("--out", default=None)
             p.add_argument("--clip-len", type=int, default=0)
+        if name in ("infer", "stream"):
+            p.add_argument("--model", default="hybrid", choices=_EXPORT_CLIP_MODELS,
+                           help="the flagship, or a frame AE (ae32k, ae4k) run per frame")
         if name == "infer":
             p.add_argument("--clippack", default=None)
             p.add_argument("--checkpoint", default=None)

@@ -1,9 +1,9 @@
 """Configuration dataclasses of the main path, without JAX.
 
-Copies of ``tchvp_tpu/config.py``'s ``ResNetAEConfig``,
-``TransformerConfig``, ``VideoModelConfig``, ``flagship_video_config``,
-``SobelConfig``, ``FCTConfig``, ``DataConfig``, ``IngestConfig``,
-``AugmentConfig`` and ``TrainConfig`` with identical field names and
+Copies of ``tchvp_tpu/config.py``'s ``AutoEncoderConfig``, ``UNetConfig``,
+``ResNetAEConfig``, ``TransformerConfig``, ``VideoModelConfig``,
+``flagship_video_config``, ``SobelConfig``, ``FCTConfig``, ``DataConfig``,
+``IngestConfig``, ``AugmentConfig`` and ``TrainConfig`` with identical field names and
 defaults (``tests/test_torch_config.py`` and ``tests/test_torch_fct.py``
 hold them equal), so a configuration means the same model and run in both
 packages. The mesh-axis fields (``tp_axis``, ``sp_axis``, ``seq_axis``,
@@ -15,6 +15,30 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class AutoEncoderConfig:
+    """Plain multi-scale-input conv AE. The default ``filters`` give a
+    (B, 8, 8, 128) latent at 256^2; the notebook variant's
+    ``(8, 16, 32, 64, 128, 512)`` gives (B, 4, 4, 512)."""
+
+    filters: Sequence[int] = (8, 16, 32, 64, 128)
+    out_channels: int = 3
+    dropout_rate: float = 0.3
+
+    @staticmethod
+    def notebook_variant() -> "AutoEncoderConfig":
+        return AutoEncoderConfig(filters=(8, 16, 32, 64, 128, 512))
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """Classic 4-down/4-up UNet."""
+
+    in_channels: int = 3
+    out_channels: int = 1
+    init_features: int = 32
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,12 +1,14 @@
 """Carry weights from the JAX package's flax variables into the port.
 
-:func:`from_flax` takes a ``VideoHybridNet``'s ``{"params",
-"batch_stats"}`` tree, or an ``FCT``'s ``{"params"}`` (numpy arrays, or
-anything ``np.asarray`` takes), and returns a ``state_dict`` for
-:class:`tchvp_tpu_torch.models.video.VideoHybridNet` or
-:class:`tchvp_tpu_torch.models.fct.FCT`. The port's FCT keeps flax's module
-names, so its paths map one to one. It runs the maps of
-``tchvp_tpu/utils/torch_port.py`` backwards:
+:func:`from_flax` takes the ``{"params", "batch_stats"}`` tree of a JAX
+model (``{"params"}`` for one without BatchNorm: numpy arrays, or anything
+``np.asarray`` takes) and returns a ``state_dict`` for the port's
+counterpart: ``VideoHybridNet``, ``FCT``, ``UNet``, ``AutoEncoder``,
+``Image2Image2Mask``, ``Autoencoder32K`` (its ``mu``/``logvar`` heads
+too), ``Autoencoder4K`` or one of their submodules at its flax path. The
+families after the flagship keep flax's module names, so their paths map
+one to one. It runs the maps of ``tchvp_tpu/utils/torch_port.py``
+backwards:
 
 * conv kernels HWIO -> OIHW (a depthwise (3, 3, 1, C) kernel -> (C, 1, 3, 3));
 * Dense kernels (in, out) -> (out, in);
@@ -15,7 +17,10 @@ names, so its paths map one to one. It runs the maps of
   ``.../BatchNorm_0/{mean, var}`` -> ``weight``, ``bias``,
   ``running_mean``, ``running_var`` (and ``num_batches_tracked`` 0);
 * ConvTranspose kernels (kh, kw, in, out), applied spatially flipped by
-  flax, -> ``transpose(k[::-1, ::-1], (2, 3, 0, 1))``.
+  flax, -> ``transpose(k[::-1, ::-1], (2, 3, 0, 1))``. A module is a
+  ConvTranspose by its kind in the table below (the modules flax names
+  ``upconv<N>``: ``Decoder32K``'s and UNet's), not by where the port
+  keeps it.
 
 Every leaf maps to exactly one entry; ``load_state_dict(strict=True)``
 checks that every entry of the port is covered.
@@ -35,23 +40,30 @@ import torch
 
 _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 
-# (flax module path regex, torch module path template), tried in order.
+CONV = "conv"  # Conv, Dense, norms: the leaf maps by its rank
+CONV_TRANSPOSE = "conv_transpose"
+
+# (flax module path regex, torch module path template, kind), tried in order.
 _MODULES = [
-    (r"encoder/(stem_conv|stem_bn)", r"encoder.\1"),
-    (r"encoder/(layer\d+_block\d+)/(\w+)", r"encoder.blocks.\1.\2"),
-    (r"encoder/squeeze(\d+)_conv", lambda m: f"encoder.squeeze.{3 * int(m[1])}"),
-    (r"encoder/squeeze(\d+)_bn", lambda m: f"encoder.squeeze.{3 * int(m[1]) + 1}"),
-    (r"temporal/norm_(\d+)", r"temporal.layers.\1.norm"),
-    (r"temporal/attention_(\d+)/(\w+)", r"temporal.layers.\1.attention.\2"),
-    (r"temporal/(ffn[12])_(\d+)", r"temporal.layers.\2.\1"),
-    (r"decoder/conv(\d+)", r"decoder.convs.\1"),
-    (r"decoder/bn(\d+)", r"decoder.conv_bns.\1"),
-    (r"decoder/upconv(\d+)", r"decoder.upconvs.\1"),
-    (r"decoder/up_bn(\d+)", r"decoder.up_bns.\1"),
-    (r"decoder/post_conv(\d+)", r"decoder.post_convs.\1"),
-    (r"decoder/post_bn(\d+)", r"decoder.post_bns.\1"),
-    (r"decoder/(head_conv|head_bn)", r"decoder.\1"),
-    (r"((?:block_\d|ds)(?:/\w+)*)", lambda m: m[1].replace("/", ".")),  # FCT
+    (r"encoder/(stem_conv|stem_bn)", r"encoder.\1", CONV),
+    (r"encoder/(layer\d+_block\d+)/(\w+)", r"encoder.blocks.\1.\2", CONV),
+    (r"encoder/squeeze(\d+)_conv", lambda m: f"encoder.squeeze.{3 * int(m[1])}", CONV),
+    (r"encoder/squeeze(\d+)_bn", lambda m: f"encoder.squeeze.{3 * int(m[1]) + 1}", CONV),
+    (r"temporal/norm_(\d+)", r"temporal.layers.\1.norm", CONV),
+    (r"temporal/attention_(\d+)/(\w+)", r"temporal.layers.\1.attention.\2", CONV),
+    (r"temporal/(ffn[12])_(\d+)", r"temporal.layers.\2.\1", CONV),
+    (r"decoder/conv(\d+)", r"decoder.convs.\1", CONV),
+    (r"decoder/bn(\d+)", r"decoder.conv_bns.\1", CONV),
+    (r"decoder/upconv(\d+)", r"decoder.upconvs.\1", CONV_TRANSPOSE),
+    (r"decoder/up_bn(\d+)", r"decoder.up_bns.\1", CONV),
+    (r"decoder/post_conv(\d+)", r"decoder.post_convs.\1", CONV),
+    (r"decoder/post_bn(\d+)", r"decoder.post_bns.\1", CONV),
+    (r"decoder/(head_conv|head_bn)", r"decoder.\1", CONV),
+    # UNet (alone or as Image2Image2Mask's ``unet``): its ConvTransposes.
+    (r"((?:unet/)?upconv\d)", lambda m: m[1].replace("/", "."), CONV_TRANSPOSE),
+    # FCT, UNet, AutoEncoder, Image2Image2Mask, Autoencoder32K's mu/logvar:
+    # flax's names.
+    (r"(\w+(?:/\w+)*)", lambda m: m[1].replace("/", "."), CONV),
 ]
 
 
@@ -63,33 +75,34 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[T
             yield prefix + (key,), val
 
 
-def _module_name(path: Tuple[str, ...]) -> str:
+def _module_name(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """(the port's module path, the flax module's kind) of a flax module path."""
     flax_path = "/".join(p for p in path if p != "BatchNorm_0")
-    for pattern, template in _MODULES:
+    for pattern, template, kind in _MODULES:
         m = re.fullmatch(pattern, flax_path)
         if m:
-            return template(m) if callable(template) else m.expand(template)
+            return (template(m) if callable(template) else m.expand(template)), kind
     raise KeyError(f"no port module for flax module {'/'.join(path)}")
 
 
-def _convert(module: str, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+def _convert(kind: str, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
     if leaf != "kernel":
         return _LEAF[leaf], arr
+    if kind == CONV_TRANSPOSE:  # flax applies the kernel spatially flipped
+        return "weight", np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
     if arr.ndim == 2:  # Dense (in, out) -> (out, in)
         return "weight", arr.T
-    if ".upconvs." in module:  # flax applies the kernel spatially flipped
-        return "weight", np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
     return "weight", np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
 
 
 def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax ``{"params", "batch_stats"}`` of the JAX ``VideoHybridNet`` (or
-    ``{"params"}`` of its ``FCT``) -> ``state_dict`` of the port's model."""
+    """flax ``{"params", "batch_stats"}`` (or ``{"params"}``) of a JAX
+    model -> ``state_dict`` of the port's counterpart (module docstring)."""
     state: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, value in _leaves(variables.get(collection, {})):
-            module = _module_name(path[:-1])
-            leaf, arr = _convert(module, path[-1], np.asarray(value, dtype=np.float32))
+            module, kind = _module_name(path[:-1])
+            leaf, arr = _convert(kind, path[-1], np.asarray(value, dtype=np.float32))
             key = f"{module}.{leaf}"
             if key in state:
                 raise ValueError(f"two flax leaves map to {key}")

@@ -15,6 +15,10 @@ Counterpart of ``tchvp_tpu/models/streaming.py`` over a
 * :func:`microbatched_infer` runs a batch as sequential groups into one
   preallocated output, so peak activation memory is one group's.
 
+A frame autoencoder (``models/frame_ae.py``, ``--model ae32k|ae4k``) has
+no temporal stage and no context to carry: its chunks run through the
+model as they are.
+
 All of them are inference: they run the model in eval mode under
 ``torch.inference_mode`` and give its training flag back afterwards. Input
 clips are cast to the model's dtype first, as the flax modules cast theirs.
@@ -71,20 +75,25 @@ def stream_clip(model: VideoHybridNet, clip: torch.Tensor, chunk_len: int,
         raise ValueError(f"clip length {t} not a multiple of chunk {chunk_len}")
     if ctx_frames > chunk_len:
         raise ValueError("ctx_frames must be <= chunk_len")
-    ctx_tokens = ctx_frames * model.config.tokens_per_frame
+    frame_wise = not hasattr(model, "temporal_mix")
+    ctx_tokens = 0 if frame_wise else ctx_frames * model.config.tokens_per_frame
     d = (clip.shape[2] // 4) * (clip.shape[3] // 4)  # tokens embed the H/4 x W/4 latent map
     recon = None
     with _inference(model) as dtype:
         clip = clip.to(dtype)
         carry = clip.new_zeros((b, ctx_tokens, d))
         for start in range(0, t, chunk_len):
-            tokens, hw = model.encode_clip(clip[:, start:start + chunk_len])
-            if ctx_tokens:
-                out_tokens = model.temporal_mix(torch.cat([carry, tokens], dim=1))[:, ctx_tokens:]
-                carry = tokens[:, -ctx_tokens:]
+            part = clip[:, start:start + chunk_len]
+            if frame_wise:
+                chunk = model(part)[1]
             else:
-                out_tokens = model.temporal_mix(tokens)
-            chunk = model.decode_tokens(out_tokens, hw)
+                tokens, hw = model.encode_clip(part)
+                if ctx_tokens:
+                    out_tokens = model.temporal_mix(torch.cat([carry, tokens], dim=1))[:, ctx_tokens:]
+                    carry = tokens[:, -ctx_tokens:]
+                else:
+                    out_tokens = model.temporal_mix(tokens)
+                chunk = model.decode_tokens(out_tokens, hw)
             if recon is None:
                 recon = chunk.new_empty((b, t) + chunk.shape[2:])
             recon[:, start:start + chunk_len] = chunk

@@ -93,7 +93,8 @@ class VideoHybridNet(nn.Module):
         self.compute_dtype = compute_dtype
         self.encoder = Encoder32K(config.encoder)
         self.temporal = TransformerEncoder(config.temporal)
-        self.decoder = Decoder32K(output_type=config.output_type)
+        self.decoder = Decoder32K(output_type=config.output_type,
+                                  latent_channels=config.encoder.squeeze_features[-1])
         init_flax_default(self, generator or torch.Generator().manual_seed(0))
         for m in self.modules():
             if isinstance(m, BatchNorm):

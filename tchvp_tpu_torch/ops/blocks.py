@@ -1,8 +1,12 @@
-"""Conv building blocks of the main path: BatchNorm, the ResNet Bottleneck,
-the polyphase upconv and the biased layers of mixed precision.
+"""Conv building blocks: BatchNorm, the ResNet Bottleneck, the polyphase
+upconv, the biased layers of mixed precision, and the blocks of the conv
+families (UNet's double conv, the AutoEncoder's encoder, decoder and
+deep-supervision blocks).
 
-Counterparts of ``tchvp_tpu/ops/blocks.py``'s ``BatchNorm``, ``Bottleneck``
-and ``PixelShuffleUpconv``, NCHW. flax's BatchNorm momentum 0.9 is torch's
+Counterparts of ``tchvp_tpu/ops/blocks.py``'s ``BatchNorm``, ``Bottleneck``,
+``PixelShuffleUpconv``, ``ConvBNReLUBlock``, ``_conv3x3``,
+``EncoderBlock``, ``DecoderBlock`` and ``DeepSupervisionBlock``, NCHW,
+with flax's module names. flax's BatchNorm momentum 0.9 is torch's
 0.1; eps is 1e-5 in both. In train mode flax normalises with the biased
 batch variance and updates the running variance with the biased one too,
 where torch's own BatchNorm2d would update it with the unbiased one; the
@@ -26,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tchvp_tpu_torch.ops.basic import max_pool_2x2, upsample2x_nearest
 from tchvp_tpu_torch.parallel.collectives import all_reduce_sum
 from tchvp_tpu_torch.parallel.mesh import axis_group, mesh_with_axis
 
@@ -201,6 +206,102 @@ class Bottleneck(nn.Module):
         if self.downsample_conv is not None:
             identity = self.downsample_bn(self.downsample_conv(x))
         return torch.relu(out + identity)
+
+
+class ConvBNReLUBlock(nn.Module):
+    """(conv3x3 without bias -> BatchNorm -> ReLU) x 2: UNet's block. The
+    norms are ``norm1``/``norm2``, flax's BatchNorm wrapper one level up."""
+
+    def __init__(self, in_ch: int, features: int):
+        super().__init__()
+        self.conv1 = conv(in_ch, features, 3, padding=1)
+        self.norm1 = BatchNorm(features)
+        self.conv2 = conv(features, features, 3, padding=1)
+        self.norm2 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.norm1(self.conv1(x)))
+        return torch.relu(self.norm2(self.conv2(x)))
+
+
+def _conv3x3(in_ch: int, out_ch: int) -> nn.Conv2d:
+    """3x3 SAME conv with a bias (stride 1: one pixel of padding a side)."""
+    return conv(in_ch, out_ch, 3, padding=1, bias=True)
+
+
+class EncoderBlock(nn.Module):
+    """Multi-scale-input encoder block of the AutoEncoder.
+
+    ``blk`` "first" or "bottleneck": conv1_a -> relu -> conv2 -> relu on x
+    (``in_channels``). Otherwise the scaled image (``image_channels``) goes
+    through conv1_b -> relu to ``in_channels`` and is concatenated before x
+    (skip first), then conv2 -> relu -> conv3 -> relu. Both end in
+    element-wise dropout (train mode, drawn from ``generator``) and a 2x2
+    max pool."""
+
+    def __init__(self, blk: str, in_channels: int, out_channels: int, dropout_rate: float = 0.3,
+                 image_channels: int = 3):
+        super().__init__()
+        self.blk = blk
+        self.dropout_rate = dropout_rate
+        if blk in ("first", "bottleneck"):
+            self.conv1_a = _conv3x3(in_channels, out_channels)
+            self.conv2 = _conv3x3(out_channels, out_channels)
+        else:
+            self.conv1_b = _conv3x3(image_channels, in_channels)
+            self.conv2 = _conv3x3(2 * in_channels, out_channels)
+            self.conv3 = _conv3x3(out_channels, out_channels)
+
+    def forward(self, x: torch.Tensor, scale_img: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.blk in ("first", "bottleneck"):
+            x1 = torch.relu(self.conv2(torch.relu(self.conv1_a(x))))
+        else:
+            skip_x = torch.relu(self.conv1_b(scale_img))
+            x1 = torch.relu(self.conv2(torch.cat([skip_x, x], dim=1)))
+            x1 = torch.relu(self.conv3(x1))
+        if self.training and self.dropout_rate > 0.0:
+            x1 = dropout(x1, self.dropout_rate, generator)
+        return max_pool_2x2(x1)
+
+
+class DecoderBlock(nn.Module):
+    """2x nearest upsample -> (conv3x3 -> relu) x 3 -> element-wise dropout."""
+
+    def __init__(self, in_channels: int, out_channels: int, dropout_rate: float = 0.3):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.conv1 = _conv3x3(in_channels, out_channels)
+        self.conv2 = _conv3x3(out_channels, out_channels)
+        self.conv3 = _conv3x3(out_channels, out_channels)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x1 = torch.relu(self.conv1(upsample2x_nearest(x)))
+        x1 = torch.relu(self.conv2(x1))
+        x1 = torch.relu(self.conv3(x1))
+        if self.training and self.dropout_rate > 0.0:
+            x1 = dropout(x1, self.dropout_rate, generator)
+        return x1
+
+
+class DeepSupervisionBlock(nn.Module):
+    """Output head: upsample -> (conv3x3 -> relu) x 2 -> conv3x3 -> the
+    final activation, "relu" (the AutoEncoder's, as the reference has it)
+    or "sigmoid"."""
+
+    def __init__(self, in_channels: int, out_channels: int, final_activation: str = "relu"):
+        super().__init__()
+        if final_activation not in ("relu", "sigmoid"):
+            raise ValueError(f"final_activation must be relu|sigmoid, got {final_activation!r}")
+        self.final_activation = final_activation
+        self.conv1 = _conv3x3(in_channels, in_channels)
+        self.conv2 = _conv3x3(in_channels, in_channels)
+        self.conv3 = _conv3x3(in_channels, out_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1 = torch.relu(self.conv1(upsample2x_nearest(x)))
+        out = self.conv3(torch.relu(self.conv2(x1)))
+        return torch.sigmoid(out) if self.final_activation == "sigmoid" else torch.relu(out)
 
 
 def polyphase_weight(weight: torch.Tensor) -> torch.Tensor:

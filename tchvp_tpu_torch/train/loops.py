@@ -7,8 +7,11 @@ TensorBoard-compatible logging and the loss-health monitor; and its
 :class:`SegmentationFlow`: image -> mask training of FCT with per-epoch
 sneak peeks, the best-train-loss checkpoint carrying the loss history,
 restore that continues the epoch numbering, and inference with Sobel
-edges. The other flows (``DenoisingFlow``, ``TransferFlow``) come with the
-other model families (ROADMAP.md, modules to port, item 7).
+edges; its :class:`DenoisingFlow`: image denoising with the best-val-PSNR
+weights file, periodic checkpoints and the blackout-inpainting test with
+its side-by-side sample; and its :class:`TransferFlow`: a pretrained
+``Autoencoder32K`` encoder, frozen, under a fresh mask decoder trained
+with dice.
 
 The flow runs on the device its model lives on. Datasets yield uint8
 numpy batches (synthetic, CSV manifests, clippacks); :meth:`_shard` places
@@ -32,13 +35,14 @@ marker and the event files; every rank computes the same tags.
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from tchvp_tpu_torch.config import AugmentConfig, TrainConfig
+from tchvp_tpu_torch.config import AugmentConfig, ResNetAEConfig, TrainConfig
 from tchvp_tpu_torch.data import pipeline
 from tchvp_tpu_torch.data.device_prefetch import DevicePrefetch
 from tchvp_tpu_torch.ops.sobel import sobel_edges
@@ -47,7 +51,14 @@ from tchvp_tpu_torch.train import checkpoint as ckpt
 from tchvp_tpu_torch.train import steps as steps_lib
 from tchvp_tpu_torch.train.health import HealthMonitor, TrainingDiverged, recover_latest
 from tchvp_tpu_torch.train.logging import SummaryWriter
-from tchvp_tpu_torch.train.state import TrainState, create_train_state, make_optimizer
+from tchvp_tpu_torch.models.resnet_ae import Autoencoder32K
+from tchvp_tpu_torch.train.state import (
+    TrainState,
+    create_train_state,
+    human_param_count,
+    make_optimizer,
+    param_count,
+)
 from tchvp_tpu_torch.utils.imaging import save_sample_triplet, save_side_by_side
 
 
@@ -71,8 +82,11 @@ class _FlowBase:
             self.writer = SummaryWriter(os.path.join(self.cfg.log_dir, self.cfg.model_name))
         return self.writer
 
-    def _shard(self, batch) -> torch.Tensor:
-        """The batch on the flow's device (a no-op for a placed batch)."""
+    def _shard(self, batch):
+        """The batch (or an (images, masks) pair) on the flow's device (a
+        no-op for a placed batch)."""
+        if isinstance(batch, (tuple, list)):
+            return tuple(torch.as_tensor(b).to(self.device) for b in batch)
         return torch.as_tensor(batch).to(self.device)
 
     def _under_mesh(self, fn: Callable) -> Callable:
@@ -101,12 +115,25 @@ class _FlowBase:
         if _rank() == 0:
             self._writer().add_scalar(tag, value, step)
 
-    def _optimizer(self, lr: Optional[float]):
+    def _optimizer(self, lr: Optional[float], frozen_prefixes=()):
         cfg = self.cfg
         return make_optimizer(lr or cfg.lr, cfg.weight_decay, grad_clip_norm=1.0,
+                              frozen_prefixes=frozen_prefixes,
                               schedule=cfg.schedule, warmup_steps=cfg.warmup_steps,
                               total_steps=cfg.total_steps, min_lr_ratio=cfg.min_lr_ratio,
                               ema_decay=cfg.ema_decay, optimizer=cfg.optimizer)
+
+
+def _no_mesh(mesh, what: str) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"meshes for {what} are not ported yet (ROADMAP.md, modules to port, item 11: "
+            "parallelism)")
+
+
+def _host_sums(sums: Optional[Dict[str, torch.Tensor]], keys) -> Dict[str, float]:
+    """An epoch's device sums read on the host (zeros for an empty epoch)."""
+    return {k: float(v) for k, v in sums.items()} if sums else {k: 0.0 for k in keys}
 
 
 def _epoch_sums(sums: Optional[Dict[str, torch.Tensor]], m: Dict[str, torch.Tensor]
@@ -309,8 +336,7 @@ class VideoFlow(_FlowBase):
                     abs_i = pos0 + n
                     if abs_i % save_every_steps == 0:
                         self._save((epoch - 1) * spe + abs_i, epoch, train_data)
-            host = {k: float(v) for k, v in sums.items()} if sums else {"loss": 0.0, "psnr": 0.0}
-            train_m = _mean_of(host, n)
+            train_m = _mean_of(_host_sums(sums, ("loss", "psnr")), n)
             self._log("Loss/Train", train_m["loss"], epoch)
             self._log("PSNR/Train", train_m["psnr"], epoch)
             extra = ""
@@ -381,10 +407,6 @@ class SegmentationFlow(_FlowBase):
         self.state = create_train_state(self.model, self._optimizer(lr), rng=self.cfg.seed)
         return self.state
 
-    def _shard(self, batch):
-        """The (images, masks) pair on the flow's device."""
-        return tuple(torch.as_tensor(b).to(self.device) for b in batch)
-
     def train(
         self,
         train_data: Iterable,
@@ -422,7 +444,7 @@ class SegmentationFlow(_FlowBase):
                 n += 1
                 if i == sneak:  # per-epoch sneak peek (FCT.py:339-340)
                     self._save_sneakpeek(epoch, placed)
-            host = {k: float(v) for k, v in sums.items()} if sums else {"loss": 0.0, "iou": 0.0}
+            host = _host_sums(sums, ("loss", "iou"))
             train_m = _mean_of(host, n)
             self.loss_history.append(host["loss"])
             self._log("Training Loss", host["loss"], epoch)  # FCT.py:356 (the sum)
@@ -459,8 +481,7 @@ class SegmentationFlow(_FlowBase):
         for batch in data:
             sums = _epoch_sums(sums, self._eval_step(self.state, self._shard(batch)))
             n += 1
-        host = {k: float(v) for k, v in sums.items()} if sums else {"loss": 0.0, "iou": 0.0}
-        return _mean_of(host, n)
+        return _mean_of(_host_sums(sums, ("loss", "iou")), n)
 
     def restore(self, path: str) -> None:
         """Full resume: parameters, optimizer moments, generators and the
@@ -483,3 +504,251 @@ class SegmentationFlow(_FlowBase):
             for i in range(pred.shape[0]):
                 save_side_by_side([xs[i], es[i]], os.path.join(out_dir, f"image_{i}.jpg"))
         return pred.float().cpu().numpy()
+
+
+class DenoisingFlow(_FlowBase):
+    """Image -> image denoising and inpainting AE training (Model.py
+    semantics). ``model``: an initialised AE returning ``(latent, recon)``
+    (:class:`AutoEncoder` by default in the CLI); the flow runs on its
+    device. Batches are uint8 images (B, H, W, 3)."""
+
+    def __init__(
+        self,
+        model: torch.nn.Module,
+        cfg: TrainConfig = TrainConfig(),
+        image_size: int = 256,
+        aug: AugmentConfig = AugmentConfig(),
+        mesh=None,
+    ):
+        _no_mesh(mesh, "denoising")
+        super().__init__(cfg, mesh, next(model.parameters()).device)
+        self.model = model
+        self.image_size = image_size
+        self.aug = aug
+        self.state: Optional[TrainState] = None
+        self._train_step = steps_lib.make_denoising_train_step(
+            image_size, aug, cfg.loss, cfg.mixed_alpha, cfg.mixed_beta,
+            data_range=cfg.mixed_data_range)
+        self._eval_step = steps_lib.make_denoising_eval_step(image_size)
+        self._test_step = steps_lib.make_inpainting_test_step(image_size, aug)
+
+    def init_state(self, lr: Optional[float] = None) -> TrainState:
+        """A step-0 state over the model as it stands, its generators
+        seeded from ``cfg.seed``."""
+        self.state = create_train_state(self.model, self._optimizer(lr), rng=self.cfg.seed)
+        return self.state
+
+    def fit(
+        self,
+        train_data: Iterable,
+        val_data: Iterable,
+        test_data: Optional[Iterable] = None,
+        epochs: Optional[int] = None,
+        lr: Optional[float] = None,
+    ) -> TrainState:
+        """Train ``epochs`` epochs (default ``cfg.epochs``). Each epoch is
+        validated; the best validation PSNR so far saves the weights file
+        ``<checkpoint_dir>/<model_name>`` (Model.py:181-182); every
+        ``cfg.save_every`` epochs the full state goes to ``step_<epoch>``
+        and ``test_data``, when given, is tested (Model.py:184-188)."""
+        cfg = self.cfg
+        epochs = epochs or cfg.epochs
+        train_data = self._prefetched(train_data)
+        if self.state is None:
+            self.init_state(lr)
+        print(f"Total parameters: {human_param_count(param_count(self.state.model))}")
+        best_val_psnr = -float("inf")
+        for epoch in range(1, epochs + 1):
+            t0 = time.time()
+            sums: Optional[Dict[str, torch.Tensor]] = None
+            n = 0
+            for batch in train_data:
+                self.state, m = self._train_step(self.state, self._shard(batch))
+                sums = _epoch_sums(sums, m)
+                n += 1
+            train_m = _mean_of(_host_sums(sums, ("loss", "psnr")), n)
+            val_psnr = self.validate(val_data)
+            self._log("Loss/Train", train_m["loss"], epoch)
+            self._log("PSNR/Train", train_m["psnr"], epoch)
+            self._log("PSNR/Val", val_psnr, epoch)
+            print(f"Epoch {epoch}: loss {train_m['loss']:.4f} train PSNR {train_m['psnr']:.2f} "
+                  f"val PSNR {val_psnr:.2f} ({time.time() - t0:.1f}s)")
+            if val_psnr > best_val_psnr:  # best-val weights (Model.py:181-182)
+                best_val_psnr = val_psnr
+                ckpt.save_params(cfg.checkpoint_dir, cfg.model_name, self.state.model)
+            if epoch % cfg.save_every == 0:  # periodic state + test (Model.py:184-188)
+                ckpt.save_state(cfg.checkpoint_dir, epoch, self.state,
+                                extra={"best_val_psnr": best_val_psnr},
+                                async_write=cfg.async_checkpoint)
+                ckpt.prune_step_dirs(cfg.checkpoint_dir, cfg.keep_checkpoints)
+                if test_data is not None:
+                    self._log("PSNR/Test", self.test(test_data, epoch), epoch)
+        ckpt.wait_for_async_saves()
+        if self.writer is not None:
+            self.writer.flush()
+        return self.state
+
+    def validate(self, val_data: Iterable) -> float:
+        """Mean eval-mode reconstruction PSNR over ``val_data``."""
+        sums, n = None, 0
+        for batch in val_data:
+            sums = _epoch_sums(sums, self._eval_step(self.state, self._shard(batch)))
+            n += 1
+        return _host_sums(sums, ("psnr",))["psnr"] / max(n, 1)
+
+    def test(self, test_data: Iterable, epoch: int = 0) -> float:
+        """Blackout-inpainting PSNR over ``test_data`` (Model.py:96-135),
+        the blackouts drawn from a generator seeded ``cfg.seed + epoch``;
+        one batch, picked by ``np.random.default_rng(cfg.seed + epoch)``,
+        saves its first corrupted | predicted pair as
+        ``<sample_dir>/<model_name>/<epoch>.jpg``."""
+        generator = torch.Generator(self.device).manual_seed(self.cfg.seed + epoch)
+        sample_at = (
+            int(np.random.default_rng(self.cfg.seed + epoch).integers(len(test_data)))
+            if hasattr(test_data, "__len__") and len(test_data) > 0
+            else 0
+        )
+        sums, n = None, 0
+        for i, batch in enumerate(test_data):
+            m, corrupted, pred = self._test_step(self.state, self._shard(batch), generator)
+            sums = _epoch_sums(sums, m)
+            n += 1
+            if i == sample_at:
+                save_side_by_side(
+                    [corrupted[0].float().cpu().numpy(), pred[0].float().cpu().numpy()],
+                    os.path.join(self.cfg.sample_dir, self.cfg.model_name, f"{epoch}.jpg"))
+        return _host_sums(sums, ("psnr",))["psnr"] / max(n, 1)
+
+    def infer(self, batch: np.ndarray) -> np.ndarray:
+        """uint8 (B, H, W, 3) -> the eval-mode reconstruction (B, S, S, 3)."""
+        clean = pipeline.preprocess_images(torch.as_tensor(batch).to(self.device), self.image_size)
+        model = self.state.model.eval()
+        with torch.no_grad():
+            return model(clean)[1].float().cpu().numpy()
+
+
+class TransferFlow(_FlowBase):
+    """Frozen-encoder latent -> mask transfer (recovered AE_32K L222-326).
+
+    Builds ``Autoencoder32K(ResNetAEConfig(output_type="mask"))`` on
+    ``device``, its weights from a generator seeded ``cfg.seed``; loads a
+    pretrained ``Autoencoder32K``'s encoder parameters, freezes the encoder
+    and trains the fresh mask decoder with dice. The frozen encoder runs in
+    train mode, so its BatchNorm normalises with batch statistics and its
+    running stats move, as in JAX; its parameters get no gradient and no
+    update. Per-epoch sneak peeks, :meth:`resume` from the latest
+    checkpoint, :meth:`test_a_sample` previews."""
+
+    def __init__(
+        self,
+        cfg: TrainConfig = TrainConfig(model_name="latent_to_mask", loss="dice"),
+        image_size: int = 256,
+        mesh=None,
+        device: torch.device | str = "cuda",
+    ):
+        _no_mesh(mesh, "transfer")
+        super().__init__(cfg, mesh, device)
+        self.image_size = image_size
+        self.model = Autoencoder32K(ResNetAEConfig(output_type="mask"), device=self.device,
+                                    generator=torch.Generator().manual_seed(cfg.seed))
+        self.state: Optional[TrainState] = None
+        # Autoencoder32K returns (latent, mask): output 1 goes to the loss.
+        self._train_step = steps_lib.make_segmentation_train_step(image_size, cfg.loss,
+                                                                  output_index=1)
+
+    def init_from_pretrained(self, pretrained_params_path: Optional[str] = None,
+                             lr: float = 1e-3) -> TrainState:
+        """A step-0 state whose optimizer leaves ``encoder`` out
+        (``frozen_prefixes``), the encoder's parameters from the checkpoint
+        at ``pretrained_params_path`` when given (``restore_subtree``; a
+        ``port --model ae32k`` output, or any checkpoint of an
+        ``Autoencoder32K``). As JAX's ``restore_subtree`` takes the params
+        tree only, the encoder's BatchNorm running stats are not carried
+        over: they start at (0, 1)."""
+        self.state = create_train_state(self.model, self._optimizer(lr, ("encoder",)),
+                                        rng=self.cfg.seed)
+        if pretrained_params_path:
+            sub = ckpt.restore_subtree(pretrained_params_path, ("encoder",))["encoder"]
+            params = dict(self.model.encoder.named_parameters())
+            missing = sorted(set(params) - set(sub))
+            if missing:
+                raise ValueError(f"pretrained encoder lacks parameters: {missing[:5]}")
+            with torch.no_grad():
+                for name, p in params.items():
+                    p.copy_(sub[name])
+        self.model.encoder.requires_grad_(False)
+        return self.state
+
+    def resume(self) -> int:
+        """Restore the latest checkpoint under ``cfg.checkpoint_dir`` (model,
+        moments, generators) in place; returns the start epoch (0 if none)."""
+        assert self.state is not None, "call init_from_pretrained first"
+        path = ckpt.latest_step_dir(self.cfg.checkpoint_dir)
+        if path is None:
+            return 0
+        self.state, raw = ckpt.restore_state_into(self.state, path)
+        return int(raw.get("step", 0))
+
+    def train(self, train_data: Iterable, epochs: int = 10, start_epoch: int = 0) -> TrainState:
+        """Epochs ``start_epoch + 1`` .. ``epochs``: each saves one sneak peek
+        of a batch drawn from ``np.random.default_rng(cfg.seed)`` and
+        checkpoints (tag: the epoch) when its summed dice loss is the lowest
+        of this call."""
+        assert self.state is not None, "call init_from_pretrained first"
+        train_data = self._prefetched(train_data)
+        best_loss = float("inf")
+        rng = np.random.default_rng(self.cfg.seed)
+        for epoch in range(start_epoch + 1, epochs + 1):
+            sums: Optional[Dict[str, torch.Tensor]] = None
+            n = 0
+            nbatches = len(train_data) if hasattr(train_data, "__len__") else None
+            sneak = rng.integers(0, nbatches) if nbatches else 0
+            for i, batch in enumerate(train_data):
+                placed = self._shard(batch)
+                self.state, m = self._train_step(self.state, placed)
+                sums = _epoch_sums(sums, m)
+                n += 1
+                if i == sneak:  # per-epoch sneak peek (AE_32K L292-293)
+                    self._save_sneakpeek(epoch, placed)
+            host = _host_sums(sums, ("loss", "iou"))
+            self._log("Training Loss", host["loss"], epoch)
+            print(f"Transfer epoch {epoch}: dice {_mean_of(host, n)['loss']:.4f}")
+            if host["loss"] < best_loss:  # best-loss checkpoint (AE_32K L299-306)
+                best_loss = host["loss"]
+                ckpt.save_state(self.cfg.checkpoint_dir, epoch, self.state,
+                                async_write=self.cfg.async_checkpoint)
+                ckpt.prune_step_dirs(self.cfg.checkpoint_dir, self.cfg.keep_checkpoints)
+        ckpt.wait_for_async_saves()
+        if self.writer is not None:
+            self.writer.flush()
+        return self.state
+
+    def _predict(self, image_u8: torch.Tensor):
+        x = pipeline.preprocess_images(torch.as_tensor(image_u8).to(self.device), self.image_size)
+        model = self.state.model.eval()
+        with torch.no_grad():
+            return x, model(x)[1]  # (latent, mask) -> mask
+
+    def _save_sneakpeek(self, epoch: int, batch) -> None:
+        """Input | mask | prediction JPEGs (AE_32K save_sample, L194-202)."""
+        image_u8, mask_u8 = batch
+        x, pred = self._predict(image_u8[:1])
+        y = pipeline.preprocess_images(mask_u8[:1], self.image_size)
+        save_sample_triplet(os.path.join(self.cfg.sample_dir, self.cfg.model_name), epoch,
+                            *(t.float().cpu().numpy() for t in (x, y, pred)))
+
+    def test_a_sample(self, data: Iterable, batch_size: int = 4,
+                      out_dir: Optional[str] = None) -> np.ndarray:
+        """One-shot preview (AE_32K test_a_sample, L313-326): the first
+        ``batch_size`` images of ``data``'s first batch, input | prediction
+        panels in ``out_dir`` (default ``<sample_dir>/<model_name>_test``);
+        returns the masks."""
+        assert self.state is not None, "no state; train or resume first"
+        batch = next(iter(data))
+        image_u8 = batch[0] if isinstance(batch, (tuple, list)) else batch
+        x, pred = self._predict(image_u8[:batch_size])
+        out_dir = out_dir or os.path.join(self.cfg.sample_dir, self.cfg.model_name + "_test")
+        xs, ps = x.float().cpu().numpy(), pred.float().cpu().numpy()
+        for i in range(ps.shape[0]):
+            save_side_by_side([xs[i], ps[i]], os.path.join(out_dir, f"sample_{i}.jpg"))
+        return ps

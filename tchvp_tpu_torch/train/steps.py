@@ -1,11 +1,14 @@
-"""Train and eval steps of the flagship video model and of the
-segmentation models.
+"""Train and eval steps of the flagship video model (and the frame AEs run
+as video models), of the denoising autoencoders and of the segmentation
+models.
 
 Counterpart of ``tchvp_tpu/train/steps.py``'s ``make_video_train_step``,
-``make_video_eval_step``, ``make_segmentation_train_step``,
-``make_segmentation_eval_step`` and ``_loss_fn_by_name``. The segmentation
-step (FCT: image -> mask) is at the end of this module; what follows
-describes the video step. A step takes a uint8
+``make_video_eval_step``, ``make_denoising_train_step``,
+``make_denoising_eval_step``, ``make_inpainting_test_step``,
+``make_segmentation_train_step``, ``make_segmentation_eval_step`` and
+``_loss_fn_by_name``. The denoising steps (image -> image) and the
+segmentation steps (image -> mask) are at the end of this module; what
+follows describes the video step. A step takes a uint8
 clip (B, T, H, W, 3) on the model's device and runs, eagerly:
 preprocess -> the geometric augmentations (``aug``, off by default) ->
 Gaussian input noise -> the train-mode forward -> the loss
@@ -27,7 +30,9 @@ Remat policies map to ``torch.utils.checkpoint`` (non-reentrant):
 the stage-boundary tokens (JAX's ``encoder_tokens``/``temporal_tokens``);
 ``"dots"`` keeps only the outputs of unbatched matrix products (``mm``,
 ``addmm``) and recomputes the rest. A recompute leaves the BatchNorm
-running stats alone, so they move once per forward as in JAX.
+running stats alone, so they move once per forward as in JAX. A frame AE
+(``models/frame_ae.py``) has no stages: ``"stages"`` recomputes its whole
+forward, as JAX's policy, saving no named tensor there, does.
 
 Sequence parallelism: when the model's ``config.temporal.seq_axis`` is on
 an ambient mesh with size > 1 (``parallel.mesh.mesh_with_axis``), every
@@ -101,8 +106,10 @@ def _stats_once(module: torch.nn.Module, fn: Callable) -> Callable:
 
 
 def _seq_axis(model: torch.nn.Module) -> Optional[str]:
-    """The video model's sequence-parallel axis when an ambient mesh carries it."""
-    axis = model.config.temporal.seq_axis
+    """The video model's sequence-parallel axis when an ambient mesh carries
+    it (a frame AE has none)."""
+    temporal = getattr(getattr(model, "config", None), "temporal", None)
+    axis = temporal.seq_axis if temporal is not None else None
     return axis if mesh_with_axis(axis) is not None else None
 
 
@@ -124,7 +131,7 @@ def _remat_forward(model: torch.nn.Module, x: torch.Tensor, draws, policy: str
     if policy == "none":
         return model(x, draws=draws)
     ckpt = functools.partial(checkpoint, use_reentrant=False, preserve_rng_state=False)
-    if policy == "full":
+    if policy == "full" or (policy == "stages" and not hasattr(model, "temporal_mix")):
         return ckpt(_stats_once(model, lambda c: model(c, draws=draws)), x)
     if policy == "dots":
         return ckpt(_stats_once(model, lambda c: model(c, draws=draws)), x,
@@ -266,6 +273,108 @@ def make_video_eval_step(image_size: int, qat: bool = False,
     return step
 
 
+def denoising_draws(generator: torch.Generator, clean: torch.Tensor,
+                    aug: AugmentConfig = AugmentConfig()) -> Dict[str, Dict[str, tuple]]:
+    """The input draws of one denoising step, from ``generator``: the
+    geometric augmentations' on the clean batch (JAX's ``k_geo``), then the
+    corruption's (``k_aug``); :func:`make_denoising_train_step` applies
+    them in their ``*_with`` forms."""
+    return {"geometric": pipeline.geometric_draws(generator, clean, aug),
+            "denoising": pipeline.denoising_draws(generator, clean, aug)}
+
+
+def make_denoising_train_step(
+    image_size: int,
+    aug: AugmentConfig = AugmentConfig(),
+    loss: str = "mixed",
+    alpha: float = 0.5,
+    beta: float = 0.5,
+    data_range: float = 1.0,
+    fsdp_axis: Optional[str] = None,
+    fsdp_mesh=None,
+) -> Callable[..., Tuple[TrainState, Metrics]]:
+    """The denoising-AE step (Model.py:33-70): corrupt the input,
+    reconstruct the clean image. The model returns ``(latent, recon)``
+    (``AutoEncoder``, ``Autoencoder32K``).
+
+    uint8 (B, H, W, 3) -> preprocess -> the geometric augmentations of the
+    clean image (input and target move together; off by default) ->
+    ``augment_denoising`` -> the train-mode forward (dropout from
+    ``state.dropout_generator``) -> ``loss`` by name with ``alpha``,
+    ``beta``, ``data_range`` against the clean image -> backward -> one
+    optimizer update. The input draws come from ``state.noise_generator``
+    (:func:`denoising_draws`) unless ``draws`` is given. The returned
+    ``step(state, batch, mark=None, draws=None)`` updates ``state`` in
+    place and returns ``(state, {"loss", "psnr"})`` as device tensors."""
+    if fsdp_axis is not None or fsdp_mesh is not None:
+        raise NotImplementedError(
+            "fsdp_axis is not ported yet (ROADMAP.md, modules to port, item 11: parallel/fsdp.py)")
+    loss_fn = _loss_fn_by_name(loss, alpha, beta, data_range)
+
+    def step(state: TrainState, batch: torch.Tensor, mark: Mark = None,
+             draws: Optional[Dict[str, Dict[str, tuple]]] = None) -> Tuple[TrainState, Metrics]:
+        model = state.model.train()
+        clean = pipeline.preprocess_images(batch, image_size)
+        if draws is None:
+            draws = denoising_draws(state.noise_generator, clean, aug)
+        clean = pipeline.augment_geometric_with(clean, aug, draws["geometric"])
+        corrupted = pipeline.augment_denoising_with(clean, aug, draws["denoising"])
+        for p in model.parameters():
+            p.grad = None
+        if mark:
+            mark("data")
+        recon = model(corrupted, generator=state.dropout_generator)[1]
+        loss_val = loss_fn(recon, clean)
+        if mark:
+            mark("forward")
+        loss_val.backward()
+        if mark:
+            mark("backward")
+        state.tx.step()
+        state.step += 1
+        if mark:
+            mark("optimizer")
+        return state, {"loss": loss_val.detach(), "psnr": losses.psnr(recon.detach(), clean)}
+
+    return step
+
+
+def make_denoising_eval_step(image_size: int) -> Callable[[TrainState, torch.Tensor], Metrics]:
+    """No-grad PSNR of the eval-mode model's reconstruction of the clean
+    images (Model.py:75-92)."""
+
+    def step(state: TrainState, batch: torch.Tensor) -> Metrics:
+        model = state.model.eval()
+        clean = pipeline.preprocess_images(batch, image_size)
+        with torch.no_grad():
+            return {"psnr": losses.psnr(model(clean)[1], clean)}
+
+    return step
+
+
+def make_inpainting_test_step(image_size: int, aug: AugmentConfig = AugmentConfig()) -> Callable:
+    """Test-time blackout inpainting (Model.py:96-135): 0-3 blackouts of
+    ``aug.test_blackout_size`` drawn from ``generator`` (or given as
+    ``draws``, ``pipeline.blackout_draws``'s triple), the eval-mode
+    reconstruction against the clean images. The returned
+    ``step(state, batch, generator, draws=None)`` returns ``({"psnr"},
+    corrupted, prediction)`` for sample dumps."""
+
+    def step(state: TrainState, batch: torch.Tensor, generator: Optional[torch.Generator],
+             draws: Optional[tuple] = None):
+        model = state.model.eval()
+        clean = pipeline.preprocess_images(batch, image_size)
+        if draws is None:
+            draws = pipeline.blackout_draws(generator, clean, aug.max_blackout_patches,
+                                            aug.test_blackout_size)
+        corrupted = pipeline.blackout_with(clean, *draws, aug.test_blackout_size)
+        with torch.no_grad():
+            recon = model(corrupted)[1]
+        return {"psnr": losses.psnr(recon, clean)}, corrupted, recon
+
+    return step
+
+
 def _seg_batch(batch, image_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(uint8 images (B, H, W, C), uint8 masks (B, H, W, 1)) -> both
     resized to ``image_size`` and scaled to [0, 1]."""
@@ -278,8 +387,12 @@ def _seg_metrics(loss_fn: Callable, pred: torch.Tensor, y: torch.Tensor) -> Metr
     return {"loss": loss_fn(pred, y), "iou": losses.jaccard_score(pred > 0.5, y > 0.5)}
 
 
+def _select(out, output_index: Optional[int]):
+    return out[output_index] if output_index is not None else out
+
+
 def make_segmentation_train_step(
-    image_size: int, loss: str = "dice",
+    image_size: int, loss: str = "dice", output_index: Optional[int] = None,
     fsdp_axis: Optional[str] = None, fsdp_mesh=None,
 ) -> Callable[..., Tuple[TrainState, Metrics]]:
     """Supervised mask training step (FCT_FLOW.train, FCT.py:317-374): the
@@ -289,7 +402,11 @@ def make_segmentation_train_step(
     from ``state.dropout_generator``; a model without BatchNorm carries no
     stats. The returned ``step(state, (images_u8, masks_u8), mark=None)``
     updates ``state`` in place and returns ``(state, {"loss", "iou"})``,
-    IoU of ``pred > 0.5`` against ``mask > 0.5``, as device tensors."""
+    IoU of ``pred > 0.5`` against ``mask > 0.5``, as device tensors.
+    ``output_index`` picks the mask from a model that returns a tuple
+    (``Autoencoder32K("mask")``'s ``(latent, mask)``: the transfer
+    workload). Parameters that do not require a gradient (a frozen
+    encoder) get none; train-mode BatchNorm moves their stats all the same."""
     if fsdp_axis is not None or fsdp_mesh is not None:
         raise NotImplementedError(
             "fsdp_axis is not ported yet (ROADMAP.md, modules to port, item 11: parallel/fsdp.py)")
@@ -302,7 +419,7 @@ def make_segmentation_train_step(
             p.grad = None
         if mark:
             mark("data")
-        pred = model(x, generator=state.dropout_generator)
+        pred = _select(model(x, generator=state.dropout_generator), output_index)
         metrics = _seg_metrics(loss_fn, pred, y)
         if mark:
             mark("forward")
@@ -319,15 +436,16 @@ def make_segmentation_train_step(
 
 
 def make_segmentation_eval_step(
-    image_size: int, loss: str = "dice"
+    image_size: int, loss: str = "dice", output_index: Optional[int] = None
 ) -> Callable[[TrainState, Tuple[torch.Tensor, torch.Tensor]], Metrics]:
-    """No-grad ``loss`` and IoU of the eval-mode model on a batch."""
+    """No-grad ``loss`` and IoU of the eval-mode model on a batch
+    (``output_index``: as the train step's)."""
     loss_fn = _loss_fn_by_name(loss)
 
     def step(state: TrainState, batch) -> Metrics:
         model = state.model.eval()
         x, y = _seg_batch(batch, image_size)
         with torch.no_grad():
-            return _seg_metrics(loss_fn, model(x), y)
+            return _seg_metrics(loss_fn, _select(model(x), output_index), y)
 
     return step

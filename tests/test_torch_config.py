@@ -21,13 +21,19 @@ def _defaults(cls):
     return out
 
 
-@pytest.mark.parametrize("name", ["ResNetAEConfig", "TransformerConfig", "VideoModelConfig",
-                                  "AugmentConfig", "TrainConfig", "DataConfig", "IngestConfig"])
+@pytest.mark.parametrize("name", ["AutoEncoderConfig", "UNetConfig", "ResNetAEConfig",
+                                  "TransformerConfig", "VideoModelConfig", "AugmentConfig",
+                                  "TrainConfig", "DataConfig", "IngestConfig"])
 def test_dataclass_fields_and_defaults_match(name):
     jc, tc = getattr(jcfg, name), getattr(tcfg, name)
     assert [f.name for f in dataclasses.fields(tc)] == [f.name for f in dataclasses.fields(jc)]
     assert _defaults(tc) == _defaults(jc)
     assert tc.__dataclass_params__.frozen == jc.__dataclass_params__.frozen
+
+
+def test_notebook_variant_matches():
+    assert tcfg.AutoEncoderConfig.notebook_variant() == tcfg.AutoEncoderConfig(
+        **dataclasses.asdict(jcfg.AutoEncoderConfig.notebook_variant()))
 
 
 def test_flagship_video_config_signature_matches():

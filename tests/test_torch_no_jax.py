@@ -48,7 +48,10 @@ def test_importing_the_model_loads_no_jax():
         "tchvp_tpu_torch.data.pipeline, tchvp_tpu_torch.cli, tchvp_tpu_torch.train.checkpoint, "
         "tchvp_tpu_torch.train.loops, tchvp_tpu_torch.train.health, tchvp_tpu_torch.train.logging, "
         "tchvp_tpu_torch.utils, tchvp_tpu_torch.utils.runrecord, tchvp_tpu_torch.utils.profiling, "
-        "tchvp_tpu_torch.utils.summary, tchvp_tpu_torch.utils.imaging; "
+        "tchvp_tpu_torch.utils.summary, tchvp_tpu_torch.utils.imaging, "
+        "tchvp_tpu_torch.models.unet, tchvp_tpu_torch.models.autoencoder, "
+        "tchvp_tpu_torch.models.combined, tchvp_tpu_torch.models.frame_ae, "
+        "tchvp_tpu_torch.utils.torch_port; "
         "sys.path.insert(0, 'tests'); import torch_dist; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tchvp_tpu')]; "
