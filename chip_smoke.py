@@ -263,6 +263,42 @@ Phases, one or more lines each:
     parameters moved, step ms (phase 11's protocol, spread), trained
     images or frames/s, peak memory, the device ms of data, forward,
     backward and optimizer, and a profile window's idle share;
+20. serving (int8 PTQ, ``torch.export`` artifacts, the HTTP server, QAT),
+    after 19: (a) config 1's flagship in bf16 (flash, B 8 x 16 frames at
+    224^2) calibrated on one batch by ``Int8Engine``: its quantized layer
+    count (the convs, INT8_CONV_LAYERS, which ``tests/test_torch_quant.py``
+    derives for the same model; with ``quantize_dense`` the Dense layers
+    too), ``psnr_vs``, 2 flash launches an int8 call, int8 and bf16
+    frames/s by phase 9's protocol and their peak memory, where one int8
+    forward's device time goes (``int8_profile``: the int8 layers' quantize,
+    taps, ``_int_mm`` and dequantize beside the rest, and the bf16
+    forward's); the exact int32
+    accumulators of the first encoder conv (7x7/s2 over 3 channels), a
+    full-resolution 3x3 decoder conv (whose rows run in chunks), a Dense
+    and FCT's depthwise (groups 8) and dilated (2 and 3) Wide-Focus convs,
+    on inputs the layers saw, bit-equal to the fp64 product of the same
+    int8 values; (b) ``export --model fct`` (fp32, 256^2) through the CLI,
+    9 ``tchvp.flash_fwd`` nodes in its graph, served by ``serve_artifact``
+    with buckets 1 and 2: POSTs of 1, 2 and 3 images within 1e-4 x max|ref|
+    of the live model (bits equal or not printed), 9 flash launches a
+    bucket call, /health's counters, HTTP latency and images/s; ``serve``
+    through the CLI as its own process answering the same request; config
+    1's flagship exported by ``export_video_model`` (bf16, 2 nodes, 2
+    launches a call, within 2e-2 x max|ref| of the live model at the same
+    batch, phase 18's bf16 limit) and its int8 engine by
+    ``export_int8_video_model``, served with ``batch_window_ms`` to 4
+    concurrent clients (coalesced requests, 2 launches a program call, each
+    client's clip within 2e-2 x max|ref| of the live engine's batch of 4); (c) ``export --streaming`` (fp32, 224^2, chunk 8,
+    context 4) served, ``stream --url`` through the CLI, and a /stream
+    session's chunks within 1e-4 x max|ref| of ``stream_clip`` on the same
+    clip; (d) ``video --qat --attn-impl flash`` (2 steps of the training
+    cell, flash launches 2/2/2 a step) and with ``--remat-policy stages``
+    (4/2/2: the temporal stage's forward runs again in the backward), the
+    bare QAT step's ms beside phase 11's, ``eval --int8`` on the run's
+    checkpoint; one QAT step's gradients under ``stages`` (the recompute
+    runs on the autograd engine's device thread) within 1e-3 x max|grad|
+    of ``none``'s, the fp step's printed beside them as the control. The flash records of the
+    JSON gain ``serving_launches`` (the launches of (a)-(d)'s main paths);
 14. kernel times: each kernel at its main-path shape beside its plain
     version, F.scaled_dot_product_attention (a yardstick, never on the
     port's path; with the boolean band as attn_mask for the banded
@@ -323,8 +359,10 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -346,6 +384,9 @@ from tchvp_tpu_torch.data.clippack import ClipPackDataset, pack_clips
 from tchvp_tpu_torch.data.device_prefetch import DevicePrefetch
 from tchvp_tpu_torch.data.pipeline import preprocess_clip
 from tchvp_tpu_torch.data.synthetic import SyntheticClips, SyntheticImageMasks, SyntheticImages
+from tchvp_tpu_torch.infer import export as export_lib
+from tchvp_tpu_torch.infer import quant
+from tchvp_tpu_torch.infer.server import post_npy, serve_artifact
 from tchvp_tpu_torch.kernels import build
 from tchvp_tpu_torch.kernels import flash_attention as fa
 from tchvp_tpu_torch.kernels import fused_tail as ft
@@ -354,12 +395,12 @@ from tchvp_tpu_torch.models.combined import Image2Image2Mask
 from tchvp_tpu_torch.models.fct import FCT
 from tchvp_tpu_torch.models.frame_ae import FrameAE
 from tchvp_tpu_torch.models.resnet_ae import Autoencoder4K, Autoencoder32K, Decoder32K, tokens_to_latent
-from tchvp_tpu_torch.models.streaming import StreamingConfig, microbatched_infer, stream_video
+from tchvp_tpu_torch.models.streaming import StreamingConfig, microbatched_infer, stream_clip, stream_video
 from tchvp_tpu_torch.models.unet import UNet
 from tchvp_tpu_torch.models.video import VideoHybridNet
 from tchvp_tpu_torch.ops import dispatch_trace
 from tchvp_tpu_torch.ops.attention import _merge_heads, _split_heads
-from tchvp_tpu_torch.ops.blocks import init_flax_default
+from tchvp_tpu_torch.ops.blocks import Dense, conv_hook, init_flax_default
 from tchvp_tpu_torch.ops.conv_attention import WideFocus
 from tchvp_tpu_torch.ops.sobel import sobel_edges
 from tchvp_tpu_torch.parallel import collectives
@@ -498,9 +539,14 @@ def bwd_inputs(shape, dtype, scale, rate, seed, rng_seed, window=None):
     return q, k, v, do, lse, delta
 
 
+CARD = "card not read yet"  # nvidia-smi's name and power limit, set by phase_device
+
+
 def phase_device() -> str:
+    global CARD
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    CARD = smi
     name = torch.cuda.get_device_name(0)
     print(smi)
     print(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda}: {name}")
@@ -3176,6 +3222,525 @@ def phase_conv_families() -> dict:
     return steps
 
 
+# ------------------------------------------------------------------ phase 20
+
+INT8_CONV_LAYERS = 35  # the flagship's Conv2d layers: encoder 28, decoder 7
+INT8_DENSE_LAYERS = 12  # its Dense layers: 2 temporal layers x (q, k, v, out, ffn1, ffn2)
+SERVING_LAUNCHES = dict.fromkeys((key for key, _, _ in COUNTERS), 0)  # (a)-(d)'s main paths
+
+
+def serving_counted(what: str, **want) -> None:
+    """Add the counters to SERVING_LAUNCHES and check them against ``want``."""
+    got = counts()
+    for key, n in got.items():
+        SERVING_LAUNCHES[key] += n
+    check(got == expect_counts(**want), f"{what} launched {got}, expected {want}")
+
+
+def layer_inputs(model: torch.nn.Module, names: set, run, frames: int = 4) -> dict:
+    """The input of each named Conv2d or Dense in one ``run()`` (the first
+    ``frames`` rows), by name."""
+    by_module = {m: n for n, m in model.named_modules() if n in names}
+    seen = {}
+
+    def grab(next_fn, module, x):
+        if module in by_module:
+            seen[by_module[module]] = x[:frames].detach().clone()
+        return next_fn(x)
+
+    with conv_hook(grab), torch.no_grad():
+        run()
+    check(set(seen) == names, f"layer inputs {sorted(seen)} of {sorted(names)}")
+    return seen
+
+
+def int8_accumulators_exact(tag: str, module: torch.nn.Module, x: torch.Tensor, q: dict, s_x: float) -> str:
+    """The layer's int32 accumulators against the fp64 product of the same
+    int8 input and weight (exact below 2^53), bit for bit."""
+    s = quant._scalar(s_x, x.device)
+    if isinstance(module, Dense):
+        got = quant.dense_accumulator(x, q["w_i8"], s)
+        want = quant._quantize_act(x.reshape(-1, x.shape[-1]), s).double() @ q["w_i8"].double().t()
+        chunks = 1
+    else:
+        n, wo = x.shape[0], quant._conv_geometry(module, x.shape[2], x.shape[3])[1]
+        parts = [acc.reshape(n, nr, wo, -1) for nr, acc in quant.conv_accumulators(module, x, q["w_i8"], s)]
+        got, chunks = torch.cat(parts, dim=1), len(parts)
+        want = F.conv2d(quant._quantize_act(x, s).double(), q["w_i8"].double(), None, module.stride,
+                        module.padding, module.dilation, module.groups).permute(0, 2, 3, 1)
+    check(got.dtype == torch.int32 and torch.equal(got.double(), want),
+          f"{tag}: int32 accumulators differ from the fp64 product by {(got.double() - want).abs().max().item()}")
+    return f"{tag} {tuple(x.shape)} -> {tuple(got.shape)} in {chunks} chunk(s), max |acc| {got.abs().max().item()}"
+
+
+INT8_OPS = ("tchvp::int8_conv", "tchvp::int8_dense")
+
+
+def int8_profile(fn) -> dict:
+    """Device ms of one call of ``fn`` (a forward), and of its int8 layers
+    by stage: each int8 op's direct children in call order are
+    ``quantize`` (the activation's round and clamp into the padded int8
+    buffer, the weight matrix's padding) until the first ``aten::stack``,
+    ``taps`` (the stacked im2col), ``_int_mm``, then ``dequantize`` (the
+    scales, the bias, the cast and the chunks' concatenation) until the
+    next stack. Each kernel counts once, at the runtime call that launched
+    it (matched by its correlation id; an op's own list of kernels repeats
+    them across nested ops); the sum over every launch is printed beside
+    the device's total as the check."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    total = sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA) / 1e3
+    kernel_ms = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            kernel_ms[e.id] = kernel_ms.get(e.id, 0.0) + e.time_range.elapsed_us() / 1e3
+
+    def launch_ms(e) -> float:
+        return kernel_ms.get(e.id, 0.0) if e.device_type == DeviceType.CPU and e.name.startswith("cu") else 0.0
+
+    def tree_ms(e) -> float:
+        return launch_ms(e) + sum(tree_ms(c) for c in e.cpu_children)
+
+    split = dict.fromkeys(("quantize", "taps", "_int_mm", "dequantize"), 0.0)
+    layers = calls = 0
+    for e in events:
+        parent, nested = e.cpu_parent, False
+        while parent is not None:
+            nested = nested or parent.name in INT8_OPS
+            parent = parent.cpu_parent
+        if e.name not in INT8_OPS or nested:
+            continue
+        calls += 1
+        stage = "quantize"
+        for child in sorted(e.cpu_children, key=lambda c: c.time_range.start):
+            if child.name == "aten::stack":
+                stage = "taps"
+            elif child.name == "aten::_int_mm":
+                stage = "_int_mm"
+            elif stage == "_int_mm":
+                stage = "dequantize"
+            split[stage] += tree_ms(child)
+        layers += tree_ms(e)
+    return {"device_ms": total, "attributed_ms": sum(launch_ms(e) for e in events), "int8_layers_ms": layers,
+            "int8_calls": calls, "split_ms": split}
+
+
+def phase_int8(tag: str = "20 serving (a) int8") -> dict:
+    """Phase 20 (a); returns the bf16 model, its engine and the clip."""
+    batch, frames, size = 8, 16, 224
+    model = VideoHybridNet(flagship_video_config(size, attn_impl="flash"), device="cuda", dtype=torch.bfloat16).eval()
+    clip_u8 = random_clip(batch, frames, size, seed=2)
+    calib = preprocess_clip(clip_u8, size, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    eng = quant.Int8Engine(model).calibrate([calib])
+    cal_s = time.perf_counter() - t0
+    check(len(eng.scales) == INT8_CONV_LAYERS, f"{len(eng.scales)} quantized layers, not {INT8_CONV_LAYERS}")
+    psnr = eng.psnr_vs(calib)
+    check(math.isfinite(psnr) and psnr > 20.0, f"int8 vs bf16 PSNR {psnr}")
+    reset_counts()
+    with dispatch_trace.capture() as seen:
+        _, recon = eng.apply(eng.qparams, calib)
+    torch.cuda.synchronize()
+    serving_counted("(a) int8 forward", launches=2)
+    check("flash_mha_cuda" in seen, f"(a) recorded {sorted(seen)}")
+    check(recon.shape == (batch, frames, size, size, 3) and recon.dtype == torch.bfloat16
+          and bool(torch.isfinite(recon).all()), f"(a) recon {tuple(recon.shape)} {recon.dtype}")
+    del recon
+    rates = {}
+    for name, scope in (("bf16", contextlib.nullcontext), ("int8", lambda: eng.intercepting(eng.qparams))):
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        with scope():
+            t = time_clips(model, clip_u8, size, torch.bfloat16, iters=3)
+        rates[name] = (t, torch.cuda.max_memory_allocated() / 1e9)
+    with torch.no_grad():
+        eng.apply(eng.qparams, calib)  # warm
+        prof = int8_profile(lambda: eng.apply(eng.qparams, calib))
+        bf16_ms = int8_profile(lambda: model(calib))["device_ms"]
+    layers = {"encoder.stem_conv", "decoder.post_convs.0", "temporal.layers.0.ffn1"}
+    inputs = layer_inputs(model, layers, lambda: model(calib))
+    eng_d = quant.Int8Engine(model, quantize_dense=True).calibrate([calib])
+    check(len(eng_d.scales) == INT8_CONV_LAYERS + INT8_DENSE_LAYERS, f"--int8-dense: {len(eng_d.scales)} layers")
+    reset_counts()
+    _, recon_d = eng_d.apply(eng_d.qparams, calib)
+    torch.cuda.synchronize()
+    serving_counted("(a) int8-dense forward", launches=2)
+    check(bool(torch.isfinite(recon_d).all()), "(a) int8-dense recon not finite")
+    psnr_d = eng_d.psnr_vs(calib)
+    del recon_d
+    lines = [int8_accumulators_exact(name, model.get_submodule(name), inputs[name], eng_d.qparams[name],
+                                     eng_d.scales[name]) for name in sorted(layers)]
+    del inputs, eng_d
+    free_cuda()
+    fct = fct_model(dropout=False).eval()
+    images = pipeline.preprocess_images(fct_batches(2, 1, 60)[0][0], FCT_SIZE)
+    fct_eng = quant.Int8Engine(fct).calibrate([images])
+    fct_layers = {"block_1.trans.attention_output.conv_q", "block_1.trans.wide_focus.conv2",
+                  "block_1.trans.wide_focus.conv3"}
+    fct_inputs = layer_inputs(fct, fct_layers, lambda: fct(images))
+    lines += [int8_accumulators_exact(name, fct.get_submodule(name), fct_inputs[name], fct_eng.qparams[name],
+                                      fct_eng.scales[name]) for name in sorted(fct_layers)]
+    del fct, fct_eng, fct_inputs
+    (tb, mb), (ti, mi) = rates["bf16"], rates["int8"]
+    print(f"[{tag}] config 1 bf16 B={batch} T={frames} {size}^2 'flash': {len(eng.scales)} layers quantized "
+          f"(+{INT8_DENSE_LAYERS} Dense with quantize_dense), calibrated in {cal_s:.2f} s; int8 vs bf16 "
+          f"{psnr:.2f} dB (with Dense {psnr_d:.2f} dB); flash_fwd launches 2 a call (other kernels 0)")
+    print(f"[{tag}] {CARD}: frames/s bf16 {tb['frames_per_s']:.1f} (p50 batch {tb['p50_batch_latency_ms']:.2f} ms, spread "
+          f"{tb['rep_spread_pct']:.2f}%, peak {mb:.2f} GB), int8 {ti['frames_per_s']:.1f} (p50 batch "
+          f"{ti['p50_batch_latency_ms']:.2f} ms, spread {ti['rep_spread_pct']:.2f}%, peak {mi:.2f} GB); "
+          f"int8/bf16 {ti['frames_per_s'] / tb['frames_per_s']:.3f} (3 reps of 3 calls, preprocess included)")
+    split = prof["split_ms"]
+    check(0 < prof["int8_layers_ms"] <= prof["attributed_ms"] <= 1.01 * prof["device_ms"],
+          f"(a) profile: int8 layers {prof['int8_layers_ms']:.2f} ms, ops {prof['attributed_ms']:.2f} ms, "
+          f"device {prof['device_ms']:.2f} ms")
+    print(f"[{tag} profile] {CARD}: one int8 forward of the batch (no preprocess) {prof['device_ms']:.2f} device ms "
+          f"({prof['attributed_ms']:.2f} attributed to ops; bf16 {bf16_ms:.2f}): its {prof['int8_calls']} int8 "
+          f"convs {prof['int8_layers_ms']:.2f} ms = "
+          + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + f"; the rest of the model {prof['device_ms'] - prof['int8_layers_ms']:.2f} ms")
+    for line in lines:
+        print(f"[{tag}] int32 accumulators bit-equal to the fp64 product: {line}")
+    free_cuda()
+    return {"model": model, "engine": eng, "clip": clip_u8}
+
+
+def get_json(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def flash_nodes(served) -> int:
+    """``tchvp.flash_fwd`` nodes of a loaded artifact's graph."""
+    return sum(1 for n in served._program.graph.nodes if n.target is torch.ops.tchvp.flash_fwd.default)
+
+
+def close_to(tag: str, got: np.ndarray, want: torch.Tensor, tol: float) -> str:
+    want = want.float().cpu().numpy()
+    err, top = float(np.abs(got - want).max()), float(np.abs(want).max())
+    check(got.shape == want.shape and err <= tol * top, f"{tag}: {got.shape} vs {want.shape}, {err:.3g} > {tol} x {top:.3g}")
+    return f"{tag} max abs {err:.3g} (limit {tol} x {top:.3g}), bits {'equal' if np.array_equal(got, want) else 'differ'}"
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """fp32 convs and matmuls without TF32 in the scope: cuDNN picks its
+    algorithm by batch size, and with TF32 a batch served as 2 + 1 rows
+    reads ~6e-4 x max|ref| from the live model's batch of 3."""
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def phase_export_serve(tmp: Path, a: dict) -> None:
+    """Phase 20 (b)."""
+    tag = "20 serving (b)"
+    fct_path = str(tmp / "fct.tchvp")
+    t0 = time.perf_counter()
+    reset_counts()
+    print(run_cli(["export", "--model", "fct", "--out", fct_path, "--image-size", str(FCT_SIZE)]).strip())
+    export_s = time.perf_counter() - t0
+    SERVING_LAUNCHES["launches"] += counts()["launches"]  # the export's eager call
+    t0 = time.perf_counter()
+    reset_counts()
+    srv = serve_artifact(fct_path, port=0, buckets=(1, 2)).start()
+    load_s = time.perf_counter() - t0
+    serving_counted("(b) FCT warm-up", launches=2 * FCT_FLASH)
+    check(flash_nodes(srv.model) == FCT_FLASH, f"(b) FCT graph has {flash_nodes(srv.model)} tchvp.flash_fwd nodes")
+    url = f"http://127.0.0.1:{srv.port}"
+    live = cli._image_model("fct", torch.device("cuda")).eval()
+    rng = np.random.default_rng(61)
+    lines = []
+    try:
+        with no_tf32():
+            for b in (1, 2, 3):
+                images = rng.integers(0, 256, (b, FCT_SIZE, FCT_SIZE, 3), dtype=np.uint8)
+                reset_counts()
+                got = post_npy(url + "/infer", images)
+                serving_counted(f"(b) FCT batch {b}", launches=FCT_FLASH * len(range(0, b, 2)))
+                with torch.no_grad():
+                    want = live(pipeline.preprocess_images(torch.from_numpy(images).cuda(), FCT_SIZE))
+                lines.append(close_to(f"batch {b} (TF32 off)", got, want, 1e-4))
+        health = get_json(url + "/health")
+        check((health["requests"], health["frames"], health["errors"], health["inflight"]) == (3, 6, 0, 0),
+              f"(b) /health {health}")
+        two = rng.integers(0, 256, (2, FCT_SIZE, FCT_SIZE, 3), dtype=np.uint8)
+        ms = []
+        for _ in range(20):
+            t1 = time.perf_counter()
+            post_npy(url + "/infer", two)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        p50 = statistics.median(ms)
+        three = rng.integers(0, 256, (3, FCT_SIZE, FCT_SIZE, 3), dtype=np.uint8)
+        in_process = post_npy(url + "/infer", three)
+    finally:
+        srv.shutdown()
+    del live
+    print(f"[{tag}] export --model fct {FCT_SIZE}^2 fp32 ({export_s:.2f} s, {os.path.getsize(fct_path) / 1e6:.1f} MB, "
+          f"{FCT_FLASH} tchvp.flash_fwd nodes); serve_artifact buckets [1, 2] loaded and warmed in {load_s:.2f} s; "
+          + "; ".join(lines) + f"; {FCT_FLASH} flash launches a bucket call; /health requests 3, frames 6, errors 0; "
+          f"{CARD}: batch 2 over HTTP: p50 {p50:.2f} ms (min {min(ms):.2f}, max {max(ms):.2f}; 20 requests), "
+          f"{2 / p50 * 1e3:.1f} images/s")
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    proc = subprocess.Popen([sys.executable, "-m", "tchvp_tpu_torch.cli", "serve", "--exported", fct_path,
+                             "--port", str(port), "--buckets", "1,2"], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 180
+        while True:
+            try:
+                get_json(f"http://127.0.0.1:{port}/health")
+                break
+            except OSError:
+                check(proc.poll() is None and time.monotonic() < deadline, f"(b) serve did not come up: "
+                      f"{proc.stdout.read() if proc.poll() is not None else 'timeout'}")
+                time.sleep(0.5)
+        cli_out = post_npy(f"http://127.0.0.1:{port}/infer", three)
+        line = close_to("serve (CLI process) vs serve_artifact, batch 3", cli_out, torch.from_numpy(in_process), 1e-4)
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    print(f"[{tag}] {line}")
+
+    model, eng, clip_u8 = a["model"], a["engine"], a["clip"]
+    size, frames = 224, clip_u8.shape[1]
+    two_clips = clip_u8[:2].cpu().numpy()
+    for name, exporter in (("bf16", lambda: export_lib.export_video_model(model, clip_len=frames, image_size=size)),
+                           ("int8", lambda: export_lib.export_int8_video_model(eng, clip_len=frames, image_size=size))):
+        path = str(tmp / f"config1_{name}.tchvp")
+        t0 = time.perf_counter()
+        reset_counts()
+        exported, record = exporter()
+        export_lib.save_artifact(path, exported, record, meta={"model": "hybrid", "image_size": size,
+                                                               "clip_len": frames, "int8": name == "int8"})
+        del exported
+        SERVING_LAUNCHES["launches"] += counts()["launches"]
+        export_s = time.perf_counter() - t0
+        window = 50.0 if name == "int8" else 0.0
+        buckets = (1, 2, 4) if name == "int8" else (2,)
+        reset_counts()
+        srv = serve_artifact(path, port=0, buckets=buckets, batch_window_ms=window).start()
+        serving_counted(f"(b) config 1 {name} warm-up", launches=2 * len(buckets))
+        nodes = flash_nodes(srv.model)
+        check(nodes == 2, f"(b) config 1 {name} graph has {nodes} tchvp.flash_fwd nodes")
+        url = f"http://127.0.0.1:{srv.port}/infer"
+        try:
+            # The live model at the batch the program runs (bf16 convs pick
+            # their algorithm by batch size: batch 2 of a batch-4 call reads
+            # ~1.5e-2 x max|ref| from a batch-2 call); the limit is phase 18's
+            # for a bf16 forward.
+            with torch.inference_mode():
+                clip = preprocess_clip(clip_u8[:4] if name == "int8" else clip_u8[:2], size, dtype=torch.bfloat16)
+                want = (eng.apply(eng.qparams, clip) if name == "int8" else model(clip))[1]
+            reset_counts()
+            if name == "bf16":
+                outs = [post_npy(url, two_clips)]
+                calls = 1
+                health = get_json(url.replace("/infer", "/health"))
+                lines = [close_to("batch 2", outs[0], want, 2e-2)]
+                ms = []
+                for _ in range(5):
+                    t1 = time.perf_counter()
+                    post_npy(url, two_clips)
+                    ms.append((time.perf_counter() - t1) * 1e3)
+                calls += 5
+                lines.append(f"batch 2 over HTTP p50 {statistics.median(ms):.2f} ms (min {min(ms):.2f}, 5 "
+                             f"requests), {2 * frames / statistics.median(ms) * 1e3:.1f} frames/s")
+            else:
+                clips = clip_u8[:4].cpu().numpy()
+                outs = [None] * 4
+                barrier = threading.Barrier(4)
+
+                def client(i):
+                    barrier.wait()
+                    outs[i] = post_npy(url, clips[i:i + 1])
+
+                threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+                t1 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                wall_ms = (time.perf_counter() - t1) * 1e3
+                health = get_json(url.replace("/infer", "/health"))
+                calls = health["coalesced_calls"] + 4 - health["coalesced_requests"]
+                lines = [close_to(f"client {i}", outs[i], want[i:i + 1], 2e-2) for i in range(4)]
+                lines.append(f"the 4 requests answered in {wall_ms:.2f} ms ({4 * frames / wall_ms * 1e3:.1f} frames/s)")
+            serving_counted(f"(b) config 1 {name} requests", launches=2 * calls)
+        finally:
+            srv.shutdown()
+        print(f"[{tag}] {CARD}: config 1 {name} artifact (export {export_s:.2f} s, {os.path.getsize(path) / 1e6:.1f} MB, "
+              f"{nodes} tchvp.flash_fwd nodes), buckets {list(buckets)}"
+              + (f", batch window {window} ms, 4 concurrent clients of 1 clip: coalesced_calls "
+                 f"{health['coalesced_calls']}, coalesced_requests {health['coalesced_requests']}" if window else "")
+              + f"; {calls} program call(s), 2 flash launches each; " + "; ".join(lines))
+        free_cuda()
+
+
+def phase_stream_serve(tmp: Path) -> None:
+    """Phase 20 (c)."""
+    import urllib.request
+
+    tag = "20 serving (c) streaming"
+    size, chunk, ctx = 224, 8, 4
+    path = str(tmp / "stream.tchvp")
+    t0 = time.perf_counter()
+    print(run_cli(["export", "--streaming", "--out", path, "--image-size", str(size), "--chunk-len", str(chunk),
+                   "--ctx-frames", str(ctx)]).strip())
+    export_s = time.perf_counter() - t0
+    raw = random_clip(1, 2 * chunk, size, seed=70)
+    with no_tf32():
+        srv = serve_artifact(path, port=0).start()
+        base = f"http://127.0.0.1:{srv.port}"
+        try:
+            text = run_cli(["stream", "--url", base, "--synthetic", "2", "--height", str(size), "--width", str(size),
+                            "--batch-size", "1", "--clip-len", str(2 * chunk)])
+            check(re.search(r"streamed 32 frames", text) is not None, f"(c) stream --url printed {text}")
+            opened = json.loads(urllib.request.urlopen(
+                urllib.request.Request(f"{base}/stream/open", method="POST")).read())
+            sid, host = opened["session"], raw.cpu().numpy()
+            got = np.concatenate([post_npy(f"{base}/stream/{sid}", host[:, i:i + chunk])
+                                  for i in range(0, 2 * chunk, chunk)], axis=1)
+            urllib.request.urlopen(urllib.request.Request(f"{base}/stream/{sid}/close", method="POST"))
+        finally:
+            srv.shutdown()
+        model = VideoHybridNet(flagship_video_config(size), device="cuda", generator=torch.Generator().manual_seed(0))
+        want = stream_clip(model, preprocess_clip(raw, size), chunk, ctx)
+    line = close_to("session of 2 chunks vs stream_clip (TF32 off)", got, want, 1e-4)
+    del model
+    free_cuda()
+    print(f"[{tag}] {CARD}: export --streaming fp32 {size}^2 chunk {chunk} context {ctx} ({export_s:.2f} s); "
+          f"{text.strip().splitlines()[-1]}; {line}")
+
+
+def phase_qat(tmp: Path, train_ms: Optional[float]) -> None:
+    """Phase 20 (d)."""
+    tag = "20 serving (d) QAT"
+    held_gb = torch.cuda.memory_allocated() / 1e9  # what the earlier phases left on the card
+    ck = tmp / "qat_ckpt"
+    argv = ["video", "--qat", "--attn-impl", "flash", "--synthetic", "2", "--epochs", "1", "--batch-size", "8",
+            "--clip-len", "8", "--image-size", "256", "--save-every", "1", "--checkpoint-dir", str(ck)]
+    reset_counts()
+    with dispatch_trace.capture() as seen:
+        text = run_cli(argv)
+    serving_counted("(d) video --qat", launches=4, dq_launches=4, dkv_launches=4)
+    check("qat_fake_quant" in seen and "flash_mha_bwd_cuda" in seen, f"(d) recorded {sorted(seen)}")
+    finite_epochs(VIDEO_EPOCH, text, [1])
+    remat_argv = argv[:-1] + [str(tmp / "qat_remat_ckpt"), "--remat-policy", "stages"]
+    reset_counts()
+    with dispatch_trace.capture() as seen:
+        remat_text = run_cli(remat_argv)
+    serving_counted("(d) video --qat --remat-policy stages", launches=8, dq_launches=4, dkv_launches=4)
+    check("qat_fake_quant" in seen, f"(d) remat recorded {sorted(seen)}")
+    finite_epochs(VIDEO_EPOCH, remat_text, [1])
+    remat_line = qat_remat_grads(tag)
+    size = 256
+    model = VideoHybridNet(flagship_video_config(size, attn_impl="flash"), device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, make_optimizer(1e-4, weight_decay=0.01, grad_clip_norm=1.0), rng=0)
+    step = make_video_train_step(size, loss="mixed", alpha=0.3, beta=0.7, noise_std=0.05, qat=True)
+    clips = [random_clip(8, 8, size, seed=80 + i) for i in range(2)]
+    step(state, clips[0])
+    torch.cuda.reset_peak_memory_stats()
+    ms, spread = fct_step_ms(step, state, clips)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model, state, clips
+    free_cuda()
+    tags = step_tags(ck)
+    check(bool(tags), f"(d) no checkpoint in {ck}")
+    ev = run_cli(["eval", "--int8", "--checkpoint", str(ck / tags[-1]), "--synthetic", "2", "--batch-size", "8",
+                  "--clip-len", "8", "--image-size", "256"])
+    m = re.search(r"\[int8 serving\]: reconstruction PSNR ([0-9.naif-]+) dB", ev)
+    check(m is not None and math.isfinite(float(m.group(1))), f"(d) eval --int8 printed {ev}")
+    ratio = f", {ms / train_ms:.3f} x phase 11's bare step ({train_ms:.1f} ms)" if train_ms else ""
+    print(f"[{tag}] {CARD}: video --qat --attn-impl flash, 2 steps at B=8 T=8 256^2 fp32: flash launches 2/2/2 a step, "
+          f"{text.strip().splitlines()[-1]}; bare QAT step {ms:.1f} ms (median of 3 reps of 2, spread "
+          f"{spread:.2f}%){ratio}, {8 * 8 / ms * 1e3:.1f} trained frames/s, peak {peak:.2f} GB; "
+          f"eval --int8 --checkpoint {tags[-1]}: {m.group(1)} dB; {held_gb:.2f} GB held on the card before (d)")
+    print(f"[{tag}] video --qat --remat-policy stages: flash launches 4/2/2 a step, "
+          f"{remat_text.strip().splitlines()[-1]}; {remat_line}")
+
+
+def qat_remat_grads(tag: str) -> str:
+    """One QAT step's gradients under remat ``stages`` against ``none``'s
+    (same weights, clip and draws; B 2 x 8 frames at 256^2, fp32), within
+    1e-3 x max|grad|; the fp step's distance printed as the control."""
+    size = 256
+    clip = random_clip(2, 8, size, seed=81)
+
+    def grads(policy: str, qat: bool = True) -> dict:
+        model = VideoHybridNet(flagship_video_config(size, attn_impl="flash"), device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+        state = create_train_state(model, make_optimizer(1e-4, weight_decay=0.01, grad_clip_norm=1.0), rng=0)
+        step = make_video_train_step(size, loss="mixed", alpha=0.3, beta=0.7, noise_std=0.05, qat=qat,
+                                     remat_policy=policy)
+        with dispatch_trace.capture() as seen:
+            step(state, clip)
+        check(not qat or "qat_fake_quant" in seen, f"{tag} {policy} recorded {sorted(seen)}")
+        out = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        del model, state
+        free_cuda()
+        return out
+
+    def dist(a: dict, b: dict) -> float:
+        top = max(float(v.abs().max()) for v in b.values())
+        return max(float((a[k] - b[k]).abs().max()) for k in b) / top
+
+    plain = grads("none")
+    remat, fp = dist(grads("stages"), plain), dist(grads("none", qat=False), plain)
+    reset_counts()
+    check(remat <= 1e-3, f"{tag}: remat stages gradients {remat:.3g} x max|grad| from none's (limit 1e-3)")
+    check(fp > 10 * 1e-3, f"{tag}: the fp step's gradients only {fp:.3g} x max|grad| from QAT's")
+    return (f"one QAT step B=2 T=8 {size}^2, gradients under remat stages {remat:.3g} x max|grad| from none's "
+            f"(limit 1e-3; the fp step's {fp:.3g})")
+
+
+def phase_serving(train_ms: Optional[float] = None) -> dict:
+    """Phase 20: serving; module docstring. Returns SERVING_LAUNCHES."""
+    for key in SERVING_LAUNCHES:
+        SERVING_LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    a = phase_int8()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.chdir(tmp)  # runs/ and checkpoints/ go here
+        try:
+            phase_export_serve(tmp, a)
+            del a
+            free_cuda()
+            phase_stream_serve(tmp)
+            phase_qat(tmp, train_ms)
+        finally:
+            os.chdir(cwd)
+    free_cuda()
+    print(f"[20 serving] {time.perf_counter() - t0:.1f} s; hand-written kernel launches of (a)-(d): "
+          + ", ".join(f"{k} {v}" for k, v in SERVING_LAUNCHES.items() if v))
+    return dict(SERVING_LAUNCHES)
+
+
 def bound(nbytes: float, flops: float, dtype: torch.dtype):
     """(ms, "bytes" or "operations"): the larger of the bytes over HBM
     bandwidth and the products over the peak of the dtype's units."""
@@ -3660,6 +4225,7 @@ def main() -> None:
     phase_config3()
     fct = phase_fct()
     phase_conv_families()
+    serving = phase_serving(train_ms)
     records = time_flash(fwd_launches, fwd_err, {"flash_bwd_dq": train["dq_launches"],
                                                  "flash_bwd_dkv": train["dkv_launches"]}, bwd_errs)
     records += time_band({"band_fwd": band_fwd_launches, "band_bwd_ds": windowed["band_ds_launches"],
@@ -3674,6 +4240,7 @@ def main() -> None:
             rec["fct_launches"] = fct["launches"][counter_of(rec["name"])]
             rec["fct_step"] = fct["step"]["attention"]
         rec["conv_family_launches"] = CONV_LAUNCHES[counter_of(rec["name"])]  # phase 19 (a)-(e)
+        rec["serving_launches"] = serving[counter_of(rec["name"])]  # phase 20 (a)-(d)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

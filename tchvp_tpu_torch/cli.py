@@ -14,6 +14,11 @@ Counterpart of ``tchvp_tpu/cli.py``, with its subcommand names and flags:
     python -m tchvp_tpu_torch.cli infer  --checkpoint checkpoints/step_5
     python -m tchvp_tpu_torch.cli eval   --checkpoint checkpoints/step_5
     python -m tchvp_tpu_torch.cli stream --synthetic 2 --height 1080 --width 1920
+    python -m tchvp_tpu_torch.cli infer  --int8 --checkpoint checkpoints/step_5
+    python -m tchvp_tpu_torch.cli video  --synthetic 3 --qat --attn-impl flash
+    python -m tchvp_tpu_torch.cli export --model fct --out fct.tchvp
+    python -m tchvp_tpu_torch.cli serve  --exported fct.tchvp --buckets 1,2
+    python -m tchvp_tpu_torch.cli infer  --url http://127.0.0.1:8765
     python -m tchvp_tpu_torch.cli pack   --train-csv clips.csv --out clips.cpk
     python -m tchvp_tpu_torch.cli summary --model hybrid
     python -m tchvp_tpu_torch.cli summary --model fct
@@ -35,12 +40,13 @@ not have yet are registered and exit naming their item of ROADMAP.md
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import subprocess
 import sys
 import time
 
-_ITEMS = {10: "serving", 11: "parallelism", 12: "autotuner"}
+_ITEMS = {11: "parallelism", 12: "autotuner"}
 
 
 def _not_ported(what: str, item: int):
@@ -506,8 +512,6 @@ def cmd_video(args) -> None:
         )
     if args.fsdp:
         _not_ported("--fsdp", 11)
-    if args.qat or args.qat_dense:
-        _not_ported("--qat", 10)
     cfg = TrainConfig(
         model_name="video",
         loss=args.loss or ("mse" if args.image_size <= 160 else "mixed"),
@@ -528,6 +532,7 @@ def cmd_video(args) -> None:
         model, cfg=cfg, image_size=args.image_size, mesh=mesh,
         accum_steps=args.accum_steps,
         remat_policy=args.remat_policy,
+        qat=args.qat, qat_dense=args.qat_dense,
         seq_axis=args.seq_axis,
         aug=_aug_cfg(args),
     )
@@ -541,16 +546,6 @@ def cmd_video(args) -> None:
         save_every=args.save_every,
         save_every_steps=args.save_every_steps,
     )
-
-
-def _serving_flags(args) -> None:
-    """The serving options of the JAX package that wait for item 10."""
-    if getattr(args, "url", None):
-        _not_ported("--url (infer/server.py)", 10)
-    if getattr(args, "exported", None):
-        _not_ported("--exported (infer/export.py)", 10)
-    if getattr(args, "int8", False):
-        _not_ported("--int8 (infer/quant.py)", 10)
 
 
 def _serving_model(args, size: int, device):
@@ -597,18 +592,72 @@ def _clip_data(args, size):
     )
 
 
+def _reach(url: str, call):
+    """``call()`` against a server at ``url``, which exits with a message
+    when the server cannot be reached."""
+    import urllib.error
+
+    try:
+        return call()
+    except urllib.error.HTTPError as e:
+        raise SystemExit(f"--url {url}: HTTP {e.code}: {e.read().decode(errors='replace')}")
+    except (urllib.error.URLError, ConnectionError) as e:
+        raise SystemExit(f"--url {url}: cannot reach the server ({getattr(e, 'reason', e)})")
+
+
+def _stream_remote(url: str, data) -> None:
+    """Client side of the /stream session protocol: open a session on a
+    ``serve``d STREAMING artifact, post each clip chunk by chunk (the
+    carry lives on the server), report throughput, close."""
+    import json
+    import urllib.request
+
+    import numpy as np
+
+    from tchvp_tpu_torch.infer.server import post_npy
+
+    base = url.rstrip("/")
+    opened = json.loads(_reach(url, lambda: urllib.request.urlopen(
+        urllib.request.Request(f"{base}/stream/open", method="POST")).read()))
+    sid, chunk_len = opened["session"], int(opened["chunk_len"])
+    size, sb = int(opened["image_size"]), int(opened["batch"])
+    print(f"stream session {sid}: chunk {chunk_len}f @ {size}px batch {sb}")
+    frames = 0
+    t0 = time.monotonic()
+    try:
+        for clip in data:
+            clip = np.asarray(clip, np.uint8)
+            if clip.shape[0] != sb or clip.shape[2:4] != (size, size):
+                raise SystemExit(
+                    f"stream --url: artifact session wants batch {sb} @ "
+                    f"{size}x{size}, data is {clip.shape} — re-export "
+                    "with matching --stream-batch/--image-size"
+                )
+            t = clip.shape[1] - clip.shape[1] % chunk_len
+            for start in range(0, t, chunk_len):
+                out = _reach(url, lambda: post_npy(f"{base}/stream/{sid}", clip[:, start:start + chunk_len]))
+                frames += int(out.shape[0] * out.shape[1])
+    finally:
+        _reach(url, lambda: urllib.request.urlopen(
+            urllib.request.Request(f"{base}/stream/{sid}/close", method="POST")))
+    dt = time.monotonic() - t0
+    print(f"streamed {frames} frames in {dt:.2f}s "
+          f"({frames / max(dt, 1e-9):.1f} frames/s incl. HTTP)")
+
+
 def cmd_stream(args) -> None:
     """Streaming long-video inference: tile -> chunked carry -> untile.
 
     Processes clips from a clippack (or synthetic frames) through a
     trained or fresh bf16 VideoHybridNet at any resolution; reports
-    throughput."""
+    throughput. ``--int8`` runs its convs (``--int8-dense``: and denses)
+    int8, calibrated on the first batch's tiles; ``--url`` streams through
+    a ``serve``d streaming artifact instead."""
     import numpy as np
     import torch
 
     from tchvp_tpu_torch.models.streaming import StreamingConfig, make_streamer
 
-    _serving_flags(args)
     if args.clippack:
         from tchvp_tpu_torch.data.clippack import ClipPackDataset
 
@@ -623,16 +672,42 @@ def cmd_stream(args) -> None:
                          dtype=np.uint8)
             for _ in range(n)
         ]
+    if args.url:
+        _stream_remote(args.url, data)
+        return
     device = _device(args)
     scfg = StreamingConfig(
         tile=args.tile, chunk_len=args.chunk_len, ctx_frames=args.ctx_frames
     )
     model = _serving_model(args, args.tile, device)
-    streamer = make_streamer(model, scfg, mesh=_mesh(args))
+    engine = None
+    data_iter = data
+    if args.int8:
+        import itertools
+
+        from tchvp_tpu_torch.infer.quant import Int8Engine
+        from tchvp_tpu_torch.ops import tiling
+
+        # Calibrate on tiles of the first batch, which stays in the loop.
+        it = iter(data)
+        try:
+            first = next(it)
+        except StopIteration:
+            print("stream --int8: no batches to calibrate on (empty dataset)")
+            return
+        data_iter = itertools.chain([first], it)
+        clip0 = torch.as_tensor(np.asarray(first, dtype=np.uint8)).to(device).float() / 255.0
+        padded, _ = tiling.pad_frames(clip0, args.tile)
+        tiles, _ = tiling.tile_frames(padded, args.tile)
+        calib = tiles[:4, :2].to(next(model.parameters()).dtype)
+        engine = Int8Engine(model, quantize_dense=args.int8_dense).calibrate([calib])
+        print(f"int8: {len(engine.scales)} layers quantized"
+              + (" (convs+dense)" if args.int8_dense else ""))
+    streamer = make_streamer(model, scfg, mesh=_mesh(args), int8_engine=engine)
 
     frames = 0
     t0 = None
-    for batch in data:
+    for batch in data_iter:
         clip = torch.as_tensor(np.asarray(batch, dtype=np.uint8)).to(device).float() / 255.0
         out = streamer(clip)
         _ = float(out.reshape(-1)[0])  # sync
@@ -651,7 +726,13 @@ def cmd_infer(args) -> None:
     """Batched clip inference from a trained checkpoint: reconstruct every
     clip, report PSNR + throughput, optionally dump input|output frame
     pairs. ``--microbatch`` runs over-memory batches as sequential groups
-    (the BASELINE config-2 spec-batch path)."""
+    (the BASELINE config-2 spec-batch path). ``--int8`` runs the convs
+    (``--int8-dense``: and denses) int8, calibrated on the first batch.
+    ``--exported`` serves an ``export`` artifact instead; ``--url`` posts
+    the batches to a running ``serve``."""
+    import contextlib
+    import itertools
+
     import numpy as np
     import torch
 
@@ -659,18 +740,41 @@ def cmd_infer(args) -> None:
     from tchvp_tpu_torch.models.streaming import microbatched_infer
     from tchvp_tpu_torch.utils.imaging import save_side_by_side
 
-    _serving_flags(args)
+    if args.url:
+        return _infer_url(args)
+    if args.exported:
+        return _infer_exported(args)
     size = args.image_size
     device = _device(args)
     if _mesh(args) is not None:
         _not_ported("infer --mesh", 11)
     data = _clip_data(args, size)
     model = _serving_model(args, size, device)
+    engine = None
+    data_iter = data
+    if args.int8:
+        from tchvp_tpu_torch.infer.quant import Int8Engine
+
+        # Calibrate on the first batch, which rejoins the loop (a half-read
+        # native clippack iterator would drain on the next pass).
+        it = iter(data)
+        try:
+            first_batch = next(it)
+        except StopIteration:
+            print("infer --int8: no batches to calibrate on (empty dataset)")
+            return
+        data_iter = itertools.chain([first_batch], it)
+        first = torch.as_tensor(np.asarray(first_batch, dtype=np.uint8)).to(device)
+        calib = preprocess_clip(first, size, dtype=torch.bfloat16)
+        engine = Int8Engine(model, quantize_dense=args.int8_dense).calibrate([calib])
+        print(f"int8: {len(engine.scales)} layers quantized, "
+              f"{engine.psnr_vs(calib):.1f} dB vs bf16")
 
     frames, psnrs, t0 = 0, [], None
-    for bi, batch in enumerate(data):
+    for bi, batch in enumerate(data_iter):
         raw = torch.as_tensor(np.asarray(batch, dtype=np.uint8)).to(device)
-        with torch.inference_mode():
+        scope = engine.intercepting(engine.qparams) if engine is not None else contextlib.nullcontext()
+        with torch.inference_mode(), scope:
             clip = preprocess_clip(raw, size, dtype=torch.bfloat16)
             if args.microbatch:
                 recon = microbatched_infer(model, clip, args.microbatch)
@@ -692,6 +796,73 @@ def cmd_infer(args) -> None:
                     os.path.join(args.out_dir, f"clip0_frame{t}.jpg"),
                 )
     msg = f"inferred {len(psnrs)} batches, mean PSNR {np.mean(psnrs):.2f} dB"
+    if frames and t0 is not None:
+        msg += f", {frames / (time.perf_counter() - t0):.1f} frames/s (post-warm-up)"
+    print(msg)
+
+
+def _psnr_db(clip: "torch.Tensor", recon: "torch.Tensor") -> float:
+    import torch
+
+    mse = float(torch.mean((clip.float() - recon.float()) ** 2))
+    return -10.0 * math.log10(max(mse, 1e-12))
+
+
+def _infer_exported(args) -> None:
+    """Serve an ``export`` artifact: the program, its weights and the
+    fused preprocessing all come from the artifact, on its platform."""
+    import numpy as np
+    import torch
+
+    from tchvp_tpu_torch.data.pipeline import preprocess_clip
+    from tchvp_tpu_torch.infer import export as export_lib
+
+    if not os.path.exists(args.exported):
+        raise SystemExit(f"--exported {args.exported}: no such artifact")
+    device = _device(args)
+    m = export_lib.load_artifact(args.exported, device)
+    size = int(m.meta["meta"].get("image_size", args.image_size))
+    frames, psnrs, t0 = 0, [], None
+    for batch in _clip_data(args, size):
+        raw = np.asarray(batch, dtype=np.uint8)
+        recon = m(raw)
+        with torch.inference_mode():
+            psnrs.append(_psnr_db(preprocess_clip(torch.from_numpy(raw).to(device), size), recon))
+        if t0 is None:
+            t0 = time.perf_counter()  # exclude the first call
+        else:
+            frames += raw.shape[0] * raw.shape[1]
+    msg = (f"served {len(psnrs)} batches from {args.exported} "
+           f"(platforms {list(m.platforms)}), mean PSNR {np.mean(psnrs):.2f} dB")
+    if frames and t0 is not None:
+        msg += f", {frames / (time.perf_counter() - t0):.1f} frames/s (post-load)"
+    print(msg)
+
+
+def _infer_url(args) -> None:
+    """Client mode: POST every batch to a running ``serve`` (the serving
+    host owns the card); this process decodes clips and scores PSNR on the
+    CPU."""
+    import numpy as np
+    import torch
+
+    from tchvp_tpu_torch.data.pipeline import preprocess_clip
+    from tchvp_tpu_torch.infer.server import post_npy
+
+    url = args.url.rstrip("/") + "/infer"
+    frames, psnrs, t0 = 0, [], None
+    for batch in _clip_data(args, args.image_size):
+        raw = np.asarray(batch, dtype=np.uint8)
+        rec = _reach(args.url, lambda: post_npy(url, raw))
+        psnrs.append(_psnr_db(preprocess_clip(torch.from_numpy(raw), args.image_size), torch.from_numpy(rec)))
+        if t0 is None:
+            t0 = time.perf_counter()  # exclude the first (warm-up) call
+        else:
+            frames += raw.shape[0] * raw.shape[1]
+    if not psnrs:
+        print(f"no batches to send to {args.url}")
+        return
+    msg = f"served {len(psnrs)} batches via {args.url}, mean PSNR {np.mean(psnrs):.2f} dB"
     if frames and t0 is not None:
         msg += f", {frames / (time.perf_counter() - t0):.1f} frames/s (post-warm-up)"
     print(msg)
@@ -771,8 +942,8 @@ def cmd_eval(args) -> None:
 
     if getattr(args, "test_csv", None) and not args.train_csv:
         args.train_csv = args.test_csv
-    if args.int8:
-        _not_ported("--int8 (infer/quant.py)", 10)
+    if args.int8 and args.model not in _EXPORT_CLIP_MODELS:
+        raise SystemExit("eval --int8 supports the video models (hybrid/ae32k/ae4k)")
     path = args.checkpoint or ckpt.latest_step_dir(args.checkpoint_dir)
     src = f"ckpt {path}" if path else "fresh params (no checkpoint found)"
     device = _device(args)
@@ -820,8 +991,38 @@ def cmd_eval(args) -> None:
     )
     flow.init_state(args.clip_len)
     load(flow.model)
+    if args.int8:
+        psnr = _int8_eval(flow.model, args, device)
+        print(f"eval {args.model} [int8 serving]: reconstruction PSNR {psnr:.2f} dB  [{src}]")
+        return
     psnr = flow.evaluate(_clip_data(args, args.image_size))
     print(f"eval {args.model}: reconstruction PSNR {psnr:.2f} dB  [{src}]")
+
+
+def _int8_eval(model, args, device) -> float:
+    """Serving-mode eval: the mean PSNR of the int8 engine's output
+    against the clean clips, calibrated on the first batch (what ``infer
+    --int8`` ships, and the yardstick of a ``--qat`` checkpoint)."""
+    import numpy as np
+    import torch
+
+    from tchvp_tpu_torch import losses
+    from tchvp_tpu_torch.data.pipeline import preprocess_clip
+    from tchvp_tpu_torch.infer.quant import Int8Engine
+
+    size = args.image_size
+    data = _clip_data(args, size)
+    clean_of = lambda b: preprocess_clip(torch.as_tensor(np.asarray(b)).to(device), size)  # noqa: E731
+    try:
+        first = next(iter(data))
+    except StopIteration:
+        raise SystemExit("eval --int8: no batches to calibrate on")
+    eng = Int8Engine(model, quantize_dense=args.int8_dense).calibrate([clean_of(first)])
+    vals = []
+    for b in data:
+        clean = clean_of(b)
+        vals.append(float(losses.psnr(eng.apply(eng.qparams, clean)[1], clean)))
+    return sum(vals) / len(vals)
 
 
 def _eval_masks(model, combined: bool, size: int, data, device):
@@ -938,6 +1139,126 @@ def cmd_doctor(args) -> None:
             raise SystemExit("doctor --smoke: the flash forward disagrees with its plain version")
 
 
+def _export_model(args, device):
+    """The model of ``export --model`` on ``device``, seeded weights (fp32,
+    eval mode): (model, is_clip)."""
+    if args.model in _EXPORT_CLIP_MODELS:
+        return _video_model(args, device).eval(), True
+    return _image_model(args.model, device).eval(), False
+
+
+def cmd_export(args) -> None:
+    """AOT-export a serving program (uint8 batch -> output, preprocessing
+    fused in) to a .tchvp artifact through ``torch.export``
+    (``infer/export.py``): the serving host loads program and weights, no
+    model code. Clip models serve (B, T, H, W, 3) clips, image models (fct,
+    unet, ae, combined) (B, H, W, 3) images. The program is exported on
+    ``--device`` and serves there only."""
+    import numpy as np
+    import torch
+
+    from tchvp_tpu_torch.data.pipeline import preprocess_clip
+    from tchvp_tpu_torch.infer import export as export_lib
+    from tchvp_tpu_torch.train import checkpoint as ckpt
+
+    if not args.out:
+        raise SystemExit("export: provide --out (artifact path)")
+    size = args.image_size
+    device = _device(args)
+    platforms = ([p.strip() for p in args.platforms.split(",") if p.strip()]
+                 if args.platforms else None)
+    if platforms is not None and platforms != [device.type]:
+        raise SystemExit(f"export --platforms {args.platforms}: a program serves on the platform it is "
+                         f"exported on; pass --device for it ({device.type} here)")
+    model, is_clip = _export_model(args, device)
+    if args.checkpoint:
+        restored = ckpt.restore_state(args.checkpoint)
+        model.load_state_dict(_restored_params(restored, args.ema, args.layers))
+    engine = None
+    if args.int8:
+        from tchvp_tpu_torch.infer.quant import Int8Engine
+
+        if not is_clip:
+            raise SystemExit(
+                "export --int8 currently supports the clip models "
+                f"({', '.join(_EXPORT_CLIP_MODELS)}); use the fp export or "
+                "`infer --int8` for the image models")
+        try:
+            first = next(iter(_clip_data(args, size)))
+        except StopIteration:
+            raise SystemExit("export --int8: no batches to calibrate on")
+        calib = preprocess_clip(torch.as_tensor(np.asarray(first, dtype=np.uint8)).to(device), size,
+                                dtype=next(model.parameters()).dtype)
+        engine = Int8Engine(model, quantize_dense=args.int8_dense).calibrate([calib])
+        print(f"int8: {len(engine.scales)} layers quantized, "
+              f"{engine.psnr_vs(calib):.1f} dB vs {str(calib.dtype).removeprefix('torch.')}")
+    if args.streaming:
+        if args.model != "hybrid":
+            raise SystemExit("export --streaming applies to --model hybrid")
+        geometry = dict(chunk_len=args.chunk_len, ctx_frames=args.ctx_frames, image_size=size,
+                        batch=args.stream_batch)
+        if engine is not None:
+            exported, record = export_lib.export_int8_streaming_step(engine, platforms=platforms, **geometry)
+        else:
+            exported, record = export_lib.export_streaming_step(model, platforms=platforms, **geometry)
+        export_lib.save_artifact(args.out, exported, record, meta={
+            "model": args.model, "checkpoint": args.checkpoint or "", "int8": bool(args.int8),
+            **export_lib.streaming_meta(tokens_per_frame=model.config.tokens_per_frame, **geometry)})
+        print(f"exported STREAMING{' int8' if args.int8 else ''} {args.model} {size}px "
+              f"chunk {args.chunk_len}f ctx {args.ctx_frames}f -> {args.out} "
+              f"({os.path.getsize(args.out) / 1e6:.1f} MB, platforms {record['platforms']}) — "
+              f"serve it and POST chunks to /stream/<session>")
+        return
+    symbolic = not args.static_batch
+    if engine is not None:
+        exported, record = export_lib.export_int8_video_model(
+            engine, clip_len=args.clip_len, image_size=size, platforms=platforms, symbolic_batch=symbolic)
+    elif is_clip:
+        exported, record = export_lib.export_video_model(
+            model, clip_len=args.clip_len, image_size=size, platforms=platforms, symbolic_batch=symbolic)
+    else:
+        exported, record = export_lib.export_image_model(
+            model, image_size=size, platforms=platforms, symbolic_batch=symbolic)
+    export_lib.save_artifact(args.out, exported, record, meta={
+        "model": args.model, "image_size": size, "clip_len": args.clip_len if is_clip else 0,
+        "checkpoint": args.checkpoint or "", "int8": bool(args.int8)})
+    shape = f"{size}px x {args.clip_len}f" if is_clip else f"{size}px"
+    print(f"exported {args.model} {shape} -> {args.out} "
+          f"({os.path.getsize(args.out) / 1e6:.1f} MB, platforms {record['platforms']}, "
+          f"batch {'symbolic' if symbolic else 'static'})")
+
+
+def cmd_serve(args) -> None:
+    """HTTP serving daemon (``infer/server.py``) of an ``export``
+    artifact: POST .npy batches to /infer, GET /health; /stream sessions
+    for a streaming artifact. ``--data-parallel`` and ``--mesh`` (the
+    data-parallel and live pipelined serving of the JAX package) are item
+    11."""
+    from tchvp_tpu_torch.infer.server import serve_artifact
+
+    if args.data_parallel:
+        _not_ported("serve --data-parallel", 11)
+    if any(v > 1 for v in _parse_mesh_axes(args.mesh or "").values()):
+        _not_ported(f"serve --mesh {args.mesh}", 11)
+    if not args.exported:
+        raise SystemExit("serve: provide --exported (a .tchvp artifact)")
+    if not os.path.exists(args.exported):
+        raise SystemExit(f"serve --exported {args.exported}: no such artifact")
+    buckets = (tuple(int(b) for b in args.buckets.split(",")) if args.buckets else None)
+    print(f"warming buckets {list(buckets) if buckets else '(off)'}...", flush=True)
+    srv = serve_artifact(args.exported, args.host, args.port, buckets=buckets,
+                         batch_window_ms=args.batch_window_ms, device=_device(args))
+    host, port = srv.address
+    print(f"serving {args.exported} on http://{host}:{port} "
+          f"(platforms {list(srv.model.platforms)}, "
+          f"buckets {list(srv.buckets) if srv.buckets else 'off'}) — POST /infer, GET /health",
+          flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        srv.shutdown()
+
+
 def _unported_command(item: int):
     def run(args) -> None:
         _not_ported(f"the {args.cmd} command", item)
@@ -948,7 +1269,7 @@ def _unported_command(item: int):
 # Subcommands of the JAX package whose item is still to come. They take
 # whatever follows them (``main`` parses them with ``parse_known_args``) and
 # exit naming the item.
-_UNPORTED = {"export": 10, "serve": 10, "shards": 11, "tune": 12}
+_UNPORTED = {"shards": 11, "tune": 12}
 
 
 def _build_parser():
@@ -957,7 +1278,8 @@ def _build_parser():
     subparsers = {}
     commands = {"video": cmd_video, "segment": cmd_segment, "denoise": cmd_denoise,
                 "transfer": cmd_transfer, "port": cmd_port, "pack": cmd_pack,
-                "stream": cmd_stream, "infer": cmd_infer, "eval": cmd_eval, "summary": cmd_summary}
+                "stream": cmd_stream, "infer": cmd_infer, "eval": cmd_eval, "summary": cmd_summary,
+                "export": cmd_export, "serve": cmd_serve}
 
     for name, item in _UNPORTED.items():
         p = sub.add_parser(name, help=f"not ported yet (item {item})")
@@ -1000,8 +1322,13 @@ def _build_parser():
             p.add_argument("--accum-steps", type=int, default=1,
                            help="gradient accumulation: split each batch "
                                 "into N microbatches, one optimizer update")
-            p.add_argument("--qat", action="store_true", help="not ported yet (item 10)")
-            p.add_argument("--qat-dense", action="store_true", help="not ported yet (item 10)")
+            p.add_argument("--qat", action="store_true",
+                           help="quantization-aware training: convs run on "
+                                "fake-int8 input and kernel with STE gradients "
+                                "(train/qat.py), so the checkpoint serves "
+                                "through the int8 engine")
+            p.add_argument("--qat-dense", action="store_true",
+                           help="with --qat: fake-quantize the Dense layers too")
             p.add_argument("--remat-policy", default="none",
                            choices=("none", "full", "stages", "dots"),
                            help="rematerialization policy for the train "
@@ -1039,13 +1366,18 @@ def _build_parser():
                                 "optimizer carried (--ema-decay training) "
                                 "instead of the live params")
             _add_checkpoint_model_flags(p)
-            p.add_argument("--exported", default=None, help="not ported yet (item 10)")
-            p.add_argument("--url", default=None, help="not ported yet (item 10)")
+            p.add_argument("--exported", default=None,
+                           help="serve a .tchvp artifact (export) instead of the model")
+            p.add_argument("--url", default=None,
+                           help="POST the batches to a running serve endpoint")
             p.add_argument("--clip-len", type=int, default=8)
             p.add_argument("--microbatch", type=int, default=0)
             p.add_argument("--out-dir", default=None)
-            p.add_argument("--int8", action="store_true", help="not ported yet (item 10)")
-            p.add_argument("--int8-dense", action="store_true", help="not ported yet (item 10)")
+            p.add_argument("--int8", action="store_true",
+                           help="int8 post-training quantization of the convs, "
+                                "calibrated on the first batch (infer/quant.py)")
+            p.add_argument("--int8-dense", action="store_true",
+                           help="with --int8: also quantize the Dense layers")
         if name == "eval":
             p.add_argument("--model", default="hybrid",
                            choices=("hybrid", "ae32k", "ae4k", "fct", "ae",
@@ -1058,8 +1390,11 @@ def _build_parser():
             p.add_argument("--ema", action="store_true",
                            help="evaluate the EMA parameter average the "
                                 "optimizer carried (--ema-decay training)")
-            p.add_argument("--int8", action="store_true", help="not ported yet (item 10)")
-            p.add_argument("--int8-dense", action="store_true", help="not ported yet (item 10)")
+            p.add_argument("--int8", action="store_true",
+                           help="int8 post-training quantization of the convs, "
+                                "calibrated on the first batch (infer/quant.py)")
+            p.add_argument("--int8-dense", action="store_true",
+                           help="with --int8: also quantize the Dense layers")
             p.add_argument("--clippack", default=None)
             p.add_argument("--clip-len", type=int, default=8)
         if name == "summary":
@@ -1073,19 +1408,67 @@ def _build_parser():
         if name == "stream":
             p.add_argument("--clippack", default=None)
             p.add_argument("--checkpoint", default=None)
-            p.add_argument("--url", default=None, help="not ported yet (item 10)")
+            p.add_argument("--url", default=None,
+                           help="stream through a serve'd STREAMING artifact: "
+                                "opens a /stream session, posts chunks, closes")
             p.add_argument("--ema", action="store_true",
                            help="serve the EMA parameter average the "
                                 "optimizer carried (--ema-decay training)")
             _add_checkpoint_model_flags(p)
-            p.add_argument("--int8", action="store_true", help="not ported yet (item 10)")
-            p.add_argument("--int8-dense", action="store_true", help="not ported yet (item 10)")
+            p.add_argument("--int8", action="store_true",
+                           help="int8 post-training quantization of the convs, "
+                                "calibrated on the first batch (infer/quant.py)")
+            p.add_argument("--int8-dense", action="store_true",
+                           help="with --int8: also quantize the Dense layers")
             p.add_argument("--tile", type=int, default=256)
             p.add_argument("--chunk-len", type=int, default=8)
             p.add_argument("--ctx-frames", type=int, default=4)
             p.add_argument("--clip-len", type=int, default=16)
             p.add_argument("--height", type=int, default=720)
             p.add_argument("--width", type=int, default=1280)
+
+    for name in ("export", "serve"):
+        p = subparsers[name]
+        _add_checkpoint_model_flags(p)
+        p.add_argument("--clip-len", type=int, default=8)
+        p.add_argument("--ema", action="store_true",
+                       help="serve the EMA parameter average the optimizer "
+                            "carried (--ema-decay training)")
+        p.add_argument("--checkpoint", default=None)
+    p = subparsers["export"]
+    p.add_argument("--out", default=None, help="artifact path (.tchvp zip)")
+    p.add_argument("--model", default="hybrid", choices=_EXPORT_CLIP_MODELS + _EXPORT_IMAGE_MODELS,
+                   help="model family: clip models take (B,T,H,W,3), image models (B,H,W,3)")
+    p.add_argument("--clippack", default=None, help="calibration source for --int8")
+    p.add_argument("--int8", action="store_true",
+                   help="export the int8 PTQ serving program (calibrates on one batch)")
+    p.add_argument("--int8-dense", action="store_true", help="with --int8: also quantize Dense")
+    p.add_argument("--platforms", default=None,
+                   help="the platform the program serves on; it must be --device's")
+    p.add_argument("--static-batch", action="store_true",
+                   help="pin the batch dim (to 1) instead of exporting it symbolically")
+    p.add_argument("--streaming", action="store_true",
+                   help="export the stateful streaming carry step fn(carry, chunk) "
+                        "instead of the whole-clip program; serve then exposes "
+                        "/stream session endpoints (hybrid model)")
+    p.add_argument("--chunk-len", type=int, default=8, help="frames per streaming chunk (--streaming)")
+    p.add_argument("--ctx-frames", type=int, default=4,
+                   help="previous-chunk context frames visible to each chunk's attention (--streaming)")
+    p.add_argument("--stream-batch", type=int, default=1,
+                   help="concurrent clips per streaming session (--streaming; static)")
+    p = subparsers["serve"]
+    p.add_argument("--exported", default=None, help=".tchvp artifact (export)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8765)
+    p.add_argument("--buckets", default="1",
+                   help="comma-separated batch buckets run at startup; requests are "
+                        "padded/split to these sizes (empty string disables)")
+    p.add_argument("--batch-window-ms", type=float, default=0.0,
+                   help="dynamic micro-batching: coalesce concurrent requests arriving "
+                        "within this window into one device batch (0 = off)")
+    p.add_argument("--mesh", default=None, help="not ported yet (item 11)")
+    p.add_argument("--model", default="hybrid", choices=("hybrid",),
+                   help="live-serving model family (--mesh mode, item 11)")
 
     p = sub.add_parser("doctor", help="environment / runtime diagnostics")
     p.set_defaults(fn=cmd_doctor)

@@ -664,31 +664,91 @@ def band_fwd_cuda(
     return result
 
 
+def _split_seed(seed: Seed) -> Tuple[int, Optional[torch.Tensor]]:
+    """A seed as the custom ops take it: (int, None) or (0, tensor)."""
+    return (0, seed) if isinstance(seed, torch.Tensor) else (int(seed or 0), None)
+
+
+def _op_seed(seed: int, seed_tensor: Optional[torch.Tensor]) -> Seed:
+    return seed_tensor if seed_tensor is not None else seed
+
+
+# The forwards as torch.library operators, so that torch.export keeps them
+# in an exported graph as ``tchvp.flash_fwd`` and ``tchvp.band_fwd`` nodes
+# (it cannot follow a ctypes launch on a data_ptr()). The CUDA kernel
+# launches the hand-written kernel or raises; the CPU kernel is the plain
+# version; the fake one gives the shapes, dtypes and strides the real ones
+# return. They are defined on a ``Library`` fragment rather than by
+# ``torch.library.custom_op``, whose Python wrappers add to every call's
+# host time (PERF.md); they are called with grad off (inside the autograd
+# Functions or under no_grad), so no autograd kernel is needed.
+# The dispatch markers stay in Python outside the ops, where they run when
+# a graph is traced, as in JAX.
+_LIB = torch.library.Library("tchvp", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, float scale, float dropout_rate, int seed, "
+            "Tensor? seed_tensor) -> (Tensor, Tensor)")
+_LIB.define("band_fwd(Tensor q, Tensor k, Tensor v, float scale, int window, float dropout_rate, int seed, "
+            "Tensor? seed_tensor) -> (Tensor, Tensor)")
+
+
+def _flash_fwd_op_cpu(q, k, v, scale, dropout_rate, seed, seed_tensor):
+    flat = (t.reshape(-1, *t.shape[-2:]) for t in (q, k, v))
+    out, lse = mha_reference(*flat, scale, dropout_rate, _op_seed(seed, seed_tensor))
+    return out.reshape(q.shape), lse
+
+
+def _flash_fwd_op_cuda(q, k, v, scale, dropout_rate, seed, seed_tensor):
+    return _flash_fwd_cuda(q, k, v, scale, dropout_rate, _op_seed(seed, seed_tensor))
+
+
+def _flash_fwd_op_fake(q, k, v, scale, dropout_rate, seed, seed_tensor):
+    if q.dim() == 4 and q.device.type == "cuda":  # the (B, H, S, Dh) view of a (B, S, H, Dh) buffer
+        b, h, s, dh = q.shape
+        out = q.new_empty((b, s, h, dh)).transpose(1, 2)
+    else:
+        out = q.new_empty(q.shape)
+    return out, q.new_empty((math.prod(q.shape[:-2]), q.shape[-2]), dtype=torch.float32)
+
+
+def _band_fwd_op_cpu(q, k, v, scale, window, dropout_rate, seed, seed_tensor):
+    return windowed_mha_reference(q, k, v, scale, window, dropout_rate, _op_seed(seed, seed_tensor))
+
+
+def _band_fwd_op_cuda(q, k, v, scale, window, dropout_rate, seed, seed_tensor):
+    return band_fwd_cuda(q, k, v, scale, window, dropout_rate, _op_seed(seed, seed_tensor))
+
+
+def _band_fwd_op_fake(q, k, v, scale, window, dropout_rate, seed, seed_tensor):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:2], dtype=torch.float32)
+
+
+_LIB.impl("flash_fwd", _flash_fwd_op_cpu, "CPU")
+_LIB.impl("flash_fwd", _flash_fwd_op_cuda, "CUDA")
+torch.library.register_fake("tchvp::flash_fwd", _flash_fwd_op_fake, lib=_LIB)
+_LIB.impl("band_fwd", _band_fwd_op_cpu, "CPU")
+_LIB.impl("band_fwd", _band_fwd_op_cuda, "CUDA")
+torch.library.register_fake("tchvp::band_fwd", _band_fwd_op_fake, lib=_LIB)
+_FLASH_FWD_OP, _BAND_FWD_OP = torch.ops.tchvp.flash_fwd.default, torch.ops.tchvp.band_fwd.default
+
+
 def _flash_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     dropout_rate: float = 0.0, seed: Seed = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q, k, v: (BH, S, Dh) or (B, H, S, Dh) -> (out of q's shape, lse (BH,
-    S) fp32)."""
-    if q.is_cuda:
-        dispatch_trace.record("flash_mha_cuda")
-        return _flash_fwd_cuda(q, k, v, scale, dropout_rate, seed)
-    dispatch_trace.record("flash_mha_plain")
-    flat = (t.reshape(-1, *t.shape[-2:]) for t in (q, k, v))
-    out, lse = mha_reference(*flat, scale, dropout_rate, seed)
-    return out.reshape(q.shape), lse
+    S) fp32), through ``tchvp::flash_fwd``."""
+    dispatch_trace.record("flash_mha_cuda" if q.is_cuda else "flash_mha_plain")
+    return _FLASH_FWD_OP(q, k, v, float(scale), float(dropout_rate), *_split_seed(seed))
 
 
 def _win_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, window: int,
     dropout_rate: float = 0.0, seed: Seed = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Banded q, k, v: (BH, S, Dh) -> (out (BH, S, Dh), lse (BH, S) fp32)."""
-    if q.is_cuda:
-        dispatch_trace.record("flash_windowed_cuda")
-        return band_fwd_cuda(q, k, v, scale, window, dropout_rate, seed)
-    dispatch_trace.record("flash_windowed_plain")
-    return windowed_mha_reference(q, k, v, scale, window, dropout_rate, seed)
+    """Banded q, k, v: (BH, S, Dh) -> (out (BH, S, Dh), lse (BH, S) fp32),
+    through ``tchvp::band_fwd``."""
+    dispatch_trace.record("flash_windowed_cuda" if q.is_cuda else "flash_windowed_plain")
+    return _BAND_FWD_OP(q, k, v, float(scale), int(window), float(dropout_rate), *_split_seed(seed))
 
 
 def _check_flash_bwd_inputs(q, k, v, do, lse, delta) -> None:

@@ -142,13 +142,18 @@ def microbatched_infer(model: VideoHybridNet, clip: torch.Tensor, microbatch: in
 def make_streamer(model: VideoHybridNet, cfg: StreamingConfig = StreamingConfig(),
                   mesh: Optional[object] = None,
                   int8_engine: Optional[object] = None) -> Callable[[torch.Tensor], torch.Tensor]:
-    """A reusable streaming function ``f(clip) -> recon`` over ``model``."""
+    """A reusable streaming function ``f(clip) -> recon`` over ``model``.
+
+    ``int8_engine``: a calibrated ``infer.quant.Int8Engine`` of ``model``;
+    its int8 layers then run inside the tiled, chunked path."""
     if mesh is not None:
         raise NotImplementedError(
             "make_streamer over a mesh is not ported yet "
             "(ROADMAP.md, modules to port, item 11: parallelism)")
     if int8_engine is not None:
-        raise NotImplementedError(
-            "make_streamer with an int8 engine is not ported yet "
-            "(ROADMAP.md, modules to port, item 10: infer/quant.py)")
+        def run8(clip: torch.Tensor) -> torch.Tensor:
+            with int8_engine.intercepting(int8_engine.qparams):
+                return stream_video(model, clip, cfg)
+
+        return run8
     return lambda clip: stream_video(model, clip, cfg)

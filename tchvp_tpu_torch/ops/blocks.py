@@ -18,13 +18,20 @@ flax's ``Dense``/``Conv``/``ConvTranspose(dtype=bfloat16)`` do: the
 product in the compute dtype, then the bias added in it. torch's own fuse
 the bias into the product's one rounding. Outside autocast they are
 torch's layers.
+
+:class:`Conv2d` (and its subclasses) and :class:`Dense` consult one
+context-local hook first (:func:`conv_hook`), the counterpart of the flax
+method interceptor that the JAX package's int8 engine and QAT install
+around ``nn.Conv``/``nn.Dense`` calls; ``ConvTranspose2d`` does not, as
+flax's ``nn.ConvTranspose`` is not intercepted there.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -139,10 +146,48 @@ def _add_bias(y: torch.Tensor, bias: torch.Tensor, channel_dim: int) -> torch.Te
     return y + bias.to(y.dtype).reshape(shape)
 
 
+# fn(next_fn, module, x) -> output, or None: the hook of conv_hook().
+Hook = Callable[[Callable[[torch.Tensor], torch.Tensor], nn.Module, torch.Tensor], torch.Tensor]
+_hook: contextvars.ContextVar[Optional[Hook]] = contextvars.ContextVar("tchvp_conv_hook", default=None)
+
+
+@contextlib.contextmanager
+def conv_hook(fn: Hook) -> Iterator[None]:
+    """Within the scope (of this thread or task), every :class:`Conv2d` and
+    :class:`Dense` call runs ``fn(next_fn, module, x)`` in place of its own
+    forward ``next_fn(x)``; the scope replaces an outer one."""
+    token = _hook.set(fn)
+    try:
+        yield
+    finally:
+        _hook.reset(token)
+
+
+def with_current_hook(fn: Callable) -> Callable:
+    """``fn`` run under the hook in scope now (or none), wherever it is
+    called: the recompute of a checkpointed region runs in the backward,
+    which on CUDA runs on the autograd engine's own thread, and a thread
+    does not see another's :func:`conv_hook` scope."""
+    hook = _hook.get()
+
+    def run(*args):
+        token = _hook.set(hook)
+        try:
+            return fn(*args)
+        finally:
+            _hook.reset(token)
+
+    return run
+
+
 class Dense(nn.Linear):
     """``nn.Linear``; under autocast, flax's two roundings (module docstring)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        hook = _hook.get()
+        return self._fp_forward(x) if hook is None else hook(self._fp_forward, self, x)
+
+    def _fp_forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.bias is None or not _autocast(x):
             return super().forward(x)
         return _add_bias(F.linear(x, self.weight), self.bias, -1)
@@ -152,6 +197,10 @@ class Conv2d(nn.Conv2d):
     """``nn.Conv2d``; under autocast, flax's two roundings (module docstring)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        hook = _hook.get()
+        return self._fp_forward(x) if hook is None else hook(self._fp_forward, self, x)
+
+    def _fp_forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.bias is None or not _autocast(x):
             return super().forward(x)
         return _add_bias(self._conv_forward(x, self.weight, None), self.bias, 1)

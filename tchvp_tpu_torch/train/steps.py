@@ -49,6 +49,7 @@ there and raise.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Dict, Optional, Tuple
 
@@ -62,7 +63,7 @@ from torch.utils.checkpoint import (
 from tchvp_tpu_torch import losses
 from tchvp_tpu_torch.config import AugmentConfig
 from tchvp_tpu_torch.data import pipeline
-from tchvp_tpu_torch.ops.blocks import frozen_batch_stats
+from tchvp_tpu_torch.ops.blocks import frozen_batch_stats, with_current_hook
 from tchvp_tpu_torch.parallel.collectives import all_reduce_mean_, all_reduce_sum
 from tchvp_tpu_torch.parallel.mesh import axis_group, axis_size, mesh_with_axis, shard_frames
 from tchvp_tpu_torch.train.state import TrainState
@@ -125,21 +126,32 @@ def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _qat_scope(qat: bool, dense: bool):
+    """:func:`~tchvp_tpu_torch.train.qat.qat_fake_quant` when ``qat``."""
+    if not qat:
+        return contextlib.nullcontext()
+    from tchvp_tpu_torch.train.qat import qat_fake_quant
+
+    return qat_fake_quant(dense=dense)
+
+
 def _remat_forward(model: torch.nn.Module, x: torch.Tensor, draws, policy: str
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(tokens, recon) of the train-mode forward under ``policy``."""
     if policy == "none":
         return model(x, draws=draws)
+    # Each region carries the conv hook in scope now (QAT's fake quant)
+    # into its recompute, which runs on the autograd engine's thread.
     ckpt = functools.partial(checkpoint, use_reentrant=False, preserve_rng_state=False)
     if policy == "full" or (policy == "stages" and not hasattr(model, "temporal_mix")):
-        return ckpt(_stats_once(model, lambda c: model(c, draws=draws)), x)
+        return ckpt(_stats_once(model, with_current_hook(lambda c: model(c, draws=draws))), x)
     if policy == "dots":
-        return ckpt(_stats_once(model, lambda c: model(c, draws=draws)), x,
+        return ckpt(_stats_once(model, with_current_hook(lambda c: model(c, draws=draws))), x,
                     context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
     # "stages": only the clip and the two stage-boundary token tensors stay.
-    tokens, hw = ckpt(_stats_once(model, lambda c: model.encode_clip(c, draws=draws)), x)
-    tokens = ckpt(lambda t: model.temporal_mix(t, draws=draws), tokens)
-    recon = ckpt(_stats_once(model, lambda t: model.decode_tokens(t, hw)), tokens)
+    tokens, hw = ckpt(_stats_once(model, with_current_hook(lambda c: model.encode_clip(c, draws=draws))), x)
+    tokens = ckpt(with_current_hook(lambda t: model.temporal_mix(t, draws=draws)), tokens)
+    recon = ckpt(_stats_once(model, with_current_hook(lambda t: model.decode_tokens(t, hw))), tokens)
     return tokens, recon
 
 
@@ -171,13 +183,15 @@ def make_video_train_step(
     applied. As in JAX, the BatchNorm stats update once per microbatch, in
     order, and each microbatch draws fresh dropout randomness.
 
+    ``qat=True``: quantization-aware training; every conv (and, with
+    ``qat_dense``, every Dense) runs on fake-int8 input and kernel with STE
+    gradients (:mod:`tchvp_tpu_torch.train.qat`), so the fp32 weights train
+    against the int8 serving engine's arithmetic.
+
     The returned ``step(state, batch, mark=None)`` updates ``state`` in
     place and returns ``(state, {"loss", "psnr"})``. Under sequence
     parallelism (module docstring) ``batch`` is the global clip.
     """
-    if qat:
-        raise NotImplementedError(
-            "qat is not ported yet (ROADMAP.md, modules to port, item 10: train/qat.py)")
     if fsdp_axis is not None or fsdp_mesh is not None:
         raise NotImplementedError(
             "fsdp_axis is not ported yet (ROADMAP.md, modules to port, item 11: parallel/fsdp.py)")
@@ -217,7 +231,8 @@ def make_video_train_step(
         for i in range(accum_steps):
             x, y = noisy[i * mb:(i + 1) * mb], clean[i * mb:(i + 1) * mb]
             draws = model.draw_dropout(x.shape, state.dropout_generator, x.device)
-            _, recon = _remat_forward(model, x, draws, remat_policy)
+            with _qat_scope(qat, qat_dense):
+                _, recon = _remat_forward(model, x, draws, remat_policy)
             # A compute_dtype model's bf16 recon meets the fp32 clip in the
             # loss at fp32, as jnp's type promotion has it in JAX.
             recon = recon.to(y.dtype)
@@ -254,10 +269,8 @@ def make_video_train_step(
 def make_video_eval_step(image_size: int, qat: bool = False,
                          qat_dense: bool = False) -> Callable[[TrainState, torch.Tensor], Metrics]:
     """No-grad PSNR of the eval-mode model on a uint8 clip (the global clip
-    under sequence parallelism; the PSNR of the global MSE)."""
-    if qat:
-        raise NotImplementedError(
-            "qat is not ported yet (ROADMAP.md, modules to port, item 10: train/qat.py)")
+    under sequence parallelism; the PSNR of the global MSE); with ``qat``,
+    under the QAT step's fake-int8 forward."""
 
     def step(state: TrainState, batch: torch.Tensor) -> Metrics:
         model = state.model.eval()
@@ -265,7 +278,7 @@ def make_video_eval_step(image_size: int, qat: bool = False,
         seq_axis = _seq_axis(model)
         if seq_axis is not None:
             clean = shard_frames(clean, mesh_with_axis(seq_axis), seq_axis)
-        with torch.no_grad():
+        with torch.no_grad(), _qat_scope(qat, qat_dense):
             _, recon = model(clean)
             mse = _global_mean(losses.mse(recon, clean), seq_axis)
         return {"psnr": 20.0 * torch.log10(1.0 / torch.sqrt(mse))}

@@ -14,7 +14,8 @@
   ``pack`` -> ``video --clippack --save-every-steps``, ``doctor``.
 * ``--config`` errors read as JAX's; a missing PyYAML is named; every
   unported subcommand, option and mesh axis exits naming its item of
-  ROADMAP.md; without a CUDA device every model command exits 1.
+  ROADMAP.md (11 or 12; the serving options of item 10 run); without a
+  CUDA device every model command exits 1.
 * ``video --mesh seq=2 --window 64 --attn-impl flash`` as two gloo ranks
   (``tests/torch_dist.py``), dropout off in both runs (the flash route
   draws one seed per shard): the halo path ran on both ranks, and rank 0's
@@ -257,21 +258,24 @@ def test_config_applies_and_names_pyyaml(tmp_path, monkeypatch):
 
 
 MODEL_ARGS = ["--synthetic", "1", *SMALL, *CPU]
-# item None: ported since (the conv families, item 7): the command runs, or
-# exits with a message of its own, and is not refused.
+# item None: ported since (the conv families, item 7; serving, item 10): the
+# command runs, or exits with a message of its own, and is not refused.
+STREAM_SMALL = ["--tile", "32", "--height", "32", "--width", "32", "--chunk-len", "2", "--ctx-frames", "1"]
 UNPORTED = [
     (["denoise"], None), (["transfer"], None), (["port"], None),
-    (["export"], 10), (["serve"], 10), (["shards"], 11), (["tune"], 12),
-    (["video", "--model", "ae32k"], None), (["video", "--fsdp"], 11), (["video", "--qat"], 10),
+    (["export"], None), (["serve"], None), (["shards"], 11), (["tune"], 12),
+    (["video", "--model", "ae32k"], None), (["video", "--fsdp"], 11), (["video", "--qat"], None),
     (["video", "--num-experts", "2"], 11), (["video", "--mesh", "data=2"], 11),
     (["video", "--data-parallel"], 11), (["video", "--attn-impl", "ring"], 11),
-    (["eval", "--model", "unet"], None), (["eval", "--int8"], 10),
-    (["infer", "--exported", "a.tchvp"], 10), (["infer", "--url", "http://localhost:1"], 10),
-    (["infer", "--int8"], 10), (["infer", "--mesh", "pipe=2"], 11),
-    (["stream", "--int8"], 10), (["stream", "--url", "http://localhost:1"], 10),
+    (["eval", "--model", "unet"], None), (["eval", "--int8"], None),
+    (["infer", "--exported", "a.tchvp"], None), (["infer", "--url", "http://localhost:1"], None),
+    (["infer", "--int8"], None), (["infer", "--mesh", "pipe=2"], 11),
+    (["stream", "--int8", *STREAM_SMALL], None), (["stream", "--url", "http://localhost:1"], None),
     (["summary", "--model", "unet"], None), (["summary", "--model", "ae32k"], None),
-    (["export", "--out", "m.tchvp", "--checkpoint", "c", "--int8"], 10),
-    (["serve", "--port", "8765", "--buckets", "1,2"], 10),
+    (["export", "--out", "m.tchvp", "--int8", *MODEL_ARGS], None),
+    (["serve", "--port", "8765", "--buckets", "1,2"], None),
+    (["serve", "--exported", "m.tchvp", "--data-parallel"], 11),
+    (["serve", "--exported", "m.tchvp", "--mesh", "pipe=2"], 11),
     (["tune", "--shape", "8x8x2048x64", "--mode", "fwd"], 12),
     (["segment", "--mesh", "data=2", "--attn-impl", "flash"], 11),
     (["segment", "--mesh", "spatial=2"], 11), (["segment", "--attn-impl", "ring"], 11),

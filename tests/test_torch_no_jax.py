@@ -51,7 +51,8 @@ def test_importing_the_model_loads_no_jax():
         "tchvp_tpu_torch.utils.summary, tchvp_tpu_torch.utils.imaging, "
         "tchvp_tpu_torch.models.unet, tchvp_tpu_torch.models.autoencoder, "
         "tchvp_tpu_torch.models.combined, tchvp_tpu_torch.models.frame_ae, "
-        "tchvp_tpu_torch.utils.torch_port; "
+        "tchvp_tpu_torch.utils.torch_port, tchvp_tpu_torch.infer, tchvp_tpu_torch.infer.quant, "
+        "tchvp_tpu_torch.infer.export, tchvp_tpu_torch.infer.server, tchvp_tpu_torch.train.qat; "
         "sys.path.insert(0, 'tests'); import torch_dist; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tchvp_tpu')]; "

@@ -168,9 +168,12 @@ def test_stream_video_matches_jax(models, shape, cfg):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh=object()), "item 11"),
-    (dict(int8_engine=object()), "item 10"),
+    (dict(int8_engine=object()), None),
 ])
 def test_make_streamer_options_not_ported_raise(models, kwargs, item):
+    if item is None:  # ported (item 10): the int8 streamer is made, and runs the engine when called
+        assert callable(tstream.make_streamer(models[2], **kwargs))
+        return
     with pytest.raises(NotImplementedError, match=item):
         tstream.make_streamer(models[2], **kwargs)
 

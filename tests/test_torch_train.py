@@ -330,11 +330,15 @@ def test_remat_true_means_full_and_bad_policies_raise():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(qat=True), "item 10"),
+    (dict(qat=True), None),
     (dict(fsdp_axis="data"), "item 11"),
     (dict(moe_aux_weight=0.01), "item 11"),
 ])
 def test_unported_options_raise_naming_their_roadmap_item(kwargs, item):
+    if item is None:  # ported (item 10, train/qat.py): the steps are made
+        assert callable(tsteps.make_video_train_step(SIZE, **kwargs))
+        assert callable(tsteps.make_video_eval_step(SIZE, **kwargs))
+        return
     with pytest.raises(NotImplementedError, match=item):
         tsteps.make_video_train_step(SIZE, **kwargs)
 
