@@ -143,7 +143,34 @@ Phases, one or more lines each:
     and stats bit-equal across the ranks; per rank 2 halo forward, 2
     pass-A, 2 dq, 2 dk/dv launches and no band or flash launch; (c) 3 steps with dropout
     on at the cell's AdamW: finite loss, every parameter moved. Each rank's
-    step ms and peak memory, which are not a scaling number;
+    step ms and peak memory, which are not a scaling number; (d) ring
+    attention (``sdpa_ring_seq_sharded``) at the cell's attention shape
+    (2, 8, 256, 512) fp32, each rank's block of the tokens, against the
+    single-process ``sdpa_xla`` on the whole sequence, out and dq, dk, dv
+    within 1e-4 x max|ref|, its fwd+bwd ms; the peak memory of a ring
+    forward and backward at FCT's largest layer (2, 2, 16384, 4), two
+    ranks' blocks of 8192 tokens, with and without per-hop remat (the
+    cell's steps on the ring run through ``video`` in phase 16 (g)); (e)
+    full attention on the flash kernel over seq-sharded tokens
+    (the cell's (2, 256, 4096) tokens, 8 heads, fp32): q, k and v gathered,
+    one flash forward, dq and dk/dv launch a rank, out and the gradients
+    within 1e-4 x max|ref| of the single-process ``mha``; (f) one step of
+    the windowed cell with remat "stages" and ``accum_steps=2`` (dropout
+    off, SGD lr 1) against the single-process step with ``accum_steps=2``
+    by (b)'s limits, bit-equal across ranks, halo launches per rank fwd 8,
+    ds 4, dq 4, dkv 4; (g) expert parallelism: ``VideoFlow`` over a mesh
+    ("expert",) of the two ranks, the flagship with 4 experts (2 a rank) at
+    256^2, B 2 of 8 frames (two full-batch ranks of phase 11's cell would
+    not fit the card), dropout off, SGD lr 1 clipped at 1.0: the first step
+    against the single-process flow's by (b)'s limits, flash launches
+    2/2/2 a rank, then a whole-expert checkpoint gathered to rank 0 (its
+    w1 and moments hold all 4 experts; the timed steps run through
+    ``video`` in phase 16 (g)). The records of the JSON gain
+    ``seq_ep_launches``: rank 0's launches in (e)-(g);
+12c. with two cards or more (``chiprun --chips 4``; skipped on one card):
+    phase 16 (g)'s three mesh commands as two ranks, one card each, over
+    NCCL (the CLI's backend when each rank has a card of its own): the
+    same checks, and each rank's step ms;
 13. config 4 streaming: stream_video of the flagship at 256^2 (attn "xla",
     bf16) over one 16-frame 1080x1920 clip in 40 tiles, chunk 8, 4 frames
     of carried context: finite output of the clip's shape, no kernel
@@ -195,12 +222,20 @@ Phases, one or more lines each:
     DevicePrefetch, saves left out: step ms from the epochs' start times
     against phase 11's bare step, and the idle share over one epoch; (f)
     ``video --window 64`` (B 2, T 32, 2 steps): band launches 2/2/2/2 per
-    step; (g) ``video --mesh seq=2 --window 64`` as two ranks sharing this
-    card over gloo, as phase 12b spawns them: halo launches 2/2/2/2 per rank,
-    rank 0's checkpoint; (h) on (b)'s ``step_3``: ``infer`` (bf16, frames/s
+    step; (g) three mesh commands, each as two ranks sharing this card over
+    gloo (as phase 12b spawns them; one spawn, a rendezvous per command):
+    ``video --mesh seq=2 --window 64`` (B 2, T 32, one step): halo launches
+    2/2/2/2 per rank, rank 0's checkpoint; ``video --mesh seq=2 --attn-impl
+    ring`` (B 2, T 32, no window, 2 epochs of 3 steps): the ring on both
+    ranks, no hand-written kernel launched; ``video --mesh expert=2
+    --num-experts 4 --attn-impl flash`` (B 2, T 8, 2 epochs of 3 steps):
+    the expert-parallel layer on both ranks, flash 2/2/2 a step, rank 0's
+    checkpoint holding all 4 experts; each rank's step ms from the second
+    epoch's wall (the times its epoch lines were printed) over its 3
+    steps, not a scaling number; (h) on (b)'s ``step_3``: ``infer`` (bf16, frames/s
     and PSNR), ``eval``, ``stream`` of one 16-frame 1080p clip, ``summary``,
     ``doctor --smoke``. Each kernel's record gains ``cli_launches``: its
-    launches in (a), (f) and (g)'s rank 0;
+    launches in (a), (f) and (g)'s rank 0 (its three commands);
 17. BASELINE config 3: the flagship at 224^2, "xla" attention, bf16
     compute over fp32 parameters (``compute_dtype``), B 8 of 16-frame
     clips, MSE, noise 0.05, AdamW 1e-4 clipped at 1.0: finite loss over 3
@@ -299,6 +334,23 @@ Phases, one or more lines each:
     runs on the autograd engine's device thread) within 1e-3 x max|grad|
     of ``none``'s, the fp step's printed beside them as the control. The flash records of the
     JSON gain ``serving_launches`` (the launches of (a)-(d)'s main paths);
+21. the routed MoE temporal FFN (``ops/moe.py``), after 20: (a) config 1
+    (bf16, flash, B 8 of 16 frames at 224^2) dense and with 4 and 8 experts
+    (top-1, capacity factor 1.25): 2 flash launches a forward, frames/s by
+    phase 9's protocol and peak memory; 4 experts in fp32 (TF32 off) on
+    flash against the same weights on "xla" (the kernel's plain path) at
+    B 2, within 1e-3 x max|ref|; (b) phase 11's cell with 4 experts and
+    ``moe_aux_weight`` 0.01: 5 steps, 2/2/2 flash launches each, finite
+    loss, ``moe_aux`` and ``moe_drop_frac``, every parameter moved; step ms
+    by phase 11's protocol beside phase 11's dense step; one step's
+    gradients under remat "stages" (4/2/2 launches) within 1e-3 x
+    max|grad| of "none"'s (dropout off, TF32 off, deterministic cuDNN), the
+    router's nonzero; (c) ``video --num-experts 4`` (B 2 of 8 frames, 2
+    steps, 2/2/2 a step) through ``cli.main``, ``infer --num-experts 4`` on
+    its checkpoint (bf16, "xla" attention as the serving commands take it: no
+    launch), ``infer --num-experts 2`` refused.
+    The records of the JSON gain ``moe_launches``: the launches of
+    (a)-(c)'s main paths;
 14. kernel times: each kernel at its main-path shape beside its plain
     version, F.scaled_dot_product_attention (a yardstick, never on the
     port's path; with the boolean band as attn_mask for the banded
@@ -338,9 +390,14 @@ Phases, one or more lines each:
     convs, channels-last, bf16 (``folded_cudnn_tail``; within 5e-2 x
     max|ref| of the plain version), both yardsticks timed both ways and
     never on the port's path, and its bound.
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Any failed check raises and the exit
-code is not 0. There is no CPU path: without a CUDA device it exits 1.
+Each phase prints its seconds (``[phase N]``), and ``[done]`` all of
+them. ``--phases 12b,21`` (a development run) runs the named phases and
+those whose results they take (12b takes 8's, 15, 16, 20 and 21 take 11's);
+14, the kernel times and the JSON, runs only with every phase, as without
+the flag. The line before the last is the kernels' JSON record (a full run
+only); the last line is ``{"ok": true, "device": {...}}``. Any failed
+check raises and the exit code is not 0. There is no CPU path: without a
+CUDA device it exits 1.
 """
 
 from __future__ import annotations
@@ -1637,9 +1694,10 @@ SEQ_LABEL = "2 ranks sharing one H100, gloo host-staged halo"
 SEQ_TRAIN = dict(size=256, batch=2, frames=32, window=64)
 
 
-def seq_train_setup(dropout: bool, sgd: bool, seq_axis=None):
+def seq_train_setup(dropout: bool, sgd: bool, seq_axis=None, **step_kw):
     """The windowed-training cell's model (seed 0), state and step; SGD lr 1
-    (the update is 1.9 x the gradient) or the cell's AdamW."""
+    (the update is 1.9 x the gradient) or the cell's AdamW; ``step_kw``:
+    the step's remat policy and accum steps."""
     cfg = flagship_video_config(SEQ_TRAIN["size"], attn_impl="flash", window_size=SEQ_TRAIN["window"],
                                 seq_axis=seq_axis)
     model = VideoHybridNet(cfg if dropout else no_dropout(cfg), device="cuda",
@@ -1647,8 +1705,197 @@ def seq_train_setup(dropout: bool, sgd: bool, seq_axis=None):
     tx = make_optimizer(1.0, optimizer="sgd") if sgd else make_optimizer(1e-4, weight_decay=0.01,
                                                                           grad_clip_norm=1.0)
     state = create_train_state(model, tx, rng=0)
-    step = make_video_train_step(SEQ_TRAIN["size"], loss="mixed", alpha=0.3, beta=0.7, noise_std=0.05)
+    step = make_video_train_step(SEQ_TRAIN["size"], loss="mixed", alpha=0.3, beta=0.7, noise_std=0.05,
+                                 **step_kw)
     return model, state, step
+
+
+# 12b (d): FCT's largest attention layer (B, H, S, Dh) at batch 2, two ranks'
+# blocks of its 16384 tokens; (g): the expert-parallel cell.
+RING_MEM = (2, 2, 16384, 4)
+EP_CELL = dict(size=256, batch=2, frames=8, experts=4)
+
+
+def ep_flow(mesh=None):
+    """(g)'s VideoFlow: the training cell's flagship with 4 experts, dropout
+    off, SGD lr 1 clipped at 1.0 (the flow's optimizer), on ``mesh``'s
+    ``expert`` axis when one is given (each rank then holds 2 experts)."""
+    axis = "expert" if mesh is not None else None
+    cfg = no_dropout(flagship_video_config(EP_CELL["size"], attn_impl="flash",
+                                           num_experts=EP_CELL["experts"], ep_axis=axis))
+    model = VideoHybridNet(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+    tcfg = TrainConfig(model_name="video", loss="mixed", lr=1.0, optimizer="sgd", moe_aux_weight=0.01,
+                       device_prefetch=0, checkpoint_dir=str(SEQ_DIR / "ep_ckpt"))
+    flow = VideoFlow(model, cfg=tcfg, image_size=EP_CELL["size"], mesh=mesh, ep_axis=axis)
+    flow.init_state(EP_CELL["frames"])
+    return model, flow
+
+
+def ep_clip(seed: int) -> torch.Tensor:
+    return random_clip(EP_CELL["batch"], EP_CELL["frames"], EP_CELL["size"], seed=seed)
+
+
+def seq_ring(rank: int, world: int, got: dict) -> None:
+    """12b (d): the ring at the training cell's attention shape (2, 8, 256,
+    512) fp32 against the single-process ``sdpa_xla``, forward and
+    gradients; the peak memory of a ring backward at FCT's largest layer
+    with and without per-hop remat."""
+    from tchvp_tpu_torch.ops import attention as tatt
+
+    b, h, s, dh = 2, 8, SEQ_TRAIN["frames"] * 8, (SEQ_TRAIN["size"] // 4) ** 2 // 8
+    scale = 1.0 / math.sqrt(h * dh)
+    q, k, v, do = qkv((b, h, s, dh), torch.float32, 31) + qkv((b, h, s, dh), torch.float32, 32)[:1]
+    full = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = tatt.sdpa_xla(*full, scale=scale)
+    ref.backward(do)
+    sl = s // world
+    rows = lambda t: t.narrow(2, rank * sl, sl)  # noqa: E731
+    blocks = [rows(t).clone().requires_grad_() for t in (q, k, v)]
+    with dispatch_trace.capture() as seen:
+        out = tatt.sdpa_ring_seq_sharded(*blocks, seq_axis="seq", scale=scale)
+        out.backward(rows(do))
+    torch.cuda.synchronize()
+    check(seen == {"ring_shard_map"}, f"(d) ring recorded {sorted(seen)}")
+    errs = [(out - rows(ref)).abs().max().item() / ref.abs().max().item()] + [
+        (blk.grad - rows(f.grad)).abs().max().item() / f.grad.abs().max().item() for blk, f in zip(blocks, full)]
+    got["d_err"] = max(errs)
+    check(got["d_err"] <= 1e-4, f"(d) ring vs sdpa_xla rel errors {errs}")
+
+    def ring_pass():
+        out = tatt.sdpa_ring_seq_sharded(*blocks, seq_axis="seq", scale=scale)
+        out.backward(rows(do))
+
+    got["d_ring_ms"] = cuda_ms(ring_pass, 5)
+    del q, k, v, do, full, ref, blocks, out
+    free_cuda()
+    mb, mh, ms_, md = RING_MEM
+    got["d_mem_gb"] = {}
+    for remat in (True, False):
+        t = [x.requires_grad_() for x in qkv((mb, mh, ms_ // world, md), torch.float32, 33)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = tatt.sdpa_ring_seq_sharded(*t, seq_axis="seq", remat=remat)
+        out.sum().backward()
+        torch.cuda.synchronize()
+        got["d_mem_gb"][str(remat)] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        del t, out
+        free_cuda()
+
+
+def seq_gathered_flash(rank: int, world: int, got: dict) -> None:
+    """12b (e): full attention on the flash kernel over seq-sharded tokens
+    (the cell's (2, 256, 4096) tokens, 8 heads, fp32): q, k and v gathered,
+    one flash forward, dq and dk/dv launch, against the single-process
+    ``mha`` on the whole sequence."""
+    from tchvp_tpu_torch.ops import attention as tatt
+
+    b, s, d = 2, SEQ_TRAIN["frames"] * 8, (SEQ_TRAIN["size"] // 4) ** 2
+    x = qkv((b, s, d), torch.float32, 34)
+    do = qkv((b, s, d), torch.float32, 35)[0]
+    full = [t.clone().requires_grad_() for t in x]
+    ref = tatt.multi_head_attention(*full, 8, impl="flash", scale=1.0 / math.sqrt(d))
+    ref.backward(do)
+    sl = s // world
+    rows = lambda t: t.narrow(1, rank * sl, sl)  # noqa: E731
+    blocks = [rows(t).clone().requires_grad_() for t in x]
+    torch.cuda.synchronize()
+    reset_counts()
+    with dispatch_trace.capture() as seen:
+        out = tatt.multi_head_attention(*blocks, 8, impl="flash", scale=1.0 / math.sqrt(d), seq_axis="seq")
+        out.backward(rows(do))
+    torch.cuda.synchronize()
+    got["e_counts"] = counts()
+    check(got["e_counts"] == expect_counts(launches=1, dq_launches=1, dkv_launches=1),
+          f"(e) launches {got['e_counts']}")
+    check({"seq_gathered", "flash_mha_cuda", "flash_mha_bwd_cuda"} <= seen, f"(e) recorded {sorted(seen)}")
+    errs = [(out - rows(ref)).abs().max().item() / ref.abs().max().item()] + [
+        (blk.grad - rows(f.grad)).abs().max().item() / f.grad.abs().max().item() for blk, f in zip(blocks, full)]
+    got["e_err"] = max(errs)
+    check(got["e_err"] <= 1e-4, f"(e) gathered flash vs single process rel errors {errs}")
+    del x, do, full, ref, blocks, out
+    free_cuda()
+
+
+def seq_remat_accum(rank: int, world: int, got: dict, group) -> None:
+    """12b (f): one step of the windowed cell with remat "stages" and
+    accum_steps=2 (dropout off, SGD lr 1) against the single-process step
+    with accum_steps=2; halo launches per rank fwd 8 (2 layers x 2
+    microbatches, twice under stages), ds, dq and dkv 4."""
+    model, state, step = seq_train_setup(dropout=False, sgd=True, seq_axis="seq", remat_policy="stages",
+                                         accum_steps=2)
+    p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    reset_counts()
+    with dispatch_trace.capture() as seen:
+        _, m = step(state, seq_clip(21))
+    torch.cuda.synchronize()
+    got["f_counts"] = counts()
+    check(got["f_counts"] == expect_counts(halo_fwd_launches=8, halo_ds_launches=4, halo_dq_launches=4,
+                                           halo_dkv_launches=4), f"(f) launches {got['f_counts']}")
+    check({"windowed_mha_halo", "flash_halo_cuda", "flash_halo_bwd_cuda"} <= seen, f"(f) recorded {sorted(seen)}")
+    named = dict(model.named_parameters())
+    check(all(collectives.equal_across(list(named.values()), group)), "(f) parameters differ across ranks")
+    got["f_loss"] = m["loss"].item()
+    if rank == 0:
+        ref = torch.load(SEQ_DIR / "accum_ref.pt", map_location="cpu", weights_only=False)
+        got["f_loss_ref"] = ref["loss"]
+        check(abs(got["f_loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"]), f"(f) loss {got['f_loss']} vs {ref['loss']}")
+        gmax = max(((p0[n] - ref["params"][n].cuda()) / 1.9).abs().max().item() for n in named)
+        worst = max(((named[n].detach() - ref["params"][n].cuda()).abs().max().item(), n) for n in named)
+        got["f_param_err"], got["f_gmax"] = worst[0], gmax
+        check(worst[0] <= 1.9 * 2e-2 * gmax, f"(f) parameter {worst[1]}: {worst[0]} > 1.9 x 2e-2 x {gmax}")
+    del model, state, step, p0, named
+    free_cuda()
+
+
+def seq_experts(rank: int, world: int, got: dict) -> None:
+    """12b (g): ``VideoFlow`` over an ``expert`` mesh of the two ranks (4
+    experts, 2 a rank) at B 2 of 8 frames 256^2: the first step against the
+    single-process dense-MoE step, flash 2/2/2 per rank a step, then a
+    whole-expert checkpoint gathered to rank 0."""
+    mesh = parallel.make_mesh(("expert",), (world,))
+    with parallel.activate_mesh(mesh):
+        model, flow = ep_flow(mesh)
+        names = flow.expert_names
+        check(all(dict(model.named_parameters())[n].shape[0] == EP_CELL["experts"] // world for n in names),
+              "(g) experts not sharded")
+        reset_counts()
+        with dispatch_trace.capture() as seen:
+            flow.state, m = flow._train_step(flow.state, ep_clip(50))
+        torch.cuda.synchronize()
+        got["g_counts"] = counts()
+        check(got["g_counts"] == expect_counts(launches=2, dq_launches=2, dkv_launches=2),
+              f"(g) launches {got['g_counts']}")
+        check("moe_ep_shard_map" in seen and "moe_dense" not in seen, f"(g) recorded {sorted(seen)}")
+        got["g_metrics"] = {k: v.item() for k, v in m.items()}
+        ref = torch.load(SEQ_DIR / "ep_ref.pt", map_location="cpu", weights_only=False)
+        e = EP_CELL["experts"] // world
+        errs, gmax = {}, 0.0
+        for n, p in model.named_parameters():
+            want = ref["params"][n].narrow(0, rank * e, e) if n in names else ref["params"][n]
+            before = ref["before"][n].narrow(0, rank * e, e) if n in names else ref["before"][n]
+            errs[n] = (p.detach().cpu() - want).abs().max().item()
+            gmax = max(gmax, ((before - want) / 1.9).abs().max().item())
+        worst = max(errs, key=errs.get)
+        got["g_param_err"], got["g_gmax"] = errs[worst], gmax
+        got["g_loss_ref"] = ref["metrics"]
+        check(abs(got["g_metrics"]["loss"] - ref["metrics"]["loss"]) <= 1e-5 * abs(ref["metrics"]["loss"]),
+              f"(g) loss {got['g_metrics']} vs {ref['metrics']}")
+        check(errs[worst] <= 1.9 * 2e-2 * gmax, f"(g) parameter {worst}: {errs[worst]} > 1.9 x 2e-2 x {gmax}")
+        t0 = time.perf_counter()
+        flow._save(4, 1, None)
+        got["g_save_s"] = time.perf_counter() - t0
+        torch.distributed.barrier()
+        if rank == 0:
+            raw = ckpt.restore_state(str(SEQ_DIR / "ep_ckpt" / "step_4"))
+            whole = raw["model"]["temporal.layers.0.moe.w1"]
+            check(whole.shape[0] == EP_CELL["experts"] and torch.equal(
+                whole[:e], dict(model.named_parameters())["temporal.layers.0.moe.w1"].detach().cpu()),
+                f"(g) checkpoint w1 {tuple(whole.shape)}")
+            moment = raw["opt_state"]["moments"]["temporal.layers.0.moe.w1"]["momentum_buffer"]
+            check(moment.shape[0] == EP_CELL["experts"], "(g) checkpoint moments not whole")
+        del model, flow
+    free_cuda()
 
 
 def seq_clip(seed: int) -> torch.Tensor:
@@ -1735,13 +1982,20 @@ def seq_rank(rank: int, world: int) -> None:
         check(all(math.isfinite(x) for x in losses_) and not still, f"(c) loss {losses_}, unmoved {still[:5]}")
         got["c_loss"], got["c_step_ms"] = losses_, times
         got["c_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model, state, step, p0
+        free_cuda()
+        seq_ring(rank, world, got)
+        seq_gathered_flash(rank, world, got)
+        seq_remat_accum(rank, world, got, group)
+    seq_experts(rank, world, got)
     (SEQ_DIR / f"rank{rank}.json").write_text(json.dumps(got))
     torch.distributed.destroy_process_group()
 
 
-def phase_seq_two_ranks(eval_ref) -> dict:
+def phase_seq_two_ranks(eval_ref) -> tuple:
     """Phase 12b: the references in this process, then SEQ_RANKS ranks on
-    this card. Returns rank 0's launch counts of the main-path step."""
+    this card. Returns rank 0's launch counts of (b)'s main-path step, and
+    of (e)-(g)'s main paths together."""
     import torch.multiprocessing as mp
 
     shutil.rmtree(SEQ_DIR, ignore_errors=True)
@@ -1756,6 +2010,21 @@ def phase_seq_two_ranks(eval_ref) -> dict:
                 "stats": {n: b.cpu() for n, b in model.named_buffers() if "running" in n}},
                SEQ_DIR / "step_ref.pt")
     del model, state, step
+    free_cuda()
+    # (f)'s reference: the single-process step with accum_steps=2.
+    model, state, step = seq_train_setup(dropout=False, sgd=True, accum_steps=2)
+    _, m = step(state, seq_clip(21))
+    torch.save({"loss": m["loss"].item(), "params": {n: p.detach().cpu() for n, p in model.named_parameters()}},
+               SEQ_DIR / "accum_ref.pt")
+    del model, state, step
+    free_cuda()
+    # (g)'s reference: the single-process (dense-MoE) flow's first step.
+    model, flow = ep_flow()
+    before = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    _, m = flow._train_step(flow.state, ep_clip(50))
+    torch.save({"metrics": {k: v.item() for k, v in m.items()}, "before": before,
+                "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}, SEQ_DIR / "ep_ref.pt")
+    del model, flow, before
     free_cuda()
     t0 = time.perf_counter()
     mp.spawn(seq_rank, args=(SEQ_RANKS,), nprocs=SEQ_RANKS, join=True)
@@ -1777,7 +2046,42 @@ def phase_seq_two_ranks(eval_ref) -> dict:
         print(f"[12b seq parallel] (c) rank {r} ({SEQ_LABEL}; not a scaling number), dropout on, AdamW: loss "
               f"{[round(x, 5) for x in got['c_loss']]}, step ms {[round(x, 1) for x in got['c_step_ms']]}, "
               f"peak memory {got['c_peak_gb']:.2f} GB")
-    return r0["b_counts"]
+    mem = r0["d_mem_gb"]
+    print(f"[12b seq parallel] (d) ring attention (2, 8, 256, 512) fp32 over 2 ranks vs single-process "
+          f"sdpa_xla, out and dq/dk/dv: max rel err {[f'{r['d_err']:.3g}' for r in ranks]} (tol 1e-4); "
+          f"ring fwd+bwd {r0['d_ring_ms']:.2f} ms a rank (events, {SEQ_LABEL}; not a scaling number); "
+          f"no kernel launched (the ring is torch products)")
+    print(f"[12b seq parallel] (d) ring memory at FCT's largest layer {RING_MEM} fp32, 2 ranks' blocks of "
+          f"8192 tokens: peak of fwd+bwd above its inputs {mem['True']:.2f} GB with per-hop remat, "
+          f"{mem['False']:.2f} GB without (rank 0)")
+    print(f"[12b seq parallel] (e) full attention on the flash kernel over seq-sharded tokens (2, 256, 4096) "
+          f"8 heads fp32, q/k/v gathered: launches per rank fwd {r0['e_counts']['launches']}, dq "
+          f"{r0['e_counts']['dq_launches']}, dkv {r0['e_counts']['dkv_launches']}; vs single-process mha max "
+          f"rel err {[f'{r['e_err']:.3g}' for r in ranks]} (tol 1e-4)")
+    print(f"[12b seq parallel] (f) remat 'stages' + accum_steps 2, 256^2 B 2 T 32 w 64, SGD lr 1: loss "
+          f"{r0['f_loss']:.7f} vs single process {r0['f_loss_ref']:.7f}; parameters max abs "
+          f"{r0['f_param_err']:.3g} (tol 1.9 x 2e-2 x max|g| {r0['f_gmax']:.3g}); bit-equal across ranks; halo "
+          f"launches per rank fwd {r0['f_counts']['halo_fwd_launches']}, ds {r0['f_counts']['halo_ds_launches']}, "
+          f"dq {r0['f_counts']['halo_dq_launches']}, dkv {r0['f_counts']['halo_dkv_launches']}")
+    print(f"[12b expert parallel] (g) VideoFlow, mesh ('expert',) of 2, 4 experts (2 a rank), 256^2 B 2 T 8 "
+          f"flash, SGD lr 1: first step {r0['g_metrics']} vs single process {r0['g_loss_ref']}; parameters max "
+          f"abs {r0['g_param_err']:.3g} (tol 1.9 x 2e-2 x max|g| {r0['g_gmax']:.3g}); flash launches per rank "
+          f"{r0['g_counts']['launches']}/{r0['g_counts']['dq_launches']}/{r0['g_counts']['dkv_launches']}; "
+          f"whole checkpoint saved in {r0['g_save_s']:.2f} s")
+    seq_ep = {k: sum(r0[f"{x}_counts"][k] for x in "efg") for k in r0["b_counts"]}
+    return r0["b_counts"], seq_ep
+
+
+def phase_nccl() -> None:
+    """Phase 12c: phase 16 (g)'s mesh commands as two ranks on two cards
+    over NCCL; skipped with one card."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"[12c nccl] skipped: {cards} card (run with two or more, e.g. chiprun --chips 4)")
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_cli("12c nccl", Path(tmp), f"2 ranks on 2 of {cards} cards, NCCL")
+    free_cuda()
 
 
 def phase_streaming() -> None:
@@ -2118,13 +2422,96 @@ class TimedData:
         return iter(self.batches)
 
 
-def cli_rank(rank: int, world: int, rendezvous: str, argv: list) -> None:
-    """One rank of ``video --mesh seq=2`` (phase 16 (g)) on this card;
-    writes its launch counts to SEQ_DIR/cli_rank<r>.json."""
-    reset_counts()
-    run_cli(argv + ["--coordinator", f"file://{rendezvous}", "--num-processes", str(world),
-                    "--process-id", str(rank)])
-    (SEQ_DIR / f"cli_rank{rank}.json").write_text(json.dumps(counts()))
+class StampedOut(io.TextIOBase):
+    """A stdout that keeps each non-empty write with the time it was made."""
+
+    def __init__(self):
+        self.lines = []
+
+    def write(self, text: str) -> int:
+        if text.strip():
+            self.lines.append((time.perf_counter(), text))
+        return len(text)
+
+
+def cli_rank(rank: int, world: int, rendezvous: str, runs: list) -> None:
+    """One rank of phase 16 (g)'s mesh commands (and 12c's): each ``(name,
+    argv)`` of ``runs`` through ``cli.main``, joined anew over a rendezvous
+    file of its own; writes each run's launch counts, dispatch markers and
+    the times its epoch lines were printed to SEQ_DIR/cli_rank<r>.json."""
+    got = {}
+    for j, (name, argv) in enumerate(runs):
+        reset_counts()
+        out = StampedOut()
+        with dispatch_trace.capture() as seen, contextlib.redirect_stdout(out):
+            cli.main(argv + ["--coordinator", f"file://{rendezvous}_{j}", "--num-processes", str(world),
+                             "--process-id", str(rank)])
+        free_cuda()
+        got[name] = {"counts": counts(), "seen": sorted(seen),
+                     "epoch_ends": [t for t, text in out.lines if text.startswith("Video epoch")],
+                     "printed": [text for _, text in out.lines]}
+    (SEQ_DIR / f"cli_rank{rank}.json").write_text(json.dumps(got))
+
+
+# Phase 16 (g)'s mesh commands: (name, flags, steps in the timed epoch).
+MESH_CLI = (
+    ("halo", ["--synthetic", "1", "--epochs", "1", "--clip-len", "32", "--attn-impl", "flash", "--window", "64",
+              "--mesh", "seq=2"], 0),
+    ("ring", ["--synthetic", "3", "--epochs", "2", "--save-every", "10", "--clip-len", "32", "--attn-impl", "ring",
+              "--mesh", "seq=2"], 3),
+    ("expert", ["--synthetic", "3", "--epochs", "2", "--save-every", "10", "--clip-len", "8", "--attn-impl",
+                "flash", "--num-experts", "4", "--mesh", "expert=2"], 3),
+)
+
+
+def mesh_cli(tag: str, tmp: Path, label: str) -> dict:
+    """The MESH_CLI commands as two ranks (one spawn), at 256^2 and B 2,
+    checked: launches and markers per rank, rank 0's checkpoints; prints
+    each rank's step ms. Returns rank 0's launches of the three."""
+    import torch.multiprocessing as mp
+
+    n = flagship_video_config(256).temporal.num_layers
+    shutil.rmtree(SEQ_DIR, ignore_errors=True)
+    SEQ_DIR.mkdir(parents=True)
+    runs = [(name, ["video", "--image-size", "256", "--batch-size", "2", "--device-prefetch", "0", *flags,
+                    "--checkpoint-dir", str(tmp / name)]) for name, flags, _ in MESH_CLI]
+    t0 = time.perf_counter()
+    mp.spawn(cli_rank, args=(2, str(SEQ_DIR / "cli_rendezvous"), runs), nprocs=2, join=True)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((SEQ_DIR / f"cli_rank{r}.json").read_text()) for r in range(2)]
+    want = {"halo": expect_counts(halo_fwd_launches=n, halo_ds_launches=n, halo_dq_launches=n,
+                                  halo_dkv_launches=n),
+            "ring": expect_counts(),
+            "expert": expect_counts(launches=6 * n, dq_launches=6 * n, dkv_launches=6 * n)}
+    marks = {"halo": ({"windowed_mha_halo", "flash_halo_cuda"}, set()),
+             "ring": ({"ring_shard_map"}, {"flash_mha_cuda", "sdpa_xla"}),
+             "expert": ({"moe_ep_shard_map", "flash_mha_cuda", "flash_mha_bwd_cuda"}, {"moe_dense"})}
+    for r, got in enumerate(ranks):
+        for name, (need, never) in marks.items():
+            check(got[name]["counts"] == want[name], f"(g) {name} rank {r} launches {got[name]['counts']}")
+            seen = set(got[name]["seen"])
+            check(need <= seen and not seen & never, f"(g) {name} rank {r} recorded {sorted(seen)}")
+    for name, tags in (("halo", ["step_1"]), ("ring", ["step_2"]), ("expert", ["step_2"])):
+        check(step_tags(tmp / name) == tags, f"(g) {name} tags {step_tags(tmp / name)}")
+    whole = ckpt.restore_state(str(tmp / "expert" / "step_2"))
+    w1 = whole["model"]["temporal.layers.0.moe.w1"]
+    check(w1.shape[0] == 4 and whole["opt_state"]["moments"]["temporal.layers.0.moe.w1"]["exp_avg"].shape[0] == 4,
+          f"(g) expert checkpoint w1 {tuple(w1.shape)}")
+    h = ranks[0]["halo"]["counts"]
+    print(f"[{tag}] (g) {label}, 3 commands in one spawn of {wall:.1f} s, 256^2 B 2: video --mesh seq=2 "
+          f"--window 64 (T 32, 1 step): halo launches per rank fwd {h['halo_fwd_launches']}, ds "
+          f"{h['halo_ds_launches']}, dq {h['halo_dq_launches']}, dkv {h['halo_dkv_launches']}, band and flash "
+          f"0; rank 0 wrote step_1")
+    for name, flags, steps in MESH_CLI[1:]:
+        c = ranks[0][name]["counts"]
+        ms = [(g[name]["epoch_ends"][1] - g[name]["epoch_ends"][0]) / steps * 1e3 for g in ranks]
+        epochs = [t.strip() for t in ranks[0][name]["printed"] if t.startswith("Video epoch")]
+        print(f"[{tag}] (g) video {' '.join(flags[8:])} (T {flags[flags.index('--clip-len') + 1]}, "
+              f"2 epochs of {steps} steps): flash launches per rank {c['launches']}/{c['dq_launches']}/"
+              f"{c['dkv_launches']}; {' | '.join(epochs)}; step ms per rank (epoch 2's wall over its "
+              f"{steps} steps; {label}; not a scaling number) {[round(x, 1) for x in ms]}")
+    print(f"[{tag}] (g) expert checkpoint: rank 0 wrote step_2 with w1 {tuple(w1.shape)} (all 4 experts)")
+    return {k: sum(ranks[0][name]["counts"][k] for name, _, _ in MESH_CLI) for k in h}
 
 
 def nondeterministic_ops(caught) -> list:
@@ -2198,8 +2585,6 @@ def phase_runtime(train_ms: float) -> dict:
     Returns the launches of its three training commands by counter: (a)'s
     flash run, (f)'s windowed run and (g)'s rank 0."""
     import warnings
-
-    import torch.multiprocessing as mp
 
     tag = "16 run-time"
     n = flagship_video_config(256).temporal.num_layers
@@ -2383,24 +2768,8 @@ def phase_runtime(train_ms: float) -> dict:
                   f"{band['band_dq_launches']}, dkv {band['band_dkv_launches']} (2/2/2/2 per step), other 0")
             free_cuda()
 
-            # (g) --mesh seq=2 on two ranks sharing this card (gloo), one step.
-            shutil.rmtree(SEQ_DIR, ignore_errors=True)
-            SEQ_DIR.mkdir(parents=True)
-            argv = ["video", "--synthetic", "1", "--batch-size", "2", "--clip-len", "32", "--image-size",
-                    "256", "--attn-impl", "flash", "--window", "64", "--mesh", "seq=2", "--epochs", "1",
-                    "--device-prefetch", "0", "--checkpoint-dir", str(tmp / "g")]
-            t0 = time.perf_counter()
-            mp.spawn(cli_rank, args=(2, str(SEQ_DIR / "cli_rendezvous"), argv), nprocs=2, join=True)
-            wall = time.perf_counter() - t0
-            halo = [json.loads((SEQ_DIR / f"cli_rank{r}.json").read_text()) for r in range(2)]
-            want = expect_counts(halo_fwd_launches=n, halo_ds_launches=n, halo_dq_launches=n,
-                                 halo_dkv_launches=n)
-            check(all(h == want for h in halo), f"(g) launches per rank {halo}")
-            check(step_tags(tmp / "g") == ["step_1"], f"(g) tags {step_tags(tmp / 'g')}")
-            print(f"[{tag}] (g) video --mesh seq=2 --window 64 (B 2, T 32) as 2 ranks sharing this card over gloo, "
-                  f"spawned in {wall:.1f} s: halo launches per rank fwd {halo[0]['halo_fwd_launches']}, ds "
-                  f"{halo[0]['halo_ds_launches']}, dq {halo[0]['halo_dq_launches']}, dkv "
-                  f"{halo[0]['halo_dkv_launches']}, band and flash 0; rank 0 wrote step_1")
+            # (g) the mesh commands on two ranks sharing this card (gloo).
+            mesh_counts = mesh_cli(tag, tmp / "g", "2 ranks sharing one H100, gloo")
 
             # (h) serving the checkpoint of (b).
             served = str(a_dir / "step_3")
@@ -2429,7 +2798,7 @@ def phase_runtime(train_ms: float) -> dict:
             torch.backends.cudnn.deterministic = det
             torch.use_deterministic_algorithms(False)
     free_cuda()
-    return {k: a_counts[k] + band[k] + halo[0][k] for k in a_counts}
+    return {k: a_counts[k] + band[k] + mesh_counts[k] for k in a_counts}
 
 
 # ---------------------------------------------------------------- phase 17
@@ -3741,6 +4110,201 @@ def phase_serving(train_ms: Optional[float] = None) -> dict:
     return dict(SERVING_LAUNCHES)
 
 
+# Phase 21: the routed MoE temporal FFN (ops/moe.py) on the card.
+MOE_LAUNCHES = dict.fromkeys((key for key, _, _ in COUNTERS), 0)  # (a)-(c)'s main paths
+MOE_EXPERTS = (4, 8)
+
+
+def moe_counted(what: str, **want) -> None:
+    """The counters of one MoE main-path run, checked and added up."""
+    got = counts()
+    check(got == expect_counts(**want), f"21 {what}: launches {got}")
+    for k, v in got.items():
+        MOE_LAUNCHES[k] += v
+
+
+def moe_config(size: int, experts: int, attn: str = "flash", **kw):
+    return flagship_video_config(size, attn_impl=attn, num_experts=experts, **kw)
+
+
+def phase_moe_inference() -> None:
+    """(a) config 1 (bf16, flash, B 8 x 16 frames at 224^2) dense and with
+    4 and 8 experts: 2 flash launches a forward, frames/s and peak memory;
+    the MoE forward in fp32 (TF32 off) on flash against the same weights on
+    "xla" (the flash kernel's plain path) at batch 2, <= 1e-3 x max|ref|."""
+    batch, frames, size = 8, 16, 224
+    clip_u8 = random_clip(batch, frames, size, seed=2)
+    rows = []
+    for experts in (0,) + MOE_EXPERTS:
+        model = VideoHybridNet(moe_config(size, experts), device="cuda", dtype=torch.bfloat16,
+                               generator=torch.Generator().manual_seed(0)).eval()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with dispatch_trace.capture() as seen, torch.inference_mode():
+            tokens, recon = model(preprocess_clip(clip_u8, size, dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+        moe_counted(f"(a) E={experts} forward", launches=2)
+        check(("moe_dense" in seen) == bool(experts) and "flash_mha_cuda" in seen and "sdpa_xla" not in seen,
+              f"(a) E={experts} recorded {sorted(seen)}")
+        check(recon.shape == (batch, frames, size, size, 3) and bool(torch.isfinite(recon).all()),
+              f"(a) E={experts} recon")
+        t = time_clips(model, clip_u8, size, torch.bfloat16, iters=10)
+        rows.append((experts, t, torch.cuda.max_memory_allocated() / 1e9))
+        del model, tokens, recon
+        free_cuda()
+    dense_fps = rows[0][1]["frames_per_s"]
+    for experts, t, peak in rows:
+        print(f"[21 moe (a)] config 1 bf16 B={batch} T={frames} {size}^2 flash, "
+              + (f"{experts} experts (top-1, capacity 1.25)" if experts else "dense FFN")
+              + f": flash_fwd launches 2 a forward, {t['frames_per_s']:.1f} frames/s "
+              f"({t['frames_per_s'] / dense_fps:.3f} x dense), p50 clip {t['p50_clip_latency_ms']:.3f} ms, "
+              f"rep spread {t['rep_spread_pct']:.2f}%, peak memory {peak:.2f} GB")
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    clip = preprocess_clip(clip_u8[:2], size)
+    outs = {}
+    for attn in ("flash", "xla"):
+        model = VideoHybridNet(moe_config(size, 4, attn), device="cuda",
+                               generator=torch.Generator().manual_seed(0)).eval()
+        with torch.inference_mode():
+            outs[attn] = model(clip)
+        del model
+        free_cuda()
+    errs = [(a - b).abs().max().item() / b.abs().max().item() for a, b in zip(outs["flash"], outs["xla"])]
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    print(f"[21 moe (a)] E=4 fp32 B=2 T={frames} {size}^2, flash vs xla (TF32 off): tokens "
+          f"{errs[0]:.3g}, recon {errs[1]:.3g} x max|ref| (tol 1e-3)")
+    check(max(errs) <= 1e-3, f"(a) MoE flash vs xla {errs}")
+    del outs, clip
+    free_cuda()
+
+
+def moe_step_grads(policy: str, clip: torch.Tensor) -> dict:
+    """One step's gradients of the E=4 training cell, dropout off, SGD."""
+    model = VideoHybridNet(no_dropout(moe_config(256, 4)), device="cuda",
+                           generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, make_optimizer(1.0, optimizer="sgd"), rng=0)
+    step = make_video_train_step(256, loss="mixed", alpha=0.3, beta=0.7, noise_std=0.05,
+                                 moe_aux_weight=0.01, remat_policy=policy)
+    reset_counts()
+    step(state, clip)
+    torch.cuda.synchronize()
+    moe_counted(f"(b) remat {policy} step", launches=2 * (1 + (policy == "stages")), dq_launches=2,
+                dkv_launches=2)
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    del model, state, step
+    free_cuda()
+    return grads
+
+
+def phase_moe_train(train_ms: Optional[float]) -> None:
+    """(b) phase 11's cell (256^2, B 8 of 8 frames, fp32, mixed loss, AdamW
+    1e-4 clipped at 1.0, dropout on) with 4 experts and moe_aux_weight
+    0.01: 5 steps, 2/2/2 flash launches each, finite loss, moe_aux and
+    moe_drop_frac, every parameter moved (the router too); step ms by phase
+    11's protocol beside its dense step; one step's gradients under remat
+    "stages" within 1e-3 x max|grad| of "none"'s (TF32 off, deterministic
+    cuDNN)."""
+    size, batch, frames, steps = 256, 8, 8, 5
+    model = VideoHybridNet(moe_config(size, 4), device="cuda", generator=torch.Generator().manual_seed(0))
+    state = create_train_state(model, make_optimizer(1e-4, weight_decay=0.01, grad_clip_norm=1.0), rng=0)
+    step = make_video_train_step(size, loss="mixed", alpha=0.3, beta=0.7, noise_std=0.05, moe_aux_weight=0.01)
+    clips = [random_clip(batch, frames, size, seed=20 + i) for i in range(steps)]
+    params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    metrics = []
+    for clip in clips:
+        reset_counts()
+        with dispatch_trace.capture() as seen:
+            metrics.append(step(state, clip)[1])
+        torch.cuda.synchronize()
+        moe_counted("(b) train step", launches=2, dq_launches=2, dkv_launches=2)
+        check({"moe_dense", "flash_mha_cuda", "flash_mha_bwd_cuda"} <= seen and "sdpa_xla" not in seen,
+              f"(b) recorded {sorted(seen)}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    vals = {k: [m[k].item() for m in metrics] for k in ("loss", "psnr", "moe_aux", "moe_drop_frac")}
+    check(all(math.isfinite(x) for v in vals.values() for x in v), f"(b) metrics {vals}")
+    still = [n for n, p in model.named_parameters() if torch.equal(p.detach(), params0[n])]
+    check(not still, f"(b) parameters unchanged: {still[:5]}")
+    reps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for clip in clips[:2]:
+            step(state, clip)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) / 2)
+    med = statistics.median(reps)
+    versus = f"{med * 1e3 / train_ms:.3f} x phase 11's dense {train_ms:.1f} ms" if train_ms else "phase 11 not run"
+    print(f"[21 moe (b)] fp32 B={batch} T={frames} {size}^2 flash, 4 experts, aux weight 0.01, AdamW: "
+          f"{steps} steps, flash launches per step fwd 2, dq 2, dkv 2; loss "
+          f"{[round(x, 5) for x in vals['loss']]}, moe_aux {[round(x, 4) for x in vals['moe_aux']]}, "
+          f"moe_drop_frac {[round(x, 4) for x in vals['moe_drop_frac']]}; step {med * 1e3:.1f} ms ({versus}), "
+          f"rep spread {100 * (max(reps) - min(reps)) / med:.2f}%, peak memory {peak:.2f} GB")
+    del model, state, step, params0
+    free_cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    grads = {policy: moe_step_grads(policy, clips[0]) for policy in ("none", "stages")}
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.allow_tf32 = True
+    gmax = max(g.abs().max().item() for g in grads["none"].values())
+    diff, worst = max(((grads["stages"][n] - g).abs().max().item(), n) for n, g in grads["none"].items())
+    router = grads["none"]["temporal.layers.0.moe.router"].abs().max().item()
+    print(f"[21 moe (b)] remat 'stages' vs 'none', one step's gradients (dropout off, TF32 off): max diff "
+          f"{diff:.3g} ({worst}), max |grad| {gmax:.3g}, ratio {diff / gmax:.3g} (tol 1e-3); router "
+          f"max |grad| {router:.3g}; flash launches 4/2/2 under stages")
+    check(diff <= 1e-3 * gmax and router > 0.0, "(b) remat stages gradients")
+    del grads
+    free_cuda()
+
+
+def phase_moe_cli(tmp: Path) -> None:
+    """(c) ``video --num-experts 4`` (256^2, B 2 of 8 frames, flash, 2
+    steps) through ``cli.main``, then ``infer --num-experts 4`` on its
+    checkpoint (bf16 on "xla" attention, the serving commands' core, as in
+    JAX: no kernel launched) and ``infer --num-experts 2`` refused."""
+    common = ["--image-size", "256", "--batch-size", "2", "--clip-len", "8"]
+    reset_counts()
+    out = run_cli(["video", "--synthetic", "2", "--epochs", "1", "--num-experts", "4", "--attn-impl", "flash",
+                   "--checkpoint-dir", str(tmp / "ck"), *common])
+    moe_counted("(c) video", launches=4, dq_launches=4, dkv_launches=4)
+    check("moe_aux" in out and "moe_drop_frac" in out, f"(c) video printed {out!r}")
+    path = str(tmp / "ck" / "step_1")
+    reset_counts()
+    with dispatch_trace.capture() as seen:
+        served = run_cli(["infer", "--synthetic", "2", "--num-experts", "4", "--checkpoint", path, *common])
+    moe_counted("(c) infer")
+    check({"moe_dense", "sdpa_xla"} <= seen, f"(c) infer recorded {sorted(seen)}")
+    try:
+        run_cli(["infer", "--synthetic", "1", "--num-experts", "2", "--checkpoint", path, *common])
+        refused = None
+    except SystemExit as e:
+        refused = str(e.code)
+    check(refused is not None and "--num-experts 4" in refused, f"(c) mismatch not refused: {refused}")
+    print(f"[21 moe (c)] video --num-experts 4 (2 steps, flash 2/2/2 a step): "
+          f"{out.strip().splitlines()[-1]}; infer --num-experts 4: {served.strip().splitlines()[-1]}; "
+          f"--num-experts 2 refused: {refused}")
+
+
+def phase_moe(train_ms: Optional[float] = None) -> dict:
+    """Phase 21: the routed MoE temporal FFN on the card, (a)-(c)."""
+    t0 = time.perf_counter()
+    phase_moe_inference()
+    phase_moe_train(train_ms)
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            phase_moe_cli(Path(tmp))
+        finally:
+            os.chdir(cwd)
+    free_cuda()
+    print(f"[21 moe] {time.perf_counter() - t0:.1f} s; hand-written kernel launches of (a)-(c): "
+          + ", ".join(f"{k} {v}" for k, v in MOE_LAUNCHES.items() if v))
+    return dict(MOE_LAUNCHES)
+
+
 def bound(nbytes: float, flops: float, dtype: torch.dtype):
     """(ms, "bytes" or "operations"): the larger of the bytes over HBM
     bandwidth and the products over the peak of the dtype's units."""
@@ -4196,53 +4760,107 @@ def time_fused_tail(tail_launches: dict) -> list:
     return records
 
 
+# Phase names of ``--phases`` in the order a full run takes them; 14 (the
+# kernel times and the JSON) needs every phase before it. A development run
+# picks some (``python3 chip_smoke.py --phases 12b,21``); a phase that needs
+# another's result takes that phase along.
+PHASE_ORDER = ("3", "4", "5", "5c", "5d", "5b", "6", "7", "7b", "8", "9", "10", "11", "12", "12b", "12c", "13",
+               "15", "16", "17", "18", "19", "20", "21", "14")
+PHASE_NEEDS = {"12b": ("8",), "15": ("11",), "16": ("11",), "20": ("11",), "21": ("11",)}
+
+
+def selected_phases(argv: list) -> tuple:
+    """The phases ``--phases a,b`` asks for, with what they need, in run
+    order; every phase without the flag."""
+    if "--phases" not in argv:
+        return PHASE_ORDER
+    i = argv.index("--phases")
+    want = set(argv[i + 1].split(",")) if i + 1 < len(argv) else set()
+    unknown = sorted(want - set(PHASE_ORDER))
+    if unknown or not want:
+        raise SystemExit(f"chip_smoke: --phases takes names of {', '.join(PHASE_ORDER)}; got {sorted(want)}")
+    if "14" in want:
+        return PHASE_ORDER
+    for name in list(want):
+        want.update(PHASE_NEEDS.get(name, ()))
+    return tuple(p_ for p_ in PHASE_ORDER if p_ in want)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port has no CPU path here", file=sys.stderr)
         raise SystemExit(1)
+    phases = selected_phases(sys.argv[1:])
     t0 = time.perf_counter()
+    seconds = {}
+    r = {}
+
+    def run(name: str, fn, *args):
+        if name not in phases:
+            return None
+        t = time.perf_counter()
+        r[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        print(f"[phase {name}] {seconds[name]:.1f} s")
+        return r[name]
+
     name = phase_device()
+    t = time.perf_counter()
     phase_build()
-    fwd_err = phase_fwd_kernel()
-    bwd_errs = phase_bwd_kernels()
-    band_errs = phase_band_kernels()
-    halo_errs = phase_halo_kernels()
-    phase_head_dims()
-    phase_fused_tail_kernel()
-    tail_launches = phase_decoder_path()
-    phase_flagship_fp32()
-    phase_flagship_grads()
-    phase_flagship_416()
-    eval_ref = phase_windowed_flagship()
-    fwd_launches = phase_infer_main_path()
-    band_fwd_launches = phase_config2()
-    train, train_ms = phase_train("11 train", batch=8, frames=8)
-    windowed, _ = phase_train("12 windowed train", batch=2, frames=32, window=64)
-    halo_launches = phase_seq_two_ranks(eval_ref)
-    phase_streaming()
-    phase_data_path(train_ms)
-    cli_counts = phase_runtime(train_ms)
-    phase_config3()
-    fct = phase_fct()
-    phase_conv_families()
-    serving = phase_serving(train_ms)
-    records = time_flash(fwd_launches, fwd_err, {"flash_bwd_dq": train["dq_launches"],
-                                                 "flash_bwd_dkv": train["dkv_launches"]}, bwd_errs)
-    records += time_band({"band_fwd": band_fwd_launches, "band_bwd_ds": windowed["band_ds_launches"],
-                          "band_bwd_dq": windowed["band_dq_launches"],
-                          "band_bwd_dkv": windowed["band_dkv_launches"]}, band_errs)
-    records += time_halo(dict(halo_launches, **{f"halo_bwd_{p_}": halo_launches[f"halo_{p_}_launches"]
-                                                for p_ in ("ds", "dq", "dkv")}), halo_errs)
-    records += time_fused_tail(tail_launches)
-    for rec in records:  # phase 16: the launches of the CLI's training runs
-        rec["cli_launches"] = cli_counts[counter_of(rec["name"])]
-        if counter_of(rec["name"]) in FLASH3:  # phase 18: FCT's forward (a) and its CLI (c)
-            rec["fct_launches"] = fct["launches"][counter_of(rec["name"])]
-            rec["fct_step"] = fct["step"]["attention"]
-        rec["conv_family_launches"] = CONV_LAUNCHES[counter_of(rec["name"])]  # phase 19 (a)-(e)
-        rec["serving_launches"] = serving[counter_of(rec["name"])]  # phase 20 (a)-(d)
-    print(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": records}))
+    print(f"[phase 2] {time.perf_counter() - t:.1f} s")
+    run("3", phase_fwd_kernel)
+    run("4", phase_bwd_kernels)
+    run("5", phase_band_kernels)
+    run("5c", phase_halo_kernels)
+    run("5d", phase_head_dims)
+    run("5b", lambda: (phase_fused_tail_kernel(), phase_decoder_path())[1])
+    run("6", phase_flagship_fp32)
+    run("7", phase_flagship_grads)
+    run("7b", phase_flagship_416)
+    run("8", phase_windowed_flagship)
+    run("9", phase_infer_main_path)
+    run("10", phase_config2)
+    run("11", phase_train, "11 train", 8, 8)
+    run("12", phase_train, "12 windowed train", 2, 32, 64)
+    run("12b", lambda: phase_seq_two_ranks(r["8"]))
+    run("12c", phase_nccl)
+    run("13", phase_streaming)
+    train_ms = r["11"][1] if "11" in r else None
+    run("15", phase_data_path, train_ms)
+    run("16", phase_runtime, train_ms)
+    run("17", phase_config3)
+    run("18", phase_fct)
+    run("19", phase_conv_families)
+    run("20", phase_serving, train_ms)
+    run("21", phase_moe, train_ms)
+    if "14" in phases:
+        t = time.perf_counter()
+        train, windowed = r["11"][0], r["12"][0]
+        halo_launches, seq_ep = r["12b"]
+        records = time_flash(r["9"], r["3"], {"flash_bwd_dq": train["dq_launches"],
+                                              "flash_bwd_dkv": train["dkv_launches"]}, r["4"])
+        records += time_band({"band_fwd": r["10"], "band_bwd_ds": windowed["band_ds_launches"],
+                              "band_bwd_dq": windowed["band_dq_launches"],
+                              "band_bwd_dkv": windowed["band_dkv_launches"]}, r["5"])
+        records += time_halo(dict(halo_launches, **{f"halo_bwd_{p_}": halo_launches[f"halo_{p_}_launches"]
+                                                    for p_ in ("ds", "dq", "dkv")}), r["5c"])
+        records += time_fused_tail(r["5b"])
+        for rec in records:  # phase 16: the launches of the CLI's training runs
+            counter = counter_of(rec["name"])
+            rec["cli_launches"] = r["16"][counter]
+            if counter in FLASH3:  # phase 18: FCT's forward (a) and its CLI (c)
+                rec["fct_launches"] = r["18"]["launches"][counter]
+                rec["fct_step"] = r["18"]["step"]["attention"]
+            rec["conv_family_launches"] = CONV_LAUNCHES[counter]  # phase 19 (a)-(e)
+            rec["serving_launches"] = r["20"][counter]  # phase 20 (a)-(d)
+            rec["moe_launches"] = r["21"][counter]  # phase 21 (a)-(c)
+            rec["seq_ep_launches"] = seq_ep[counter]  # phase 12b (e)-(g), rank 0
+        seconds["14"] = time.perf_counter() - t
+        print(f"[phase 14] {seconds['14']:.1f} s")
+    print(f"[done] {time.perf_counter() - t0:.1f} s; by phase: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    if "14" in phases:
+        print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))
 

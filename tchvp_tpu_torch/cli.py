@@ -16,6 +16,8 @@ Counterpart of ``tchvp_tpu/cli.py``, with its subcommand names and flags:
     python -m tchvp_tpu_torch.cli stream --synthetic 2 --height 1080 --width 1920
     python -m tchvp_tpu_torch.cli infer  --int8 --checkpoint checkpoints/step_5
     python -m tchvp_tpu_torch.cli video  --synthetic 3 --qat --attn-impl flash
+    python -m tchvp_tpu_torch.cli video  --synthetic 3 --num-experts 4 --attn-impl flash
+    python -m tchvp_tpu_torch.cli infer  --num-experts 4 --checkpoint checkpoints/step_5
     python -m tchvp_tpu_torch.cli export --model fct --out fct.tchvp
     python -m tchvp_tpu_torch.cli serve  --exported fct.tchvp --buckets 1,2
     python -m tchvp_tpu_torch.cli infer  --url http://127.0.0.1:8765
@@ -28,9 +30,12 @@ Counterpart of ``tchvp_tpu/cli.py``, with its subcommand names and flags:
 Every command that runs a model runs it on ``--device`` (default
 ``cuda``); without a card it exits 1 unless ``--device cpu`` is given.
 ``port`` and ``summary`` run no model: they build theirs on the CPU.
-``--mesh seq=N`` runs as N processes, one per rank, each given
-``--coordinator`` (``host:port``, or any ``torch.distributed`` init URL),
-``--num-processes N`` and its ``--process-id``.
+``video --mesh seq=N`` (sequence parallelism: windowed attention with
+``--window``, or ring attention with ``--attn-impl ring``) and ``video
+--mesh expert=N --num-experts E`` (expert parallelism) run as N processes,
+one per rank, each given ``--coordinator`` (``host:port``, or any
+``torch.distributed`` init URL), ``--num-processes N`` and its
+``--process-id``.
 
 Subcommands, options and mesh axes of the JAX package that the port does
 not have yet are registered and exit naming their item of ROADMAP.md
@@ -46,10 +51,12 @@ import subprocess
 import sys
 import time
 
-_ITEMS = {11: "parallelism", 12: "autotuner"}
+_ITEMS = {"11c": "data parallelism", "11d": "FSDP and sharded checkpoints",
+          "11e": "tensor and spatial parallelism", "11f": "pipeline parallelism",
+          "11g": "streaming over a mesh and the planner", 12: "autotuner"}
 
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item):
     raise SystemExit(f"{what} is not ported yet (ROADMAP.md, modules to port, "
                      f"item {item}: {_ITEMS[item]})")
 
@@ -72,7 +79,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--loss", default=None)
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (item 11)")
+                   help="not ported yet (item 11c)")
     p.add_argument("--optimizer", default="adamw",
                    choices=("adamw", "adam", "sgd", "lion"),
                    help="adamw = reference parity (FCT.py:305); lion = "
@@ -124,7 +131,8 @@ def _add_checkpoint_model_flags(p: argparse.ArgumentParser) -> None:
     """The training-config flags a checkpoint consumer mirrors to rebuild
     the matching model."""
     p.add_argument("--num-experts", type=int, default=0,
-                   help="not ported yet (item 11)")
+                   help="match the --num-experts the checkpoint was trained "
+                        "with (a mismatch is rejected at load)")
     p.add_argument("--layers", type=int, default=2,
                    help="match the --layers the checkpoint was trained "
                         "with (temporal depth; a mismatch is rejected at load)")
@@ -232,29 +240,38 @@ def _parse_mesh_axes(spec: str) -> dict:
     return axes
 
 
-def _mesh(args):
-    """The ``seq`` mesh over the launched ranks, or None. Other axes and
-    ``--data-parallel`` are not ported yet."""
+# The item of each mesh axis the port does not run yet.
+_AXIS_ITEMS = {"data": "11c", "model": "11e", "spatial": "11e", "pipe": "11f"}
+
+
+def _mesh(args, axes_ported=("seq",)):
+    """The mesh of one ported axis (``seq``, or ``expert`` where the command
+    runs it) over the launched ranks, or None. The other axes, two axes at
+    once (the hybrid meshes of item 11c) and ``--data-parallel`` are not
+    ported yet."""
     import torch.distributed as dist
 
     from tchvp_tpu_torch.parallel import make_mesh
 
     axes = _parse_mesh_axes(getattr(args, "mesh", None) or "")
-    others = sorted(k for k, v in axes.items() if k != "seq" and v > 1)
+    on = {k: v for k, v in axes.items() if v > 1}
+    others = sorted(k for k in on if k not in axes_ported)
     if others:
-        _not_ported(f"--mesh axes {others}", 11)
+        _not_ported(f"--mesh axes {others}", min(_AXIS_ITEMS.get(k, "11c") for k in others))
+    if len(on) > 1:
+        _not_ported(f"--mesh {args.mesh} (two axes at once)", "11c")
     if args.data_parallel:
-        _not_ported("--data-parallel", 11)
-    n = axes.get("seq", 1)
-    if n <= 1:
+        _not_ported("--data-parallel", "11c")
+    if not on:
         return None
+    (axis, n), = on.items()
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world != n:
         raise SystemExit(
             f"--mesh {args.mesh}: {n} processes requested, {world} running "
             f"(launch one per rank with --coordinator, --num-processes {n} "
             f"and --process-id)")
-    return make_mesh(("seq",), (n,))
+    return make_mesh((axis,), (n,))
 
 
 def _device(args):
@@ -272,14 +289,6 @@ def _device(args):
             dev = torch.device("cuda", args.process_id % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     return dev
-
-
-def _moe_flags(args) -> None:
-    """The routed MoE's flags (ops/moe.py) wait for item 11: each exits
-    when it is given a value, none is ignored."""
-    for flag, default in (("num_experts", 0), ("moe_aux_weight", 0.01), ("router_top_k", 1)):
-        if getattr(args, flag, default) != default:
-            _not_ported(f"--{flag.replace('_', '-')} (ops/moe.py)", 11)
 
 
 def _image_data(args, supervised: bool = True):
@@ -303,30 +312,33 @@ def _image_data(args, supervised: bool = True):
 
 
 def _no_data_parallel(args, cmd: str) -> None:
-    """``--data-parallel`` of the image flows waits for item 11."""
+    """``--data-parallel`` of the image flows waits for item 11c."""
     if args.data_parallel:
-        _not_ported(f"{cmd} --data-parallel", 11)
+        _not_ported(f"{cmd} --data-parallel", "11c")
 
 
 def _segment_mesh(args) -> None:
-    """``segment``'s meshes: JAX runs ``data=`` and ``spatial=``, which
-    wait for item 11 here; any other axis is refused as JAX refuses it."""
+    """``segment``'s meshes: JAX runs ``data=`` (item 11c here) and
+    ``spatial=`` (item 11e); any other axis is refused as JAX refuses it."""
     axes = _parse_mesh_axes(getattr(args, "mesh", None) or "")
     bad = sorted(k for k, v in axes.items() if v > 1 and k not in ("data", "spatial"))
     if bad:
         raise SystemExit(f"segment: unsupported mesh axes {bad} (use data= and spatial=)")
-    if any(v > 1 for v in axes.values()):
-        _not_ported(f"--mesh {args.mesh}", 11)
+    if axes.get("data", 1) > 1:
+        _not_ported(f"--mesh {args.mesh}", "11c")
+    if axes.get("spatial", 1) > 1:
+        _not_ported(f"--mesh {args.mesh}", "11e")
     if args.data_parallel:
-        _not_ported("--data-parallel", 11)
+        _not_ported("--data-parallel", "11c")
 
 
 def _fct_attn(args) -> str:
     """``--attn-impl`` of ``segment`` (default "auto": the flash kernels on
-    a card); ring attention is item 11."""
+    a card). FCT's ring rides the ``spatial`` mesh axis in JAX, so it waits
+    for item 11e."""
     attn = getattr(args, "attn_impl", None) or "auto"
     if attn == "ring":
-        _not_ported("--attn-impl ring", 11)
+        _not_ported("segment --attn-impl ring (over the spatial axis)", "11e")
     return attn
 
 
@@ -465,23 +477,35 @@ def _video_model(args, device):
             raise SystemExit("--num-experts applies to --model hybrid only "
                              "(the temporal transformer's FFNs)")
         if getattr(args, "seq_axis", None):
-            _not_ported(f"--mesh with --model {args.model}", 11)
+            raise SystemExit(f"--mesh seq=N applies to --model hybrid only (got --model {args.model})")
         from tchvp_tpu_torch.models.frame_ae import FrameAE
         from tchvp_tpu_torch.models.resnet_ae import Autoencoder4K, Autoencoder32K
 
         return FrameAE(_seeded(Autoencoder32K if args.model == "ae32k" else Autoencoder4K,
                                device=device))
-    _moe_flags(args)
     attn = getattr(args, "attn_impl", None) or "xla"
-    if attn == "ring":
-        _not_ported("--attn-impl ring", 11)
-    return VideoHybridNet(flagship_video_config(
-        args.image_size,
+    if attn == "ring" and not getattr(args, "seq_axis", None):
+        raise SystemExit("--attn-impl ring is full attention over seq-sharded tokens: "
+                         "run it with --mesh seq=N")
+    return VideoHybridNet(_hybrid_config(args, args.image_size, attn),
+                          device=device, generator=torch.Generator().manual_seed(0))
+
+
+def _hybrid_config(args, size: int, attn: str = "xla"):
+    """The flagship's config from the flags: ``--layers``, ``--num-experts``,
+    ``--router-top-k``, ``--window`` and the mesh axes in use."""
+    from tchvp_tpu_torch.config import flagship_video_config
+
+    return flagship_video_config(
+        size,
         num_layers=getattr(args, "layers", 2),
         attn_impl=attn,
         window_size=getattr(args, "window", 0),
+        num_experts=getattr(args, "num_experts", 0),
+        router_top_k=getattr(args, "router_top_k", 1),
+        ep_axis=getattr(args, "ep_axis", None),
         seq_axis=getattr(args, "seq_axis", None),
-    ), device=device, generator=torch.Generator().manual_seed(0))
+    )
 
 
 def cmd_video(args) -> None:
@@ -511,22 +535,30 @@ def cmd_video(args) -> None:
             prefetch=True,
         )
     if args.fsdp:
-        _not_ported("--fsdp", 11)
+        _not_ported("--fsdp", "11d")
+    if args.num_experts and args.model != "hybrid":
+        raise SystemExit("--num-experts applies to --model hybrid only "
+                         "(the temporal transformer's FFNs)")
     cfg = TrainConfig(
         model_name="video",
         loss=args.loss or ("mse" if args.image_size <= 160 else "mixed"),
         lr=args.lr,
         checkpoint_dir=args.checkpoint_dir,
+        moe_aux_weight=args.moe_aux_weight if args.num_experts else 0.0,
         **_train_cfg_kwargs(args),
     )
     device = _device(args)
-    mesh = _mesh(args)
-    args.seq_axis = "seq" if mesh is not None else None
+    mesh = _mesh(args, axes_ported=("seq", "expert"))
+    axis = mesh.mesh_dim_names[0] if mesh is not None else None
+    args.seq_axis = "seq" if axis == "seq" else None
+    args.ep_axis = "expert" if axis == "expert" else None
     if args.seq_axis and not args.window and args.attn_impl != "ring":
         raise SystemExit(
             "--mesh seq=N needs --window W (windowed/flash sequence "
             "parallelism) or --attn-impl ring (full attention)"
         )
+    if args.ep_axis and not args.num_experts:
+        raise SystemExit("--mesh expert=N needs --num-experts")
     model = _video_model(args, device)
     flow = VideoFlow(
         model, cfg=cfg, image_size=args.image_size, mesh=mesh,
@@ -534,6 +566,7 @@ def cmd_video(args) -> None:
         remat_policy=args.remat_policy,
         qat=args.qat, qat_dense=args.qat_dense,
         seq_axis=args.seq_axis,
+        ep_axis=args.ep_axis,
         aug=_aug_cfg(args),
     )
     start = flow.resume(args.clip_len, data=data) if args.resume else 0
@@ -555,20 +588,17 @@ def _serving_model(args, size: int, device):
     (fp32 on disk, cast on load) when one is given."""
     import torch
 
-    from tchvp_tpu_torch.config import flagship_video_config
     from tchvp_tpu_torch.models.video import VideoHybridNet
     from tchvp_tpu_torch.train import checkpoint as ckpt
 
-    _moe_flags(args)
     if args.model != "hybrid":
         model = _video_model(args, device).to(torch.bfloat16)
     else:
-        model = VideoHybridNet(flagship_video_config(image_size=size, num_layers=args.layers),
-                               device=device, dtype=torch.bfloat16,
+        model = VideoHybridNet(_hybrid_config(args, size), device=device, dtype=torch.bfloat16,
                                generator=torch.Generator().manual_seed(0))
     if args.checkpoint:
         restored = ckpt.restore_state(args.checkpoint)
-        model.load_state_dict(_restored_params(restored, args.ema, args.layers))
+        model.load_state_dict(_restored_params(restored, args.ema, args.layers, args.num_experts))
     return model.eval()
 
 
@@ -746,8 +776,8 @@ def cmd_infer(args) -> None:
         return _infer_exported(args)
     size = args.image_size
     device = _device(args)
-    if _mesh(args) is not None:
-        _not_ported("infer --mesh", 11)
+    if any(v > 1 for v in _parse_mesh_axes(args.mesh or "").values()):
+        _not_ported("infer --mesh", "11c")
     data = _clip_data(args, size)
     model = _serving_model(args, size, device)
     engine = None
@@ -893,9 +923,12 @@ def cmd_summary(args) -> None:
     print(f"Input: {shape} float32")
 
 
-def _validate_restored_depth(state_dict, expect_layers: int) -> None:
+def _validate_restored_depth(state_dict, expect_layers: int, expect_experts=None) -> None:
     """Reject a temporal-depth mismatch between a restored checkpoint and
-    the ``--layers`` model loudly, with the JAX package's message."""
+    the ``--layers`` model loudly, with the JAX package's message; with
+    ``expect_experts``, an MoE checkpoint against a dense ``--num-experts``
+    model (or the reverse, or another expert count) too, which JAX's apply
+    refuses through the missing parameters."""
     layers = {int(k.split(".")[2]) for k in state_dict if k.startswith("temporal.layers.")}
     if not layers:
         return  # not a hybrid checkpoint
@@ -905,13 +938,22 @@ def _validate_restored_depth(state_dict, expect_layers: int) -> None:
             f"checkpoint temporal depth is {depth} layers but the model "
             f"was built with --layers {expect_layers}; pass --layers {depth}"
         )
+    if expect_experts is None:
+        return
+    router = state_dict.get("temporal.layers.0.moe.router")
+    experts = int(router.shape[1]) if router is not None else 0
+    if experts != (expect_experts if expect_experts >= 2 else 0):
+        raise SystemExit(
+            f"checkpoint temporal FFN has {experts or 'no'} experts but the model was built "
+            f"with --num-experts {expect_experts}; pass --num-experts {experts}")
 
 
-def _restored_params(restored: dict, ema: bool, expect_layers=None):
+def _restored_params(restored: dict, ema: bool, expect_layers=None, expect_experts=None):
     """The model ``state_dict`` of a ``restore_state`` payload, or with
     ``--ema`` the EMA parameter average the optimizer carried over the
     checkpoint's BatchNorm stats. With ``expect_layers`` the temporal
-    depth is checked against the ``--layers`` model."""
+    depth is checked against the ``--layers`` model, with
+    ``expect_experts`` its MoE pool against ``--num-experts``."""
     from tchvp_tpu_torch.train.state import ema_state_dict
 
     payload = restored["model"]
@@ -923,7 +965,7 @@ def _restored_params(restored: dict, ema: bool, expect_layers=None):
             )
         payload = ema_state_dict(payload, e)
     if expect_layers is not None:
-        _validate_restored_depth(payload, expect_layers)
+        _validate_restored_depth(payload, expect_layers, expect_experts)
     return payload
 
 
@@ -953,7 +995,8 @@ def cmd_eval(args) -> None:
             raw = ckpt.restore_state(path)
             if "step" not in raw and args.ema:
                 raise SystemExit("--ema needs a full-state checkpoint, got weights-only")
-            model.load_state_dict(_restored_params(raw, args.ema, args.layers))
+            model.load_state_dict(_restored_params(raw, args.ema, args.layers,
+                                                   getattr(args, "num_experts", None)))
 
     if args.model == "fct":
         loss = args.loss or "dice"
@@ -1173,7 +1216,7 @@ def cmd_export(args) -> None:
     model, is_clip = _export_model(args, device)
     if args.checkpoint:
         restored = ckpt.restore_state(args.checkpoint)
-        model.load_state_dict(_restored_params(restored, args.ema, args.layers))
+        model.load_state_dict(_restored_params(restored, args.ema, args.layers, args.num_experts))
     engine = None
     if args.int8:
         from tchvp_tpu_torch.infer.quant import Int8Engine
@@ -1232,14 +1275,14 @@ def cmd_serve(args) -> None:
     """HTTP serving daemon (``infer/server.py``) of an ``export``
     artifact: POST .npy batches to /infer, GET /health; /stream sessions
     for a streaming artifact. ``--data-parallel`` and ``--mesh`` (the
-    data-parallel and live pipelined serving of the JAX package) are item
-    11."""
+    data-parallel and live pipelined serving of the JAX package) are items
+    11c and 11f."""
     from tchvp_tpu_torch.infer.server import serve_artifact
 
     if args.data_parallel:
-        _not_ported("serve --data-parallel", 11)
+        _not_ported("serve --data-parallel", "11c")
     if any(v > 1 for v in _parse_mesh_axes(args.mesh or "").values()):
-        _not_ported(f"serve --mesh {args.mesh}", 11)
+        _not_ported(f"serve --mesh {args.mesh}", "11f")
     if not args.exported:
         raise SystemExit("serve: provide --exported (a .tchvp artifact)")
     if not os.path.exists(args.exported):
@@ -1269,7 +1312,7 @@ def _unported_command(item: int):
 # Subcommands of the JAX package whose item is still to come. They take
 # whatever follows them (``main`` parses them with ``parse_known_args``) and
 # exit naming the item.
-_UNPORTED = {"shards": 11, "tune": 12}
+_UNPORTED = {"shards": "11g", "tune": 12}
 
 
 def _build_parser():
@@ -1303,8 +1346,10 @@ def _build_parser():
                            choices=("hybrid", "ae32k", "ae4k"))
             p.add_argument("--mesh", default=None,
                            help="device mesh as axis=size pairs; the port runs "
-                                "seq=N (sequence-parallel windowed attention, "
-                                "one process per rank); other axes are item 11")
+                                "seq=N (sequence parallelism: --window, or "
+                                "--attn-impl ring) and expert=N (expert "
+                                "parallelism, with --num-experts), one process "
+                                "per rank; other axes are items 11c-11f")
             p.add_argument("--layers", type=int, default=2,
                            help="temporal transformer depth (hybrid model)")
             p.add_argument("--attn-impl", default="xla",
@@ -1313,12 +1358,17 @@ def _build_parser():
                                 "flash = the hand-written kernels")
             p.add_argument("--window", type=int, default=0,
                            help="attention window (tokens); 0 = full. "
-                                "Required for --mesh seq=N")
+                                "--mesh seq=N needs it or --attn-impl ring")
             p.add_argument("--num-experts", type=int, default=0,
-                           help="not ported yet (item 11)")
-            p.add_argument("--moe-aux-weight", type=float, default=0.01)
-            p.add_argument("--router-top-k", type=int, default=1)
-            p.add_argument("--fsdp", action="store_true", help="not ported yet (item 11)")
+                           help="routed MoE temporal FFN with N experts "
+                                "(ops/moe.py); 0 = the dense FFNs")
+            p.add_argument("--moe-aux-weight", type=float, default=0.01,
+                           help="Switch load-balance loss weight (only with "
+                                "--num-experts)")
+            p.add_argument("--router-top-k", type=int, default=1,
+                           help="experts per token (1 = Switch, 2 = GShard "
+                                "top-2); training logs moe_drop_frac")
+            p.add_argument("--fsdp", action="store_true", help="not ported yet (item 11d)")
             p.add_argument("--accum-steps", type=int, default=1,
                            help="gradient accumulation: split each batch "
                                 "into N microbatches, one optimizer update")
@@ -1336,11 +1386,12 @@ def _build_parser():
         if name == "segment":
             p.add_argument("--mesh", default=None,
                            help="axis=size pairs; JAX's data= and spatial= are "
-                                "not ported yet (item 11)")
+                                "not ported yet (items 11c, 11e)")
             p.add_argument("--attn-impl", default=None,
                            choices=("auto", "xla", "flash", "ring"),
                            help="FCT spatial-attention core (default auto: the "
-                                "flash kernels on a card); ring is item 11")
+                                "flash kernels on a card); ring rides the "
+                                "spatial axis, item 11e")
         if name == "transfer":
             p.add_argument("--pretrained", default=None)
         if name == "port":
@@ -1360,7 +1411,7 @@ def _build_parser():
         if name == "infer":
             p.add_argument("--clippack", default=None)
             p.add_argument("--checkpoint", default=None)
-            p.add_argument("--mesh", default=None, help="not ported yet (item 11)")
+            p.add_argument("--mesh", default=None, help="not ported yet (item 11c)")
             p.add_argument("--ema", action="store_true",
                            help="serve the EMA parameter average the "
                                 "optimizer carried (--ema-decay training) "
@@ -1466,9 +1517,9 @@ def _build_parser():
     p.add_argument("--batch-window-ms", type=float, default=0.0,
                    help="dynamic micro-batching: coalesce concurrent requests arriving "
                         "within this window into one device batch (0 = off)")
-    p.add_argument("--mesh", default=None, help="not ported yet (item 11)")
+    p.add_argument("--mesh", default=None, help="not ported yet (item 11f)")
     p.add_argument("--model", default="hybrid", choices=("hybrid",),
-                   help="live-serving model family (--mesh mode, item 11)")
+                   help="live-serving model family (--mesh mode, item 11f)")
 
     p = sub.add_parser("doctor", help="environment / runtime diagnostics")
     p.set_defaults(fn=cmd_doctor)

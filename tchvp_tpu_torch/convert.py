@@ -16,6 +16,8 @@ backwards:
 * BatchNorm ``.../BatchNorm_0/{scale, bias}`` and batch stats
   ``.../BatchNorm_0/{mean, var}`` -> ``weight``, ``bias``,
   ``running_mean``, ``running_var`` (and ``num_batches_tracked`` 0);
+* the MoE pool ``temporal/moe_{layer}/{router, w1, b1, w2, b2}`` as it
+  is: the port keeps JAX's layout;
 * ConvTranspose kernels (kh, kw, in, out), applied spatially flipped by
   flax, -> ``transpose(k[::-1, ::-1], (2, 3, 0, 1))``. A module is a
   ConvTranspose by its kind in the table below (the modules flax names
@@ -42,6 +44,7 @@ _LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "runn
 
 CONV = "conv"  # Conv, Dense, norms: the leaf maps by its rank
 CONV_TRANSPOSE = "conv_transpose"
+MOE = "moe"  # the routed FFN pool: every leaf as it is
 
 # (flax module path regex, torch module path template, kind), tried in order.
 _MODULES = [
@@ -52,6 +55,7 @@ _MODULES = [
     (r"temporal/norm_(\d+)", r"temporal.layers.\1.norm", CONV),
     (r"temporal/attention_(\d+)/(\w+)", r"temporal.layers.\1.attention.\2", CONV),
     (r"temporal/(ffn[12])_(\d+)", r"temporal.layers.\2.\1", CONV),
+    (r"temporal/moe_(\d+)", r"temporal.layers.\1.moe", MOE),
     (r"decoder/conv(\d+)", r"decoder.convs.\1", CONV),
     (r"decoder/bn(\d+)", r"decoder.conv_bns.\1", CONV),
     (r"decoder/upconv(\d+)", r"decoder.upconvs.\1", CONV_TRANSPOSE),
@@ -86,6 +90,8 @@ def _module_name(path: Tuple[str, ...]) -> Tuple[str, str]:
 
 
 def _convert(kind: str, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    if kind == MOE:
+        return leaf, arr
     if leaf != "kernel":
         return _LEAF[leaf], arr
     if kind == CONV_TRANSPOSE:  # flax applies the kernel spatially flipped

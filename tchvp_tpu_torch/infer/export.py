@@ -22,7 +22,7 @@ so the example batch is 2 where JAX's is 1; ``symbolic_batch=False`` pins
 a batch of 1, and other sizes are then refused. A program is exported on
 the device it is to serve on (creation ops with an explicit device are
 baked into the graph) and does not move: loading it for another platform
-raises, as JAX's does. Data-parallel serving (``over_mesh``) is item 11 of
+raises, as JAX's does. Data-parallel serving (``over_mesh``) is item 11c of
 ROADMAP.md.
 """
 
@@ -191,7 +191,7 @@ class ServingModel:
     def over_mesh(self, mesh=None, axis: str = "data"):
         raise NotImplementedError(
             "data-parallel serving (over_mesh) is not ported yet "
-            "(ROADMAP.md, modules to port, item 11: parallelism)")
+            "(ROADMAP.md, modules to port, item 11c: data parallelism)")
 
 
 class StreamingServingModel(ServingModel):

@@ -34,7 +34,7 @@ fails alone), run through the same buckets and split back per request.
 The output comes back to the host with one ``.cpu()`` per program call.
 
 Data-parallel and pipelined serving (``serve --data-parallel``, ``serve
---mesh``) are item 11 of ROADMAP.md.
+--mesh``) are items 11c and 11f of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -532,12 +532,13 @@ def serve_artifact(path: str, host: str = "127.0.0.1", port: int = 0,
     the server takes traffic. ``batch_window_ms > 0`` turns on dynamic
     micro-batching (``_MicroBatcher``). A streaming artifact gets the
     /stream endpoints and no buckets (a session has one geometry).
-    ``data_parallel`` and ``mesh`` are item 11 of ROADMAP.md and raise.
+    ``data_parallel`` and ``mesh`` are items 11c and 11f of ROADMAP.md and raise.
     """
     if data_parallel or mesh is not None:
         raise NotImplementedError(
             "data-parallel and pipelined serving are not ported yet "
-            "(ROADMAP.md, modules to port, item 11: parallelism)")
+            "(ROADMAP.md, modules to port, item 11c: data parallelism, and item 11f: "
+            "pipeline parallelism)")
     norm = _normalize_buckets(buckets)  # validate BEFORE any warmup work
     model = load_artifact(path, device)
     if getattr(model, "stream_meta", None):

@@ -7,6 +7,9 @@ skip-connected decoder blocks (``block_6`` .. ``block_9``) and the
 deep-supervision sigmoid head (``ds``). Every block ends in a
 :class:`~tchvp_tpu_torch.ops.conv_attention.SpatialTransformer`, whose
 H*W-token attention runs the flash kernels on CUDA under ``"auto"``.
+``attn_impl="ring"`` needs ``seq_axis`` (JAX's ``ValueError`` at the call
+otherwise) and, without a mesh carrying it, runs the ring's fallback, the
+dense core; ``sp_axis`` is item 11e.
 
 The public layouts are the JAX package's: image ``(B, H, W, C)`` in, mask
 ``(B, H, W, out_channels)`` out; the convolutions run NCHW. H and W must be
@@ -42,12 +45,12 @@ def _conv3x3(in_ch: int, out_ch: int) -> PaddedConv2d:
 
 
 def _unported_axes(cfg: FCTConfig) -> None:
-    for name, value in (("attn_impl='ring'", cfg.attn_impl == "ring"), ("seq_axis", cfg.seq_axis),
-                        ("sp_axis", cfg.sp_axis)):
-        if value:
-            raise NotImplementedError(
-                f"FCTConfig {name} is not ported yet (ROADMAP.md, modules to port, item 11: "
-                "parallelism)")
+    """``sp_axis`` (spatial partitioning, which FCT's ring over a mesh rides
+    in JAX) waits for item 11e."""
+    if cfg.sp_axis:
+        raise NotImplementedError(
+            "FCTConfig sp_axis is not ported yet (ROADMAP.md, modules to port, item 11e: "
+            "tensor and spatial parallelism)")
 
 
 class BlockEncoderBottleneck(nn.Module):
@@ -60,7 +63,7 @@ class BlockEncoderBottleneck(nn.Module):
 
     def __init__(self, blk: str, in_channels: int, out_channels: int, att_heads: int,
                  image_channels: int = 3, dropout_rate: float = 0.3, attn_impl: str = "xla",
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, seq_axis: Optional[str] = None):
         super().__init__()
         self.blk = blk
         self.dropout_rate = dropout_rate
@@ -72,7 +75,7 @@ class BlockEncoderBottleneck(nn.Module):
             self.conv2 = _conv3x3(2 * in_channels, out_channels)
             self.conv3 = _conv3x3(out_channels, out_channels)
         self.trans = SpatialTransformer(out_channels, att_heads, attn_impl=attn_impl,
-                                        drop_path_rate=drop_path_rate)
+                                        drop_path_rate=drop_path_rate, seq_axis=seq_axis)
 
     def forward(self, x: torch.Tensor, scale_img: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -93,14 +96,15 @@ class BlockDecoder(nn.Module):
     dropout and the spatial transformer."""
 
     def __init__(self, in_channels: int, skip_channels: int, out_channels: int, att_heads: int,
-                 dropout_rate: float = 0.3, attn_impl: str = "xla", drop_path_rate: float = 0.0):
+                 dropout_rate: float = 0.3, attn_impl: str = "xla", drop_path_rate: float = 0.0,
+                 seq_axis: Optional[str] = None):
         super().__init__()
         self.dropout_rate = dropout_rate
         self.conv1 = _conv3x3(in_channels, out_channels)
         self.conv2 = _conv3x3(skip_channels + out_channels, out_channels)
         self.conv3 = _conv3x3(out_channels, out_channels)
         self.trans = SpatialTransformer(out_channels, att_heads, attn_impl=attn_impl,
-                                        drop_path_rate=drop_path_rate)
+                                        drop_path_rate=drop_path_rate, seq_axis=seq_axis)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -150,7 +154,7 @@ class FCT(nn.Module):
         # Per-block drop-path schedule (FCT.py:217-218 linspace).
         dpr = [config.stochastic_depth_rate * i / (n - 1) for i in range(n)]
         common = dict(att_heads=config.att_heads, dropout_rate=config.dropout_rate,
-                      attn_impl=config.attn_impl)
+                      attn_impl=config.attn_impl, seq_axis=config.seq_axis)
         for i, (blk, cin) in enumerate((("first", in_channels), ("second", f[0]), ("third", f[1]),
                                         ("fourth", f[2]), ("bottleneck", f[3]))):
             self.add_module(f"block_{i + 1}", BlockEncoderBottleneck(

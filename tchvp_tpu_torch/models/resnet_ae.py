@@ -272,5 +272,5 @@ def _unported_axes(cfg: ResNetAEConfig) -> None:
     for name in ("tp_axis", "sp_axis"):
         if getattr(cfg, name):
             raise NotImplementedError(
-                f"ResNetAEConfig {name} is not ported yet (ROADMAP.md, modules to port, item 11: "
-                "parallelism)")
+                f"ResNetAEConfig {name} is not ported yet (ROADMAP.md, modules to port, item 11e: "
+                "tensor and spatial parallelism)")

@@ -149,7 +149,7 @@ def make_streamer(model: VideoHybridNet, cfg: StreamingConfig = StreamingConfig(
     if mesh is not None:
         raise NotImplementedError(
             "make_streamer over a mesh is not ported yet "
-            "(ROADMAP.md, modules to port, item 11: parallelism)")
+            "(ROADMAP.md, modules to port, item 11g: streaming over a mesh and the planner)")
     if int8_engine is not None:
         def run8(clip: torch.Tensor) -> torch.Tensor:
             with int8_engine.intercepting(int8_engine.qparams):

@@ -14,8 +14,14 @@ drawn from the caller's ``torch.Generator`` up front
 
 ``seq_axis`` (sequence parallelism): under a mesh carrying the axis the
 tokens are this rank's block of the sequence, the attention takes its halo
-from the left neighbour (``ops/attention.py``), and the dropout draws are
-made for the whole sequence, the same on every rank, each keeping its part.
+from the left neighbour or runs the ring (``ops/attention.py``), and the
+dropout draws are made for the whole sequence, the same on every rank, each
+keeping its part.
+
+``num_experts >= 2`` builds the routed FFN pool ``moe_{layer}``
+(:class:`~tchvp_tpu_torch.ops.moe.MoEFFN`) in place of ``ffn1_``/``ffn2_``,
+as JAX's encoder does; a forward given ``moe_sink`` appends each MoE
+layer's load-balance loss and dropped fraction to it.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from tchvp_tpu_torch.ops.attention import (
     resolve_impl,
 )
 from tchvp_tpu_torch.ops.blocks import Dense, draw_keep, dropout
+from tchvp_tpu_torch.ops.moe import MoEFFN, MoEStats
 from tchvp_tpu_torch.parallel.mesh import axis_shards
 
 LN_EPS = 1e-5
@@ -112,8 +119,18 @@ class TransformerLayer(nn.Module):
             attn_impl=cfg.attn_impl, window_size=cfg.window_size, seq_axis=cfg.seq_axis,
         )
         self.norm = nn.LayerNorm(d, eps=LN_EPS)
-        self.ffn1 = Dense(d, cfg.hidden_dim)
-        self.ffn2 = Dense(cfg.hidden_dim, d)
+        if cfg.num_experts >= 2:
+            self.moe = MoEFFN(d, cfg.num_experts, cfg.hidden_dim, cfg.expert_capacity_factor,
+                              cfg.router_top_k, ep_axis=cfg.ep_axis, seq_axis=cfg.seq_axis)
+        else:
+            self.ffn1 = Dense(d, cfg.hidden_dim)
+            self.ffn2 = Dense(cfg.hidden_dim, d)
+
+    def ffn(self, x: torch.Tensor, sink: Optional[List[MoEStats]] = None) -> torch.Tensor:
+        """The FFN branch: the routed pool, or Dense -> ReLU -> Dense."""
+        if hasattr(self, "moe"):
+            return self.moe(x, sink)
+        return self.ffn2(torch.relu(self.ffn1(x)))
 
 
 def _norm(layer: TransformerLayer, h: torch.Tensor) -> torch.Tensor:
@@ -128,11 +145,6 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, config: TransformerConfig = TransformerConfig()):
         super().__init__()
-        if config.num_experts >= 2:
-            raise NotImplementedError(
-                "the routed MoE FFN (num_experts >= 2) is not ported yet "
-                "(ROADMAP.md, modules to port, item 11: ops/moe.py)"
-            )
         if config.input_dim % config.num_heads != 0:
             raise ValueError(
                 f"input dim {config.input_dim} not divisible by num_heads {config.num_heads}"
@@ -165,9 +177,11 @@ class TransformerEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                draws: Optional[TransformerDraws] = None) -> torch.Tensor:
+                draws: Optional[TransformerDraws] = None,
+                moe_sink: Optional[List[MoEStats]] = None) -> torch.Tensor:
         """``draws`` (train mode): randomness drawn beforehand; without it
-        the pass draws its own from ``generator``."""
+        the pass draws its own from ``generator``. ``moe_sink``: a list the
+        MoE layers append their :class:`MoEStats` to."""
         cfg = self.config
         rate = cfg.dropout_rate
         if self.training and draws is None:
@@ -176,8 +190,7 @@ class TransformerEncoder(nn.Module):
             attn_draw = draws.attention[i] if self.training else None
             x = x + _norm(layer, layer.attention(x, mask=mask, generator=generator,
                                                  dropout_draw=attn_draw))
-            h = layer.ffn2(torch.relu(layer.ffn1(x)))
-            x = x + _norm(layer, h)
+            x = x + _norm(layer, layer.ffn(x, moe_sink))
             if cfg.scale_out:
                 x = scale_out(x)
             if self.training and rate > 0.0:

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +36,7 @@ from tchvp_tpu_torch.models.resnet_ae import (
 )
 from tchvp_tpu_torch.models.transformer import TransformerDraws, TransformerEncoder
 from tchvp_tpu_torch.ops.blocks import BatchNorm, init_flax_default
+from tchvp_tpu_torch.ops.moe import MoEStats
 from tchvp_tpu_torch.parallel.mesh import axis_shards
 
 
@@ -152,13 +153,16 @@ class VideoHybridNet(nn.Module):
 
     def temporal_mix(self, tokens: torch.Tensor, mask: Optional[torch.Tensor] = None,
                      generator: Optional[torch.Generator] = None,
-                     draws: Optional[VideoDraws] = None) -> torch.Tensor:
-        """Temporal transformer over (B, S, D) tokens (+ optional posenc)."""
+                     draws: Optional[VideoDraws] = None,
+                     moe_sink: Optional[List[MoEStats]] = None) -> torch.Tensor:
+        """Temporal transformer over (B, S, D) tokens (+ optional posenc);
+        its MoE layers append their stats to ``moe_sink`` when given."""
         with self._compute(tokens):
             if self.config.use_posenc:
                 tokens = tokens + self._posenc_for(tokens)[None]
             return self.temporal(tokens, mask=mask, generator=generator,
-                                 draws=draws.temporal if draws is not None else None)
+                                 draws=draws.temporal if draws is not None else None,
+                                 moe_sink=moe_sink)
 
     def decode_tokens(self, tokens: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
         """(B, T*tpf, D) tokens -> (B, T, H, W, C') reconstructed frames."""
@@ -172,12 +176,14 @@ class VideoHybridNet(nn.Module):
 
     def forward(self, clip: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                draws: Optional[VideoDraws] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                draws: Optional[VideoDraws] = None,
+                moe_sink: Optional[List[MoEStats]] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """clip: (B, T, H, W, C) -> (tokens (B, T*tpf, D), recon (B, T, H, W, C')).
 
-        Train mode takes ``draws``, or draws them from ``generator`` first."""
+        Train mode takes ``draws``, or draws them from ``generator`` first.
+        ``moe_sink``: a list the MoE layers append their stats to."""
         if self.training and draws is None:
             draws = self.draw_dropout(clip.shape, generator, clip.device, mask is not None)
         tokens, hw = self.encode_clip(clip, draws=draws)
-        tokens = self.temporal_mix(tokens, mask=mask, draws=draws)
+        tokens = self.temporal_mix(tokens, mask=mask, draws=draws, moe_sink=moe_sink)
         return tokens, self.decode_tokens(tokens, hw)

@@ -14,8 +14,10 @@ Counterpart of ``tchvp_tpu/ops/attention.py``:
   package resolves to its Pallas kernels on the TPU, else ``"windowed"``
   with a window and no mask, else ``"xla"``.
 
-A mask sends every impl to :func:`sdpa_xla`, as in JAX. ``"ring"`` is not
-ported yet and raises; it never falls back to another core.
+A mask sends every impl to :func:`sdpa_xla`, as in JAX. ``"ring"`` is
+full attention over seq-sharded tokens (:func:`sdpa_ring_seq_sharded`); it
+needs ``seq_axis``, no mask and no window, and without a mesh carrying the
+axis it runs :func:`sdpa_xla` (marker ``ring_fallback``), as in JAX.
 
 :class:`TorchMultiheadAttention` is FCT's attention layer: separate
 q/k/v/out projections around :func:`multi_head_attention` at the 1/sqrt(Dh)
@@ -26,22 +28,27 @@ with size > 1 (:func:`tchvp_tpu_torch.parallel.mesh.mesh_with_axis`, JAX's
 gate), each rank holds a contiguous block of the tokens. A banded impl
 (``"flash"`` or ``"windowed"`` with a window, no mask) then runs
 :func:`sdpa_windowed_seq_sharded`, which takes one window of k/v from the
-left neighbour; ``"xla"`` stays full attention over the whole sequence, its
-keys and values gathered over the axis (what GSPMD inserts in JAX). Without
-such a mesh, dispatch is as without ``seq_axis``.
+left neighbour; ``"xla"`` (and any impl with a mask) stays full attention
+over the whole sequence, its keys and values gathered over the axis and
+the mask's rows of this rank taken (what GSPMD inserts in JAX); full
+attention on the kernel (``"flash"`` without a window) gathers q too, runs
+``mha`` on the whole sequence and keeps this rank's rows. Without such a
+mesh, dispatch is as without ``seq_axis``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from tchvp_tpu_torch.ops import dispatch_trace
 from tchvp_tpu_torch.ops.blocks import Dense
-from tchvp_tpu_torch.parallel.collectives import all_reduce_sum, ppermute
+from tchvp_tpu_torch.parallel.collectives import all_reduce_sum, ppermute, ring_shift
 from tchvp_tpu_torch.parallel.mesh import axis_group, axis_shards, mesh_with_axis
 
 _INT32_MAX = 2**31 - 1
@@ -265,6 +272,110 @@ def _gather_seq(x: torch.Tensor, mesh, seq_axis: str) -> torch.Tensor:
     return all_reduce_sum(full, axis_group(mesh, seq_axis))
 
 
+def _ring_block(q: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                acc: torch.Tensor, seed: Optional[torch.Tensor], scale: float, rate: float
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One streaming-softmax update of (m, l, acc) against the k/v block
+    ``kb``/``vb``, all fp32. Dropout (``seed``, a (1,) int32 tensor) scales
+    the unnormalised weights by the block's counter-based keep mask, the
+    denominator keeping every key (dropout after the softmax)."""
+    from tchvp_tpu_torch.kernels.flash_attention import _keep_mask
+
+    with torch.autocast(q.device.type, enabled=False):
+        logits = _fp32_logits("bhqd,bhkd->bhqk", q, kb) * scale
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        p = torch.exp(logits - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        if seed is not None:
+            b, h, s_q, s_k = p.shape
+            bh = torch.arange(b * h, device=q.device).reshape(b, h)
+            p = p * _keep_mask(seed, bh, s_q, s_k, rate) / (1.0 - rate)
+        acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, vb.float())
+    return m_new, l, acc
+
+
+def sdpa_ring_seq_sharded(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    seq_axis: str,
+    scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    loop: str = "auto",
+    remat: bool = True,
+    dropout_draw: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Ring attention: full all-pairs attention over this rank's (B, H, S/n,
+    Dh) block of seq-sharded tokens, which never gather (JAX's
+    ``sdpa_ring_seq_sharded``).
+
+    The k/v blocks rotate one :func:`ring_shift` hop a step (rank i sends to
+    rank i + 1 mod n, JAX's ``perm``), so at step i rank ``my`` holds the
+    block of rank (my - i) mod n; a streaming softmax carries the fp32 row
+    max m, denominator l and numerator over the n steps, and the result is
+    ``acc / l`` in v's dtype. Memory is O(S/n * S/n) transient logits per
+    hop. ``loop``: JAX's loop form, ``"unroll"``, ``"scan"`` (marker
+    ``ring_shard_map_scan``) or ``"auto"`` (scan for n > 8); in the port
+    every form is the same Python loop of n - 1 hops (JAX's scan makes one
+    more, whose result nothing reads). ``remat``: each
+    hop's block update runs under ``torch.utils.checkpoint``, so the
+    backward holds the hops' O(S/n * Dh) inputs, not n fp32 probability
+    blocks.
+
+    Dropout: ``dropout_draw`` is the (n, n) table of int32 seeds of
+    :func:`draw_attention_dropout` (core ``"ring"``), the same on every
+    rank; block (query shard ``my``, key block ``src``) takes seed
+    ``[my, src]`` and builds its keep mask on the device from the block's
+    local (row, col) indices, so each (query, key) pair has one draw
+    whatever the ring position or loop form, and no S x S mask is formed.
+    Without a mesh carrying ``seq_axis`` this is :func:`sdpa_xla` (marker
+    ``ring_fallback``), ``dropout_draw`` then its keep mask. The blocks are
+    equal shares of the sequence: JAX's S % n error is raised where the
+    whole sequence is cut (``parallel.shard_frames``)."""
+    mesh = _seq_mesh(seq_axis)
+    if mesh is None:
+        dispatch_trace.record("ring_fallback")
+        return sdpa_xla(q, k, v, scale=scale, dropout_rate=dropout_rate, generator=generator,
+                        deterministic=deterministic, dropout_keep=dropout_draw)
+    n, my = axis_shards(seq_axis)
+    b, h, s, dh = q.shape
+    group = axis_group(mesh, seq_axis)
+    if loop not in ("auto", "unroll", "scan"):
+        raise ValueError(f"loop must be auto|unroll|scan, got {loop!r}")
+    scan = loop == "scan" or (loop == "auto" and n > 8)
+    scale = 1.0 / math.sqrt(dh) if scale is None else scale
+    drop_on = dropout_rate > 0.0 and not deterministic
+    if drop_on and dropout_draw is None:
+        dropout_draw = draw_attention_dropout("ring", (b, h, s), dropout_rate, generator, q.device,
+                                              shards=(n, my))
+    dispatch_trace.record("ring_shard_map_scan" if scan else "ring_shard_map")
+    block = functools.partial(_ring_block, scale=scale, rate=dropout_rate)
+    if remat:
+        block = functools.partial(checkpoint, block, use_reentrant=False, preserve_rng_state=False)
+    m = q.new_full((b, h, s, 1), -math.inf, dtype=torch.float32)
+    l = q.new_zeros((b, h, s, 1), dtype=torch.float32)
+    acc = q.new_zeros((b, h, s, dh), dtype=torch.float32)
+    kb, vb = k, v
+    for i in range(n):
+        src = (my - i) % n
+        seed = dropout_draw[my, src:src + 1] if drop_on else None
+        m, l, acc = block(q, kb, vb, m, l, acc, seed)
+        if i + 1 < n:
+            kb, vb = ring_shift(kb, group), ring_shift(vb, group)
+    return (acc / l).to(v.dtype)
+
+
+def _seq_rows(x: torch.Tensor, dim: int, seq_axis: str) -> torch.Tensor:
+    """This rank's block of the whole sequence's ``x`` along ``dim``."""
+    n, i = axis_shards(seq_axis)
+    s = x.shape[dim] // n
+    return x.narrow(dim, i * s, s)
+
+
 def resolve_impl(impl: str, is_cuda: bool, has_mask: bool, window_size: int = 0) -> str:
     """``"auto"`` -> the core it stands for: ``"flash"`` on CUDA without a
     mask, as the JAX package takes its Pallas kernels on the accelerator;
@@ -280,9 +391,11 @@ def resolve_impl(impl: str, is_cuda: bool, has_mask: bool, window_size: int = 0)
 
 def attention_core(impl: str, has_mask: bool, window_size: int) -> str:
     """The core a resolved ``impl`` runs, by the JAX package's rules:
-    ``"flash"`` or ``"flash_windowed"`` (the kernels), ``"windowed"`` (the
-    dense band) or ``"xla"`` (full dense attention, also for ``"xla"`` with
-    a window, ``"windowed"`` without one, and any mask)."""
+    ``"ring"``, ``"flash"`` or ``"flash_windowed"`` (the kernels),
+    ``"windowed"`` (the dense band) or ``"xla"`` (full dense attention, also
+    for ``"xla"`` with a window, ``"windowed"`` without one, and any mask)."""
+    if impl == "ring":
+        return "ring"
     if impl == "flash" and not has_mask:
         return "flash_windowed" if window_size > 0 else "flash"
     if impl == "windowed" and window_size > 0 and not has_mask:
@@ -315,29 +428,38 @@ def multi_head_attention(
 
     ``seq_axis``: under a mesh carrying it (module docstring) the tokens
     are this rank's block of the sequence: a banded impl without a mask
-    runs :func:`sdpa_windowed_seq_sharded`, ``"xla"`` full attention over
-    the gathered keys; the full-attention kernel and masks are not ported
-    there and raise.
+    runs :func:`sdpa_windowed_seq_sharded`, ``"ring"``
+    :func:`sdpa_ring_seq_sharded`, the full-attention kernel ``mha`` over
+    the gathered sequence, and ``"xla"`` (or a mask) the dense core over the
+    gathered keys. A mask is (B, 1, S, S) over the whole sequence or
+    (B, 1, S/n, S) of this rank's rows.
+
+    ``impl="ring"`` raises JAX's ``ValueError`` with a mask, with a window
+    or without ``seq_axis``.
     """
     impl = resolve_impl(impl, q.is_cuda, mask is not None, window_size)
-    if impl == "ring":
-        raise NotImplementedError(
-            "impl='ring' is not ported yet (ROADMAP.md, modules to port, item 11: ring attention)"
-        )
-    if impl not in ("xla", "flash", "windowed"):
+    if impl not in ("xla", "flash", "windowed", "ring"):
         raise ValueError(f"unknown attention impl {impl!r}")
+    if impl == "ring":
+        if mask is not None:
+            raise ValueError("impl='ring' does not support attention masks")
+        if window_size > 0:
+            raise ValueError("impl='ring' computes FULL attention; use impl='windowed' "
+                             "or 'flash' for banded windows under sequence sharding")
+        if seq_axis is None:
+            raise ValueError("impl='ring' requires seq_axis")
     core = attention_core(impl, mask is not None, window_size)
     mesh = _seq_mesh(seq_axis)
-    if mesh is not None and (mask is not None or core == "flash"):
-        raise NotImplementedError(
-            "full attention with a mask or the flash kernel over seq-sharded tokens is not ported "
-            "yet (ROADMAP.md, modules to port, item 11: parallelism)")
     shards = axis_shards(seq_axis)
     drop_active = dropout_rate > 0.0 and not deterministic
     qh, kh, vh = (_split_heads(t, num_heads) for t in (q, k, v))
     if drop_active and dropout_draw is None:
         dropout_draw = draw_attention_dropout(core, tuple(qh.shape[:3]), dropout_rate, generator,
                                               q.device, window_size, shards)
+    if core == "ring":
+        return _merge_heads(sdpa_ring_seq_sharded(
+            qh, kh, vh, seq_axis=seq_axis, scale=scale, dropout_rate=dropout_rate,
+            generator=generator, deterministic=deterministic, dropout_draw=dropout_draw))
     if mesh is not None and core in ("windowed", "flash_windowed"):
         # Only a resolved impl that already means banded attention: "xla"
         # computes full attention whatever window_size says, and sharding
@@ -347,9 +469,16 @@ def multi_head_attention(
             dropout_rate=dropout_rate, generator=generator, deterministic=deterministic,
             use_flash=core == "flash_windowed", dropout_draw=dropout_draw)
         return _merge_heads(out)
+    gathered_q = False
     if mesh is not None:
         dispatch_trace.record("seq_gathered")
+        if mask is not None and mask.shape[-2] == shards[0] * qh.shape[2]:
+            mask = _seq_rows(mask, mask.dim() - 2, seq_axis)
         kh, vh = _gather_seq(kh, mesh, seq_axis), _gather_seq(vh, mesh, seq_axis)
+        if core == "flash":
+            # mha takes q, k and v of one shape: the kernel runs on the
+            # whole sequence, its seed the unsharded call's on every rank.
+            qh, gathered_q = _gather_seq(qh, mesh, seq_axis), True
     if core in ("flash", "flash_windowed"):
         from tchvp_tpu_torch.kernels import flash_attention
 
@@ -364,6 +493,8 @@ def multi_head_attention(
         else:
             dispatch_trace.record("flash_mha")
             out = flash_attention.mha(qh, kh, vh, scale=scale, dropout_rate=rate, dropout_seed=seed)
+        if gathered_q:
+            out = _seq_rows(out, 2, seq_axis)
     elif core == "windowed":
         out = sdpa_windowed(
             qh, kh, vh, window_size=window_size, scale=scale, dropout_rate=dropout_rate,
@@ -385,16 +516,28 @@ def draw_attention_dropout(
     """The randomness of one attention call's weight dropout, from
     ``generator``, for the :func:`attention_core` ``core``: for the kernels
     a (1,) int32 seed in [0, 2^31 - 1) on ``device``; for the dense band the
-    (B, H, S/w, w, 2w) boolean keep mask; for the dense core (B, H, S, S).
+    (B, H, S/w, w, 2w) boolean keep mask; for the dense core (B, H, S, S);
+    for the ring an (n, n) table of int32 seeds on ``device``, one per
+    (query shard, key block), as JAX folds both into its key.
 
     ``shards`` (n, i): under sequence parallelism ``bhs`` is rank i's
     (B, H, S/n) block of n. The draw is made for all n ranks at once, the
-    same on each (n seeds for the kernels, one per shard as JAX folds the
-    shard index into its key; the global keep mask for the dense cores),
-    and rank i's part comes back: its seed, its windows, its query rows."""
+    same on each, and rank i's part comes back: the halo kernels' seed i of
+    n (one per shard, as JAX folds the shard index into its key), the dense
+    cores' windows or query rows of the global keep mask, the whole ring
+    table. ``"flash"`` (full attention) runs on the gathered sequence, so
+    it draws the one seed of the unsharded call; the ring without a mesh
+    is the dense core."""
     if generator is None:
         raise ValueError("active attention dropout requires a torch.Generator")
     n, i = shards
+    if core == "ring" and n > 1:
+        return torch.randint(0, _INT32_MAX, (n, n), generator=generator, device=generator.device,
+                             dtype=torch.int32).to(device)
+    if core == "ring":
+        core = "xla"
+    if core == "flash":
+        n, i = 1, 0
     if core in ("flash", "flash_windowed"):
         seeds = torch.randint(0, _INT32_MAX, (n,), generator=generator,
                               device=generator.device, dtype=torch.int32)
@@ -409,17 +552,19 @@ def draw_attention_dropout(
 
 class TorchMultiheadAttention(nn.Module):
     """Attention numerically matching ``torch.nn.MultiheadAttention``:
-    q/k/v in-projections and the out-projection, with biases, around :func:`multi_head_attention` at the 1/sqrt(head_dim) scale. The
-    core used by every FCT block; ``impl`` selects it ("xla", "flash" or
-    "auto"). Parameter names are the JAX layer's; its window, mask and
-    ``seq_axis`` wait for a caller (FCT passes none of them)."""
+    q/k/v in-projections and the out-projection, with biases, around
+    :func:`multi_head_attention` at the 1/sqrt(head_dim) scale. The core
+    used by every FCT block; ``impl`` selects it ("xla", "flash", "auto" or
+    "ring", which needs ``seq_axis``). Parameter names are the JAX layer's;
+    its window and mask wait for a caller (FCT passes neither)."""
 
-    def __init__(self, features: int, num_heads: int, impl: str = "xla"):
+    def __init__(self, features: int, num_heads: int, impl: str = "xla", seq_axis: Optional[str] = None):
         super().__init__()
         if features % num_heads:
             raise ValueError(f"features {features} not divisible by num_heads {num_heads}")
         self.num_heads = num_heads
         self.impl = impl
+        self.seq_axis = seq_axis
         self.q_proj = Dense(features, features)
         self.k_proj = Dense(features, features)
         self.v_proj = Dense(features, features)
@@ -428,5 +573,5 @@ class TorchMultiheadAttention(nn.Module):
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
         """(B, Sq, D) queries, (B, Sk, D) keys and values -> (B, Sq, D)."""
         out = multi_head_attention(self.q_proj(query), self.k_proj(key), self.v_proj(value),
-                                   self.num_heads, impl=self.impl)
+                                   self.num_heads, impl=self.impl, seq_axis=self.seq_axis)
         return self.out_proj(out)

@@ -391,10 +391,13 @@ def init_flax_default(module: nn.Module, generator: torch.Generator) -> nn.Modul
     """Initialise like flax's defaults, from ``generator``: conv, transposed
     conv and linear weights lecun-normal (truncated at 2 sigma, fan-in over
     input channels x kernel taps), biases zero, norm scales one and shifts
-    zero, BN running stats (0, 1)."""
+    zero, BN running stats (0, 1); a module with its own ``init_flax``
+    (the MoE pool) draws its parameters there, in module order."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            if hasattr(m, "init_flax"):
+                m.init_flax(generator)
+            elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
                 w = m.weight
                 if isinstance(m, nn.ConvTranspose2d):
                     fan_in = w.shape[0] * w[0, 0].numel()

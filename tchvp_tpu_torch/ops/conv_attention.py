@@ -132,7 +132,8 @@ class ConvProjAttention(nn.Module):
     their defaults: no caller sets them."""
 
     def __init__(self, channels: int, num_heads: int, attn_impl: str = "xla", stride_q: int = 1,
-                 stride_kv: int = 1, padding_q: Padding = "same", padding_kv: Padding = "same"):
+                 stride_kv: int = 1, padding_q: Padding = "same", padding_kv: Padding = "same",
+                 seq_axis: Optional[str] = None):
         super().__init__()
         del padding_kv  # dead in the reference too
 
@@ -145,7 +146,7 @@ class ConvProjAttention(nn.Module):
         self.layernorm_q = nn.LayerNorm(channels, eps=LN_EPS)
         self.layernorm_k = nn.LayerNorm(channels, eps=LN_EPS)
         self.layernorm_v = nn.LayerNorm(channels, eps=LN_EPS)
-        self.attention = TorchMultiheadAttention(channels, num_heads, impl=attn_impl)
+        self.attention = TorchMultiheadAttention(channels, num_heads, impl=attn_impl, seq_axis=seq_axis)
 
     @staticmethod
     def _project(conv: nn.Module, norm: nn.LayerNorm, x: torch.Tensor):
@@ -197,10 +198,11 @@ class SpatialTransformer(nn.Module):
     two residual branches per sample in train mode (0.0: never)."""
 
     def __init__(self, channels: int, num_heads: int, attn_impl: str = "xla",
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, seq_axis: Optional[str] = None):
         super().__init__()
         self.drop_path_rate = drop_path_rate
-        self.attention_output = ConvProjAttention(channels, num_heads, attn_impl=attn_impl)
+        self.attention_output = ConvProjAttention(channels, num_heads, attn_impl=attn_impl,
+                                                  seq_axis=seq_axis)
         self.conv1 = PaddedConv2d(channels, channels, 3)
         self.layernorm = nn.LayerNorm(channels, eps=LN_EPS)
         self.wide_focus = WideFocus(channels)

@@ -12,6 +12,7 @@ from tchvp_tpu_torch.parallel.mesh import (
     make_mesh,
     mesh_with_axis,
     shard_frames,
+    with_current_mesh,
 )
 
 __all__ = [
@@ -24,4 +25,5 @@ __all__ = [
     "make_mesh",
     "mesh_with_axis",
     "shard_frames",
+    "with_current_mesh",
 ]

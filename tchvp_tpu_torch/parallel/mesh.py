@@ -80,6 +80,23 @@ def activate_mesh(mesh: DeviceMesh) -> Iterator[DeviceMesh]:
         _ambient.reset(token)
 
 
+def with_current_mesh(fn):
+    """``fn`` run under the mesh in scope now (or none), wherever it is
+    called: the recompute of a checkpointed region runs in the backward,
+    which on CUDA runs on the autograd engine's own thread, and a thread
+    does not see another's :func:`activate_mesh` scope."""
+    mesh = ambient_mesh()
+
+    def run(*args):
+        token = _ambient.set(mesh)
+        try:
+            return fn(*args)
+        finally:
+            _ambient.reset(token)
+
+    return run
+
+
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
     """The number of ranks along ``axis``."""
     return mesh.size(mesh.mesh_dim_names.index(axis))
@@ -114,9 +131,9 @@ def shard_frames(clip: torch.Tensor, mesh: DeviceMesh, seq_axis: str, seq_dim: i
     """This rank's contiguous block of ``clip``'s frame dim (``seq_dim``)
     along ``seq_axis``: the counterpart of ``shard_batch(seq_axis=...,
     seq_dim=1)``, which GSPMD splits the same way. The frames must divide
-    evenly."""
+    evenly (JAX's error for a sequence the axis does not divide)."""
     n, i = axis_size(mesh, seq_axis), mesh.get_local_rank(seq_axis)
     t = clip.shape[seq_dim]
     if t % n:
-        raise ValueError(f"{t} frames do not split over {seq_axis}={n}")
+        raise ValueError(f"seq len {t} not divisible by {seq_axis}={n}")
     return clip.narrow(seq_dim, i * (t // n), t // n)

@@ -23,7 +23,7 @@ rename does for the JAX package, so :func:`prune_step_dirs` can neither
 list nor delete a save in flight. ``async_write=True`` copies device ->
 host now and writes on one background thread; :func:`wait_for_async_saves`
 and :func:`latest_step_dir` join it and raise the first error the writer
-met. Sharded states are item 11 of ROADMAP.md and raise.
+met. Sharded states are item 11d of ROADMAP.md and raise.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ from tchvp_tpu_torch.train.state import TrainState
 PAYLOAD = "state.pt"
 FORMAT = "tchvp_tpu_torch/1"
 _SHARDED = ("sharded checkpoints are not ported yet "
-            "(ROADMAP.md, modules to port, item 11: parallelism)")
+            "(ROADMAP.md, modules to port, item 11d: FSDP and sharded checkpoints)")
 
 
 class _AsyncWriter:
@@ -140,11 +140,23 @@ def save_state(
     ``async_write=True``: the device -> host copy happens now, the disk
     write on the background writer, so the loop overlaps IO with the next
     steps; :func:`wait_for_async_saves` joins it. ``sharded=True`` raises
-    (item 11)."""
+    (item 11d)."""
     if sharded:
         raise NotImplementedError(_SHARDED)
+    return save_payload(directory, step, _payload(step, state, extra), async_write)
+
+
+def snapshot(state, step: int, extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """The payload :func:`save_state` would write for ``state``, as host
+    copies (a caller may rewrite it, as an expert-parallel save gathers
+    the experts, before :func:`save_payload`)."""
+    return _payload(step, state, extra)
+
+
+def save_payload(directory: str, step: int, payload: Dict[str, Any], async_write: bool = False) -> str:
+    """Write a :func:`snapshot` payload under ``directory/step_{step}`` as
+    :func:`save_state` does; returns the path."""
     path = os.path.join(os.path.abspath(directory), f"step_{step}")
-    payload = _payload(step, state, extra)
     if async_write:
         _WRITER.submit(_write, path, payload)
     else:
@@ -240,7 +252,11 @@ def _check_generators(state: TrainState, gens: Dict[str, torch.Tensor]) -> None:
 def _restore_optimizer(tx, opt: Dict[str, Any]) -> None:
     index = {id(p): i for i, p in enumerate(tx.trainable)}
     live = tx.core.state_dict()
-    tx.core.load_state_dict({"state": {index[id(tx.named[n])]: st for n, st in opt["moments"].items()},
+    # Copies: torch's load_state_dict keeps the given tensors, which the
+    # next step would then update inside the caller's payload.
+    tx.core.load_state_dict({"state": {index[id(tx.named[n])]: {k: v.clone() if torch.is_tensor(v) else v
+                                                                for k, v in st.items()}
+                                       for n, st in opt["moments"].items()},
                              "param_groups": live["param_groups"]})
     tx.count = int(opt["count"])
     tx.notfinite_count = int(opt["notfinite_count"])
@@ -256,7 +272,7 @@ def restore_state_into(state: TrainState, path: str, sharded: Optional[bool] = N
     anything is written (:func:`load_payload`).
 
     Returns ``(state, raw)``, ``raw`` the payload (for ``step`` and
-    ``extra``). ``sharded=True`` raises (item 11)."""
+    ``extra``). ``sharded=True`` raises (item 11d)."""
     if sharded:
         raise NotImplementedError(_SHARDED)
     raw = restore_state(path)

@@ -29,7 +29,11 @@ step, when one is given.
 
 Under a mesh of several ranks the parameters stay bit-equal across ranks
 (``train/steps.py``), so rank 0 alone writes checkpoints, the TAG_SCHEME
-marker and the event files; every rank computes the same tags.
+marker and the event files; every rank computes the same tags. Under an
+``expert`` mesh each rank holds only its experts (``ops/moe.py``): a save
+gathers them, their moments and their EMA whole to rank 0, so the
+checkpoint is the unsharded model's, and a resume gives each rank its
+slice back.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ from tchvp_tpu_torch.config import AugmentConfig, ResNetAEConfig, TrainConfig
 from tchvp_tpu_torch.data import pipeline
 from tchvp_tpu_torch.data.device_prefetch import DevicePrefetch
 from tchvp_tpu_torch.ops.sobel import sobel_edges
-from tchvp_tpu_torch.parallel import activate_mesh
+from tchvp_tpu_torch.parallel import activate_mesh, axis_group, axis_size
+from tchvp_tpu_torch.parallel.collectives import all_gather_cat
 from tchvp_tpu_torch.train import checkpoint as ckpt
 from tchvp_tpu_torch.train import steps as steps_lib
 from tchvp_tpu_torch.train.health import HealthMonitor, TrainingDiverged, recover_latest
@@ -127,8 +132,8 @@ class _FlowBase:
 def _no_mesh(mesh, what: str) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            f"meshes for {what} are not ported yet (ROADMAP.md, modules to port, item 11: "
-            "parallelism)")
+            f"meshes for {what} are not ported yet (ROADMAP.md, modules to port, item 11c: "
+            "data parallelism)")
 
 
 def _host_sums(sums: Optional[Dict[str, torch.Tensor]], keys) -> Dict[str, float]:
@@ -173,19 +178,29 @@ class VideoFlow(_FlowBase):
         pipe_microbatches: Optional[int] = None,
         pipe_batch_axis: str = "data",
         aug: AugmentConfig = AugmentConfig(),
+        ep_axis: Optional[str] = None,
     ):
         super().__init__(cfg, mesh, next(model.parameters()).device)
         if pipe_axis:
             raise NotImplementedError(
                 "pipe_axis (pipelined training) is not ported yet "
-                "(ROADMAP.md, modules to port, item 11: parallel/pipeline.py)")
+                "(ROADMAP.md, modules to port, item 11f: parallel/pipeline.py)")
         if sp_axis:
             raise NotImplementedError(
                 "sp_axis (spatial partitioning) is not ported yet "
-                "(ROADMAP.md, modules to port, item 11: parallelism)")
-        if seq_axis is not None and seq_axis != model.config.temporal.seq_axis:
-            raise ValueError(f"seq_axis={seq_axis!r} must match the model config's "
-                             f"temporal.seq_axis={model.config.temporal.seq_axis!r}")
+                "(ROADMAP.md, modules to port, item 11e: tensor and spatial parallelism)")
+        for name, axis in (("seq_axis", seq_axis), ("ep_axis", ep_axis)):
+            want = getattr(getattr(getattr(model, "config", None), "temporal", None), name, None)
+            if axis is not None and axis != want:
+                raise ValueError(f"{name}={axis!r} must match the model config's "
+                                 f"temporal.{name}={want!r}")
+        self.ep_axis = ep_axis
+        self.expert_names = []
+        if ep_axis is not None and mesh is not None:
+            from tchvp_tpu_torch.ops.moe import shard_experts
+
+            with activate_mesh(mesh):
+                self.expert_names = shard_experts(model, ep_axis)
         self.model = model
         self.image_size = image_size
         self.state: Optional[TrainState] = None
@@ -228,13 +243,17 @@ class VideoFlow(_FlowBase):
         the exact next batch. A mid-epoch checkpoint with non-seekable data
         falls back to replaying the whole epoch (with a warning). A
         checkpoint of another layout fails with the restore's own error
-        (the JAX package's layout-elastic resume needs item 11)."""
+        (the JAX package's layout-elastic resume needs item 11f)."""
         path = ckpt.latest_step_dir(self.cfg.checkpoint_dir)
         if path is None:
             return 0
         if self.state is None:
             self.init_state(clip_len)
-        self.state, raw = ckpt.restore_state_into(self.state, path)
+        if self.expert_names:
+            raw = self._local_experts(ckpt.restore_state(path))
+            self.state = ckpt.load_payload(self.state, raw)
+        else:
+            self.state, raw = ckpt.restore_state_into(self.state, path)
         extra = raw.get("extra") or {}
         epoch = int(extra.get("train_epoch", raw.get("step", 0)))
         pos = extra.get("data_position")
@@ -257,7 +276,42 @@ class VideoFlow(_FlowBase):
             extra["data_position"] = data.position()
         return extra
 
+    def _expert_tensors(self, payload: Dict[str, Any]):
+        """(dict, key) of every expert-sharded tensor of a checkpoint
+        payload: the model's entries, their moments and their EMA."""
+        opt = payload.get("opt_state") or {}
+        for name in self.expert_names:
+            yield payload["model"], name
+            for key, val in (opt.get("moments", {}).get(name) or {}).items():
+                if val.dim() > 0:
+                    yield opt["moments"][name], key
+            if opt.get("ema") is not None:
+                yield opt["ema"], name
+
+    def _gather_experts(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        """The payload with every rank's experts gathered whole (every rank
+        takes part; the ranks' slices are in rank order)."""
+        group = axis_group(self.mesh, self.ep_axis)
+        for holder, key in list(self._expert_tensors(payload)):
+            holder[key] = all_gather_cat(holder[key], group)
+        return payload
+
+    def _local_experts(self, raw: Dict[str, Any]) -> Dict[str, Any]:
+        """A whole checkpoint's payload cut to this rank's experts."""
+        n, i = axis_size(self.mesh, self.ep_axis), self.mesh.get_local_rank(self.ep_axis)
+        for holder, key in list(self._expert_tensors(raw)):
+            e = holder[key].shape[0] // n
+            holder[key] = holder[key].narrow(0, i * e, e).clone()
+        return raw
+
     def _save(self, tag: int, epoch: int, data: Any) -> None:
+        if self.expert_names:
+            payload = self._gather_experts(ckpt.snapshot(self.state, tag, self._ckpt_extra(epoch, data)))
+            if _rank() == 0:
+                ckpt.save_payload(self.cfg.checkpoint_dir, tag, payload,
+                                  async_write=self.cfg.async_checkpoint)
+                ckpt.prune_step_dirs(self.cfg.checkpoint_dir, self.cfg.keep_checkpoints)
+            return
         if _rank() != 0:
             return
         ckpt.save_state(self.cfg.checkpoint_dir, tag, self.state,
@@ -391,7 +445,8 @@ class SegmentationFlow(_FlowBase):
         if mesh is not None or sp_axis:
             raise NotImplementedError(
                 "meshes and sp_axis (spatial partitioning) for segmentation are not ported yet "
-                "(ROADMAP.md, modules to port, item 11: parallelism)")
+                "(ROADMAP.md, modules to port, item 11c: data parallelism, and item 11e: "
+                "tensor and spatial parallelism)")
         super().__init__(cfg, mesh, next(model.parameters()).device)
         self.model = model
         self.image_size = image_size

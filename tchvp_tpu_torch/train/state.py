@@ -165,9 +165,45 @@ class Optimizer:
         if spec.ema_decay > 0.0:
             self.ema = {n: p.detach().clone() for n, p in self.named.items()}
 
+    def _ep_group(self):
+        """The process group of the expert-sharded parameters (those that
+        carry an ``ep_group``, ``ops/moe.py::shard_experts``), or None."""
+        return next((p.ep_group for p in self.named.values()
+                     if getattr(p, "ep_group", None) is not None), None)
+
     def _all_finite(self) -> bool:
+        """Whether every gradient is finite. Under expert sharding a rank
+        holds only its experts' gradients, so the ranks decide together: the
+        count of non-finite ones is summed over the group, and every rank
+        skips or none does."""
         grads = [p.grad for p in self.named.values() if p.grad is not None]
-        return bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        bad = (~torch.stack([torch.isfinite(g).all() for g in grads])).sum()
+        group = self._ep_group()
+        if group is not None:
+            from tchvp_tpu_torch.parallel.collectives import all_reduce_sum
+
+            bad = all_reduce_sum(bad.float(), group)
+        return not bool(bad)
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of the gradients. Parameters that carry an
+        ``ep_group`` are this rank's slice of an expert-sharded tensor:
+        their squares are summed over the group (the replicated rest is the
+        same on every rank)."""
+        sharded = [p.grad for p in self.trainable
+                   if p.grad is not None and getattr(p, "ep_group", None) is not None]
+        if not sharded:
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        from tchvp_tpu_torch.parallel.collectives import all_reduce_sum
+
+        ids = {id(g) for g in sharded}
+        rest = [g for g in grads if id(g) not in ids]
+        group = self._ep_group()
+        sq = torch.stack(torch._foreach_norm(sharded)).pow(2).sum()
+        sq = all_reduce_sum(sq.detach(), group)
+        if rest:
+            sq = sq + torch.stack(torch._foreach_norm(rest)).pow(2).sum()
+        return sq.sqrt()
 
     @torch.no_grad()
     def step(self) -> bool:
@@ -182,7 +218,7 @@ class Optimizer:
                     return False
         grads = [p.grad for p in self.trainable if p.grad is not None]
         if spec.grad_clip_norm is not None and grads:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = self._global_norm(grads)
             factor = torch.where(norm < spec.grad_clip_norm, 1.0, spec.grad_clip_norm / norm)
             torch._foreach_mul_(grads, factor)
         lr = lr_at(self.schedule, self.count)

@@ -34,17 +34,35 @@ running stats alone, so they move once per forward as in JAX. A frame AE
 (``models/frame_ae.py``) has no stages: ``"stages"`` recomputes its whole
 forward, as JAX's policy, saving no named tensor there, does.
 
+The routed MoE (``moe_aux_weight > 0``): the objective is the loss plus
+``moe_aux_weight`` x the MoE layers' summed load-balance loss, and the
+metrics gain ``moe_aux`` and ``moe_drop_frac`` (means over microbatches).
+JAX sows both; here each checkpointed region collects them in a sink of its
+own and returns them as outputs, so the aux loss's gradient reaches the
+router under every remat policy and a recompute appends nothing the step
+reads.
+
 Sequence parallelism: when the model's ``config.temporal.seq_axis`` is on
 an ambient mesh with size > 1 (``parallel.mesh.mesh_with_axis``), every
 rank is given the same global clip and keeps its block of the frames. The
 noise and the dropout draws are made at the global shape from the shared
 generators, the same on every rank, and each rank keeps its part. Each rank
 backpropagates its local loss; the collectives' adjoints carry the other
-ranks' cotangents, so the gradients' mean over the axis, all-reduced before
-clipping and the update, is the global loss's gradient, and the parameters
-stay bit-equal across ranks. Loss, MSE and PSNR come back global. The
-remat policies other than ``"none"`` and ``accum_steps > 1`` are not ported
-there and raise.
+ranks' cotangents, so the gradients' mean over the axis, all-reduced once a
+step before clipping and the update, is the global loss's gradient, and the
+parameters stay bit-equal across ranks. Loss, MSE and PSNR come back
+global. Every remat policy and ``accum_steps`` hold there: a recompute
+runs the halo exchange, the ring hops and the BatchNorm all-reduces again,
+in the same order on every rank, and moves no running stat; a microbatch
+is a slice of the batch dim, so it is the global clip's microbatch's frames.
+
+Expert parallelism: when ``config.temporal.ep_axis`` is on an ambient mesh,
+each rank runs the whole model on the whole batch but only its experts
+(``ops/moe.py``); everything outside the experts is computed alike on every
+rank, so the replicated parameters' gradients are averaged over the axis
+(which keeps them bit-equal) and the experts' are the rank's own. The
+global-norm clip sums the experts' squares over the axis
+(``train/state.py``).
 """
 
 from __future__ import annotations
@@ -64,8 +82,15 @@ from tchvp_tpu_torch import losses
 from tchvp_tpu_torch.config import AugmentConfig
 from tchvp_tpu_torch.data import pipeline
 from tchvp_tpu_torch.ops.blocks import frozen_batch_stats, with_current_hook
+from tchvp_tpu_torch.ops.moe import mean_dropped_fraction, moe_layers, total_load_balance_loss
 from tchvp_tpu_torch.parallel.collectives import all_reduce_mean_, all_reduce_sum
-from tchvp_tpu_torch.parallel.mesh import axis_group, axis_size, mesh_with_axis, shard_frames
+from tchvp_tpu_torch.parallel.mesh import (
+    axis_group,
+    axis_size,
+    mesh_with_axis,
+    shard_frames,
+    with_current_mesh,
+)
 from tchvp_tpu_torch.train.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -114,6 +139,13 @@ def _seq_axis(model: torch.nn.Module) -> Optional[str]:
     return axis if mesh_with_axis(axis) is not None else None
 
 
+def _ep_axis(model: torch.nn.Module) -> Optional[str]:
+    """The model's expert-parallel axis when an ambient mesh carries it."""
+    temporal = getattr(getattr(model, "config", None), "temporal", None)
+    axis = temporal.ep_axis if temporal is not None else None
+    return axis if mesh_with_axis(axis) is not None and moe_layers(model) else None
+
+
 def _global_mean(x: torch.Tensor, seq_axis: Optional[str]) -> torch.Tensor:
     """A per-rank mean over equal shares as the mean over the axis."""
     if seq_axis is None:
@@ -135,24 +167,49 @@ def _qat_scope(qat: bool, dense: bool):
     return qat_fake_quant(dense=dense)
 
 
-def _remat_forward(model: torch.nn.Module, x: torch.Tensor, draws, policy: str
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(tokens, recon) of the train-mode forward under ``policy``."""
+def _moe_totals(sink) -> Tuple[torch.Tensor, torch.Tensor]:
+    return total_load_balance_loss(sink), mean_dropped_fraction(sink)
+
+
+def _remat_forward(model: torch.nn.Module, x: torch.Tensor, draws, policy: str, moe: bool = False
+                   ) -> Tuple[torch.Tensor, ...]:
+    """(tokens, recon) of the train-mode forward under ``policy``; with
+    ``moe``, (tokens, recon, aux, dropped fraction), each checkpointed
+    region collecting the MoE stats in a sink of its own and returning
+    them."""
+    def whole(c):
+        if not moe:
+            return model(c, draws=draws)
+        sink: list = []
+        return model(c, draws=draws, moe_sink=sink) + _moe_totals(sink)
+
+    def temporal(t):
+        if not moe:
+            return model.temporal_mix(t, draws=draws)
+        sink: list = []
+        return (model.temporal_mix(t, draws=draws, moe_sink=sink),) + _moe_totals(sink)
+
     if policy == "none":
-        return model(x, draws=draws)
-    # Each region carries the conv hook in scope now (QAT's fake quant)
-    # into its recompute, which runs on the autograd engine's thread.
+        return whole(x)
     ckpt = functools.partial(checkpoint, use_reentrant=False, preserve_rng_state=False)
+
+    def region(fn):
+        # A region carries the conv hook (QAT's fake quant) and the mesh in
+        # scope now into its recompute, which runs on the autograd engine's
+        # thread on CUDA; BatchNorm's running stats move once.
+        return _stats_once(model, with_current_mesh(with_current_hook(fn)))
+
     if policy == "full" or (policy == "stages" and not hasattr(model, "temporal_mix")):
-        return ckpt(_stats_once(model, with_current_hook(lambda c: model(c, draws=draws))), x)
+        return ckpt(region(whole), x)
     if policy == "dots":
-        return ckpt(_stats_once(model, with_current_hook(lambda c: model(c, draws=draws))), x,
+        return ckpt(region(whole), x,
                     context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
     # "stages": only the clip and the two stage-boundary token tensors stay.
-    tokens, hw = ckpt(_stats_once(model, with_current_hook(lambda c: model.encode_clip(c, draws=draws))), x)
-    tokens = ckpt(with_current_hook(lambda t: model.temporal_mix(t, draws=draws)), tokens)
-    recon = ckpt(_stats_once(model, with_current_hook(lambda t: model.decode_tokens(t, hw))), tokens)
-    return tokens, recon
+    tokens, hw = ckpt(region(lambda c: model.encode_clip(c, draws=draws)), x)
+    mixed = ckpt(region(temporal), tokens)
+    tokens, rest = (mixed[0], mixed[1:]) if moe else (mixed, ())
+    recon = ckpt(region(lambda t: model.decode_tokens(t, hw)), tokens)
+    return (tokens, recon) + tuple(rest)
 
 
 def make_video_train_step(
@@ -183,6 +240,10 @@ def make_video_train_step(
     applied. As in JAX, the BatchNorm stats update once per microbatch, in
     order, and each microbatch draws fresh dropout randomness.
 
+    ``moe_aux_weight`` > 0 adds that times the MoE layers' load-balance
+    loss to the objective (and so to ``loss``) and reports ``moe_aux`` and
+    ``moe_drop_frac`` (module docstring).
+
     ``qat=True``: quantization-aware training; every conv (and, with
     ``qat_dense``, every Dense) runs on fake-int8 input and kernel with STE
     gradients (:mod:`tchvp_tpu_torch.train.qat`), so the fp32 weights train
@@ -194,10 +255,8 @@ def make_video_train_step(
     """
     if fsdp_axis is not None or fsdp_mesh is not None:
         raise NotImplementedError(
-            "fsdp_axis is not ported yet (ROADMAP.md, modules to port, item 11: parallel/fsdp.py)")
-    if moe_aux_weight > 0.0:
-        raise NotImplementedError(
-            "moe_aux_weight is not ported yet (ROADMAP.md, modules to port, item 11: ops/moe.py)")
+            "fsdp_axis is not ported yet (ROADMAP.md, modules to port, item 11d: parallel/fsdp.py)")
+    want_aux = moe_aux_weight > 0.0
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if remat and remat_policy == "none":
@@ -209,10 +268,7 @@ def make_video_train_step(
     def step(state: TrainState, batch: torch.Tensor, mark: Mark = None) -> Tuple[TrainState, Metrics]:
         model = state.model.train()
         seq_axis = _seq_axis(model)
-        if seq_axis is not None and (remat_policy != "none" or accum_steps > 1):
-            raise NotImplementedError(
-                "remat policies and accum_steps > 1 under sequence parallelism are not ported yet "
-                "(ROADMAP.md, modules to port, item 11: parallelism)")
+        ep_axis = _ep_axis(model)
         clean = pipeline.preprocess_clip(batch, image_size)
         clean = pipeline.augment_geometric(state.noise_generator, clean, aug)
         noisy = pipeline.gaussian_noise(state.noise_generator, clean, noise_std)
@@ -227,18 +283,24 @@ def make_video_train_step(
             p.grad = None
         if mark:
             mark("data")
-        loss_sum = mse_sum = None
+        loss_sum = mse_sum = aux_sum = drop_sum = None
         for i in range(accum_steps):
             x, y = noisy[i * mb:(i + 1) * mb], clean[i * mb:(i + 1) * mb]
             draws = model.draw_dropout(x.shape, state.dropout_generator, x.device)
             with _qat_scope(qat, qat_dense):
-                _, recon = _remat_forward(model, x, draws, remat_policy)
+                out = _remat_forward(model, x, draws, remat_policy, moe=want_aux)
+            recon = out[1]
             # A compute_dtype model's bf16 recon meets the fp32 clip in the
             # loss at fp32, as jnp's type promotion has it in JAX.
             recon = recon.to(y.dtype)
             flat_r = recon.reshape((mb * t,) + recon.shape[2:])
             flat_c = y.reshape((mb * t,) + y.shape[2:])
             loss_val = loss_fn(flat_r, flat_c)
+            if want_aux:
+                aux, drop = out[2].to(loss_val.device), out[3].to(loss_val.device)
+                loss_val = loss_val + moe_aux_weight * aux
+                aux_sum = aux.detach() if aux_sum is None else aux_sum + aux.detach()
+                drop_sum = drop.detach() if drop_sum is None else drop_sum + drop.detach()
             mse_val = losses.mse(recon.detach(), y)
             if mark:
                 mark("forward")
@@ -252,16 +314,25 @@ def make_video_train_step(
             grads = [p.grad for p in model.parameters() if p.grad is not None]
             torch._foreach_mul_(grads, inv)
             loss_sum, mse_sum = loss_sum * inv, mse_sum * inv
+            if want_aux:
+                aux_sum, drop_sum = aux_sum * inv, drop_sum * inv
         if seq_axis is not None:
             all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None],
                              axis_group(mesh_with_axis(seq_axis), seq_axis))
             loss_sum, mse_sum = _global_mean(loss_sum, seq_axis), _global_mean(mse_sum, seq_axis)
+        if ep_axis is not None:
+            all_reduce_mean_([p.grad for p in model.parameters()
+                              if p.grad is not None and getattr(p, "ep_group", None) is None],
+                             axis_group(mesh_with_axis(ep_axis), ep_axis))
         state.tx.step()
         state.step += 1
         if mark:
             mark("optimizer")
         psnr_val = 20.0 * torch.log10(1.0 / torch.sqrt(mse_sum))
-        return state, {"loss": loss_sum, "psnr": psnr_val}
+        metrics = {"loss": loss_sum, "psnr": psnr_val}
+        if want_aux:
+            metrics["moe_aux"], metrics["moe_drop_frac"] = aux_sum, drop_sum
+        return state, metrics
 
     return step
 
@@ -321,7 +392,7 @@ def make_denoising_train_step(
     place and returns ``(state, {"loss", "psnr"})`` as device tensors."""
     if fsdp_axis is not None or fsdp_mesh is not None:
         raise NotImplementedError(
-            "fsdp_axis is not ported yet (ROADMAP.md, modules to port, item 11: parallel/fsdp.py)")
+            "fsdp_axis is not ported yet (ROADMAP.md, modules to port, item 11d: parallel/fsdp.py)")
     loss_fn = _loss_fn_by_name(loss, alpha, beta, data_range)
 
     def step(state: TrainState, batch: torch.Tensor, mark: Mark = None,
@@ -422,7 +493,7 @@ def make_segmentation_train_step(
     encoder) get none; train-mode BatchNorm moves their stats all the same."""
     if fsdp_axis is not None or fsdp_mesh is not None:
         raise NotImplementedError(
-            "fsdp_axis is not ported yet (ROADMAP.md, modules to port, item 11: parallel/fsdp.py)")
+            "fsdp_axis is not ported yet (ROADMAP.md, modules to port, item 11d: parallel/fsdp.py)")
     loss_fn = _loss_fn_by_name(loss)
 
     def step(state: TrainState, batch, mark: Mark = None) -> Tuple[TrainState, Metrics]:

@@ -95,19 +95,25 @@ _MASK = torch.ones(2, 1, 12, 12, dtype=torch.bool)
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"impl": "windowed", "window_size": 4, "seq_axis": "seq", "mask": _MASK},
-    {"impl": "xla", "seq_axis": "seq", "mask": _MASK},
-    {"impl": "flash", "window_size": 4, "seq_axis": "seq", "mask": _MASK},
-    {"impl": "auto", "window_size": 4, "seq_axis": "seq", "mask": _MASK},
-    {"impl": "ring", "seq_axis": None},
-    {"impl": "flash", "seq_axis": "seq"},
+    {"impl": "ring", "seq_axis": "seq", "mask": _MASK, "error": "does not support attention masks"},
+    {"impl": "ring", "seq_axis": "seq", "window_size": 4, "error": "computes FULL attention"},
+    {"impl": "ring", "seq_axis": "seq", "window_size": 4, "mask": _MASK,
+     "error": "does not support attention masks"},
+    {"impl": "ring", "seq_axis": None, "error": "requires seq_axis"},
+    {"impl": "ring", "seq_axis": None, "mask": _MASK, "error": "does not support attention masks"},
+    {"impl": "rings", "seq_axis": "seq", "error": "unknown attention impl"},
 ])
 def test_unported_cores_raise(kwargs):
-    """Ring attention, and under a mesh whose seq axis holds 2 ranks,
-    masks and the full-attention kernel over seq-sharded tokens."""
+    """Under a mesh whose seq axis holds 2 ranks, ring attention's argument
+    errors raise JAX's ValueError before any core runs. (Ring attention,
+    masks and the full-attention kernel over seq-sharded tokens, which
+    raised here until they were ported, run on gloo ranks in
+    tests/test_torch_ring.py.)"""
     q, k, v = (torch.from_numpy(t) for t in _tokens())
+    kwargs = dict(kwargs)
+    error = kwargs.pop("error")
     with tpar.activate_mesh(_TwoRankSeqMesh()), dispatch_trace.capture() as seen, \
-            pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            pytest.raises(ValueError, match=error):
         tatt.multi_head_attention(q, k, v, 4, **kwargs)
     assert not seen
 

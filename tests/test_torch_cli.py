@@ -23,6 +23,12 @@
   same flags without the mesh: parameters within 1.9 x 2e-2 x the largest
   gradient (the limit of ``tests/test_torch_seq_parallel.py``), BatchNorm
   stats within 1e-5.
+* ``video --mesh seq=2 --attn-impl ring`` and ``video --mesh expert=2
+  --num-experts 4`` the same way, against one process of the same flags
+  without the mesh (the ring's against ``--attn-impl xla``): the ring and
+  the expert-parallel layer ran on both ranks, and rank 0's checkpoint
+  (the experts gathered whole) equals the one-process run's at the same
+  limits.
 """
 
 import contextlib
@@ -112,7 +118,7 @@ def test_video_writes_what_jax_writes(runs):
     assert re.findall(r"Video epoch \d+", runs["torch"]) == re.findall(r"Video epoch \d+", runs["jax"])
     jrec, trec = (json.loads((d / "run.json").read_text()) for d in (jdir, tdir))
     jargs, targs = jrec["resolved_args"], trec["resolved_args"]
-    assert set(targs) == set(jargs) - {"tp_axis", "ep_axis", "sp_axis"} | {"device"}
+    assert set(targs) == set(jargs) - {"tp_axis", "sp_axis"} | {"device"}
     assert {k: v for k, v in targs.items() if k not in ("checkpoint_dir", "device")} == \
         {k: v for k, v in jargs.items() if k in targs and k != "checkpoint_dir"}
     assert trec["command"] == jrec["command"] == "video"
@@ -258,15 +264,17 @@ def test_config_applies_and_names_pyyaml(tmp_path, monkeypatch):
 
 
 MODEL_ARGS = ["--synthetic", "1", *SMALL, *CPU]
-# item None: ported since (the conv families, item 7; serving, item 10): the
-# command runs, or exits with a message of its own, and is not refused.
+# item None: ported since (the conv families, item 7; serving, item 10; the
+# MoE flags, item 11b; --attn-impl ring, item 11a, which without --mesh
+# seq=N exits saying so): the command runs, or exits with a message of its
+# own, and is not refused.
 STREAM_SMALL = ["--tile", "32", "--height", "32", "--width", "32", "--chunk-len", "2", "--ctx-frames", "1"]
 UNPORTED = [
     (["denoise"], None), (["transfer"], None), (["port"], None),
     (["export"], None), (["serve"], None), (["shards"], 11), (["tune"], 12),
     (["video", "--model", "ae32k"], None), (["video", "--fsdp"], 11), (["video", "--qat"], None),
-    (["video", "--num-experts", "2"], 11), (["video", "--mesh", "data=2"], 11),
-    (["video", "--data-parallel"], 11), (["video", "--attn-impl", "ring"], 11),
+    (["video", "--num-experts", "2"], None), (["video", "--mesh", "data=2"], 11),
+    (["video", "--data-parallel"], 11), (["video", "--attn-impl", "ring"], None),
     (["eval", "--model", "unet"], None), (["eval", "--int8"], None),
     (["infer", "--exported", "a.tchvp"], None), (["infer", "--url", "http://localhost:1"], None),
     (["infer", "--int8"], None), (["infer", "--mesh", "pipe=2"], 11),
@@ -281,8 +289,8 @@ UNPORTED = [
     (["segment", "--mesh", "spatial=2"], 11), (["segment", "--attn-impl", "ring"], 11),
     (["segment", "--data-parallel"], 11), (["denoise", "--data-parallel"], 11),
     (["transfer", "--data-parallel"], 11),
-    (["video", "--moe-aux-weight", "0.02"], 11), (["video", "--router-top-k", "2"], 11),
-    (["infer", "--router-top-k", "2"], 11), (["eval", "--num-experts", "4"], 11),
+    (["video", "--moe-aux-weight", "0.02"], None), (["video", "--router-top-k", "2"], None),
+    (["infer", "--router-top-k", "2"], None), (["eval", "--num-experts", "4"], None),
 ]
 
 
@@ -354,3 +362,35 @@ def test_seq_mesh_two_ranks_match_one_process(tmp_path, monkeypatch):
         tol = atol if k in grads else 1e-5
         torch.testing.assert_close(two[k], one[k], atol=tol, rtol=0, msg=k)
     assert "Video epoch 1" in single
+
+
+@pytest.mark.parametrize("case,mesh,single,marker", [
+    ("ring", ["--attn-impl", "ring", "--mesh", "seq=2"], ["--attn-impl", "xla"], "ring_shard_map"),
+    ("expert", ["--num-experts", "4", "--mesh", "expert=2"], ["--num-experts", "4"], "moe_ep_shard_map"),
+], ids=["ring", "expert"])
+def test_ring_and_expert_meshes_two_ranks_match_one_process(tmp_path, monkeypatch, case, mesh, single, marker):
+    from tchvp_tpu_torch import config
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(config, "flagship_video_config", torch_dist.flagship_without_dropout)
+    argv = ["video", "--synthetic", "1", "--epochs", "1", "--image-size", "32", "--layers", "1",
+            "--batch-size", "1", "--clip-len", "16", "--optimizer", "sgd", "--lr", "1",
+            "--device-prefetch", "0", *CPU]
+    run(cli.main, argv + single + ["--checkpoint-dir", str(tmp_path / "one")])
+    mp.spawn(torch_dist.run_cli, nprocs=2, join=True,
+             args=(2, str(tmp_path / "rendezvous"), str(tmp_path),
+                   argv + mesh + ["--checkpoint-dir", str(tmp_path / "two")]))
+    for r in range(2):
+        res = torch.load(tmp_path / f"cli_rank{r}.pt", weights_only=False)
+        assert marker in res["seen"], res["seen"]
+        assert not res["jax_loaded"]
+    assert tags(tmp_path / "two") == tags(tmp_path / "one") == ["step_1"]
+    one = ckpt.restore_state(str(tmp_path / "one" / "step_1"))["model"]
+    two = ckpt.restore_state(str(tmp_path / "two" / "step_1"))["model"]
+    init = cli._video_model(cli._build_parser()[0].parse_args(argv + single), "cpu").state_dict()
+    assert one.keys() == two.keys() == init.keys()
+    grads = {k: (init[k] - one[k]) / 1.9 for k in one if "running" not in k and "num_batches" not in k}
+    atol = 1.9 * 2e-2 * max(g.abs().max().item() for g in grads.values())
+    for k in one:
+        assert two[k].shape == one[k].shape, k
+        torch.testing.assert_close(two[k], one[k], atol=atol if k in grads else 1e-5, rtol=0, msg=k)

@@ -130,8 +130,23 @@ def test_config_fields_and_defaults_match(name):
 @pytest.mark.parametrize("kwargs", [dict(attn_impl="ring"), dict(seq_axis="seq"),
                                     dict(sp_axis="spatial")])
 def test_unported_axes_raise_naming_item_11(kwargs):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tfct.FCT(tcfg.FCTConfig(filters=FILTERS, **kwargs), device="cpu")
+    """``sp_axis`` still raises naming item 11 (11e). Ring attention and
+    ``seq_axis`` are ported (11a): ``attn_impl="ring"`` without ``seq_axis``
+    raises JAX's ValueError at the call; ``seq_axis`` without a mesh
+    carrying it is the forward without it."""
+    if "sp_axis" in kwargs:
+        with pytest.raises(NotImplementedError, match="item 11"):
+            tfct.FCT(tcfg.FCTConfig(filters=FILTERS, **kwargs), device="cpu")
+        return
+    model = tfct.FCT(tcfg.FCTConfig(filters=FILTERS, **kwargs), device="cpu").eval()
+    x = torch.from_numpy(np.random.default_rng(0).uniform(size=(1, 32, 32, 3)).astype(np.float32))
+    if "attn_impl" in kwargs:
+        with pytest.raises(ValueError, match="impl='ring' requires seq_axis"):
+            model(x)
+        return
+    plain = tfct.FCT(tcfg.FCTConfig(filters=FILTERS), device="cpu").eval()
+    with torch.no_grad():
+        torch.testing.assert_close(model(x), plain(x), rtol=0, atol=0)
 
 
 def test_input_not_divisible_by_32_raises():

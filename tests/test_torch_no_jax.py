@@ -1,6 +1,7 @@
 """The port, chip_smoke.py, the scripts beside it that time its kernels
-(fused_tail_breakdown.py, window_fwd_breakdown.py, flash_fwd_breakdown.py,
-attention_ab.py), their timers (card_timing.py) and the module the
+(fused_tail_breakdown.py, window_fwd_breakdown.py, window_bwd_breakdown.py,
+flash_fwd_breakdown.py, flash_bwd_breakdown.py, attention_ab.py,
+phase_ab.py), their timers (card_timing.py) and the module the
 sequence-parallel tests' spawned ranks run (tests/torch_dist.py)
 import nothing of JAX or of the JAX package."""
 
@@ -16,8 +17,9 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tchvp_tpu"}
 SOURCES = sorted((ROOT / "tchvp_tpu_torch").rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "fused_tail_breakdown.py", "window_fwd_breakdown.py",
-                             "flash_fwd_breakdown.py", "attention_ab.py", "card_timing.py",
-                             "tests/torch_dist.py")]
+                             "window_bwd_breakdown.py", "flash_fwd_breakdown.py",
+                             "flash_bwd_breakdown.py", "attention_ab.py", "phase_ab.py",
+                             "card_timing.py", "tests/torch_dist.py")]
 
 
 def _imported_top_names(path: Path):

@@ -183,5 +183,7 @@ def test_train_mode_dropout_needs_a_generator():
 
 
 def test_moe_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttr.TransformerEncoder(tcfg.TransformerConfig(input_dim=16, num_heads=2, num_experts=2))
+    """Ported since (item 11b; tests/test_torch_moe.py holds it to JAX):
+    num_experts >= 2 builds the routed pool in place of the dense FFNs."""
+    enc = ttr.TransformerEncoder(tcfg.TransformerConfig(input_dim=16, num_heads=2, num_experts=2))
+    assert all(hasattr(layer, "moe") and not hasattr(layer, "ffn1") for layer in enc.layers)

@@ -72,11 +72,8 @@ def _dispatch(inp, n, i, world):
                                             seq_axis="seq")
         rows[key] = (seen, out)
     x = _block(inp["x"], 1, n, i)
-    try:
-        with parallel.activate_mesh(parallel.make_mesh(("seq",), (world,))):
-            tatt.multi_head_attention(x, x, x, inp["heads"], impl="ring", seq_axis="seq")
-    except NotImplementedError as e:
-        rows["ring"] = str(e)
+    with parallel.activate_mesh(parallel.make_mesh(("seq",), (world,))), dispatch_trace.capture() as seen:
+        rows["ring"] = (seen, tatt.multi_head_attention(x, x, x, inp["heads"], impl="ring", seq_axis="seq"))
     return rows
 
 
@@ -112,12 +109,18 @@ def _video(inp, n, i):
            "grads": {k: p.grad.clone() for k, p in named.items()},
            "state": {k: v.clone() for k, v in model.state_dict().items()},
            "equal_across": dict(zip(list(named) + list(buffers), equal))}
+    # The remat policies and accum_steps under the mesh, each from the
+    # loaded weights: their gradients, and the parameters' cross-rank bits.
+    got["options"] = {}
     for policy, accum in (("stages", 1), ("none", 2)):
-        try:
-            tsteps.make_video_train_step(inp["size"], loss="mse", remat_policy=policy,
-                                         accum_steps=accum)(state, torch.from_numpy(inp["batch"]))
-        except NotImplementedError as e:
-            got.setdefault("unported", []).append(str(e))
+        model.load_state_dict(inp["state"], strict=True)
+        opt_state = tstate.create_train_state(model, tstate.make_optimizer(1.0, optimizer="sgd"), rng=3)
+        _, m = tsteps.make_video_train_step(inp["size"], loss="mse", noise_std=0.0, remat_policy=policy,
+                                            accum_steps=accum)(opt_state, torch.from_numpy(inp["batch"]))
+        got["options"][(policy, accum)] = {
+            "loss": float(m["loss"]), "grads": {k: p.grad.clone() for k, p in named.items()},
+            "stats": {k: b.clone() for k, b in model.named_buffers() if "running" in k},
+            "equal": all(collectives.equal_across(list(named.values()), group))}
     # The eval forward of the loaded weights on this rank's frames: the
     # positional encoding must take the global rows of this block.
     model.load_state_dict(inp["state"], strict=True)
@@ -188,3 +191,223 @@ def run_cli(rank: int, world: int, rendezvous: str, out_dir: str, argv: list) ->
                 "jax_loaded": sorted(m for m in sys.modules
                                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))},
                Path(out_dir) / f"cli_rank{rank}.pt")
+
+
+# ------------------------------------------------ ring attention and experts
+
+
+def _grads_of(fn, tensors):
+    """fn(*tensors) and the gradients of sum(out**2) for each tensor."""
+    leaves = [t.clone().requires_grad_() for t in tensors]
+    out = fn(*leaves)
+    (out ** 2).sum().backward()
+    return out.detach(), [t.grad for t in leaves]
+
+
+def _ring(inp, n, i):
+    """sdpa_ring_seq_sharded on this rank's blocks: each loop form with and
+    without per-hop remat, dropout, the errors; multi_head_attention's ring
+    and module 8 (the gathered full attention: the kernel's plain version,
+    and the dense core with a mask)."""
+    got = {}
+    blocks = [_block(t, 2, n, i) for t in inp["qkv"]]
+    for loop, remat in (("unroll", True), ("scan", True), ("auto", True), ("unroll", False)):
+        with dispatch_trace.capture() as seen:
+            out, grads = _grads_of(lambda q, k, v: tatt.sdpa_ring_seq_sharded(
+                q, k, v, seq_axis="seq", scale=0.3, loop=loop, remat=remat), blocks)
+        got[(loop, remat)] = {"out": out, "grads": grads, "seen": seen}
+    for loop in ("unroll", "scan"):
+        gen = torch.Generator().manual_seed(5)
+        got[("dropout", loop)] = _grads_of(lambda q, k, v: tatt.sdpa_ring_seq_sharded(
+            q, k, v, seq_axis="seq", dropout_rate=0.3, generator=gen, deterministic=False, loop=loop),
+            blocks)
+    for name, call in (("bad_loop", lambda: tatt.sdpa_ring_seq_sharded(*blocks, seq_axis="seq", loop="x")),
+                       ("uneven", lambda: parallel.shard_frames(
+                           torch.zeros(1, inp["qkv"][0].shape[2] - 1, 1), parallel.ambient_mesh(), "seq"))):
+        try:
+            call()
+        except ValueError as e:
+            got[name] = str(e)
+    x = _block(inp["x"], 1, n, i)
+    with dispatch_trace.capture() as seen:
+        out = tatt.multi_head_attention(x, x, x, inp["heads"], impl="ring", seq_axis="seq")
+    got["mha_ring"] = (seen, out)
+    # Module 8: full attention over seq-sharded tokens.
+    with dispatch_trace.capture() as seen:
+        out, grads = _grads_of(lambda a, b, c: tatt.multi_head_attention(
+            a, b, c, inp["heads"], impl="flash", seq_axis="seq"), [x, x * 0.5, x * 2.0])
+    got["gathered_flash"] = (seen, out, grads)
+    gen = torch.Generator().manual_seed(9)
+    got["gathered_flash_dropout"] = tatt.multi_head_attention(
+        x, x, x, inp["heads"], impl="flash", seq_axis="seq", dropout_rate=0.3, generator=gen,
+        deterministic=False)
+    with dispatch_trace.capture() as seen:
+        out = tatt.multi_head_attention(x, x, x, inp["heads"], impl="xla", seq_axis="seq",
+                                        mask=torch.from_numpy(inp["mask"]))
+    got["gathered_mask"] = (seen, out)
+    return got
+
+
+def _moe_seq(inp, n, i):
+    """The MoE encoder with seq_axis on this rank's block of the tokens:
+    routing and capacity are per batch row over the whole sequence, so the
+    layer gathers the sequence and keeps its rows. Rank r's objective is
+    its rows' sum(out**2) plus aux / n, so the ranks' objectives sum to the
+    unsharded one."""
+    from tchvp_tpu_torch.ops import moe as tmoe
+
+    enc = TransformerEncoder(TransformerConfig(**inp["encoder"], seq_axis="seq"))
+    enc.load_state_dict(inp["encoder_state"])
+    x = _block(inp["x_moe"], 1, n, i).requires_grad_()
+    sink = []
+    with dispatch_trace.capture() as seen:
+        out = enc.eval()(x, moe_sink=sink)
+    ((out ** 2).sum() + tmoe.total_load_balance_loss(sink) / n).backward()
+    return {"seen": seen, "out": out.detach(), "x_grad": x.grad,
+            "aux": float(tmoe.total_load_balance_loss(sink)),
+            "grads": {k: p.grad.clone() for k, p in enc.named_parameters()}}
+
+
+def _seq_steps(inp, n, i):
+    """The seq-parallel step of a ring-attention flagship with remat
+    "stages" and accum_steps=2 (the global clip in), and the bit checks."""
+    model = VideoHybridNet(inp["config"], device="cpu")
+    model.load_state_dict(inp["state"], strict=True)
+    state = tstate.create_train_state(model, tstate.make_optimizer(1.0, optimizer="sgd"), rng=3)
+    step = tsteps.make_video_train_step(inp["size"], loss="mse", noise_std=0.0, remat_policy="stages",
+                                        accum_steps=2)
+    with dispatch_trace.capture() as seen:
+        state, metrics = step(state, torch.from_numpy(inp["batch"]))
+    group = parallel.axis_group(parallel.ambient_mesh(), "seq")
+    named = dict(model.named_parameters())
+    equal = collectives.equal_across(list(named.values()), group)
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "seen": seen, "all_equal": all(equal),
+            "grads": {k: p.grad.clone() for k, p in named.items()}}
+
+
+def _experts(inp, n, i):
+    """Expert parallelism: the MoE encoder's forward and gradients, the
+    train step through VideoFlow (with its whole-expert checkpoint and
+    resume), the E % n error and a mesh without the axis."""
+    from tchvp_tpu_torch.config import TrainConfig
+    from tchvp_tpu_torch.ops import moe as tmoe
+    from tchvp_tpu_torch.train import checkpoint as ckpt
+    from tchvp_tpu_torch.train.loops import VideoFlow
+
+    got = {}
+    enc = TransformerEncoder(TransformerConfig(**inp["encoder"], ep_axis="expert"))
+    enc.load_state_dict(inp["encoder_state"])
+    x = torch.from_numpy(inp["x_moe"]).requires_grad_()
+    sink = []
+    with dispatch_trace.capture() as seen:
+        out = enc.eval()(x, moe_sink=sink)
+    ((out ** 2).sum() + tmoe.total_load_balance_loss(sink)).backward()
+    got["encoder"] = {"seen": seen, "out": out.detach(), "x_grad": x.grad,
+                      "grads": {k: p.grad.clone() for k, p in enc.named_parameters()}}
+    try:
+        tmoe.MoEFFN(8, 3, 4, ep_axis="expert")(torch.zeros(1, 4, 8))
+    except ValueError as e:
+        got["indivisible"] = str(e)
+    with parallel.activate_mesh(parallel.make_mesh(("seq",), (n,))), dispatch_trace.capture() as seen:
+        tmoe.MoEFFN(8, 4, 4, ep_axis="expert")(torch.zeros(1, 4, 8))
+    got["no_axis"] = seen
+    # Whether to skip a non-finite update is decided by the ranks together:
+    # only rank 0's expert gradient is NaN, and every rank skips.
+    model = VideoHybridNet(inp["config"], device="cpu")
+    names = tmoe.shard_experts(model, "expert")
+    tx = tstate.create_train_state(model, tstate.make_optimizer(1.0, optimizer="sgd",
+                                                                skip_nonfinite_updates=1)).tx
+    for p in model.parameters():
+        p.grad = torch.zeros_like(p)
+    if i == 0:
+        dict(model.named_parameters())[names[0]].grad.view(-1)[0] = float("nan")
+    got["skipped"] = not tx.step()
+    # The train step through VideoFlow: sharded experts, one whole checkpoint.
+    model = VideoHybridNet(inp["config"], device="cpu")
+    model.load_state_dict(inp["state"], strict=True)
+    cfg = TrainConfig(model_name="video", loss="mse", lr=1.0, optimizer="sgd", device_prefetch=0,
+                      checkpoint_dir=inp["ckpt_dir"], moe_aux_weight=0.01)
+    flow = VideoFlow(model, cfg=cfg, image_size=inp["size"], mesh=parallel.ambient_mesh(),
+                     ep_axis="expert")
+    flow._train_step = flow._under_mesh(tsteps.make_video_train_step(
+        inp["size"], loss="mse", noise_std=0.0, moe_aux_weight=0.01))
+    flow.init_state(2)
+    with dispatch_trace.capture() as seen:
+        flow.state, metrics = flow._train_step(flow.state, torch.from_numpy(inp["batch"]))
+    named = dict(model.named_parameters())
+    got["step"] = {"seen": seen, "metrics": {k: float(v) for k, v in metrics.items()},
+                   "grads": {k: p.grad.clone() for k, p in named.items()},
+                   "params": {k: p.detach().clone() for k, p in named.items()},
+                   "expert_names": list(flow.expert_names),
+                   "shapes": {k: tuple(p.shape) for k, p in named.items()}}
+    flow._save(1, 1, None)
+    torch.distributed.barrier()
+    ckpt.wait_for_async_saves()
+    whole = ckpt.restore_state(f"{inp['ckpt_dir']}/step_1")
+    got["whole"] = {k: tuple(v.shape) for k, v in whole["model"].items() if ".moe." in k}
+    again = VideoHybridNet(inp["config"], device="cpu")
+    flow2 = VideoFlow(again, cfg=cfg, image_size=inp["size"], mesh=parallel.ambient_mesh(),
+                      ep_axis="expert")
+    flow2.resume(2)
+    got["resumed_equal"] = all(torch.equal(p, named[k]) for k, p in again.named_parameters())
+    got["resumed_moments_equal"] = all(
+        torch.equal(flow2.state.tx.core.state[p]["momentum_buffer"],
+                    flow.state.tx.core.state[named[k]]["momentum_buffer"])
+        for k, p in again.named_parameters() if named[k] in flow.state.tx.core.state)
+    return got
+
+
+class WireSpy:
+    """Records, for every tensor the port hands to ``torch.distributed``'s
+    communication calls, its device and the device its group's backend
+    carries (``collectives._carrier``)."""
+
+    CALLS = ("all_reduce", "all_gather", "batch_isend_irecv")
+
+    def __init__(self):
+        self.seen = []
+
+    def _wrap(self, name, real):
+        def call(*args, **kwargs):
+            if name == "batch_isend_irecv":
+                pairs = [(op.tensor, op.group) for op in args[0]]
+            else:
+                tensors = list(args[0]) if isinstance(args[0], list) else [args[0]]
+                tensors += [a for a in args[1:] if torch.is_tensor(a)]
+                pairs = [(t, kwargs.get("group")) for t in tensors]
+            self.seen += [(name, t.device, collectives._carrier(g)) for t, g in pairs]
+            return real(*args, **kwargs)
+        return call
+
+    def __enter__(self):
+        self.real = {n: getattr(torch.distributed, n) for n in self.CALLS}
+        for n, real in self.real.items():
+            setattr(torch.distributed, n, self._wrap(n, real))
+        return self
+
+    def __exit__(self, *exc):
+        for n, real in self.real.items():
+            setattr(torch.distributed, n, real)
+
+
+def run_ring(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -> None:
+    """One rank of ``tests/test_torch_ring.py``: ring attention and module 8
+    and the remat/accum seq step under a ``seq`` mesh, then expert
+    parallelism under an ``expert`` mesh, every collective watched by a
+    :class:`WireSpy`."""
+    torch.set_num_threads(1)
+    parallel.init_distributed(f"file://{rendezvous}", world, rank, timeout_s=180)
+    try:
+        results = {}
+        with WireSpy() as spy:
+            with parallel.activate_mesh(parallel.make_mesh(("seq",), (world,))):
+                results["ring"] = _ring(inputs["ring"], world, rank)
+                results["steps"] = _seq_steps(inputs["steps"], world, rank)
+                results["moe_seq"] = _moe_seq(inputs["experts"], world, rank)
+            with parallel.activate_mesh(parallel.make_mesh(("expert",), (world,))):
+                results["experts"] = _experts(inputs["experts"], world, rank)
+        results["wire"] = spy.seen
+        results["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))
+        torch.save(results, Path(out_dir) / f"ring_rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
