@@ -170,7 +170,12 @@ Phases, one or more lines each:
 12c. with two cards or more (``chiprun --chips 4``; skipped on one card):
     phase 16 (g)'s three mesh commands as two ranks, one card each, over
     NCCL (the CLI's backend when each rank has a card of its own): the
-    same checks, and each rank's step ms;
+    same checks, and each rank's step ms; then 16 (i)'s data-parallel
+    command at the full batch of 8 (``--mesh data=2``, 2 ranks), its first
+    step held to one process at the same global batch by 16 (i)'s limits,
+    then timed as users launch it (TF32 as the CLI has it, dropout and
+    noise on, 2 epochs of 5 steps) beside one process at B 8 and at B 4;
+    with four cards, ``--mesh data=2,expert=2 --num-experts 4`` (4 ranks);
 13. config 4 streaming: stream_video of the flagship at 256^2 (attn "xla",
     bf16) over one 16-frame 1080x1920 clip in 40 tiles, chunk 8, 4 frames
     of carried context: finite output of the clip's shape, no kernel
@@ -217,25 +222,33 @@ Phases, one or more lines each:
     preemption), ``--resume --epochs 2`` runs 4 steps (flash launches
     4 x 2/2/2), tags step_2, step_5, step_6, step_5's data position epoch 1
     batch 2; (d) the full state's size on disk and the ms of a save, of an
-    async save's blocking part and its writer, and of a restore, twice
+    async save's blocking part and its writer, and of a restore, once
     each; (e) ``VideoFlow.train`` at the cell on host batches through
     DevicePrefetch, saves left out: step ms from the epochs' start times
     against phase 11's bare step, and the idle share over one epoch; (f)
     ``video --window 64`` (B 2, T 32, 2 steps): band launches 2/2/2/2 per
     step; (g) three mesh commands, each as two ranks sharing this card over
-    gloo (as phase 12b spawns them; one spawn, a rendezvous per command):
+    gloo (as phase 12b spawns them; one spawn with (i)'s command, a
+    rendezvous per command):
     ``video --mesh seq=2 --window 64`` (B 2, T 32, one step): halo launches
     2/2/2/2 per rank, rank 0's checkpoint; ``video --mesh seq=2 --attn-impl
-    ring`` (B 2, T 32, no window, 2 epochs of 3 steps): the ring on both
+    ring`` (B 2, T 32, no window, 2 epochs of 2 steps): the ring on both
     ranks, no hand-written kernel launched; ``video --mesh expert=2
-    --num-experts 4 --attn-impl flash`` (B 2, T 8, 2 epochs of 3 steps):
+    --num-experts 4 --attn-impl flash`` (B 2, T 8, 2 epochs of 2 steps):
     the expert-parallel layer on both ranks, flash 2/2/2 a step, rank 0's
     checkpoint holding all 4 experts; each rank's step ms from the second
-    epoch's wall (the times its epoch lines were printed) over its 3
+    epoch's wall (the times its epoch lines were printed) over its 2
     steps, not a scaling number; (h) on (b)'s ``step_3``: ``infer`` (bf16, frames/s
     and PSNR), ``eval``, ``stream`` of one 16-frame 1080p clip, ``summary``,
-    ``doctor --smoke``. Each kernel's record gains ``cli_launches``: its
-    launches in (a), (f) and (g)'s rank 0 (its three commands);
+    ``doctor --smoke``; (i) ``video --mesh data=2`` as two ranks sharing the
+    card over gloo: the flagship at full width (256^2, T 8), a global batch
+    of 4 (two full-batch ranks would need twice phase 11's memory), dropout
+    and input noise off, TF32 off, SGD lr 1, 3 steps: flash 2/2/2 a step a
+    rank, the ranks' global losses equal, the first step against one
+    process on the same global batch (loss rtol 1e-5, parameters within
+    1.9 x 2e-2 x the largest gradient, BatchNorm stats 1e-5), each rank's
+    synchronised step ms (not a scaling number). Each kernel's record
+    gains ``cli_launches``: its launches in (a), (f), (g)'s and (i)'s rank 0;
 17. BASELINE config 3: the flagship at 224^2, "xla" attention, bf16
     compute over fp32 parameters (``compute_dtype``), B 8 of 16-frame
     clips, MSE, noise 0.05, AdamW 1e-4 clipped at 1.0: finite loss over 3
@@ -316,8 +329,9 @@ Phases, one or more lines each:
     9 ``tchvp.flash_fwd`` nodes in its graph, served by ``serve_artifact``
     with buckets 1 and 2: POSTs of 1, 2 and 3 images within 1e-4 x max|ref|
     of the live model (bits equal or not printed), 9 flash launches a
-    bucket call, /health's counters, HTTP latency and images/s; ``serve``
-    through the CLI as its own process answering the same request; config
+    bucket call, /health's counters, HTTP latency and images/s; ``serve
+    --data-parallel`` through the CLI as its own process (one replica a
+    visible card) answering the same request; config
     1's flagship exported by ``export_video_model`` (bf16, 2 nodes, 2
     launches a call, within 2e-2 x max|ref| of the live model at the same
     batch, phase 18's bf16 limit) and its int8 engine by
@@ -351,6 +365,23 @@ Phases, one or more lines each:
     launch), ``infer --num-experts 2`` refused.
     The records of the JSON gain ``moe_launches``: the launches of
     (a)-(c)'s main paths;
+22. the block candidates (item 12), in a fresh ``TCHVP_AUTOTUNE_CACHE`` (the
+    whole run has one, so no cache in the home directory moves a phase):
+    (a) every candidate of the flash kernels ((64, 64), (128, 64), (64,
+    32), (128, 32)) at the training, config-1 and FCT shapes and a ragged
+    and a short case, and of the band and halo kernels (64, 128) at config
+    2's and the windowed training shape, their shards (has_prev 1 and 0),
+    a ragged S and a window of 24: forward and backward against the plain
+    versions at phases 3-5's limits, bits equal on repeat, ``mha`` with no
+    argument launching the default; the FCT step's 16k/4 layer (fp32, B 8)
+    held to the default blocks (1e-4); each candidate's device ms beside
+    SDPA's; (b) ``cli tune --kernels flash,band,halo --window 64`` end to
+    end at config 2's shape into a fresh cache, the flash kernels tuned in
+    this process at the training, config-1 and FCT step shapes into it, a
+    fresh process's ``mha`` launching the tuned blocks (its launch record,
+    ``flash_attention.block_launches``) and ``doctor`` counting the 6
+    entries; (c) the host µs a call that the blocks' resolution adds to
+    each wrapper on a memo hit. The records of the JSON gain ``block_ms``;
 14. kernel times: each kernel at its main-path shape beside its plain
     version, F.scaled_dot_product_attention (a yardstick, never on the
     port's path; with the boolean band as attn_mask for the banded
@@ -391,7 +422,10 @@ Phases, one or more lines each:
     max|ref| of the plain version), both yardsticks timed both ways and
     never on the port's path, and its bound.
 Each phase prints its seconds (``[phase N]``), and ``[done]`` all of
-them. ``--phases 12b,21`` (a development run) runs the named phases and
+them. Every process of the run draws each model's weights once
+(``keep_draws``: a later build of the same model from the same seed gets
+the same tensors copied in), and phase 2 draws the flagships' beside the
+build. ``--phases 12b,21`` (a development run) runs the named phases and
 those whose results they take (12b takes 8's, 15, 16, 20 and 21 take 11's);
 14, the kernel times and the JSON, runs only with every phase, as without
 the flag. The line before the last is the kernels' JSON record (a full run
@@ -406,6 +440,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import hashlib
 import io
 import json
 import math
@@ -455,6 +490,7 @@ from tchvp_tpu_torch.models.resnet_ae import Autoencoder4K, Autoencoder32K, Deco
 from tchvp_tpu_torch.models.streaming import StreamingConfig, microbatched_infer, stream_clip, stream_video
 from tchvp_tpu_torch.models.unet import UNet
 from tchvp_tpu_torch.models.video import VideoHybridNet
+from tchvp_tpu_torch.ops import blocks as blocks_module
 from tchvp_tpu_torch.ops import dispatch_trace
 from tchvp_tpu_torch.ops.attention import _merge_heads, _split_heads
 from tchvp_tpu_torch.ops.blocks import Dense, conv_hook, init_flax_default
@@ -523,6 +559,78 @@ def free_cuda() -> None:
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- weight draws
+
+# Each model's weights, drawn once per process: key -> (the module's state
+# tensors on the host, the generator's state after the draws), oldest first.
+DRAWS: dict = {}
+DRAWS_LIMIT = 16e9  # host bytes kept; the oldest draws go first
+# The flagships (image size, experts) that the phases build from seed 0,
+# drawn while the kernels compile: 11.2 GB of fp32 state. Those that
+# the spawned ranks build are also written to DRAWS_DIR, where a rank's
+# first draw of them reads them.
+DRAW_AHEAD = ((224, 0), (224, 4), (224, 8), (256, 0), (256, 4), (384, 0), (416, 0))
+RANK_DRAWS = ((256, 0), (256, 4), (384, 0))
+DRAWS_DIR = build.BUILD_DIR / "smoke_draws"  # ignored by git; emptied at the start and the end of a run
+
+
+def keep_draws() -> None:
+    """Make every weight draw of this process happen once.
+
+    ``init_flax_default`` (``ops/blocks.py``) is most of a model's build on
+    the host, about 14 ns a parameter (15 s for the 416^2 flagship), and
+    this script builds the same models from the same seeds dozens of times:
+    each CLI command builds its own. From this call on, a module of the same
+    class and state structure initialised from a generator in the same
+    state gets the first draw's tensors copied in, bit-equal to drawing them
+    again, and the generator is left where the draws left it. A command's
+    wall printed below then holds its model's first draw only."""
+    real = blocks_module.init_flax_default
+    if getattr(real, "keeps_draws", False):
+        return
+
+    def init(module, generator):
+        state = module.state_dict()
+        shape = repr((type(module).__qualname__, [(n, tuple(t.shape), str(t.dtype)) for n, t in state.items()]))
+        key = hashlib.sha1(shape.encode() + generator.get_state().numpy().tobytes()).hexdigest()
+        kept = DRAWS.pop(key, None)
+        if kept is None and (DRAWS_DIR / f"{key}.pt").exists():
+            kept = torch.load(DRAWS_DIR / f"{key}.pt", mmap=True, weights_only=True)
+        if kept is None:
+            real(module, generator)
+            kept = ({n: t.clone() for n, t in state.items()}, generator.get_state())
+        else:
+            with torch.no_grad():
+                for n, t in state.items():
+                    t.copy_(kept[0][n])
+            generator.set_state(kept[1])
+        DRAWS[key] = kept
+        while len(DRAWS) > 1 and sum(t.numel() * t.element_size() for st, _ in DRAWS.values()
+                                     for t in st.values()) > DRAWS_LIMIT:
+            del DRAWS[next(iter(DRAWS))]
+        return module
+
+    init.keeps_draws = True
+    for module in (blocks_module, *(sys.modules[f"tchvp_tpu_torch.models.{m}"] for m in MODEL_MODULES)):
+        check(module.init_flax_default is real, f"{module.__name__} draws its weights elsewhere")
+        module.init_flax_default = init
+
+
+MODEL_MODULES = ("autoencoder", "combined", "fct", "resnet_ae", "unet", "video")  # each calls init_flax_default
+
+
+def draw_ahead() -> None:
+    """DRAW_AHEAD's weights into DRAWS, on the host: phase 2 runs this in
+    a thread beside the kernels' build, so that no phase waits for them."""
+    DRAWS_DIR.mkdir(parents=True, exist_ok=True)
+    for size, experts in DRAW_AHEAD:
+        VideoHybridNet(flagship_video_config(size, num_experts=experts), device="cpu")
+        if (size, experts) in RANK_DRAWS:
+            key = next(reversed(DRAWS))  # the whole model's, drawn after its parts'
+            torch.save(DRAWS[key], DRAWS_DIR / f"{key}.part")
+            (DRAWS_DIR / f"{key}.part").rename(DRAWS_DIR / f"{key}.pt")
 
 
 # The kernel cases of the forward check: ((B, H, S, Dh), dtype, scale, dropout, seed).
@@ -638,29 +746,33 @@ def phase_build() -> None:
         print(f"[2 build] {name} built in {build.build_seconds[name]:.2f} s "
               f"(registers per instantiation: {regs}; spill-store bytes: {spills})")
     for kernel, (regs, spill, stack) in sorted(kernel_resources(build.build_log["flash_fwd"]).items()):
-        tiles = re.search(r"flash_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", kernel)
+        tiles = re.search(r"flash_fwd_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", kernel)
         if tiles:
             dtype = "bf16" if tiles.group(1) != "f" else "fp32"
-            print(f"[2 build] flash_fwd {dtype} (KC {tiles.group(2)}, NT {tiles.group(3)}): {regs} registers, "
-                  f"{spill} bytes spill stores, {stack} bytes stack frame")
+            print(f"[2 build] flash_fwd {dtype} (KC {tiles.group(2)}, NT {tiles.group(3)}) blocks "
+                  f"({tiles.group(4)}, {tiles.group(5)}): {regs} registers, {spill} bytes spill stores, "
+                  f"{stack} bytes stack frame")
     for kernel, (regs, spill, stack) in sorted(kernel_resources(build.build_log["flash_bwd"]).items()):
-        tiles = re.search(r"flash_bwd_(dq|dkv)_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELb(\d)E", kernel)
+        tiles = re.search(r"flash_bwd_(dq|dkv)_kernelI(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELb(\d)ELi(\d+)ELi(\d+)E",
+                          kernel)
         if tiles:
             dtype = "bf16" if tiles.group(2) != "f" else "fp32"
             print(f"[2 build] flash_bwd {tiles.group(1)} {dtype} (KC {tiles.group(3)}, NT {tiles.group(4)}"
-                  f"{', resident' if tiles.group(5) == '1' else ''}): {regs} registers, {spill} bytes spill stores, "
-                  f"{stack} bytes stack frame")
+                  f"{', resident' if tiles.group(5) == '1' else ''}) blocks ({tiles.group(6)}, {tiles.group(7)}): "
+                  f"{regs} registers, {spill} bytes spill stores, {stack} bytes stack frame")
     kinds = {"window_logits": "forward logits (pass A)", "window_pv": "forward P.V (pass B)",
              "window_ds": "backward P_drop, dS (pass A)", "window_dq": "backward dq (pass B)",
              "window_dkv": "backward dk/dv (pass B)"}
     for name in ("band_attention", "halo_attention"):
         for kernel, (regs, spill, stack) in sorted(kernel_resources(build.build_log[name]).items()):
             kind = next((v for k_, v in kinds.items() if f"{k_}_kernel" in kernel), None)
+            rows = re.search(r"Li(\d+)EEEv", kernel)
             if kind:
                 dtype = "bf16" if "nv_bfloat16" in kernel else "fp32"
-                print(f"[2 build] {name} {kind} {dtype}: {regs} registers, {spill} bytes spill stores, "
-                      f"{stack} bytes stack frame")
-    print(f"[2 build] {len(LIBRARIES)} libraries in {wall:.2f} s wall (one nvcc each, in parallel)")
+                print(f"[2 build] {name} {kind} {dtype} block_rows {rows.group(1) if rows else '?'}: {regs} "
+                      f"registers, {spill} bytes spill stores, {stack} bytes stack frame")
+    print(f"[2 build] {len(LIBRARIES)} libraries in {wall:.2f} s wall (one nvcc a translation unit, "
+          f"{ {n: len(b) for n, b in build.UNIT_BLOCKS.items()} } units, all in parallel)")
 
 
 def fwd_limits(dtype: torch.dtype, ref_out: torch.Tensor) -> tuple:
@@ -902,18 +1014,20 @@ def band_bwd(q, k, v, do, lse, delta, scale, window, rate, seed):
     return window_passes(q, k, v, do, lse, delta, scale, window, rate, seed)[1:]
 
 
-def window_passes(q, k, v, do, lse, delta, scale, w, rate, seed_t, prev=None):
+def window_passes(q, k, v, do, lse, delta, scale, w, rate, seed_t, prev=None, rows=fa.DEFAULT_BAND_ROWS):
     """(scratch, dq, dk, dv) of the banded (``prev`` None) or halo
-    backward's three passes."""
+    backward's three passes, at block_rows ``rows``."""
     if prev is None:
-        scratch = fa.band_bwd_ds_cuda(q, k, v, do, lse, delta, scale, w, rate, seed_t)
-        return (scratch, fa.band_bwd_dq_cuda(scratch, k, w)) + fa.band_bwd_dkv_cuda(scratch, q, do, w)
-    scratch = fa.halo_bwd_ds_cuda(q, k, v, do, lse, delta, scale, w, prev, rate, seed_t)
-    return (scratch, fa.halo_bwd_dq_cuda(scratch, k, w, prev)) + fa.halo_bwd_dkv_cuda(scratch, q, do, w, prev)
+        scratch = fa.band_bwd_ds_cuda(q, k, v, do, lse, delta, scale, w, rate, seed_t, rows)
+        return ((scratch, fa.band_bwd_dq_cuda(scratch, k, w, rows))
+                + fa.band_bwd_dkv_cuda(scratch, q, do, w, rows))
+    scratch = fa.halo_bwd_ds_cuda(q, k, v, do, lse, delta, scale, w, prev, rate, seed_t, rows)
+    return ((scratch, fa.halo_bwd_dq_cuda(scratch, k, w, prev, rows))
+            + fa.halo_bwd_dkv_cuda(scratch, q, do, w, prev, rows))
 
 
 def check_window_bwd(tag: str, shape, q, k, v, do, lse, delta, scale, w, rate, seed, has_prev=None,
-                     misaligned_too=False):
+                     misaligned_too=False, rows=fa.DEFAULT_BAND_ROWS):
     """The banded (``has_prev`` None) or halo backward against its plain
     versions, at phase 4's limits (:func:`bwd_limit` x max|ref|): pass A's
     scratch (dS, P_drop) against ``window_bwd_scratch_reference``; pass B's
@@ -926,19 +1040,19 @@ def check_window_bwd(tag: str, shape, q, k, v, do, lse, delta, scale, w, rate, s
     dtype, tol = q.dtype, bwd_limit(q.dtype)
     seed_t = device_seed(seed)
     prev = None if has_prev is None else torch.tensor([has_prev], dtype=torch.int32, device="cuda")
-    got = window_passes(q, k, v, do, lse, delta, scale, w, rate, seed_t, prev)
-    again = window_passes(q, k, v, do, lse, delta, scale, w, rate, seed_t, prev)
+    got = window_passes(q, k, v, do, lse, delta, scale, w, rate, seed_t, prev, rows)
+    again = window_passes(q, k, v, do, lse, delta, scale, w, rate, seed_t, prev, rows)
     torch.cuda.synchronize()
     check(all(torch.equal(x, y) for x, y in zip(got, again)), f"{tag} at {shape}: differs between two launches")
     plain = (q.float(), k.float(), v.float(), do.float(), lse, delta, scale, w)
-    want_scratch = fa.window_bwd_scratch_reference(*plain, rate, seed, has_prev)
+    want_scratch = fa.window_bwd_scratch_reference(*plain, rate, seed, has_prev, rows)
     rel, ds_err = {}, 0.0
     for half, name in enumerate(("dS", "P_drop")):
         err = (got[0][half].float() - want_scratch[half]).abs().max().item()
         ds_err = max(ds_err, err)
         rel[name] = err / want_scratch[half].abs().max().item()
-    pass_b = (fa.window_bwd_dq_reference(got[0], k, w, has_prev),) + fa.window_bwd_dkv_reference(got[0], q, do, w,
-                                                                                                has_prev)
+    pass_b = ((fa.window_bwd_dq_reference(got[0], k, w, has_prev, rows),)
+              + fa.window_bwd_dkv_reference(got[0], q, do, w, has_prev, rows))
     for name, x, y in zip(("pass B dq", "pass B dk", "pass B dv"), got[1:], pass_b):
         rel[name] = (x.float() - y.float()).abs().max().item() / y.float().abs().max().item()
     for name, r in rel.items():
@@ -958,7 +1072,7 @@ def check_window_bwd(tag: str, shape, q, k, v, do, lse, delta, scale, w, rate, s
     if misaligned_too:
         copies = [misaligned(t) for t in (q, k, v, do)]
         check(all(t.data_ptr() % 16 for t in copies), f"{tag}: the copies are 16-byte aligned")
-        moved = window_passes(*copies, lse, delta, scale, w, rate, seed_t, prev)
+        moved = window_passes(*copies, lse, delta, scale, w, rate, seed_t, prev, rows)
         check(all(torch.equal(x, y) for x, y in zip(moved, got)), f"{tag} at {shape}: misaligned inputs change the bits")
         print(f"[{tag} misaligned] q, k, v, do one element past a 16-byte boundary: scratch, dq, dk, dv bits equal "
               f"to the aligned inputs'")
@@ -1906,6 +2020,7 @@ def seq_rank(rank: int, world: int) -> None:
     """One rank of phase 12b; writes its results to SEQ_DIR/rank<r>.json."""
     torch.cuda.set_device(0)
     torch.backends.cudnn.allow_tf32 = False
+    keep_draws()
     parallel.init_distributed(f"file://{SEQ_DIR / 'rendezvous'}", world, rank, timeout_s=180)
     build.load_all(LIBRARIES)  # built by the parent: loads, compiles nothing
     mesh = parallel.make_mesh(("seq",), (world,))
@@ -2074,13 +2189,21 @@ def phase_seq_two_ranks(eval_ref) -> tuple:
 
 def phase_nccl() -> None:
     """Phase 12c: phase 16 (g)'s mesh commands as two ranks on two cards
-    over NCCL; skipped with one card."""
+    over NCCL; 16 (i)'s ``data=2`` at the full batch of 8, its first step
+    held to one process, then timed as users launch it; ``data=2,expert=2``
+    on four cards. Skipped with one card."""
     cards = torch.cuda.device_count()
     if cards < 2:
         print(f"[12c nccl] skipped: {cards} card (run with two or more, e.g. chiprun --chips 4)")
         return
     with tempfile.TemporaryDirectory() as tmp:
         mesh_cli("12c nccl", Path(tmp), f"2 ranks on 2 of {cards} cards, NCCL")
+        data_mesh_cli("12c nccl", Path(tmp), f"2 ranks on 2 of {cards} cards, NCCL", 2,
+                      [("data", 8, ["--mesh", "data=2"])], reference=True)
+        timed_data_cli("12c nccl", Path(tmp), f"2 ranks on 2 of {cards} cards, NCCL", 2, 8, ["--mesh", "data=2"])
+        if cards >= 4:
+            data_mesh_cli("12c nccl", Path(tmp), f"4 ranks on 4 cards, NCCL", 4,
+                          [("data_expert", 8, ["--num-experts", "4", "--mesh", "data=2,expert=2"])], reference=False)
     free_cuda()
 
 
@@ -2435,54 +2558,252 @@ class StampedOut(io.TextIOBase):
 
 
 def cli_rank(rank: int, world: int, rendezvous: str, runs: list) -> None:
-    """One rank of phase 16 (g)'s mesh commands (and 12c's): each ``(name,
-    argv)`` of ``runs`` through ``cli.main``, joined anew over a rendezvous
-    file of its own; writes each run's launch counts, dispatch markers and
-    the times its epoch lines were printed to SEQ_DIR/cli_rank<r>.json."""
+    """One rank of phase 16 (g)'s and (i)'s commands (and 12c's): each
+    ``(name, argv, quiet)`` of ``runs`` through ``cli.main`` (under
+    :func:`quiet_cli` where ``quiet``), joined anew over a rendezvous file of
+    its own; writes each run's launch counts, dispatch markers, the times
+    its epoch lines were printed and its recorded steps to
+    SEQ_DIR/cli_rank<r>.json."""
+    keep_draws()
     got = {}
-    for j, (name, argv) in enumerate(runs):
+    for j, (name, argv, quiet) in enumerate(runs):
         reset_counts()
         out = StampedOut()
-        with dispatch_trace.capture() as seen, contextlib.redirect_stdout(out):
-            cli.main(argv + ["--coordinator", f"file://{rendezvous}_{j}", "--num-processes", str(world),
-                             "--process-id", str(rank)])
+        undo = quiet_cli() if quiet else None
+        try:
+            with dispatch_trace.capture() as seen, contextlib.redirect_stdout(out):
+                cli.main(argv + ["--coordinator", f"file://{rendezvous}_{j}", "--num-processes", str(world),
+                                 "--process-id", str(rank)])
+        finally:
+            if undo is not None:
+                undo()
         free_cuda()
         got[name] = {"counts": counts(), "seen": sorted(seen),
                      "epoch_ends": [t for t, text in out.lines if text.startswith("Video epoch")],
-                     "printed": [text for _, text in out.lines]}
+                     "printed": [text for _, text in out.lines], "steps": list(STEP_METRICS)}
+        STEP_METRICS.clear()
     (SEQ_DIR / f"cli_rank{rank}.json").write_text(json.dumps(got))
+
+
+# Every train step's metrics and host ms in this process while quiet_cli's
+# recording is on (phase 16 (i), 12c).
+STEP_METRICS: list = []
+
+
+def quiet_cli():
+    """The CLI's flagship without dropout, its train step without input
+    noise (a data rank draws from generators of its own, so only then does
+    a data-parallel step equal one process's), TF32 off (cuDNN picks its
+    algorithms by batch size), and each step's metrics and host ms
+    (synchronised) appended to STEP_METRICS. Returns the undo."""
+    from tchvp_tpu_torch import config as tcfg
+    from tchvp_tpu_torch.train import steps as tsteps
+
+    real_cfg, real_step = tcfg.flagship_video_config, tsteps.make_video_train_step
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+    def no_dropout(*a, **k):
+        c = real_cfg(*a, **k)
+        return dataclasses.replace(c, encoder=dataclasses.replace(c.encoder, dropout_rate=0.0),
+                                   temporal=dataclasses.replace(c.temporal, dropout_rate=0.0))
+
+    def recorded(*a, **k):
+        step = real_step(*a, **dict(k, noise_std=0.0))
+
+        def run(state, batch, mark=None):
+            t0 = time.perf_counter()
+            state, m = step(state, batch, mark)
+            STEP_METRICS.append(dict({k_: float(v) for k_, v in m.items()}, ms=(time.perf_counter() - t0) * 1e3))
+            return state, m
+
+        return run
+
+    tcfg.flagship_video_config, tsteps.make_video_train_step = no_dropout, recorded
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    def undo():
+        tcfg.flagship_video_config, tsteps.make_video_train_step = real_cfg, real_step
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    return undo
+
+
+def spawn_cli(world: int, runs: list) -> tuple:
+    """``runs`` as ``world`` ranks of :func:`cli_rank` (one spawn): each
+    rank's results and the spawn's wall s."""
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(SEQ_DIR, ignore_errors=True)
+    SEQ_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(cli_rank, args=(world, str(SEQ_DIR / "cli_rendezvous"), runs), nprocs=world, join=True)
+    wall = time.perf_counter() - t0
+    return [json.loads((SEQ_DIR / f"cli_rank{r}.json").read_text()) for r in range(world)], wall
+
+
+# The data-parallel step through the CLI: the training cell's flagship (256^2,
+# T 8, flash attention), dropout and noise off, SGD lr 1 (the update is the
+# clipped gradient), 3 steps, a checkpoint after each.
+DATA_ARGV = ["video", "--image-size", "256", "--clip-len", "8", "--synthetic", "3", "--epochs", "1",
+             "--save-every-steps", "1", "--attn-impl", "flash", "--device-prefetch", "0", "--optimizer", "sgd",
+             "--lr", "1"]
+
+
+def data_mesh_cli(tag: str, tmp: Path, label: str, world: int, runs_spec, reference: bool) -> dict:
+    """``video`` with data meshes as ``world`` ranks (one spawn): each
+    ``(name, global batch, flags)`` of ``runs_spec``, checked by
+    :func:`check_data_mesh`; with ``reference``, against
+    :func:`data_reference`. Returns rank 0's launches summed over the runs."""
+    ref = data_reference(tmp, runs_spec) if reference else None
+    ranks, wall = spawn_cli(world, data_runs(tmp, runs_spec))
+    return check_data_mesh(tag, tmp, f"{label}; one spawn of {wall:.1f} s for the runs", runs_spec, ranks, ref)
+
+
+def data_runs(tmp: Path, runs_spec) -> list:
+    """:func:`cli_rank`'s runs of ``runs_spec``, each under quiet_cli."""
+    return [(name, DATA_ARGV + ["--batch-size", str(b), *flags, "--checkpoint-dir", str(tmp / name)], True)
+            for name, b, flags in runs_spec]
+
+
+def data_reference(tmp: Path, runs_spec) -> tuple:
+    """The first run's first step as one process on the same global batch,
+    under quiet_cli (the last --synthetic wins): its metrics, and the
+    model's initial state on the host."""
+    _, b, _ = runs_spec[0]
+    undo = quiet_cli()
+    try:
+        argv = DATA_ARGV + ["--batch-size", str(b), "--synthetic", "1", "--checkpoint-dir", str(tmp / "one")]
+        run_cli(argv)
+        ref = STEP_METRICS[0]
+        init = {k: v.cpu() for k, v in cli._video_model(cli._build_parser()[0].parse_args(argv),
+                                                        torch.device("cuda")).state_dict().items()}
+    finally:
+        STEP_METRICS.clear()
+        undo()
+    free_cuda()
+    return ref, init
+
+
+def check_data_mesh(tag: str, tmp: Path, label: str, runs_spec, ranks: list, reference) -> dict:
+    """:func:`data_runs`' results on the ranks: per rank 2/2/2 flash
+    launches a step and a finite loss, the ranks' global losses equal; each
+    rank's step ms (steps 2-3, synchronised; not a scaling number where
+    ranks share a card). With a ``reference`` (:func:`data_reference`), the
+    first step against one process on the same global batch: loss rtol
+    1e-5, parameters within 1.9 x 2e-2 x the largest gradient (phase 12b's
+    limit), BatchNorm stats 1e-5. Returns rank 0's launches summed over the
+    runs."""
+    n = flagship_video_config(256).temporal.num_layers
+    world = len(ranks)
+    for name, b, flags in runs_spec:
+        for r, got in enumerate(ranks):
+            check(got[name]["counts"] == expect_counts(launches=3 * n, dq_launches=3 * n, dkv_launches=3 * n),
+                  f"(i) {name} rank {r} launches {got[name]['counts']}")
+            check(all(math.isfinite(m["loss"]) for m in got[name]["steps"]) and len(got[name]["steps"]) == 3,
+                  f"(i) {name} rank {r} steps {got[name]['steps']}")
+            check(len({json.dumps(g[name]["steps"][0]["loss"]) for g in ranks}) == 1,
+                  f"(i) {name}: the ranks' global losses differ")
+        ms = [[round(m["ms"], 1) for m in g[name]["steps"][1:]] for g in ranks]
+        print(f"[{tag}] (i) video --batch-size {b} {' '.join(flags)} as {world} ranks ({label}), 256^2 T 8, "
+              f"dropout and noise off, SGD lr 1: flash launches per rank {3 * n}/{3 * n}/{3 * n} over 3 steps; "
+              f"losses {[round(m['loss'], 6) for m in ranks[0][name]['steps']]}; "
+              f"step ms per rank, steps 2-3 (synchronised; not a scaling number) {ms}")
+    if reference is not None:
+        ref, init = reference
+        name = runs_spec[0][0]
+        loss = ranks[0][name]["steps"][0]["loss"]
+        check(abs(loss - ref["loss"]) <= 1e-5 * abs(ref["loss"]), f"(i) loss {loss} vs one process {ref['loss']}")
+        one = ckpt.restore_state(str(tmp / "one" / "step_1"))["model"]
+        two = ckpt.restore_state(str(tmp / name / "step_1"))["model"]
+        grads = {k: (init[k] - one[k]).abs().max().item() for k in one if "running" not in k and "num_batches" not in k}
+        gmax = max(grads.values())
+        worst = max(((two[k] - one[k]).abs().max().item(), k) for k in grads)
+        stat = max((two[k] - one[k]).abs().max().item() for k in one if "running" in k)
+        check(worst[0] <= 1.9 * 2e-2 * gmax, f"(i) parameter {worst[1]}: {worst[0]} > 1.9 x 2e-2 x {gmax}")
+        check(stat <= 1e-5, f"(i) BatchNorm stats: {stat}")
+        print(f"[{tag}] (i) the first step against one process on the same global batch of {runs_spec[0][1]}: loss "
+              f"{loss:.7f} vs {ref['loss']:.7f} (rtol 1e-5); parameters max abs {worst[0]:.3g} at {worst[1]} "
+              f"({worst[0] / gmax:.3g} x the largest gradient {gmax:.3g}; limit 1.9 x 2e-2); BatchNorm stats "
+              f"{stat:.3g} (limit 1e-5); one process's step {ref['ms']:.1f} ms (the first, synchronised)")
+    return {k: sum(ranks[0][name]["counts"][k] for name, _, _ in runs_spec) for k in ranks[0][runs_spec[0][0]]["counts"]}
+
+
+# The data ranks timed as users launch them (12c): the CLI's own precision
+# (cuDNN TF32 on, as in phase 11), dropout and input noise on, AdamW, no
+# save inside the 2 epochs of 5 steps; a step's ms is epoch 2's wall over
+# its 5 steps, on every rank, and of one process at the same global batch
+# and at a rank's share of it, timed the same way.
+TIMED_ARGV = ["video", "--image-size", "256", "--clip-len", "8", "--synthetic", "5", "--epochs", "2",
+              "--save-every", "10", "--attn-impl", "flash"]
+TIMED_STEPS = 5
+
+
+def epoch2_ms(lines) -> float:
+    ends = [t for t, text in lines if text.startswith("Video epoch")]
+    return (ends[1] - ends[0]) / TIMED_STEPS * 1e3
+
+
+def timed_data_cli(tag: str, tmp: Path, label: str, world: int, batch: int, flags: list) -> None:
+    """``video --batch-size batch flags`` as ``world`` ranks (one spawn) and
+    as one process at ``batch`` and at ``batch`` over the data ranks, each
+    through ``cli.main`` with TIMED_ARGV; prints each one's step ms."""
+    share = batch // int(dict(a.split("=") for a in flags[flags.index("--mesh") + 1].split(","))["data"])
+    # A user's process: PyTorch's defaults (the spawned ranks start with them).
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    one = {}
+    for b in (batch, share):
+        out = StampedOut()
+        with contextlib.redirect_stdout(out):
+            cli.main(TIMED_ARGV + ["--batch-size", str(b), "--checkpoint-dir", str(tmp / f"timed_one_{b}")])
+        free_cuda()
+        one[b] = epoch2_ms(out.lines)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    runs = [("timed", TIMED_ARGV + ["--batch-size", str(batch), *flags, "--checkpoint-dir", str(tmp / "timed")],
+             False)]
+    ranks, _ = spawn_cli(world, runs)
+    ms = [round((g["timed"]["epoch_ends"][1] - g["timed"]["epoch_ends"][0]) / TIMED_STEPS * 1e3, 1) for g in ranks]
+    check(all(len(g["timed"]["epoch_ends"]) == 2 for g in ranks), f"(i) timed run: epoch lines {ranks}")
+    print(f"[{tag}] (i) timed as users launch it (cuDNN TF32 on, dropout and noise on, AdamW; epoch 2's wall "
+          f"over its {TIMED_STEPS} steps): video --batch-size {batch} {' '.join(flags)} as {world} ranks ({label}) "
+          f"step ms per rank {ms}; one process at B {batch} {one[batch]:.1f} ms, at B {share} {one[share]:.1f} ms")
 
 
 # Phase 16 (g)'s mesh commands: (name, flags, steps in the timed epoch).
 MESH_CLI = (
     ("halo", ["--synthetic", "1", "--epochs", "1", "--clip-len", "32", "--attn-impl", "flash", "--window", "64",
               "--mesh", "seq=2"], 0),
-    ("ring", ["--synthetic", "3", "--epochs", "2", "--save-every", "10", "--clip-len", "32", "--attn-impl", "ring",
-              "--mesh", "seq=2"], 3),
-    ("expert", ["--synthetic", "3", "--epochs", "2", "--save-every", "10", "--clip-len", "8", "--attn-impl",
-                "flash", "--num-experts", "4", "--mesh", "expert=2"], 3),
+    ("ring", ["--synthetic", "2", "--epochs", "2", "--save-every", "10", "--clip-len", "32", "--attn-impl", "ring",
+              "--mesh", "seq=2"], 2),
+    ("expert", ["--synthetic", "2", "--epochs", "2", "--save-every", "10", "--clip-len", "8", "--attn-impl",
+                "flash", "--num-experts", "4", "--mesh", "expert=2"], 2),
 )
 
 
 def mesh_cli(tag: str, tmp: Path, label: str) -> dict:
-    """The MESH_CLI commands as two ranks (one spawn), at 256^2 and B 2,
-    checked: launches and markers per rank, rank 0's checkpoints; prints
-    each rank's step ms. Returns rank 0's launches of the three."""
-    import torch.multiprocessing as mp
+    """The MESH_CLI commands as two ranks (one spawn), checked by
+    :func:`check_mesh_cli`. Returns rank 0's launches of the three."""
+    ranks, wall = spawn_cli(2, mesh_runs(tmp))
+    return check_mesh_cli(tag, tmp, f"{label}, 3 commands in one spawn of {wall:.1f} s", ranks)
 
+
+def mesh_runs(tmp: Path) -> list:
+    """:func:`cli_rank`'s runs of MESH_CLI at 256^2 and B 2."""
+    return [(name, ["video", "--image-size", "256", "--batch-size", "2", "--device-prefetch", "0", *flags,
+                    "--checkpoint-dir", str(tmp / name)], False) for name, flags, _ in MESH_CLI]
+
+
+def check_mesh_cli(tag: str, tmp: Path, label: str, ranks: list) -> dict:
+    """:func:`mesh_runs`' results on two ranks: launches and markers per
+    rank, rank 0's checkpoints; prints each rank's step ms. Returns rank 0's
+    launches of the three."""
     n = flagship_video_config(256).temporal.num_layers
-    shutil.rmtree(SEQ_DIR, ignore_errors=True)
-    SEQ_DIR.mkdir(parents=True)
-    runs = [(name, ["video", "--image-size", "256", "--batch-size", "2", "--device-prefetch", "0", *flags,
-                    "--checkpoint-dir", str(tmp / name)]) for name, flags, _ in MESH_CLI]
-    t0 = time.perf_counter()
-    mp.spawn(cli_rank, args=(2, str(SEQ_DIR / "cli_rendezvous"), runs), nprocs=2, join=True)
-    wall = time.perf_counter() - t0
-    ranks = [json.loads((SEQ_DIR / f"cli_rank{r}.json").read_text()) for r in range(2)]
+    expert_steps = 2 * MESH_CLI[2][2]
     want = {"halo": expect_counts(halo_fwd_launches=n, halo_ds_launches=n, halo_dq_launches=n,
                                   halo_dkv_launches=n),
             "ring": expect_counts(),
-            "expert": expect_counts(launches=6 * n, dq_launches=6 * n, dkv_launches=6 * n)}
+            "expert": expect_counts(launches=expert_steps * n, dq_launches=expert_steps * n,
+                                    dkv_launches=expert_steps * n)}
     marks = {"halo": ({"windowed_mha_halo", "flash_halo_cuda"}, set()),
              "ring": ({"ring_shard_map"}, {"flash_mha_cuda", "sdpa_xla"}),
              "expert": ({"moe_ep_shard_map", "flash_mha_cuda", "flash_mha_bwd_cuda"}, {"moe_dense"})}
@@ -2498,7 +2819,7 @@ def mesh_cli(tag: str, tmp: Path, label: str) -> dict:
     check(w1.shape[0] == 4 and whole["opt_state"]["moments"]["temporal.layers.0.moe.w1"]["exp_avg"].shape[0] == 4,
           f"(g) expert checkpoint w1 {tuple(w1.shape)}")
     h = ranks[0]["halo"]["counts"]
-    print(f"[{tag}] (g) {label}, 3 commands in one spawn of {wall:.1f} s, 256^2 B 2: video --mesh seq=2 "
+    print(f"[{tag}] (g) {label}, 256^2 B 2: video --mesh seq=2 "
           f"--window 64 (T 32, 1 step): halo launches per rank fwd {h['halo_fwd_launches']}, ds "
           f"{h['halo_ds_launches']}, dq {h['halo_dq_launches']}, dkv {h['halo_dkv_launches']}, band and flash "
           f"0; rank 0 wrote step_1")
@@ -2539,7 +2860,7 @@ def counter_of(record_name: str) -> str:
     return f"{kind}_{part}_launches" if part else f"{record_name}_launches"
 
 
-INFER_BATCHES, STREAM_CLIPS = 60, 3  # timed after the CLI's one warm-up batch or clip
+INFER_BATCHES, STREAM_CLIPS = 30, 3  # timed after the CLI's one warm-up batch or clip
 
 
 def profiled(fn) -> float:
@@ -2697,25 +3018,20 @@ def phase_runtime(train_ms: float) -> dict:
             # (d) the full state's save, async save and restore.
             state, raw, restore_ms = cli_state(a_dir / "step_3")
             d_dir = tmp / "d"
-            save_ms, block_ms, wait_ms = [], [], []
-            for i in range(2):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                ckpt.save_state(str(d_dir), 10 + i, state)
-                save_ms.append((time.perf_counter() - t0) * 1e3)
-                t0 = time.perf_counter()
-                ckpt.save_state(str(d_dir), 20 + i, state, async_write=True)
-                t1 = time.perf_counter()
-                ckpt.wait_for_async_saves()
-                block_ms.append((t1 - t0) * 1e3)
-                wait_ms.append((time.perf_counter() - t1) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save_state(str(d_dir), 10, state)
+            save_ms = [(time.perf_counter() - t0) * 1e3]
+            t0 = time.perf_counter()
+            ckpt.save_state(str(d_dir), 20, state, async_write=True)
+            t1 = time.perf_counter()
+            ckpt.wait_for_async_saves()
+            block_ms, wait_ms = [(t1 - t0) * 1e3], [(time.perf_counter() - t1) * 1e3]
             nbytes = (d_dir / "step_10" / ckpt.PAYLOAD).stat().st_size
-            restores = []
-            for i in range(2):
-                del state
-                free_cuda()
-                state, _, ms = cli_state(d_dir / f"step_{20 + i}")
-                restores.append(ms)
+            del state
+            free_cuda()
+            state, _, ms = cli_state(d_dir / "step_20")
+            restores = [ms]
             n_params = sum(p.numel() for p in state.model.parameters())
             print(f"[{tag}] (d) full state ({n_params / 1e6:.1f} M parameters; model, AdamW moments, EMA, "
                   f"generators) {nbytes / 1e9:.3f} GB on disk: save {[round(x, 1) for x in save_ms]} ms; "
@@ -2768,8 +3084,19 @@ def phase_runtime(train_ms: float) -> dict:
                   f"{band['band_dq_launches']}, dkv {band['band_dkv_launches']} (2/2/2/2 per step), other 0")
             free_cuda()
 
-            # (g) the mesh commands on two ranks sharing this card (gloo).
-            mesh_counts = mesh_cli(tag, tmp / "g", "2 ranks sharing one H100, gloo")
+            # (g) the mesh commands and (i) data parallelism, video --mesh
+            # data=2 (the flagship at full width, a global batch of 4: two
+            # full-batch ranks would not fit), as two ranks sharing this card
+            # (gloo) in one spawn; (i)'s one-process reference first.
+            data_spec = [("data", 4, ["--mesh", "data=2"])]
+            reference = data_reference(tmp / "i", data_spec)
+            ranks, wall = spawn_cli(2, mesh_runs(tmp / "g") + data_runs(tmp / "i", data_spec))
+            label = f"2 ranks sharing one H100, gloo; (g)'s 3 commands and (i)'s in one spawn of {wall:.1f} s"
+            mesh_counts = check_mesh_cli(tag, tmp / "g", label, ranks)
+            data_counts = check_data_mesh(tag, tmp / "i", label, data_spec, ranks, reference)
+            mesh_counts = {k: mesh_counts[k] + data_counts[k] for k in mesh_counts}
+            del reference
+            free_cuda()
 
             # (h) serving the checkpoint of (b).
             served = str(a_dir / "step_3")
@@ -3870,7 +4197,7 @@ def phase_export_serve(tmp: Path, a: dict) -> None:
     port = free_port()
     env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
     proc = subprocess.Popen([sys.executable, "-m", "tchvp_tpu_torch.cli", "serve", "--exported", fct_path,
-                             "--port", str(port), "--buckets", "1,2"], env=env,
+                             "--port", str(port), "--buckets", "1,2", "--data-parallel"], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         deadline = time.monotonic() + 180
@@ -3883,7 +4210,8 @@ def phase_export_serve(tmp: Path, a: dict) -> None:
                       f"{proc.stdout.read() if proc.poll() is not None else 'timeout'}")
                 time.sleep(0.5)
         cli_out = post_npy(f"http://127.0.0.1:{port}/infer", three)
-        line = close_to("serve (CLI process) vs serve_artifact, batch 3", cli_out, torch.from_numpy(in_process), 1e-4)
+        line = close_to(f"serve --data-parallel (CLI process; one replica a card: {torch.cuda.device_count()}) vs "
+                        f"serve_artifact, batch 3", cli_out, torch.from_numpy(in_process), 1e-4)
     finally:
         proc.terminate()
         try:
@@ -4764,8 +5092,263 @@ def time_fused_tail(tail_launches: dict) -> list:
 # kernel times and the JSON) needs every phase before it. A development run
 # picks some (``python3 chip_smoke.py --phases 12b,21``); a phase that needs
 # another's result takes that phase along.
+# Phase 22 (item 12): every block candidate of the three families. Flash:
+# the training, config-1 and FCT shapes of phase 4 and a ragged and a short
+# case, forward and backward held to the plain versions; the FCT step's
+# 16k/4 layer (fp32, batch 8) timed and held to the default blocks. Band:
+# config 2 and the windowed training shape, a ragged S and a window of 24;
+# halo: their shards (has_prev 1 and 0) and S 72 with a window of 24.
+BLOCK_FLASH_CASES = [("train", TRAIN_CASE), ("inf.", INFER_BWD_CASE),
+                     ("FCT 4k/8", ((2, 2, 4096, 8), torch.float32, None, 0.1, 31)),
+                     ("FCT 4k/64", FCT_CASES[2]), ("ragged", LOAD_CASES[1]), ("short", SHORT_CASES[0])]
+FCT_STEP_LAYER = ((8, 2, 16384, 4), torch.float32, None, 0.0, 0)
+BLOCK_BAND_CASES = [("c2", BAND_CONFIG2), ("wtrain", BAND_TRAIN), ("ragged", BAND_CASES[2]),
+                    ("w24", BAND_CASES[3])]
+BLOCK_HALO_CASES = [("c2s", HALO_CONFIG2, 1), ("wts", HALO_TRAIN, 1), ("wts no prev", HALO_TRAIN, 0),
+                    ("s72 w24", HALO_CASES[2], 1)]
+TIMED_BLOCK_CASES = ("train", "inf.", "FCT 4k/8", "FCT 4k/64", "c2", "wtrain", "c2s", "wts")
+
+
+def blocks_tag(blocks) -> str:
+    return "x".join(map(str, blocks)) if isinstance(blocks, tuple) else str(blocks)
+
+
+def sdpa_ms(q4, k4, v4, do4, scale, attn_mask=None) -> tuple:
+    """Device ms of SDPA's forward and of its forward and backward."""
+    fwd = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=attn_mask, scale=scale))
+    leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+
+    def both():
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask, scale=scale)
+        torch.autograd.grad(out, leaves, do4)
+
+    return fwd, device_ms(both)
+
+
+def phase_flash_blocks(out: dict) -> None:
+    for name, ((b, h, s, dh), dtype, scale, rate, seed) in BLOCK_FLASH_CASES:
+        scale = 1 / math.sqrt(dh) if scale is None else scale
+        seed_t = device_seed(seed)
+        q, k, v, do, lse, delta = bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 70)
+        want = fa.mha_reference(q.float(), k.float(), v.float(), scale, rate, seed)
+        want_g = fa.mha_bwd_reference(q.float(), k.float(), v.float(), do.float(), lse, delta, scale, rate, seed)
+        tol, lse_tol = fwd_limits(dtype, want[0])
+        row = {}
+        for blocks in fa.FLASH_BLOCKS:
+            tag = f"22 flash {name} blocks {blocks}"
+            got = fa._flash_fwd_cuda(q, k, v, scale, rate, seed_t, *blocks)
+            err = check_fwd(tag, got, fa._flash_fwd_cuda(q, k, v, scale, rate, seed_t, *blocks), want, tol, lse_tol)
+            grads = fa._flash_bwd_cuda(q, k, v, do, lse, delta, scale, rate, seed_t, blocks)
+            errs = check_bwd(tag, (b, h, s, dh), dtype, grads,
+                             fa._flash_bwd_cuda(q, k, v, do, lse, delta, scale, rate, seed_t, blocks), want_g,
+                             bwd_limit(dtype))
+            if blocks == (fa.DEFAULT_BLOCK_Q, fa.DEFAULT_BLOCK_K):
+                # mha with no argument and no cache entry launches the default blocks.
+                with torch.no_grad():
+                    plain_call = fa.mha(*(t.view(b, h, s, dh) for t in (q, k, v)), scale=scale, dropout_rate=rate,
+                                        dropout_seed=seed_t)
+                check(torch.equal(plain_call.reshape(b * h, s, dh), got[0]),
+                      f"{tag}: mha with no blocks is not the default launch")
+            if name in TIMED_BLOCK_CASES:
+                row[blocks_tag(blocks)] = {
+                    "fwd": device_ms(lambda: fa._flash_fwd_cuda(q, k, v, scale, rate, seed_t, *blocks)),
+                    "pair": device_ms(lambda: fa._flash_bwd_cuda(q, k, v, do, lse, delta, scale, rate, seed_t,
+                                                                  blocks))}
+            print(f"[{tag}] out {err / want[0].abs().max().item():.3g} x max|ref|, dq/dk/dv max abs "
+                  f"{', '.join(f'{e:.3g}' for e in errs)}; bits equal on repeat"
+                  + (f"; device ms fwd {row[blocks_tag(blocks)]['fwd']:.4f}, pair "
+                     f"{row[blocks_tag(blocks)]['pair']:.4f}" if blocks_tag(blocks) in row else ""))
+        if row:
+            q4, k4, v4, do4 = (t.view(b, h, s, dh) for t in (q, k, v, do))
+            row["sdpa"] = dict(zip(("fwd", "pair"), sdpa_ms(q4, k4, v4, do4, scale)))
+            out[f"flash {name}"] = row
+        del q, k, v, do, lse, delta, want, want_g
+        free_cuda()
+    # The FCT step's 16k/4 layer: too large for the plain version; each
+    # candidate held to the default blocks at the plain-version limits.
+    (b, h, s, dh), dtype, _, rate, seed = FCT_STEP_LAYER
+    scale = 1 / math.sqrt(dh)
+    rng = np.random.default_rng(71)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b * h, s, dh), dtype=np.float32)).to("cuda")
+                   for _ in range(4))
+    ref = fa._flash_fwd_cuda(q, k, v, scale, 0.0, 0)
+    delta = (do * ref[0]).sum(-1)
+    ref_g = fa._flash_bwd_cuda(q, k, v, do, ref[1], delta, scale, 0.0, 0)
+    row = {}
+    for blocks in fa.FLASH_BLOCKS:
+        got = fa._flash_fwd_cuda(q, k, v, scale, 0.0, 0, *blocks)
+        grads = fa._flash_bwd_cuda(q, k, v, do, ref[1], delta, scale, 0.0, 0, blocks)
+        err = (got[0] - ref[0]).abs().max().item()
+        rel = [(g - r).abs().max().item() / r.abs().max().item() for g, r in zip(grads, ref_g)]
+        check(err <= 1e-4 and max(rel) <= 1e-4, f"22 flash FCT step 16k/4 blocks {blocks}: out {err}, grads {rel} "
+                                               f"from the default blocks")
+        row[blocks_tag(blocks)] = {
+            "fwd": device_ms(lambda: fa._flash_fwd_cuda(q, k, v, scale, 0.0, 0, *blocks), iters=5),
+            "pair": device_ms(lambda: fa._flash_bwd_cuda(q, k, v, do, ref[1], delta, scale, 0.0, 0, blocks),
+                              iters=5)}
+        print(f"[22 flash FCT step 16k/4 blocks {blocks}] out {err:.3g}, grads {', '.join(f'{r:.3g}' for r in rel)} "
+              f"x max|default| from the default blocks (limit 1e-4); device ms fwd {row[blocks_tag(blocks)]['fwd']:.4f}, "
+              f"pair {row[blocks_tag(blocks)]['pair']:.4f}")
+    out["flash FCT step 16k/4"] = row
+    del q, k, v, do, ref, ref_g
+    free_cuda()
+
+
+def phase_window_blocks(out: dict) -> None:
+    cases = [(n, c, None) for n, c in BLOCK_BAND_CASES] + list(BLOCK_HALO_CASES)
+    for name, ((b, h, s, dh), dtype, scale, w, rate, seed), has_prev in cases:
+        scale = 1 / math.sqrt(dh) if scale is None else scale
+        seed_t = device_seed(seed)
+        kind = "band" if has_prev is None else "halo"
+        if has_prev is None:
+            q, k, v, do, lse, delta = bwd_inputs((b, h, s, dh), dtype, scale, rate, seed, 72, window=w)
+            want = fa.windowed_mha_reference(q.float(), k.float(), v.float(), scale, w, rate, seed)
+            fwd = lambda rows: fa.band_fwd_cuda(q, k, v, scale, w, rate, seed_t, rows)  # noqa: E731
+            prev = None
+        else:
+            q, k, v, do, lse, delta = halo_inputs((b, h, s, dh), dtype, scale, w, rate, seed, has_prev, 73)
+            prev = torch.tensor([has_prev], dtype=torch.int32, device="cuda")
+            want = fa.windowed_mha_halo_reference(q.float(), k.float(), v.float(), scale, w, has_prev, rate, seed)
+            fwd = lambda rows: fa.halo_fwd_cuda(q, k, v, scale, w, prev, rate, seed_t, rows)  # noqa: E731
+        tol = 2e-2 * want[0].abs().max().item() if dtype == torch.bfloat16 else 1e-4
+        row = {}
+        for rows in fa.WIN_BLOCKS:
+            tag = f"22 {kind} {name} block_rows {rows}"
+            err = check_fwd(tag, fwd(rows), fwd(rows), want, tol, tol)
+            check_window_bwd(tag, (b, h, s, dh), q, k, v, do, lse, delta, scale, w, rate, seed, has_prev, rows=rows)
+            if name in TIMED_BLOCK_CASES:
+                row[str(rows)] = {"fwd": device_ms(lambda: fwd(rows)),
+                                  "pair": device_ms(lambda: window_passes(q, k, v, do, lse, delta, scale, w, rate,
+                                                                          seed_t, prev, rows))}
+                print(f"[{tag}] out max abs {err:.3g}; device ms fwd {row[str(rows)]['fwd']:.4f}, "
+                      f"pair {row[str(rows)]['pair']:.4f}")
+        if row:
+            k_rows = k.shape[1]
+            mask = (fa.band_mask(s, w, q.device) if has_prev is None
+                    else fa.halo_band_mask(s, w, has_prev, q.device))
+            q4 = q.view(b, h, s, dh)
+            k4, v4 = (t.view(b, h, k_rows, dh) for t in (k, v))
+            row["sdpa"] = dict(zip(("fwd", "pair"), sdpa_ms(q4, k4, v4, do.view(b, h, s, dh), scale, mask)))
+            out[f"{kind} {name}"] = row
+        del q, k, v, do, lse, delta, want
+        free_cuda()
+
+
+def run_tool(argv: list, env: dict) -> str:
+    """A subprocess of this repo's Python (``python -m ...`` or ``-c``) under
+    ``env``; its output, or a raise with it."""
+    proc = subprocess.run([sys.executable, *argv], capture_output=True, text=True, env=env,
+                          cwd=str(Path(__file__).resolve().parent), timeout=600)
+    check(proc.returncode == 0, f"{' '.join(argv[:4])} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout
+
+
+# Phase 22 (b): ``cli tune --kernels flash,band,halo --window 64`` at config
+# 2's shape, then the flash kernels tuned in this process at the training,
+# config-1 and FCT step shapes, all into one fresh cache.
+TUNE_CLI = ["--shape", "4x8x256x1152", "--dtype", "bfloat16", "--kernels", "flash,band,halo", "--window", "64",
+            "--iters", "5"]
+TUNE_FLASH = [((8, 8, 64, 512), "float32"), ((8, 8, 128, 392), "bfloat16"), ((8, 2, 16384, 4), "float32")]
+
+
+def phase_tune(out: dict) -> None:
+    """``cli tune`` end to end into a fresh cache, the flash shapes beside
+    it; a fresh process's ``mha`` then launches the tuned blocks (its
+    launch record), and ``doctor`` counts the entries."""
+    from tchvp_tpu_torch.kernels import autotune
+
+    tmp = Path(tempfile.mkdtemp(prefix="tchvp_tune_"))
+    env = dict(os.environ, TCHVP_AUTOTUNE_CACHE=str(tmp / "autotune.json"))
+    t0 = time.perf_counter()
+    text = run_tool(["-m", "tchvp_tpu_torch.cli", "tune", *TUNE_CLI], env)
+    print("\n".join(f"[22 tune] {line}" for line in text.strip().splitlines()))
+    run_wide = os.environ.get("TCHVP_AUTOTUNE_CACHE")
+    os.environ["TCHVP_AUTOTUNE_CACHE"] = env["TCHVP_AUTOTUNE_CACHE"]
+    autotune.reload()
+    try:
+        for shape, dtype in TUNE_FLASH:
+            print(f"[22 tune] tuning flash @ {shape} dtype={dtype} (in this process)")
+            params, ms = autotune.tune_flash(shape, dtype, iters=5)
+            print(f"[22 tune]   -> best {params} at {ms:.3f} ms")
+    finally:
+        if run_wide is None:
+            del os.environ["TCHVP_AUTOTUNE_CACHE"]
+        else:
+            os.environ["TCHVP_AUTOTUNE_CACHE"] = run_wide
+        autotune.reload()
+    free_cuda()
+    tune_s = time.perf_counter() - t0
+    cache = json.loads((tmp / "autotune.json").read_text())
+    check(len(cache) == 6, f"22 tune: {len(cache)} cache entries, not 6")
+    out["tuned"] = {key: entry for key, entry in cache.items()}
+    flash_key = next(k_ for k_ in cache if "|flash|8x2x16384x4|" in k_)
+    tuned = cache[flash_key]["params"]
+    # One fresh process: mha's launch record, then doctor.
+    probe = ("import json, torch; from tchvp_tpu_torch import cli; "
+             "from tchvp_tpu_torch.kernels import flash_attention as fa; "
+             "q = torch.randn(8, 2, 16384, 4, device='cuda'); fa.mha(q, q, q); torch.cuda.synchronize(); "
+             "print('launched', json.dumps({f'{k[0]} {k[1]}': n for k, n in fa.block_launches.items()})); "
+             "cli.main(['doctor'])")
+    doctor = run_tool(["-c", probe], env).splitlines()
+    record_ = json.loads(next(ln for ln in doctor if ln.startswith("launched "))[len("launched "):])
+    want = f"flash_fwd {(tuned['block_q'], tuned['block_k'])}"
+    check(record_ == {want: 1}, f"22 tune: a fresh process's mha launched {record_}, not the tuned {want}")
+    line = next((ln for ln in doctor if ln.startswith("autotune cache:")), "")
+    check(f"({len(cache)} tuned entries)" in line, f"22 doctor's autotune line: {line!r}")
+    print(f"[22 tune] {len(cache)} entries in {tune_s:.1f} s; a fresh process's mha at (8, 2, 16384, 4) fp32 "
+          f"launched {record_} (the tuned {tuned}); doctor: {line}")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_resolve_host() -> None:
+    """Phase 22 (c): the host µs a call that the wrappers' block resolution
+    adds, on a memo hit (every call after a shape's first): the expression
+    each wrapper evaluates, on the card's tensors, timed over 20000 calls in
+    7 rounds alternated with the same loop doing nothing (the parent's
+    wrappers, which resolved nothing); the median of the differences."""
+    from tchvp_tpu_torch.kernels import autotune
+
+    q = torch.zeros(64, 8, 128, 392, device="cuda", dtype=torch.bfloat16)
+    calls = {
+        "mha: flash_blocks": lambda: autotune.flash_blocks(q.shape, q.dtype, None, None, q.device),
+        "windowed_mha: band_rows": lambda: autotune.band_rows("band", q.shape, 64, q.dtype, None, q.device),
+        "windowed_mha_halo: band_rows": lambda: autotune.band_rows("halo", q.shape, 64, q.dtype, None, q.device),
+    }
+    n = 20000
+    for name, fn in calls.items():
+        fn()  # the first call of a shape resolves through the cache
+        diffs = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            t1 = time.perf_counter()
+            for _ in range(n):
+                pass
+            t2 = time.perf_counter()
+            diffs.append(((t1 - t0) - (t2 - t1)) / n * 1e6)
+        print(f"[22 host] {name} on a memo hit: {statistics.median(diffs):.3f} µs a call (median of 7 rounds of "
+              f"{n}, the empty loop subtracted; rounds {[round(d, 3) for d in diffs]})")
+
+
+def phase_blocks() -> dict:
+    """Phase 22: (a) every block candidate of the flash, band and halo
+    kernels against the plain versions, forward and backward, bits equal on
+    repeat, the default blocks what ``mha`` launches with no argument and no
+    cache, device ms of each candidate beside SDPA's; (b) ``tune`` through
+    the CLI, the tuned blocks launched by a fresh process, ``doctor``'s
+    count; (c) the host µs a call of the blocks' resolution. Returns the
+    times and the tuned entries."""
+    out: dict = {}
+    phase_flash_blocks(out)
+    phase_window_blocks(out)
+    phase_tune(out)
+    phase_resolve_host()
+    return out
+
+
 PHASE_ORDER = ("3", "4", "5", "5c", "5d", "5b", "6", "7", "7b", "8", "9", "10", "11", "12", "12b", "12c", "13",
-               "15", "16", "17", "18", "19", "20", "21", "14")
+               "15", "16", "17", "18", "19", "20", "21", "22", "14")
 PHASE_NEEDS = {"12b": ("8",), "15": ("11",), "16": ("11",), "20": ("11",), "21": ("11",)}
 
 
@@ -4791,6 +5374,11 @@ def main() -> None:
         print("chip_smoke: no CUDA device; the port has no CPU path here", file=sys.stderr)
         raise SystemExit(1)
     phases = selected_phases(sys.argv[1:])
+    shutil.rmtree(DRAWS_DIR, ignore_errors=True)
+    keep_draws()
+    # A fresh autotune cache for the whole run: no cache in the home directory
+    # moves a phase's blocks (phase 22 (b) tunes into its own).
+    os.environ["TCHVP_AUTOTUNE_CACHE"] = str(Path(tempfile.mkdtemp(prefix="tchvp_autotune_")) / "autotune.json")
     t0 = time.perf_counter()
     seconds = {}
     r = {}
@@ -4806,8 +5394,14 @@ def main() -> None:
 
     name = phase_device()
     t = time.perf_counter()
+    ahead = threading.Thread(target=draw_ahead, daemon=True)
+    ahead.start()
     phase_build()
-    print(f"[phase 2] {time.perf_counter() - t:.1f} s")
+    built = time.perf_counter() - t
+    ahead.join()
+    kept = sum(t_.numel() * t_.element_size() for st, _ in DRAWS.values() for t_ in st.values())
+    print(f"[phase 2] {time.perf_counter() - t:.1f} s (the build {built:.1f} s; beside it, the weights of "
+          f"{len(DRAW_AHEAD)} flagships drawn: {kept / 1e9:.1f} GB)")
     run("3", phase_fwd_kernel)
     run("4", phase_bwd_kernels)
     run("5", phase_band_kernels)
@@ -4833,6 +5427,7 @@ def main() -> None:
     run("19", phase_conv_families)
     run("20", phase_serving, train_ms)
     run("21", phase_moe, train_ms)
+    run("22", phase_blocks)
     if "14" in phases:
         t = time.perf_counter()
         train, windowed = r["11"][0], r["12"][0]
@@ -4855,8 +5450,11 @@ def main() -> None:
             rec["serving_launches"] = r["20"][counter]  # phase 20 (a)-(d)
             rec["moe_launches"] = r["21"][counter]  # phase 21 (a)-(c)
             rec["seq_ep_launches"] = seq_ep[counter]  # phase 12b (e)-(g), rank 0
+            family = rec["name"].split("_")[0]  # phase 22: each block candidate's device ms
+            rec["block_ms"] = {k_: v_ for k_, v_ in r["22"].items() if k_.split(" ")[0] == family}
         seconds["14"] = time.perf_counter() - t
         print(f"[phase 14] {seconds['14']:.1f} s")
+    shutil.rmtree(DRAWS_DIR, ignore_errors=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s; by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     if "14" in phases:

@@ -53,7 +53,7 @@ import time
 
 _ITEMS = {"11c": "data parallelism", "11d": "FSDP and sharded checkpoints",
           "11e": "tensor and spatial parallelism", "11f": "pipeline parallelism",
-          "11g": "streaming over a mesh and the planner", 12: "autotuner"}
+          "11g": "streaming over a mesh and the planner"}
 
 
 def _not_ported(what: str, item):
@@ -79,7 +79,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--loss", default=None)
     p.add_argument("--checkpoint-dir", default="checkpoints")
     p.add_argument("--data-parallel", action="store_true",
-                   help="not ported yet (item 11c)")
+                   help="every launched rank on one data axis: each trains on its "
+                        "block of the global batch (--coordinator, --num-processes, "
+                        "--process-id)")
     p.add_argument("--optimizer", default="adamw",
                    choices=("adamw", "adam", "sgd", "lion"),
                    help="adamw = reference parity (FCT.py:305); lion = "
@@ -241,37 +243,42 @@ def _parse_mesh_axes(spec: str) -> dict:
 
 
 # The item of each mesh axis the port does not run yet.
-_AXIS_ITEMS = {"data": "11c", "model": "11e", "spatial": "11e", "pipe": "11f"}
+_AXIS_ITEMS = {"model": "11e", "spatial": "11e", "pipe": "11f"}
 
 
 def _mesh(args, axes_ported=("seq",)):
-    """The mesh of one ported axis (``seq``, or ``expert`` where the command
-    runs it) over the launched ranks, or None. The other axes, two axes at
-    once (the hybrid meshes of item 11c) and ``--data-parallel`` are not
-    ported yet."""
+    """The mesh over the launched ranks, or None: ``data=N``, one of
+    ``axes_ported`` (``seq``, ``expert`` where the command runs them), or
+    ``data`` beside one of them (a mesh of two axes in the order given, as
+    JAX's ``make_mesh``); ``--data-parallel`` puts every rank on ``data``.
+    The other axes are not ported yet."""
     import torch.distributed as dist
 
     from tchvp_tpu_torch.parallel import make_mesh
 
     axes = _parse_mesh_axes(getattr(args, "mesh", None) or "")
     on = {k: v for k, v in axes.items() if v > 1}
-    others = sorted(k for k in on if k not in axes_ported)
+    others = sorted(k for k in on if k != "data" and k not in axes_ported)
     if others:
-        _not_ported(f"--mesh axes {others}", min(_AXIS_ITEMS.get(k, "11c") for k in others))
-    if len(on) > 1:
-        _not_ported(f"--mesh {args.mesh} (two axes at once)", "11c")
-    if args.data_parallel:
-        _not_ported("--data-parallel", "11c")
-    if not on:
-        return None
-    (axis, n), = on.items()
+        if any(k not in _AXIS_ITEMS for k in others):
+            raise SystemExit(f"{args.cmd}: unsupported mesh axes {others}")
+        _not_ported(f"--mesh axes {others}", min(_AXIS_ITEMS[k] for k in others))
+    if len([k for k in on if k != "data"]) > 1:
+        raise SystemExit(f"--mesh {args.mesh}: data and at most one of {list(axes_ported)}")
     world = dist.get_world_size() if dist.is_initialized() else 1
+    if getattr(args, "data_parallel", False):
+        if on:
+            raise SystemExit("--data-parallel puts every rank on data; give it or --mesh, not both")
+        on = {"data": world}
+    if not on or (list(on) == ["data"] and world == 1):
+        return None
+    n = math.prod(on.values())
     if world != n:
         raise SystemExit(
             f"--mesh {args.mesh}: {n} processes requested, {world} running "
             f"(launch one per rank with --coordinator, --num-processes {n} "
             f"and --process-id)")
-    return make_mesh((axis,), (n,))
+    return make_mesh(tuple(on), tuple(on.values()))
 
 
 def _device(args):
@@ -311,25 +318,16 @@ def _image_data(args, supervised: bool = True):
                  for csv, seed in ((args.train_csv, 0), (args.val_csv, 1), (args.test_csv, 2)))
 
 
-def _no_data_parallel(args, cmd: str) -> None:
-    """``--data-parallel`` of the image flows waits for item 11c."""
-    if args.data_parallel:
-        _not_ported(f"{cmd} --data-parallel", "11c")
-
-
-def _segment_mesh(args) -> None:
-    """``segment``'s meshes: JAX runs ``data=`` (item 11c here) and
-    ``spatial=`` (item 11e); any other axis is refused as JAX refuses it."""
+def _segment_mesh(args):
+    """``segment``'s mesh: JAX runs ``data=`` and ``spatial=`` (item 11e
+    here); any other axis is refused as JAX refuses it."""
     axes = _parse_mesh_axes(getattr(args, "mesh", None) or "")
     bad = sorted(k for k, v in axes.items() if v > 1 and k not in ("data", "spatial"))
     if bad:
         raise SystemExit(f"segment: unsupported mesh axes {bad} (use data= and spatial=)")
-    if axes.get("data", 1) > 1:
-        _not_ported(f"--mesh {args.mesh}", "11c")
     if axes.get("spatial", 1) > 1:
         _not_ported(f"--mesh {args.mesh}", "11e")
-    if args.data_parallel:
-        _not_ported("--data-parallel", "11c")
+    return _mesh(args, axes_ported=())
 
 
 def _fct_attn(args) -> str:
@@ -381,7 +379,6 @@ def cmd_denoise(args) -> None:
     from tchvp_tpu_torch.config import TrainConfig
     from tchvp_tpu_torch.train.loops import DenoisingFlow
 
-    _no_data_parallel(args, "denoise")
     cfg = TrainConfig(
         loss=args.loss or "mixed",
         lr=args.lr,
@@ -390,8 +387,9 @@ def cmd_denoise(args) -> None:
         **_train_cfg_kwargs(args),
     )
     train, val, test = _image_data(args, supervised=False)
-    flow = DenoisingFlow(_image_model("ae", _device(args)), cfg=cfg, image_size=args.image_size,
-                         aug=_aug_cfg(args))
+    device = _device(args)
+    flow = DenoisingFlow(_image_model("ae", device), cfg=cfg, image_size=args.image_size,
+                         aug=_aug_cfg(args), mesh=_mesh(args, axes_ported=()))
     _record_run(args)
     flow.fit(train, val or train, test, epochs=args.epochs, lr=args.lr)
 
@@ -403,7 +401,6 @@ def cmd_transfer(args) -> None:
     from tchvp_tpu_torch.config import TrainConfig
     from tchvp_tpu_torch.train.loops import TransferFlow
 
-    _no_data_parallel(args, "transfer")
     cfg = TrainConfig(
         model_name="latent_to_mask",
         loss="dice",
@@ -411,7 +408,8 @@ def cmd_transfer(args) -> None:
         **_train_cfg_kwargs(args),
     )
     train, _, _ = _image_data(args, supervised=True)
-    flow = TransferFlow(cfg=cfg, image_size=args.image_size, device=_device(args))
+    device = _device(args)
+    flow = TransferFlow(cfg=cfg, image_size=args.image_size, device=device, mesh=_mesh(args, axes_ported=()))
     flow.init_from_pretrained(args.pretrained, lr=args.lr)
     _record_run(args)
     flow.train(train, epochs=args.epochs)
@@ -445,8 +443,8 @@ def cmd_segment(args) -> None:
     from tchvp_tpu_torch.config import TrainConfig
     from tchvp_tpu_torch.train.loops import SegmentationFlow
 
-    _segment_mesh(args)
     attn = _fct_attn(args)
+    mesh = _segment_mesh(args)
     cfg = TrainConfig(
         model_name="FCT",
         loss=args.loss or "dice",
@@ -456,7 +454,7 @@ def cmd_segment(args) -> None:
     )
     train, _, test = _image_data(args)
     device = _device(args)
-    flow = SegmentationFlow(_fct_model(device, attn), cfg=cfg, image_size=args.image_size)
+    flow = SegmentationFlow(_fct_model(device, attn), cfg=cfg, image_size=args.image_size, mesh=mesh)
     _record_run(args)
     flow.train(train, test, epochs=args.epochs, lr=args.lr)
 
@@ -549,9 +547,14 @@ def cmd_video(args) -> None:
     )
     device = _device(args)
     mesh = _mesh(args, axes_ported=("seq", "expert"))
-    axis = mesh.mesh_dim_names[0] if mesh is not None else None
-    args.seq_axis = "seq" if axis == "seq" else None
-    args.ep_axis = "expert" if axis == "expert" else None
+    names = mesh.mesh_dim_names if mesh is not None else ()
+    args.seq_axis = "seq" if "seq" in names else None
+    args.ep_axis = "expert" if "expert" in names else None
+    if args.clippack and "data" in names:
+        from tchvp_tpu_torch.parallel.input import sharded_clippack_loader
+
+        # each rank reads its slice: its share of every microbatch
+        data = sharded_clippack_loader(args.clippack, args.batch_size, mesh, microbatches=args.accum_steps)
     if args.seq_axis and not args.window and args.attn_impl != "ring":
         raise SystemExit(
             "--mesh seq=N needs --window W (windowed/flash sequence "
@@ -776,8 +779,7 @@ def cmd_infer(args) -> None:
         return _infer_exported(args)
     size = args.image_size
     device = _device(args)
-    if any(v > 1 for v in _parse_mesh_axes(args.mesh or "").values()):
-        _not_ported("infer --mesh", "11c")
+    mesh = _mesh(args, axes_ported=())
     data = _clip_data(args, size)
     model = _serving_model(args, size, device)
     engine = None
@@ -800,9 +802,17 @@ def cmd_infer(args) -> None:
         print(f"int8: {len(engine.scales)} layers quantized, "
               f"{engine.psnr_vs(calib):.1f} dB vs bf16")
 
+    ranks, group = 1, None
+    if mesh is not None:  # data=N: this rank's block, the PSNR of the global batch's MSE
+        from tchvp_tpu_torch.parallel import axis_group, axis_size, shard_batch
+        from tchvp_tpu_torch.parallel.collectives import all_reduce_sum
+
+        ranks, group = axis_size(mesh, "data"), axis_group(mesh, "data")
     frames, psnrs, t0 = 0, [], None
     for bi, batch in enumerate(data_iter):
         raw = torch.as_tensor(np.asarray(batch, dtype=np.uint8)).to(device)
+        if group is not None:
+            raw = shard_batch(raw, mesh)
         scope = engine.intercepting(engine.qparams) if engine is not None else contextlib.nullcontext()
         with torch.inference_mode(), scope:
             clip = preprocess_clip(raw, size, dtype=torch.bfloat16)
@@ -811,13 +821,15 @@ def cmd_infer(args) -> None:
             else:
                 recon = model(clip)[1]
             mse = torch.mean((clip.float() - recon.float()) ** 2)
+            if group is not None:
+                mse = all_reduce_sum(mse, group) / ranks
             psnr = -10.0 * torch.log10(torch.clamp(mse, min=1e-12))
         psnrs.append(float(psnr))  # sync
         if t0 is None:
             t0 = time.perf_counter()  # exclude the warm-up batch
         else:
-            frames += raw.shape[0] * raw.shape[1]
-        if bi == 0 and args.out_dir:
+            frames += raw.shape[0] * raw.shape[1] * ranks
+        if bi == 0 and args.out_dir and (group is None or mesh.get_rank() == 0):
             inp = preprocess_clip(raw, size).cpu().numpy()
             out = recon.float().cpu().numpy()
             for t in range(min(raw.shape[1], 8)):
@@ -1122,6 +1134,21 @@ def _smi(fields: str) -> str:
         else f"nvidia-smi failed (exit {out.returncode})"
 
 
+def _print_autotune_cache() -> None:
+    """``doctor``'s line on the autotune cache (JAX's words)."""
+    import json
+
+    from tchvp_tpu_torch.kernels import autotune
+
+    at = autotune.cache_path()
+    if at and os.path.exists(at):
+        with open(at) as f:
+            n_tuned = len(json.load(f))
+        print(f"autotune cache: {at} ({n_tuned} tuned entries)")
+    else:
+        print(f"autotune cache: {at or 'disabled'} (empty — run `tune` on the target device)")
+
+
 def cmd_doctor(args) -> None:
     """Environment / runtime diagnostics: torch and CUDA, the cards, their
     power limit and memory, the builds of the kernel libraries and of the
@@ -1158,6 +1185,7 @@ def cmd_doctor(args) -> None:
     libs = build.load_all(build.LIBRARIES)
     print(f"kernel libraries: {', '.join(sorted(libs))} built or cached in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {build.nvcc_path()})")
+    _print_autotune_cache()
 
     if args.smoke:
         import numpy as np
@@ -1180,6 +1208,38 @@ def cmd_doctor(args) -> None:
               f"plain version (limit {limit:.3g}), first call {ms:.1f} ms")
         if not err <= limit:
             raise SystemExit("doctor --smoke: the flash forward disagrees with its plain version")
+
+
+def cmd_tune(args) -> None:
+    """Autotune the Hopper attention kernels' blocks on this card and
+    persist the winners (``kernels/autotune.py``); later processes launch
+    the tuned blocks. It times the card, so it exits without one."""
+    import torch
+
+    from tchvp_tpu_torch.kernels import autotune
+
+    shape = tuple(int(x) for x in args.shape.split("x"))
+    if len(shape) != 4:
+        raise SystemExit("tune: --shape must be BxHxSxDh, e.g. 8x8x2048x64")
+    kinds = args.kernels.split(",") if args.kernels else ["flash", "band"]
+    path = autotune.cache_path()
+    if path is None:
+        raise SystemExit("tune: TCHVP_AUTOTUNE_CACHE=0 disables the cache")
+    if not torch.cuda.is_available():
+        raise SystemExit("tune: no CUDA device; tune times the kernels on the card")
+    for kind in kinds:
+        print(f"tuning {kind} @ {shape} dtype={args.dtype} "
+              f"window={args.window} mode={args.mode}", flush=True)
+        if kind == "flash":
+            params, ms = autotune.tune_flash(shape, args.dtype, mode=args.mode, iters=args.iters)
+        elif kind in ("band", "halo"):
+            if not args.window:
+                raise SystemExit(f"tune: {kind} needs --window")
+            params, ms = autotune.tune_banded(shape, args.window, args.dtype, halo=(kind == "halo"),
+                                              mode=args.mode, iters=args.iters)
+        else:
+            raise SystemExit(f"tune: unknown kernel {kind!r} (flash, band, halo)")
+        print(f"  -> best {params} at {ms:.3f} ms (saved to {path})")
 
 
 def _export_model(args, device):
@@ -1274,13 +1334,11 @@ def cmd_export(args) -> None:
 def cmd_serve(args) -> None:
     """HTTP serving daemon (``infer/server.py``) of an ``export``
     artifact: POST .npy batches to /infer, GET /health; /stream sessions
-    for a streaming artifact. ``--data-parallel`` and ``--mesh`` (the
-    data-parallel and live pipelined serving of the JAX package) are items
-    11c and 11f."""
+    for a streaming artifact. ``--data-parallel`` serves one replica a
+    visible card, each request batch split over them; ``--mesh`` (the live
+    pipelined serving of the JAX package) is item 11f."""
     from tchvp_tpu_torch.infer.server import serve_artifact
 
-    if args.data_parallel:
-        _not_ported("serve --data-parallel", "11c")
     if any(v > 1 for v in _parse_mesh_axes(args.mesh or "").values()):
         _not_ported(f"serve --mesh {args.mesh}", "11f")
     if not args.exported:
@@ -1290,7 +1348,8 @@ def cmd_serve(args) -> None:
     buckets = (tuple(int(b) for b in args.buckets.split(",")) if args.buckets else None)
     print(f"warming buckets {list(buckets) if buckets else '(off)'}...", flush=True)
     srv = serve_artifact(args.exported, args.host, args.port, buckets=buckets,
-                         batch_window_ms=args.batch_window_ms, device=_device(args))
+                         batch_window_ms=args.batch_window_ms, device=_device(args),
+                         data_parallel=args.data_parallel)
     host, port = srv.address
     print(f"serving {args.exported} on http://{host}:{port} "
           f"(platforms {list(srv.model.platforms)}, "
@@ -1312,7 +1371,7 @@ def _unported_command(item: int):
 # Subcommands of the JAX package whose item is still to come. They take
 # whatever follows them (``main`` parses them with ``parse_known_args``) and
 # exit naming the item.
-_UNPORTED = {"shards": "11g", "tune": 12}
+_UNPORTED = {"shards": "11g"}
 
 
 def _build_parser():
@@ -1346,10 +1405,11 @@ def _build_parser():
                            choices=("hybrid", "ae32k", "ae4k"))
             p.add_argument("--mesh", default=None,
                            help="device mesh as axis=size pairs; the port runs "
-                                "seq=N (sequence parallelism: --window, or "
-                                "--attn-impl ring) and expert=N (expert "
-                                "parallelism, with --num-experts), one process "
-                                "per rank; other axes are items 11c-11f")
+                                "data=N (data parallelism), seq=N (sequence "
+                                "parallelism: --window, or --attn-impl ring), "
+                                "expert=N (expert parallelism, with "
+                                "--num-experts) and data=N beside seq or expert, "
+                                "one process per rank; other axes are items 11d-11f")
             p.add_argument("--layers", type=int, default=2,
                            help="temporal transformer depth (hybrid model)")
             p.add_argument("--attn-impl", default="xla",
@@ -1385,8 +1445,8 @@ def _build_parser():
                                 "step (torch.utils.checkpoint)")
         if name == "segment":
             p.add_argument("--mesh", default=None,
-                           help="axis=size pairs; JAX's data= and spatial= are "
-                                "not ported yet (items 11c, 11e)")
+                           help="axis=size pairs: data=N (one process per rank); "
+                                "JAX's spatial= is not ported yet (item 11e)")
             p.add_argument("--attn-impl", default=None,
                            choices=("auto", "xla", "flash", "ring"),
                            help="FCT spatial-attention core (default auto: the "
@@ -1411,7 +1471,8 @@ def _build_parser():
         if name == "infer":
             p.add_argument("--clippack", default=None)
             p.add_argument("--checkpoint", default=None)
-            p.add_argument("--mesh", default=None, help="not ported yet (item 11c)")
+            p.add_argument("--mesh", default=None,
+                           help="data=N: each of N ranks infers its block of every batch")
             p.add_argument("--ema", action="store_true",
                            help="serve the EMA parameter average the "
                                 "optimizer carried (--ema-decay training) "
@@ -1520,6 +1581,18 @@ def _build_parser():
     p.add_argument("--mesh", default=None, help="not ported yet (item 11f)")
     p.add_argument("--model", default="hybrid", choices=("hybrid",),
                    help="live-serving model family (--mesh mode, item 11f)")
+
+    p = sub.add_parser("tune", help="autotune the attention kernels' blocks on this card")
+    p.set_defaults(fn=cmd_tune)
+    p.add_argument("--shape", default="8x8x2048x64",
+                   help="BxHxSxDh of the attention input to tune for")
+    p.add_argument("--kernels", default=None,
+                   help="comma list of flash,band,halo (default: flash,band)")
+    p.add_argument("--window", type=int, default=0, help="window size for band/halo kernels")
+    p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--mode", default="fwdbwd", choices=("fwd", "fwdbwd"),
+                   help="tune forward-only or forward+backward")
+    p.add_argument("--iters", type=int, default=20)
 
     p = sub.add_parser("doctor", help="environment / runtime diagnostics")
     p.set_defaults(fn=cmd_doctor)

@@ -188,10 +188,62 @@ class ServingModel:
         with torch.inference_mode():
             return self._program(x)
 
-    def over_mesh(self, mesh=None, axis: str = "data"):
-        raise NotImplementedError(
-            "data-parallel serving (over_mesh) is not ported yet "
-            "(ROADMAP.md, modules to port, item 11c: data parallelism)")
+    def over_mesh(self, devices: Optional[Sequence] = None) -> "DataParallelServingModel":
+        """Data-parallel serving: a wrapper whose calls split the request
+        batch along dim 0 over one replica of the program per card
+        (``devices``, default every visible card of the artifact's
+        platform; one CPU replica on the CPU). JAX's ``mesh`` is a device
+        mesh of one process; the port's meshes span processes, so the
+        replicas are given as devices."""
+        return DataParallelServingModel(self, devices=devices)
+
+
+class DataParallelServingModel:
+    """N replicas of one exported program, one per device; a batch splits
+    evenly along dim 0 (JAX's ``DataParallelServingModel``).
+
+    Sound for the reason the server's bucket padding is: every artifact
+    maps its batch rows independently, so a replica computes on its rows
+    what the one-device program computes on them. The replicas are launched
+    in turn without a sync, so the cards run at once, and the output is
+    gathered on the first device. A batch the replicas do not divide is
+    refused, as in JAX."""
+
+    def __init__(self, base: ServingModel, devices: Optional[Sequence] = None):
+        if devices is None:
+            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                       if base.device.type == "cuda" else [base.device])
+        self.meta = base.meta
+        self.devices = [torch.device(d) for d in devices]
+        if any(d.type != base.device.type for d in self.devices):
+            raise ValueError(f"the artifact runs on {base.device.type}; devices {self.devices}")
+        self.n_devices = len(self.devices)
+        # A replica on another card is the artifact loaded there: its
+        # weights and constants placed on that card once.
+        self.replicas = [base._program if d == base.device else load_artifact(base.path, d)._program
+                         for d in self.devices]
+
+    @property
+    def platforms(self) -> Tuple[str, ...]:
+        return tuple(self.meta["platforms"])
+
+    def example_input(self, batch_size: int = 0):
+        """Defaults to one row per replica (the least batch)."""
+        return ServingModel.example_input(self, batch_size or self.n_devices)
+
+    def __call__(self, batch) -> torch.Tensor:
+        b = int(batch.shape[0])
+        if b % self.n_devices:
+            raise ValueError(f"data-parallel serving over {self.n_devices} devices needs batch % "
+                             f"{self.n_devices} == 0, got {b} (configure server buckets as multiples "
+                             f"of the mesh size)")
+        per = b // self.n_devices
+        outs = []
+        with torch.inference_mode():
+            for i, (program, dev) in enumerate(zip(self.replicas, self.devices)):
+                x = _to_device_input(batch[i * per:(i + 1) * per], self.meta["batch_aval"], dev, "batch")
+                outs.append(program(x))
+        return torch.cat([o.to(self.devices[0]) for o in outs])
 
 
 class StreamingServingModel(ServingModel):
@@ -242,9 +294,9 @@ def load_artifact(path: str, device: Optional[torch.device | str] = None) -> Ser
             if dev.index is None:
                 dev = torch.device("cuda", torch.cuda.current_device())
         program = torch.export.load(io.BytesIO(z.read(_PROGRAM_NAME))).module()
-    if meta.get("meta", {}).get("streaming"):
-        return StreamingServingModel(program, meta, dev)
-    return ServingModel(program, meta, dev)
+    model = (StreamingServingModel if meta.get("meta", {}).get("streaming") else ServingModel)(program, meta, dev)
+    model.path = path  # over_mesh loads its other replicas from it
+    return model
 
 
 def _model_dtype(model: nn.Module) -> torch.dtype:

@@ -520,7 +520,6 @@ def serve_artifact(path: str, host: str = "127.0.0.1", port: int = 0,
                    warmup: bool = True,
                    buckets: Optional[Tuple[int, ...]] = (1,),
                    data_parallel: bool = False,
-                   mesh=None,
                    batch_window_ms: float = 0.0,
                    device=None) -> ArtifactServer:
     """Load a ``.tchvp`` artifact onto its platform's device (``device``)
@@ -532,16 +531,18 @@ def serve_artifact(path: str, host: str = "127.0.0.1", port: int = 0,
     the server takes traffic. ``batch_window_ms > 0`` turns on dynamic
     micro-batching (``_MicroBatcher``). A streaming artifact gets the
     /stream endpoints and no buckets (a session has one geometry).
-    ``data_parallel`` and ``mesh`` are items 11c and 11f of ROADMAP.md and raise.
+
+    ``data_parallel=True`` serves over every visible card of the platform
+    (``ServingModel.over_mesh``): each request batch splits over the
+    replicas. Buckets must then be multiples of their number; the ``(1,)``
+    default becomes one row per replica. A streaming artifact's stateful
+    carry does not split, and is refused.
     """
-    if data_parallel or mesh is not None:
-        raise NotImplementedError(
-            "data-parallel and pipelined serving are not ported yet "
-            "(ROADMAP.md, modules to port, item 11c: data parallelism, and item 11f: "
-            "pipeline parallelism)")
     norm = _normalize_buckets(buckets)  # validate BEFORE any warmup work
     model = load_artifact(path, device)
     if getattr(model, "stream_meta", None):
+        if data_parallel:
+            raise ValueError("streaming artifacts don't support data-parallel serving (stateful carry)")
         if warmup:
             sm = model.stream_meta
             chunk = np.zeros(
@@ -550,10 +551,19 @@ def serve_artifact(path: str, host: str = "127.0.0.1", port: int = 0,
             )
             _to_numpy(model.step(model.init_carry(), chunk)[1])
         return ArtifactServer(model, host, port, buckets=None)
+    if data_parallel:
+        model = model.over_mesh()
+        n = model.n_devices
+        if norm == (1,):  # the padding-only default: one row per replica
+            norm = (n,)
+        bad = [b for b in (norm or ()) if b % n]
+        if bad:
+            raise ValueError(f"data-parallel serving over {n} devices needs buckets that are "
+                             f"multiples of {n}, got {bad}")
     if warmup:
         # The input's shape and dtype come from the program's own batch
         # aval (``example_input``).
-        for b in (norm or (1,)):
+        for b in (norm or (getattr(model, "n_devices", 1),)):
             _to_numpy(model(model.example_input(b)))
     return ArtifactServer(model, host, port, buckets=norm,
                           batch_window_ms=batch_window_ms)

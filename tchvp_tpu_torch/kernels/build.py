@@ -6,7 +6,12 @@ Each CUDA library is compiled by ``nvcc`` in a subprocess into
 the hash covers the sources, the shared headers (``csrc/*.cuh``) and the
 flags, and is bound through ``ctypes`` to a plain ``extern "C"`` launcher.
 This needs neither ``ninja`` nor PyTorch's headers, so a build takes
-seconds; :func:`load_all` runs one ``nvcc`` per library, all at once.
+seconds; :func:`load_all` runs one ``nvcc`` per library, all at once. A
+library of the attention kernels (``UNIT_BLOCKS``) is compiled as one
+translation unit per block candidate of its list, all at once, then
+linked: each unit is given a header (:func:`unit_header`) that defines the
+candidate lists and the unit's share of them, from which the sources
+instantiate their kernels.
 :func:`load_host` builds a C++ file with ``g++`` into the same hashed
 directories. A missing compiler or a failed build raises: nothing falls
 back to a plain version.
@@ -36,6 +41,15 @@ NVCC_FLAGS = (
 LIBRARIES = {"flash_fwd": ["flash_fwd.cu"], "flash_bwd": ["flash_bwd.cu"],
              "band_attention": ["band_attention.cu"], "halo_attention": ["halo_attention.cu"],
              "fused_tail": ["fused_tail.cu"]}
+# The block candidates of the attention kernels: (block_q, block_k) of the
+# flash kernels and block_rows of the banded and halo kernels, the first of
+# each the default. The sources instantiate exactly these (unit_header).
+FLASH_BLOCKS = ((64, 64), (128, 64), (64, 32), (128, 32))
+WIN_BLOCKS = (64, 128)
+# Libraries built in parts, one translation unit per candidate of their
+# list, so that the build's wall time stays that of one candidate's kernels.
+UNIT_BLOCKS = {"flash_fwd": FLASH_BLOCKS, "flash_bwd": FLASH_BLOCKS,
+               "band_attention": WIN_BLOCKS, "halo_attention": WIN_BLOCKS}
 HOST_CXX = "g++"
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -59,6 +73,23 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME or /usr/local/cuda): cannot build the CUDA kernels")
 
 
+def _macro(name: str, blocks) -> str:
+    items = " ".join(f"X({', '.join(map(str, b)) if isinstance(b, tuple) else b})" for b in blocks)
+    return f"#define {name}(X) {items}\n"
+
+
+def unit_header(blocks: Sequence, unit: int) -> str:
+    """The header that translation unit ``unit`` of a library over
+    ``blocks`` is compiled with: the candidate lists
+    (``TCHVP_FLASH_BLOCKS``, ``TCHVP_WIN_BLOCKS``), the candidate the unit
+    instantiates (``TCHVP_UNIT_BLOCKS``), and in unit 0, which also holds
+    the C launchers, the others', declared extern
+    (``TCHVP_EXTERN_BLOCKS``)."""
+    return (f"#define TCHVP_UNIT {unit}\n" + _macro("TCHVP_FLASH_BLOCKS", FLASH_BLOCKS)
+            + _macro("TCHVP_WIN_BLOCKS", WIN_BLOCKS) + _macro("TCHVP_UNIT_BLOCKS", [blocks[unit]])
+            + _macro("TCHVP_EXTERN_BLOCKS", blocks[1:] if unit == 0 else []))
+
+
 def _load(name: str, compiler, flags: Sequence[str], sources: Sequence[Path],
           hashed: Sequence[Path]) -> ctypes.CDLL:
     """Compile ``sources`` into ``lib<name>.so`` under a directory named by
@@ -71,7 +102,9 @@ def _load(name: str, compiler, flags: Sequence[str], sources: Sequence[Path],
     with lock:
         if name in _libs:
             return _libs[name]
-        digest = hashlib.sha256(" ".join(flags).encode())
+        blocks = UNIT_BLOCKS.get(name) if compiler is nvcc_path else None
+        headers = [unit_header(blocks, i) for i in range(len(blocks))] if blocks else []
+        digest = hashlib.sha256(" ".join(flags).encode() + "".join(headers).encode())
         for p in hashed:
             digest.update(p.read_bytes())
         out_dir = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}"
@@ -81,20 +114,41 @@ def _load(name: str, compiler, flags: Sequence[str], sources: Sequence[Path],
         if not lib_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
             tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-            cmd = [compiler(), *flags, "-o", str(tmp), *map(str, sources)]
-            try:
-                proc = subprocess.run(cmd, capture_output=True, text=True)
-            except OSError as e:
-                raise RuntimeError(f"cannot run {cmd[0]} to build {name}: {e}") from e
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"{cmd[0]} failed building {name} (exit {proc.returncode}):\n{log}")
+            exe = compiler()
+            if not headers:
+                log = _run([exe, *flags, "-o", str(tmp), *map(str, sources)], name)
+            else:
+                units = range(len(headers))
+                objs = [out_dir / f"{name}.{i}.{os.getpid()}.o" for i in units]
+                for i in units:
+                    (out_dir / f"unit{i}.h").write_text(headers[i])
+                compile_flags = [f for f in flags if f != "-shared"]
+                with ThreadPoolExecutor(max_workers=len(headers)) as pool:
+                    logs = list(pool.map(lambda i: _run(
+                        [exe, *compile_flags, "-c", "-include", str(out_dir / f"unit{i}.h"),
+                         "-o", str(objs[i]), *map(str, sources)], f"{name} unit {i}"), units))
+                logs.append(_run([exe, *flags, "-o", str(tmp), *map(str, objs)], f"{name} (link)"))
+                log = "".join(logs)
+                for o in objs:
+                    o.unlink()
             log_path.write_text(log)
             os.replace(tmp, lib_path)
         build_seconds[name] = time.perf_counter() - t0
         build_log[name] = log_path.read_text() if log_path.exists() else ""
         _libs[name] = ctypes.CDLL(str(lib_path))
         return _libs[name]
+
+
+def _run(cmd: Sequence[str], what: str) -> str:
+    """Run one compiler command; its output, or a raise with it."""
+    try:
+        proc = subprocess.run(list(cmd), capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"cannot run {cmd[0]} to build {what}: {e}") from e
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"{cmd[0]} failed building {what} (exit {proc.returncode}):\n{log}")
+    return log
 
 
 def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:

@@ -60,14 +60,16 @@
 // take 1 <= w <= S; the wrapper passes min(w, S), since a window of S or
 // more holds every pair. The scratch's width, the key tiles and their grid
 // come from flash_attention.py's window_bwd_plan.
+#define TCHVP_WIN_MODE kBand  // the mode whose kernels this library instantiates
 #include "window_bwd.cuh"
 #include "window_fwd.cuh"
 
+#if TCHVP_UNIT == 0
 extern "C" {
 
 // q, k, v, out: (batch_heads, seq_len, head_dim) contiguous, fp32 (is_bf16 0)
 // or bf16 (is_bf16 1); lse: (batch_heads, seq_len) fp32; window in tokens,
-// 1..seq_len; span_cols: the widest key span of a 64-row query tile, and
+// 1..seq_len; span_cols: the widest key span of a block_rows-row query tile, and
 // scratch: (batch_heads, seq_len, scratch_cols) fp32, 16-byte aligned,
 // scratch_cols a multiple of 4 that holds span_cols and one column per
 // 64-key tile (both from flash_attention.py's window_plan); seed: (1,)
@@ -77,10 +79,11 @@ extern "C" {
 int tchvp_band_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                    void* scratch, int batch_heads, int seq_len, int head_dim, int window,
                    int span_cols, int scratch_cols, int is_bf16, float scale, float dropout_rate,
-                   unsigned int drop_threshold, const void* seed, void* stream) {
+                   unsigned int drop_threshold, const void* seed, int block_rows,
+                   void* stream) {
   return tchvp::run_window_fwd<tchvp::kBand>(q, k, v, out, lse, scratch, batch_heads, seq_len,
       head_dim, window, span_cols, scratch_cols, is_bf16, scale, dropout_rate, drop_threshold,
-      seed, nullptr, stream);
+      seed, nullptr, block_rows, stream);
 }
 
 // Pass A: P_drop and dS of the band into scratch: (2, batch_heads,
@@ -92,31 +95,31 @@ int tchvp_band_bwd_ds(const void* q, const void* k, const void* v, const void* d
                       const void* delta, void* scratch, int batch_heads, int seq_len, int head_dim,
                       int window, int span_tiles, int key_tiles, int tile_base, int is_bf16,
                       float scale, float dropout_rate, unsigned int drop_threshold, const void* seed,
-                      void* stream) {
+                      int block_rows, void* stream) {
   const tchvp::WindowBwdParams a{q, k, v, dout, lse, delta, scratch, nullptr, nullptr, batch_heads,
       seq_len, head_dim, window, span_tiles, key_tiles, tile_base, scale, dropout_rate,
       drop_threshold, static_cast<const int*>(seed), nullptr, 0, 0, static_cast<cudaStream_t>(stream)};
-  return tchvp::run_window_bwd<tchvp::kBand>(0, a, is_bf16);
+  return tchvp::run_window_bwd<tchvp::kBand>(0, a, is_bf16, block_rows);
 }
 
 // Pass B: dq (as q) = dS k from pass A's scratch.
 int tchvp_band_bwd_dq(const void* scratch, const void* k, void* dq, int batch_heads, int seq_len,
                       int head_dim, int window, int span_tiles, int key_tiles, int tile_base,
-                      int is_bf16, void* stream) {
+                      int is_bf16, int block_rows, void* stream) {
   const tchvp::WindowBwdParams a{nullptr, k, nullptr, nullptr, nullptr, nullptr, const_cast<void*>(scratch),
       dq, nullptr, batch_heads, seq_len, head_dim, window, span_tiles, key_tiles, tile_base, 0.f, 0.f, 0u,
       nullptr, nullptr, 0, 0, static_cast<cudaStream_t>(stream)};
-  return tchvp::run_window_bwd<tchvp::kBand>(1, a, is_bf16);
+  return tchvp::run_window_bwd<tchvp::kBand>(1, a, is_bf16, block_rows);
 }
 
 // Pass B: dk = dS^T q and dv = P_drop^T dout (as k, v) from pass A's scratch.
 int tchvp_band_bwd_dkv(const void* scratch, const void* q, const void* dout, void* dk, void* dv,
                        int batch_heads, int seq_len, int head_dim, int window, int span_tiles,
-                       int key_tiles, int tile_base, int is_bf16, void* stream) {
+                       int key_tiles, int tile_base, int is_bf16, int block_rows, void* stream) {
   const tchvp::WindowBwdParams a{q, nullptr, nullptr, dout, nullptr, nullptr, const_cast<void*>(scratch),
       dk, dv, batch_heads, seq_len, head_dim, window, span_tiles, key_tiles, tile_base, 0.f, 0.f, 0u,
       nullptr, nullptr, 0, 0, static_cast<cudaStream_t>(stream)};
-  return tchvp::run_window_bwd<tchvp::kBand>(2, a, is_bf16);
+  return tchvp::run_window_bwd<tchvp::kBand>(2, a, is_bf16, block_rows);
 }
 
 const char* tchvp_cuda_error_string(int code) {
@@ -124,3 +127,4 @@ const char* tchvp_cuda_error_string(int code) {
 }
 
 }  // extern "C"
+#endif  // TCHVP_UNIT == 0

@@ -19,22 +19,23 @@
 //
 // Design: the flash forward's (flash_fwd.cu) column blocks, which recompute
 // the logits, in both kernels. One launch each, no scratch, no atomics.
-//  * dq: grid (64-row query tile, column block of 8 NT head-dim columns, bh),
-//    4 warps of 16 rows. The block walks the 64-key tiles of all S in order:
+//  * dq: grid (BQ-row query tile, column block of 8 NT head-dim columns,
+//    bh), BQ / 16 warps of 16 rows. The block walks the BK-key tiles of all S
+//    in order:
 //    S = Q K^T and dP = dO V^T over the whole head dim (qk_chunk twice; Dh
 //    streamed in KC-column chunks), P = ex2(S scale log2e - lse log2e) and dS
 //    formed in registers in the A-fragment layout, then dQ_blk += dS
 //    K[:, blk] (pv_tile, K's column block by ldmatrix.trans as the forward
 //    reads V). lse, delta and the rows' hashes stay in registers.
-//  * dk/dv: grid (64-key tile, column block, bh), 4 warps of 16 keys. The
-//    block walks the 64-row query tiles of all S: S^T = K Q^T and dP^T = V
+//  * dk/dv: grid (BK-key tile, column block, bh), BK / 16 warps of 16 keys.
+//    The block walks the BQ-row query tiles of all S: S^T = K Q^T and dP^T = V
 //    dO^T, so P^T and dS^T come out of the accumulator already in the
 //    A-fragment layout; dV_blk += P_drop^T dO[:, blk] and dK_blk += dS^T
 //    Q[:, blk]. The query tile's lse, delta and row hashes are staged once
 //    per tile in shared memory (one buffer per ring slot).
 //  * Every column block recomputes S and dP in the same order, so all of
-//    them see the same P and dS bit for bit. Where S <= 64 (one tile: the
-//    training shape) a block takes several column blocks in turn after
+//    them see the same P and dS bit for bit. Where one tile covers S (S <= 64
+//    at the default blocks: the training shape) a block takes several column blocks in turn after
 //    forming P and dS once, as few blocks per batch-head as give each SM one
 //    (bwd_col_blocks): the logits are then recomputed SMs / BH times, not
 //    once per column block. Tiles follow the head dim: (KC,
@@ -62,6 +63,9 @@
 //    accumulator, added in fp32 (the tensor cores do not round to nearest).
 //  * Every gradient element is summed by one thread in one order, so the
 //    bits are equal on repeat and between strided and contiguous inputs.
+//  * Blocks (BQ, BK) are the forward's (flash_fwd.cu, TCHVP_FLASH_BLOCKS),
+//    passed by the wrapper from the forward's call: query rows per dq block
+//    and per dk/dv step, keys per dq step and per dk/dv block.
 #include "flash_tiles.cuh"
 
 namespace tchvp {
@@ -95,16 +99,11 @@ __host__ __device__ constexpr int bwd_stages() {
   return kResident && sizeof(T) == 2 ? 4 : 2;
 }
 
-// Tiles per ring step: the two streamed ones when the block's own two are
-// resident, else all four.
-template <bool kResident>
-__host__ __device__ constexpr int bwd_step_tiles() { return kResident ? 2 : 4; }
-
-// A warp's 16 x 8 NT fp32 accumulator into rows [r0, r0 + 64) of a
-// gradient: staged in shared memory (o_s, [64][SV] elements of T), then
-// written in 16- or 8-byte pieces or elements. Ends with a barrier, so
-// o_s is free again.
-template <typename T, int NT>
+// A warp's 16 x 8 NT fp32 accumulator into rows [r0, r0 + ROWS) of a
+// gradient: staged in shared memory (o_s, [ROWS][SV] elements of T), then
+// written in 16- or 8-byte pieces or elements by the block's ROWS / 16
+// warps. Ends with a barrier, so o_s is free again.
+template <typename T, int NT, int ROWS>
 __device__ __forceinline__ void store_block(T* o_s, const float (&acc)[NT][4], T* out, size_t ss,
                                             int r0, int d0, int seq_len, int head_dim, int copy_out) {
   constexpr int SV = flash_stride_v<T, NT>();
@@ -123,7 +122,7 @@ __device__ __forceinline__ void store_block(T* o_s, const float (&acc)[NT][4], T
   __syncthreads();
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = kCols / kVec;
-  for (int i = threadIdx.x; i < kFlashBlockQ * kPerRow; i += kFlashThreads) {
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += flash_threads<ROWS>()) {
     const int r = i / kPerRow;
     const int c = (i - r * kPerRow) * kVec;
     if (r0 + r >= seq_len || d0 + c >= head_dim) continue;
@@ -150,40 +149,43 @@ __device__ __forceinline__ void zero_cols(float (&acc)[NT][4]) {
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 }
 
-// acc += A B^T over one KC chunk: a warp's 16 rows (a_s) x 64 columns (b_s),
-// qk_chunk's layout; fp32 adds each chunk's products from their own
+// acc += A B^T over one KC chunk: a warp's 16 rows (a_s) x 8 NJ columns
+// (b_s), qk_chunk's layout; fp32 adds each chunk's products from their own
 // accumulator, as the forward does.
-template <int KC, typename T>
-__device__ __forceinline__ void chunk_into(float (&acc)[8][4], const T* a_s, const T* b_s, int lane) {
+template <int KC, int NJ, typename T>
+__device__ __forceinline__ void chunk_into(float (&acc)[NJ][4], const T* a_s, const T* b_s, int lane) {
   if constexpr (sizeof(T) == 2) {
     qk_chunk<KC>(acc, a_s, b_s, lane);
   } else {
-    float part[8][4];
+    float part[NJ][4];
     zero_cols(part);
     qk_chunk<KC>(part, a_s, b_s, lane);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
   }
 }
 
 
-template <typename T, int KC, int NT, bool kResident>
-__global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(const FlashBwdParams<T> p) {
+template <typename T, int KC, int NT, bool kResident, int BQ, int BK>
+__global__ void __launch_bounds__(flash_threads<BQ>()) flash_bwd_dq_kernel(const FlashBwdParams<T> p) {
+  constexpr int kThreads = flash_threads<BQ>();
   constexpr int SQK = flash_stride_qk<T, KC>();
   constexpr int SV = flash_stride_v<T, NT>();
   constexpr int kStages = bwd_stages<T, kResident>();
   constexpr int kCols = 8 * NT;
-  constexpr int kTile = kFlashBlockK * SQK;  // elements of one 64-row chunk tile
-  constexpr int kStage = bwd_step_tiles<kResident>() * kTile;
+  constexpr int kTileQ = BQ * SQK;  // elements of one chunk tile of Q or dO
+  constexpr int kTileK = BK * SQK;  // of K or V
+  constexpr int kStage = kResident ? 2 * kTileK : 2 * kTileQ + 2 * kTileK;
+  constexpr int NJ = BK / 8;
   static_assert(!kResident || (KC == kCols && SQK == SV), "a resident tiling reads K's chunk as its block");
-  static_assert(kResident || kStages * kStage >= 2 * kFlashBlockK * SV, "the ring holds a block and a stage");
+  static_assert(kResident || kStages * kStage >= (BK + BQ) * SV, "the ring holds a block and a stage");
   extern __shared__ __align__(16) unsigned char bwd_smem[];
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kFlashBlockQ;
+  const int q0 = blockIdx.x * BQ;
   // This block's column blocks [cb0, cb_end); several only with one key tile.
   const int cb0 = blockIdx.y * p.col_blocks;
   const int cb_end = imin(cb0 + p.col_blocks, (p.head_dim + kCols - 1) / kCols);
@@ -198,36 +200,34 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(const Flash
   const T* ob = p.dout + b * p.d_sb + h * p.d_sh;
 
   const int n_chunks = kResident ? 1 : (head_dim + KC - 1) / KC;
-  const int n_tiles = (seq_len + kFlashBlockK - 1) / kFlashBlockK;
-  // Resident: Q and dO [64][SQK] each, then the ring of (K, V) tiles.
-  // Else: K's column block [64][SV], then the ring of (Q, dO, K, V) chunks.
+  const int n_tiles = (seq_len + BK - 1) / BK;
+  // Resident: Q and dO [BQ][SQK] each, then the ring of (K, V) tiles.
+  // Else: K's column block [BK][SV], then the ring of (Q, dO, K, V) chunks.
   // With several column blocks (one key tile, so no chunk is issued after
   // the first block's step) the ring's start takes every other block, and
   // the block after it stages dQ for its store.
   T* base = reinterpret_cast<T*>(bwd_smem);
-  T* ring = base + (kResident ? 2 * kTile : kFlashBlockK * SV);
+  T* ring = base + (kResident ? 2 * kTileQ : BK * SV);
 
   int i_tile = 0, i_chunk = 0, i_slot = 0, i_cb = 0;
   auto issue = [&]() {
     if (i_tile < n_tiles) {
-      const int k0 = i_tile * kFlashBlockK;
+      const int k0 = i_tile * BK;
       if (i_chunk < n_chunks) {
         T* st = ring + i_slot * kStage;
         const int c0 = i_chunk * KC;
         if constexpr (kResident) {
           if (i_tile == 0) {
-            load_tile<T, kFlashBlockQ, KC, SQK, kFlashThreads>(base, qb, q0, seq_len, 0, head_dim, q_ss, copy);
-            load_tile<T, kFlashBlockQ, KC, SQK, kFlashThreads>(base + kTile, ob, q0, seq_len, 0, head_dim, d_ss,
-                                                               copy);
+            load_tile<T, BQ, KC, SQK, kThreads>(base, qb, q0, seq_len, 0, head_dim, q_ss, copy);
+            load_tile<T, BQ, KC, SQK, kThreads>(base + kTileQ, ob, q0, seq_len, 0, head_dim, d_ss, copy);
           }
         } else {
-          load_tile<T, kFlashBlockQ, KC, SQK, kFlashThreads>(st, qb, q0, seq_len, c0, head_dim, q_ss, copy);
-          load_tile<T, kFlashBlockQ, KC, SQK, kFlashThreads>(st + kTile, ob, q0, seq_len, c0, head_dim, d_ss,
-                                                             copy);
-          st += 2 * kTile;
+          load_tile<T, BQ, KC, SQK, kThreads>(st, qb, q0, seq_len, c0, head_dim, q_ss, copy);
+          load_tile<T, BQ, KC, SQK, kThreads>(st + kTileQ, ob, q0, seq_len, c0, head_dim, d_ss, copy);
+          st += 2 * kTileQ;
         }
-        load_tile<T, kFlashBlockK, KC, SQK, kFlashThreads>(st, kb, k0, seq_len, c0, head_dim, k_ss, copy);
-        load_tile<T, kFlashBlockK, KC, SQK, kFlashThreads>(st + kTile, vb, k0, seq_len, c0, head_dim, v_ss, copy);
+        load_tile<T, BK, KC, SQK, kThreads>(st, kb, k0, seq_len, c0, head_dim, k_ss, copy);
+        load_tile<T, BK, KC, SQK, kThreads>(st + kTileK, vb, k0, seq_len, c0, head_dim, v_ss, copy);
         i_slot = i_slot + 1 == kStages ? 0 : i_slot + 1;
         if (kResident) {
           ++i_tile;
@@ -235,8 +235,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(const Flash
           ++i_chunk;
         }
       } else {
-        load_tile<T, kFlashBlockK, kCols, SV, kFlashThreads>((i_cb & 1) ? ring : base, kb, k0, seq_len,
-                                                             (cb0 + i_cb) * kCols, head_dim, k_ss, copy);
+        load_tile<T, BK, kCols, SV, kThreads>((i_cb & 1) ? ring : base, kb, k0, seq_len, (cb0 + i_cb) * kCols,
+                                              head_dim, k_ss, copy);
         if (++i_cb == cb_end - cb0) {
           i_cb = 0;
           i_chunk = 0;
@@ -247,7 +247,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(const Flash
     cp_async_commit();
   };
 
-  float s_acc[8][4], dp_acc[8][4], dq_acc[NT][4];
+  float s_acc[NJ][4], dp_acc[NJ][4], dq_acc[NT][4];
   zero_cols(s_acc);
   zero_cols(dp_acc);
   zero_cols(dq_acc);
@@ -279,17 +279,17 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(const Flash
       const T* st = ring + slot * kStage;
       slot = slot + 1 == kStages ? 0 : slot + 1;
       const T* q_s = kResident ? base : st;
-      const T* do_s = q_s + kTile;
-      k_tile = kResident ? st : st + 2 * kTile;
+      const T* do_s = q_s + kTileQ;
+      k_tile = kResident ? st : st + 2 * kTileQ;
       chunk_into<KC>(s_acc, q_s + warp * 16 * SQK, k_tile, lane);
-      chunk_into<KC>(dp_acc, do_s + warp * 16 * SQK, k_tile + kTile, lane);
+      chunk_into<KC>(dp_acc, do_s + warp * 16 * SQK, k_tile + kTileK, lane);
     }
 
     // P and dS of the tile, in place of the logits and dP.
-    const int k0 = kt * kFlashBlockK;
-    const bool ragged = k0 + kFlashBlockK > seq_len;
+    const int k0 = kt * BK;
+    const bool ragged = k0 + BK > seq_len;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + 8 * j + 2 * t + (e & 1);
@@ -307,8 +307,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(const Flash
         issue();
         pv_tile<NT>(dq_acc, s_acc, ((cb - cb0) & 1) ? ring : base, lane);
         if (cb_end - cb0 > 1) {  // the one key tile: this column block of dQ is done
-          store_block<T, NT>(ring + kFlashBlockK * SV, dq_acc, dq_out, p.g0_ss, q0, cb * kCols, seq_len,
-                             head_dim, p.copy_out);
+          store_block<T, NT, BQ>(ring + BK * SV, dq_acc, dq_out, p.g0_ss, q0, cb * kCols, seq_len, head_dim,
+                                 p.copy_out);
           zero_cols(dq_acc);
         }
       }
@@ -318,24 +318,28 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dq_kernel(const Flash
   }
   cp_async_wait<0>();
   __syncthreads();  // every slot free
-  if (cb_end - cb0 == 1) store_block<T, NT>(base, dq_acc, dq_out, p.g0_ss, q0, d0, seq_len, head_dim, p.copy_out);
+  if (cb_end - cb0 == 1)
+    store_block<T, NT, BQ>(base, dq_acc, dq_out, p.g0_ss, q0, d0, seq_len, head_dim, p.copy_out);
 }
 
-template <typename T, int KC, int NT, bool kResident>
-__global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(const FlashBwdParams<T> p) {
+template <typename T, int KC, int NT, bool kResident, int BQ, int BK>
+__global__ void __launch_bounds__(flash_threads<BK>()) flash_bwd_dkv_kernel(const FlashBwdParams<T> p) {
+  constexpr int kThreads = flash_threads<BK>();
   constexpr int SQK = flash_stride_qk<T, KC>();
   constexpr int SV = flash_stride_v<T, NT>();
   constexpr int kStages = bwd_stages<T, kResident>();
   constexpr int kCols = 8 * NT;
-  constexpr int kTile = kFlashBlockK * SQK;
-  constexpr int kStage = bwd_step_tiles<kResident>() * kTile;
+  constexpr int kTileQ = BQ * SQK;
+  constexpr int kTileK = BK * SQK;
+  constexpr int kStage = kResident ? 2 * kTileQ : 2 * kTileQ + 2 * kTileK;
+  constexpr int NJ = BQ / 8;
   static_assert(!kResident || (KC == kCols && SQK == SV), "a resident tiling reads Q's chunk as its block");
-  static_assert(kResident || kStages * kStage >= 3 * kFlashBlockQ * SV, "the ring holds two blocks and a stage");
+  static_assert(kResident || kStages * kStage >= (2 * BQ + BK) * SV, "the ring holds two blocks and a stage");
   extern __shared__ __align__(16) unsigned char bwd_smem[];
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * kFlashBlockK;
+  const int k0 = blockIdx.x * BK;
   const int cb0 = blockIdx.y * p.col_blocks;
   const int cb_end = imin(cb0 + p.col_blocks, (p.head_dim + kCols - 1) / kCols);
   const int d0 = cb0 * kCols;
@@ -351,18 +355,18 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(const Flas
   const float* delta_bh = p.delta + (size_t)bh * seq_len;
 
   const int n_chunks = kResident ? 1 : (head_dim + KC - 1) / KC;
-  const int n_tiles = (seq_len + kFlashBlockQ - 1) / kFlashBlockQ;
-  // Resident: K and V [64][SQK] each, then the ring of (Q, dO) tiles. Else:
-  // Q's and dO's column blocks [64][SV] each, then the ring of (Q, dO, K, V)
+  const int n_tiles = (seq_len + BQ - 1) / BQ;
+  // Resident: K and V [BK][SQK] each, then the ring of (Q, dO) tiles. Else:
+  // Q's and dO's column blocks [BQ][SV] each, then the ring of (Q, dO, K, V)
   // chunks; with several column blocks (one query tile) the ring's start
   // takes every other pair of blocks and the block after them stages dK and
   // dV. Past the ring, per slot, the query tile's lse * log2(e), delta and
   // row hashes.
   T* base = reinterpret_cast<T*>(bwd_smem);
-  T* ring = base + (kResident ? 2 * kTile : 2 * kFlashBlockQ * SV);
-  float* lse_s = reinterpret_cast<float*>(ring + kStages * kStage);  // [kStages][64]
-  float* delta_s = lse_s + kStages * kFlashBlockQ;                     // [kStages][64]
-  uint32_t* hash_s = reinterpret_cast<uint32_t*>(delta_s + kStages * kFlashBlockQ);  // [kStages][64]
+  T* ring = base + (kResident ? 2 * kTileK : 2 * BQ * SV);
+  float* lse_s = reinterpret_cast<float*>(ring + kStages * kStage);  // [kStages][BQ]
+  float* delta_s = lse_s + kStages * BQ;                               // [kStages][BQ]
+  uint32_t* hash_s = reinterpret_cast<uint32_t*>(delta_s + kStages * BQ);  // [kStages][BQ]
   const bool dropout = p.dropout != 0;
   const uint32_t hash_base = dropout ? dropout_base(p.seed, bh) : 0u;
 
@@ -372,32 +376,31 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(const Flas
   int i_tile = 0, i_chunk = 0, i_slot = 0, i_cb = 0;
   auto issue = [&]() {
     if (i_tile < n_tiles) {
-      const int q0 = i_tile * kFlashBlockQ;
-      if (i_chunk == 0 && threadIdx.x < kFlashBlockQ) {
-        const int row = q0 + threadIdx.x;
-        const bool ok = row < seq_len;
-        const int at = (i_tile % kStages) * kFlashBlockQ + threadIdx.x;
-        lse_s[at] = ok ? lse_bh[row] * kLog2e : 0.f;
-        delta_s[at] = ok ? delta_bh[row] : 0.f;
-        hash_s[at] = row_hash(hash_base, row);
+      const int q0 = i_tile * BQ;
+      if (i_chunk == 0) {
+        for (int r = threadIdx.x; r < BQ; r += kThreads) {
+          const int row = q0 + r;
+          const bool ok = row < seq_len;
+          const int at = (i_tile % kStages) * BQ + r;
+          lse_s[at] = ok ? lse_bh[row] * kLog2e : 0.f;
+          delta_s[at] = ok ? delta_bh[row] : 0.f;
+          hash_s[at] = row_hash(hash_base, row);
+        }
       }
       if (i_chunk < n_chunks) {
         T* st = ring + i_slot * kStage;
         const int c0 = i_chunk * KC;
         if constexpr (kResident) {
           if (i_tile == 0) {
-            load_tile<T, kFlashBlockK, KC, SQK, kFlashThreads>(base, kb, k0, seq_len, 0, head_dim, k_ss, copy);
-            load_tile<T, kFlashBlockK, KC, SQK, kFlashThreads>(base + kTile, vb, k0, seq_len, 0, head_dim, v_ss,
-                                                               copy);
+            load_tile<T, BK, KC, SQK, kThreads>(base, kb, k0, seq_len, 0, head_dim, k_ss, copy);
+            load_tile<T, BK, KC, SQK, kThreads>(base + kTileK, vb, k0, seq_len, 0, head_dim, v_ss, copy);
           }
         }
-        load_tile<T, kFlashBlockQ, KC, SQK, kFlashThreads>(st, qb, q0, seq_len, c0, head_dim, q_ss, copy);
-        load_tile<T, kFlashBlockQ, KC, SQK, kFlashThreads>(st + kTile, ob, q0, seq_len, c0, head_dim, d_ss, copy);
+        load_tile<T, BQ, KC, SQK, kThreads>(st, qb, q0, seq_len, c0, head_dim, q_ss, copy);
+        load_tile<T, BQ, KC, SQK, kThreads>(st + kTileQ, ob, q0, seq_len, c0, head_dim, d_ss, copy);
         if constexpr (!kResident) {
-          load_tile<T, kFlashBlockK, KC, SQK, kFlashThreads>(st + 2 * kTile, kb, k0, seq_len, c0, head_dim, k_ss,
-                                                             copy);
-          load_tile<T, kFlashBlockK, KC, SQK, kFlashThreads>(st + 3 * kTile, vb, k0, seq_len, c0, head_dim, v_ss,
-                                                             copy);
+          load_tile<T, BK, KC, SQK, kThreads>(st + 2 * kTileQ, kb, k0, seq_len, c0, head_dim, k_ss, copy);
+          load_tile<T, BK, KC, SQK, kThreads>(st + 2 * kTileQ + kTileK, vb, k0, seq_len, c0, head_dim, v_ss, copy);
         }
         i_slot = i_slot + 1 == kStages ? 0 : i_slot + 1;
         if (kResident) {
@@ -408,9 +411,8 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(const Flas
       } else {
         T* blk = (i_cb & 1) ? ring : base;
         const int c0 = (cb0 + i_cb) * kCols;
-        load_tile<T, kFlashBlockQ, kCols, SV, kFlashThreads>(blk, qb, q0, seq_len, c0, head_dim, q_ss, copy);
-        load_tile<T, kFlashBlockQ, kCols, SV, kFlashThreads>(blk + kFlashBlockQ * SV, ob, q0, seq_len, c0,
-                                                             head_dim, d_ss, copy);
+        load_tile<T, BQ, kCols, SV, kThreads>(blk, qb, q0, seq_len, c0, head_dim, q_ss, copy);
+        load_tile<T, BQ, kCols, SV, kThreads>(blk + BQ * SV, ob, q0, seq_len, c0, head_dim, d_ss, copy);
         if (++i_cb == cb_end - cb0) {
           i_cb = 0;
           i_chunk = 0;
@@ -421,7 +423,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(const Flas
     cp_async_commit();
   };
 
-  float s_acc[8][4], dp_acc[8][4], dk_acc[NT][4], dv_acc[NT][4];
+  float s_acc[NJ][4], dp_acc[NJ][4], dk_acc[NT][4], dv_acc[NT][4];
   zero_cols(s_acc);
   zero_cols(dp_acc);
   zero_cols(dk_acc);
@@ -443,19 +445,19 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(const Flas
       issue();
       const T* st = ring + slot * kStage;
       slot = slot + 1 == kStages ? 0 : slot + 1;
-      const T* k_s = kResident ? base : st + 2 * kTile;
+      const T* k_s = kResident ? base : st + 2 * kTileQ;
       q_blk = st;
       chunk_into<KC>(s_acc, k_s + warp * 16 * SQK, st, lane);
-      chunk_into<KC>(dp_acc, k_s + kTile + warp * 16 * SQK, st + kTile, lane);
+      chunk_into<KC>(dp_acc, k_s + kTileK + warp * 16 * SQK, st + kTileQ, lane);
     }
 
     // P_drop^T and dS^T of the tile, in place of S^T and dP^T: row = key,
     // column = query row q0 + 8j + 2t + (e & 1).
-    const int q0 = qt * kFlashBlockQ;
-    const bool ragged = q0 + kFlashBlockQ > seq_len;
-    const int buf = (qt % kStages) * kFlashBlockQ;
+    const int q0 = qt * BQ;
+    const bool ragged = q0 + BQ > seq_len;
+    const int buf = (qt % kStages) * BQ;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qc = 8 * j + 2 * t + (e & 1);
@@ -470,7 +472,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(const Flas
         s_acc[j][e] = w_drop;
       }
     if constexpr (kResident) {
-      pv_tile<NT>(dv_acc, s_acc, q_blk + kTile, lane);
+      pv_tile<NT>(dv_acc, s_acc, q_blk + kTileQ, lane);
       pv_tile<NT>(dk_acc, dp_acc, q_blk, lane);
     } else {
       for (int cb = cb0; cb < cb_end; ++cb) {
@@ -478,12 +480,12 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(const Flas
         __syncthreads();  // Q's and dO's column blocks staged for all
         issue();
         const T* blk = ((cb - cb0) & 1) ? ring : base;
-        pv_tile<NT>(dv_acc, s_acc, blk + kFlashBlockQ * SV, lane);
+        pv_tile<NT>(dv_acc, s_acc, blk + BQ * SV, lane);
         pv_tile<NT>(dk_acc, dp_acc, blk, lane);
         if (cb_end - cb0 > 1) {  // the one query tile: this column block of dK and dV is done
-          T* stage = ring + 2 * kFlashBlockQ * SV;
-          store_block<T, NT>(stage, dk_acc, dk_out, p.g0_ss, k0, cb * kCols, seq_len, head_dim, p.copy_out);
-          store_block<T, NT>(stage, dv_acc, dv_out, p.g1_ss, k0, cb * kCols, seq_len, head_dim, p.copy_out);
+          T* stage = ring + 2 * BQ * SV;
+          store_block<T, NT, BK>(stage, dk_acc, dk_out, p.g0_ss, k0, cb * kCols, seq_len, head_dim, p.copy_out);
+          store_block<T, NT, BK>(stage, dv_acc, dv_out, p.g1_ss, k0, cb * kCols, seq_len, head_dim, p.copy_out);
           zero_cols(dk_acc);
           zero_cols(dv_acc);
         }
@@ -495,66 +497,94 @@ __global__ void __launch_bounds__(kFlashThreads) flash_bwd_dkv_kernel(const Flas
   cp_async_wait<0>();
   __syncthreads();
   if (cb_end - cb0 == 1) {
-    store_block<T, NT>(base, dk_acc, dk_out, p.g0_ss, k0, d0, seq_len, head_dim, p.copy_out);
-    store_block<T, NT>(base, dv_acc, dv_out, p.g1_ss, k0, d0, seq_len, head_dim, p.copy_out);
+    store_block<T, NT, BK>(base, dk_acc, dk_out, p.g0_ss, k0, d0, seq_len, head_dim, p.copy_out);
+    store_block<T, NT, BK>(base, dv_acc, dv_out, p.g1_ss, k0, d0, seq_len, head_dim, p.copy_out);
   }
 }
 
 // Shared memory of one block: the resident or column-block tiles, the ring
-// and, in dk/dv, the query tiles' statistics.
-template <typename T, int KC, int NT, bool kResident>
+// and, in dk/dv, the query tiles' statistics. The block's own rows are BQ
+// (dq) or BK (dk/dv); its steps' tiles those and the other's.
+template <typename T, int KC, int NT, bool kResident, int BQ, int BK>
 size_t bwd_smem_bytes(bool dkv) {
-  const size_t tile = (size_t)kFlashBlockK * flash_stride_qk<T, KC>();
-  const size_t own = kResident ? 2 * tile : (size_t)(dkv ? 2 : 1) * kFlashBlockK * flash_stride_v<T, NT>();
-  const size_t ring = (size_t)bwd_stages<T, kResident>() * bwd_step_tiles<kResident>() * tile;
-  const size_t stats = dkv ? (size_t)3 * bwd_stages<T, kResident>() * kFlashBlockQ * 4 : 0;
+  const size_t sqk = flash_stride_qk<T, KC>(), sv = flash_stride_v<T, NT>();
+  const size_t own_rows = dkv ? BK : BQ, step_rows = dkv ? BQ : BK;
+  const size_t own = kResident ? 2 * own_rows * sqk : (dkv ? 2 * (size_t)BQ : (size_t)BK) * sv;
+  const size_t stage = kResident ? 2 * step_rows * sqk : 2 * ((size_t)BQ + BK) * sqk;
+  const size_t ring = (size_t)bwd_stages<T, kResident>() * stage;
+  const size_t stats = dkv ? (size_t)3 * bwd_stages<T, kResident>() * BQ * 4 : 0;
   return (own + ring) * sizeof(T) + stats;
 }
 
-// Column blocks per block past Dh 64: with one 64-row tile (S <= 64) the
-// logits are formed once and a block takes ceil(total / groups) column
-// blocks in turn, groups (grid.y) = SMs / BH, at least 1 (2 at the training
-// shape, BH 64; flash_bwd_breakdown.py times 1 and 4 groups and one column
-// block per block beside it, PERF.md §6); else 1, each column block
-// recomputing the logits.
-inline int bwd_col_blocks(int total, int seq_len, int batch_heads) {
-  if (seq_len > kFlashBlockQ) return 1;
+// Column blocks per block past Dh 64: with one tile of the walked rows (S <=
+// BK in dq, S <= BQ in dk/dv; S <= 64 at the default blocks) the logits are
+// formed once and a block takes ceil(total / groups) column blocks in turn,
+// groups (grid.y) = SMs / BH, at least 1 (2 at the training shape, BH 64;
+// flash_bwd_breakdown.py times 1 and 4 groups and one column block per block
+// beside it, PERF.md §6); else 1, each column block recomputing the logits.
+inline int bwd_col_blocks(int total, bool one_tile, int batch_heads) {
+  if (!one_tile) return 1;
   static int sms = 0;
   if (sms == 0 && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0) != cudaSuccess) sms = 132;
   const int groups = imin(total, imax(1, sms / batch_heads));
   return (total + groups - 1) / groups;
 }
 
-template <int kWhich, typename T, int KC, int NT, bool kResident>
+template <int kWhich, typename T, int KC, int NT, bool kResident, int BQ, int BK>
 cudaError_t launch_flash_bwd(FlashBwdParams<T> p, int batch_heads, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes<T, KC, NT, kResident>(kWhich == 1);
+  const size_t smem = bwd_smem_bytes<T, KC, NT, kResident, BQ, BK>(kWhich == 1);
   void (*kernel)(const FlashBwdParams<T>);
   if constexpr (kWhich == 0) {
-    kernel = flash_bwd_dq_kernel<T, KC, NT, kResident>;
+    kernel = flash_bwd_dq_kernel<T, KC, NT, kResident, BQ, BK>;
   } else {
-    kernel = flash_bwd_dkv_kernel<T, KC, NT, kResident>;
+    kernel = flash_bwd_dkv_kernel<T, KC, NT, kResident, BQ, BK>;
   }
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
+  constexpr int kOwn = kWhich == 0 ? BQ : BK, kWalked = kWhich == 0 ? BK : BQ;
   const int total = (p.head_dim + 8 * NT - 1) / (8 * NT);
-  p.col_blocks = kResident ? 1 : bwd_col_blocks(total, p.seq_len, batch_heads);
-  const dim3 grid((p.seq_len + kFlashBlockQ - 1) / kFlashBlockQ, (total + p.col_blocks - 1) / p.col_blocks,
-                  batch_heads);
-  kernel<<<grid, kFlashThreads, smem, stream>>>(p);
+  p.col_blocks = kResident ? 1 : bwd_col_blocks(total, p.seq_len <= kWalked, batch_heads);
+  const dim3 grid((p.seq_len + kOwn - 1) / kOwn, (total + p.col_blocks - 1) / p.col_blocks, batch_heads);
+  kernel<<<grid, flash_threads<kOwn>(), smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // The tiles of a head dim: (16, 2), (32, 4), (64, 8) with the block's own
 // rows resident up to Dh 16, 32, 64; past that dq bf16 (64, 16), fp32 (32, 8)
 // and dk/dv (64, 8), (32, 8), streamed in chunks.
-template <int kWhich, typename T>
+template <int kWhich, typename T, int BQ, int BK>
 cudaError_t dispatch_flash_bwd(const FlashBwdParams<T>& p, int batch_heads, cudaStream_t stream) {
-  if (p.head_dim <= 16) return launch_flash_bwd<kWhich, T, 16, 2, true>(p, batch_heads, stream);
-  if (p.head_dim <= 32) return launch_flash_bwd<kWhich, T, 32, 4, true>(p, batch_heads, stream);
-  if (p.head_dim <= 64) return launch_flash_bwd<kWhich, T, 64, 8, true>(p, batch_heads, stream);
+  if (p.head_dim <= 16) return launch_flash_bwd<kWhich, T, 16, 2, true, BQ, BK>(p, batch_heads, stream);
+  if (p.head_dim <= 32) return launch_flash_bwd<kWhich, T, 32, 4, true, BQ, BK>(p, batch_heads, stream);
+  if (p.head_dim <= 64) return launch_flash_bwd<kWhich, T, 64, 8, true, BQ, BK>(p, batch_heads, stream);
   constexpr int kWideKC = sizeof(T) == 2 ? 64 : 32;
   constexpr int kWideNT = kWhich == 0 && sizeof(T) == 2 ? 16 : 8;
-  return launch_flash_bwd<kWhich, T, kWideKC, kWideNT, false>(p, batch_heads, stream);
+  return launch_flash_bwd<kWhich, T, kWideKC, kWideNT, false, BQ, BK>(p, batch_heads, stream);
+}
+
+// Each block candidate's instantiations, in its translation unit.
+#define TCHVP_BWD_INST1(PREFIX, W, T, BQ, BK) \
+  PREFIX template cudaError_t dispatch_flash_bwd<W, T, BQ, BK>(const FlashBwdParams<T>&, int, cudaStream_t);
+#define TCHVP_BWD_INST(PREFIX, BQ, BK)                 \
+  TCHVP_BWD_INST1(PREFIX, 0, float, BQ, BK)            \
+  TCHVP_BWD_INST1(PREFIX, 1, float, BQ, BK)            \
+  TCHVP_BWD_INST1(PREFIX, 0, __nv_bfloat16, BQ, BK)    \
+  TCHVP_BWD_INST1(PREFIX, 1, __nv_bfloat16, BQ, BK)
+#define TCHVP_BWD_INST_DEF(...) TCHVP_BWD_INST(, __VA_ARGS__)
+#define TCHVP_BWD_INST_EXTERN(...) TCHVP_BWD_INST(extern, __VA_ARGS__)
+TCHVP_UNIT_BLOCKS(TCHVP_BWD_INST_DEF)
+TCHVP_EXTERN_BLOCKS(TCHVP_BWD_INST_EXTERN)
+
+#if TCHVP_UNIT == 0
+// The instantiation of a block candidate; an invalid value for any other.
+template <int kWhich, typename T>
+cudaError_t dispatch_flash_bwd_blocks(const FlashBwdParams<T>& p, int batch_heads, int block_q, int block_k,
+                                      cudaStream_t stream) {
+#define TCHVP_BWD_CASE(BQ, BK) \
+  if (block_q == BQ && block_k == BK) return dispatch_flash_bwd<kWhich, T, BQ, BK>(p, batch_heads, stream);
+  TCHVP_FLASH_BLOCKS(TCHVP_BWD_CASE)
+#undef TCHVP_BWD_CASE
+  return cudaErrorInvalidValue;
 }
 
 // `which` 0: dq into g0; 1: dk into g0 and dv into g1. st: the 12 input
@@ -563,7 +593,7 @@ template <typename T>
 int run_flash_bwd(int which, const void* q, const void* k, const void* v, const void* dout, const void* lse,
                   const void* delta, void* g0, void* g1, int batch, int heads, int seq_len, int head_dim,
                   const long long* st, float scale, float dropout_rate, unsigned int drop_threshold,
-                  const void* seed, cudaStream_t stream) {
+                  const void* seed, int block_q, int block_k, cudaStream_t stream) {
   FlashBwdParams<T> p;
   p.q = static_cast<const T*>(q);
   p.k = static_cast<const T*>(k);
@@ -591,14 +621,14 @@ int run_flash_bwd(int which, const void* q, const void* k, const void* v, const 
   p.copy_in = copy_bytes<T>(head_dim, st, 12, {q, k, v, dout});
   p.copy_out = which == 0 ? copy_bytes<T>(head_dim, st + 12, 3, {g0})
                           : copy_bytes<T>(head_dim, st + 12, 6, {g0, g1});
-  return (int)(which == 0 ? dispatch_flash_bwd<0, T>(p, batch * heads, stream)
-                                   : dispatch_flash_bwd<1, T>(p, batch * heads, stream));
+  return (int)(which == 0 ? dispatch_flash_bwd_blocks<0, T>(p, batch * heads, block_q, block_k, stream)
+                          : dispatch_flash_bwd_blocks<1, T>(p, batch * heads, block_q, block_k, stream));
 }
 
 int check_and_run(int which, const void* q, const void* k, const void* v, const void* dout, const void* lse,
                   const void* delta, void* g0, void* g1, int batch, int heads, int seq_len, int head_dim,
                   const long long* st, int n_strides, int is_bf16, float scale, float dropout_rate,
-                  unsigned int drop_threshold, const void* seed, void* stream) {
+                  unsigned int drop_threshold, const void* seed, int block_q, int block_k, void* stream) {
   if (batch < 1 || heads < 1 || (long long)batch * heads > 65535 || seq_len < 1 || head_dim < 1 ||
       (dropout_rate > 0.f && seed == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -607,13 +637,16 @@ int check_and_run(int which, const void* q, const void* k, const void* v, const 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return run_flash_bwd<__nv_bfloat16>(which, q, k, v, dout, lse, delta, g0, g1, batch, heads, seq_len,
-                                        head_dim, st, scale, dropout_rate, drop_threshold, seed, s);
+                                        head_dim, st, scale, dropout_rate, drop_threshold, seed, block_q,
+                                        block_k, s);
   return run_flash_bwd<float>(which, q, k, v, dout, lse, delta, g0, g1, batch, heads, seq_len, head_dim, st,
-                              scale, dropout_rate, drop_threshold, seed, s);
+                              scale, dropout_rate, drop_threshold, seed, block_q, block_k, s);
 }
+#endif  // TCHVP_UNIT == 0
 
 }  // namespace tchvp
 
+#if TCHVP_UNIT == 0
 extern "C" {
 
 // q, k, v, dout: (batch, heads, seq_len, head_dim) views, fp32 (is_bf16 0)
@@ -621,7 +654,8 @@ extern "C" {
 // strides in elements; dq: a view of the same shape and dtype written
 // through its strides (any layout, such as the (B, S, H, Dh) buffer that
 // `mha` passes); lse, delta: (batch * heads, seq_len) fp32 contiguous; seed:
-// (1,) int32 on the device, read only when dropout_rate > 0. Returns the
+// (1,) int32 on the device, read only when dropout_rate > 0; block_q,
+// block_k: the forward's blocks, one of TCHVP_FLASH_BLOCKS. Returns the
 // cudaError_t of the launch (0 on success); never synchronises.
 int tchvp_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                        const void* delta, void* dq, int batch, int heads, int seq_len, int head_dim,
@@ -629,11 +663,11 @@ int tchvp_flash_bwd_dq(const void* q, const void* k, const void* v, const void* 
                        long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long d_sb,
                        long long d_sh, long long d_ss, long long dq_sb, long long dq_sh, long long dq_ss,
                        int is_bf16, float scale, float dropout_rate, unsigned int drop_threshold,
-                       const void* seed, void* stream) {
+                       const void* seed, int block_q, int block_k, void* stream) {
   const long long st[15] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                             d_sb, d_sh, d_ss, dq_sb, dq_sh, dq_ss};
   return tchvp::check_and_run(0, q, k, v, dout, lse, delta, dq, nullptr, batch, heads, seq_len, head_dim, st,
-                              15, is_bf16, scale, dropout_rate, drop_threshold, seed, stream);
+                              15, is_bf16, scale, dropout_rate, drop_threshold, seed, block_q, block_k, stream);
 }
 
 // As tchvp_flash_bwd_dq, writing dk and dv (views of k's shape and dtype,
@@ -644,11 +678,12 @@ int tchvp_flash_bwd_dkv(const void* q, const void* k, const void* v, const void*
                         long long k_ss, long long v_sb, long long v_sh, long long v_ss, long long d_sb,
                         long long d_sh, long long d_ss, long long dk_sb, long long dk_sh, long long dk_ss,
                         long long dv_sb, long long dv_sh, long long dv_ss, int is_bf16, float scale,
-                        float dropout_rate, unsigned int drop_threshold, const void* seed, void* stream) {
+                        float dropout_rate, unsigned int drop_threshold, const void* seed, int block_q,
+                        int block_k, void* stream) {
   const long long st[18] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                             d_sb, d_sh, d_ss, dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss};
   return tchvp::check_and_run(1, q, k, v, dout, lse, delta, dk, dv, batch, heads, seq_len, head_dim, st, 18,
-                              is_bf16, scale, dropout_rate, drop_threshold, seed, stream);
+                              is_bf16, scale, dropout_rate, drop_threshold, seed, block_q, block_k, stream);
 }
 
 const char* tchvp_cuda_error_string(int code) {
@@ -656,3 +691,4 @@ const char* tchvp_cuda_error_string(int code) {
 }
 
 }  // extern "C"
+#endif  // TCHVP_UNIT == 0

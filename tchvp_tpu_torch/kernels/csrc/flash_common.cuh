@@ -136,11 +136,29 @@ __device__ __forceinline__ void query_span(int first, int last, int seq_len, int
   }
 }
 
-// Opt a kernel into more than 48 KB of dynamic shared memory.
+// Opt a kernel into more than 48 KB of dynamic shared memory. A block past
+// the card's opt-in limit (227 KB on the H100) returns
+// cudaErrorLaunchOutOfResources, which the wrappers report as a block the
+// card cannot run at that shape.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
+  static int optin = 0;
+  if (optin == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+      optin = 227 * 1024;
+  }
+  if (bytes > (size_t)optin) return cudaErrorLaunchOutOfResources;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
+
+// Explicit instantiations split over translation units: build.py compiles
+// a library's source once per block candidate, each unit with a header
+// (build.py's unit_header) that defines TCHVP_UNIT, the candidate lists
+// TCHVP_FLASH_BLOCKS(X) and TCHVP_WIN_BLOCKS(X), the unit's candidate
+// TCHVP_UNIT_BLOCKS(X), and in unit 0, which also holds the C launchers,
+// the other candidates TCHVP_EXTERN_BLOCKS(X), declared extern there.
 
 }  // namespace tchvp

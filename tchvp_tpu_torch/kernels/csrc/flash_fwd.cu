@@ -16,8 +16,8 @@
 //
 // Design: one pass, the online softmax of FlashAttention-2 with the head dim
 // split into output column blocks.
-//  * Grid (64-row query tile, column block of 8 * NT head-dim columns, bh);
-//    4 warps of 16 rows. Each block walks the 64-key tiles of all S in
+//  * Grid (BQ-row query tile, column block of 8 * NT head-dim columns, bh);
+//    BQ / 16 warps of 16 rows. Each block walks the BK-key tiles of all S in
 //    order: S = Q K^T over the whole head dim (mma.sync; Dh streamed in
 //    KC-column chunks), the running max m and sum l in registers, P formed
 //    straight in the A-fragment layout of the P.V mma, and a 16 x 8NT fp32
@@ -60,6 +60,12 @@
 //    row's half of the hash taken once per row.
 //  * Every element is summed by one thread in one order, with no atomics,
 //    so the bits are equal on repeat.
+//  * Blocks (BQ, BK), query rows per block and keys per tile, are template
+//    parameters, one of TCHVP_FLASH_BLOCKS (flash_common.cuh), chosen per call
+//    by the wrapper (kernels/autotune.py). A 128-row block is 8 warps of 16
+//    rows sharing each K/V stage, so a warp holds the same registers as in a
+//    64-row block and K and V are read once per 128 query rows; BK 32 halves
+//    the logits' registers and the K/V stage.
 #include "flash_tiles.cuh"
 
 namespace tchvp {
@@ -81,8 +87,9 @@ struct FlashFwdParams {
   int copy_in, copy_out;  // bytes per copy of q, k, v; of out: 16, 8, or 0 (elements)
 };
 
-template <typename T, int KC, int NT>
-__global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashFwdParams<T> p) {
+template <typename T, int KC, int NT, int BQ, int BK>
+__global__ void __launch_bounds__(flash_threads<BQ>()) flash_fwd_kernel(const FlashFwdParams<T> p) {
+  constexpr int kThreads = flash_threads<BQ>();
   constexpr int SQK = flash_stride_qk<T, KC>();
   constexpr int SV = flash_stride_v<T, NT>();
   constexpr int kStages = flash_stages<T>();
@@ -91,7 +98,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashFwd
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kFlashBlockQ;
+  const int q0 = blockIdx.x * BQ;
   const int d0 = blockIdx.y * kCols;
   const int bh = blockIdx.z;
   const int b = bh / p.heads, h = bh - b * p.heads;
@@ -102,13 +109,13 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashFwd
   const T* vb = p.v + b * p.v_sb + h * p.v_sh;
 
   const int n_chunks = (head_dim + KC - 1) / KC;
-  const int n_tiles = (seq_len + kFlashBlockK - 1) / kFlashBlockK;
+  const int n_tiles = (seq_len + BK - 1) / BK;
   const bool q_once = n_chunks == 1;  // Q stays in shared memory
-  const int stage = (q_once ? kFlashBlockK : kFlashBlockQ + kFlashBlockK) * SQK;  // elements
+  const int stage = (q_once ? BK : BQ + BK) * SQK;  // elements
   const bool two_v = flash_v_buffers<T>(n_chunks) == 2;
-  T* v_ring = reinterpret_cast<T*>(flash_smem);               // [1 or 2][64][SV]
-  T* q_res = v_ring + (two_v ? 2 : 1) * kFlashBlockK * SV;    // [64][SQK] when q_once
-  T* ring = q_res + (q_once ? kFlashBlockQ * SQK : 0);        // [kStages][stage]
+  T* v_ring = reinterpret_cast<T*>(flash_smem);     // [1 or 2][BK][SV]
+  T* q_res = v_ring + (two_v ? 2 : 1) * BK * SV;    // [BQ][SQK] when q_once
+  T* ring = q_res + (q_once ? BQ * SQK : 0);        // [kStages][stage]
 
   // The steps, in order: for each key tile its n_chunks (Q, K) chunks, then
   // its V block. `issue` loads the next one not yet issued (i_tile, i_chunk;
@@ -116,26 +123,22 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashFwd
   int i_tile = 0, i_chunk = 0, i_slot = 0;
   auto issue = [&]() {
     if (i_tile < n_tiles) {
-      const int k0 = i_tile * kFlashBlockK;
+      const int k0 = i_tile * BK;
       if (i_chunk < n_chunks) {
         T* st = ring + i_slot * stage;
         if (q_once) {
           if (i_tile == 0)
-            load_tile<T, kFlashBlockQ, KC, SQK, kFlashThreads>(q_res, qb, q0, seq_len, 0, head_dim,
-                                                               q_ss, copy);
+            load_tile<T, BQ, KC, SQK, kThreads>(q_res, qb, q0, seq_len, 0, head_dim, q_ss, copy);
         } else {
-          load_tile<T, kFlashBlockQ, KC, SQK, kFlashThreads>(st, qb, q0, seq_len, i_chunk * KC,
-                                                             head_dim, q_ss, copy);
-          st += kFlashBlockQ * SQK;
+          load_tile<T, BQ, KC, SQK, kThreads>(st, qb, q0, seq_len, i_chunk * KC, head_dim, q_ss, copy);
+          st += BQ * SQK;
         }
-        load_tile<T, kFlashBlockK, KC, SQK, kFlashThreads>(st, kb, k0, seq_len, i_chunk * KC,
-                                                           head_dim, k_ss, copy);
+        load_tile<T, BK, KC, SQK, kThreads>(st, kb, k0, seq_len, i_chunk * KC, head_dim, k_ss, copy);
         i_slot = i_slot + 1 == kStages ? 0 : i_slot + 1;
         ++i_chunk;
       } else {
-        load_tile<T, kFlashBlockK, kCols, SV, kFlashThreads>(
-            v_ring + (two_v ? i_tile & 1 : 0) * kFlashBlockK * SV, vb, k0, seq_len, d0, head_dim,
-            v_ss, copy);
+        load_tile<T, BK, kCols, SV, kThreads>(v_ring + (two_v ? i_tile & 1 : 0) * BK * SV, vb, k0, seq_len,
+                                              d0, head_dim, v_ss, copy);
         i_chunk = 0;
         ++i_tile;
       }
@@ -143,9 +146,10 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashFwd
     cp_async_commit();
   };
 
-  float s_acc[8][4], o_acc[NT][4];
+  constexpr int NJ = BK / 8;  // the logits' m16n8 tiles per warp
+  float s_acc[NJ][4], o_acc[NT][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s_acc[j][e] = 0.f;
 #pragma unroll
@@ -173,18 +177,18 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashFwd
       const T* st = ring + slot * stage;
       slot = slot + 1 == kStages ? 0 : slot + 1;
       const T* q_s = (q_once ? q_res : st) + warp * 16 * SQK;
-      const T* k_s = q_once ? st : st + kFlashBlockQ * SQK;
+      const T* k_s = q_once ? st : st + BQ * SQK;
       if constexpr (sizeof(T) == 2) {
         qk_chunk<KC>(s_acc, q_s, k_s, lane);
       } else {
-        float part[8][4];
+        float part[NJ][4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
         qk_chunk<KC>(part, q_s, k_s, lane);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s_acc[j][e] += part[j][e];
       }
@@ -194,11 +198,11 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashFwd
     issue();
 
     // The tile's logits are complete: online softmax, then P.V.
-    const int k0 = kt * kFlashBlockK;
-    const bool ragged = k0 + kFlashBlockK > seq_len;
+    const int k0 = kt * BK;
+    const bool ragged = k0 + BK > seq_len;
     float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s_acc[j][e] * scale_log2;
@@ -221,7 +225,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashFwd
       }
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float w = fast_exp2(s_acc[j][e] - m[e >> 1]);
@@ -230,18 +234,19 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashFwd
           w = keep_hashed(row_h[e >> 1], k0 + 8 * j + 2 * t + (e & 1), threshold) ? w * inv_keep : 0.f;
         s_acc[j][e] = w;
       }
-    pv_tile<NT>(o_acc, s_acc, v_ring + (two_v ? kt & 1 : 0) * kFlashBlockK * SV, lane);
+    pv_tile<NT>(o_acc, s_acc, v_ring + (two_v ? kt & 1 : 0) * BK * SV, lane);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s_acc[j][e] = 0.f;
   }
   cp_async_wait<0>();
   __syncthreads();  // every slot free
 
-  // out = acc / l, staged in shared memory (V's first buffer), then written
-  // in 16- or 8-byte pieces; lse = (m + log2 l) ln 2 from column block 0.
-  T* o_s = v_ring;  // [64][SV]
+  // out = acc / l, staged in shared memory (from V's first buffer on), then
+  // written in 16- or 8-byte pieces; lse = (m + log2 l) ln 2 from column
+  // block 0.
+  T* o_s = v_ring;  // [BQ][SV]
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float sum = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -262,7 +267,7 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashFwd
   T* ob = p.out + b * p.o_sb + h * p.o_sh;
   const size_t o_ss = p.o_ss;
   const int copy_out = p.copy_out;
-  for (int i = threadIdx.x; i < kFlashBlockQ * kPerRow; i += kFlashThreads) {
+  for (int i = threadIdx.x; i < BQ * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
     const int c = (i - r * kPerRow) * kVec;
     if (q0 + r >= seq_len || d0 + c >= head_dim) continue;
@@ -281,27 +286,27 @@ __global__ void __launch_bounds__(kFlashThreads) flash_fwd_kernel(const FlashFwd
 }
 
 // Shared memory of one block: V's buffers, the resident Q tile when one
-// chunk holds Dh, and the (Q, K) ring.
-template <typename T, int KC, int NT>
+// chunk holds Dh, and the (Q, K) ring; at least the output's [BQ][SV]
+// staging.
+template <typename T, int KC, int NT, int BQ, int BK>
 size_t flash_smem_bytes(int head_dim) {
   const bool q_once = head_dim <= KC;
   const int v_bufs = flash_v_buffers<T>((head_dim + KC - 1) / KC);
-  const size_t v_bytes = (size_t)v_bufs * kFlashBlockK * flash_stride_v<T, NT>() * sizeof(T);
-  const size_t q_bytes = q_once ? (size_t)kFlashBlockQ * flash_stride_qk<T, KC>() * sizeof(T) : 0;
-  const size_t ring = (size_t)flash_stages<T>() * (q_once ? kFlashBlockK : kFlashBlockQ + kFlashBlockK) *
-                      flash_stride_qk<T, KC>() * sizeof(T);
-  return v_bytes + q_bytes + ring;
+  const size_t v_bytes = (size_t)v_bufs * BK * flash_stride_v<T, NT>() * sizeof(T);
+  const size_t q_bytes = q_once ? (size_t)BQ * flash_stride_qk<T, KC>() * sizeof(T) : 0;
+  const size_t ring = (size_t)flash_stages<T>() * (q_once ? BK : BQ + BK) * flash_stride_qk<T, KC>() * sizeof(T);
+  const size_t out = (size_t)BQ * flash_stride_v<T, NT>() * sizeof(T);
+  return v_bytes + q_bytes + ring > out ? v_bytes + q_bytes + ring : out;
 }
 
-template <typename T, int KC, int NT>
+template <typename T, int KC, int NT, int BQ, int BK>
 cudaError_t launch_flash_fwd(const FlashFwdParams<T>& p, int batch_heads, cudaStream_t stream) {
-  const size_t smem = flash_smem_bytes<T, KC, NT>(p.head_dim);
-  auto kernel = flash_fwd_kernel<T, KC, NT>;
+  const size_t smem = flash_smem_bytes<T, KC, NT, BQ, BK>(p.head_dim);
+  auto kernel = flash_fwd_kernel<T, KC, NT, BQ, BK>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.seq_len + kFlashBlockQ - 1) / kFlashBlockQ, (p.head_dim + 8 * NT - 1) / (8 * NT),
-                  batch_heads);
-  kernel<<<grid, kFlashThreads, smem, stream>>>(p);
+  const dim3 grid((p.seq_len + BQ - 1) / BQ, (p.head_dim + 8 * NT - 1) / (8 * NT), batch_heads);
+  kernel<<<grid, flash_threads<BQ>(), smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -310,24 +315,48 @@ cudaError_t launch_flash_fwd(const FlashFwdParams<T>& p, int batch_heads, cudaSt
 // blocks, each recomputing the logits (2 at Dh 392, not 4); fp32, whose P.V
 // keeps a second accumulator, takes (32, 16), whose ring and one V buffer
 // (89 KB) let two blocks share an SM.
-template <typename T>
+template <typename T, int BQ, int BK>
 cudaError_t dispatch_flash_fwd(const FlashFwdParams<T>& p, int batch_heads, cudaStream_t stream) {
-  if (p.head_dim <= 16) return launch_flash_fwd<T, 16, 2>(p, batch_heads, stream);
-  if (p.head_dim <= 32) return launch_flash_fwd<T, 32, 4>(p, batch_heads, stream);
-  if (p.head_dim <= 64) return launch_flash_fwd<T, 64, 8>(p, batch_heads, stream);
+  if (p.head_dim <= 16) return launch_flash_fwd<T, 16, 2, BQ, BK>(p, batch_heads, stream);
+  if (p.head_dim <= 32) return launch_flash_fwd<T, 32, 4, BQ, BK>(p, batch_heads, stream);
+  if (p.head_dim <= 64) return launch_flash_fwd<T, 64, 8, BQ, BK>(p, batch_heads, stream);
   if constexpr (sizeof(T) == 2) {
-    if (p.head_dim <= 128) return launch_flash_fwd<T, 64, 16>(p, batch_heads, stream);
-    return launch_flash_fwd<T, 64, 32>(p, batch_heads, stream);
+    if (p.head_dim <= 128) return launch_flash_fwd<T, 64, 16, BQ, BK>(p, batch_heads, stream);
+    return launch_flash_fwd<T, 64, 32, BQ, BK>(p, batch_heads, stream);
   } else {
-    return launch_flash_fwd<T, 32, 16>(p, batch_heads, stream);
+    return launch_flash_fwd<T, 32, 16, BQ, BK>(p, batch_heads, stream);
   }
+}
+
+// Each block candidate's instantiations, in its translation unit.
+#define TCHVP_FWD_INST(PREFIX, BQ, BK)                                                                    \
+  PREFIX template cudaError_t dispatch_flash_fwd<float, BQ, BK>(const FlashFwdParams<float>&, int,        \
+                                                                cudaStream_t);                            \
+  PREFIX template cudaError_t dispatch_flash_fwd<__nv_bfloat16, BQ, BK>(const FlashFwdParams<__nv_bfloat16>&, \
+                                                                        int, cudaStream_t);
+#define TCHVP_FWD_INST_DEF(...) TCHVP_FWD_INST(, __VA_ARGS__)
+#define TCHVP_FWD_INST_EXTERN(...) TCHVP_FWD_INST(extern, __VA_ARGS__)
+TCHVP_UNIT_BLOCKS(TCHVP_FWD_INST_DEF)
+TCHVP_EXTERN_BLOCKS(TCHVP_FWD_INST_EXTERN)
+
+#if TCHVP_UNIT == 0
+// The instantiation of a block candidate (block_q, block_k); an invalid
+// value for any other.
+template <typename T>
+cudaError_t dispatch_flash_fwd_blocks(const FlashFwdParams<T>& p, int batch_heads, int block_q, int block_k,
+                                      cudaStream_t stream) {
+#define TCHVP_FWD_CASE(BQ, BK) \
+  if (block_q == BQ && block_k == BK) return dispatch_flash_fwd<T, BQ, BK>(p, batch_heads, stream);
+  TCHVP_FLASH_BLOCKS(TCHVP_FWD_CASE)
+#undef TCHVP_FWD_CASE
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
 int run_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
                   int heads, int seq_len, int head_dim, const long long* st, float scale,
-                  float dropout_rate, unsigned int drop_threshold, const void* seed,
-                  cudaStream_t stream) {
+                  float dropout_rate, unsigned int drop_threshold, const void* seed, int block_q,
+                  int block_k, cudaStream_t stream) {
   FlashFwdParams<T> p;
   p.q = static_cast<const T*>(q);
   p.k = static_cast<const T*>(k);
@@ -348,10 +377,13 @@ int run_flash_fwd(const void* q, const void* k, const void* v, void* out, void* 
   p.seed = static_cast<const int*>(seed);
   p.copy_in = copy_bytes<T>(head_dim, st, 9, {q, k, v});
   p.copy_out = copy_bytes<T>(head_dim, st + 9, 3, {out});
-  return (int)dispatch_flash_fwd<T>(p, batch * heads, stream);
+  return (int)dispatch_flash_fwd_blocks<T>(p, batch * heads, block_q, block_k, stream);
 }
+#endif  // TCHVP_UNIT == 0
 
 }  // namespace tchvp
+
+#if TCHVP_UNIT == 0
 
 extern "C" {
 
@@ -360,14 +392,15 @@ extern "C" {
 // row) strides in elements q_sb, q_sh, q_ss, ..., o_ss (any layout; 16-byte
 // copies where they and the rows are multiples of 16 bytes); lse: (batch *
 // heads, seq_len) fp32 contiguous; seed: (1,) int32 on the device, read only
-// when dropout_rate > 0 (may be null otherwise). Returns the cudaError_t of
-// the launch (0 on success); never synchronises.
+// when dropout_rate > 0 (may be null otherwise); block_q, block_k: one of
+// TCHVP_FLASH_BLOCKS. Returns the cudaError_t of the launch (0 on success);
+// never synchronises.
 int tchvp_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
                     int heads, int seq_len, int head_dim, long long q_sb, long long q_sh,
                     long long q_ss, long long k_sb, long long k_sh, long long k_ss, long long v_sb,
                     long long v_sh, long long v_ss, long long o_sb, long long o_sh, long long o_ss,
                     int is_bf16, float scale, float dropout_rate, unsigned int drop_threshold,
-                    const void* seed, void* stream) {
+                    const void* seed, int block_q, int block_k, void* stream) {
   if (batch < 1 || heads < 1 || (long long)batch * heads > 65535 || seq_len < 1 || head_dim < 1 ||
       (dropout_rate > 0.f && seed == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -377,9 +410,10 @@ int tchvp_flash_fwd(const void* q, const void* k, const void* v, void* out, void
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return tchvp::run_flash_fwd<__nv_bfloat16>(q, k, v, out, lse, batch, heads, seq_len, head_dim,
-                                               st, scale, dropout_rate, drop_threshold, seed, s);
+                                               st, scale, dropout_rate, drop_threshold, seed, block_q,
+                                               block_k, s);
   return tchvp::run_flash_fwd<float>(q, k, v, out, lse, batch, heads, seq_len, head_dim, st, scale,
-                                     dropout_rate, drop_threshold, seed, s);
+                                     dropout_rate, drop_threshold, seed, block_q, block_k, s);
 }
 
 const char* tchvp_cuda_error_string(int code) {
@@ -387,3 +421,4 @@ const char* tchvp_cuda_error_string(int code) {
 }
 
 }  // extern "C"
+#endif  // TCHVP_UNIT == 0

@@ -1,8 +1,9 @@
 // Tiles and building blocks shared by the flash forward (flash_fwd.cu) and
-// the flash backward (flash_bwd.cu) on the tensor cores: the block shape,
-// the shared-memory strides and ring depth of a (KC, NT) tiling, one KC-column
-// chunk of a warp's 16 x 64 logits (qk_chunk), one 64-key tile of P.V into a
-// column block (pv_tile), base-2 exp, and the widest copy a layout allows.
+// the flash backward (flash_bwd.cu) on the tensor cores: the block
+// candidates, the shared-memory strides and ring depth of a (KC, NT) tiling,
+// one KC-column chunk of a warp's 16 x NK logits (qk_chunk), one NK-key tile
+// of P.V into a column block (pv_tile), base-2 exp, and the widest copy a
+// layout allows.
 #pragma once
 
 #include <initializer_list>
@@ -12,9 +13,12 @@
 namespace tchvp {
 
 
-constexpr int kFlashBlockQ = 64;   // query rows per block: 4 warps x 16
-constexpr int kFlashBlockK = 64;   // keys per tile
-constexpr int kFlashThreads = 128;
+// The block candidates (BQ, BK) of the flash kernels, query rows per block
+// and keys per tile, are TCHVP_FLASH_BLOCKS (build.py's FLASH_BLOCKS, given
+// by the build; flash_common.cuh): a block is BQ / 16 warps of 16 rows
+// sharing each K/V stage, so a warp's registers depend on BK only.
+template <int ROWS>
+__host__ __device__ constexpr int flash_threads() { return 2 * ROWS; }  // ROWS / 16 warps
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -43,11 +47,11 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// One KC-column chunk of a warp's S = Q K^T: its 16 rows (q_s) x 64 keys
+// One KC-column chunk of a warp's S = Q K^T: its 16 rows (q_s) x 8 NJ keys
 // (k_s), acc[j] the m16n8 tile of keys 8j..8j+7 (rows g, g + 8; keys 2t,
 // 2t + 1).
-template <int KC>
-__device__ __forceinline__ void qk_chunk(float (&acc)[8][4], const __nv_bfloat16* q_s,
+template <int KC, int NJ>
+__device__ __forceinline__ void qk_chunk(float (&acc)[NJ][4], const __nv_bfloat16* q_s,
                                          const __nv_bfloat16* k_s, int lane) {
   constexpr int S = flash_stride_qk<__nv_bfloat16, KC>();
   const __nv_bfloat16* qa = q_s + (lane & 15) * S + (lane >> 4) * 8;
@@ -57,7 +61,7 @@ __device__ __forceinline__ void qk_chunk(float (&acc)[8][4], const __nv_bfloat16
     uint32_t a[4];
     ldmatrix_x4(a, qa + kk);
 #pragma unroll
-    for (int j = 0; j < 8; j += 2) {
+    for (int j = 0; j < NJ; j += 2) {
       uint32_t b[4];  // keys 8j.. (b[0], b[1]) and 8j + 8.. (b[2], b[3])
       ldmatrix_x4(b, kb + 8 * j * S + kk);
       mma_bf16(acc[j], a, b);
@@ -66,8 +70,8 @@ __device__ __forceinline__ void qk_chunk(float (&acc)[8][4], const __nv_bfloat16
   }
 }
 
-template <int KC>
-__device__ __forceinline__ void qk_chunk(float (&acc)[8][4], const float* q_s, const float* k_s,
+template <int KC, int NJ>
+__device__ __forceinline__ void qk_chunk(float (&acc)[NJ][4], const float* q_s, const float* k_s,
                                          int lane) {
   constexpr int S = flash_stride_qk<float, KC>();
   const int g = lane >> 2, t = lane & 3;
@@ -79,21 +83,21 @@ __device__ __forceinline__ void qk_chunk(float (&acc)[8][4], const float* q_s, c
     split_tf32(q_s[g * S + kk + t + 4], &a_hi[2], &a_lo[2]);
     split_tf32(q_s[(g + 8) * S + kk + t + 4], &a_hi[3], &a_lo[3]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const float* kr = k_s + (8 * j + g) * S + kk + t;
       mma_3xtf32(acc[j], a_hi, a_lo, kr[0], kr[4]);
     }
   }
 }
 
-// acc += P V for one 64-key tile: p[j] the weights of keys 8j.. (the layout
-// of qk_chunk's acc), v_s the tile's V column block (64 keys x 8 NT).
-template <int NT>
-__device__ __forceinline__ void pv_tile(float (&acc)[NT][4], const float (&p)[8][4],
+// acc += P V for one tile of 8 NJ keys: p[j] the weights of keys 8j.. (the
+// layout of qk_chunk's acc), v_s the tile's V column block (8 NJ keys x 8 NT).
+template <int NT, int NJ>
+__device__ __forceinline__ void pv_tile(float (&acc)[NT][4], const float (&p)[NJ][4],
                                         const __nv_bfloat16* v_s, int lane) {
   constexpr int SV = flash_stride_v<__nv_bfloat16, NT>();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {  // 16 keys: P's tiles 2kk, 2kk + 1
+  for (int kk = 0; kk < NJ / 2; ++kk) {  // 16 keys: P's tiles 2kk, 2kk + 1
     const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]), pack_bf16(p[2 * kk][2], p[2 * kk][3]),
                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
@@ -109,8 +113,8 @@ __device__ __forceinline__ void pv_tile(float (&acc)[NT][4], const float (&p)[8]
 }
 
 // fp32: 3xTF32, this tile's products in their own accumulator, then added.
-template <int NT>
-__device__ __forceinline__ void pv_tile(float (&acc)[NT][4], const float (&p)[8][4],
+template <int NT, int NJ>
+__device__ __forceinline__ void pv_tile(float (&acc)[NT][4], const float (&p)[NJ][4],
                                         const float* v_s, int lane) {
   constexpr int SV = flash_stride_v<float, NT>();
   const int g = lane >> 2, t = lane & 3;
@@ -120,7 +124,7 @@ __device__ __forceinline__ void pv_tile(float (&acc)[NT][4], const float (&p)[8]
 #pragma unroll
     for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
 #pragma unroll
-  for (int j8 = 0; j8 < 8; ++j8) {  // keys 8 j8 + (2t, 2t + 1) as the step's columns t, t + 4
+  for (int j8 = 0; j8 < NJ; ++j8) {  // keys 8 j8 + (2t, 2t + 1) as the step's columns t, t + 4
     uint32_t a_hi[4], a_lo[4];
     split_tf32(p[j8][0], &a_hi[0], &a_lo[0]);
     split_tf32(p[j8][2], &a_hi[1], &a_lo[1]);

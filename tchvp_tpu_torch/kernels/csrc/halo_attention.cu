@@ -53,29 +53,33 @@
 // sequence in the band's order and equals it bit for bit. Every gradient
 // element is summed by one thread in one order, with no atomics, so the bits
 // are equal on repeat.
+#define TCHVP_WIN_MODE kHalo  // the mode whose kernels this library instantiates
 #include "window_bwd.cuh"
 #include "window_fwd.cuh"
 
+#if TCHVP_UNIT == 0
 extern "C" {
 
 // q, out: (batch_heads, seq_len, head_dim); k_ext, v_ext: (batch_heads,
 // seq_len + window, head_dim); all contiguous, fp32 (is_bf16 0) or bf16
 // (is_bf16 1); lse: (batch_heads, seq_len) fp32; window >= 1 in tokens;
-// span_cols: the widest k_ext span of a 64-row query tile, and scratch:
+// span_cols: the widest k_ext span of a block_rows-row query tile, and scratch:
 // (batch_heads, seq_len, scratch_cols) fp32, 16-byte aligned, scratch_cols
 // a multiple of 4 that holds span_cols and one column per 64-key tile (both
 // from flash_attention.py's window_plan); seed: (1,) int32 on the device,
 // read only when dropout_rate > 0 (may be null otherwise); has_prev: (1,)
 // int32 on the device, 0 masks the halo window. Returns the cudaError_t of
-// the launches (0 on success); never synchronises.
+// the launches (0 on success); never synchronises. block_rows: the query
+// rows of a tile, one of TCHVP_WIN_BLOCKS (window_fwd.cuh); the backward
+// passes take the forward's.
 int tchvp_halo_fwd(const void* q, const void* k_ext, const void* v_ext, void* out, void* lse,
                    void* scratch, int batch_heads, int seq_len, int head_dim, int window,
                    int span_cols, int scratch_cols, int is_bf16, float scale, float dropout_rate,
-                   unsigned int drop_threshold, const void* seed, const void* has_prev,
+                   unsigned int drop_threshold, const void* seed, const void* has_prev, int block_rows,
                    void* stream) {
   return tchvp::run_window_fwd<tchvp::kHalo>(q, k_ext, v_ext, out, lse, scratch, batch_heads,
       seq_len, head_dim, window, span_cols, scratch_cols, is_bf16, scale, dropout_rate,
-      drop_threshold, seed, has_prev, stream);
+      drop_threshold, seed, has_prev, block_rows, stream);
 }
 
 // Pass A: P_drop and dS of the halo band into scratch: (2, batch_heads,
@@ -87,34 +91,35 @@ int tchvp_halo_bwd_ds(const void* q, const void* k_ext, const void* v_ext, const
                       const void* lse, const void* delta, void* scratch, int batch_heads, int seq_len,
                       int head_dim, int window, int span_tiles, int key_tiles, int tile_base,
                       int is_bf16, float scale, float dropout_rate, unsigned int drop_threshold,
-                      const void* seed, const void* has_prev, void* stream) {
+                      const void* seed, const void* has_prev, int block_rows,
+                      void* stream) {
   const tchvp::WindowBwdParams a{q, k_ext, v_ext, dout, lse, delta, scratch, nullptr, nullptr,
       batch_heads, seq_len, head_dim, window, span_tiles, key_tiles, tile_base, scale, dropout_rate,
       drop_threshold, static_cast<const int*>(seed), static_cast<const int*>(has_prev), 0, 0,
       static_cast<cudaStream_t>(stream)};
-  return tchvp::run_window_bwd<tchvp::kHalo>(0, a, is_bf16);
+  return tchvp::run_window_bwd<tchvp::kHalo>(0, a, is_bf16, block_rows);
 }
 
 // Pass B: dq (as q) = dS k_ext from pass A's scratch.
 int tchvp_halo_bwd_dq(const void* scratch, const void* k_ext, void* dq, int batch_heads, int seq_len,
                       int head_dim, int window, int span_tiles, int key_tiles, int tile_base,
-                      int is_bf16, const void* has_prev, void* stream) {
+                      int is_bf16, const void* has_prev, int block_rows, void* stream) {
   const tchvp::WindowBwdParams a{nullptr, k_ext, nullptr, nullptr, nullptr, nullptr,
       const_cast<void*>(scratch), dq, nullptr, batch_heads, seq_len, head_dim, window, span_tiles,
       key_tiles, tile_base, 0.f, 0.f, 0u, nullptr, static_cast<const int*>(has_prev), 0, 0,
       static_cast<cudaStream_t>(stream)};
-  return tchvp::run_window_bwd<tchvp::kHalo>(1, a, is_bf16);
+  return tchvp::run_window_bwd<tchvp::kHalo>(1, a, is_bf16, block_rows);
 }
 
 // Pass B: dk_ext = dS^T q and dv_ext = P_drop^T dout (seq_len + window rows,
 // the halo window's included) from pass A's scratch.
 int tchvp_halo_bwd_dkv(const void* scratch, const void* q, const void* dout, void* dk_ext, void* dv_ext,
                        int batch_heads, int seq_len, int head_dim, int window, int span_tiles,
-                       int key_tiles, int tile_base, int is_bf16, const void* has_prev, void* stream) {
+                       int key_tiles, int tile_base, int is_bf16, const void* has_prev, int block_rows, void* stream) {
   const tchvp::WindowBwdParams a{q, nullptr, nullptr, dout, nullptr, nullptr, const_cast<void*>(scratch),
       dk_ext, dv_ext, batch_heads, seq_len, head_dim, window, span_tiles, key_tiles, tile_base, 0.f, 0.f,
       0u, nullptr, static_cast<const int*>(has_prev), 0, 0, static_cast<cudaStream_t>(stream)};
-  return tchvp::run_window_bwd<tchvp::kHalo>(2, a, is_bf16);
+  return tchvp::run_window_bwd<tchvp::kHalo>(2, a, is_bf16, block_rows);
 }
 
 const char* tchvp_cuda_error_string(int code) {
@@ -122,3 +127,4 @@ const char* tchvp_cuda_error_string(int code) {
 }
 
 }  // extern "C"
+#endif  // TCHVP_UNIT == 0

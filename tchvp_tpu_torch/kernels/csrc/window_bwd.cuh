@@ -10,6 +10,8 @@
 // from the forward's fp32 lse and delta = rowsum(dO * out) (fp32, made by the
 // wrapper). Pairs outside the band give P = dS = 0.
 //
+// Query tiles are BQ rows (block_rows, 64 or 128: TCHVP_WIN_BLOCKS of
+// window_fwd.cuh, the forward's), a template parameter of every pass.
 // Key tiles. A query tile's key span (flash_common.cuh's key_span) is cut
 // into 64-key tiles on one grid: tiles start at tile_base + 64 j, where
 // tile_base is 0 for the band and (w mod 64) - 64 (or 0) for the halo, so
@@ -18,11 +20,11 @@
 // the band on the local sequence, and its bits equal the band's. Scratch
 // row r of query tile q0 / 64 holds P_drop and dS of the span's tiles side
 // by side: column c is key base + c, base the first tile's start
-// (window_tile_span). The number of tiles of the widest span, the key tiles
+// (window_tile_span; row r lies in query tile r / BQ). The number of tiles of the widest span, the key tiles
 // of k (or k_ext) and tile_base come from flash_attention.py's
 // window_bwd_plan, the one rule; the launchers take them as they are.
-//  * Pass A, P and dS (window_ds_kernel): grid (64-row query tile, key tile
-//    of its span, bh), 8 warps of 16 rows x 32 keys. S = Q K^T and dP = dO
+//  * Pass A, P and dS (window_ds_kernel): grid (BQ-row query tile, key tile
+//    of its span, bh), 2 BQ / 16 warps of 16 rows x 32 keys. S = Q K^T and dP = dO
 //    V^T on mma.sync over the whole head dim, streamed in 64-column chunks
 //    (Q, dO, K, V each) through a cp.async ring of 3 (bf16) or 2 (fp32)
 //    stages; then per element the band mask, P by ex2, the dropout hash once,
@@ -30,14 +32,15 @@
 //    products of pass B read as their A operand, as the flash pair rounds
 //    them; fp32 for fp32). A tile past its query tile's span writes zeros,
 //    so every scratch element is defined.
-//  * Pass B, dq (window_dq_kernel): grid (64-row query tile, column block of
-//    wb_block_d<T>() head-dim columns, bh), 4 warps of 16 rows. Walks the
+//  * Pass B, dq (window_dq_kernel): grid (BQ-row query tile, column block of
+//    wb_block_d<T>() head-dim columns, bh), BQ / 16 warps of 16 rows. Walks the
 //    span's key tiles: dQ_blk += dS[rows, tile] K[tile, blk], dS by
 //    ldmatrix (bf16) from a tile copied out of the L2-resident scratch, K's
 //    column block by ldmatrix.trans.
 //  * Pass B, dk/dv (window_dkv_kernel): grid (64-key tile, column block, bh),
-//    4 warps of 16 keys. Walks the 64-row query tiles of the key tile's
-//    query span (query_span): dK_blk += dS^T Q[:, blk], dV_blk += P_drop^T
+//    4 warps of 16 keys. Walks the key tile's query span (query_span) in
+//    64-row steps, each step's scratch column that of the BQ-row query tile
+//    holding it: dK_blk += dS^T Q[:, blk], dV_blk += P_drop^T
 //    dO[:, blk], the transposed A operands by ldmatrix.trans from the
 //    scratch tiles. In kHalo the grid covers the S + w rows of k_ext; a key
 //    tile of the masked halo window has no query rows and writes zeros.
@@ -55,9 +58,8 @@
 
 namespace tchvp {
 
-constexpr int kWbTile = 64;       // query rows and keys per tile
-constexpr int kWbThreadsA = 256;  // pass A: 8 warps, 4 row groups x 2 key halves
-constexpr int kWbThreadsB = 128;  // pass B: 4 warps of 16 rows (dq) or keys (dk/dv)
+constexpr int kWbTile = 64;       // keys per tile, and query rows per dk/dv step
+constexpr int kWbThreadsB = 128;  // dk/dv: 4 warps of 16 keys
 
 // Head-dim columns per pass-B block: 128 (bf16) or 64 (fp32, whose 3xTF32
 // products keep a per-tile accumulator beside the total).
@@ -82,13 +84,13 @@ __host__ __device__ __forceinline__ int tile_floor(int lo, int tile_base) {
   return tile_base + ((lo - tile_base) / kWbTile) * kWbTile;
 }
 
-// The key span [*k_lo, *k_hi) of the 64-row query tile at q0, its first
+// The key span [*k_lo, *k_hi) of the BQ-row query tile at q0, its first
 // tile's start *base and its number of key tiles.
-template <Mode M>
+template <Mode M, int BQ>
 __host__ __device__ __forceinline__ void window_tile_span(int q0, int seq_len, int window, bool no_prev,
                                                           int tile_base, int* k_lo, int* k_hi, int* base,
                                                           int* n_tiles) {
-  key_span<M>(q0, imin(seq_len, q0 + kWbTile) - 1, seq_len, window, no_prev, k_lo, k_hi);
+  key_span<M>(q0, imin(seq_len, q0 + BQ) - 1, seq_len, window, no_prev, k_lo, k_hi);
   *base = tile_floor(*k_lo, tile_base);
   *n_tiles = (*k_hi - *base + kWbTile - 1) / kWbTile;
 }
@@ -124,15 +126,15 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int row0, int ro
   }
 }
 
-// A 64 x COLS tile of shared memory (row stride STRIDE) into rows [r_lo,
+// A ROWS x COLS tile of shared memory (row stride STRIDE) into rows [r_lo,
 // r_hi) of rows r0.. and columns d0.. (< head_dim) of a row-major matrix of
-// head_dim columns, in 16- or 8-byte pieces or elements.
-template <typename T, int COLS, int STRIDE>
+// head_dim columns, in 16- or 8-byte pieces or elements, by THREADS threads.
+template <typename T, int ROWS, int COLS, int STRIDE, int THREADS>
 __device__ __forceinline__ void store_rows(T* out, const T* o_s, int r0, int r_lo, int r_hi, int d0,
                                            int head_dim, int copy) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = COLS / kVec;
-  for (int i = threadIdx.x; i < kWbTile * kPerRow; i += kWbThreadsB) {
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += THREADS) {
     const int r = i / kPerRow;
     const int c = (i - r * kPerRow) * kVec;
     if (r0 + r < r_lo || r0 + r >= r_hi || d0 + c >= head_dim) continue;
@@ -201,36 +203,39 @@ struct WindowBwdParams {
   cudaStream_t stream;
 };
 
-// Pass A: P_drop and dS of one (64-row query tile, key tile of its span,
+// Pass A: P_drop and dS of one (BQ-row query tile, key tile of its span,
 // bh) into scratch[0] (dS) and scratch[1] (P_drop) at column key - base.
-template <typename T, Mode M>
-__global__ void __launch_bounds__(kWbThreadsA) window_ds_kernel(const WindowBwdParams p) {
+template <typename T, Mode M, int BQ>
+__global__ void __launch_bounds__(win_logits_threads<BQ>()) window_ds_kernel(const WindowBwdParams p) {
+  constexpr int kThreads = win_logits_threads<BQ>();
+  constexpr int kGroups = BQ / 16;  // row groups
   constexpr int S = win_stride_qk<T>();
   constexpr int kStages = wb_stages<T>();
-  constexpr int kTile = kWbTile * S;
-  constexpr int kStage = 4 * kTile;  // Q, dO, K, V chunks
+  constexpr int kTileQ = BQ * S;
+  constexpr int kTileK = kWbTile * S;
+  constexpr int kStage = 2 * kTileQ + 2 * kTileK;  // Q, dO, K, V chunks
   extern __shared__ __align__(16) unsigned char wb_smem[];
   T* ring = reinterpret_cast<T*>(wb_smem);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int rows = (warp & 3) * 16, keys = (warp >> 2) * 32;  // this warp's part of the tile
+  const int rows = (warp % kGroups) * 16, keys = (warp / kGroups) * 32;  // this warp's part of the tile
   const int seq_len = p.seq_len, head_dim = p.head_dim, window = p.window;
-  const int q0 = blockIdx.x * kWbTile;
+  const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.z;
   const bool no_prev = M == kHalo && p.has_prev[0] == 0;
   int k_lo, k_hi, base, n_tiles;
-  window_tile_span<M>(q0, seq_len, window, no_prev, p.tile_base, &k_lo, &k_hi, &base, &n_tiles);
+  window_tile_span<M, BQ>(q0, seq_len, window, no_prev, p.tile_base, &k_lo, &k_hi, &base, &n_tiles);
   const int cols = p.span_tiles * kWbTile;
   T* ds_out = static_cast<T*>(p.scratch) + (size_t)bh * seq_len * cols;
   T* pd_out = ds_out + (size_t)p.batch_heads * seq_len * cols;
-  const int row_end = imin(seq_len, q0 + kWbTile);
+  const int row_end = imin(seq_len, q0 + BQ);
 
   if (blockIdx.y >= n_tiles) {  // past this query tile's span: zeros
     constexpr int kPerRow = kWbTile * (int)sizeof(T) / 16;
-    for (int i = threadIdx.x; i < 2 * kWbTile * kPerRow; i += kWbThreadsA) {
-      const int which = i / (kWbTile * kPerRow);
-      const int r = (i / kPerRow) % kWbTile;
+    for (int i = threadIdx.x; i < 2 * BQ * kPerRow; i += kThreads) {
+      const int which = i / (BQ * kPerRow);
+      const int r = (i / kPerRow) % BQ;
       const int c = (i % kPerRow) * (16 / (int)sizeof(T));
       if (q0 + r < row_end)
         *reinterpret_cast<int4*>((which ? pd_out : ds_out) + (size_t)(q0 + r) * cols +
@@ -258,13 +263,12 @@ __global__ void __launch_bounds__(kWbThreadsA) window_ds_kernel(const WindowBwdP
     if (chunk < n_chunks) {
       T* st = ring + (chunk % kStages) * kStage;
       const int c0 = chunk * kWinChunkD;
-      load_rows<T, kWbTile, kWinChunkD, S, kWbThreadsA>(st, qb, q0, 0, seq_len, c0, head_dim, head_dim, copy);
-      load_rows<T, kWbTile, kWinChunkD, S, kWbThreadsA>(st + kTile, ob, q0, 0, seq_len, c0, head_dim, head_dim,
-                                                        copy);
-      load_rows<T, kWbTile, kWinChunkD, S, kWbThreadsA>(st + 2 * kTile, kb, kt0, k_lo, k_hi, c0, head_dim,
-                                                        head_dim, copy);
-      load_rows<T, kWbTile, kWinChunkD, S, kWbThreadsA>(st + 3 * kTile, vb, kt0, k_lo, k_hi, c0, head_dim,
-                                                        head_dim, copy);
+      load_rows<T, BQ, kWinChunkD, S, kThreads>(st, qb, q0, 0, seq_len, c0, head_dim, head_dim, copy);
+      load_rows<T, BQ, kWinChunkD, S, kThreads>(st + kTileQ, ob, q0, 0, seq_len, c0, head_dim, head_dim, copy);
+      load_rows<T, kWbTile, kWinChunkD, S, kThreads>(st + 2 * kTileQ, kb, kt0, k_lo, k_hi, c0, head_dim,
+                                                     head_dim, copy);
+      load_rows<T, kWbTile, kWinChunkD, S, kThreads>(st + 2 * kTileQ + kTileK, vb, kt0, k_lo, k_hi, c0, head_dim,
+                                                     head_dim, copy);
     }
     cp_async_commit();
   };
@@ -275,16 +279,17 @@ __global__ void __launch_bounds__(kWbThreadsA) window_ds_kernel(const WindowBwdP
     __syncthreads();  // chunk c staged for all; chunk c - 1's stage free
     load(c + kStages - 1);
     const T* st = ring + (c % kStages) * kStage;
+    const T* k_s = st + 2 * kTileQ + keys * S;
     if constexpr (sizeof(T) == 2) {
-      logits_chunk(s_acc, st + rows * S, st + 2 * kTile + keys * S, lane);
-      logits_chunk(dp_acc, st + kTile + rows * S, st + 3 * kTile + keys * S, lane);
+      logits_chunk(s_acc, st + rows * S, k_s, lane);
+      logits_chunk(dp_acc, st + kTileQ + rows * S, k_s + kTileK, lane);
     } else {
       float part[4][4];
       zero_acc(part);
-      logits_chunk(part, st + rows * S, st + 2 * kTile + keys * S, lane);
+      logits_chunk(part, st + rows * S, k_s, lane);
       add_acc(s_acc, part);
       zero_acc(part);
-      logits_chunk(part, st + kTile + rows * S, st + 3 * kTile + keys * S, lane);
+      logits_chunk(part, st + kTileQ + rows * S, k_s + kTileK, lane);
       add_acc(dp_acc, part);
     }
   }
@@ -372,23 +377,25 @@ __device__ __forceinline__ void dq_tile(float (&acc)[D / 8][4], const float* ds_
   add_acc(acc, part);
 }
 
-// Pass B, dq of one (64-row query tile, column block, bh): the span's key
+// Pass B, dq of one (BQ-row query tile, column block, bh): the span's key
 // tiles in order, each K block and dS tile through a two-stage ring.
-template <typename T, Mode M>
-__global__ void __launch_bounds__(kWbThreadsB) window_dq_kernel(const WindowBwdParams p) {
+template <typename T, Mode M, int BQ>
+__global__ void __launch_bounds__(win_threads<BQ>()) window_dq_kernel(const WindowBwdParams p) {
+  constexpr int kThreads = win_threads<BQ>();
   constexpr int D = wb_block_d<T>();
   constexpr int SV = wb_stride_d<T>();
   constexpr int SP = wb_stride_p<T, false>();
-  constexpr int kStage = kWbTile * SV + kWbTile * SP;  // K block, then the dS tile
+  constexpr int kStage = kWbTile * SV + BQ * SP;  // K block, then the dS tile
+  static_assert(2 * kStage >= BQ * SV, "the ring stages dQ");
   extern __shared__ __align__(16) unsigned char wb_smem[];
   T* ring = reinterpret_cast<T*>(wb_smem);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int seq_len = p.seq_len, head_dim = p.head_dim, window = p.window;
-  const int q0 = blockIdx.x * kWbTile, d0 = blockIdx.y * D, bh = blockIdx.z;
+  const int q0 = blockIdx.x * BQ, d0 = blockIdx.y * D, bh = blockIdx.z;
   const bool no_prev = M == kHalo && p.has_prev[0] == 0;
   int k_lo, k_hi, base, n_tiles;
-  window_tile_span<M>(q0, seq_len, window, no_prev, p.tile_base, &k_lo, &k_hi, &base, &n_tiles);
+  window_tile_span<M, BQ>(q0, seq_len, window, no_prev, p.tile_base, &k_lo, &k_hi, &base, &n_tiles);
   const int cols = p.span_tiles * kWbTile;
   const int kv_len = kv_rows<M>(seq_len, window);
   const T* ds_in = static_cast<const T*>(p.scratch) + (size_t)bh * seq_len * cols;
@@ -396,10 +403,10 @@ __global__ void __launch_bounds__(kWbThreadsB) window_dq_kernel(const WindowBwdP
 
   auto load = [&](int tile) {
     T* st = ring + (tile & 1) * kStage;
-    load_rows<T, kWbTile, D, SV, kWbThreadsB>(st, kb, base + tile * kWbTile, k_lo, k_hi, d0, head_dim, head_dim,
-                                              p.copy_in);
-    load_rows<T, kWbTile, kWbTile, SP, kWbThreadsB>(st + kWbTile * SV, ds_in, q0, 0, seq_len, tile * kWbTile,
-                                                    cols, cols, 16);
+    load_rows<T, kWbTile, D, SV, kThreads>(st, kb, base + tile * kWbTile, k_lo, k_hi, d0, head_dim, head_dim,
+                                           p.copy_in);
+    load_rows<T, BQ, kWbTile, SP, kThreads>(st + kWbTile * SV, ds_in, q0, 0, seq_len, tile * kWbTile, cols, cols,
+                                            16);
     cp_async_commit();
   };
   float acc[D / 8][4];
@@ -419,8 +426,8 @@ __global__ void __launch_bounds__(kWbThreadsB) window_dq_kernel(const WindowBwdP
   }
   stage_acc<T, D / 8, SV>(ring, acc, warp, lane);
   __syncthreads();
-  store_rows<T, D, SV>(static_cast<T*>(p.g0) + (size_t)bh * seq_len * head_dim, ring, q0, 0, seq_len, d0,
-                       head_dim, p.copy_out);
+  store_rows<T, BQ, D, SV, kThreads>(static_cast<T*>(p.g0) + (size_t)bh * seq_len * head_dim, ring, q0, 0,
+                                     seq_len, d0, head_dim, p.copy_out);
 }
 
 // dk += dS^T Q and dv += P_drop^T dO over one 64-row query tile: ds_s and
@@ -478,10 +485,10 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[D / 8][4], float (&dv)[D / 
   }
 }
 
-// Pass B, dk and dv of one (64-key tile, column block, bh): the query tiles
-// of the key tile's query span in order, each one's dS and P_drop tiles
+// Pass B, dk and dv of one (64-key tile, column block, bh): the key tile's
+// query span in 64-row steps, in order, each step's dS and P_drop tiles
 // and Q and dO blocks through a two-stage ring.
-template <typename T, Mode M>
+template <typename T, Mode M, int BQ>
 __global__ void __launch_bounds__(kWbThreadsB) window_dkv_kernel(const WindowBwdParams p) {
   constexpr int D = wb_block_d<T>();
   constexpr int SV = wb_stride_d<T>();
@@ -505,11 +512,12 @@ __global__ void __launch_bounds__(kWbThreadsB) window_dkv_kernel(const WindowBwd
   const T* qb = static_cast<const T*>(p.q) + (size_t)bh * seq_len * head_dim;
   const T* ob = static_cast<const T*>(p.dout) + (size_t)bh * seq_len * head_dim;
 
-  // The scratch column of this key tile in query tile qt's span, or -1
-  // where the span does not hold it.
+  // The scratch column of this key tile in the span of the BQ-row query
+  // tile that holds step qt's rows, or -1 where the span does not hold it.
   auto column = [&](int qt) {
     int k_lo, k_hi, base, n_tiles;
-    window_tile_span<M>(qt * kWbTile, seq_len, window, no_prev, p.tile_base, &k_lo, &k_hi, &base, &n_tiles);
+    window_tile_span<M, BQ>(qt * kWbTile / BQ * BQ, seq_len, window, no_prev, p.tile_base, &k_lo, &k_hi, &base,
+                            &n_tiles);
     const int c = kt0 - base;
     return c >= 0 && c < n_tiles * kWbTile ? c : -1;
   };
@@ -550,38 +558,39 @@ __global__ void __launch_bounds__(kWbThreadsB) window_dkv_kernel(const WindowBwd
   const int r_first = imax(kt0, 0), r_end = imin(kt0 + kWbTile, kv_len);
   stage_acc<T, D / 8, SV>(ring, dk, warp, lane);
   __syncthreads();
-  store_rows<T, D, SV>(static_cast<T*>(p.g0) + (size_t)bh * kv_len * head_dim, ring, kt0, r_first, r_end, d0,
-                       head_dim, p.copy_out);
+  store_rows<T, kWbTile, D, SV, kWbThreadsB>(static_cast<T*>(p.g0) + (size_t)bh * kv_len * head_dim, ring, kt0,
+                                             r_first, r_end, d0, head_dim, p.copy_out);
   __syncthreads();
   stage_acc<T, D / 8, SV>(ring, dv, warp, lane);
   __syncthreads();
-  store_rows<T, D, SV>(static_cast<T*>(p.g1) + (size_t)bh * kv_len * head_dim, ring, kt0, r_first, r_end, d0,
-                       head_dim, p.copy_out);
+  store_rows<T, kWbTile, D, SV, kWbThreadsB>(static_cast<T*>(p.g1) + (size_t)bh * kv_len * head_dim, ring, kt0,
+                                             r_first, r_end, d0, head_dim, p.copy_out);
 }
 
 // pass 0: P_drop and dS into the scratch; 1: dq; 2: dk and dv.
-template <typename T, Mode M>
+template <typename T, Mode M, int BQ>
 cudaError_t launch_window_bwd(int pass, WindowBwdParams a) {
-  const int q_tiles = (a.seq_len + kWbTile - 1) / kWbTile;
+  const int q_tiles = (a.seq_len + BQ - 1) / BQ;
   const int d_blocks = (a.head_dim + wb_block_d<T>() - 1) / wb_block_d<T>();
   void (*kernel)(const WindowBwdParams);
   size_t smem;
   dim3 grid;
   int threads = kWbThreadsB;
   if (pass == 0) {
-    kernel = window_ds_kernel<T, M>;
-    smem = (size_t)wb_stages<T>() * 4 * kWbTile * win_stride_qk<T>() * sizeof(T);
+    kernel = window_ds_kernel<T, M, BQ>;
+    smem = (size_t)wb_stages<T>() * 2 * (BQ + kWbTile) * win_stride_qk<T>() * sizeof(T);
     grid = dim3(q_tiles, a.span_tiles, a.batch_heads);
-    threads = kWbThreadsA;
+    threads = win_logits_threads<BQ>();
     a.copy_in = copy_bytes<T>(a.head_dim, nullptr, 0, {a.q, a.k, a.v, a.dout});
   } else if (pass == 1) {
-    kernel = window_dq_kernel<T, M>;
-    smem = (size_t)2 * kWbTile * (wb_stride_d<T>() + wb_stride_p<T, false>()) * sizeof(T);
+    kernel = window_dq_kernel<T, M, BQ>;
+    smem = (size_t)2 * (kWbTile * wb_stride_d<T>() + BQ * wb_stride_p<T, false>()) * sizeof(T);
     grid = dim3(q_tiles, d_blocks, a.batch_heads);
+    threads = win_threads<BQ>();
     a.copy_in = copy_bytes<T>(a.head_dim, nullptr, 0, {a.k});
     a.copy_out = copy_bytes<T>(a.head_dim, nullptr, 0, {a.g0});
   } else {
-    kernel = window_dkv_kernel<T, M>;
+    kernel = window_dkv_kernel<T, M, BQ>;
     smem = (size_t)2 * 2 * kWbTile * (wb_stride_d<T>() + wb_stride_p<T, true>()) * sizeof(T);
     grid = dim3(a.key_tiles, d_blocks, a.batch_heads);
     a.copy_in = copy_bytes<T>(a.head_dim, nullptr, 0, {a.q, a.dout});
@@ -593,14 +602,38 @@ cudaError_t launch_window_bwd(int pass, WindowBwdParams a) {
   return cudaGetLastError();
 }
 
+// Each block_rows candidate's instantiations of the library's mode, in its
+// translation unit (as window_fwd.cuh's).
+#ifdef TCHVP_WIN_MODE
+#define TCHVP_WIN_BWD_INST(PREFIX, BQ)                                                                \
+  PREFIX template cudaError_t launch_window_bwd<float, TCHVP_WIN_MODE, BQ>(int, WindowBwdParams);       \
+  PREFIX template cudaError_t launch_window_bwd<__nv_bfloat16, TCHVP_WIN_MODE, BQ>(int, WindowBwdParams);
+#define TCHVP_WIN_BWD_INST_DEF(...) TCHVP_WIN_BWD_INST(, __VA_ARGS__)
+#define TCHVP_WIN_BWD_INST_EXTERN(...) TCHVP_WIN_BWD_INST(extern, __VA_ARGS__)
+TCHVP_UNIT_BLOCKS(TCHVP_WIN_BWD_INST_DEF)
+TCHVP_EXTERN_BLOCKS(TCHVP_WIN_BWD_INST_EXTERN)
+#endif  // TCHVP_WIN_MODE
+
+// Whether the plan of a block_rows candidate holds every query tile's span
+// (with has_prev 1, the widest).
+template <Mode M, int BQ>
+bool spans_fit(const WindowBwdParams& a) {
+  for (int q0 = 0; q0 < a.seq_len; q0 += BQ) {
+    int k_lo, k_hi, base, n_tiles;
+    window_tile_span<M, BQ>(q0, a.seq_len, a.window, false, a.tile_base, &k_lo, &k_hi, &base, &n_tiles);
+    if (n_tiles > a.span_tiles) return false;
+  }
+  return true;
+}
+
 // The C launchers' body. Checks the arguments against the tiling rule
 // (window_bwd_plan): tile_base as the rule gives it, span_tiles >= every
 // query tile's span (with has_prev 1, the widest), key_tiles covering the
 // rows of k; the band takes a window of 1..S, the halo any window >= 1 and
-// a has_prev pointer; the scratch 16-byte aligned. Then launches `pass` on
-// `stream`.
+// a has_prev pointer; the scratch 16-byte aligned; block_rows one of
+// TCHVP_WIN_BLOCKS, the forward's. Then launches `pass` on `stream`.
 template <Mode M>
-int run_window_bwd(int pass, WindowBwdParams a, int is_bf16) {
+int run_window_bwd(int pass, WindowBwdParams a, int is_bf16, int block_rows) {
   const int kv_len = kv_rows<M>(a.seq_len, a.window);
   bool ok = a.batch_heads >= 1 && a.batch_heads <= 65535 && a.seq_len >= 1 && a.head_dim >= 1 &&
             a.window >= 1 && (M == kHalo || a.window <= a.seq_len) && (M == kBand || a.has_prev != nullptr) &&
@@ -610,13 +643,15 @@ int run_window_bwd(int pass, WindowBwdParams a, int is_bf16) {
   const int rule_base = M == kHalo && a.window % kWbTile ? a.window % kWbTile - kWbTile : 0;
   ok = ok && a.tile_base == rule_base && a.tile_base + a.key_tiles * kWbTile >= kv_len &&
        a.tile_base + (a.key_tiles - 1) * kWbTile < kv_len;
-  for (int q0 = 0; ok && q0 < a.seq_len; q0 += kWbTile) {
-    int k_lo, k_hi, base, n_tiles;
-    window_tile_span<M>(q0, a.seq_len, a.window, false, a.tile_base, &k_lo, &k_hi, &base, &n_tiles);
-    ok = n_tiles <= a.span_tiles;
-  }
   if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)(is_bf16 ? launch_window_bwd<__nv_bfloat16, M>(pass, a) : launch_window_bwd<float, M>(pass, a));
+#define TCHVP_WIN_BWD_CASE(BQ)                                                                          \
+  if (block_rows == BQ)                                                                                    \
+    return (int)(!spans_fit<M, BQ>(a) ? cudaErrorInvalidValue                                              \
+                 : is_bf16            ? launch_window_bwd<__nv_bfloat16, M, BQ>(pass, a)                   \
+                                      : launch_window_bwd<float, M, BQ>(pass, a));
+  TCHVP_WIN_BLOCKS(TCHVP_WIN_BWD_CASE)
+#undef TCHVP_WIN_BWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace tchvp

@@ -2,11 +2,13 @@
 // halo_attention.cu) attention, in two passes over a (BH, S, span) fp32
 // scratch that the wrapper allocates.
 //
-// The band's key span is 2w, not S, so the logits of a 64-row query tile
-// are small (64 x 128 fp32 = 32 KB at w 64), and the forward splits where
-// the work does:
-//  * Pass A, logits (window_logits_kernel): grid (64-row query tile,
-//    64-key tile of the tile's span, bh); 8 warps of 16 rows x 32 keys.
+// The band's key span is 2w, not S, so the logits of a BQ-row query tile
+// are small (64 x 128 fp32 = 32 KB at BQ 64, w 64), and the forward splits
+// where the work does. BQ, the query rows of a tile (block_rows, 64 or 128:
+// WIN_BLOCKS in flash_attention.py), is a template parameter:
+//  * Pass A, logits (window_logits_kernel): grid (BQ-row query tile,
+//    64-key tile of the tile's span, bh); 2 BQ / 16 warps of 16 rows x 32
+//    keys.
 //    S = Q K^T on the tensor cores, the head dim streamed in 64-column
 //    chunks through a cp.async ring of 4 (bf16) or 3 (fp32) stages (a
 //    stage holds a 64 x 64 Q chunk and a 64 x 64 K chunk). It writes the
@@ -14,8 +16,8 @@
 //    scratch[bh][row][key - k_lo], and each row's max over its key tile
 //    after the span's columns. Splitting the span by key tile gives the
 //    pass 256 blocks at config 2's shape, not 128.
-//  * Pass B, P.V (window_pv_kernel): grid (64-row query tile, 128-column
-//    head-dim block, bh). Each block takes its rows' exact max from the
+//  * Pass B, P.V (window_pv_kernel): grid (BQ-row query tile, 128-column
+//    head-dim block, bh), BQ / 16 warps of 16 rows. Each block takes its rows' exact max from the
 //    tile maxima; a two-stage cp.async ring brings each 64-key tile's
 //    logits (from the L2-resident scratch) and V column block into shared
 //    memory; P = exp(s - m) is formed in registers straight in the mma
@@ -45,13 +47,19 @@
 
 namespace tchvp {
 
-constexpr int kWinBlockQ = 64;    // query rows per tile: 4 warps x 16
+// The query rows of a tile (block_rows) the kernels take are
+// TCHVP_WIN_BLOCKS (build.py's WIN_BLOCKS, given by the build;
+// flash_common.cuh).
 constexpr int kWinBlockK = 64;    // keys per logits block and per P.V step
 constexpr int kWinChunkD = 64;    // head-dim columns per logits stage
 constexpr int kWinBlockD = 128;   // head-dim columns per P.V block
-constexpr int kWinThreads = 128;  // pass B: 4 warps of 16 rows
-constexpr int kWinLogitsThreads = 256;  // pass A: 8 warps, 4 row groups x 2 key halves
 constexpr int kWinStrideV = kWinBlockD + 8;  // V rows in shared memory, both dtypes
+// Threads of pass B (BQ / 16 warps of 16 rows) and of pass A (2 BQ / 16
+// warps: BQ / 16 row groups x 2 key halves).
+template <int BQ>
+__host__ __device__ constexpr int win_threads() { return 2 * BQ; }
+template <int BQ>
+__host__ __device__ constexpr int win_logits_threads() { return 4 * BQ; }
 
 // Shared-memory row stride of the Q and K chunks: 72 bf16 (144 bytes: the 8
 // rows of an ldmatrix block fall in 8 different 16-byte bank groups) or 68
@@ -108,37 +116,40 @@ __device__ __forceinline__ void logits_chunk(float (&acc)[4][4], const float* q_
   }
 }
 
-// Pass A: scaled, masked logits of one (64-row query tile, 64-key tile of
+// Pass A: scaled, masked logits of one (BQ-row query tile, 64-key tile of
 // its span, bh) into scratch (BH, S, scratch_cols), column = key - k_lo,
 // and each row's max over the tile at column span_cols + the tile's index
 // (pass B takes the row max from these instead of sweeping the row). Warp w
-// owns rows 16 (w % 4).. and keys 32 (w / 4).. of the tile: 8 warps, so
-// that a block's loads and products overlap on the grid's few blocks. The
+// owns rows 16 (w % (BQ / 16)).. and keys 32 (w / (BQ / 16)).. of the tile:
+// 8 warps at BQ 64, so that a block's loads and products overlap on the
+// grid's few blocks. The
 // head dim streams through a ring of win_stages<T>() chunks, the loads of
 // the next stages in flight while a chunk's products run. Each chunk is
 // summed in its own mma accumulator and added to the total in fp32: the
 // tensor cores' accumulation does not round to nearest, and in one
 // accumulator over the whole head dim the fp32 (3xTF32) error grows with Dh.
-template <typename T, Mode M>
-__global__ void __launch_bounds__(kWinLogitsThreads)
+template <typename T, Mode M, int BQ>
+__global__ void __launch_bounds__(win_logits_threads<BQ>())
 window_logits_kernel(const T* __restrict__ q, const T* __restrict__ k, float* __restrict__ scratch,
                      int seq_len, int head_dim, int window, int scratch_cols, int span_cols,
                      float scale, int vec, const int* __restrict__ has_prev) {
   constexpr int S = win_stride_qk<T>();
   constexpr int kStages = win_stages<T>();
-  constexpr int kStage = (kWinBlockQ + kWinBlockK) * S;  // elements per stage
+  constexpr int kThreads = win_logits_threads<BQ>();
+  constexpr int kGroups = BQ / 16;  // row groups
+  constexpr int kStage = (BQ + kWinBlockK) * S;  // elements per stage
   extern __shared__ __align__(16) unsigned char win_smem[];
   T* ring = reinterpret_cast<T*>(win_smem);  // [kStages][Q chunk; K chunk]
-  __shared__ float half_max[2][kWinBlockQ];  // each key half's row maxima
+  __shared__ float half_max[2][BQ];  // each key half's row maxima
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int rows = (warp & 3) * 16, keys = (warp >> 2) * 32;  // this warp's part of the tile
-  const int q0 = blockIdx.x * kWinBlockQ;
+  const int rows = (warp % kGroups) * 16, keys = (warp / kGroups) * 32;  // this warp's part of the tile
+  const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.z;
   const bool no_prev = M == kHalo && has_prev[0] == 0;
   int k_lo, k_hi;
-  key_span<M>(q0, imin(seq_len, q0 + kWinBlockQ) - 1, seq_len, window, no_prev, &k_lo, &k_hi);
+  key_span<M>(q0, imin(seq_len, q0 + BQ) - 1, seq_len, window, no_prev, &k_lo, &k_hi);
   k_hi = imin(k_hi, k_lo + span_cols);  // never past the scratch's logits columns
   const int kt0 = k_lo + blockIdx.y * kWinBlockK;
   if (kt0 >= k_hi) return;  // the grid covers the widest tile's span
@@ -157,12 +168,10 @@ window_logits_kernel(const T* __restrict__ q, const T* __restrict__ k, float* __
   auto load = [&](int chunk) {
     if (chunk < n_chunks) {
       T* st = ring + (chunk % kStages) * kStage;
-      load_tile<T, kWinBlockQ, kWinChunkD, S, kWinLogitsThreads>(st, qb, q0, seq_len,
-                                                                 chunk * kWinChunkD, head_dim,
-                                                                 head_dim, vec ? 16 : 0);
-      load_tile<T, kWinBlockK, kWinChunkD, S, kWinLogitsThreads>(st + kWinBlockQ * S, kb, kt0, k_hi,
-                                                                 chunk * kWinChunkD, head_dim,
-                                                                 head_dim, vec ? 16 : 0);
+      load_tile<T, BQ, kWinChunkD, S, kThreads>(st, qb, q0, seq_len, chunk * kWinChunkD, head_dim, head_dim,
+                                                vec ? 16 : 0);
+      load_tile<T, kWinBlockK, kWinChunkD, S, kThreads>(st + BQ * S, kb, kt0, k_hi, chunk * kWinChunkD, head_dim,
+                                                        head_dim, vec ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -178,7 +187,7 @@ window_logits_kernel(const T* __restrict__ q, const T* __restrict__ k, float* __
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
-    logits_chunk(part, st + rows * S, st + (kWinBlockQ + keys) * S, lane);
+    logits_chunk(part, st + rows * S, st + (BQ + keys) * S, lane);
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -209,23 +218,24 @@ window_logits_kernel(const T* __restrict__ q, const T* __restrict__ k, float* __
     if (t == 0) half_max[keys / 32][r] = m;
   }
   __syncthreads();
-  if (threadIdx.x < kWinBlockQ && q0 + threadIdx.x < seq_len)
+  if (threadIdx.x < BQ && q0 + threadIdx.x < seq_len)
     xb[(size_t)(q0 + threadIdx.x) * scratch_cols + span_cols + blockIdx.y] =
         fmaxf(half_max[0][threadIdx.x], half_max[1][threadIdx.x]);
 }
 
-// The logits tile of pass B in shared memory: 64 rows x 64 fp32 columns,
+// The logits tile of pass B in shared memory: BQ rows x 64 fp32 columns,
 // rows padded to 68 floats (the fp32 fragment loads (row g, column t) of a
 // warp hit 32 banks).
 constexpr int kWinStrideP = kWinBlockK + 4;
 
-// Scratch columns [c0, c0 + 64) of rows [q0, q0 + 64) into p_s; columns at
+// Scratch columns [c0, c0 + 64) of rows [q0, q0 + BQ) into p_s; columns at
 // or past the span, and rows past S, are zero-filled (and never read as
 // logits). scratch_cols % 4 == 0, so every 16-byte source is aligned.
+template <int BQ>
 __device__ __forceinline__ void load_logits_tile(float* p_s, const float* xb, int q0, int seq_len,
                                                  int c0, int span, int scratch_cols) {
   constexpr int kPerRow = kWinBlockK / 4;
-  for (int i = threadIdx.x; i < kWinBlockQ * kPerRow; i += kWinThreads) {
+  for (int i = threadIdx.x; i < BQ * kPerRow; i += win_threads<BQ>()) {
     const int r = i / kPerRow;
     const int c = c0 + (i - r * kPerRow) * 4;
     const int n = q0 + r < seq_len ? imax(0, imin(4, span - c)) : 0;
@@ -331,29 +341,31 @@ __device__ __forceinline__ void pv_tile(float (&acc)[16][4], RowWeights& ra, Row
   }
 }
 
-// Pass B: out and lse of one (64-row query tile, 128-column block, bh). A
+// Pass B: out and lse of one (BQ-row query tile, 128-column block, bh). A
 // two-stage cp.async ring brings each key tile's V block and logits tile;
 // the output tile goes out through shared memory in 16-byte rows.
-template <typename T, Mode M>
-__global__ void __launch_bounds__(kWinThreads)
+template <typename T, Mode M, int BQ>
+__global__ void __launch_bounds__(win_threads<BQ>())
 window_pv_kernel(const T* __restrict__ v, const float* __restrict__ scratch, T* __restrict__ out,
                  float* __restrict__ lse, int seq_len, int head_dim, int window, int scratch_cols,
                  int span_cols, int dropout, float keep_prob, uint32_t drop_threshold,
                  const int* __restrict__ seed, int vec, const int* __restrict__ has_prev) {
+  constexpr int kThreads = win_threads<BQ>();
   constexpr int kVStage = kWinBlockK * kWinStrideV;  // elements of T
-  constexpr int kPStage = kWinBlockQ * kWinStrideP;  // floats
+  constexpr int kPStage = BQ * kWinStrideP;          // floats
+  static_assert(BQ <= 2 * kWinBlockK, "the output tile is staged in V's two stages");
   extern __shared__ __align__(16) unsigned char win_smem[];
   T* v_s = reinterpret_cast<T*>(win_smem);                                   // [2][64][136]
-  float* p_s = reinterpret_cast<float*>(win_smem + 2 * kVStage * sizeof(T));  // [2][64][68]
+  float* p_s = reinterpret_cast<float*>(win_smem + 2 * kVStage * sizeof(T));  // [2][BQ][68]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kWinBlockQ;
+  const int q0 = blockIdx.x * BQ;
   const int d0 = blockIdx.y * kWinBlockD;
   const int bh = blockIdx.z;
   const bool no_prev = M == kHalo && has_prev[0] == 0;
   int k_lo, k_hi;
-  key_span<M>(q0, imin(seq_len, q0 + kWinBlockQ) - 1, seq_len, window, no_prev, &k_lo, &k_hi);
+  key_span<M>(q0, imin(seq_len, q0 + BQ) - 1, seq_len, window, no_prev, &k_lo, &k_hi);
   const int span = imin(k_hi - k_lo, span_cols);
   k_hi = k_lo + span;
   const int n_tiles = (span + kWinBlockK - 1) / kWinBlockK;
@@ -362,11 +374,9 @@ window_pv_kernel(const T* __restrict__ v, const float* __restrict__ scratch, T* 
 
   auto load = [&](int tile) {
     const int stage = tile & 1;
-    load_tile<T, kWinBlockK, kWinBlockD, kWinStrideV, kWinThreads>(v_s + stage * kVStage, vb,
-                                                                   k_lo + tile * kWinBlockK, k_hi,
-                                                                   d0, head_dim, head_dim,
-                                                                   vec ? 16 : 0);
-    load_logits_tile(p_s + stage * kPStage, xs, q0, seq_len, tile * kWinBlockK, span, scratch_cols);
+    load_tile<T, kWinBlockK, kWinBlockD, kWinStrideV, kThreads>(v_s + stage * kVStage, vb, k_lo + tile * kWinBlockK,
+                                                                k_hi, d0, head_dim, head_dim, vec ? 16 : 0);
+    load_logits_tile<BQ>(p_s + stage * kPStage, xs, q0, seq_len, tile * kWinBlockK, span, scratch_cols);
     cp_async_commit();
   };
   load(0);
@@ -408,9 +418,9 @@ window_pv_kernel(const T* __restrict__ v, const float* __restrict__ scratch, T* 
     __syncthreads();
   }
 
-  // 3. out = acc / l, staged in shared memory (V's first stage), then
-  // written in 16-byte pieces; lse = m + log(l). l is 0 only past S.
-  T* o_s = v_s;  // [64][kWinStrideV]
+  // 3. out = acc / l, staged in shared memory (V's stages), then written
+  // in 16-byte pieces; lse = m + log(l). l is 0 only past S.
+  T* o_s = v_s;  // [BQ][kWinStrideV]
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     RowWeights& w = rw[h];
@@ -429,7 +439,7 @@ window_pv_kernel(const T* __restrict__ v, const float* __restrict__ scratch, T* 
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = kWinBlockD / kVec;
   T* ob = out + (size_t)bh * seq_len * head_dim;
-  for (int i = threadIdx.x; i < kWinBlockQ * kPerRow; i += kWinThreads) {
+  for (int i = threadIdx.x; i < BQ * kPerRow; i += kThreads) {
     const int r = i / kPerRow;
     const int c = (i - r * kPerRow) * kVec;
     if (q0 + r >= seq_len || d0 + c >= head_dim) continue;
@@ -443,7 +453,7 @@ window_pv_kernel(const T* __restrict__ v, const float* __restrict__ scratch, T* 
   }
 }
 
-// A forward's arguments. span_cols, the widest key span of a 64-row query
+// A forward's arguments. span_cols, the widest key span of a BQ-row query
 // tile, comes from the host (flash_attention.py's window_plan): it sets the
 // logits pass's key-tile grid and where each scratch row's tile maxima start.
 struct WindowArgs {
@@ -466,16 +476,15 @@ int window_vec(const WindowArgs& a) {
 }
 
 // Pass A alone.
-template <typename T, Mode M>
+template <typename T, Mode M, int BQ>
 cudaError_t launch_window_logits(const WindowArgs& a) {
-  const int q_tiles = (a.seq_len + kWinBlockQ - 1) / kWinBlockQ;
+  const int q_tiles = (a.seq_len + BQ - 1) / BQ;
   const int key_tiles = (a.span_cols + kWinBlockK - 1) / kWinBlockK;
-  const size_t smem =
-      (size_t)win_stages<T>() * (kWinBlockQ + kWinBlockK) * win_stride_qk<T>() * sizeof(T);
-  auto kernel = window_logits_kernel<T, M>;
+  const size_t smem = (size_t)win_stages<T>() * (BQ + kWinBlockK) * win_stride_qk<T>() * sizeof(T);
+  auto kernel = window_logits_kernel<T, M, BQ>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(q_tiles, key_tiles, a.batch_heads), kWinLogitsThreads, smem, a.stream>>>(
+  kernel<<<dim3(q_tiles, key_tiles, a.batch_heads), win_logits_threads<BQ>(), smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<float*>(a.scratch),
       a.seq_len, a.head_dim, a.window, a.scratch_cols, a.span_cols, a.scale, window_vec<T>(a),
       a.has_prev);
@@ -483,16 +492,16 @@ cudaError_t launch_window_logits(const WindowArgs& a) {
 }
 
 // Pass B alone, on the logits in the scratch.
-template <typename T, Mode M>
+template <typename T, Mode M, int BQ>
 cudaError_t launch_window_pv(const WindowArgs& a) {
-  const int q_tiles = (a.seq_len + kWinBlockQ - 1) / kWinBlockQ;
+  const int q_tiles = (a.seq_len + BQ - 1) / BQ;
   const int d_blocks = (a.head_dim + kWinBlockD - 1) / kWinBlockD;
   const size_t smem = (size_t)2 * kWinBlockK * kWinStrideV * sizeof(T) +
-                      (size_t)2 * kWinBlockQ * kWinStrideP * sizeof(float);
-  auto kernel = window_pv_kernel<T, M>;
+                      (size_t)2 * BQ * kWinStrideP * sizeof(float);
+  auto kernel = window_pv_kernel<T, M, BQ>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(q_tiles, d_blocks, a.batch_heads), kWinThreads, smem, a.stream>>>(
+  kernel<<<dim3(q_tiles, d_blocks, a.batch_heads), win_threads<BQ>(), smem, a.stream>>>(
       static_cast<const T*>(a.v), static_cast<const float*>(a.scratch), static_cast<T*>(a.out),
       static_cast<float*>(a.lse), a.seq_len, a.head_dim, a.window, a.scratch_cols, a.span_cols,
       a.dropout_rate > 0.f ? 1 : 0, 1.f - a.dropout_rate, a.drop_threshold, a.seed,
@@ -500,17 +509,38 @@ cudaError_t launch_window_pv(const WindowArgs& a) {
   return cudaGetLastError();
 }
 
+// Both passes of one block_rows candidate.
+template <typename T, Mode M, int BQ>
+cudaError_t launch_window_fwd(const WindowArgs& a) {
+  const cudaError_t err = launch_window_logits<T, M, BQ>(a);
+  return err != cudaSuccess ? err : launch_window_pv<T, M, BQ>(a);
+}
+
+// Each block_rows candidate's instantiations of the library's mode
+// (TCHVP_WIN_MODE, set by band_attention.cu or halo_attention.cu), in its
+// translation unit (flash_common.cuh).
+#ifdef TCHVP_WIN_MODE
+#define TCHVP_WIN_FWD_INST(PREFIX, BQ)                                                                \
+  PREFIX template cudaError_t launch_window_fwd<float, TCHVP_WIN_MODE, BQ>(const WindowArgs&);          \
+  PREFIX template cudaError_t launch_window_fwd<__nv_bfloat16, TCHVP_WIN_MODE, BQ>(const WindowArgs&);
+#define TCHVP_WIN_FWD_INST_DEF(...) TCHVP_WIN_FWD_INST(, __VA_ARGS__)
+#define TCHVP_WIN_FWD_INST_EXTERN(...) TCHVP_WIN_FWD_INST(extern, __VA_ARGS__)
+TCHVP_UNIT_BLOCKS(TCHVP_WIN_FWD_INST_DEF)
+TCHVP_EXTERN_BLOCKS(TCHVP_WIN_FWD_INST_EXTERN)
+#endif  // TCHVP_WIN_MODE
+
 // The C launchers' body: checks the arguments (the band takes a window of
 // 1..S, the halo any window >= 1 and a has_prev pointer; span_cols 1..the
 // keys; scratch_cols must hold span_cols and one column per 64-key tile, and
-// be a multiple of 4, the scratch 16-byte aligned), picks the dtype and
-// launches pass A, then pass B, on `stream`.
+// be a multiple of 4, the scratch 16-byte aligned; block_rows one of
+// TCHVP_WIN_BLOCKS), picks the dtype and the block and launches pass A,
+// then pass B, on `stream`.
 template <Mode M>
 int run_window_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                    void* scratch, int batch_heads, int seq_len, int head_dim, int window,
                    int span_cols, int scratch_cols, int is_bf16, float scale, float dropout_rate,
                    unsigned int drop_threshold, const void* seed, const void* has_prev,
-                   void* stream) {
+                   int block_rows, void* stream) {
   if (batch_heads < 1 || batch_heads > 65535 || seq_len < 1 || head_dim < 1 ||
       (M == kBand && (window < 1 || window > seq_len)) ||
       (M == kHalo && (window < 1 || has_prev == nullptr)) ||
@@ -523,10 +553,12 @@ int run_window_fwd(const void* q, const void* k, const void* v, void* out, void*
                      span_cols, scratch_cols, scale, dropout_rate, drop_threshold,
                      static_cast<const int*>(seed), static_cast<const int*>(has_prev),
                      static_cast<cudaStream_t>(stream)};
-  cudaError_t err = is_bf16 ? launch_window_logits<__nv_bfloat16, M>(a)
-                            : launch_window_logits<float, M>(a);
-  if (err != cudaSuccess) return (int)err;
-  return (int)(is_bf16 ? launch_window_pv<__nv_bfloat16, M>(a) : launch_window_pv<float, M>(a));
+#define TCHVP_WIN_FWD_CASE(BQ)                                                                     \
+  if (block_rows == BQ)                                                                               \
+    return (int)(is_bf16 ? launch_window_fwd<__nv_bfloat16, M, BQ>(a) : launch_window_fwd<float, M, BQ>(a));
+  TCHVP_WIN_BLOCKS(TCHVP_WIN_FWD_CASE)
+#undef TCHVP_WIN_FWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace tchvp

@@ -26,6 +26,16 @@ counterparts, the dense fp32 versions of the same functions (the band as a
 mask over the logits). A CUDA tensor never reaches a plain version, and a
 build or launch failure raises.
 
+Blocks. The flash kernels take (block_q, block_k), query rows per block and
+keys per tile, and the banded and halo kernels block_rows, query rows per
+tile: every candidate (:data:`FLASH_BLOCKS`, :data:`WIN_BLOCKS`) is a
+template instantiation of the CUDA sources. ``mha``, ``windowed_mha`` and
+``windowed_mha_halo`` resolve them once a call on the host
+(:mod:`.autotune`: the arguments, then the tuned cache, then 64), and the
+forward's blocks drive that call's backward kernels too. A block outside
+the candidates, or one the card cannot launch at a shape, raises
+``ValueError``; on the CPU the blocks are resolved, checked and unused.
+
 Attention-weight dropout uses the TPU kernels' counter-based mask: a
 squirrel3 hash of the global (row, col) index of the (S, S) weight matrix,
 seeded per call, so the mask here is bit for bit the JAX package's
@@ -44,6 +54,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from tchvp_tpu_torch.kernels import autotune, build
 from tchvp_tpu_torch.ops import dispatch_trace
 
 _MASK32 = 0xFFFFFFFF
@@ -64,9 +75,20 @@ halo_dkv_launches = 0  # halo_attention: backward pass B, dk/dv
 
 Seed = Union[int, torch.Tensor, None]
 
-# Tiles of the banded and halo forwards (csrc/window_fwd.cuh): 64 query rows,
-# 64 keys per logits block and P.V step.
+# Tiles of the banded and halo kernels (csrc/window_fwd.cuh): 64 query rows
+# by default, 64 keys per logits block and P.V step.
 WIN_BLOCK_Q, WIN_BLOCK_K = 64, 64
+# The block candidates the build instantiates in the CUDA sources,
+# (block_q, block_k) of the flash kernels and block_rows of the banded and
+# halo kernels, and the shipped defaults: the tiles of the kernels before
+# they took blocks.
+FLASH_BLOCKS, WIN_BLOCKS = build.FLASH_BLOCKS, build.WIN_BLOCKS
+DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K = 64, 64
+DEFAULT_BAND_ROWS = WIN_BLOCK_Q
+# Launches per block candidate in this process: {(kernel, blocks): count},
+# kernel "flash_fwd", "band_fwd" or "halo_fwd" (the launch record of the
+# blocks a forward used).
+block_launches: dict = {}
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -154,22 +176,22 @@ class WindowPlan(NamedTuple):
     """Scratch of the tensor-core banded or halo forward, which the C
     launchers take as they are."""
 
-    span_cols: int     # the widest key span of a 64-row query tile: the logits
+    span_cols: int     # the widest key span of a query tile: the logits
                        # pass's grid.y is its 64-key tiles
     scratch_cols: int  # row width of the (BH, S, scratch_cols) fp32 scratch
 
 
 @functools.lru_cache(maxsize=256)
-def window_plan(seq_len: int, window: int, halo: bool) -> WindowPlan:
+def window_plan(seq_len: int, window: int, halo: bool, block_rows: int = WIN_BLOCK_Q) -> WindowPlan:
     """The one rule for the banded (``halo`` False, 1 <= window <= S) and
     halo forwards' key tiles and scratch. A scratch row holds the logits of
-    the widest key span of a 64-row query tile (with has_prev 1 for the
-    halo, which holds has_prev 0's), then the row's max over each of its
-    64-key tiles; its width is rounded up to a multiple of 4, so the P.V
+    the widest key span of a ``block_rows``-row query tile (with has_prev 1
+    for the halo, which holds has_prev 0's), then the row's max over each of
+    its 64-key tiles; its width is rounded up to a multiple of 4, so the P.V
     pass copies each tile's logits in aligned 16-byte pieces."""
     widest = max(hi - lo for lo, hi in (
-        window_key_span(q0, min(seq_len, q0 + WIN_BLOCK_Q) - 1, seq_len, window, halo)
-        for q0 in range(0, seq_len, WIN_BLOCK_Q)))
+        window_key_span(q0, min(seq_len, q0 + block_rows) - 1, seq_len, window, halo)
+        for q0 in range(0, seq_len, block_rows)))
     cols = widest + -(-widest // WIN_BLOCK_K)
     return WindowPlan(widest, -(-cols // 4) * 4)
 
@@ -184,11 +206,12 @@ def window_tile_base(window: int, halo: bool) -> int:
 
 
 def window_tile_span(q0: int, seq_len: int, window: int, halo: bool,
-                     no_prev: bool = False) -> Tuple[int, int]:
+                     no_prev: bool = False, block_rows: int = WIN_BLOCK_Q) -> Tuple[int, int]:
     """(base, n_tiles): the first key tile and the number of key tiles that
-    cover the key span of the 64-row query tile at ``q0``, the kernels'
-    ``window_tile_span``. Scratch column c of the tile's rows is key base + c."""
-    lo, hi = window_key_span(q0, min(seq_len, q0 + WIN_BLOCK_Q) - 1, seq_len, window, halo, no_prev)
+    cover the key span of the ``block_rows``-row query tile at ``q0``, the
+    kernels' ``window_tile_span``. Scratch column c of the tile's rows is key
+    base + c."""
+    lo, hi = window_key_span(q0, min(seq_len, q0 + block_rows) - 1, seq_len, window, halo, no_prev)
     tb = window_tile_base(window, halo)
     base = tb + (lo - tb) // WIN_BLOCK_K * WIN_BLOCK_K
     return base, -(-(hi - base) // WIN_BLOCK_K)
@@ -222,12 +245,13 @@ class WindowBwdPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def window_bwd_plan(seq_len: int, window: int, halo: bool) -> WindowBwdPlan:
+def window_bwd_plan(seq_len: int, window: int, halo: bool, block_rows: int = WIN_BLOCK_Q) -> WindowBwdPlan:
     """The one rule for the banded (``halo`` False, 1 <= window <= S) and
-    halo backwards' key tiles and scratch: the widest span in key tiles
-    (has_prev 1 for the halo, which holds has_prev 0's), the key tiles of
-    k and where they start."""
-    span = max(window_tile_span(q0, seq_len, window, halo)[1] for q0 in range(0, seq_len, WIN_BLOCK_Q))
+    halo backwards' key tiles and scratch: the widest span of a
+    ``block_rows``-row query tile in key tiles (has_prev 1 for the halo,
+    which holds has_prev 0's), the key tiles of k and where they start."""
+    span = max(window_tile_span(q0, seq_len, window, halo, block_rows=block_rows)[1]
+               for q0 in range(0, seq_len, block_rows))
     tb = window_tile_base(window, halo)
     keys = seq_len + window if halo else seq_len
     return WindowBwdPlan(span, -(-(keys - tb) // WIN_BLOCK_K), tb)
@@ -405,99 +429,100 @@ def _no_prev(has_prev) -> bool:
     return has_prev is not None and int(torch.as_tensor(has_prev).reshape(())) == 0
 
 
-def _scratch_tiles(s: int, keys: int, window: int, has_prev):
-    """(rows, key columns, scratch columns) of each 64-row query tile's key
-    tiles (:func:`window_tile_span`): scratch column c is key base + c."""
+def _scratch_tiles(s: int, keys: int, window: int, has_prev, block_rows: int = WIN_BLOCK_Q):
+    """(rows, key columns, scratch columns) of each query tile's key tiles
+    (:func:`window_tile_span`): scratch column c is key base + c."""
     halo = has_prev is not None
-    for q0 in range(0, s, WIN_BLOCK_Q):
-        base, n = window_tile_span(q0, s, window, halo, _no_prev(has_prev))
+    for q0 in range(0, s, block_rows):
+        base, n = window_tile_span(q0, s, window, halo, _no_prev(has_prev), block_rows)
         lo, hi = max(base, 0), min(base + n * WIN_BLOCK_K, keys)
-        yield slice(q0, q0 + WIN_BLOCK_Q), slice(lo, hi), slice(lo - base, hi - base)
+        yield slice(q0, q0 + block_rows), slice(lo, hi), slice(lo - base, hi - base)
 
 
-def _window_geometry(s: int, window: int, has_prev) -> Tuple[int, WindowBwdPlan]:
+def _window_geometry(s: int, window: int, has_prev, block_rows: int = WIN_BLOCK_Q) -> Tuple[int, WindowBwdPlan]:
     """The backward's window (the band takes min(w, S)) and plan."""
     halo = has_prev is not None
     window = int(window) if halo else min(int(window), s)
-    return window, window_bwd_plan(s, window, halo)
+    return window, window_bwd_plan(s, window, halo, block_rows)
 
 
 def window_bwd_scratch_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float, window: int,
-    dropout_rate: float = 0.0, seed: Seed = 0, has_prev=None,
+    dropout_rate: float = 0.0, seed: Seed = 0, has_prev=None, block_rows: int = WIN_BLOCK_Q,
 ) -> torch.Tensor:
     """Plain version of the backward's pass A (banded, or halo where
     ``has_prev`` is given): (2, BH, S, cols) fp32, dS then P_drop of each
-    64-row query tile's key tiles (:func:`window_tile_span`), 0 outside the
-    band and past the span, as the kernel writes them."""
+    ``block_rows``-row query tile's key tiles (:func:`window_tile_span`), 0
+    outside the band and past the span, as the kernel writes them."""
     bh, s, _ = q.shape
-    window, plan = _window_geometry(s, window, has_prev)
+    window, plan = _window_geometry(s, window, has_prev, block_rows)
     if has_prev is None:
         band, col0 = band_mask(s, window, q.device), 0
     else:
         band, col0 = halo_band_mask(s, window, has_prev, q.device), -window
     ds, p_drop = _grad_weights(q, k, v, do, lse, delta, scale, dropout_rate, seed, band, col0)
     out = torch.zeros((2, bh, s, plan.scratch_cols), dtype=torch.float32, device=q.device)
-    for rows, keys, cols in _scratch_tiles(s, k.shape[1], window, has_prev):
+    for rows, keys, cols in _scratch_tiles(s, k.shape[1], window, has_prev, block_rows):
         out[0, :, rows, cols] = ds[:, rows, keys]
         out[1, :, rows, cols] = p_drop[:, rows, keys]
     return out
 
 
 def window_bwd_unpack(scratch: torch.Tensor, kv_len: int, window: int,
-                      has_prev=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                      has_prev=None, block_rows: int = WIN_BLOCK_Q) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dS, P_drop), (BH, S, kv_len) fp32, from a scratch of pass A."""
     _, bh, s, _ = scratch.shape
-    window, _ = _window_geometry(s, window, has_prev)
+    window, _ = _window_geometry(s, window, has_prev, block_rows)
     dense = torch.zeros((2, bh, s, kv_len), dtype=torch.float32, device=scratch.device)
-    for rows, keys, cols in _scratch_tiles(s, kv_len, window, has_prev):
+    for rows, keys, cols in _scratch_tiles(s, kv_len, window, has_prev, block_rows):
         dense[:, :, rows, keys] = scratch[:, :, rows, cols].float()
     return dense[0], dense[1]
 
 
 def window_bwd_dq_reference(scratch: torch.Tensor, k: torch.Tensor, window: int,
-                            has_prev=None) -> torch.Tensor:
+                            has_prev=None, block_rows: int = WIN_BLOCK_Q) -> torch.Tensor:
     """Plain version of pass B's dq: dS K from a scratch, in k's dtype."""
-    ds, _ = window_bwd_unpack(scratch, k.shape[1], window, has_prev)
+    ds, _ = window_bwd_unpack(scratch, k.shape[1], window, has_prev, block_rows)
     return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(k.dtype)
 
 
 def window_bwd_dkv_reference(scratch: torch.Tensor, q: torch.Tensor, do: torch.Tensor, window: int,
-                             has_prev=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                             has_prev=None, block_rows: int = WIN_BLOCK_Q) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of pass B's dk/dv: (dS^T Q, P_drop^T dO) from a scratch,
     in q's dtype, of S rows (the band) or S + w (the halo's k_ext)."""
     s = q.shape[1]
     kv_len = s + int(window) if has_prev is not None else s
-    ds, p_drop = window_bwd_unpack(scratch, kv_len, window, has_prev)
+    ds, p_drop = window_bwd_unpack(scratch, kv_len, window, has_prev, block_rows)
     dk = torch.einsum("bqk,bqd->bkd", ds, q.float())
     dv = torch.einsum("bqk,bqd->bkd", p_drop, do.float())
     return dk.to(q.dtype), dv.to(q.dtype)
 
 
-def _signature(pointers: int, ints: int, halo: bool = False, strides: int = 0) -> list:
+def _signature(pointers: int, ints: int, halo: bool = False, strides: int = 0, blocks: int = 1) -> list:
     """A C launcher's argument types: tensor pointers, then the ints (BH, S,
     Dh[, window][, span_cols, scratch_cols]; the flash kernels' B, H, S, Dh,
     their int64 (batch, head, row) strides of each tensor view, then
-    is_bf16), scale, rate, threshold, seed[, has_prev], stream."""
+    is_bf16), scale, rate, threshold, seed[, has_prev], the blocks
+    (block_q, block_k; or block_rows), stream."""
     p, i = ctypes.c_void_p, ctypes.c_int
     dims = [i] * ints if not strides else [i] * (ints - 1) + [ctypes.c_longlong] * strides + [i]
-    return [p] * pointers + dims + [ctypes.c_float, ctypes.c_float, ctypes.c_uint32, p] + [p] * halo + [p]
+    return [p] * pointers + dims + [ctypes.c_float, ctypes.c_float, ctypes.c_uint32, p] + [p] * halo + [i] * blocks + [p]
 
 
 def _pass_b_signature(pointers: int, halo: bool = False) -> list:
     """The window backward's pass-B launchers: the scratch and tensor
     pointers, BH, S, Dh, window, span_tiles, key_tiles, tile_base, is_bf16[,
-    has_prev], stream."""
+    has_prev], block_rows, stream."""
     p = ctypes.c_void_p
-    return [p] * pointers + [ctypes.c_int] * 8 + [p] * halo + [p]
+    return [p] * pointers + [ctypes.c_int] * 8 + [p] * halo + [ctypes.c_int, p]
 
 
 # Each library's C launchers and their argument types.
 _LAUNCHERS = {
-    "flash_fwd": {"tchvp_flash_fwd": _signature(5, 5, strides=12)},
-    "flash_bwd": {"tchvp_flash_bwd_dq": _signature(7, 5, strides=15),
-                  "tchvp_flash_bwd_dkv": _signature(8, 5, strides=18)},
+    "flash_fwd": {"tchvp_flash_fwd": _signature(5, 5, strides=12, blocks=2)},
+    "flash_bwd": {"tchvp_flash_bwd_dq": _signature(7, 5, strides=15, blocks=2),
+                  "tchvp_flash_bwd_dkv": _signature(8, 5, strides=18, blocks=2)},
     "band_attention": {"tchvp_band_fwd": _signature(6, 7), "tchvp_band_bwd_ds": _signature(7, 8),
                        "tchvp_band_bwd_dq": _pass_b_signature(3), "tchvp_band_bwd_dkv": _pass_b_signature(5)},
     "halo_attention": {"tchvp_halo_fwd": _signature(6, 7, halo=True),
@@ -505,13 +530,14 @@ _LAUNCHERS = {
                        "tchvp_halo_bwd_dq": _pass_b_signature(3, halo=True),
                        "tchvp_halo_bwd_dkv": _pass_b_signature(5, halo=True)},
 }
+# cudaErrorLaunchOutOfResources: a block past the card's shared memory or
+# registers at a shape (csrc/flash_common.cuh's allow_smem).
+_OUT_OF_RESOURCES = 701
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
     """Build (once) and bind ``csrc/<name>.cu``'s C launchers."""
-    from tchvp_tpu_torch.kernels import build
-
-    lib = build.load(name, [f"{name}.cu"])
+    lib = build.load(name, build.LIBRARIES[name])
     if lib.tchvp_cuda_error_string.restype is not ctypes.c_char_p:
         for fn, argtypes in _LAUNCHERS[name].items():
             getattr(lib, fn).argtypes = argtypes
@@ -548,9 +574,13 @@ def _seed_arg(seed: Seed, dropout_rate: float, device: torch.device) -> Tuple[in
     return seed.data_ptr(), seed
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+def _raise_on(lib: ctypes.CDLL, err: int, what: str, blocks=None) -> None:
+    """Raise on a launcher's error: ``ValueError`` naming ``blocks`` where
+    the card cannot run them at this shape, else ``RuntimeError``."""
     if err != 0:
         msg = lib.tchvp_cuda_error_string(err).decode()
+        if err == _OUT_OF_RESOURCES and blocks is not None:
+            raise ValueError(f"{what}: blocks {blocks} do not fit the card at this shape: {msg}")
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {err})")
 
 
@@ -589,12 +619,13 @@ def _cuda_stream(device: torch.device) -> int:
 
 def _flash_fwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-    dropout_rate: float, seed: Seed,
+    dropout_rate: float, seed: Seed, block_q: int = DEFAULT_BLOCK_Q, block_k: int = DEFAULT_BLOCK_K,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/flash_fwd.cu`` on the current stream. q, k, v: (BH, S,
     Dh), or (B, H, S, Dh) views of any strides with unit stride along Dh ->
     (out, lse (B * H, S) fp32); out is (BH, S, Dh) contiguous, or the (B, H,
-    S, Dh) view of a (B, S, H, Dh) buffer, whose heads merge without a copy."""
+    S, Dh) view of a (B, S, H, Dh) buffer, whose heads merge without a copy.
+    (block_q, block_k): one of :data:`FLASH_BLOCKS`."""
     global launches, _flash_fwd_bound
     _check_flash_inputs(q, k, v)
     if _flash_fwd_bound is None:
@@ -612,26 +643,28 @@ def _flash_fwd_cuda(
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, s, dh,
             *_strides4(q), *_strides4(k), *_strides4(v), *_strides4(out),
             int(q.dtype == torch.bfloat16), float(scale), float(dropout_rate),
-            _drop_threshold(dropout_rate), seed_ptr, _cuda_stream(q.device))
+            _drop_threshold(dropout_rate), seed_ptr, block_q, block_k, _cuda_stream(q.device))
     if q.device.index == torch.cuda.current_device():
         err = launch(*args)
     else:
         with torch.cuda.device(q.device):
             err = launch(*args)
-    _raise_on(lib, err, "flash_fwd")
+    _raise_on(lib, err, "flash_fwd", (block_q, block_k))
     launches += 1
+    key = ("flash_fwd", (block_q, block_k))
+    block_launches[key] = block_launches.get(key, 0) + 1
     return out, lse
 
 
 def _window_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, window: int,
-                dropout_rate: float, seed: Seed, has_prev) -> Tuple[torch.Tensor, torch.Tensor]:
+                dropout_rate: float, seed: Seed, has_prev, block_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/band_attention.cu``'s forward (``has_prev`` None) or
     ``csrc/halo_attention.cu``'s on the current stream, its scratch as
     :func:`window_plan` says. The inputs are checked by the caller."""
     bh, s, dh = q.shape
     halo = has_prev is not None
     window = int(window) if halo else min(int(window), s)
-    plan = window_plan(s, window, halo)
+    plan = window_plan(s, window, halo, block_rows)
     name = "halo_attention" if halo else "band_attention"
     lib = _kernel_lib(name)
     out = torch.empty_like(q)
@@ -644,22 +677,24 @@ def _window_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                      scratch.data_ptr(), bh, s, dh, window, plan.span_cols, plan.scratch_cols,
                      int(q.dtype == torch.bfloat16), float(scale), float(dropout_rate),
-                     _drop_threshold(dropout_rate), seed_ptr, *(t.data_ptr() for t in prev),
+                     _drop_threshold(dropout_rate), seed_ptr, *(t.data_ptr() for t in prev), block_rows,
                      torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, err, f"{name} forward")
+    _raise_on(lib, err, f"{name} forward", block_rows)
+    key = ("halo_fwd" if halo else "band_fwd", block_rows)
+    block_launches[key] = block_launches.get(key, 0) + 1
     return out, lse
 
 
 def band_fwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, window: int,
-    dropout_rate: float, seed: Seed,
+    dropout_rate: float, seed: Seed, block_rows: int = DEFAULT_BAND_ROWS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, lse) of the banded forward: the logits pass (grid: 64-row
-    query tile x 64-key tile of its span x batch-head), then the P.V pass
-    (64-row query tile x 128-column block x batch-head)."""
+    """(out, lse) of the banded forward: the logits pass (grid:
+    ``block_rows``-row query tile x 64-key tile of its span x batch-head),
+    then the P.V pass (query tile x 128-column block x batch-head)."""
     global band_fwd_launches
     _check_inputs(q, window, q=q, k=k, v=v)
-    result = _window_fwd(q, k, v, scale, window, dropout_rate, seed, None)
+    result = _window_fwd(q, k, v, scale, window, dropout_rate, seed, None, block_rows)
     band_fwd_launches += 1
     return result
 
@@ -685,23 +720,25 @@ def _op_seed(seed: int, seed_tensor: Optional[torch.Tensor]) -> Seed:
 # The dispatch markers stay in Python outside the ops, where they run when
 # a graph is traced, as in JAX.
 _LIB = torch.library.Library("tchvp", "FRAGMENT")
+# The blocks are arguments of the operators, so an exported graph keeps the
+# blocks it was traced with.
 _LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, float scale, float dropout_rate, int seed, "
-            "Tensor? seed_tensor) -> (Tensor, Tensor)")
+            "Tensor? seed_tensor, int block_q=64, int block_k=64) -> (Tensor, Tensor)")
 _LIB.define("band_fwd(Tensor q, Tensor k, Tensor v, float scale, int window, float dropout_rate, int seed, "
-            "Tensor? seed_tensor) -> (Tensor, Tensor)")
+            "Tensor? seed_tensor, int block_rows=64) -> (Tensor, Tensor)")
 
 
-def _flash_fwd_op_cpu(q, k, v, scale, dropout_rate, seed, seed_tensor):
+def _flash_fwd_op_cpu(q, k, v, scale, dropout_rate, seed, seed_tensor, block_q=64, block_k=64):
     flat = (t.reshape(-1, *t.shape[-2:]) for t in (q, k, v))
     out, lse = mha_reference(*flat, scale, dropout_rate, _op_seed(seed, seed_tensor))
     return out.reshape(q.shape), lse
 
 
-def _flash_fwd_op_cuda(q, k, v, scale, dropout_rate, seed, seed_tensor):
-    return _flash_fwd_cuda(q, k, v, scale, dropout_rate, _op_seed(seed, seed_tensor))
+def _flash_fwd_op_cuda(q, k, v, scale, dropout_rate, seed, seed_tensor, block_q=64, block_k=64):
+    return _flash_fwd_cuda(q, k, v, scale, dropout_rate, _op_seed(seed, seed_tensor), block_q, block_k)
 
 
-def _flash_fwd_op_fake(q, k, v, scale, dropout_rate, seed, seed_tensor):
+def _flash_fwd_op_fake(q, k, v, scale, dropout_rate, seed, seed_tensor, block_q=64, block_k=64):
     if q.dim() == 4 and q.device.type == "cuda":  # the (B, H, S, Dh) view of a (B, S, H, Dh) buffer
         b, h, s, dh = q.shape
         out = q.new_empty((b, s, h, dh)).transpose(1, 2)
@@ -710,15 +747,15 @@ def _flash_fwd_op_fake(q, k, v, scale, dropout_rate, seed, seed_tensor):
     return out, q.new_empty((math.prod(q.shape[:-2]), q.shape[-2]), dtype=torch.float32)
 
 
-def _band_fwd_op_cpu(q, k, v, scale, window, dropout_rate, seed, seed_tensor):
+def _band_fwd_op_cpu(q, k, v, scale, window, dropout_rate, seed, seed_tensor, block_rows=64):
     return windowed_mha_reference(q, k, v, scale, window, dropout_rate, _op_seed(seed, seed_tensor))
 
 
-def _band_fwd_op_cuda(q, k, v, scale, window, dropout_rate, seed, seed_tensor):
-    return band_fwd_cuda(q, k, v, scale, window, dropout_rate, _op_seed(seed, seed_tensor))
+def _band_fwd_op_cuda(q, k, v, scale, window, dropout_rate, seed, seed_tensor, block_rows=64):
+    return band_fwd_cuda(q, k, v, scale, window, dropout_rate, _op_seed(seed, seed_tensor), block_rows)
 
 
-def _band_fwd_op_fake(q, k, v, scale, window, dropout_rate, seed, seed_tensor):
+def _band_fwd_op_fake(q, k, v, scale, window, dropout_rate, seed, seed_tensor, block_rows=64):
     return q.new_empty(q.shape), q.new_empty(q.shape[:2], dtype=torch.float32)
 
 
@@ -733,22 +770,23 @@ _FLASH_FWD_OP, _BAND_FWD_OP = torch.ops.tchvp.flash_fwd.default, torch.ops.tchvp
 
 def _flash_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-    dropout_rate: float = 0.0, seed: Seed = 0,
+    dropout_rate: float = 0.0, seed: Seed = 0, blocks: Tuple[int, int] = (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q, k, v: (BH, S, Dh) or (B, H, S, Dh) -> (out of q's shape, lse (BH,
     S) fp32), through ``tchvp::flash_fwd``."""
     dispatch_trace.record("flash_mha_cuda" if q.is_cuda else "flash_mha_plain")
-    return _FLASH_FWD_OP(q, k, v, float(scale), float(dropout_rate), *_split_seed(seed))
+    return _FLASH_FWD_OP(q, k, v, float(scale), float(dropout_rate), *_split_seed(seed), *blocks)
 
 
 def _win_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, window: int,
-    dropout_rate: float = 0.0, seed: Seed = 0,
+    dropout_rate: float = 0.0, seed: Seed = 0, block_rows: int = DEFAULT_BAND_ROWS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Banded q, k, v: (BH, S, Dh) -> (out (BH, S, Dh), lse (BH, S) fp32),
     through ``tchvp::band_fwd``."""
     dispatch_trace.record("flash_windowed_cuda" if q.is_cuda else "flash_windowed_plain")
-    return _BAND_FWD_OP(q, k, v, float(scale), int(window), float(dropout_rate), *_split_seed(seed))
+    return _BAND_FWD_OP(q, k, v, float(scale), int(window), float(dropout_rate), *_split_seed(seed),
+                        int(block_rows))
 
 
 def _check_flash_bwd_inputs(q, k, v, do, lse, delta) -> None:
@@ -779,9 +817,10 @@ _flash_bwd_bound: dict = {}  # C launcher name -> (launcher, library), bound at 
 
 
 def _launch_flash_bwd(name: str, q, k, v, do, lse, delta, outs, scale: float,
-                      dropout_rate: float, seed: Seed) -> None:
+                      dropout_rate: float, seed: Seed, blocks: Tuple[int, int]) -> None:
     """Launch ``csrc/flash_bwd.cu``'s ``name`` into ``outs`` on the current
-    stream, every tensor through its (batch, head, row) strides."""
+    stream, every tensor through its (batch, head, row) strides, with the
+    forward's ``blocks``."""
     _check_flash_bwd_inputs(q, k, v, do, lse, delta)
     if name not in _flash_bwd_bound:
         lib = _kernel_lib("flash_bwd")
@@ -793,36 +832,39 @@ def _launch_flash_bwd(name: str, q, k, v, do, lse, delta, outs, scale: float,
     tensors = (q, k, v, do) + tuple(outs)
     args = (*(t.data_ptr() for t in (q, k, v, do, lse, delta) + tuple(outs)), b, h, s, dh,
             *(st for t in tensors for st in _strides4(t)), int(q.dtype == torch.bfloat16), float(scale),
-            float(dropout_rate), _drop_threshold(dropout_rate), seed_ptr, _cuda_stream(q.device))
+            float(dropout_rate), _drop_threshold(dropout_rate), seed_ptr, *blocks, _cuda_stream(q.device))
     if q.device.index == torch.cuda.current_device():
         err = launch(*args)
     else:
         with torch.cuda.device(q.device):
             err = launch(*args)
-    _raise_on(lib, err, name)
+    _raise_on(lib, err, name, blocks)
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, scale: float, dropout_rate: float,
-                      seed: Seed) -> torch.Tensor:
-    """dq of the dq kernel (grid: 64-row query tile x head-dim column block
-    x batch-head, each block walking every key tile). q, k, v, do: (BH, S,
-    Dh), or (B, H, S, Dh) views with unit stride along Dh, read as they are;
-    dq: :func:`grad_buffer` of q."""
+                      seed: Seed, blocks: Tuple[int, int] = (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)) -> torch.Tensor:
+    """dq of the dq kernel (grid: block_q-row query tile x head-dim column
+    block x batch-head, each block walking every block_k-key tile). q, k, v,
+    do: (BH, S, Dh), or (B, H, S, Dh) views with unit stride along Dh, read
+    as they are; dq: :func:`grad_buffer` of q."""
     global dq_launches
     dq = grad_buffer(q)
-    _launch_flash_bwd("tchvp_flash_bwd_dq", q, k, v, do, lse, delta, (dq,), scale, dropout_rate, seed)
+    _launch_flash_bwd("tchvp_flash_bwd_dq", q, k, v, do, lse, delta, (dq,), scale, dropout_rate, seed, blocks)
     dq_launches += 1
     return dq
 
 
-def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, dropout_rate: float,
-                       seed: Seed) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) of the dk/dv kernel (grid: 64-key tile x head-dim column
-    block x batch-head, each block walking every query tile); inputs as in
-    :func:`flash_bwd_dq_cuda`, dk and dv :func:`grad_buffer` of k and v."""
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, scale: float, dropout_rate: float, seed: Seed,
+                       blocks: Tuple[int, int] = (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of the dk/dv kernel (grid: block_k-key tile x head-dim
+    column block x batch-head, each block walking every block_q-row query
+    tile); inputs as in :func:`flash_bwd_dq_cuda`, dk and dv
+    :func:`grad_buffer` of k and v."""
     global dkv_launches
     dk, dv = grad_buffer(k), grad_buffer(v)
-    _launch_flash_bwd("tchvp_flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale, dropout_rate, seed)
+    _launch_flash_bwd("tchvp_flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), scale, dropout_rate, seed,
+                      blocks)
     dkv_launches += 1
     return dk, dv
 
@@ -848,39 +890,40 @@ def _check_scratch(scratch: torch.Tensor, like: torch.Tensor, bh: int, s: int, p
 
 
 def _launch_window_bwd(fn: str, q_like: torch.Tensor, pointers: tuple, ints: tuple, extra: tuple,
-                       has_prev) -> None:
+                       has_prev, block_rows: int) -> None:
     """Launch ``fn`` of ``csrc/band_attention.cu`` (``has_prev`` None) or
     ``csrc/halo_attention.cu`` on the current stream: the pointers, the ints,
     then ``extra`` (pass A's scale, rate, threshold, seed)[, has_prev],
-    stream."""
+    block_rows, stream."""
     name = "band_attention" if has_prev is None else "halo_attention"
     lib = _kernel_lib(name)
     prev = () if has_prev is None else (_has_prev_arg(has_prev, q_like.device),)
     with torch.cuda.device(q_like.device):
-        err = getattr(lib, fn)(*pointers, *ints, *extra, *(t.data_ptr() for t in prev),
+        err = getattr(lib, fn)(*pointers, *ints, *extra, *(t.data_ptr() for t in prev), block_rows,
                                _cuda_stream(q_like.device))
-    _raise_on(lib, err, fn)
+    _raise_on(lib, err, fn, block_rows)
 
 
 def _window_ds(q, k, v, do, lse, delta, scale: float, window: int, dropout_rate: float, seed: Seed,
-               has_prev) -> torch.Tensor:
+               has_prev, block_rows: int) -> torch.Tensor:
     """Pass A of the banded or halo backward into a new scratch; inputs
     checked by the caller."""
     bh, s, dh = q.shape
-    window, plan = _window_geometry(s, window, has_prev)
+    window, plan = _window_geometry(s, window, has_prev, block_rows)
     scratch = torch.empty((2, bh, s, plan.scratch_cols), dtype=q.dtype, device=q.device)
     seed_ptr, _keep_seed = _seed_arg(seed, dropout_rate, q.device)
     fn = "tchvp_band_bwd_ds" if has_prev is None else "tchvp_halo_bwd_ds"
     _launch_window_bwd(fn, q, tuple(t.data_ptr() for t in (q, k, v, do, lse, delta, scratch)),
                        (bh, s, dh, window, *plan, int(q.dtype == torch.bfloat16)),
-                       (float(scale), float(dropout_rate), _drop_threshold(dropout_rate), seed_ptr), has_prev)
+                       (float(scale), float(dropout_rate), _drop_threshold(dropout_rate), seed_ptr), has_prev,
+                       block_rows)
     return scratch
 
 
-def _window_dq(scratch: torch.Tensor, k: torch.Tensor, window: int, has_prev) -> torch.Tensor:
+def _window_dq(scratch: torch.Tensor, k: torch.Tensor, window: int, has_prev, block_rows: int) -> torch.Tensor:
     """Pass B's dq from ``scratch``; k (BH, S or S + w, Dh)."""
     _, bh, s, _ = scratch.shape
-    window, plan = _window_geometry(s, window, has_prev)
+    window, plan = _window_geometry(s, window, has_prev, block_rows)
     dh = k.shape[-1]
     _check_inputs(k, window, k=k)
     if k.shape != (bh, s + (window if has_prev is not None else 0), dh):
@@ -890,15 +933,15 @@ def _window_dq(scratch: torch.Tensor, k: torch.Tensor, window: int, has_prev) ->
     dq = k.new_empty((bh, s, dh))
     fn = "tchvp_band_bwd_dq" if has_prev is None else "tchvp_halo_bwd_dq"
     _launch_window_bwd(fn, k, (scratch.data_ptr(), k.data_ptr(), dq.data_ptr()),
-                       (bh, s, dh, window, *plan, int(k.dtype == torch.bfloat16)), (), has_prev)
+                       (bh, s, dh, window, *plan, int(k.dtype == torch.bfloat16)), (), has_prev, block_rows)
     return dq
 
 
 def _window_dkv(scratch: torch.Tensor, q: torch.Tensor, do: torch.Tensor, window: int,
-                has_prev) -> Tuple[torch.Tensor, torch.Tensor]:
+                has_prev, block_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass B's dk and dv from ``scratch``; q, do (BH, S, Dh)."""
     _, bh, s, _ = scratch.shape
-    window, plan = _window_geometry(s, window, has_prev)
+    window, plan = _window_geometry(s, window, has_prev, block_rows)
     _check_inputs(q, window, q=q, do=do)
     dh = q.shape[-1]
     if q.shape != (bh, s, dh):
@@ -909,41 +952,42 @@ def _window_dkv(scratch: torch.Tensor, q: torch.Tensor, do: torch.Tensor, window
     dk, dv = q.new_empty((bh, kv_len, dh)), q.new_empty((bh, kv_len, dh))
     fn = "tchvp_band_bwd_dkv" if has_prev is None else "tchvp_halo_bwd_dkv"
     _launch_window_bwd(fn, q, tuple(t.data_ptr() for t in (scratch, q, do, dk, dv)),
-                       (bh, s, dh, window, *plan, int(q.dtype == torch.bfloat16)), (), has_prev)
+                       (bh, s, dh, window, *plan, int(q.dtype == torch.bfloat16)), (), has_prev, block_rows)
     return dk, dv
 
 
 def band_bwd_ds_cuda(q, k, v, do, lse, delta, scale: float, window: int, dropout_rate: float,
-                     seed: Seed) -> torch.Tensor:
-    """Pass A of the banded backward (grid: 64-row query tile x key tile of
-    its span x batch-head): dS and P_drop into a (2, BH, S, cols) scratch of
-    q's dtype (:func:`window_bwd_plan`)."""
+                     seed: Seed, block_rows: int = DEFAULT_BAND_ROWS) -> torch.Tensor:
+    """Pass A of the banded backward (grid: ``block_rows``-row query tile x
+    key tile of its span x batch-head): dS and P_drop into a (2, BH, S,
+    cols) scratch of q's dtype (:func:`window_bwd_plan`)."""
     global band_ds_launches
     _check_inputs(q, window, q=q, k=k, v=v, do=do)
     _check_stats(q, lse, delta)
     _check_cuda(q, "the banded backward")
-    scratch = _window_ds(q, k, v, do, lse, delta, scale, window, dropout_rate, seed, None)
+    scratch = _window_ds(q, k, v, do, lse, delta, scale, window, dropout_rate, seed, None, block_rows)
     band_ds_launches += 1
     return scratch
 
 
-def band_bwd_dq_cuda(scratch: torch.Tensor, k: torch.Tensor, window: int) -> torch.Tensor:
-    """dq of the banded backward's pass B from pass A's scratch (grid: 64-row
+def band_bwd_dq_cuda(scratch: torch.Tensor, k: torch.Tensor, window: int,
+                     block_rows: int = DEFAULT_BAND_ROWS) -> torch.Tensor:
+    """dq of the banded backward's pass B from pass A's scratch (grid:
     query tile x head-dim column block x batch-head, each block walking its
     span's key tiles)."""
     global band_dq_launches
-    dq = _window_dq(scratch, k, window, None)
+    dq = _window_dq(scratch, k, window, None, block_rows)
     band_dq_launches += 1
     return dq
 
 
 def band_bwd_dkv_cuda(scratch: torch.Tensor, q: torch.Tensor, do: torch.Tensor,
-                      window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      window: int, block_rows: int = DEFAULT_BAND_ROWS) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) of the banded backward's pass B (grid: 64-key tile x column
-    block x batch-head, each block walking the query tiles of its window and
-    the next)."""
+    block x batch-head, each block walking the query rows of its window and
+    the next in 64-row steps)."""
     global band_dkv_launches
-    result = _window_dkv(scratch, q, do, window, None)
+    result = _window_dkv(scratch, q, do, window, None, block_rows)
     band_dkv_launches += 1
     return result
 
@@ -971,46 +1015,48 @@ def _has_prev_arg(has_prev, device: torch.device) -> torch.Tensor:
 
 def halo_fwd_cuda(
     q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Tensor, scale: float, window: int,
-    has_prev, dropout_rate: float, seed: Seed,
+    has_prev, dropout_rate: float, seed: Seed, block_rows: int = DEFAULT_BAND_ROWS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse) of the halo forward: the two passes of
-    :func:`band_fwd_cuda` over each 64-row query tile's k_ext span."""
+    :func:`band_fwd_cuda` over each query tile's k_ext span."""
     global halo_fwd_launches
     _check_halo(q, k_ext, v_ext, window)
-    result = _window_fwd(q, k_ext, v_ext, scale, window, dropout_rate, seed, has_prev)
+    result = _window_fwd(q, k_ext, v_ext, scale, window, dropout_rate, seed, has_prev, block_rows)
     halo_fwd_launches += 1
     return result
 
 
 def halo_bwd_ds_cuda(q, k_ext, v_ext, do, lse, delta, scale: float, window: int, has_prev,
-                     dropout_rate: float, seed: Seed) -> torch.Tensor:
+                     dropout_rate: float, seed: Seed, block_rows: int = DEFAULT_BAND_ROWS) -> torch.Tensor:
     """Pass A of the halo backward: :func:`band_bwd_ds_cuda` over each
-    64-row query tile's k_ext span."""
+    query tile's k_ext span."""
     global halo_ds_launches
     _check_halo(q, k_ext, v_ext, window, do=do)
     _check_stats(q, lse, delta)
     _check_cuda(q, "the halo backward")
-    scratch = _window_ds(q, k_ext, v_ext, do, lse, delta, scale, window, dropout_rate, seed, has_prev)
+    scratch = _window_ds(q, k_ext, v_ext, do, lse, delta, scale, window, dropout_rate, seed, has_prev,
+                         block_rows)
     halo_ds_launches += 1
     return scratch
 
 
-def halo_bwd_dq_cuda(scratch: torch.Tensor, k_ext: torch.Tensor, window: int, has_prev) -> torch.Tensor:
+def halo_bwd_dq_cuda(scratch: torch.Tensor, k_ext: torch.Tensor, window: int, has_prev,
+                     block_rows: int = DEFAULT_BAND_ROWS) -> torch.Tensor:
     """dq of the halo backward's pass B (each query tile walks its k_ext
     span's key tiles)."""
     global halo_dq_launches
-    dq = _window_dq(scratch, k_ext, window, has_prev)
+    dq = _window_dq(scratch, k_ext, window, has_prev, block_rows)
     halo_dq_launches += 1
     return dq
 
 
 def halo_bwd_dkv_cuda(scratch: torch.Tensor, q: torch.Tensor, do: torch.Tensor, window: int,
-                      has_prev) -> Tuple[torch.Tensor, torch.Tensor]:
+                      has_prev, block_rows: int = DEFAULT_BAND_ROWS) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk_ext, dv_ext) of the halo backward's pass B, S + w rows (each
     64-key tile of k_ext walks the local rows of its window and the one
     before; zeros for the masked halo window)."""
     global halo_dkv_launches
-    result = _window_dkv(scratch, q, do, window, has_prev)
+    result = _window_dkv(scratch, q, do, window, has_prev, block_rows)
     halo_dkv_launches += 1
     return result
 
@@ -1018,22 +1064,23 @@ def halo_bwd_dkv_cuda(scratch: torch.Tensor, q: torch.Tensor, do: torch.Tensor, 
 def _flash_bwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float, dropout_rate: float, seed: Seed,
+    blocks: Tuple[int, int] = (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K),
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The dq kernel, then the dk/dv kernel, on the current stream."""
-    args = (q, k, v, do, lse, delta, scale, dropout_rate, seed)
+    args = (q, k, v, do, lse, delta, scale, dropout_rate, seed, blocks)
     return (flash_bwd_dq_cuda(*args),) + flash_bwd_dkv_cuda(*args)
 
 
 def _flash_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float,
-    dropout_rate: float = 0.0, seed: Seed = 0,
+    dropout_rate: float = 0.0, seed: Seed = 0, blocks: Tuple[int, int] = (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K),
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(BH, S, Dh) q, k, v, do or (B, H, S, Dh) views, and (B * H, S) fp32
     lse, delta -> (dq, dk, dv) in q's shape."""
     if q.is_cuda:
         dispatch_trace.record("flash_mha_bwd_cuda")
-        return _flash_bwd_cuda(q, k, v, do, lse, delta, scale, dropout_rate, seed)
+        return _flash_bwd_cuda(q, k, v, do, lse, delta, scale, dropout_rate, seed, blocks)
     dispatch_trace.record("flash_mha_bwd_plain")
     return mha_bwd_reference(q, k, v, do, lse, delta, scale, dropout_rate, seed)
 
@@ -1041,26 +1088,27 @@ def _flash_bwd(
 def _win_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float, window: int,
-    dropout_rate: float = 0.0, seed: Seed = 0,
+    dropout_rate: float = 0.0, seed: Seed = 0, block_rows: int = DEFAULT_BAND_ROWS,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The banded backward: (dq, dk, dv), the dq kernel first."""
     args = (q, k, v, do, lse, delta, scale, window, dropout_rate, seed)
     if q.is_cuda:
         dispatch_trace.record("flash_windowed_bwd_cuda")
-        scratch = band_bwd_ds_cuda(*args)
-        return (band_bwd_dq_cuda(scratch, k, window),) + band_bwd_dkv_cuda(scratch, q, do, window)
+        scratch = band_bwd_ds_cuda(*args, block_rows)
+        return ((band_bwd_dq_cuda(scratch, k, window, block_rows),)
+                + band_bwd_dkv_cuda(scratch, q, do, window, block_rows))
     dispatch_trace.record("flash_windowed_bwd_plain")
     return (windowed_mha_bwd_dq_reference(*args),) + windowed_mha_bwd_dkv_reference(*args)
 
 
 def _halo_fwd(
     q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Tensor, scale: float, window: int,
-    has_prev, dropout_rate: float = 0.0, seed: Seed = 0,
+    has_prev, dropout_rate: float = 0.0, seed: Seed = 0, block_rows: int = DEFAULT_BAND_ROWS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (BH, S, Dh), k_ext, v_ext (BH, S + w, Dh) -> (out, lse)."""
     if q.is_cuda:
         dispatch_trace.record("flash_halo_cuda")
-        return halo_fwd_cuda(q, k_ext, v_ext, scale, window, has_prev, dropout_rate, seed)
+        return halo_fwd_cuda(q, k_ext, v_ext, scale, window, has_prev, dropout_rate, seed, block_rows)
     dispatch_trace.record("flash_halo_plain")
     return windowed_mha_halo_reference(q, k_ext, v_ext, scale, window, has_prev, dropout_rate, seed)
 
@@ -1068,15 +1116,15 @@ def _halo_fwd(
 def _halo_bwd(
     q: torch.Tensor, k_ext: torch.Tensor, v_ext: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float, window: int, has_prev,
-    dropout_rate: float = 0.0, seed: Seed = 0,
+    dropout_rate: float = 0.0, seed: Seed = 0, block_rows: int = DEFAULT_BAND_ROWS,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The halo backward: (dq, dk_ext, dv_ext), the dq kernel first."""
     args = (q, k_ext, v_ext, do, lse, delta, scale, window, has_prev, dropout_rate, seed)
     if q.is_cuda:
         dispatch_trace.record("flash_halo_bwd_cuda")
-        scratch = halo_bwd_ds_cuda(*args)
-        return ((halo_bwd_dq_cuda(scratch, k_ext, window, has_prev),)
-                + halo_bwd_dkv_cuda(scratch, q, do, window, has_prev))
+        scratch = halo_bwd_ds_cuda(*args, block_rows)
+        return ((halo_bwd_dq_cuda(scratch, k_ext, window, has_prev, block_rows),)
+                + halo_bwd_dkv_cuda(scratch, q, do, window, has_prev, block_rows))
     dispatch_trace.record("flash_halo_bwd_plain")
     return (windowed_mha_halo_bwd_dq_reference(*args),) + windowed_mha_halo_bwd_dkv_reference(*args)
 
@@ -1104,18 +1152,20 @@ def _residuals(ctx, do: torch.Tensor, views: bool = False):
 
 class _FlashAttention(torch.autograd.Function):
     """The custom VJP of ``_flash_attention``: the forward saves q, k, v,
-    out, lse and the seed; the backward recomputes P in the kernels."""
+    out, lse, the seed and its blocks; the backward recomputes P in the
+    kernels, with the forward's blocks."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, dropout_rate, seed):
-        out, lse = _flash_fwd(q, k, v, scale, dropout_rate, seed)
+    def forward(ctx, q, k, v, scale, dropout_rate, seed, blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
+        out, lse = _flash_fwd(q, k, v, scale, dropout_rate, seed, blocks)
         _save_residuals(ctx, q, k, v, out, lse, scale, dropout_rate, seed)
+        ctx.blocks = blocks
         return out
 
     @staticmethod
     def backward(ctx, do):
         tensors, seed = _residuals(ctx, do, views=True)
-        return _flash_bwd(*tensors, ctx.scale, ctx.dropout_rate, seed) + (None, None, None)
+        return _flash_bwd(*tensors, ctx.scale, ctx.dropout_rate, seed, ctx.blocks) + (None,) * 4
 
 
 class _WindowedAttention(torch.autograd.Function):
@@ -1123,17 +1173,17 @@ class _WindowedAttention(torch.autograd.Function):
     over the band of ``window``-token windows."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, window, dropout_rate, seed):
-        out, lse = _win_fwd(q, k, v, scale, window, dropout_rate, seed)
+    def forward(ctx, q, k, v, scale, window, dropout_rate, seed, block_rows):
+        out, lse = _win_fwd(q, k, v, scale, window, dropout_rate, seed, block_rows)
         _save_residuals(ctx, q, k, v, out, lse, scale, dropout_rate, seed)
-        ctx.window = window
+        ctx.window, ctx.block_rows = window, block_rows
         return out
 
     @staticmethod
     def backward(ctx, do):
         tensors, seed = _residuals(ctx, do)
-        dq, dk, dv = _win_bwd(*tensors, ctx.scale, ctx.window, ctx.dropout_rate, seed)
-        return dq, dk, dv, None, None, None, None
+        dq, dk, dv = _win_bwd(*tensors, ctx.scale, ctx.window, ctx.dropout_rate, seed, ctx.block_rows)
+        return dq, dk, dv, None, None, None, None, None
 
 
 class _HaloAttention(torch.autograd.Function):
@@ -1143,18 +1193,18 @@ class _HaloAttention(torch.autograd.Function):
     included, and none for ``has_prev``."""
 
     @staticmethod
-    def forward(ctx, q, k_ext, v_ext, has_prev, scale, window, dropout_rate, seed):
-        out, lse = _halo_fwd(q, k_ext, v_ext, scale, window, has_prev, dropout_rate, seed)
+    def forward(ctx, q, k_ext, v_ext, has_prev, scale, window, dropout_rate, seed, block_rows):
+        out, lse = _halo_fwd(q, k_ext, v_ext, scale, window, has_prev, dropout_rate, seed, block_rows)
         _save_residuals(ctx, q, k_ext, v_ext, out, lse, scale, dropout_rate, seed)
-        ctx.window, ctx.has_prev = window, has_prev
+        ctx.window, ctx.has_prev, ctx.block_rows = window, has_prev, block_rows
         return out
 
     @staticmethod
     def backward(ctx, do):
         (q, k_ext, v_ext, do, lse, delta), seed = _residuals(ctx, do)
         grads = _halo_bwd(q, k_ext, v_ext, do, lse, delta, ctx.scale, ctx.window, ctx.has_prev,
-                          ctx.dropout_rate, seed)
-        return grads + (None,) * 5
+                          ctx.dropout_rate, seed, ctx.block_rows)
+        return grads + (None,) * 6
 
 
 def _scale_seed(head_dim: int, scale: Optional[float], dropout_rate: float,
@@ -1184,6 +1234,8 @@ def mha(
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     dropout_seed: Seed = None,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """Flash attention over (B, H, S, Dh), no mask, differentiable.
 
@@ -1202,14 +1254,19 @@ def mha(
     Self-attention over one token count: k and v of another shape than q
     (a strided k/v projection) raise on either device, as JAX's ``mha``
     fails reshaping k to q's S.
+
+    ``block_q``/``block_k``: the kernels' query rows per block and keys per
+    tile, one of :data:`FLASH_BLOCKS`; where not given, the tuned cache's
+    for this shape, then 64 (:func:`.autotune.flash_blocks`).
     """
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"mha takes q, k, v of one shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     scale, seed = _scale_seed(q.shape[-1], scale, dropout_rate, dropout_seed)
+    blocks = autotune.flash_blocks(q.shape, q.dtype, block_q, block_k, q.device)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, scale, float(dropout_rate), seed)
-    return _flash_fwd(q, k, v, scale, float(dropout_rate), seed)[0]
+        return _FlashAttention.apply(q, k, v, scale, float(dropout_rate), seed, blocks)
+    return _flash_fwd(q, k, v, scale, float(dropout_rate), seed, blocks)[0]
 
 
 def windowed_mha(
@@ -1221,16 +1278,20 @@ def windowed_mha(
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     dropout_seed: Seed = None,
+    block_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Banded flash attention over (B, H, S, Dh), differentiable: each query
     window of ``window_size`` tokens attends to its own and the previous
     window (the kernel counterpart of ``ops.attention.sdpa_windowed``, with
     O(S * window) work). Any S: the last window may be partial. Dropout as
-    in :func:`mha`, with the same global-index mask."""
+    in :func:`mha`, with the same global-index mask. ``block_rows``: the
+    kernels' query rows per tile, one of :data:`WIN_BLOCKS`; where not
+    given, the tuned cache's, then 64 (:func:`.autotune.band_rows`)."""
     if window_size < 1:
         raise ValueError(f"windowed_mha needs window_size >= 1, got {window_size}")
+    rows = autotune.band_rows("band", q.shape, int(window_size), q.dtype, block_rows, q.device)
     (qf, kf, vf), scale, seed = _flat_inputs(q, k, v, scale, dropout_rate, dropout_seed)
-    out = _WindowedAttention.apply(qf, kf, vf, scale, int(window_size), float(dropout_rate), seed)
+    out = _WindowedAttention.apply(qf, kf, vf, scale, int(window_size), float(dropout_rate), seed, rows)
     return out.reshape(q.shape)
 
 
@@ -1244,6 +1305,7 @@ def windowed_mha_halo(
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     dropout_seed: Seed = None,
+    block_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Banded flash attention with an explicit left-context window,
     differentiable: one shard of sequence-parallel windowed attention.
@@ -1257,6 +1319,7 @@ def windowed_mha_halo(
     the local sequence. Gradients of k_ext and v_ext cover all S + w rows.
     Dropout as in :func:`windowed_mha`, the mask hashed at the shard-local
     (row, k_ext column - w). S must be a multiple of ``window_size``.
+    ``block_rows`` as in :func:`windowed_mha` (the cache's "halo" entries).
     """
     b, h, s, dh = q.shape
     w = int(window_size)
@@ -1264,9 +1327,10 @@ def windowed_mha_halo(
         raise ValueError(f"windowed_mha_halo needs window_size >= 1, got {window_size}")
     if s % w:
         raise ValueError(f"halo kernel needs S % window == 0; {s} % {w}")
+    rows = autotune.band_rows("halo", q.shape, w, q.dtype, block_rows, q.device)
     scale, seed = _scale_seed(dh, scale, dropout_rate, dropout_seed)
     qf = q.reshape(b * h, s, dh).contiguous()
     kf, vf = (t.reshape(b * h, s + w, dh).contiguous() for t in (k_ext, v_ext))
     prev = _has_prev_arg(has_prev, q.device)
-    out = _HaloAttention.apply(qf, kf, vf, prev, scale, w, float(dropout_rate), seed)
+    out = _HaloAttention.apply(qf, kf, vf, prev, scale, w, float(dropout_rate), seed, rows)
     return out.reshape(q.shape)

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from tchvp_tpu_torch.ops.basic import max_pool_2x2, upsample2x_nearest
 from tchvp_tpu_torch.parallel.collectives import all_reduce_sum
-from tchvp_tpu_torch.parallel.mesh import axis_group, mesh_with_axis
+from tchvp_tpu_torch.parallel.mesh import DATA_AXIS, group_over
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -59,6 +59,13 @@ class BatchNorm(nn.BatchNorm2d):
     numerics of the single-process path). The all-reduces are
     differentiable, so the backward reduces too, and the running stats end
     with the same bits on every rank. Eval mode is untouched.
+
+    The ``data`` axis: while an ambient mesh carries it with size > 1, the
+    batch is this rank's block of the global batch, and the statistics are
+    taken over the axis the same way; on a ``data`` x ``seq`` mesh over
+    both axes at once. That is every model's BatchNorm
+    (the flagship's encoder and decoder, UNet, the autoencoders) under a
+    data mesh, as GSPMD's global batch gives JAX's step.
     """
 
     def __init__(self, num_features: int):
@@ -69,9 +76,9 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        mesh = mesh_with_axis(self.seq_axis)
-        if mesh is not None:
-            out, mean, var = self._synced(x, axis_group(mesh, self.seq_axis))
+        group = group_over((DATA_AXIS, self.seq_axis))
+        if group is not None:
+            out, mean, var = self._synced(x, group)
         else:
             # One pass: the normalisation also returns the batch mean and
             # 1/sqrt(biased var + eps), from which the running stats move.

@@ -18,6 +18,15 @@ pool of such FFNs behind a router:
   columns, runs their FFNs, and one all-reduce sums the disjoint parts.
   :func:`shard_experts` makes each rank hold only its experts' parameters
   (and so their optimizer state).
+* **Data parallelism** (``data_axis``, JAX's ``ops/moe.py:206-250``): under
+  a mesh carrying ``data`` (not the expert axis) each rank holds its block
+  of the batch, dense or expert-parallel; routing and capacity are per
+  batch row, so they are exact on the block, and the aux loss's per-expert
+  fractions and router probabilities and the dropped fraction are averaged
+  over the data group before the product (JAX's ``aux_mean_axis``), so
+  they are the global batch's on every rank. JAX also ignores a data axis
+  that does not divide the batch; here the batch is already cut, so the
+  axis always holds.
 
 JAX sows the load-balance loss and the dropped fraction; the port has no
 ``sow``. :meth:`MoEFFN.forward` takes a ``sink`` list and appends one
@@ -37,12 +46,13 @@ import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from tchvp_tpu_torch.ops import dispatch_trace
-from tchvp_tpu_torch.parallel.collectives import all_reduce_sum_replicated, replicated_to_varying
-from tchvp_tpu_torch.parallel.mesh import axis_group, axis_shards, axis_size, mesh_with_axis
+from tchvp_tpu_torch.parallel.collectives import all_reduce_sum, all_reduce_sum_replicated, replicated_to_varying
+from tchvp_tpu_torch.parallel.mesh import DATA_AXIS, axis_group, axis_shards, axis_size, mesh_with_axis
 
 # Flax's truncated-normal correction: the std of a unit normal cut at 2 sigma.
 _TRUNC_STD = 0.87962566103423978
@@ -66,8 +76,8 @@ def expert_capacity(tokens_per_group: int, num_experts: int, capacity_factor: fl
     return max(8, -(-c // 8) * 8)
 
 
-def _route(tokens: torch.Tensor, router: torch.Tensor, capacity: int, top_k: int = 1
-           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+def _route(tokens: torch.Tensor, router: torch.Tensor, capacity: int, top_k: int = 1,
+           mean_group=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Top-k ``(dispatch, combine, aux, dropped)``, all fp32.
 
     tokens (B, S, d), router (d, E). dispatch (B, S, E, C) in {0, 1};
@@ -75,7 +85,9 @@ def _route(tokens: torch.Tensor, router: torch.Tensor, capacity: int, top_k: int
     choices; dropped = the fraction of (token, choice) assignments past the
     capacity. With k > 1 the gates renormalise over the chosen k, and
     choice j queues behind every assignment of choices < j to the same
-    expert in the same batch row."""
+    expert in the same batch row. ``mean_group``: the data group whose mean
+    the per-expert means and the dropped fraction take before the product
+    (JAX's ``aux_mean_axis``)."""
     with torch.autocast(tokens.device.type, enabled=False):
         logits = torch.einsum("bsd,de->bse", tokens.float(), router.float())
         e = logits.shape[-1]
@@ -108,6 +120,10 @@ def _route(tokens: torch.Tensor, router: torch.Tensor, capacity: int, top_k: int
         frac = onehot_first.mean(dim=(0, 1))
         prob = probs.mean(dim=(0, 1))
         dropped = 1.0 - kept_total / (b * s * k)
+        if mean_group is not None:
+            n = dist.get_world_size(mean_group)
+            frac, prob = all_reduce_sum(frac, mean_group) / n, all_reduce_sum(prob, mean_group) / n
+            dropped = all_reduce_sum(dropped.detach(), mean_group) / n
         aux = e * (frac * prob).sum()
     return dispatch, combine, aux, dropped
 
@@ -150,10 +166,12 @@ class MoEFFN(nn.Module):
     a mesh carrying it the tokens are this rank's block of the sequence;
     routing and capacity are per batch row over the whole sequence, as
     JAX's global arrays have it, so the layer gathers the block's sequence,
-    routes it, and keeps this rank's rows."""
+    routes it, and keeps this rank's rows. ``data_axis`` (module
+    docstring): ignored when it is ``ep_axis`` or absent from the mesh."""
 
     def __init__(self, dim: int, num_experts: int, hidden_dim: int, capacity_factor: float = 1.25,
-                 top_k: int = 1, ep_axis: Optional[str] = None, seq_axis: Optional[str] = None):
+                 top_k: int = 1, ep_axis: Optional[str] = None, seq_axis: Optional[str] = None,
+                 data_axis: Optional[str] = DATA_AXIS):
         super().__init__()
         if num_experts < 2:
             raise ValueError(f"MoEFFN needs >= 2 experts, got {num_experts}")
@@ -165,6 +183,7 @@ class MoEFFN(nn.Module):
         self.top_k = top_k
         self.ep_axis = ep_axis
         self.seq_axis = seq_axis
+        self.data_axis = data_axis
         e, h = num_experts, hidden_dim
         self.router = nn.Parameter(torch.empty(dim, e))
         self.w1 = nn.Parameter(torch.empty(e, dim, h))
@@ -206,12 +225,14 @@ class MoEFFN(nn.Module):
         dt = _compute_dtype(x)
         cap = expert_capacity(x.shape[1], self.num_experts, self.capacity_factor, self.top_k)
         ep = self._ep()
+        data = mesh_with_axis(self.data_axis) if self.data_axis != self.ep_axis else None
+        mean_group = axis_group(data, self.data_axis) if data is not None else None
         if ep is None:
             dispatch_trace.record("moe_dense")
-            dispatch, combine, aux, dropped = _route(x, self.router, cap, self.top_k)
+            dispatch, combine, aux, dropped = _route(x, self.router, cap, self.top_k, mean_group)
             out = _expert_ffn(dispatch, combine, x, self.w1, self.b1, self.w2, self.b2, dt)
         else:
-            out, aux, dropped = _moe_ep(self, x, cap, dt, *ep)
+            out, aux, dropped = _moe_ep(self, x, cap, dt, *ep, mean_group)
         if sink is not None:
             sink.append(MoEStats(aux, dropped))
         if seq_mesh is not None:
@@ -219,8 +240,8 @@ class MoEFFN(nn.Module):
         return out.to(dt)
 
 
-def _moe_ep(layer: MoEFFN, x: torch.Tensor, capacity: int, dtype: torch.dtype, n: int, idx: int
-            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _moe_ep(layer: MoEFFN, x: torch.Tensor, capacity: int, dtype: torch.dtype, n: int, idx: int,
+            mean_group=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE on this rank (JAX's ``_moe_ep_shard_map``): full
     routing, this rank's E/n experts, one all-reduce of the disjoint parts.
 
@@ -232,12 +253,14 @@ def _moe_ep(layer: MoEFFN, x: torch.Tensor, capacity: int, dtype: torch.dtype, n
     rank's own experts, and the output's all-reduce passes its (replicated)
     cotangent through unchanged. So x and the router get their gradient
     once, and the aux loss, computed from the replicated routing, adds its
-    own once."""
+    own once. Under a data x expert mesh x is this rank's data block, the
+    same on the ranks of its expert group, and the aux loss's means take
+    ``mean_group``'s, the data axis's."""
     dispatch_trace.record("moe_ep_shard_map")
     group = axis_group(mesh_with_axis(layer.ep_axis), layer.ep_axis)
     e_local = layer.num_experts // n
     lo = idx * e_local
-    dispatch, combine, aux, dropped = _route(x, layer.router, capacity, layer.top_k)
+    dispatch, combine, aux, dropped = _route(x, layer.router, capacity, layer.top_k, mean_group)
     xl = replicated_to_varying(x, group)
     combine = replicated_to_varying(combine, group)
     params = [getattr(layer, name) for name in EXPERT_PARAMS]

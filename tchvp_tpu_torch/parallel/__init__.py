@@ -1,29 +1,41 @@
 """Parallelism of the port over ``torch.distributed``: the mesh and its gate
-(:mod:`.mesh`) and the collectives of sequence parallelism
-(:mod:`.collectives`)."""
+(:mod:`.mesh`), the collectives (:mod:`.collectives`) and the data-parallel
+input (:mod:`.input`)."""
 
 from tchvp_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
     activate_mesh,
     ambient_mesh,
     axis_group,
     axis_shards,
     axis_size,
+    group_over,
+    host_local_batch_slice,
     init_distributed,
+    make_hybrid_mesh,
     make_mesh,
     mesh_with_axis,
+    replicate,
+    shard_batch,
     shard_frames,
     with_current_mesh,
 )
 
 __all__ = [
+    "DATA_AXIS",
     "activate_mesh",
     "ambient_mesh",
     "axis_group",
     "axis_shards",
     "axis_size",
+    "group_over",
+    "host_local_batch_slice",
     "init_distributed",
+    "make_hybrid_mesh",
     "make_mesh",
     "mesh_with_axis",
+    "replicate",
+    "shard_batch",
     "shard_frames",
     "with_current_mesh",
 ]

@@ -21,6 +21,8 @@ forward needs it.
   differentiable (whole expert checkpoints).
 * :func:`all_reduce_mean_` — in place, not differentiable: the gradients'
   mean before the optimizer, in one flat buffer.
+* :func:`broadcast_` — in place, one rank's tensors on every rank (the
+  replicated start of data parallelism).
 * :func:`equal_across` — whether tensors hold the same bits on every rank.
 
 A ``gloo`` group carries CPU tensors only, so a CUDA tensor crosses through
@@ -188,6 +190,15 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], group: dist.ProcessGroup) 
         flat = _all_reduce(flat, group) / n
         for t, part in zip(group_ts, flat.split([t.numel() for t in group_ts])):
             t.copy_(part.view_as(t))
+
+
+def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0, group: dist.ProcessGroup = None) -> None:
+    """Overwrite each tensor with rank ``src``'s, in place (one broadcast per
+    tensor, through the backend's device)."""
+    for t in tensors:
+        buf = _wire(t, group or dist.group.WORLD)
+        dist.broadcast(buf, src, group=group)
+        t.copy_(buf.to(t.device))
 
 
 def equal_across(tensors: Sequence[torch.Tensor], group: dist.ProcessGroup) -> List[bool]:

@@ -13,7 +13,15 @@ its own part. Under sequence parallelism (the ``seq`` axis) a rank holds a
 contiguous block of each clip's frames (:func:`shard_frames`), and the
 paths that see the whole sequence (windowed attention, the positional
 encoding, train-mode BatchNorm statistics, the loss) read their rank's
-place from :func:`axis_shards`.
+place from :func:`axis_shards`. Under data parallelism (the ``data`` axis,
+:data:`DATA_AXIS`) a rank holds a contiguous block of the batch
+(:func:`shard_batch`); train-mode BatchNorm, the losses and the metrics
+reduce over the axis's group, as JAX's GSPMD step sees the global batch.
+Meshes of two axes are ``data`` x ``seq`` and ``data`` x ``expert``, ranks
+laid out row-major in the order the axes are given, and :func:`group_over`
+is the group of several axes at once. JAX's sharding specs
+(``batch_spec``, ``sequence_sharding``) have no counterpart: the port cuts
+the tensors themselves (:func:`shard_batch`, :func:`shard_frames`).
 
 Transport: ``gloo`` carries CPU tensors (the CPU tests, and two ranks
 sharing one GPU: NCCL refuses two ranks on one device), ``nccl`` device
@@ -31,6 +39,9 @@ from typing import Iterator, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+# The batch axis of data parallelism (JAX's repo convention).
+DATA_AXIS = "data"
 
 # The mesh in scope (activate_mesh): JAX's mesh context.
 _ambient: contextvars.ContextVar[Optional[DeviceMesh]] = contextvars.ContextVar(
@@ -63,6 +74,84 @@ def make_mesh(axes: Sequence[str] = ("data",), shape: Optional[Sequence[int]] = 
         raise ValueError(f"mesh {tuple(axes)} x {tuple(shape)} does not cover {world} ranks")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type, torch.arange(world).reshape(tuple(shape)), mesh_dim_names=tuple(axes))
+
+
+def make_hybrid_mesh(ici_axes: Sequence[str], ici_shape: Sequence[int], dcn_axis: str = "replica",
+                     dcn_size: Optional[int] = None) -> DeviceMesh:
+    """JAX's multi-slice mesh: the slow ``dcn_axis`` outermost, the fast
+    ``ici_axes`` inside. Ranks are grouped contiguously, as JAX groups the
+    devices of one process off a multi-slice TPU: group g holds ranks g *
+    prod(ici_shape).., so collectives of the inner axes stay within a host's
+    ranks and only the outer axis crosses hosts. ``dcn_size`` defaults to
+    the world over one group."""
+    world = dist.get_world_size()
+    per_group = math.prod(ici_shape)
+    if dcn_size is None:
+        dcn_size = world // per_group if per_group and world % per_group == 0 else 1
+    if dcn_size * per_group != world:
+        raise ValueError(f"{dcn_size} slices x {tuple(ici_shape)} ici = {dcn_size * per_group} ranks, "
+                         f"have {world}")
+    return make_mesh((dcn_axis,) + tuple(ici_axes), (dcn_size,) + tuple(ici_shape))
+
+
+def _slice_dim(x, mesh: DeviceMesh, axis: Optional[str], dim: int):
+    """This rank's contiguous block of ``x``'s ``dim`` along ``axis``, where
+    the mesh carries the axis with size > 1 and it divides the dim (JAX's
+    ``shard_batch`` leaves a dim it does not divide whole)."""
+    if axis is None or axis not in (mesh.mesh_dim_names or ()) or x.ndim <= dim:
+        return x
+    n = axis_size(mesh, axis)
+    if n <= 1 or x.shape[dim] % n:
+        return x
+    i, per = mesh.get_local_rank(axis), x.shape[dim] // n
+    if isinstance(x, torch.Tensor):
+        return x.narrow(dim, i * per, per)
+    return x[(slice(None),) * dim + (slice(i * per, (i + 1) * per),)]
+
+
+def shard_batch(batch, mesh: DeviceMesh, batch_axis: str = DATA_AXIS, seq_axis: Optional[str] = None,
+                seq_dim: int = 1):
+    """This rank's part of a global batch (a tensor, a numpy array, or a
+    tuple or list of them): its block of dim 0 along ``batch_axis`` and,
+    with ``seq_axis``, its block of the frames (``seq_dim``), as JAX's
+    ``shard_batch`` places them."""
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(shard_batch(b, mesh, batch_axis, seq_axis, seq_dim) for b in batch)
+    return _slice_dim(_slice_dim(batch, mesh, batch_axis, 0), mesh, seq_axis, seq_dim)
+
+
+def replicate(tree, mesh: Optional[DeviceMesh] = None, src: int = 0):
+    """Rank ``src``'s values on every rank, in place: a module's parameters
+    and buffers, or the tensors of a dict, list or tuple (JAX's
+    ``replicate`` of params and optimizer state). Returns ``tree``."""
+    from tchvp_tpu_torch.parallel.collectives import broadcast_
+
+    del mesh  # every mesh of the port spans the default group
+    if isinstance(tree, torch.nn.Module):
+        tensors = list(tree.parameters()) + list(tree.buffers())
+    elif isinstance(tree, dict):
+        tensors = [t for t in tree.values() if isinstance(t, torch.Tensor)]
+    elif isinstance(tree, (list, tuple)):
+        tensors = [t for t in tree if isinstance(t, torch.Tensor)]
+    else:
+        tensors = [tree]
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        with torch.no_grad():
+            broadcast_(tensors, src)
+    return tree
+
+
+def host_local_batch_slice(global_batch: int, axis: str = DATA_AXIS) -> Tuple[int, int]:
+    """(start, size) of this rank's slice of the global batch dim: along
+    ``axis`` of the ambient mesh, else over the processes (JAX's per-host
+    input sharding; here each rank is a process)."""
+    n, i = axis_shards(axis)
+    if n == 1 and ambient_mesh() is None and dist.is_initialized():
+        n, i = dist.get_world_size(), dist.get_rank()
+    if global_batch % n:
+        raise ValueError(f"global batch {global_batch} not divisible by {n} ranks")
+    per = global_batch // n
+    return i * per, per
 
 
 def ambient_mesh() -> Optional[DeviceMesh]:
@@ -125,6 +214,23 @@ def axis_shards(axis: Optional[str]) -> Tuple[int, int]:
 def axis_group(mesh: DeviceMesh, axis: str) -> dist.ProcessGroup:
     """The process group of this rank's line along ``axis``."""
     return mesh.get_group(axis)
+
+
+def group_over(axes: Sequence[Optional[str]]) -> Optional[dist.ProcessGroup]:
+    """The group of this rank's ranks along every one of ``axes`` that the
+    ambient mesh carries with size > 1: None when none does, that axis's
+    group for one, the whole mesh's (the default group, which every mesh of
+    the port spans) when they are all of its axes."""
+    on = [a for a in dict.fromkeys(axes) if mesh_with_axis(a) is not None]
+    if not on:
+        return None
+    mesh = ambient_mesh()
+    if len(on) == 1:
+        return axis_group(mesh, on[0])
+    live = [a for a in mesh.mesh_dim_names if axis_size(mesh, a) > 1]
+    if sorted(on) != sorted(live):
+        raise ValueError(f"a group over {on} of a mesh of {live}: one axis or all of them")
+    return dist.group.WORLD
 
 
 def shard_frames(clip: torch.Tensor, mesh: DeviceMesh, seq_axis: str, seq_dim: int = 1) -> torch.Tensor:

@@ -19,7 +19,10 @@ each one on that device, through :class:`DevicePrefetch` when
 ``TrainConfig.device_prefetch`` > 0. Under a ``seq`` mesh every rank is
 given the global clip, and the step takes the rank's frames after drawing
 the input noise at the global shape (``train/steps.py``), so the flow
-itself only places.
+itself only places. Under a ``data`` mesh every flow reads each rank's
+block of the global batch (:class:`~tchvp_tpu_torch.parallel.input.GlobalBatchLoader`
+over the dataset, unless it already is one, such as a sharded ClipPack);
+the steps reduce over the axis.
 
 Host syncs. JAX's loop reads every metric on the host after every step.
 Here the per-epoch sums stay on the device, in float64, and are read once
@@ -50,8 +53,9 @@ from tchvp_tpu_torch.config import AugmentConfig, ResNetAEConfig, TrainConfig
 from tchvp_tpu_torch.data import pipeline
 from tchvp_tpu_torch.data.device_prefetch import DevicePrefetch
 from tchvp_tpu_torch.ops.sobel import sobel_edges
-from tchvp_tpu_torch.parallel import activate_mesh, axis_group, axis_size
+from tchvp_tpu_torch.parallel import DATA_AXIS, activate_mesh, axis_group, axis_size
 from tchvp_tpu_torch.parallel.collectives import all_gather_cat
+from tchvp_tpu_torch.parallel.input import GlobalBatchLoader
 from tchvp_tpu_torch.train import checkpoint as ckpt
 from tchvp_tpu_torch.train import steps as steps_lib
 from tchvp_tpu_torch.train.health import HealthMonitor, TrainingDiverged, recover_latest
@@ -94,9 +98,25 @@ class _FlowBase:
             return tuple(torch.as_tensor(b).to(self.device) for b in batch)
         return torch.as_tensor(batch).to(self.device)
 
+    def _local(self, data, microbatches: int = 1):
+        """``data`` as this rank reads it: under a mesh carrying ``data``,
+        its block of every global batch, with ``microbatches`` its share of
+        each (a :class:`GlobalBatchLoader` passes as it is, and must have
+        been made for as many)."""
+        mesh = self.mesh
+        if (data is None or mesh is None
+                or DATA_AXIS not in (mesh.mesh_dim_names or ()) or axis_size(mesh, DATA_AXIS) <= 1):
+            return data
+        if isinstance(data, GlobalBatchLoader):
+            if data.microbatches != microbatches:
+                raise ValueError(f"the loader gives each rank its share of {data.microbatches} microbatches, "
+                                 f"the step takes {microbatches}")
+            return data
+        return GlobalBatchLoader(data, mesh, microbatches=microbatches)
+
     def _under_mesh(self, fn: Callable) -> Callable:
-        """``fn`` run inside ``activate_mesh(self.mesh)``: the sequence-
-        parallel paths read the ambient mesh."""
+        """``fn`` run inside ``activate_mesh(self.mesh)``: the parallel
+        paths read the ambient mesh."""
         if self.mesh is None:
             return fn
 
@@ -127,13 +147,6 @@ class _FlowBase:
                               schedule=cfg.schedule, warmup_steps=cfg.warmup_steps,
                               total_steps=cfg.total_steps, min_lr_ratio=cfg.min_lr_ratio,
                               ema_decay=cfg.ema_decay, optimizer=cfg.optimizer)
-
-
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"meshes for {what} are not ported yet (ROADMAP.md, modules to port, item 11c: "
-            "data parallelism)")
 
 
 def _host_sums(sums: Optional[Dict[str, torch.Tensor]], keys) -> Dict[str, float]:
@@ -205,6 +218,7 @@ class VideoFlow(_FlowBase):
         self.image_size = image_size
         self.state: Optional[TrainState] = None
         self.seq_axis = seq_axis
+        self.accum_steps = accum_steps
         self._train_step = self._under_mesh(steps_lib.make_video_train_step(
             image_size, cfg.loss, loss_alpha, loss_beta, aug=aug, remat=remat,
             remat_policy=remat_policy, data_range=cfg.mixed_data_range,
@@ -226,7 +240,7 @@ class VideoFlow(_FlowBase):
     def evaluate(self, data: Iterable) -> float:
         """Mean reconstruction PSNR over a clip dataset."""
         total, n = None, 0
-        for batch in data:
+        for batch in self._local(data):
             psnr = self._eval_step(self.state, self._shard(batch))["psnr"].double()
             total = psnr if total is None else total + psnr
             n += 1
@@ -339,7 +353,7 @@ class VideoFlow(_FlowBase):
         numbering so ``latest_step_dir`` stays monotone. Each save records
         the dataset ``position()`` (when available) so :meth:`resume` can
         seek mid-epoch. Requires a sized ``train_data``."""
-        train_data = self._prefetched(train_data)
+        train_data = self._prefetched(self._local(train_data, self.accum_steps))
         if save_every_steps and not hasattr(train_data, "__len__"):
             raise ValueError(
                 "save_every_steps needs a sized dataset (len()) for "
@@ -442,19 +456,18 @@ class SegmentationFlow(_FlowBase):
         mesh=None,
         sp_axis: Optional[str] = None,
     ):
-        if mesh is not None or sp_axis:
+        if sp_axis:
             raise NotImplementedError(
-                "meshes and sp_axis (spatial partitioning) for segmentation are not ported yet "
-                "(ROADMAP.md, modules to port, item 11c: data parallelism, and item 11e: "
-                "tensor and spatial parallelism)")
+                "sp_axis (spatial partitioning) for segmentation is not ported yet "
+                "(ROADMAP.md, modules to port, item 11e: tensor and spatial parallelism)")
         super().__init__(cfg, mesh, next(model.parameters()).device)
         self.model = model
         self.image_size = image_size
         self.state: Optional[TrainState] = None
         self.loss_history: list = []
         self.start_epoch: int = 0
-        self._train_step = steps_lib.make_segmentation_train_step(image_size, cfg.loss)
-        self._eval_step = steps_lib.make_segmentation_eval_step(image_size, cfg.loss)
+        self._train_step = self._under_mesh(steps_lib.make_segmentation_train_step(image_size, cfg.loss))
+        self._eval_step = self._under_mesh(steps_lib.make_segmentation_eval_step(image_size, cfg.loss))
 
     def init_state(self, lr: Optional[float] = None) -> TrainState:
         """A step-0 state over the model as it stands, its generators
@@ -478,7 +491,7 @@ class SegmentationFlow(_FlowBase):
         epoch) when its summed loss is the lowest so far."""
         cfg = self.cfg
         del test_data
-        train_data = self._prefetched(train_data)
+        train_data = self._prefetched(self._local(train_data))
         if self.state is None:
             self.init_state(lr)
         if start_epoch is None:
@@ -497,21 +510,21 @@ class SegmentationFlow(_FlowBase):
                 self.state, m = self._train_step(self.state, placed)
                 sums = _epoch_sums(sums, m)
                 n += 1
-                if i == sneak:  # per-epoch sneak peek (FCT.py:339-340)
+                if i == sneak and _rank() == 0:  # per-epoch sneak peek (FCT.py:339-340)
                     self._save_sneakpeek(epoch, placed)
             host = _host_sums(sums, ("loss", "iou"))
             train_m = _mean_of(host, n)
             self.loss_history.append(host["loss"])
             self._log("Training Loss", host["loss"], epoch)  # FCT.py:356 (the sum)
             print(f"Epoch {epoch}: dice loss {train_m['loss']:.4f} IoU {train_m['iou']:.3f}")
-            if host["loss"] < best_loss:  # best-train-loss checkpoint (FCT.py:366-373)
-                best_loss = host["loss"]
+            if host["loss"] < best_loss and _rank() == 0:  # best-train-loss checkpoint (FCT.py:366-373)
                 ckpt.save_state(cfg.checkpoint_dir, epoch, self.state,
                                 extra={"loss": host["loss"],
                                        "loss_history": torch.tensor(self.loss_history,
                                                                     dtype=torch.float64)},
                                 async_write=cfg.async_checkpoint)
                 ckpt.prune_step_dirs(cfg.checkpoint_dir, cfg.keep_checkpoints)
+            best_loss = min(best_loss, host["loss"])
         ckpt.wait_for_async_saves()
         if self.writer is not None:
             self.writer.flush()
@@ -533,7 +546,7 @@ class SegmentationFlow(_FlowBase):
     def evaluate(self, data: Iterable) -> dict:
         """Mean loss and IoU over an (image, mask) dataset."""
         sums, n = None, 0
-        for batch in data:
+        for batch in self._local(data):
             sums = _epoch_sums(sums, self._eval_step(self.state, self._shard(batch)))
             n += 1
         return _mean_of(_host_sums(sums, ("loss", "iou")), n)
@@ -575,17 +588,16 @@ class DenoisingFlow(_FlowBase):
         aug: AugmentConfig = AugmentConfig(),
         mesh=None,
     ):
-        _no_mesh(mesh, "denoising")
         super().__init__(cfg, mesh, next(model.parameters()).device)
         self.model = model
         self.image_size = image_size
         self.aug = aug
         self.state: Optional[TrainState] = None
-        self._train_step = steps_lib.make_denoising_train_step(
+        self._train_step = self._under_mesh(steps_lib.make_denoising_train_step(
             image_size, aug, cfg.loss, cfg.mixed_alpha, cfg.mixed_beta,
-            data_range=cfg.mixed_data_range)
-        self._eval_step = steps_lib.make_denoising_eval_step(image_size)
-        self._test_step = steps_lib.make_inpainting_test_step(image_size, aug)
+            data_range=cfg.mixed_data_range))
+        self._eval_step = self._under_mesh(steps_lib.make_denoising_eval_step(image_size))
+        self._test_step = self._under_mesh(steps_lib.make_inpainting_test_step(image_size, aug))
 
     def init_state(self, lr: Optional[float] = None) -> TrainState:
         """A step-0 state over the model as it stands, its generators
@@ -608,7 +620,7 @@ class DenoisingFlow(_FlowBase):
         and ``test_data``, when given, is tested (Model.py:184-188)."""
         cfg = self.cfg
         epochs = epochs or cfg.epochs
-        train_data = self._prefetched(train_data)
+        train_data = self._prefetched(self._local(train_data))
         if self.state is None:
             self.init_state(lr)
         print(f"Total parameters: {human_param_count(param_count(self.state.model))}")
@@ -630,12 +642,14 @@ class DenoisingFlow(_FlowBase):
                   f"val PSNR {val_psnr:.2f} ({time.time() - t0:.1f}s)")
             if val_psnr > best_val_psnr:  # best-val weights (Model.py:181-182)
                 best_val_psnr = val_psnr
-                ckpt.save_params(cfg.checkpoint_dir, cfg.model_name, self.state.model)
+                if _rank() == 0:
+                    ckpt.save_params(cfg.checkpoint_dir, cfg.model_name, self.state.model)
             if epoch % cfg.save_every == 0:  # periodic state + test (Model.py:184-188)
-                ckpt.save_state(cfg.checkpoint_dir, epoch, self.state,
-                                extra={"best_val_psnr": best_val_psnr},
-                                async_write=cfg.async_checkpoint)
-                ckpt.prune_step_dirs(cfg.checkpoint_dir, cfg.keep_checkpoints)
+                if _rank() == 0:
+                    ckpt.save_state(cfg.checkpoint_dir, epoch, self.state,
+                                    extra={"best_val_psnr": best_val_psnr},
+                                    async_write=cfg.async_checkpoint)
+                    ckpt.prune_step_dirs(cfg.checkpoint_dir, cfg.keep_checkpoints)
                 if test_data is not None:
                     self._log("PSNR/Test", self.test(test_data, epoch), epoch)
         ckpt.wait_for_async_saves()
@@ -646,7 +660,7 @@ class DenoisingFlow(_FlowBase):
     def validate(self, val_data: Iterable) -> float:
         """Mean eval-mode reconstruction PSNR over ``val_data``."""
         sums, n = None, 0
-        for batch in val_data:
+        for batch in self._local(val_data):
             sums = _epoch_sums(sums, self._eval_step(self.state, self._shard(batch)))
             n += 1
         return _host_sums(sums, ("psnr",))["psnr"] / max(n, 1)
@@ -664,11 +678,11 @@ class DenoisingFlow(_FlowBase):
             else 0
         )
         sums, n = None, 0
-        for i, batch in enumerate(test_data):
+        for i, batch in enumerate(self._local(test_data)):
             m, corrupted, pred = self._test_step(self.state, self._shard(batch), generator)
             sums = _epoch_sums(sums, m)
             n += 1
-            if i == sample_at:
+            if i == sample_at and _rank() == 0:
                 save_side_by_side(
                     [corrupted[0].float().cpu().numpy(), pred[0].float().cpu().numpy()],
                     os.path.join(self.cfg.sample_dir, self.cfg.model_name, f"{epoch}.jpg"))
@@ -701,15 +715,14 @@ class TransferFlow(_FlowBase):
         mesh=None,
         device: torch.device | str = "cuda",
     ):
-        _no_mesh(mesh, "transfer")
         super().__init__(cfg, mesh, device)
         self.image_size = image_size
         self.model = Autoencoder32K(ResNetAEConfig(output_type="mask"), device=self.device,
                                     generator=torch.Generator().manual_seed(cfg.seed))
         self.state: Optional[TrainState] = None
         # Autoencoder32K returns (latent, mask): output 1 goes to the loss.
-        self._train_step = steps_lib.make_segmentation_train_step(image_size, cfg.loss,
-                                                                  output_index=1)
+        self._train_step = self._under_mesh(steps_lib.make_segmentation_train_step(image_size, cfg.loss,
+                                                                                   output_index=1))
 
     def init_from_pretrained(self, pretrained_params_path: Optional[str] = None,
                              lr: float = 1e-3) -> TrainState:
@@ -750,7 +763,7 @@ class TransferFlow(_FlowBase):
         checkpoints (tag: the epoch) when its summed dice loss is the lowest
         of this call."""
         assert self.state is not None, "call init_from_pretrained first"
-        train_data = self._prefetched(train_data)
+        train_data = self._prefetched(self._local(train_data))
         best_loss = float("inf")
         rng = np.random.default_rng(self.cfg.seed)
         for epoch in range(start_epoch + 1, epochs + 1):
@@ -763,16 +776,16 @@ class TransferFlow(_FlowBase):
                 self.state, m = self._train_step(self.state, placed)
                 sums = _epoch_sums(sums, m)
                 n += 1
-                if i == sneak:  # per-epoch sneak peek (AE_32K L292-293)
+                if i == sneak and _rank() == 0:  # per-epoch sneak peek (AE_32K L292-293)
                     self._save_sneakpeek(epoch, placed)
             host = _host_sums(sums, ("loss", "iou"))
             self._log("Training Loss", host["loss"], epoch)
             print(f"Transfer epoch {epoch}: dice {_mean_of(host, n)['loss']:.4f}")
-            if host["loss"] < best_loss:  # best-loss checkpoint (AE_32K L299-306)
-                best_loss = host["loss"]
+            if host["loss"] < best_loss and _rank() == 0:  # best-loss checkpoint (AE_32K L299-306)
                 ckpt.save_state(self.cfg.checkpoint_dir, epoch, self.state,
                                 async_write=self.cfg.async_checkpoint)
                 ckpt.prune_step_dirs(self.cfg.checkpoint_dir, self.cfg.keep_checkpoints)
+            best_loss = min(best_loss, host["loss"])
         ckpt.wait_for_async_saves()
         if self.writer is not None:
             self.writer.flush()

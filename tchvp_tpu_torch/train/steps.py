@@ -56,6 +56,25 @@ runs the halo exchange, the ring hops and the BatchNorm all-reduces again,
 in the same order on every rank, and moves no running stat; a microbatch
 is a slice of the batch dim, so it is the global clip's microbatch's frames.
 
+Data parallelism: when an ambient mesh carries ``data`` with size > 1
+(``parallel.mesh.DATA_AXIS``), ``batch`` is this rank's block of the global
+batch (``parallel.input.GlobalBatchLoader``). Train-mode BatchNorm takes
+its statistics over the axis (``ops/blocks.py``), the gradients' mean over
+the axis is all-reduced once a step (each rank's loss is the mean over its
+equal share, so the mean of the ranks' gradients is the global loss's,
+the BatchNorm all-reduces' adjoints carrying the other ranks' part), and
+the loss and metrics come back as the global batch's: means over the axis,
+PSNR from the global MSE, dice and IoU from the global sums. The noise and
+dropout draws come from generators of this data rank, forked each step from
+the state's (:func:`_step_generators`), as JAX's sharded draws differ per
+shard; the state's generators advance alike on every rank, so rank 0's
+checkpoint resumes every rank. On a ``data`` x
+``seq`` mesh a rank holds its data block's frames; on ``data`` x
+``expert`` its data block, and the experts' gradients are averaged over
+the data axis too. With ``accum_steps`` a microbatch is a slice of the
+global batch, as in JAX: each rank's batch is then its share of every one,
+in order (``parallel.input.local_rows``, as the loaders give it).
+
 Expert parallelism: when ``config.temporal.ep_axis`` is on an ambient mesh,
 each rank runs the whole model on the whole batch but only its experts
 (``ops/moe.py``); everything outside the experts is computed alike on every
@@ -69,8 +88,10 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -85,7 +106,9 @@ from tchvp_tpu_torch.ops.blocks import frozen_batch_stats, with_current_hook
 from tchvp_tpu_torch.ops.moe import mean_dropped_fraction, moe_layers, total_load_balance_loss
 from tchvp_tpu_torch.parallel.collectives import all_reduce_mean_, all_reduce_sum
 from tchvp_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
     axis_group,
+    axis_shards,
     axis_size,
     mesh_with_axis,
     shard_frames,
@@ -146,12 +169,52 @@ def _ep_axis(model: torch.nn.Module) -> Optional[str]:
     return axis if mesh_with_axis(axis) is not None and moe_layers(model) else None
 
 
-def _global_mean(x: torch.Tensor, seq_axis: Optional[str]) -> torch.Tensor:
-    """A per-rank mean over equal shares as the mean over the axis."""
-    if seq_axis is None:
-        return x
-    mesh = mesh_with_axis(seq_axis)
-    return all_reduce_sum(x.detach(), axis_group(mesh, seq_axis)) / axis_size(mesh, seq_axis)
+def _global_mean(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """A per-rank mean over equal shares as the mean over each of ``axes``
+    that the ambient mesh carries."""
+    for axis in axes:
+        mesh = mesh_with_axis(axis)
+        if mesh is not None:
+            x = all_reduce_sum(x.detach(), axis_group(mesh, axis)) / axis_size(mesh, axis)
+    return x
+
+
+def _data_group():
+    """The data axis's group when the ambient mesh carries it, else None."""
+    mesh = mesh_with_axis(DATA_AXIS)
+    return axis_group(mesh, DATA_AXIS) if mesh is not None else None
+
+
+def _fork(generator: torch.Generator, index: int) -> torch.Generator:
+    """A generator of data rank ``index`` seeded from ``generator``'s state,
+    which moves on to a seed of its own: the same on every rank, read on the
+    host (no device sync)."""
+    digest = int.from_bytes(hashlib.sha256(generator.get_state().numpy().tobytes()).digest()[:16], "little")
+    generator.manual_seed(int(np.random.SeedSequence(digest).generate_state(1, np.uint64)[0]) >> 1)
+    seed = int(np.random.SeedSequence(digest, spawn_key=(index,)).generate_state(1, np.uint64)[0]) >> 1
+    return torch.Generator(generator.device).manual_seed(seed)
+
+
+def _step_generators(state: TrainState) -> Tuple[torch.Generator, torch.Generator]:
+    """The step's (noise, dropout) generators: the state's; under a data
+    mesh, this data rank's forks of them (module docstring)."""
+    n, i = axis_shards(DATA_AXIS)
+    if n == 1:
+        return state.noise_generator, state.dropout_generator
+    return _fork(state.noise_generator, i), _fork(state.dropout_generator, i)
+
+
+def _mean_grads_over_data(model: torch.nn.Module) -> None:
+    """Under a data mesh, every gradient becomes its mean over the axis."""
+    group = _data_group()
+    if group is not None:
+        all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None], group)
+
+
+def _global_psnr(recon: torch.Tensor, clean: torch.Tensor) -> torch.Tensor:
+    """PSNR of the global batch's MSE (a data mesh's ranks hold equal
+    shares)."""
+    return 20.0 * torch.log10(1.0 / torch.sqrt(_global_mean(losses.mse(recon, clean), DATA_AXIS)))
 
 
 def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -251,7 +314,9 @@ def make_video_train_step(
 
     The returned ``step(state, batch, mark=None)`` updates ``state`` in
     place and returns ``(state, {"loss", "psnr"})``. Under sequence
-    parallelism (module docstring) ``batch`` is the global clip.
+    parallelism (module docstring) ``batch`` is the global clip; under data
+    parallelism this rank's block of the global batch, with ``accum_steps``
+    its share of each microbatch in order (``parallel.input.local_rows``).
     """
     if fsdp_axis is not None or fsdp_mesh is not None:
         raise NotImplementedError(
@@ -270,8 +335,9 @@ def make_video_train_step(
         seq_axis = _seq_axis(model)
         ep_axis = _ep_axis(model)
         clean = pipeline.preprocess_clip(batch, image_size)
-        clean = pipeline.augment_geometric(state.noise_generator, clean, aug)
-        noisy = pipeline.gaussian_noise(state.noise_generator, clean, noise_std)
+        noise_gen, drop_gen = _step_generators(state)
+        clean = pipeline.augment_geometric(noise_gen, clean, aug)
+        noisy = pipeline.gaussian_noise(noise_gen, clean, noise_std)
         if seq_axis is not None:
             mesh = mesh_with_axis(seq_axis)
             clean, noisy = (shard_frames(x, mesh, seq_axis) for x in (clean, noisy))
@@ -286,7 +352,7 @@ def make_video_train_step(
         loss_sum = mse_sum = aux_sum = drop_sum = None
         for i in range(accum_steps):
             x, y = noisy[i * mb:(i + 1) * mb], clean[i * mb:(i + 1) * mb]
-            draws = model.draw_dropout(x.shape, state.dropout_generator, x.device)
+            draws = model.draw_dropout(x.shape, drop_gen, x.device)
             with _qat_scope(qat, qat_dense):
                 out = _remat_forward(model, x, draws, remat_policy, moe=want_aux)
             recon = out[1]
@@ -324,6 +390,10 @@ def make_video_train_step(
             all_reduce_mean_([p.grad for p in model.parameters()
                               if p.grad is not None and getattr(p, "ep_group", None) is None],
                              axis_group(mesh_with_axis(ep_axis), ep_axis))
+        _mean_grads_over_data(model)
+        loss_sum, mse_sum = _global_mean(loss_sum, DATA_AXIS), _global_mean(mse_sum, DATA_AXIS)
+        if want_aux:
+            aux_sum, drop_sum = _global_mean(aux_sum, DATA_AXIS), _global_mean(drop_sum, DATA_AXIS)
         state.tx.step()
         state.step += 1
         if mark:
@@ -340,8 +410,9 @@ def make_video_train_step(
 def make_video_eval_step(image_size: int, qat: bool = False,
                          qat_dense: bool = False) -> Callable[[TrainState, torch.Tensor], Metrics]:
     """No-grad PSNR of the eval-mode model on a uint8 clip (the global clip
-    under sequence parallelism; the PSNR of the global MSE); with ``qat``,
-    under the QAT step's fake-int8 forward."""
+    under sequence parallelism, this rank's block of the batch under data
+    parallelism; the PSNR of the global MSE); with ``qat``, under the QAT
+    step's fake-int8 forward."""
 
     def step(state: TrainState, batch: torch.Tensor) -> Metrics:
         model = state.model.eval()
@@ -351,7 +422,7 @@ def make_video_eval_step(image_size: int, qat: bool = False,
             clean = shard_frames(clean, mesh_with_axis(seq_axis), seq_axis)
         with torch.no_grad(), _qat_scope(qat, qat_dense):
             _, recon = model(clean)
-            mse = _global_mean(losses.mse(recon, clean), seq_axis)
+            mse = _global_mean(losses.mse(recon, clean), seq_axis, DATA_AXIS)
         return {"psnr": 20.0 * torch.log10(1.0 / torch.sqrt(mse))}
 
     return step
@@ -399,26 +470,29 @@ def make_denoising_train_step(
              draws: Optional[Dict[str, Dict[str, tuple]]] = None) -> Tuple[TrainState, Metrics]:
         model = state.model.train()
         clean = pipeline.preprocess_images(batch, image_size)
+        noise_gen, drop_gen = _step_generators(state)
         if draws is None:
-            draws = denoising_draws(state.noise_generator, clean, aug)
+            draws = denoising_draws(noise_gen, clean, aug)
         clean = pipeline.augment_geometric_with(clean, aug, draws["geometric"])
         corrupted = pipeline.augment_denoising_with(clean, aug, draws["denoising"])
         for p in model.parameters():
             p.grad = None
         if mark:
             mark("data")
-        recon = model(corrupted, generator=state.dropout_generator)[1]
+        recon = model(corrupted, generator=drop_gen)[1]
         loss_val = loss_fn(recon, clean)
         if mark:
             mark("forward")
         loss_val.backward()
         if mark:
             mark("backward")
+        _mean_grads_over_data(model)
         state.tx.step()
         state.step += 1
         if mark:
             mark("optimizer")
-        return state, {"loss": loss_val.detach(), "psnr": losses.psnr(recon.detach(), clean)}
+        return state, {"loss": _global_mean(loss_val.detach(), DATA_AXIS),
+                       "psnr": _global_psnr(recon.detach(), clean)}
 
     return step
 
@@ -431,7 +505,7 @@ def make_denoising_eval_step(image_size: int) -> Callable[[TrainState, torch.Ten
         model = state.model.eval()
         clean = pipeline.preprocess_images(batch, image_size)
         with torch.no_grad():
-            return {"psnr": losses.psnr(model(clean)[1], clean)}
+            return {"psnr": _global_psnr(model(clean)[1], clean)}
 
     return step
 
@@ -454,7 +528,7 @@ def make_inpainting_test_step(image_size: int, aug: AugmentConfig = AugmentConfi
         corrupted = pipeline.blackout_with(clean, *draws, aug.test_blackout_size)
         with torch.no_grad():
             recon = model(corrupted)[1]
-        return {"psnr": losses.psnr(recon, clean)}, corrupted, recon
+        return {"psnr": _global_psnr(recon, clean)}, corrupted, recon
 
     return step
 
@@ -468,7 +542,22 @@ def _seg_batch(batch, image_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _seg_metrics(loss_fn: Callable, pred: torch.Tensor, y: torch.Tensor) -> Metrics:
-    return {"loss": loss_fn(pred, y), "iou": losses.jaccard_score(pred > 0.5, y > 0.5)}
+    """The loss and IoU of the global batch: under a data mesh, dice and IoU
+    from sums all-reduced over the axis (the dice's all-reduce adjoint
+    carries the other ranks' part of its gradient), a mean loss as the mean
+    over the axis."""
+    group = _data_group()
+    if group is None:
+        return {"loss": loss_fn(pred, y), "iou": losses.jaccard_score(pred > 0.5, y > 0.5)}
+    if loss_fn is losses.dice_loss:
+        p, t = pred[..., 0].reshape(-1).float(), y[..., 0].reshape(-1).float()
+        inter, sum_p, sum_t = all_reduce_sum(torch.stack([(p * t).sum(), p.sum(), t.sum()]), group)
+        loss = 1.0 - (2.0 * inter + 1.0) / (sum_p + sum_t + 1.0)
+    else:
+        loss = loss_fn(pred, y)
+    pb, tb = (pred[..., 0] > 0.5).reshape(-1), (y[..., 0] > 0.5).reshape(-1)
+    counts = all_reduce_sum(torch.stack([(tb & pb).sum(), (tb | pb).sum()]).float(), group)
+    return {"loss": loss, "iou": counts[0] / counts[1]}
 
 
 def _select(out, output_index: Optional[int]):
@@ -503,13 +592,16 @@ def make_segmentation_train_step(
             p.grad = None
         if mark:
             mark("data")
-        pred = _select(model(x, generator=state.dropout_generator), output_index)
+        pred = _select(model(x, generator=_step_generators(state)[1]), output_index)
         metrics = _seg_metrics(loss_fn, pred, y)
         if mark:
             mark("forward")
         metrics["loss"].backward()
         if mark:
             mark("backward")
+        _mean_grads_over_data(model)
+        if loss_fn is not losses.dice_loss:
+            metrics["loss"] = _global_mean(metrics["loss"], DATA_AXIS)
         state.tx.step()
         state.step += 1
         if mark:
@@ -530,6 +622,9 @@ def make_segmentation_eval_step(
         model = state.model.eval()
         x, y = _seg_batch(batch, image_size)
         with torch.no_grad():
-            return _seg_metrics(loss_fn, _select(model(x), output_index), y)
+            metrics = _seg_metrics(loss_fn, _select(model(x), output_index), y)
+        if loss_fn is not losses.dice_loss:
+            metrics["loss"] = _global_mean(metrics["loss"], DATA_AXIS)
+        return metrics
 
     return step

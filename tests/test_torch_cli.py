@@ -266,15 +266,16 @@ def test_config_applies_and_names_pyyaml(tmp_path, monkeypatch):
 MODEL_ARGS = ["--synthetic", "1", *SMALL, *CPU]
 # item None: ported since (the conv families, item 7; serving, item 10; the
 # MoE flags, item 11b; --attn-impl ring, item 11a, which without --mesh
-# seq=N exits saying so): the command runs, or exits with a message of its
-# own, and is not refused.
+# seq=N exits saying so; --mesh data=N and --data-parallel, item 11c, which
+# need N processes; tune, item 12, which needs a card): the command runs, or
+# exits with a message of its own, and is not refused.
 STREAM_SMALL = ["--tile", "32", "--height", "32", "--width", "32", "--chunk-len", "2", "--ctx-frames", "1"]
 UNPORTED = [
     (["denoise"], None), (["transfer"], None), (["port"], None),
-    (["export"], None), (["serve"], None), (["shards"], 11), (["tune"], 12),
+    (["export"], None), (["serve"], None), (["shards"], 11), (["tune"], None),
     (["video", "--model", "ae32k"], None), (["video", "--fsdp"], 11), (["video", "--qat"], None),
-    (["video", "--num-experts", "2"], None), (["video", "--mesh", "data=2"], 11),
-    (["video", "--data-parallel"], 11), (["video", "--attn-impl", "ring"], None),
+    (["video", "--num-experts", "2"], None), (["video", "--mesh", "data=2"], None),
+    (["video", "--data-parallel"], None), (["video", "--attn-impl", "ring"], None),
     (["eval", "--model", "unet"], None), (["eval", "--int8"], None),
     (["infer", "--exported", "a.tchvp"], None), (["infer", "--url", "http://localhost:1"], None),
     (["infer", "--int8"], None), (["infer", "--mesh", "pipe=2"], 11),
@@ -282,13 +283,13 @@ UNPORTED = [
     (["summary", "--model", "unet"], None), (["summary", "--model", "ae32k"], None),
     (["export", "--out", "m.tchvp", "--int8", *MODEL_ARGS], None),
     (["serve", "--port", "8765", "--buckets", "1,2"], None),
-    (["serve", "--exported", "m.tchvp", "--data-parallel"], 11),
+    (["serve", "--exported", "m.tchvp", "--data-parallel"], None),
     (["serve", "--exported", "m.tchvp", "--mesh", "pipe=2"], 11),
-    (["tune", "--shape", "8x8x2048x64", "--mode", "fwd"], 12),
-    (["segment", "--mesh", "data=2", "--attn-impl", "flash"], 11),
+    (["tune", "--shape", "8x8x2048x64", "--mode", "fwd"], None),
+    (["segment", "--mesh", "data=2", "--attn-impl", "flash"], None),
     (["segment", "--mesh", "spatial=2"], 11), (["segment", "--attn-impl", "ring"], 11),
-    (["segment", "--data-parallel"], 11), (["denoise", "--data-parallel"], 11),
-    (["transfer", "--data-parallel"], 11),
+    (["segment", "--data-parallel"], None), (["denoise", "--data-parallel"], None),
+    (["transfer", "--data-parallel"], None),
     (["video", "--moe-aux-weight", "0.02"], None), (["video", "--router-top-k", "2"], None),
     (["infer", "--router-top-k", "2"], None), (["eval", "--num-experts", "4"], None),
 ]

@@ -168,8 +168,11 @@ def test_transfer_without_pretrained_weights_and_refusals():
     state = flow.init_from_pretrained(None)
     assert all(not p.requires_grad for p in flow.model.encoder.parameters())
     assert {id(p) for p in state.tx.trainable} == {id(p) for p in flow.model.decoder.parameters()}
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TransferFlow(mesh=object(), device="cpu")
+    # A mesh is taken since item 11c (data parallelism): the flow keeps it and
+    # reads its batches whole where the mesh has no data axis of size > 1.
+    mesh = type("Mesh", (), {"mesh_dim_names": ("seq",)})()
+    flow = TransferFlow(mesh=mesh, image_size=32, device="cpu")
+    assert flow.mesh is mesh and flow._local([1, 2]) == [1, 2]
 
 
 # ---------------------------------------------------------------- frame AEs

@@ -17,8 +17,9 @@ the JAX package's.
 * The CLI: ``export`` then ``serve`` as its own process, ``infer --url``
   and ``infer --exported`` against it (the PSNR of the live model);
   ``stream --url``; ``infer --int8``, ``infer --int8 --int8-dense`` and
-  ``eval --int8``; ``serve --data-parallel`` and ``serve --mesh pipe=2``
-  exit naming item 11, as ``serve_artifact(data_parallel=True)`` raises.
+  ``eval --int8``; ``serve --mesh pipe=2`` exits naming item 11; ``serve
+  --data-parallel`` is ported (item 11c), and ``serve_artifact(data_parallel=
+  True)`` serves one replica on the CPU.
 """
 
 import contextlib
@@ -323,11 +324,24 @@ def test_cli_int8(tmp_path, monkeypatch, argv, pattern):
 @pytest.mark.parametrize("argv", [["serve", "--exported", "m.tchvp", "--data-parallel"],
                                   ["serve", "--exported", "m.tchvp", "--mesh", "pipe=2"]])
 def test_serve_parallel_modes_name_item_11(argv):
+    """``--mesh pipe=N`` (live pipelined serving) is item 11f; ``--data-parallel``
+    is ported (item 11c) and exits only for the missing artifact."""
     with pytest.raises(SystemExit) as err:
         cli.main(argv + CPU)
-    assert "item 11" in str(err.value.code) and "not ported yet" in str(err.value.code)
+    if "--data-parallel" in argv:
+        assert "no such artifact" in str(err.value.code) and "not ported" not in str(err.value.code)
+    else:
+        assert "item 11" in str(err.value.code) and "not ported yet" in str(err.value.code)
 
 
 def test_serve_artifact_data_parallel_names_item_11(artifact_path):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serve_artifact(artifact_path, data_parallel=True)
+    """Data-parallel serving (item 11c, ported): one replica on the CPU, the
+    default bucket one row per replica, a request served through it."""
+    srv = serve_artifact(artifact_path, port=0, data_parallel=True, device="cpu").start()
+    try:
+        assert srv.model.n_devices == 1 and srv.buckets == (1,)
+        host, port = srv.address
+        out = post_npy(f"http://{host}:{port}/infer", _batch(1))
+        assert out.shape == (1, CLIP_LEN, SIZE, SIZE, 3) and np.isfinite(out).all()
+    finally:
+        srv.shutdown()

@@ -25,6 +25,7 @@ from tchvp_tpu_torch.models.video import VideoHybridNet
 from tchvp_tpu_torch.ops import attention as tatt
 from tchvp_tpu_torch.ops import dispatch_trace
 from tchvp_tpu_torch.parallel import collectives
+from tchvp_tpu_torch.parallel.input import local_rows
 from tchvp_tpu_torch.train import state as tstate
 from tchvp_tpu_torch.train import steps as tsteps
 
@@ -411,3 +412,146 @@ def run_ring(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict)
         torch.save(results, Path(out_dir) / f"ring_rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
+
+
+# ------------------------------------------------------------ data parallelism
+
+
+def _dp_options(inp):
+    """data=n: remat "stages" and accum_steps=2, each from the loaded weights:
+    the loss, the state afterwards and the cross-rank bits."""
+    got = {}
+    for policy, accum in (("stages", 1), ("none", 2)):
+        model = VideoHybridNet(inp["config"], device="cpu")
+        model.load_state_dict(inp["state"], strict=True)
+        state = tstate.create_train_state(model, tstate.make_optimizer(1.0, optimizer="sgd"), rng=3)
+        step = tsteps.make_video_train_step(inp["size"], loss="mse", noise_std=0.0, remat_policy=policy,
+                                            accum_steps=accum)
+        _, m = step(state, local_rows(torch.from_numpy(inp["batch"]), parallel.ambient_mesh(), microbatches=accum))
+        shared = list(model.parameters()) + [b for k, b in model.named_buffers() if "running" in k]
+        got[(policy, accum)] = {"loss": float(m["loss"]), "state": {k: v.clone() for k, v in model.state_dict().items()},
+                                "equal": all(collectives.equal_across(shared, torch.distributed.group.WORLD))}
+    return got
+
+
+def _dp_video(inp, moe: bool = False):
+    """One train step of the flagship (SGD lr 1, MSE, no noise) on this
+    rank's block of the global batch under the ambient mesh; with ``moe``
+    the experts sharded over ``expert`` and the aux loss on. Returns the
+    metrics, the state afterwards and whether every rank holds the same
+    parameters and BatchNorm stats."""
+    from tchvp_tpu_torch.ops import moe as tmoe
+
+    model = VideoHybridNet(inp["config"], device="cpu")
+    model.load_state_dict(inp["state"], strict=True)
+    names = tmoe.shard_experts(model, "expert") if moe else []
+    state = tstate.create_train_state(model, tstate.make_optimizer(1.0, optimizer="sgd"), rng=3)
+    step = tsteps.make_video_train_step(inp["size"], loss="mse", noise_std=0.0,
+                                        moe_aux_weight=inp.get("aux", 0.0))
+    with dispatch_trace.capture() as seen:
+        state, metrics = step(state, parallel.shard_batch(torch.from_numpy(inp["batch"]), parallel.ambient_mesh()))
+    shared = [p for k, p in model.named_parameters() if k not in names]
+    shared += [b for k, b in model.named_buffers() if "running" in k]
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "seen": seen, "expert_names": names,
+            "state": {k: v.clone() for k, v in model.state_dict().items()},
+            "equal": all(collectives.equal_across(shared, torch.distributed.group.WORLD))}
+
+
+class keep_everything:
+    """Within the scope the port's dropout keeps every element
+    (``ops.blocks.draw_keep``), as a draw of its own would not repeat across
+    ranks; FCT's Wide-Focus dropout has a fixed rate."""
+
+    def __enter__(self):
+        from tchvp_tpu_torch.ops import blocks
+
+        self.real = blocks.draw_keep
+        blocks.draw_keep = lambda shape, rate, generator, device: torch.ones(shape, dtype=torch.bool, device=device)
+        return self
+
+    def __exit__(self, *exc):
+        from tchvp_tpu_torch.ops import blocks
+
+        blocks.draw_keep = self.real
+
+
+def _dp_flows(inp):
+    """data=n: the loaders' slices, the segmentation and denoising steps on
+    this rank's block, and the flows' placement of a global batch."""
+    from tchvp_tpu_torch.config import AugmentConfig
+    from tchvp_tpu_torch.models.autoencoder import AutoEncoder
+    from tchvp_tpu_torch.models.fct import FCT
+    from tchvp_tpu_torch.parallel.input import GlobalBatchLoader, sharded_clippack_loader
+
+    mesh = parallel.ambient_mesh()
+    got = {"slices": [b.copy() for b in GlobalBatchLoader(inp["batches"], mesh)],
+           "clippack": [np.asarray(b).copy() for b in sharded_clippack_loader(
+               inp["clippack"], inp["clippack_batch"], mesh, shuffle=True, seed=3, prefer_native=False)],
+           "host_slice": parallel.host_local_batch_slice(8),
+           "replicated": parallel.replicate({"w": torch.full((3,), float(torch.distributed.get_rank()))})["w"],
+           "slices_mb2": [b.copy() for b in GlobalBatchLoader(inp["batches"], mesh, microbatches=2)],
+           "clippack_mb2": [np.asarray(b).copy() for b in sharded_clippack_loader(
+               inp["clippack"], inp["clippack_batch"], mesh, shuffle=True, seed=3, prefer_native=False,
+               microbatches=2)]}
+    hybrid = parallel.make_hybrid_mesh(("data",), (1,))
+    got["hybrid"] = (hybrid.mesh_dim_names, tuple(hybrid.shape), hybrid.get_local_rank("replica"))
+    try:
+        parallel.make_hybrid_mesh(("data",), (1,), dcn_size=3)
+    except ValueError as e:
+        got["hybrid_error"] = str(e)
+    seg = FCT(inp["fct_config"], device="cpu")
+    seg.load_state_dict(inp["fct_state"])
+    state = tstate.create_train_state(seg, tstate.make_optimizer(1.0, optimizer="sgd"), rng=3)
+    images, masks = (parallel.shard_batch(torch.from_numpy(a), mesh) for a in inp["seg_batch"])
+    with keep_everything():  # Wide-Focus's fixed dropout: every weight kept
+        state, m = tsteps.make_segmentation_train_step(inp["fct_size"])(state, (images, masks))
+    got["segment"] = {"metrics": {k: float(v) for k, v in m.items()},
+                      "state": {k: v.clone() for k, v in seg.state_dict().items()}}
+    ae = AutoEncoder(inp["ae_config"], device="cpu")
+    ae.load_state_dict(inp["ae_state"])
+    state = tstate.create_train_state(ae, tstate.make_optimizer(1.0, optimizer="sgd"), rng=3)
+    aug = AugmentConfig(hflip_prob=0.0, noise_prob=0.0, max_blackout_patches=0)
+    step = tsteps.make_denoising_train_step(inp["ae_size"], aug, "mse")
+    state, m = step(state, parallel.shard_batch(torch.from_numpy(inp["ae_batch"]), mesh))
+    got["denoise"] = {"metrics": {k: float(v) for k, v in m.items()},
+                      "state": {k: v.clone() for k, v in ae.state_dict().items()}}
+    return got
+
+
+def run_data(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -> None:
+    """One rank of ``tests/test_torch_data_parallel.py``: with 2 ranks the
+    data mesh (the flagship's step, the loaders, segment, denoise); with 4
+    the meshes of two axes, data x seq and data x expert."""
+    torch.set_num_threads(1)
+    parallel.init_distributed(f"file://{rendezvous}", world, rank, timeout_s=180)
+    try:
+        results = {}
+        if world == 2:
+            with parallel.activate_mesh(parallel.make_mesh(("data",), (2,))):
+                results["video"] = _dp_video(inputs["video"])
+                results["options"] = _dp_options(inputs["video"])
+                results["flows"] = _dp_flows(inputs["flows"])
+        else:
+            with parallel.activate_mesh(parallel.make_mesh(("data", "seq"), (2, 2))):
+                results["data_seq"] = _dp_video(inputs["data_seq"])
+            with parallel.activate_mesh(parallel.make_mesh(("data", "expert"), (2, 2))):
+                results["data_expert"] = _dp_video(inputs["data_expert"], moe=True)
+        results["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))
+        torch.save(results, Path(out_dir) / f"data_rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def without_noise(steps_module):
+    """``steps_module.make_video_train_step`` with no input noise by default:
+    a data rank draws its noise from a generator of its own, so only without
+    noise does a data-parallel step equal one process's."""
+    import functools
+
+    steps_module.make_video_train_step = functools.partial(steps_module.make_video_train_step, noise_std=0.0)
+
+
+def run_cli_quiet(rank: int, world: int, rendezvous: str, out_dir: str, argv: list) -> None:
+    """:func:`run_cli` with no input noise either (:func:`without_noise`)."""
+    without_noise(tsteps)
+    run_cli(rank, world, rendezvous, out_dir, argv)
