@@ -132,7 +132,9 @@ Phases, one or more lines each:
 12b. sequence parallelism, two ranks sharing this one card over gloo
     (NCCL refuses two ranks on one device; the halo and the reductions
     cross through host memory), spawned with a file:// rendezvous and a
-    process-group timeout: (a) the fp32 eval forward at config 2's
+    process-group timeout, its flagships at one temporal layer
+    (``RANK_LAYERS``, as phase 8's eval forward that (a) is held to; the
+    launches below are per layer): (a) the fp32 eval forward at config 2's
     geometry (384^2, B 1, T 32, w 64, TF32 off) on a mesh ("seq",) of 2,
     each rank's frames against phase 8's single-process forward, max abs
     1e-3; (b) one step of the windowed-training cell (256^2, B 2, T 32, w
@@ -157,14 +159,15 @@ Phases, one or more lines each:
     within 1e-4 x max|ref| of the single-process ``mha``; (f) one step of
     the windowed cell with remat "stages" and ``accum_steps=2`` (dropout
     off, SGD lr 1) against the single-process step with ``accum_steps=2``
-    by (b)'s limits, bit-equal across ranks, halo launches per rank fwd 8,
-    ds 4, dq 4, dkv 4; (g) expert parallelism: ``VideoFlow`` over a mesh
+    by (b)'s limits, bit-equal across ranks, halo launches per rank and
+    layer fwd 4, ds 2, dq 2, dkv 2; (g) expert parallelism: ``VideoFlow`` over a mesh
     ("expert",) of the two ranks, the flagship with 4 experts (2 a rank) at
     256^2, B 2 of 8 frames (two full-batch ranks of phase 11's cell would
     not fit the card), dropout off, SGD lr 1 clipped at 1.0: the first step
     against the single-process flow's by (b)'s limits, flash launches
-    2/2/2 a rank, then a whole-expert checkpoint gathered to rank 0 (its
-    w1 and moments hold all 4 experts; the timed steps run through
+    2/2/2 a rank, then a shard-wise checkpoint of each rank's experts,
+    read whole by rank 0 (its w1 and moments hold all 4 experts; the timed
+    steps run through
     ``video`` in phase 16 (g)). The records of the JSON gain
     ``seq_ep_launches``: rank 0's launches in (e)-(g);
 12c. with two cards or more (``chiprun --chips 4``; skipped on one card):
@@ -174,8 +177,11 @@ Phases, one or more lines each:
     command at the full batch of 8 (``--mesh data=2``, 2 ranks), its first
     step held to one process at the same global batch by 16 (i)'s limits,
     then timed as users launch it (TF32 as the CLI has it, dropout and
-    noise on, 2 epochs of 5 steps) beside one process at B 8 and at B 4;
-    with four cards, ``--mesh data=2,expert=2 --num-experts 4`` (4 ranks);
+    noise on, 2 epochs of 5 steps) beside one process at B 8 and at B 4,
+    and so phase 23's ``--mesh data=2 --fsdp`` and ``--mesh model=2`` (each
+    rank's step ms and peak memory; their one shard-wise or whole save at
+    the end); with four cards, ``--mesh data=2,expert=2 --num-experts 4``
+    (4 ranks);
 13. config 4 streaming: stream_video of the flagship at 256^2 (attn "xla",
     bf16) over one 16-frame 1080x1920 clip in 40 tiles, chunk 8, 4 frames
     of carried context: finite output of the clip's shape, no kernel
@@ -207,8 +213,10 @@ Phases, one or more lines each:
 16. the run-time through ``cli.main`` (in this process, so the launch
     counters can be read; in a temporary working directory), at phase 11's
     cell (256^2, B 8 of 8-frame clips, fp32, ``--attn-impl flash``, AdamW
-    1e-4, ``--ema-decay 0.999``, ``--keep-checkpoints 1``): (a) ``video
-    --synthetic 3 --epochs 2 --save-every 1``: flash launches 2/2/2 per
+    1e-4, ``--ema-decay 0.999``, ``--keep-checkpoints 1``) cut to one
+    temporal layer (``CELL_LAYERS``: (a)-(d) and (h) write and read its
+    1.4 GB state, not the 2.7 GB of two; (e)-(g) and (i) keep two): (a) ``video
+    --synthetic 3 --epochs 2 --save-every 1``: flash launches 1/1/1 per
     step and no other kernel, the tag ``step_2``, ``TAG_SCHEME``
     "epochs", ``run.json`` naming this card, one event file with
     Loss/PSNR at epochs 1 and 2; (b) ``step_2`` restored into a fresh flow
@@ -220,7 +228,7 @@ Phases, one or more lines each:
     max|p|); (c) a clippack of phase 15's 24 clips with
     ``--save-every-steps 2``: tags step_2 and step_3; step_3 removed (a
     preemption), ``--resume --epochs 2`` runs 4 steps (flash launches
-    4 x 2/2/2), tags step_2, step_5, step_6, step_5's data position epoch 1
+    4 x 1/1/1), tags step_2, step_5, step_6, step_5's data position epoch 1
     batch 2; (d) the full state's size on disk and the ms of a save, of an
     async save's blocking part and its writer, and of a restore, once
     each; (e) ``VideoFlow.train`` at the cell on host batches through
@@ -228,27 +236,28 @@ Phases, one or more lines each:
     against phase 11's bare step, and the idle share over one epoch; (f)
     ``video --window 64`` (B 2, T 32, 2 steps): band launches 2/2/2/2 per
     step; (g) three mesh commands, each as two ranks sharing this card over
-    gloo (as phase 12b spawns them; one spawn with (i)'s command, a
-    rendezvous per command):
+    gloo (as phase 12b spawns them, at its one temporal layer; one spawn
+    with (i)'s command, a rendezvous per command):
     ``video --mesh seq=2 --window 64`` (B 2, T 32, one step): halo launches
     2/2/2/2 per rank, rank 0's checkpoint; ``video --mesh seq=2 --attn-impl
     ring`` (B 2, T 32, no window, 2 epochs of 2 steps): the ring on both
     ranks, no hand-written kernel launched; ``video --mesh expert=2
     --num-experts 4 --attn-impl flash`` (B 2, T 8, 2 epochs of 2 steps):
-    the expert-parallel layer on both ranks, flash 2/2/2 a step, rank 0's
-    checkpoint holding all 4 experts; each rank's step ms from the second
+    the expert-parallel layer on both ranks, flash 2/2/2 a step, the ranks'
+    shard-wise checkpoint read whole holding all 4 experts; each rank's step ms from the second
     epoch's wall (the times its epoch lines were printed) over its 2
     steps, not a scaling number; (h) on (b)'s ``step_3``: ``infer`` (bf16, frames/s
     and PSNR), ``eval``, ``stream`` of one 16-frame 1080p clip, ``summary``,
     ``doctor --smoke``; (i) ``video --mesh data=2`` as two ranks sharing the
     card over gloo: the flagship at full width (256^2, T 8), a global batch
     of 4 (two full-batch ranks would need twice phase 11's memory), dropout
-    and input noise off, TF32 off, SGD lr 1, 3 steps: flash 2/2/2 a step a
+    and input noise off, TF32 off, SGD lr 1, 2 steps: flash 2/2/2 a step a
     rank, the ranks' global losses equal, the first step against one
     process on the same global batch (loss rtol 1e-5, parameters within
     1.9 x 2e-2 x the largest gradient, BatchNorm stats 1e-5), each rank's
-    synchronised step ms (not a scaling number). Each kernel's record
-    gains ``cli_launches``: its launches in (a), (f), (g)'s and (i)'s rank 0;
+    synchronised step ms (not a scaling number). The same spawn runs phase
+    23's four commands. Each kernel's record gains ``cli_launches``: its
+    launches in (a), (f), and (g)'s, (i)'s and 23's rank 0;
 17. BASELINE config 3: the flagship at 224^2, "xla" attention, bf16
     compute over fp32 parameters (``compute_dtype``), B 8 of 16-frame
     clips, MSE, noise 0.05, AdamW 1e-4 clipped at 1.0: finite loss over 3
@@ -382,6 +391,23 @@ Phases, one or more lines each:
     ``flash_attention.block_launches``) and ``doctor`` counting the 6
     entries; (c) the host µs a call that the blocks' resolution adds to
     each wrapper on a memo hit. The records of the JSON gain ``block_ms``;
+23. FSDP and tensor parallelism (items 11d and 11e's tensor half) through
+    ``video`` as two ranks sharing the card over gloo, inside phase 16's
+    spawn: the training cell's flagship at full width (256^2, T 8, flash,
+    fp32), 16 (i)'s global batch of 4, dropout and noise off, TF32 off, SGD
+    lr 1, one step an epoch and a checkpoint after each: ``--mesh data=2
+    --fsdp`` for 2 epochs, for 1 and ``--resume`` for the second in another
+    directory (cuDNN deterministic), and ``--mesh model=2`` for one:
+    per rank and step flash launches 2/2/2, on 8 heads a call, and on 4
+    under model=2 (a wrapper of ``mha`` records the heads); the markers
+    ``fsdp_constrain``, ``tp_constrain`` and ``tp_constrain_conv``; the
+    ranks' losses equal; a rank's state bytes under FSDP at most 0.55 of
+    the whole (its printed line); each first step against 16 (i)'s one
+    process by 16 (i)'s limits, its checkpoint read whole by this process
+    (FSDP's shard-wise); the resumed ``step_2`` bit-equal to the straight
+    one; each rank's step ms (not a scaling number) and peak memory. Its
+    seconds are its runs' wall on rank 0 and its checks (``[phase 23]``;
+    in ``[done]`` as "23 (in 16)", inside 16's);
 14. kernel times: each kernel at its main-path shape beside its plain
     version, F.scaled_dot_product_attention (a yardstick, never on the
     port's path; with the boolean band as attn_mask for the banded
@@ -571,8 +597,9 @@ DRAWS_LIMIT = 16e9  # host bytes kept; the oldest draws go first
 # drawn while the kernels compile: 11.2 GB of fp32 state. Those that
 # the spawned ranks build are also written to DRAWS_DIR, where a rank's
 # first draw of them reads them.
-DRAW_AHEAD = ((224, 0), (224, 4), (224, 8), (256, 0), (256, 4), (384, 0), (416, 0))
-RANK_DRAWS = ((256, 0), (256, 4), (384, 0))
+DRAW_AHEAD = ((224, 0, 2), (224, 4, 2), (224, 8, 2), (256, 0, 2), (256, 4, 2), (384, 0, 2), (416, 0, 2),
+              (256, 0, 1), (256, 4, 1), (384, 0, 1))
+RANK_DRAWS = ((256, 0, 2), (256, 0, 1), (256, 4, 1), (384, 0, 1))
 DRAWS_DIR = build.BUILD_DIR / "smoke_draws"  # ignored by git; emptied at the start and the end of a run
 
 
@@ -625,9 +652,9 @@ def draw_ahead() -> None:
     """DRAW_AHEAD's weights into DRAWS, on the host: phase 2 runs this in
     a thread beside the kernels' build, so that no phase waits for them."""
     DRAWS_DIR.mkdir(parents=True, exist_ok=True)
-    for size, experts in DRAW_AHEAD:
-        VideoHybridNet(flagship_video_config(size, num_experts=experts), device="cpu")
-        if (size, experts) in RANK_DRAWS:
+    for size, experts, layers in DRAW_AHEAD:
+        VideoHybridNet(flagship_video_config(size, num_layers=layers, num_experts=experts), device="cpu")
+        if (size, experts, layers) in RANK_DRAWS:
             key = next(reversed(DRAWS))  # the whole model's, drawn after its parts'
             torch.save(DRAWS[key], DRAWS_DIR / f"{key}.part")
             (DRAWS_DIR / f"{key}.part").rename(DRAWS_DIR / f"{key}.pt")
@@ -1531,18 +1558,37 @@ def phase_decoder_path() -> dict:
     return tail_launches
 
 
-def phase_flagship_fp32(tag: str = "6 flagship fp32", size: int = 224) -> None:
+def with_attention(model: VideoHybridNet, impl: str) -> VideoHybridNet:
+    """``model``, its weights kept, with its temporal attention core
+    switched to ``impl``: a comparison of two cores builds the flagship
+    once (a build of the 416^2 flagship's 1.03 G parameters costs seconds
+    of the host's time, in PyTorch's own init besides the kept draws)."""
+    temporal = dataclasses.replace(model.config.temporal, attn_impl=impl)
+    model.config = dataclasses.replace(model.config, temporal=temporal)
+    model.temporal.config = temporal
+    for layer in model.temporal.layers:
+        layer.attention.attn_impl = impl
+    return model
+
+
+def flagship(size: int, impl: str, window: int = 0, layers: int = 2) -> VideoHybridNet:
+    """The flagship at ``size`` without dropout, seed 0, on the card."""
+    cfg = no_dropout(flagship_video_config(size, num_layers=layers, attn_impl=impl, window_size=window))
+    return VideoHybridNet(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
+
+
+def phase_flagship_fp32(tag: str = "6 flagship fp32", size: int = 224,
+                        model: Optional[VideoHybridNet] = None) -> None:
     torch.backends.cudnn.allow_tf32 = False  # matmuls run without TF32 by default
     clip = preprocess_clip(random_clip(1, 16, size, seed=1), size)
+    model = (model or flagship(size, "flash")).eval()
     outs = {}
     for impl in ("flash", "xla"):
-        model = VideoHybridNet(flagship_video_config(size, attn_impl=impl), device="cuda",
-                               generator=torch.Generator().manual_seed(0)).eval()
         with dispatch_trace.capture() as seen, torch.inference_mode():
-            outs[impl] = model(clip)
+            outs[impl] = with_attention(model, impl)(clip)
         torch.cuda.synchronize()
         check(("flash_mha_cuda" in seen) == (impl == "flash"), f"{impl} run recorded {sorted(seen)}")
-        del model
+    del model
     errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(outs["flash"], outs["xla"])]
     finite = all(bool(torch.isfinite(t).all()) for t in outs["flash"])
     print(f"[{tag}] B=1 T=16 {size}^2 flash vs xla: tokens max abs {errs[0]:.3g}, "
@@ -1558,23 +1604,28 @@ def no_dropout(cfg):
                                temporal=dataclasses.replace(cfg.temporal, dropout_rate=0.0))
 
 
-def compare_grads(tag: str, size: int, frames: int, impls, marker: str, window: int = 0) -> None:
+def compare_grads(tag: str, size: int, frames: int, impls, marker: str, window: int = 0,
+                  model: Optional[VideoHybridNet] = None) -> None:
     """Train-mode fp32 gradients of impls[0] (the kernels) against impls[1]
-    (a dense core) from the same weights, dropout off, TF32 off."""
+    (a dense core) from the same weights (one model, its core switched),
+    dropout off, TF32 off. Train-mode BatchNorm normalises with the batch's
+    statistics, so the first pass's move of the running stats changes
+    nothing of the second's."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     clip = preprocess_clip(random_clip(1, frames, size, seed=3), size)
+    model = (model or flagship(size, impls[0], window)).train()
     grads = {}
     for impl in impls:
-        cfg = no_dropout(flagship_video_config(size, attn_impl=impl, window_size=window))
-        model = VideoHybridNet(cfg, device="cuda", generator=torch.Generator().manual_seed(0)).train()
+        for p_ in model.parameters():
+            p_.grad = None
         with dispatch_trace.capture() as seen:
-            _, recon = model(clip)
+            _, recon = with_attention(model, impl)(clip)
             losses.mse(recon, clip).backward()
         torch.cuda.synchronize()
         check((marker in seen) == (impl == impls[0]), f"{impl} run recorded {sorted(seen)}")
-        grads[impl] = {n: p.grad for n, p in model.named_parameters()}
-        del model
+        grads[impl] = {n: p_.grad for n, p_ in model.named_parameters()}
+    del model
     gmax = max(g.abs().max().item() for g in grads[impls[1]].values())
     diffs = {n: (grads[impls[0]][n] - g).abs().max().item() for n, g in grads[impls[1]].items()}
     worst = max(diffs, key=diffs.get)
@@ -1594,9 +1645,12 @@ def phase_flagship_grads() -> None:
 
 
 def phase_flagship_416() -> None:
-    """Dh 1352 (past the old limit of 1280) through the whole flagship."""
-    phase_flagship_fp32("7b flagship 416^2 fp32, Dh 1352", 416)
-    compare_grads("7b flagship 416^2 grads, Dh 1352", 416, 16, ("flash", "xla"), "flash_mha_bwd_cuda")
+    """Dh 1352 (past the old limit of 1280) through the whole flagship: the
+    eval forward, then the train-mode gradients, of one build."""
+    model = flagship(416, "flash")
+    phase_flagship_fp32("7b flagship 416^2 fp32, Dh 1352", 416, model)
+    compare_grads("7b flagship 416^2 grads, Dh 1352", 416, 16, ("flash", "xla"), "flash_mha_bwd_cuda",
+                  model=model)
 
 
 def phase_windowed_flagship():
@@ -1605,15 +1659,14 @@ def phase_windowed_flagship():
     torch.backends.cudnn.allow_tf32 = False
     clip = preprocess_clip(random_clip(1, 32, 384, seed=4), 384)
     outs = {}
+    model = flagship(384, "flash", 64, layers=RANK_LAYERS).eval()
     for impl, marker in (("flash", "flash_windowed_cuda"), ("windowed", "sdpa_windowed")):
-        model = VideoHybridNet(flagship_video_config(384, attn_impl=impl, window_size=64), device="cuda",
-                               generator=torch.Generator().manual_seed(0)).eval()
         with dispatch_trace.capture() as seen, torch.inference_mode():
-            outs[impl] = model(clip)
+            outs[impl] = with_attention(model, impl)(clip)
         torch.cuda.synchronize()
         check(marker in seen and "flash_mha_cuda" not in seen, f"{impl} run recorded {sorted(seen)}")
-        del model
-        free_cuda()
+    del model
+    free_cuda()
     errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(outs["flash"], outs["windowed"])]
     finite = all(bool(torch.isfinite(t).all()) for t in outs["flash"])
     print(f"[8 windowed flagship fp32] B=1 T=32 384^2 window 64, flash vs windowed: tokens max abs "
@@ -1804,6 +1857,9 @@ def phase_train(tag: str, batch: int, frames: int, window: int = 0) -> dict:
 SEQ_DIR = build.BUILD_DIR / "seq_smoke"  # rendezvous, references, results: ignored by git
 SEQ_RANKS = 2
 SEQ_LABEL = "2 ranks sharing one H100, gloo host-staged halo"
+# Phase 12b's and 16 (g)'s flagships run at one temporal layer: their checks
+# do not depend on depth, and over gloo half the gradient crosses host memory.
+RANK_LAYERS = 1
 # The windowed-training cell of phase 12: 256^2, B 2 of 32-frame clips, window 64.
 SEQ_TRAIN = dict(size=256, batch=2, frames=32, window=64)
 
@@ -1812,8 +1868,8 @@ def seq_train_setup(dropout: bool, sgd: bool, seq_axis=None, **step_kw):
     """The windowed-training cell's model (seed 0), state and step; SGD lr 1
     (the update is 1.9 x the gradient) or the cell's AdamW; ``step_kw``:
     the step's remat policy and accum steps."""
-    cfg = flagship_video_config(SEQ_TRAIN["size"], attn_impl="flash", window_size=SEQ_TRAIN["window"],
-                                seq_axis=seq_axis)
+    cfg = flagship_video_config(SEQ_TRAIN["size"], num_layers=RANK_LAYERS, attn_impl="flash",
+                                window_size=SEQ_TRAIN["window"], seq_axis=seq_axis)
     model = VideoHybridNet(cfg if dropout else no_dropout(cfg), device="cuda",
                            generator=torch.Generator().manual_seed(0))
     tx = make_optimizer(1.0, optimizer="sgd") if sgd else make_optimizer(1e-4, weight_decay=0.01,
@@ -1835,7 +1891,7 @@ def ep_flow(mesh=None):
     off, SGD lr 1 clipped at 1.0 (the flow's optimizer), on ``mesh``'s
     ``expert`` axis when one is given (each rank then holds 2 experts)."""
     axis = "expert" if mesh is not None else None
-    cfg = no_dropout(flagship_video_config(EP_CELL["size"], attn_impl="flash",
+    cfg = no_dropout(flagship_video_config(EP_CELL["size"], num_layers=RANK_LAYERS, attn_impl="flash",
                                            num_experts=EP_CELL["experts"], ep_axis=axis))
     model = VideoHybridNet(cfg, device="cuda", generator=torch.Generator().manual_seed(0))
     tcfg = TrainConfig(model_name="video", loss="mixed", lr=1.0, optimizer="sgd", moe_aux_weight=0.01,
@@ -1934,8 +1990,8 @@ def seq_gathered_flash(rank: int, world: int, got: dict) -> None:
 def seq_remat_accum(rank: int, world: int, got: dict, group) -> None:
     """12b (f): one step of the windowed cell with remat "stages" and
     accum_steps=2 (dropout off, SGD lr 1) against the single-process step
-    with accum_steps=2; halo launches per rank fwd 8 (2 layers x 2
-    microbatches, twice under stages), ds, dq and dkv 4."""
+    with accum_steps=2; halo launches per rank fwd 4 a layer (2
+    microbatches, twice under stages), ds, dq and dkv 2 a layer."""
     model, state, step = seq_train_setup(dropout=False, sgd=True, seq_axis="seq", remat_policy="stages",
                                          accum_steps=2)
     p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -1944,8 +2000,9 @@ def seq_remat_accum(rank: int, world: int, got: dict, group) -> None:
         _, m = step(state, seq_clip(21))
     torch.cuda.synchronize()
     got["f_counts"] = counts()
-    check(got["f_counts"] == expect_counts(halo_fwd_launches=8, halo_ds_launches=4, halo_dq_launches=4,
-                                           halo_dkv_launches=4), f"(f) launches {got['f_counts']}")
+    n = RANK_LAYERS
+    check(got["f_counts"] == expect_counts(halo_fwd_launches=4 * n, halo_ds_launches=2 * n, halo_dq_launches=2 * n,
+                                           halo_dkv_launches=2 * n), f"(f) launches {got['f_counts']}")
     check({"windowed_mha_halo", "flash_halo_cuda", "flash_halo_bwd_cuda"} <= seen, f"(f) recorded {sorted(seen)}")
     named = dict(model.named_parameters())
     check(all(collectives.equal_across(list(named.values()), group)), "(f) parameters differ across ranks")
@@ -1966,7 +2023,7 @@ def seq_experts(rank: int, world: int, got: dict) -> None:
     """12b (g): ``VideoFlow`` over an ``expert`` mesh of the two ranks (4
     experts, 2 a rank) at B 2 of 8 frames 256^2: the first step against the
     single-process dense-MoE step, flash 2/2/2 per rank a step, then a
-    whole-expert checkpoint gathered to rank 0."""
+    shard-wise checkpoint of every rank's experts, read whole by rank 0."""
     mesh = parallel.make_mesh(("expert",), (world,))
     with parallel.activate_mesh(mesh):
         model, flow = ep_flow(mesh)
@@ -1978,7 +2035,8 @@ def seq_experts(rank: int, world: int, got: dict) -> None:
             flow.state, m = flow._train_step(flow.state, ep_clip(50))
         torch.cuda.synchronize()
         got["g_counts"] = counts()
-        check(got["g_counts"] == expect_counts(launches=2, dq_launches=2, dkv_launches=2),
+        check(got["g_counts"] == expect_counts(launches=RANK_LAYERS, dq_launches=RANK_LAYERS,
+                                               dkv_launches=RANK_LAYERS),
               f"(g) launches {got['g_counts']}")
         check("moe_ep_shard_map" in seen and "moe_dense" not in seen, f"(g) recorded {sorted(seen)}")
         got["g_metrics"] = {k: v.item() for k, v in m.items()}
@@ -2029,7 +2087,7 @@ def seq_rank(rank: int, world: int) -> None:
     got = {}
     with parallel.activate_mesh(mesh):
         # (a) the fp32 eval forward at config 2's geometry, this rank's frames.
-        cfg = flagship_video_config(384, attn_impl="flash", window_size=64, seq_axis="seq")
+        cfg = flagship_video_config(384, num_layers=RANK_LAYERS, attn_impl="flash", window_size=64, seq_axis="seq")
         model = VideoHybridNet(cfg, device="cuda", generator=torch.Generator().manual_seed(0)).eval()
         clip = parallel.shard_frames(preprocess_clip(random_clip(1, 32, 384, seed=4), 384), mesh, "seq")
         reset_counts()
@@ -2037,7 +2095,7 @@ def seq_rank(rank: int, world: int) -> None:
             tokens, recon = model(clip)
         torch.cuda.synchronize()
         got["a_counts"] = counts()
-        check(got["a_counts"] == expect_counts(halo_fwd_launches=2), f"(a) launches {got['a_counts']}")
+        check(got["a_counts"] == expect_counts(halo_fwd_launches=RANK_LAYERS), f"(a) launches {got['a_counts']}")
         # This rank's rows of phase 8's single-process tokens and frames.
         errs = [(x.float().cpu() - ref.narrow(1, rank * x.shape[1], x.shape[1])).abs().max().item()
                 for x, ref in zip((tokens, recon), eval_ref)]
@@ -2055,8 +2113,9 @@ def seq_rank(rank: int, world: int) -> None:
             _, m = step(state, seq_clip(21))
         torch.cuda.synchronize()
         got["b_counts"] = counts()
-        check(got["b_counts"] == expect_counts(halo_fwd_launches=2, halo_ds_launches=2, halo_dq_launches=2,
-                                               halo_dkv_launches=2), f"(b) launches {got['b_counts']}")
+        n = RANK_LAYERS
+        check(got["b_counts"] == expect_counts(halo_fwd_launches=n, halo_ds_launches=n, halo_dq_launches=n,
+                                               halo_dkv_launches=n), f"(b) launches {got['b_counts']}")
         check({"seq_sharded_shard_map", "windowed_mha_halo", "flash_halo_cuda", "flash_halo_bwd_cuda"} <= seen
               and not seen & {"flash_windowed_cuda", "flash_mha_cuda", "sdpa_xla", "sdpa_windowed"},
               f"(b) recorded {sorted(seen)}")
@@ -2182,7 +2241,7 @@ def phase_seq_two_ranks(eval_ref) -> tuple:
           f"flash, SGD lr 1: first step {r0['g_metrics']} vs single process {r0['g_loss_ref']}; parameters max "
           f"abs {r0['g_param_err']:.3g} (tol 1.9 x 2e-2 x max|g| {r0['g_gmax']:.3g}); flash launches per rank "
           f"{r0['g_counts']['launches']}/{r0['g_counts']['dq_launches']}/{r0['g_counts']['dkv_launches']}; "
-          f"whole checkpoint saved in {r0['g_save_s']:.2f} s")
+          f"shard-wise checkpoint saved in {r0['g_save_s']:.2f} s, read whole by rank 0")
     seq_ep = {k: sum(r0[f"{x}_counts"][k] for x in "efg") for k in r0["b_counts"]}
     return r0["b_counts"], seq_ep
 
@@ -2190,8 +2249,9 @@ def phase_seq_two_ranks(eval_ref) -> tuple:
 def phase_nccl() -> None:
     """Phase 12c: phase 16 (g)'s mesh commands as two ranks on two cards
     over NCCL; 16 (i)'s ``data=2`` at the full batch of 8, its first step
-    held to one process, then timed as users launch it; ``data=2,expert=2``
-    on four cards. Skipped with one card."""
+    held to one process, then timed as users launch it, and so phase 23's
+    ``data=2 --fsdp`` and ``model=2``; ``data=2,expert=2`` on four cards.
+    Skipped with one card."""
     cards = torch.cuda.device_count()
     if cards < 2:
         print(f"[12c nccl] skipped: {cards} card (run with two or more, e.g. chiprun --chips 4)")
@@ -2201,6 +2261,11 @@ def phase_nccl() -> None:
         data_mesh_cli("12c nccl", Path(tmp), f"2 ranks on 2 of {cards} cards, NCCL", 2,
                       [("data", 8, ["--mesh", "data=2"])], reference=True)
         timed_data_cli("12c nccl", Path(tmp), f"2 ranks on 2 of {cards} cards, NCCL", 2, 8, ["--mesh", "data=2"])
+        # Phase 23's two commands as users launch them (FSDP's state bytes and
+        # shard-wise saves included: TIMED_ARGV saves once, at its end).
+        for flags in (["--mesh", "data=2", "--fsdp"], ["--mesh", "model=2"]):
+            timed_data_cli("12c nccl", Path(tmp), f"2 ranks on 2 of {cards} cards, NCCL", 2, 8, flags,
+                           one_process=False)
         if cards >= 4:
             data_mesh_cli("12c nccl", Path(tmp), f"4 ranks on 4 cards, NCCL", 4,
                           [("data_expert", 8, ["--num-experts", "4", "--mesh", "data=2,expert=2"])], reference=False)
@@ -2478,8 +2543,13 @@ def phase_data_path(train_ms: float) -> None:
 
 # ---------------------------------------------------------------- phase 16
 
+# Phase 16's single-process commands run the flagship at one temporal layer
+# (CELL_LAYERS): half the 2.7 GB state of two, which their 14 saves and 7
+# restores write and read (the run-time's checks do not depend on depth).
+CELL_LAYERS = 1
+CELL_DEPTH = ["--layers", str(CELL_LAYERS)]
 CLI_CELL = ["--synthetic", "3", "--batch-size", "8", "--clip-len", "8", "--image-size", "256",
-            "--attn-impl", "flash", "--ema-decay", "0.999", "--keep-checkpoints", "1"]
+            "--attn-impl", "flash", "--ema-decay", "0.999", "--keep-checkpoints", "1", *CELL_DEPTH]
 FLASH3 = ("launches", "dq_launches", "dkv_launches")
 
 
@@ -2505,7 +2575,7 @@ def state_tensors(raw: dict) -> dict:
     out = {f"model.{k}": v for k, v in raw["model"].items()}
     for n, st in raw["opt_state"]["moments"].items():
         out.update({f"moment.{n}.{k}": v for k, v in st.items()})
-    out.update({f"ema.{k}": v for k, v in raw["opt_state"]["ema"].items()})
+    out.update({f"ema.{k}": v for k, v in (raw["opt_state"]["ema"] or {}).items()})
     out.update({f"generator.{k}": v for k, v in raw["generators"].items()})
     return out
 
@@ -2518,7 +2588,7 @@ def unequal(a: dict, b: dict) -> list:
 def cli_state(path: Path):
     """A VideoFlow of the CLI cell on the card with the checkpoint at
     ``path`` restored into it; returns (state, raw payload, restore ms)."""
-    model = VideoHybridNet(flagship_video_config(256, attn_impl="flash"), device="cuda",
+    model = VideoHybridNet(flagship_video_config(256, num_layers=CELL_LAYERS, attn_impl="flash"), device="cuda",
                            generator=torch.Generator().manual_seed(1))
     flow = VideoFlow(model, cfg=TrainConfig(model_name="video", loss="mixed", lr=1e-4, ema_decay=0.999),
                      image_size=256)
@@ -2566,10 +2636,20 @@ def cli_rank(rank: int, world: int, rendezvous: str, runs: list) -> None:
     SEQ_DIR/cli_rank<r>.json."""
     keep_draws()
     got = {}
+    real_mha = fa.mha
+
+    def mha(q, *a, **k):  # the heads of each flash call this rank makes
+        HEADS.add(q.shape[1])
+        return real_mha(q, *a, **k)
+
+    fa.mha = mha
     for j, (name, argv, quiet) in enumerate(runs):
         reset_counts()
+        HEADS.clear()
         out = StampedOut()
-        undo = quiet_cli() if quiet else None
+        undo = quiet_cli(deterministic=quiet == "deterministic") if quiet else None
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         try:
             with dispatch_trace.capture() as seen, contextlib.redirect_stdout(out):
                 cli.main(argv + ["--coordinator", f"file://{rendezvous}_{j}", "--num-processes", str(world),
@@ -2577,12 +2657,19 @@ def cli_rank(rank: int, world: int, rendezvous: str, runs: list) -> None:
         finally:
             if undo is not None:
                 undo()
-        free_cuda()
-        got[name] = {"counts": counts(), "seen": sorted(seen),
+        wall = time.perf_counter() - t0
+        got[name] = {"counts": counts(), "seen": sorted(seen), "heads": sorted(HEADS), "wall": wall,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                      "epoch_ends": [t for t, text in out.lines if text.startswith("Video epoch")],
                      "printed": [text for _, text in out.lines], "steps": list(STEP_METRICS)}
+        free_cuda()
         STEP_METRICS.clear()
+    fa.mha = real_mha
     (SEQ_DIR / f"cli_rank{rank}.json").write_text(json.dumps(got))
+
+
+# The head counts of the flash calls of a cli_rank run.
+HEADS: set = set()
 
 
 # Every train step's metrics and host ms in this process while quiet_cli's
@@ -2590,12 +2677,14 @@ def cli_rank(rank: int, world: int, rendezvous: str, runs: list) -> None:
 STEP_METRICS: list = []
 
 
-def quiet_cli():
+def quiet_cli(deterministic: bool = False):
     """The CLI's flagship without dropout, its train step without input
     noise (a data rank draws from generators of its own, so only then does
     a data-parallel step equal one process's), TF32 off (cuDNN picks its
     algorithms by batch size), and each step's metrics and host ms
-    (synchronised) appended to STEP_METRICS. Returns the undo."""
+    (synchronised) appended to STEP_METRICS; with ``deterministic``,
+    cuDNN's deterministic algorithms too (a resumed run then repeats a
+    straight one bit for bit, as 16 (b)'s). Returns the undo."""
     from tchvp_tpu_torch import config as tcfg
     from tchvp_tpu_torch.train import steps as tsteps
 
@@ -2620,10 +2709,17 @@ def quiet_cli():
 
     tcfg.flagship_video_config, tsteps.make_video_train_step = no_dropout, recorded
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    det = torch.backends.cudnn.deterministic
+    if deterministic:
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
 
     def undo():
         tcfg.flagship_video_config, tsteps.make_video_train_step = real_cfg, real_step
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.deterministic = det
+        if deterministic:
+            torch.use_deterministic_algorithms(False)
 
     return undo
 
@@ -2643,8 +2739,9 @@ def spawn_cli(world: int, runs: list) -> tuple:
 
 # The data-parallel step through the CLI: the training cell's flagship (256^2,
 # T 8, flash attention), dropout and noise off, SGD lr 1 (the update is the
-# clipped gradient), 3 steps, a checkpoint after each.
-DATA_ARGV = ["video", "--image-size", "256", "--clip-len", "8", "--synthetic", "3", "--epochs", "1",
+# clipped gradient), DATA_STEPS steps, a checkpoint after each.
+DATA_STEPS = 2
+DATA_ARGV = ["video", "--image-size", "256", "--clip-len", "8", "--synthetic", str(DATA_STEPS), "--epochs", "1",
              "--save-every-steps", "1", "--attn-impl", "flash", "--device-prefetch", "0", "--optimizer", "sgd",
              "--lr", "1"]
 
@@ -2687,7 +2784,7 @@ def data_reference(tmp: Path, runs_spec) -> tuple:
 def check_data_mesh(tag: str, tmp: Path, label: str, runs_spec, ranks: list, reference) -> dict:
     """:func:`data_runs`' results on the ranks: per rank 2/2/2 flash
     launches a step and a finite loss, the ranks' global losses equal; each
-    rank's step ms (steps 2-3, synchronised; not a scaling number where
+    rank's step ms (the steps after the first, synchronised; not a scaling number where
     ranks share a card). With a ``reference`` (:func:`data_reference`), the
     first step against one process on the same global batch: loss rtol
     1e-5, parameters within 1.9 x 2e-2 x the largest gradient (phase 12b's
@@ -2697,35 +2794,135 @@ def check_data_mesh(tag: str, tmp: Path, label: str, runs_spec, ranks: list, ref
     world = len(ranks)
     for name, b, flags in runs_spec:
         for r, got in enumerate(ranks):
-            check(got[name]["counts"] == expect_counts(launches=3 * n, dq_launches=3 * n, dkv_launches=3 * n),
+            k = DATA_STEPS * n
+            check(got[name]["counts"] == expect_counts(launches=k, dq_launches=k, dkv_launches=k),
                   f"(i) {name} rank {r} launches {got[name]['counts']}")
-            check(all(math.isfinite(m["loss"]) for m in got[name]["steps"]) and len(got[name]["steps"]) == 3,
+            check(all(math.isfinite(m["loss"]) for m in got[name]["steps"])
+                  and len(got[name]["steps"]) == DATA_STEPS,
                   f"(i) {name} rank {r} steps {got[name]['steps']}")
             check(len({json.dumps(g[name]["steps"][0]["loss"]) for g in ranks}) == 1,
                   f"(i) {name}: the ranks' global losses differ")
         ms = [[round(m["ms"], 1) for m in g[name]["steps"][1:]] for g in ranks]
         print(f"[{tag}] (i) video --batch-size {b} {' '.join(flags)} as {world} ranks ({label}), 256^2 T 8, "
-              f"dropout and noise off, SGD lr 1: flash launches per rank {3 * n}/{3 * n}/{3 * n} over 3 steps; "
+              f"dropout and noise off, SGD lr 1: flash launches per rank {DATA_STEPS * n}/{DATA_STEPS * n}/"
+              f"{DATA_STEPS * n} over {DATA_STEPS} steps; "
               f"losses {[round(m['loss'], 6) for m in ranks[0][name]['steps']]}; "
-              f"step ms per rank, steps 2-3 (synchronised; not a scaling number) {ms}")
+              f"step ms per rank, steps 2-{DATA_STEPS} (synchronised; not a scaling number) {ms}; peak memory "
+              f"per rank {[round(g[name]['peak_gb'], 2) for g in ranks]} GB")
     if reference is not None:
-        ref, init = reference
         name = runs_spec[0][0]
-        loss = ranks[0][name]["steps"][0]["loss"]
-        check(abs(loss - ref["loss"]) <= 1e-5 * abs(ref["loss"]), f"(i) loss {loss} vs one process {ref['loss']}")
-        one = ckpt.restore_state(str(tmp / "one" / "step_1"))["model"]
-        two = ckpt.restore_state(str(tmp / name / "step_1"))["model"]
-        grads = {k: (init[k] - one[k]).abs().max().item() for k in one if "running" not in k and "num_batches" not in k}
-        gmax = max(grads.values())
-        worst = max(((two[k] - one[k]).abs().max().item(), k) for k in grads)
-        stat = max((two[k] - one[k]).abs().max().item() for k in one if "running" in k)
-        check(worst[0] <= 1.9 * 2e-2 * gmax, f"(i) parameter {worst[1]}: {worst[0]} > 1.9 x 2e-2 x {gmax}")
-        check(stat <= 1e-5, f"(i) BatchNorm stats: {stat}")
-        print(f"[{tag}] (i) the first step against one process on the same global batch of {runs_spec[0][1]}: loss "
-              f"{loss:.7f} vs {ref['loss']:.7f} (rtol 1e-5); parameters max abs {worst[0]:.3g} at {worst[1]} "
-              f"({worst[0] / gmax:.3g} x the largest gradient {gmax:.3g}; limit 1.9 x 2e-2); BatchNorm stats "
-              f"{stat:.3g} (limit 1e-5); one process's step {ref['ms']:.1f} ms (the first, synchronised)")
+        print(f"[{tag}] (i) the first step against one process on the same global batch of {runs_spec[0][1]}: "
+              + against_one("(i)", ranks[0][name]["steps"][0]["loss"], reference, tmp / "one" / "step_1",
+                            tmp / name / "step_1"))
     return {k: sum(ranks[0][name]["counts"][k] for name, _, _ in runs_spec) for k in ranks[0][runs_spec[0][0]]["counts"]}
+
+
+def against_one(what: str, loss: float, reference, one_path: Path, path: Path) -> str:
+    """A rank's first step against :func:`data_reference`'s one process:
+    the loss within rtol 1e-5, the parameters of the checkpoint at ``path``
+    (read whole here) within 1.9 x 2e-2 x the largest gradient (phase 12b's
+    limit), the BatchNorm stats within 1e-5. Returns the line's text."""
+    ref, init = reference
+    check(abs(loss - ref["loss"]) <= 1e-5 * abs(ref["loss"]), f"{what} loss {loss} vs one process {ref['loss']}")
+    one = ckpt.restore_state(str(one_path))["model"]
+    two = ckpt.restore_state(str(path))["model"]
+    grads = {k: (init[k] - one[k]).abs().max().item() for k in one if "running" not in k and "num_batches" not in k}
+    gmax = max(grads.values())
+    worst = max(((two[k] - one[k]).abs().max().item(), k) for k in grads)
+    stat = max((two[k] - one[k]).abs().max().item() for k in one if "running" in k)
+    check(worst[0] <= 1.9 * 2e-2 * gmax, f"{what} parameter {worst[1]}: {worst[0]} > 1.9 x 2e-2 x {gmax}")
+    check(stat <= 1e-5, f"{what} BatchNorm stats: {stat}")
+    return (f"loss {loss:.7f} vs {ref['loss']:.7f} (rtol 1e-5); parameters max abs {worst[0]:.3g} at {worst[1]} "
+            f"({worst[0] / gmax:.3g} x the largest gradient {gmax:.3g}; limit 1.9 x 2e-2); BatchNorm stats "
+            f"{stat:.3g} (limit 1e-5); one process's step {ref['ms']:.1f} ms (the first, synchronised)")
+
+
+# Phase 23: FSDP and tensor parallelism through ``video`` as two ranks sharing
+# the card over gloo, in phase 16's spawn: the training cell's flagship at
+# full width (256^2, T 8, flash), a global batch of 4 (16 (i)'s, whose
+# one-process step is the reference), dropout and noise off, SGD lr 1, one
+# step an epoch, a checkpoint after each.
+PAR_ARGV = ["video", "--image-size", "256", "--clip-len", "8", "--batch-size", "4", "--synthetic", "1",
+            "--attn-impl", "flash", "--device-prefetch", "0", "--optimizer", "sgd", "--lr", "1", "--save-every", "1"]
+PAR_STEPS = {"fsdp": 2, "fsdp_part": 1, "fsdp_resume": 1, "tp": 1}
+PHASE_SECONDS: dict = {}  # phases run inside another: their seconds, for [done]
+
+
+def parallel_runs(tmp: Path) -> list:
+    """:func:`cli_rank`'s runs of phase 23: ``--mesh data=2 --fsdp`` for 2
+    epochs, then for 1 and resumed for a second in another directory (cuDNN
+    deterministic, so the resumed run repeats the straight one bit for
+    bit); ``--mesh model=2`` for one step."""
+    fsdp = PAR_ARGV + ["--mesh", "data=2", "--fsdp"]
+    return [("fsdp", fsdp + ["--epochs", "2", "--checkpoint-dir", str(tmp / "fsdp")], "deterministic"),
+            ("fsdp_part", fsdp + ["--epochs", "1", "--checkpoint-dir", str(tmp / "resumed")], "deterministic"),
+            ("fsdp_resume", fsdp + ["--epochs", "2", "--resume", "--checkpoint-dir", str(tmp / "resumed")],
+             "deterministic"),
+            ("tp", PAR_ARGV + ["--mesh", "model=2", "--epochs", "1", "--checkpoint-dir", str(tmp / "tp")], True)]
+
+
+def check_parallel_cli(tmp: Path, label: str, ranks: list, reference, ref_dir: Path) -> dict:
+    """Phase 23's checks on :func:`parallel_runs`' results: per rank and run
+    the flash launches (2/2/2 a step), the markers (``fsdp_constrain``;
+    ``tp_constrain`` and ``tp_constrain_conv``), the heads of the flash
+    calls (8, and 4 a rank under model=2), finite losses equal across the
+    ranks; a rank's state bytes under FSDP at most 0.55 of the whole; the
+    first steps against 16 (i)'s one process; the FSDP checkpoints
+    shard-wise and read whole here; the resumed run's ``step_2`` bit-equal to
+    the straight run's. Prints the step ms and peak memory a rank. Returns
+    rank 0's launches over the runs."""
+    tag = "23 fsdp and tp"
+    t0 = time.perf_counter()
+    n = flagship_video_config(256).temporal.num_layers
+    for r, got in enumerate(ranks):
+        for name, k in PAR_STEPS.items():
+            check(got[name]["counts"] == expect_counts(launches=k * n, dq_launches=k * n, dkv_launches=k * n),
+                  f"23 {name} rank {r} launches {got[name]['counts']}")
+            check(len(got[name]["steps"]) == k and all(math.isfinite(m["loss"]) for m in got[name]["steps"]),
+                  f"23 {name} rank {r} steps {got[name]['steps']}")
+            need = {"tp_constrain", "tp_constrain_conv"} if name == "tp" else {"fsdp_constrain"}
+            check(need <= set(got[name]["seen"]), f"23 {name} rank {r} recorded {got[name]['seen']}")
+            check(got[name]["heads"] == ([4] if name == "tp" else [8]), f"23 {name} rank {r} heads {got[name]['heads']}")
+    for name in PAR_STEPS:
+        check(len({json.dumps([m["loss"] for m in g[name]["steps"]]) for g in ranks}) == 1,
+              f"23 {name}: the ranks' losses differ")
+    shares = []
+    for got in ranks:
+        line = next(t for t in got["fsdp"]["printed"] if t.startswith("FSDP over"))
+        local, whole = (int(x) for x in re.search(r"this rank (\d+) of (\d+)", line).groups())
+        check(local <= 0.55 * whole, f"23 fsdp: a rank holds {local} of {whole} state bytes")
+        shares.append((local, whole))
+    fsdp_path = tmp / "fsdp" / "step_1"
+    check(ckpt.is_sharded_checkpoint(str(fsdp_path)) and not ckpt.is_sharded_checkpoint(str(tmp / "tp" / "step_1")),
+          "23: the FSDP checkpoint is not shard-wise, or the TP one is")
+    files = sorted(p_.name for p_ in fsdp_path.iterdir())
+    lines = {name: against_one(f"23 {name}", ranks[0][name]["steps"][0]["loss"], reference,
+                               ref_dir / "one" / "step_1", tmp / name / "step_1") for name in ("fsdp", "tp")}
+    straight = state_tensors(ckpt.restore_state(str(tmp / "fsdp" / "step_2")))
+    resumed = state_tensors(ckpt.restore_state(str(tmp / "resumed" / "step_2")))
+    bad = unequal(straight, resumed)
+    check(not bad, f"23 fsdp: the resumed step_2 differs from the straight one in {len(bad)} tensors: {bad[:5]}")
+    for name, what in (("fsdp", "video --mesh data=2 --fsdp"), ("tp", "video --mesh model=2")):
+        c = ranks[0][name]["counts"]
+        ms = [[round(m["ms"], 1) for m in g[name]["steps"]] for g in ranks]
+        print(f"[{tag}] {what} as 2 ranks ({label}), {CARD}, 256^2 T 8 B 4, fp32, dropout and noise off, SGD lr 1: "
+              f"flash launches on rank 0 {c['launches']}/{c['dq_launches']}/{c['dkv_launches']} over "
+              f"{PAR_STEPS[name]} step(s), {ranks[0][name]['heads'][0]} heads a call; markers "
+              f"{sorted(m for m in ranks[0][name]['seen'] if m.startswith(('fsdp', 'tp')))}; step ms per rank "
+              f"(synchronised; not a scaling number) {ms}; peak memory per rank "
+              f"{[round(g[name]['peak_gb'], 2) for g in ranks]} GB; run wall per rank "
+              f"{[round(g[name]['wall'], 1) for g in ranks]} s")
+        print(f"[{tag}] {what}: the first step against one process on the same global batch of 4: {lines[name]}")
+    print(f"[{tag}] fsdp: state bytes per rank {shares[0][0]} of {shares[0][1]} ({shares[0][0] / shares[0][1]:.3f}); "
+          f"step_1 shard-wise ({sum(f_.endswith('.distcp') for f_ in files)} .distcp files and .metadata), read "
+          f"whole by this process (no process group); 1 epoch + --resume 1 against 2 straight (cuDNN deterministic): "
+          f"all {len(straight)} tensors of step_2 bit-equal (model, SGD momentum, generators)")
+    runs_wall = sum(ranks[0][name]["wall"] for name in PAR_STEPS)
+    checks_s = time.perf_counter() - t0
+    PHASE_SECONDS["23 (in 16)"] = runs_wall + checks_s
+    print(f"[phase 23] {runs_wall + checks_s:.1f} s (its runs {runs_wall:.1f} s of rank 0's wall in 16's spawn, "
+          f"its checks {checks_s:.1f} s)")
+    return {k: sum(ranks[0][name]["counts"][k] for name in PAR_STEPS) for k in ranks[0]["tp"]["counts"]}
 
 
 # The data ranks timed as users launch them (12c): the CLI's own precision
@@ -2743,30 +2940,35 @@ def epoch2_ms(lines) -> float:
     return (ends[1] - ends[0]) / TIMED_STEPS * 1e3
 
 
-def timed_data_cli(tag: str, tmp: Path, label: str, world: int, batch: int, flags: list) -> None:
-    """``video --batch-size batch flags`` as ``world`` ranks (one spawn) and
-    as one process at ``batch`` and at ``batch`` over the data ranks, each
-    through ``cli.main`` with TIMED_ARGV; prints each one's step ms."""
-    share = batch // int(dict(a.split("=") for a in flags[flags.index("--mesh") + 1].split(","))["data"])
-    # A user's process: PyTorch's defaults (the spawned ranks start with them).
-    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+def timed_data_cli(tag: str, tmp: Path, label: str, world: int, batch: int, flags: list,
+                   one_process: bool = True) -> None:
+    """``video --batch-size batch flags`` as ``world`` ranks (one spawn) and,
+    with ``one_process``, as one process at ``batch`` and at ``batch`` over
+    the data ranks, each through ``cli.main`` with TIMED_ARGV; prints each
+    one's step ms and a rank's peak memory."""
+    axes = dict(a.split("=") for a in flags[flags.index("--mesh") + 1].split(","))
+    share = batch // int(axes.get("data", 1))
     one = {}
-    for b in (batch, share):
-        out = StampedOut()
-        with contextlib.redirect_stdout(out):
-            cli.main(TIMED_ARGV + ["--batch-size", str(b), "--checkpoint-dir", str(tmp / f"timed_one_{b}")])
-        free_cuda()
-        one[b] = epoch2_ms(out.lines)
-    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    runs = [("timed", TIMED_ARGV + ["--batch-size", str(batch), *flags, "--checkpoint-dir", str(tmp / "timed")],
-             False)]
+    if one_process:
+        # A user's process: PyTorch's defaults (the spawned ranks start with them).
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+        for b in (batch, share):
+            out = StampedOut()
+            with contextlib.redirect_stdout(out):
+                cli.main(TIMED_ARGV + ["--batch-size", str(b), "--checkpoint-dir", str(tmp / f"timed_one_{b}")])
+            free_cuda()
+            one[b] = epoch2_ms(out.lines)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    name = "timed_" + "_".join(f"{k}{v}" for k, v in axes.items()) + ("_fsdp" if "--fsdp" in flags else "")
+    runs = [(name, TIMED_ARGV + ["--batch-size", str(batch), *flags, "--checkpoint-dir", str(tmp / name)], False)]
     ranks, _ = spawn_cli(world, runs)
-    ms = [round((g["timed"]["epoch_ends"][1] - g["timed"]["epoch_ends"][0]) / TIMED_STEPS * 1e3, 1) for g in ranks]
-    check(all(len(g["timed"]["epoch_ends"]) == 2 for g in ranks), f"(i) timed run: epoch lines {ranks}")
+    ms = [round((g[name]["epoch_ends"][1] - g[name]["epoch_ends"][0]) / TIMED_STEPS * 1e3, 1) for g in ranks]
+    check(all(len(g[name]["epoch_ends"]) == 2 for g in ranks), f"(i) timed run: epoch lines {ranks}")
     print(f"[{tag}] (i) timed as users launch it (cuDNN TF32 on, dropout and noise on, AdamW; epoch 2's wall "
-          f"over its {TIMED_STEPS} steps): video --batch-size {batch} {' '.join(flags)} as {world} ranks ({label}) "
-          f"step ms per rank {ms}; one process at B {batch} {one[batch]:.1f} ms, at B {share} {one[share]:.1f} ms")
+          f"over its {TIMED_STEPS} steps; {CARD}): video --batch-size {batch} {' '.join(flags)} as {world} ranks "
+          f"({label}) step ms per rank {ms}, peak memory per rank {[round(g[name]['peak_gb'], 2) for g in ranks]} GB"
+          + (f"; one process at B {batch} {one[batch]:.1f} ms, at B {share} {one[share]:.1f} ms" if one else ""))
 
 
 # Phase 16 (g)'s mesh commands: (name, flags, steps in the timed epoch).
@@ -2789,15 +2991,16 @@ def mesh_cli(tag: str, tmp: Path, label: str) -> dict:
 
 def mesh_runs(tmp: Path) -> list:
     """:func:`cli_rank`'s runs of MESH_CLI at 256^2 and B 2."""
-    return [(name, ["video", "--image-size", "256", "--batch-size", "2", "--device-prefetch", "0", *flags,
-                    "--checkpoint-dir", str(tmp / name)], False) for name, flags, _ in MESH_CLI]
+    return [(name, ["video", "--image-size", "256", "--batch-size", "2", "--device-prefetch", "0",
+                    "--layers", str(RANK_LAYERS), *flags, "--checkpoint-dir", str(tmp / name)], False)
+            for name, flags, _ in MESH_CLI]
 
 
 def check_mesh_cli(tag: str, tmp: Path, label: str, ranks: list) -> dict:
     """:func:`mesh_runs`' results on two ranks: launches and markers per
     rank, rank 0's checkpoints; prints each rank's step ms. Returns rank 0's
     launches of the three."""
-    n = flagship_video_config(256).temporal.num_layers
+    n = RANK_LAYERS
     expert_steps = 2 * MESH_CLI[2][2]
     want = {"halo": expect_counts(halo_fwd_launches=n, halo_ds_launches=n, halo_dq_launches=n,
                                   halo_dkv_launches=n),
@@ -2831,7 +3034,8 @@ def check_mesh_cli(tag: str, tmp: Path, label: str, ranks: list) -> dict:
               f"2 epochs of {steps} steps): flash launches per rank {c['launches']}/{c['dq_launches']}/"
               f"{c['dkv_launches']}; {' | '.join(epochs)}; step ms per rank (epoch 2's wall over its "
               f"{steps} steps; {label}; not a scaling number) {[round(x, 1) for x in ms]}")
-    print(f"[{tag}] (g) expert checkpoint: rank 0 wrote step_2 with w1 {tuple(w1.shape)} (all 4 experts)")
+    print(f"[{tag}] (g) expert checkpoint: step_2 written shard-wise by both ranks, read whole here: w1 "
+          f"{tuple(w1.shape)} (all 4 experts)")
     return {k: sum(ranks[0][name]["counts"][k] for name, _, _ in MESH_CLI) for k in h}
 
 
@@ -2880,7 +3084,8 @@ def phase_infer(tag: str, served: str) -> str:
     device's busy time per batch from two profiled runs (INFER_BATCHES + 1
     and 1 batch, so that the restore and the warm-up batch cancel), and the
     host's time to make a synthetic batch. Returns the last run's output."""
-    argv = ["infer", "--checkpoint", served, "--batch-size", "8", "--clip-len", "8", "--image-size", "256"]
+    argv = ["infer", "--checkpoint", served, "--batch-size", "8", "--clip-len", "8", "--image-size", "256",
+            *CELL_DEPTH]
     rates = []
     for _ in range(3):
         text = run_cli(argv + ["--synthetic", str(INFER_BATCHES + 1)])
@@ -2908,7 +3113,7 @@ def phase_runtime(train_ms: float) -> dict:
     import warnings
 
     tag = "16 run-time"
-    n = flagship_video_config(256).temporal.num_layers
+    n = CELL_LAYERS  # (a)-(c)'s flash launches a step, each kind
     cwd = os.getcwd()
     det = torch.backends.cudnn.deterministic
     with tempfile.TemporaryDirectory() as tmp:
@@ -2944,7 +3149,7 @@ def phase_runtime(train_ms: float) -> dict:
                 print(f"[{tag}] (a) video {' '.join(CLI_CELL)} --epochs 2 --save-every 1 (fp32, AdamW 1e-4, "
                       f"mixed loss, DevicePrefetch 2) in {a_s:.1f} s: flash launches over 6 steps fwd "
                       f"{launches['launches']}, dq {launches['dq_launches']}, dkv {launches['dkv_launches']} "
-                      f"(2/2/2 per step), other kernels 0; tags {step_tags(a_dir)}, TAG_SCHEME epochs, "
+                      f"({n}/{n}/{n} per step), other kernels 0; tags {step_tags(a_dir)}, TAG_SCHEME epochs, "
                       f"run.json, 1 event file with Loss/PSNR at epochs 1-2; "
                       + "; ".join(re.findall(r"Video epoch \d+: [^\n]*", text)))
 
@@ -2996,7 +3201,7 @@ def phase_runtime(train_ms: float) -> dict:
             del clips
             c_dir = tmp / "c"
             flags = ["--clippack", pack, "--batch-size", "8", "--clip-len", "8", "--image-size", "256",
-                     "--attn-impl", "flash", "--save-every-steps", "2", "--checkpoint-dir", str(c_dir)]
+                     "--attn-impl", "flash", "--save-every-steps", "2", "--checkpoint-dir", str(c_dir), *CELL_DEPTH]
             run_cli(["video", *flags, "--epochs", "1"])
             check(step_tags(c_dir) == ["step_2", "step_3"], f"(c) tags {step_tags(c_dir)}")
             shutil.rmtree(c_dir / "step_3")  # preempted before the clean-shutdown save
@@ -3076,9 +3281,10 @@ def phase_runtime(train_ms: float) -> dict:
                      "256", "--attn-impl", "flash", "--window", "64", "--epochs", "1",
                      "--checkpoint-dir", str(tmp / "f")])
             band = counts()
-            check(band == expect_counts(band_fwd_launches=2 * n,
-                                        band_ds_launches=2 * n, band_dq_launches=2 * n,
-                                        band_dkv_launches=2 * n), f"(f) launches {band}")
+            nf = flagship_video_config(256).temporal.num_layers
+            check(band == expect_counts(band_fwd_launches=2 * nf,
+                                        band_ds_launches=2 * nf, band_dq_launches=2 * nf,
+                                        band_dkv_launches=2 * nf), f"(f) launches {band}")
             print(f"[{tag}] (f) video --window 64 --batch-size 2 --clip-len 32 --synthetic 2 --epochs 1: band "
                   f"launches over 2 steps fwd {band['band_fwd_launches']}, ds {band['band_ds_launches']}, dq "
                   f"{band['band_dq_launches']}, dkv {band['band_dkv_launches']} (2/2/2/2 per step), other 0")
@@ -3090,11 +3296,14 @@ def phase_runtime(train_ms: float) -> dict:
             # (gloo) in one spawn; (i)'s one-process reference first.
             data_spec = [("data", 4, ["--mesh", "data=2"])]
             reference = data_reference(tmp / "i", data_spec)
-            ranks, wall = spawn_cli(2, mesh_runs(tmp / "g") + data_runs(tmp / "i", data_spec))
-            label = f"2 ranks sharing one H100, gloo; (g)'s 3 commands and (i)'s in one spawn of {wall:.1f} s"
+            ranks, wall = spawn_cli(2, mesh_runs(tmp / "g") + data_runs(tmp / "i", data_spec)
+                                    + parallel_runs(tmp / "p"))
+            label = (f"2 ranks sharing one H100, gloo; (g)'s 3 commands, (i)'s and phase 23's 4 in one spawn of "
+                     f"{wall:.1f} s")
             mesh_counts = check_mesh_cli(tag, tmp / "g", label, ranks)
             data_counts = check_data_mesh(tag, tmp / "i", label, data_spec, ranks, reference)
-            mesh_counts = {k: mesh_counts[k] + data_counts[k] for k in mesh_counts}
+            par_counts = check_parallel_cli(tmp / "p", label, ranks, reference, tmp / "i")
+            mesh_counts = {k: mesh_counts[k] + data_counts[k] + par_counts[k] for k in mesh_counts}
             del reference
             free_cuda()
 
@@ -3102,10 +3311,10 @@ def phase_runtime(train_ms: float) -> dict:
             served = str(a_dir / "step_3")
             out = {"infer": phase_infer(tag, served)}
             out["eval"] = run_cli(["eval", "--checkpoint", served, "--synthetic", "2", "--batch-size", "8",
-                                   "--clip-len", "8", "--image-size", "256"])
+                                   "--clip-len", "8", "--image-size", "256", *CELL_DEPTH])
             out["stream"] = run_cli(["stream", "--checkpoint", served, "--synthetic", str(STREAM_CLIPS + 1),
                                      "--batch-size", "1", "--clip-len", "16", "--height", "1080",
-                                     "--width", "1920"])
+                                     "--width", "1920", *CELL_DEPTH])
             out["summary"] = run_cli(["summary", "--image-size", "256", "--depth", "1"])
             out["doctor"] = run_cli(["doctor", "--smoke"])
             for k in ("infer", "eval"):
@@ -5260,12 +5469,12 @@ def phase_tune(out: dict) -> None:
     tmp = Path(tempfile.mkdtemp(prefix="tchvp_tune_"))
     env = dict(os.environ, TCHVP_AUTOTUNE_CACHE=str(tmp / "autotune.json"))
     t0 = time.perf_counter()
-    text = run_tool(["-m", "tchvp_tpu_torch.cli", "tune", *TUNE_CLI], env)
-    print("\n".join(f"[22 tune] {line}" for line in text.strip().splitlines()))
     run_wide = os.environ.get("TCHVP_AUTOTUNE_CACHE")
     os.environ["TCHVP_AUTOTUNE_CACHE"] = env["TCHVP_AUTOTUNE_CACHE"]
     autotune.reload()
     try:
+        text = run_cli(["tune", *TUNE_CLI])  # in this process: a process start is ~8 s of host time
+        print("\n".join(f"[22 tune] {line}" for line in text.strip().splitlines()))
         for shape, dtype in TUNE_FLASH:
             print(f"[22 tune] tuning flash @ {shape} dtype={dtype} (in this process)")
             params, ms = autotune.tune_flash(shape, dtype, iters=5)
@@ -5455,6 +5664,7 @@ def main() -> None:
         seconds["14"] = time.perf_counter() - t
         print(f"[phase 14] {seconds['14']:.1f} s")
     shutil.rmtree(DRAWS_DIR, ignore_errors=True)
+    seconds.update(PHASE_SECONDS)
     print(f"[done] {time.perf_counter() - t0:.1f} s; by phase: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     if "14" in phases:

@@ -476,11 +476,14 @@ def _video_model(args, device):
                              "(the temporal transformer's FFNs)")
         if getattr(args, "seq_axis", None):
             raise SystemExit(f"--mesh seq=N applies to --model hybrid only (got --model {args.model})")
+        from tchvp_tpu_torch.config import ResNetAEConfig
         from tchvp_tpu_torch.models.frame_ae import FrameAE
         from tchvp_tpu_torch.models.resnet_ae import Autoencoder4K, Autoencoder32K
 
-        return FrameAE(_seeded(Autoencoder32K if args.model == "ae32k" else Autoencoder4K,
-                               device=device))
+        tp_axis = getattr(args, "tp_axis", None)
+        if args.model == "ae32k":
+            return FrameAE(_seeded(Autoencoder32K, ResNetAEConfig(tp_axis=tp_axis), device=device))
+        return FrameAE(_seeded(Autoencoder4K, tp_axis=tp_axis, device=device))
     attn = getattr(args, "attn_impl", None) or "xla"
     if attn == "ring" and not getattr(args, "seq_axis", None):
         raise SystemExit("--attn-impl ring is full attention over seq-sharded tokens: "
@@ -503,6 +506,7 @@ def _hybrid_config(args, size: int, attn: str = "xla"):
         router_top_k=getattr(args, "router_top_k", 1),
         ep_axis=getattr(args, "ep_axis", None),
         seq_axis=getattr(args, "seq_axis", None),
+        tp_axis=getattr(args, "tp_axis", None),
     )
 
 
@@ -532,8 +536,6 @@ def cmd_video(args) -> None:
             args.train_csv, args.batch_size, args.image_size, args.clip_len,
             prefetch=True,
         )
-    if args.fsdp:
-        _not_ported("--fsdp", "11d")
     if args.num_experts and args.model != "hybrid":
         raise SystemExit("--num-experts applies to --model hybrid only "
                          "(the temporal transformer's FFNs)")
@@ -546,10 +548,18 @@ def cmd_video(args) -> None:
         **_train_cfg_kwargs(args),
     )
     device = _device(args)
-    mesh = _mesh(args, axes_ported=("seq", "expert"))
+    mesh = _mesh(args, axes_ported=("seq", "expert", "model"))
     names = mesh.mesh_dim_names if mesh is not None else ()
     args.seq_axis = "seq" if "seq" in names else None
     args.ep_axis = "expert" if "expert" in names else None
+    # "model": tensor parallelism of the transformer's heads and FFN hidden
+    # dim and of every conv stack's channels (parallel/tp.py).
+    args.tp_axis = "model" if "model" in names else None
+    if args.fsdp and "data" not in names:
+        raise SystemExit("--fsdp requires --data-parallel or --mesh data=N (a mesh "
+                         "to shard parameters over; ROADMAP.md, item 11d)")
+    if args.tp_axis and args.qat:
+        _not_ported("--qat under --mesh model=N", "11e")
     if args.clippack and "data" in names:
         from tchvp_tpu_torch.parallel.input import sharded_clippack_loader
 
@@ -565,6 +575,7 @@ def cmd_video(args) -> None:
     model = _video_model(args, device)
     flow = VideoFlow(
         model, cfg=cfg, image_size=args.image_size, mesh=mesh,
+        fsdp_axis="data" if args.fsdp else None,
         accum_steps=args.accum_steps,
         remat_policy=args.remat_policy,
         qat=args.qat, qat_dense=args.qat_dense,
@@ -1405,11 +1416,14 @@ def _build_parser():
                            choices=("hybrid", "ae32k", "ae4k"))
             p.add_argument("--mesh", default=None,
                            help="device mesh as axis=size pairs; the port runs "
-                                "data=N (data parallelism), seq=N (sequence "
-                                "parallelism: --window, or --attn-impl ring), "
-                                "expert=N (expert parallelism, with "
-                                "--num-experts) and data=N beside seq or expert, "
-                                "one process per rank; other axes are items 11d-11f")
+                                "data=N (data parallelism; --fsdp shards the "
+                                "state over it), seq=N (sequence parallelism: "
+                                "--window, or --attn-impl ring), expert=N "
+                                "(expert parallelism, with --num-experts), "
+                                "model=N (tensor parallelism: heads, FFN hidden "
+                                "dim and conv channels) and data=N beside one of "
+                                "them, one process per rank; spatial= is item "
+                                "11e, pipe= item 11f")
             p.add_argument("--layers", type=int, default=2,
                            help="temporal transformer depth (hybrid model)")
             p.add_argument("--attn-impl", default="xla",
@@ -1428,7 +1442,11 @@ def _build_parser():
             p.add_argument("--router-top-k", type=int, default=1,
                            help="experts per token (1 = Switch, 2 = GShard "
                                 "top-2); training logs moe_drop_frac")
-            p.add_argument("--fsdp", action="store_true", help="not ported yet (item 11d)")
+            p.add_argument("--fsdp", action="store_true",
+                           help="ZeRO-3: parameters, optimizer moments and EMA "
+                                "sharded over the data axis (parallel/fsdp.py), "
+                                "checkpoints shard-wise; needs --mesh data=N or "
+                                "--data-parallel")
             p.add_argument("--accum-steps", type=int, default=1,
                            help="gradient accumulation: split each batch "
                                 "into N microbatches, one optimizer update")

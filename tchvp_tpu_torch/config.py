@@ -6,9 +6,12 @@ Copies of ``tchvp_tpu/config.py``'s ``AutoEncoderConfig``, ``UNetConfig``,
 ``IngestConfig``, ``AugmentConfig`` and ``TrainConfig`` with identical field names and
 defaults (``tests/test_torch_config.py`` and ``tests/test_torch_fct.py``
 hold them equal), so a configuration means the same model and run in both
-packages. The mesh-axis fields (``tp_axis``, ``sp_axis``, ``seq_axis``,
-``ep_axis``, ``mesh_axes``) are kept for that equality; the port does not
-run them yet.
+packages. Of the mesh-axis fields, ``TransformerConfig.seq_axis`` and
+``ep_axis`` (sequence and expert parallelism) and the ``tp_axis`` of
+``ResNetAEConfig`` and ``TransformerConfig`` (tensor parallelism) act under
+a mesh carrying the axis; ``sp_axis`` (spatial partitioning, item 11e of
+ROADMAP.md) raises, and ``TrainConfig.mesh_axes``, which no flow of the
+JAX package reads either, is kept for the equality alone.
 """
 
 from __future__ import annotations

@@ -18,6 +18,15 @@ copy there sent every BatchNorm to the NCHW kernels: ``video --model
 ae32k``'s step (batch 8 x 8 frames at 256^2, fp32) took 286.93 ms with it
 and 201.84 ms without (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase
 19).
+
+``ResNetAEConfig.tp_axis`` (tensor parallelism, ``parallel/tp.py``): under
+a mesh carrying the axis every conv stage computes this rank's block of
+its channels where the axis divides them, as JAX's ``conv_constrain``
+after each stage has it: the encoder's latent comes out as this rank's
+block of its channels, the decoder takes the latent either way, and its
+narrow head (3 image channels, 1 mask channel) computes whole on every
+rank. The autoencoders return the whole latent and reconstruction.
+``sp_axis`` (spatial partitioning) is item 11e and raises.
 """
 
 from __future__ import annotations
@@ -39,7 +48,9 @@ from tchvp_tpu_torch.ops.blocks import (
     draw_keep,
     dropout,
     init_flax_default,
+    set_tp_axis,
 )
+from tchvp_tpu_torch.parallel import tp
 
 
 class Encoder32K(nn.Module):
@@ -93,7 +104,7 @@ class Encoder32K(nn.Module):
         if self.training and self.config.dropout_rate > 0.0:
             if keep is None:
                 keep = self.draw_dropout(h.shape[0], generator, h.device)
-            h = dropout(h, self.config.dropout_rate, None, keep=keep)
+            h = dropout(h, self.config.dropout_rate, None, keep=_channels_like(keep, h, self.config.tp_axis))
         return h
 
 
@@ -138,6 +149,7 @@ class Decoder32K(nn.Module):
         for c, bn in zip(self.post_convs, self.post_bns):
             x = torch.relu(bn(c(x)))
         x = self.head_bn(self.head_conv(x))
+        x = tp.to_replicated(x, self.head_conv.tp_axis, self.head_conv.out_channels)
         if self.output_type == "mask":
             return torch.sigmoid(x)
         return torch.relu(x)
@@ -190,6 +202,7 @@ class Autoencoder32K(nn.Module):
             self.mu = conv(c, c, 1, bias=True)
             self.logvar = conv(c, c, 1, bias=True)
         init_flax_default(self, generator or torch.Generator().manual_seed(0))
+        set_tp_axis(self, config.tp_axis)
         self.to(device)
 
     def draw(self, n: int, hw: Tuple[int, int], generator: Optional[torch.Generator],
@@ -212,8 +225,9 @@ class Autoencoder32K(nn.Module):
         latent = self.encoder(x, keep=draws.keep)
         if self.config.vae:
             mu, logvar = self.mu(latent), self.logvar(latent)
-            latent = mu + torch.exp(0.5 * logvar) * draws.eps.to(mu.dtype)
-        return latent, self.decoder(latent)
+            latent = mu + torch.exp(0.5 * logvar) * _channels_like(draws.eps, mu, self.config.tp_axis).to(mu.dtype)
+        recon = self.decoder(latent)
+        return tp.to_replicated(latent, self.config.tp_axis, self.config.squeeze_features[-1]), recon
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 draws: Optional[AEDraws] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -246,6 +260,7 @@ class Autoencoder4K(nn.Module):
         self.decoder = Decoder32K(output_type=output_type, conv_features=(32, 64, 128, 256),
                                   latent_channels=16)
         init_flax_default(self, generator or torch.Generator().manual_seed(0))
+        set_tp_axis(self, tp_axis)
         self.to(device)
 
     def draw(self, n: int, hw: Tuple[int, int], generator: Optional[torch.Generator],
@@ -257,7 +272,9 @@ class Autoencoder4K(nn.Module):
     def forward_nchw(self, x: torch.Tensor, draws: AEDraws) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, 3, H, W) -> (flat latent (N, 16 h w), recon (N, C', H, W))."""
         latent_map = self.encoder(x, keep=draws.keep)
-        return latent_map.reshape(latent_map.shape[0], -1), self.decoder(latent_map)
+        recon = self.decoder(latent_map)
+        latent_map = tp.to_replicated(latent_map, self.config.tp_axis, self.config.squeeze_features[-1])
+        return latent_map.reshape(latent_map.shape[0], -1), recon
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 draws: Optional[AEDraws] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -269,8 +286,17 @@ class Autoencoder4K(nn.Module):
 
 
 def _unported_axes(cfg: ResNetAEConfig) -> None:
-    for name in ("tp_axis", "sp_axis"):
-        if getattr(cfg, name):
-            raise NotImplementedError(
-                f"ResNetAEConfig {name} is not ported yet (ROADMAP.md, modules to port, item 11e: "
-                "tensor and spatial parallelism)")
+    if cfg.sp_axis:
+        raise NotImplementedError(
+            "ResNetAEConfig sp_axis is not ported yet (ROADMAP.md, modules to port, item 11e: "
+            "tensor and spatial parallelism)")
+
+
+def _channels_like(t: torch.Tensor, like: torch.Tensor, tp_axis: Optional[str]) -> torch.Tensor:
+    """A per-channel draw ``t`` of the whole latent cut to the channels
+    ``like`` holds: this rank's block under tensor parallelism."""
+    if t.shape[1] == like.shape[1]:
+        return t
+    n, i, _ = tp.tp_shards(tp_axis)
+    per = t.shape[1] // n
+    return t.narrow(1, i * per, per)

@@ -18,6 +18,17 @@ from the left neighbour or runs the ring (``ops/attention.py``), and the
 dropout draws are made for the whole sequence, the same on every rank, each
 keeping its part.
 
+``tp_axis`` (tensor parallelism, ``parallel/tp.py``): under a mesh
+carrying the axis (size n), q, k and v are column-parallel, each rank
+computing its block of heads (H/n of them, whole heads: the features split
+on head boundaries), and runs the attention core on them at the full
+model dim's scale; the output projection is row-parallel, one sum over the
+group. The dense FFN is ``ffn1`` column-parallel and ``ffn2`` row-parallel.
+Tokens between the layers are whole on every rank. The attention dropout
+draws a keep mask for every head and keeps this rank's block (the dense
+cores), or one seed per rank (the kernels, whose hash cannot be offset to
+another rank's heads). The routed MoE pool runs whole on every rank.
+
 ``num_experts >= 2`` builds the routed FFN pool ``moe_{layer}``
 (:class:`~tchvp_tpu_torch.ops.moe.MoEFFN`) in place of ``ffn1_``/``ffn2_``,
 as JAX's encoder does; a forward given ``moe_sink`` appends each MoE
@@ -42,6 +53,7 @@ from tchvp_tpu_torch.ops.attention import (
 )
 from tchvp_tpu_torch.ops.blocks import Dense, draw_keep, dropout
 from tchvp_tpu_torch.ops.moe import MoEFFN, MoEStats
+from tchvp_tpu_torch.parallel import tp
 from tchvp_tpu_torch.parallel.mesh import axis_shards
 
 LN_EPS = 1e-5
@@ -68,7 +80,8 @@ class TokenMultiheadAttention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, relu_qkv: bool = True,
                  attn_dropout: float = 0.1, attn_impl: str = "xla",
-                 window_size: int = 0, seq_axis: Optional[str] = None):
+                 window_size: int = 0, seq_axis: Optional[str] = None,
+                 tp_axis: Optional[str] = None):
         super().__init__()
         if dim % num_heads != 0:
             raise ValueError(f"input dim {dim} not divisible by num_heads {num_heads}")
@@ -78,6 +91,7 @@ class TokenMultiheadAttention(nn.Module):
         self.attn_impl = attn_impl
         self.window_size = window_size
         self.seq_axis = seq_axis
+        self.tp_axis = tp_axis
         self.q_linear = Dense(dim, dim)
         self.k_linear = Dense(dim, dim)
         self.v_linear = Dense(dim, dim)
@@ -87,14 +101,23 @@ class TokenMultiheadAttention(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 dropout_draw: Optional[torch.Tensor] = None) -> torch.Tensor:
         d = x.shape[-1]
-        q, k, v = self.q_linear(x), self.k_linear(x), self.v_linear(x)
+        shards = tp.tp_shards(self.tp_axis)
+        heads = self.num_heads
+        if shards is None:
+            q, k, v = self.q_linear(x), self.k_linear(x), self.v_linear(x)
+        else:
+            if heads % shards[0]:
+                raise ValueError(f"{heads} heads not divisible by {self.tp_axis}={shards[0]}")
+            heads //= shards[0]
+            q, k, v = (tp.linear_columns(lin, x, self.tp_axis)
+                       for lin in (self.q_linear, self.k_linear, self.v_linear))
         if self.relu_qkv:
             q, k, v = torch.relu(q), torch.relu(k), torch.relu(v)
         if mask is not None:
             # (B, Sq, Sk) -> (B, 1, Sq, Sk), broadcast across heads.
             mask = (mask != 0)[:, None, :, :]
         out = multi_head_attention(
-            q, k, v, self.num_heads,
+            q, k, v, heads,
             impl=self.attn_impl,
             window_size=self.window_size,
             scale=1.0 / math.sqrt(d),  # the full model dim
@@ -105,7 +128,7 @@ class TokenMultiheadAttention(nn.Module):
             seq_axis=self.seq_axis,
             dropout_draw=dropout_draw,
         )
-        return self.out_linear(out)
+        return self.out_linear(out) if shards is None else tp.linear_rows(self.out_linear, out, self.tp_axis)
 
 
 class TransformerLayer(nn.Module):
@@ -117,7 +140,9 @@ class TransformerLayer(nn.Module):
         self.attention = TokenMultiheadAttention(
             d, cfg.num_heads, relu_qkv=cfg.relu_qkv, attn_dropout=cfg.dropout_rate,
             attn_impl=cfg.attn_impl, window_size=cfg.window_size, seq_axis=cfg.seq_axis,
+            tp_axis=cfg.tp_axis,
         )
+        self.tp_axis = cfg.tp_axis
         self.norm = nn.LayerNorm(d, eps=LN_EPS)
         if cfg.num_experts >= 2:
             self.moe = MoEFFN(d, cfg.num_experts, cfg.hidden_dim, cfg.expert_capacity_factor,
@@ -130,7 +155,10 @@ class TransformerLayer(nn.Module):
         """The FFN branch: the routed pool, or Dense -> ReLU -> Dense."""
         if hasattr(self, "moe"):
             return self.moe(x, sink)
-        return self.ffn2(torch.relu(self.ffn1(x)))
+        if tp.tp_shards(self.tp_axis) is None:
+            return self.ffn2(torch.relu(self.ffn1(x)))
+        h = torch.relu(tp.linear_columns(self.ffn1, x, self.tp_axis))
+        return tp.linear_rows(self.ffn2, h, self.tp_axis)
 
 
 def _norm(layer: TransformerLayer, h: torch.Tensor) -> torch.Tensor:
@@ -167,10 +195,11 @@ class TransformerEncoder(nn.Module):
         impl = resolve_impl(cfg.attn_impl, device.type == "cuda", has_mask, cfg.window_size)
         core = attention_core(impl, has_mask, cfg.window_size)
         shards, i = axis_shards(cfg.seq_axis)
+        heads = axis_shards(cfg.tp_axis)
         attention, layer_keep = [], []
         for _ in range(n):
             attention.append(draw_attention_dropout(core, (b, cfg.num_heads, s), rate, generator,
-                                                    device, cfg.window_size, (shards, i)))
+                                                    device, cfg.window_size, (shards, i), heads))
             keep = draw_keep((b, shards * s, d), rate, generator, device)
             layer_keep.append(keep[:, i * s:(i + 1) * s])
         return TransformerDraws(attention, layer_keep)

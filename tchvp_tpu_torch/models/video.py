@@ -14,6 +14,14 @@ frame; train-mode BatchNorm takes its statistics over the axis; the
 positional encoding is the global sequence's rows of this block; dropout
 draws are made for the whole clip, the same on every rank, each keeping its
 part. JAX's arrays are global under GSPMD, so this is what it computes.
+
+Tensor parallelism (``config.encoder.tp_axis`` and ``config.temporal.tp_axis``,
+the ``model`` axis of ``flagship_video_config(tp_axis=)``, under a mesh
+carrying it): the encoder and decoder compute each rank's block of their
+channels (``models/resnet_ae.py``), the latent is gathered whole before it
+becomes tokens, and the transformer runs its heads and FFN hidden dim in
+blocks (``models/transformer.py``); every rank is given the same clip and
+ends with the same reconstruction.
 """
 
 from __future__ import annotations
@@ -31,12 +39,14 @@ from tchvp_tpu_torch.config import VideoModelConfig
 from tchvp_tpu_torch.models.resnet_ae import (
     Decoder32K,
     Encoder32K,
+    _unported_axes,
     latent_to_tokens,
     tokens_to_latent,
 )
 from tchvp_tpu_torch.models.transformer import TransformerDraws, TransformerEncoder
-from tchvp_tpu_torch.ops.blocks import BatchNorm, init_flax_default
+from tchvp_tpu_torch.ops.blocks import BatchNorm, init_flax_default, set_tp_axis
 from tchvp_tpu_torch.ops.moe import MoEStats
+from tchvp_tpu_torch.parallel import tp
 from tchvp_tpu_torch.parallel.mesh import axis_shards
 
 
@@ -90,6 +100,7 @@ class VideoHybridNet(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        _unported_axes(config.encoder)
         self.config = config
         self.compute_dtype = compute_dtype
         self.encoder = Encoder32K(config.encoder)
@@ -100,6 +111,8 @@ class VideoHybridNet(nn.Module):
         for m in self.modules():
             if isinstance(m, BatchNorm):
                 m.seq_axis = config.temporal.seq_axis
+        set_tp_axis(self.encoder, config.encoder.tp_axis)
+        set_tp_axis(self.decoder, config.encoder.tp_axis)
         self._posenc: Dict[Tuple, torch.Tensor] = {}
         self.to(device=device, dtype=dtype)
 
@@ -136,6 +149,7 @@ class VideoHybridNet(nn.Module):
         frames = layout.nhwc_to_nchw(layout.fold_time(clip))  # (B*T, C, H, W)
         keep = draws.latent_keep if draws is not None else None
         latent = self.encoder(frames, generator=generator, keep=keep)
+        latent = tp.to_replicated(latent, self.config.encoder.tp_axis, self.config.encoder.squeeze_features[-1])
         _, cc, hh, ww = latent.shape
         tokens = latent_to_tokens(latent)  # (B*T, C', hh*ww)
         return tokens.reshape(b, t * cc, tokens.shape[-1]), (hh, ww)

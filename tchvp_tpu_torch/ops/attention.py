@@ -511,7 +511,7 @@ def multi_head_attention(
 def draw_attention_dropout(
     core: str, bhs: Tuple[int, int, int], rate: float,
     generator: Optional[torch.Generator], device: torch.device, window_size: int = 0,
-    shards: Tuple[int, int] = (1, 0),
+    shards: Tuple[int, int] = (1, 0), head_shards: Tuple[int, int] = (1, 0),
 ) -> torch.Tensor:
     """The randomness of one attention call's weight dropout, from
     ``generator``, for the :func:`attention_core` ``core``: for the kernels
@@ -527,9 +527,26 @@ def draw_attention_dropout(
     cores' windows or query rows of the global keep mask, the whole ring
     table. ``"flash"`` (full attention) runs on the gathered sequence, so
     it draws the one seed of the unsharded call; the ring without a mesh
-    is the dense core."""
+    is the dense core.
+
+    ``head_shards`` (m, j): under tensor parallelism this rank runs block j
+    of m of the heads. The dense cores keep its heads of the whole keep
+    mask; the kernels take seed j of m, one per rank, as their hash cannot
+    be moved to another rank's heads (the ring runs no tensor
+    parallelism)."""
     if generator is None:
         raise ValueError("active attention dropout requires a torch.Generator")
+    m, j = head_shards
+    if m > 1:
+        if shards[0] > 1:
+            raise ValueError("tensor parallelism over a seq mesh is not ported (item 11e)")
+        if core in ("flash", "flash_windowed"):
+            seeds = torch.randint(0, _INT32_MAX, (m,), generator=generator, device=generator.device,
+                                  dtype=torch.int32)
+            return seeds[j:j + 1].to(device)
+        whole = draw_attention_dropout(core, bhs, rate, generator, device, window_size)
+        per = bhs[1] // m
+        return whole[:, j * per:(j + 1) * per]
     n, i = shards
     if core == "ring" and n > 1:
         return torch.randint(0, _INT32_MAX, (n, n), generator=generator, device=generator.device,

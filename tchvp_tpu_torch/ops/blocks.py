@@ -24,6 +24,14 @@ context-local hook first (:func:`conv_hook`), the counterpart of the flax
 method interceptor that the JAX package's int8 engine and QAT install
 around ``nn.Conv``/``nn.Dense`` calls; ``ConvTranspose2d`` does not, as
 flax's ``nn.ConvTranspose`` is not intercepted there.
+
+Tensor parallelism (``parallel/tp.py``): a :class:`Conv2d`,
+:class:`ConvTranspose2d` or :class:`BatchNorm` whose ``tp_axis`` is set
+(by the model that owns it, from its config's ``tp_axis``) and carried by
+the ambient mesh computes this rank's block of its output channels, where
+the axis divides them, from its slices of the full weights; BatchNorm on a
+block of channels normalises it with the block's statistics, and its
+running stats move by the statistics of all blocks, gathered.
 """
 
 from __future__ import annotations
@@ -37,8 +45,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tchvp_tpu_torch.ops.basic import max_pool_2x2, upsample2x_nearest
-from tchvp_tpu_torch.parallel.collectives import all_reduce_sum
+from tchvp_tpu_torch.ops.basic import add_bias, autocast_enabled, max_pool_2x2, upsample2x_nearest
+from tchvp_tpu_torch.parallel import tp
+from tchvp_tpu_torch.parallel.collectives import all_gather_cat, all_reduce_sum
 from tchvp_tpu_torch.parallel.mesh import DATA_AXIS, group_over
 
 
@@ -68,17 +77,22 @@ class BatchNorm(nn.BatchNorm2d):
     data mesh, as GSPMD's global batch gives JAX's step.
     """
 
+    tp_axis: Optional[str] = None
+
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
         self.freeze_stats = False
         self.seq_axis: Optional[str] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shards = tp.tp_shards(self.tp_axis)
+        if shards is not None and x.shape[1] != self.num_features:
+            return self._block_forward(x, *shards)
         if not self.training:
             return super().forward(x)
         group = group_over((DATA_AXIS, self.seq_axis))
         if group is not None:
-            out, mean, var = self._synced(x, group)
+            out, mean, var = self._synced(x, group, self.weight, self.bias)
         else:
             # One pass: the normalisation also returns the batch mean and
             # 1/sqrt(biased var + eps), from which the running stats move.
@@ -86,15 +100,46 @@ class BatchNorm(nn.BatchNorm2d):
                                                       True, 0.0, self.eps)
             with torch.no_grad():
                 var = rstd.float().pow(-2) - self.eps
+        self._move_stats(mean, var)
+        return out
+
+    def _move_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         if not self.freeze_stats:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1.0 - m).add_(mean.detach().float(), alpha=m)
                 self.running_var.mul_(1.0 - m).add_(var.detach().float(), alpha=m)
                 self.num_batches_tracked.add_(1)
+
+    def _block_forward(self, x: torch.Tensor, n: int, i: int, group) -> torch.Tensor:
+        """The normalisation of this rank's block of the channels (tensor
+        parallelism): the block's statistics, over the data axis too where
+        the mesh carries it; the running stats move by every block's,
+        gathered over the group, so they stay the same on every rank."""
+        c = x.shape[1]
+        if c * n != self.num_features:
+            raise ValueError(f"{c} channels into a BatchNorm of {self.num_features} under "
+                             f"{self.tp_axis}={n}")
+        w, b = tp._sliced(self.weight, 0, n, i, group, self.tp_axis), tp._sliced(self.bias, 0, n, i, group,
+                                                                                  self.tp_axis)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean[i * c:(i + 1) * c], self.running_var[i * c:(i + 1) * c],
+                                w, b, False, 0.0, self.eps)
+        data = group_over((DATA_AXIS, self.seq_axis))
+        if data is not None:
+            out, mean, var = self._synced(x, data, w, b)
+        else:
+            out, mean, rstd = torch.native_batch_norm(x, w, b, None, None, True, 0.0, self.eps)
+            with torch.no_grad():
+                var = rstd.float().pow(-2) - self.eps
+        if not self.freeze_stats:
+            with torch.no_grad():
+                mean, var = (all_gather_cat(t.detach().float(), group) for t in (mean, var))
+        self._move_stats(mean, var)
         return out
 
-    def _synced(self, x: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def _synced(self, x: torch.Tensor, group, weight: torch.Tensor, bias: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(out, mean, biased var) with the statistics over ``group``, fp32."""
         xf = x.float()
         dims = (0, 2, 3)
@@ -103,8 +148,8 @@ class BatchNorm(nn.BatchNorm2d):
         mean = total[:-1] / total[-1]
         centered = xf - mean[None, :, None, None]
         var = all_reduce_sum((centered * centered).sum(dims), group) / total[-1]
-        scale = torch.rsqrt(var + self.eps) * self.weight.float()
-        out = centered * scale[None, :, None, None] + self.bias.float()[None, :, None, None]
+        scale = torch.rsqrt(var + self.eps) * weight.float()
+        out = centered * scale[None, :, None, None] + bias.float()[None, :, None, None]
         return out.to(x.dtype), mean, var
 
 
@@ -142,17 +187,6 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
-def _autocast(x: torch.Tensor) -> bool:
-    return torch.is_autocast_enabled(x.device.type)
-
-
-def _add_bias(y: torch.Tensor, bias: torch.Tensor, channel_dim: int) -> torch.Tensor:
-    """``y + bias`` in y's dtype, the bias along ``channel_dim`` of y."""
-    shape = [1] * y.dim()
-    shape[channel_dim] = -1
-    return y + bias.to(y.dtype).reshape(shape)
-
-
 # fn(next_fn, module, x) -> output, or None: the hook of conv_hook().
 Hook = Callable[[Callable[[torch.Tensor], torch.Tensor], nn.Module, torch.Tensor], torch.Tensor]
 _hook: contextvars.ContextVar[Optional[Hook]] = contextvars.ContextVar("tchvp_conv_hook", default=None)
@@ -187,6 +221,17 @@ def with_current_hook(fn: Callable) -> Callable:
     return run
 
 
+def _tp_forward(module: nn.Module, x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The tensor-parallel forward of a conv whose ``tp_axis`` the ambient
+    mesh carries (``parallel/tp.py::conv_forward``), else None."""
+    if module.tp_axis is None or tp.tp_shards(module.tp_axis) is None:
+        return None
+    if _hook.get() is not None:
+        raise NotImplementedError("a conv hook (QAT, int8) under tensor parallelism is not ported "
+                                  "(ROADMAP.md, modules to port, item 11e)")
+    return tp.conv_forward(module, x, module.tp_axis)
+
+
 class Dense(nn.Linear):
     """``nn.Linear``; under autocast, flax's two roundings (module docstring)."""
 
@@ -195,34 +240,44 @@ class Dense(nn.Linear):
         return self._fp_forward(x) if hook is None else hook(self._fp_forward, self, x)
 
     def _fp_forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.bias is None or not _autocast(x):
+        if self.bias is None or not autocast_enabled(x):
             return super().forward(x)
-        return _add_bias(F.linear(x, self.weight), self.bias, -1)
+        return add_bias(F.linear(x, self.weight), self.bias, -1)
 
 
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d``; under autocast, flax's two roundings (module docstring)."""
 
+    tp_axis: Optional[str] = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = _tp_forward(self, x)
+        if out is not None:
+            return out
         hook = _hook.get()
         return self._fp_forward(x) if hook is None else hook(self._fp_forward, self, x)
 
     def _fp_forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.bias is None or not _autocast(x):
+        if self.bias is None or not autocast_enabled(x):
             return super().forward(x)
-        return _add_bias(self._conv_forward(x, self.weight, None), self.bias, 1)
+        return add_bias(self._conv_forward(x, self.weight, None), self.bias, 1)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` (no ``output_size``); under autocast, flax's
     two roundings (module docstring)."""
 
+    tp_axis: Optional[str] = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.bias is None or not _autocast(x):
+        out = _tp_forward(self, x)
+        if out is not None:
+            return out
+        if self.bias is None or not autocast_enabled(x):
             return super().forward(x)
         y = F.conv_transpose2d(x, self.weight, None, self.stride, self.padding,
                                self.output_padding, self.groups, self.dilation)
-        return _add_bias(y, self.bias, 1)
+        return add_bias(y, self.bias, 1)
 
 
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1, padding: int = 0,
@@ -261,6 +316,9 @@ class Bottleneck(nn.Module):
         out = self.bn3(self.conv3(out))
         if self.downsample_conv is not None:
             identity = self.downsample_bn(self.downsample_conv(x))
+        # Under tensor parallelism the two sides may hold the channels
+        # differently (a block and the whole).
+        identity = tp.match_channels(identity, out, self.conv3.tp_axis)
         return torch.relu(out + identity)
 
 
@@ -392,6 +450,14 @@ class PixelShuffleUpconv(nn.Module):
         y = x.permute(0, 2, 3, 1) @ polyphase_weight(self.weight).to(x.dtype)  # (N, H, W, 4F)
         y = y.reshape(n, h, w, 2, 2, f).permute(0, 5, 1, 3, 2, 4).reshape(n, f, 2 * h, 2 * w)
         return y + self.bias.to(x.dtype)[:, None, None]
+
+
+def set_tp_axis(module: nn.Module, tp_axis: Optional[str]) -> None:
+    """Give every conv, transposed conv and BatchNorm of ``module`` the
+    tensor-parallel axis ``tp_axis`` (module docstring)."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, ConvTranspose2d, BatchNorm)):
+            m.tp_axis = tp_axis
 
 
 def init_flax_default(module: nn.Module, generator: torch.Generator) -> nn.Module:

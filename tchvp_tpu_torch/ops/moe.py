@@ -307,8 +307,9 @@ def shard_experts(model: nn.Module, ep_axis: str) -> List[str]:
     MoE layer's expert parameters of ``model`` by this rank's E/n slice
     (before an optimizer is bound to them), so the rank holds only its
     experts and their optimizer state. Each new parameter carries the
-    axis's process group as ``ep_group``, which the optimizer's global-norm
-    clip reads. Returns the names of the sharded parameters; a no-op
+    axis's process group as ``ep_group`` (which the optimizer's global-norm
+    clip reads), the axis as ``ep_axis`` and the mesh as ``ep_mesh`` (which
+    a shard-wise checkpoint reads). Returns the names of the sharded parameters; a no-op
     without such a mesh."""
     mesh = mesh_with_axis(ep_axis)
     if mesh is None:
@@ -322,5 +323,5 @@ def shard_experts(model: nn.Module, ep_axis: str) -> List[str]:
             if p.shape[0] == layer.num_experts:
                 p = nn.Parameter(p.narrow(0, idx * e_local, e_local).clone())
                 setattr(layer, name, p)
-            p.ep_group = group
+            p.ep_group, p.ep_axis, p.ep_mesh = group, ep_axis, mesh
     return expert_param_names(model)

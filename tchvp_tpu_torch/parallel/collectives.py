@@ -18,12 +18,25 @@ forward needs it.
   (replicated) cotangent through, and the identity whose backward sums the
   ranks' cotangents.
 * :func:`all_gather_cat` — the ranks' tensors concatenated along a dim, not
-  differentiable (whole expert checkpoints).
-* :func:`all_reduce_mean_` — in place, not differentiable: the gradients'
-  mean before the optimizer, in one flat buffer.
+  differentiable (the BatchNorm statistics of channel-sharded layers).
+* :func:`all_gather_along` and :func:`reduce_scatter_mean` — not
+  differentiable, one flat buffer per dtype: FSDP's gather of the
+  parameters' slices before a step, and the gradients' mean over the group,
+  each rank keeping its slice, after it.
+* :func:`all_gather_dim` and :func:`all_gather_dim_replicated` — the ranks'
+  blocks of a channel dim gathered, differentiable: the backward of the
+  first is a reduce-scatter of the sum (the full tensor feeds a computation
+  that differs by rank, each rank's cotangent a part), of the second this
+  rank's block of the cotangent (it feeds one that every rank computes
+  alike). Tensor parallelism's convs.
+* :func:`all_reduce_mean_` and :func:`all_reduce_sum_` — in place, not
+  differentiable: the gradients' mean (or sum) before the optimizer, in one
+  flat buffer.
 * :func:`broadcast_` — in place, one rank's tensors on every rank (the
   replicated start of data parallelism).
 * :func:`equal_across` — whether tensors hold the same bits on every rank.
+* :func:`barrier` — every rank of a group (or none, without one) waits for
+  the others (a shard-wise checkpoint's directory made and renamed).
 
 A ``gloo`` group carries CPU tensors only, so a CUDA tensor crosses through
 host memory there: that is the transport of two ranks sharing one GPU (NCCL
@@ -36,7 +49,7 @@ device.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -177,19 +190,155 @@ def all_gather_cat(x: torch.Tensor, group: dist.ProcessGroup, dim: int = 0) -> t
     return torch.cat(parts, dim=dim).to(x.device)
 
 
+def _by_dtype(tensors: Sequence[torch.Tensor]) -> List[List[int]]:
+    """The indices of ``tensors``, grouped by dtype in order of appearance."""
+    groups: dict = {}
+    for j, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(j)
+    return list(groups.values())
+
+
+def _all_reduce_(tensors: Sequence[torch.Tensor], group: dist.ProcessGroup, divisor: int) -> None:
+    for idx in _by_dtype(tensors):
+        flat = torch.cat([tensors[j].reshape(-1) for j in idx])
+        flat = _all_reduce(flat, group)
+        if divisor != 1:
+            flat = flat / divisor
+        for j, part in zip(idx, flat.split([tensors[j].numel() for j in idx])):
+            tensors[j].copy_(part.view_as(tensors[j]))
+
+
 def all_reduce_mean_(tensors: Sequence[torch.Tensor], group: dist.ProcessGroup) -> None:
     """Replace each tensor by its mean over ``group``, in place: one
     all-reduce of one flat buffer per dtype. Every rank ends with the same
     bits."""
+    _all_reduce_(tensors, group, dist.get_world_size(group))
+
+
+def all_reduce_sum_(tensors: Sequence[torch.Tensor], group: dist.ProcessGroup) -> None:
+    """Replace each tensor by its sum over ``group``, in place, as
+    :func:`all_reduce_mean_` does."""
+    _all_reduce_(tensors, group, 1)
+
+
+# torch 2.13 renamed the flat collectives; the card's torch has the old names.
+FLAT_ALL_GATHER = "all_gather_single" if hasattr(dist, "all_gather_single") else "all_gather_into_tensor"
+FLAT_REDUCE_SCATTER = ("reduce_scatter_single" if hasattr(dist, "reduce_scatter_single")
+                       else "reduce_scatter_tensor")
+
+
+def _all_gather_flat(out: torch.Tensor, x: torch.Tensor, group: dist.ProcessGroup) -> None:
+    getattr(dist, FLAT_ALL_GATHER)(out, x, group=group)
+
+
+def _reduce_scatter_flat(out: torch.Tensor, x: torch.Tensor, group: dist.ProcessGroup) -> None:
+    getattr(dist, FLAT_REDUCE_SCATTER)(out, x, group=group)
+
+
+def all_gather_along(tensors: Sequence[torch.Tensor], dims: Sequence[int],
+                     group: dist.ProcessGroup) -> List[torch.Tensor]:
+    """Each tensor's blocks on the ranks of ``group`` (equal shapes on every
+    rank) concatenated along its dim in ``dims``, in rank order, on every
+    rank, on the tensor's device: one all-gather of one flat buffer per
+    dtype. Not differentiable."""
     n = dist.get_world_size(group)
-    by_dtype: dict = {}
-    for t in tensors:
-        by_dtype.setdefault(t.dtype, []).append(t)
-    for group_ts in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in group_ts])
-        flat = _all_reduce(flat, group) / n
-        for t, part in zip(group_ts, flat.split([t.numel() for t in group_ts])):
-            t.copy_(part.view_as(t))
+    out: List[torch.Tensor] = [None] * len(tensors)  # type: ignore[list-item]
+    for idx in _by_dtype(tensors):
+        buf = _wire(torch.cat([tensors[j].reshape(-1) for j in idx]), group)
+        gathered = buf.new_empty(n * buf.numel())
+        _all_gather_flat(gathered, buf, group=group)
+        parts = gathered.view(n, -1).to(tensors[idx[0]].device)
+        off = 0
+        for j in idx:
+            t = tensors[j]
+            blocks = [parts[r, off:off + t.numel()].view(t.shape) for r in range(n)]
+            out[j] = torch.cat(blocks, dim=dims[j])
+            off += t.numel()
+    return out
+
+
+def reduce_scatter_mean(tensors: Sequence[torch.Tensor], dims: Sequence[int],
+                        group: dist.ProcessGroup) -> List[torch.Tensor]:
+    """This rank's block, along each tensor's dim in ``dims``, of the
+    tensor's mean over ``group``, on the tensor's device: one reduce-scatter
+    of one flat buffer per dtype, laid out rank by rank. The dims must divide
+    by the group's size. Not differentiable."""
+    return _reduce_scatter(tensors, dims, group, dist.get_world_size(group))
+
+
+def _reduce_scatter(tensors: Sequence[torch.Tensor], dims: Sequence[int], group: dist.ProcessGroup,
+                    divisor: int) -> List[torch.Tensor]:
+    n = dist.get_world_size(group)
+    out: List[torch.Tensor] = [None] * len(tensors)  # type: ignore[list-item]
+    for idx in _by_dtype(tensors):
+        blocks = [tensors[j].chunk(n, dims[j]) for j in idx]
+        flat = _wire(torch.cat([b[r].reshape(-1) for r in range(n) for b in blocks]), group)
+        mine = flat.new_empty(flat.numel() // n)
+        _reduce_scatter_flat(mine, flat, group=group)
+        if divisor != 1:
+            mine = mine / divisor
+        mine = mine.to(tensors[idx[0]].device)
+        off = 0
+        for j, b in zip(idx, blocks):
+            out[j] = mine[off:off + b[0].numel()].view(b[0].shape)
+            off += b[0].numel()
+    return out
+
+
+def _block_of(x: torch.Tensor, group: dist.ProcessGroup, dim: int) -> torch.Tensor:
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    return x.narrow(dim, i * (x.shape[dim] // n), x.shape[dim] // n)
+
+
+def _reduce_scatter_sum(x: torch.Tensor, group: dist.ProcessGroup, dim: int) -> torch.Tensor:
+    return _reduce_scatter([x], [dim], group, 1)[0]
+
+
+class _AllGatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim, partial):
+        ctx.group, ctx.dim, ctx.partial = group, dim, partial
+        return all_gather_along([x], [dim], group)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.partial:
+            return _reduce_scatter_sum(grad.contiguous(), ctx.group, ctx.dim), None, None, None
+        return _block_of(grad, ctx.group, ctx.dim).contiguous(), None, None, None
+
+
+def all_gather_dim(x: torch.Tensor, group: dist.ProcessGroup, dim: int) -> torch.Tensor:
+    """The ranks' blocks ``x`` of ``dim`` gathered in rank order, where the
+    whole feeds a computation that differs by rank: the backward
+    reduce-scatters the sum of the ranks' cotangents (each is a part of the
+    whole's gradient), each rank keeping its block."""
+    return _AllGatherDim.apply(x, group, dim, True)
+
+
+class _ReduceScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter_sum(x.contiguous(), group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_along([grad.contiguous()], [ctx.dim], ctx.group)[0], None, None
+
+
+def reduce_scatter_dim(x: torch.Tensor, group: dist.ProcessGroup, dim: int) -> torch.Tensor:
+    """This rank's block of ``dim`` of the sum of the ranks' ``x`` (each a
+    part of the whole); the backward all-gathers the blocks' cotangents,
+    since every rank's ``x`` fed every block."""
+    return _ReduceScatterDim.apply(x, group, dim)
+
+
+def all_gather_dim_replicated(x: torch.Tensor, group: dist.ProcessGroup, dim: int) -> torch.Tensor:
+    """The ranks' blocks ``x`` of ``dim`` gathered in rank order, where the
+    whole feeds a computation every rank makes alike: each rank's cotangent
+    is already the whole gradient, so the backward keeps this rank's block
+    of it."""
+    return _AllGatherDim.apply(x, group, dim, False)
 
 
 def broadcast_(tensors: Sequence[torch.Tensor], src: int = 0, group: dist.ProcessGroup = None) -> None:
@@ -215,3 +364,9 @@ def equal_across(tensors: Sequence[torch.Tensor], group: dist.ProcessGroup) -> L
         dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
         out.append(bool(torch.equal(hi, lo)))
     return out
+
+
+def barrier(group: Optional[dist.ProcessGroup]) -> None:
+    """Wait until every rank of ``group`` gets here; nothing for None."""
+    if group is not None:
+        dist.barrier(group=group)

@@ -23,12 +23,30 @@ rename does for the JAX package, so :func:`prune_step_dirs` can neither
 list nor delete a save in flight. ``async_write=True`` copies device ->
 host now and writes on one background thread; :func:`wait_for_async_saves`
 and :func:`latest_step_dir` join it and raise the first error the writer
-met. Sharded states are item 11d of ROADMAP.md and raise.
+met.
+
+Sharded states (:func:`is_sharded_state`: FSDP's slices,
+``parallel/fsdp.py``, or expert parallelism's, ``ops/moe.py``) are saved
+SHARD-WISE, as JAX's orbax saves them: ``step_<N>`` then holds a
+``torch.distributed.checkpoint`` of flat keys (``model.<name>``,
+``moment.<name>.<key>``, ``ema.<name>``, ``generator.<name>`` and a JSON
+``meta``), every rank writing its slices, each wrapped for the save as a
+``DTensor`` (``Shard(dim)`` on its axis of a CPU twin of its mesh), so no
+rank ever holds a whole sharded leaf. A restore into a live sharded state
+(:func:`restore_state_into`) reads each rank's slice, also onto another
+number of ranks or another dimension (the elastic resume); a whole
+checkpoint restores into a sharded state by cutting each leaf to its
+slice; :func:`restore_state` and :func:`restore_params` read a shard-wise
+checkpoint whole in one process, with no process group (``eval``,
+``infer``, ``export``). The ranks' collectives of a shard-wise save or
+restore run over a gloo group of their own, so that an asynchronous save's
+writer thread never meets the training's collectives.
 """
 
 from __future__ import annotations
 
 import inspect
+import json
 import os
 import shutil
 import threading
@@ -37,14 +55,17 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
+from tchvp_tpu_torch.parallel.collectives import barrier
+from tchvp_tpu_torch.parallel.fsdp import Placement, placement, state_leaves
 from tchvp_tpu_torch.train.state import TrainState
 
 PAYLOAD = "state.pt"
 FORMAT = "tchvp_tpu_torch/1"
-_SHARDED = ("sharded checkpoints are not ported yet "
-            "(ROADMAP.md, modules to port, item 11d: FSDP and sharded checkpoints)")
+# The file torch.distributed.checkpoint writes beside a shard-wise save's data.
+SHARDED_METADATA = ".metadata"
 
 
 class _AsyncWriter:
@@ -139,23 +160,22 @@ def save_state(
 
     ``async_write=True``: the device -> host copy happens now, the disk
     write on the background writer, so the loop overlaps IO with the next
-    steps; :func:`wait_for_async_saves` joins it. ``sharded=True`` raises
-    (item 11d)."""
+    steps; :func:`wait_for_async_saves` joins it.
+
+    ``sharded`` (default: :func:`is_sharded_state`): a sharded state is saved
+    shard-wise (module docstring) and every rank must call this; each
+    copies its slices to the host now. ``sharded=True`` on a replicated
+    state saves it shard-wise too, rank 0 writing each leaf."""
+    if sharded is None:
+        sharded = is_sharded_state(state)
     if sharded:
-        raise NotImplementedError(_SHARDED)
+        return _save_sharded(directory, step, state, extra, async_write)
     return save_payload(directory, step, _payload(step, state, extra), async_write)
 
 
-def snapshot(state, step: int, extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """The payload :func:`save_state` would write for ``state``, as host
-    copies (a caller may rewrite it, as an expert-parallel save gathers
-    the experts, before :func:`save_payload`)."""
-    return _payload(step, state, extra)
-
-
 def save_payload(directory: str, step: int, payload: Dict[str, Any], async_write: bool = False) -> str:
-    """Write a :func:`snapshot` payload under ``directory/step_{step}`` as
-    :func:`save_state` does; returns the path."""
+    """Write a payload (:func:`_payload`'s form) under
+    ``directory/step_{step}`` as :func:`save_state` does; returns the path."""
     path = os.path.join(os.path.abspath(directory), f"step_{step}")
     if async_write:
         _WRITER.submit(_write, path, payload)
@@ -164,10 +184,25 @@ def save_payload(directory: str, step: int, payload: Dict[str, Any], async_write
     return path
 
 
+def is_sharded_state(state) -> bool:
+    """True when a rank holds only slices of some parameter of ``state``
+    (a ``TrainState`` or a model): FSDP's or the experts'."""
+    model = state.model if isinstance(state, TrainState) else state
+    return any(placement(p) is not None for p in model.parameters())
+
+
+def is_sharded_checkpoint(path: str) -> bool:
+    """Whether ``path`` holds a shard-wise checkpoint."""
+    return os.path.exists(os.path.join(path, SHARDED_METADATA))
+
+
 def restore_state(path: str) -> Dict[str, Any]:
     """The payload saved by :func:`save_state` (or :func:`save_params`),
-    CPU tensors."""
+    CPU tensors; a shard-wise checkpoint read whole, in this process
+    alone."""
     wait_for_async_saves()  # a just-queued async save must be readable
+    if is_sharded_checkpoint(path):
+        return _payload_of(_read_sharded_whole(path))
     return torch.load(os.path.join(path, PAYLOAD), map_location="cpu", weights_only=True)
 
 
@@ -272,9 +307,15 @@ def restore_state_into(state: TrainState, path: str, sharded: Optional[bool] = N
     anything is written (:func:`load_payload`).
 
     Returns ``(state, raw)``, ``raw`` the payload (for ``step`` and
-    ``extra``). ``sharded=True`` raises (item 11d)."""
+    ``extra``).
+
+    ``sharded`` (default: :func:`is_sharded_state` of the live state): every
+    rank restores its slices (:func:`_restore_state_sharded`), from a
+    shard-wise checkpoint or a whole one."""
+    if sharded is None:
+        sharded = is_sharded_state(state)
     if sharded:
-        raise NotImplementedError(_SHARDED)
+        return _restore_state_sharded(state, path)
     raw = restore_state(path)
     return load_payload(state, raw), raw
 
@@ -312,7 +353,11 @@ def save_params(directory: str, name: str, model: nn.Module) -> str:
 
 def restore_params(path: str) -> Dict[str, torch.Tensor]:
     """The model ``state_dict`` of a :func:`save_params` or
-    :func:`save_state` checkpoint."""
+    :func:`save_state` checkpoint (a shard-wise one read whole)."""
+    wait_for_async_saves()
+    if is_sharded_checkpoint(path):
+        flat = _read_sharded_whole(path, prefixes=("model.",))
+        return {k[len("model."):]: v for k, v in flat.items() if k.startswith("model.")}
     return restore_state(path)["model"]
 
 
@@ -328,6 +373,211 @@ def restore_subtree(path: str, keys: Sequence[str]) -> Dict[str, Dict[str, torch
             raise KeyError(f"checkpoint {path} has no module {k!r}")
         out[k] = sub
     return out
+
+
+# ------------------------------------------------------------ shard-wise
+
+# (the default group it was made under, the gloo group of the checkpoints)
+_CKPT_GROUP: tuple = (None, None)
+_CPU_MESHES: Dict[tuple, Any] = {}
+
+
+def _ckpt_group() -> Optional[dist.ProcessGroup]:
+    """The gloo group of every rank that shard-wise saves and restores run
+    their collectives over (made by every rank at the first one under a
+    default group, anew under a new one); None in a process without a
+    process group."""
+    global _CKPT_GROUP
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    if _CKPT_GROUP[0] is not dist.group.WORLD:
+        _CKPT_GROUP = (dist.group.WORLD, dist.new_group(backend="gloo"))
+    return _CKPT_GROUP[1]
+
+
+def _cpu_mesh(mesh):
+    """``mesh`` as a mesh of CPU tensors, for the DTensors of a save or
+    restore (host copies): the mesh itself under gloo, else a twin of its
+    layout with no process groups of its own."""
+    if mesh.device_type == "cpu":
+        return mesh
+    key = (tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape), tuple(mesh.mesh.flatten().tolist()))
+    if key not in _CPU_MESHES:
+        from torch.distributed.device_mesh import DeviceMesh
+
+        _CPU_MESHES[key] = DeviceMesh("cpu", mesh.mesh, mesh_dim_names=mesh.mesh_dim_names,
+                                      _init_backend=False)
+    return _CPU_MESHES[key]
+
+
+def _dtensor(local: torch.Tensor, where: Placement):
+    """This rank's slice ``local`` (on the host) as the DTensor of the whole
+    leaf: ``Shard(dim)`` on its axis, replicated on the mesh's others."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = _cpu_mesh(where.mesh)
+    places = [Shard(where.dim) if name == where.axis else Replicate() for name in mesh.mesh_dim_names]
+    return DTensor.from_local(local, mesh, places, run_check=False)
+
+
+def _meta(step: int, state, extra: Optional[Dict[str, Any]]) -> str:
+    meta: Dict[str, Any] = {"format": FORMAT, "step": int(step), "extra": dict(extra or {})}
+    if isinstance(state, TrainState):
+        meta.update(train_step=int(state.step), count=state.tx.count,
+                    notfinite_count=state.tx.notfinite_count, ema=state.tx.ema is not None)
+    return json.dumps(meta)
+
+
+def _save_sharded(directory: str, step: int, state, extra: Optional[Dict[str, Any]],
+                  async_write: bool) -> str:
+    """Every rank's slices (and, from one rank, each replicated leaf) under
+    ``directory/step_{step}`` through ``torch.distributed.checkpoint``. The
+    host copies are made now; the write (with its collectives over the
+    checkpoint group) now or on the background writer."""
+    entries: Dict[str, Any] = {}
+    for key, (t, where) in state_leaves(state).items():
+        host = t.detach().to("cpu", copy=True)
+        entries[key] = _dtensor(host, where) if where is not None else host
+    entries["meta"] = _meta(step, state, extra)
+    path = os.path.join(os.path.abspath(directory), f"step_{step}")
+    group = _ckpt_group()
+    if async_write:
+        _WRITER.submit(_write_sharded, path, entries, group)
+    else:
+        _write_sharded(path, entries, group)
+    return path
+
+
+def _write_sharded(path: str, entries: Dict[str, Any], group: Optional[dist.ProcessGroup]) -> None:
+    """``entries`` into ``path`` through a temporary sibling of a name all
+    ranks agree on, renamed into place by rank 0 once every rank's part and
+    the metadata are written."""
+    import torch.distributed.checkpoint as dcp
+
+    parent, name = os.path.split(path)
+    tmp = os.path.join(parent, f".tmp-{name}-sharded")
+    first = group is None or dist.get_rank(group) == 0
+    if first:
+        os.makedirs(parent, exist_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    barrier(group)
+    dcp.save(entries, storage_writer=dcp.FileSystemWriter(tmp), process_group=group)
+    barrier(group)
+    if first:
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+    barrier(group)
+
+
+def _read_metadata(path: str):
+    import torch.distributed.checkpoint as dcp
+
+    return dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+
+
+def _payload_of(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """The :func:`save_state` payload of a shard-wise checkpoint's flat
+    entries (plain tensors)."""
+    meta = json.loads(flat["meta"])
+    model = {k[len("model."):]: v for k, v in flat.items() if k.startswith("model.")}
+    raw: Dict[str, Any] = {"format": meta["format"], "step": meta["step"], "model": model}
+    if meta.get("extra"):
+        raw["extra"] = meta["extra"]
+    if "train_step" in meta:
+        moments: Dict[str, Dict[str, torch.Tensor]] = {}
+        for k, v in flat.items():
+            if k.startswith("moment."):
+                name, key = k[len("moment."):].rsplit(".", 1)
+                moments.setdefault(name, {})[key] = v
+        ema = {k[len("ema."):]: v for k, v in flat.items() if k.startswith("ema.")}
+        raw["opt_state"] = {"moments": moments, "count": meta["count"],
+                            "notfinite_count": meta["notfinite_count"], "ema": ema if meta["ema"] else None}
+        raw["train_step"] = meta["train_step"]
+        raw["generators"] = {"noise": flat["generator.noise"], "dropout": flat["generator.dropout"]}
+    return raw
+
+
+def _read_sharded_whole(path: str, prefixes: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+    """A shard-wise checkpoint's flat entries read whole into host tensors
+    in this process (no process group needed), or with ``prefixes`` only
+    those whose keys start with one of them (and the meta)."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    flat: Dict[str, Any] = {"meta": ""}
+    for key, md in _read_metadata(path).items():
+        if isinstance(md, TensorStorageMetadata) and (prefixes is None or key.startswith(tuple(prefixes))):
+            flat[key] = torch.empty(md.size, dtype=md.properties.dtype)
+    dcp.load(flat, storage_reader=dcp.FileSystemReader(path), no_dist=True)
+    return flat
+
+
+def _live_slices(state, raw: Dict[str, Any]) -> Dict[str, Any]:
+    """A whole payload cut to the slices the live sharded ``state`` holds:
+    each sharded leaf, its per-element moments and its EMA."""
+    params = dict(state.model.named_parameters())
+
+    def cut(name: str, v: torch.Tensor) -> torch.Tensor:
+        """``v`` (parameter ``name``'s whole value, moment or EMA) cut to
+        this rank's slice where the live parameter is one."""
+        p = params.get(name)
+        where = placement(p) if p is not None else None
+        if where is None or v.dim() == 0 or tuple(v.shape) == tuple(p.shape):
+            return v
+        return where.block(v).clone()
+
+    raw["model"] = {k: cut(k, v) for k, v in raw["model"].items()}
+    opt = raw.get("opt_state")
+    if opt is not None:
+        opt["moments"] = {n: {k: cut(n, v) for k, v in st.items()} for n, st in opt["moments"].items()}
+        if opt.get("ema") is not None:
+            opt["ema"] = {n: cut(n, v) for n, v in opt["ema"].items()}
+    return raw
+
+
+def _restore_state_sharded(state: TrainState, path: str):
+    """Every rank's slices of a checkpoint into the live sharded ``state``,
+    in place, checked as :func:`load_payload` checks a payload. From a
+    shard-wise checkpoint each rank reads only its slices, whatever the
+    ranks or the dimension that wrote them (``torch.distributed.checkpoint``
+    reads the overlap of the written chunks); from a whole one it reads the
+    payload and keeps its slices. Returns ``(state, raw)``."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint.metadata import TensorStorageMetadata
+
+    wait_for_async_saves()
+    if not is_sharded_checkpoint(path):
+        raw = _live_slices(state, restore_state(path))
+        return load_payload(state, raw), raw
+    disk = _read_metadata(path)
+    leaves = state_leaves(state)
+    params = dict(state.model.named_parameters())
+    flat: Dict[str, Any] = {"meta": ""}
+    targets: Dict[str, torch.Tensor] = {}
+    for key, md in disk.items():
+        if not isinstance(md, TensorStorageMetadata):
+            continue
+        live = leaves.get(key)
+        if live is None and key.startswith("moment."):
+            # Moments the live optimizer has not made yet take the shape of
+            # their parameter's slice (or a scalar's).
+            p = params.get(key[len("moment."):].rsplit(".", 1)[0])
+            if p is not None:
+                shape = tuple(p.shape) if len(md.size) else ()
+                live = (torch.empty(shape, dtype=md.properties.dtype), placement(p) if len(md.size) else None)
+        if live is None:
+            targets[key] = torch.empty(md.size, dtype=md.properties.dtype)
+            flat[key] = targets[key]
+            continue
+        t, where = live
+        targets[key] = torch.empty(t.shape, dtype=md.properties.dtype)
+        flat[key] = _dtensor(targets[key], where) if where is not None else targets[key]
+    dcp.load(flat, storage_reader=dcp.FileSystemReader(path), process_group=_ckpt_group())
+    targets["meta"] = flat["meta"]
+    raw = _payload_of(targets)
+    return load_payload(state, raw), raw
 
 
 def _step_dirs(directory: str) -> List[tuple]:

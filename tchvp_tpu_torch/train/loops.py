@@ -32,11 +32,12 @@ step, when one is given.
 
 Under a mesh of several ranks the parameters stay bit-equal across ranks
 (``train/steps.py``), so rank 0 alone writes checkpoints, the TAG_SCHEME
-marker and the event files; every rank computes the same tags. Under an
-``expert`` mesh each rank holds only its experts (``ops/moe.py``): a save
-gathers them, their moments and their EMA whole to rank 0, so the
-checkpoint is the unsharded model's, and a resume gives each rank its
-slice back.
+marker and the event files; every rank computes the same tags. Where each
+rank holds only slices of some parameters (an ``expert`` mesh,
+``ops/moe.py``; ``VideoFlow(fsdp_axis=)``, ``parallel/fsdp.py``) every rank
+takes part in a save, which is shard-wise (``train/checkpoint.py``), and a
+resume reads each rank's slices; the whole model's readers
+(``checkpoint.restore_state``) read such a checkpoint whole.
 """
 
 from __future__ import annotations
@@ -53,8 +54,8 @@ from tchvp_tpu_torch.config import AugmentConfig, ResNetAEConfig, TrainConfig
 from tchvp_tpu_torch.data import pipeline
 from tchvp_tpu_torch.data.device_prefetch import DevicePrefetch
 from tchvp_tpu_torch.ops.sobel import sobel_edges
-from tchvp_tpu_torch.parallel import DATA_AXIS, activate_mesh, axis_group, axis_size
-from tchvp_tpu_torch.parallel.collectives import all_gather_cat
+from tchvp_tpu_torch.parallel import DATA_AXIS, activate_mesh, axis_size
+from tchvp_tpu_torch.parallel import fsdp
 from tchvp_tpu_torch.parallel.input import GlobalBatchLoader
 from tchvp_tpu_torch.train import checkpoint as ckpt
 from tchvp_tpu_torch.train import steps as steps_lib
@@ -198,6 +199,8 @@ class VideoFlow(_FlowBase):
             raise NotImplementedError(
                 "pipe_axis (pipelined training) is not ported yet "
                 "(ROADMAP.md, modules to port, item 11f: parallel/pipeline.py)")
+        if fsdp_axis is not None and (mesh is None or fsdp_axis not in (mesh.mesh_dim_names or ())):
+            raise ValueError(f"fsdp_axis={fsdp_axis!r} needs a mesh carrying that axis")
         if sp_axis:
             raise NotImplementedError(
                 "sp_axis (spatial partitioning) is not ported yet "
@@ -208,6 +211,7 @@ class VideoFlow(_FlowBase):
                 raise ValueError(f"{name}={axis!r} must match the model config's "
                                  f"temporal.{name}={want!r}")
         self.ep_axis = ep_axis
+        self.fsdp_axis = fsdp_axis
         self.expert_names = []
         if ep_axis is not None and mesh is not None:
             from tchvp_tpu_torch.ops.moe import shard_experts
@@ -231,10 +235,16 @@ class VideoFlow(_FlowBase):
 
     def init_state(self, clip_len: int, lr: Optional[float] = None) -> TrainState:
         """A step-0 state over the model as it stands, its generators
-        seeded from ``cfg.seed``. ``clip_len`` is kept for the JAX
-        signature (flax needs an example input to initialise)."""
+        seeded from ``cfg.seed``; with ``fsdp_axis``, sharded over it
+        (``fsdp.shard_train_state``; a restore keeps the placement).
+        ``clip_len`` is kept for the JAX signature (flax needs an example
+        input to initialise)."""
         del clip_len
         self.state = create_train_state(self.model, self._optimizer(lr), rng=self.cfg.seed)
+        if self.fsdp_axis is not None:
+            fsdp.shard_train_state(self.state, self.mesh, self.fsdp_axis)
+            print(f"FSDP over {self.fsdp_axis!r} ({axis_size(self.mesh, self.fsdp_axis)} ranks): state bytes "
+                  f"on this rank {fsdp.sharded_size_bytes(self.state)} of {fsdp.global_size_bytes(self.state)}")
         return self.state
 
     def evaluate(self, data: Iterable) -> float:
@@ -263,11 +273,7 @@ class VideoFlow(_FlowBase):
             return 0
         if self.state is None:
             self.init_state(clip_len)
-        if self.expert_names:
-            raw = self._local_experts(ckpt.restore_state(path))
-            self.state = ckpt.load_payload(self.state, raw)
-        else:
-            self.state, raw = ckpt.restore_state_into(self.state, path)
+        self.state, raw = ckpt.restore_state_into(self.state, path)
         extra = raw.get("extra") or {}
         epoch = int(extra.get("train_epoch", raw.get("step", 0)))
         pos = extra.get("data_position")
@@ -290,48 +296,16 @@ class VideoFlow(_FlowBase):
             extra["data_position"] = data.position()
         return extra
 
-    def _expert_tensors(self, payload: Dict[str, Any]):
-        """(dict, key) of every expert-sharded tensor of a checkpoint
-        payload: the model's entries, their moments and their EMA."""
-        opt = payload.get("opt_state") or {}
-        for name in self.expert_names:
-            yield payload["model"], name
-            for key, val in (opt.get("moments", {}).get(name) or {}).items():
-                if val.dim() > 0:
-                    yield opt["moments"][name], key
-            if opt.get("ema") is not None:
-                yield opt["ema"], name
-
-    def _gather_experts(self, payload: Dict[str, Any]) -> Dict[str, Any]:
-        """The payload with every rank's experts gathered whole (every rank
-        takes part; the ranks' slices are in rank order)."""
-        group = axis_group(self.mesh, self.ep_axis)
-        for holder, key in list(self._expert_tensors(payload)):
-            holder[key] = all_gather_cat(holder[key], group)
-        return payload
-
-    def _local_experts(self, raw: Dict[str, Any]) -> Dict[str, Any]:
-        """A whole checkpoint's payload cut to this rank's experts."""
-        n, i = axis_size(self.mesh, self.ep_axis), self.mesh.get_local_rank(self.ep_axis)
-        for holder, key in list(self._expert_tensors(raw)):
-            e = holder[key].shape[0] // n
-            holder[key] = holder[key].narrow(0, i * e, e).clone()
-        return raw
-
     def _save(self, tag: int, epoch: int, data: Any) -> None:
-        if self.expert_names:
-            payload = self._gather_experts(ckpt.snapshot(self.state, tag, self._ckpt_extra(epoch, data)))
-            if _rank() == 0:
-                ckpt.save_payload(self.cfg.checkpoint_dir, tag, payload,
-                                  async_write=self.cfg.async_checkpoint)
-                ckpt.prune_step_dirs(self.cfg.checkpoint_dir, self.cfg.keep_checkpoints)
-            return
-        if _rank() != 0:
+        """Rank 0 saves a replicated state; every rank saves its slices of a
+        sharded one (module docstring)."""
+        if _rank() != 0 and not ckpt.is_sharded_state(self.state):
             return
         ckpt.save_state(self.cfg.checkpoint_dir, tag, self.state,
                         extra=self._ckpt_extra(epoch, data),
                         async_write=self.cfg.async_checkpoint)
-        ckpt.prune_step_dirs(self.cfg.checkpoint_dir, self.cfg.keep_checkpoints)
+        if _rank() == 0:
+            ckpt.prune_step_dirs(self.cfg.checkpoint_dir, self.cfg.keep_checkpoints)
 
     def train(
         self,

@@ -124,6 +124,28 @@ def _core(name: str, params: List[torch.nn.Parameter], lr: float,
     raise ValueError(f"unknown optimizer {name!r} (adamw, adam, sgd, lion)")
 
 
+def _shard_group(p: torch.Tensor):
+    """The process group over which ``p`` is this rank's slice of a sharded
+    tensor (FSDP's ``fsdp_group`` or the experts' ``ep_group``), or None."""
+    return getattr(p, "fsdp_group", None) or getattr(p, "ep_group", None)
+
+
+def _by_shard_group(params) -> List[tuple]:
+    """``[(group or None, [gradients])]`` of ``params`` by shard group, in
+    order of first appearance."""
+    out: Dict[int, tuple] = {}
+    for p in params:
+        group = _shard_group(p)
+        out.setdefault(id(group), (group, []))[1].append(p.grad)
+    return list(out.values())
+
+
+def _group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    from tchvp_tpu_torch.parallel.collectives import all_reduce_sum
+
+    return all_reduce_sum(x, group)
+
+
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
     """What :func:`make_optimizer` returns: the recipe, bound to a model's
@@ -165,44 +187,34 @@ class Optimizer:
         if spec.ema_decay > 0.0:
             self.ema = {n: p.detach().clone() for n, p in self.named.items()}
 
-    def _ep_group(self):
-        """The process group of the expert-sharded parameters (those that
-        carry an ``ep_group``, ``ops/moe.py::shard_experts``), or None."""
-        return next((p.ep_group for p in self.named.values()
-                     if getattr(p, "ep_group", None) is not None), None)
-
     def _all_finite(self) -> bool:
-        """Whether every gradient is finite. Under expert sharding a rank
-        holds only its experts' gradients, so the ranks decide together: the
-        count of non-finite ones is summed over the group, and every rank
-        skips or none does."""
-        grads = [p.grad for p in self.named.values() if p.grad is not None]
-        bad = (~torch.stack([torch.isfinite(g).all() for g in grads])).sum()
-        group = self._ep_group()
-        if group is not None:
-            from tchvp_tpu_torch.parallel.collectives import all_reduce_sum
-
-            bad = all_reduce_sum(bad.float(), group)
+        """Whether every gradient is finite. A rank holds only its slices of
+        the sharded parameters' gradients (the experts, ``ops/moe.py``, and
+        FSDP's, ``parallel/fsdp.py``), so the ranks decide together: the
+        count of non-finite ones is summed over each shard group, and every
+        rank skips or none does."""
+        bad = torch.zeros((), device=next(iter(self.named.values())).device)
+        for group, grads in _by_shard_group([p for p in self.named.values() if p.grad is not None]):
+            count = (~torch.stack([torch.isfinite(g).all() for g in grads])).sum().float()
+            bad = bad + (count if group is None else _group_sum(count, group))
         return not bool(bad)
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """The global norm of the gradients. Parameters that carry an
-        ``ep_group`` are this rank's slice of an expert-sharded tensor:
-        their squares are summed over the group (the replicated rest is the
-        same on every rank)."""
-        sharded = [p.grad for p in self.trainable
-                   if p.grad is not None and getattr(p, "ep_group", None) is not None]
-        if not sharded:
+        """The global norm of the gradients ``grads`` (those of the trainable
+        parameters). The squares of a shard group's slices are summed over
+        the group; the replicated rest, the same on every rank, counts
+        once."""
+        ids = {id(g) for g in grads}
+        params = [p for p in self.trainable if p.grad is not None and id(p.grad) in ids]
+        groups = _by_shard_group(params)
+        if len(groups) == 1 and groups[0][0] is None:
             return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        from tchvp_tpu_torch.parallel.collectives import all_reduce_sum
-
-        ids = {id(g) for g in sharded}
-        rest = [g for g in grads if id(g) not in ids]
-        group = self._ep_group()
-        sq = torch.stack(torch._foreach_norm(sharded)).pow(2).sum()
-        sq = all_reduce_sum(sq.detach(), group)
-        if rest:
-            sq = sq + torch.stack(torch._foreach_norm(rest)).pow(2).sum()
+        sq = None
+        for group, gs in groups:
+            part = torch.stack(torch._foreach_norm(gs)).pow(2).sum()
+            if group is not None:
+                part = _group_sum(part.detach(), group)
+            sq = part if sq is None else sq + part
         return sq.sqrt()
 
     @torch.no_grad()

@@ -75,6 +75,21 @@ the data axis too. With ``accum_steps`` a microbatch is a slice of the
 global batch, as in JAX: each rank's batch is then its share of every one,
 in order (``parallel.input.local_rows``, as the loaders give it).
 
+FSDP (``parallel/fsdp.py``): a state sharded by ``fsdp.shard_train_state``
+holds only this rank's slices of its large parameters between steps. A
+step gathers them whole first (one all-gather), runs as the replicated
+step does, and after the backward reduce-scatters their gradients to the
+mean over the data axis, each rank keeping its slice
+(``fsdp.constrain_gradients``, the ``fsdp_constrain`` marker), where the
+replicated step all-reduces; the optimizer then updates the slices. The
+eval steps gather the parameters for their forward. ``fsdp_axis`` without
+a mesh carrying it is dormant, as in JAX.
+
+Tensor parallelism (``parallel/tp.py``, the ``model`` axis): every rank of
+the axis is given the same batch and computes its blocks of heads and
+channels; the gradients of the parameters it used through a slice are
+summed over the axis (``tp.sum_gradients``) before the data mean.
+
 Expert parallelism: when ``config.temporal.ep_axis`` is on an ambient mesh,
 each rank runs the whole model on the whole batch but only its experts
 (``ops/moe.py``); everything outside the experts is computed alike on every
@@ -104,6 +119,7 @@ from tchvp_tpu_torch.config import AugmentConfig
 from tchvp_tpu_torch.data import pipeline
 from tchvp_tpu_torch.ops.blocks import frozen_batch_stats, with_current_hook
 from tchvp_tpu_torch.ops.moe import mean_dropped_fraction, moe_layers, total_load_balance_loss
+from tchvp_tpu_torch.parallel import fsdp, tp
 from tchvp_tpu_torch.parallel.collectives import all_reduce_mean_, all_reduce_sum
 from tchvp_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -162,6 +178,15 @@ def _seq_axis(model: torch.nn.Module) -> Optional[str]:
     return axis if mesh_with_axis(axis) is not None else None
 
 
+def _refuse_tp_with_seq(model: torch.nn.Module) -> None:
+    """Tensor parallelism beside sequence parallelism is not ported."""
+    temporal = getattr(getattr(model, "config", None), "temporal", None)
+    if temporal is not None and mesh_with_axis(temporal.tp_axis) is not None \
+            and mesh_with_axis(temporal.seq_axis) is not None:
+        raise NotImplementedError("tensor parallelism beside a seq mesh is not ported yet "
+                                  "(ROADMAP.md, modules to port, item 11e)")
+
+
 def _ep_axis(model: torch.nn.Module) -> Optional[str]:
     """The model's expert-parallel axis when an ambient mesh carries it."""
     temporal = getattr(getattr(model, "config", None), "temporal", None)
@@ -209,6 +234,33 @@ def _mean_grads_over_data(model: torch.nn.Module) -> None:
     group = _data_group()
     if group is not None:
         all_reduce_mean_([p.grad for p in model.parameters() if p.grad is not None], group)
+
+
+@contextlib.contextmanager
+def _whole_params(model: torch.nn.Module):
+    """The scope of a step: an FSDP-sharded model's parameters whole
+    (``fsdp.gather_params``), their slices back at its end, also on an
+    error. Yields the parameters gathered (none for a replicated model)."""
+    params = fsdp.gather_params(model)
+    try:
+        yield params
+    finally:
+        fsdp.reshard(params)
+
+
+def _reduce_grads(model: torch.nn.Module, fsdp_axis: Optional[str], fsdp_mesh, gathered) -> None:
+    """The gradients before the update: summed over the model axis where a
+    tensor-parallel forward used a slice, then their mean over the data
+    axis, reduce-scattered to the slices of an FSDP-sharded state
+    (``fsdp.constrain_gradients``, which gives the parameters their slices
+    back) or all-reduced."""
+    tp.sum_gradients(model)
+    if gathered:
+        fsdp.constrain_gradients(model, gathered[0].fsdp_axis, gathered[0].fsdp_mesh)
+    elif fsdp_axis is not None:
+        fsdp.constrain_gradients(model, fsdp_axis, fsdp_mesh)
+    else:
+        _mean_grads_over_data(model)
 
 
 def _global_psnr(recon: torch.Tensor, clean: torch.Tensor) -> torch.Tensor:
@@ -312,15 +364,16 @@ def make_video_train_step(
     gradients (:mod:`tchvp_tpu_torch.train.qat`), so the fp32 weights train
     against the int8 serving engine's arithmetic.
 
+    ``fsdp_axis``/``fsdp_mesh``: the axis (and mesh) of a state sharded by
+    ``fsdp.shard_train_state``; the step reduce-scatters over it (module
+    docstring). A sharded state is stepped so with or without them.
+
     The returned ``step(state, batch, mark=None)`` updates ``state`` in
     place and returns ``(state, {"loss", "psnr"})``. Under sequence
     parallelism (module docstring) ``batch`` is the global clip; under data
     parallelism this rank's block of the global batch, with ``accum_steps``
     its share of each microbatch in order (``parallel.input.local_rows``).
     """
-    if fsdp_axis is not None or fsdp_mesh is not None:
-        raise NotImplementedError(
-            "fsdp_axis is not ported yet (ROADMAP.md, modules to port, item 11d: parallel/fsdp.py)")
     want_aux = moe_aux_weight > 0.0
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -331,7 +384,12 @@ def make_video_train_step(
     loss_fn = _loss_fn_by_name(loss, alpha, beta, data_range)
 
     def step(state: TrainState, batch: torch.Tensor, mark: Mark = None) -> Tuple[TrainState, Metrics]:
+        with _whole_params(state.model) as gathered:
+            return _step(state, batch, mark, gathered)
+
+    def _step(state: TrainState, batch: torch.Tensor, mark: Mark, gathered) -> Tuple[TrainState, Metrics]:
         model = state.model.train()
+        _refuse_tp_with_seq(model)
         seq_axis = _seq_axis(model)
         ep_axis = _ep_axis(model)
         clean = pipeline.preprocess_clip(batch, image_size)
@@ -390,7 +448,7 @@ def make_video_train_step(
             all_reduce_mean_([p.grad for p in model.parameters()
                               if p.grad is not None and getattr(p, "ep_group", None) is None],
                              axis_group(mesh_with_axis(ep_axis), ep_axis))
-        _mean_grads_over_data(model)
+        _reduce_grads(model, fsdp_axis, fsdp_mesh, gathered)
         loss_sum, mse_sum = _global_mean(loss_sum, DATA_AXIS), _global_mean(mse_sum, DATA_AXIS)
         if want_aux:
             aux_sum, drop_sum = _global_mean(aux_sum, DATA_AXIS), _global_mean(drop_sum, DATA_AXIS)
@@ -420,7 +478,7 @@ def make_video_eval_step(image_size: int, qat: bool = False,
         seq_axis = _seq_axis(model)
         if seq_axis is not None:
             clean = shard_frames(clean, mesh_with_axis(seq_axis), seq_axis)
-        with torch.no_grad(), _qat_scope(qat, qat_dense):
+        with torch.no_grad(), _qat_scope(qat, qat_dense), fsdp.gathered(model):
             _, recon = model(clean)
             mse = _global_mean(losses.mse(recon, clean), seq_axis, DATA_AXIS)
         return {"psnr": 20.0 * torch.log10(1.0 / torch.sqrt(mse))}
@@ -460,14 +518,16 @@ def make_denoising_train_step(
     optimizer update. The input draws come from ``state.noise_generator``
     (:func:`denoising_draws`) unless ``draws`` is given. The returned
     ``step(state, batch, mark=None, draws=None)`` updates ``state`` in
-    place and returns ``(state, {"loss", "psnr"})`` as device tensors."""
-    if fsdp_axis is not None or fsdp_mesh is not None:
-        raise NotImplementedError(
-            "fsdp_axis is not ported yet (ROADMAP.md, modules to port, item 11d: parallel/fsdp.py)")
+    place and returns ``(state, {"loss", "psnr"})`` as device tensors.
+    ``fsdp_axis``: as :func:`make_video_train_step`'s."""
     loss_fn = _loss_fn_by_name(loss, alpha, beta, data_range)
 
     def step(state: TrainState, batch: torch.Tensor, mark: Mark = None,
              draws: Optional[Dict[str, Dict[str, tuple]]] = None) -> Tuple[TrainState, Metrics]:
+        with _whole_params(state.model) as gathered:
+            return _step(state, batch, mark, draws, gathered)
+
+    def _step(state, batch, mark, draws, gathered) -> Tuple[TrainState, Metrics]:
         model = state.model.train()
         clean = pipeline.preprocess_images(batch, image_size)
         noise_gen, drop_gen = _step_generators(state)
@@ -486,7 +546,7 @@ def make_denoising_train_step(
         loss_val.backward()
         if mark:
             mark("backward")
-        _mean_grads_over_data(model)
+        _reduce_grads(model, fsdp_axis, fsdp_mesh, gathered)
         state.tx.step()
         state.step += 1
         if mark:
@@ -504,7 +564,7 @@ def make_denoising_eval_step(image_size: int) -> Callable[[TrainState, torch.Ten
     def step(state: TrainState, batch: torch.Tensor) -> Metrics:
         model = state.model.eval()
         clean = pipeline.preprocess_images(batch, image_size)
-        with torch.no_grad():
+        with torch.no_grad(), fsdp.gathered(model):
             return {"psnr": _global_psnr(model(clean)[1], clean)}
 
     return step
@@ -526,7 +586,7 @@ def make_inpainting_test_step(image_size: int, aug: AugmentConfig = AugmentConfi
             draws = pipeline.blackout_draws(generator, clean, aug.max_blackout_patches,
                                             aug.test_blackout_size)
         corrupted = pipeline.blackout_with(clean, *draws, aug.test_blackout_size)
-        with torch.no_grad():
+        with torch.no_grad(), fsdp.gathered(model):
             recon = model(corrupted)[1]
         return {"psnr": _global_psnr(recon, clean)}, corrupted, recon
 
@@ -579,13 +639,15 @@ def make_segmentation_train_step(
     ``output_index`` picks the mask from a model that returns a tuple
     (``Autoencoder32K("mask")``'s ``(latent, mask)``: the transfer
     workload). Parameters that do not require a gradient (a frozen
-    encoder) get none; train-mode BatchNorm moves their stats all the same."""
-    if fsdp_axis is not None or fsdp_mesh is not None:
-        raise NotImplementedError(
-            "fsdp_axis is not ported yet (ROADMAP.md, modules to port, item 11d: parallel/fsdp.py)")
+    encoder) get none; train-mode BatchNorm moves their stats all the same.
+    ``fsdp_axis``: as :func:`make_video_train_step`'s."""
     loss_fn = _loss_fn_by_name(loss)
 
     def step(state: TrainState, batch, mark: Mark = None) -> Tuple[TrainState, Metrics]:
+        with _whole_params(state.model) as gathered:
+            return _step(state, batch, mark, gathered)
+
+    def _step(state: TrainState, batch, mark: Mark, gathered) -> Tuple[TrainState, Metrics]:
         model = state.model.train()
         x, y = _seg_batch(batch, image_size)
         for p in model.parameters():
@@ -599,7 +661,7 @@ def make_segmentation_train_step(
         metrics["loss"].backward()
         if mark:
             mark("backward")
-        _mean_grads_over_data(model)
+        _reduce_grads(model, fsdp_axis, fsdp_mesh, gathered)
         if loss_fn is not losses.dice_loss:
             metrics["loss"] = _global_mean(metrics["loss"], DATA_AXIS)
         state.tx.step()
@@ -621,7 +683,7 @@ def make_segmentation_eval_step(
     def step(state: TrainState, batch) -> Metrics:
         model = state.model.eval()
         x, y = _seg_batch(batch, image_size)
-        with torch.no_grad():
+        with torch.no_grad(), fsdp.gathered(model):
             metrics = _seg_metrics(loss_fn, _select(model(x), output_index), y)
         if loss_fn is not losses.dice_loss:
             metrics["loss"] = _global_mean(metrics["loss"], DATA_AXIS)

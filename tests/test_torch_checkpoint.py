@@ -80,6 +80,18 @@ def snapshot(state) -> dict:
     return out
 
 
+def snapshot_of_payload(raw: dict) -> dict:
+    """:func:`snapshot`'s dict of a checkpoint payload."""
+    opt = raw["opt_state"]
+    out = {f"model.{k}": v for k, v in raw["model"].items()}
+    for n, st in opt["moments"].items():
+        out.update({f"moment.{n}.{k}": v for k, v in st.items()})
+    out.update({f"ema.{k}": v for k, v in (opt["ema"] or {}).items()})
+    out["gen.noise"], out["gen.dropout"] = raw["generators"]["noise"], raw["generators"]["dropout"]
+    out["counts"] = torch.tensor([opt["count"], opt["notfinite_count"], raw["train_step"]])
+    return out
+
+
 def assert_bit_equal(a: dict, b: dict) -> None:
     assert a.keys() == b.keys()
     for k in a:
@@ -286,11 +298,21 @@ def test_step_dir_helpers_match_jax(tmp_path):
 
 
 def test_sharded_checkpoints_raise_naming_item_11(trained, tmp_path):
-    flow, _ = trained
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ckpt.save_state(str(tmp_path), 1, flow.state, sharded=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ckpt.restore_state_into(flow.state, str(tmp_path), sharded=True)
+    """``sharded=True`` (item 11d, ported): one process writes the
+    shard-wise format (torch.distributed.checkpoint, no process group),
+    reads it whole, and restores it bit for bit, also with ``sharded=True``
+    on the restore; multi-rank cases are ``tests/test_torch_fsdp.py``'s."""
+    flow, want = trained
+    path = ckpt.save_state(str(tmp_path), 1, flow.state, extra={"train_epoch": 1}, sharded=True)
+    assert ckpt.is_sharded_checkpoint(path) and not os.path.exists(os.path.join(path, ckpt.PAYLOAD))
+    assert sorted(os.listdir(tmp_path)) == ["step_1"]
+    for sharded in (None, True):
+        other = small_flow(tmp_path / f"other_{sharded}", seed=1, ema_decay=0.9)
+        other.init_state(4)
+        state, raw = ckpt.restore_state_into(other.state, path, sharded=sharded)
+        assert raw["step"] == 1 and raw["extra"] == {"train_epoch": 1}
+        assert_bit_equal(snapshot(state), want)
+    assert_bit_equal(snapshot_of_payload(ckpt.restore_state(path)), want)
 
 
 def test_weights_only_and_subtree_restore(trained, tmp_path):

@@ -118,7 +118,7 @@ def test_video_writes_what_jax_writes(runs):
     assert re.findall(r"Video epoch \d+", runs["torch"]) == re.findall(r"Video epoch \d+", runs["jax"])
     jrec, trec = (json.loads((d / "run.json").read_text()) for d in (jdir, tdir))
     jargs, targs = jrec["resolved_args"], trec["resolved_args"]
-    assert set(targs) == set(jargs) - {"tp_axis", "sp_axis"} | {"device"}
+    assert set(targs) == set(jargs) - {"sp_axis"} | {"device"}
     assert {k: v for k, v in targs.items() if k not in ("checkpoint_dir", "device")} == \
         {k: v for k, v in jargs.items() if k in targs and k != "checkpoint_dir"}
     assert trec["command"] == jrec["command"] == "video"
@@ -266,14 +266,19 @@ def test_config_applies_and_names_pyyaml(tmp_path, monkeypatch):
 MODEL_ARGS = ["--synthetic", "1", *SMALL, *CPU]
 # item None: ported since (the conv families, item 7; serving, item 10; the
 # MoE flags, item 11b; --attn-impl ring, item 11a, which without --mesh
-# seq=N exits saying so; --mesh data=N and --data-parallel, item 11c, which
-# need N processes; tune, item 12, which needs a card): the command runs, or
-# exits with a message of its own, and is not refused.
+# seq=N exits saying so; --mesh data=N and --data-parallel, item 11c, and
+# --mesh model=N, item 11e's tensor half, which need N processes; --fsdp, item
+# 11d, which without a data mesh exits saying so; tune, item 12, which needs
+# a card): the command runs, or exits with a message of its own, and is not
+# refused.
 STREAM_SMALL = ["--tile", "32", "--height", "32", "--width", "32", "--chunk-len", "2", "--ctx-frames", "1"]
 UNPORTED = [
     (["denoise"], None), (["transfer"], None), (["port"], None),
     (["export"], None), (["serve"], None), (["shards"], 11), (["tune"], None),
-    (["video", "--model", "ae32k"], None), (["video", "--fsdp"], 11), (["video", "--qat"], None),
+    (["video", "--model", "ae32k"], None), (["video", "--fsdp"], None), (["video", "--data-parallel", "--fsdp"], None),
+    (["video", "--qat"], None),
+    (["video", "--mesh", "model=2"], None), (["video", "--mesh", "data=2,model=2"], None),
+    (["video", "--mesh", "spatial=2"], 11), (["video", "--mesh", "pipe=2"], 11),
     (["video", "--num-experts", "2"], None), (["video", "--mesh", "data=2"], None),
     (["video", "--data-parallel"], None), (["video", "--attn-impl", "ring"], None),
     (["eval", "--model", "unet"], None), (["eval", "--int8"], None),

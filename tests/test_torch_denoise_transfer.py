@@ -149,9 +149,17 @@ def test_denoising_eval_and_inpainting_test_steps_match_jax(ae_variables):
     assert err <= TOL * float(np.abs(np.asarray(jpred)).max())
 
 
-def test_unported_denoising_options_raise_naming_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsteps.make_denoising_train_step(SIZE, fsdp_axis="data")
+def test_unported_denoising_options_raise_naming_item_11(ae_variables):
+    """``fsdp_axis`` (item 11d, ported): with no mesh carrying the axis the
+    step is the plain step, bit for bit, as JAX's is dormant there."""
+    batch = torch.from_numpy(_batch(6))
+    states = []
+    for kw in ({}, {"fsdp_axis": "data"}):
+        model = _port_ae(ae_variables)
+        state = tstate.create_train_state(model, tstate.make_optimizer(**_sgd()), rng=0)
+        tsteps.make_denoising_train_step(SIZE, loss="mse", **kw)(state, batch)
+        states.append(model.state_dict())
+    assert all(torch.equal(states[0][k], states[1][k]) for k in states[0])
 
 
 # ---------------------------------------------------------------- transfer step

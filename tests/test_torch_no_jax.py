@@ -45,6 +45,7 @@ def test_importing_the_model_loads_no_jax():
         "tchvp_tpu_torch.losses, tchvp_tpu_torch.ops.msssim, tchvp_tpu_torch.models.streaming, "
         "tchvp_tpu_torch.ops.tiling, tchvp_tpu_torch.kernels.fused_tail, "
         "tchvp_tpu_torch.parallel.mesh, tchvp_tpu_torch.parallel.collectives, "
+        "tchvp_tpu_torch.parallel.fsdp, tchvp_tpu_torch.parallel.tp, "
         "tchvp_tpu_torch.data, tchvp_tpu_torch.data.clippack, tchvp_tpu_torch.data.manifest, "
         "tchvp_tpu_torch.data.device_prefetch, tchvp_tpu_torch.data.synthetic, "
         "tchvp_tpu_torch.data.pipeline, tchvp_tpu_torch.cli, tchvp_tpu_torch.train.checkpoint, "

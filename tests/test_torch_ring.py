@@ -428,6 +428,28 @@ def test_ranks_hand_the_backend_tensors_on_its_device(ranks):
         assert not off, off[:5]
 
 
+def test_gathers_and_reduce_scatter_over_the_ranks(ranks):
+    """``all_gather_dim`` (its backward a reduce-scatter of the sum),
+    ``all_gather_along``, ``reduce_scatter_mean``, ``reduce_scatter_dim``
+    (its backward an all-gather) and ``all_gather_cat``: rank i holds i + 1
+    in its block."""
+    n = len(ranks)
+    for i, r in enumerate(ranks):
+        got = r["gathers"]
+        want = torch.cat([torch.full((2, 3), float(j + 1)) for j in range(n)], dim=1)
+        assert torch.equal(got["gathered"], want)
+        # d/dx of sum(gathered * column) summed over the n ranks: n x the column index.
+        assert torch.equal(got["grad"], n * torch.arange(3 * i, 3 * i + 3, dtype=torch.float32).expand(2, 3))
+        assert torch.equal(got["along"], torch.cat([torch.full((2, 1), float(j + 1)) for j in range(n)], dim=1))
+        total = sum(j + 1 for j in range(n)) / n
+        assert torch.equal(got["mean"], torch.tensor([[float(i)], [float(n + i)]]) * total)
+        assert torch.equal(got["cat"], torch.arange(float(n)))
+        # reduce_scatter_dim: column i of the sum; its backward gathers the
+        # blocks' cotangents, rank j's being j + 1.
+        assert torch.equal(got["summed"], torch.tensor([[float(i)], [float(n + i)]]) * total * n)
+        assert torch.equal(got["summed_grad"], torch.arange(1.0, n + 1).expand(2, n))
+
+
 def test_an_nccl_group_carries_host_tensors_on_the_card(monkeypatch):
     from tchvp_tpu_torch.parallel import collectives
 

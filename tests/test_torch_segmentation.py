@@ -207,9 +207,17 @@ def test_eval_step_matches_the_jax_loss(step_run, fct_params):
     np.testing.assert_allclose(float(m["loss"]), step_run["jax_loss"], rtol=1e-5)
 
 
-def test_unported_step_options_raise_naming_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsteps.make_segmentation_train_step(SIZE, fsdp_axis="data")
+def test_unported_step_options_raise_naming_item_11(fct_params):
+    """``fsdp_axis`` (item 11d, ported): with no mesh carrying the axis the
+    step is the plain step, bit for bit, as JAX's is dormant there."""
+    batch = tuple(torch.from_numpy(t) for t in next(iter(SyntheticImageMasks(2, SIZE, 1, seed=5))))
+    states = []
+    for kw in ({}, {"fsdp_axis": "data"}):
+        model = _port_model(fct_params)
+        state = tstate.create_train_state(model, tstate.make_optimizer(LR), rng=0)
+        tsteps.make_segmentation_train_step(SIZE, **kw)(state, batch)
+        states.append(model.state_dict())
+    assert all(torch.equal(states[0][k], states[1][k]) for k in states[0])
 
 
 def test_from_flax_state_carries_a_jax_fct_train_state(step_run, fct_params):

@@ -11,6 +11,9 @@ numpy, never JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
+import os
 import sys
 from pathlib import Path
 
@@ -363,7 +366,8 @@ class WireSpy:
     communication calls, its device and the device its group's backend
     carries (``collectives._carrier``)."""
 
-    CALLS = ("all_reduce", "all_gather", "batch_isend_irecv")
+    CALLS = ("all_reduce", "all_gather", "batch_isend_irecv", collectives.FLAT_ALL_GATHER,
+             collectives.FLAT_REDUCE_SCATTER)
 
     def __init__(self):
         self.seen = []
@@ -391,6 +395,25 @@ class WireSpy:
             setattr(torch.distributed, n, real)
 
 
+def _gathers(n: int, i: int) -> dict:
+    """The gathers and the reduce-scatter of ``collectives`` over the
+    ambient mesh's group: tensor parallelism's channel gathers (forward and
+    backward), FSDP's flat gather and reduce-scatter mean, and the
+    BatchNorm statistics' gather; each rank holds i + 1 in its block."""
+    group = parallel.axis_group(parallel.ambient_mesh(), "expert")
+    x = torch.full((2, 3), float(i + 1), requires_grad=True)
+    g = collectives.all_gather_dim(x, group, 1)
+    (g * torch.arange(g.shape[1], dtype=torch.float32)).sum().backward()
+    whole = collectives.all_gather_along([torch.full((2, 1), float(i + 1))], [1], group)[0]
+    mean = collectives.reduce_scatter_mean([torch.arange(2.0 * n).reshape(2, n) * (i + 1)], [1], group)[0]
+    part = torch.arange(2.0 * n).reshape(2, n).mul(i + 1).requires_grad_()
+    summed = collectives.reduce_scatter_dim(part, group, 1)
+    (summed * (i + 1)).sum().backward()
+    return {"gathered": g.detach(), "grad": x.grad, "along": whole, "mean": mean,
+            "cat": collectives.all_gather_cat(torch.tensor([float(i)]), group),
+            "summed": summed.detach(), "summed_grad": part.grad}
+
+
 def run_ring(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -> None:
     """One rank of ``tests/test_torch_ring.py``: ring attention and module 8
     and the remat/accum seq step under a ``seq`` mesh, then expert
@@ -407,6 +430,7 @@ def run_ring(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict)
                 results["moe_seq"] = _moe_seq(inputs["experts"], world, rank)
             with parallel.activate_mesh(parallel.make_mesh(("expert",), (world,))):
                 results["experts"] = _experts(inputs["experts"], world, rank)
+                results["gathers"] = _gathers(world, rank)
         results["wire"] = spy.seen
         results["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))
         torch.save(results, Path(out_dir) / f"ring_rank{rank}.pt")
@@ -555,3 +579,402 @@ def run_cli_quiet(rank: int, world: int, rendezvous: str, out_dir: str, argv: li
     """:func:`run_cli` with no input noise either (:func:`without_noise`)."""
     without_noise(tsteps)
     run_cli(rank, world, rendezvous, out_dir, argv)
+
+
+# ------------------------------------------------- FSDP and sharded checkpoints
+
+
+def _local_leaves(state) -> dict:
+    """Every tensor of a state as this rank holds it (slices where sharded),
+    by the shard-wise checkpoint's keys, with each one's placement (dim, n,
+    i) or None, and the optimizer's counts."""
+    from tchvp_tpu_torch.parallel import fsdp
+
+    out = {}
+    for key, (t, where) in fsdp.state_leaves(state).items():
+        out[key] = (t.detach().cpu().clone(), None if where is None else (where.dim,) + where.shards)
+    out["count"] = (torch.tensor(state.tx.count), None)
+    out["train_step"] = (torch.tensor(state.step), None)
+    return out
+
+
+def _same(a: dict, b: dict) -> list:
+    """The keys whose tensors differ in bits (or exist on one side)."""
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or not torch.equal(a[k][0], b[k][0]))
+
+
+class _GatherSpy:
+    """Counts calls of ``collectives.all_gather_along`` (FSDP's gather of
+    whole parameters) and of ``fsdp.gather_params`` within the scope."""
+
+    def __enter__(self):
+        from tchvp_tpu_torch.parallel import fsdp
+
+        self.calls = 0
+        self.real = (collectives.all_gather_along, fsdp.all_gather_along, fsdp.gather_params)
+
+        def spy(fn):
+            def wrapped(*a, **k):
+                self.calls += 1
+                return fn(*a, **k)
+            return wrapped
+
+        collectives.all_gather_along, fsdp.all_gather_along, fsdp.gather_params = (spy(f) for f in self.real)
+        return self
+
+    def __exit__(self, *exc):
+        from tchvp_tpu_torch.parallel import fsdp
+
+        collectives.all_gather_along, fsdp.all_gather_along, fsdp.gather_params = self.real
+
+
+def _fsdp_state(inp, weights: str, opt, mesh=None):
+    """A fresh train state of ``inp``'s flagship with ``weights``, sharded
+    over ``data`` of ``mesh`` when given."""
+    from tchvp_tpu_torch.parallel import fsdp
+
+    model = VideoHybridNet(inp["config"], device="cpu")
+    model.load_state_dict(inp[weights], strict=True)
+    state = tstate.create_train_state(model, opt, rng=3)
+    if mesh is not None:
+        fsdp.shard_train_state(state, mesh, "data")
+    return state
+
+
+def _fsdp_video(inp, mesh, fsdp_on: bool, clip=None) -> dict:
+    """One step (SGD lr 1, MSE, no noise) on this rank's block of the global
+    batch, FSDP-sharded over ``data`` or replicated: the metrics, the
+    markers, the state bytes before, the whole state after (the slices
+    gathered), whether every rank holds it bit for bit, and which
+    parameters stayed slices."""
+    from tchvp_tpu_torch.parallel import fsdp
+
+    state = _fsdp_state(inp, "state", tstate.make_optimizer(1.0, optimizer="sgd", grad_clip_norm=clip),
+                        mesh if fsdp_on else None)
+    model = state.model
+    nbytes = (fsdp.sharded_size_bytes(state), fsdp.global_size_bytes(state))
+    step = tsteps.make_video_train_step(inp["size"], loss="mse", noise_std=0.0,
+                                        fsdp_axis="data" if fsdp_on else None, fsdp_mesh=mesh if fsdp_on else None)
+    with dispatch_trace.capture() as seen:
+        state, metrics = step(state, parallel.shard_batch(torch.from_numpy(inp["batch"]), mesh))
+    sliced = sorted(k for k, p in model.named_parameters() if getattr(p, "fsdp_group", None) is not None
+                    and tuple(p.shape) != tuple(inp["state"][k].shape))
+    with fsdp.gathered(model):
+        whole = {k: v.clone() for k, v in model.state_dict().items()}
+    equal = all(collectives.equal_across(list(whole.values()), torch.distributed.group.WORLD))
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "seen": seen, "bytes": nbytes,
+            "state": whole, "equal": equal, "sliced": sliced}
+
+
+def _one_process(inp, clip=None) -> dict:
+    """The port's one-process step on the whole global batch, in this rank."""
+    state = _fsdp_state(inp, "state", tstate.make_optimizer(1.0, optimizer="sgd", grad_clip_norm=clip))
+    state, metrics = tsteps.make_video_train_step(inp["size"], loss="mse", noise_std=0.0)(
+        state, torch.from_numpy(inp["batch"]))
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "state": {k: v.clone() for k, v in state.model.state_dict().items()}}
+
+
+def _fsdp_dormant(inp) -> dict:
+    """``fsdp_axis`` with no mesh in scope: no marker, the plain step's bits."""
+    got = {}
+    for axis in (None, "data"):
+        state = _fsdp_state(inp, "state", tstate.make_optimizer(1.0, optimizer="sgd"))
+        with dispatch_trace.capture() as seen:
+            state, m = tsteps.make_video_train_step(inp["size"], loss="mse", noise_std=0.0, fsdp_axis=axis)(
+                state, torch.from_numpy(inp["batch"]))
+        got[axis] = {"seen": seen, "loss": float(m["loss"]),
+                     "state": {k: v.clone() for k, v in state.model.state_dict().items()}}
+    return got
+
+
+def _rich_opt():
+    """The optimizer of JAX's sharded-checkpoint tests: clipping, skipping
+    non-finite updates, and an EMA."""
+    return tstate.make_optimizer(1e-3, grad_clip_norm=1.0, skip_nonfinite_updates=2, ema_decay=0.99)
+
+
+def _stepped(inp, mesh) -> object:
+    state = _fsdp_state(inp, "state", _rich_opt(), mesh)
+    step = tsteps.make_video_train_step(inp["size"], loss="mse", noise_std=0.0)
+    with parallel.activate_mesh(mesh):
+        state, _ = step(state, parallel.shard_batch(torch.from_numpy(inp["batch"]), mesh))
+    return state
+
+
+def _ckpt_roundtrip(inp, mesh, out: Path) -> dict:
+    """A stepped FSDP state saved shard-wise (sync and async) and restored
+    into a fresh FSDP state of other weights: the keys that differ, the
+    gathers made, the step and extra read back, and this rank's files."""
+    from tchvp_tpu_torch.train import checkpoint as ckpt
+
+    src = _stepped(inp, mesh)
+    got = {"sharded_state": ckpt.is_sharded_state(src)}
+    for mode in ("sync", "async"):
+        d = out / f"roundtrip_{mode}"
+        with _GatherSpy() as spy:
+            path = ckpt.save_state(str(d), 3, src, extra={"loss_history": [2.0, 1.0]}, async_write=mode == "async")
+            dst = _fsdp_state(inp, "state2", _rich_opt(), mesh)
+            before = _same(_local_leaves(dst), _local_leaves(src))
+            dst, raw = ckpt.restore_state_into(dst, path)
+        got[mode] = {"differ_before": before, "differ": _same(_local_leaves(dst), _local_leaves(src)),
+                     "gathers": spy.calls, "step": raw["step"], "extra": raw.get("extra"),
+                     "files": sorted(os.listdir(path)), "sharded": ckpt.is_sharded_checkpoint(path)}
+    got["local"] = _local_leaves(src)
+    return got
+
+
+def _twin_roundtrip(inp, mesh, out: Path) -> dict:
+    """A shard-wise save and restore whose DTensors live on a twin of the
+    mesh with no process groups of its own: the path of a mesh of CUDA
+    devices (NCCL), on which the checkpoint's host copies cannot live. The
+    twin's coordinates, and the keys that differ after the round trip."""
+    import types
+
+    from tchvp_tpu_torch.train import checkpoint as ckpt
+
+    real = ckpt._cpu_mesh
+
+    def twin(m):
+        return real(types.SimpleNamespace(device_type="cuda", mesh=m.mesh, mesh_dim_names=m.mesh_dim_names))
+
+    src = _stepped(inp, mesh)
+    ckpt._cpu_mesh = twin
+    try:
+        made = twin(mesh)
+        path = ckpt.save_state(str(out / "twin"), 1, src)
+        dst = _fsdp_state(inp, "state2", _rich_opt(), mesh)
+        dst, _ = ckpt.restore_state_into(dst, path)
+    finally:
+        ckpt._cpu_mesh = real
+    return {"twin_is_new": made is not mesh, "coordinate": (made.get_coordinate(), mesh.get_coordinate()),
+            "differ": _same(_local_leaves(dst), _local_leaves(src))}
+
+
+def _whole_into_sharded(inp, mesh) -> dict:
+    """A whole checkpoint (written by the parent) restored into an FSDP
+    state: this rank's slices, and the keys that differ from the whole
+    payload's blocks."""
+    from tchvp_tpu_torch.train import checkpoint as ckpt
+
+    dst = _fsdp_state(inp, "state2", _rich_opt(), mesh)
+    dst, raw = ckpt.restore_state_into(dst, inp["whole_path"])
+    return {"local": _local_leaves(dst), "step": raw["step"], "sharded": ckpt.is_sharded_state(dst)}
+
+
+def _fsdp_flow(inp, mesh, out: Path, moe: bool = False) -> dict:
+    """VideoFlow(fsdp_axis="data") (with ``moe`` on a data x expert mesh,
+    its experts sharded too): the placement at init, 2 epochs with async
+    shard-wise saves, a resume into a fresh flow of other weights, and one
+    more epoch."""
+    from tchvp_tpu_torch.config import TrainConfig
+    from tchvp_tpu_torch.train.loops import VideoFlow
+
+    d = out / ("flow_moe" if moe else "flow")
+    tc = TrainConfig(model_name="video", loss="mse", lr=1e-4, checkpoint_dir=str(d / "ckpt"),
+                     log_dir=str(d / "runs"), sample_dir=str(d / "samples"), async_checkpoint=True,
+                     moe_aux_weight=0.01 if moe else 0.0)
+    key = "moe" if moe else "video"
+    batch = inp[key]["batch"]
+
+    def flow_of(weights):
+        model = VideoHybridNet(inp[key]["config"], device="cpu")
+        model.load_state_dict(inp[key][weights], strict=True)
+        return VideoFlow(model, cfg=tc, image_size=inp[key]["size"], mesh=mesh, fsdp_axis="data",
+                         ep_axis="expert" if moe else None)
+
+    flow = flow_of("state")
+    out_ = io.StringIO()
+    with contextlib.redirect_stdout(out_):
+        state = flow.init_state(clip_len=batch.shape[1])
+    sliced = {k: getattr(p, "fsdp_group", None) is not None for k, p in state.model.named_parameters()}
+    flow.train([batch], epochs=2, clip_len=batch.shape[1], save_every=1)
+    trained = _local_leaves(flow.state)
+    flow2 = flow_of("state2")
+    with contextlib.redirect_stdout(io.StringIO()):
+        start = flow2.resume(clip_len=batch.shape[1])
+    resumed = _local_leaves(flow2.state)
+    flow2.train([batch], epochs=3, start_epoch=start, clip_len=batch.shape[1], save_every=100)
+    return {"printed": out_.getvalue(), "sliced": sliced, "start": start, "differ": _same(resumed, trained),
+            "steps_after": flow2.state.step, "local": trained,
+            "shapes": {k: tuple(v.shape) for k, v in inp[key]["state"].items()}}
+
+
+def _elastic_save(inp, mesh4, out: Path) -> dict:
+    """A stepped FSDP state over data=4 saved shard-wise, for the restore
+    onto data=2."""
+    from tchvp_tpu_torch.train import checkpoint as ckpt
+
+    src = _stepped(inp, mesh4)
+    ckpt.save_state(str(out / "elastic"), 1, src)
+    return {"local": _local_leaves(src)}
+
+
+def _elastic_restore(inp, mesh, out: Path) -> dict:
+    from tchvp_tpu_torch.train import checkpoint as ckpt
+
+    dst = _fsdp_state(inp, "state2", _rich_opt(), mesh)
+    with _GatherSpy() as spy:
+        dst, raw = ckpt.restore_state_into(dst, str(out / "elastic" / "step_1"))
+    return {"local": _local_leaves(dst), "gathers": spy.calls, "step": raw["step"]}
+
+
+def run_fsdp(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -> None:
+    """One of 4 ranks of ``tests/test_torch_fsdp.py``: FSDP over ``data`` of
+    a ("data", "rep") mesh of (2, 2) (two data ranks; "rep" replicates),
+    the elastic save over data=4, the data x expert flow, then ``video
+    --mesh data=2,expert=2 --fsdp`` through the CLI (which leaves the
+    process group)."""
+    from tchvp_tpu_torch import cli
+
+    torch.set_num_threads(1)
+    out = Path(out_dir)
+    parallel.init_distributed(f"file://{rendezvous}", world, rank, timeout_s=180)
+    results = {}
+    try:
+        inp = inputs["video"]
+        mesh4 = parallel.make_mesh(("data",), (4,))
+        results["elastic_src"] = _elastic_save(inp, mesh4, out)
+        mesh = parallel.make_mesh(("data", "rep"), (2, 2))
+        with parallel.activate_mesh(mesh):
+            results["fsdp"] = _fsdp_video(inp, mesh, True)
+            results["dp"] = _fsdp_video(inp, mesh, False)
+            results["clip"] = _fsdp_video(inp, mesh, True, clip=inputs["clip"])
+        results["clip_one"] = _one_process(inp, clip=inputs["clip"])
+        results["dormant"] = _fsdp_dormant(inp)
+        results["roundtrip"] = _ckpt_roundtrip(inp, mesh, out)
+        results["whole_into_sharded"] = _whole_into_sharded(inp, mesh)
+        results["twin"] = _twin_roundtrip(inp, mesh, out)
+        results["elastic"] = _elastic_restore(inp, mesh, out)
+        results["flow"] = _fsdp_flow(inputs, mesh, out)
+        results["flow_moe"] = _fsdp_flow(inputs, parallel.make_mesh(("data", "expert"), (2, 2)), out, moe=True)
+        with dispatch_trace.capture() as seen, contextlib.redirect_stdout(io.StringIO()) as printed:
+            cli.main(list(inputs["cli"]) + ["--coordinator", f"file://{rendezvous}", "--num-processes",
+                                            str(world), "--process-id", str(rank)])
+        results["cli"] = {"seen": seen, "printed": printed.getvalue()}
+        results["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))
+        torch.save(results, out / f"fsdp_rank{rank}.pt")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+# ------------------------------------------------------- tensor parallelism
+
+
+def _tp_transformer(inp) -> dict:
+    """TransformerEncoder(tp_axis="model") on the whole tokens, eval; and
+    the gradients of sum(out**2) in train mode (no dropout) of the tokens
+    and the parameters, summed over the axis as the step sums them."""
+    from tchvp_tpu_torch.parallel import tp
+
+    model = TransformerEncoder(TransformerConfig(**inp["config"], tp_axis="model"))
+    model.load_state_dict(inp["state"])
+    x = torch.from_numpy(inp["x"])
+    with dispatch_trace.capture() as seen, torch.no_grad():
+        out = model.eval()(x)
+    model.train()
+    xg = x.clone().requires_grad_()
+    (model(xg) ** 2).sum().backward()
+    tp.sum_gradients(model)
+    return {"out": out, "seen": seen, "x_grad": xg.grad,
+            "grads": {k: p.grad.clone() for k, p in model.named_parameters()}}
+
+
+def _tp_autoencoder(inp) -> dict:
+    """Autoencoder32K(tp_axis="model") eval on the whole images: the latent
+    and reconstruction, the encoder's output channels on this rank, and the
+    markers; the divisibility gate on a 3- and a 4-channel input."""
+    from tchvp_tpu_torch.config import ResNetAEConfig
+    from tchvp_tpu_torch.models.resnet_ae import Autoencoder32K
+    from tchvp_tpu_torch.parallel import tp
+
+    model = Autoencoder32K(ResNetAEConfig(token_latent=False, tp_axis="model"), device="cpu")
+    model.load_state_dict(inp["state"])
+    x = torch.from_numpy(inp["x"])
+    with dispatch_trace.capture() as seen, torch.no_grad():
+        latent, recon = model.eval()(x)
+        enc = model.encoder(x.permute(0, 3, 1, 2))
+    with dispatch_trace.capture() as gate:
+        three = torch.ones(2, 3, 8, 8)
+        same = tp.conv_tp_constrain(three, "model") is three
+    with dispatch_trace.capture() as four_seen:
+        four = tp.conv_tp_constrain(torch.arange(4.0).reshape(1, 4, 1, 1), "model")
+    with dispatch_trace.capture() as six_seen:
+        six = tp.tp_constrain(torch.arange(6.0).reshape(1, 6), "model")
+        odd = torch.ones(1, 3)
+        odd_same = tp.tp_constrain(odd, "model", require_divisible=True) is odd
+    return {"latent": latent, "recon": recon, "enc_channels": enc.shape[1], "seen": seen,
+            "three_same": same, "three_seen": gate, "four": four, "four_seen": four_seen,
+            "six": six, "six_seen": six_seen, "odd_same": odd_same}
+
+
+def _tp_video(inp) -> dict:
+    """One train step (SGD lr 1, MSE, no noise) of the flagship with
+    ``tp_axis="model"`` on this rank's block of the data axis (the whole
+    batch without one): metrics, markers, the state after, the gradients
+    before the update, and the ranks' bit equality."""
+    model = VideoHybridNet(inp["config"], device="cpu")
+    model.load_state_dict(inp["state"], strict=True)
+    state = tstate.create_train_state(model, tstate.make_optimizer(1.0, optimizer="sgd"), rng=3)
+    step = tsteps.make_video_train_step(inp["size"], loss="mse", noise_std=0.0)
+    with dispatch_trace.capture() as seen:
+        state, metrics = step(state, parallel.shard_batch(torch.from_numpy(inp["batch"]), parallel.ambient_mesh()))
+    shared = list(model.parameters()) + [b for k, b in model.named_buffers() if "running" in k]
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "seen": seen,
+            "state": {k: v.clone() for k, v in model.state_dict().items()},
+            "sliced": sorted(k for k, p in model.named_parameters() if getattr(p, "tp_group", None) is not None),
+            "equal": all(collectives.equal_across(shared, torch.distributed.group.WORLD))}
+
+
+def _tp_flow(inp, mesh, out: Path) -> dict:
+    """VideoFlow on a data x model mesh: one step, its markers."""
+    from tchvp_tpu_torch.config import TrainConfig
+    from tchvp_tpu_torch.train.loops import VideoFlow
+
+    model = VideoHybridNet(inp["config"], device="cpu")
+    model.load_state_dict(inp["state"], strict=True)
+    tc = TrainConfig(model_name="video", loss="mse", lr=1e-4, checkpoint_dir=str(out / "tp_flow"),
+                     log_dir=str(out / "tp_runs"), sample_dir=str(out / "tp_samples"))
+    flow = VideoFlow(model, cfg=tc, image_size=inp["size"], mesh=mesh)
+    with dispatch_trace.capture() as seen, contextlib.redirect_stdout(io.StringIO()) as printed:
+        flow.train([inp["batch"]], epochs=1, clip_len=inp["batch"].shape[1], save_every=100)
+    return {"seen": seen, "printed": printed.getvalue(), "step": flow.state.step}
+
+
+def run_tp(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -> None:
+    """One of 4 ranks of ``tests/test_torch_tensor_parallel.py``: model=2 on
+    a ("rep", "model") mesh of (2, 2) ("rep" replicates), data=2 x model=2,
+    then ``video --mesh data=2,model=2`` through the CLI (which leaves the
+    process group)."""
+    from tchvp_tpu_torch import cli
+
+    torch.set_num_threads(1)
+    out = Path(out_dir)
+    parallel.init_distributed(f"file://{rendezvous}", world, rank, timeout_s=180)
+    results = {}
+    try:
+        with parallel.activate_mesh(parallel.make_mesh(("rep", "model"), (2, 2))):
+            results["transformer"] = _tp_transformer(inputs["transformer"])
+            results["autoencoder"] = _tp_autoencoder(inputs["autoencoder"])
+            results["model2"] = _tp_video(inputs["model2"])
+        mesh = parallel.make_mesh(("data", "model"), (2, 2))
+        with parallel.activate_mesh(mesh):
+            results["data_model"] = _tp_video(inputs["data_model"])
+        results["flow"] = _tp_flow(inputs["data_model"], mesh, out)
+        without_noise(tsteps)
+        config_real = sys.modules["tchvp_tpu_torch.config"].flagship_video_config
+        sys.modules["tchvp_tpu_torch.config"].flagship_video_config = flagship_without_dropout
+        try:
+            with dispatch_trace.capture() as seen, contextlib.redirect_stdout(io.StringIO()) as printed:
+                cli.main(list(inputs["cli"]) + ["--coordinator", f"file://{rendezvous}", "--num-processes",
+                                                str(world), "--process-id", str(rank)])
+        finally:
+            sys.modules["tchvp_tpu_torch.config"].flagship_video_config = config_real
+        results["cli"] = {"seen": seen, "printed": printed.getvalue()}
+        results["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))
+        torch.save(results, out / f"tp_rank{rank}.pt")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
