@@ -178,10 +178,11 @@ Phases, one or more lines each:
     step held to one process at the same global batch by 16 (i)'s limits,
     then timed as users launch it (TF32 as the CLI has it, dropout and
     noise on, 2 epochs of 5 steps) beside one process at B 8 and at B 4,
-    and so phase 23's ``--mesh data=2 --fsdp`` and ``--mesh model=2`` (each
-    rank's step ms and peak memory; their one shard-wise or whole save at
-    the end); with four cards, ``--mesh data=2,expert=2 --num-experts 4``
-    (4 ranks);
+    and so phase 23's ``--mesh data=2 --fsdp`` and ``--mesh model=2`` and
+    phase 24's ``--mesh spatial=2`` and ``--mesh pipe=2`` (each rank's step
+    ms and peak memory; their one shard-wise or whole save at the end);
+    with four cards, ``--mesh data=2,expert=2 --num-experts 4`` (4 ranks).
+    ``--nccl spatial,pipe`` runs only the named axes' timed commands;
 13. config 4 streaming: stream_video of the flagship at 256^2 (attn "xla",
     bf16) over one 16-frame 1080x1920 clip in 40 tiles, chunk 8, 4 frames
     of carried context: finite output of the clip's shape, no kernel
@@ -408,6 +409,29 @@ Phases, one or more lines each:
     one; each rank's step ms (not a scaling number) and peak memory. Its
     seconds are its runs' wall on rank 0 and its checks (``[phase 23]``;
     in ``[done]`` as "23 (in 16)", inside 16's);
+24. spatial partitioning and the GPipe pipeline (items 11e's spatial half
+    and 11f) as two ranks sharing the card over gloo, inside phase 16's
+    spawn, at 23's cell (256^2, T 8, 16 (i)'s global batch of 4, fp32,
+    flash, dropout and noise off, TF32 off, SGD lr 1): ``video --mesh
+    spatial=2`` for one step (flash launches 2/2/2 a rank, every rank
+    running the whole temporal stack; the markers ``sp_constrain_conv``,
+    ``sp_halo``, ``sp_gather``); ``video --mesh pipe=2 --layers 2`` for one
+    step: a rank's flash launches its stage's layer on each of the
+    schedule's 5 ticks of 4 microbatches, forward and backward (every rank
+    computes every tick, a placeholder where it holds no microbatch), the
+    checkpoint shard-wise in the pipelined layout (stages stacked (2,
+    4096)), resumed into a fresh pipelined flow bit-equal to it and read
+    into the monolithic layout by this process;
+    each first step held to 16 (i)'s one process by its limits; the fp32
+    pipelined forward of ``infer --mesh pipe=2`` (``pipelined_video_infer``)
+    with the flash kernels at B 4 against one process's (max abs 1e-4,
+    TF32 off);
+    ``segment --mesh spatial=2`` at 256^2 B 2 for one step with ``--attn-impl
+    ring`` (no flash launch) and with the flash kernels on the gathered
+    tokens (9/9/9 a rank, and rank 0's sneak peek's 9 forwards). Each run's
+    launches, step ms and peak memory a
+    rank (not scaling numbers); its seconds as phase 23's (``[phase 24]``,
+    "24 (in 16)");
 14. kernel times: each kernel at its main-path shape beside its plain
     version, F.scaled_dot_product_attention (a yardstick, never on the
     port's path; with the boolean band as attn_mask for the banded
@@ -523,6 +547,7 @@ from tchvp_tpu_torch.ops.blocks import Dense, conv_hook, init_flax_default
 from tchvp_tpu_torch.ops.conv_attention import WideFocus
 from tchvp_tpu_torch.ops.sobel import sobel_edges
 from tchvp_tpu_torch.parallel import collectives
+from tchvp_tpu_torch.parallel import pipeline as ppl
 from tchvp_tpu_torch.train import checkpoint as ckpt
 from tchvp_tpu_torch.train.loops import SegmentationFlow, TransferFlow, VideoFlow
 from tchvp_tpu_torch.train.state import create_train_state, make_optimizer
@@ -2246,6 +2271,14 @@ def phase_seq_two_ranks(eval_ref) -> tuple:
     return r0["b_counts"], seq_ep
 
 
+def timed_nccl(tmp: Path, cards: int, flags: list) -> None:
+    """One of 12c's commands timed as users launch them on 2 cards
+    (:func:`timed_data_cli`, no one-process runs), and its seconds."""
+    t = time.perf_counter()
+    timed_data_cli("12c nccl", tmp, f"2 ranks on 2 of {cards} cards, NCCL", 2, 8, flags, one_process=False)
+    print(f"[12c nccl] {' '.join(flags)}: {time.perf_counter() - t:.1f} s")
+
+
 def phase_nccl() -> None:
     """Phase 12c: phase 16 (g)'s mesh commands as two ranks on two cards
     over NCCL; 16 (i)'s ``data=2`` at the full batch of 8, its first step
@@ -2256,16 +2289,22 @@ def phase_nccl() -> None:
     if cards < 2:
         print(f"[12c nccl] skipped: {cards} card (run with two or more, e.g. chiprun --chips 4)")
         return
+    only = sys.argv[sys.argv.index("--nccl") + 1].split(",") if "--nccl" in sys.argv else None
     with tempfile.TemporaryDirectory() as tmp:
+        if only is not None:  # ``--nccl spatial,pipe``: those timed commands alone
+            for axis in only:
+                timed_nccl(Path(tmp), cards, ["--mesh", f"{axis}=2"])
+            free_cuda()
+            return
         mesh_cli("12c nccl", Path(tmp), f"2 ranks on 2 of {cards} cards, NCCL")
         data_mesh_cli("12c nccl", Path(tmp), f"2 ranks on 2 of {cards} cards, NCCL", 2,
                       [("data", 8, ["--mesh", "data=2"])], reference=True)
         timed_data_cli("12c nccl", Path(tmp), f"2 ranks on 2 of {cards} cards, NCCL", 2, 8, ["--mesh", "data=2"])
         # Phase 23's two commands as users launch them (FSDP's state bytes and
         # shard-wise saves included: TIMED_ARGV saves once, at its end).
-        for flags in (["--mesh", "data=2", "--fsdp"], ["--mesh", "model=2"]):
-            timed_data_cli("12c nccl", Path(tmp), f"2 ranks on 2 of {cards} cards, NCCL", 2, 8, flags,
-                           one_process=False)
+        for flags in (["--mesh", "data=2", "--fsdp"], ["--mesh", "model=2"], ["--mesh", "spatial=2"],
+                      ["--mesh", "pipe=2"]):
+            timed_nccl(Path(tmp), cards, flags)
         if cards >= 4:
             data_mesh_cli("12c nccl", Path(tmp), f"4 ranks on 4 cards, NCCL", 4,
                           [("data_expert", 8, ["--num-experts", "4", "--mesh", "data=2,expert=2"])], reference=False)
@@ -2628,11 +2667,13 @@ class StampedOut(io.TextIOBase):
 
 
 def cli_rank(rank: int, world: int, rendezvous: str, runs: list) -> None:
-    """One rank of phase 16 (g)'s and (i)'s commands (and 12c's): each
-    ``(name, argv, quiet)`` of ``runs`` through ``cli.main`` (under
-    :func:`quiet_cli` where ``quiet``), joined anew over a rendezvous file of
-    its own; writes each run's launch counts, dispatch markers, the times
-    its epoch lines were printed and its recorded steps to
+    """One rank of phase 16 (g)'s, (i)'s, 23's and 24's commands (and
+    12c's): each ``(name, argv, quiet)`` of ``runs`` through ``cli.main``
+    (under :func:`quiet_cli` where ``quiet``), joined anew over a rendezvous
+    file of its own (an ``argv`` that is a name is a function of this module,
+    called with the rank, the world and the rendezvous); writes each run's
+    launch counts, dispatch markers, the times its epoch lines were printed,
+    its recorded steps and the function's result to
     SEQ_DIR/cli_rank<r>.json."""
     keep_draws()
     got = {}
@@ -2650,15 +2691,20 @@ def cli_rank(rank: int, world: int, rendezvous: str, runs: list) -> None:
         undo = quiet_cli(deterministic=quiet == "deterministic") if quiet else None
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        result = None
         try:
             with dispatch_trace.capture() as seen, contextlib.redirect_stdout(out):
-                cli.main(argv + ["--coordinator", f"file://{rendezvous}_{j}", "--num-processes", str(world),
-                                 "--process-id", str(rank)])
+                if isinstance(argv, str):  # "function[:argument]" of this module, given the rendezvous
+                    fn, _, arg = argv.partition(":")
+                    result = globals()[fn](rank, world, f"file://{rendezvous}_{j}", *([arg] if arg else []))
+                else:
+                    cli.main(argv + ["--coordinator", f"file://{rendezvous}_{j}", "--num-processes", str(world),
+                                     "--process-id", str(rank)])
         finally:
             if undo is not None:
                 undo()
         wall = time.perf_counter() - t0
-        got[name] = {"counts": counts(), "seen": sorted(seen), "heads": sorted(HEADS), "wall": wall,
+        got[name] = {"counts": counts(), "seen": sorted(seen), "heads": sorted(HEADS), "wall": wall, "result": result,
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                      "epoch_ends": [t for t, text in out.lines if text.startswith("Video epoch")],
                      "printed": [text for _, text in out.lines], "steps": list(STEP_METRICS)}
@@ -2689,6 +2735,7 @@ def quiet_cli(deterministic: bool = False):
     from tchvp_tpu_torch.train import steps as tsteps
 
     real_cfg, real_step = tcfg.flagship_video_config, tsteps.make_video_train_step
+    real_pp = tsteps.make_pipelined_video_train_step
     tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
 
     def no_dropout(*a, **k):
@@ -2696,18 +2743,23 @@ def quiet_cli(deterministic: bool = False):
         return dataclasses.replace(c, encoder=dataclasses.replace(c.encoder, dropout_rate=0.0),
                                    temporal=dataclasses.replace(c.temporal, dropout_rate=0.0))
 
-    def recorded(*a, **k):
-        step = real_step(*a, **dict(k, noise_std=0.0))
+    def recorded_of(make):
+        def recorded(*a, **k):
+            step = make(*a, **dict(k, noise_std=0.0))
 
-        def run(state, batch, mark=None):
-            t0 = time.perf_counter()
-            state, m = step(state, batch, mark)
-            STEP_METRICS.append(dict({k_: float(v) for k_, v in m.items()}, ms=(time.perf_counter() - t0) * 1e3))
-            return state, m
+            def run(state, batch, mark=None):
+                t0 = time.perf_counter()
+                state, m = step(state, batch, mark)
+                STEP_METRICS.append(dict({k_: float(v) for k_, v in m.items()},
+                                         ms=(time.perf_counter() - t0) * 1e3))
+                return state, m
 
-        return run
+            return run
 
-    tcfg.flagship_video_config, tsteps.make_video_train_step = no_dropout, recorded
+        return recorded
+
+    tcfg.flagship_video_config, tsteps.make_video_train_step = no_dropout, recorded_of(real_step)
+    tsteps.make_pipelined_video_train_step = recorded_of(real_pp)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     det = torch.backends.cudnn.deterministic
     if deterministic:
@@ -2716,6 +2768,7 @@ def quiet_cli(deterministic: bool = False):
 
     def undo():
         tcfg.flagship_video_config, tsteps.make_video_train_step = real_cfg, real_step
+        tsteps.make_pipelined_video_train_step = real_pp
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.deterministic = det
         if deterministic:
@@ -2817,6 +2870,18 @@ def check_data_mesh(tag: str, tmp: Path, label: str, runs_spec, ranks: list, ref
     return {k: sum(ranks[0][name]["counts"][k] for name, _, _ in runs_spec) for k in ranks[0][runs_spec[0][0]]["counts"]}
 
 
+# Checkpoints read whole by this process, by path: the one-process reference
+# is read once for all of phases 16 (i), 23 and 24's comparisons.
+WHOLE_READS: dict = {}
+
+
+def read_whole(path: Path) -> dict:
+    """``ckpt.restore_state`` of ``path``, read once a run."""
+    if str(path) not in WHOLE_READS:
+        WHOLE_READS[str(path)] = ckpt.restore_state(str(path))
+    return WHOLE_READS[str(path)]
+
+
 def against_one(what: str, loss: float, reference, one_path: Path, path: Path) -> str:
     """A rank's first step against :func:`data_reference`'s one process:
     the loss within rtol 1e-5, the parameters of the checkpoint at ``path``
@@ -2824,8 +2889,10 @@ def against_one(what: str, loss: float, reference, one_path: Path, path: Path) -
     limit), the BatchNorm stats within 1e-5. Returns the line's text."""
     ref, init = reference
     check(abs(loss - ref["loss"]) <= 1e-5 * abs(ref["loss"]), f"{what} loss {loss} vs one process {ref['loss']}")
-    one = ckpt.restore_state(str(one_path))["model"]
-    two = ckpt.restore_state(str(path))["model"]
+    one = read_whole(one_path)["model"]
+    two = read_whole(path)["model"]
+    if ppl.is_pipelined_params(two):  # the pipelined layout, read whole
+        two = ppl.merge_pipelined_params(two)
     grads = {k: (init[k] - one[k]).abs().max().item() for k in one if "running" not in k and "num_batches" not in k}
     gmax = max(grads.values())
     worst = max(((two[k] - one[k]).abs().max().item(), k) for k in grads)
@@ -2844,21 +2911,38 @@ def against_one(what: str, loss: float, reference, one_path: Path, path: Path) -
 # step an epoch, a checkpoint after each.
 PAR_ARGV = ["video", "--image-size", "256", "--clip-len", "8", "--batch-size", "4", "--synthetic", "1",
             "--attn-impl", "flash", "--device-prefetch", "0", "--optimizer", "sgd", "--lr", "1", "--save-every", "1"]
-PAR_STEPS = {"fsdp": 2, "fsdp_part": 1, "fsdp_resume": 1, "tp": 1}
+PAR_STEPS = {"fsdp": 2, "fsdp_resume": 1, "tp": 1}
 PHASE_SECONDS: dict = {}  # phases run inside another: their seconds, for [done]
+
+
+FSDP_ARGV = PAR_ARGV + ["--mesh", "data=2", "--fsdp"]
 
 
 def parallel_runs(tmp: Path) -> list:
     """:func:`cli_rank`'s runs of phase 23: ``--mesh data=2 --fsdp`` for 2
-    epochs, then for 1 and resumed for a second in another directory (cuDNN
-    deterministic, so the resumed run repeats the straight one bit for
-    bit); ``--mesh model=2`` for one step."""
-    fsdp = PAR_ARGV + ["--mesh", "data=2", "--fsdp"]
-    return [("fsdp", fsdp + ["--epochs", "2", "--checkpoint-dir", str(tmp / "fsdp")], "deterministic"),
-            ("fsdp_part", fsdp + ["--epochs", "1", "--checkpoint-dir", str(tmp / "resumed")], "deterministic"),
-            ("fsdp_resume", fsdp + ["--epochs", "2", "--resume", "--checkpoint-dir", str(tmp / "resumed")],
-             "deterministic"),
+    epochs, then resumed from a copy of its ``step_1`` for the second in
+    another directory (:func:`fsdp_resumed`; cuDNN deterministic, so the
+    resumed run repeats the straight one bit for bit); ``--mesh model=2``
+    for one step."""
+    return [("fsdp", FSDP_ARGV + ["--epochs", "2", "--checkpoint-dir", str(tmp / "fsdp")], "deterministic"),
+            ("fsdp_resume", f"fsdp_resumed:{tmp}", "deterministic"),
             ("tp", PAR_ARGV + ["--mesh", "model=2", "--epochs", "1", "--checkpoint-dir", str(tmp / "tp")], True)]
+
+
+def fsdp_resumed(rank: int, world: int, init_method: str, tmp: str) -> None:
+    """A rank of ``video --mesh data=2 --fsdp --resume --epochs 2`` in
+    ``tmp``/resumed, which holds a copy of the straight run's shard-wise
+    ``step_1`` (rank 0 copies it; the other ranks wait for it)."""
+    src, dst = Path(tmp) / "fsdp" / "step_1", Path(tmp) / "resumed"
+    if rank == 0:
+        shutil.copytree(src, Path(tmp) / "resumed.part" / "step_1")
+        os.replace(Path(tmp) / "resumed.part", dst)
+    deadline = time.monotonic() + 120
+    while not dst.exists():
+        check(time.monotonic() < deadline, f"23 fsdp_resume rank {rank}: no copy of {src} after 120 s")
+        time.sleep(0.05)
+    cli.main(FSDP_ARGV + ["--epochs", "2", "--resume", "--checkpoint-dir", str(dst), "--coordinator", init_method,
+                          "--num-processes", str(world), "--process-id", str(rank)])
 
 
 def check_parallel_cli(tmp: Path, label: str, ranks: list, reference, ref_dir: Path) -> dict:
@@ -2915,7 +2999,8 @@ def check_parallel_cli(tmp: Path, label: str, ranks: list, reference, ref_dir: P
         print(f"[{tag}] {what}: the first step against one process on the same global batch of 4: {lines[name]}")
     print(f"[{tag}] fsdp: state bytes per rank {shares[0][0]} of {shares[0][1]} ({shares[0][0] / shares[0][1]:.3f}); "
           f"step_1 shard-wise ({sum(f_.endswith('.distcp') for f_ in files)} .distcp files and .metadata), read "
-          f"whole by this process (no process group); 1 epoch + --resume 1 against 2 straight (cuDNN deterministic): "
+          f"whole by this process (no process group); --resume from a copy of its step_1 against 2 straight (cuDNN "
+          f"deterministic): "
           f"all {len(straight)} tensors of step_2 bit-equal (model, SGD momentum, generators)")
     runs_wall = sum(ranks[0][name]["wall"] for name in PAR_STEPS)
     checks_s = time.perf_counter() - t0
@@ -2923,6 +3008,307 @@ def check_parallel_cli(tmp: Path, label: str, ranks: list, reference, ref_dir: P
     print(f"[phase 23] {runs_wall + checks_s:.1f} s (its runs {runs_wall:.1f} s of rank 0's wall in 16's spawn, "
           f"its checks {checks_s:.1f} s)")
     return {k: sum(ranks[0][name]["counts"][k] for name in PAR_STEPS) for k in ranks[0]["tp"]["counts"]}
+
+
+# Phase 24: spatial partitioning and the GPipe pipeline through ``video``,
+# ``infer`` and ``segment`` as two ranks sharing the card over gloo, in phase
+# 16's spawn: the training cell's flagship at full width (PAR_ARGV: 256^2,
+# T 8, B 4, fp32, flash), dropout and noise off, SGD lr 1, one step an epoch.
+SEG_ARGV = ["segment", "--image-size", "256", "--batch-size", "2", "--synthetic", "1", "--epochs", "1",
+            "--device-prefetch", "0", "--optimizer", "sgd", "--lr", "1"]
+PP_M = ppl.pick_microbatches(4, 2)  # the pipeline's microbatches at B 4 over pipe=2
+PP_TICKS = ppl.schedule_ticks(PP_M, 2)
+PP_INFER_CLIP = (4, 8, 256)  # (B, T, S) of the fp32 pipelined forward against one process
+# infer as users run it (the bf16 serving model, "xla" attention) on the
+# pipelined run's checkpoint: one batch of the training cell's clips.
+PP_INFER_ARGV = ["infer", "--image-size", "256", "--clip-len", "8", "--batch-size", "4", "--synthetic", "1",
+                 "--layers", "2"]
+RECONS: list = []  # the (tokens, reconstruction) pairs infer computed under captured_recons()
+
+
+def _on_host(out) -> tuple:
+    return out[0].float().cpu(), out[1].float().cpu()
+
+
+@contextlib.contextmanager
+def captured_recons():
+    """The temporal stack's tokens and the reconstruction of each forward
+    ``infer`` makes in the scope, appended to RECONS (fp32, on the host):
+    the one-process serving model's (a forward hook) and the pipelined
+    forward's."""
+    real_model, real_pp = cli._serving_model, ppl.pipelined_video_infer
+
+    def serving_model(*a, **k):
+        model = real_model(*a, **k)
+        model.register_forward_hook(lambda m, i, out: RECONS.append(_on_host(out)))
+        return model
+
+    def pipelined(*a, **k):
+        out = real_pp(*a, **k)
+        RECONS.append(_on_host(out))
+        return out
+
+    cli._serving_model, ppl.pipelined_video_infer = serving_model, pipelined
+    try:
+        yield
+    finally:
+        cli._serving_model, ppl.pipelined_video_infer = real_model, real_pp
+
+
+def pp_infer_cli(rank: int, world: int, init_method: str, path: str) -> str:
+    """A rank of ``infer --mesh pipe=2 --checkpoint path`` through
+    ``cli.main``; its reconstruction is saved to SEQ_DIR, whose file this
+    returns."""
+    RECONS.clear()
+    with captured_recons():
+        cli.main(PP_INFER_ARGV + ["--mesh", "pipe=2", "--checkpoint", path, "--coordinator", init_method,
+                                  "--num-processes", str(world), "--process-id", str(rank)])
+    check(len(RECONS) == 1, f"24 pp_infer rank {rank}: {len(RECONS)} pipelined forwards, want 1")
+    out = SEQ_DIR / f"pp_infer_rank{rank}.pt"
+    torch.save(RECONS.pop(), out)
+    return str(out)
+
+
+def pp_infer_against_one(ranks: list, path: Path, fp32_model: torch.nn.Module) -> str:
+    """``infer --mesh pipe=2`` on ``path`` (each rank's tokens and
+    reconstruction) held to one-process ``infer`` on it: the ranks' results
+    bit-equal, the PSNRs within 0.01 dB, and the temporal stack's tokens
+    and the reconstruction each at an RMS distance from one process's of at
+    most 0.5 x that of one process's bf16 result from ``fp32_model``'s
+    (the checkpoint in the monolithic layout, fp32, TF32 off) on the same
+    clip (the pipeline moves the result by less than bf16 itself does;
+    where the fp32 and bf16 results agree exactly, as a dead ReLU head's
+    zeros do, equal). Returns the line's text."""
+    RECONS.clear()
+    with captured_recons():
+        one_text = run_cli(PP_INFER_ARGV + ["--checkpoint", str(path)])
+    check(len(RECONS) == 1, f"24 pp_infer: one process made {len(RECONS)} forwards, want 1")
+    one = RECONS.pop()
+    got = [torch.load(g["pp_infer"]["result"]) for g in ranks]
+    check(all(torch.equal(a, b) for g in got for a, b in zip(g, got[0])), "24 pp_infer: the ranks' results differ")
+    raw = torch.as_tensor(next(iter(SyntheticClips(4, 8, 256, 1)))).cuda()
+    with no_tf32(), torch.inference_mode():
+        fp32 = _on_host(fp32_model.eval()(preprocess_clip(raw, 256)))
+    rms = lambda a, b: (a - b).square().mean().sqrt().item()  # noqa: E731
+    psnr = [float(re.search(r"mean PSNR (-?[0-9.]+) dB", t).group(1))
+            for t in ("\n".join(ranks[0]["pp_infer"]["printed"]), one_text)]
+    check(abs(psnr[0] - psnr[1]) <= 0.01, f"24 pp_infer: PSNR {psnr[0]} against one process's {psnr[1]}")
+    parts = []
+    for what, a, b, c in zip(("tokens", "reconstruction"), got[0], one, fp32):
+        err, gap = rms(a, b), rms(b, c)
+        check(err <= 0.5 * gap if gap > 0 else err == 0,
+              f"24 pp_infer {what}: RMS {err} from one process, bf16's own {gap} from fp32")
+        parts.append(f"{what} RMS {err:.3g} from one process's (bf16's own RMS from fp32 {gap:.3g}; limit 0.5 x), "
+                     f"max abs {(a - b).abs().max().item():.3g}, max |value| {b.abs().max().item():.3g}")
+    return (f"PSNR {psnr[0]:.2f} dB against one process's {psnr[1]:.2f} (limit 0.01 dB); {'; '.join(parts)}; "
+            f"the ranks' results bit-equal")
+
+
+def segment_against_one(ranks: list, tmp: Path) -> dict:
+    """``segment --mesh spatial=2`` (the ring, and the flash kernels on the
+    gathered tokens) held to one-process ``segment`` on the same batch
+    (TF32 off, SGD lr 1): every parameter of the checkpoint within 1e-4 of
+    the largest update (FCT has no BatchNorm), the dice loss within rtol
+    1e-4. Returns each run's line."""
+    undo = quiet_cli()
+    try:
+        one_text = run_cli(SEG_ARGV + ["--checkpoint-dir", str(tmp / "seg_one")])
+    finally:
+        undo()
+    one = read_whole(tmp / "seg_one" / "step_1")["model"]
+    init = {k: v.cpu() for k, v in cli._fct_model("cuda").state_dict().items()}
+    scale = max((init[k] - one[k]).abs().max().item() for k in one)
+    loss = lambda t: float(re.search(r"dice loss ([0-9.]+)", t).group(1))  # noqa: E731
+    lines = {}
+    for name in ("seg_ring", "seg_flash"):
+        many = read_whole(tmp / name / "step_1")["model"]
+        worst = max(((many[k] - one[k]).abs().max().item(), k) for k in one)
+        got = loss("\n".join(ranks[0][name]["printed"]))
+        check(worst[0] <= 1e-4 * scale, f"24 {name}: parameter {worst[1]} {worst[0]} > 1e-4 x {scale}")
+        check(abs(got - loss(one_text)) <= 1e-4 * loss(one_text), f"24 {name}: dice loss {got} vs {one_text}")
+        lines[name] = (f"the step against one process on the same batch (TF32 off, SGD lr 1): dice loss {got} vs "
+                       f"{loss(one_text)}; parameters max abs {worst[0]:.3g} at {worst[1]} ({worst[0] / scale:.3g} x "
+                       f"the largest update {scale:.3g}; limit 1e-4)")
+    free_cuda()
+    return lines
+
+
+def pp_infer_fp32(rank: int, world: int, init_method: str) -> float:
+    """A rank of ``pipelined_video_infer`` in fp32 (TF32 off) over pipe=2 on
+    the training cell's flagship (its weights from seed 1) and a seeded
+    clip, with the flash kernels, against the whole model's forward in this
+    process (one process's): an extra check of the pipelined compute, which
+    no command reaches with the flash kernels (``infer`` serves "xla"
+    attention). Returns the max abs error; the reference's launches are
+    left out of the rank's counts."""
+    parallel.init_distributed(init_method, world, rank)
+    try:
+        with no_tf32(), torch.no_grad():
+            mesh = parallel.make_mesh(("pipe",), (world,))
+            model = VideoHybridNet(flagship_video_config(256, attn_impl="flash"), device="cuda",
+                                   generator=torch.Generator().manual_seed(1)).eval()
+            b, t, size = PP_INFER_CLIP
+            clip = preprocess_clip(random_clip(b, t, size, seed=41), size)
+            want = model(clip)[1]
+            reset_counts()
+            _, recon = ppl.pipelined_video_infer(model, clip, mesh=mesh)
+            return (recon - want).abs().max().item()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def pp_resume_bits(rank: int, world: int, init_method: str, path: str) -> dict:
+    """A rank of a fresh pipelined VideoFlow over pipe=2 (the CLI's optimizer:
+    SGD lr 1, clip 1.0) resumed from ``path``'s ``step_1``: the tensors this
+    rank holds (its stage's rows, the rest, the moments, the generators)
+    against the checkpoint read whole and cut to them. Returns the resume's
+    start epoch, the tensor count and the first unequal names."""
+    parallel.init_distributed(init_method, world, rank)
+    try:
+        mesh = parallel.make_mesh(("pipe",), (world,))
+        model = VideoHybridNet(flagship_video_config(256, attn_impl="flash"), device="cuda",
+                               generator=torch.Generator().manual_seed(0))
+        flow = VideoFlow(model, cfg=TrainConfig(model_name="video", loss="mixed", lr=1.0, optimizer="sgd",
+                                                checkpoint_dir=path), image_size=256, mesh=mesh, pipe_axis="pipe")
+        start = flow.resume(8)
+        disk = state_tensors(ckpt._live_slices(flow.state, ckpt.restore_state(str(Path(path) / "step_1"))))
+        live = state_tensors(ckpt._payload(1, flow.state, None))
+        return {"start": start, "tensors": len(live), "unequal": unequal(disk, live)[:5],
+                "stage": list(flow.state.model.stages.norm.weight.shape)}
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spatial_pipe_runs(tmp: Path) -> list:
+    """:func:`cli_rank`'s runs of phase 24: ``--mesh spatial=2`` for one
+    step; ``--mesh pipe=2`` for one, its checkpoint resumed into a fresh
+    pipelined flow (:func:`pp_resume_bits`) and served by ``infer --mesh
+    pipe=2`` (:func:`pp_infer_cli`); the fp32 pipelined forward with the
+    flash kernels (:func:`pp_infer_fp32`); ``segment --mesh spatial=2`` with
+    the ring and with the flash kernels on the gathered tokens, one step
+    each (TF32 off)."""
+    pipe = PAR_ARGV + ["--mesh", "pipe=2", "--layers", "2"]
+    return [("sp", PAR_ARGV + ["--mesh", "spatial=2", "--epochs", "1", "--checkpoint-dir", str(tmp / "sp")], True),
+            ("pp", pipe + ["--epochs", "1", "--checkpoint-dir", str(tmp / "pp")], True),
+            ("pp_resume", f"pp_resume_bits:{tmp / 'pp'}", False),
+            ("pp_infer", f"pp_infer_cli:{tmp / 'pp' / 'step_1'}", False),
+            ("pp_fp32", "pp_infer_fp32", False),
+            ("seg_ring", SEG_ARGV + ["--mesh", "spatial=2", "--attn-impl", "ring",
+                                     "--checkpoint-dir", str(tmp / "seg_ring")], True),
+            ("seg_flash", SEG_ARGV + ["--mesh", "spatial=2", "--checkpoint-dir", str(tmp / "seg_flash")], True)]
+
+
+def check_spatial_pipe(tmp: Path, label: str, ranks: list, reference, ref_dir: Path) -> dict:
+    """Phase 24's checks on :func:`spatial_pipe_runs`' results: per rank the
+    flash launches (spatial: 2/2/2 a step, every rank running the whole
+    temporal stack; pipe: its stage's one layer on each of the schedule's
+    ticks, forward and backward, as every rank computes every tick;
+    ``infer --mesh pipe=2``: none, its serving model runs "xla" attention;
+    segment: 9/9/9 with the kernels, and rank 0's sneak peek's 9 forwards,
+    none on the ring) and the markers; the ranks' losses equal; the first
+    steps against 16 (i)'s one process by its limits (the pipelined
+    checkpoint read whole and merged); the pipelined checkpoint shard-wise,
+    resumed bit-equal into a fresh pipelined flow, and read into the
+    monolithic layout by this process; ``infer --mesh pipe=2`` against
+    one-process ``infer`` on that checkpoint (:func:`pp_infer_against_one`);
+    the fp32 pipelined forward with the flash kernels within 1e-4 of one
+    process's; the segment steps against one process's
+    (:func:`segment_against_one`). Prints each run's launches, step ms and
+    peak memory a rank. Returns rank 0's launches over the runs."""
+    tag = "24 spatial and pipe"
+    t0 = time.perf_counter()
+    n = flagship_video_config(256).temporal.num_layers
+    k = n // 2  # layers a stage
+    want = {"sp": expect_counts(launches=n, dq_launches=n, dkv_launches=n),
+            "pp": expect_counts(launches=PP_TICKS * k, dq_launches=PP_TICKS * k, dkv_launches=PP_TICKS * k),
+            "pp_resume": expect_counts(),
+            "pp_infer": expect_counts(),
+            "pp_fp32": expect_counts(launches=PP_TICKS * k),
+            "seg_ring": expect_counts(),
+            "seg_flash": expect_counts(**{c: FCT_FLASH for c in FLASH3})}
+    marks = {"sp": {"sp_constrain_conv", "sp_halo", "sp_gather"},
+             "pp": {"pipeline_shard_map", "pp_constrain"}, "pp_resume": set(),
+             "pp_infer": {"pipeline_shard_map"}, "pp_fp32": {"pipeline_shard_map"},
+             "seg_ring": {"sp_constrain_conv", "sp_halo", "ring_shard_map"},
+             "seg_flash": {"sp_constrain_conv", "sp_halo", "seq_gathered", "flash_mha_cuda"}}
+    for r, got in enumerate(ranks):
+        # Rank 0 alone also runs the segment flow's sneak peek, a whole forward.
+        peek = expect_counts(launches=FCT_FLASH * 2, dq_launches=FCT_FLASH, dkv_launches=FCT_FLASH)
+        for name, c in dict(want, **({"seg_flash": peek} if r == 0 else {})).items():
+            check(got[name]["counts"] == c, f"24 {name} rank {r} launches {got[name]['counts']}, want {c}")
+            check(marks[name] <= set(got[name]["seen"]), f"24 {name} rank {r} recorded {got[name]['seen']}")
+        for name in ("sp", "pp"):
+            check(all(math.isfinite(m["loss"]) for m in got[name]["steps"]) and got[name]["steps"],
+                  f"24 {name} rank {r} steps {got[name]['steps']}")
+        res = got["pp_resume"]["result"]
+        check(res["start"] == 1 and not res["unequal"] and res["stage"] == [1, 4096],
+              f"24 pp_resume rank {r}: {res}")
+    for name in ("sp", "pp"):
+        check(len({json.dumps([m["loss"] for m in g[name]["steps"]]) for g in ranks}) == 1,
+              f"24 {name}: the ranks' losses differ")
+    lines = {name: against_one(f"24 {name}", ranks[0][name]["steps"][0]["loss"], reference,
+                               ref_dir / "one" / "step_1", tmp / name / "step_1") for name in ("sp", "pp")}
+    check(ckpt.is_sharded_checkpoint(str(tmp / "pp" / "step_1")), "24 pp: the pipelined checkpoint is not shard-wise")
+    whole = read_whole(tmp / "pp" / "step_1")
+    stacked = tuple(whole["model"]["stages.norm.weight"].shape)
+    check(stacked == (2, 4096), f"24 pp: stacked stages {stacked}")
+    # The pipelined checkpoint into the monolithic layout, in this process.
+    model = VideoHybridNet(flagship_video_config(256, attn_impl="flash"), device="cuda",
+                           generator=torch.Generator().manual_seed(1))
+    flow = VideoFlow(model, cfg=TrainConfig(model_name="video", loss="mixed", lr=1.0, optimizer="sgd",
+                                            checkpoint_dir=str(tmp / "pp")), image_size=256)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        start = flow.resume(8)
+    merged = ppl.merge_pipelined_params(whole["model"])
+    live = {kk: v.cpu() for kk, v in model.state_dict().items()}
+    check(start == 1 and "checkpoint layout pipelined -> live monolithic" in out.getvalue()
+          and all(torch.equal(live[kk], merged[kk]) for kk in live), f"24 pp into one process: {out.getvalue()}")
+    del flow
+    infer_err = max(g["pp_fp32"]["result"] for g in ranks)
+    check(infer_err <= 1e-4, f"24 pp_fp32: max abs {infer_err} against one process")
+    infer_line = pp_infer_against_one(ranks, tmp / "pp" / "step_1", model)
+    del model
+    free_cuda()
+    seg_lines = segment_against_one(ranks, tmp)
+    for name, what in (("sp", "video --mesh spatial=2"), ("pp", "video --mesh pipe=2 --layers 2")):
+        c = ranks[0][name]["counts"]
+        ms = [[round(m["ms"], 1) for m in g[name]["steps"]] for g in ranks]
+        print(f"[{tag}] {what} as 2 ranks ({label}), {CARD}, 256^2 T 8 B 4, fp32, dropout and noise off, SGD lr 1: "
+              f"flash launches per rank a step {c['launches']}/{c['dq_launches']}/{c['dkv_launches']}"
+              + (f" (one layer a stage on each of {PP_TICKS} ticks of {PP_M} microbatches, forward and backward)"
+                 if name == "pp"
+                 else " (the whole temporal stack on every rank)")
+              + f"; markers {sorted(m for m in ranks[0][name]['seen'] if m.startswith(('sp_', 'pipeline', 'pp_')))}; "
+              f"step ms per rank (synchronised; not a scaling number) {ms}; peak memory per rank "
+              f"{[round(g[name]['peak_gb'], 2) for g in ranks]} GB; run wall per rank "
+              f"{[round(g[name]['wall'], 1) for g in ranks]} s")
+        print(f"[{tag}] {what}: the first step against one process on the same global batch of 4: {lines[name]}")
+    res = ranks[0]["pp_resume"]["result"]
+    print(f"[{tag}] pipe: step_1 shard-wise in the pipelined layout (stages stacked {stacked}); resumed into a "
+          f"fresh pipelined flow on each rank: all {res['tensors']} tensors a rank holds bit-equal to the checkpoint "
+          f"(its stage's rows, the rest, SGD momentum, generators; {ranks[0]['pp_resume']['wall']:.1f} s); read "
+          f"into the monolithic layout by this process: every tensor equal to the merged checkpoint")
+    print(f"[{tag}] infer --mesh pipe=2 --checkpoint pp/step_1 as 2 ranks ({label}), B 4 T 8 256^2, bf16, 'xla' "
+          f"attention (flash launches per rank {ranks[0]['pp_infer']['counts']['launches']}; run wall per rank "
+          f"{[round(g['pp_infer']['wall'], 1) for g in ranks]} s) against one-process infer on that checkpoint: "
+          f"{infer_line}")
+    print(f"[{tag}] not on a CLI path: the fp32 pipelined forward with the flash kernels (B 4, "
+          f"{ranks[0]['pp_fp32']['counts']['launches']} launches a rank, TF32 off) against one process: max abs "
+          f"{infer_err:.3g} (limit 1e-4)")
+    for name, what in (("seg_ring", "--attn-impl ring"), ("seg_flash", "(flash on the gathered tokens)")):
+        c = ranks[0][name]["counts"]
+        epochs = [t_.strip() for t_ in ranks[0][name]["printed"] if t_.startswith("Epoch")]
+        print(f"[{tag}] segment --mesh spatial=2 {what} as 2 ranks ({label}), 256^2 B 2, one step: flash launches "
+              f"per rank {c['launches']}/{c['dq_launches']}/{c['dkv_launches']}; {' | '.join(epochs)}; peak memory "
+              f"per rank {[round(g[name]['peak_gb'], 2) for g in ranks]} GB; run wall per rank "
+              f"{[round(g[name]['wall'], 1) for g in ranks]} s; {seg_lines[name]}")
+    runs_wall = sum(ranks[0][name]["wall"] for name in want)
+    checks_s = time.perf_counter() - t0
+    PHASE_SECONDS["24 (in 16)"] = runs_wall + checks_s
+    print(f"[phase 24] {runs_wall + checks_s:.1f} s (its runs {runs_wall:.1f} s of rank 0's wall in 16's spawn, "
+          f"its checks {checks_s:.1f} s)")
+    return {kk: sum(ranks[0][name]["counts"][kk] for name in ("sp", "pp", "seg_flash")) for kk in ranks[0]["sp"]["counts"]}
 
 
 # The data ranks timed as users launch them (12c): the CLI's own precision
@@ -3297,13 +3683,15 @@ def phase_runtime(train_ms: float) -> dict:
             data_spec = [("data", 4, ["--mesh", "data=2"])]
             reference = data_reference(tmp / "i", data_spec)
             ranks, wall = spawn_cli(2, mesh_runs(tmp / "g") + data_runs(tmp / "i", data_spec)
-                                    + parallel_runs(tmp / "p"))
-            label = (f"2 ranks sharing one H100, gloo; (g)'s 3 commands, (i)'s and phase 23's 4 in one spawn of "
-                     f"{wall:.1f} s")
+                                    + parallel_runs(tmp / "p") + spatial_pipe_runs(tmp / "s"))
+            label = (f"2 ranks sharing one H100, gloo; (g)'s 3 commands, (i)'s, phase 23's 3 and phase 24's 7 in "
+                     f"one spawn of {wall:.1f} s")
             mesh_counts = check_mesh_cli(tag, tmp / "g", label, ranks)
             data_counts = check_data_mesh(tag, tmp / "i", label, data_spec, ranks, reference)
             par_counts = check_parallel_cli(tmp / "p", label, ranks, reference, tmp / "i")
-            mesh_counts = {k: mesh_counts[k] + data_counts[k] + par_counts[k] for k in mesh_counts}
+            sp_counts = check_spatial_pipe(tmp / "s", label, ranks, reference, tmp / "i")
+            mesh_counts = {k: mesh_counts[k] + data_counts[k] + par_counts[k] + sp_counts[k] for k in mesh_counts}
+            WHOLE_READS.clear()
             del reference
             free_cuda()
 
@@ -4363,6 +4751,61 @@ def phase_export_serve(tmp: Path, a: dict) -> None:
     print(run_cli(["export", "--model", "fct", "--out", fct_path, "--image-size", str(FCT_SIZE)]).strip())
     export_s = time.perf_counter() - t0
     SERVING_LAUNCHES["launches"] += counts()["launches"]  # the export's eager call
+    # The CLI's serve starts now, its own process: its imports and load run
+    # beside the config-1 exports below; it idles through the measurements.
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    proc = subprocess.Popen([sys.executable, "-m", "tchvp_tpu_torch.cli", "serve", "--exported", fct_path,
+                             "--port", str(port), "--buckets", "1,2", "--data-parallel"], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        exported = export_config1(tmp, a)
+        serve_fct(tag, fct_path, export_s, proc, port)
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    serve_config1(tag, a, exported)
+
+
+def export_config1(tmp: Path, a: dict) -> dict:
+    """Phase 20 (b)'s config-1 artifacts, bf16 and int8: name -> (path,
+    export s)."""
+    model, eng, clip_u8 = a["model"], a["engine"], a["clip"]
+    size, frames = 224, clip_u8.shape[1]
+    out = {}
+    for name, exporter in (("bf16", lambda: export_lib.export_video_model(model, clip_len=frames, image_size=size)),
+                           ("int8", lambda: export_lib.export_int8_video_model(eng, clip_len=frames, image_size=size))):
+        path = str(tmp / f"config1_{name}.tchvp")
+        t0 = time.perf_counter()
+        reset_counts()
+        exported, record = exporter()
+        export_lib.save_artifact(path, exported, record, meta={"model": "hybrid", "image_size": size,
+                                                               "clip_len": frames, "int8": name == "int8"})
+        del exported
+        SERVING_LAUNCHES["launches"] += counts()["launches"]
+        out[name] = (path, time.perf_counter() - t0)
+    return out
+
+
+def serve_fct(tag: str, fct_path: str, export_s: float, proc, port: int) -> None:
+    """Phase 20 (b)'s FCT artifact behind ``serve_artifact`` in this process
+    (against the live model, /health, a p50), then the CLI's ``serve
+    --data-parallel`` process (``proc``, on ``port``; up and idle before
+    anything here is timed) against it."""
+    deadline = time.monotonic() + 180
+    while True:
+        try:
+            get_json(f"http://127.0.0.1:{port}/health")
+            break
+        except OSError:
+            check(proc.poll() is None and time.monotonic() < deadline, f"(b) serve did not come up: "
+                  f"{proc.stdout.read() if proc.poll() is not None else 'timeout'}")
+            time.sleep(0.5)
     t0 = time.perf_counter()
     reset_counts()
     srv = serve_artifact(fct_path, port=0, buckets=(1, 2)).start()
@@ -4403,47 +4846,19 @@ def phase_export_serve(tmp: Path, a: dict) -> None:
           + "; ".join(lines) + f"; {FCT_FLASH} flash launches a bucket call; /health requests 3, frames 6, errors 0; "
           f"{CARD}: batch 2 over HTTP: p50 {p50:.2f} ms (min {min(ms):.2f}, max {max(ms):.2f}; 20 requests), "
           f"{2 / p50 * 1e3:.1f} images/s")
-    port = free_port()
-    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
-    proc = subprocess.Popen([sys.executable, "-m", "tchvp_tpu_torch.cli", "serve", "--exported", fct_path,
-                             "--port", str(port), "--buckets", "1,2", "--data-parallel"], env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    try:
-        deadline = time.monotonic() + 180
-        while True:
-            try:
-                get_json(f"http://127.0.0.1:{port}/health")
-                break
-            except OSError:
-                check(proc.poll() is None and time.monotonic() < deadline, f"(b) serve did not come up: "
-                      f"{proc.stdout.read() if proc.poll() is not None else 'timeout'}")
-                time.sleep(0.5)
-        cli_out = post_npy(f"http://127.0.0.1:{port}/infer", three)
-        line = close_to(f"serve --data-parallel (CLI process; one replica a card: {torch.cuda.device_count()}) vs "
-                        f"serve_artifact, batch 3", cli_out, torch.from_numpy(in_process), 1e-4)
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=20)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+    cli_out = post_npy(f"http://127.0.0.1:{port}/infer", three)
+    line = close_to(f"serve --data-parallel (CLI process; one replica a card: {torch.cuda.device_count()}) vs "
+                    f"serve_artifact, batch 3", cli_out, torch.from_numpy(in_process), 1e-4)
     print(f"[{tag}] {line}")
 
+
+def serve_config1(tag: str, a: dict, exported: dict) -> None:
+    """Phase 20 (b)'s config-1 artifacts (:func:`export_config1`) served
+    and held to the live model and the int8 engine."""
     model, eng, clip_u8 = a["model"], a["engine"], a["clip"]
     size, frames = 224, clip_u8.shape[1]
     two_clips = clip_u8[:2].cpu().numpy()
-    for name, exporter in (("bf16", lambda: export_lib.export_video_model(model, clip_len=frames, image_size=size)),
-                           ("int8", lambda: export_lib.export_int8_video_model(eng, clip_len=frames, image_size=size))):
-        path = str(tmp / f"config1_{name}.tchvp")
-        t0 = time.perf_counter()
-        reset_counts()
-        exported, record = exporter()
-        export_lib.save_artifact(path, exported, record, meta={"model": "hybrid", "image_size": size,
-                                                               "clip_len": frames, "int8": name == "int8"})
-        del exported
-        SERVING_LAUNCHES["launches"] += counts()["launches"]
-        export_s = time.perf_counter() - t0
+    for name, (path, export_s) in exported.items():
         window = 50.0 if name == "int8" else 0.0
         buckets = (1, 2, 4) if name == "int8" else (2,)
         reset_counts()

@@ -51,9 +51,7 @@ import subprocess
 import sys
 import time
 
-_ITEMS = {"11c": "data parallelism", "11d": "FSDP and sharded checkpoints",
-          "11e": "tensor and spatial parallelism", "11f": "pipeline parallelism",
-          "11g": "streaming over a mesh and the planner"}
+_ITEMS = {"11g": "streaming over a mesh and the planner"}
 
 
 def _not_ported(what: str, item):
@@ -242,16 +240,16 @@ def _parse_mesh_axes(spec: str) -> dict:
     return axes
 
 
-# The item of each mesh axis the port does not run yet.
-_AXIS_ITEMS = {"model": "11e", "spatial": "11e", "pipe": "11f"}
+# The pairs of model-side axes a mesh may carry together (beside data=);
+# otherwise it carries one.
+_COMPOSED_AXES = ({"seq", "model"}, {"spatial", "model"})
 
 
 def _mesh(args, axes_ported=("seq",)):
-    """The mesh over the launched ranks, or None: ``data=N``, one of
-    ``axes_ported`` (``seq``, ``expert`` where the command runs them), or
-    ``data`` beside one of them (a mesh of two axes in the order given, as
-    JAX's ``make_mesh``); ``--data-parallel`` puts every rank on ``data``.
-    The other axes are not ported yet."""
+    """The mesh over the launched ranks, or None: ``data=N`` beside one of
+    ``axes_ported`` (the axes the command runs) or beside ``model=`` with
+    ``seq=`` or ``spatial=``, in the order given, as JAX's ``make_mesh``;
+    ``--data-parallel`` puts every rank on ``data``."""
     import torch.distributed as dist
 
     from tchvp_tpu_torch.parallel import make_mesh
@@ -260,11 +258,11 @@ def _mesh(args, axes_ported=("seq",)):
     on = {k: v for k, v in axes.items() if v > 1}
     others = sorted(k for k in on if k != "data" and k not in axes_ported)
     if others:
-        if any(k not in _AXIS_ITEMS for k in others):
-            raise SystemExit(f"{args.cmd}: unsupported mesh axes {others}")
-        _not_ported(f"--mesh axes {others}", min(_AXIS_ITEMS[k] for k in others))
-    if len([k for k in on if k != "data"]) > 1:
-        raise SystemExit(f"--mesh {args.mesh}: data and at most one of {list(axes_ported)}")
+        raise SystemExit(f"{args.cmd}: unsupported mesh axes {others}")
+    model_side = {k for k in on if k != "data"}
+    if len(model_side) > 1 and model_side not in _COMPOSED_AXES:
+        raise SystemExit(f"--mesh {args.mesh}: data= beside one of {list(axes_ported)}, or model= beside "
+                         f"seq= or spatial=")
     world = dist.get_world_size() if dist.is_initialized() else 1
     if getattr(args, "data_parallel", False):
         if on:
@@ -319,36 +317,32 @@ def _image_data(args, supervised: bool = True):
 
 
 def _segment_mesh(args):
-    """``segment``'s mesh: JAX runs ``data=`` and ``spatial=`` (item 11e
-    here); any other axis is refused as JAX refuses it."""
+    """``segment``'s mesh: ``data=`` and ``spatial=`` (FCT's rows in blocks
+    over the ranks); any other axis is refused as JAX refuses it."""
     axes = _parse_mesh_axes(getattr(args, "mesh", None) or "")
     bad = sorted(k for k, v in axes.items() if v > 1 and k not in ("data", "spatial"))
     if bad:
         raise SystemExit(f"segment: unsupported mesh axes {bad} (use data= and spatial=)")
-    if axes.get("spatial", 1) > 1:
-        _not_ported(f"--mesh {args.mesh}", "11e")
-    return _mesh(args, axes_ported=())
+    return _mesh(args, axes_ported=("spatial",))
 
 
 def _fct_attn(args) -> str:
     """``--attn-impl`` of ``segment`` (default "auto": the flash kernels on
-    a card). FCT's ring rides the ``spatial`` mesh axis in JAX, so it waits
-    for item 11e."""
-    attn = getattr(args, "attn_impl", None) or "auto"
-    if attn == "ring":
-        _not_ported("segment --attn-impl ring (over the spatial axis)", "11e")
-    return attn
+    a card); "ring" rides the ``spatial`` mesh axis."""
+    return getattr(args, "attn_impl", None) or "auto"
 
 
-def _fct_model(device, attn: str = "auto"):
+def _fct_model(device, attn: str = "auto", sp_axis=None):
     """FCT at its default widths on ``device``, its weights from a seeded
-    generator (seed 0)."""
+    generator (seed 0); ``sp_axis``: its rows in blocks over that axis, the
+    ring (``attn`` "ring") over it too, as JAX's ``segment`` builds it."""
     import torch
 
     from tchvp_tpu_torch.config import FCTConfig
     from tchvp_tpu_torch.models.fct import FCT
 
-    return FCT(FCTConfig(attn_impl=attn), device=device, generator=torch.Generator().manual_seed(0))
+    config = FCTConfig(attn_impl=attn, sp_axis=sp_axis, seq_axis=sp_axis if attn == "ring" else None)
+    return FCT(config, device=device, generator=torch.Generator().manual_seed(0))
 
 
 def _seeded(model_cls, *a, **kw):
@@ -454,7 +448,9 @@ def cmd_segment(args) -> None:
     )
     train, _, test = _image_data(args)
     device = _device(args)
-    flow = SegmentationFlow(_fct_model(device, attn), cfg=cfg, image_size=args.image_size, mesh=mesh)
+    sp_axis = "spatial" if mesh is not None and "spatial" in mesh.mesh_dim_names else None
+    flow = SegmentationFlow(_fct_model(device, attn, sp_axis), cfg=cfg, image_size=args.image_size, mesh=mesh,
+                            sp_axis=sp_axis)
     _record_run(args)
     flow.train(train, test, epochs=args.epochs, lr=args.lr)
 
@@ -480,10 +476,11 @@ def _video_model(args, device):
         from tchvp_tpu_torch.models.frame_ae import FrameAE
         from tchvp_tpu_torch.models.resnet_ae import Autoencoder4K, Autoencoder32K
 
-        tp_axis = getattr(args, "tp_axis", None)
+        tp_axis, sp_axis = getattr(args, "tp_axis", None), getattr(args, "sp_axis", None)
         if args.model == "ae32k":
-            return FrameAE(_seeded(Autoencoder32K, ResNetAEConfig(tp_axis=tp_axis), device=device))
-        return FrameAE(_seeded(Autoencoder4K, tp_axis=tp_axis, device=device))
+            return FrameAE(_seeded(Autoencoder32K, ResNetAEConfig(tp_axis=tp_axis, sp_axis=sp_axis),
+                                   device=device))
+        return FrameAE(_seeded(Autoencoder4K, tp_axis=tp_axis, sp_axis=sp_axis, device=device))
     attn = getattr(args, "attn_impl", None) or "xla"
     if attn == "ring" and not getattr(args, "seq_axis", None):
         raise SystemExit("--attn-impl ring is full attention over seq-sharded tokens: "
@@ -507,7 +504,28 @@ def _hybrid_config(args, size: int, attn: str = "xla"):
         ep_axis=getattr(args, "ep_axis", None),
         seq_axis=getattr(args, "seq_axis", None),
         tp_axis=getattr(args, "tp_axis", None),
+        sp_axis=getattr(args, "sp_axis", None),
     )
+
+
+def _pipe_checks(args) -> int:
+    """``video --mesh ...pipe=N``: N (0 without the axis), after JAX's
+    refusals of what the pipeline does not compose with, in its words."""
+    axes = {k: v for k, v in _parse_mesh_axes(getattr(args, "mesh", None) or "").items() if v > 1}
+    pipe = axes.get("pipe", 0)
+    if not pipe:
+        return 0
+    if args.model != "hybrid":
+        raise SystemExit("video: --mesh pipe=N needs --model hybrid (the temporal transformer is what pipelines)")
+    others = [a for a in ("seq", "model", "expert", "spatial") if a in axes]
+    if others:
+        raise SystemExit(f"video: --mesh pipe=N composes with data= only (got {others})")
+    if args.qat or args.remat_policy not in ("none", "full"):
+        raise SystemExit("video: --mesh pipe=N does not compose with --qat, and only --remat-policy full "
+                         "(checkpointed stage bodies) of the remat policies")
+    if args.layers % pipe:
+        raise SystemExit(f"video: --layers {args.layers} must be a multiple of pipe={pipe}")
+    return pipe
 
 
 def cmd_video(args) -> None:
@@ -548,18 +566,19 @@ def cmd_video(args) -> None:
         **_train_cfg_kwargs(args),
     )
     device = _device(args)
-    mesh = _mesh(args, axes_ported=("seq", "expert", "model"))
+    pipe = _pipe_checks(args)
+    mesh = _mesh(args, axes_ported=("seq", "expert", "model", "spatial", "pipe"))
     names = mesh.mesh_dim_names if mesh is not None else ()
     args.seq_axis = "seq" if "seq" in names else None
     args.ep_axis = "expert" if "expert" in names else None
     # "model": tensor parallelism of the transformer's heads and FFN hidden
-    # dim and of every conv stack's channels (parallel/tp.py).
+    # dim and of every conv stack's channels (parallel/tp.py); "spatial":
+    # the conv stacks' rows in blocks, halos exchanged (parallel/spatial.py).
     args.tp_axis = "model" if "model" in names else None
+    args.sp_axis = "spatial" if "spatial" in names else None
     if args.fsdp and "data" not in names:
         raise SystemExit("--fsdp requires --data-parallel or --mesh data=N (a mesh "
                          "to shard parameters over; ROADMAP.md, item 11d)")
-    if args.tp_axis and args.qat:
-        _not_ported("--qat under --mesh model=N", "11e")
     if args.clippack and "data" in names:
         from tchvp_tpu_torch.parallel.input import sharded_clippack_loader
 
@@ -580,6 +599,8 @@ def cmd_video(args) -> None:
         remat_policy=args.remat_policy,
         qat=args.qat, qat_dense=args.qat_dense,
         seq_axis=args.seq_axis,
+        sp_axis=args.sp_axis,
+        pipe_axis="pipe" if pipe else None,
         ep_axis=args.ep_axis,
         aug=_aug_cfg(args),
     )
@@ -790,7 +811,20 @@ def cmd_infer(args) -> None:
         return _infer_exported(args)
     size = args.image_size
     device = _device(args)
-    mesh = _mesh(args, axes_ported=())
+    # Serving meshes: data= splits the batch, pipe= runs the temporal stack
+    # as a GPipe pipeline (parallel/pipeline.py::pipelined_video_infer).
+    axes = {k: v for k, v in _parse_mesh_axes(getattr(args, "mesh", None) or "").items() if v > 1}
+    bad = sorted(k for k in axes if k not in ("data", "pipe"))
+    if bad:
+        raise SystemExit(f"infer: unsupported mesh axes {bad} (infer supports data= and pipe=)")
+    pipe = "pipe" in axes
+    if pipe and args.microbatch:
+        raise SystemExit("infer: --microbatch and --mesh pipe=N don't compose (the pipeline already microbatches)")
+    if pipe and args.int8 and args.int8_dense:
+        raise SystemExit("infer: --int8-dense and --mesh pipe=N don't compose (the pipelined temporal stack "
+                         "bypasses the Dense interceptor); use conv-only --int8, or --mesh data=N for dense "
+                         "quantization")
+    mesh = _mesh(args, axes_ported=("pipe",))
     data = _clip_data(args, size)
     model = _serving_model(args, size, device)
     engine = None
@@ -813,22 +847,31 @@ def cmd_infer(args) -> None:
         print(f"int8: {len(engine.scales)} layers quantized, "
               f"{engine.psnr_vs(calib):.1f} dB vs bf16")
 
-    ranks, group = 1, None
-    if mesh is not None:  # data=N: this rank's block, the PSNR of the global batch's MSE
-        from tchvp_tpu_torch.parallel import axis_group, axis_size, shard_batch
+    ranks, group, batch_axis = 1, None, None
+    if pipe:
+        from tchvp_tpu_torch.parallel.pipeline import PipelinedVideoNet, pipelined_video_infer
+
+        model = PipelinedVideoNet(model, mesh, "pipe")  # this rank's stage of the temporal layers
+    if mesh is not None and "data" in mesh.mesh_dim_names:
+        # data=N: this rank's block, the PSNR of the global batch's MSE
+        from tchvp_tpu_torch.parallel import axis_group, axis_size
         from tchvp_tpu_torch.parallel.collectives import all_reduce_sum
 
-        ranks, group = axis_size(mesh, "data"), axis_group(mesh, "data")
+        ranks, group, batch_axis = axis_size(mesh, "data"), axis_group(mesh, "data"), "data"
     frames, psnrs, t0 = 0, [], None
     for bi, batch in enumerate(data_iter):
         raw = torch.as_tensor(np.asarray(batch, dtype=np.uint8)).to(device)
         if group is not None:
+            from tchvp_tpu_torch.parallel import shard_batch
+
             raw = shard_batch(raw, mesh)
         scope = engine.intercepting(engine.qparams) if engine is not None else contextlib.nullcontext()
         with torch.inference_mode(), scope:
             clip = preprocess_clip(raw, size, dtype=torch.bfloat16)
             if args.microbatch:
                 recon = microbatched_infer(model, clip, args.microbatch)
+            elif pipe:
+                recon = pipelined_video_infer(model, clip, mesh=mesh, batch_axis=batch_axis)[1]
             else:
                 recon = model(clip)[1]
             mse = torch.mean((clip.float() - recon.float()) ** 2)
@@ -987,6 +1030,10 @@ def _restored_params(restored: dict, ema: bool, expect_layers=None, expect_exper
                 "--ema: checkpoint carries no EMA state (train with --ema-decay)"
             )
         payload = ema_state_dict(payload, e)
+    from tchvp_tpu_torch.parallel import pipeline as ppl
+
+    if ppl.is_pipelined_params(payload):  # a `video --mesh pipe=N` run's layout
+        payload = ppl.merge_pipelined_params(payload)
     if expect_layers is not None:
         _validate_restored_depth(payload, expect_layers, expect_experts)
     return payload
@@ -1342,21 +1389,69 @@ def cmd_export(args) -> None:
           f"batch {'symbolic' if symbolic else 'static'})")
 
 
+def _serve_live_pipelined(args, axes: dict, buckets) -> None:
+    """``serve --mesh data=K,pipe=N``: the flagship served live with its
+    temporal stack as a GPipe pipeline over the ranks; rank 0 serves HTTP,
+    the others follow its batches until it stops. The weights come from
+    ``--checkpoint``, which is required."""
+    from tchvp_tpu_torch.infer.server import serve_live_pipelined
+
+    if args.exported:
+        raise SystemExit("serve: --exported and --mesh pipe=N don't compose (artifacts can't carry the "
+                         "pipeline's schedule over processes) — live serving builds the model from "
+                         "--checkpoint")
+    others = [a for a in axes if a not in ("data", "pipe")]
+    if others:
+        raise SystemExit(f"serve: --mesh pipe=N composes with data= only (got {others})")
+    if getattr(args, "model", "hybrid") != "hybrid":
+        raise SystemExit("serve: --mesh pipe=N serves --model hybrid (the temporal transformer is what pipelines)")
+    if args.layers % axes["pipe"]:
+        raise SystemExit(f"serve: --layers {args.layers} must be a multiple of pipe={axes['pipe']}")
+    if not args.checkpoint:
+        raise SystemExit("serve: --mesh pipe=N serves the weights of --checkpoint (a step_* dir); "
+                         "give one, there are no weights to serve without it")
+    mesh = _mesh(args, axes_ported=("pipe",))
+    size = args.image_size
+    model = _serving_model(args, size, _device(args))
+    print(f"warming buckets {list(buckets) if buckets else '(default)'} through the pipeline...", flush=True)
+    srv = serve_live_pipelined(model, mesh, axis="pipe", batch_axis="data" if "data" in axes else None,
+                               image_size=size, clip_len=args.clip_len, host=args.host, port=args.port,
+                               buckets=buckets, batch_window_ms=args.batch_window_ms)
+    if srv is None:  # a following rank: rank 0 has stopped
+        return
+    host, port = srv.address
+    print(f"serving LIVE pipelined hybrid on http://{host}:{port} (mesh {axes}, buckets "
+          f"{list(srv.buckets)}) — POST /infer, GET /health", flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.shutdown()
+        srv.model.stop()
+
+
 def cmd_serve(args) -> None:
     """HTTP serving daemon (``infer/server.py``) of an ``export``
     artifact: POST .npy batches to /infer, GET /health; /stream sessions
     for a streaming artifact. ``--data-parallel`` serves one replica a
-    visible card, each request batch split over them; ``--mesh`` (the live
-    pipelined serving of the JAX package) is item 11f."""
+    visible card, each request batch split over them; ``--mesh
+    data=K,pipe=N`` serves the flagship live from ``--checkpoint``, its
+    temporal stack as a pipeline over the ranks."""
     from tchvp_tpu_torch.infer.server import serve_artifact
 
-    if any(v > 1 for v in _parse_mesh_axes(args.mesh or "").values()):
-        _not_ported(f"serve --mesh {args.mesh}", "11f")
+    axes = {k: v for k, v in _parse_mesh_axes(args.mesh or "").items() if v > 1}
+    buckets = (tuple(int(b) for b in args.buckets.split(",")) if args.buckets else None)
+    if axes.get("pipe", 1) > 1:
+        return _serve_live_pipelined(args, axes, buckets)
+    if axes:
+        raise SystemExit("serve: --mesh supports data=K,pipe=N (live pipelined serving); use "
+                         "--data-parallel for artifact dp serving")
     if not args.exported:
-        raise SystemExit("serve: provide --exported (a .tchvp artifact)")
+        raise SystemExit("serve: provide --exported (a .tchvp artifact) or --mesh data=K,pipe=N with "
+                         "--checkpoint (live pipelined serving)")
     if not os.path.exists(args.exported):
         raise SystemExit(f"serve --exported {args.exported}: no such artifact")
-    buckets = (tuple(int(b) for b in args.buckets.split(",")) if args.buckets else None)
     print(f"warming buckets {list(buckets) if buckets else '(off)'}...", flush=True)
     srv = serve_artifact(args.exported, args.host, args.port, buckets=buckets,
                          batch_window_ms=args.batch_window_ms, device=_device(args),
@@ -1421,9 +1516,12 @@ def _build_parser():
                                 "--window, or --attn-impl ring), expert=N "
                                 "(expert parallelism, with --num-experts), "
                                 "model=N (tensor parallelism: heads, FFN hidden "
-                                "dim and conv channels) and data=N beside one of "
-                                "them, one process per rank; spatial= is item "
-                                "11e, pipe= item 11f")
+                                "dim and conv channels), spatial=N (the conv "
+                                "stacks' rows in blocks, halos exchanged) and "
+                                "pipe=N (the temporal layers as a GPipe "
+                                "pipeline); data=N beside one of them, or "
+                                "model=M beside seq=N or spatial=N; one "
+                                "process per rank")
             p.add_argument("--layers", type=int, default=2,
                            help="temporal transformer depth (hybrid model)")
             p.add_argument("--attn-impl", default="xla",
@@ -1463,13 +1561,14 @@ def _build_parser():
                                 "step (torch.utils.checkpoint)")
         if name == "segment":
             p.add_argument("--mesh", default=None,
-                           help="axis=size pairs: data=N (one process per rank); "
-                                "JAX's spatial= is not ported yet (item 11e)")
+                           help="axis=size pairs: data=N and spatial=N (FCT's "
+                                "rows in blocks, halos exchanged), one process "
+                                "per rank")
             p.add_argument("--attn-impl", default=None,
                            choices=("auto", "xla", "flash", "ring"),
                            help="FCT spatial-attention core (default auto: the "
                                 "flash kernels on a card); ring rides the "
-                                "spatial axis, item 11e")
+                                "spatial axis")
         if name == "transfer":
             p.add_argument("--pretrained", default=None)
         if name == "port":
@@ -1490,7 +1589,9 @@ def _build_parser():
             p.add_argument("--clippack", default=None)
             p.add_argument("--checkpoint", default=None)
             p.add_argument("--mesh", default=None,
-                           help="data=N: each of N ranks infers its block of every batch")
+                           help="data=N: each of N ranks infers its block of every batch; "
+                                "pipe=N: the temporal stack as a GPipe pipeline over N ranks "
+                                "(a stage each); data=N,pipe=M both, one process a rank")
             p.add_argument("--ema", action="store_true",
                            help="serve the EMA parameter average the "
                                 "optimizer carried (--ema-decay training) "
@@ -1596,9 +1697,12 @@ def _build_parser():
     p.add_argument("--batch-window-ms", type=float, default=0.0,
                    help="dynamic micro-batching: coalesce concurrent requests arriving "
                         "within this window into one device batch (0 = off)")
-    p.add_argument("--mesh", default=None, help="not ported yet (item 11f)")
+    p.add_argument("--mesh", default=None,
+                   help="axis=size pairs; data=K,pipe=N serves the flagship LIVE from --checkpoint "
+                        "with the temporal stack as a GPipe pipeline over the ranks (one process a "
+                        "rank; rank 0 serves HTTP)")
     p.add_argument("--model", default="hybrid", choices=("hybrid",),
-                   help="live-serving model family (--mesh mode, item 11f)")
+                   help="live-serving model family (--mesh mode)")
 
     p = sub.add_parser("tune", help="autotune the attention kernels' blocks on this card")
     p.set_defaults(fn=cmd_tune)

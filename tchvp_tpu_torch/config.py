@@ -7,11 +7,11 @@ Copies of ``tchvp_tpu/config.py``'s ``AutoEncoderConfig``, ``UNetConfig``,
 defaults (``tests/test_torch_config.py`` and ``tests/test_torch_fct.py``
 hold them equal), so a configuration means the same model and run in both
 packages. Of the mesh-axis fields, ``TransformerConfig.seq_axis`` and
-``ep_axis`` (sequence and expert parallelism) and the ``tp_axis`` of
-``ResNetAEConfig`` and ``TransformerConfig`` (tensor parallelism) act under
-a mesh carrying the axis; ``sp_axis`` (spatial partitioning, item 11e of
-ROADMAP.md) raises, and ``TrainConfig.mesh_axes``, which no flow of the
-JAX package reads either, is kept for the equality alone.
+``ep_axis`` (sequence and expert parallelism), the ``tp_axis`` of
+``ResNetAEConfig`` and ``TransformerConfig`` (tensor parallelism) and the
+``sp_axis`` of ``ResNetAEConfig`` and ``FCTConfig`` (spatial partitioning)
+act under a mesh carrying the axis; ``TrainConfig.mesh_axes``, which no
+flow of the JAX package reads either, is kept for the equality alone.
 """
 
 from __future__ import annotations
@@ -157,8 +157,8 @@ class FCTConfig:
 
     ``stochastic_depth_rate``: the largest per-block drop-path rate of the
     linspace schedule (0.0: none). ``attn_impl``: "auto" (the flash kernels
-    on CUDA, the dense core elsewhere), "xla" or "flash"; "ring",
-    ``seq_axis`` and ``sp_axis`` are not ported yet and raise."""
+    on CUDA, the dense core elsewhere), "xla", "flash" or "ring" (over
+    ``seq_axis``); ``sp_axis``: the rows in blocks over that axis."""
 
     att_heads: int = 2
     filters: Sequence[int] = (8, 16, 32, 64, 128, 64, 32, 16, 8)

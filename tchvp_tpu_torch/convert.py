@@ -101,12 +101,42 @@ def _convert(kind: str, leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
     return "weight", np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
 
 
+def _flax_monolithic(params: Mapping[str, Any]) -> Mapping[str, Any]:
+    """A flagship param tree in JAX's pipelined layout (``{"rest",
+    "stages"}``, ``parallel/pipeline.py::create_pipelined_train_state``:
+    the temporal layers stacked, (P, ...) or stage-grouped (P, k, ...))
+    as the flax module tree (JAX's ``merge_pipelined_params``); any other
+    tree as it is."""
+    if not (isinstance(params, Mapping) and set(params) == {"rest", "stages"}
+            and isinstance(params["stages"], Mapping) and "norm" in params["stages"]):
+        return params
+    stages = params["stages"]
+    ref = np.asarray(next(v for _, v in _leaves(stages["norm"])))
+    num_layers = ref.shape[0] * (ref.shape[1] if ref.ndim == 3 else 1)
+    temporal: Dict[str, Any] = {}
+    for path, value in _leaves(stages):
+        arr = np.asarray(value)
+        arr = arr.reshape((num_layers,) + arr.shape[2:]) if arr.shape[0] != num_layers else arr
+        for i in range(num_layers):
+            node = temporal.setdefault(f"{path[0]}_{i}", {})
+            for key in path[1:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = arr[i]
+    return {**params["rest"], "temporal": temporal}
+
+
 def from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` (or ``{"params"}``) of a JAX
-    model -> ``state_dict`` of the port's counterpart (module docstring)."""
+    model -> ``state_dict`` of the port's counterpart (module docstring).
+    A flagship's params may be in JAX's pipelined layout too
+    (:func:`_flax_monolithic`); ``parallel/pipeline.py::pipelined_layout``
+    gives the port's pipelined layout of the result."""
     state: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
-        for path, value in _leaves(variables.get(collection, {})):
+        tree = variables.get(collection, {})
+        if collection == "params":
+            tree = _flax_monolithic(tree)
+        for path, value in _leaves(tree):
             module, kind = _module_name(path[:-1])
             leaf, arr = _convert(kind, path[-1], np.asarray(value, dtype=np.float32))
             key = f"{module}.{leaf}"

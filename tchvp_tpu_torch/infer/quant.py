@@ -69,6 +69,7 @@ def _conv_interceptor(fn: Callable, dense: bool = False) -> Iterator[None]:
             return fn(next_fn, module, x)
         return next_fn(x)
 
+    hook.tp_aware = getattr(fn, "tp_aware", False)
     with conv_hook(hook):
         yield
 
@@ -288,7 +289,8 @@ def _int8_conv(module: nn.Conv2d, x: torch.Tensor, q: Dict[str, torch.Tensor],
     -> (N, O, Ho, Wo) in the layer's output dtype (the NCHW view of an NHWC
     tensor), dequantized chunk by chunk (``tchvp::int8_conv``)."""
     return torch.ops.tchvp.int8_conv(x, q["w_i8"], q["s_w"], q.get("bias"), float(s_x), list(module.stride),
-                                     list(module.padding), list(module.dilation), module.groups,
+                                     list(module._pad_override or module.padding), list(module.dilation),
+                                     module.groups,
                                      _out_dtype(x))
 
 

@@ -33,8 +33,13 @@ batch (grouped by trailing shape and dtype, so a client with a wrong shape
 fails alone), run through the same buckets and split back per request.
 The output comes back to the host with one ``.cpu()`` per program call.
 
-Data-parallel and pipelined serving (``serve --data-parallel``, ``serve
---mesh``) are items 11c and 11f of ROADMAP.md.
+**Live pipelined serving** (``serve --mesh data=K,pipe=N``,
+:func:`serve_live_pipelined`): an artifact cannot carry the pipeline, a
+schedule over several processes, so the server runs the live flagship
+(:class:`LivePipelinedModel`) from a checkpoint. Each rank is a process;
+rank 0 owns the HTTP server, and every batch it runs (each bucket's) is
+broadcast to the other ranks first, which follow it through the pipeline
+until rank 0 broadcasts its stop.
 """
 
 from __future__ import annotations
@@ -567,6 +572,133 @@ def serve_artifact(path: str, host: str = "127.0.0.1", port: int = 0,
             _to_numpy(model(model.example_input(b)))
     return ArtifactServer(model, host, port, buckets=norm,
                           batch_window_ms=batch_window_ms)
+
+
+class LivePipelinedModel:
+    """The serving model of ``serve --mesh data=K,pipe=N``: uint8 clips ->
+    ``preprocess_clip`` (bf16) -> ``parallel/pipeline.py::pipelined_video_infer``
+    over the mesh -> the reconstruction, exactly ``infer --mesh pipe=N``'s
+    compute. ``model``: the bf16 ``VideoHybridNet``, the same on every rank,
+    whose stage of the temporal layers this rank copies. Rank 0 calls it (the
+    server's side: each call is broadcast to the other ranks first and the
+    reconstruction of the whole batch comes back there); every other rank
+    runs :meth:`follow` until rank 0 calls :meth:`stop`. ``meta`` is what
+    ``/health`` reports: ``"kind": "live_pipelined"`` and the mesh."""
+
+    def __init__(self, model, mesh, *, axis: str = "pipe", batch_axis: Optional[str] = None,
+                 image_size: int = 256, clip_len: int = 8):
+        from tchvp_tpu_torch.parallel.pipeline import PipelinedVideoNet
+
+        self.mesh = mesh
+        self.axis = axis
+        self.batch_axis = batch_axis
+        self.image_size = int(image_size)
+        self.clip_len = int(clip_len)
+        self.net = PipelinedVideoNet(model, mesh, axis).eval()
+        self.device = next(self.net.parameters()).device
+        self.platforms = (self.device.type,)
+        self.meta = {"kind": "live_pipelined", "model": "hybrid", "image_size": self.image_size,
+                     "clip_len": self.clip_len,
+                     "mesh": {k: int(v) for k, v in zip(mesh.mesh_dim_names, mesh.mesh.shape)}}
+
+    @property
+    def n_devices(self) -> int:
+        return int(self.mesh.mesh.numel())
+
+    def example_input(self, batch: int) -> np.ndarray:
+        return np.zeros((batch, self.clip_len, self.image_size, self.image_size, 3), np.uint8)
+
+    def _run(self, raw: torch.Tensor) -> torch.Tensor:
+        """This rank's part of one batch (the whole uint8 batch on every
+        rank): the reconstruction of the whole batch."""
+        from tchvp_tpu_torch.data.pipeline import preprocess_clip
+        from tchvp_tpu_torch.parallel import activate_mesh, axis_group, shard_batch
+        from tchvp_tpu_torch.parallel.collectives import all_gather_cat
+        from tchvp_tpu_torch.parallel.pipeline import pipelined_video_infer
+
+        with activate_mesh(self.mesh), torch.inference_mode():
+            local = shard_batch(raw, self.mesh, batch_axis=self.batch_axis) if self.batch_axis else raw
+            clip = preprocess_clip(local, self.image_size, dtype=torch.bfloat16)
+            _, recon = pipelined_video_infer(self.net, clip, mesh=self.mesh, axis=self.axis,
+                                             batch_axis=self.batch_axis)
+            if self.batch_axis is not None:
+                recon = all_gather_cat(recon, axis_group(self.mesh, self.batch_axis), dim=0)
+        return recon
+
+    def _header(self, shape=None) -> torch.Tensor:
+        h = torch.zeros(6, dtype=torch.int64)
+        if shape is not None:
+            h[0] = 1
+            h[1:] = torch.tensor(shape, dtype=torch.int64)
+        return h
+
+    def __call__(self, batch: np.ndarray) -> torch.Tensor:
+        from tchvp_tpu_torch.parallel.collectives import broadcast_
+
+        if batch.ndim != 5 or batch.shape[-1] != 3:
+            raise ValueError(f"live pipelined serving takes uint8 clips (B, T, H, W, 3), got {batch.shape}")
+        raw = torch.as_tensor(np.ascontiguousarray(batch, dtype=np.uint8)).to(self.device)
+        broadcast_([self._header(tuple(raw.shape))], 0)
+        broadcast_([raw], 0)
+        return self._run(raw)
+
+    def follow(self) -> int:
+        """Every rank but 0: run each batch rank 0 broadcasts until its
+        stop; returns the batches run."""
+        from tchvp_tpu_torch.parallel.collectives import broadcast_
+
+        n = 0
+        while True:
+            header = self._header()
+            broadcast_([header], 0)
+            if int(header[0]) == 0:
+                return n
+            raw = torch.empty(tuple(int(v) for v in header[1:]), dtype=torch.uint8, device=self.device)
+            broadcast_([raw], 0)
+            self._run(raw)
+            n += 1
+
+    def stop(self) -> None:
+        """Rank 0: release the followers."""
+        from tchvp_tpu_torch.parallel.collectives import broadcast_
+
+        broadcast_([self._header()], 0)
+
+
+def serve_live_pipelined(model, mesh, *, axis: str = "pipe", batch_axis: Optional[str] = None,
+                         image_size: int = 256, clip_len: int = 8, host: str = "127.0.0.1", port: int = 0,
+                         warmup: bool = True, buckets: Optional[Tuple[int, ...]] = (1,),
+                         batch_window_ms: float = 0.0) -> Optional[ArtifactServer]:
+    """What ``serve --mesh data=K,pipe=N`` runs. On rank 0: bind (not start)
+    a server around a :class:`LivePipelinedModel`, buckets as
+    :func:`serve_artifact`'s (with a data axis of d > 1 the ``(1,)``
+    default becomes ``(d,)``, and every bucket must divide over it), each
+    run once first; its ``model.stop()`` releases the other ranks. On every
+    other rank: follow rank 0's batches until it stops, then return None."""
+    import torch.distributed as dist
+
+    live = LivePipelinedModel(model, mesh, axis=axis, batch_axis=batch_axis, image_size=image_size,
+                              clip_len=clip_len)
+    if dist.get_rank() != 0:
+        live.follow()
+        return None
+    norm = _normalize_buckets(buckets)
+    d = live.meta["mesh"].get(batch_axis, 1) if batch_axis else 1
+    if d > 1:
+        if norm == (1,):
+            norm = (d,)
+        bad = [b for b in (norm or ()) if b % d]
+        if bad:
+            live.stop()
+            raise ValueError(f"pipelined serving with a {d}-wide '{batch_axis}' data axis needs buckets "
+                             f"that are multiples of {d}, got {bad}")
+    if norm is None:
+        live.stop()
+        raise ValueError("pipelined serving requires buckets (each batch size runs its own schedule)")
+    if warmup:
+        for b in norm:
+            _to_numpy(live(live.example_input(b)))
+    return ArtifactServer(live, host, port, buckets=norm, batch_window_ms=batch_window_ms)
 
 
 def post_npy(url: str, array: np.ndarray, timeout: float = 600.0) -> np.ndarray:

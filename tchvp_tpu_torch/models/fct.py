@@ -9,7 +9,18 @@ deep-supervision sigmoid head (``ds``). Every block ends in a
 H*W-token attention runs the flash kernels on CUDA under ``"auto"``.
 ``attn_impl="ring"`` needs ``seq_axis`` (JAX's ``ValueError`` at the call
 otherwise) and, without a mesh carrying it, runs the ring's fallback, the
-dense core; ``sp_axis`` is item 11e.
+dense core.
+
+``sp_axis`` (spatial partitioning, ``parallel/spatial.py``): under a mesh
+carrying it every rank is given the whole image and keeps its block of the
+rows through the whole network where H divides by 32 x the axis size (else
+the network stays whole on every rank, ``parallel/spatial.py::rows``); each
+conv exchanges its halo rows, the element-wise dropout masks are the whole
+map's, and the mask is gathered whole at the end. A block's H*W tokens are
+a contiguous block of the sequence: with ``attn_impl="ring"`` and
+``seq_axis == sp_axis`` the attention rides the ring over the axis, with
+the other cores it gathers k and v (and q for the kernels) and runs on the
+whole sequence.
 
 The public layouts are the JAX package's: image ``(B, H, W, C)`` in, mask
 ``(B, H, W, out_channels)`` out; the convolutions run NCHW. H and W must be
@@ -38,19 +49,19 @@ from tchvp_tpu_torch.config import FCTConfig
 from tchvp_tpu_torch.ops.basic import avg_pool_2x2, max_pool_2x2, upsample2x_nearest
 from tchvp_tpu_torch.ops.blocks import dropout, init_flax_default
 from tchvp_tpu_torch.ops.conv_attention import PaddedConv2d, SpatialTransformer
+from tchvp_tpu_torch.parallel import spatial
 
 
 def _conv3x3(in_ch: int, out_ch: int) -> PaddedConv2d:
     return PaddedConv2d(in_ch, out_ch, 3)
 
 
-def _unported_axes(cfg: FCTConfig) -> None:
-    """``sp_axis`` (spatial partitioning, which FCT's ring over a mesh rides
-    in JAX) waits for item 11e."""
-    if cfg.sp_axis:
-        raise NotImplementedError(
-            "FCTConfig sp_axis is not ported yet (ROADMAP.md, modules to port, item 11e: "
-            "tensor and spatial parallelism)")
+def _dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+             sp_axis: Optional[str]) -> torch.Tensor:
+    """A block's element-wise dropout; on a row block the whole map's mask,
+    this rank's rows of it (``parallel/spatial.py::dropout_rows``)."""
+    rows = spatial.sp_shards(sp_axis)
+    return dropout(x, rate, generator) if rows is None else spatial.dropout_rows(x, rate, generator, rows)
 
 
 class BlockEncoderBottleneck(nn.Module):
@@ -60,6 +71,8 @@ class BlockEncoderBottleneck(nn.Module):
     others: a 3x3 conv of the scaled image (``image_channels`` ->
     ``in_channels``) joined to x, then two 3x3 convs. Then dropout, a 2x2
     max pool and the spatial transformer."""
+
+    sp_axis: Optional[str] = None
 
     def __init__(self, blk: str, in_channels: int, out_channels: int, att_heads: int,
                  image_channels: int = 3, dropout_rate: float = 0.3, attn_impl: str = "xla",
@@ -86,7 +99,7 @@ class BlockEncoderBottleneck(nn.Module):
             x1 = torch.relu(self.conv2(torch.cat([skip_x, x], dim=1)))
             x1 = torch.relu(self.conv3(x1))
         if self.training and self.dropout_rate > 0.0:
-            x1 = dropout(x1, self.dropout_rate, generator)
+            x1 = _dropout(x1, self.dropout_rate, generator, self.sp_axis)
         return self.trans(max_pool_2x2(x1), generator)
 
 
@@ -94,6 +107,8 @@ class BlockDecoder(nn.Module):
     """FCT decoder block (reference ``FCT.py:167-186``): 2x nearest
     upsample, a 3x3 conv, the skip joined before it, two 3x3 convs,
     dropout and the spatial transformer."""
+
+    sp_axis: Optional[str] = None
 
     def __init__(self, in_channels: int, skip_channels: int, out_channels: int, att_heads: int,
                  dropout_rate: float = 0.3, attn_impl: str = "xla", drop_path_rate: float = 0.0,
@@ -112,7 +127,7 @@ class BlockDecoder(nn.Module):
         x1 = torch.relu(self.conv2(torch.cat([skip, x1], dim=1)))
         x1 = torch.relu(self.conv3(x1))
         if self.training and self.dropout_rate > 0.0:
-            x1 = dropout(x1, self.dropout_rate, generator)
+            x1 = _dropout(x1, self.dropout_rate, generator, self.sp_axis)
         return self.trans(x1, generator)
 
 
@@ -144,7 +159,6 @@ class FCT(nn.Module):
                  device: torch.device | str = "cuda", generator: Optional[torch.Generator] = None,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        _unported_axes(config)
         self.config = config
         self.compute_dtype = compute_dtype
         f = list(config.filters)
@@ -153,8 +167,10 @@ class FCT(nn.Module):
         n = len(f)
         # Per-block drop-path schedule (FCT.py:217-218 linspace).
         dpr = [config.stochastic_depth_rate * i / (n - 1) for i in range(n)]
+        # Row blocks' tokens are a block of the sequence: the attention
+        # reads the spatial axis as its sequence axis where no ring names it.
         common = dict(att_heads=config.att_heads, dropout_rate=config.dropout_rate,
-                      attn_impl=config.attn_impl, seq_axis=config.seq_axis)
+                      attn_impl=config.attn_impl, seq_axis=config.seq_axis or config.sp_axis)
         for i, (blk, cin) in enumerate((("first", in_channels), ("second", f[0]), ("third", f[1]),
                                         ("fourth", f[2]), ("bottleneck", f[3]))):
             self.add_module(f"block_{i + 1}", BlockEncoderBottleneck(
@@ -164,6 +180,7 @@ class FCT(nn.Module):
                 f[i - 1], f[8 - i], f[i], drop_path_rate=dpr[i], **common))
         self.ds = DSOut(f[8], config.out_channels)
         init_flax_default(self, generator or torch.Generator().manual_seed(0))
+        spatial.set_sp_axis(self, config.sp_axis)
         self.to(device)
 
     def _compute(self, x: torch.Tensor):
@@ -183,6 +200,12 @@ class FCT(nn.Module):
             return layout.nchw_to_nhwc(self._forward(layout.nhwc_to_nchw(x).contiguous(), generator))
 
     def _forward(self, x: torch.Tensor, g: Optional[torch.Generator]) -> torch.Tensor:
+        sp = self.config.sp_axis
+        with spatial.rows(sp, x.shape[2], factor=32):  # 5 pools
+            x = spatial.enter(x, sp, factor=32)
+            return spatial.gather_rows(self._rows(x, g), sp)
+
+    def _rows(self, x: torch.Tensor, g: Optional[torch.Generator]) -> torch.Tensor:
         # Multi-scale input pyramid (FCT.py:238-240).
         scale_img_2 = avg_pool_2x2(x)
         scale_img_3 = avg_pool_2x2(scale_img_2)

@@ -26,7 +26,17 @@ after each stage has it: the encoder's latent comes out as this rank's
 block of its channels, the decoder takes the latent either way, and its
 narrow head (3 image channels, 1 mask channel) computes whole on every
 rank. The autoencoders return the whole latent and reconstruction.
-``sp_axis`` (spatial partitioning) is item 11e and raises.
+
+``ResNetAEConfig.sp_axis`` (spatial partitioning, ``parallel/spatial.py``):
+under a mesh carrying the axis every rank is given the whole image; the
+encoder keeps this rank's block of the rows from its stem on where H
+divides by the axis size x the product of its strides (else the stack
+stays whole on every rank, ``parallel/spatial.py::rows``), each conv
+exchanges its halo rows, BatchNorm reduces over the axis, and the latent
+comes out as a row block. The decoder takes the whole latent (the flagship's, from
+the tokens) or a row block (``rows=True``, the autoencoders') and gathers
+the reconstruction whole at its end. The autoencoders return the whole
+latent and reconstruction.
 """
 
 from __future__ import annotations
@@ -50,7 +60,7 @@ from tchvp_tpu_torch.ops.blocks import (
     init_flax_default,
     set_tp_axis,
 )
-from tchvp_tpu_torch.parallel import tp
+from tchvp_tpu_torch.parallel import spatial, tp
 
 
 class Encoder32K(nn.Module):
@@ -95,10 +105,18 @@ class Encoder32K(nn.Module):
         c = self.config.squeeze_features[-1]
         return draw_keep((n, c, 1, 1), self.config.dropout_rate, generator, device)
 
+    def row_factor(self) -> int:
+        """The product of the stack's strides: the stem's and each later
+        stage's 2."""
+        return 2 ** len(self.config.layers)
+
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``keep`` (train mode): the Dropout2d mask drawn beforehand
-        (:meth:`draw_dropout`); without it the pass draws from ``generator``."""
+        (:meth:`draw_dropout`); without it the pass draws from ``generator``.
+        Under ``sp_axis`` x is whole and the latent this rank's rows, inside
+        the caller's ``parallel/spatial.py::rows`` scope of the stack."""
+        x = spatial.enter(x, self.config.sp_axis, self.row_factor())
         h = torch.relu(self.stem_bn(self.stem_conv(x)))
         h = self.squeeze(self.blocks(h))
         if self.training and self.config.dropout_rate > 0.0:
@@ -117,8 +135,10 @@ class Decoder32K(nn.Module):
     ``forward`` is ``tail(body(x))``. Only ``head_conv`` has a bias.
     ``latent_channels`` is the width of the latent it decodes (flax infers
     it from the input): the flagship's and ``Autoencoder32K``'s 8,
-    ``Autoencoder4K``'s 16.
+    ``Autoencoder4K``'s 16. ``sp_axis``: module docstring.
     """
+
+    sp_axis: Optional[str] = None
 
     def __init__(self, output_type: str = "image",
                  conv_features: Sequence[int] = (16, 64, 128, 256), latent_channels: int = 8):
@@ -154,8 +174,15 @@ class Decoder32K(nn.Module):
             return torch.sigmoid(x)
         return torch.relu(x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.tail(self.body(x))
+    def forward(self, x: torch.Tensor, rows: bool = False) -> torch.Tensor:
+        """``rows``: under ``sp_axis`` x is already this rank's row block
+        (else the whole latent, sliced here, in a stack of its own:
+        ``parallel/spatial.py::rows``); the output is whole."""
+        if rows:
+            return spatial.gather_rows(self.tail(self.body(x)), self.sp_axis)
+        with spatial.rows(self.sp_axis, x.shape[2]):
+            x = spatial.enter(x, self.sp_axis)
+            return spatial.gather_rows(self.tail(self.body(x)), self.sp_axis)
 
 
 def latent_to_tokens(latent: torch.Tensor) -> torch.Tensor:
@@ -193,7 +220,6 @@ class Autoencoder32K(nn.Module):
     def __init__(self, config: ResNetAEConfig = ResNetAEConfig(), *,
                  device: torch.device | str = "cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
-        _unported_axes(config)
         self.config = config
         c = config.squeeze_features[-1]
         self.encoder = Encoder32K(config)
@@ -203,6 +229,7 @@ class Autoencoder32K(nn.Module):
             self.logvar = conv(c, c, 1, bias=True)
         init_flax_default(self, generator or torch.Generator().manual_seed(0))
         set_tp_axis(self, config.tp_axis)
+        spatial.set_sp_axis(self, config.sp_axis)
         self.to(device)
 
     def draw(self, n: int, hw: Tuple[int, int], generator: Optional[torch.Generator],
@@ -222,12 +249,15 @@ class Autoencoder32K(nn.Module):
 
     def forward_nchw(self, x: torch.Tensor, draws: AEDraws) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, 3, H, W) -> (latent map (N, C, h, w), recon (N, C', H, W))."""
-        latent = self.encoder(x, keep=draws.keep)
-        if self.config.vae:
-            mu, logvar = self.mu(latent), self.logvar(latent)
-            latent = mu + torch.exp(0.5 * logvar) * _channels_like(draws.eps, mu, self.config.tp_axis).to(mu.dtype)
-        recon = self.decoder(latent)
-        return tp.to_replicated(latent, self.config.tp_axis, self.config.squeeze_features[-1]), recon
+        with spatial.rows(self.config.sp_axis, x.shape[2], self.encoder.row_factor()):
+            latent = self.encoder(x, keep=draws.keep)
+            if self.config.vae:
+                mu, logvar = self.mu(latent), self.logvar(latent)
+                eps = _rows_like(_channels_like(draws.eps, mu, self.config.tp_axis), mu, self.config.sp_axis)
+                latent = mu + torch.exp(0.5 * logvar) * eps.to(mu.dtype)
+            recon = self.decoder(latent, rows=True)
+            latent = tp.to_replicated(latent, self.config.tp_axis, self.config.squeeze_features[-1])
+            return spatial.gather_rows(latent, self.config.sp_axis), recon
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 draws: Optional[AEDraws] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -255,12 +285,12 @@ class Autoencoder4K(nn.Module):
         super().__init__()
         self.config = ResNetAEConfig(squeeze_features=(128, 64, 32, 16), dropout_rate=0.1,
                                      output_type=output_type, tp_axis=tp_axis, sp_axis=sp_axis)
-        _unported_axes(self.config)
         self.encoder = Encoder32K(self.config)
         self.decoder = Decoder32K(output_type=output_type, conv_features=(32, 64, 128, 256),
                                   latent_channels=16)
         init_flax_default(self, generator or torch.Generator().manual_seed(0))
         set_tp_axis(self, tp_axis)
+        spatial.set_sp_axis(self, sp_axis)
         self.to(device)
 
     def draw(self, n: int, hw: Tuple[int, int], generator: Optional[torch.Generator],
@@ -271,9 +301,11 @@ class Autoencoder4K(nn.Module):
 
     def forward_nchw(self, x: torch.Tensor, draws: AEDraws) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, 3, H, W) -> (flat latent (N, 16 h w), recon (N, C', H, W))."""
-        latent_map = self.encoder(x, keep=draws.keep)
-        recon = self.decoder(latent_map)
-        latent_map = tp.to_replicated(latent_map, self.config.tp_axis, self.config.squeeze_features[-1])
+        with spatial.rows(self.config.sp_axis, x.shape[2], self.encoder.row_factor()):
+            latent_map = self.encoder(x, keep=draws.keep)
+            recon = self.decoder(latent_map, rows=True)
+            latent_map = tp.to_replicated(latent_map, self.config.tp_axis, self.config.squeeze_features[-1])
+            latent_map = spatial.gather_rows(latent_map, self.config.sp_axis)
         return latent_map.reshape(latent_map.shape[0], -1), recon
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
@@ -285,13 +317,6 @@ class Autoencoder4K(nn.Module):
         return latent, layout.nchw_to_nhwc(recon)
 
 
-def _unported_axes(cfg: ResNetAEConfig) -> None:
-    if cfg.sp_axis:
-        raise NotImplementedError(
-            "ResNetAEConfig sp_axis is not ported yet (ROADMAP.md, modules to port, item 11e: "
-            "tensor and spatial parallelism)")
-
-
 def _channels_like(t: torch.Tensor, like: torch.Tensor, tp_axis: Optional[str]) -> torch.Tensor:
     """A per-channel draw ``t`` of the whole latent cut to the channels
     ``like`` holds: this rank's block under tensor parallelism."""
@@ -300,3 +325,13 @@ def _channels_like(t: torch.Tensor, like: torch.Tensor, tp_axis: Optional[str]) 
     n, i, _ = tp.tp_shards(tp_axis)
     per = t.shape[1] // n
     return t.narrow(1, i * per, per)
+
+
+def _rows_like(t: torch.Tensor, like: torch.Tensor, sp_axis: Optional[str]) -> torch.Tensor:
+    """A draw ``t`` of the whole latent map cut to the rows ``like`` holds:
+    this rank's block under spatial partitioning."""
+    if t.shape[2] == like.shape[2]:
+        return t
+    _, i, _ = spatial.sp_shards(sp_axis)
+    per = like.shape[2]
+    return t.narrow(2, i * per, per)

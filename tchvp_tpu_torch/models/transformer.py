@@ -132,10 +132,14 @@ class TokenMultiheadAttention(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    """Attention and FFN branches sharing ONE LayerNorm."""
+    """Attention and FFN branches sharing ONE LayerNorm; :meth:`forward` is
+    one layer of :class:`TransformerEncoder` (the pipeline's stages call it
+    on their stacked weights, ``parallel/pipeline.py``)."""
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
+        self.dropout_rate = cfg.dropout_rate
+        self.scale_out = cfg.scale_out
         d = cfg.input_dim
         self.attention = TokenMultiheadAttention(
             d, cfg.num_heads, relu_qkv=cfg.relu_qkv, attn_dropout=cfg.dropout_rate,
@@ -160,6 +164,20 @@ class TransformerLayer(nn.Module):
         h = torch.relu(tp.linear_columns(self.ffn1, x, self.tp_axis))
         return tp.linear_rows(self.ffn2, h, self.tp_axis)
 
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, attn_draw: Optional[torch.Tensor] = None,
+                keep: Optional[torch.Tensor] = None, moe_sink: Optional[List[MoEStats]] = None) -> torch.Tensor:
+        """``x + LN(attention(x))``, then ``+ LN(ffn(.))``, the x sqrt(0.5)
+        scale and, in train mode, the trailing dropout with its drawn
+        ``keep`` mask (``attn_draw``: the attention's draw)."""
+        x = x + _norm(self, self.attention(x, mask=mask, generator=generator, dropout_draw=attn_draw))
+        x = x + _norm(self, self.ffn(x, moe_sink))
+        if self.scale_out:
+            x = scale_out(x)
+        if self.training and self.dropout_rate > 0.0:
+            x = dropout(x, self.dropout_rate, None, keep=keep)
+        return x
+
 
 def _norm(layer: TransformerLayer, h: torch.Tensor) -> torch.Tensor:
     """The layer's LayerNorm of ``h``, handed on in h's dtype: autocast
@@ -181,28 +199,14 @@ class TransformerEncoder(nn.Module):
         self.layers = nn.ModuleList(TransformerLayer(config) for _ in range(config.num_layers))
 
     def draw_dropout(self, x_shape: torch.Size, generator: Optional[torch.Generator],
-                     device: torch.device, has_mask: bool = False) -> TransformerDraws:
+                     device: torch.device, has_mask: bool = False,
+                     layers: Optional[int] = None) -> TransformerDraws:
         """The train-mode dropout randomness of one pass over (B, S, D)
-        tokens, drawn from ``generator`` in layer order. Under a mesh
-        carrying ``seq_axis`` the tokens are this rank's block of n: the
-        draws are made for all n blocks and this rank's part kept."""
-        cfg = self.config
-        rate = cfg.dropout_rate
-        n = cfg.num_layers
-        if rate <= 0.0:
-            return TransformerDraws([None] * n, [None] * n)
-        b, s, d = x_shape
-        impl = resolve_impl(cfg.attn_impl, device.type == "cuda", has_mask, cfg.window_size)
-        core = attention_core(impl, has_mask, cfg.window_size)
-        shards, i = axis_shards(cfg.seq_axis)
-        heads = axis_shards(cfg.tp_axis)
-        attention, layer_keep = [], []
-        for _ in range(n):
-            attention.append(draw_attention_dropout(core, (b, cfg.num_heads, s), rate, generator,
-                                                    device, cfg.window_size, (shards, i), heads))
-            keep = draw_keep((b, shards * s, d), rate, generator, device)
-            layer_keep.append(keep[:, i * s:(i + 1) * s])
-        return TransformerDraws(attention, layer_keep)
+        tokens, drawn from ``generator`` in layer order, for ``layers``
+        layers (default: all of them). Under a mesh carrying ``seq_axis``
+        the tokens are this rank's block of n: the draws are made for all n
+        blocks and this rank's part kept."""
+        return draw_layer_dropout(self.config, x_shape, generator, device, has_mask, layers)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
@@ -211,17 +215,33 @@ class TransformerEncoder(nn.Module):
         """``draws`` (train mode): randomness drawn beforehand; without it
         the pass draws its own from ``generator``. ``moe_sink``: a list the
         MoE layers append their :class:`MoEStats` to."""
-        cfg = self.config
-        rate = cfg.dropout_rate
         if self.training and draws is None:
             draws = self.draw_dropout(x.shape, generator, x.device, mask is not None)
         for i, layer in enumerate(self.layers):
-            attn_draw = draws.attention[i] if self.training else None
-            x = x + _norm(layer, layer.attention(x, mask=mask, generator=generator,
-                                                 dropout_draw=attn_draw))
-            x = x + _norm(layer, layer.ffn(x, moe_sink))
-            if cfg.scale_out:
-                x = scale_out(x)
-            if self.training and rate > 0.0:
-                x = dropout(x, rate, None, keep=draws.layer_keep[i])
+            x = layer(x, mask=mask, generator=generator,
+                      attn_draw=draws.attention[i] if self.training else None,
+                      keep=draws.layer_keep[i] if self.training else None, moe_sink=moe_sink)
         return x
+
+
+def draw_layer_dropout(cfg: TransformerConfig, x_shape: torch.Size, generator: Optional[torch.Generator],
+                       device: torch.device, has_mask: bool = False,
+                       layers: Optional[int] = None) -> TransformerDraws:
+    """:meth:`TransformerEncoder.draw_dropout` of a ``cfg`` encoder, for
+    ``layers`` of its layers (a pipeline stage's)."""
+    rate = cfg.dropout_rate
+    n = cfg.num_layers if layers is None else layers
+    if rate <= 0.0:
+        return TransformerDraws([None] * n, [None] * n)
+    b, s, d = x_shape
+    impl = resolve_impl(cfg.attn_impl, device.type == "cuda", has_mask, cfg.window_size)
+    core = attention_core(impl, has_mask, cfg.window_size)
+    shards, i = axis_shards(cfg.seq_axis)
+    heads = axis_shards(cfg.tp_axis)
+    attention, layer_keep = [], []
+    for _ in range(n):
+        attention.append(draw_attention_dropout(core, (b, cfg.num_heads, s), rate, generator,
+                                                device, cfg.window_size, (shards, i), heads))
+        keep = draw_keep((b, shards * s, d), rate, generator, device)
+        layer_keep.append(keep[:, i * s:(i + 1) * s])
+    return TransformerDraws(attention, layer_keep)

@@ -22,6 +22,13 @@ channels (``models/resnet_ae.py``), the latent is gathered whole before it
 becomes tokens, and the transformer runs its heads and FFN hidden dim in
 blocks (``models/transformer.py``); every rank is given the same clip and
 ends with the same reconstruction.
+
+Spatial partitioning (``config.encoder.sp_axis``, the ``spatial`` axis of
+``flagship_video_config(sp_axis=)``, under a mesh carrying it): every rank
+is given the same clip; the encoder and decoder run on this rank's block of
+each frame's rows (``models/resnet_ae.py``), the latent is gathered whole
+before it becomes tokens, the transformer runs whole on every rank, and
+the decoder slices the latent again and gathers the reconstruction whole.
 """
 
 from __future__ import annotations
@@ -39,14 +46,13 @@ from tchvp_tpu_torch.config import VideoModelConfig
 from tchvp_tpu_torch.models.resnet_ae import (
     Decoder32K,
     Encoder32K,
-    _unported_axes,
     latent_to_tokens,
     tokens_to_latent,
 )
 from tchvp_tpu_torch.models.transformer import TransformerDraws, TransformerEncoder
 from tchvp_tpu_torch.ops.blocks import BatchNorm, init_flax_default, set_tp_axis
 from tchvp_tpu_torch.ops.moe import MoEStats
-from tchvp_tpu_torch.parallel import tp
+from tchvp_tpu_torch.parallel import spatial, tp
 from tchvp_tpu_torch.parallel.mesh import axis_shards
 
 
@@ -100,7 +106,6 @@ class VideoHybridNet(nn.Module):
                  generator: Optional[torch.Generator] = None,
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
-        _unported_axes(config.encoder)
         self.config = config
         self.compute_dtype = compute_dtype
         self.encoder = Encoder32K(config.encoder)
@@ -113,6 +118,8 @@ class VideoHybridNet(nn.Module):
                 m.seq_axis = config.temporal.seq_axis
         set_tp_axis(self.encoder, config.encoder.tp_axis)
         set_tp_axis(self.decoder, config.encoder.tp_axis)
+        spatial.set_sp_axis(self.encoder, config.encoder.sp_axis)
+        spatial.set_sp_axis(self.decoder, config.encoder.sp_axis)
         self._posenc: Dict[Tuple, torch.Tensor] = {}
         self.to(device=device, dtype=dtype)
 
@@ -148,8 +155,11 @@ class VideoHybridNet(nn.Module):
         b, t = clip.shape[0], clip.shape[1]
         frames = layout.nhwc_to_nchw(layout.fold_time(clip))  # (B*T, C, H, W)
         keep = draws.latent_keep if draws is not None else None
-        latent = self.encoder(frames, generator=generator, keep=keep)
-        latent = tp.to_replicated(latent, self.config.encoder.tp_axis, self.config.encoder.squeeze_features[-1])
+        sp = self.config.encoder.sp_axis
+        with spatial.rows(sp, frames.shape[2], self.encoder.row_factor()):
+            latent = self.encoder(frames, generator=generator, keep=keep)
+            latent = tp.to_replicated(latent, self.config.encoder.tp_axis, self.config.encoder.squeeze_features[-1])
+            latent = spatial.gather_rows(latent, sp)
         _, cc, hh, ww = latent.shape
         tokens = latent_to_tokens(latent)  # (B*T, C', hh*ww)
         return tokens.reshape(b, t * cc, tokens.shape[-1]), (hh, ww)

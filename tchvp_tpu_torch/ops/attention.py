@@ -531,20 +531,25 @@ def draw_attention_dropout(
 
     ``head_shards`` (m, j): under tensor parallelism this rank runs block j
     of m of the heads. The dense cores keep its heads of the whole keep
-    mask; the kernels take seed j of m, one per rank, as their hash cannot
-    be moved to another rank's heads (the ring runs no tensor
-    parallelism)."""
+    mask (its rows of it beside sequence parallelism); the kernels take
+    seed j of m, one per rank, as their hash cannot be moved to another
+    rank's heads; beside sequence parallelism the halo kernels and the ring
+    take draw j of m of their seeds."""
     if generator is None:
         raise ValueError("active attention dropout requires a torch.Generator")
     m, j = head_shards
     if m > 1:
-        if shards[0] > 1:
-            raise ValueError("tensor parallelism over a seq mesh is not ported (item 11e)")
+        if shards[0] > 1 and core in ("flash_windowed", "ring"):
+            # Beside sequence parallelism: the halo kernels' seeds, or the
+            # ring's table, of head block j of m (m draws, one a block).
+            draws = [draw_attention_dropout(core, bhs, rate, generator, device, window_size, shards)
+                     for _ in range(m)]
+            return draws[j]
         if core in ("flash", "flash_windowed"):
             seeds = torch.randint(0, _INT32_MAX, (m,), generator=generator, device=generator.device,
                                   dtype=torch.int32)
             return seeds[j:j + 1].to(device)
-        whole = draw_attention_dropout(core, bhs, rate, generator, device, window_size)
+        whole = draw_attention_dropout(core, bhs, rate, generator, device, window_size, shards)
         per = bhs[1] // m
         return whole[:, j * per:(j + 1) * per]
     n, i = shards

@@ -31,7 +31,15 @@ Tensor parallelism (``parallel/tp.py``): a :class:`Conv2d`,
 the ambient mesh computes this rank's block of its output channels, where
 the axis divides them, from its slices of the full weights; BatchNorm on a
 block of channels normalises it with the block's statistics, and its
-running stats move by the statistics of all blocks, gathered.
+running stats move by the statistics of all blocks, gathered. Under QAT
+(a hook marked ``tp_aware``) the hook fake-quantizes the whole input and
+kernel and hands them to the tensor-parallel forward (``weight=``).
+
+Spatial partitioning (``parallel/spatial.py``): a :class:`Conv2d` whose
+``sp_axis`` the ambient mesh carries takes this rank's block of the rows,
+exchanges the halos its kernel needs and convolves without H padding;
+BatchNorm takes its statistics over the axis too. Both compose with tensor
+parallelism: the halo'd block goes through the tensor-parallel forward.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tchvp_tpu_torch.ops.basic import add_bias, autocast_enabled, max_pool_2x2, upsample2x_nearest
-from tchvp_tpu_torch.parallel import tp
+from tchvp_tpu_torch.parallel import spatial, tp
 from tchvp_tpu_torch.parallel.collectives import all_gather_cat, all_reduce_sum
 from tchvp_tpu_torch.parallel.mesh import DATA_AXIS, group_over
 
@@ -72,12 +80,15 @@ class BatchNorm(nn.BatchNorm2d):
     The ``data`` axis: while an ambient mesh carries it with size > 1, the
     batch is this rank's block of the global batch, and the statistics are
     taken over the axis the same way; on a ``data`` x ``seq`` mesh over
-    both axes at once. That is every model's BatchNorm
+    both axes at once. ``sp_axis`` (spatial partitioning): the batch is this
+    rank's block of the rows, and the statistics are taken over that axis
+    as well; beside the ``model`` axis over the other two. That is every model's BatchNorm
     (the flagship's encoder and decoder, UNet, the autoencoders) under a
     data mesh, as GSPMD's global batch gives JAX's step.
     """
 
     tp_axis: Optional[str] = None
+    sp_axis: Optional[str] = None
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -90,7 +101,7 @@ class BatchNorm(nn.BatchNorm2d):
             return self._block_forward(x, *shards)
         if not self.training:
             return super().forward(x)
-        group = group_over((DATA_AXIS, self.seq_axis))
+        group = group_over((DATA_AXIS, self.seq_axis, self.sp_axis))
         if group is not None:
             out, mean, var = self._synced(x, group, self.weight, self.bias)
         else:
@@ -125,7 +136,7 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean[i * c:(i + 1) * c], self.running_var[i * c:(i + 1) * c],
                                 w, b, False, 0.0, self.eps)
-        data = group_over((DATA_AXIS, self.seq_axis))
+        data = group_over((DATA_AXIS, self.seq_axis, self.sp_axis))
         if data is not None:
             out, mean, var = self._synced(x, data, w, b)
         else:
@@ -140,16 +151,18 @@ class BatchNorm(nn.BatchNorm2d):
 
     def _synced(self, x: torch.Tensor, group, weight: torch.Tensor, bias: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(out, mean, biased var) with the statistics over ``group``, fp32."""
-        xf = x.float()
+        """(out, mean, biased var) with the statistics over ``group``, in fp32
+        (float64 for a float64 x)."""
+        acc = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(acc)
         dims = (0, 2, 3)
         local = torch.cat([xf.sum(dims), xf.new_full((1,), float(xf.numel() // xf.shape[1]))])
         total = all_reduce_sum(local, group)
         mean = total[:-1] / total[-1]
         centered = xf - mean[None, :, None, None]
         var = all_reduce_sum((centered * centered).sum(dims), group) / total[-1]
-        scale = torch.rsqrt(var + self.eps) * weight.float()
-        out = centered * scale[None, :, None, None] + bias.float()[None, :, None, None]
+        scale = torch.rsqrt(var + self.eps) * weight.to(acc)
+        out = centered * scale[None, :, None, None] + bias.to(acc)[None, :, None, None]
         return out.to(x.dtype), mean, var
 
 
@@ -223,13 +236,17 @@ def with_current_hook(fn: Callable) -> Callable:
 
 def _tp_forward(module: nn.Module, x: torch.Tensor) -> Optional[torch.Tensor]:
     """The tensor-parallel forward of a conv whose ``tp_axis`` the ambient
-    mesh carries (``parallel/tp.py::conv_forward``), else None."""
+    mesh carries (``parallel/tp.py::conv_forward``), else None; under a
+    tensor-parallel hook (QAT's) the hook's, handed that forward."""
     if module.tp_axis is None or tp.tp_shards(module.tp_axis) is None:
         return None
-    if _hook.get() is not None:
-        raise NotImplementedError("a conv hook (QAT, int8) under tensor parallelism is not ported "
-                                  "(ROADMAP.md, modules to port, item 11e)")
-    return tp.conv_forward(module, x, module.tp_axis)
+    hook = _hook.get()
+    if hook is None:
+        return tp.conv_forward(module, x, module.tp_axis)
+    if not getattr(hook, "tp_aware", False):
+        raise ValueError("an int8 engine's conv hook under tensor parallelism: the int8 engine "
+                         "serves whole layers on one process")
+    return hook(lambda xq, weight=None: tp.conv_forward(module, xq, module.tp_axis, weight=weight), module, x)
 
 
 class Dense(nn.Linear):
@@ -249,8 +266,16 @@ class Conv2d(nn.Conv2d):
     """``nn.Conv2d``; under autocast, flax's two roundings (module docstring)."""
 
     tp_axis: Optional[str] = None
+    sp_axis: Optional[str] = None
+    _pad_override: Optional[Tuple[int, int]] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rows = spatial.sp_shards(self.sp_axis)
+        if rows is not None:
+            return spatial.conv_rows(self, x, rows, self._inner_forward)
+        return self._inner_forward(x)
+
+    def _inner_forward(self, x: torch.Tensor) -> torch.Tensor:
         out = _tp_forward(self, x)
         if out is not None:
             return out
@@ -262,14 +287,32 @@ class Conv2d(nn.Conv2d):
             return super().forward(x)
         return add_bias(self._conv_forward(x, self.weight, None), self.bias, 1)
 
+    def spatial_pads(self, rows: int, cols: int) -> Tuple[int, int, int]:
+        """(top, left, right) zero padding of a map of ``rows`` x ``cols``
+        (the whole map's rows, of which a rank holds a block)."""
+        del rows, cols
+        return self.padding[0], self.padding[1], self.padding[1]
+
+    def _conv_forward(self, x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]):
+        """``nn.Conv2d``'s, with no padding inside a row block's call
+        (``parallel/spatial.py::conv_rows`` pads it beforehand)."""
+        if self._pad_override is None:
+            return super()._conv_forward(x, weight, bias)
+        return F.conv2d(x, weight, bias, self.stride, self._pad_override, self.dilation, self.groups)
+
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` (no ``output_size``); under autocast, flax's
     two roundings (module docstring)."""
 
     tp_axis: Optional[str] = None
+    sp_axis: Optional[str] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial.sp_shards(self.sp_axis) is not None and (
+                self.kernel_size != self.stride or self.padding != (0, 0)):
+            raise ValueError(f"a transposed conv {self.kernel_size}/{self.stride} padded {self.padding} "
+                             "on row blocks: only non-overlapping taps need no halo")
         out = _tp_forward(self, x)
         if out is not None:
             return out

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from tchvp_tpu_torch.ops.attention import TorchMultiheadAttention
 from tchvp_tpu_torch.ops.blocks import Conv2d, dropout
+from tchvp_tpu_torch.parallel import spatial
 
 LN_EPS = 1e-5
 Padding = Union[str, int]
@@ -114,12 +115,21 @@ class PaddedConv2d(Conv2d):
         self.flax_padding = None if static is not None else padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.flax_padding is not None:
+        if self.flax_padding is not None and spatial.sp_shards(self.sp_axis) is None:
             k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
             top, bottom = flax_pads(x.shape[2], k, s, self.flax_padding, d)
             left, right = flax_pads(x.shape[3], k, s, self.flax_padding, d)
             x = F.pad(x, (left, right, top, bottom))
         return super().forward(x)
+
+    def spatial_pads(self, rows: int, cols: int) -> Tuple[int, int, int]:
+        """(top, left, right) padding of a ``rows`` x ``cols`` map, as flax
+        pads it (a row block's call pads by its halos instead)."""
+        if self.flax_padding is None:
+            return super().spatial_pads(rows, cols)
+        k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
+        left, right = flax_pads(cols, k, s, self.flax_padding, d)
+        return flax_pads(rows, k, s, self.flax_padding, d)[0], left, right
 
 
 class ConvProjAttention(nn.Module):
@@ -164,7 +174,10 @@ class WideFocus(nn.Module):
     """Multi-dilation conv FFN (reference ``FCT.py:107-132``): three 3x3
     convs at dilation 1, 2 and 3, each through exact GELU and dropout,
     summed, then a 3x3 conv, exact GELU and dropout. ``dropout_rate`` is
-    0.1 in every FCT block, as in JAX."""
+    0.1 in every FCT block, as in JAX. Under ``sp_axis`` (a row block) each
+    mask is the whole map's, this rank keeping its rows."""
+
+    sp_axis: Optional[str] = None
 
     def __init__(self, features: int, dropout_rate: float = 0.1):
         super().__init__()
@@ -177,7 +190,9 @@ class WideFocus(nn.Module):
     def _act(self, y: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
         y = gelu(y)
         if self.training and self.dropout_rate > 0.0:
-            y = dropout(y, self.dropout_rate, generator)
+            rows = spatial.sp_shards(self.sp_axis)
+            y = (dropout(y, self.dropout_rate, generator) if rows is None
+                 else spatial.dropout_rows(y, self.dropout_rate, generator, rows))
         return y
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:

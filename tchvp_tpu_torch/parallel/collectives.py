@@ -9,6 +9,14 @@ forward needs it.
 * :func:`ring_shift` — the cyclic hop of ring attention: rank i's tensor
   goes to rank (i + 1) mod n; its backward sends the cotangent one hop
   back.
+* :func:`shift` — rank i's tensor to rank i + step, zeros where no rank
+  sends (``ppermute`` is step 1); its backward is the shift by -step. The
+  stage hops of the pipeline.
+* :func:`halo_exchange` — the boundary rows of spatial partitioning: each
+  rank's row block along a dim gains ``top`` rows of the ranks before it
+  and ``bottom`` of the ranks after it, zeros past the global edges (the
+  conv's own padding there). Its backward returns each halo's cotangent to
+  its owner, added onto the owner's boundary rows.
 * :func:`all_reduce_sum` — the sum over the group, whose backward is the
   sum of the cotangents over the group (the statistics of train-mode
   BatchNorm, the gathered keys of full attention).
@@ -31,7 +39,8 @@ forward needs it.
   alike). Tensor parallelism's convs.
 * :func:`all_reduce_mean_` and :func:`all_reduce_sum_` — in place, not
   differentiable: the gradients' mean (or sum) before the optimizer, in one
-  flat buffer.
+  flat buffer. :func:`all_reduce_max` — the elementwise max over a group,
+  not differentiable (a fake-quant scale of a tensor held in blocks).
 * :func:`broadcast_` — in place, one rank's tensors on every rank (the
   replicated start of data parallelism).
 * :func:`equal_across` — whether tensors hold the same bits on every rank.
@@ -88,21 +97,47 @@ def _shift(x: torch.Tensor, group: dist.ProcessGroup, step: int, cyclic: bool = 
     return recv.to(x.device)
 
 
-class _PPermute(torch.autograd.Function):
+class _Shift(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _shift(x, group, 1)
+    def forward(ctx, x, group, step):
+        ctx.group, ctx.step = group, step
+        return _shift(x, group, step)
 
     @staticmethod
     def backward(ctx, grad):
-        return _shift(grad, ctx.group, -1), None
+        return _shift(grad, ctx.group, -ctx.step), None, None
+
+
+def shift(x: torch.Tensor, group: dist.ProcessGroup, step: int) -> torch.Tensor:
+    """Rank i's ``x`` (the same shape on every rank) to rank i + ``step`` of
+    ``group``; a rank no rank sends to receives zeros. Differentiable: the
+    cotangent goes back by -``step``."""
+    return _Shift.apply(x, group, step)
 
 
 def ppermute(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
     """JAX's ``ppermute`` with the pairs ``[(i, i + 1)]`` over ``group``:
     rank i + 1 receives rank i's ``x``, rank 0 zeros; differentiable."""
-    return _PPermute.apply(x, group)
+    return _Shift.apply(x, group, 1)
+
+
+def halo_exchange(x: torch.Tensor, top: int, bottom: int, group: dist.ProcessGroup,
+                  dim: int = 2) -> torch.Tensor:
+    """``x``, this rank's block of r rows along ``dim`` (the same r on every
+    rank of ``group``), with the ``top`` rows before it and the ``bottom``
+    rows after it in the global order: ``top + r + bottom`` rows. Rows past
+    the first or the last rank are zeros. A halo wider than a block comes
+    from as many neighbours as it spans, one shift a neighbour.
+    Differentiable (the shifts' adjoints)."""
+    r = x.shape[dim]
+    parts = []
+    for j in range(-(-top // r), 0, -1):  # the farthest neighbour above first
+        rows = min(r, top - (j - 1) * r)
+        parts.append(shift(x.narrow(dim, r - rows, rows), group, j))
+    parts.append(x)
+    for j in range(1, -(-bottom // r) + 1):
+        parts.append(shift(x.narrow(dim, 0, min(r, bottom - (j - 1) * r)), group, -j))
+    return torch.cat(parts, dim=dim) if len(parts) > 1 else x
 
 
 class _RingShift(torch.autograd.Function):
@@ -219,6 +254,14 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor], group: dist.ProcessGroup) -
     """Replace each tensor by its sum over ``group``, in place, as
     :func:`all_reduce_mean_` does."""
     _all_reduce_(tensors, group, 1)
+
+
+def all_reduce_max(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group``, the same on every rank;
+    not differentiable."""
+    buf = _wire(x, group)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=group)
+    return buf.to(x.device)
 
 
 # torch 2.13 renamed the flat collectives; the card's torch has the old names.

@@ -93,12 +93,15 @@ class Placement:
 
 def placement(p: torch.Tensor) -> Optional[Placement]:
     """The placement of a parameter this rank holds a slice of: FSDP's
-    (:func:`shard_train_state`) or the experts' (``ops/moe.py``); None for
-    a replicated one."""
+    (:func:`shard_train_state`), the experts' (``ops/moe.py``) or a
+    pipeline stage's (``parallel/pipeline.py``: its row of the stacked
+    stages); None for a replicated one."""
     if getattr(p, "fsdp_group", None) is not None:
         return Placement(p.fsdp_dim, p.fsdp_axis, p.fsdp_mesh, p.fsdp_group)
     if getattr(p, "ep_group", None) is not None and getattr(p, "ep_mesh", None) is not None:
         return Placement(0, p.ep_axis, p.ep_mesh, p.ep_group)
+    if getattr(p, "pipe_group", None) is not None:
+        return Placement(0, p.pipe_axis, p.pipe_mesh, p.pipe_group)
     return None
 
 

@@ -17,9 +17,11 @@ place from :func:`axis_shards`. Under data parallelism (the ``data`` axis,
 :data:`DATA_AXIS`) a rank holds a contiguous block of the batch
 (:func:`shard_batch`); train-mode BatchNorm, the losses and the metrics
 reduce over the axis's group, as JAX's GSPMD step sees the global batch.
-Meshes of two axes are ``data`` x ``seq`` and ``data`` x ``expert``, ranks
-laid out row-major in the order the axes are given, and :func:`group_over`
-is the group of several axes at once. JAX's sharding specs
+Under spatial partitioning (the ``spatial`` axis) a rank holds a block of
+every map's rows (``parallel/spatial.py``); under pipelining (``pipe``) a
+stage of the temporal layers (``parallel/pipeline.py``). Meshes of several
+axes lay their ranks out row-major in the order the axes are given, and
+:func:`group_over` is the group of several axes at once. JAX's sharding specs
 (``batch_spec``, ``sequence_sharding``) have no counterpart: the port cuts
 the tensors themselves (:func:`shard_batch`, :func:`shard_frames`).
 
@@ -46,6 +48,9 @@ DATA_AXIS = "data"
 # The mesh in scope (activate_mesh): JAX's mesh context.
 _ambient: contextvars.ContextVar[Optional[DeviceMesh]] = contextvars.ContextVar(
     "ambient_mesh", default=None)
+# Axes of the ambient mesh switched off in scope (axes_off): a stack kept
+# whole on every rank of the axis.
+_off: contextvars.ContextVar[frozenset] = contextvars.ContextVar("axes_off", default=frozenset())
 
 
 def init_distributed(init_method: str, world_size: int, rank: int, backend: str = "gloo",
@@ -110,14 +115,18 @@ def _slice_dim(x, mesh: DeviceMesh, axis: Optional[str], dim: int):
 
 
 def shard_batch(batch, mesh: DeviceMesh, batch_axis: str = DATA_AXIS, seq_axis: Optional[str] = None,
-                seq_dim: int = 1):
+                seq_dim: int = 1, sp_axis: Optional[str] = None, sp_dim: int = 2):
     """This rank's part of a global batch (a tensor, a numpy array, or a
-    tuple or list of them): its block of dim 0 along ``batch_axis`` and,
-    with ``seq_axis``, its block of the frames (``seq_dim``), as JAX's
-    ``shard_batch`` places them."""
+    tuple or list of them): its block of dim 0 along ``batch_axis``, with
+    ``seq_axis`` its block of the frames (``seq_dim``), with ``sp_axis`` its
+    block of the image rows (``sp_dim``: 2 for clips, 1 for images), as
+    JAX's ``shard_batch`` places them; a dim the axis does not divide stays
+    whole."""
     if isinstance(batch, (tuple, list)):
-        return type(batch)(shard_batch(b, mesh, batch_axis, seq_axis, seq_dim) for b in batch)
-    return _slice_dim(_slice_dim(batch, mesh, batch_axis, 0), mesh, seq_axis, seq_dim)
+        return type(batch)(shard_batch(b, mesh, batch_axis, seq_axis, seq_dim, sp_axis, sp_dim)
+                           for b in batch)
+    batch = _slice_dim(_slice_dim(batch, mesh, batch_axis, 0), mesh, seq_axis, seq_dim)
+    return _slice_dim(batch, mesh, sp_axis, sp_dim)
 
 
 def replicate(tree, mesh: Optional[DeviceMesh] = None, src: int = 0):
@@ -169,18 +178,43 @@ def activate_mesh(mesh: DeviceMesh) -> Iterator[DeviceMesh]:
         _ambient.reset(token)
 
 
-def with_current_mesh(fn):
-    """``fn`` run under the mesh in scope now (or none), wherever it is
-    called: the recompute of a checkpointed region runs in the backward,
-    which on CUDA runs on the autograd engine's own thread, and a thread
-    does not see another's :func:`activate_mesh` scope."""
+@contextlib.contextmanager
+def axes_off(axes: Sequence[str]) -> Iterator[None]:
+    """Switch ``axes`` of the ambient mesh off in scope: :func:`mesh_with_axis`
+    reads None for them, as for a mesh without them (a stack that runs
+    whole on every rank of an axis, ``parallel/spatial.py::rows``)."""
+    token = _off.set(_off.get() | frozenset(axes))
+    try:
+        yield
+    finally:
+        _off.reset(token)
+
+
+def switched_off(axis: Optional[str]) -> Optional[DeviceMesh]:
+    """The ambient mesh iff it carries ``axis`` with size > 1 and
+    :func:`axes_off` has switched the axis off in scope, else None."""
+    if axis is None or axis not in _off.get():
+        return None
     mesh = ambient_mesh()
+    if mesh is None or axis not in (mesh.mesh_dim_names or ()) or axis_size(mesh, axis) <= 1:
+        return None
+    return mesh
+
+
+def with_current_mesh(fn):
+    """``fn`` run under the mesh in scope now (or none) and its axes
+    switched off now, wherever it is called: the recompute of a
+    checkpointed region runs in the backward, which on CUDA runs on the
+    autograd engine's own thread, and a thread does not see another's
+    :func:`activate_mesh` scope."""
+    mesh, off = ambient_mesh(), _off.get()
 
     def run(*args):
-        token = _ambient.set(mesh)
+        token, off_token = _ambient.set(mesh), _off.set(off)
         try:
             return fn(*args)
         finally:
+            _off.reset(off_token)
             _ambient.reset(token)
 
     return run
@@ -192,9 +226,10 @@ def axis_size(mesh: DeviceMesh, axis: str) -> int:
 
 
 def mesh_with_axis(axis: Optional[str]) -> Optional[DeviceMesh]:
-    """The ambient mesh iff it carries ``axis`` with size > 1, else None:
-    the gate of every mesh-conditional path, as in JAX."""
-    if axis is None:
+    """The ambient mesh iff it carries ``axis`` with size > 1 and the axis
+    is not switched off in scope (:func:`axes_off`), else None: the gate of
+    every mesh-conditional path, as in JAX."""
+    if axis is None or axis in _off.get():
         return None
     mesh = ambient_mesh()
     if mesh is None or axis not in (mesh.mesh_dim_names or ()) or axis_size(mesh, axis) <= 1:
@@ -220,7 +255,9 @@ def group_over(axes: Sequence[Optional[str]]) -> Optional[dist.ProcessGroup]:
     """The group of this rank's ranks along every one of ``axes`` that the
     ambient mesh carries with size > 1: None when none does, that axis's
     group for one, the whole mesh's (the default group, which every mesh of
-    the port spans) when they are all of its axes."""
+    the port spans) when they are all of its axes, else the group of the
+    submesh over them (made once, by every rank, as all ranks reach the
+    same layers in the same order)."""
     on = [a for a in dict.fromkeys(axes) if mesh_with_axis(a) is not None]
     if not on:
         return None
@@ -228,9 +265,10 @@ def group_over(axes: Sequence[Optional[str]]) -> Optional[dist.ProcessGroup]:
     if len(on) == 1:
         return axis_group(mesh, on[0])
     live = [a for a in mesh.mesh_dim_names if axis_size(mesh, a) > 1]
-    if sorted(on) != sorted(live):
-        raise ValueError(f"a group over {on} of a mesh of {live}: one axis or all of them")
-    return dist.group.WORLD
+    if sorted(on) == sorted(live):
+        return dist.group.WORLD
+    names = tuple(a for a in mesh.mesh_dim_names if a in on)
+    return mesh[names]._flatten("_".join(names)).get_group()
 
 
 def shard_frames(clip: torch.Tensor, mesh: DeviceMesh, seq_axis: str, seq_dim: int = 1) -> torch.Tensor:

@@ -32,7 +32,8 @@ comes after, once). Every engagement records JAX's marker,
 
 Gating goes through ``parallel.mesh.mesh_with_axis``: without an ambient
 mesh carrying the axis with size > 1 every function here is the identity.
-Spatial partitioning (``sp_axis``) is item 11e of ROADMAP.md and raises.
+:func:`conv_constrain`'s ``sp_axis`` (spatial partitioning) slices the
+rows of a whole map (``parallel/spatial.py::enter``).
 """
 
 from __future__ import annotations
@@ -55,9 +56,6 @@ from tchvp_tpu_torch.parallel.collectives import (
     replicated_to_varying,
 )
 from tchvp_tpu_torch.parallel.mesh import axis_group, axis_size, mesh_with_axis
-
-_SP = ("sp_axis (spatial partitioning) is not ported yet "
-       "(ROADMAP.md, modules to port, item 11e: tensor and spatial parallelism)")
 
 
 def tp_shards(tp_axis: Optional[str]) -> Optional[Tuple[int, int, dist.ProcessGroup]]:
@@ -98,9 +96,14 @@ def conv_constrain(x: torch.Tensor, tp_axis: Optional[str] = None,
                    sp_axis: Optional[str] = None) -> torch.Tensor:
     """JAX's conv-stage constraint on an NCHW ``x`` the same on every rank:
     its block of channels on ``tp_axis`` where the axis divides them
-    (``tp_constrain_conv``), else ``x``. ``sp_axis`` raises (item 11e)."""
-    if sp_axis is not None and mesh_with_axis(sp_axis) is not None:
-        raise NotImplementedError(_SP)
+    (``tp_constrain_conv``), and its block of rows on ``sp_axis`` where the
+    axis divides them (``sp_constrain_conv``); ``x`` where neither gate is
+    on."""
+    from tchvp_tpu_torch.parallel import spatial
+
+    rows = spatial.sp_shards(sp_axis)
+    if rows is not None and x.shape[2] % rows[0] == 0:
+        x = spatial.enter(x, sp_axis)
     tp = tp_shards(tp_axis)
     if tp is None or x.shape[1] % tp[0]:
         return x
@@ -165,12 +168,24 @@ def _conv(module: nn.Module, x: torch.Tensor, w: torch.Tensor, b: Optional[torch
     return add_bias(fn(None), b, 1)
 
 
-def conv_forward(module: nn.Module, x: torch.Tensor, tp_axis: str) -> torch.Tensor:
+def conv_forward(module: nn.Module, x: torch.Tensor, tp_axis: str,
+                 weight: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``module`` (a ``Conv2d`` or ``ConvTranspose2d``) on NCHW ``x``, which
     is this rank's block of the input channels or the whole input: where the
     axis divides the output channels, this rank's block of them
-    (``tp_constrain_conv``), else all of them, the same on every rank."""
+    (``tp_constrain_conv``), else all of them, the same on every rank.
+    ``weight``: the whole kernel to slice in place of the module's (QAT's
+    fake-quantized one, a function of it)."""
     n, i, group = tp_shards(tp_axis)
+    if weight is None:
+        weight = module.weight
+    elif module.out_channels % n == 0:  # sliced below: its gradient is a block's
+        module.weight.tp_group, module.weight.tp_axis = group, tp_axis
+    return _conv_forward_with(module, x, tp_axis, n, i, group, weight)
+
+
+def _conv_forward_with(module: nn.Module, x: torch.Tensor, tp_axis: str, n: int, i: int, group,
+                       weight: torch.Tensor) -> torch.Tensor:
     cin = module.in_channels
     sharded_in = x.shape[1] != cin
     if sharded_in and x.shape[1] * n != cin:
@@ -183,22 +198,23 @@ def conv_forward(module: nn.Module, x: torch.Tensor, tp_axis: str) -> torch.Tens
             # Row-parallel: this rank's input channels through their slice of
             # the weight, the partial outputs summed and scattered by channel,
             # so that the (smaller) output crosses instead of the input.
-            y = reduce_scatter_dim(_conv(module, x, _sliced(module.weight, 0 if transposed else 1, n, i, group,
+            y = reduce_scatter_dim(_conv(module, x, _sliced(weight, 0 if transposed else 1, n, i, group,
                                                             tp_axis), None), group, 1)
             return y if b is None else add_bias(y, b, 1)
         x = all_gather_dim(x, group, 1) if sharded_in else replicated_to_varying(x, group)
-        return _conv(module, x, _sliced(module.weight, 1 if transposed else 0, n, i, group, tp_axis), b)
+        return _conv(module, x, _sliced(weight, 1 if transposed else 0, n, i, group, tp_axis), b)
     if sharded_in:
         x = all_gather_dim_replicated(x, group, 1)
-    return _conv(module, x, module.weight, module.bias)
+    return _conv(module, x, weight, module.bias)
 
 
 def _output_numel(module: nn.Module, x: torch.Tensor, n: int) -> int:
     """The elements of ``module``'s whole output on ``x``, this rank's
     block of 1/n of the input channels."""
     size = []
+    padding = getattr(module, "_pad_override", None) or module.padding
     for d in range(2):
-        h, k, s, p, dil = (x.shape[2 + d], module.kernel_size[d], module.stride[d], module.padding[d],
+        h, k, s, p, dil = (x.shape[2 + d], module.kernel_size[d], module.stride[d], padding[d],
                            module.dilation[d])
         if isinstance(module, nn.ConvTranspose2d):
             size.append((h - 1) * s - 2 * p + dil * (k - 1) + module.output_padding[d] + 1)

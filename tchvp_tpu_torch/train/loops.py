@@ -22,7 +22,13 @@ the input noise at the global shape (``train/steps.py``), so the flow
 itself only places. Under a ``data`` mesh every flow reads each rank's
 block of the global batch (:class:`~tchvp_tpu_torch.parallel.input.GlobalBatchLoader`
 over the dataset, unless it already is one, such as a sharded ClipPack);
-the steps reduce over the axis.
+the steps reduce over the axis. Under a ``spatial`` mesh (``sp_axis``, the
+model's own) every rank of the axis is given the same batch and the model
+takes its block of the rows (``parallel/spatial.py``). ``VideoFlow(pipe_axis=)``
+trains the pipelined layout (``parallel/pipeline.py``): each rank of the
+axis holds one stage of the temporal layers and its moments, saves
+shard-wise, and :meth:`VideoFlow.resume` converts a checkpoint of the
+other layout (JAX's layout-elastic resume).
 
 Host syncs. JAX's loop reads every metric on the host after every step.
 Here the per-epoch sums stay on the device, in float64, and are read once
@@ -166,6 +172,36 @@ def _epoch_sums(sums: Optional[Dict[str, torch.Tensor]], m: Dict[str, torch.Tens
     return sums
 
 
+def _convert_moments(moments: Dict[str, Dict[str, torch.Tensor]], conv: Callable,
+                     names: Iterable[str]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Optimizer moments keyed by parameter name, converted by ``conv`` (a
+    layout change of a dict of the model's names): each per-element moment
+    as its parameters are; a scalar one (Adam's step count, the same for
+    every parameter) copied to each of the live parameters ``names``."""
+    keys = sorted({k for st in moments.values() for k in st})
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for key in keys:
+        per = {n: st[key] for n, st in moments.items() if key in st}
+        value = next(iter(per.values()))
+        if value.dim() == 0:
+            for n in names:
+                out.setdefault(n, {})[key] = value.clone()
+        else:
+            for n, v in conv(per).items():
+                out.setdefault(n, {})[key] = v
+    return out
+
+
+def _check_sp_axis(model: torch.nn.Module, sp_axis: Optional[str]) -> None:
+    """A flow's ``sp_axis`` must be the model's own (the flagship's encoder
+    config's, FCT's config's): the model slices the rows it is given, and
+    the flow places every rank of the axis the same batch."""
+    config = getattr(model, "config", None)
+    want = getattr(getattr(config, "encoder", config), "sp_axis", None)
+    if sp_axis is not None and sp_axis != want:
+        raise ValueError(f"sp_axis={sp_axis!r} must match the model config's sp_axis={want!r}")
+
+
 class VideoFlow(_FlowBase):
     """Clip-denoising training for the video pipeline (recovered
     AE_256_32K L226-330: gaussian input noise, MixedLoss(0.3, 0.7),
@@ -195,16 +231,11 @@ class VideoFlow(_FlowBase):
         ep_axis: Optional[str] = None,
     ):
         super().__init__(cfg, mesh, next(model.parameters()).device)
-        if pipe_axis:
-            raise NotImplementedError(
-                "pipe_axis (pipelined training) is not ported yet "
-                "(ROADMAP.md, modules to port, item 11f: parallel/pipeline.py)")
+        if pipe_axis is not None and (mesh is None or pipe_axis not in (mesh.mesh_dim_names or ())):
+            raise ValueError(f"pipe_axis={pipe_axis!r} needs a mesh carrying that axis")
         if fsdp_axis is not None and (mesh is None or fsdp_axis not in (mesh.mesh_dim_names or ())):
             raise ValueError(f"fsdp_axis={fsdp_axis!r} needs a mesh carrying that axis")
-        if sp_axis:
-            raise NotImplementedError(
-                "sp_axis (spatial partitioning) is not ported yet "
-                "(ROADMAP.md, modules to port, item 11e: tensor and spatial parallelism)")
+        _check_sp_axis(model, sp_axis)
         for name, axis in (("seq_axis", seq_axis), ("ep_axis", ep_axis)):
             want = getattr(getattr(getattr(model, "config", None), "temporal", None), name, None)
             if axis is not None and axis != want:
@@ -223,6 +254,18 @@ class VideoFlow(_FlowBase):
         self.state: Optional[TrainState] = None
         self.seq_axis = seq_axis
         self.accum_steps = accum_steps
+        self.pipe_axis = pipe_axis
+        if pipe_axis is not None:
+            batch_axis = (pipe_batch_axis if pipe_batch_axis in mesh.mesh_dim_names
+                          and axis_size(mesh, pipe_batch_axis) > 1 else None)
+            self._train_step = self._under_mesh(steps_lib.make_pipelined_video_train_step(
+                image_size, pipe_axis, batch_axis, pipe_microbatches, cfg.loss, loss_alpha, loss_beta,
+                aug=aug, remat=remat or remat_policy == "full", data_range=cfg.mixed_data_range,
+                fsdp_axis=fsdp_axis, fsdp_mesh=mesh if fsdp_axis else None, accum_steps=accum_steps,
+                moe_aux_weight=cfg.moe_aux_weight))
+            self._eval_step = self._under_mesh(steps_lib.make_pipelined_video_eval_step(
+                image_size, pipe_axis, batch_axis, pipe_microbatches))
+            return
         self._train_step = self._under_mesh(steps_lib.make_video_train_step(
             image_size, cfg.loss, loss_alpha, loss_beta, aug=aug, remat=remat,
             remat_policy=remat_policy, data_range=cfg.mixed_data_range,
@@ -240,6 +283,13 @@ class VideoFlow(_FlowBase):
         ``clip_len`` is kept for the JAX signature (flax needs an example
         input to initialise)."""
         del clip_len
+        if self.pipe_axis is not None:
+            from tchvp_tpu_torch.parallel.pipeline import create_pipelined_train_state
+
+            self.state = create_pipelined_train_state(self.model, self._optimizer(lr), rng=self.cfg.seed,
+                                                      mesh=self.mesh, axis=self.pipe_axis,
+                                                      fsdp_axis=self.fsdp_axis)
+            return self.state
         self.state = create_train_state(self.model, self._optimizer(lr), rng=self.cfg.seed)
         if self.fsdp_axis is not None:
             fsdp.shard_train_state(self.state, self.mesh, self.fsdp_axis)
@@ -266,14 +316,18 @@ class VideoFlow(_FlowBase):
         ``seek`` (:class:`ClipPackDataset`), the iterator is positioned at
         the exact next batch. A mid-epoch checkpoint with non-seekable data
         falls back to replaying the whole epoch (with a warning). A
-        checkpoint of another layout fails with the restore's own error
-        (the JAX package's layout-elastic resume needs item 11f)."""
+        checkpoint of another layout (monolithic or pipelined, or pipelined
+        over another stage count) is converted into the live one
+        (:meth:`_resume_convert_layout`)."""
         path = ckpt.latest_step_dir(self.cfg.checkpoint_dir)
         if path is None:
             return 0
         if self.state is None:
             self.init_state(clip_len)
-        self.state, raw = ckpt.restore_state_into(self.state, path)
+        try:
+            self.state, raw = ckpt.restore_state_into(self.state, path)
+        except Exception as err:  # noqa: BLE001 (a layout mismatch fails in many ways; others re-raise)
+            raw = self._resume_convert_layout(path, err)
         extra = raw.get("extra") or {}
         epoch = int(extra.get("train_epoch", raw.get("step", 0)))
         pos = extra.get("data_position")
@@ -289,6 +343,78 @@ class VideoFlow(_FlowBase):
                       "seekable; replaying epoch from its start")
             return epoch - 1  # re-enter the partial epoch
         return epoch
+
+    def _resume_convert_layout(self, path: str, err: Exception) -> dict:
+        """JAX's layout-elastic resume: when the checkpoint's layout
+        differs from the live state's (monolithic ``VideoHybridNet`` names
+        against the pipelined ``rest.``/``stages.`` ones, or pipelined over
+        another number of stages), the parameters, BatchNorm stats,
+        optimizer moments and EMA are read whole, converted into the live
+        layout and cut to this rank's slices; moments or an EMA that do not
+        map (another optimizer, a weights-only checkpoint, a run without an
+        EMA) start fresh, the EMA from the converted weights, and each is
+        counted as a reset, a missing one too (JAX's ``_overlay_opt_state``
+        leaves a missing one uncounted). With the same layout the restore's
+        own error re-raises."""
+        from tchvp_tpu_torch.parallel import pipeline as ppl
+
+        try:
+            raw = ckpt.restore_state(path)
+        except Exception as err2:
+            raise err2 from err
+        disk_pp = ppl.is_pipelined_params(raw["model"])
+        live_pp = ppl.is_pipelined_params(self.state.model.state_dict())
+        same_grouping = not (disk_pp and live_pp) or (
+            raw["model"]["stages.norm.weight"].shape[1:] == self.state.model.stages.norm.weight.shape[1:])
+        if disk_pp == live_pp and same_grouping:
+            raise err  # not a layout change: a genuine restore failure
+        num_layers = self.state.model.config.temporal.num_layers
+
+        def conv(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+            """Disk layout -> live layout of a dict of the model's names."""
+            t = ppl.merge_pipelined_params(tree, num_layers) if disk_pp else tree
+            if live_pp:
+                return ppl.pipelined_layout(t, num_layers, self.state.model.n_stages)
+            return t
+
+        raw["model"] = conv(raw["model"])
+        stats = {"converted": 0, "reset": 0}
+        trainable = {n for n, p in self.state.tx.named.items()
+                     if any(p is q for q in self.state.tx.trainable)}
+        opt = raw.setdefault("opt_state", {"moments": None, "count": 0, "notfinite_count": 0, "ema": None})
+        if opt["moments"] is None:  # a weights-only checkpoint: fresh moments
+            stats["reset"] += 1
+            opt["moments"] = {}
+        else:
+            try:
+                opt["moments"] = _convert_moments(opt["moments"], conv, trainable)
+                if set(opt["moments"]) != trainable and (opt["moments"] or opt["count"]):
+                    raise ValueError("moments do not cover the live trainable parameters")
+                stats["converted"] += 1
+            except (KeyError, ValueError, RuntimeError):
+                stats["reset"] += 1
+                opt["moments"] = {}
+                opt["count"] = 0
+        ema = opt.get("ema") if self.state.tx.ema is not None else None
+        try:
+            if ema is None:
+                raise KeyError("ema")
+            opt["ema"] = conv(ema)
+            stats["converted"] += 1
+        except (KeyError, ValueError, RuntimeError):
+            # The live EMA starts from the converted weights; counted where
+            # the live state keeps one (JAX counts no missing one).
+            stats["reset"] += self.state.tx.ema is not None
+            opt["ema"] = ({n: raw["model"][n].clone() for n in self.state.tx.named}
+                          if self.state.tx.ema is not None else None)
+        if ckpt.is_sharded_state(self.state):
+            raw = ckpt._live_slices(self.state, raw)
+        self.state = ckpt.load_payload(self.state, raw)
+        layout = lambda pp: "pipelined" if pp else "monolithic"  # noqa: E731
+        print(f"[resume] checkpoint layout {layout(disk_pp)} -> live {layout(live_pp)}: parameters and "
+              f"batch stats converted; optimizer state: {stats['converted']} parts converted, "
+              f"{stats['reset']} reset")
+        return raw
 
     def _ckpt_extra(self, epoch: int, data: Any) -> dict:
         extra = {"train_epoch": epoch}
@@ -430,10 +556,7 @@ class SegmentationFlow(_FlowBase):
         mesh=None,
         sp_axis: Optional[str] = None,
     ):
-        if sp_axis:
-            raise NotImplementedError(
-                "sp_axis (spatial partitioning) for segmentation is not ported yet "
-                "(ROADMAP.md, modules to port, item 11e: tensor and spatial parallelism)")
+        _check_sp_axis(model, sp_axis)
         super().__init__(cfg, mesh, next(model.parameters()).device)
         self.model = model
         self.image_size = image_size

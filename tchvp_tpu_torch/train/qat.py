@@ -28,6 +28,13 @@ ran the card out of its 80 GB. Integration is the engine's hook
 (``ops.blocks.conv_hook``): wrap the forward in :func:`qat_fake_quant`; a
 remat policy's checkpointed regions take the hook into their recompute
 (``ops.blocks.with_current_hook``).
+
+Under tensor or spatial parallelism a conv's input may be a block of its
+channels or rows: the activation scale is then the max over the blocks
+(``collectives.all_reduce_max``), the whole tensor's, and a
+tensor-parallel conv takes the fake-quantized whole kernel through the
+hook's ``next_fn(x, weight=)``, slicing it as it slices the kernel
+(per-output-channel scales commute with slicing output channels).
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ import torch.nn as nn
 
 from tchvp_tpu_torch.infer.quant import _conv_interceptor, _is_dense, _out_dtype, module_names
 from tchvp_tpu_torch.ops import dispatch_trace
+from tchvp_tpu_torch.parallel import spatial, tp
+from tchvp_tpu_torch.parallel.collectives import all_reduce_max
 
 
 def ste_round(x: torch.Tensor) -> torch.Tensor:
@@ -75,9 +84,19 @@ def fake_quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return _FakeQuant.apply(x, scale.detach())
 
 
-def _act_scale(x: torch.Tensor) -> torch.Tensor:
-    """Per-tensor activation scale max|x| / 127, 1.0 for an all-zero x."""
+def _act_scale(x: torch.Tensor, module: Optional[nn.Module] = None) -> torch.Tensor:
+    """Per-tensor activation scale max|x| / 127, 1.0 for an all-zero x;
+    the max over the ranks where ``x`` is a block of ``module``'s input
+    (module docstring)."""
     m = x.abs().max()
+    if module is not None:
+        rows = spatial.sp_shards(getattr(module, "sp_axis", None))
+        if rows is not None:
+            m = all_reduce_max(m, rows[2])
+        shards = tp.tp_shards(getattr(module, "tp_axis", None))
+        width = module.in_features if _is_dense(module) else module.in_channels
+        if shards is not None and x.shape[-1 if _is_dense(module) else 1] != width:
+            m = all_reduce_max(m, shards[2])
     return torch.where(m > 0, m, torch.full_like(m, 127.0)) / 127.0
 
 
@@ -91,15 +110,18 @@ def _kernel_scale(w: torch.Tensor) -> torch.Tensor:
 def _fq_weight_input(module: nn.Module, x: torch.Tensor):
     w = module.weight.float()
     x32 = x.float()
-    return fake_quant(x32, _act_scale(x32)), fake_quant(w, _kernel_scale(w))
+    return fake_quant(x32, _act_scale(x32, module)), fake_quant(w, _kernel_scale(w))
 
 
-def _fq_conv(module: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """One ``Conv2d`` call on fake-quantized input and kernel, in fp32."""
+def _fq_conv(module: nn.Conv2d, x: torch.Tensor, next_fn=None) -> torch.Tensor:
+    """One ``Conv2d`` call on fake-quantized input and kernel, in fp32;
+    under tensor parallelism through ``next_fn`` (module docstring)."""
     dispatch_trace.record("qat_fake_quant")
     dtype = _out_dtype(x)
     with torch.autocast(x.device.type, enabled=False):
         xq, wq = _fq_weight_input(module, x)
+        if tp.tp_shards(module.tp_axis) is not None:
+            return next_fn(xq, weight=wq).to(dtype)
         out = module._conv_forward(xq, wq, None)
         if module.bias is not None:
             out = out + module.bias.float()[None, :, None, None]
@@ -137,7 +159,8 @@ def qat_fake_quant(dense: bool = False, exclude: Sequence[str] = (),
             return next_fn(x)
         if _is_dense(module):
             return _fq_dense(module, x)
-        return _fq_conv(module, x)
+        return _fq_conv(module, x, next_fn)
 
+    fq.tp_aware = True
     with _conv_interceptor(fq, dense=dense):
         yield

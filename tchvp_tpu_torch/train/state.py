@@ -126,8 +126,9 @@ def _core(name: str, params: List[torch.nn.Parameter], lr: float,
 
 def _shard_group(p: torch.Tensor):
     """The process group over which ``p`` is this rank's slice of a sharded
-    tensor (FSDP's ``fsdp_group`` or the experts' ``ep_group``), or None."""
-    return getattr(p, "fsdp_group", None) or getattr(p, "ep_group", None)
+    tensor (FSDP's ``fsdp_group``, the experts' ``ep_group`` or a pipeline
+    stage's ``pipe_group``), or None."""
+    return getattr(p, "fsdp_group", None) or getattr(p, "ep_group", None) or getattr(p, "pipe_group", None)
 
 
 def _by_shard_group(params) -> List[tuple]:

@@ -88,7 +88,16 @@ a mesh carrying it is dormant, as in JAX.
 Tensor parallelism (``parallel/tp.py``, the ``model`` axis): every rank of
 the axis is given the same batch and computes its blocks of heads and
 channels; the gradients of the parameters it used through a slice are
-summed over the axis (``tp.sum_gradients``) before the data mean.
+summed over the axis (``tp.sum_gradients``) before the data mean. It
+composes with sequence and spatial parallelism and with conv-only QAT.
+
+Spatial partitioning (``parallel/spatial.py``, the ``spatial`` axis): every
+rank of the axis is given the same batch, so the noise and the dropout
+draws are the whole clip's, and the model runs its conv stacks on this
+rank's block of the rows; the loss is taken on the reconstruction gathered
+whole, the same on every rank, and the conv stacks' gradients (each rank's
+rows' part) are summed over the axis (``spatial.sum_gradients``) before the
+data mean. A rank's step is one process's.
 
 Expert parallelism: when ``config.temporal.ep_axis`` is on an ambient mesh,
 each rank runs the whole model on the whole batch but only its experts
@@ -117,9 +126,10 @@ from torch.utils.checkpoint import (
 from tchvp_tpu_torch import losses
 from tchvp_tpu_torch.config import AugmentConfig
 from tchvp_tpu_torch.data import pipeline
+from tchvp_tpu_torch.ops import dispatch_trace
 from tchvp_tpu_torch.ops.blocks import frozen_batch_stats, with_current_hook
 from tchvp_tpu_torch.ops.moe import mean_dropped_fraction, moe_layers, total_load_balance_loss
-from tchvp_tpu_torch.parallel import fsdp, tp
+from tchvp_tpu_torch.parallel import fsdp, spatial, tp
 from tchvp_tpu_torch.parallel.collectives import all_reduce_mean_, all_reduce_sum
 from tchvp_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -178,13 +188,14 @@ def _seq_axis(model: torch.nn.Module) -> Optional[str]:
     return axis if mesh_with_axis(axis) is not None else None
 
 
-def _refuse_tp_with_seq(model: torch.nn.Module) -> None:
-    """Tensor parallelism beside sequence parallelism is not ported."""
+def _refuse_qat_dense_under_tp(model: torch.nn.Module, qat: bool, qat_dense: bool) -> None:
+    """QAT of the Dense layers under tensor parallelism: the column and row
+    products of ``parallel/tp.py`` take slices of the Dense weights
+    directly, past the Dense interceptor, so they would train in fp."""
     temporal = getattr(getattr(model, "config", None), "temporal", None)
-    if temporal is not None and mesh_with_axis(temporal.tp_axis) is not None \
-            and mesh_with_axis(temporal.seq_axis) is not None:
-        raise NotImplementedError("tensor parallelism beside a seq mesh is not ported yet "
-                                  "(ROADMAP.md, modules to port, item 11e)")
+    if qat and qat_dense and temporal is not None and mesh_with_axis(temporal.tp_axis) is not None:
+        raise ValueError("--qat-dense under tensor parallelism: the tensor-parallel projections take "
+                         "their weight slices past the Dense interceptor; use conv-only --qat")
 
 
 def _ep_axis(model: torch.nn.Module) -> Optional[str]:
@@ -253,8 +264,10 @@ def _reduce_grads(model: torch.nn.Module, fsdp_axis: Optional[str], fsdp_mesh, g
     tensor-parallel forward used a slice, then their mean over the data
     axis, reduce-scattered to the slices of an FSDP-sharded state
     (``fsdp.constrain_gradients``, which gives the parameters their slices
-    back) or all-reduced."""
+    back) or all-reduced. Those used on row blocks are summed over the
+    spatial axis first (``spatial.sum_gradients``)."""
     tp.sum_gradients(model)
+    spatial.sum_gradients(model)
     if gathered:
         fsdp.constrain_gradients(model, gathered[0].fsdp_axis, gathered[0].fsdp_mesh)
     elif fsdp_axis is not None:
@@ -389,7 +402,7 @@ def make_video_train_step(
 
     def _step(state: TrainState, batch: torch.Tensor, mark: Mark, gathered) -> Tuple[TrainState, Metrics]:
         model = state.model.train()
-        _refuse_tp_with_seq(model)
+        _refuse_qat_dense_under_tp(model, qat, qat_dense)
         seq_axis = _seq_axis(model)
         ep_axis = _ep_axis(model)
         clean = pipeline.preprocess_clip(batch, image_size)
@@ -461,6 +474,132 @@ def make_video_train_step(
         if want_aux:
             metrics["moe_aux"], metrics["moe_drop_frac"] = aux_sum, drop_sum
         return state, metrics
+
+    return step
+
+
+def make_pipelined_video_train_step(
+    image_size: int,
+    axis: str = "pipe",
+    batch_axis: Optional[str] = None,
+    microbatches: Optional[int] = None,
+    loss: str = "mixed",
+    alpha: float = 0.3,
+    beta: float = 0.7,
+    noise_std: float = 0.05,
+    data_range: float = 1.0,
+    aug: AugmentConfig = AugmentConfig(),
+    remat: bool = False,
+    fsdp_axis: Optional[str] = None,
+    fsdp_mesh=None,
+    accum_steps: int = 1,
+    moe_aux_weight: float = 0.0,
+) -> Callable[..., Tuple[TrainState, Metrics]]:
+    """The flagship's train step with its temporal transformer run as a
+    GPipe pipeline over ``axis`` of the ambient mesh
+    (``parallel/pipeline.py``), on a state of
+    ``pipeline.create_pipelined_train_state``: the objective, the
+    augmentations and the noise of :func:`make_video_train_step`; the CNN's
+    dropout draws are the monolithic step's, so with the temporal dropout
+    off one step is the monolithic one; the stages draw theirs from
+    generators folded by (tick, stage). Each rank of the axis holds one
+    stage and its moments; the CNN runs on every rank of the axis, whose
+    gradients are the same there. ``batch_axis``: the data axis, each
+    rank's batch its block of the global one (the gradients' mean over it
+    comes after). ``remat`` checkpoints the stage body (JAX's ``remat``,
+    the ``full`` policy of the pipelined step). ``fsdp_axis``: the rest's
+    parameters ZeRO-sharded over it, their gradients reduce-scattered.
+    ``accum_steps`` wraps the pipeline: each microbatch of the batch
+    streams the whole schedule. ``moe_aux_weight``: the objective adds that
+    times the sum over layers of the mean over microbatches of the stages'
+    load-balance losses (JAX's per-microbatch estimator)."""
+    from tchvp_tpu_torch.parallel import pipeline as ppl
+
+    want_aux = moe_aux_weight > 0.0
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    loss_fn = _loss_fn_by_name(loss, alpha, beta, data_range)
+
+    def step(state: TrainState, batch: torch.Tensor, mark: Mark = None) -> Tuple[TrainState, Metrics]:
+        with _whole_params(state.model) as gathered:
+            return _step(state, batch, mark, gathered)
+
+    def _step(state: TrainState, batch: torch.Tensor, mark: Mark, gathered) -> Tuple[TrainState, Metrics]:
+        net = state.model.train()
+        if want_aux and net.config.temporal.num_experts < 2:
+            raise ValueError("moe_aux_weight set but the temporal config is dense (num_experts < 2)")
+        clean = pipeline.preprocess_clip(batch, image_size)
+        noise_gen, drop_gen = _step_generators(state)
+        clean = pipeline.augment_geometric(noise_gen, clean, aug)
+        noisy = pipeline.gaussian_noise(noise_gen, clean, noise_std)
+        b, t = clean.shape[0], clean.shape[1]
+        if b % accum_steps != 0:
+            raise ValueError(f"batch {b} not divisible by accum_steps {accum_steps}")
+        mb = b // accum_steps
+        m = ppl.resolve_microbatches(mb, axis, batch_axis, microbatches)
+        for p in net.parameters():
+            p.grad = None
+        if mark:
+            mark("data")
+        loss_sum = mse_sum = aux_sum = drop_sum = None
+        for i in range(accum_steps):
+            x, y = noisy[i * mb:(i + 1) * mb], clean[i * mb:(i + 1) * mb]
+            out = net(x, generator=drop_gen, microbatches=m, batch_axis=batch_axis, remat=remat, extras=want_aux)
+            recon = out[1].to(y.dtype)
+            loss_val = loss_fn(recon.reshape((mb * t,) + recon.shape[2:]), y.reshape((mb * t,) + y.shape[2:]))
+            if want_aux:
+                ext = out[2].to(loss_val.device)
+                aux, drop = ext[0] / m, ext[1] / (m * net.config.temporal.num_layers)
+                loss_val = loss_val + moe_aux_weight * aux
+                aux_sum = aux.detach() if aux_sum is None else aux_sum + aux.detach()
+                drop_sum = drop.detach() if drop_sum is None else drop_sum + drop.detach()
+            mse_val = losses.mse(recon.detach(), y)
+            if mark:
+                mark("forward")
+            loss_val.backward()
+            if mark:
+                mark("backward")
+            loss_sum = loss_val.detach() if loss_sum is None else loss_sum + loss_val.detach()
+            mse_sum = mse_val if mse_sum is None else mse_sum + mse_val
+        if accum_steps > 1:
+            inv = 1.0 / accum_steps
+            torch._foreach_mul_([p.grad for p in net.parameters() if p.grad is not None], inv)
+            loss_sum, mse_sum = loss_sum * inv, mse_sum * inv
+            if want_aux:
+                aux_sum, drop_sum = aux_sum * inv, drop_sum * inv
+        # The stages' gradients stay with their stage (JAX's pp_constrain);
+        # the mean over the data axis, or FSDP's reduce-scatter, comes next.
+        dispatch_trace.record("pp_constrain")
+        _reduce_grads(net, fsdp_axis, fsdp_mesh, gathered)
+        loss_sum, mse_sum = _global_mean(loss_sum, DATA_AXIS), _global_mean(mse_sum, DATA_AXIS)
+        if want_aux:
+            aux_sum, drop_sum = _global_mean(aux_sum, DATA_AXIS), _global_mean(drop_sum, DATA_AXIS)
+        state.tx.step()
+        state.step += 1
+        if mark:
+            mark("optimizer")
+        metrics = {"loss": loss_sum, "psnr": 20.0 * torch.log10(1.0 / torch.sqrt(mse_sum))}
+        if want_aux:
+            metrics["moe_aux"], metrics["moe_drop_frac"] = aux_sum, drop_sum
+        return state, metrics
+
+    return step
+
+
+def make_pipelined_video_eval_step(image_size: int, axis: str = "pipe", batch_axis: Optional[str] = None,
+                                   microbatches: Optional[int] = None) -> Callable[[TrainState, torch.Tensor], Metrics]:
+    """No-grad PSNR through the pipelined forward (a state of the pipelined
+    layout), of the global batch's MSE under ``batch_axis``."""
+    from tchvp_tpu_torch.parallel import pipeline as ppl
+
+    def step(state: TrainState, batch: torch.Tensor) -> Metrics:
+        net = state.model.eval()
+        clean = pipeline.preprocess_clip(batch, image_size)
+        m = ppl.resolve_microbatches(clean.shape[0], axis, batch_axis, microbatches)
+        with torch.no_grad(), fsdp.gathered(net):
+            _, recon = net(clean, microbatches=m, batch_axis=batch_axis)
+            mse = _global_mean(losses.mse(recon, clean), DATA_AXIS)
+        return {"psnr": 20.0 * torch.log10(1.0 / torch.sqrt(mse))}
 
     return step
 

@@ -118,7 +118,7 @@ def test_video_writes_what_jax_writes(runs):
     assert re.findall(r"Video epoch \d+", runs["torch"]) == re.findall(r"Video epoch \d+", runs["jax"])
     jrec, trec = (json.loads((d / "run.json").read_text()) for d in (jdir, tdir))
     jargs, targs = jrec["resolved_args"], trec["resolved_args"]
-    assert set(targs) == set(jargs) - {"sp_axis"} | {"device"}
+    assert set(targs) == set(jargs) | {"device"}
     assert {k: v for k, v in targs.items() if k not in ("checkpoint_dir", "device")} == \
         {k: v for k, v in jargs.items() if k in targs and k != "checkpoint_dir"}
     assert trec["command"] == jrec["command"] == "video"
@@ -267,10 +267,11 @@ MODEL_ARGS = ["--synthetic", "1", *SMALL, *CPU]
 # item None: ported since (the conv families, item 7; serving, item 10; the
 # MoE flags, item 11b; --attn-impl ring, item 11a, which without --mesh
 # seq=N exits saying so; --mesh data=N and --data-parallel, item 11c, and
-# --mesh model=N, item 11e's tensor half, which need N processes; --fsdp, item
-# 11d, which without a data mesh exits saying so; tune, item 12, which needs
-# a card): the command runs, or exits with a message of its own, and is not
-# refused.
+# --mesh model=N, spatial=N and pipe=N, item 11e and 11f, which need N
+# processes; serve --mesh pipe=N, item 11f, which refuses --exported;
+# --fsdp, item 11d, which without a data mesh exits saying so; tune, item
+# 12, which needs a card): the command runs, or exits with a message of its
+# own, and is not refused.
 STREAM_SMALL = ["--tile", "32", "--height", "32", "--width", "32", "--chunk-len", "2", "--ctx-frames", "1"]
 UNPORTED = [
     (["denoise"], None), (["transfer"], None), (["port"], None),
@@ -278,21 +279,21 @@ UNPORTED = [
     (["video", "--model", "ae32k"], None), (["video", "--fsdp"], None), (["video", "--data-parallel", "--fsdp"], None),
     (["video", "--qat"], None),
     (["video", "--mesh", "model=2"], None), (["video", "--mesh", "data=2,model=2"], None),
-    (["video", "--mesh", "spatial=2"], 11), (["video", "--mesh", "pipe=2"], 11),
+    (["video", "--mesh", "spatial=2"], None), (["video", "--mesh", "pipe=2"], None),
     (["video", "--num-experts", "2"], None), (["video", "--mesh", "data=2"], None),
     (["video", "--data-parallel"], None), (["video", "--attn-impl", "ring"], None),
     (["eval", "--model", "unet"], None), (["eval", "--int8"], None),
     (["infer", "--exported", "a.tchvp"], None), (["infer", "--url", "http://localhost:1"], None),
-    (["infer", "--int8"], None), (["infer", "--mesh", "pipe=2"], 11),
+    (["infer", "--int8"], None), (["infer", "--mesh", "pipe=2"], None),
     (["stream", "--int8", *STREAM_SMALL], None), (["stream", "--url", "http://localhost:1"], None),
     (["summary", "--model", "unet"], None), (["summary", "--model", "ae32k"], None),
     (["export", "--out", "m.tchvp", "--int8", *MODEL_ARGS], None),
     (["serve", "--port", "8765", "--buckets", "1,2"], None),
     (["serve", "--exported", "m.tchvp", "--data-parallel"], None),
-    (["serve", "--exported", "m.tchvp", "--mesh", "pipe=2"], 11),
+    (["serve", "--exported", "m.tchvp", "--mesh", "pipe=2"], None),
     (["tune", "--shape", "8x8x2048x64", "--mode", "fwd"], None),
     (["segment", "--mesh", "data=2", "--attn-impl", "flash"], None),
-    (["segment", "--mesh", "spatial=2"], 11), (["segment", "--attn-impl", "ring"], 11),
+    (["segment", "--mesh", "spatial=2"], None), (["segment", "--attn-impl", "ring"], None),
     (["segment", "--data-parallel"], None), (["denoise", "--data-parallel"], None),
     (["transfer", "--data-parallel"], None),
     (["video", "--moe-aux-weight", "0.02"], None), (["video", "--router-top-k", "2"], None),
@@ -400,3 +401,136 @@ def test_ring_and_expert_meshes_two_ranks_match_one_process(tmp_path, monkeypatc
     for k in one:
         assert two[k].shape == one[k].shape, k
         torch.testing.assert_close(two[k], one[k], atol=atol if k in grads else 1e-5, rtol=0, msg=k)
+
+
+# -------------------------------------------------- spatial and pipe meshes
+
+
+SP_ARGV = ["--synthetic", "1", "--epochs", "1", "--image-size", "32", "--layers", "2", "--batch-size", "2",
+           "--clip-len", "2", "--optimizer", "sgd", "--lr", "1", "--device-prefetch", "0", *CPU]
+SEG_ARGV = ["segment", "--synthetic", "1", "--epochs", "1", "--image-size", "64", "--batch-size", "2",
+            "--optimizer", "sgd", "--lr", "1", "--device-prefetch", "0", *CPU]
+INFER_ARGV = ["infer", "--synthetic", "2", "--image-size", "32", "--layers", "2", "--batch-size", "2",
+              "--clip-len", "2", "--int8", *CPU]
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """``video --mesh spatial=2``, ``segment --mesh spatial=2 --attn-impl
+    ring``, ``video --mesh pipe=2``, ``infer --mesh pipe=2 --int8`` and
+    ``segment --mesh spatial=2 --attn-impl xla`` as two gloo ranks (one
+    spawn; dropout and input noise off for the videos), and each one's
+    one-process counterpart."""
+    from tchvp_tpu_torch import config
+    from tchvp_tpu_torch.train import steps as tsteps
+
+    tmp = tmp_path_factory.mktemp("mesh_cli")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    argvs = [["video", *SP_ARGV, "--mesh", "spatial=2", "--attn-impl", "flash", "--checkpoint-dir", str(tmp / "sp")],
+             SEG_ARGV + ["--mesh", "spatial=2", "--attn-impl", "ring", "--checkpoint-dir", str(tmp / "seg_sp")],
+             ["video", *SP_ARGV, "--mesh", "pipe=2", "--attn-impl", "flash", "--checkpoint-dir", str(tmp / "pp")],
+             INFER_ARGV + ["--mesh", "pipe=2", "--checkpoint", str(tmp / "pp" / "step_1")],
+             SEG_ARGV + ["--mesh", "spatial=2", "--attn-impl", "xla", "--checkpoint-dir", str(tmp / "seg_sp_xla")]]
+    try:
+        mp.spawn(torch_dist.run_cli_sequence, nprocs=2, join=True,
+                 args=(2, str(tmp / "rendezvous"), str(tmp), argvs))
+        real = (config.flagship_video_config, tsteps.make_video_train_step, tsteps.make_pipelined_video_train_step)
+        config.flagship_video_config = torch_dist.flagship_without_dropout
+        torch_dist.without_noise(tsteps)
+        try:
+            one = {"video": run(cli.main, ["video", *SP_ARGV, "--attn-impl", "flash",
+                                           "--checkpoint-dir", str(tmp / "one")]),
+                   "segment": run(cli.main, SEG_ARGV + ["--attn-impl", "xla", "--checkpoint-dir", str(tmp / "seg_one")]),
+                   "infer": run(cli.main, INFER_ARGV + ["--checkpoint", str(tmp / "one" / "step_1")])}
+        finally:
+            config.flagship_video_config, tsteps.make_video_train_step, tsteps.make_pipelined_video_train_step = real
+    finally:
+        os.chdir(cwd)
+    ranks = [torch.load(tmp / f"cli_seq_rank{r}.pt", weights_only=False) for r in range(2)]
+    return tmp, ranks, one
+
+
+def _held_to_one(many: dict, one: dict, init: dict) -> None:
+    """A mesh's checkpoint against one process's, SGD lr 1 (its first
+    Nesterov step moves a weight by 1.9 x its gradient): the parameters
+    within 2e-2 of the largest gradient (train-mode BatchNorm rounding), the
+    stats within 1e-5."""
+    grads = {k: (init[k] - one[k]) / 1.9 for k in one if "running" not in k and "num_batches" not in k}
+    atol = 1.9 * 2e-2 * max(g.abs().max().item() for g in grads.values())
+    assert many.keys() == one.keys()
+    for k in one:
+        torch.testing.assert_close(many[k], one[k], atol=atol if k in grads else 1e-5, rtol=0, msg=k)
+
+
+@pytest.mark.parametrize("index,name,markers", [
+    (0, "sp", {"sp_constrain_conv", "sp_halo", "sp_gather", "flash_mha_plain"}),
+    (2, "pp", {"pipeline_shard_map", "pp_constrain", "flash_mha_plain"}),
+], ids=["spatial2", "pipe2"])
+def test_video_spatial_and_pipe_meshes_two_ranks_match_one_process(mesh_runs, index, name, markers):
+    """``video --mesh spatial=2`` and ``--mesh pipe=2`` as two ranks: the
+    markers, and the checkpoint (the pipelined one read whole and merged)
+    against one process's on the same batch."""
+    from tchvp_tpu_torch.parallel import pipeline as ppl
+
+    tmp, ranks, _ = mesh_runs
+    for r in ranks:
+        assert markers <= r["runs"][index]["seen"], sorted(r["runs"][index]["seen"])
+        assert not r["jax_loaded"]
+    one = ckpt.restore_state(str(tmp / "one" / "step_1"))["model"]
+    many = ckpt.restore_state(str(tmp / name / "step_1"))["model"]
+    if name == "pp":
+        assert ppl.is_pipelined_params(many) and ckpt.is_sharded_checkpoint(str(tmp / name / "step_1"))
+        many = ppl.merge_pipelined_params(many)
+    from tchvp_tpu_torch import config
+
+    args = cli._build_parser()[0].parse_args(["video", *SP_ARGV, "--attn-impl", "flash"])
+    real = config.flagship_video_config
+    config.flagship_video_config = torch_dist.flagship_without_dropout
+    try:
+        init = cli._video_model(args, "cpu").state_dict()
+    finally:
+        config.flagship_video_config = real
+    _held_to_one(many, one, init)
+
+
+def test_segment_spatial_ring_two_ranks_match_one_process(mesh_runs):
+    """``segment --mesh spatial=2 --attn-impl ring``: FCT's rows in halves,
+    its attention on the ring over them, dropout drawn for the whole maps;
+    its checkpoint equals one process's with the dense core (no BatchNorm:
+    within 1e-4 of the largest update)."""
+    _segment_held_to_one(mesh_runs, 1, "seg_sp", {"sp_constrain_conv", "sp_halo", "ring_shard_map"})
+
+
+def test_segment_spatial_gathered_two_ranks_match_one_process(mesh_runs):
+    """``segment --mesh spatial=2 --attn-impl xla``: FCT's rows in halves,
+    its attention on the tokens gathered over the axis (every parameter's
+    gradient summed over it); its checkpoint equals one process's."""
+    _segment_held_to_one(mesh_runs, 4, "seg_sp_xla", {"sp_constrain_conv", "sp_halo", "seq_gathered"})
+
+
+def _segment_held_to_one(mesh_runs, index: int, name: str, markers: set) -> None:
+    tmp, ranks, one_text = mesh_runs
+    for r in ranks:
+        assert markers <= r["runs"][index]["seen"], sorted(r["runs"][index]["seen"])
+        assert "Epoch 1: dice loss" in r["runs"][index]["printed"]
+    one = ckpt.restore_state(str(tmp / "seg_one" / "step_1"))["model"]
+    many = ckpt.restore_state(str(tmp / name / "step_1"))["model"]
+    init = cli._fct_model("cpu").state_dict()
+    scale = max((init[k] - one[k]).abs().max().item() for k in one)
+    for k in one:
+        torch.testing.assert_close(many[k], one[k], atol=1e-4 * scale, rtol=0, msg=k)
+    loss = lambda t: re.search(r"dice loss ([0-9.]+)", t).group(1)  # noqa: E731
+    assert loss(ranks[0]["runs"][index]["printed"]) == loss(one_text["segment"])
+
+
+def test_infer_pipe_int8_two_ranks_match_one_process(mesh_runs):
+    """``infer --mesh pipe=2 --int8`` (conv-only int8; the temporal stack
+    pipelined in bf16) prints one process's PSNR on its own checkpoint."""
+    _, ranks, one = mesh_runs
+    psnr = lambda t: re.search(r"mean PSNR ([0-9.]+) dB", t).group(1)  # noqa: E731
+    assert "int8: 35 layers quantized" in ranks[0]["runs"][3]["printed"]
+    assert "pipeline_shard_map" in ranks[0]["runs"][3]["seen"]
+    # The two runs' checkpoints differ (two ranks against one process, at
+    # the step's rounding), so the PSNRs agree to a hundredth of a dB.
+    assert abs(float(psnr(ranks[0]["runs"][3]["printed"])) - float(psnr(one["infer"]))) <= 0.02

@@ -130,14 +130,10 @@ def test_config_fields_and_defaults_match(name):
 @pytest.mark.parametrize("kwargs", [dict(attn_impl="ring"), dict(seq_axis="seq"),
                                     dict(sp_axis="spatial")])
 def test_unported_axes_raise_naming_item_11(kwargs):
-    """``sp_axis`` still raises naming item 11 (11e). Ring attention and
-    ``seq_axis`` are ported (11a): ``attn_impl="ring"`` without ``seq_axis``
-    raises JAX's ValueError at the call; ``seq_axis`` without a mesh
-    carrying it is the forward without it."""
-    if "sp_axis" in kwargs:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tfct.FCT(tcfg.FCTConfig(filters=FILTERS, **kwargs), device="cpu")
-        return
+    """Ring attention, ``seq_axis`` (11a) and ``sp_axis`` (11e) are ported:
+    ``attn_impl="ring"`` without ``seq_axis`` raises JAX's ValueError at the
+    call; ``seq_axis`` or ``sp_axis`` without a mesh carrying it is the
+    forward without it (tests/test_torch_spatial.py runs it over one)."""
     model = tfct.FCT(tcfg.FCTConfig(filters=FILTERS, **kwargs), device="cpu").eval()
     x = torch.from_numpy(np.random.default_rng(0).uniform(size=(1, 32, 32, 3)).astype(np.float32))
     if "attn_impl" in kwargs:

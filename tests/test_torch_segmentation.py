@@ -370,7 +370,9 @@ def test_flow_restore_and_resume_match_jax(flow_runs):
 
 
 def test_flow_refuses_meshes_naming_item_11(fct_params):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """``sp_axis`` is ported (item 11e): the flow takes it where the model's
+    config carries the same axis, and refuses one its model lacks."""
+    with pytest.raises(ValueError, match="must match the model config's sp_axis=None"):
         SegmentationFlow(_port_model(fct_params), sp_axis="spatial")
 
 

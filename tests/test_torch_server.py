@@ -17,8 +17,8 @@ the JAX package's.
 * The CLI: ``export`` then ``serve`` as its own process, ``infer --url``
   and ``infer --exported`` against it (the PSNR of the live model);
   ``stream --url``; ``infer --int8``, ``infer --int8 --int8-dense`` and
-  ``eval --int8``; ``serve --mesh pipe=2`` exits naming item 11; ``serve
-  --data-parallel`` is ported (item 11c), and ``serve_artifact(data_parallel=
+  ``eval --int8``; ``serve --mesh pipe=2`` as two ranks against ``infer``;
+  ``serve --data-parallel`` is ported (item 11c), and ``serve_artifact(data_parallel=
   True)`` serves one replica on the CPU.
 """
 
@@ -324,14 +324,16 @@ def test_cli_int8(tmp_path, monkeypatch, argv, pattern):
 @pytest.mark.parametrize("argv", [["serve", "--exported", "m.tchvp", "--data-parallel"],
                                   ["serve", "--exported", "m.tchvp", "--mesh", "pipe=2"]])
 def test_serve_parallel_modes_name_item_11(argv):
-    """``--mesh pipe=N`` (live pipelined serving) is item 11f; ``--data-parallel``
-    is ported (item 11c) and exits only for the missing artifact."""
+    """Both modes are ported: ``--data-parallel`` (item 11c) exits only for
+    the missing artifact; ``--mesh pipe=N`` (live pipelined serving, item
+    11f) refuses an artifact, as JAX's does."""
     with pytest.raises(SystemExit) as err:
         cli.main(argv + CPU)
+    assert "not ported" not in str(err.value.code)
     if "--data-parallel" in argv:
-        assert "no such artifact" in str(err.value.code) and "not ported" not in str(err.value.code)
+        assert "no such artifact" in str(err.value.code)
     else:
-        assert "item 11" in str(err.value.code) and "not ported yet" in str(err.value.code)
+        assert "--exported and --mesh pipe=N don't compose" in str(err.value.code)
 
 
 def test_serve_artifact_data_parallel_names_item_11(artifact_path):
@@ -345,3 +347,58 @@ def test_serve_artifact_data_parallel_names_item_11(artifact_path):
         assert out.shape == (1, CLIP_LEN, SIZE, SIZE, 3) and np.isfinite(out).all()
     finally:
         srv.shutdown()
+
+
+def test_serve_mesh_pipe_two_ranks_matches_infer(tmp_path):
+    """``serve --mesh pipe=2`` as two gloo ranks (rank 0 serves HTTP, rank 1
+    follows each bucket's batch): /health reports the live pipelined model
+    and its mesh, a request's reconstruction equals the one-process bf16
+    model's on the same checkpoint (``infer``'s compute), and SIGINT to rank
+    0 stops both ranks."""
+    import signal
+
+    import torch.multiprocessing as mp
+
+    import torch_dist
+    from tchvp_tpu_torch.data.pipeline import preprocess_clip
+    from tchvp_tpu_torch.train import checkpoint as tckpt
+
+    model = tvideo.VideoHybridNet(tcfg.flagship_video_config(SIZE, num_layers=2), device="cpu",
+                                  generator=torch.Generator().manual_seed(1))
+    tckpt.save_state(str(tmp_path / "ckpt"), 1, model)
+    port = _free_port()
+    argv = ["serve", "--mesh", "pipe=2", "--checkpoint", str(tmp_path / "ckpt" / "step_1"), "--port", str(port),
+            "--buckets", "1,2", "--image-size", str(SIZE), "--layers", "2", "--clip-len", str(CLIP_LEN), *CPU]
+    ctx = mp.start_processes(torch_dist.run_cli, args=(2, str(tmp_path / "rendezvous"), str(tmp_path), argv),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        url = f"http://127.0.0.1:{port}"
+        deadline = time.monotonic() + 240
+        while True:
+            try:
+                health = json.loads(urllib.request.urlopen(f"{url}/health", timeout=5).read())
+                break
+            except OSError:
+                assert all(p.is_alive() for p in ctx.processes) and time.monotonic() < deadline
+                time.sleep(0.2)
+        out = post_npy(f"{url}/infer", _batch(3, seed=4))
+    finally:
+        os.kill(ctx.processes[0].pid, signal.SIGINT)
+        stop = time.monotonic() + 120
+        while not ctx.join(timeout=5):
+            if time.monotonic() > stop:
+                for p in ctx.processes:
+                    p.kill()
+                pytest.fail("the ranks did not stop after rank 0's SIGINT")
+    assert health["meta"]["kind"] == "live_pipelined" and health["meta"]["mesh"] == {"pipe": 2}
+    assert health["platforms"] == ["cpu"]
+    one = cli._serving_model(cli._build_parser()[0].parse_args(argv), SIZE, torch.device("cpu"))
+    with torch.inference_mode():
+        want = one(preprocess_clip(torch.from_numpy(_batch(3, seed=4)), SIZE, dtype=torch.bfloat16))[1].float()
+    assert out.shape == (3, CLIP_LEN, SIZE, SIZE, 3)
+    # bf16: the pipeline runs the temporal stack on microbatches (1 or 2
+    # clips a bucket), the model on 3 at once.
+    np.testing.assert_allclose(out, want.numpy(), rtol=0, atol=2e-2)
+    for r in range(2):
+        res = torch.load(tmp_path / f"cli_rank{r}.pt", weights_only=False)
+        assert "pipeline_shard_map" in res["seen"] and not res["jax_loaded"]

@@ -567,12 +567,15 @@ def run_data(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict)
 
 
 def without_noise(steps_module):
-    """``steps_module.make_video_train_step`` with no input noise by default:
-    a data rank draws its noise from a generator of its own, so only without
-    noise does a data-parallel step equal one process's."""
+    """``steps_module.make_video_train_step`` (and its pipelined form) with
+    no input noise by default: a data rank draws its noise from a generator
+    of its own, so only without noise does a data-parallel step equal one
+    process's."""
     import functools
 
     steps_module.make_video_train_step = functools.partial(steps_module.make_video_train_step, noise_std=0.0)
+    steps_module.make_pipelined_video_train_step = functools.partial(
+        steps_module.make_pipelined_video_train_step, noise_std=0.0)
 
 
 def run_cli_quiet(rank: int, world: int, rendezvous: str, out_dir: str, argv: list) -> None:
@@ -978,3 +981,436 @@ def run_tp(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
+
+
+# ----------------------------------------------------- spatial partitioning
+
+
+def _sp_autoencoder(inp) -> dict:
+    """Autoencoder32K(sp_axis="spatial") eval on this rank's block of the
+    data axis (the whole images without one): the latent and
+    reconstruction, the markers, and the encoder's counts of halo
+    exchanges, slices and row gathers."""
+    from tchvp_tpu_torch.config import ResNetAEConfig
+    from tchvp_tpu_torch.models.resnet_ae import Autoencoder32K
+    from tchvp_tpu_torch.parallel import spatial
+
+    model = Autoencoder32K(ResNetAEConfig(token_latent=False, sp_axis="spatial"), device="cpu").eval()
+    model.load_state_dict(inp["state"])
+    x = parallel.shard_batch(torch.from_numpy(inp["x"]), parallel.ambient_mesh())
+    with dispatch_trace.capture() as seen, torch.no_grad():
+        latent, recon = model(x)
+        spatial.reset_counts()
+        enc = model.encoder(x.permute(0, 3, 1, 2))
+        counts = dict(spatial.COUNTS)
+    from tchvp_tpu_torch.parallel import tp
+
+    odd = torch.zeros(1, 2, 3, 4)
+    rows = torch.arange(8.0).reshape(1, 1, 8, 1)
+    got = {"latent": latent, "recon": recon, "seen": seen, "counts": counts, "enc_rows": enc.shape[2],
+           "placed": parallel.shard_batch((rows, rows[0]), parallel.ambient_mesh(), sp_axis="spatial", sp_dim=2),
+           "odd_whole": tp.conv_constrain(odd, sp_axis="spatial") is odd,
+           "rows": tp.conv_constrain(torch.arange(4.0).reshape(1, 1, 4, 1), sp_axis="spatial").flatten().tolist()}
+    # 36 rows: a rank's 18 do not halve at the encoder's two strides, so the
+    # stack stays whole on every rank.
+    spatial.reset_counts()
+    with dispatch_trace.capture() as whole_seen, torch.no_grad():
+        got["whole"] = model(x[:, :36])
+    got["whole_seen"], got["whole_counts"] = whole_seen, dict(spatial.COUNTS)
+    try:
+        spatial.enter(torch.zeros(1, 1, 6, 4), "spatial", factor=4)
+    except ValueError as e:
+        got["gate_error"] = str(e)
+    return got
+
+
+def _sp_autoencoder_f64(inp) -> dict:
+    """A train-mode forward and backward of Autoencoder32K(sp_axis) in
+    float64 (dropout on, drawn from a generator seeded alike on every rank):
+    the outputs, the gradients summed over the axis, the moved BatchNorm
+    stats."""
+    from tchvp_tpu_torch.config import ResNetAEConfig
+    from tchvp_tpu_torch.models.resnet_ae import Autoencoder32K
+    from tchvp_tpu_torch.parallel import spatial
+
+    got = {}
+    for key, rows in (("blocks", 64), ("whole", 36)):  # 36: the stack stays whole
+        model = Autoencoder32K(ResNetAEConfig(token_latent=False, sp_axis="spatial"), device="cpu").double().train()
+        model.load_state_dict(inp["state64"])
+        x = torch.from_numpy(inp["x"][:, :rows]).double()
+        latent, recon = model(x, generator=torch.Generator().manual_seed(7))
+        (recon.square().mean() + latent.mean()).backward()
+        spatial.sum_gradients(model)
+        got[key] = {"latent": latent.detach(), "recon": recon.detach(),
+                    "grads": {k: p.grad.clone() for k, p in model.named_parameters()},
+                    "buffers": {k: b.clone() for k, b in model.named_buffers()}}
+    return got
+
+
+def _sp_fct(inp) -> dict:
+    """FCT(sp_axis="spatial") eval, the attention gathered ("xla") and on
+    the ring over the axis, on this rank's block of the data axis."""
+    import dataclasses
+
+    from tchvp_tpu_torch.models.fct import FCT
+    from tchvp_tpu_torch.parallel import spatial
+
+    mesh = parallel.ambient_mesh()
+    x = parallel.shard_batch(torch.from_numpy(inp["x"]), mesh)
+    got = {}
+    for impl, seq in (("xla", None), ("ring", "spatial")):
+        model = FCT(dataclasses.replace(inp["config"], attn_impl=impl, seq_axis=seq, sp_axis="spatial"),
+                    device="cpu").eval()
+        model.load_state_dict(inp["state"])
+        with dispatch_trace.capture() as seen, torch.no_grad():
+            got[impl] = {"out": model(x), "seen": seen}
+        if "data" in mesh.mesh_dim_names:
+            continue
+        # 224 rows (FCT's published size): a rank's 112 do not halve 5
+        # times, so the network stays whole on every rank; a train-mode
+        # backward, the gradients summed over the axis.
+        model.train()
+        x224 = torch.from_numpy(inp["x224"]).requires_grad_()
+        with dispatch_trace.capture() as seen:
+            out = model(x224, generator=torch.Generator().manual_seed(3))
+        out.square().mean().backward()
+        spatial.sum_gradients(model)
+        got[f"{impl}_224"] = {"out": out.detach(), "x_grad": x224.grad, "seen": seen,
+                              "grads": {k: p.grad.clone() for k, p in model.named_parameters()}}
+    return got
+
+
+def _tp_qat_convs(inp) -> dict:
+    """A two-conv stack with tensor-parallel convs under QAT's fake quant:
+    the output and the gradients summed over the model axis."""
+    from tchvp_tpu_torch.ops.blocks import Conv2d, set_tp_axis
+    from tchvp_tpu_torch.parallel import tp
+    from tchvp_tpu_torch.train.qat import qat_fake_quant
+
+    stack = torch.nn.Sequential(Conv2d(3, 8, 3, padding=1), torch.nn.ReLU(), Conv2d(8, 8, 3, padding=1, bias=True))
+    stack.load_state_dict(inp["state"])
+    set_tp_axis(stack, "model")
+    x = torch.from_numpy(inp["x"]).requires_grad_()
+    with dispatch_trace.capture() as seen, qat_fake_quant():
+        out = stack(x)
+    tp.to_replicated(out, "model", 8).square().sum().backward()
+    tp.sum_gradients(stack)
+    return {"out": tp.to_replicated(out.detach(), "model", 8), "seen": seen, "x_grad": x.grad,
+            "grads": {k: p.grad.clone() for k, p in stack.named_parameters()}}
+
+
+def _qat_tp_flow(inp, out: Path) -> dict:
+    """VideoFlow(qat=True) under the ambient model mesh: one step, its
+    markers and loss line."""
+    from tchvp_tpu_torch.config import TrainConfig
+    from tchvp_tpu_torch.train.loops import VideoFlow
+
+    model = VideoHybridNet(inp["config"], device="cpu")
+    model.load_state_dict(inp["state"], strict=True)
+    tc = TrainConfig(model_name="video", loss="mse", lr=1e-4, checkpoint_dir=str(out / "qat_tp"),
+                     log_dir=str(out / "qat_tp_runs"), sample_dir=str(out / "qat_tp_samples"))
+    flow = VideoFlow(model, cfg=tc, image_size=inp["size"], mesh=parallel.ambient_mesh(), qat=True)
+    with dispatch_trace.capture() as seen, contextlib.redirect_stdout(io.StringIO()) as printed:
+        flow.train([inp["batch"]], epochs=1, clip_len=inp["batch"].shape[1], save_every=100)
+    return {"seen": seen, "printed": printed.getvalue()}
+
+
+def run_spatial(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -> None:
+    """One of 4 ranks of ``tests/test_torch_spatial.py``: spatial=2 on a
+    ("rep", "spatial") mesh of (2, 2), data=2 x spatial=2, tensor
+    parallelism beside spatial=2 and beside seq=2, and under QAT."""
+    torch.set_num_threads(1)
+    out = Path(out_dir)
+    parallel.init_distributed(f"file://{rendezvous}", world, rank, timeout_s=180)
+    results = {}
+    try:
+        with parallel.activate_mesh(parallel.make_mesh(("rep", "spatial"), (2, 2))):
+            results["ae"] = _sp_autoencoder(inputs["ae"])
+            results["ae64"] = _sp_autoencoder_f64(inputs["ae"])
+            results["fct"] = _sp_fct(inputs["fct"])
+            results["spatial2"] = _dp_video(inputs["spatial2"])
+        with parallel.activate_mesh(parallel.make_mesh(("data", "spatial"), (2, 2))):
+            results["data_ae"] = _sp_autoencoder(inputs["ae"])
+            results["data_fct"] = _sp_fct(inputs["fct"])
+            results["data_spatial"] = _dp_video(inputs["data_spatial"])
+        with parallel.activate_mesh(parallel.make_mesh(("spatial", "model"), (2, 2))):
+            results["spatial_model"] = _dp_video(inputs["spatial_model"])
+        with parallel.activate_mesh(parallel.make_mesh(("seq", "model"), (2, 2))):
+            results["seq_model"] = _dp_video(inputs["seq_model"])
+        with parallel.activate_mesh(parallel.make_mesh(("rep", "model"), (2, 2))):
+            results["qat_convs"] = _tp_qat_convs(inputs["qat_convs"])
+            results["qat_flow"] = _qat_tp_flow(inputs["spatial_model"], out)
+        results["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))
+        torch.save(results, out / f"spatial_rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+# ------------------------------------------------------------------ pipeline
+
+
+def _pp_apply(inp) -> dict:
+    """pipeline_apply of a tanh layer a stage (the whole stack given, each
+    rank reading its row) and its gradients; the extras of a stage that
+    reports [1, sum(x)]; the refusals."""
+    from tchvp_tpu_torch.parallel import pipeline as ppl
+
+    mesh = parallel.ambient_mesh()
+    w = torch.from_numpy(inp["w"]).requires_grad_()
+    x = parallel.shard_batch(torch.from_numpy(inp["x"]), mesh).clone().requires_grad_()
+    batch_axis = "data" if "data" in mesh.mesh_dim_names else None
+    fn = lambda p, h: torch.tanh(h @ p["w"])  # noqa: E731
+    with dispatch_trace.capture() as seen:
+        y = ppl.pipeline_apply(fn, {"w": w}, x, microbatches=inp["m"], batch_axis=batch_axis)
+    (y ** 2).sum().backward()
+    ext_fn = lambda p, h: (torch.tanh(h @ p["w"]), torch.stack([torch.ones(()), h.sum()]))  # noqa: E731
+    y2, ext = ppl.pipeline_apply(ext_fn, {"w": w.detach()}, x.detach(), microbatches=inp["m"],
+                                 batch_axis=batch_axis, extras=2)
+    got = {"y": y.detach(), "x_grad": x.grad, "w_grad": w.grad, "ext": ext, "y2": y2, "seen": seen}
+    for name, call in (("stages", lambda: ppl.pipeline_apply(fn, {"w": torch.cat([w, w]).detach()}, x)),
+                       ("batch", lambda: ppl.pipeline_apply(fn, {"w": w.detach()}, x[:3], microbatches=2))):
+        try:
+            call()
+        except ValueError as e:
+            got[f"{name}_error"] = str(e)
+    return got
+
+
+def _pp_state(inp, fsdp_axis=None):
+    from tchvp_tpu_torch.parallel import pipeline as ppl
+
+    model = VideoHybridNet(inp["config"], device="cpu")
+    model.load_state_dict(inp["state"], strict=True)
+    return ppl.create_pipelined_train_state(model, tstate.make_optimizer(1.0, optimizer="sgd"), rng=3,
+                                            fsdp_axis=fsdp_axis)
+
+
+def _whole_state(state) -> dict:
+    """The pipelined state's model as one ``VideoHybridNet`` state_dict:
+    every stage's rows gathered over the pipe axis, FSDP's slices made
+    whole."""
+    from tchvp_tpu_torch.parallel import fsdp
+    from tchvp_tpu_torch.parallel import pipeline as ppl
+
+    mesh = parallel.ambient_mesh()
+    group = parallel.axis_group(mesh, "pipe")
+    with fsdp.gathered(state.model):
+        local = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+    whole = {k: (collectives.all_gather_cat(v, group, 0) if k.startswith("stages.") else v) for k, v in local.items()}
+    return ppl.merge_pipelined_params(whole)
+
+
+def _pp_video(inp, fsdp_axis=None, accum: int = 1, remat: bool = False) -> dict:
+    """One pipelined train step (SGD lr 1, MSE, no noise) on this rank's
+    block of the data axis: the metrics, the whole state afterwards, the
+    markers, and whether the CNN's parameters and stats agree over the
+    whole mesh."""
+    mesh = parallel.ambient_mesh()
+    batch_axis = "data" if "data" in mesh.mesh_dim_names else None
+    state = _pp_state(inp, fsdp_axis)
+    step = tsteps.make_pipelined_video_train_step(inp["size"], batch_axis=batch_axis, loss="mse", noise_std=0.0,
+                                                  fsdp_axis=fsdp_axis, accum_steps=accum, remat=remat)
+    data = local_rows(torch.from_numpy(inp["batch"]), mesh, microbatches=accum) if batch_axis \
+        else torch.from_numpy(inp["batch"])
+    with dispatch_trace.capture() as seen:
+        state, metrics = step(state, data)
+    from tchvp_tpu_torch.parallel import fsdp
+
+    with fsdp.gathered(state.model):
+        shared = [p for k, p in state.model.named_parameters() if k.startswith("rest.")]
+        shared += [b for k, b in state.model.named_buffers() if "running" in k]
+        equal = all(collectives.equal_across(shared, torch.distributed.group.WORLD))
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "seen": seen, "state": _whole_state(state),
+            "equal": equal, "stage_shape": tuple(state.model.stages.norm.weight.shape)}
+
+
+def _pp_dropout(inp) -> dict:
+    """The pipelined model's train-mode forward with the CNN's dropout on
+    (and the temporal's off), against the monolithic model's on the same
+    generator state; then with the temporal dropout on, the tokens of one
+    and the same batch on each data rank, whose stage draws must differ
+    across the data axis."""
+    import dataclasses
+
+    from tchvp_tpu_torch.parallel import pipeline as ppl
+
+    cfg = inp["config"]
+    with_cnn = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, dropout_rate=0.3))
+    clip = torch.from_numpy(inp["clip"])
+    mono = VideoHybridNet(with_cnn, device="cpu").train()
+    mono.load_state_dict(inp["state"])
+    want = mono(clip, generator=torch.Generator().manual_seed(11))[1]
+    pp = VideoHybridNet(with_cnn, device="cpu")
+    pp.load_state_dict(inp["state"])
+    net = ppl.PipelinedVideoNet(pp).train()
+    got = net(clip, generator=torch.Generator().manual_seed(11))[1]
+    with_tmp = dataclasses.replace(cfg, temporal=dataclasses.replace(cfg.temporal, dropout_rate=0.5))
+    pp2 = VideoHybridNet(with_tmp, device="cpu")
+    pp2.load_state_dict(inp["state"])
+    net2 = ppl.PipelinedVideoNet(pp2).train()
+    data_index = parallel.ambient_mesh().get_local_rank("data")
+    gen = torch.Generator().manual_seed(100 + data_index)  # a data rank's fork, as the step makes it
+    tokens = net2(clip, generator=gen, batch_axis="data")[0]
+    return {"cnn": (got.detach(), want.detach()), "tokens": tokens.detach()}
+
+
+def _pp_flow(inp, out: Path) -> dict:
+    """VideoFlow(pipe_axis="pipe") on the ambient mesh: one epoch saved, a
+    resume in the same layout (bit-equal to the saved state), and a resume
+    of a monolithic checkpoint written by rank 0 alone."""
+    from tchvp_tpu_torch.config import TrainConfig
+    from tchvp_tpu_torch.train import checkpoint as tckpt
+    from tchvp_tpu_torch.train.loops import VideoFlow
+
+    def flow(name):
+        model = VideoHybridNet(inp["config"], device="cpu")
+        model.load_state_dict(inp["state"], strict=True)
+        tc = TrainConfig(model_name="video", loss="mse", lr=1e-3, checkpoint_dir=str(out / name),
+                         log_dir=str(out / "pp_runs"), sample_dir=str(out / "pp_samples"))
+        return VideoFlow(model, cfg=tc, image_size=inp["size"], mesh=parallel.ambient_mesh(), pipe_axis="pipe")
+
+    got = {}
+    first = flow("pp_flow")
+    with dispatch_trace.capture() as seen, contextlib.redirect_stdout(io.StringIO()) as printed:
+        first.train([inp["batch"]], epochs=1, clip_len=inp["batch"].shape[1], save_every=1)
+    saved = _local_leaves(first.state)
+    again = flow("pp_flow")
+    with contextlib.redirect_stdout(io.StringIO()):
+        got["start"] = again.resume(inp["batch"].shape[1])
+    got["same_layout"] = _same(saved, _local_leaves(again.state))
+    got["seen"], got["printed"] = seen, printed.getvalue()
+    got["sharded_ckpt"] = tckpt.is_sharded_checkpoint(str(out / "pp_flow" / "step_1"))
+    # A monolithic checkpoint (one process's) into the pipelined layout.
+    if torch.distributed.get_rank() == 0:
+        model = VideoHybridNet(inp["config"], device="cpu")
+        model.load_state_dict(inp["state"], strict=True)
+        state = tstate.create_train_state(model, tstate.make_optimizer(1e-3), rng=3)
+        tsteps.make_video_train_step(inp["size"], loss="mse")(state, torch.from_numpy(inp["batch"]))
+        tckpt.save_state(str(out / "mono"), 1, state, extra={"train_epoch": 1})
+        got["mono_state"] = {k: v.clone() for k, v in model.state_dict().items()}
+        got["mono_moments"] = {n: {k: v.clone() for k, v in st.items()} for n, st in
+                               tckpt._opt_payload(state.tx)["moments"].items()}
+    collectives.barrier(torch.distributed.group.WORLD)
+    into = flow("mono")
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        got["mono_start"] = into.resume(inp["batch"].shape[1])
+    got["mono_printed"] = printed.getvalue()
+    got["mono_into_pp"] = _whole_state(into.state)
+    stage = into.state.model.stages
+    got["mono_into_pp_moment"] = into.state.tx.core.state[stage.ffn1.weight]["exp_avg"].clone()
+    return got
+
+
+def _one_process_accum(inp, accum: int) -> dict:
+    """The unpipelined step with ``accum`` microbatches, outside any mesh."""
+    model = VideoHybridNet(inp["config"], device="cpu")
+    model.load_state_dict(inp["state"], strict=True)
+    state = tstate.create_train_state(model, tstate.make_optimizer(1.0, optimizer="sgd"), rng=3)
+    tsteps.make_video_train_step(inp["size"], loss="mse", noise_std=0.0, accum_steps=accum)(
+        state, torch.from_numpy(inp["batch"]))
+    return {"state": {k: v.clone() for k, v in model.state_dict().items()}}
+
+
+def _pp_composed(inp) -> dict:
+    """data x pipe, the rest ZeRO-sharded, accum_steps=2 and a routed MoE
+    stack with the aux loss (JAX's full composition): two steps' metrics,
+    the markers, the stages' and the largest rest parameter's placements."""
+    from tchvp_tpu_torch.parallel import fsdp
+
+    model = VideoHybridNet(inp["moe_config"], device="cpu")
+    from tchvp_tpu_torch.parallel import pipeline as ppl
+
+    state = ppl.create_pipelined_train_state(model, tstate.make_optimizer(1e-3, grad_clip_norm=1.0), rng=0,
+                                             fsdp_axis="data")
+    step = tsteps.make_pipelined_video_train_step(inp["size"], batch_axis="data", loss="mse", fsdp_axis="data",
+                                                  accum_steps=2, moe_aux_weight=0.01)
+    data = local_rows(torch.from_numpy(inp["moe_batch"]), parallel.ambient_mesh(), microbatches=2)
+    with dispatch_trace.capture() as seen:
+        state, m1 = step(state, data)
+    state, m2 = step(state, data)
+    rest = max((p for k, p in state.model.named_parameters() if k.startswith("rest.")), key=lambda p: p.numel())
+    stage = state.model.stages.norm.weight
+    return {"seen": seen, "metrics": [{k: float(v) for k, v in m.items()} for m in (m1, m2)],
+            "rest_placed": fsdp.placement(rest) is not None and fsdp.placement(rest).axis == "data",
+            "stage_placed": fsdp.placement(stage).axis == "pipe"}
+
+
+def run_pipeline(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -> None:
+    """One of 4 ranks of ``tests/test_torch_pipeline.py``: pipe=2 on a
+    ("rep", "pipe") mesh of (2, 2), then data=2 x pipe=2."""
+    torch.set_num_threads(1)
+    out = Path(out_dir)
+    parallel.init_distributed(f"file://{rendezvous}", world, rank, timeout_s=180)
+    results = {}
+    try:
+        with parallel.activate_mesh(parallel.make_mesh(("rep", "pipe"), (2, 2))):
+            results["apply"] = _pp_apply(inputs["apply"])
+            results["mono"] = _one_process(inputs["video"])
+            results["mono_accum2"] = _one_process_accum(inputs["video"], 2)
+            results["pipe2"] = _pp_video(inputs["video"])
+            results["accum2"] = _pp_video(inputs["accum"], accum=2)
+            results["remat"] = _pp_video(inputs["video"], remat=True)
+            results["flow"] = _pp_flow(inputs["video"], out)
+        with parallel.activate_mesh(parallel.make_mesh(("data", "pipe"), (2, 2))):
+            results["data_apply"] = _pp_apply(inputs["apply"])
+            results["data_mono"] = _dp_video(inputs["video"])
+            results["data_pipe"] = _pp_video(inputs["video"])
+            results["data_pipe_fsdp"] = _pp_video(inputs["video"], fsdp_axis="data")
+            from tchvp_tpu_torch.parallel import pipeline as ppl
+
+            state = _pp_state(inputs["video"])
+            results["specs"] = ppl.pipeline_state_shardings(state, parallel.ambient_mesh(), "pipe", "data")
+            results["shapes"] = {k: tuple(v.shape) for k, v in state.model.state_dict().items()}
+            results["dropout"] = _pp_dropout(inputs["video"])
+            results["composed"] = _pp_composed(inputs["composed"])
+        results["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))
+        torch.save(results, out / f"pipe_rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_cli_sequence(rank: int, world: int, rendezvous: str, out_dir: str, argvs: list) -> None:
+    """:func:`run_cli` of several commands in turn, each over a rendezvous
+    of its own (the CLI leaves its process group at its end); saves each
+    one's markers and printed lines to ``<out_dir>/cli_seq_rank<r>.pt``."""
+    from tchvp_tpu_torch import cli, config
+
+    torch.set_num_threads(1)
+    config.flagship_video_config = flagship_without_dropout
+    without_noise(tsteps)
+    results = []
+    for j, argv in enumerate(argvs):
+        with dispatch_trace.capture() as seen, contextlib.redirect_stdout(io.StringIO()) as printed:
+            cli.main(list(argv) + ["--coordinator", f"file://{rendezvous}_{j}", "--num-processes", str(world),
+                                   "--process-id", str(rank)])
+        results.append({"seen": seen, "printed": printed.getvalue()})
+    torch.save({"runs": results,
+                "jax_loaded": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))},
+               Path(out_dir) / f"cli_seq_rank{rank}.pt")
+
+
+def run_groups(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -> None:
+    """One of 8 ranks of a ("data", "spatial", "model") mesh of (2, 2, 2):
+    the group over two of the three axes (a flattened submesh), and a
+    train-mode BatchNorm on this rank's block of the batch, the rows and the
+    channels."""
+    from tchvp_tpu_torch.ops.blocks import BatchNorm
+
+    torch.set_num_threads(1)
+    parallel.init_distributed(f"file://{rendezvous}", world, rank, timeout_s=180)
+    try:
+        mesh = parallel.make_mesh(("data", "spatial", "model"), (2, 2, 2))
+        with parallel.activate_mesh(mesh):
+            group = parallel.group_over(("data", "spatial"))
+            members = collectives.all_gather_cat(torch.tensor([float(rank)]), group).tolist()
+            bn = BatchNorm(4).train()
+            bn.load_state_dict(inputs["bn"])
+            bn.sp_axis, bn.tp_axis = "spatial", "model"
+            d, s, m = (mesh.get_local_rank(a) for a in ("data", "spatial", "model"))
+            x = torch.from_numpy(inputs["x"])[d * 2:(d + 1) * 2, m * 2:(m + 1) * 2, s * 4:(s + 1) * 4]
+            out = bn(x)
+        torch.save({"members": members, "out": out.detach(), "index": (d, s, m),
+                    "stats": (bn.running_mean.clone(), bn.running_var.clone())},
+                   Path(out_dir) / f"groups_rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
