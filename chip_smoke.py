@@ -432,6 +432,22 @@ Phases, one or more lines each:
     launches, step ms and peak memory a
     rank (not scaling numbers); its seconds as phase 23's (``[phase 24]``,
     "24 (in 16)");
+25. streaming over a data mesh and the sharding planner (item 11g), inside
+    phase 16's spawn, after 23 and 24: ``stream --data-parallel --synthetic
+    2 --batch-size 2 --clip-len 16`` at 1080p and one temporal layer as two
+    ranks sharing the card (bf16, "xla" attention: no kernel launch; each
+    rank prints the global 32 frames); ``make_streamer(mesh=)`` over data=2
+    at config 4's operating point, fp32, TF32 off, on a B 2 16-frame 720p
+    clip given whole to each rank (one process's fp32 ``stream_video`` of B
+    2 at 1080p does not fit the card), the ranks' blocks gathered to rank
+    0 and held to one process's ``stream_video`` (1e-5 x max|ref|); then in
+    this process ``shards --mesh data=2 --fsdp`` and ``--mesh pipe=2
+    --layers 2`` on 23's and 24's cell (SGD) against what rank 0 of 23's
+    resumed FSDP run and of 24's resumed pipelined flow hold after a step:
+    params, opt_state and batch_stats to the byte, the whole state their
+    sum plus the two generators' states; the card's total_memory beside
+    ``--hbm-gb``'s default. Its seconds as phase 23's (``[phase 25]``,
+    "25 (in 16)");
 14. kernel times: each kernel at its main-path shape beside its plain
     version, F.scaled_dot_product_attention (a yardstick, never on the
     port's path; with the boolean band as attn_mask for the banded
@@ -537,7 +553,13 @@ from tchvp_tpu_torch.models.combined import Image2Image2Mask
 from tchvp_tpu_torch.models.fct import FCT
 from tchvp_tpu_torch.models.frame_ae import FrameAE
 from tchvp_tpu_torch.models.resnet_ae import Autoencoder4K, Autoencoder32K, Decoder32K, tokens_to_latent
-from tchvp_tpu_torch.models.streaming import StreamingConfig, microbatched_infer, stream_clip, stream_video
+from tchvp_tpu_torch.models.streaming import (
+    StreamingConfig,
+    make_streamer,
+    microbatched_infer,
+    stream_clip,
+    stream_video,
+)
 from tchvp_tpu_torch.models.unet import UNet
 from tchvp_tpu_torch.models.video import VideoHybridNet
 from tchvp_tpu_torch.ops import blocks as blocks_module
@@ -546,8 +568,9 @@ from tchvp_tpu_torch.ops.attention import _merge_heads, _split_heads
 from tchvp_tpu_torch.ops.blocks import Dense, conv_hook, init_flax_default
 from tchvp_tpu_torch.ops.conv_attention import WideFocus
 from tchvp_tpu_torch.ops.sobel import sobel_edges
-from tchvp_tpu_torch.parallel import collectives
+from tchvp_tpu_torch.parallel import collectives, fsdp
 from tchvp_tpu_torch.parallel import pipeline as ppl
+from tchvp_tpu_torch.parallel.plan import CARD_MEMORY_GIB
 from tchvp_tpu_torch.train import checkpoint as ckpt
 from tchvp_tpu_torch.train.loops import SegmentationFlow, TransferFlow, VideoFlow
 from tchvp_tpu_torch.train.state import create_train_state, make_optimizer
@@ -2941,8 +2964,37 @@ def fsdp_resumed(rank: int, world: int, init_method: str, tmp: str) -> None:
     while not dst.exists():
         check(time.monotonic() < deadline, f"23 fsdp_resume rank {rank}: no copy of {src} after 120 s")
         time.sleep(0.05)
-    cli.main(FSDP_ARGV + ["--epochs", "2", "--resume", "--checkpoint-dir", str(dst), "--coordinator", init_method,
-                          "--num-processes", str(world), "--process-id", str(rank)])
+    held = {}
+    real = VideoFlow.train
+
+    def train(self, *a, **k):  # what the rank holds once its step is taken, for phase 25
+        out = real(self, *a, **k)
+        held.update(state_bytes(self.state))
+        return out
+
+    VideoFlow.train = train
+    try:
+        cli.main(FSDP_ARGV + ["--epochs", "2", "--resume", "--checkpoint-dir", str(dst), "--coordinator",
+                              init_method, "--num-processes", str(world), "--process-id", str(rank)])
+    finally:
+        VideoFlow.train = real
+    return {"held": held}
+
+
+def state_bytes(state) -> dict:
+    """This rank's bytes of a train state (``fsdp.state_leaves``) by the
+    planner's sections: the parameters, the optimizer's moments and EMA
+    (``opt_state``), the buffers (``batch_stats``), besides the generators'
+    states, and ``fsdp.sharded_size_bytes``."""
+    params = dict(state.model.named_parameters())
+    out = dict.fromkeys(("params", "opt_state", "batch_stats", "generators"), 0)
+    for key, (t, _) in fsdp.state_leaves(state).items():
+        kind, _, name = key.partition(".")
+        section = {"model": "params" if name in params else "batch_stats", "moment": "opt_state",
+                   "ema": "opt_state", "generator": "generators"}[kind]
+        out[section] += t.numel() * t.element_size()
+    out["total"] = fsdp.sharded_size_bytes(state)
+    return out
 
 
 def check_parallel_cli(tmp: Path, label: str, ranks: list, reference, ref_dir: Path) -> dict:
@@ -3174,7 +3226,7 @@ def pp_resume_bits(rank: int, world: int, init_method: str, path: str) -> dict:
         disk = state_tensors(ckpt._live_slices(flow.state, ckpt.restore_state(str(Path(path) / "step_1"))))
         live = state_tensors(ckpt._payload(1, flow.state, None))
         return {"start": start, "tensors": len(live), "unequal": unequal(disk, live)[:5],
-                "stage": list(flow.state.model.stages.norm.weight.shape)}
+                "stage": list(flow.state.model.stages.norm.weight.shape), "held": state_bytes(flow.state)}
     finally:
         torch.distributed.destroy_process_group()
 
@@ -3309,6 +3361,126 @@ def check_spatial_pipe(tmp: Path, label: str, ranks: list, reference, ref_dir: P
     print(f"[phase 24] {runs_wall + checks_s:.1f} s (its runs {runs_wall:.1f} s of rank 0's wall in 16's spawn, "
           f"its checks {checks_s:.1f} s)")
     return {kk: sum(ranks[0][name]["counts"][kk] for name in ("sp", "pp", "seg_flash")) for kk in ranks[0]["sp"]["counts"]}
+
+
+# Phase 25: streaming over a data mesh and the sharding planner (item 11g), in
+# phase 16's spawn: ``stream --data-parallel`` at 1080p as two ranks sharing
+# the card; config 4's streamer over data=2 in fp32 against one process's;
+# then, in this process, ``shards`` against what phase 23's FSDP rank and
+# phase 24's pipelined rank hold after their steps.
+STREAM_DP_ARGV = ["stream", "--data-parallel", "--synthetic", "2", "--batch-size", "2", "--clip-len", "16",
+                  "--height", "1080", "--width", "1920", *CELL_DEPTH]
+# (B, T, H, W) of the fp32 check: stream's default 720p (15 tiles a clip). At
+# 1080p one process's fp32 stream_video of B 2 (80 tiles of 8 frames a
+# chunk) needs more than the card's 80 GB; a rank's B 1 alone took ~45 GB.
+STREAM_MESH_CLIP = (2, 16, 720, 1280)
+# shards on phase 23's and 24's cell: PAR_ARGV's flagship, batch and optimizer.
+SHARDS_CELL = ["shards", "--image-size", "256", "--clip-len", "8", "--batch-size", "4", "--optimizer", "sgd",
+               "--lr", "1"]
+SHARDS_RUNS = (("fsdp", ["--mesh", "data=2", "--fsdp"], "fsdp_resume", "23's video --mesh data=2 --fsdp"),
+               ("pipe", ["--mesh", "pipe=2", "--layers", "2"], "pp_resume", "24's video --mesh pipe=2 --layers 2"))
+
+
+def stream_runs() -> list:
+    """:func:`cli_rank`'s runs of phase 25."""
+    return [("stream_dp", STREAM_DP_ARGV, False), ("stream_fp32", "stream_mesh_fp32", False)]
+
+
+def stream_mesh_fp32(rank: int, world: int, init_method: str) -> dict:
+    """A rank of ``make_streamer(mesh=)`` over data=2 at config 4's operating
+    point (tile 256, chunk 8, 4 frames of context), the flagship at
+    CELL_LAYERS in fp32 (TF32 off), on a seeded B 2 16-frame 720p clip
+    (STREAM_MESH_CLIP) given whole to each rank: its block of one clip, gathered to rank 0,
+    which holds the two against one process's ``stream_video`` of the whole
+    clip. Returns the markers and seconds of the mesh call and, on rank 0,
+    the max abs error and max|ref|."""
+    parallel.init_distributed(init_method, world, rank)
+    try:
+        with no_tf32(), torch.no_grad():
+            mesh = parallel.make_mesh(("data",), (world,))
+            model = VideoHybridNet(flagship_video_config(256, num_layers=CELL_LAYERS), device="cuda",
+                                   generator=torch.Generator().manual_seed(0)).eval()
+            b, t, h, w = STREAM_MESH_CLIP
+            clip = torch.from_numpy(np.random.default_rng(43).uniform(size=(b, t, h, w, 3)).astype(np.float32))
+            clip = clip.to("cuda")
+            scfg = StreamingConfig(tile=256, chunk_len=8, ctx_frames=4)
+            t0 = time.perf_counter()
+            with dispatch_trace.capture() as seen:
+                block = make_streamer(model, scfg, mesh=mesh)(clip)
+            torch.cuda.synchronize()
+            out = {"seen": sorted(seen), "block": list(block.shape), "s": time.perf_counter() - t0}
+            blocks = [torch.empty(block.shape) for _ in range(world)] if rank == 0 else None
+            torch.distributed.gather(block.cpu(), blocks, dst=0)
+            if rank == 0:
+                want = stream_video(model, clip, scfg)
+                out["err"] = (torch.cat(blocks).to("cuda") - want).abs().max().item()
+                out["ref_max"] = want.abs().max().item()
+            return out
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def check_stream_and_plans(label: str, ranks: list) -> None:
+    """Phase 25's checks: ``stream --data-parallel`` printed the global frame
+    count on each rank and launched no kernel of the port (config 4 serves
+    "xla" attention); the fp32 blocks within 1e-5 x max|ref| of one
+    process's; ``shards --mesh data=2 --fsdp`` and ``--mesh pipe=2 --layers
+    2`` on phase 23's and 24's cell against rank 0's state after its step,
+    section by section, to the byte; the card's memory beside ``--hbm-gb``'s
+    default."""
+    tag = "25 streaming over data and the planner"
+    t0 = time.perf_counter()
+    frames = 2 * 16  # stream_dp's timed (second) batch of 2 clips of 16 frames, global
+    b, t, h, w = STREAM_MESH_CLIP
+    for r, got in enumerate(ranks):
+        for name in ("stream_dp", "stream_fp32"):
+            check(got[name]["counts"] == expect_counts() and got[name]["seen"] == ["sdpa_xla"],
+                  f"25 {name} rank {r}: launches {got[name]['counts']}, recorded {got[name]['seen']}")
+        printed = "".join(got["stream_dp"]["printed"])
+        check(f"streamed {frames} frames @ 1080x1920" in printed, f"25 stream_dp rank {r}: {printed}")
+        check(got["stream_fp32"]["result"]["block"] == [b // 2, t, h, w, 3],
+              f"25 stream_fp32 rank {r}: block {got['stream_fp32']['result']['block']}")
+    res = ranks[0]["stream_fp32"]["result"]
+    check(res["err"] <= 1e-5 * res["ref_max"], f"25 stream_fp32: max abs {res['err']} > 1e-5 x {res['ref_max']}")
+    lines = [ln.strip() for g in ranks for ln in g["stream_dp"]["printed"] if ln.startswith("streamed")]
+    print(f"[{tag}] stream --data-parallel --synthetic 2 --batch-size 2 --clip-len 16 1080x1920 {' '.join(CELL_DEPTH)} "
+          f"as 2 ranks ({label}), {CARD}, bf16, 'xla' attention: each rank a clip of each batch, no kernel launch, "
+          f"markers {ranks[0]['stream_dp']['seen']}; printed per rank: {' | '.join(lines)} (the global frames over "
+          f"a rank's wall; ranks share the card: not a scaling number); run wall per rank "
+          f"{[round(g['stream_dp']['wall'], 1) for g in ranks]} s, peak memory per rank "
+          f"{[round(g['stream_dp']['peak_gb'], 2) for g in ranks]} GB")
+    print(f"[{tag}] make_streamer(mesh=data=2) at config 4's operating point (tile 256, chunk 8, context 4), "
+          f"{' '.join(CELL_DEPTH)}, fp32, TF32 off, B {b} x {t} x {h} x {w} given whole to each rank: each rank's "
+          f"block {res['block']}, the mesh call {[round(g['stream_fp32']['result']['s'], 2) for g in ranks]} s per "
+          f"rank, markers {ranks[0]['stream_fp32']['seen']}; the two blocks against one process's stream_video: "
+          f"max abs {res['err']:.3g} (limit 1e-5 x max|ref| {res['ref_max']:.3g})")
+    parser = cli._build_parser()[0]
+    for name, flags, run, what in SHARDS_RUNS:
+        argv = SHARDS_CELL + flags
+        plan = cli._shards_plan(parser.parse_args(argv)).totals()
+        held = ranks[0][run]["result"]["held"]
+        for section in ("params", "opt_state", "batch_stats"):
+            check(plan[section][1] == held[section],
+                  f"25 shards {name}: {section} planned {plan[section][1]} B a device, rank 0 holds {held[section]}")
+        planned = sum(plan[sec][1] for sec in ("params", "opt_state", "batch_stats"))
+        check(planned + held["generators"] == held["total"],
+              f"25 shards {name}: planned {planned} + generators {held['generators']} != held {held['total']}")
+        table = run_cli(argv)
+        total = next(ln for ln in table.splitlines() if ln.startswith("TOTAL"))
+        print(f"[{tag}] {' '.join(argv)} (meta device, no card): per device params {plan['params'][1]} B, "
+              f"opt_state {plan['opt_state'][1]} B (SGD momentum), batch_stats {plan['batch_stats'][1]} B; rank 0 "
+              f"of {what} after its step holds exactly these ({held['total']} B in all = {planned} planned + "
+              f"{held['generators']} B of its two CUDA generators' states, which the plan leaves out); the plan "
+              f"also counts grads {plan['grads'][1]} B and the batch {plan['batch'][1]} B a device, which the "
+              f"state does not hold between steps; the table's {' '.join(total.split())}")
+    props = torch.cuda.get_device_properties(0)
+    print(f"[{tag}] {CARD}: total_memory {props.total_memory} B = {props.total_memory / 2 ** 30:.3f} GiB; "
+          f"shards --hbm-gb default {CARD_MEMORY_GIB:g} GiB")
+    runs_wall = sum(ranks[0][name]["wall"] for name in ("stream_dp", "stream_fp32"))
+    checks_s = time.perf_counter() - t0
+    PHASE_SECONDS["25 (in 16)"] = runs_wall + checks_s
+    print(f"[phase 25] {runs_wall + checks_s:.1f} s (its runs {runs_wall:.1f} s of rank 0's wall in 16's spawn, "
+          f"its checks {checks_s:.1f} s)")
 
 
 # The data ranks timed as users launch them (12c): the CLI's own precision
@@ -3683,13 +3855,14 @@ def phase_runtime(train_ms: float) -> dict:
             data_spec = [("data", 4, ["--mesh", "data=2"])]
             reference = data_reference(tmp / "i", data_spec)
             ranks, wall = spawn_cli(2, mesh_runs(tmp / "g") + data_runs(tmp / "i", data_spec)
-                                    + parallel_runs(tmp / "p") + spatial_pipe_runs(tmp / "s"))
-            label = (f"2 ranks sharing one H100, gloo; (g)'s 3 commands, (i)'s, phase 23's 3 and phase 24's 7 in "
-                     f"one spawn of {wall:.1f} s")
+                                    + parallel_runs(tmp / "p") + spatial_pipe_runs(tmp / "s") + stream_runs())
+            label = (f"2 ranks sharing one H100, gloo; (g)'s 3 commands, (i)'s, phase 23's 3, phase 24's 7 and "
+                     f"phase 25's 2 in one spawn of {wall:.1f} s")
             mesh_counts = check_mesh_cli(tag, tmp / "g", label, ranks)
             data_counts = check_data_mesh(tag, tmp / "i", label, data_spec, ranks, reference)
             par_counts = check_parallel_cli(tmp / "p", label, ranks, reference, tmp / "i")
             sp_counts = check_spatial_pipe(tmp / "s", label, ranks, reference, tmp / "i")
+            check_stream_and_plans(label, ranks)
             mesh_counts = {k: mesh_counts[k] + data_counts[k] + par_counts[k] + sp_counts[k] for k in mesh_counts}
             WHOLE_READS.clear()
             del reference

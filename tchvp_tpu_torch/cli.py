@@ -25,6 +25,7 @@ Counterpart of ``tchvp_tpu/cli.py``, with its subcommand names and flags:
     python -m tchvp_tpu_torch.cli summary --model hybrid
     python -m tchvp_tpu_torch.cli summary --model fct
     python -m tchvp_tpu_torch.cli summary --model combined
+    python -m tchvp_tpu_torch.cli shards --model hybrid --mesh data=8 --fsdp
     python -m tchvp_tpu_torch.cli doctor --smoke
 
 Every command that runs a model runs it on ``--device`` (default
@@ -50,14 +51,6 @@ import os
 import subprocess
 import sys
 import time
-
-_ITEMS = {"11g": "streaming over a mesh and the planner"}
-
-
-def _not_ported(what: str, item):
-    raise SystemExit(f"{what} is not ported yet (ROADMAP.md, modules to port, "
-                     f"item {item}: {_ITEMS[item]})")
-
 
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--config", default=None,
@@ -768,7 +761,9 @@ def cmd_stream(args) -> None:
         engine = Int8Engine(model, quantize_dense=args.int8_dense).calibrate([calib])
         print(f"int8: {len(engine.scales)} layers quantized"
               + (" (convs+dense)" if args.int8_dense else ""))
-    streamer = make_streamer(model, scfg, mesh=_mesh(args), int8_engine=engine)
+    # --data-parallel: every rank streams its block of each global batch
+    # (the int8 scales above come from the global first batch on every rank).
+    streamer = make_streamer(model, scfg, mesh=_mesh(args, axes_ported=()), int8_engine=engine)
 
     frames = 0
     t0 = None
@@ -987,6 +982,58 @@ def cmd_summary(args) -> None:
     print(summarize(model, depth=args.depth))
     print(describe(model))
     print(f"Input: {shape} float32")
+
+
+def cmd_shards(args) -> None:
+    """Sharding and memory plan of a training config before a card is
+    committed: the placement and per-device bytes of every parameter,
+    gradient, optimizer-state and BatchNorm leaf under ``--mesh``, by the
+    rules the run-time applies (``parallel/plan.py``). The model is built
+    on the ``meta`` device: no device, no weights, no processes:
+
+        python -m tchvp_tpu_torch.cli shards --model hybrid --mesh data=8 --fsdp
+        python -m tchvp_tpu_torch.cli shards --mesh data=16,expert=4 --num-experts 8
+        python -m tchvp_tpu_torch.cli shards --mesh data=4,pipe=2 --fsdp
+    """
+    print(_shards_plan(args).table(top=args.top, hbm_gb=args.hbm_gb))
+
+
+def _shards_plan(args):
+    """The ``ShardingPlan`` that ``shards`` prints."""
+    import torch
+
+    from tchvp_tpu_torch.parallel.plan import abstract_pipelined_train_state, abstract_train_state, plan_state
+    from tchvp_tpu_torch.train.state import make_optimizer
+
+    axes = _parse_mesh_axes(args.mesh) or {"data": 1}
+    size = args.image_size
+    with torch.device("meta"):
+        if args.model in _EXPORT_IMAGE_MODELS:
+            model, batch = _image_model(args.model, "meta"), (args.batch_size, size, size, 3)
+        else:
+            model, batch = _video_model(args, "meta"), (args.batch_size, args.clip_len, size, size, 3)
+    tx = make_optimizer(args.lr, ema_decay=args.ema_decay, optimizer=args.optimizer)
+    # pipe= plans the pipelined layout: stage parameters and moments over
+    # "pipe", the CNN's ("rest") over data with --fsdp.
+    pipe_axis = "pipe" if axes.get("pipe", 1) > 1 else None
+    if pipe_axis:
+        if args.model != "hybrid":
+            raise SystemExit("shards: --mesh pipe=N plans --model hybrid "
+                             "(the temporal transformer is what pipelines)")
+        if args.layers % axes["pipe"]:
+            raise SystemExit(f"shards: --layers {args.layers} must be a multiple of pipe={axes['pipe']}")
+        state = abstract_pipelined_train_state(model, tx, axes["pipe"])
+    else:
+        state = abstract_train_state(model, tx)
+    return plan_state(
+        state, axes,
+        fsdp_axis="data" if args.fsdp else None,
+        ep_axis="expert" if "expert" in axes else None,
+        num_experts=args.num_experts,
+        batch_axis="data",
+        batch_example={"clip" if len(batch) == 5 else "image": torch.empty(batch, device="meta")},
+        pipe_axis=pipe_axis,
+    )
 
 
 def _validate_restored_depth(state_dict, expect_layers: int, expect_experts=None) -> None:
@@ -1467,31 +1514,17 @@ def cmd_serve(args) -> None:
         srv.shutdown()
 
 
-def _unported_command(item: int):
-    def run(args) -> None:
-        _not_ported(f"the {args.cmd} command", item)
-
-    return run
-
-
-# Subcommands of the JAX package whose item is still to come. They take
-# whatever follows them (``main`` parses them with ``parse_known_args``) and
-# exit naming the item.
-_UNPORTED = {"shards": "11g"}
-
-
 def _build_parser():
+    from tchvp_tpu_torch.parallel.plan import CARD_MEMORY_GIB
+
     parser = argparse.ArgumentParser("tchvp_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
     subparsers = {}
     commands = {"video": cmd_video, "segment": cmd_segment, "denoise": cmd_denoise,
                 "transfer": cmd_transfer, "port": cmd_port, "pack": cmd_pack,
                 "stream": cmd_stream, "infer": cmd_infer, "eval": cmd_eval, "summary": cmd_summary,
-                "export": cmd_export, "serve": cmd_serve}
+                "export": cmd_export, "serve": cmd_serve, "shards": cmd_shards}
 
-    for name, item in _UNPORTED.items():
-        p = sub.add_parser(name, help=f"not ported yet (item {item})")
-        p.set_defaults(fn=_unported_command(item))
     for name in commands:
         p = sub.add_parser(name)
         subparsers[name] = p
@@ -1636,6 +1669,23 @@ def _build_parser():
             p.add_argument("--depth", type=int, default=None,
                            help="module nesting depth to show "
                                 "(default: all submodules)")
+        if name == "shards":
+            p.add_argument("--model", default="hybrid",
+                           choices=_EXPORT_CLIP_MODELS + _EXPORT_IMAGE_MODELS)
+            p.add_argument("--clip-len", type=int, default=8)
+            _add_checkpoint_model_flags(p)
+            p.add_argument("--mesh", default="data=1",
+                           help="axis=size pairs, e.g. data=16,expert=4 "
+                                "— no devices needed, planning is abstract")
+            p.add_argument("--fsdp", action="store_true",
+                           help="plan ZeRO-3 placement over the data axis "
+                                "(parallel/fsdp.py rules)")
+            p.add_argument("--hbm-gb", type=float, default=CARD_MEMORY_GIB,
+                           help="per-device memory budget in GiB for the %% line "
+                                "(default: an NVIDIA H100 80GB HBM3's total_memory, "
+                                "power limit 700 W)")
+            p.add_argument("--top", type=int, default=12,
+                           help="largest-N leaf rows to print")
         if name == "stream":
             p.add_argument("--clippack", default=None)
             p.add_argument("--checkpoint", default=None)
@@ -1748,9 +1798,7 @@ def main(argv=None) -> None:
         if cmd in subparsers:
             subparsers[cmd].set_defaults(**_config_defaults(cfg_path, subparsers[cmd]))
 
-    args, rest = parser.parse_known_args(raw_argv)
-    if rest and args.cmd not in _UNPORTED:
-        parser.error(f"unrecognized arguments: {' '.join(rest)}")
+    args = parser.parse_args(raw_argv)
     if getattr(args, "int8_dense", False) and not getattr(args, "int8", False):
         parser.error("--int8-dense requires --int8 (it extends the PTQ "
                      "engine, it does not enable it)")

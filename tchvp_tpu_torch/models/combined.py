@@ -31,8 +31,11 @@ class Image2Image2Mask(nn.Module):
                  unet_config: UNetConfig = UNetConfig(), *, device: torch.device | str = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.image2image_ae = AutoEncoder(ae_config, in_channels=unet_config.in_channels, device="cpu")
-        self.unet = UNet(unet_config, device="cpu")
+        # Built where torch builds modules (the CPU; ``meta`` under ``with
+        # torch.device("meta")``, as ``shards`` plans), drawn below.
+        built = torch.get_default_device()
+        self.image2image_ae = AutoEncoder(ae_config, in_channels=unet_config.in_channels, device=built)
+        self.unet = UNet(unet_config, device=built)
         init_flax_default(self, generator or torch.Generator().manual_seed(0))
         self.to(device)
 

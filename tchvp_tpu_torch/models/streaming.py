@@ -14,6 +14,9 @@ Counterpart of ``tchvp_tpu/models/streaming.py`` over a
   JAX runs ``lax.scan``. The first chunk's context is zeros, as JAX's.
 * :func:`microbatched_infer` runs a batch as sequential groups into one
   preallocated output, so peak activation memory is one group's.
+* :func:`make_streamer` with a mesh streams each rank's block of the clip
+  batch over the ``data`` axis (:func:`shard_tiles`, placed as
+  :func:`stream_sharding` says); tiles are independent, so no collective.
 
 A frame autoencoder (``models/frame_ae.py``, ``--model ae32k|ae4k``) has
 no temporal stage and no context to carry: its chunks run through the
@@ -28,12 +31,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
 from tchvp_tpu_torch.models.video import VideoHybridNet
 from tchvp_tpu_torch.ops import tiling
+from tchvp_tpu_torch.parallel.mesh import DATA_AXIS, axis_size, shard_batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,21 +143,56 @@ def microbatched_infer(model: VideoHybridNet, clip: torch.Tensor, microbatch: in
     return recon
 
 
+def _mesh_axis_size(mesh, axis: str) -> int:
+    """The size of ``mesh``'s ``axis``; a ValueError where the mesh has no
+    such axis (JAX's ``NamedSharding`` refuses a spec naming one)."""
+    if axis not in (getattr(mesh, "mesh_dim_names", None) or ()):
+        raise ValueError(f"mesh {getattr(mesh, 'mesh_dim_names', None)} has no {axis!r} axis to stream over")
+    return axis_size(mesh, axis)
+
+
+def stream_sharding(mesh, axis: str = DATA_AXIS) -> Tuple[Optional[str], ...]:
+    """The placement of a tile batch (B, T, H, W, C): dim 0 over ``axis``,
+    the rest whole. The port's form of JAX's ``NamedSharding``, a spec
+    tuple as ``parallel/fsdp.py::state_shardings`` gives them."""
+    _mesh_axis_size(mesh, axis)
+    return (axis, None, None, None, None)
+
+
+def shard_tiles(tiles: torch.Tensor, mesh, axis: str = DATA_AXIS) -> torch.Tensor:
+    """This rank's contiguous block of ``tiles``' dim 0 along ``axis``, cut
+    as ``parallel.mesh.shard_batch`` cuts a batch. Dim 0 must be a multiple
+    of the axis size (JAX's ``device_put`` refuses an uneven sharding)."""
+    n = _mesh_axis_size(mesh, axis)
+    if tiles.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(tiles.shape)} is not a multiple of {axis}={n}")
+    return shard_batch(tiles, mesh, batch_axis=axis)
+
+
 def make_streamer(model: VideoHybridNet, cfg: StreamingConfig = StreamingConfig(),
                   mesh: Optional[object] = None,
                   int8_engine: Optional[object] = None) -> Callable[[torch.Tensor], torch.Tensor]:
     """A reusable streaming function ``f(clip) -> recon`` over ``model``.
 
-    ``int8_engine``: a calibrated ``infer.quant.Int8Engine`` of ``model``;
-    its int8 layers then run inside the tiled, chunked path."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_streamer over a mesh is not ported yet "
-            "(ROADMAP.md, modules to port, item 11g: streaming over a mesh and the planner)")
-    if int8_engine is not None:
-        def run8(clip: torch.Tensor) -> torch.Tensor:
-            with int8_engine.intercepting(int8_engine.qparams):
-                return stream_video(model, clip, cfg)
+    ``mesh``: a mesh with a ``data`` axis (``parallel.make_mesh``). Every
+    rank is given the whole clip batch (B, T, H, W, C); it streams its
+    block of B (:func:`shard_tiles`) and returns that block, as ``infer
+    --mesh data=N`` returns each rank's. Clips and their tiles are
+    independent, so the call makes no collective. B must be a multiple of
+    the axis size.
 
-        return run8
-    return lambda clip: stream_video(model, clip, cfg)
+    ``int8_engine``: a calibrated ``infer.quant.Int8Engine`` of ``model``;
+    its int8 layers then run inside the tiled, chunked path (calibrate it
+    on the same batch on every rank, so that all hold the same scales)."""
+    if mesh is not None:
+        _mesh_axis_size(mesh, DATA_AXIS)
+
+    def run(clip: torch.Tensor) -> torch.Tensor:
+        if mesh is not None:
+            clip = shard_tiles(clip, mesh)
+        if int8_engine is None:
+            return stream_video(model, clip, cfg)
+        with int8_engine.intercepting(int8_engine.qparams):
+            return stream_video(model, clip, cfg)
+
+    return run

@@ -1,6 +1,6 @@
 """Parallelism of the port over ``torch.distributed``: the mesh and its gate
-(:mod:`.mesh`), the collectives (:mod:`.collectives`) and the data-parallel
-input (:mod:`.input`)."""
+(:mod:`.mesh`), the collectives (:mod:`.collectives`), the data-parallel
+input (:mod:`.input`) and the sharding planner (:mod:`.plan`)."""
 
 from tchvp_tpu_torch.parallel.mesh import (
     DATA_AXIS,
@@ -20,9 +20,18 @@ from tchvp_tpu_torch.parallel.mesh import (
     shard_frames,
     with_current_mesh,
 )
+from tchvp_tpu_torch.parallel.plan import (
+    LeafPlan,
+    ShardingPlan,
+    abstract_train_state,
+    plan_state,
+)
 
 __all__ = [
     "DATA_AXIS",
+    "LeafPlan",
+    "ShardingPlan",
+    "abstract_train_state",
     "activate_mesh",
     "ambient_mesh",
     "axis_group",
@@ -34,6 +43,7 @@ __all__ = [
     "make_hybrid_mesh",
     "make_mesh",
     "mesh_with_axis",
+    "plan_state",
     "replicate",
     "shard_batch",
     "shard_frames",

@@ -114,14 +114,34 @@ def state_shardings(state, mesh: DeviceMesh, axis: str = "data",
                     min_elems: int = MIN_SHARD_ELEMS) -> Dict[str, Tuple[Optional[str], ...]]:
     """The spec of each entry of a model's ``state_dict`` (``state``: a
     :class:`~tchvp_tpu_torch.train.state.TrainState` or a module), by name:
-    parameters by :func:`fsdp_leaf_spec`, buffers and expert-sharded
-    parameters ``()``. A parameter's moments and EMA share its spec."""
+    parameters by :func:`fsdp_leaf_spec` (one already held as slices, by
+    its placement), buffers and expert-sharded parameters ``()``. A
+    parameter's moments and EMA share its spec."""
     model = getattr(state, "model", state)
     n = axis_size(mesh, axis)
     params = dict(model.named_parameters())
-    return {k: (() if k not in params or placement(params[k]) is not None
-                else fsdp_leaf_spec(tuple(v.shape), axis, n, min_elems))
-            for k, v in model.state_dict().items()}
+
+    def spec(k: str, v: torch.Tensor) -> Tuple[Optional[str], ...]:
+        p = params.get(k)
+        if p is None:
+            return ()
+        held = sliced_spec(p)
+        if held is not None:
+            return held
+        if placement(p) is not None:
+            return ()
+        return fsdp_leaf_spec(tuple(v.shape), axis, n, min_elems)
+
+    return {k: spec(k, v) for k, v in model.state_dict().items()}
+
+
+def sliced_spec(p: torch.Tensor) -> Optional[Tuple[Optional[str], ...]]:
+    """The spec of a parameter :func:`shard_train_state` holds as slices
+    (its axis at its sliced dim), else None: the spec of the whole
+    parameter, which a rank's slice no longer shows."""
+    if getattr(p, "fsdp_group", None) is None:
+        return None
+    return tuple(p.fsdp_axis if d == p.fsdp_dim else None for d in range(p.dim()))
 
 
 def shard_train_state(state, mesh: DeviceMesh, axis: str = "data", min_elems: int = MIN_SHARD_ELEMS):

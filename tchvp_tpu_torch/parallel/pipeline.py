@@ -437,9 +437,9 @@ def pipeline_state_shardings(state, mesh, axis: str = "pipe", fsdp_axis: Optiona
     """The spec of each entry of a pipelined model's ``state_dict`` by name
     (JAX's NamedShardings, as ``fsdp.state_shardings`` gives them): the
     stacked stages' leading dim on ``axis``; the rest replicated or, with
-    ``fsdp_axis``, by ``fsdp.fsdp_leaf_spec``. Moments and EMA share their
-    parameter's."""
-    from tchvp_tpu_torch.parallel.fsdp import fsdp_leaf_spec
+    ``fsdp_axis``, by ``fsdp.fsdp_leaf_spec`` (a rest parameter already held
+    as slices, by its placement). Moments and EMA share their parameter's."""
+    from tchvp_tpu_torch.parallel.fsdp import fsdp_leaf_spec, sliced_spec
 
     model = getattr(state, "model", state)
     params = dict(model.named_parameters())
@@ -449,7 +449,8 @@ def pipeline_state_shardings(state, mesh, axis: str = "pipe", fsdp_axis: Optiona
         if k.startswith("stages."):
             out[k] = (axis,) + (None,) * (v.dim() - 1)
         elif d > 1 and k in params:
-            out[k] = fsdp_leaf_spec(tuple(v.shape), fsdp_axis, d)
+            held = sliced_spec(params[k])
+            out[k] = held if held is not None else fsdp_leaf_spec(tuple(v.shape), fsdp_axis, d)
         else:
             out[k] = ()
     return out

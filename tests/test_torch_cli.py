@@ -270,12 +270,12 @@ MODEL_ARGS = ["--synthetic", "1", *SMALL, *CPU]
 # --mesh model=N, spatial=N and pipe=N, item 11e and 11f, which need N
 # processes; serve --mesh pipe=N, item 11f, which refuses --exported;
 # --fsdp, item 11d, which without a data mesh exits saying so; tune, item
-# 12, which needs a card): the command runs, or exits with a message of its
-# own, and is not refused.
+# 12, which needs a card; shards and stream --data-parallel, item 11g): the
+# command runs, or exits with a message of its own, and is not refused.
 STREAM_SMALL = ["--tile", "32", "--height", "32", "--width", "32", "--chunk-len", "2", "--ctx-frames", "1"]
 UNPORTED = [
     (["denoise"], None), (["transfer"], None), (["port"], None),
-    (["export"], None), (["serve"], None), (["shards"], 11), (["tune"], None),
+    (["export"], None), (["serve"], None), (["shards"], None), (["tune"], None),
     (["video", "--model", "ae32k"], None), (["video", "--fsdp"], None), (["video", "--data-parallel", "--fsdp"], None),
     (["video", "--qat"], None),
     (["video", "--mesh", "model=2"], None), (["video", "--mesh", "data=2,model=2"], None),
@@ -286,6 +286,7 @@ UNPORTED = [
     (["infer", "--exported", "a.tchvp"], None), (["infer", "--url", "http://localhost:1"], None),
     (["infer", "--int8"], None), (["infer", "--mesh", "pipe=2"], None),
     (["stream", "--int8", *STREAM_SMALL], None), (["stream", "--url", "http://localhost:1"], None),
+    (["stream", "--data-parallel", *STREAM_SMALL], None),
     (["summary", "--model", "unet"], None), (["summary", "--model", "ae32k"], None),
     (["export", "--out", "m.tchvp", "--int8", *MODEL_ARGS], None),
     (["serve", "--port", "8765", "--buckets", "1,2"], None),
@@ -412,15 +413,17 @@ SEG_ARGV = ["segment", "--synthetic", "1", "--epochs", "1", "--image-size", "64"
             "--optimizer", "sgd", "--lr", "1", "--device-prefetch", "0", *CPU]
 INFER_ARGV = ["infer", "--synthetic", "2", "--image-size", "32", "--layers", "2", "--batch-size", "2",
               "--clip-len", "2", "--int8", *CPU]
+STREAM_ARGV = ["stream", "--synthetic", "2", "--batch-size", "2", "--clip-len", "2", "--layers", "1",
+               *STREAM_SMALL, *CPU]
 
 
 @pytest.fixture(scope="module")
 def mesh_runs(tmp_path_factory):
     """``video --mesh spatial=2``, ``segment --mesh spatial=2 --attn-impl
     ring``, ``video --mesh pipe=2``, ``infer --mesh pipe=2 --int8`` and
-    ``segment --mesh spatial=2 --attn-impl xla`` as two gloo ranks (one
-    spawn; dropout and input noise off for the videos), and each one's
-    one-process counterpart."""
+    ``segment --mesh spatial=2 --attn-impl xla`` and ``stream
+    --data-parallel`` as two gloo ranks (one spawn; dropout and input noise
+    off for the videos), and each one's one-process counterpart."""
     from tchvp_tpu_torch import config
     from tchvp_tpu_torch.train import steps as tsteps
 
@@ -431,7 +434,8 @@ def mesh_runs(tmp_path_factory):
              SEG_ARGV + ["--mesh", "spatial=2", "--attn-impl", "ring", "--checkpoint-dir", str(tmp / "seg_sp")],
              ["video", *SP_ARGV, "--mesh", "pipe=2", "--attn-impl", "flash", "--checkpoint-dir", str(tmp / "pp")],
              INFER_ARGV + ["--mesh", "pipe=2", "--checkpoint", str(tmp / "pp" / "step_1")],
-             SEG_ARGV + ["--mesh", "spatial=2", "--attn-impl", "xla", "--checkpoint-dir", str(tmp / "seg_sp_xla")]]
+             SEG_ARGV + ["--mesh", "spatial=2", "--attn-impl", "xla", "--checkpoint-dir", str(tmp / "seg_sp_xla")],
+             STREAM_ARGV + ["--data-parallel"]]
     try:
         mp.spawn(torch_dist.run_cli_sequence, nprocs=2, join=True,
                  args=(2, str(tmp / "rendezvous"), str(tmp), argvs))
@@ -442,7 +446,8 @@ def mesh_runs(tmp_path_factory):
             one = {"video": run(cli.main, ["video", *SP_ARGV, "--attn-impl", "flash",
                                            "--checkpoint-dir", str(tmp / "one")]),
                    "segment": run(cli.main, SEG_ARGV + ["--attn-impl", "xla", "--checkpoint-dir", str(tmp / "seg_one")]),
-                   "infer": run(cli.main, INFER_ARGV + ["--checkpoint", str(tmp / "one" / "step_1")])}
+                   "infer": run(cli.main, INFER_ARGV + ["--checkpoint", str(tmp / "one" / "step_1")]),
+                   "stream": run(cli.main, STREAM_ARGV)}
         finally:
             config.flagship_video_config, tsteps.make_video_train_step, tsteps.make_pipelined_video_train_step = real
     finally:
@@ -522,6 +527,17 @@ def _segment_held_to_one(mesh_runs, index: int, name: str, markers: set) -> None
         torch.testing.assert_close(many[k], one[k], atol=1e-4 * scale, rtol=0, msg=k)
     loss = lambda t: re.search(r"dice loss ([0-9.]+)", t).group(1)  # noqa: E731
     assert loss(ranks[0]["runs"][index]["printed"]) == loss(one_text["segment"])
+
+
+def test_stream_data_parallel_two_ranks_count_one_process_frames(mesh_runs):
+    """``stream --data-parallel`` as two ranks: each streams its clip of
+    every batch of 2 and prints the global frame count, one process's."""
+    _, ranks, one = mesh_runs
+    frames = lambda t: re.search(r"streamed (\d+) frames @ 32x32", t).group(1)  # noqa: E731
+    assert frames(one["stream"]) == "4"
+    for r in ranks:
+        assert frames(r["runs"][5]["printed"]) == frames(one["stream"])
+        assert r["runs"][5]["seen"] == {"sdpa_xla"}
 
 
 def test_infer_pipe_int8_two_ranks_match_one_process(mesh_runs):

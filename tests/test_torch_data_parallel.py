@@ -25,7 +25,12 @@ generators of its own, as JAX's sharded draws differ per shard):
   concatenated, equal to the single-process batches;
 * (e) ``DataParallelServingModel`` over two CPU replicas equal to the single
   model, and its refusal of a batch they do not divide;
-* (f) ``video --mesh data=2`` through the CLI as two processes against one.
+* (f) ``video --mesh data=2`` through the CLI as two processes against one;
+* (g) ``make_streamer(mesh=)`` under ``data=2``: the two ranks' blocks of a
+  B 8 clip, concatenated, against JAX's ``make_streamer(mesh=)`` over the
+  8 CPU devices at ``tests/test_torch_streaming.py``'s tolerance; with an
+  int8 engine calibrated on the global batch, the same scales on both
+  ranks and one process's int8 output.
 """
 
 import dataclasses
@@ -40,7 +45,9 @@ import torch.multiprocessing as mp
 
 import torch_dist
 from tchvp_tpu import config as jcfg
+from tchvp_tpu.models import streaming as jstream
 from tchvp_tpu.models import video as jvideo
+from tchvp_tpu.parallel import make_mesh as jax_mesh
 from tchvp_tpu.train import state as jstate
 from tchvp_tpu.train import steps as jsteps
 from tchvp_tpu_torch import cli
@@ -51,6 +58,7 @@ from tchvp_tpu_torch.data.clippack import ClipPackDataset, pack_clips
 from tchvp_tpu_torch.infer import export as texport
 from tchvp_tpu_torch.models.autoencoder import AutoEncoder
 from tchvp_tpu_torch.models.fct import FCT
+from tchvp_tpu_torch.models import streaming as tstream
 from tchvp_tpu_torch.models import video as tvideo
 from tchvp_tpu_torch.train import checkpoint as ckpt
 from tchvp_tpu_torch.train import state as tstate
@@ -157,10 +165,46 @@ def flow_inputs(tmp_path_factory):
     }
 
 
+# The streaming case: the tiny model of tests/test_torch_streaming.py, B 8
+# clips of 30x44 frames in 16^2 tiles, chunk 2 with 1 frame of context.
+STREAM = dict(tile=16, chunk_len=2, ctx_frames=1)
+STREAM_SIZE = 16
+
+
 @pytest.fixture(scope="module")
-def two_ranks(tmp_path_factory, video_cases, flow_inputs):
+def stream_case():
+    """The inputs of the ranks' streamer, and JAX's ``make_streamer`` over a
+    data mesh of the 8 CPU devices on the same clip."""
+    kw = dict(input_dim=(STREAM_SIZE // 4) ** 2, hidden_dim=16, num_layers=1, num_heads=4, attn_impl="xla")
+    jc = jcfg.VideoModelConfig(encoder=jcfg.ResNetAEConfig(layers=(1, 1), token_latent=True),
+                               temporal=jcfg.TransformerConfig(**kw))
+    tc = tcfg.VideoModelConfig(encoder=tcfg.ResNetAEConfig(layers=(1, 1), token_latent=True),
+                               temporal=tcfg.TransformerConfig(**kw))
+    model = jvideo.VideoHybridNet(config=jc)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), jnp.zeros((1, 2, STREAM_SIZE, STREAM_SIZE, 3)))
+    rng = np.random.default_rng(5)
+
+    def leaf(path, x):
+        name = path[-1].key
+        if name == "kernel":
+            return rng.standard_normal(x.shape) / np.sqrt(np.prod(x.shape[:-1]))
+        if name in ("scale", "var"):
+            return rng.uniform(0.5, 1.5, x.shape)
+        return rng.normal(0.0, 0.1, x.shape)
+
+    variables = {c: jax.tree_util.tree_map_with_path(lambda p, x: leaf(p, x).astype(np.float32), shapes[c])
+                 for c in ("params", "batch_stats")}
+    clip = np.random.default_rng(6).uniform(size=(8, 4, 30, 44, 3)).astype(np.float32)
+    streamer = jstream.make_streamer(model, variables, jstream.StreamingConfig(**STREAM), mesh=jax_mesh(("data",)))
+    want = np.asarray(streamer(jnp.asarray(clip)))
+    return {"config": tc, "state": convert.from_flax(variables), "clip": clip, "stream": STREAM}, want
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory, video_cases, flow_inputs, stream_case):
     tmp = tmp_path_factory.mktemp("dp2")
-    return _spawn(torch_dist.run_data, 2, tmp, {"video": video_cases["video"][0], "flows": flow_inputs})
+    return _spawn(torch_dist.run_data, 2, tmp, {"video": video_cases["video"][0], "flows": flow_inputs,
+                                                "stream": stream_case[0]})
 
 
 @pytest.fixture(scope="module")
@@ -377,3 +421,46 @@ def test_cli_data_mesh_two_ranks_match_one_process(tmp_path, monkeypatch):
     atol = 1.9 * 2e-2 * max(g.abs().max().item() for g in grads.values())
     for k in one:
         torch.testing.assert_close(two[k], one[k], atol=atol if k in grads else 1e-5, rtol=0, msg=k)
+
+
+# ------------------------------------------------------------ (g) streaming
+
+
+def test_streamer_over_data_mesh_matches_jax(two_ranks, stream_case):
+    """Each rank streams its block of 4 clips with no collective; the blocks,
+    concatenated, are JAX's streamer over the data mesh of 8 devices."""
+    inputs, want = stream_case
+    got = [r["stream"] for r in two_ranks]
+    assert all(g["block"].shape == (4,) + want.shape[1:] for g in got)
+    np.testing.assert_allclose(torch.cat([g["block"] for g in got]).numpy(), want, atol=1e-4, rtol=1e-4)
+    assert all(g["seen"] == {"sdpa_xla"} for g in got)
+    assert all(g["spec"] == ("data", None, None, None, None) for g in got)
+    tiles = torch.cat([g["tiles"] for g in got])
+    assert tiles.shape[0] == 8 * 6 and got[0]["tiles"].shape[0] == tiles.shape[0] // 2
+
+
+def test_streamer_over_data_mesh_refusals(two_ranks):
+    for g in (r["stream"] for r in two_ranks):
+        assert "not a multiple of data=2" in g["odd"]
+        assert "no 'data' axis" in g["no_axis"]
+
+
+def test_int8_streamer_over_data_mesh_has_one_process_scales(two_ranks, stream_case):
+    """The engine calibrated on the global batch's tiles holds the same
+    scales on both ranks, and the ranks' int8 blocks are one process's int8
+    streamer on the whole batch."""
+    from tchvp_tpu_torch.infer.quant import Int8Engine
+    from tchvp_tpu_torch.ops import tiling
+
+    inputs = stream_case[0]
+    got = [r["stream"] for r in two_ranks]
+    assert got[0]["scales"] == got[1]["scales"] and got[0]["scales"]
+    model = tvideo.VideoHybridNet(inputs["config"], device="cpu")
+    model.load_state_dict(inputs["state"], strict=True)
+    cfg = tstream.StreamingConfig(**STREAM)
+    clip = torch.from_numpy(inputs["clip"])
+    tiles, _ = tiling.tile_frames(tiling.pad_frames(clip, cfg.tile)[0], cfg.tile)
+    engine = Int8Engine(model).calibrate([tiles[:4, :2]])
+    assert engine.scales == got[0]["scales"]
+    want = tstream.make_streamer(model, cfg, int8_engine=engine)(clip)
+    torch.testing.assert_close(torch.cat([g["int8"] for g in got]), want, atol=1e-5, rtol=1e-5)

@@ -26,6 +26,7 @@ import torch
 import torch.multiprocessing as mp
 
 import test_torch_data_parallel as dp
+import test_torch_plan
 import torch_dist
 from tchvp_tpu.parallel import fsdp as jfsdp
 from tchvp_tpu_torch import cli
@@ -182,6 +183,23 @@ def test_fsdp_step_matches_replicated_dp(ranks, video_case):
     params = dict(VideoHybridNet(inputs["config"], device="cpu").named_parameters())
     big = [k for k in params if fsdp.leaf_dim(tuple(params[k].shape), 2) is not None]
     assert big and set(got[0]["sliced"]) == set(big)
+
+
+def test_plan_is_the_live_fsdp_state_after_a_step(ranks, video_case):
+    """``shards``' planner on the state of ``tests/torch_dist.py::_stepped``
+    (AdamW with the EMA, FSDP over data of (data=2, rep=2)): every spec is
+    ``state_shardings``'s and each rank holds the planned bytes, plus its
+    generators' states."""
+    from tchvp_tpu_torch.parallel import plan
+
+    _, results = ranks
+    with torch.device("meta"):
+        model = VideoHybridNet(video_case[0]["config"], device="meta")
+    got = plan.plan_state(plan.abstract_train_state(model, torch_dist._rich_opt()), {"data": 2, "rep": 2},
+                          fsdp_axis="data")
+    assert any(r.origin == "fsdp" for r in got.section("opt_state"))
+    for r in results:
+        test_torch_plan.assert_plan_is_live(got, r["planned"])
 
 
 def test_fsdp_dormant_without_mesh(ranks):

@@ -25,6 +25,7 @@ import torch
 import torch.multiprocessing as mp
 
 import test_torch_data_parallel as dp
+import test_torch_plan
 import torch_dist
 from tchvp_tpu import config as jcfg
 from tchvp_tpu.models import video as jvideo
@@ -327,6 +328,24 @@ def test_pipelined_state_shardings_and_refusals(ranks, cases):
                                 ("ep_axis", "expert", "pp x ep inside a stage")):
         with pytest.raises(ValueError, match=match):
             ppl._check_stack(dataclasses.replace(temporal, num_experts=2, **{field: value}), 2, "pipe")
+
+
+def test_plan_is_the_live_pipelined_state_after_a_step(ranks, cases):
+    """``shards --mesh data=2,pipe=2 --fsdp``'s planner on the pipelined
+    state after one step (SGD): every spec is ``pipeline_state_shardings``'s
+    and each rank holds the planned bytes (its stage's rows, its slices of
+    the rest), plus its generators' states."""
+    from tchvp_tpu_torch.parallel import plan
+    from tchvp_tpu_torch.train.state import make_optimizer
+
+    _, results = ranks
+    with torch.device("meta"):
+        model = VideoHybridNet(cases["video"]["config"], device="meta")
+    state = plan.abstract_pipelined_train_state(model, make_optimizer(1.0, optimizer="sgd"), 2)
+    got = plan.plan_state(state, {"data": 2, "pipe": 2}, fsdp_axis="data", pipe_axis="pipe")
+    assert {r.origin for r in got.section("opt_state")} >= {"pipe", "fsdp"}
+    for r in results:
+        test_torch_plan.assert_plan_is_live(got, r["planned"])
 
 
 @pytest.mark.parametrize("argv,message", [

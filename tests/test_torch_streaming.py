@@ -9,6 +9,10 @@
   temporal layer), with no carried context and with some, tiled and not:
   atol/rtol 1e-4, fp32 on the CPU. Weights are seeded numpy values of the
   flax shapes, carried across by ``convert.from_flax``.
+* Over a mesh: ``stream_sharding`` and ``shard_tiles`` against JAX's on
+  its 8 CPU devices, the refusals, and a data rank's streamer block, seen
+  from each rank of a stand-in mesh (the ranks of a real one run in
+  ``tests/test_torch_data_parallel.py``).
 """
 
 import jax
@@ -21,6 +25,7 @@ from tchvp_tpu import config as jcfg
 from tchvp_tpu.models import streaming as jstream
 from tchvp_tpu.models import video as jvideo
 from tchvp_tpu.ops import tiling as jtiling
+from tchvp_tpu.parallel import make_mesh as jax_mesh
 from tchvp_tpu_torch import config as tcfg
 from tchvp_tpu_torch import convert
 from tchvp_tpu_torch.models import streaming as tstream
@@ -174,8 +179,75 @@ def test_make_streamer_options_not_ported_raise(models, kwargs, item):
     if item is None:  # ported (item 10): the int8 streamer is made, and runs the engine when called
         assert callable(tstream.make_streamer(models[2], **kwargs))
         return
-    with pytest.raises(NotImplementedError, match=item):
+    # Ported (item 11g): a mesh streams over its data axis, which this one lacks.
+    with pytest.raises(ValueError, match="no 'data' axis"):
         tstream.make_streamer(models[2], **kwargs)
+
+
+class _RankMesh:
+    """What the port's mesh helpers read of a ``DeviceMesh``, as one rank
+    sees it: the axis names and sizes, and this rank's place on each."""
+
+    def __init__(self, axes: dict, place: dict):
+        self.mesh_dim_names, self._sizes, self._place = tuple(axes), tuple(axes.values()), place
+
+    def size(self, dim: int) -> int:
+        return self._sizes[dim]
+
+    def get_local_rank(self, axis: str) -> int:
+        return self._place[axis]
+
+
+def test_stream_sharding_is_jax_spec():
+    want = tuple(jstream.stream_sharding(jax_mesh(("data",))).spec)
+    assert tstream.stream_sharding(_RankMesh({"data": 8}, {"data": 0})) == want == ("data", None, None, None, None)
+    assert tstream.stream_sharding(_RankMesh({"seq": 2}, {"seq": 0}), axis="seq")[0] == "seq"
+
+
+def test_shard_tiles_blocks_are_jax_shards():
+    """Rank i of a data=8 mesh holds the tiles JAX's ``shard_tiles`` places
+    on device i; over (data=2, seq=2) a rank's block follows its data index."""
+    tiles = _uniform((16, 2, 4, 4, 3), seed=7)
+    placed = jstream.shard_tiles(jnp.asarray(tiles), jax_mesh(("data",)))
+    shards = sorted(placed.addressable_shards, key=lambda sh: sh.index[0].start)
+    for i, shard in enumerate(shards):
+        got = tstream.shard_tiles(torch.from_numpy(tiles), _RankMesh({"data": 8}, {"data": i}))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(shard.data))
+    for d in range(2):
+        got = tstream.shard_tiles(torch.from_numpy(tiles), _RankMesh({"data": 2, "seq": 2}, {"data": d, "seq": 1}))
+        np.testing.assert_array_equal(got.numpy(), tiles[8 * d:8 * d + 8])
+
+
+@pytest.mark.parametrize("case", ["uneven", "no_axis", "sharding_no_axis", "streamer_no_axis", "streamer_uneven"])
+def test_streaming_over_a_mesh_refusals(models, case):
+    """A batch the axis does not divide, and a mesh without the axis, raise
+    ValueError (JAX's ``device_put`` refuses the uneven batch too)."""
+    data2 = _RankMesh({"data": 2}, {"data": 0})
+    seq2 = _RankMesh({"seq": 2}, {"seq": 0})
+    clip = torch.from_numpy(_uniform((3, 2, SIZE, SIZE, 3), seed=8))
+    call, match = {
+        "uneven": (lambda: tstream.shard_tiles(clip, data2), "not a multiple of data=2"),
+        "no_axis": (lambda: tstream.shard_tiles(clip, seq2), "no 'data' axis"),
+        "sharding_no_axis": (lambda: tstream.stream_sharding(seq2), "no 'data' axis"),
+        "streamer_no_axis": (lambda: tstream.make_streamer(models[2], mesh=seq2), "no 'data' axis"),
+        "streamer_uneven": (lambda: tstream.make_streamer(models[2], mesh=data2)(clip), "not a multiple"),
+    }[case]
+    with pytest.raises(ValueError, match=match):
+        call()
+    if case == "uneven":
+        with pytest.raises(ValueError):
+            jstream.shard_tiles(jnp.zeros((3, 2, 4, 4, 3)), jax_mesh(("data",)))
+
+
+def test_streamer_rank_blocks_make_the_whole_batch(models):
+    """Each rank's block of a data=2 streamer is one process's streamer on
+    those clips: no collective, and the blocks make the whole batch."""
+    port = models[2]
+    cfg = tstream.StreamingConfig(tile=16, chunk_len=2, ctx_frames=1)
+    clip = torch.from_numpy(_uniform((4, 4, 30, 20, 3), seed=9))
+    whole = tstream.make_streamer(port, cfg)(clip)
+    blocks = [tstream.make_streamer(port, cfg, mesh=_RankMesh({"data": 2}, {"data": i}))(clip) for i in range(2)]
+    torch.testing.assert_close(torch.cat(blocks), whole, atol=1e-5, rtol=0)
 
 
 def test_streaming_config_defaults_match_jax():

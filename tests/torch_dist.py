@@ -542,9 +542,41 @@ def _dp_flows(inp):
     return got
 
 
+def _dp_stream(inp):
+    """data=n: ``make_streamer(mesh=)`` on the whole clip batch, fp32 and
+    int8 (the engine calibrated on the global batch's tiles, as ``stream
+    --int8`` does): this rank's blocks, the engine's scales, and the
+    refusals of a batch the axis does not divide and of a mesh without a
+    data axis."""
+    from tchvp_tpu_torch.infer.quant import Int8Engine
+    from tchvp_tpu_torch.models import streaming
+    from tchvp_tpu_torch.ops import tiling
+
+    mesh = parallel.ambient_mesh()
+    model = VideoHybridNet(inp["config"], device="cpu")
+    model.load_state_dict(inp["state"], strict=True)
+    cfg = streaming.StreamingConfig(**inp["stream"])
+    clip = torch.from_numpy(inp["clip"])
+    with dispatch_trace.capture() as seen:
+        block = streaming.make_streamer(model, cfg, mesh=mesh)(clip)
+    tiles, _ = tiling.tile_frames(tiling.pad_frames(clip, cfg.tile)[0], cfg.tile)
+    engine = Int8Engine(model).calibrate([tiles[:4, :2]])
+    got = {"block": block, "seen": seen, "scales": engine.scales,
+           "int8": streaming.make_streamer(model, cfg, mesh=mesh, int8_engine=engine)(clip),
+           "tiles": streaming.shard_tiles(tiles, mesh), "spec": streaming.stream_sharding(mesh)}
+    for what, call in (("odd", lambda: streaming.make_streamer(model, cfg, mesh=mesh)(clip[:3])),
+                       ("no_axis", lambda: streaming.make_streamer(model, cfg, mesh=parallel.make_mesh(("seq",))))):
+        try:
+            call()
+        except ValueError as e:
+            got[what] = str(e)
+    return got
+
+
 def run_data(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -> None:
     """One rank of ``tests/test_torch_data_parallel.py``: with 2 ranks the
-    data mesh (the flagship's step, the loaders, segment, denoise); with 4
+    data mesh (the flagship's step, the loaders, segment, denoise, the
+    streamer); with 4
     the meshes of two axes, data x seq and data x expert."""
     torch.set_num_threads(1)
     parallel.init_distributed(f"file://{rendezvous}", world, rank, timeout_s=180)
@@ -555,6 +587,7 @@ def run_data(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict)
                 results["video"] = _dp_video(inputs["video"])
                 results["options"] = _dp_options(inputs["video"])
                 results["flows"] = _dp_flows(inputs["flows"])
+                results["stream"] = _dp_stream(inputs["stream"])
         else:
             with parallel.activate_mesh(parallel.make_mesh(("data", "seq"), (2, 2))):
                 results["data_seq"] = _dp_video(inputs["data_seq"])
@@ -823,13 +856,25 @@ def _elastic_restore(inp, mesh, out: Path) -> dict:
     return {"local": _local_leaves(dst), "gathers": spy.calls, "step": raw["step"]}
 
 
+def live_view(state, specs: dict) -> dict:
+    """What this rank holds of a stepped state, for the planner's tests: the
+    run-time's specs by ``state_dict`` name, each tensor's shape and dtype
+    by its ``fsdp.state_leaves`` key, and ``fsdp.sharded_size_bytes``."""
+    from tchvp_tpu_torch.parallel import fsdp
+
+    leaves = {k: (tuple(t.shape), str(t.dtype).replace("torch.", "")) for k, (t, _) in fsdp.state_leaves(state).items()}
+    return {"specs": specs, "leaves": leaves, "bytes": fsdp.sharded_size_bytes(state)}
+
+
 def run_fsdp(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -> None:
     """One of 4 ranks of ``tests/test_torch_fsdp.py``: FSDP over ``data`` of
     a ("data", "rep") mesh of (2, 2) (two data ranks; "rep" replicates),
-    the elastic save over data=4, the data x expert flow, then ``video
-    --mesh data=2,expert=2 --fsdp`` through the CLI (which leaves the
-    process group)."""
+    what a rank holds of a stepped state (for the planner), the elastic
+    save over data=4, the data x expert flow, then ``video --mesh
+    data=2,expert=2 --fsdp`` through the CLI (which leaves the process
+    group)."""
     from tchvp_tpu_torch import cli
+    from tchvp_tpu_torch.parallel import fsdp
 
     torch.set_num_threads(1)
     out = Path(out_dir)
@@ -850,6 +895,8 @@ def run_fsdp(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict)
         results["whole_into_sharded"] = _whole_into_sharded(inp, mesh)
         results["twin"] = _twin_roundtrip(inp, mesh, out)
         results["elastic"] = _elastic_restore(inp, mesh, out)
+        stepped = _stepped(inp, mesh)
+        results["planned"] = live_view(stepped, fsdp.state_shardings(stepped, mesh, "data"))
         results["flow"] = _fsdp_flow(inputs, mesh, out)
         results["flow_moe"] = _fsdp_flow(inputs, parallel.make_mesh(("data", "expert"), (2, 2)), out, moe=True)
         with dispatch_trace.capture() as seen, contextlib.redirect_stdout(io.StringIO()) as printed:
@@ -1224,6 +1271,19 @@ def _pp_video(inp, fsdp_axis=None, accum: int = 1, remat: bool = False) -> dict:
             "equal": equal, "stage_shape": tuple(state.model.stages.norm.weight.shape)}
 
 
+def _pp_planned(inp) -> dict:
+    """:func:`live_view` of a pipelined state, its rest ZeRO-sharded over
+    ``data``, after one step on this rank's block."""
+    from tchvp_tpu_torch.parallel import pipeline as ppl
+
+    mesh = parallel.ambient_mesh()
+    state = _pp_state(inp, "data")
+    step = tsteps.make_pipelined_video_train_step(inp["size"], batch_axis="data", loss="mse", noise_std=0.0,
+                                                  fsdp_axis="data")
+    state, _ = step(state, local_rows(torch.from_numpy(inp["batch"]), mesh))
+    return live_view(state, ppl.pipeline_state_shardings(state, mesh, "pipe", "data"))
+
+
 def _pp_dropout(inp) -> dict:
     """The pipelined model's train-mode forward with the CNN's dropout on
     (and the temporal's off), against the monolithic model's on the same
@@ -1361,6 +1421,7 @@ def run_pipeline(rank: int, world: int, rendezvous: str, out_dir: str, inputs: d
             state = _pp_state(inputs["video"])
             results["specs"] = ppl.pipeline_state_shardings(state, parallel.ambient_mesh(), "pipe", "data")
             results["shapes"] = {k: tuple(v.shape) for k, v in state.model.state_dict().items()}
+            results["planned"] = _pp_planned(inputs["video"])
             results["dropout"] = _pp_dropout(inputs["video"])
             results["composed"] = _pp_composed(inputs["composed"])
         results["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))
