@@ -30,17 +30,18 @@ Counterpart of ``tchvp_tpu/cli.py``, with its subcommand names and flags:
 
 Every command that runs a model runs it on ``--device`` (default
 ``cuda``); without a card it exits 1 unless ``--device cpu`` is given.
-``port`` and ``summary`` run no model: they build theirs on the CPU.
-``video --mesh seq=N`` (sequence parallelism: windowed attention with
-``--window``, or ring attention with ``--attn-impl ring``) and ``video
---mesh expert=N --num-experts E`` (expert parallelism) run as N processes,
-one per rank, each given ``--coordinator`` (``host:port``, or any
-``torch.distributed`` init URL), ``--num-processes N`` and its
-``--process-id``.
+``port``, ``summary`` and ``shards`` run no model: they build theirs on the
+CPU (``shards`` on the ``meta`` device).
 
-Subcommands, options and mesh axes of the JAX package that the port does
-not have yet are registered and exit naming their item of ROADMAP.md
-("modules to port").
+A mesh (``--mesh data=N``, ``seq``, ``expert``, ``model``, ``spatial``,
+``pipe`` and their products; ``--data-parallel``) runs as one process a
+rank, on one host or several: every process gets the same flags,
+``--coordinator`` (``host:port`` of rank 0, or any ``torch.distributed``
+init URL), ``--num-processes`` (the world) and its own ``--process-id``.
+At the rendezvous the ranks learn which of them share a host
+(``parallel.init_distributed``): a rank takes the card of its local rank,
+and the backend is NCCL when every host has a card for each of its ranks,
+else gloo. Rank 0 prints the launch in one line.
 """
 
 from __future__ import annotations
@@ -272,19 +273,31 @@ def _mesh(args, axes_ported=("seq",)):
     return make_mesh(tuple(on), tuple(on.values()))
 
 
-def _device(args):
-    """``--device``, checked: a CUDA device must exist (no fallback); in a
-    multi-process launch with a bare ``cuda`` each rank takes card
-    ``process_id % count``."""
+def _cuda_check(args):
+    """``--device`` as a torch device; a CUDA device must exist (no
+    fallback)."""
     import torch
 
     dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {args.device}: no CUDA device "
+                         "(pass --device cpu to run on the CPU)")
+    return dev
+
+
+def _device(args):
+    """``--device``, checked (:func:`_cuda_check`); a bare ``cuda`` is the
+    card the launch gave this rank (``parallel.launch_layout``), card 0 in
+    one process."""
+    import torch
+
+    from tchvp_tpu_torch.parallel import launch_layout
+
+    dev = _cuda_check(args)
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise SystemExit(f"--device {args.device}: no CUDA device "
-                             "(pass --device cpu to run on the CPU)")
         if dev.index is None:
-            dev = torch.device("cuda", args.process_id % torch.cuda.device_count())
+            layout = launch_layout()
+            dev = torch.device("cuda", 0 if layout is None else layout.card)
         torch.cuda.set_device(dev)
     return dev
 
@@ -1807,17 +1820,18 @@ def main(argv=None) -> None:
     import torch.distributed as dist
 
     joined = False
-    if getattr(args, "num_processes", 1) > 1:
-        import torch
+    world = getattr(args, "num_processes", 1)
+    if not 0 <= getattr(args, "process_id", 0) < max(world, 1):
+        raise SystemExit(f"--process-id {args.process_id}: a rank of --num-processes {world} "
+                         f"is 0 to {world - 1}")
+    if world > 1:
+        from tchvp_tpu_torch.parallel import init_distributed, launch_line
 
-        from tchvp_tpu_torch.parallel import init_distributed
-
-        device = _device(args)
-        backend = ("nccl" if device.type == "cuda"
-                   and torch.cuda.device_count() >= args.num_processes else "gloo")
-        init_distributed(_init_method(args.coordinator), args.num_processes,
-                         args.process_id, backend=backend)
+        layout = init_distributed(_init_method(args.coordinator), world, args.process_id,
+                                  device=str(_cuda_check(args)))
         joined = True
+        if args.process_id == 0:
+            print(launch_line(layout), flush=True)
     if getattr(args, "profile_dir", None):
         from tchvp_tpu_torch.utils import profiling
 

@@ -1,17 +1,21 @@
-"""Parallelism of the port over ``torch.distributed``: the mesh and its gate
-(:mod:`.mesh`), the collectives (:mod:`.collectives`), the data-parallel
+"""Parallelism of the port over ``torch.distributed``: the launch, the mesh
+and its gate (:mod:`.mesh`), the collectives (:mod:`.collectives`), the data-parallel
 input (:mod:`.input`) and the sharding planner (:mod:`.plan`)."""
 
 from tchvp_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    HostLayout,
     activate_mesh,
     ambient_mesh,
     axis_group,
     axis_shards,
     axis_size,
     group_over,
+    host_layout,
     host_local_batch_slice,
     init_distributed,
+    launch_layout,
+    launch_line,
     make_hybrid_mesh,
     make_mesh,
     mesh_with_axis,
@@ -29,6 +33,7 @@ from tchvp_tpu_torch.parallel.plan import (
 
 __all__ = [
     "DATA_AXIS",
+    "HostLayout",
     "LeafPlan",
     "ShardingPlan",
     "abstract_train_state",
@@ -38,8 +43,11 @@ __all__ = [
     "axis_shards",
     "axis_size",
     "group_over",
+    "host_layout",
     "host_local_batch_slice",
     "init_distributed",
+    "launch_layout",
+    "launch_line",
     "make_hybrid_mesh",
     "make_mesh",
     "mesh_with_axis",

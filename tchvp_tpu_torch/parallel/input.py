@@ -1,9 +1,13 @@
 """Data-parallel input: each rank reads only its slice of every global batch.
 
-Counterpart of ``tchvp_tpu/parallel/input.py``. JAX assembles the hosts'
-local arrays into one global ``jax.Array`` laid out over the mesh; here a
-rank's arrays are its part of the global batch as they are, so a loader
-yields this rank's block of dim 0 along the ``data`` axis. The ClipPack
+Counterpart of ``tchvp_tpu/parallel/input.py``. JAX runs one process a
+host, which reads its host's slice of the batch (``host_local_batch_slice``)
+and assembles the hosts' local arrays into one global ``jax.Array`` laid
+out over the mesh; here every rank is a process, on whatever host, and
+reads its own slice: a rank's arrays are its part of the global batch as
+they are, so a loader yields this rank's block of dim 0 along the ``data``
+axis, and the contiguous ranks of a host together read what JAX's process
+on that host reads. The ClipPack
 loader slices a shared epoch permutation (``ClipPackDataset``'s
 ``shard_id``/``num_shards``), so the ranks' slices concatenate to exactly
 the single-process batch. With gradient accumulation a rank reads its

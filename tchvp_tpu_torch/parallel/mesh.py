@@ -25,17 +25,27 @@ axes lay their ranks out row-major in the order the axes are given, and
 (``batch_spec``, ``sequence_sharding``) have no counterpart: the port cuts
 the tensors themselves (:func:`shard_batch`, :func:`shard_frames`).
 
-Transport: ``gloo`` carries CPU tensors (the CPU tests, and two ranks
-sharing one GPU: NCCL refuses two ranks on one device), ``nccl`` device
-tensors, one GPU per rank (:mod:`.collectives`).
+The launch (:func:`init_distributed`) is JAX's ``jax.distributed``: one
+process a card on every host, each given the rendezvous, the world size and
+its rank. At the rendezvous each rank publishes its host's identity (the host
+name and the cards it sees), and every rank reads the whole table back and
+computes the same :class:`HostLayout` (:func:`host_layout`): its host, its
+local rank, the card it takes and the backend. Transport: ``nccl`` carries
+device tensors when every host has a card for each of its ranks; ``gloo``
+carries CPU tensors (the CPU tests) and the ranks of a host that share its
+cards (NCCL refuses two ranks on one device) (:mod:`.collectives`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import datetime
+import json
 import math
+import socket
+import weakref
 from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
@@ -53,17 +63,130 @@ _ambient: contextvars.ContextVar[Optional[DeviceMesh]] = contextvars.ContextVar(
 _off: contextvars.ContextVar[frozenset] = contextvars.ContextVar("axes_off", default=frozenset())
 
 
-def init_distributed(init_method: str, world_size: int, rank: int, backend: str = "gloo",
-                     timeout_s: float = 300.0) -> None:
-    """Join the default process group (no-op for one process): each rank
-    gives the rendezvous (``tcp://localhost:<port>`` or ``file://<path>``),
-    the world size and its rank; nothing is read from the environment. A
-    collective that waits longer than ``timeout_s`` raises instead of
-    hanging. Backend ``"nccl"`` needs one GPU per rank, set with
-    ``torch.cuda.set_device`` first."""
-    if world_size > 1 and not dist.is_initialized():
-        dist.init_process_group(backend, init_method=init_method, world_size=world_size,
-                                rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+# The layout of the launch that made the default process group, beside a weak
+# reference to that group (destroying the group frees it, as without the
+# layout): (group ref, layout), set by init_distributed.
+_launch: Optional[tuple] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class HostLayout:
+    """Where a rank of a launch runs: JAX's ``process_index`` and local
+    devices. Hosts are numbered by their lowest rank, and a host's ranks by
+    their global rank. ``card`` is the card the rank takes (None on the
+    CPU); ``backend`` is ``"nccl"`` iff every host has a card for each of
+    its ranks, else ``"gloo"``."""
+
+    rank: int
+    host_index: int
+    local_rank: int
+    card: Optional[int]
+    backend: str
+    host_of: Tuple[int, ...]  # every rank's host index
+    host_cards: Tuple[int, ...]  # every host's cards (0 on the CPU)
+
+    @property
+    def hosts(self) -> int:
+        return len(self.host_cards)
+
+    @property
+    def host_ranks(self) -> Tuple[int, ...]:
+        """Every host's number of ranks."""
+        return tuple(self.host_of.count(h) for h in range(self.hosts))
+
+    @property
+    def local_world(self) -> int:
+        return self.host_ranks[self.host_index]
+
+
+def _host_identity(cuda: bool, host: Optional[str] = None) -> list:
+    """What this rank publishes at the rendezvous: its host's name
+    (``host`` overrides it) and the UUIDs of the cards it sees, in order
+    (none on the CPU). Ranks with the same identity share a host."""
+    uuids = [str(torch.cuda.get_device_properties(i).uuid) for i in range(torch.cuda.device_count())] if cuda else []
+    return [socket.gethostname() if host is None else host, uuids]
+
+
+def host_layout(identities: Sequence[Sequence], rank: int, cuda: bool = True) -> HostLayout:
+    """The layout of ``rank`` from every rank's :func:`_host_identity`: the
+    same table gives every rank the same hosts and backend. A rank takes card
+    ``local_rank`` where its host has a card for each of its ranks, else
+    ``local_rank % cards`` (ranks sharing cards, over gloo)."""
+    keys = [(name, tuple(uuids)) for name, uuids in identities]
+    index: dict = {}
+    host_of = tuple(index.setdefault(k, len(index)) for k in keys)
+    host_cards = tuple(len(keys[host_of.index(h)][1]) if cuda else 0 for h in range(len(index)))
+    if cuda and 0 in host_cards:
+        raise ValueError(f"a CUDA launch where the ranks of host {host_cards.index(0)} see no card")
+    h = host_of[rank]
+    local_rank = host_of[:rank].count(h)
+    shared = any(host_of.count(g) > cards for g, cards in enumerate(host_cards))
+    card = (local_rank if host_cards[h] >= host_of.count(h) else local_rank % host_cards[h]) if cuda else None
+    return HostLayout(rank, h, local_rank, card, "nccl" if cuda and not shared else "gloo", host_of, host_cards)
+
+
+def launch_line(layout: HostLayout) -> str:
+    """Rank 0's line of the launch: its hosts, whether every rank has a card
+    of its own, the backend and why."""
+    ranks = layout.host_ranks
+    hosts = (f"{layout.hosts} host{'s' if layout.hosts > 1 else ''} x {ranks[0]} rank{'s' if ranks[0] > 1 else ''}"
+             if len(set(ranks)) == 1 else f"{layout.hosts} hosts of {', '.join(map(str, ranks))} ranks")
+    if layout.card is None:
+        return f"launch: {hosts} on the CPU, backend gloo"
+    if layout.backend == "gloo":
+        short = [f"{n} ranks on {c} card{'s' if c > 1 else ''}" for n, c in zip(ranks, layout.host_cards) if n > c]
+        return (f"launch: {hosts}, ranks share cards ({'; '.join(short)}), so backend gloo "
+                f"(NCCL needs a card a rank)")
+    return f"launch: {hosts}, a card a rank, backend nccl"
+
+
+def launch_layout() -> Optional[HostLayout]:
+    """The :class:`HostLayout` of the launch that made the default process
+    group (:func:`init_distributed`), or None (one process, or a group made
+    otherwise)."""
+    if _launch is None or not dist.is_initialized() or _launch[0]() is not dist.group.WORLD:
+        return None
+    return _launch[1]
+
+
+def init_distributed(init_method: str, world_size: int, rank: int, device: str = "cpu",
+                     timeout_s: float = 300.0, host: Optional[str] = None) -> Optional[HostLayout]:
+    """Join the default process group (no-op for one process) and return
+    this rank's :class:`HostLayout`: each rank gives the rendezvous
+    (``tcp://host:port`` or ``file://<path>``), the world size, its rank and
+    the device type its tensors live on (``"cuda"``: the layout's card,
+    which this sets current; ``"cuda:i"`` takes card i); nothing is read
+    from the environment. ``host`` stands in for the host's name (the
+    tests' emulated hosts). A collective that waits longer than
+    ``timeout_s`` raises instead of hanging, and so does an NCCL group that
+    does not start."""
+    global _launch
+    if world_size <= 1 or dist.is_initialized():
+        return launch_layout()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store, rank, world_size = next(dist.rendezvous(init_method, rank, world_size, timeout=timeout))
+    store.set_timeout(timeout)
+    table = dist.PrefixStore("tchvp_hosts", store)
+    table.set(str(rank), json.dumps(_host_identity(cuda, host)))
+    layout = host_layout([json.loads(table.get(str(r))) for r in range(world_size)], rank, cuda)
+    if cuda:
+        torch.cuda.set_device(layout.card if dev.index is None else dev.index)
+    if layout.backend == "nccl" and not dist.is_nccl_available():
+        raise RuntimeError("every host has a card a rank, but this torch has no NCCL")
+    dist.init_process_group(layout.backend, store=dist.PrefixStore("default_pg", store), world_size=world_size,
+                            rank=rank, timeout=timeout)
+    if layout.backend == "nccl":
+        from tchvp_tpu_torch.parallel.collectives import all_reduce_sum_
+
+        try:  # NCCL starts its communicator at the first collective
+            all_reduce_sum_([torch.zeros(1, device="cuda")], dist.group.WORLD)
+            torch.cuda.synchronize()
+        except Exception as e:
+            raise RuntimeError(f"NCCL did not start on rank {rank} ({launch_line(layout)})") from e
+    _launch = (weakref.ref(dist.group.WORLD), layout)
+    return layout
 
 
 def make_mesh(axes: Sequence[str] = ("data",), shape: Optional[Sequence[int]] = None) -> DeviceMesh:
@@ -77,26 +200,42 @@ def make_mesh(axes: Sequence[str] = ("data",), shape: Optional[Sequence[int]] = 
         shape = (world,) + (1,) * (len(axes) - 1)
     if len(shape) != len(axes) or math.prod(shape) != world:
         raise ValueError(f"mesh {tuple(axes)} x {tuple(shape)} does not cover {world} ranks")
+    return _mesh_of(torch.arange(world).reshape(tuple(shape)), axes)
+
+
+def _mesh_of(ranks: torch.Tensor, axes: Sequence[str]) -> DeviceMesh:
+    """The named mesh of the default group's ranks laid out as ``ranks``."""
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, torch.arange(world).reshape(tuple(shape)), mesh_dim_names=tuple(axes))
+    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axes))
 
 
 def make_hybrid_mesh(ici_axes: Sequence[str], ici_shape: Sequence[int], dcn_axis: str = "replica",
                      dcn_size: Optional[int] = None) -> DeviceMesh:
     """JAX's multi-slice mesh: the slow ``dcn_axis`` outermost, the fast
-    ``ici_axes`` inside. Ranks are grouped contiguously, as JAX groups the
-    devices of one process off a multi-slice TPU: group g holds ranks g *
-    prod(ici_shape).., so collectives of the inner axes stay within a host's
-    ranks and only the outer axis crosses hosts. ``dcn_size`` defaults to
-    the world over one group."""
+    ``ici_axes`` inside, so collectives of the inner axes stay within a
+    host's ranks and only the outer axis crosses hosts. A host is JAX's
+    slice: ``dcn_size`` defaults to the number of hosts of the launch
+    (:func:`launch_layout`; 1 on one host), and where it equals them, each
+    group is a host's ranks in order, wherever they sit among the ranks;
+    else (one host, or another ``dcn_size``) group g holds ranks g *
+    prod(ici_shape) on, as JAX groups devices off a multi-slice pod."""
     world = dist.get_world_size()
+    layout = launch_layout()
+    hosts = layout.hosts if layout is not None else 1
     per_group = math.prod(ici_shape)
     if dcn_size is None:
-        dcn_size = world // per_group if per_group and world % per_group == 0 else 1
+        dcn_size = hosts
     if dcn_size * per_group != world:
         raise ValueError(f"{dcn_size} slices x {tuple(ici_shape)} ici = {dcn_size * per_group} ranks, "
                          f"have {world}")
-    return make_mesh((dcn_axis,) + tuple(ici_axes), (dcn_size,) + tuple(ici_shape))
+    if hosts == dcn_size > 1:
+        groups = [[r for r in range(world) if layout.host_of[r] == h] for h in range(hosts)]
+        if any(len(g) != per_group for g in groups):
+            raise ValueError(f"uneven slices: {[len(g) for g in groups]} ranks per slice, need {per_group}")
+        ranks = torch.tensor(groups)
+    else:
+        ranks = torch.arange(world)
+    return _mesh_of(ranks.reshape((dcn_size,) + tuple(ici_shape)), (dcn_axis,) + tuple(ici_axes))
 
 
 def _slice_dim(x, mesh: DeviceMesh, axis: Optional[str], dim: int):
@@ -152,8 +291,10 @@ def replicate(tree, mesh: Optional[DeviceMesh] = None, src: int = 0):
 
 def host_local_batch_slice(global_batch: int, axis: str = DATA_AXIS) -> Tuple[int, int]:
     """(start, size) of this rank's slice of the global batch dim: along
-    ``axis`` of the ambient mesh, else over the processes (JAX's per-host
-    input sharding; here each rank is a process)."""
+    ``axis`` of the ambient mesh, else over the processes. JAX slices per
+    host (one process a host); here each rank is a process and reads its
+    own slice, and a host's ranks, contiguous, together read its host's
+    slice."""
     n, i = axis_shards(axis)
     if n == 1 and ambient_mesh() is None and dist.is_initialized():
         n, i = dist.get_world_size(), dist.get_rank()

@@ -5,7 +5,9 @@ Counterpart of ``tchvp_tpu/utils/runrecord.py``: the fully resolved flags
 (after ``--config`` YAML merging), the environment (torch and CUDA
 versions, the device, rank and world size, the git revision) and the
 launch argv, enough to re-run the experiment or audit an old checkpoint
-directory. Only rank 0 writes it.
+directory. Only rank 0 writes it. Beside the rank and the world, the
+launch's host index and local world (JAX's ``process_index`` and
+``process_count`` are of hosts): rank 0 is on host 0.
 """
 
 from __future__ import annotations
@@ -49,6 +51,17 @@ def _rank_world() -> tuple:
     return 0, 1
 
 
+def _host() -> tuple:
+    """(host index, ranks on the host) of this rank's launch; (0, world)
+    for a process group made without one."""
+    from tchvp_tpu_torch.parallel.mesh import launch_layout
+
+    layout = launch_layout()
+    if layout is None:
+        return 0, _rank_world()[1]
+    return layout.host_index, layout.local_world
+
+
 def collect_run_record(
     args: Any = None, extra: Optional[Dict[str, Any]] = None,
     device: Optional[torch.device] = None,
@@ -66,6 +79,7 @@ def collect_run_record(
         device = torch.device(getattr(args, "device", None) or "cpu")
     device = torch.device(device)
     rank, world = _rank_world()
+    host_index, local_world = _host()
     record: Dict[str, Any] = {
         "timestamp_utc": datetime.datetime.now(datetime.timezone.utc)
         .isoformat(timespec="seconds"),
@@ -80,6 +94,8 @@ def collect_run_record(
             "device_count": torch.cuda.device_count() if device.type == "cuda" else 1,
             "rank": rank,
             "world_size": world,
+            "host_index": host_index,
+            "local_world": local_world,
             "python": sys.version.split()[0],
         },
         "git_revision": _git_revision(),

@@ -397,6 +397,7 @@ def test_run_record_environment(tmp_path):
     env = rec["environment"]
     assert env["torch_version"] == torch.__version__ and env["device_name"] == "cpu"
     assert (env["rank"], env["world_size"]) == (0, 1) and "git_revision" in rec
+    assert (env["host_index"], env["local_world"]) == (0, 1)
 
 
 def test_step_timer_and_trace(tmp_path, monkeypatch):

@@ -345,11 +345,15 @@ def test_loader_slices_concatenate_to_the_global_batch(two_ranks, flow_inputs):
 
 def test_replicate_and_the_hybrid_mesh(two_ranks):
     """``replicate`` puts rank 0's values on every rank; ``make_hybrid_mesh``
-    puts the replica axis outermost, ranks grouped contiguously, and
-    refuses a layout that is not the world."""
+    with two slices puts the replica axis outermost, ranks grouped
+    contiguously on one host; on one host its default is one slice, as
+    JAX's is off a multi-slice pod, so an ICI shape short of the world is
+    refused, as is a layout that is not the world
+    (``tests/test_torch_hosts.py`` holds both to JAX)."""
     for r, rank in enumerate(two_ranks):
         torch.testing.assert_close(rank["flows"]["replicated"], torch.zeros(3))
         assert rank["flows"]["hybrid"] == (("replica", "data"), (2, 1), r)
+        assert rank["flows"]["hybrid_default"] == "1 slices x (1,) ici = 1 ranks, have 2"
         assert rank["flows"]["hybrid_error"] == "3 slices x (1,) ici = 3 ranks, have 2"
 
 

@@ -517,12 +517,13 @@ def _dp_flows(inp):
            "clippack_mb2": [np.asarray(b).copy() for b in sharded_clippack_loader(
                inp["clippack"], inp["clippack_batch"], mesh, shuffle=True, seed=3, prefer_native=False,
                microbatches=2)]}
-    hybrid = parallel.make_hybrid_mesh(("data",), (1,))
+    hybrid = parallel.make_hybrid_mesh(("data",), (1,), dcn_size=2)
     got["hybrid"] = (hybrid.mesh_dim_names, tuple(hybrid.shape), hybrid.get_local_rank("replica"))
-    try:
-        parallel.make_hybrid_mesh(("data",), (1,), dcn_size=3)
-    except ValueError as e:
-        got["hybrid_error"] = str(e)
+    for key, dcn in (("hybrid_default", None), ("hybrid_error", 3)):
+        try:
+            parallel.make_hybrid_mesh(("data",), (1,), dcn_size=dcn)
+        except ValueError as e:
+            got[key] = str(e)
     seg = FCT(inp["fct_config"], device="cpu")
     seg.load_state_dict(inp["fct_state"])
     state = tstate.create_train_state(seg, tstate.make_optimizer(1.0, optimizer="sgd"), rng=3)
@@ -1475,3 +1476,73 @@ def run_groups(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dic
                    Path(out_dir) / f"groups_rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
+
+
+# ------------------------------------------------- the launch over several hosts
+
+
+# make_hybrid_mesh's cases of tests/test_torch_hosts.py: (ici_shape, dcn_size).
+HYBRID_CASES = (((2,), None), ((2,), 2), ((4,), None), ((1,), 4))
+
+
+def _hybrid_meshes() -> list:
+    """Each of HYBRID_CASES as this rank builds it: the mesh's ranks, or
+    the refusal's message."""
+    got = []
+    for ici, dcn in HYBRID_CASES:
+        try:
+            got.append(parallel.make_hybrid_mesh(("data",), ici, dcn_size=dcn).mesh.tolist())
+        except ValueError as e:
+            got.append(str(e))
+    return got
+
+
+def run_hosts(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -> None:
+    """One of 4 ranks of ``tests/test_torch_hosts.py``: launched as each of
+    ``inputs["hosts"]`` (a host name a rank, given as ``host=``), its
+    layout, the layout read back while the group lives and after it, and
+    the hybrid meshes; then ``video`` through ``cli.main`` as each of
+    ``inputs["cli"]`` (the host name a rank's ``socket.gethostname`` gives),
+    from ``inputs["state"]``'s weights: what it printed, its markers, and the
+    layout the CLI's launch made."""
+    import socket
+
+    from tchvp_tpu_torch import cli, config
+
+    torch.set_num_threads(1)
+    got = {}
+    for case, hosts in inputs["hosts"].items():
+        layout = parallel.init_distributed(f"file://{rendezvous}_{case}", world, rank, timeout_s=180,
+                                           host=hosts[rank])
+        try:
+            got[case] = {"layout": layout, "read_back": parallel.launch_layout(), "meshes": _hybrid_meshes()}
+        finally:
+            torch.distributed.destroy_process_group()
+        got[case]["after"] = parallel.launch_layout()
+    config.flagship_video_config = flagship_without_dropout
+    without_noise(tsteps)
+    real_model, real_init, real_name = cli._video_model, parallel.init_distributed, socket.gethostname
+    layouts = []
+
+    def seeded(args, device):
+        model = real_model(args, device)
+        model.load_state_dict(inputs["state"], strict=True)
+        return model
+
+    def init(*a, **k):
+        layouts.append(real_init(*a, **k))
+        return layouts[-1]
+
+    cli._video_model, parallel.init_distributed = seeded, init
+    try:
+        for name, hosts in inputs["cli"].items():
+            socket.gethostname = lambda: hosts[rank]
+            with dispatch_trace.capture() as seen, contextlib.redirect_stdout(io.StringIO()) as printed:
+                cli.main(inputs["argv"] + ["--checkpoint-dir", str(Path(out_dir) / name), "--coordinator",
+                                           f"file://{rendezvous}_{name}", "--num-processes", str(world),
+                                           "--process-id", str(rank)])
+            got[name] = {"printed": printed.getvalue(), "seen": seen, "layout": layouts[-1]}
+    finally:
+        cli._video_model, parallel.init_distributed, socket.gethostname = real_model, real_init, real_name
+    got["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))
+    torch.save(got, Path(out_dir) / f"hosts_rank{rank}.pt")
