@@ -194,8 +194,20 @@ Phases, one or more lines each:
     (dropout, noise and TF32 off) held to the same command as 4 ranks on
     one host by 16 (i)'s limits; NCCL's transport from its INFO lines;
     then both timed as users launch them (step ms and peak memory a rank).
-    ``--nccl hosts,stream,spatial,pipe`` runs only the named parts (an
-    axis: its timed command);
+    With four cards, (k) every composed mesh ``video`` trains, at config
+    1's width (224^2, 16 frames, 2 temporal layers, flash) and a global
+    batch of 8, as 4 ranks a card each through ``cli.main``:
+    ``model=2,expert=2`` and ``spatial=2,expert=2`` (4 experts),
+    ``seq=2,expert=2`` and ``seq=2,spatial=2`` (window 64) and
+    ``data=2,model=2 --fsdp``: each first step (dropout, noise and TF32
+    off, SGD lr 1) held to one process on the same global batch by 16
+    (i)'s limits, each axis's markers and no plain version's, the kernels'
+    launches a rank a step (the halo kernels under seq, else the flash
+    kernels: 2 a step each, one a layer); then timed as users launch them
+    beside one process (step ms and peak memory); ``data=2,model=2 --fsdp``
+    resumed from a copy of its shard-wise step_1, step_2 bit-equal to the
+    straight run's. ``--nccl hosts,stream,composed,spatial,pipe`` runs only
+    the named parts (an axis: its timed command);
 13. config 4 streaming: stream_video of the flagship at 256^2 (attn "xla",
     bf16) over one 16-frame 1080x1920 clip in 40 tiles, chunk 8, 4 frames
     of carried context: finite output of the clip's shape, no kernel
@@ -253,14 +265,15 @@ Phases, one or more lines each:
     gloo (as phase 12b spawns them, at its one temporal layer; one spawn
     with (i)'s command, a rendezvous per command):
     ``video --mesh seq=2 --window 64`` (B 2, T 32, one step): halo launches
-    2/2/2/2 per rank, rank 0's checkpoint; ``video --mesh seq=2 --attn-impl
-    ring`` (B 2, T 32, no window, 2 epochs of 2 steps): the ring on both
+    1/1/1/1 per rank, rank 0's checkpoint; ``video --mesh seq=2 --attn-impl
+    ring`` (B 2, T 32, no window, 2 epochs of 1 step): the ring on both
     ranks, no hand-written kernel launched; ``video --mesh expert=2
-    --num-experts 4 --attn-impl flash`` (B 2, T 8, 2 epochs of 2 steps):
-    the expert-parallel layer on both ranks, flash 2/2/2 a step, the ranks'
-    shard-wise checkpoint read whole holding all 4 experts; each rank's step ms from the second
-    epoch's wall (the times its epoch lines were printed) over its 2
-    steps, not a scaling number; (h) on (b)'s ``step_3``: ``infer`` (bf16, frames/s
+    --num-experts 4 --attn-impl flash`` (B 2, T 8, 2 epochs of 1 step):
+    the expert-parallel layer on both ranks, flash 1/1/1 a step, the ranks'
+    shard-wise AdamW checkpoint read whole holding all 4 experts in w1 and
+    its exp_avg; each rank's step ms from the second epoch's wall (the
+    times its epoch lines were printed), not a scaling number;
+    (h) on (b)'s ``step_3``: ``infer`` (bf16, frames/s
     and PSNR), ``eval``, ``stream`` of one 16-frame 1080p clip, ``summary``,
     ``doctor --smoke``; (i) ``video --mesh data=2`` as two ranks sharing the
     card over gloo: the flagship at full width (256^2, T 8), a global batch
@@ -461,6 +474,23 @@ Phases, one or more lines each:
     sum plus the two generators' states; the card's total_memory beside
     ``--hbm-gb``'s default. Its seconds as phase 23's (``[phase 25]``,
     "25 (in 16)");
+26. a mesh of two model-side axes on one card (item 11i), in phase 12b's
+    spawn of 4 processes after 12b's two ranks: ``video --mesh
+    seq=2,expert=2 --window 64 --num-experts 4 --attn-impl flash`` as 4
+    gloo ranks sharing the card, cut from config 1 to 128^2 (D 1024), B 2
+    of 16 frames and 1 temporal layer (four ranks, each running the conv
+    stacks on its frames of the whole batch, share one card, and the model
+    crosses the host on gloo), dropout and noise off, SGD lr 1, one step:
+    the halo kernels' launches per rank (1/1/1/1: forward, pass A, dq,
+    dk/dv), no flash or band launch, the seq, halo and expert markers and
+    no plain version's; the first step held to one process on the same
+    global batch by 16 (i)'s limits. It prints the seconds it adds (its
+    reference, its share of 12b's spawn, its checks), and phase 16 the
+    seconds cut for it, each from this run's time of what was cut: 12b's
+    and 16's one-process references computed while their ranks start
+    (the ranks wait for them before any work), 16 (g)'s ring and expert
+    commands at one step an epoch (were two), 16 (h)'s ``infer`` at 15
+    timed batches a run (were 30);
 14. kernel times: each kernel at its main-path shape beside its plain
     version, F.scaled_dot_product_attention (a yardstick, never on the
     port's path; with the boolean band as attn_mask for the banded
@@ -659,8 +689,8 @@ DRAWS_LIMIT = 16e9  # host bytes kept; the oldest draws go first
 # the spawned ranks build are also written to DRAWS_DIR, where a rank's
 # first draw of them reads them.
 DRAW_AHEAD = ((224, 0, 2), (224, 4, 2), (224, 8, 2), (256, 0, 2), (256, 4, 2), (384, 0, 2), (416, 0, 2),
-              (256, 0, 1), (256, 4, 1), (384, 0, 1))
-RANK_DRAWS = ((256, 0, 2), (256, 0, 1), (256, 4, 1), (384, 0, 1))
+              (256, 0, 1), (256, 4, 1), (384, 0, 1), (128, 4, 1))
+RANK_DRAWS = ((256, 0, 2), (256, 0, 1), (256, 4, 1), (384, 0, 1), (128, 4, 1))
 DRAWS_DIR = build.BUILD_DIR / "smoke_draws"  # ignored by git; emptied at the start and the end of a run
 
 
@@ -2227,47 +2257,95 @@ def seq_rank(rank: int, world: int) -> None:
     torch.distributed.destroy_process_group()
 
 
-def phase_seq_two_ranks(eval_ref) -> tuple:
-    """Phase 12b: the references in this process, then SEQ_RANKS ranks on
-    this card. Returns rank 0's launch counts of (b)'s main-path step, and
-    of (e)-(g)'s main paths together."""
+def wait_ready(ready: Path, rank: int) -> None:
+    """A spawned rank waits for its parent's ``ready`` file (its references
+    written); the seconds it waited go to ``ready``_waited<rank>."""
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + 600
+    while not ready.exists():
+        check(time.monotonic() < deadline, f"rank {rank}: no {ready} after 600 s")
+        time.sleep(0.05)
+    (ready.parent / f"{ready.name}_waited{rank}").write_text(repr(time.perf_counter() - t0))
+
+
+def spawn_beside(fn, args: tuple, nprocs: int, ready: Path, before):
+    """``nprocs`` ranks of ``fn(rank, *args)`` spawned, ``before()`` run in
+    this process while they start (their imports and the card's context:
+    several seconds), then ``ready`` written, at which each rank waits
+    (:func:`wait_ready`) before its work. Returns before's result, its
+    seconds, the spawn's wall and the most a rank waited: ``before``'s
+    seconds less that wait are those that the serial order would add."""
     import torch.multiprocessing as mp
 
+    t0 = time.perf_counter()
+    ctx = mp.spawn(fn, args=args, nprocs=nprocs, join=False)
+    try:
+        result = before()
+        before_s = time.perf_counter() - t0
+        ready.write_text("ready")
+    except BaseException:
+        for proc in ctx.processes:
+            proc.terminate()
+            proc.join()
+        raise
+    while not ctx.join():
+        pass
+    wall = time.perf_counter() - t0
+    waited = max(float((ready.parent / f"{ready.name}_waited{r}").read_text()) for r in range(nprocs))
+    return result, before_s, wall, waited
+
+
+def phase_seq_two_ranks(eval_ref) -> tuple:
+    """Phase 12b: the references in this process while the ranks start
+    (:func:`spawn_beside`), then SEQ_RANKS ranks on this card. Returns rank
+    0's launch counts of (b)'s main-path step, and of (e)-(g)'s main paths
+    together."""
     shutil.rmtree(SEQ_DIR, ignore_errors=True)
     SEQ_DIR.mkdir(parents=True)
     torch.backends.cudnn.allow_tf32 = False
-    model, state, step = seq_train_setup(dropout=False, sgd=True)
-    _, m = step(state, seq_clip(21))
-    torch.cuda.synchronize()
-    torch.save(eval_ref, SEQ_DIR / "eval_ref.pt")
-    torch.save({"loss": m["loss"].item(),
-                "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
-                "stats": {n: b.cpu() for n, b in model.named_buffers() if "running" in n}},
-               SEQ_DIR / "step_ref.pt")
-    del model, state, step
-    free_cuda()
-    # (f)'s reference: the single-process step with accum_steps=2.
-    model, state, step = seq_train_setup(dropout=False, sgd=True, accum_steps=2)
-    _, m = step(state, seq_clip(21))
-    torch.save({"loss": m["loss"].item(), "params": {n: p.detach().cpu() for n, p in model.named_parameters()}},
-               SEQ_DIR / "accum_ref.pt")
-    del model, state, step
-    free_cuda()
-    # (g)'s reference: the single-process (dense-MoE) flow's first step.
-    model, flow = ep_flow()
-    before = {n: p.detach().cpu() for n, p in model.named_parameters()}
-    _, m = flow._train_step(flow.state, ep_clip(50))
-    torch.save({"metrics": {k: v.item() for k, v in m.items()}, "before": before,
-                "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}, SEQ_DIR / "ep_ref.pt")
-    del model, flow, before
-    free_cuda()
-    t0 = time.perf_counter()
-    mp.spawn(seq_rank, args=(SEQ_RANKS,), nprocs=SEQ_RANKS, join=True)
-    wall = time.perf_counter() - t0
+
+    def references():
+        torch.save(eval_ref, SEQ_DIR / "eval_ref.pt")
+        model, state, step = seq_train_setup(dropout=False, sgd=True)
+        _, m = step(state, seq_clip(21))
+        torch.cuda.synchronize()
+        torch.save({"loss": m["loss"].item(),
+                    "params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+                    "stats": {n: b.cpu() for n, b in model.named_buffers() if "running" in n}},
+                   SEQ_DIR / "step_ref.pt")
+        del model, state, step
+        free_cuda()
+        # (f)'s reference: the single-process step with accum_steps=2.
+        model, state, step = seq_train_setup(dropout=False, sgd=True, accum_steps=2)
+        _, m = step(state, seq_clip(21))
+        torch.save({"loss": m["loss"].item(), "params": {n: p.detach().cpu() for n, p in model.named_parameters()}},
+                   SEQ_DIR / "accum_ref.pt")
+        del model, state, step
+        free_cuda()
+        # (g)'s reference: the single-process (dense-MoE) flow's first step.
+        model, flow = ep_flow()
+        before = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        _, m = flow._train_step(flow.state, ep_clip(50))
+        torch.save({"metrics": {k: v.item() for k, v in m.items()}, "before": before,
+                    "params": {n: p.detach().cpu() for n, p in model.named_parameters()}}, SEQ_DIR / "ep_ref.pt")
+        del model, flow, before
+        free_cuda()
+        # Phase 26's reference: one process's first step of its command.
+        t0 = time.perf_counter()
+        ref = one_reference(SEQ_DIR, COMPOSED_ONE_CARD)
+        torch.backends.cudnn.allow_tf32 = False  # quiet_cli's undo gave back the CLI's
+        return ref, time.perf_counter() - t0
+
+    (composed_ref, composed_ref_s), refs_s, wall, waited = spawn_beside(
+        seq_and_composed_rank, (COMPOSED_WORLD, composed_runs()), COMPOSED_WORLD, SEQ_DIR / "ready", references)
+    CUT_SECONDS["12b's references (and phase 26's) while its ranks start"] = refs_s - waited
+    # Phase 26's share of the spawn: from the later of 12b's ranks' ends to the spawn's.
+    composed_part_s = time.time() - max(float((SEQ_DIR / f"12b_end{r}").read_text()) for r in range(SEQ_RANKS))
     torch.backends.cudnn.allow_tf32 = True
     ranks = [json.loads((SEQ_DIR / f"rank{r}.json").read_text()) for r in range(SEQ_RANKS)]
     r0 = ranks[0]
-    print(f"[12b seq parallel] {SEQ_LABEL}, mesh ('seq',) of {SEQ_RANKS}, spawned in {wall:.1f} s: "
+    print(f"[12b seq parallel] {SEQ_LABEL}, mesh ('seq',) of {SEQ_RANKS}, spawned in {wall:.1f} s (its references "
+          f"{refs_s:.1f} s while the ranks start, which then waited {waited:.1f} s; phase 26's 4 ranks after 12b's): "
           f"(a) fp32 eval 384^2 B 1 T 32 w 64, each rank's frames vs phase 8: max abs "
           f"{[round(r['a_err'], 7) for r in ranks]} (tol 1e-3), "
           f"halo fwd launches {r0['a_counts']['halo_fwd_launches']} per rank")
@@ -2304,7 +2382,232 @@ def phase_seq_two_ranks(eval_ref) -> tuple:
           f"{r0['g_counts']['launches']}/{r0['g_counts']['dq_launches']}/{r0['g_counts']['dkv_launches']}; "
           f"shard-wise checkpoint saved in {r0['g_save_s']:.2f} s, read whole by rank 0")
     seq_ep = {k: sum(r0[f"{x}_counts"][k] for x in "efg") for k in r0["b_counts"]}
-    return r0["b_counts"], seq_ep
+    composed = check_composed(composed_ref, composed_ref_s, composed_part_s)
+    return r0["b_counts"], seq_ep, composed
+
+
+# Phase 26: a mesh of two model-side axes on one card, ``video --mesh
+# seq=2,expert=2`` as 4 gloo ranks sharing it. Every rank runs the conv
+# stacks on its seq block of the whole batch (no data axis), and every byte
+# of the model crosses the host on gloo, so four ranks of config 1 (224^2, B 8
+# of 16 frames, 2 temporal layers) do not fit one card or the script's time:
+# 128^2 (D 1024, 8 heads of 128) at config 1's 16 frames, a global batch of 2
+# of its 8 and 1 temporal layer of its 2; window 64 (8 x 16 = 128 tokens, 64
+# a seq rank), 4 experts (2 a rank); dropout and noise off, SGD lr 1, one step.
+COMPOSED_SIZE = 128
+COMPOSED_ONE_CARD = ["video", "--image-size", str(COMPOSED_SIZE), "--clip-len", "16", "--batch-size", "2", "--synthetic", "1",
+                     "--epochs", "1", "--save-every", "1", "--attn-impl", "flash", "--window", "64", "--num-experts", "4",
+                     "--layers", "1", "--device-prefetch", "0", "--optimizer", "sgd", "--lr", "1"]
+# The markers each axis's path records, and the plain versions no rank may run.
+MESH_MARKERS = {"seq": {"seq_sharded_shard_map", "windowed_mha_halo", "flash_halo_cuda", "flash_halo_bwd_cuda"},
+                "model": {"tp_constrain", "tp_constrain_conv"}, "expert": {"moe_ep_shard_map"},
+                "spatial": {"sp_constrain_conv", "sp_halo"}, "data": set(), "fsdp": {"fsdp_constrain"}}
+PLAIN_MARKERS = {"flash_mha_plain", "flash_mha_bwd_plain", "flash_windowed_plain", "flash_windowed_bwd_plain",
+                 "flash_halo_plain", "flash_halo_bwd_plain", "moe_dense"}
+
+
+def mesh_axes_of(flags: list) -> list:
+    """The axes of ``--mesh`` in ``flags``, and "fsdp" with ``--fsdp``."""
+    axes = [a.split("=")[0] for a in flags[flags.index("--mesh") + 1].split(",")]
+    return axes + (["fsdp"] if "--fsdp" in flags else [])
+
+
+def step_launches(flags: list, layers: int, steps: int) -> dict:
+    """The kernels' launches a rank of ``video flags`` makes over ``steps``
+    steps of ``layers`` temporal layers: the halo kernels under ``seq``
+    (forward, pass A, dq, dk/dv), else the flash kernels (forward, dq,
+    dk/dv), one each a layer a step."""
+    k = layers * steps
+    if "seq" in mesh_axes_of(flags):
+        return expect_counts(halo_fwd_launches=k, halo_ds_launches=k, halo_dq_launches=k, halo_dkv_launches=k)
+    return expect_counts(launches=k, dq_launches=k, dkv_launches=k)
+
+
+def check_composed_run(tag: str, name: str, flags: list, ranks: list, layers: int, steps: int) -> None:
+    """A composed mesh's run on every rank: its launches, each axis's markers
+    and no plain version's, ``steps`` finite losses equal across the ranks."""
+    need = set().union(*(MESH_MARKERS[a] for a in mesh_axes_of(flags)))
+    for r, got in enumerate(ranks):
+        g = got[name]
+        check(g["counts"] == step_launches(flags, layers, steps), f"{tag} {name} rank {r} launches {g['counts']}")
+        seen = set(g["seen"])
+        check(need <= seen and not seen & PLAIN_MARKERS,
+              f"{tag} {name} rank {r}: markers missing {sorted(need - seen)}, plain {sorted(seen & PLAIN_MARKERS)}")
+        check(len(g["steps"]) == steps and all(math.isfinite(m["loss"]) for m in g["steps"]),
+              f"{tag} {name} rank {r} steps {g['steps']}")
+    check(len({json.dumps([m["loss"] for m in g[name]["steps"]]) for g in ranks}) == 1,
+          f"{tag} {name}: the ranks' losses differ")
+
+
+COMPOSED_FLAGS = ["--mesh", "seq=2,expert=2"]
+COMPOSED_WORLD = 4
+
+
+def composed_runs() -> list:
+    """Phase 26's run of :func:`cli_rank`, its checkpoints in SEQ_DIR/se."""
+    return [("seq_expert", COMPOSED_ONE_CARD + COMPOSED_FLAGS + ["--checkpoint-dir", str(SEQ_DIR / "se")], True)]
+
+
+def seq_and_composed_rank(rank: int, world: int, runs: list) -> None:
+    """One process of phase 12b's spawn: the first SEQ_RANKS run phase 12b
+    (:func:`seq_rank`); then all ``world`` run phase 26 (:func:`cli_rank`),
+    the others having waited at its rendezvous."""
+    wait_ready(SEQ_DIR / "ready", rank)
+    if rank < SEQ_RANKS:
+        seq_rank(rank, SEQ_RANKS)
+        free_cuda()  # 12b's cached blocks off the card before four ranks share it
+        (SEQ_DIR / f"12b_end{rank}").write_text(repr(time.time()))
+    cli_rank(rank, world, str(SEQ_DIR / "cli_rendezvous"), runs)
+
+
+def check_composed(reference, reference_s: float, part_s: float) -> dict:
+    """Phase 26's checks on :func:`composed_runs`' results in 12b's spawn:
+    the halo kernels' launches a rank, each axis's markers and no plain
+    version's, the first step held to one process on the same global batch
+    (:func:`one_reference`) by 16 (i)'s limits. Prints the seconds it adds
+    to the run: its reference, ``part_s`` (its share of 12b's spawn, from
+    12b's ranks' end to the spawn's) and its checks. Returns rank 0's
+    launches."""
+    tag = "26 composed"
+    t0 = time.perf_counter()
+    ranks = [json.loads((SEQ_DIR / f"cli_rank{r}.json").read_text()) for r in range(COMPOSED_WORLD)]
+    check_composed_run(tag, "seq_expert", COMPOSED_FLAGS, ranks, 1, 1)
+    first = ranks[0]["seq_expert"]["steps"][0]
+    line = against_one(tag, first["loss"], reference, SEQ_DIR / "one" / "step_1", SEQ_DIR / "se" / "step_1", first)
+    WHOLE_READS.clear()
+    c = ranks[0]["seq_expert"]["counts"]
+    print(f"[{tag}] video {' '.join(COMPOSED_FLAGS)} --window 64 --num-experts 4 --attn-impl flash as 4 ranks sharing "
+          f"one H100 over gloo (in phase 12b's spawn), {CARD}; reduced from config 1 (224^2, B 8 of 16 frames, 2 "
+          f"layers) to {COMPOSED_SIZE}^2, B 2 of 16 frames, 1 temporal layer, since a seq rank runs the conv stacks "
+          f"on its frames of the whole batch, four share the card and the model crosses the host on gloo; dropout "
+          f"and noise off, SGD lr 1: halo launches "
+          f"per rank per step fwd {c['halo_fwd_launches']}, ds {c['halo_ds_launches']}, dq "
+          f"{c['halo_dq_launches']}, dkv {c['halo_dkv_launches']}, flash and band 0 (each rank); 2 of 4 experts a "
+          f"rank; the step (synchronised) {[round(g['seq_expert']['steps'][0]['ms'], 1) for g in ranks]} ms, the "
+          f"run's wall {[round(g['seq_expert']['wall'], 1) for g in ranks]} s, peak memory "
+          f"{[round(g['seq_expert']['peak_gb'], 2) for g in ranks]} GB per rank; the first step "
+          f"against one process on the same global batch: {line}")
+    checks_s = time.perf_counter() - t0
+    added = reference_s + part_s + checks_s
+    PHASE_SECONDS["26 (in 12b)"] = added
+    print(f"[phase 26] added {added:.1f} s on one card: its one-process reference {reference_s:.1f} s, its share "
+          f"of 12b's spawn {part_s:.1f} s (from 12b's ranks' end to the spawn's), its checks {checks_s:.1f} s; "
+          f"phase 16 prints the seconds cut for it")
+    return dict(c)
+
+
+# 12c (k): every composed mesh that ``video`` trains, over NCCL with a card a
+# rank, at config 1's width (224^2, 16 frames, 2 temporal layers, --attn-impl
+# flash) and a global batch of 8: (name, flags) each.
+C1_ARGV = ["video", "--image-size", "224", "--clip-len", "16", "--batch-size", "8", "--attn-impl", "flash"]
+C1_FIRST = ["--save-every", "1", "--device-prefetch", "0", "--optimizer", "sgd", "--lr", "1"]
+COMPOSED_MESHES = (
+    ("model_expert", ["--num-experts", "4", "--mesh", "model=2,expert=2"]),
+    ("seq_expert", ["--num-experts", "4", "--window", "64", "--mesh", "seq=2,expert=2"]),
+    ("spatial_expert", ["--num-experts", "4", "--mesh", "spatial=2,expert=2"]),
+    ("seq_spatial", ["--window", "64", "--mesh", "seq=2,spatial=2"]),
+    ("data_model_fsdp", ["--mesh", "data=2,model=2", "--fsdp"]),
+)
+
+
+def model_flags(flags: list) -> list:
+    """``flags`` without the mesh: the one process's flags."""
+    out, skip = [], False
+    for f in flags:
+        if skip:
+            skip = False
+        elif f == "--mesh":
+            skip = True
+        elif f != "--fsdp":
+            out.append(f)
+    return out
+
+
+def composed_resumed(rank: int, world: int, init_method: str, tmp: str) -> dict:
+    """A rank of 12c (k)'s ``--mesh data=2,model=2 --fsdp`` resumed from a
+    copy of its straight run's ``step_1`` (:func:`resumed_from_step_1`),
+    with the straight run's flags (``tmp``/resume_argv.json)."""
+    argv = json.loads((Path(tmp) / "resume_argv.json").read_text())
+    return resumed_from_step_1(rank, world, init_method, Path(tmp), "data_model_fsdp", argv)
+
+
+def composed_nccl(tmp: Path, cards: int) -> None:
+    """12c (k): each of COMPOSED_MESHES as 4 ranks, a card each, over NCCL,
+    through ``cli.main`` as users launch them: its first step (dropout,
+    noise and TF32 off, SGD lr 1) held to one process on the same global
+    batch by 16 (i)'s limits, each axis's markers and the kernels' launches
+    a rank a step checked; then timed as users launch it (TF32 as the CLI
+    has it, dropout and noise on, AdamW, 2 epochs of TIMED_STEPS steps)
+    beside one process; ``data=2,model=2 --fsdp`` straight for 2 steps and
+    resumed from a copy of its shard-wise ``step_1``, step_2 bit-equal
+    (cuDNN deterministic). One spawn runs every rank's runs."""
+    tag = "12c nccl (k)"
+    t0 = time.perf_counter()
+    timed_argv = C1_ARGV + ["--synthetic", str(TIMED_STEPS), "--epochs", "2", "--save-every", "10"]
+    refs, one_ms, one_gb = {}, {}, {}
+    for _, flags in COMPOSED_MESHES:
+        key = " ".join(model_flags(flags))
+        if key in refs:
+            continue
+        refs[key] = one_reference(tmp / f"ref_{len(refs)}", C1_ARGV + C1_FIRST + ["--epochs", "1"]
+                                  + model_flags(flags))
+        # A user's process: PyTorch's defaults (the spawned ranks start with them).
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+        out = StampedOut()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(out):
+            cli.main(timed_argv + model_flags(flags) + ["--checkpoint-dir", str(tmp / f"one_{len(refs)}")])
+        one_gb[key] = torch.cuda.max_memory_allocated() / 1e9
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        free_cuda()
+        one_ms[key] = epoch2_ms(out.lines)
+    runs = []
+    for name, flags in COMPOSED_MESHES:
+        first = C1_ARGV + C1_FIRST + ["--synthetic", "1"] + flags
+        if name == "data_model_fsdp":  # the resumed run's flags, but --epochs 2 --resume
+            (tmp / "resume_argv.json").write_text(json.dumps(first))
+        epochs = "2" if name == "data_model_fsdp" else "1"
+        runs.append((name, first + ["--epochs", epochs, "--checkpoint-dir", str(tmp / name)],
+                     "deterministic" if name == "data_model_fsdp" else True))
+        runs.append((f"{name}_timed", timed_argv + flags + ["--checkpoint-dir", str(tmp / f"{name}_timed")], False))
+    runs.append(("data_model_fsdp_resume", f"composed_resumed:{tmp}", "deterministic"))
+    ranks, wall = spawn_cli(4, runs)
+    shared = "4 ranks on 4 cards, NCCL" if cards >= 4 else f"4 ranks sharing {cards} card, gloo"
+    label = f"{shared}, one spawn of {wall:.1f} s for the {len(runs)} runs"
+    layers = flagship_video_config(224).temporal.num_layers
+    for name, flags in COMPOSED_MESHES:
+        key = " ".join(model_flags(flags))
+        steps = 2 if name == "data_model_fsdp" else 1
+        check_composed_run(tag, name, flags, ranks, layers, steps)
+        timed = f"{name}_timed"
+        check(all(len(g[timed]["epoch_ends"]) == 2 for g in ranks), f"{tag} {timed}: epoch lines")
+        check(all(g[timed]["counts"] == step_launches(flags, layers, 2 * TIMED_STEPS) for g in ranks),
+              f"{tag} {timed} launches {[g[timed]['counts'] for g in ranks]}")
+        first = ranks[0][name]["steps"][0]
+        line = against_one(f"{tag} {name}", first["loss"], refs[key],
+                           tmp / f"ref_{list(refs).index(key)}" / "one" / "step_1", tmp / name / "step_1", first)
+        ms = [round((g[timed]["epoch_ends"][1] - g[timed]["epoch_ends"][0]) / TIMED_STEPS * 1e3, 1) for g in ranks]
+        c = ranks[0][name]["counts"]
+        per_step = {k_: v_ // steps for k_, v_ in c.items() if v_}
+        print(f"[{tag}] {' '.join(C1_ARGV)} {' '.join(flags)} ({layers} temporal layers) as {label}; {CARD}: "
+              f"kernel launches a rank a step {per_step}; heads a flash call "
+              f"{ranks[0][name]['heads'] or '-'}; first step (dropout, noise, TF32 off, SGD lr 1) against one "
+              f"process on the same global batch: {line}")
+        print(f"[{tag}] {name} timed as users launch it (TF32 as the CLI has it, dropout and noise on, AdamW; "
+              f"epoch 2's wall over its {TIMED_STEPS} steps; {CARD}): step ms per rank {ms}, peak memory per rank "
+              f"{[round(g[timed]['peak_gb'], 2) for g in ranks]} GB; one process ({key or 'dense, full'}): "
+              f"{one_ms[key]:.1f} ms, {one_gb[key]:.2f} GB")
+        WHOLE_READS.clear()
+    straight = state_tensors(ckpt.restore_state(str(tmp / "data_model_fsdp" / "step_2")))
+    resumed = state_tensors(ckpt.restore_state(str(tmp / "resumed" / "step_2")))
+    bad = unequal(straight, resumed)
+    check(ckpt.is_sharded_checkpoint(str(tmp / "data_model_fsdp" / "step_1")), f"{tag}: step_1 not shard-wise")
+    check(not bad, f"{tag} data_model_fsdp: the resumed step_2 differs from the straight one in {len(bad)} "
+                   f"tensors: {bad[:5]}")
+    print(f"[{tag}] data=2,model=2 --fsdp: --resume from a copy of its shard-wise step_1 against 2 straight steps "
+          f"(cuDNN deterministic): all {len(straight)} tensors of step_2 bit-equal, read whole here; "
+          f"{time.perf_counter() - t0:.1f} s for (k)")
 
 
 def timed_nccl(tmp: Path, cards: int, flags: list) -> None:
@@ -2334,6 +2637,9 @@ def phase_nccl() -> None:
                     phase_hosts(Path(tmp), cards)
                 elif part == "stream":
                     stream_nccl(cards)
+                elif part == "composed":
+                    check(cards >= 4, f"12c (k) needs 4 cards, has {cards}")
+                    composed_nccl(Path(tmp), cards)
                 else:
                     timed_nccl(Path(tmp), cards, ["--mesh", f"{part}=2"])
             free_cuda()
@@ -2352,6 +2658,7 @@ def phase_nccl() -> None:
             data_mesh_cli("12c nccl", Path(tmp), f"4 ranks on 4 cards, NCCL", 4,
                           [("data_expert", 8, ["--num-experts", "4", "--mesh", "data=2,expert=2"])], reference=False)
             phase_hosts(Path(tmp), cards)
+            composed_nccl(Path(tmp), cards)
     free_cuda()
 
 
@@ -2886,7 +3193,7 @@ class StampedOut(io.TextIOBase):
         return len(text)
 
 
-def cli_rank(rank: int, world: int, rendezvous: str, runs: list) -> None:
+def cli_rank(rank: int, world: int, rendezvous: str, runs: list, ready: Optional[str] = None) -> None:
     """One rank of phase 16 (g)'s, (i)'s, 23's and 24's commands (and
     12c's): each ``(name, argv, quiet)`` of ``runs`` through ``cli.main``
     (under :func:`quiet_cli` where ``quiet``), joined anew over a rendezvous
@@ -2894,7 +3201,10 @@ def cli_rank(rank: int, world: int, rendezvous: str, runs: list) -> None:
     called with the rank, the world and the rendezvous); writes each run's
     launch counts, dispatch markers, the times its epoch lines were printed,
     its recorded steps and the function's result to
-    SEQ_DIR/cli_rank<r>.json."""
+    SEQ_DIR/cli_rank<r>.json. With ``ready``, it first waits for that file
+    (:func:`spawn_cli_beside`)."""
+    if ready is not None:
+        wait_ready(Path(ready), rank)
     keep_draws()
     got = {}
     real_mha = fa.mha
@@ -3010,6 +3320,20 @@ def spawn_cli(world: int, runs: list) -> tuple:
     return [json.loads((SEQ_DIR / f"cli_rank{r}.json").read_text()) for r in range(world)], wall
 
 
+def spawn_cli_beside(world: int, runs: list, before) -> tuple:
+    """:func:`spawn_cli` with ``before()`` run in this process while the
+    ranks start (:func:`spawn_beside`): each rank's results, the spawn's
+    wall s, before's result, and the seconds of it that the ranks' start
+    hid."""
+    shutil.rmtree(SEQ_DIR, ignore_errors=True)
+    SEQ_DIR.mkdir(parents=True)
+    ready = SEQ_DIR / "ready"
+    result, before_s, wall, waited = spawn_beside(
+        cli_rank, (world, str(SEQ_DIR / "cli_rendezvous"), runs, str(ready)), world, ready, before)
+    ranks = [json.loads((SEQ_DIR / f"cli_rank{r}.json").read_text()) for r in range(world)]
+    return ranks, wall, result, before_s - waited
+
+
 # The data-parallel step through the CLI: the training cell's flagship (256^2,
 # T 8, flash attention), dropout and noise off, SGD lr 1 (the update is the
 # clipped gradient), DATA_STEPS steps, a checkpoint after each.
@@ -3036,17 +3360,28 @@ def data_runs(tmp: Path, runs_spec) -> list:
 
 
 def data_reference(tmp: Path, runs_spec) -> tuple:
-    """The first run's first step as one process on the same global batch,
-    under quiet_cli (the last --synthetic wins): its metrics, and the
-    model's initial state on the host."""
+    """The first run's first step as one process on the same global batch
+    (:func:`one_reference`)."""
     _, b, _ = runs_spec[0]
+    return one_reference(tmp, DATA_ARGV + ["--batch-size", str(b)])
+
+
+def one_reference(tmp: Path, argv: list) -> tuple:
+    """``argv``'s first step as one process, under quiet_cli (``--synthetic
+    1``: the last --synthetic wins; its checkpoints in ``tmp``/one): its
+    metrics, and the model's initial state on the host."""
     undo = quiet_cli()
     try:
-        argv = DATA_ARGV + ["--batch-size", str(b), "--synthetic", "1", "--checkpoint-dir", str(tmp / "one")]
+        argv = argv + ["--synthetic", "1", "--checkpoint-dir", str(tmp / "one")]
         run_cli(argv)
         ref = STEP_METRICS[0]
-        init = {k: v.cpu() for k, v in cli._video_model(cli._build_parser()[0].parse_args(argv),
-                                                        torch.device("cuda")).state_dict().items()}
+        args = cli._build_parser()[0].parse_args(argv)
+        model = cli._video_model(args, torch.device("cuda"))
+        init = {k: v.cpu() for k, v in model.state_dict().items()}
+        # The tokens each MoE layer routes in the step, and its experts (against_one).
+        ref["tokens"] = args.batch_size * args.clip_len * model.config.tokens_per_frame
+        ref["experts"] = args.num_experts
+        del model
     finally:
         STEP_METRICS.clear()
         undo()
@@ -3102,13 +3437,37 @@ def read_whole(path: Path) -> dict:
     return WHOLE_READS[str(path)]
 
 
-def against_one(what: str, loss: float, reference, one_path: Path, path: Path) -> str:
+def against_one(what: str, loss: float, reference, one_path: Path, path: Path, step: Optional[dict] = None) -> str:
     """A rank's first step against :func:`data_reference`'s one process:
     the loss within rtol 1e-5, the parameters of the checkpoint at ``path``
     (read whole here) within 1.9 x 2e-2 x the largest gradient (phase 12b's
-    limit), the BatchNorm stats within 1e-5. Returns the line's text."""
+    limit), the BatchNorm stats within 1e-5. Returns the line's text.
+
+    ``step``: the rank's first-step metrics, for a routed MoE. Routing as
+    the one process's (``moe_aux`` within rtol 1e-5, ``moe_drop_frac``
+    equal) keeps every limit above. A routing that differs by one token
+    and no more (``moe_drop_frac`` off by at most 1/tokens, ``moe_aux`` by
+    at most experts/tokens, what one token's first choice moving to another
+    expert can change; seen on the CPU at 32^2, where a near tie of two
+    gates went the other way under a reordered fp32 sum and moved that
+    token's frames) holds the loss within rtol 1e-3 and the BatchNorm stats
+    within 1e-3, the parameters as ever. Any larger difference keeps rtol
+    1e-5 and 1e-5, and so fails: a fault in the dispatch moves more than
+    one token.
+"""
     ref, init = reference
-    check(abs(loss - ref["loss"]) <= 1e-5 * abs(ref["loss"]), f"{what} loss {loss} vs one process {ref['loss']}")
+    rtol, routing = 1e-5, ""
+    if step is not None and "moe_aux" in ref:
+        d_aux, d_drop = abs(step["moe_aux"] - ref["moe_aux"]), abs(step["moe_drop_frac"] - ref["moe_drop_frac"])
+        same = d_aux <= 1e-5 * abs(ref["moe_aux"]) and d_drop == 0.0
+        one_token = (not same and d_drop <= (1 + 1e-5) / ref["tokens"]
+                     and d_aux <= ref["experts"] / ref["tokens"] + 1e-5 * abs(ref["moe_aux"]))
+        rtol = 1e-3 if one_token else 1e-5
+        routing = (f"routing {'as one process' if same else 'one token off one process' if one_token else 'not as one process'}"
+                   f"'s (moe_aux {step['moe_aux']:.7f} vs {ref['moe_aux']:.7f}, moe_drop_frac "
+                   f"{step['moe_drop_frac']:.6f} vs {ref['moe_drop_frac']:.6f}, {ref['tokens']} tokens a layer); ")
+    check(abs(loss - ref["loss"]) <= rtol * abs(ref["loss"]), f"{what} loss {loss} vs one process {ref['loss']} "
+                                                              f"(rtol {rtol:g}; {routing})")
     one = read_whole(one_path)["model"]
     two = read_whole(path)["model"]
     if ppl.is_pipelined_params(two):  # the pipelined layout, read whole
@@ -3118,10 +3477,10 @@ def against_one(what: str, loss: float, reference, one_path: Path, path: Path) -
     worst = max(((two[k] - one[k]).abs().max().item(), k) for k in grads)
     stat = max((two[k] - one[k]).abs().max().item() for k in one if "running" in k)
     check(worst[0] <= 1.9 * 2e-2 * gmax, f"{what} parameter {worst[1]}: {worst[0]} > 1.9 x 2e-2 x {gmax}")
-    check(stat <= 1e-5, f"{what} BatchNorm stats: {stat}")
-    return (f"loss {loss:.7f} vs {ref['loss']:.7f} (rtol 1e-5); parameters max abs {worst[0]:.3g} at {worst[1]} "
+    check(stat <= rtol, f"{what} BatchNorm stats: {stat} ({routing})")
+    return (f"{routing}loss {loss:.7f} vs {ref['loss']:.7f} (rtol {rtol:g}); parameters max abs {worst[0]:.3g} at {worst[1]} "
             f"({worst[0] / gmax:.3g} x the largest gradient {gmax:.3g}; limit 1.9 x 2e-2); BatchNorm stats "
-            f"{stat:.3g} (limit 1e-5); one process's step {ref['ms']:.1f} ms (the first, synchronised)")
+            f"{stat:.3g} (limit {rtol:g}); one process's step {ref['ms']:.1f} ms (the first, synchronised)")
 
 
 # Phase 23: FSDP and tensor parallelism through ``video`` as two ranks sharing
@@ -3133,6 +3492,9 @@ PAR_ARGV = ["video", "--image-size", "256", "--clip-len", "8", "--batch-size", "
             "--attn-impl", "flash", "--device-prefetch", "0", "--optimizer", "sgd", "--lr", "1", "--save-every", "1"]
 PAR_STEPS = {"fsdp": 2, "fsdp_resume": 1, "tp": 1}
 PHASE_SECONDS: dict = {}  # phases run inside another: their seconds, for [done]
+# The seconds this run no longer spends since phase 26 came in, each from
+# this run's own time of the unit cut (a step, a batch): what -> seconds.
+CUT_SECONDS: dict = {}
 
 
 FSDP_ARGV = PAR_ARGV + ["--mesh", "data=2", "--fsdp"]
@@ -3149,17 +3511,24 @@ def parallel_runs(tmp: Path) -> list:
             ("tp", PAR_ARGV + ["--mesh", "model=2", "--epochs", "1", "--checkpoint-dir", str(tmp / "tp")], True)]
 
 
-def fsdp_resumed(rank: int, world: int, init_method: str, tmp: str) -> None:
-    """A rank of ``video --mesh data=2 --fsdp --resume --epochs 2`` in
-    ``tmp``/resumed, which holds a copy of the straight run's shard-wise
-    ``step_1`` (rank 0 copies it; the other ranks wait for it)."""
-    src, dst = Path(tmp) / "fsdp" / "step_1", Path(tmp) / "resumed"
+def fsdp_resumed(rank: int, world: int, init_method: str, tmp: str) -> dict:
+    """A rank of ``video --mesh data=2 --fsdp --resume --epochs 2``
+    (:func:`resumed_from_step_1` of the run "fsdp")."""
+    return resumed_from_step_1(rank, world, init_method, Path(tmp), "fsdp", FSDP_ARGV)
+
+
+def resumed_from_step_1(rank: int, world: int, init_method: str, tmp: Path, name: str, argv: list) -> dict:
+    """A rank of ``argv --resume --epochs 2`` in ``tmp``/resumed, which holds
+    a copy of the straight run ``name``'s shard-wise ``step_1`` (rank 0
+    copies it; the other ranks wait for it); what the rank holds once its
+    step is taken."""
+    src, dst = tmp / name / "step_1", tmp / "resumed"
     if rank == 0:
         shutil.copytree(src, Path(tmp) / "resumed.part" / "step_1")
         os.replace(Path(tmp) / "resumed.part", dst)
     deadline = time.monotonic() + 120
     while not dst.exists():
-        check(time.monotonic() < deadline, f"23 fsdp_resume rank {rank}: no copy of {src} after 120 s")
+        check(time.monotonic() < deadline, f"{name} resume rank {rank}: no copy of {src} after 120 s")
         time.sleep(0.05)
     held = {}
     real = VideoFlow.train
@@ -3171,8 +3540,8 @@ def fsdp_resumed(rank: int, world: int, init_method: str, tmp: str) -> None:
 
     VideoFlow.train = train
     try:
-        cli.main(FSDP_ARGV + ["--epochs", "2", "--resume", "--checkpoint-dir", str(dst), "--coordinator",
-                              init_method, "--num-processes", str(world), "--process-id", str(rank)])
+        cli.main(argv + ["--epochs", "2", "--resume", "--checkpoint-dir", str(dst), "--coordinator",
+                         init_method, "--num-processes", str(world), "--process-id", str(rank)])
     finally:
         VideoFlow.train = real
     return {"held": held}
@@ -3735,10 +4104,10 @@ def timed_data_cli(tag: str, tmp: Path, label: str, world: int, batch: int, flag
 MESH_CLI = (
     ("halo", ["--synthetic", "1", "--epochs", "1", "--clip-len", "32", "--attn-impl", "flash", "--window", "64",
               "--mesh", "seq=2"], 0),
-    ("ring", ["--synthetic", "2", "--epochs", "2", "--save-every", "10", "--clip-len", "32", "--attn-impl", "ring",
-              "--mesh", "seq=2"], 2),
-    ("expert", ["--synthetic", "2", "--epochs", "2", "--save-every", "10", "--clip-len", "8", "--attn-impl",
-                "flash", "--num-experts", "4", "--mesh", "expert=2"], 2),
+    ("ring", ["--synthetic", "1", "--epochs", "2", "--save-every", "10", "--clip-len", "32", "--attn-impl", "ring",
+              "--mesh", "seq=2"], 1),
+    ("expert", ["--synthetic", "1", "--epochs", "2", "--save-every", "10", "--clip-len", "8", "--attn-impl",
+                "flash", "--num-experts", "4", "--mesh", "expert=2"], 1),
 )
 
 
@@ -3789,13 +4158,14 @@ def check_mesh_cli(tag: str, tmp: Path, label: str, ranks: list) -> dict:
     for name, flags, steps in MESH_CLI[1:]:
         c = ranks[0][name]["counts"]
         ms = [(g[name]["epoch_ends"][1] - g[name]["epoch_ends"][0]) / steps * 1e3 for g in ranks]
+        CUT_SECONDS[f"16 (g) {name}: 2 epochs of 1 step, were 2 of 2"] = 2 * max(ms) / 1e3
         epochs = [t.strip() for t in ranks[0][name]["printed"] if t.startswith("Video epoch")]
         print(f"[{tag}] (g) video {' '.join(flags[8:])} (T {flags[flags.index('--clip-len') + 1]}, "
-              f"2 epochs of {steps} steps): flash launches per rank {c['launches']}/{c['dq_launches']}/"
+              f"2 epochs of {steps} step): flash launches per rank {c['launches']}/{c['dq_launches']}/"
               f"{c['dkv_launches']}; {' | '.join(epochs)}; step ms per rank (epoch 2's wall over its "
-              f"{steps} steps; {label}; not a scaling number) {[round(x, 1) for x in ms]}")
+              f"{steps} step; {label}; not a scaling number) {[round(x, 1) for x in ms]}")
     print(f"[{tag}] (g) expert checkpoint: step_2 written shard-wise by both ranks, read whole here: w1 "
-          f"{tuple(w1.shape)} (all 4 experts)")
+          f"{tuple(w1.shape)} and its AdamW exp_avg (all 4 experts)")
     return {k: sum(ranks[0][name]["counts"][k] for name, _, _ in MESH_CLI) for k in h}
 
 
@@ -3824,7 +4194,7 @@ def counter_of(record_name: str) -> str:
     return f"{kind}_{part}_launches" if part else f"{record_name}_launches"
 
 
-INFER_BATCHES, STREAM_CLIPS = 30, 3  # timed after the CLI's one warm-up batch or clip
+INFER_BATCHES, STREAM_CLIPS = 15, 3  # timed after the CLI's one warm-up batch or clip
 
 
 def profiled(fn) -> float:
@@ -3858,12 +4228,31 @@ def phase_infer(tag: str, served: str) -> str:
     for _ in SyntheticClips(8, 8, 256, INFER_BATCHES):
         pass
     make_ms = (time.perf_counter() - t0) / INFER_BATCHES * 1e3
+    CUT_SECONDS[f"16 (h) infer: {INFER_BATCHES} timed batches a run, were 30"] = \
+        (30 - INFER_BATCHES) * (4 * wall_ms + make_ms) / 1e3  # 3 timed runs, the profiled one, the host's
     print(f"[{tag}] (h) infer --batch-size 8 --clip-len 8 --image-size 256 (bf16, 'xla' attention, "
           f"{INFER_BATCHES} timed batches a run, 3 runs): frames/s {[round(r, 1) for r in rates]}, median "
           f"{med:.1f} (spread {100 * (max(rates) - min(rates)) / med:.2f}%), {wall_ms:.2f} ms a batch; the "
           f"device busy {busy_ms:.2f} ms a batch (profiled, {100 * (1 - busy_ms / wall_ms):.1f}% idle); "
           f"the host makes a synthetic batch in {make_ms:.2f} ms (SyntheticClips alone)")
     return text
+
+
+class PartClock:
+    """The seconds of a phase's parts: ``clock(name)`` ends the part running
+    and starts ``name``; ``clock()`` ends the last."""
+
+    def __init__(self):
+        self.seconds, self.part, self.t = {}, None, time.perf_counter()
+
+    def __call__(self, part: Optional[str] = None) -> None:
+        now = time.perf_counter()
+        if self.part is not None:
+            self.seconds[self.part] = self.seconds.get(self.part, 0.0) + now - self.t
+        self.part, self.t = part, now
+
+    def line(self) -> str:
+        return ", ".join(f"({k}) {v:.1f}" for k, v in self.seconds.items())
 
 
 def phase_runtime(train_ms: float) -> dict:
@@ -3876,6 +4265,7 @@ def phase_runtime(train_ms: float) -> dict:
     n = CELL_LAYERS  # (a)-(c)'s flash launches a step, each kind
     cwd = os.getcwd()
     det = torch.backends.cudnn.deterministic
+    clock = PartClock()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         os.chdir(tmp)  # runs/ (the event files) goes here
@@ -3886,6 +4276,7 @@ def phase_runtime(train_ms: float) -> dict:
                 warnings.simplefilter("always")
                 # (a) 2 epochs of 3 steps, a checkpoint per epoch, the newest kept.
                 a_dir = tmp / "a"
+                clock("a")
                 reset_counts()
                 t0 = time.perf_counter()
                 text = run_cli(["video", *CLI_CELL, "--epochs", "2", "--save-every", "1",
@@ -3914,6 +4305,7 @@ def phase_runtime(train_ms: float) -> dict:
                       + "; ".join(re.findall(r"Video epoch \d+: [^\n]*", text)))
 
                 # (b) restore bit-equal, then resume for epoch 3 against 3 straight epochs.
+                clock("b")
                 state, raw, restore_ms = cli_state(a_dir / "step_2")
                 ckpt.save_state(str(tmp / "again"), 2, state, extra=raw.get("extra"))
                 again = ckpt.restore_state(str(tmp / "again" / "step_2"))
@@ -3954,6 +4346,7 @@ def phase_runtime(train_ms: float) -> dict:
             torch.use_deterministic_algorithms(False)
 
             # (c) a mid-epoch resume from a clippack.
+            clock("c")
             clips = np.random.default_rng(DATA_SEED).integers(0, 256, (DATA_CLIPS, 8, 256, 256, 3),
                                                               dtype=np.uint8)
             pack = str(tmp / "clips.cpk")
@@ -3981,6 +4374,7 @@ def phase_runtime(train_ms: float) -> dict:
                   f"{step_tags(c_dir)}, step_5 at epoch 1 batch 2")
 
             # (d) the full state's save, async save and restore.
+            clock("d")
             state, raw, restore_ms = cli_state(a_dir / "step_3")
             d_dir = tmp / "d"
             torch.cuda.synchronize()
@@ -4008,6 +4402,7 @@ def phase_runtime(train_ms: float) -> dict:
             shutil.rmtree(d_dir)
 
             # (e) the flow's step against phase 11's bare step; saves left out (timed in (d)).
+            clock("e")
             model = VideoHybridNet(flagship_video_config(256, attn_impl="flash"), device="cuda",
                                    generator=torch.Generator().manual_seed(0))
             flow = VideoFlow(model, cfg=TrainConfig(model_name="video", loss="mixed", lr=1e-4,
@@ -4036,6 +4431,7 @@ def phase_runtime(train_ms: float) -> dict:
             free_cuda()
 
             # (f) windowed training through the CLI: the banded kernels.
+            clock("f")
             reset_counts()
             run_cli(["video", "--synthetic", "2", "--batch-size", "2", "--clip-len", "32", "--image-size",
                      "256", "--attn-impl", "flash", "--window", "64", "--epochs", "1",
@@ -4053,11 +4449,13 @@ def phase_runtime(train_ms: float) -> dict:
             # (g) the mesh commands and (i) data parallelism, video --mesh
             # data=2 (the flagship at full width, a global batch of 4: two
             # full-batch ranks would not fit), as two ranks sharing this card
-            # (gloo) in one spawn; (i)'s one-process reference first.
+            # (gloo) in one spawn; (i)'s one-process reference while they start.
+            clock("g, i, 23-25")
             data_spec = [("data", 4, ["--mesh", "data=2"])]
-            reference = data_reference(tmp / "i", data_spec)
-            ranks, wall = spawn_cli(2, mesh_runs(tmp / "g") + data_runs(tmp / "i", data_spec)
-                                    + parallel_runs(tmp / "p") + spatial_pipe_runs(tmp / "s") + stream_runs())
+            ranks, wall, reference, hidden = spawn_cli_beside(
+                2, mesh_runs(tmp / "g") + data_runs(tmp / "i", data_spec) + parallel_runs(tmp / "p")
+                + spatial_pipe_runs(tmp / "s") + stream_runs(), lambda: data_reference(tmp / "i", data_spec))
+            CUT_SECONDS["16's one-process reference while its ranks start"] = hidden
             label = (f"2 ranks sharing one H100, gloo; (g)'s 3 commands, (i)'s, phase 23's 3, phase 24's 7 and "
                      f"phase 25's 2 in one spawn of {wall:.1f} s")
             mesh_counts = check_mesh_cli(tag, tmp / "g", label, ranks)
@@ -4065,21 +4463,32 @@ def phase_runtime(train_ms: float) -> dict:
             par_counts = check_parallel_cli(tmp / "p", label, ranks, reference, tmp / "i")
             sp_counts = check_spatial_pipe(tmp / "s", label, ranks, reference, tmp / "i")
             check_stream_and_plans(label, ranks)
+            print(f"[phase 16] the spawn's runs, rank 0's wall: "
+                  + ", ".join(f"{name} {got['wall']:.1f}" for name, got in ranks[0].items()) + " s")
             mesh_counts = {k: mesh_counts[k] + data_counts[k] + par_counts[k] + sp_counts[k] for k in mesh_counts}
             WHOLE_READS.clear()
             del reference
             free_cuda()
 
             # (h) serving the checkpoint of (b).
+            clock("h")
             served = str(a_dir / "step_3")
+            h_clock = PartClock()
+            h_clock("infer")
             out = {"infer": phase_infer(tag, served)}
+            h_clock("eval")
             out["eval"] = run_cli(["eval", "--checkpoint", served, "--synthetic", "2", "--batch-size", "8",
                                    "--clip-len", "8", "--image-size", "256", *CELL_DEPTH])
+            h_clock("stream")
             out["stream"] = run_cli(["stream", "--checkpoint", served, "--synthetic", str(STREAM_CLIPS + 1),
                                      "--batch-size", "1", "--clip-len", "16", "--height", "1080",
                                      "--width", "1920", *CELL_DEPTH])
+            h_clock("summary")
             out["summary"] = run_cli(["summary", "--image-size", "256", "--depth", "1"])
+            h_clock("doctor")
             out["doctor"] = run_cli(["doctor", "--smoke"])
+            h_clock()
+            print(f"[phase 16] (h)'s commands: {h_clock.line()} s")
             for k in ("infer", "eval"):
                 psnr = float(re.search(r"PSNR (-?[0-9.]+) dB", out[k]).group(1))
                 check(math.isfinite(psnr), f"(h) {k}: {out[k]}")
@@ -4097,6 +4506,13 @@ def phase_runtime(train_ms: float) -> dict:
             torch.backends.cudnn.deterministic = det
             torch.use_deterministic_algorithms(False)
     free_cuda()
+    clock()
+    print(f"[phase 16] its parts: {clock.line()} s")
+    if "26 (in 12b)" in PHASE_SECONDS:
+        cut = sum(CUT_SECONDS.values())
+        print(f"[phase 26] cut for it {cut:.1f} s (against its {PHASE_SECONDS['26 (in 12b)']:.1f} s added), each "
+              f"from this run's time of what was cut: "
+              + "; ".join(f"{k} {v:.1f} s" for k, v in CUT_SECONDS.items()))
     return {k: a_counts[k] + band[k] + mesh_counts[k] for k in a_counts}
 
 
@@ -5418,20 +5834,27 @@ def phase_serving(train_ms: Optional[float] = None) -> dict:
     for key in SERVING_LAUNCHES:
         SERVING_LAUNCHES[key] = 0
     t0 = time.perf_counter()
+    clock = PartClock()
+    clock("a int8")
     a = phase_int8()
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         os.chdir(tmp)  # runs/ and checkpoints/ go here
         try:
+            clock("b, c export and serve")
             phase_export_serve(tmp, a)
             del a
             free_cuda()
+            clock("stream serve")
             phase_stream_serve(tmp)
+            clock("d qat")
             phase_qat(tmp, train_ms)
         finally:
             os.chdir(cwd)
     free_cuda()
+    clock()
+    print(f"[phase 20] its parts: {clock.line()} s")
     print(f"[20 serving] {time.perf_counter() - t0:.1f} s; hand-written kernel launches of (a)-(d): "
           + ", ".join(f"{k} {v}" for k, v in SERVING_LAUNCHES.items() if v))
     return dict(SERVING_LAUNCHES)
@@ -6430,7 +6853,7 @@ def main() -> None:
     if "14" in phases:
         t = time.perf_counter()
         train, windowed = r["11"][0], r["12"][0]
-        halo_launches, seq_ep = r["12b"]
+        halo_launches, seq_ep, composed = r["12b"]
         records = time_flash(r["9"], r["3"], {"flash_bwd_dq": train["dq_launches"],
                                               "flash_bwd_dkv": train["dkv_launches"]}, r["4"])
         records += time_band({"band_fwd": r["10"], "band_bwd_ds": windowed["band_ds_launches"],
@@ -6449,6 +6872,7 @@ def main() -> None:
             rec["serving_launches"] = r["20"][counter]  # phase 20 (a)-(d)
             rec["moe_launches"] = r["21"][counter]  # phase 21 (a)-(c)
             rec["seq_ep_launches"] = seq_ep[counter]  # phase 12b (e)-(g), rank 0
+            rec["composed_launches"] = composed[counter]  # phase 26 (in 12b), rank 0's one step
             family = rec["name"].split("_")[0]  # phase 22: each block candidate's device ms
             rec["block_ms"] = {k_: v_ for k_, v_ in r["22"].items() if k_.split(" ")[0] == family}
         seconds["14"] = time.perf_counter() - t

@@ -33,9 +33,16 @@ Every command that runs a model runs it on ``--device`` (default
 ``port``, ``summary`` and ``shards`` run no model: they build theirs on the
 CPU (``shards`` on the ``meta`` device).
 
-A mesh (``--mesh data=N``, ``seq``, ``expert``, ``model``, ``spatial``,
-``pipe`` and their products; ``--data-parallel``) runs as one process a
-rank, on one host or several: every process gets the same flags,
+A mesh (``--mesh axis=N,...``; ``--data-parallel`` puts every rank on
+``data``) runs as one process a rank, on one host or several. ``video``
+takes any product of ``seq``, ``model``, ``expert`` and ``spatial``, with
+or without ``data=``, and ``pipe`` beside ``data=`` alone, as JAX's
+``video`` does (``seq`` with ``--window`` or ``--attn-impl ring``,
+``expert`` with ``--num-experts``, ``--fsdp`` over ``data=``); ``segment``
+takes ``data`` and ``spatial``, ``infer`` and ``serve`` ``data`` and
+``pipe``, ``eval`` ``data`` and ``seq``, the other commands ``data``
+alone (:func:`mesh_refusal`, the one rule). Every process gets the same
+flags,
 ``--coordinator`` (``host:port`` of rank 0, or any ``torch.distributed``
 init URL), ``--num-processes`` (the world) and its own ``--process-id``.
 At the rendezvous the ranks learn which of them share a host
@@ -52,6 +59,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--config", default=None,
@@ -234,30 +242,83 @@ def _parse_mesh_axes(spec: str) -> dict:
     return axes
 
 
-# The pairs of model-side axes a mesh may carry together (beside data=);
-# otherwise it carries one.
-_COMPOSED_AXES = ({"seq", "model"}, {"spatial", "model"})
+# The model-side axes each command runs beside ``data=`` (JAX's commands'
+# axes); a command not named here runs ``data=`` alone.
+COMMAND_AXES = {"video": ("seq", "model", "expert", "spatial", "pipe"), "segment": ("spatial",),
+                "infer": ("pipe",), "serve": ("pipe",), "eval": ("seq",)}
+MODEL_SIDE_AXES = ("seq", "model", "expert", "spatial")
+# JAX's refusal of --fsdp without a mesh, in its words, then the port's item.
+FSDP_NEEDS_A_MESH = ("--fsdp requires --data-parallel or --mesh (a mesh to shard parameters over) "
+                     "[ROADMAP.md, item 11d]")
 
 
-def _mesh(args, axes_ported=("seq",)):
-    """The mesh over the launched ranks, or None: ``data=N`` beside one of
-    ``axes_ported`` (the axes the command runs) or beside ``model=`` with
-    ``seq=`` or ``spatial=``, in the order given, as JAX's ``make_mesh``;
-    ``--data-parallel`` puts every rank on ``data``."""
+def mesh_refusal(args, axes: dict, world: int = 1) -> Optional[str]:
+    """Why ``args.cmd`` refuses a mesh of ``axes`` (name -> size; an axis
+    of size 1 is no axis) over ``world`` processes, or None where it runs
+    it. Pure: the flags are ``args``, the command's parsed arguments.
+
+    Every command refuses an axis it does not run (:data:`COMMAND_AXES`).
+    ``video`` takes any product of ``seq``, ``model``, ``expert`` and
+    ``spatial``, with or without ``data``, and ``pipe`` beside ``data``
+    alone, refusing what JAX's ``cmd_video`` refuses, in its order and
+    words: ``pipe`` off the hybrid or beside a model-side axis, with
+    ``--qat`` or a remat policy but "full", or over a depth it does not
+    divide; ``seq`` without ``--window`` or ``--attn-impl ring``;
+    ``expert`` without ``--num-experts``; ``--fsdp`` without a mesh, which
+    one process's ``--data-parallel`` or ``--mesh data=N`` is not (its mesh
+    is dropped, as JAX's of one device). The port also refuses ``--fsdp``
+    on a mesh without ``data`` (FSDP shards over it), which JAX's flow
+    cannot run either (it needs a ``data`` axis in every mesh)."""
+    cmd = args.cmd
+    on = [k for k, v in axes.items() if v > 1]
+    runs = ("data",) + COMMAND_AXES.get(cmd, ())
+    others = sorted(k for k in on if k not in runs)
+    if others:
+        names = [f"{a}=" for a in runs]
+        return f"{cmd}: unsupported mesh axes {others} ({cmd} supports {' and '.join(names)})"
+    if cmd != "video":
+        return None
+    if "pipe" in on:
+        if args.model != "hybrid":
+            return "video: --mesh pipe=N needs --model hybrid (the temporal transformer is what pipelines)"
+        beside = [a for a in MODEL_SIDE_AXES if a in on]
+        if beside:
+            return f"video: --mesh pipe=N composes with data= only (got {beside})"
+        if args.qat or args.remat_policy not in ("none", "full"):
+            return ("video: --mesh pipe=N does not compose with --qat, and only --remat-policy full "
+                    "(checkpointed stage bodies) of the remat policies")
+        if args.layers % axes["pipe"]:
+            return f"video: --layers {args.layers} must be a multiple of pipe={axes['pipe']}"
+    if "seq" in on and not args.window and args.attn_impl != "ring":
+        return ("--mesh seq=N needs --window W (windowed/flash sequence parallelism) or --attn-impl ring "
+                "(full attention)")
+    if "expert" in on and not args.num_experts:
+        return "--mesh expert=N needs --num-experts"
+    if args.fsdp:
+        if not on and not args.data_parallel:
+            return FSDP_NEEDS_A_MESH
+        if on and "data" not in on:
+            return f"--fsdp shards over data=: give --mesh data=N beside {on} (the axis it shards over)"
+        if world == 1 and (args.data_parallel or on == ["data"]):  # one process: no mesh to shard over
+            return FSDP_NEEDS_A_MESH
+    return None
+
+
+def _mesh(args):
+    """The mesh over the launched ranks, or None: the axes of ``--mesh``
+    that :func:`mesh_refusal` lets ``args.cmd`` run, in the order given, as
+    JAX's ``make_mesh`` (an axis of size 1 dropped); ``--data-parallel``
+    puts every rank on ``data``."""
     import torch.distributed as dist
 
     from tchvp_tpu_torch.parallel import make_mesh
 
     axes = _parse_mesh_axes(getattr(args, "mesh", None) or "")
-    on = {k: v for k, v in axes.items() if v > 1}
-    others = sorted(k for k in on if k != "data" and k not in axes_ported)
-    if others:
-        raise SystemExit(f"{args.cmd}: unsupported mesh axes {others}")
-    model_side = {k for k in on if k != "data"}
-    if len(model_side) > 1 and model_side not in _COMPOSED_AXES:
-        raise SystemExit(f"--mesh {args.mesh}: data= beside one of {list(axes_ported)}, or model= beside "
-                         f"seq= or spatial=")
     world = dist.get_world_size() if dist.is_initialized() else 1
+    refused = mesh_refusal(args, axes, world)
+    if refused:
+        raise SystemExit(refused)
+    on = {k: v for k, v in axes.items() if v > 1}
     if getattr(args, "data_parallel", False):
         if on:
             raise SystemExit("--data-parallel puts every rank on data; give it or --mesh, not both")
@@ -322,16 +383,6 @@ def _image_data(args, supervised: bool = True):
                  for csv, seed in ((args.train_csv, 0), (args.val_csv, 1), (args.test_csv, 2)))
 
 
-def _segment_mesh(args):
-    """``segment``'s mesh: ``data=`` and ``spatial=`` (FCT's rows in blocks
-    over the ranks); any other axis is refused as JAX refuses it."""
-    axes = _parse_mesh_axes(getattr(args, "mesh", None) or "")
-    bad = sorted(k for k, v in axes.items() if v > 1 and k not in ("data", "spatial"))
-    if bad:
-        raise SystemExit(f"segment: unsupported mesh axes {bad} (use data= and spatial=)")
-    return _mesh(args, axes_ported=("spatial",))
-
-
 def _fct_attn(args) -> str:
     """``--attn-impl`` of ``segment`` (default "auto": the flash kernels on
     a card); "ring" rides the ``spatial`` mesh axis."""
@@ -389,7 +440,7 @@ def cmd_denoise(args) -> None:
     train, val, test = _image_data(args, supervised=False)
     device = _device(args)
     flow = DenoisingFlow(_image_model("ae", device), cfg=cfg, image_size=args.image_size,
-                         aug=_aug_cfg(args), mesh=_mesh(args, axes_ported=()))
+                         aug=_aug_cfg(args), mesh=_mesh(args))
     _record_run(args)
     flow.fit(train, val or train, test, epochs=args.epochs, lr=args.lr)
 
@@ -409,7 +460,7 @@ def cmd_transfer(args) -> None:
     )
     train, _, _ = _image_data(args, supervised=True)
     device = _device(args)
-    flow = TransferFlow(cfg=cfg, image_size=args.image_size, device=device, mesh=_mesh(args, axes_ported=()))
+    flow = TransferFlow(cfg=cfg, image_size=args.image_size, device=device, mesh=_mesh(args))
     flow.init_from_pretrained(args.pretrained, lr=args.lr)
     _record_run(args)
     flow.train(train, epochs=args.epochs)
@@ -444,7 +495,7 @@ def cmd_segment(args) -> None:
     from tchvp_tpu_torch.train.loops import SegmentationFlow
 
     attn = _fct_attn(args)
-    mesh = _segment_mesh(args)
+    mesh = _mesh(args)
     cfg = TrainConfig(
         model_name="FCT",
         loss=args.loss or "dice",
@@ -514,26 +565,6 @@ def _hybrid_config(args, size: int, attn: str = "xla"):
     )
 
 
-def _pipe_checks(args) -> int:
-    """``video --mesh ...pipe=N``: N (0 without the axis), after JAX's
-    refusals of what the pipeline does not compose with, in its words."""
-    axes = {k: v for k, v in _parse_mesh_axes(getattr(args, "mesh", None) or "").items() if v > 1}
-    pipe = axes.get("pipe", 0)
-    if not pipe:
-        return 0
-    if args.model != "hybrid":
-        raise SystemExit("video: --mesh pipe=N needs --model hybrid (the temporal transformer is what pipelines)")
-    others = [a for a in ("seq", "model", "expert", "spatial") if a in axes]
-    if others:
-        raise SystemExit(f"video: --mesh pipe=N composes with data= only (got {others})")
-    if args.qat or args.remat_policy not in ("none", "full"):
-        raise SystemExit("video: --mesh pipe=N does not compose with --qat, and only --remat-policy full "
-                         "(checkpointed stage bodies) of the remat policies")
-    if args.layers % pipe:
-        raise SystemExit(f"video: --layers {args.layers} must be a multiple of pipe={pipe}")
-    return pipe
-
-
 def cmd_video(args) -> None:
     from tchvp_tpu_torch.config import TrainConfig
     from tchvp_tpu_torch.train.loops import VideoFlow
@@ -572,8 +603,7 @@ def cmd_video(args) -> None:
         **_train_cfg_kwargs(args),
     )
     device = _device(args)
-    pipe = _pipe_checks(args)
-    mesh = _mesh(args, axes_ported=("seq", "expert", "model", "spatial", "pipe"))
+    mesh = _mesh(args)  # refuses what JAX's cmd_video refuses (mesh_refusal)
     names = mesh.mesh_dim_names if mesh is not None else ()
     args.seq_axis = "seq" if "seq" in names else None
     args.ep_axis = "expert" if "expert" in names else None
@@ -582,21 +612,11 @@ def cmd_video(args) -> None:
     # the conv stacks' rows in blocks, halos exchanged (parallel/spatial.py).
     args.tp_axis = "model" if "model" in names else None
     args.sp_axis = "spatial" if "spatial" in names else None
-    if args.fsdp and "data" not in names:
-        raise SystemExit("--fsdp requires --data-parallel or --mesh data=N (a mesh "
-                         "to shard parameters over; ROADMAP.md, item 11d)")
     if args.clippack and "data" in names:
         from tchvp_tpu_torch.parallel.input import sharded_clippack_loader
 
         # each rank reads its slice: its share of every microbatch
         data = sharded_clippack_loader(args.clippack, args.batch_size, mesh, microbatches=args.accum_steps)
-    if args.seq_axis and not args.window and args.attn_impl != "ring":
-        raise SystemExit(
-            "--mesh seq=N needs --window W (windowed/flash sequence "
-            "parallelism) or --attn-impl ring (full attention)"
-        )
-    if args.ep_axis and not args.num_experts:
-        raise SystemExit("--mesh expert=N needs --num-experts")
     model = _video_model(args, device)
     flow = VideoFlow(
         model, cfg=cfg, image_size=args.image_size, mesh=mesh,
@@ -606,7 +626,7 @@ def cmd_video(args) -> None:
         qat=args.qat, qat_dense=args.qat_dense,
         seq_axis=args.seq_axis,
         sp_axis=args.sp_axis,
-        pipe_axis="pipe" if pipe else None,
+        pipe_axis="pipe" if "pipe" in names else None,
         ep_axis=args.ep_axis,
         aug=_aug_cfg(args),
     )
@@ -776,7 +796,7 @@ def cmd_stream(args) -> None:
               + (" (convs+dense)" if args.int8_dense else ""))
     # --data-parallel: every rank streams its block of each global batch
     # (the int8 scales above come from the global first batch on every rank).
-    streamer = make_streamer(model, scfg, mesh=_mesh(args, axes_ported=()), int8_engine=engine)
+    streamer = make_streamer(model, scfg, mesh=_mesh(args), int8_engine=engine)
 
     frames = 0
     t0 = None
@@ -822,9 +842,6 @@ def cmd_infer(args) -> None:
     # Serving meshes: data= splits the batch, pipe= runs the temporal stack
     # as a GPipe pipeline (parallel/pipeline.py::pipelined_video_infer).
     axes = {k: v for k, v in _parse_mesh_axes(getattr(args, "mesh", None) or "").items() if v > 1}
-    bad = sorted(k for k in axes if k not in ("data", "pipe"))
-    if bad:
-        raise SystemExit(f"infer: unsupported mesh axes {bad} (infer supports data= and pipe=)")
     pipe = "pipe" in axes
     if pipe and args.microbatch:
         raise SystemExit("infer: --microbatch and --mesh pipe=N don't compose (the pipeline already microbatches)")
@@ -832,7 +849,7 @@ def cmd_infer(args) -> None:
         raise SystemExit("infer: --int8-dense and --mesh pipe=N don't compose (the pipelined temporal stack "
                          "bypasses the Dense interceptor); use conv-only --int8, or --mesh data=N for dense "
                          "quantization")
-    mesh = _mesh(args, axes_ported=("pipe",))
+    mesh = _mesh(args)
     data = _clip_data(args, size)
     model = _serving_model(args, size, device)
     engine = None
@@ -1470,7 +1487,7 @@ def _serve_live_pipelined(args, axes: dict, buckets) -> None:
     if not args.checkpoint:
         raise SystemExit("serve: --mesh pipe=N serves the weights of --checkpoint (a step_* dir); "
                          "give one, there are no weights to serve without it")
-    mesh = _mesh(args, axes_ported=("pipe",))
+    mesh = _mesh(args)
     size = args.image_size
     model = _serving_model(args, size, _device(args))
     print(f"warming buckets {list(buckets) if buckets else '(default)'} through the pipeline...", flush=True)
@@ -1565,9 +1582,10 @@ def _build_parser():
                                 "dim and conv channels), spatial=N (the conv "
                                 "stacks' rows in blocks, halos exchanged) and "
                                 "pipe=N (the temporal layers as a GPipe "
-                                "pipeline); data=N beside one of them, or "
-                                "model=M beside seq=N or spatial=N; one "
-                                "process per rank")
+                                "pipeline); any product of seq, model, expert "
+                                "and spatial, with or without data=N, and "
+                                "pipe=N beside data=N alone, as JAX's video; "
+                                "one process per rank")
             p.add_argument("--layers", type=int, default=2,
                            help="temporal transformer depth (hybrid model)")
             p.add_argument("--attn-impl", default="xla",

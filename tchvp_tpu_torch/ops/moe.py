@@ -10,8 +10,10 @@ pool of such FFNs behind a router:
   expert's capacity is dropped: its FFN output is zero and the caller's
   residual carries it. Capacity groups are per batch row.
 * **fp32 routing**: logits, softmax and the slot cumsum run in fp32 with
-  autocast off, whatever the compute dtype; the expert products run in the
-  module's compute dtype (autocast's, else the input's).
+  autocast off, whatever the compute dtype (float64 tokens, which only the
+  float64 checks make, route in float64, so that those checks hold to
+  float64's precision); the expert products run in the module's compute
+  dtype (autocast's, else the input's).
 * **Expert parallelism** (:func:`_moe_ep`): under an ambient mesh whose
   ``ep_axis`` has size n > 1, each rank runs E/n experts. It routes every
   token with the full router, keeps its experts' dispatch and combine
@@ -27,6 +29,27 @@ pool of such FFNs behind a router:
   they are the global batch's on every rank. JAX also ignores a data axis
   that does not divide the batch; here the batch is already cut, so the
   axis always holds.
+
+Gradients under each mesh axis (the step's rule: ``train/steps.py::
+_reduce_grads``):
+
+* ``seq``: the layer gathers the sequence, so every seq rank routes and
+  runs every token, and a rank's cotangent enters its own rows of the
+  output only: the router's and the experts' gradients are the rank's
+  rows' parts, which the step's mean over the axis sums once (each rank's
+  loss is its frames' mean). The aux loss and the dropped fraction come
+  from the gathered routing, the same on every seq rank: each rank's loss
+  carries the aux loss, and the mean counts it once.
+* ``expert``: a rank's experts' gradients are its own, never combined over
+  the axis; the router's, computed alike on every expert rank, are
+  averaged over it (they are equal).
+* ``model``: the tokens reach the layer whole on every model rank and no
+  parameter here is sliced (none carries ``tp_group``), so every model
+  rank already holds the whole gradient: none is summed over the axis.
+* ``spatial``: the tokens come from the conv stacks' gathered rows, whole
+  on every spatial rank: none is summed over the axis.
+* ``data``: each rank's block of the batch; the gradients' mean over the
+  axis, and the aux loss's per-expert means over it (above).
 
 JAX sows the load-balance loss and the dropped fraction; the port has no
 ``sow``. :meth:`MoEFFN.forward` takes a ``sink`` list and appends one
@@ -78,7 +101,8 @@ def expert_capacity(tokens_per_group: int, num_experts: int, capacity_factor: fl
 
 def _route(tokens: torch.Tensor, router: torch.Tensor, capacity: int, top_k: int = 1,
            mean_group=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Top-k ``(dispatch, combine, aux, dropped)``, all fp32.
+    """Top-k ``(dispatch, combine, aux, dropped)``, all fp32 (float64 for
+    float64 tokens).
 
     tokens (B, S, d), router (d, E). dispatch (B, S, E, C) in {0, 1};
     combine = dispatch * gate; aux = E * sum_e(frac_e * prob_e) over first
@@ -88,30 +112,31 @@ def _route(tokens: torch.Tensor, router: torch.Tensor, capacity: int, top_k: int
     expert in the same batch row. ``mean_group``: the data group whose mean
     the per-expert means and the dropped fraction take before the product
     (JAX's ``aux_mean_axis``)."""
+    rdt = torch.promote_types(tokens.dtype, torch.float32)
     with torch.autocast(tokens.device.type, enabled=False):
-        logits = torch.einsum("bsd,de->bse", tokens.float(), router.float())
+        logits = torch.einsum("bsd,de->bse", tokens.to(rdt), router.to(rdt))
         e = logits.shape[-1]
         k = min(top_k, e)
         probs = torch.softmax(logits, dim=-1)
         top_p, top_i = torch.topk(probs, k, dim=-1)  # (B, S, k)
         gates = top_p / top_p.sum(dim=-1, keepdim=True) if k > 1 else top_p
         b, s = tokens.shape[:2]
-        dispatch = tokens.new_zeros((b, s, e, capacity), dtype=torch.float32)
+        dispatch = tokens.new_zeros((b, s, e, capacity), dtype=rdt)
         combine = torch.zeros_like(dispatch)
-        kept_total = tokens.new_zeros((), dtype=torch.float32)
-        prior = tokens.new_zeros((b, e), dtype=torch.float32)
+        kept_total = tokens.new_zeros((), dtype=rdt)
+        prior = tokens.new_zeros((b, e), dtype=rdt)
         slots = torch.arange(capacity, device=tokens.device)
         onehot_first = None
         for j in range(k):
-            oh = F.one_hot(top_i[..., j], e).float()  # (B, S, E)
+            oh = F.one_hot(top_i[..., j], e).to(rdt)  # (B, S, E)
             if j == 0:
                 onehot_first = oh
             # 0-based slot in the expert's queue of this batch row, behind
             # the assignments of the earlier choices.
             pos = (torch.cumsum(oh, dim=1) * oh).sum(-1) - 1.0 + torch.einsum("bse,be->bs", oh, prior)
-            keep = (pos < capacity).float()
+            keep = (pos < capacity).to(rdt)
             # A slot past the capacity one-hots to all zeros.
-            slot = (pos.long()[..., None] == slots).float()
+            slot = (pos.long()[..., None] == slots).to(rdt)
             dj = oh[..., :, None] * slot[..., None, :] * keep[..., None, None]
             dispatch = dispatch + dj
             combine = combine + dj * gates[..., j][..., None, None]

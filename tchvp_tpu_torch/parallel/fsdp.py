@@ -22,6 +22,16 @@ the optimizer updates this rank's slices. Gathering once a step rather than
 per module keeps the step's math and its kernel launches those of the
 replicated step; the step's peak holds the full parameters and gradients
 besides the activations (the moments and the EMA stay sliced).
+
+Beside the other axes (``video --mesh data=2,model=2 --fsdp``, and beside
+``seq``, ``spatial`` and ``expert``): the slices and the groups are the
+data axis's, the ranks of one data group holding the same index along the
+others. A step gathers each parameter whole; tensor parallelism slices it
+at use (``parallel/tp.py``) and the seq and spatial ranks use it whole, so
+the step's sums over those axes (``train/steps.py::_reduce_grads``) run on
+the whole gradients before the reduce-scatter. A rank thus holds 1/data of
+each sharded parameter's bytes, as under ``data`` alone; the experts keep
+their expert placement.
 """
 
 from __future__ import annotations
@@ -114,9 +124,10 @@ def state_shardings(state, mesh: DeviceMesh, axis: str = "data",
                     min_elems: int = MIN_SHARD_ELEMS) -> Dict[str, Tuple[Optional[str], ...]]:
     """The spec of each entry of a model's ``state_dict`` (``state``: a
     :class:`~tchvp_tpu_torch.train.state.TrainState` or a module), by name:
-    parameters by :func:`fsdp_leaf_spec` (one already held as slices, by
-    its placement), buffers and expert-sharded parameters ``()``. A
-    parameter's moments and EMA share its spec."""
+    parameters by :func:`fsdp_leaf_spec`, one already held as slices by its
+    placement (FSDP's, or the experts' over their axis, which FSDP does not
+    split again), buffers ``()``. A parameter's moments and EMA share its
+    spec."""
     model = getattr(state, "model", state)
     n = axis_size(mesh, axis)
     params = dict(model.named_parameters())
@@ -125,11 +136,9 @@ def state_shardings(state, mesh: DeviceMesh, axis: str = "data",
         p = params.get(k)
         if p is None:
             return ()
-        held = sliced_spec(p)
-        if held is not None:
-            return held
-        if placement(p) is not None:
-            return ()
+        where = placement(p)
+        if where is not None:
+            return tuple(where.axis if d == where.dim else None for d in range(p.dim()))
         return fsdp_leaf_spec(tuple(v.shape), axis, n, min_elems)
 
     return {k: spec(k, v) for k, v in model.state_dict().items()}

@@ -265,7 +265,39 @@ def _reduce_grads(model: torch.nn.Module, fsdp_axis: Optional[str], fsdp_mesh, g
     axis, reduce-scattered to the slices of an FSDP-sharded state
     (``fsdp.constrain_gradients``, which gives the parameters their slices
     back) or all-reduced. Those used on row blocks are summed over the
-    spatial axis first (``spatial.sum_gradients``)."""
+    spatial axis first (``spatial.sum_gradients``). The step has already
+    taken the mean over ``seq`` and, for all but the experts, over
+    ``expert``.
+
+    Under several axes at once each gradient is combined over each axis
+    whose ranks saw different frames, rows or slices of it, and over none
+    whose ranks computed the same thing; the axes are independent, so the
+    order does not matter. By parameter class and axis ("mean": the mean
+    of the ranks' gradients, each of its own share of the loss; "sum": the
+    ranks' parts added; "own": each rank keeps its slice's; "-": every rank
+    already holds the whole gradient, which nothing combines):
+
+    ============================== ====== ====== =========== ====== =======
+    parameters                     data   seq    model       expert spatial
+    ============================== ====== ====== =========== ====== =======
+    convs, BatchNorm (the CNN)     mean   mean   sum, sliced mean   sum
+    attention q, k, v, out; norms  mean   mean   sum, sliced mean   -
+    the dense FFN                  mean   mean   sum, sliced mean   -
+    the MoE router                 mean   mean   -           mean   -
+    the experts' w1, b1, w2, b2    mean   mean   -           own    -
+    ============================== ====== ====== =========== ====== =======
+
+    "sum, sliced": summed where the rank used a slice (the parameter
+    carries ``tp_group``: the heads, the FFN's hidden dim, a conv's block
+    of output channels), else "-" (a narrow conv every rank computes
+    whole). Under ``seq`` each rank's loss is its frames' mean and the
+    collectives' adjoints carry the other ranks' cotangents, so the mean of
+    the ranks' gradients is the global loss's; the MoE layer routes the
+    gathered sequence on every seq rank, each rank's cotangent entering its
+    own rows, and its aux loss, the same on every seq rank, is counted once
+    by the mean. Under ``spatial`` the conv stacks' parameters get each
+    rank's rows' part; the transformer runs on the gathered tokens, alike
+    on every spatial rank."""
     tp.sum_gradients(model)
     spatial.sum_gradients(model)
     if gathered:

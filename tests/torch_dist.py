@@ -1546,3 +1546,177 @@ def run_hosts(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict
         cli._video_model, parallel.init_distributed, socket.gethostname = real_model, real_init, real_name
     got["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))
     torch.save(got, Path(out_dir) / f"hosts_rank{rank}.pt")
+
+
+# ------------------------------------------------------------ composed meshes
+
+
+# The markers each axis of a composed mesh records in a step.
+AXIS_MARKERS = {"seq": {"seq_sharded_shard_map", "windowed_mha_halo"}, "model": {"tp_constrain", "tp_constrain_conv"},
+                "expert": {"moe_ep_shard_map"}, "spatial": {"sp_constrain_conv", "sp_halo"}}
+
+
+@contextlib.contextmanager
+def float64_clips():
+    """Within the scope the steps preprocess clips to float64, for a model
+    cast with ``.to(torch.float64)``."""
+    import functools
+
+    from tchvp_tpu_torch.data import pipeline
+
+    real = pipeline.preprocess_clip
+    pipeline.preprocess_clip = functools.partial(real, dtype=torch.float64)
+    try:
+        yield
+    finally:
+        pipeline.preprocess_clip = real
+
+
+def composed_step(inp, moe: bool = False, fsdp: bool = False, dtype=torch.float32) -> dict:
+    """One train step (SGD lr 1, MSE, no noise) of the flagship under the
+    ambient mesh, each rank given the global batch and placing it
+    (``parallel.shard_batch``: its block of ``data``; the seq, model,
+    expert and spatial ranks take the whole and the model slices it);
+    ``moe``: the experts sharded over ``expert``, the aux loss on;
+    ``fsdp``: the state ZeRO-sharded over ``data``. The metrics, markers,
+    the whole state after (the slices gathered), this rank's expert index,
+    and whether every rank holds the same replicated parameters and
+    BatchNorm stats."""
+    from tchvp_tpu_torch.ops import moe as tmoe
+    from tchvp_tpu_torch.parallel import fsdp as tfsdp
+
+    mesh = parallel.ambient_mesh()
+    model = VideoHybridNet(inp["config"], device="cpu").to(dtype)
+    model.load_state_dict(inp["state"], strict=True)
+    names = tmoe.shard_experts(model, "expert") if moe else []
+    state = tstate.create_train_state(model, tstate.make_optimizer(1.0, optimizer="sgd"), rng=3)
+    if fsdp:
+        tfsdp.shard_train_state(state, mesh, "data")
+    step = tsteps.make_video_train_step(inp["size"], loss="mse", noise_std=0.0, moe_aux_weight=inp.get("aux", 0.0),
+                                        fsdp_axis="data" if fsdp else None, fsdp_mesh=mesh if fsdp else None)
+    with dispatch_trace.capture() as seen:
+        state, metrics = step(state, parallel.shard_batch(torch.from_numpy(inp["batch"]), mesh))
+    sliced = sorted(k for k, p in model.named_parameters() if getattr(p, "fsdp_group", None) is not None)
+    with tfsdp.gathered(model):
+        whole = {k: v.clone() for k, v in model.state_dict().items()}
+    shared = [v for k, v in whole.items() if k not in names and "num_batches" not in k]
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "seen": seen, "expert_names": names,
+            "expert_index": parallel.axis_shards("expert")[1] if moe else None, "state": whole, "sliced": sliced,
+            "equal": all(collectives.equal_across(shared, torch.distributed.group.WORLD))}
+
+
+def _composed_stepped(inp, mesh, moe: bool = False):
+    """:func:`_stepped`'s state (AdamW with clipping and the EMA, FSDP over
+    ``data``) under ``mesh``, with ``moe`` its experts sharded first."""
+    from tchvp_tpu_torch.ops import moe as tmoe
+    from tchvp_tpu_torch.parallel import fsdp as tfsdp
+
+    with parallel.activate_mesh(mesh):
+        model = VideoHybridNet(inp["config"], device="cpu")
+        model.load_state_dict(inp["state"], strict=True)
+        if moe:
+            tmoe.shard_experts(model, "expert")
+        state = tfsdp.shard_train_state(tstate.create_train_state(model, _rich_opt(), rng=3), mesh, "data")
+        step = tsteps.make_video_train_step(inp["size"], loss="mse", noise_std=0.0, moe_aux_weight=inp.get("aux", 0.0))
+        state, _ = step(state, parallel.shard_batch(torch.from_numpy(inp["batch"]), mesh))
+    return live_view(state, tfsdp.state_shardings(state, mesh, "data"))
+
+
+def _composed_resume(inp, mesh, out: Path) -> dict:
+    """VideoFlow(fsdp_axis="data") under ``mesh``: epoch 1 saved shard-wise
+    (async), then epoch 2 in the same flow (the uninterrupted run); a fresh
+    flow of other weights resumed from a copy of epoch 1's checkpoint runs
+    epoch 2. What differs between the two runs' states (this rank's slices,
+    moments and EMA included), the steps, and the uninterrupted run's whole
+    parameters (for the one-process read of its last checkpoint)."""
+    import dataclasses
+    import shutil
+
+    from tchvp_tpu_torch.config import TrainConfig
+    from tchvp_tpu_torch.parallel import fsdp as tfsdp
+    from tchvp_tpu_torch.train.loops import VideoFlow
+
+    d = out / "resume"
+    tc = TrainConfig(model_name="video", loss="mse", lr=1e-4, checkpoint_dir=str(d / "run"), log_dir=str(d / "runs"),
+                     sample_dir=str(d / "samples"), async_checkpoint=True)
+    batch = inp["batch"]
+
+    def flow_of(weights, ckpt_dir):
+        model = VideoHybridNet(inp["config"], device="cpu")
+        model.load_state_dict(inp[weights], strict=True)
+        return VideoFlow(model, cfg=dataclasses.replace(tc, checkpoint_dir=str(ckpt_dir)), image_size=inp["size"],
+                         mesh=mesh, fsdp_axis="data")
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        flow = flow_of("state", d / "run")
+        flow.train([batch], epochs=1, clip_len=batch.shape[1], save_every=1)
+        if torch.distributed.get_rank() == 0:
+            shutil.copytree(d / "run" / "step_1", d / "resumed" / "step_1")
+        torch.distributed.barrier()
+        flow.train([batch], epochs=2, start_epoch=1, clip_len=batch.shape[1], save_every=1)
+        whole = _local_leaves(flow.state)
+        flow2 = flow_of("state2", d / "resumed")
+        start = flow2.resume(clip_len=batch.shape[1])
+        flow2.train([batch], epochs=2, start_epoch=start, clip_len=batch.shape[1], save_every=1)
+    with tfsdp.gathered(flow.state.model):
+        params = {k: v.clone() for k, v in flow.state.model.state_dict().items()}
+    return {"start": start, "differ": _same(_local_leaves(flow2.state), whole), "steps": (flow.state.step, flow2.state.step),
+            "sliced": sum(getattr(p, "fsdp_group", None) is not None for p in flow.state.model.parameters()),
+            "params": params, "path": str(d / "run" / "step_2")}
+
+
+# (key, mesh axes, sizes, experts sharded, FSDP) of the 4-rank launch.
+COMPOSED_CASES = (
+    ("seq_expert", ("seq", "expert"), (2, 2), True, False),
+    ("model_expert", ("model", "expert"), (2, 2), True, False),
+    ("spatial_expert", ("spatial", "expert"), (2, 2), True, False),
+    ("seq_spatial", ("seq", "spatial"), (2, 2), False, False),
+    ("data_model_fsdp", ("data", "model"), (2, 2), False, True),
+    ("data_seq_fsdp", ("data", "seq"), (2, 2), False, True),
+    ("data_spatial_fsdp", ("data", "spatial"), (2, 2), False, True),
+)
+
+
+def run_composed(rank: int, world: int, rendezvous: str, out_dir: str, inputs: dict) -> None:
+    """One rank of ``tests/test_torch_composed.py``. With 4 ranks: one step
+    under each of :data:`COMPOSED_CASES`, ``seq x expert`` again in
+    float64, what a rank holds of a stepped FSDP state beside ``model`` and
+    beside ``expert`` (for the planner), the resume under ``data x model
+    --fsdp``, then ``inputs["cli"]`` through ``cli.main`` (which leaves the
+    process group). With 8: one step under ``seq x model x expert``."""
+    from tchvp_tpu_torch import cli
+
+    torch.set_num_threads(1)
+    out = Path(out_dir)
+    parallel.init_distributed(f"file://{rendezvous}", world, rank, timeout_s=180)
+    results = {}
+    try:
+        if world == 8:
+            with parallel.activate_mesh(parallel.make_mesh(("seq", "model", "expert"), (2, 2, 2))):
+                results["seq_model_expert"] = composed_step(inputs["seq_model_expert"], moe=True)
+        else:
+            for key, names, sizes, moe, fsdp in COMPOSED_CASES:
+                with parallel.activate_mesh(parallel.make_mesh(names, sizes)):
+                    results[key] = composed_step(inputs[key], moe=moe, fsdp=fsdp)
+            with parallel.activate_mesh(parallel.make_mesh(("seq", "expert"), (2, 2))), float64_clips():
+                results["seq_expert_f64"] = composed_step(inputs["seq_expert_f64"], moe=True, dtype=torch.float64)
+            results["planned_model"] = _composed_stepped(inputs["data_model_fsdp"],
+                                                         parallel.make_mesh(("data", "model"), (2, 2)))
+            results["planned_expert"] = _composed_stepped(inputs["data_expert"],
+                                                          parallel.make_mesh(("data", "expert"), (2, 2)), moe=True)
+            results["resume"] = _composed_resume(inputs["resume"], parallel.make_mesh(("data", "model"), (2, 2)), out)
+            config_real = sys.modules["tchvp_tpu_torch.config"].flagship_video_config
+            sys.modules["tchvp_tpu_torch.config"].flagship_video_config = flagship_without_dropout
+            try:
+                with dispatch_trace.capture() as seen, contextlib.redirect_stdout(io.StringIO()) as printed:
+                    cli.main(list(inputs["cli"]) + ["--checkpoint-dir", str(out / "cli"), "--coordinator",
+                                                    f"file://{rendezvous}", "--num-processes", str(world),
+                                                    "--process-id", str(rank)])
+            finally:
+                sys.modules["tchvp_tpu_torch.config"].flagship_video_config = config_real
+            results["cli"] = {"seen": seen, "printed": printed.getvalue(), "path": str(out / "cli" / "step_1")}
+        results["jax_loaded"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "tchvp_tpu"))
+        torch.save(results, out / f"composed{world}_rank{rank}.pt")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
